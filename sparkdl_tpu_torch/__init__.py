@@ -1,0 +1,65 @@
+"""sparkdl_tpu_torch — the PyTorch/CUDA port of sparkdl_tpu.
+
+Module paths mirror ``sparkdl_tpu`` so each port module sits where its JAX
+counterpart does.  The package imports ``torch`` and nothing of JAX or of
+``sparkdl_tpu``.
+
+Device rule: entry points run on ``cuda`` unless the caller asks for the
+CPU, either per call (``device=`` on the engine) or process-wide through
+:func:`set_default_device` / the :func:`default_device` context manager.
+With no CUDA device and no CPU asked for, :func:`resolve_device` raises
+``RuntimeError`` instead of carrying on quietly on the CPU.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Iterator, Optional, Union
+
+import torch
+
+__version__ = "0.1.0"
+
+DeviceLike = Union[str, torch.device, None]
+
+_state = threading.local()
+
+
+def _default() -> Optional[torch.device]:
+    return getattr(_state, "device", None)
+
+
+def set_default_device(device: DeviceLike) -> None:
+    """Set the device entry points use when no ``device=`` is given
+    (``None`` restores the CUDA default).  Thread-local."""
+    _state.device = torch.device(device) if device is not None else None
+
+
+@contextlib.contextmanager
+def default_device(device: DeviceLike) -> Iterator[None]:
+    """Scope :func:`set_default_device` to a ``with`` block."""
+    prev = _default()
+    set_default_device(device)
+    try:
+        yield
+    finally:
+        _state.device = prev
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else the
+    default set by :func:`set_default_device`, else ``cuda``.  Raises
+    ``RuntimeError`` when that is a CUDA device and none is present."""
+    dev = torch.device(device) if device is not None else _default()
+    if dev is None:
+        dev = torch.device("cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' or call "
+            "sparkdl_tpu_torch.set_default_device('cpu') to run on the CPU")
+    return dev
+
+
+__all__ = ["default_device", "resolve_device", "set_default_device",
+           "__version__"]

@@ -1,0 +1,109 @@
+"""Pretrained-CNN zoo registry (port of ``sparkdl_tpu/models/__init__.py``).
+
+The port's zoo holds Xception so far.  Each ``ModelSpec`` carries what the
+transformer layer needs: input size, featurizer-cut width, ImageNet
+preprocess mode and the module builder.  Weights are a seeded random init
+at full width; importing Keras ``.h5`` weights is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from sparkdl_tpu_torch.models.layers import BatchNorm, SeparableConv2D
+from sparkdl_tpu_torch.models.preprocess import get_preprocess_fn
+from sparkdl_tpu_torch.models.xception import Xception
+
+
+@dataclass(frozen=True)
+class ModelSpec:
+    """One zoo entry: everything needed to featurize/predict with the model."""
+
+    name: str
+    module_builder: Callable[..., nn.Module]
+    input_size: Tuple[int, int]                # (height, width)
+    feature_size: int                          # featurizer-cut dimensionality
+    preprocess_mode: str                       # see models.preprocess
+
+    @property
+    def preprocess(self):
+        return get_preprocess_fn(self.preprocess_mode)
+
+    def build(self, **kwargs) -> nn.Module:
+        return self.module_builder(**kwargs)
+
+
+_SPECS = {
+    "xception": ModelSpec(name="Xception", module_builder=Xception,
+                          input_size=(299, 299), feature_size=2048,
+                          preprocess_mode="tf"),
+}
+
+SUPPORTED_MODELS = sorted(s.name for s in _SPECS.values())
+
+
+def get_model_spec(name: str) -> ModelSpec:
+    spec = _SPECS.get(name.lower())
+    if spec is None:
+        raise ValueError(
+            f"Unknown model {name!r}; supported: {SUPPORTED_MODELS}")
+    return spec
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random init in place, in module order.  Convs and the dense
+    head draw N(0, 1/fan_in) (the depthwise fan-in is its 9 taps); the
+    BatchNorm statistics are drawn near identity so that the folded
+    affine (scale and shift) is exercised, not a no-op."""
+
+    def normal(t, std):
+        with torch.no_grad():
+            t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+    def uniform(t, lo, hi):
+        with torch.no_grad():
+            t.copy_(lo + (hi - lo) * torch.rand(t.shape, generator=generator))
+
+    for mod in module.modules():
+        if isinstance(mod, SeparableConv2D):
+            normal(mod.depthwise_weight, 1 / 3)
+            normal(mod.pointwise_weight,
+                   1 / math.sqrt(mod.pointwise_weight.shape[1]))
+        elif isinstance(mod, nn.Conv2d):
+            normal(mod.weight, 1 / math.sqrt(mod.weight[0].numel()))
+        elif isinstance(mod, BatchNorm):
+            uniform(mod.weight, 0.8, 1.2)
+            normal(mod.bias, 0.05)
+            normal(mod.running_mean, 0.05)
+            uniform(mod.running_var, 0.8, 1.2)
+        elif isinstance(mod, nn.Linear):
+            normal(mod.weight, 1 / math.sqrt(mod.in_features))
+            with torch.no_grad():
+                mod.bias.zero_()
+
+
+def load_model(name: str, weights: Optional[str] = None,
+               generator: Optional[torch.Generator] = None,
+               **build_kwargs) -> nn.Module:
+    """Build zoo model ``name`` on the CPU in eval mode with seeded random
+    weights (``generator``, default seed 0).  ``weights`` must be None:
+    importing Keras ``.h5`` weights is not ported yet."""
+    if weights is not None:
+        raise NotImplementedError(
+            f"weights={weights!r}: Keras weight import is not ported to "
+            f"sparkdl_tpu_torch yet; pass weights=None for a seeded init")
+    spec = get_model_spec(name)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    module = spec.build(**build_kwargs)
+    init_weights(module, generator)
+    return module.eval()
+
+
+__all__ = ["ModelSpec", "SUPPORTED_MODELS", "get_model_spec", "init_weights",
+           "load_model"]

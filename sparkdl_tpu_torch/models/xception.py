@@ -1,0 +1,168 @@
+"""Xception as a PyTorch module (port of ``sparkdl_tpu/models/xception.py``).
+
+Layer names mirror keras.applications.xception and the JAX module
+("block1_conv1", "block4_sepconv1_bn", "shortcut13_conv", ...,
+"predictions"), so ``models/convert.py`` maps the JAX variable tree by
+path.  Featurizer cut = global average pool (2048-d).  The forward takes
+NHWC ``[B,H,W,3]`` like the JAX module and runs NCHW in ``channels_last``
+memory inside.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from sparkdl_tpu_torch.models.layers import (BatchNorm, SeparableConv2D,
+                                             conv2d, global_avg_pool, linear,
+                                             max_pool_same, promote)
+
+# (block index, filters) of the three entry-flow residual blocks.
+_ENTRY_BLOCKS = ((2, 128), (3, 256), (4, 728))
+
+
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def _pick_row_tile(h: int, w: int, channels: int) -> Optional[int]:
+    """The JAX module's route rule, kept as is so the port fuses the same
+    layers: a block whose padded-flat working set ((H+2) * round_up(W+2, 8)
+    * C) exceeds 1.2M position-channels took the row-tiled kernel there,
+    which the port does not have yet (those blocks run the plain route);
+    None = the whole-image kernel, which the port runs as its CUDA kernel.
+    At 299x299 that fuses block4, the middle flow, block13 and block14:
+    30 separable convs per forward."""
+    if (h + 2) * _round_up(w + 2, 8) * channels <= 1_200_000:
+        return None
+    return 16
+
+
+class Xception(nn.Module):
+    """``fused_inference`` routes the separable convs (with their BN and
+    ReLUs) through the fused kernel (``ops/sepconv.py``) in eval mode:
+    None = auto (on when the input lies on a CUDA device), True = always
+    (a CPU tensor takes the kernel's plain version — the parity tests'
+    route), False = never.  Both routes read the same parameters."""
+
+    def __init__(self, num_classes: int = 1000,
+                 fused_inference: Optional[bool] = None):
+        super().__init__()
+        self.fused_inference = fused_inference
+
+        def conv(name, cin, cout, k, stride):
+            self.add_module(name, nn.Conv2d(cin, cout, k, stride, bias=False))
+            self.add_module(f"{name}_bn", BatchNorm(cout))
+
+        def sep(name, cin, cout):
+            self.add_module(name, SeparableConv2D(cin, cout))
+            self.add_module(f"{name}_bn", BatchNorm(cout))
+
+        conv("block1_conv1", 3, 32, 3, 2)
+        conv("block1_conv2", 32, 64, 3, 1)
+        cin = 64
+        for i, f in _ENTRY_BLOCKS:
+            self.add_module(f"shortcut{i}_conv",
+                            nn.Conv2d(cin, f, 1, 2, bias=False))
+            self.add_module(f"shortcut{i}_bn", BatchNorm(f))
+            sep(f"block{i}_sepconv1", cin, f)
+            sep(f"block{i}_sepconv2", f, f)
+            cin = f
+        for i in range(5, 13):
+            for j in (1, 2, 3):
+                sep(f"block{i}_sepconv{j}", 728, 728)
+        self.add_module("shortcut13_conv",
+                        nn.Conv2d(728, 1024, 1, 2, bias=False))
+        self.add_module("shortcut13_bn", BatchNorm(1024))
+        sep("block13_sepconv1", 728, 728)
+        sep("block13_sepconv2", 728, 1024)
+        sep("block14_sepconv1", 1024, 1536)
+        sep("block14_sepconv2", 1536, 2048)
+        self.predictions = nn.Linear(2048, num_classes)
+
+    def _use_fused(self, x: torch.Tensor) -> bool:
+        if self.training:
+            return False
+        if self.fused_inference is not None:
+            return self.fused_inference
+        return x.is_cuda
+
+    def forward(self, x: torch.Tensor, features: bool = False,
+                logits: bool = False) -> torch.Tensor:
+        fused = self._use_fused(x)
+        m = self._modules
+        relu = torch.relu
+
+        def bn_act(x, name, act=False):
+            """Inference BN; on the fused route the folded affine in x's
+            dtype (the JAX module's ``BNAffine``)."""
+            if fused:
+                s, t = m[name].folded()
+                y = (x * s.to(x.dtype).reshape(1, -1, 1, 1)
+                     + t.to(x.dtype).reshape(1, -1, 1, 1))
+            else:
+                y = m[name](x)
+            return relu(y) if act else y
+
+        def conv_bn(x, name, bn_name, act=False):
+            y = conv2d(x, m[name].weight, stride=m[name].stride)
+            return bn_act(y, bn_name, act)
+
+        def sep(x, name, pre_relu=False, post_relu=False, kernel=False):
+            """sepconv + BN (+ its ReLUs); ``kernel`` takes the fused
+            kernel (bf16 out), else the plain convs and ``bn_act``."""
+            if kernel:
+                s, t = m[f"{name}_bn"].folded()
+                return m[name].fused(x, s, t, pre_relu, post_relu)
+            if pre_relu:
+                x = relu(x)
+            return bn_act(m[name](x), f"{name}_bn", act=post_relu)
+
+        def add(a, b):
+            # the kernel's bf16 output + an f32 stream is f32, as in JAX
+            a, b = promote(a, b)
+            return a + b
+
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)
+        # Entry flow: two plain convs (VALID, stride-2 first)
+        x = conv_bn(x, "block1_conv1", "block1_conv1_bn", act=True)
+        x = conv_bn(x, "block1_conv2", "block1_conv2_bn", act=True)
+
+        # Entry-flow residual blocks (block2 has no leading relu — upstream
+        # quirk preserved).
+        for i, f in _ENTRY_BLOCKS:
+            residual = conv_bn(x, f"shortcut{i}_conv", f"shortcut{i}_bn")
+            h, w = x.shape[2], x.shape[3]
+            flat = fused and _pick_row_tile(h, w, max(x.shape[1], f)) is None
+            x = sep(x, f"block{i}_sepconv1", pre_relu=i > 2, kernel=flat)
+            x = sep(x, f"block{i}_sepconv2", pre_relu=True, kernel=flat)
+            x = add(max_pool_same(x), residual)
+
+        # Middle flow: 8 identity blocks of three sepconvs.
+        h, w = x.shape[2], x.shape[3]
+        mid = fused and _pick_row_tile(h, w, 728) is None
+        for i in range(5, 13):
+            residual = x
+            for j in (1, 2, 3):
+                x = sep(x, f"block{i}_sepconv{j}", pre_relu=True, kernel=mid)
+            x = add(x, residual)
+
+        # Exit flow
+        residual = conv_bn(x, "shortcut13_conv", "shortcut13_bn")
+        flat = mid and _pick_row_tile(h, w, 1024) is None
+        x = sep(x, "block13_sepconv1", pre_relu=True, kernel=flat)
+        x = sep(x, "block13_sepconv2", pre_relu=True, kernel=flat)
+        x = add(max_pool_same(x), residual)
+
+        flat = fused and _pick_row_tile(x.shape[2], x.shape[3], 2048) is None
+        x = sep(x, "block14_sepconv1", post_relu=True, kernel=flat)
+        x = sep(x, "block14_sepconv2", post_relu=True, kernel=flat)
+        x = global_avg_pool(x)  # 2048-d featurizer cut
+        if features:
+            return x
+        x = linear(x, self.predictions)
+        if logits:
+            return x
+        return torch.softmax(x, dim=-1)

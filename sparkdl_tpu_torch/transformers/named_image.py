@@ -1,0 +1,281 @@
+"""Named pretrained-model transformers (port of the zoo stages of
+``sparkdl_tpu/transformers/named_image.py``).
+
+``DeepImageFeaturizer`` / ``DeepImagePredictor`` run a zoo CNN over an
+image-struct column: arrow structs -> ``arrowStructsToBatch`` (host decode,
+uint8 RGB) -> on-device preprocess -> the model through
+:class:`~sparkdl_tpu_torch.parallel.engine.InferenceEngine` -> a float
+column.  Entry points run on CUDA unless the CPU was asked for
+(``sparkdl_tpu_torch.set_default_device``).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from itertools import chain
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import pyarrow as pa
+import torch
+import torch.nn as nn
+
+from sparkdl_tpu_torch import resolve_device
+from sparkdl_tpu_torch.image.io import arrowStructsToBatch
+from sparkdl_tpu_torch.models import SUPPORTED_MODELS, get_model_spec, load_model
+from sparkdl_tpu_torch.models.imagenet import decode_predictions
+from sparkdl_tpu_torch.param.converters import SparkDLTypeConverters
+from sparkdl_tpu_torch.param.params import Param, TypeConverters, keyword_only
+from sparkdl_tpu_torch.param.shared import (HasBatchSize, HasInputCol,
+                                            HasModelName, HasOutputCol, HasTopK)
+from sparkdl_tpu_torch.parallel.engine import InferenceEngine
+from sparkdl_tpu_torch.transformers.base import Transformer
+from sparkdl_tpu_torch.utils.logging import get_logger
+from sparkdl_tpu_torch.utils.prefetch import prefetch_iter
+
+logger = get_logger(__name__)
+
+# Process-wide caches: zoo weights load once, engines are built once per
+# (model, cut, batch, dtype, device).
+_MODEL_CACHE: Dict[str, nn.Module] = {}
+_ENGINE_CACHE: Dict[tuple, InferenceEngine] = {}
+
+
+def clear_model_caches():
+    _MODEL_CACHE.clear()
+    _ENGINE_CACHE.clear()
+
+
+def _cached_model(name: str) -> nn.Module:
+    key = get_model_spec(name).name
+    if key not in _MODEL_CACHE:
+        _MODEL_CACHE[key] = load_model(key)
+    return _MODEL_CACHE[key]
+
+
+def zoo_compute_dtype_name() -> str:
+    """Canonicalized ``SPARKDL_ZOO_COMPUTE_DTYPE`` ("float32" or
+    "bfloat16"), read as the JAX package reads it; raises on unsupported
+    values."""
+    cdt_name = os.environ.get("SPARKDL_ZOO_COMPUTE_DTYPE", "").lower()
+    if cdt_name not in ("", "float32", "f32", "bfloat16", "bf16"):
+        raise ValueError(
+            f"SPARKDL_ZOO_COMPUTE_DTYPE={cdt_name!r} not supported; use "
+            f"'bfloat16' or 'float32'")
+    return {"bf16": "bfloat16", "f32": "float32", "": "float32"}.get(
+        cdt_name, cdt_name)
+
+
+def zoo_model_fn(name: str, featurize: bool,
+                 compute_dtype: Optional[torch.dtype] = None):
+    """THE ``fn(module, x)`` the zoo engine runs: preprocess on the device,
+    optional cast to the compute dtype, inference at the featurizer or
+    predictor cut.  ``x`` is a uint8 RGB [B,H,W,3] tensor."""
+    pre = get_model_spec(name).preprocess
+
+    def fn(module, x):
+        xf = pre(x)
+        if compute_dtype is not None:
+            xf = xf.to(compute_dtype)
+        return module(xf, features=featurize)
+
+    return fn
+
+
+def _zoo_engine(name: str, featurize: bool, batch_size: int) -> InferenceEngine:
+    """One cached engine per (model, cut, batch, compute dtype, device).
+
+    ``SPARKDL_ZOO_COMPUTE_DTYPE=bfloat16`` runs the model in bf16 and
+    fetches bf16 outputs, widened to f32 on the host.  The default stays
+    float32 end to end (the fused layers round to bf16 inside, as in JAX).
+    """
+    cdt_name = zoo_compute_dtype_name()
+    device = resolve_device()
+    key = (get_model_spec(name).name, featurize, batch_size, cdt_name,
+           str(device))
+    eng = _ENGINE_CACHE.get(key)
+    if eng is None:
+        cdt = torch.bfloat16 if cdt_name == "bfloat16" else None
+        eng = InferenceEngine(
+            zoo_model_fn(name, featurize, compute_dtype=cdt),
+            _cached_model(name), device=device,
+            device_batch_size=batch_size, compute_dtype=cdt,
+            output_host_dtype=np.float32 if cdt is not None else None)
+        _ENGINE_CACHE[key] = eng
+    return eng
+
+
+def _float_list_array(mat: np.ndarray, valid_idx: Sequence[int],
+                      num_rows: int) -> pa.Array:
+    """Rows of ``mat`` at positions ``valid_idx``; nulls elsewhere."""
+    values: List[Optional[list]] = [None] * num_rows
+    for row, i in zip(mat, valid_idx):
+        values[i] = [float(v) for v in row]
+    return pa.array(values, type=pa.list_(pa.float32()))
+
+
+class _ImageInputStage(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
+    """Shared plumbing: pull the image-struct column, decode/resize valid
+    rows into dense batches, keep nulls aligned (undecodable rows stay
+    null).  The column is consumed one record batch at a time; host decode
+    of chunk k+1 runs on a prefetch thread while the device computes
+    chunk k."""
+
+    def _decoded_chunks(self, dataset, height: int, width: int,
+                        chunk_rows: int, valid_idx: List[int]):
+        """Generator of decoded [b,h,w,3] uint8 RGB chunks over valid rows;
+        appends the global row index of each valid row to ``valid_idx`` as
+        it advances."""
+        col_idx = dataset.table.column_names.index(self.getInputCol())
+        offset = 0
+        for rb in dataset.iter_batches(chunk_rows):
+            col = rb.column(col_idx)
+            batch, ok = arrowStructsToBatch(col, height, width, compact=True)
+            vi_local = np.nonzero(ok)[0]
+            if len(vi_local):
+                valid_idx.extend(int(offset + i) for i in vi_local)
+                yield batch
+            offset += len(col)
+
+    def _stream_model_outputs(self, dataset, engine_factory, height: int,
+                              width: int, valid_idx: List[int]):
+        """Lazily yield per-piece model outputs for the image column; the
+        engine is only built once the first decoded chunk proves there is
+        work to do."""
+        chunks = self._decoded_chunks(dataset, height, width,
+                                      max(1, int(self.getBatchSize())),
+                                      valid_idx)
+        it = prefetch_iter(chunks, depth=2)
+        first = next(it, None)
+        if first is None:
+            return
+        engine = engine_factory()
+        t0 = time.perf_counter()
+        yield from engine.map_batches(chain([first], it))
+        elapsed = time.perf_counter() - t0
+        n = len(valid_idx)
+        ips = n / elapsed if elapsed > 0 else float("inf")
+        logger.info("%s: %d images in %.3fs — %.1f img/s on %s",
+                    type(self).__name__, n, elapsed, ips, engine.device)
+
+    def _run_streaming(self, dataset, engine_factory, height: int,
+                       width: int):
+        """(outputs [n_valid, ...] or None when nothing decoded, valid_idx)."""
+        valid_idx: List[int] = []
+        outs = list(self._stream_model_outputs(
+            dataset, engine_factory, height, width, valid_idx))
+        if not outs:
+            return None, valid_idx
+        return np.concatenate(outs, axis=0), valid_idx
+
+
+class _NamedImageTransformer(_ImageInputStage, HasModelName):
+    """Base of the zoo stages — resolves modelName against the registry."""
+
+    featurize: bool = False
+
+    def __init__(self):
+        super().__init__()
+        self.modelName.typeConverter = SparkDLTypeConverters.supportedNameConverter(
+            SUPPORTED_MODELS)
+        self._setDefault(batchSize=64)
+
+    def _run_model(self, dataset) -> Tuple[np.ndarray, list, int]:
+        name = self.getModelName()
+        spec = get_model_spec(name)
+        h, w = spec.input_size
+        out, valid_idx = self._run_streaming(
+            dataset,
+            lambda: _zoo_engine(name, self.featurize, self.getBatchSize()),
+            h, w)
+        if out is None:
+            dim = spec.feature_size if self.featurize else 1000
+            return np.zeros((0, dim), np.float32), valid_idx, len(dataset)
+        return out, valid_idx, len(dataset)
+
+
+class DeepImageFeaturizer(_NamedImageTransformer):
+    """Zoo-model featurization for transfer learning: the output column
+    holds the penultimate-layer vector (2048-d for Xception)."""
+
+    featurize = True
+
+    @keyword_only
+    def __init__(self, inputCol: Optional[str] = None,
+                 outputCol: Optional[str] = None,
+                 modelName: Optional[str] = None,
+                 batchSize: Optional[int] = None):
+        super().__init__()
+        self._set(**self._input_kwargs)
+
+    @keyword_only
+    def setParams(self, inputCol: Optional[str] = None,
+                  outputCol: Optional[str] = None,
+                  modelName: Optional[str] = None,
+                  batchSize: Optional[int] = None):
+        return self._set(**self._input_kwargs)
+
+    def _transform(self, dataset):
+        feats, valid_idx, n = self._run_model(dataset)
+        return dataset.withColumn(
+            self.getOutputCol(), _float_list_array(feats, valid_idx, n))
+
+
+class DeepImagePredictor(_NamedImageTransformer):
+    """Zoo-model prediction: class probabilities, optionally decoded to
+    top-K ``(class, description, probability)`` structs."""
+
+    featurize = False
+
+    decodePredictions = Param(
+        "undefined", "decodePredictions",
+        "decode the output probabilities into top-K (class, description, "
+        "probability) rows", typeConverter=TypeConverters.toBoolean)
+
+    topK = HasTopK.topK
+
+    @keyword_only
+    def __init__(self, inputCol: Optional[str] = None,
+                 outputCol: Optional[str] = None,
+                 modelName: Optional[str] = None,
+                 decodePredictions: bool = False,
+                 topK: int = 5,
+                 batchSize: Optional[int] = None):
+        super().__init__()
+        self._setDefault(decodePredictions=False, topK=5)
+        self._set(**self._input_kwargs)
+
+    @keyword_only
+    def setParams(self, inputCol: Optional[str] = None,
+                  outputCol: Optional[str] = None,
+                  modelName: Optional[str] = None,
+                  decodePredictions: Optional[bool] = None,
+                  topK: Optional[int] = None,
+                  batchSize: Optional[int] = None):
+        return self._set(**self._input_kwargs)
+
+    def getDecodePredictions(self):
+        return self.getOrDefault(self.decodePredictions)
+
+    def getTopK(self):
+        return self.getOrDefault(self.topK)
+
+    def _transform(self, dataset):
+        probs, valid_idx, n = self._run_model(dataset)
+        out_col = self.getOutputCol()
+        if not self.getDecodePredictions():
+            return dataset.withColumn(
+                out_col, _float_list_array(probs, valid_idx, n))
+        decoded = decode_predictions(probs, top=self.getTopK())
+        pred_type = pa.list_(pa.struct([
+            pa.field("class", pa.string()),
+            pa.field("description", pa.string()),
+            pa.field("probability", pa.float32()),
+        ]))
+        values: List[Optional[list]] = [None] * n
+        for row, i in zip(decoded, valid_idx):
+            values[i] = [
+                {"class": c, "description": d, "probability": p}
+                for c, d, p in row]
+        return dataset.withColumn(out_col, pa.array(values, type=pred_type))

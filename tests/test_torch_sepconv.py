@@ -1,0 +1,115 @@
+"""The port's fused sepconv (sparkdl_tpu_torch/ops/sepconv.py) held against
+the JAX package's on the CPU.
+
+On the CPU the port's dispatcher takes its plain PyTorch version, so these
+tests pin that version's math and rounding points to JAX's
+``sepconv_reference`` and to the real Pallas kernel run through the Pallas
+interpreter.  The CUDA kernel itself is held against the same plain version
+on the card by ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from sparkdl_tpu.ops.sepconv import fused_sepconv_flat, pad_to_flat, unflatten
+from sparkdl_tpu.ops.sepconv import sepconv_reference as jax_reference
+from sparkdl_tpu_torch.ops import sepconv as port
+
+# The SHAPES of tests/test_ops_sepconv.py: (h, w, c, f)
+SHAPES = [
+    (19, 19, 32, 40),
+    (10, 10, 24, 48),
+    (12, 9, 16, 16),
+]
+FLAGS = [(False, False), (True, False), (False, True)]
+
+# Both sides round the depthwise sum to bf16 and return bf16; the sums are
+# taken in another order, so a value that lands near a bf16 rounding
+# boundary may round one bf16 step apart (relative 2^-8 = 0.4%), and that
+# step is carried through the pointwise sum.  2e-2 covers a few such steps
+# on outputs of magnitude ~1.
+TOL = dict(rtol=2e-2, atol=2e-2)
+# The Pallas kernel's bar against its own reference in tests/test_ops_sepconv.py.
+KERNEL_TOL = dict(rtol=0.08, atol=0.05)
+
+
+def _inputs(seed, n, h, w, c, f):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, h, w, c)).astype(np.float32)
+    dwk = rng.normal(0, 0.2, (3, 3, c)).astype(np.float32)
+    pw = rng.normal(0, 0.05, (c, f)).astype(np.float32)
+    scale = rng.normal(1, 0.1, (f,)).astype(np.float32)
+    shift = rng.normal(0, 0.1, (f,)).astype(np.float32)
+    return x, dwk, pw, scale, shift
+
+
+def _port(arrs, pre_relu, post_relu, fn=port.fused_sepconv):
+    out = fn(*[torch.from_numpy(a) for a in arrs], pre_relu=pre_relu,
+             post_relu=post_relu)
+    assert out.dtype == torch.bfloat16
+    return out.float().numpy()
+
+
+@pytest.mark.parametrize("h,w,c,f", SHAPES)
+@pytest.mark.parametrize("pre_relu,post_relu", FLAGS)
+def test_port_matches_jax(h, w, c, f, pre_relu, post_relu):
+    """Port reference == JAX reference, and == the Pallas kernel
+    (interpreted, then unflattened)."""
+    arrs = _inputs(h * 1000 + c, 2, h, w, c, f)
+    got = _port(arrs, pre_relu, post_relu)
+    assert got.shape == (2, h, w, f)
+
+    jx = [jnp.asarray(a) for a in arrs]
+    want = np.asarray(jax_reference(*jx, pre_relu=pre_relu,
+                                    post_relu=post_relu), np.float32)
+    np.testing.assert_allclose(got, want, **TOL)
+
+    kern = fused_sepconv_flat(pad_to_flat(jx[0], h, w), *jx[1:], h, w,
+                              pre_relu, post_relu, force="interpret")
+    kern = np.asarray(unflatten(kern, h, w), np.float32)
+    np.testing.assert_allclose(got, kern, **KERNEL_TOL)
+
+
+def test_two_layer_chain_matches_jax():
+    """Two chained layers (the Xception middle-flow pattern): the port's
+    bf16 output feeds the next layer as the Pallas kernel's does."""
+    h, w, c = 13, 13, 16
+    x, dwk1, pw1, s1, t1 = _inputs(7, 2, h, w, c, c)
+    _, dwk2, pw2, s2, t2 = _inputs(8, 2, h, w, c, c)
+    a = port.fused_sepconv(*[torch.from_numpy(v) for v in
+                             (x, dwk1, pw1, s1, t1)], pre_relu=True)
+    b = port.fused_sepconv(a, *[torch.from_numpy(v) for v in
+                                (dwk2, pw2, s2, t2)], pre_relu=True)
+    xf = pad_to_flat(jnp.asarray(x), h, w)
+    ka = fused_sepconv_flat(xf, jnp.asarray(dwk1), jnp.asarray(pw1),
+                            jnp.asarray(s1), jnp.asarray(t1), h, w, True,
+                            False, force="interpret")
+    kb = fused_sepconv_flat(ka, jnp.asarray(dwk2), jnp.asarray(pw2),
+                            jnp.asarray(s2), jnp.asarray(t2), h, w, True,
+                            False, force="interpret")
+    want = np.asarray(unflatten(kb, h, w), np.float32)
+    # the Pallas kernel's chain bar in tests/test_ops_sepconv.py
+    np.testing.assert_allclose(b.float().numpy(), want, rtol=0.1, atol=0.08)
+
+
+def test_keras_layout_weights_and_counter():
+    """Keras-shaped weights ([3,3,C,1], [1,1,C,F]) reshape as in JAX, and
+    the CPU route launches no kernel: the count stays put."""
+    arrs = list(_inputs(3, 1, 6, 5, 8, 12))
+    before = port.fused_sepconv.launches
+    flat = _port(arrs, True, True)
+    arrs[1] = arrs[1][..., None]
+    arrs[2] = arrs[2][None, None]
+    np.testing.assert_array_equal(_port(arrs, True, True), flat)
+    assert port.fused_sepconv.launches == before
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    """The kernel's wrapper never computes on the CPU: it raises."""
+    x, dwk, pw, s, t = [torch.from_numpy(a) for a in _inputs(4, 1, 4, 4, 8, 8)]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        port._fused_sepconv_cuda(x.bfloat16(), dwk.bfloat16(), pw.bfloat16(),
+                                 s, t, False, False)
