@@ -22,15 +22,21 @@
 // depthwise tile straight into shared memory as the A operand, so device
 // memory sees x read and out written once (plus re-reads served by L2).
 //
-// Block tile: P=64 output pixels (row-major over H*W) x TF=128 output
-// channels, 8 warps of 32x32 each; the input channels are walked in chunks
-// of KC=32, masked at the tail (C=728 is not a multiple of 32).  C and F must
-// be even: channels move as bf16 pairs.
+// Block tile: P=128 output pixels (flattened over N*H*W, so small images
+// do not leave tiles half empty) x TF=128 output channels, 8 warps of
+// 32x64 each.  The input channels are walked in chunks of KC=64; each chunk
+// starts the copy of its pointwise tile into shared memory (cp.async, 16 B
+// segments, zero-filled past C and F) and computes the depthwise tile
+// (16-byte loads of 8 channels, 9 taps, f32 sums) while the copy runs.
+// B fragments come from the [k][f] tile through ldmatrix.trans.  C and F
+// must be multiples of 8 (every Xception width is).
 //
 // Known waste, the first thing a faster version removes: the depthwise tile
-// is recomputed by every F-tile of the same pixels (F/TF = 6..16 times),
+// is recomputed by every F-tile of the same pixels (F/TF = 2..16 times),
 // about 1% of the operations times that factor, and its 9 taps are read
-// from global memory (L1/L2) without staging a halo tile in shared memory.
+// from global memory (L1/L2) without staging a halo tile in shared memory;
+// the chunks are not double-buffered, so only other resident blocks hide
+// a chunk's load latency; mma.sync, not wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,15 +44,41 @@
 
 namespace {
 
-constexpr int P = 64;         // output pixels per block
+constexpr int P = 128;        // output pixels per block
 constexpr int TF = 128;       // output channels per block
-constexpr int KC = 32;        // input channels per chunk
-constexpr int THREADS = 256;  // 8 warps
-constexpr int LDS = KC + 8;   // smem row stride (bf16): 80 B, conflict-free fragment loads
+constexpr int KC = 64;        // input channels per chunk
+constexpr int THREADS = 256;  // 8 warps: 4 along pixels x 2 along channels
+constexpr int LDA = KC + 8;   // As row stride (bf16): 144 B, conflict-free fragment loads
+constexpr int LDB = TF + 8;   // Bs row stride (bf16): 272 B, conflict-free ldmatrix
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
 }
 
 __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
@@ -59,110 +91,130 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
 }
 
 template <bool PRE_RELU, bool POST_RELU>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
                const __nv_bfloat16* __restrict__ dwk,    // [3, 3, C]
                const __nv_bfloat16* __restrict__ pw,     // [C, F]
                const float* __restrict__ scale,          // [F]
                const float* __restrict__ shift,          // [F]
                __nv_bfloat16* __restrict__ out,          // [N, H, W, F]
-               int H, int W, int C, int F) {
-  __shared__ __align__(16) __nv_bfloat16 As[P * LDS];   // depthwise tile [pixel][k]
-  __shared__ __align__(16) __nv_bfloat16 Bs[TF * LDS];  // pointwise tile [f][k]
+               int N, int H, int W, int C, int F) {
+  __shared__ __align__(16) __nv_bfloat16 As[P * LDA];   // depthwise tile [pixel][k]
+  __shared__ __align__(16) __nv_bfloat16 Bs[KC * LDB];  // pointwise tile [k][f]
 
   const int HW = H * W;
-  const int p0 = blockIdx.x * P;
-  const int f0 = blockIdx.y * TF;
-  const int n = blockIdx.z;
+  const int NHW = N * HW;
+  const int f0 = blockIdx.x * TF;
+  const int p0 = blockIdx.y * P;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;   // mma fragment coordinates
-  const int wm = (warp & 1) * 32;           // warp's pixel offset in the tile
-  const int wn = (warp >> 1) * 32;          // warp's channel offset in the tile
+  const int wm = (warp & 3) * 32;           // warp's pixel offset in the tile
+  const int wn = (warp >> 2) * 64;          // warp's channel offset in the tile
 
-  const __nv_bfloat16* xn = x + (size_t)n * HW * C;
-  float acc[2][4][4];
+  float acc[2][8][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
 
   for (int c0 = 0; c0 < C; c0 += KC) {
-    // A: depthwise of P pixels x KC channels, as channel pairs.
-    for (int i = tid; i < P * (KC / 2); i += THREADS) {
-      const int pl = i / (KC / 2);
-      const int cp = (i % (KC / 2)) * 2;
-      const int p = p0 + pl, c = c0 + cp;
-      float a0 = 0.f, a1 = 0.f;
-      if (p < HW && c < C) {
-        const int h = p / W, w = p - h * W;
+    // B: pw rows c0..c0+KC, cols f0..f0+TF, 16-byte segments (8 f each).
+#pragma unroll
+    for (int r = 0; r < (KC * TF / 8) / THREADS; ++r) {
+      const int i = tid + r * THREADS;
+      const int k = i / (TF / 8);
+      const int fs = (i % (TF / 8)) * 8;
+      const int c = c0 + k, f = f0 + fs;
+      const bool ok = c < C && f < F;
+      cp_async16(&Bs[k * LDB + fs], ok ? pw + (size_t)c * F + f : pw, ok);
+    }
+    // A: depthwise of P pixels x KC channels, 8 channels per item.
+#pragma unroll
+    for (int r = 0; r < (P * KC / 8) / THREADS; ++r) {
+      const int i = tid + r * THREADS;
+      const int pl = i / (KC / 8);
+      const int cs = (i % (KC / 8)) * 8;
+      const int p = p0 + pl, c = c0 + cs;
+      float a[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) a[j] = 0.f;
+      if (p < NHW && c < C) {
+        const int n = p / HW;
+        const int rem = p - n * HW;
+        const int h = rem / W, w = rem - h * W;
+        const __nv_bfloat16* xn = x + (size_t)n * HW * C + c;
 #pragma unroll
         for (int dy = -1; dy <= 1; ++dy) {
           const int hh = h + dy;
-          if (hh < 0 || hh >= H) continue;
 #pragma unroll
           for (int dx = -1; dx <= 1; ++dx) {
             const int ww = w + dx;
-            if (ww < 0 || ww >= W) continue;
-            float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                xn + (size_t)(hh * W + ww) * C + c));
-            const float2 k = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            if (hh < 0 || hh >= H || ww < 0 || ww >= W) continue;
+            const uint4 xv = __ldg(reinterpret_cast<const uint4*>(
+                xn + (size_t)(hh * W + ww) * C));
+            const uint4 kv = __ldg(reinterpret_cast<const uint4*>(
                 dwk + ((dy + 1) * 3 + (dx + 1)) * C + c));
-            if (PRE_RELU) {
-              v.x = fmaxf(v.x, 0.f);
-              v.y = fmaxf(v.y, 0.f);
+            const uint32_t xw[4] = {xv.x, xv.y, xv.z, xv.w};
+            const uint32_t kw[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              float2 v = unpack_bf16x2(xw[j]);
+              const float2 k = unpack_bf16x2(kw[j]);
+              if (PRE_RELU) {
+                v.x = fmaxf(v.x, 0.f);
+                v.y = fmaxf(v.y, 0.f);
+              }
+              a[2 * j] = fmaf(v.x, k.x, a[2 * j]);
+              a[2 * j + 1] = fmaf(v.y, k.y, a[2 * j + 1]);
             }
-            a0 = fmaf(v.x, k.x, a0);
-            a1 = fmaf(v.y, k.y, a1);
           }
         }
       }
       // the TPU kernel's rounding point: depthwise accumulator -> bf16
-      *reinterpret_cast<uint32_t*>(&As[pl * LDS + cp]) = pack_bf16x2(a0, a1);
+      uint4 packed;
+      packed.x = pack_bf16x2(a[0], a[1]);
+      packed.y = pack_bf16x2(a[2], a[3]);
+      packed.z = pack_bf16x2(a[4], a[5]);
+      packed.w = pack_bf16x2(a[6], a[7]);
+      *reinterpret_cast<uint4*>(&As[pl * LDA + cs]) = packed;
     }
-    // B: pointwise rows c0..c0+KC, cols f0..f0+TF, stored transposed so a
-    // fragment's (k, k+1) pair is one 32-bit word.
-    for (int i = tid; i < KC * (TF / 2); i += THREADS) {
-      const int k = i / (TF / 2);
-      const int fp = (i % (TF / 2)) * 2;
-      const int c = c0 + k, f = f0 + fp;
-      __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
-      if (c < C && f < F)
-        v = *reinterpret_cast<const __nv_bfloat162*>(pw + (size_t)c * F + f);
-      Bs[fp * LDS + k] = v.x;
-      Bs[(fp + 1) * LDS + k] = v.y;
-    }
+    cp_async_wait_all();
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < KC; kk += 16) {
-      uint32_t af[2][4], bfr[4][2];
+      uint32_t af[2][4], bfr[8][2];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        const __nv_bfloat16* a = As + (wm + mt * 16) * LDS + kk + t4 * 2;
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(a + g * LDS);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(a + (g + 8) * LDS);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(a + g * LDS + 8);
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(a + (g + 8) * LDS + 8);
+        const __nv_bfloat16* a = As + (wm + mt * 16) * LDA + kk + t4 * 2;
+        af[mt][0] = *reinterpret_cast<const uint32_t*>(a + g * LDA);
+        af[mt][1] = *reinterpret_cast<const uint32_t*>(a + (g + 8) * LDA);
+        af[mt][2] = *reinterpret_cast<const uint32_t*>(a + g * LDA + 8);
+        af[mt][3] = *reinterpret_cast<const uint32_t*>(a + (g + 8) * LDA + 8);
       }
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const __nv_bfloat16* b = Bs + (wn + nt * 8 + g) * LDS + kk + t4 * 2;
-        bfr[nt][0] = *reinterpret_cast<const uint32_t*>(b);
-        bfr[nt][1] = *reinterpret_cast<const uint32_t*>(b + 8);
+      for (int nt = 0; nt < 8; nt += 2) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(
+            r, Bs + (kk + (lane & 15)) * LDB + wn + nt * 8 + (lane >> 4) * 8);
+        bfr[nt][0] = r[0];
+        bfr[nt][1] = r[1];
+        bfr[nt + 1][0] = r[2];
+        bfr[nt + 1][1] = r[3];
       }
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_16816(acc[mt][nt], af[mt], bfr[nt]);
+        for (int nt = 0; nt < 8; ++nt) mma_16816(acc[mt][nt], af[mt], bfr[nt]);
     }
     __syncthreads();
   }
 
   // Epilogue: BatchNorm affine in f32, optional ReLU, bf16 pairs.
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
+  for (int nt = 0; nt < 8; ++nt) {
     const int f = f0 + wn + nt * 8 + t4 * 2;
     if (f >= F) continue;
     const float s0 = scale[f], s1 = scale[f + 1];
@@ -172,14 +224,14 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int p = p0 + wm + mt * 16 + g + half * 8;
-        if (p >= HW) continue;
+        if (p >= NHW) continue;
         float y0 = acc[mt][nt][half * 2] * s0 + b0;
         float y1 = acc[mt][nt][half * 2 + 1] * s1 + b1;
         if (POST_RELU) {
           y0 = fmaxf(y0, 0.f);
           y1 = fmaxf(y1, 0.f);
         }
-        *reinterpret_cast<uint32_t*>(out + ((size_t)n * HW + p) * F + f) =
+        *reinterpret_cast<uint32_t*>(out + (size_t)p * F + f) =
             pack_bf16x2(y0, y1);
       }
     }
@@ -195,7 +247,7 @@ int sepconv_launch(const void* x, const void* dwk, const void* pw,
                    const void* scale, const void* shift, void* out, int N,
                    int H, int W, int C, int F, int pre_relu, int post_relu,
                    void* stream) {
-  const dim3 grid((H * W + P - 1) / P, (F + TF - 1) / TF, N);
+  const dim3 grid((F + TF - 1) / TF, (N * H * W + P - 1) / P);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* kb = static_cast<const __nv_bfloat16*>(dwk);
@@ -204,13 +256,13 @@ int sepconv_launch(const void* x, const void* dwk, const void* pw,
   const auto* sh = static_cast<const float*>(shift);
   auto* ob = static_cast<__nv_bfloat16*>(out);
   if (pre_relu && post_relu)
-    sepconv_kernel<true, true><<<grid, THREADS, 0, s>>>(xb, kb, pb, sc, sh, ob, H, W, C, F);
+    sepconv_kernel<true, true><<<grid, THREADS, 0, s>>>(xb, kb, pb, sc, sh, ob, N, H, W, C, F);
   else if (pre_relu)
-    sepconv_kernel<true, false><<<grid, THREADS, 0, s>>>(xb, kb, pb, sc, sh, ob, H, W, C, F);
+    sepconv_kernel<true, false><<<grid, THREADS, 0, s>>>(xb, kb, pb, sc, sh, ob, N, H, W, C, F);
   else if (post_relu)
-    sepconv_kernel<false, true><<<grid, THREADS, 0, s>>>(xb, kb, pb, sc, sh, ob, H, W, C, F);
+    sepconv_kernel<false, true><<<grid, THREADS, 0, s>>>(xb, kb, pb, sc, sh, ob, N, H, W, C, F);
   else
-    sepconv_kernel<false, false><<<grid, THREADS, 0, s>>>(xb, kb, pb, sc, sh, ob, H, W, C, F);
+    sepconv_kernel<false, false><<<grid, THREADS, 0, s>>>(xb, kb, pb, sc, sh, ob, N, H, W, C, F);
   return static_cast<int>(cudaGetLastError());
 }
 

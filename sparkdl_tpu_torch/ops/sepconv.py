@@ -98,7 +98,8 @@ def _fused_sepconv_cuda(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
     """Launch the CUDA kernel on the current stream.  ``x`` bf16 NHWC
     contiguous on a CUDA device, ``dwk`` bf16 [3,3,C], ``pw`` bf16 [C,F],
     ``scale``/``shift`` f32 [F], all contiguous on the same device; C and F
-    even.  Raises on anything else and when the launch is refused."""
+    multiples of 8.  Raises on anything else and when the launch is
+    refused."""
     if x.device.type != "cuda":
         raise ValueError(f"_fused_sepconv_cuda needs a CUDA tensor, got "
                          f"{x.device}")
@@ -111,10 +112,12 @@ def _fused_sepconv_cuda(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
     _check("pw", pw, (c, f), torch.bfloat16, x.device)
     _check("scale", scale, (f,), torch.float32, x.device)
     _check("shift", shift, (f,), torch.float32, x.device)
-    if c % 2 or f % 2:
-        raise ValueError(f"the kernel moves channel pairs: C={c} and F={f} "
-                         f"must be even")
-    if n > 65535 or n * h * w * max(c, f) >= 2 ** 31:
+    if c % 8 or f % 8:
+        raise ValueError(f"the kernel moves 8-channel segments: C={c} and "
+                         f"F={f} must be multiples of 8")
+    if any(t.data_ptr() % 16 for t in (x, dwk, pw)):
+        raise ValueError("x, dwk and pw must start on a 16-byte boundary")
+    if n * h * w > 65535 * 128 or n * h * w * max(c, f) >= 2 ** 31:
         raise ValueError(f"shape {(n, h, w, c, f)} exceeds the kernel's "
                          f"index range")
     out = torch.empty((n, h, w, f), dtype=torch.bfloat16, device=x.device)
