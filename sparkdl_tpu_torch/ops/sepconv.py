@@ -117,7 +117,7 @@ def _fused_sepconv_cuda(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
                          f"F={f} must be multiples of 8")
     if any(t.data_ptr() % 16 for t in (x, dwk, pw)):
         raise ValueError("x, dwk and pw must start on a 16-byte boundary")
-    if n * h * w > 65535 * 128 or n * h * w * max(c, f) >= 2 ** 31:
+    if n * h * w > 65535 * 64 or n * h * w * max(c, f) >= 2 ** 31:
         raise ValueError(f"shape {(n, h, w, c, f)} exceeds the kernel's "
                          f"index range")
     out = torch.empty((n, h, w, f), dtype=torch.bfloat16, device=x.device)
