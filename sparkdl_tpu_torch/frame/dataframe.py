@@ -1,10 +1,11 @@
-"""A minimal columnar DataFrame over pyarrow.
+"""A minimal columnar DataFrame over pyarrow (port of
+``sparkdl_tpu/frame/dataframe.py``).
 
-Design notes (TPU-first):
+Design notes:
   * Chunking is explicit: a frame is a ``pyarrow.Table`` whose record batches
     play the role Spark partitions played in the reference — transformers
     process the frame batch-wise and the inference engine re-buckets rows into
-    fixed device batch shapes (padding the tail) so XLA never recompiles.
+    fixed device batch shapes (padding the tail).
   * No lazy plan/optimizer: the reference's laziness came from Spark; here
     stages run eagerly over Arrow batches, which keeps host->device pipelining
     in our control (see sparkdl_tpu_torch.parallel.engine).
@@ -82,9 +83,8 @@ class _StructView(dict):
 def _struct_view_rows(arr: "pa.StructArray"):
     """Per-row dict views of a flat struct column, read from Arrow buffers.
 
-    The to_pylist row path costs ~0.2 ms/row on 299^2 image structs (it
-    copies the MB-scale binary child into fresh bytes per row); buffer
-    views cost ~0.006 ms/row.  Returns None when a child type is outside
+    The to_pylist row path copies the MB-scale binary child into fresh
+    bytes per row; buffer views copy nothing.  Returns None when a child type is outside
     this fast path (nested lists/structs, ...) — caller falls back to
     to_pylist.
     """
@@ -354,9 +354,8 @@ class DataFrame:
         """Materialize a column as numpy; list<float> columns stack to 2-D.
 
         Uniform-length list columns are read from the Arrow values buffer
-        directly (one reshape — no per-row Python list round trip; measured
-        ~100x faster than ``to_pylist`` on a 16k x 784 float column, the
-        config-3 bench shape).  Ragged columns fall back to the row path
+        directly (one reshape — no per-row Python list round trip).
+        Ragged columns fall back to the row path
         and raise the same stacking error numpy would.
         """
         col = self._table.column(name)
@@ -467,8 +466,7 @@ class DataFrame:
         ``memoryview`` — wrap with ``bytes()`` if needed), and a struct
         the fn returns untouched is re-emitted without a Python->Arrow
         round trip, so mapping scalar columns next to an image column no
-        longer pays per-row image materialization (~0.2 ms/row at 299^2
-        — PERF.md "Zero-copy map_rows").
+        longer pays per-row image materialization.
 
         ``materialize=True`` opts OUT of the zero-copy struct views and
         restores plain ``to_pylist`` dicts — binary struct children come

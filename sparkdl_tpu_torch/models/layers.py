@@ -32,14 +32,11 @@ def promote(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return tuple(t.to(dt) for t in ts)
 
 
-def conv2d(x: torch.Tensor, weight: torch.Tensor, bias=None, stride=1,
-           padding=0, groups: int = 1) -> torch.Tensor:
-    """``F.conv2d`` in the promoted dtype of ``x`` and ``weight``."""
+def conv2d(x: torch.Tensor, weight: torch.Tensor, stride=1, padding=0,
+           groups: int = 1) -> torch.Tensor:
+    """Bias-free ``F.conv2d`` in the promoted dtype of ``x`` and ``weight``."""
     x, weight = promote(x, weight)
-    if bias is not None:
-        bias = bias.to(x.dtype)
-    return F.conv2d(x, weight, bias, stride=stride, padding=padding,
-                    groups=groups)
+    return F.conv2d(x, weight, stride=stride, padding=padding, groups=groups)
 
 
 def same_padding(size: int, window: int, stride: int) -> Tuple[int, int]:

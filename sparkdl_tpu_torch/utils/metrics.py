@@ -18,7 +18,3 @@ class Metrics:
         value = float(value)
         with self._lock:
             self.counters[name] = self.counters.get(name, 0.0) + value
-
-    def get(self, name: str, default: float = 0.0) -> float:
-        with self._lock:
-            return self.counters.get(name, default)
