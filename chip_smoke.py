@@ -4,13 +4,23 @@
 
 Run from the root of a checkout, on a machine with one CUDA card (built
 for an H100: the kernels are compiled for sm_90a).  It builds the port's
-CUDA kernels from ``sparkdl_tpu_torch/ops/csrc`` with nvcc, holds each
-kernel against its plain PyTorch version at the shapes the main path gives
-it, then drives the main path — ``DeepImageFeaturizer`` and
-``DeepImagePredictor`` with Xception at 299x299, batch 32, seeded random
-weights — and checks that it ran through the kernels and agrees with the
-model's unfused route.  Any failed phase exits non-zero; without a CUDA
-device it exits non-zero before printing any result.
+three CUDA kernels from ``sparkdl_tpu_torch/ops/csrc`` with nvcc (one nvcc
+per kernel, all started together), holds each kernel against its plain
+PyTorch version at every shape class its path gives it, then drives the
+port's three paths through the user entry points, with seeded random
+weights and batch 32:
+
+  * Xception at 299x299 (``DeepImageFeaturizer`` + ``DeepImagePredictor``):
+    the whole-image sepconv kernel (B1), 30 launches per batch;
+  * MobileNetV2 at 224x224 with ``SPARKDL_MNV2_FUSED=1`` (featurizer +
+    predictor): the mbconv kernel (B2), 13 launches per batch;
+  * Xception with ``SPARKDL_XC_TILED=1`` (one featurizer batch): the tiled
+    sepconv kernel (B3), 4 launches per batch, beside B1's 30.
+
+Each path runs with every launch count set to 0 just before it and read
+just after; the script checks the counts and that each path's fused route
+agrees with the model's unfused route.  Any failed phase exits non-zero;
+without a CUDA device it exits non-zero before printing any result.
 
 Output: the card's name and power limit first, one line per phase, then
 one JSON line with every kernel's numbers, and last the line
@@ -19,6 +29,7 @@ one JSON line with every kernel's numbers, and last the line
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -35,8 +46,9 @@ MAIN_PATH_REL_TOL = 5e-2                  # fused vs unfused, as the JAX package
 PEAK_BF16_FLOPS = 989e12                  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12                      # H100 SXM HBM3
 
-# The shape classes Xception's fused route gives the sepconv kernel at
-# 299x299: (H=W, C, F, pre_relu, post_relu, launches per forward).
+# The shape classes Xception's fused route gives the whole-image sepconv
+# kernel (B1) at 299x299: (H=W, C, F, pre_relu, post_relu, launches per
+# forward).
 SEPCONV_SHAPES = [
     (37, 256, 728, True, False, 1),    # block4_sepconv1
     (37, 728, 728, True, False, 1),    # block4_sepconv2
@@ -46,6 +58,29 @@ SEPCONV_SHAPES = [
     (10, 1536, 2048, False, True, 1),  # block14_sepconv2
 ]
 SEPCONV_PER_FORWARD = sum(s[-1] for s in SEPCONV_SHAPES)  # 30
+
+# The entry blocks 2-3 the tiled kernel (B3) takes with SPARKDL_XC_TILED=1.
+TILED_SHAPES = [
+    (147, 64, 128, False, False, 1),   # block2_sepconv1 (no leading relu)
+    (147, 128, 128, True, False, 1),   # block2_sepconv2
+    (74, 128, 256, True, False, 1),    # block3_sepconv1
+    (74, 256, 256, True, False, 1),    # block3_sepconv2
+]
+TILED_PER_FORWARD = sum(s[-1] for s in TILED_SHAPES)  # 4
+
+# MobileNetV2's 13 stride-1 tails at 224x224: (H=W, expanded C, F,
+# launches per forward).
+MBCONV_SHAPES = [
+    (112, 32, 16, 1),    # expanded_conv
+    (56, 144, 24, 1),    # block_2
+    (28, 192, 32, 2),    # block_4, block_5
+    (14, 384, 64, 3),    # block_7-9
+    (14, 384, 96, 1),    # block_10
+    (14, 576, 96, 2),    # block_11, block_12
+    (7, 960, 160, 2),    # block_14, block_15
+    (7, 960, 320, 1),    # block_16
+]
+MBCONV_PER_FORWARD = sum(s[-1] for s in MBCONV_SHAPES)  # 13
 
 
 def fail(msg):
@@ -59,8 +94,10 @@ def check(cond, msg):
 
 
 def cuda_ms(fn, reps=25, warmup=3):
-    """Median device time of ``fn()`` in ms over ``reps`` runs (CUDA events
-    around each run, after ``warmup`` runs)."""
+    """Median time of ``fn()`` in ms over ``reps`` runs, CUDA events
+    around each run after ``warmup`` runs: the device's time from the first
+    enqueued kernel to the last, host enqueue gaps included (what a model
+    forward costs a caller)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -75,188 +112,422 @@ def cuda_ms(fn, reps=25, warmup=3):
     return float(np.median(times))
 
 
+def graph_ms(fn, calls=20, reps=5):
+    """Device time of one ``fn()`` in ms: ``calls`` calls captured in one
+    CUDA graph, replayed ``reps`` times between CUDA events (median), so
+    the host's launch cost (tens of microseconds through ctypes) stays out
+    of the kernel's time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture: plans, allocator
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return float(np.median(times))
+
+
+def host_us_per_call(fn, calls=200):
+    """Host time of one ``fn()`` call in microseconds: ``calls`` calls
+    enqueued back to back (no synchronisation between them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def bound(flops, nbytes):
+    """(bound ms, what sets it) on the published H100 SXM peaks."""
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def compare(out, ref, what):
+    """Max abs error of a kernel's output against its plain version; fails
+    on a non-finite output or an element outside KERNEL_TOL."""
+    check(torch.isfinite(out.float()).all().item(),
+          f"kernel output not finite at {what}")
+    err = (out.float() - ref.float()).abs()
+    max_abs = err.max().item()
+    bad = (err > KERNEL_TOL["atol"]
+           + KERNEL_TOL["rtol"] * ref.float().abs()).sum().item()
+    check(bad == 0, f"kernel disagrees with plain version at {what}: "
+                    f"{bad} elements, max abs {max_abs}")
+    return max_abs
+
+
+def entry(name, source, replaces, rows, worst):
+    """A kernel's JSON entry: ms / plain_ms / library_ms / bound_ms are one
+    forward's launches at batch 32, summed over the shape classes (per
+    class in "shapes"); ``launches`` is filled from its main path's run."""
+    tot = {k: sum(r["launches_per_forward"] * r[k] for r in rows)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms",
+                     "bytes_ms")}
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": None, "max_abs_err": worst,
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"],
+        "bound_by": ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                     else "bytes"),
+        "library_ms": tot["library_ms"], "shapes": rows,
+    }
+
+
 def phase_build(sepconv):
     t0 = time.perf_counter()
-    sepconv.load_library()
+    sepconv.load_all()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in sepconv.build_log().splitlines()
-             if "registers" in ln]
-    print(f"[build] sepconv.cu built+loaded in {build_s:.2f}s; "
-          f"ptxas: {ptxas[0] if ptxas else 'n/a (library was cached)'}",
-          flush=True)
+    sources = [s for _, srcs, _, _ in sepconv.KERNELS.values() for s in srcs]
+    print(f"[build] {', '.join(sources)} built+loaded in {build_s:.2f}s "
+          f"(one nvcc each, in parallel)", flush=True)
+    for kernel in sepconv.KERNELS:
+        # ptxas reports one "Used N registers" and one "... spill stores"
+        # line per template instance
+        log = sepconv.build_log(kernel).splitlines()
+        regs = [int(ln.split("Used ")[1].split()[0]) for ln in log
+                if "Used " in ln and "registers" in ln]
+        spills = [int(ln.split("bytes spill stores")[0].split(",")[-1])
+                  for ln in log if "bytes spill stores" in ln]
+        print(f"[build] {kernel} ptxas: " + (
+            f"{len(regs)} instances, {min(regs)}-{max(regs)} registers, "
+            f"at most {max(spills, default=0)} bytes spilled" if regs
+            else "n/a (library was cached)"), flush=True)
 
 
-def phase_kernels(sepconv):
-    """Kernel vs plain version at each shape class; returns the kernel's
-    JSON entry (per-forward totals over the shape classes)."""
+def _sepconv_inputs(g, n, hw, c, f):
+    dev = "cuda"
+    x = torch.randn(n, hw, hw, c, device=dev, generator=g).bfloat16()
+    dwk = (torch.randn(3, 3, c, device=dev, generator=g) / 3).bfloat16()
+    pw = (torch.randn(c, f, device=dev, generator=g) / math.sqrt(c)
+          ).bfloat16()
+    scale = torch.rand(f, device=dev, generator=g) * 0.4 + 0.8
+    shift = torch.randn(f, device=dev, generator=g) * 0.05
+    return x, dwk, pw, scale, shift
+
+
+def _sepconv_library(x, dwk, pw, scale, shift, pre, post):
+    """Yardstick: cuDNN depthwise + 1x1 conv + affine, bf16 (never called
+    by the port)."""
     import torch.nn.functional as F
 
-    g = torch.Generator(device="cuda").manual_seed(SEED)
+    c, f = pw.shape
+    xc = x.permute(0, 3, 1, 2)
+    dw_w = dwk.permute(2, 0, 1).reshape(c, 1, 3, 3).contiguous(
+        memory_format=torch.channels_last)
+    pw_w = pw.t().reshape(f, c, 1, 1).contiguous(
+        memory_format=torch.channels_last)
+    s_b = scale.bfloat16().reshape(1, f, 1, 1)
+    t_b = shift.bfloat16().reshape(1, f, 1, 1)
+
+    def library():
+        y = F.conv2d(torch.relu(xc) if pre else xc, dw_w, padding=1, groups=c)
+        y = F.conv2d(y, pw_w) * s_b + t_b
+        return torch.relu(y) if post else y
+
+    return library
+
+
+def phase_sepconv_kernel(sepconv, tiled):
+    """B1 (``tiled`` False) at its six shape classes or B3 (True) at the
+    four entry classes: kernel vs plain version, with kernel, plain,
+    library and bound ms.  At B3's classes B1's time on the same inputs is
+    kept beside it (``b1_ms``): what the 2-D tile buys."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + int(tiled))
+    kern = (sepconv._fused_sepconv_tiled_cuda if tiled
+            else sepconv._fused_sepconv_cuda)
+    tag = "sepconv_tiled" if tiled else "sepconv"
+    rows, worst = [], 0.0
+    for hw, c, f, pre, post, per_fwd in (TILED_SHAPES if tiled
+                                          else SEPCONV_SHAPES):
+        n = BATCH
+        args = _sepconv_inputs(g, n, hw, c, f)
+        out = kern(*args, pre, post)
+        torch.cuda.synchronize()
+        ref = sepconv.sepconv_reference(*args, pre, post)
+        max_abs = compare(out, ref, (tag, hw, c, f))
+        worst = max(worst, max_abs)
+        del out, ref
+        k_ms = graph_ms(lambda: kern(*args, pre, post))
+        p_ms = graph_ms(lambda: sepconv.sepconv_reference(*args, pre, post),
+                        calls=5)
+        l_ms = graph_ms(_sepconv_library(*args, pre, post))
+        flops = 2.0 * n * hw * hw * c * (9 + f)
+        nbytes = 2.0 * (n * hw * hw * (c + f) + 9 * c + c * f) + 8.0 * f
+        b_ms, b_by = bound(flops, nbytes)
+        row = dict(shape=[n, hw, hw, c, f], pre_relu=pre, post_relu=post,
+                   launches_per_forward=per_fwd, max_abs_err=max_abs,
+                   ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                   bound_by=b_by, ops_ms=flops / PEAK_BF16_FLOPS * 1e3,
+                   bytes_ms=nbytes / PEAK_BYTES * 1e3)
+        extra = ""
+        if tiled:
+            row["b1_ms"] = graph_ms(lambda: sepconv._fused_sepconv_cuda(
+                *args, pre, post))
+            extra = f" b1_ms={row['b1_ms']:.4f}"
+        rows.append(row)
+        print(f"[kernel] {tag} N={n} {hw}x{hw} C={c} F={f} pre={int(pre)} "
+              f"post={int(post)}: max_abs_err={max_abs:.5f} "
+              f"kernel_ms={k_ms:.4f}{extra} plain_ms={p_ms:.4f} "
+              f"library_ms={l_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"-> {b_ms / k_ms:.1%} of bound", flush=True)
+    hw, c, f, pre, post, _ = (TILED_SHAPES if tiled else SEPCONV_SHAPES)[-1]
+    args = _sepconv_inputs(g, BATCH, hw, c, f)
+    host = host_us_per_call(lambda: kern(*args, pre, post))
+    print(f"[kernel] {tag} host cost per wrapper call (ctypes launch "
+          f"included): {host:.1f} us", flush=True)
+    if tiled:
+        e = entry("fused_sepconv_tiled",
+                  "sparkdl_tpu_torch/ops/csrc/sepconv_tiled.cu",
+                  "sparkdl_tpu/ops/sepconv.py:215", rows, worst)
+        e["b1_ms"] = sum(r["launches_per_forward"] * r["b1_ms"] for r in rows)
+    else:
+        e = entry("fused_sepconv", "sparkdl_tpu_torch/ops/csrc/sepconv.cu",
+                  "sparkdl_tpu/ops/sepconv.py:143", rows, worst)
+    e["host_us_per_launch"] = host
+    return e
+
+
+def phase_mbconv_kernel(sepconv):
+    """B2 at MobileNetV2's eight shape classes: kernel vs plain version,
+    with kernel, plain, library and bound ms."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     dev = "cuda"
     rows, worst = [], 0.0
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                  ops_ms=0.0, bytes_ms=0.0)
-    for hw, c, f, pre, post, per_fwd in SEPCONV_SHAPES:
+    for hw, c, f, per_fwd in MBCONV_SHAPES:
         n = BATCH
-        x = torch.randn(n, hw, hw, c, device=dev, generator=g).bfloat16()
+        x = (torch.randn(n, hw, hw, c, device=dev, generator=g) * 2
+             ).bfloat16()
         dwk = (torch.randn(3, 3, c, device=dev, generator=g) / 3).bfloat16()
         pw = (torch.randn(c, f, device=dev, generator=g) / math.sqrt(c)
               ).bfloat16()
-        scale = torch.rand(f, device=dev, generator=g) * 0.4 + 0.8
+        mid = torch.randn(c, device=dev, generator=g) * 0.5
         shift = torch.randn(f, device=dev, generator=g) * 0.05
-
-        out = sepconv._fused_sepconv_cuda(x, dwk, pw, scale, shift, pre, post)
+        args = (x, dwk, pw, mid, shift)
+        out = sepconv._fused_mbconv_cuda(*args)
         torch.cuda.synchronize()
-        ref = sepconv.sepconv_reference(x, dwk, pw, scale, shift, pre, post)
-        torch.cuda.synchronize()
-        check(torch.isfinite(out.float()).all().item(),
-              f"kernel output not finite at {(hw, c, f)}")
-        err = (out.float() - ref.float()).abs()
-        max_abs = err.max().item()
-        bad = (err > KERNEL_TOL["atol"]
-               + KERNEL_TOL["rtol"] * ref.float().abs()).sum().item()
-        check(bad == 0, f"kernel disagrees with plain version at "
-                        f"{(hw, c, f)}: {bad} elements, max abs {max_abs}")
+        ref = sepconv.mbconv_reference(*args)
+        max_abs = compare(out, ref, ("mbconv", hw, c, f))
         worst = max(worst, max_abs)
+        del out, ref
 
-        # library yardstick: cuDNN depthwise + 1x1 conv + affine (bf16)
+        # yardstick (never called by the port): cuDNN depthwise, +mid_shift,
+        # clamp, 1x1 conv, +shift, in bf16
         xc = x.permute(0, 3, 1, 2)
         dw_w = dwk.permute(2, 0, 1).reshape(c, 1, 3, 3).contiguous(
             memory_format=torch.channels_last)
         pw_w = pw.t().reshape(f, c, 1, 1).contiguous(
             memory_format=torch.channels_last)
-        s_b = scale.bfloat16().reshape(1, f, 1, 1)
+        m_b = mid.bfloat16().reshape(1, c, 1, 1)
         t_b = shift.bfloat16().reshape(1, f, 1, 1)
 
         def library():
-            y = F.conv2d(torch.relu(xc) if pre else xc, dw_w, padding=1,
-                         groups=c)
-            y = F.conv2d(y, pw_w) * s_b + t_b
-            return torch.relu(y) if post else y
+            y = F.conv2d(xc, dw_w, padding=1, groups=c) + m_b
+            return F.conv2d(torch.clamp(y, 0.0, 6.0), pw_w) + t_b
 
-        k_ms = cuda_ms(lambda: sepconv._fused_sepconv_cuda(
-            x, dwk, pw, scale, shift, pre, post))
-        p_ms = cuda_ms(lambda: sepconv.sepconv_reference(
-            x, dwk, pw, scale, shift, pre, post))
-        l_ms = cuda_ms(library)
+        k_ms = graph_ms(lambda: sepconv._fused_mbconv_cuda(*args))
+        p_ms = graph_ms(lambda: sepconv.mbconv_reference(*args), calls=5)
+        l_ms = graph_ms(library)
         flops = 2.0 * n * hw * hw * c * (9 + f)
-        nbytes = 2.0 * (n * hw * hw * (c + f) + 9 * c + c * f) + 8.0 * f
-        ops_ms = flops / PEAK_BF16_FLOPS * 1e3
-        bytes_ms = nbytes / PEAK_BYTES * 1e3
-        bound = max(ops_ms, bytes_ms)
-        bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-        rows.append(dict(shape=[n, hw, hw, c, f], pre_relu=pre,
-                         post_relu=post, launches_per_forward=per_fwd,
+        nbytes = (2.0 * (n * hw * hw * (c + f) + 9 * c + c * f)
+                  + 4.0 * (c + f))
+        b_ms, b_by = bound(flops, nbytes)
+        rows.append(dict(shape=[n, hw, hw, c, f], launches_per_forward=per_fwd,
                          max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
-                         library_ms=l_ms, bound_ms=bound, bound_by=bound_by))
-        print(f"[kernel] sepconv N={n} {hw}x{hw} C={c} F={f} "
-              f"pre={int(pre)} post={int(post)}: max_abs_err={max_abs:.5f} "
-              f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-              f"library_ms={l_ms:.4f} bound_ms={bound:.4f} ({bound_by}) "
-              f"-> {bound / k_ms:.1%} of bound", flush=True)
-        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
-                       ("bound_ms", bound), ("ops_ms", ops_ms),
-                       ("bytes_ms", bytes_ms)):
-            totals[key] += per_fwd * v
-    return {
-        "name": "fused_sepconv",
-        "route": "cuda",
-        "source": "sparkdl_tpu_torch/ops/csrc/sepconv.cu",
-        "replaces": "sparkdl_tpu/ops/sepconv.py:143",
-        "launches": None,  # filled from the main path's run
-        "max_abs_err": worst,
-        # ms / plain_ms / library_ms / bound_ms: one forward's launches
-        # at batch 32, summed over the shape classes (per class in "shapes")
-        "ms": totals["ms"],
-        "plain_ms": totals["plain_ms"],
-        "bound_ms": totals["bound_ms"],
-        "bound_by": ("operations" if totals["ops_ms"] >= totals["bytes_ms"]
-                     else "bytes"),
-        "library_ms": totals["library_ms"],
-        "shapes": rows,
-    }
+                         library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                         ops_ms=flops / PEAK_BF16_FLOPS * 1e3,
+                         bytes_ms=nbytes / PEAK_BYTES * 1e3))
+        print(f"[kernel] mbconv N={n} {hw}x{hw} C={c} F={f}: "
+              f"max_abs_err={max_abs:.5f} kernel_ms={k_ms:.4f} "
+              f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) -> {b_ms / k_ms:.1%} of bound",
+              flush=True)
+    host = host_us_per_call(lambda: sepconv._fused_mbconv_cuda(*args))
+    print(f"[kernel] mbconv host cost per wrapper call (ctypes launch "
+          f"included): {host:.1f} us", flush=True)
+    e = entry("fused_mbconv", "sparkdl_tpu_torch/ops/csrc/mbconv.cu",
+              "sparkdl_tpu/ops/sepconv.py:290", rows, worst)
+    e["host_us_per_launch"] = host
+    return e
 
 
-def synthetic_frame(n, seed):
+def synthetic_frame(n, size, seed):
     from sparkdl_tpu_torch.frame import DataFrame
     from sparkdl_tpu_torch.image.schema import (imageArrayToStruct,
                                                 structsToArrow)
 
     rng = np.random.default_rng(seed)
-    imgs = rng.integers(0, 256, (n, 299, 299, 3), dtype=np.uint8)
+    imgs = rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
     return DataFrame(structsToArrow(
         [imageArrayToStruct(im, origin=f"synthetic_{i}")
          for i, im in enumerate(imgs)]))
 
 
-def phase_main_path(sepconv):
-    """Featurize 64 and predict 32 synthetic 299x299 images through the
-    user entry points; returns the kernel's launch count of that run."""
+def reset_counts(sepconv):
+    sepconv.fused_sepconv.launches = 0
+    sepconv.fused_sepconv.tiled_launches = 0
+    sepconv.fused_mbconv.launches = 0
+
+
+def read_counts(sepconv):
+    return dict(sepconv=sepconv.fused_sepconv.launches,
+                sepconv_tiled=sepconv.fused_sepconv.tiled_launches,
+                mbconv=sepconv.fused_mbconv.launches)
+
+
+def unfused_check(name, df, feats, size, tag):
+    """Features of the same uint8 batches through the model's unfused route
+    on the card; fails above MAIN_PATH_REL_TOL.  Returns (rel err, fused
+    ms, unfused ms), the last two one forward of BATCH images timed by
+    ``cuda_ms``."""
     from sparkdl_tpu_torch.image.io import arrowStructsToBatch
     from sparkdl_tpu_torch.parallel.engine import InferenceEngine
     from sparkdl_tpu_torch.transformers import named_image as ni
 
-    df = synthetic_frame(N_IMAGES, SEED)
-    feat = ni.DeepImageFeaturizer(inputCol="image", outputCol="features",
-                                  modelName="Xception", batchSize=BATCH)
-    pred = ni.DeepImagePredictor(inputCol="image", outputCol="preds",
-                                 modelName="Xception", decodePredictions=True,
-                                 topK=5, batchSize=BATCH)
-    # warm-up: builds the engines (weights to the card) and cuDNN plans
-    feat.transform(df.limit(BATCH))
-    pred.transform(df.limit(N_PREDICT))
-    torch.cuda.synchronize()
-
-    sepconv.fused_sepconv.launches = 0
-    t0 = time.perf_counter()
-    out = feat.transform(df)
-    torch.cuda.synchronize()
-    feat_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pout = pred.transform(df.limit(N_PREDICT))
-    torch.cuda.synchronize()
-    pred_s = time.perf_counter() - t0
-    launches = sepconv.fused_sepconv.launches
-
-    feats = out.column_to_numpy("features")
-    check(feats.shape == (N_IMAGES, 2048), f"feature shape {feats.shape}")
-    check(np.isfinite(feats).all(), "features not finite")
-    batches = N_IMAGES // BATCH + N_PREDICT // BATCH
-    check(launches == SEPCONV_PER_FORWARD * batches,
-          f"sepconv launches {launches}, want {SEPCONV_PER_FORWARD} per "
-          f"batch x {batches}")
-    preds = pout.table.column("preds").to_pylist()
-    check(len(preds) == N_PREDICT and all(len(r) == 5 for r in preds),
-          "predictor did not return top-5 rows")
-    for r in preds:
-        p = [e["probability"] for e in r]
-        check(all(math.isfinite(v) for v in p) and p == sorted(p, reverse=True),
-              "predictor probabilities not finite and sorted")
-    print(f"[main] DeepImageFeaturizer Xception 299x299 batch {BATCH}: "
-          f"{N_IMAGES} images in {feat_s:.3f}s = {N_IMAGES / feat_s:.1f} img/s; "
-          f"DeepImagePredictor top-5: {N_PREDICT} images in {pred_s:.3f}s = "
-          f"{N_PREDICT / pred_s:.1f} img/s; sepconv launches {launches} "
-          f"({batches} batches)", flush=True)
-
-    # the same model's unfused route on the card, same uint8 batches
-    batch, ok = arrowStructsToBatch(df.table.column("image"), 299, 299)
+    batch, ok = arrowStructsToBatch(df.table.column("image"), size, size)
     check(ok.all(), "synthetic images failed to decode")
-    module = ni._cached_model("Xception")
-    fused_eng = ni._zoo_engine("Xception", True, BATCH)
-    plain_eng = InferenceEngine(ni.zoo_model_fn("Xception", True), module,
-                                device="cuda", device_batch_size=BATCH)
+    batch = batch[:len(feats)]
+    fused_eng = ni._zoo_engine(name, True, BATCH)
+    plain_eng = InferenceEngine(ni.zoo_model_fn(name, True),
+                                ni._cached_model(name), device="cuda",
+                                device_batch_size=BATCH)
     plain_eng.module.fused_inference = False
     want = plain_eng(batch)
     rel = float(np.linalg.norm(feats - want) / np.linalg.norm(want))
     check(rel <= MAIN_PATH_REL_TOL,
-          f"fused vs unfused features: rel err {rel:.4g} > {MAIN_PATH_REL_TOL}")
+          f"{tag}: fused vs unfused features: rel err {rel:.4g} > "
+          f"{MAIN_PATH_REL_TOL}")
     piece = batch[:BATCH]
     fused_ms = cuda_ms(lambda: fused_eng.run_padded(piece), reps=10)
     plain_ms = cuda_ms(lambda: plain_eng.run_padded(piece), reps=10)
-    print(f"[main] fused vs unfused route: ||a-b||/||b|| = {rel:.3e} "
+    print(f"[{tag}] fused vs unfused route: ||a-b||/||b|| = {rel:.3e} "
           f"(tol {MAIN_PATH_REL_TOL}); device forward per batch of {BATCH}: "
           f"fused {fused_ms:.2f} ms, unfused {plain_ms:.2f} ms", flush=True)
-    return launches
+    return rel, fused_ms, plain_ms
+
+
+def featurize_predict(name, size, n_images, n_predict, sepconv, tag):
+    """Featurize ``n_images`` and (when ``n_predict``) predict top-5 of
+    ``n_predict`` synthetic images through the user entry points; returns
+    (frame, features, launch counts of that run)."""
+    from sparkdl_tpu_torch.transformers import named_image as ni
+
+    df = synthetic_frame(n_images, size, SEED)
+    spec_dim = {"Xception": 2048, "MobileNetV2": 1280}[name]
+    feat = ni.DeepImageFeaturizer(inputCol="image", outputCol="features",
+                                  modelName=name, batchSize=BATCH)
+    pred = ni.DeepImagePredictor(inputCol="image", outputCol="preds",
+                                 modelName=name, decodePredictions=True,
+                                 topK=5, batchSize=BATCH)
+    # warm-up: builds the engines (weights to the card) and cuDNN plans
+    feat.transform(df.limit(BATCH))
+    if n_predict:
+        pred.transform(df.limit(n_predict))
+    torch.cuda.synchronize()
+
+    reset_counts(sepconv)
+    t0 = time.perf_counter()
+    out = feat.transform(df)
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    pred_s = 0.0
+    if n_predict:
+        t0 = time.perf_counter()
+        pout = pred.transform(df.limit(n_predict))
+        torch.cuda.synchronize()
+        pred_s = time.perf_counter() - t0
+    counts = read_counts(sepconv)
+
+    feats = out.column_to_numpy("features")
+    check(feats.shape == (n_images, spec_dim), f"{tag}: feature shape "
+                                               f"{feats.shape}")
+    check(np.isfinite(feats).all(), f"{tag}: features not finite")
+    msg = (f"[{tag}] DeepImageFeaturizer {name} {size}x{size} batch {BATCH}: "
+           f"{n_images} images in {feat_s:.3f}s = {n_images / feat_s:.1f} "
+           f"img/s")
+    if n_predict:
+        preds = pout.table.column("preds").to_pylist()
+        check(len(preds) == n_predict and all(len(r) == 5 for r in preds),
+              f"{tag}: predictor did not return top-5 rows")
+        for r in preds:
+            p = [e["probability"] for e in r]
+            check(all(math.isfinite(v) for v in p)
+                  and p == sorted(p, reverse=True),
+                  f"{tag}: predictor probabilities not finite and sorted")
+        msg += (f"; DeepImagePredictor top-5: {n_predict} images in "
+                f"{pred_s:.3f}s = {n_predict / pred_s:.1f} img/s")
+    print(f"{msg}; launches {counts}", flush=True)
+    return df, feats, counts
+
+
+def phase_xception(sepconv):
+    """Default Xception path: 30 B1 launches per batch, no other kernel."""
+    df, feats, counts = featurize_predict("Xception", 299, N_IMAGES, N_PREDICT,
+                                          sepconv, "main")
+    batches = N_IMAGES // BATCH + N_PREDICT // BATCH
+    check(counts == dict(sepconv=SEPCONV_PER_FORWARD * batches,
+                         sepconv_tiled=0, mbconv=0),
+          f"Xception launches {counts}, want {SEPCONV_PER_FORWARD} sepconv "
+          f"per batch x {batches}")
+    unfused_check("Xception", df, feats, 299, "main")
+    return counts["sepconv"]
+
+
+def phase_mobilenet(sepconv):
+    """MobileNetV2 with SPARKDL_MNV2_FUSED=1: 13 B2 launches per batch."""
+    os.environ["SPARKDL_MNV2_FUSED"] = "1"
+    try:
+        df, feats, counts = featurize_predict("MobileNetV2", 224, N_IMAGES,
+                                              N_PREDICT, sepconv, "mobilenet")
+        batches = N_IMAGES // BATCH + N_PREDICT // BATCH
+        check(counts == dict(sepconv=0, sepconv_tiled=0,
+                             mbconv=MBCONV_PER_FORWARD * batches),
+              f"MobileNetV2 launches {counts}, want {MBCONV_PER_FORWARD} "
+              f"mbconv per batch x {batches}")
+        unfused_check("MobileNetV2", df, feats, 224, "mobilenet")
+    finally:
+        del os.environ["SPARKDL_MNV2_FUSED"]
+    return counts["mbconv"]
+
+
+def phase_xception_tiled(sepconv):
+    """Xception with SPARKDL_XC_TILED=1, one featurizer batch: 4 B3 and 30
+    B1 launches."""
+    os.environ["SPARKDL_XC_TILED"] = "1"
+    try:
+        df, feats, counts = featurize_predict("Xception", 299, BATCH, 0,
+                                              sepconv, "tiled")
+        check(counts == dict(sepconv=SEPCONV_PER_FORWARD,
+                             sepconv_tiled=TILED_PER_FORWARD, mbconv=0),
+              f"tiled Xception launches {counts}, want "
+              f"{TILED_PER_FORWARD} tiled + {SEPCONV_PER_FORWARD} sepconv")
+        unfused_check("Xception", df, feats, 299, "tiled")
+    finally:
+        del os.environ["SPARKDL_XC_TILED"]
+    return counts["sepconv_tiled"]
 
 
 def main():
@@ -278,10 +549,16 @@ def main():
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
     check(sparkdl_tpu_torch.resolve_device().type == "cuda",
           "entry points do not default to the card")
+    for knob in ("SPARKDL_MNV2_FUSED", "SPARKDL_XC_TILED"):
+        os.environ.pop(knob, None)
     phase_build(sepconv)
-    entry = phase_kernels(sepconv)
-    entry["launches"] = phase_main_path(sepconv)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    b1 = phase_sepconv_kernel(sepconv, tiled=False)
+    b3 = phase_sepconv_kernel(sepconv, tiled=True)
+    b2 = phase_mbconv_kernel(sepconv)
+    b1["launches"] = phase_xception(sepconv)
+    b2["launches"] = phase_mobilenet(sepconv)
+    b3["launches"] = phase_xception_tiled(sepconv)
+    print(json.dumps({"kernels": [b1, b3, b2]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,21 +1,32 @@
 """Pretrained-CNN zoo registry (port of ``sparkdl_tpu/models/__init__.py``).
 
-The port's zoo holds Xception so far.  Each ``ModelSpec`` carries what the
-transformer layer needs: input size, featurizer-cut width, ImageNet
-preprocess mode and the module builder.  Weights are a seeded random init
-at full width; importing Keras ``.h5`` weights is not ported yet.
+The port's zoo holds Xception and MobileNetV2 so far.  Each ``ModelSpec``
+carries what the transformer layer needs: input size, featurizer-cut
+width, ImageNet preprocess mode and the module builder.  Weights are a
+seeded random init at full width; importing Keras ``.h5`` weights is not
+ported yet.
+
+Two builders read process env, as in JAX: ``SPARKDL_XC_TILED=1`` routes
+Xception's large entry blocks through the tiled kernel,
+``SPARKDL_MNV2_FUSED=1`` MobileNetV2's stride-1 blocks through the mbconv
+kernel; both off by default.  Caches keyed on a model name fold in
+:func:`model_variant_key` so a knob set mid-process builds the other
+variant instead of serving the cached one.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
-from sparkdl_tpu_torch.models.layers import BatchNorm, SeparableConv2D
+from sparkdl_tpu_torch.models.layers import (BatchNorm, DepthwiseConv2D,
+                                             SeparableConv2D)
+from sparkdl_tpu_torch.models.mobilenet import MobileNetV2
 from sparkdl_tpu_torch.models.preprocess import get_preprocess_fn
 from sparkdl_tpu_torch.models.xception import Xception
 
@@ -29,6 +40,9 @@ class ModelSpec:
     input_size: Tuple[int, int]                # (height, width)
     feature_size: int                          # featurizer-cut dimensionality
     preprocess_mode: str                       # see models.preprocess
+    # () -> str tag when module_builder reads process env; caches keyed on
+    # the model name fold it in (model_variant_key)
+    variant_key_fn: Optional[Callable[[], str]] = None
 
     @property
     def preprocess(self):
@@ -38,10 +52,40 @@ class ModelSpec:
         return self.module_builder(**kwargs)
 
 
+def _env_flag(name: str, default: bool) -> bool:
+    """Truthy env knob, read as the JAX package reads it: unset or empty ->
+    ``default``; "0"/"false" (any case) -> False; anything else -> True."""
+    raw = os.environ.get(name, "").lower()
+    if raw == "":
+        return default
+    return raw not in ("0", "false")
+
+
+def _xc_tiled_enabled() -> bool:
+    return _env_flag("SPARKDL_XC_TILED", False)
+
+
+def _mnv2_fused_enabled() -> bool:
+    return _env_flag("SPARKDL_MNV2_FUSED", False)
+
+
+def _xception_builder(**kwargs) -> nn.Module:
+    return Xception(tiled_entry=_xc_tiled_enabled(), **kwargs)
+
+
+def _mobilenet_builder(**kwargs) -> nn.Module:
+    return MobileNetV2(fused_inference=_mnv2_fused_enabled(), **kwargs)
+
+
 _SPECS = {
-    "xception": ModelSpec(name="Xception", module_builder=Xception,
-                          input_size=(299, 299), feature_size=2048,
-                          preprocess_mode="tf"),
+    "xception": ModelSpec(
+        name="Xception", module_builder=_xception_builder,
+        input_size=(299, 299), feature_size=2048, preprocess_mode="tf",
+        variant_key_fn=lambda: "tiled" if _xc_tiled_enabled() else ""),
+    "mobilenetv2": ModelSpec(
+        name="MobileNetV2", module_builder=_mobilenet_builder,
+        input_size=(224, 224), feature_size=1280, preprocess_mode="tf",
+        variant_key_fn=lambda: "fused" if _mnv2_fused_enabled() else ""),
 }
 
 SUPPORTED_MODELS = sorted(s.name for s in _SPECS.values())
@@ -55,9 +99,16 @@ def get_model_spec(name: str) -> ModelSpec:
     return spec
 
 
+def model_variant_key(name: str) -> str:
+    """The env-dependent build-variant tag of ``name`` ("" for the default
+    build); caches keyed on the model name must include it."""
+    spec = get_model_spec(name)
+    return spec.variant_key_fn() if spec.variant_key_fn is not None else ""
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init in place, in module order.  Convs and the dense
-    head draw N(0, 1/fan_in) (the depthwise fan-in is its 9 taps); the
+    head draw N(0, 1/fan_in) (a depthwise fan-in is its 9 taps); the
     BatchNorm statistics are drawn near identity so that the folded
     affine (scale and shift) is exercised, not a no-op."""
 
@@ -74,6 +125,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             normal(mod.depthwise_weight, 1 / 3)
             normal(mod.pointwise_weight,
                    1 / math.sqrt(mod.pointwise_weight.shape[1]))
+        elif isinstance(mod, DepthwiseConv2D):
+            normal(mod.depthwise_weight, 1 / 3)
         elif isinstance(mod, nn.Conv2d):
             normal(mod.weight, 1 / math.sqrt(mod.weight[0].numel()))
         elif isinstance(mod, BatchNorm):
@@ -106,4 +159,4 @@ def load_model(name: str, weights: Optional[str] = None,
 
 
 __all__ = ["ModelSpec", "SUPPORTED_MODELS", "get_model_spec", "init_weights",
-           "load_model"]
+           "load_model", "model_variant_key"]

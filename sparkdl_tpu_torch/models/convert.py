@@ -7,6 +7,7 @@ imports no JAX) and maps it by layer path:
 
   * conv ``kernel`` HWIO -> ``weight`` OIHW
   * ``depthwise_kernel`` [3,3,C,1] -> ``depthwise_weight`` [C,1,3,3]
+    (a SeparableConv2D's, or a DepthwiseConv2D's on its own)
   * ``pointwise_kernel`` [1,1,C,F] -> ``pointwise_weight`` [F,C,1,1]
   * BatchNorm ``scale``/``bias`` + ``mean``/``var`` -> ``weight``/``bias``
     + ``running_mean``/``running_var`` (``num_batches_tracked`` = 0)
@@ -33,10 +34,12 @@ def _layer(name: str, leaves: Mapping, stats: Mapping) -> Dict[str, torch.Tensor
     leaves = dict(leaves)
     out: Dict[str, torch.Tensor] = {}
     if "depthwise_kernel" in leaves or "pointwise_kernel" in leaves:
-        out["depthwise_weight"] = _tensor(
-            leaves.pop("depthwise_kernel")).permute(2, 3, 0, 1)
-        out["pointwise_weight"] = _tensor(
-            leaves.pop("pointwise_kernel")).permute(3, 2, 0, 1)
+        if "depthwise_kernel" in leaves:
+            out["depthwise_weight"] = _tensor(
+                leaves.pop("depthwise_kernel")).permute(2, 3, 0, 1)
+        if "pointwise_kernel" in leaves:
+            out["pointwise_weight"] = _tensor(
+                leaves.pop("pointwise_kernel")).permute(3, 2, 0, 1)
     elif "kernel" in leaves:
         k = _tensor(leaves.pop("kernel"))
         if k.dim() == 4:

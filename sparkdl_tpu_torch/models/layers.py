@@ -10,7 +10,7 @@ both to (flax promotes; ``F.conv2d`` raises on mixed types).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -59,6 +59,18 @@ def max_pool_same(x: torch.Tensor, window: int = 3, stride: int = 2
     return F.max_pool2d(x, window, stride)
 
 
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """min(max(x, 0), 6) in x's dtype (MobileNetV2's activation)."""
+    return torch.clamp(x, 0.0, 6.0)
+
+
+def depthwise_taps(weight: torch.Tensor) -> torch.Tensor:
+    """A [C,1,3,3] grouped-conv depthwise weight as the kernels' [3,3,C]
+    taps (keras' ``depthwise_kernel`` layout without its multiplier)."""
+    c = weight.shape[0]
+    return weight.reshape(c, 9).t().reshape(3, 3, c)
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """GlobalAveragePooling2D over NCHW -> [N, C]: summed in f32, returned
     in x's dtype (``jnp.mean`` on bf16 does the same)."""
@@ -69,8 +81,9 @@ class BatchNorm(nn.BatchNorm2d):
     """Keras-default inference BatchNorm (eps 1e-3) with the folded form of
     ``BNAffine`` beside it; both read the same four tensors."""
 
-    def __init__(self, num_features: int, eps: float = BN_EPS_DEFAULT):
-        super().__init__(num_features, eps=eps, momentum=BN_MOMENTUM_DEFAULT)
+    def __init__(self, num_features: int, eps: float = BN_EPS_DEFAULT,
+                 momentum: float = BN_MOMENTUM_DEFAULT):
+        super().__init__(num_features, eps=eps, momentum=momentum)
 
     def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(scale', shift') in f32: scale' = gamma / sqrt(var + eps),
@@ -108,18 +121,56 @@ class SeparableConv2D(nn.Module):
         return conv2d(y, self.pointwise_weight)
 
     def fused(self, x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
-              pre_relu: bool = False, post_relu: bool = False
-              ) -> torch.Tensor:
-        """``post_relu?(BN(self(pre_relu?(x))))`` in one kernel; bf16 out."""
+              pre_relu: bool = False, post_relu: bool = False,
+              row_tile: Optional[int] = None) -> torch.Tensor:
+        """``post_relu?(BN(self(pre_relu?(x))))`` in one kernel; bf16 out.
+        ``row_tile`` takes the tiled kernel (``fused_sepconv``)."""
         c = x.shape[1]
         f = self.pointwise_weight.shape[0]
         nhwc = x.contiguous(memory_format=torch.channels_last).permute(
             0, 2, 3, 1)
-        dwk = self.depthwise_weight.reshape(c, 9).t().reshape(3, 3, c)
+        dwk = depthwise_taps(self.depthwise_weight)
         pw = self.pointwise_weight.reshape(f, c).t()
         y = fused_sepconv(nhwc, dwk, pw, scale, shift, pre_relu=pre_relu,
-                          post_relu=post_relu)
+                          post_relu=post_relu, row_tile=row_tile)
         return y.permute(0, 3, 1, 2)
+
+
+class DepthwiseConv2D(nn.Module):
+    """Bias-free 3x3 depthwise conv, multiplier 1
+    (``keras.layers.DepthwiseConv2D``): stride 1 SAME, or stride 2 VALID
+    (MobileNetV2 zero-pads ((0,1),(0,1)) before it, in the model).
+
+    ``depthwise_weight`` [C,1,3,3] is the grouped-conv layout of keras'
+    ``depthwise_kernel`` [3,3,C,1] (:func:`depthwise_taps` gives the
+    kernels' [3,3,C])."""
+
+    def __init__(self, channels: int, stride: int = 1):
+        super().__init__()
+        if stride not in (1, 2):
+            raise ValueError(f"stride must be 1 (SAME) or 2 (VALID), got "
+                             f"{stride}")
+        self.stride = stride
+        self.depthwise_weight = nn.Parameter(torch.empty(channels, 1, 3, 3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.depthwise_weight, stride=self.stride,
+                      padding=1 if self.stride == 1 else 0,
+                      groups=x.shape[1])
+
+
+def fold_bn_into_conv(kernel: torch.Tensor, scale: torch.Tensor,
+                      shift: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold an inference BatchNorm affine into a bias-free conv, as the JAX
+    package's ``fold_bn_into_conv``: ``conv(x, k) * s + t == conv(x, k*s)
+    + t``.  ``kernel`` has its output channels LAST (keras' layouts: [3,3,C]
+    depthwise, [C,F] pointwise).  The fold runs in f32 and K is cast back
+    to the kernel's dtype, so a bf16 engine stays bf16; B is f32 for the
+    caller to cast at the add."""
+    f32 = torch.float32
+    k = (kernel.to(f32) * scale.to(f32)).to(kernel.dtype)
+    return k, shift.to(f32)
 
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:

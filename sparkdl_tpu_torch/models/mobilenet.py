@@ -1,0 +1,148 @@
+"""MobileNetV2 (alpha 1.0, 224x224) as a PyTorch module (port of
+``sparkdl_tpu/models/mobilenet.py``).
+
+Layer names mirror ``keras.applications.MobileNetV2`` and the JAX module
+("Conv1", "bn_Conv1", "expanded_conv_depthwise", "block_1_expand", ...,
+"Conv_1", "Conv_1_bn", "predictions"), so ``models/convert.py`` maps the
+JAX variable tree by path.  Keras' stride-2 stages zero-pad ((0,1),(0,1))
+and then convolve VALID; reproduced as is.  BN epsilon 1e-3.  Featurizer
+cut = global average pool (1280-d).  The forward takes NHWC ``[B,H,W,3]``
+like the JAX module and runs NCHW in ``channels_last`` memory inside.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from sparkdl_tpu_torch.models.layers import (BatchNorm, DepthwiseConv2D,
+                                             conv2d, depthwise_taps,
+                                             fold_bn_into_conv,
+                                             global_avg_pool, linear, relu6)
+from sparkdl_tpu_torch.ops.sepconv import fused_mbconv
+
+# (expansion t, out channels c, repeats n, first stride s) — table 2 of the
+# MobileNetV2 paper, alpha=1.0.
+_BLOCKS = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
+           (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1))
+_BN_EPS = 1e-3
+_BN_MOMENTUM = 0.001  # torch's convention: 1 - keras' 0.999
+
+
+def _pad_correct(x: torch.Tensor) -> torch.Tensor:
+    """Keras ``ZeroPadding2D(((0,1),(0,1)))`` on NCHW, before stride-2
+    VALID convs."""
+    return F.pad(x, (0, 1, 0, 1))
+
+
+def _blocks():
+    """(prefix, t, cin, c, stride) of the 17 inverted-residual blocks."""
+    out, cin, block_id = [], 32, 0
+    for t, c, n, s in _BLOCKS:
+        for i in range(n):
+            prefix = "expanded_conv" if block_id == 0 else f"block_{block_id}"
+            out.append((prefix, t, cin, c, s if i == 0 else 1))
+            cin = c
+            block_id += 1
+    return out
+
+
+class MobileNetV2(nn.Module):
+    """``fused_inference`` runs each stride-1 inverted-residual block's
+    depthwise + BN + relu6 + project + BN tail as ONE kernel
+    (``ops/sepconv.py fused_mbconv``, B2), with the expand 1x1 as a folded
+    matmul in the working dtype before it — the JAX module's fused route,
+    in eval mode only.  On a CPU tensor the kernel's plain version runs
+    (the parity tests' route).  Off by default, as in JAX; the registry
+    builder reads ``SPARKDL_MNV2_FUSED``.  Both routes read the same
+    parameters."""
+
+    def __init__(self, num_classes: int = 1000, fused_inference: bool = False):
+        super().__init__()
+        self.fused_inference = fused_inference
+
+        def bn(name, f):
+            self.add_module(name, BatchNorm(f, eps=_BN_EPS,
+                                            momentum=_BN_MOMENTUM))
+
+        self.add_module("Conv1", nn.Conv2d(3, 32, 3, 2, bias=False))
+        bn("bn_Conv1", 32)
+        for prefix, t, cin, c, stride in _blocks():
+            cdw = cin * t
+            if t != 1:
+                self.add_module(f"{prefix}_expand",
+                                nn.Conv2d(cin, cdw, 1, bias=False))
+                bn(f"{prefix}_expand_BN", cdw)
+            self.add_module(f"{prefix}_depthwise",
+                            DepthwiseConv2D(cdw, stride))
+            bn(f"{prefix}_depthwise_BN", cdw)
+            self.add_module(f"{prefix}_project",
+                            nn.Conv2d(cdw, c, 1, bias=False))
+            bn(f"{prefix}_project_BN", c)
+        self.add_module("Conv_1", nn.Conv2d(320, 1280, 1, bias=False))
+        bn("Conv_1_bn", 1280)
+        self.predictions = nn.Linear(1280, num_classes)
+
+    def _fused_block(self, x: torch.Tensor, prefix: str, t: int, cin: int,
+                     c: int) -> torch.Tensor:
+        """One stride-1 block on the fused route (``mobilenet.py:81-118`` of
+        the JAX package), in NHWC: folded expand matmul + relu6 in x's
+        dtype, the tail through ``fused_mbconv`` (bf16 out, cast back to
+        x's dtype), the residual added in that dtype when cin == c."""
+        m = self._modules
+        work_dt = x.dtype
+        xh = x.permute(0, 2, 3, 1)  # NCHW (channels_last) -> NHWC view
+        if t != 1:
+            ke = m[f"{prefix}_expand"].weight
+            se, te = m[f"{prefix}_expand_BN"].folded()
+            ke_, be = fold_bn_into_conv(ke.reshape(cin * t, cin).t(), se, te)
+            y = torch.matmul(xh.to(ke_.dtype), ke_)
+            y = torch.clamp(y + be.to(y.dtype), 0.0, 6.0)
+        else:
+            y = xh
+        cdw = y.shape[-1]
+        sd, td = m[f"{prefix}_depthwise_BN"].folded()
+        kd, bd = fold_bn_into_conv(
+            depthwise_taps(m[f"{prefix}_depthwise"].depthwise_weight), sd, td)
+        sp, tp = m[f"{prefix}_project_BN"].folded()
+        kp, bp = fold_bn_into_conv(
+            m[f"{prefix}_project"].weight.reshape(c, cdw).t(), sp, tp)
+        out = fused_mbconv(y, kd, kp, bd, bp).to(work_dt)
+        if cin == c:
+            out = out + xh
+        return out.permute(0, 3, 1, 2)
+
+    def forward(self, x: torch.Tensor, features: bool = False,
+                logits: bool = False) -> torch.Tensor:
+        fused = self.fused_inference and not self.training
+        m = self._modules
+
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)
+        x = conv2d(_pad_correct(x), m["Conv1"].weight, stride=2)
+        x = relu6(m["bn_Conv1"](x))
+        for prefix, t, cin, c, stride in _blocks():
+            if fused and stride == 1:
+                x = self._fused_block(x, prefix, t, cin, c)
+                continue
+            inp = x
+            if t != 1:
+                x = conv2d(x, m[f"{prefix}_expand"].weight)
+                x = relu6(m[f"{prefix}_expand_BN"](x))
+            if stride == 2:
+                x = _pad_correct(x)
+            x = m[f"{prefix}_depthwise"](x)
+            x = relu6(m[f"{prefix}_depthwise_BN"](x))
+            x = conv2d(x, m[f"{prefix}_project"].weight)
+            x = m[f"{prefix}_project_BN"](x)  # linear bottleneck
+            if stride == 1 and cin == c:
+                x = x + inp
+        x = conv2d(x, m["Conv_1"].weight)
+        x = relu6(m["Conv_1_bn"](x))
+        x = global_avg_pool(x)  # 1280-d featurizer cut
+        if features:
+            return x
+        x = linear(x, self.predictions)
+        if logits:
+            return x
+        return torch.softmax(x, dim=-1)

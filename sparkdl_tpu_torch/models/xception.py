@@ -30,11 +30,12 @@ def _round_up(v: int, m: int) -> int:
 def _pick_row_tile(h: int, w: int, channels: int) -> Optional[int]:
     """The JAX module's route rule, kept as is so the port fuses the same
     layers: a block whose padded-flat working set ((H+2) * round_up(W+2, 8)
-    * C) exceeds 1.2M position-channels took the row-tiled kernel there,
-    which the port does not have yet (those blocks run the plain route);
-    None = the whole-image kernel, which the port runs as its CUDA kernel.
-    At 299x299 that fuses block4, the middle flow, block13 and block14:
-    30 separable convs per forward."""
+    * C) exceeds 1.2M position-channels takes the tiled kernel (B3, only
+    with ``tiled_entry``; the plain route otherwise); None = the
+    whole-image kernel (B1).  At 299x299 that puts entry blocks 2-3 (147²,
+    74²) on the tiled rule and block4, the middle flow, block13 and
+    block14 on B1: 30 separable convs per forward, 34 with
+    ``tiled_entry``."""
     if (h + 2) * _round_up(w + 2, 8) * channels <= 1_200_000:
         return None
     return 16
@@ -45,12 +46,18 @@ class Xception(nn.Module):
     ReLUs) through the fused kernel (``ops/sepconv.py``) in eval mode:
     None = auto (on when the input lies on a CUDA device), True = always
     (a CPU tensor takes the kernel's plain version — the parity tests'
-    route), False = never.  Both routes read the same parameters."""
+    route), False = never.  ``tiled_entry`` also routes the entry blocks
+    whose image is too large for the whole-image rule (147², 74² at 299)
+    through the tiled kernel, as JAX's ``tiled_entry`` does; off by
+    default, and the registry builder reads ``SPARKDL_XC_TILED``.  Both
+    routes read the same parameters."""
 
     def __init__(self, num_classes: int = 1000,
-                 fused_inference: Optional[bool] = None):
+                 fused_inference: Optional[bool] = None,
+                 tiled_entry: bool = False):
         super().__init__()
         self.fused_inference = fused_inference
+        self.tiled_entry = tiled_entry
 
         def conv(name, cin, cout, k, stride):
             self.add_module(name, nn.Conv2d(cin, cout, k, stride, bias=False))
@@ -110,12 +117,15 @@ class Xception(nn.Module):
             y = conv2d(x, m[name].weight, stride=m[name].stride)
             return bn_act(y, bn_name, act)
 
-        def sep(x, name, pre_relu=False, post_relu=False, kernel=False):
+        def sep(x, name, pre_relu=False, post_relu=False, kernel=False,
+                row_tile=None):
             """sepconv + BN (+ its ReLUs); ``kernel`` takes the fused
-            kernel (bf16 out), else the plain convs and ``bn_act``."""
+            kernel (bf16 out; ``row_tile`` the tiled one), else the plain
+            convs and ``bn_act``."""
             if kernel:
                 s, t = m[f"{name}_bn"].folded()
-                return m[name].fused(x, s, t, pre_relu, post_relu)
+                return m[name].fused(x, s, t, pre_relu, post_relu,
+                                     row_tile=row_tile)
             if pre_relu:
                 x = relu(x)
             return bn_act(m[name](x), f"{name}_bn", act=post_relu)
@@ -135,9 +145,12 @@ class Xception(nn.Module):
         for i, f in _ENTRY_BLOCKS:
             residual = conv_bn(x, f"shortcut{i}_conv", f"shortcut{i}_bn")
             h, w = x.shape[2], x.shape[3]
-            flat = fused and _pick_row_tile(h, w, max(x.shape[1], f)) is None
-            x = sep(x, f"block{i}_sepconv1", pre_relu=i > 2, kernel=flat)
-            x = sep(x, f"block{i}_sepconv2", pre_relu=True, kernel=flat)
+            tile = _pick_row_tile(h, w, max(x.shape[1], f))
+            flat = fused and (tile is None or self.tiled_entry)
+            x = sep(x, f"block{i}_sepconv1", pre_relu=i > 2, kernel=flat,
+                    row_tile=tile)
+            x = sep(x, f"block{i}_sepconv2", pre_relu=True, kernel=flat,
+                    row_tile=tile)
             x = add(max_pool_same(x), residual)
 
         # Middle flow: 8 identity blocks of three sepconvs.

@@ -3,9 +3,11 @@ with ``ctypes``.
 
 Each library is a plain C interface compiled for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into ``build/sparkdl_tpu_torch/``
-at the root of the checkout, under a name keyed on a hash of its sources and
-flags, so an edited source rebuilds and an unchanged one loads at once.
-A failed build raises; nothing falls back to a plain version.
+at the root of the checkout, under a name keyed on a hash of its sources,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source
+rebuilds and an unchanged one loads at once.  :func:`load_all` starts one
+nvcc per library at once.  A failed build raises; nothing falls back to a
+plain version.
 """
 
 from __future__ import annotations
@@ -16,8 +18,9 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Mapping, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sparkdl_tpu_torch"
@@ -25,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_name_locks: Dict[str, threading.Lock] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -41,9 +45,11 @@ def _nvcc() -> str:
 
 def library_path(name: str, sources: Sequence[str]) -> Path:
     """Where ``name`` built from ``sources`` (file names under ``csrc/``)
-    lives: the name carries a hash of the sources and the flags."""
+    lives: the name carries a hash of the sources, the headers and the
+    flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted(p.name for p in CSRC.glob("*.cuh"))
+    for src in [*sources, *headers]:
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
@@ -78,10 +84,22 @@ def build_log(name: str, sources: Sequence[str]) -> str:
 
 
 def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Build (if needed) and load ``name`` once per process."""
+    """Build (if needed) and load ``name`` once per process; libraries of
+    other names build beside it."""
     with _lock:
+        lock = _name_locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name, sources)))
             _loaded[name] = lib
         return lib
+
+
+def load_all(libraries: Mapping[str, Sequence[str]]) -> Dict[str, ctypes.CDLL]:
+    """Build and load every ``name -> sources`` library, one nvcc each, all
+    started together; raises the first failure."""
+    with ThreadPoolExecutor(max_workers=max(1, len(libraries))) as pool:
+        futures = {name: pool.submit(load, name, srcs)
+                   for name, srcs in libraries.items()}
+        return {name: fut.result() for name, fut in futures.items()}

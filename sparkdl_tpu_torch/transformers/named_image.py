@@ -23,7 +23,8 @@ import torch.nn as nn
 
 from sparkdl_tpu_torch import resolve_device
 from sparkdl_tpu_torch.image.io import arrowStructsToBatch
-from sparkdl_tpu_torch.models import SUPPORTED_MODELS, get_model_spec, load_model
+from sparkdl_tpu_torch.models import (SUPPORTED_MODELS, get_model_spec,
+                                      load_model, model_variant_key)
 from sparkdl_tpu_torch.models.imagenet import decode_predictions
 from sparkdl_tpu_torch.param.converters import SparkDLTypeConverters
 from sparkdl_tpu_torch.param.params import Param, TypeConverters, keyword_only
@@ -36,9 +37,9 @@ from sparkdl_tpu_torch.utils.prefetch import prefetch_iter
 
 logger = get_logger(__name__)
 
-# Process-wide caches: zoo weights load once, engines are built once per
-# (model, cut, batch, dtype, device).
-_MODEL_CACHE: Dict[str, nn.Module] = {}
+# Process-wide caches: zoo weights load once per (model, build variant),
+# engines are built once per (model, variant, cut, batch, dtype, device).
+_MODEL_CACHE: Dict[tuple, nn.Module] = {}
 _ENGINE_CACHE: Dict[tuple, InferenceEngine] = {}
 
 
@@ -48,9 +49,12 @@ def clear_model_caches():
 
 
 def _cached_model(name: str) -> nn.Module:
-    key = get_model_spec(name).name
+    # the env-dependent build variant (SPARKDL_MNV2_FUSED, SPARKDL_XC_TILED)
+    # is part of the key: a knob set mid-process builds the other variant
+    name = get_model_spec(name).name
+    key = (name, model_variant_key(name))
     if key not in _MODEL_CACHE:
-        _MODEL_CACHE[key] = load_model(key)
+        _MODEL_CACHE[key] = load_model(name)
     return _MODEL_CACHE[key]
 
 
@@ -84,7 +88,8 @@ def zoo_model_fn(name: str, featurize: bool,
 
 
 def _zoo_engine(name: str, featurize: bool, batch_size: int) -> InferenceEngine:
-    """One cached engine per (model, cut, batch, compute dtype, device).
+    """One cached engine per (model, build variant, cut, batch, compute
+    dtype, device).
 
     ``SPARKDL_ZOO_COMPUTE_DTYPE=bfloat16`` runs the model in bf16 and
     fetches bf16 outputs, widened to f32 on the host.  The default stays
@@ -92,7 +97,8 @@ def _zoo_engine(name: str, featurize: bool, batch_size: int) -> InferenceEngine:
     """
     cdt_name = zoo_compute_dtype_name()
     device = resolve_device()
-    key = (get_model_spec(name).name, featurize, batch_size, cdt_name,
+    name = get_model_spec(name).name
+    key = (name, model_variant_key(name), featurize, batch_size, cdt_name,
            str(device))
     eng = _ENGINE_CACHE.get(key)
     if eng is None:
@@ -197,7 +203,8 @@ class _NamedImageTransformer(_ImageInputStage, HasModelName):
 
 class DeepImageFeaturizer(_NamedImageTransformer):
     """Zoo-model featurization for transfer learning: the output column
-    holds the penultimate-layer vector (2048-d for Xception)."""
+    holds the penultimate-layer vector (2048-d for Xception, 1280-d for
+    MobileNetV2)."""
 
     featurize = True
 

@@ -58,7 +58,7 @@ def test_entry_point_without_cuda_raises(monkeypatch):
     # the user-facing stage: the engine is built for the first decoded
     # chunk, and that is where the device is resolved
     monkeypatch.setattr(named_image, "_MODEL_CACHE",
-                        {"Xception": torch.nn.Identity()})
+                        {("Xception", ""): torch.nn.Identity()})
     img = np.zeros((299, 299, 3), np.uint8)
     df = DataFrame(structsToArrow([imageArrayToStruct(img)]))
     stage = named_image.DeepImageFeaturizer(

@@ -57,7 +57,8 @@ def zoo(monkeypatch, variables):
                         (narrow_jax.build(), variables))
     model = Xception()
     model.load_state_dict(state_dict_from_jax("Xception", variables))
-    monkeypatch.setitem(port_ni._MODEL_CACHE, "Xception", model.eval())
+    monkeypatch.setitem(port_ni._MODEL_CACHE, ("Xception", ""),
+                        model.eval())
     with sparkdl_tpu_torch.default_device("cpu"):
         yield
 

@@ -113,3 +113,66 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         port._fused_sepconv_cuda(x.bfloat16(), dwk.bfloat16(), pw.bfloat16(),
                                  s, t, False, False)
+
+
+# The TILED_SHAPES of tests/test_ops_sepconv.py: (h, w, c, f, row tile)
+TILED_SHAPES = [
+    (13, 11, 16, 16, 5),
+    (19, 19, 32, 40, 7),
+    (12, 9, 16, 24, 7),
+]
+
+
+@pytest.mark.parametrize("h,w,c,f,th", TILED_SHAPES)
+@pytest.mark.parametrize("pre_relu,post_relu", [(True, False),
+                                                (False, True)])
+def test_tiled_route_matches_interpreted_kernel(h, w, c, f, th, pre_relu,
+                                                post_relu):
+    """``fused_sepconv(row_tile=th)`` == the row-tiled Pallas kernel,
+    interpreted on its rows-rounded-up padded-flat layout and
+    unflattened."""
+    arrs = _inputs(h * 1000 + c + th, 2, h, w, c, f)
+    x = torch.from_numpy(arrs[0])
+    got = port.fused_sepconv(x, *[torch.from_numpy(a) for a in arrs[1:]],
+                             pre_relu=pre_relu, post_relu=post_relu,
+                             row_tile=th)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, h, w, f)
+    jx = [jnp.asarray(a) for a in arrs]
+    kern = fused_sepconv_flat(pad_to_flat(jx[0], h, w, row_tile=th), *jx[1:],
+                              h, w, pre_relu, post_relu, force="interpret",
+                              row_tile=th)
+    kern = np.asarray(unflatten(kern, h, w), np.float32)
+    np.testing.assert_allclose(got.float().numpy(), kern, **KERNEL_TOL)
+
+
+def test_tiled_two_layer_chain_matches_jax():
+    """sepconv1 -> sepconv2 of an entry block on the tiled route: the
+    port's bf16 output feeds the next layer as the tiled Pallas kernel's
+    does (no repacking between them there either)."""
+    h, w, c, th = 13, 13, 16, 5
+    x, dwk1, pw1, s1, t1 = _inputs(17, 2, h, w, c, c)
+    _, dwk2, pw2, s2, t2 = _inputs(18, 2, h, w, c, c)
+    a = port.fused_sepconv(*[torch.from_numpy(v) for v in
+                             (x, dwk1, pw1, s1, t1)], row_tile=th)
+    b = port.fused_sepconv(a, *[torch.from_numpy(v) for v in
+                                (dwk2, pw2, s2, t2)], pre_relu=True,
+                           row_tile=th)
+    xf = pad_to_flat(jnp.asarray(x), h, w, row_tile=th)
+    ka = fused_sepconv_flat(xf, jnp.asarray(dwk1), jnp.asarray(pw1),
+                            jnp.asarray(s1), jnp.asarray(t1), h, w, False,
+                            False, force="interpret", row_tile=th)
+    kb = fused_sepconv_flat(ka, jnp.asarray(dwk2), jnp.asarray(pw2),
+                            jnp.asarray(s2), jnp.asarray(t2), h, w, True,
+                            False, force="interpret", row_tile=th)
+    want = np.asarray(unflatten(kb, h, w), np.float32)
+    # the tiled Pallas kernel's chain bar in tests/test_ops_sepconv.py
+    np.testing.assert_allclose(b.float().numpy(), want, rtol=0.1, atol=0.08)
+
+
+def test_tiled_cuda_wrapper_refuses_cpu_tensors():
+    x, dwk, pw, s, t = [torch.from_numpy(a) for a in _inputs(4, 1, 4, 4, 8, 8)]
+    before = port.fused_sepconv.tiled_launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        port._fused_sepconv_tiled_cuda(x.bfloat16(), dwk.bfloat16(),
+                                       pw.bfloat16(), s, t, True, False)
+    assert port.fused_sepconv.tiled_launches == before

@@ -88,8 +88,10 @@ def test_fused_route_layer_counts(monkeypatch):
     kernel, so no full-size compute happens here."""
     calls = []
 
-    def stub(x, dwk, pw, scale, shift, pre_relu=False, post_relu=False):
-        calls.append((tuple(x.shape), pw.shape[-1], pre_relu, post_relu))
+    def stub(x, dwk, pw, scale, shift, pre_relu=False, post_relu=False,
+             row_tile=None):
+        calls.append((tuple(x.shape), pw.shape[-1], pre_relu, post_relu,
+                      row_tile))
         return torch.empty(x.shape[:3] + (pw.shape[-1],), dtype=torch.bfloat16,
                            device=x.device)
 
@@ -104,8 +106,57 @@ def test_fused_route_layer_counts(monkeypatch):
     # at 299: block4 at 37x37, middle flow and block13 at 19x19, block14
     # at 10x10 with the post-ReLU
     assert calls[0][0][1:] == (37, 37, 256) and calls[0][1] == 728
-    assert calls[-1][0][1:] == (10, 10, 1536) and calls[-1][1:] == (2048,
-                                                                    False, True)
+    assert calls[-1][0][1:] == (10, 10, 1536) and calls[-1][1:] == (
+        2048, False, True, None)
+    assert all(c[-1] is None for c in calls)
+
+
+def test_tiled_entry_layer_counts(monkeypatch):
+    """With ``tiled_entry`` the 299x299 forward also fuses entry blocks
+    2-3 through the tiled route (row_tile 16, as JAX picks it): 4 more
+    layers, at 147x147 (64->128 without the pre-ReLU, 128->128) and 74x74
+    (128->256, 256->256); the other 30 stay on the whole-image kernel."""
+    calls = []
+
+    def stub(x, dwk, pw, scale, shift, pre_relu=False, post_relu=False,
+             row_tile=None):
+        calls.append((tuple(x.shape[1:]), pw.shape[-1], pre_relu, row_tile))
+        return torch.empty(x.shape[:3] + (pw.shape[-1],), dtype=torch.bfloat16,
+                           device=x.device)
+
+    monkeypatch.setattr(layers, "fused_sepconv", stub)
+    with torch.device("meta"):
+        m = Xception(fused_inference=True, tiled_entry=True).eval()
+        m(torch.empty(2, 299, 299, 3), features=True)
+    tiled = [c for c in calls if c[-1] is not None]
+    assert len(calls) == 34 and len(tiled) == 4
+    assert tiled == [((147, 147, 64), 128, False, 16),
+                     ((147, 147, 128), 128, True, 16),
+                     ((74, 74, 128), 256, True, 16),
+                     ((74, 74, 256), 256, True, 16)]
+
+
+def test_tiled_entry_matches_jax_and_unfused(jax_setup):
+    """``Xception(fused_inference=True, tiled_entry=True)`` at 224x224, so
+    block2 (111x111) takes the tiled route, held against JAX's same
+    configuration (both run their kernel's plain version on the CPU) and
+    against the port's unfused route, from the same variables."""
+    _, variables = jax_setup
+    x = (np.random.default_rng(12).random((1, 224, 224, 3)) * 2 - 1
+         ).astype(np.float32)
+    jm = JaxXception(num_classes=5, fused_inference=True, tiled_entry=True)
+    want = np.asarray(jm.apply(variables, x, train=False, features=True),
+                      np.float32)
+    pm = _port(variables, True)
+    pm.tiled_entry = True
+    xt = torch.from_numpy(x)
+    with torch.inference_mode():
+        got = pm(xt, features=True).float().numpy()
+        pm.fused_inference = False
+        plain = pm(xt, features=True).float().numpy()
+    assert got.shape == (1, 2048)
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(got, plain, **FUSED_TOL)
 
 
 def test_convert_raises_on_unmatched_leaves(jax_setup):

@@ -1,19 +1,26 @@
-"""Where the time of one Xception forward goes in the PyTorch port, on a GPU.
+"""Where the time of one zoo forward goes in the PyTorch port, on a GPU.
 
-    python3 tools/port_profile.py [--batch 32]
+    python3 tools/port_profile.py [--model Xception|MobileNetV2] [--batch 32]
+                                  [--set SPARKDL_XC_TILED=1] [--set ...]
 
-Builds the port's zoo engine (featurizer cut, seeded random weights) on
-the card and reports, for one batch of 299x299 images: the device time of
-the forward on the fused and the unfused route, in f32 and in bf16
-compute (``SPARKDL_ZOO_COMPUTE_DTYPE=bfloat16``), with cuDNN's TF32 off and
-on; then a ``torch.profiler`` table of the fused f32 forward's CUDA time by
-kernel.  Prints the card's name and power limit first.  Needs a CUDA card.
+Builds the port's zoo model (featurizer cut, seeded random weights, the
+build variant the ``--set`` environment knobs select, e.g.
+``SPARKDL_MNV2_FUSED=1`` or ``SPARKDL_XC_TILED=1``) on the card and
+reports, for one batch at the model's input size: the time of the forward
+(CUDA events around it, so the host's enqueue gaps count) on the fused and
+the unfused route, in f32 and in bf16 compute
+(``SPARKDL_ZOO_COMPUTE_DTYPE=bfloat16``), with cuDNN's TF32 off and on;
+then, for each route in f32 with TF32 off, a ``torch.profiler`` table of
+the forward's device time by kernel, its launch count, the wall time of
+the forward and the share of it the device was busy.  Prints the card's
+name and power limit first.  Needs a CUDA card.
 """
 
 import argparse
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -36,31 +43,84 @@ def cuda_ms(fn, reps=10, warmup=3):
     return float(np.median(times))
 
 
+def profile_forward(eng, batch, label):
+    """Profiler table of one forward: device time by kernel name (device
+    events only: an aten op's row would count its kernels twice), the
+    forward's wall time under the profiler and the device's busy share of
+    it (kernels on one stream do not overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.run_padded(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run_padded(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        # "Activity Buffer Request" is the profiler's own bookkeeping
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith("Activity"):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
+    print(f"profiler: {label} forward, device time {total / 1e3:.2f} ms "
+          f"over {len(rows)} kernel names ({launches} launches); wall time "
+          f"{wall_ms:.2f} ms under the profiler, device busy "
+          f"{total / 1e3 / wall_ms:.0%} of it")
+    for dev_us, count, key in rows[:15]:
+        print(f"  {dev_us / 1e3:8.3f} ms {dev_us / total:6.1%} x{count:<4} "
+              f"{key[:90]}")
+
+
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="Xception")
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--set", action="append", default=[], metavar="KNOB=VALUE",
+                    help="environment knob for the model's build variant")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("port_profile: no CUDA device is available")
+    for kv in args.set:
+        knob, _, value = kv.partition("=")
+        os.environ[knob] = value
+    from sparkdl_tpu_torch.models import get_model_spec, model_variant_key
     from sparkdl_tpu_torch.parallel.engine import InferenceEngine
     from sparkdl_tpu_torch.transformers import named_image as ni
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    spec = get_model_spec(args.model)
+    h, w = spec.input_size
+    print(f"{spec.name} {h}x{w} batch {args.batch}, build variant "
+          f"{model_variant_key(spec.name)!r}")
     torch.backends.cuda.matmul.allow_tf32 = False
     batch = np.random.default_rng(0).integers(
-        0, 256, (args.batch, 299, 299, 3), dtype=np.uint8)
-    module = ni._cached_model("Xception")
+        0, 256, (args.batch, h, w, 3), dtype=np.uint8)
+    module = ni._cached_model(spec.name)
+
+    def engine(cdt, fused):
+        eng = InferenceEngine(
+            ni.zoo_model_fn(spec.name, True, compute_dtype=cdt), module,
+            device="cuda", device_batch_size=args.batch, compute_dtype=cdt)
+        eng.module.fused_inference = fused
+        return eng
+
     for tf32 in (False, True):
         torch.backends.cudnn.allow_tf32 = tf32
         for cdt in (None, torch.bfloat16):
             for fused in (True, False):
-                eng = InferenceEngine(
-                    ni.zoo_model_fn("Xception", True, compute_dtype=cdt),
-                    module, device="cuda", device_batch_size=args.batch,
-                    compute_dtype=cdt)
-                eng.module.fused_inference = fused
+                eng = engine(cdt, fused)
                 ms = cuda_ms(lambda: eng.run_padded(batch))
                 print(f"forward batch {args.batch}: "
                       f"{'bf16' if cdt else 'f32 '} "
@@ -69,30 +129,9 @@ def main():
                       f"({args.batch / ms * 1e3:.0f} img/s)", flush=True)
 
     torch.backends.cudnn.allow_tf32 = False
-    eng = InferenceEngine(ni.zoo_model_fn("Xception", True), module,
-                          device="cuda", device_batch_size=args.batch)
-    eng.run_padded(batch)
-    torch.cuda.synchronize()
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.run_padded(batch)
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us, ev.count, ev.key))
-    rows.sort(reverse=True)
-    total = sum(r[0] for r in rows)
-    print(f"profiler: fused f32 forward, CUDA self time {total / 1e3:.2f} ms "
-          f"over {len(rows)} kernel names")
-    for dev_us, count, key in rows[:15]:
-        print(f"  {dev_us / 1e3:8.3f} ms {dev_us / total:6.1%} x{count:<4} "
-              f"{key[:90]}")
+    for fused in (True, False):
+        profile_forward(engine(None, fused), batch,
+                        f"{'fused' if fused else 'unfused'} f32")
 
 
 if __name__ == "__main__":
