@@ -6,274 +6,370 @@
 //     out = bf16( post_relu?( pointwise(bf16(depthwise3x3(pre_relu?(x))))
 //                             * scale + shift ) )
 //
-// with the rounding points of the TPU kernel: x widened to f32 (ReLU in
-// f32), 9-tap depthwise accumulated in f32, the depthwise result rounded to
-// bf16, bf16 x bf16 pointwise with f32 accumulation, the BatchNorm affine
-// in f32, bf16 store.  Depthwise 3x3, stride 1, SAME zero padding (masked
-// here, no padded layout), depth multiplier 1.
+// with the rounding points of the TPU kernel: x widened to f32 (ReLU
+// exact), 9-tap depthwise accumulated in f32, the depthwise result rounded
+// to bf16, bf16 x bf16 pointwise with f32 accumulation, the BatchNorm
+// affine in f32, bf16 store.  Depthwise 3x3, stride 1, SAME zero padding
+// (masked by coordinates, no padded layout), depth multiplier 1.
 //
 // What bounds it on an H100: 2*N*H*W*C*(9+F) operations against
-// (N*H*W*(C+F) + 9*C + C*F) * 2 bytes.  Xception's exit and middle flow
+// (N*H*W*(C+F) + 9*C + C*F) * 2 bytes.  Xception's middle and exit flow
 // (C >= 728) sit above the card's ~295 ops/byte bf16 ridge, so the tensor
 // cores bound them; block4's 256->728 layer sits below it, bound by bytes.
-// The design therefore runs the product on the tensor cores (mma.sync
-// m16n8k16 bf16, f32 accumulators in registers) and never writes the
-// depthwise intermediate to device memory: each block computes its
-// depthwise tile straight into shared memory as the A operand, so device
-// memory sees x read and out written once (plus re-reads served by L2).
 //
-// Block tile: P=64 output pixels (flattened over N*H*W, so small images
-// do not leave tiles half empty) x TF=256 output channels, 8 warps of
-// 32x64 each (a wide F tile, because recomputing the depthwise per F-tile
-// is what the CUDA cores spend most on).  The input channels are walked in
-// chunks of KC=64 through a two-stage cp.async pipeline: while the block
-// computes chunk k, the copies of chunk k+1 are in flight — the pointwise
-// tile [KC][TF], the 9 depthwise taps [9][KC] and the input window
-// [P + 2W + 2][KC], i.e. the tile's flattened pixels plus one image row and
-// one pixel on each side, which holds every 3x3 neighbour of every pixel of
-// the tile (neighbours outside the image are masked by coordinates, not
-// read).  The depthwise tile is then computed from shared memory (f32 sums,
-// bf16 rounding) into the A tile, and the tensor cores take A x B (B
-// fragments via ldmatrix.trans).  Everything past C, F or the last pixel is
-// zero-filled.  C and F must be multiples of 8 (every Xception width is);
-// shared memory grows with W (106 KB at W=19, 115 KB at W=37).
+// Design: a block owns 64 output pixels (flattened over N*H*W, so 10x10
+// images still fill tiles) and one group of output channels, in two phases.
+//  1. Depthwise, once: the block walks C in chunks of KC1 channels through
+//     a two-stage cp.async pipeline of the input window (the tile's pixels
+//     plus one image row and one pixel on each side: every 3x3 neighbour;
+//     neighbours outside the image are masked, not read) and the 9 taps,
+//     and writes the bf16 depthwise of every channel into a resident A
+//     tile [64][C+pad] in shared memory.  The window is dead afterwards and
+//     its storage becomes the B ring.
+//  2. Product: the block walks its F tiles (2*NT wide: one NT-wide half per
+//     warpgroup) against the resident A; for each, a K loop over a 4-stage
+//     cp.async ring of pointwise chunks [KC][2*NT], then the affine/ReLU
+//     epilogue from the accumulators.
+// The S blocks of one pixel tile ("F groups") split F between them, so a
+// pixel's depthwise is computed S times, not F/256 times as before.  The
+// launch plan (S, NT, KC, KC1) comes from ops/sepconv.py::_sepconv_plan,
+// which picks the S that best fills 132 SMs per shape class.
 //
-// Known waste, the first thing a faster version removes: the depthwise tile
-// is recomputed by every F-tile of the same pixels (F/TF = 1..8 times),
-// about 1% of the operations times that factor, and the input window is
-// re-read from L2 by each of them; the product runs on mma.sync, not wgmma.
+// B is stored MN-major (N contiguous, as pw is) in 8x8 core matrices of 128
+// contiguous bytes: a 16-byte cp.async moves one core-matrix row, and the
+// tensor cores read whole core matrices without bank conflicts.  A tail of
+// C past a multiple of 16 (728 = 45*16 + 8) is zero in both A and B.
+// C and F must be multiples of 8 (every Xception width is).
+//
+// Product: mma.sync m16n8k16 (warp w of a warpgroup takes rows 16w..+15
+// and the warpgroup's NT columns, the accumulator layout of wgmma
+// m64nNTk16); built with -DSEPCONV_WGMMA=1 it runs on wgmma (A from
+// registers, B through a shared-memory descriptor) instead.
 
 #include "common.cuh"
+#include "wgmma.cuh"
+
+#ifndef SEPCONV_WGMMA
+#define SEPCONV_WGMMA 0
+#endif
 
 namespace {
 
-constexpr int P = 64;         // output pixels per block
-constexpr int TF = 256;       // output channels per block
-constexpr int KC = 64;        // input channels per chunk
-constexpr int THREADS = 256;  // 8 warps: 2 along pixels x 4 along channels
-constexpr int LDA = KC + 8;   // As row stride (bf16): 144 B, conflict-free fragment loads
-constexpr int LDB = TF + 8;   // Bs row stride (bf16): 528 B, conflict-free ldmatrix
+constexpr int P = 64;          // output pixels per block: the wgmma M
+constexpr int THREADS = 256;   // two warpgroups
+constexpr int NS = 4;          // stages of the pointwise ring
 
-__host__ __device__ constexpr int smem_bytes_for(int W) {
-  return 2 * (P * LDA + 2 * KC * LDB + 2 * 9 * KC + 2 * (P + 2 * W + 2) * KC);
+__host__ __device__ constexpr int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
 }
 
-template <bool PRE_RELU, bool POST_RELU>
-__global__ void __launch_bounds__(THREADS, 2)
+// Row stride (bf16) of the resident A tile: 16 bytes past a multiple of
+// 128, so the 8 rows of an ldmatrix fall in 8 different bank groups.
+__host__ __device__ constexpr int lda_for(int C) { return round_up(C, 64) + 8; }
+
+// Shared memory of a launch: the resident A tile, then the larger of the
+// depthwise window (2 stages of [P+2W+2][KC1] plus [9][KC1]) and the
+// pointwise ring (NS stages of [KC][TN]).
+__host__ __device__ constexpr int smem_bytes_for(int W, int C, int TN, int KC,
+                                                 int KC1) {
+  return 2 * P * lda_for(C) +
+         (4 * (P + 2 * W + 2 + 9) * KC1 > 2 * NS * KC * TN
+              ? 4 * (P + 2 * W + 2 + 9) * KC1
+              : 2 * NS * KC * TN);
+}
+
+__device__ __forceinline__ uint32_t relu_bf16x2(uint32_t w) {
+  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&w);
+  v = __hmax2(v, __float2bfloat162_rn(0.f));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int NT, bool PRE_RELU, bool POST_RELU>
+__global__ void __launch_bounds__(THREADS, NT <= 64 ? 2 : 1)
 sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
                const __nv_bfloat16* __restrict__ dwk,    // [3, 3, C]
                const __nv_bfloat16* __restrict__ pw,     // [C, F]
                const float* __restrict__ scale,          // [F]
                const float* __restrict__ shift,          // [F]
                __nv_bfloat16* __restrict__ out,          // [N, H, W, F]
-               int N, int H, int W, int C, int F) {
-  extern __shared__ __align__(16) unsigned char smem[];
+               int N, int H, int W, int C, int F, int groups,
+               int tiles_per_group, int KC, int KC1) {
+  constexpr int TN = 2 * NT;  // F tile: one NT-wide half per warpgroup
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int LDA = lda_for(C);
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [P][LDA]
-  __nv_bfloat16* Bs = As + P * LDA;                             // 2 x [KC][LDB]
-  __nv_bfloat16* Ks = Bs + 2 * KC * LDB;                        // 2 x [9][KC]
-  __nv_bfloat16* Xs = Ks + 2 * 9 * KC;                          // 2 x [WIN][KC]
+  unsigned char* scratch = smem + 2 * P * LDA;  // window, then the B ring
 
   const int HW = H * W;
   const int NHW = N * HW;
-  const int WIN = P + 2 * W + 2;
-  const int f0 = blockIdx.x * TF;
-  const int p0 = blockIdx.y * P;
-  const int q0 = p0 - W - 1;  // flattened pixel of the window's first row
+  const int grp = blockIdx.x % groups;
+  const int p0 = (blockIdx.x / groups) * P;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;   // mma fragment coordinates
-  const int wm = (warp & 1) * 32;           // warp's pixel offset in the tile
-  const int wn = (warp >> 1) * 64;          // warp's channel offset in the tile
+  const int g = lane >> 2, t4 = lane & 3;  // accumulator fragment coordinates
+  const int wg = warp >> 2;                // warpgroup: its half of an F tile
+  const int wr = (warp & 3) * 16;          // the warp's 16 rows of the tile
 
-  // Copies of chunk c0 into stage `buf` (one cp.async group).
-  auto load_chunk = [&](int c0, int buf) {
-    __nv_bfloat16* bs = Bs + buf * KC * LDB;
-    for (int i = tid; i < KC * (TF / 8); i += THREADS) {
-      const int k = i / (TF / 8), fs = (i % (TF / 8)) * 8;
-      const int c = c0 + k, f = f0 + fs;
-      const bool ok = c < C && f < F;
-      cp_async16(bs + k * LDB + fs, ok ? pw + (size_t)c * F + f : pw, ok);
-    }
-    __nv_bfloat16* ks = Ks + buf * 9 * KC;
-    for (int i = tid; i < 9 * (KC / 8); i += THREADS) {
-      const int tap = i / (KC / 8), cs = (i % (KC / 8)) * 8;
-      const bool ok = c0 + cs < C;
-      cp_async16(ks + tap * KC + cs, ok ? dwk + tap * C + c0 + cs : dwk, ok);
-    }
-    __nv_bfloat16* xs = Xs + buf * WIN * KC;
-    for (int i = tid; i < WIN * (KC / 8); i += THREADS) {
-      const int r = i / (KC / 8), cs = (i % (KC / 8)) * 8;
-      const int q = q0 + r, c = c0 + cs;
-      const bool ok = q >= 0 && q < NHW && c < C;
-      cp_async16(xs + r * KC + cs, ok ? x + (size_t)q * C + c : x, ok);
-    }
-    cp_async_commit();
-  };
+  // ---- Phase 1: the depthwise of all C channels into the resident A ----
+  {
+    const int WIN = P + 2 * W + 2;
+    const int K1 = round_up(C, KC1);  // >= C rounded up to 16: zero tail
+    const int q0 = p0 - W - 1;        // flattened pixel of the window's row 0
+    const int sh = KC1 == 64 ? 3 : KC1 == 32 ? 2 : 1;  // log2(KC1 / 8)
+    const int segs = KC1 / 8;
+    __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(scratch);  // 2x[WIN][KC1]
+    __nv_bfloat16* Ks = Xs + 2 * WIN * KC1;                         // 2x[9][KC1]
 
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+    auto load_chunk = [&](int c0, int buf) {
+      __nv_bfloat16* ks = Ks + buf * 9 * KC1;
+      for (int i = tid; i < 9 * segs; i += THREADS) {
+        const int tap = i >> sh, cs = (i & (segs - 1)) * 8;
+        const bool ok = c0 + cs < C;
+        cp_async16(ks + tap * KC1 + cs, ok ? dwk + tap * C + c0 + cs : dwk, ok);
+      }
+      __nv_bfloat16* xs = Xs + buf * WIN * KC1;
+      for (int i = tid; i < WIN * segs; i += THREADS) {
+        const int r = i >> sh, cs = (i & (segs - 1)) * 8;
+        const int q = q0 + r, c = c0 + cs;
+        const bool ok = q >= 0 && q < NHW && c < C;
+        cp_async16(xs + r * KC1 + cs, ok ? x + (size_t)q * C + c : x, ok);
+      }
+      cp_async_commit();
+    };
 
-  load_chunk(0, 0);
-  for (int c0 = 0, buf = 0; c0 < C; c0 += KC, buf ^= 1) {
-    cp_async_wait_all();
-    __syncthreads();  // chunk c0 landed; every warp is done with the last chunk
-    if (c0 + KC < C) load_chunk(c0 + KC, buf ^ 1);
-
-    // A: depthwise of P pixels x KC channels from the staged window.
-    const __nv_bfloat16* xs = Xs + buf * WIN * KC;
-    const __nv_bfloat16* ks = Ks + buf * 9 * KC;
+    load_chunk(0, 0);
+    for (int c0 = 0, buf = 0; c0 < K1; c0 += KC1, buf ^= 1) {
+      cp_async_wait_all();
+      __syncthreads();  // chunk c0 landed; every warp is done with the last
+      if (c0 + KC1 < K1) load_chunk(c0 + KC1, buf ^ 1);
+      const __nv_bfloat16* xs = Xs + buf * WIN * KC1;
+      const __nv_bfloat16* ks = Ks + buf * 9 * KC1;
+      for (int i = tid; i < P * segs; i += THREADS) {
+        const int pl = i >> sh, cs = (i & (segs - 1)) * 8;
+        const int p = p0 + pl;
+        float a[8];
 #pragma unroll
-    for (int r = 0; r < (P * KC / 8) / THREADS; ++r) {
-      const int i = tid + r * THREADS;
-      const int pl = i / (KC / 8);
-      const int cs = (i % (KC / 8)) * 8;
-      const int p = p0 + pl;
-      float a[8];
+        for (int j = 0; j < 8; ++j) a[j] = 0.f;
+        if (p < NHW) {
+          const int rem = p % HW;
+          const int h = rem / W, w = rem - h * W;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) a[j] = 0.f;
-      if (p < NHW) {
-        const int rem = p % HW;
-        const int h = rem / W, w = rem - h * W;
+          for (int dy = -1; dy <= 1; ++dy) {
+            const int hh = h + dy;
 #pragma unroll
-        for (int dy = -1; dy <= 1; ++dy) {
-          const int hh = h + dy;
+            for (int dx = -1; dx <= 1; ++dx) {
+              const int ww = w + dx;
+              if (hh < 0 || hh >= H || ww < 0 || ww >= W) continue;
+              const uint4 xv = *reinterpret_cast<const uint4*>(
+                  xs + (pl + W + 1 + dy * W + dx) * KC1 + cs);
+              const uint4 kv = *reinterpret_cast<const uint4*>(
+                  ks + ((dy + 1) * 3 + (dx + 1)) * KC1 + cs);
+              uint32_t xw[4] = {xv.x, xv.y, xv.z, xv.w};
+              const uint32_t kw[4] = {kv.x, kv.y, kv.z, kv.w};
 #pragma unroll
-          for (int dx = -1; dx <= 1; ++dx) {
-            const int ww = w + dx;
-            if (hh < 0 || hh >= H || ww < 0 || ww >= W) continue;
-            const uint4 xv = *reinterpret_cast<const uint4*>(
-                xs + (pl + W + 1 + dy * W + dx) * KC + cs);
-            const uint4 kv = *reinterpret_cast<const uint4*>(
-                ks + ((dy + 1) * 3 + (dx + 1)) * KC + cs);
-            const uint32_t xw[4] = {xv.x, xv.y, xv.z, xv.w};
-            const uint32_t kw[4] = {kv.x, kv.y, kv.z, kv.w};
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              float2 v = unpack_bf16x2(xw[j]);
-              const float2 k = unpack_bf16x2(kw[j]);
-              if (PRE_RELU) {
-                v.x = fmaxf(v.x, 0.f);
-                v.y = fmaxf(v.y, 0.f);
+              for (int j = 0; j < 4; ++j) {
+                if (PRE_RELU) xw[j] = relu_bf16x2(xw[j]);
+                const float2 v = unpack_bf16x2(xw[j]);
+                const float2 k = unpack_bf16x2(kw[j]);
+                a[2 * j] = fmaf(v.x, k.x, a[2 * j]);
+                a[2 * j + 1] = fmaf(v.y, k.y, a[2 * j + 1]);
               }
-              a[2 * j] = fmaf(v.x, k.x, a[2 * j]);
-              a[2 * j + 1] = fmaf(v.y, k.y, a[2 * j + 1]);
             }
           }
         }
+        // the TPU kernel's rounding point: depthwise accumulator -> bf16
+        uint4 packed;
+        packed.x = pack_bf16x2(a[0], a[1]);
+        packed.y = pack_bf16x2(a[2], a[3]);
+        packed.z = pack_bf16x2(a[4], a[5]);
+        packed.w = pack_bf16x2(a[6], a[7]);
+        *reinterpret_cast<uint4*>(&As[pl * LDA + c0 + cs]) = packed;
       }
-      // the TPU kernel's rounding point: depthwise accumulator -> bf16
-      uint4 packed;
-      packed.x = pack_bf16x2(a[0], a[1]);
-      packed.y = pack_bf16x2(a[2], a[3]);
-      packed.z = pack_bf16x2(a[4], a[5]);
-      packed.w = pack_bf16x2(a[6], a[7]);
-      *reinterpret_cast<uint4*>(&As[pl * LDA + cs]) = packed;
     }
-    __syncthreads();
-
-    const __nv_bfloat16* bs = Bs + buf * KC * LDB;
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      uint32_t af[2][4], bfr[8][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const __nv_bfloat16* a = As + (wm + mt * 16) * LDA + kk + t4 * 2;
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(a + g * LDA);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(a + (g + 8) * LDA);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(a + g * LDA + 8);
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(a + (g + 8) * LDA + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; nt += 2) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(
-            r, bs + (kk + (lane & 15)) * LDB + wn + nt * 8 + (lane >> 4) * 8);
-        bfr[nt][0] = r[0];
-        bfr[nt][1] = r[1];
-        bfr[nt + 1][0] = r[2];
-        bfr[nt + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) mma_16816(acc[mt][nt], af[mt], bfr[nt]);
-    }
+    __syncthreads();  // A complete; the window's storage is free
   }
 
-  // Epilogue: BatchNorm affine in f32, optional ReLU, bf16 pairs.
+  // ---- Phase 2: the block's F tiles against the resident A ----
+  const int K2 = round_up(C, 16);
+  const int nk = (K2 + KC - 1) / KC;
+  const int f_first = grp * tiles_per_group * TN;
+  const int tiles = min(tiles_per_group, (F - f_first + TN - 1) / TN);
+  const int T = tiles * nk;  // ring iterations: (tile, chunk) in order
+  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(scratch);  // NS x [TN/8][KC][8]
+
+  // Chunk `it` into its ring stage: core matrix (k/8, n/8) of the stage at
+  // ((n/8) * KC + k) * 8 elements.  Eight neighbouring threads fill one
+  // core matrix (128 contiguous bytes); a warp reads 8 rows x 64 bytes.
+  auto load_b = [&](int it) {
+    const int t = it / nk, c0 = (it - t * nk) * KC;
+    const int f0 = f_first + t * TN;
+    __nv_bfloat16* bs = Bs + (it % NS) * KC * TN;
+    for (int i = tid; i < KC * (TN / 8); i += THREADS) {
+      const int ng = (i >> 3) % (TN / 8);
+      const int k = ((i >> 3) / (TN / 8)) * 8 + (i & 7);
+      const int c = c0 + k, f = f0 + ng * 8;
+      const bool ok = c < C && f < F;
+      cp_async16(bs + (ng * KC + k) * 8, ok ? pw + (size_t)c * F + f : pw, ok);
+    }
+  };
+
+  float acc[NT / 2];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int f = f0 + wn + nt * 8 + t4 * 2;
-    if (f >= F) continue;
-    const float s0 = scale[f], s1 = scale[f + 1];
-    const float b0 = shift[f], b1 = shift[f + 1];
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < T) load_b(s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < T; ++it) {
+    cp_async_wait_group<NS - 2>();
+    fence_proxy_async_shared();  // cp.async writes -> the tensor cores' reads
+    __syncthreads();  // stage `it` landed; every warp is done with stage it-1
+    if (it + NS - 1 < T) load_b(it + NS - 1);
+    cp_async_commit();
+
+    const int t = it / nk, j = it - t * nk;
+    const int c0 = j * KC;
+    const int steps = min(KC, K2 - c0) >> 4;
+    // this warpgroup's NT/8 core-matrix columns of the stage
+    const __nv_bfloat16* bs = Bs + (it % NS) * KC * TN + wg * NT * KC;
+    const __nv_bfloat16* as = As + (wr + (lane & 15)) * LDA + c0 + (lane >> 4) * 8;
+#if SEPCONV_WGMMA
+    uint32_t a[4][4];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int p = p0 + wm + mt * 16 + g + half * 8;
-        if (p >= NHW) continue;
-        float y0 = acc[mt][nt][half * 2] * s0 + b0;
-        float y1 = acc[mt][nt][half * 2 + 1] * s1 + b1;
-        if (POST_RELU) {
-          y0 = fmaxf(y0, 0.f);
-          y1 = fmaxf(y1, 0.f);
+    for (int s = 0; s < 4; ++s)
+      if (s < steps) ldmatrix_x4(a[s], as + s * 16);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      if (s < steps)
+        wgmma_rs<NT>(acc, a[s], wgmma_desc(bs + s * 16 * 8, 128, KC * 16),
+                     j > 0 || s > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operand(acc);
+#else
+    if (j == 0) {
+#pragma unroll
+      for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+    }
+    for (int s = 0; s < steps; ++s) {
+      uint32_t a[4];
+      ldmatrix_x4(a, as + s * 16);
+#pragma unroll
+      for (int nb = 0; nb < NT / 8; ++nb) {
+        uint32_t b[2];
+        ldmatrix_x2_trans(b, bs + (nb * KC + s * 16 + (lane & 15)) * 8);
+        mma_16816(&acc[nb * 4], a, b);
+      }
+    }
+#endif
+
+    if (j == nk - 1) {
+      // Epilogue: BatchNorm affine in f32, optional ReLU, bf16 pairs.
+      const int fw = f_first + t * TN + wg * NT;
+#pragma unroll
+      for (int nb = 0; nb < NT / 8; ++nb) {
+        const int f = fw + nb * 8 + t4 * 2;
+        if (f >= F) continue;
+        const float s0 = scale[f], s1 = scale[f + 1];
+        const float b0 = shift[f], b1 = shift[f + 1];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int p = p0 + wr + g + half * 8;
+          if (p >= NHW) continue;
+          float y0 = acc[nb * 4 + half * 2] * s0 + b0;
+          float y1 = acc[nb * 4 + half * 2 + 1] * s1 + b1;
+          if (POST_RELU) {
+            y0 = fmaxf(y0, 0.f);
+            y1 = fmaxf(y1, 0.f);
+          }
+          *reinterpret_cast<uint32_t*>(out + (size_t)p * F + f) =
+              pack_bf16x2(y0, y1);
         }
-        *reinterpret_cast<uint32_t*>(out + (size_t)p * F + f) =
-            pack_bf16x2(y0, y1);
       }
     }
   }
 }
 
-template <bool PRE_RELU, bool POST_RELU>
-cudaError_t launch(const dim3& grid, int smem, cudaStream_t s,
-                   const __nv_bfloat16* x, const __nv_bfloat16* dwk,
-                   const __nv_bfloat16* pw, const float* scale,
-                   const float* shift, __nv_bfloat16* out, int N, int H,
-                   int W, int C, int F) {
+struct Args {
+  const __nv_bfloat16 *x, *dwk, *pw;
+  const float *scale, *shift;
+  __nv_bfloat16* out;
+  int N, H, W, C, F, groups, tiles_per_group, KC, KC1;
+};
+
+template <int NT, bool PRE_RELU, bool POST_RELU>
+cudaError_t launch(int blocks, int smem, cudaStream_t s, const Args& a) {
   static cudaError_t configured = cudaFuncSetAttribute(
-      sepconv_kernel<PRE_RELU, POST_RELU>,
+      sepconv_kernel<NT, PRE_RELU, POST_RELU>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (configured != cudaSuccess) return configured;
-  sepconv_kernel<PRE_RELU, POST_RELU><<<grid, THREADS, smem, s>>>(
-      x, dwk, pw, scale, shift, out, N, H, W, C, F);
+  sepconv_kernel<NT, PRE_RELU, POST_RELU><<<blocks, THREADS, smem, s>>>(
+      a.x, a.dwk, a.pw, a.scale, a.shift, a.out, a.N, a.H, a.W, a.C, a.F,
+      a.groups, a.tiles_per_group, a.KC, a.KC1);
   return cudaGetLastError();
 }
+
+template <int NT>
+cudaError_t launch_relu(bool pre, bool post, int blocks, int smem,
+                        cudaStream_t s, const Args& a) {
+  if (pre && post) return launch<NT, true, true>(blocks, smem, s, a);
+  if (pre) return launch<NT, true, false>(blocks, smem, s, a);
+  if (post) return launch<NT, false, true>(blocks, smem, s, a);
+  return launch<NT, false, false>(blocks, smem, s, a);
+}
+
+bool chunk_ok(int k) { return k == 16 || k == 32 || k == 64; }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` and returns the launch's CUDA error (0 = launched).
+// Launches on `stream` with the plan of ops/sepconv.py::_sepconv_plan
+// (F groups per pixel tile, F tiles per group, wgmma width n_tile, ring
+// chunk kc, depthwise chunk kc1, shared-memory bytes) and returns the
+// launch's CUDA error (0 = launched); cudaErrorInvalidValue for a plan this
+// library does not instantiate or that does not cover F.
 int sepconv_launch(const void* x, const void* dwk, const void* pw,
                    const void* scale, const void* shift, void* out, int N,
                    int H, int W, int C, int F, int pre_relu, int post_relu,
-                   void* stream) {
-  const int smem = smem_bytes_for(W);
-  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((F + TF - 1) / TF, (N * H * W + P - 1) / P);
+                   int groups, int tiles_per_group, int n_tile, int kc,
+                   int kc1, int smem, void* stream) {
+  const auto invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || F <= 0 || C % 8 || F % 8)
+    return invalid;
+  if ((n_tile != 64 && n_tile != 128 && n_tile != 184) || !chunk_ok(kc) ||
+      !chunk_ok(kc1))
+    return invalid;
+  const long long tn = 2LL * n_tile;
+  if (groups < 1 || tiles_per_group < 1 ||
+      (long long)groups * tiles_per_group * tn < F ||
+      (long long)(groups - 1) * tiles_per_group * tn >= F)
+    return invalid;
+  if (smem != smem_bytes_for(W, C, 2 * n_tile, kc, kc1) || smem > MAX_SMEM)
+    return invalid;
+  const long long blocks =
+      ((long long)N * H * W + P - 1) / P * (long long)groups;
+  if (blocks > 0x7fffffffLL) return invalid;
+  const Args a{static_cast<const __nv_bfloat16*>(x),
+               static_cast<const __nv_bfloat16*>(dwk),
+               static_cast<const __nv_bfloat16*>(pw),
+               static_cast<const float*>(scale),
+               static_cast<const float*>(shift),
+               static_cast<__nv_bfloat16*>(out),
+               N, H, W, C, F, groups, tiles_per_group, kc, kc1};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* kb = static_cast<const __nv_bfloat16*>(dwk);
-  const auto* pb = static_cast<const __nv_bfloat16*>(pw);
-  const auto* sc = static_cast<const float*>(scale);
-  const auto* sh = static_cast<const float*>(shift);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
+  const bool pre = pre_relu != 0, post = post_relu != 0;
+  const int nb = static_cast<int>(blocks);
   cudaError_t err;
-  if (pre_relu && post_relu)
-    err = launch<true, true>(grid, smem, s, xb, kb, pb, sc, sh, ob, N, H, W, C, F);
-  else if (pre_relu)
-    err = launch<true, false>(grid, smem, s, xb, kb, pb, sc, sh, ob, N, H, W, C, F);
-  else if (post_relu)
-    err = launch<false, true>(grid, smem, s, xb, kb, pb, sc, sh, ob, N, H, W, C, F);
+  if (n_tile == 64)
+    err = launch_relu<64>(pre, post, nb, smem, s, a);
+  else if (n_tile == 128)
+    err = launch_relu<128>(pre, post, nb, smem, s, a);
   else
-    err = launch<false, false>(grid, smem, s, xb, kb, pb, sc, sh, ob, N, H, W, C, F);
+    err = launch_relu<184>(pre, post, nb, smem, s, a);
   return static_cast<int>(err);
 }
 

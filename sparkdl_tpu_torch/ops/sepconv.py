@@ -43,7 +43,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel -> (library, sources under csrc/, C symbol prefix, launch argtypes)
 KERNELS = {
     "sepconv": ("sparkdl_sepconv", ("sepconv.cu",), "sepconv",
-                [_P] * 6 + [_I] * 7 + [_P]),
+                [_P] * 6 + [_I] * 13 + [_P]),
     "sepconv_tiled": ("sparkdl_sepconv_tiled", ("sepconv_tiled.cu",),
                       "sepconv_tiled", [_P] * 6 + [_I] * 7 + [_P]),
     "mbconv": ("sparkdl_mbconv", ("mbconv.cu",), "mbconv",
@@ -155,25 +155,114 @@ def _check_sepconv_operands(x, dwk, pw, scale, shift, who: str):
     return n, h, w, c, f
 
 
+# The whole-image kernel's launch plan (csrc/sepconv.cu): a block owns 64
+# flattened pixels and one of S groups of F tiles; each F tile is 2*NT wide
+# (NT per warpgroup, the wgmma N).  Figures of one H100 SXM (sm_90).
+_SM_COUNT = 132
+_SMEM_BLOCK = 232448          # shared memory one block may use
+_SMEM_SM = 233472             # shared memory of one SM
+_SMEM_RESERVED = 1024         # the runtime's share of it per block
+_RING = 4                     # stages of the pointwise ring (the kernel's NS)
+_CHUNKS = (64, 32, 16)        # ring and depthwise chunk widths, channels
+# wgmma N the library instantiates -> its blocks per SM (__launch_bounds__)
+_N_TILES = {184: 1, 128: 1, 64: 2}
+# One pixel-channel of depthwise (9 taps on the CUDA cores) costs about as
+# much block time as this many output columns of the product on the
+# tensor cores: the plan's model of a block is C * (_DW_COST + its F).
+_DW_COST = 256
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _sepconv_smem(w: int, c: int, tn: int, kc: int, kc1: int) -> int:
+    """Bytes of shared memory of a launch: the resident depthwise tile
+    [64][round_up(C, 64) + 8] bf16, then the larger of the depthwise window
+    (two stages of [64+2W+2][KC1] and [9][KC1]) and the pointwise ring
+    (four stages of [KC][TN]).  The kernel's ``smem_bytes_for``."""
+    a = 2 * 64 * (_round_up(c, 64) + 8)
+    return a + max(4 * (64 + 2 * w + 2 + 9) * kc1, 2 * _RING * kc * tn)
+
+
+def _sepconv_plan(n: int, h: int, w: int, c: int, f: int) -> Dict[str, int]:
+    """The launch plan of the whole-image kernel for one shape: ``groups``
+    (S, the blocks sharing a pixel tile, each computing its pixels'
+    depthwise once), ``tiles_per_group``, ``n_tile`` (NT), ``kc`` (ring
+    chunk), ``kc1`` (depthwise chunk) and ``smem`` bytes, which the kernel
+    takes as ints, plus ``blocks``, ``blocks_per_sm`` and ``waves`` for
+    the record.  Picks the plan with the least modelled time: waves of
+    blocks over 132 SMs, each block C * (_DW_COST + the F it covers), two
+    co-resident blocks at best overlapping their phases.
+    Raises ``ValueError`` for a shape no plan fits."""
+    if min(n, h, w, c, f) <= 0 or c % 8 or f % 8:
+        raise ValueError(f"no sepconv plan for shape {(n, h, w, c, f)}: "
+                         f"sizes must be positive, C and F multiples of 8")
+    why = f"no sepconv plan for shape {(n, h, w, c, f)}:"
+    if _sepconv_smem(0, c, 2 * min(_N_TILES), min(_CHUNKS), 0) > _SMEM_BLOCK:
+        raise ValueError(f"{why} the resident 64x{c} depthwise tile "
+                         f"({_sepconv_smem(0, c, 0, 0, 0)} bytes) and the "
+                         f"smallest pointwise ring exceed {_SMEM_BLOCK} bytes "
+                         f"of shared memory")
+    for kc1 in _CHUNKS:  # the widest depthwise chunk whose window fits
+        if _sepconv_smem(w, c, 0, 0, kc1) <= _SMEM_BLOCK:
+            break
+    else:
+        raise ValueError(f"{why} the input window of a {w}-pixel row beside "
+                         f"the resident depthwise tile exceeds {_SMEM_BLOCK} "
+                         f"bytes of shared memory")
+    px_tiles = -(-(n * h * w) // 64)
+    best = None
+    for nt, per_sm in _N_TILES.items():
+        tn = 2 * nt
+        f_tiles = -(-f // tn)
+        for kc in _CHUNKS:
+            smem = _sepconv_smem(w, c, tn, kc, kc1)
+            if smem > _SMEM_BLOCK:
+                continue
+            bpsm = min(per_sm, _SMEM_SM // (smem + _SMEM_RESERVED))
+            for groups in range(1, f_tiles + 1):
+                tpg = -(-f_tiles // groups)
+                if -(-f_tiles // tpg) != groups:
+                    continue  # the same split with fewer groups is listed
+                blocks = px_tiles * groups
+                waves = -(-blocks // (_SM_COUNT * bpsm))
+                # co-resident blocks overlap one's depthwise with the
+                # other's product at best
+                cost = waves * max(_DW_COST + tpg * tn,
+                                   bpsm * max(_DW_COST, tpg * tn))
+                key = (cost, groups, -nt, -kc)
+                if best is None or key < best[0]:
+                    best = (key, dict(groups=groups, tiles_per_group=tpg,
+                                      n_tile=nt, kc=kc, kc1=kc1, smem=smem,
+                                      blocks=blocks, blocks_per_sm=bpsm,
+                                      waves=waves))
+    return best[1]
+
+
 def _fused_sepconv_cuda(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
                         scale: torch.Tensor, shift: torch.Tensor,
                         pre_relu: bool, post_relu: bool) -> torch.Tensor:
     """Launch the whole-image kernel (B1) on the current stream.  ``x``
     bf16 NHWC contiguous on a CUDA device, ``dwk`` bf16 [3,3,C], ``pw``
     bf16 [C,F], ``scale``/``shift`` f32 [F], all contiguous on the same
-    device; C and F multiples of 8.  Raises on anything else and when the
-    launch is refused."""
+    device; C and F multiples of 8.  Raises on anything else, on a shape
+    no launch plan fits (:func:`_sepconv_plan`) and when the launch is
+    refused."""
     n, h, w, c, f = _check_sepconv_operands(x, dwk, pw, scale, shift,
                                             "_fused_sepconv_cuda")
-    if n * h * w > 65535 * 64 or n * h * w * max(c, f) >= 2 ** 31:
+    if n * h * w * max(c, f) >= 2 ** 31:
         raise ValueError(f"shape {(n, h, w, c, f)} exceeds the kernel's "
                          f"index range")
     out = torch.empty((n, h, w, f), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:
         return out
+    plan = _sepconv_plan(n, h, w, c, f)
     _launch("sepconv", x.device, x.data_ptr(), dwk.data_ptr(), pw.data_ptr(),
             scale.data_ptr(), shift.data_ptr(), out.data_ptr(), n, h, w, c,
-            f, int(pre_relu), int(post_relu))
+            f, int(pre_relu), int(post_relu), plan["groups"],
+            plan["tiles_per_group"], plan["n_tile"], plan["kc"], plan["kc1"],
+            plan["smem"])
     fused_sepconv.launches += 1
     return out
 

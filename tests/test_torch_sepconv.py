@@ -115,6 +115,78 @@ def test_cuda_wrapper_refuses_cpu_tensors():
                                  s, t, False, False)
 
 
+# The shapes the whole-image kernel's launch plan must take (n, h=w, c, f):
+# Xception's six classes at batch 32, the tiled kernel's four entry classes
+# (chip_smoke.py times B1 there too), a batch whose pixels are not a
+# multiple of 64, and an F that is not a multiple of any tile width.
+PLAN_SHAPES = [
+    (32, 37, 256, 728), (32, 37, 728, 728), (32, 19, 728, 728),
+    (32, 19, 728, 1024), (32, 10, 1024, 1536), (32, 10, 1536, 2048),
+    (32, 147, 64, 128), (32, 147, 128, 128), (32, 74, 128, 256),
+    (32, 74, 256, 256), (3, 19, 728, 728), (32, 19, 728, 200),
+]
+
+
+@pytest.mark.parametrize("n,hw,c,f", PLAN_SHAPES)
+def test_sepconv_plan_fits_and_covers_f(n, hw, c, f):
+    """Every plan fits one block's shared memory (the kernel's own formula)
+    and its F groups and tiles cover F exactly: each 2*NT-wide F tile once,
+    no group empty, less than one tile past F."""
+    plan = port._sepconv_plan(n, hw, hw, c, f)
+    tn = 2 * plan["n_tile"]
+    assert plan["n_tile"] in port._N_TILES
+    assert plan["kc"] in port._CHUNKS and plan["kc1"] in port._CHUNKS
+    assert plan["smem"] == port._sepconv_smem(hw, c, tn, plan["kc"],
+                                              plan["kc1"])
+    assert plan["smem"] <= 232448
+    groups, tpg = plan["groups"], plan["tiles_per_group"]
+    tiles = []
+    for g in range(groups):
+        first = g * tpg * tn
+        assert first < f, "a group starts past F"
+        tiles += [first + t * tn for t in range(tpg) if first + t * tn < f]
+    assert tiles == list(range(0, f, tn))
+    assert 0 <= len(tiles) * tn - f < tn
+    assert plan["blocks"] == -(-(n * hw * hw) // 64) * groups
+    per_sm = min(port._N_TILES[plan["n_tile"]],
+                 233472 // (plan["smem"] + 1024))
+    assert plan["blocks_per_sm"] == per_sm >= 1
+    assert plan["waves"] == -(-plan["blocks"] // (132 * per_sm))
+
+
+def test_sepconv_plan_fills_the_card_at_small_images():
+    """At 10x10 a batch of 32 has only 50 pixel tiles for 132 SMs: the plan
+    splits F over several blocks per pixel tile there, and at 37x37 (685
+    tiles) it computes each pixel's depthwise once."""
+    assert port._sepconv_plan(32, 10, 10, 1536, 2048)["groups"] >= 2
+    assert port._sepconv_plan(32, 10, 10, 1024, 1536)["groups"] >= 2
+    assert port._sepconv_plan(32, 37, 37, 728, 728)["groups"] == 1
+
+
+@pytest.mark.parametrize("n,h,w,c,f,why", [
+    (32, 10, 10, 2048, 2048, "depthwise tile"),   # 64x2048 bf16 > 227 KB
+    (1, 8, 6000, 256, 256, "input window"),       # window of a 6000-wide row
+    (2, 5, 5, 12, 16, "multiples of 8"),
+])
+def test_untakeable_shape_raises_in_the_wrapper(monkeypatch, n, h, w, c, f,
+                                                why):
+    """A shape no launch plan fits raises ``ValueError`` with the reason,
+    from the plan and from the CUDA wrapper before any launch."""
+    with pytest.raises(ValueError, match=why):
+        port._sepconv_plan(n, h, w, c, f)
+    if c % 8 == 0:
+        # the wrapper's operand checks need a card; past them it must plan
+        monkeypatch.setattr(port, "_check_sepconv_operands",
+                            lambda *a: (n, h, w, c, f))
+        monkeypatch.setattr(port, "_launch", lambda *a: pytest.fail(
+            "launched an untakeable shape"))
+        x = torch.zeros(n, h, w, c, dtype=torch.bfloat16)
+        before = port.fused_sepconv.launches
+        with pytest.raises(ValueError, match=why):
+            port._fused_sepconv_cuda(x, None, None, None, None, True, False)
+        assert port.fused_sepconv.launches == before
+
+
 # The TILED_SHAPES of tests/test_ops_sepconv.py: (h, w, c, f, row tile)
 TILED_SHAPES = [
     (13, 11, 16, 16, 5),
