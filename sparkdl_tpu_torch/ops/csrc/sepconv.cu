@@ -12,52 +12,64 @@
 // affine in f32, bf16 store.  Depthwise 3x3, stride 1, SAME zero padding
 // (masked by coordinates, no padded layout), depth multiplier 1.
 //
-// What bounds it on an H100: 2*N*H*W*C*(9+F) operations against
-// (N*H*W*(C+F) + 9*C + C*F) * 2 bytes.  Xception's middle and exit flow
+// What bounds it on an H100.  By its operations and bytes, 2*N*H*W*C*(9+F)
+// against (N*H*W*(C+F) + 9*C + C*F) * 2: Xception's middle and exit flow
 // (C >= 728) sit above the card's ~295 ops/byte bf16 ridge, so the tensor
-// cores bound them; block4's 256->728 layer sits below it, bound by bytes.
+// cores bound them, and block4's 256->728 layer sits below it.  In practice
+// the product is not what takes the time: the depthwise runs on the CUDA
+// cores (9 f32 FMAs and a bf16 unpack per pixel-channel), and every 64-pixel
+// tile streams its pointwise weights from L2 again (64 operations per byte
+// of L2 traffic), through 16-byte cp.async copies issued by the threads.
 //
-// Design: a block owns 64 output pixels (flattened over N*H*W, so 10x10
-// images still fill tiles) and one group of output channels, in two phases.
-//  1. Depthwise, once: the block walks C in chunks of KC1 channels through
-//     a two-stage cp.async pipeline of the input window (the tile's pixels
-//     plus one image row and one pixel on each side: every 3x3 neighbour;
-//     neighbours outside the image are masked, not read) and the 9 taps,
-//     and writes the bf16 depthwise of every channel into a resident A
-//     tile [64][C+pad] in shared memory.  The window is dead afterwards and
-//     its storage becomes the B ring.
-//  2. Product: the block walks its F tiles (2*NT wide: one NT-wide half per
-//     warpgroup) against the resident A; for each, a K loop over a 4-stage
-//     cp.async ring of pointwise chunks [KC][2*NT], then the affine/ReLU
-//     epilogue from the accumulators.
-// The S blocks of one pixel tile ("F groups") split F between them, so a
-// pixel's depthwise is computed S times, not F/256 times as before.  The
-// launch plan (S, NT, KC, KC1) comes from ops/sepconv.py::_sepconv_plan,
-// which picks the S that best fills 132 SMs per shape class.
+// Design.  A block owns 64 output pixels (flattened over N*H*W, so 10x10
+// images still fill tiles; the wgmma M) and one group of F tiles, each
+// 4*NT wide: one NT-wide quarter per warpgroup, NT the wgmma N (32-128).
+// The S blocks of a pixel tile ("F groups") split F between them, so a
+// pixel's depthwise is computed S times; the kernel before computed it once
+// per 256-wide F tile.  ops/sepconv.py::_sepconv_plan picks S, NT, the C
+// chunk KC and the ring depth per shape from a model of waves over 132 SMs;
+// at batch 32 it takes S=1 at 37x37, S=2 at 19x19 and 10x10.
 //
-// B is stored MN-major (N contiguous, as pw is) in 8x8 core matrices of 128
-// contiguous bytes: a 16-byte cp.async moves one core-matrix row, and the
-// tensor cores read whole core matrices without bank conflicts.  A tail of
-// C past a multiple of 16 (728 = 45*16 + 8) is zero in both A and B.
-// C and F must be multiples of 8 (every Xception width is).
+// One loop walks the block's (F tile, C chunk) pairs in order through an
+// NS-stage cp.async ring; iteration it loads it+NS-1 and ends with one
+// barrier.  For the first F tile a stage holds the chunk's input window
+// (the tile's pixels plus one image row and one pixel on each side: every
+// 3x3 neighbour; neighbours outside the image are masked by coordinates,
+// not read), its 9 taps and its pointwise chunk [KC][4*NT]; warpgroups 2-3
+// compute the next chunk's bf16 depthwise into a resident A tile
+// [64][C+pad] while warpgroups 0-1 issue the copies and the tensor cores
+// run this chunk's products.  Later F tiles load only pointwise chunks and
+// run against the resident A: each pixel's depthwise is computed once for
+// all the F the block covers.  The epilogue (affine, ReLU, bf16) follows
+// each F tile.
 //
-// Product: mma.sync m16n8k16 (warp w of a warpgroup takes rows 16w..+15
-// and the warpgroup's NT columns, the accumulator layout of wgmma
-// m64nNTk16); built with -DSEPCONV_WGMMA=1 it runs on wgmma (A from
-// registers, B through a shared-memory descriptor) instead.
+// Product: wgmma.mma_async m64nNTk16 (wgmma.cuh), A from registers
+// (ldmatrix from the resident tile; warp w of a warpgroup holds rows
+// 16w..16w+15), B from shared memory through a descriptor: MN-major (N
+// contiguous, as pw is) 8x8 core matrices of 128 contiguous bytes, no
+// swizzle, so one 16-byte cp.async moves one core-matrix row.  cp.async and
+// not TMA stages the ring: TMA needs a tensor map built on the host through
+// the driver API, left for a later version.  A tail of C past a multiple of
+// 16 (728 = 45*16 + 8) is zero in both A and B.  C and F must be multiples
+// of 8 (every Xception width is).
+//
+// Known waste, for later versions: one 512-thread block per SM (the
+// resident tile is 34-198 KB), so every phase of an iteration waits on the
+// last warp and the copies, the depthwise, the products and the epilogue
+// add up rather than overlap (measured, PERF.md); each 64-pixel tile
+// re-reads its pointwise weights from L2 (TMA multicast across a cluster
+// would share them); F tiles after the first do not overlap a depthwise;
+// 728 = 2*384 - 40 wastes 5% of the product in the last tile.
 
 #include "common.cuh"
 #include "wgmma.cuh"
 
-#ifndef SEPCONV_WGMMA
-#define SEPCONV_WGMMA 0
-#endif
-
 namespace {
 
 constexpr int P = 64;          // output pixels per block: the wgmma M
-constexpr int THREADS = 256;   // two warpgroups
-constexpr int NS = 4;          // stages of the pointwise ring
+constexpr int WGS = 4;         // warpgroups, one NT-wide quarter of an F tile each
+constexpr int THREADS = 128 * WGS;
+constexpr int HALF = THREADS / 2;  // warpgroups 0-1 copy, 2-3 compute the depthwise
 
 __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;
@@ -67,15 +79,16 @@ __host__ __device__ constexpr int round_up(int v, int m) {
 // 128, so the 8 rows of an ldmatrix fall in 8 different bank groups.
 __host__ __device__ constexpr int lda_for(int C) { return round_up(C, 64) + 8; }
 
-// Shared memory of a launch: the resident A tile, then the larger of the
-// depthwise window (2 stages of [P+2W+2][KC1] plus [9][KC1]) and the
-// pointwise ring (NS stages of [KC][TN]).
+// bf16 elements of one ring stage: the window [P+2W+2][KC], the taps
+// [9][KC] and the pointwise chunk [TN/8][KC][8].
+__host__ __device__ constexpr int stage_elems(int W, int TN, int KC) {
+  return (P + 2 * W + 2 + 9) * KC + KC * TN;
+}
+
+// Shared memory of a launch: the resident A tile, then the ring.
 __host__ __device__ constexpr int smem_bytes_for(int W, int C, int TN, int KC,
-                                                 int KC1) {
-  return 2 * P * lda_for(C) +
-         (4 * (P + 2 * W + 2 + 9) * KC1 > 2 * NS * KC * TN
-              ? 4 * (P + 2 * W + 2 + 9) * KC1
-              : 2 * NS * KC * TN);
+                                                 int NS) {
+  return 2 * P * lda_for(C) + 2 * NS * stage_elems(W, TN, KC);
 }
 
 __device__ __forceinline__ uint32_t relu_bf16x2(uint32_t w) {
@@ -85,7 +98,7 @@ __device__ __forceinline__ uint32_t relu_bf16x2(uint32_t w) {
 }
 
 template <int NT, bool PRE_RELU, bool POST_RELU>
-__global__ void __launch_bounds__(THREADS, NT <= 64 ? 2 : 1)
+__global__ void __launch_bounds__(THREADS, 1)
 sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
                const __nv_bfloat16* __restrict__ dwk,    // [3, 3, C]
                const __nv_bfloat16* __restrict__ pw,     // [C, F]
@@ -93,118 +106,85 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
                const float* __restrict__ shift,          // [F]
                __nv_bfloat16* __restrict__ out,          // [N, H, W, F]
                int N, int H, int W, int C, int F, int groups,
-               int tiles_per_group, int KC, int KC1) {
-  constexpr int TN = 2 * NT;  // F tile: one NT-wide half per warpgroup
+               int tiles_per_group, int KC, int NS) {
+  constexpr int TN = WGS * NT;  // F tile: one NT-wide quarter per warpgroup
   extern __shared__ __align__(128) unsigned char smem[];
   const int LDA = lda_for(C);
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [P][LDA]
-  unsigned char* scratch = smem + 2 * P * LDA;  // window, then the B ring
+  __nv_bfloat16* ring = As + P * LDA;                           // NS stages
+  const int WIN = P + 2 * W + 2;
+  const int SE = stage_elems(W, TN, KC);
 
   const int HW = H * W;
   const int NHW = N * HW;
   const int grp = blockIdx.x % groups;
   const int p0 = (blockIdx.x / groups) * P;
+  const int q0 = p0 - W - 1;  // flattened pixel of the window's first row
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;  // accumulator fragment coordinates
-  const int wg = warp >> 2;                // warpgroup: its half of an F tile
+  const int wg = warp >> 2;                // warpgroup: its quarter of a tile
   const int wr = (warp & 3) * 16;          // the warp's 16 rows of the tile
 
-  // ---- Phase 1: the depthwise of all C channels into the resident A ----
-  {
-    const int WIN = P + 2 * W + 2;
-    const int K1 = round_up(C, KC1);  // >= C rounded up to 16: zero tail
-    const int q0 = p0 - W - 1;        // flattened pixel of the window's row 0
-    const int sh = KC1 == 64 ? 3 : KC1 == 32 ? 2 : 1;  // log2(KC1 / 8)
-    const int segs = KC1 / 8;
-    __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(scratch);  // 2x[WIN][KC1]
-    __nv_bfloat16* Ks = Xs + 2 * WIN * KC1;                         // 2x[9][KC1]
-
-    auto load_chunk = [&](int c0, int buf) {
-      __nv_bfloat16* ks = Ks + buf * 9 * KC1;
-      for (int i = tid; i < 9 * segs; i += THREADS) {
-        const int tap = i >> sh, cs = (i & (segs - 1)) * 8;
-        const bool ok = c0 + cs < C;
-        cp_async16(ks + tap * KC1 + cs, ok ? dwk + tap * C + c0 + cs : dwk, ok);
-      }
-      __nv_bfloat16* xs = Xs + buf * WIN * KC1;
-      for (int i = tid; i < WIN * segs; i += THREADS) {
-        const int r = i >> sh, cs = (i & (segs - 1)) * 8;
-        const int q = q0 + r, c = c0 + cs;
-        const bool ok = q >= 0 && q < NHW && c < C;
-        cp_async16(xs + r * KC1 + cs, ok ? x + (size_t)q * C + c : x, ok);
-      }
-      cp_async_commit();
-    };
-
-    load_chunk(0, 0);
-    for (int c0 = 0, buf = 0; c0 < K1; c0 += KC1, buf ^= 1) {
-      cp_async_wait_all();
-      __syncthreads();  // chunk c0 landed; every warp is done with the last
-      if (c0 + KC1 < K1) load_chunk(c0 + KC1, buf ^ 1);
-      const __nv_bfloat16* xs = Xs + buf * WIN * KC1;
-      const __nv_bfloat16* ks = Ks + buf * 9 * KC1;
-      for (int i = tid; i < P * segs; i += THREADS) {
-        const int pl = i >> sh, cs = (i & (segs - 1)) * 8;
-        const int p = p0 + pl;
-        float a[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) a[j] = 0.f;
-        if (p < NHW) {
-          const int rem = p % HW;
-          const int h = rem / W, w = rem - h * W;
-#pragma unroll
-          for (int dy = -1; dy <= 1; ++dy) {
-            const int hh = h + dy;
-#pragma unroll
-            for (int dx = -1; dx <= 1; ++dx) {
-              const int ww = w + dx;
-              if (hh < 0 || hh >= H || ww < 0 || ww >= W) continue;
-              const uint4 xv = *reinterpret_cast<const uint4*>(
-                  xs + (pl + W + 1 + dy * W + dx) * KC1 + cs);
-              const uint4 kv = *reinterpret_cast<const uint4*>(
-                  ks + ((dy + 1) * 3 + (dx + 1)) * KC1 + cs);
-              uint32_t xw[4] = {xv.x, xv.y, xv.z, xv.w};
-              const uint32_t kw[4] = {kv.x, kv.y, kv.z, kv.w};
-#pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                if (PRE_RELU) xw[j] = relu_bf16x2(xw[j]);
-                const float2 v = unpack_bf16x2(xw[j]);
-                const float2 k = unpack_bf16x2(kw[j]);
-                a[2 * j] = fmaf(v.x, k.x, a[2 * j]);
-                a[2 * j + 1] = fmaf(v.y, k.y, a[2 * j + 1]);
-              }
-            }
-          }
-        }
-        // the TPU kernel's rounding point: depthwise accumulator -> bf16
-        uint4 packed;
-        packed.x = pack_bf16x2(a[0], a[1]);
-        packed.y = pack_bf16x2(a[2], a[3]);
-        packed.z = pack_bf16x2(a[4], a[5]);
-        packed.w = pack_bf16x2(a[6], a[7]);
-        *reinterpret_cast<uint4*>(&As[pl * LDA + c0 + cs]) = packed;
-      }
-    }
-    __syncthreads();  // A complete; the window's storage is free
-  }
-
-  // ---- Phase 2: the block's F tiles against the resident A ----
   const int K2 = round_up(C, 16);
-  const int nk = (K2 + KC - 1) / KC;
+  const int nk = (K2 + KC - 1) / KC;  // C chunks per F tile
   const int f_first = grp * tiles_per_group * TN;
   const int tiles = min(tiles_per_group, (F - f_first + TN - 1) / TN);
   const int T = tiles * nk;  // ring iterations: (tile, chunk) in order
-  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(scratch);  // NS x [TN/8][KC][8]
+  const int L = NS - 1;      // prefetch distance: iteration it loads it+L
 
-  // Chunk `it` into its ring stage: core matrix (k/8, n/8) of the stage at
-  // ((n/8) * KC + k) * 8 elements.  Eight neighbouring threads fill one
-  // core matrix (128 contiguous bytes); a warp reads 8 rows x 64 bytes.
-  auto load_b = [&](int it) {
+  // Warpgroups 0-1 issue every copy and warpgroups 2-3 compute the
+  // depthwise, so the copies and the depthwise arithmetic run side by side;
+  // all four run the products.
+  const bool copier = tid < HALF;
+  const int ht = copier ? tid : tid - HALF;  // thread index within its half
+  // A depthwise thread's work in every chunk: channels cs..cs+3 of up to
+  // four pixels, with the 3x3 taps inside the image as a 9-bit mask.
+  const int s4 = KC == 64 ? 4 : KC == 32 ? 3 : 2;  // log2(KC / 4)
+  const int cs = (ht & ((KC >> 2) - 1)) * 4;
+  int pix[4];
+  unsigned taps_in[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int pl = (ht >> s4) + k * (HALF >> s4);
+    const int p = p0 + pl;
+    pix[k] = pl < P ? pl : -1;
+    taps_in[k] = 0;
+    if (pl < P && p < NHW) {
+      const int rem = p % HW;
+      const int h = rem / W, w = rem - h * W;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int hh = h + tap / 3 - 1, ww = w + tap % 3 - 1;
+        if (hh >= 0 && hh < H && ww >= 0 && ww < W) taps_in[k] |= 1u << tap;
+      }
+    }
+  }
+
+  // Iteration `it` into its stage (one cp.async group): window and taps
+  // for the first F tile, then the pointwise chunk, whose core matrix
+  // (k/8, n/8) sits at ((n/8) * KC + k) * 8: eight neighbouring threads
+  // fill one core matrix (128 contiguous bytes).
+  const int sh = s4 - 1;  // log2(KC / 8)
+  auto load = [&](int it) {
     const int t = it / nk, c0 = (it - t * nk) * KC;
+    __nv_bfloat16* st = ring + (it % NS) * SE;
+    if (t == 0) {
+      __nv_bfloat16* ks = st + WIN * KC;
+      for (int i = ht; i < 9 * (KC >> 3); i += HALF) {
+        const int tap = i >> sh, c = c0 + (i & ((KC >> 3) - 1)) * 8;
+        const bool ok = c < C;
+        cp_async16(ks + i * 8, ok ? dwk + tap * C + c : dwk, ok);
+      }
+      for (int i = ht; i < WIN * (KC >> 3); i += HALF) {
+        const int q = q0 + (i >> sh), c = c0 + (i & ((KC >> 3) - 1)) * 8;
+        const bool ok = q >= 0 && q < NHW && c < C;
+        cp_async16(st + i * 8, ok ? x + (size_t)q * C + c : x, ok);
+      }
+    }
+    __nv_bfloat16* bs = st + (WIN + 9) * KC;
     const int f0 = f_first + t * TN;
-    __nv_bfloat16* bs = Bs + (it % NS) * KC * TN;
-    for (int i = tid; i < KC * (TN / 8); i += THREADS) {
+    for (int i = ht; i < KC * (TN / 8); i += HALF) {
       const int ng = (i >> 3) % (TN / 8);
       const int k = ((i >> 3) / (TN / 8)) * 8 + (i & 7);
       const int c = c0 + k, f = f0 + ng * 8;
@@ -213,83 +193,142 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
     }
   };
 
+  // Depthwise of chunk c0 from the stage into the resident A.  Every load
+  // is issued before the arithmetic, so their latencies overlap; a window
+  // position is always inside the stage, and taps outside the image are
+  // dropped by the mask afterwards.
+  auto depthwise = [&](const __nv_bfloat16* st, int c0) {
+    const __nv_bfloat16* ks = st + WIN * KC;
+    uint2 kv[9];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+      kv[tap] = *reinterpret_cast<const uint2*>(ks + tap * KC + cs);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (pix[k] < 0) continue;
+      uint2 xv[9];
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap)
+        xv[tap] = *reinterpret_cast<const uint2*>(
+            st + (pix[k] + (tap / 3) * W + tap % 3) * KC + cs);
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        if (!((taps_in[k] >> tap) & 1)) continue;
+        uint32_t xw[2] = {xv[tap].x, xv[tap].y};
+        const uint32_t kw[2] = {kv[tap].x, kv[tap].y};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if (PRE_RELU) xw[j] = relu_bf16x2(xw[j]);
+          const float2 v = unpack_bf16x2(xw[j]);
+          const float2 kk = unpack_bf16x2(kw[j]);
+          a[2 * j] = fmaf(v.x, kk.x, a[2 * j]);
+          a[2 * j + 1] = fmaf(v.y, kk.y, a[2 * j + 1]);
+        }
+      }
+      // the TPU kernel's rounding point: depthwise accumulator -> bf16
+      uint2 packed;
+      packed.x = pack_bf16x2(a[0], a[1]);
+      packed.y = pack_bf16x2(a[2], a[3]);
+      *reinterpret_cast<uint2*>(&As[pix[k] * LDA + c0 + cs]) = packed;
+    }
+  };
+
   float acc[NT / 2];
 #pragma unroll
   for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
 
+  // Epilogue of F tile t: BatchNorm affine in f32, optional ReLU, bf16 pairs.
+  auto epilogue = [&](int t) {
+    const int fw = f_first + t * TN + wg * NT;
 #pragma unroll
-  for (int s = 0; s < NS - 1; ++s) {
-    if (s < T) load_b(s);
+    for (int nb = 0; nb < NT / 8; ++nb) {
+      const int f = fw + nb * 8 + t4 * 2;
+      // loaded whether or not f < F (clamped), so the loads need not wait
+      // for the bounds test
+      const int fc = min(f, F - 2);
+      const float2 sc = *reinterpret_cast<const float2*>(scale + fc);
+      const float2 sf = *reinterpret_cast<const float2*>(shift + fc);
+      if (f >= F) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = p0 + wr + g + half * 8;
+        if (p >= NHW) continue;
+        float y0 = acc[nb * 4 + half * 2] * sc.x + sf.x;
+        float y1 = acc[nb * 4 + half * 2 + 1] * sc.y + sf.y;
+        if (POST_RELU) {
+          y0 = fmaxf(y0, 0.f);
+          y1 = fmaxf(y1, 0.f);
+        }
+        *reinterpret_cast<uint32_t*>(out + (size_t)p * F + f) =
+            pack_bf16x2(y0, y1);
+      }
+    }
+  };
+
+  // Prologue: stages 0..L-1 in flight; stages 0 and 1 landed, the
+  // depthwise of chunk 0 in A.
+  for (int s = 0; s < L; ++s) {
+    if (copier && s < T) load(s);
     cp_async_commit();
   }
-  for (int it = 0; it < T; ++it) {
-    cp_async_wait_group<NS - 2>();
-    fence_proxy_async_shared();  // cp.async writes -> the tensor cores' reads
-    __syncthreads();  // stage `it` landed; every warp is done with stage it-1
-    if (it + NS - 1 < T) load_b(it + NS - 1);
-    cp_async_commit();
+  if (L == 3)
+    cp_async_wait_group<1>();
+  else
+    cp_async_wait_group<0>();
+  fence_proxy_async_shared();  // cp.async writes -> the tensor cores
+  __syncthreads();
+  if (!copier) depthwise(ring, 0);
+  __syncthreads();
 
-    const int t = it / nk, j = it - t * nk;
-    const int c0 = j * KC;
-    const int steps = min(KC, K2 - c0) >> 4;
-    // this warpgroup's NT/8 core-matrix columns of the stage
-    const __nv_bfloat16* bs = Bs + (it % NS) * KC * TN + wg * NT * KC;
-    const __nv_bfloat16* as = As + (wr + (lane & 15)) * LDA + c0 + (lane >> 4) * 8;
-#if SEPCONV_WGMMA
-    uint32_t a[4][4];
+  // Iteration `it` starts with the A columns of its chunk complete and the
+  // stages of it and it+1 landed; one barrier per iteration keeps that so.
+  for (int t = 0; t < tiles; ++t) {
+    for (int j = 0; j < nk; ++j) {
+      const int it = t * nk + j;
+      const int c0 = j * KC;
+      const int steps = min(KC, K2 - c0) >> 4;
+      const __nv_bfloat16* bs =
+          ring + (it % NS) * SE + (WIN + 9) * KC + wg * NT * KC;
+      const __nv_bfloat16* as =
+          As + (wr + (lane & 15)) * LDA + c0 + (lane >> 4) * 8;
+      uint32_t afr[4][4];
 #pragma unroll
-    for (int s = 0; s < 4; ++s)
-      if (s < steps) ldmatrix_x4(a[s], as + s * 16);
-    wgmma_fence();
+      for (int s = 0; s < 4; ++s)
+        if (s < steps) ldmatrix_x4(afr[s], as + s * 16);
+      wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < 4; ++s)
-      if (s < steps)
-        wgmma_rs<NT>(acc, a[s], wgmma_desc(bs + s * 16 * 8, 128, KC * 16),
-                     j > 0 || s > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    wgmma_fence_operand(acc);
-#else
-    if (j == 0) {
+      for (int s = 0; s < 4; ++s)
+        if (s < steps)
+          wgmma_rs<NT>(acc, afr[s],
+                       wgmma_desc(bs + s * 16 * 8, 128, KC * 16),
+                       j > 0 || s > 0);
+      wgmma_commit();
+
+      // Meanwhile the stage of it-1 is refilled with it+L, and the first F
+      // tile computes the next chunk's depthwise on the CUDA cores.
+      if (copier && it + L < T) load(it + L);
+      cp_async_commit();
+      if (!copier && it + 1 < nk)
+        depthwise(ring + ((it + 1) % NS) * SE, c0 + KC);
+
+      wgmma_wait<0>();
+      wgmma_fence_operand(acc);
 #pragma unroll
-      for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
-    }
-    for (int s = 0; s < steps; ++s) {
-      uint32_t a[4];
-      ldmatrix_x4(a, as + s * 16);
-#pragma unroll
-      for (int nb = 0; nb < NT / 8; ++nb) {
-        uint32_t b[2];
-        ldmatrix_x2_trans(b, bs + (nb * KC + s * 16 + (lane & 15)) * 8);
-        mma_16816(&acc[nb * 4], a, b);
+      for (int s = 0; s < 4; ++s)  // the products read afr until the wait
+        asm volatile("" ::"r"(afr[s][0]), "r"(afr[s][1]), "r"(afr[s][2]),
+                     "r"(afr[s][3]));
+      if (it + 1 < T) {
+        // stage it+2 landed (it+3 may still be in flight)
+        if (L == 3)
+          cp_async_wait_group<1>();
+        else
+          cp_async_wait_group<0>();
+        fence_proxy_async_shared();
+        __syncthreads();
       }
     }
-#endif
-
-    if (j == nk - 1) {
-      // Epilogue: BatchNorm affine in f32, optional ReLU, bf16 pairs.
-      const int fw = f_first + t * TN + wg * NT;
-#pragma unroll
-      for (int nb = 0; nb < NT / 8; ++nb) {
-        const int f = fw + nb * 8 + t4 * 2;
-        if (f >= F) continue;
-        const float s0 = scale[f], s1 = scale[f + 1];
-        const float b0 = shift[f], b1 = shift[f + 1];
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int p = p0 + wr + g + half * 8;
-          if (p >= NHW) continue;
-          float y0 = acc[nb * 4 + half * 2] * s0 + b0;
-          float y1 = acc[nb * 4 + half * 2 + 1] * s1 + b1;
-          if (POST_RELU) {
-            y0 = fmaxf(y0, 0.f);
-            y1 = fmaxf(y1, 0.f);
-          }
-          *reinterpret_cast<uint32_t*>(out + (size_t)p * F + f) =
-              pack_bf16x2(y0, y1);
-        }
-      }
-    }
+    epilogue(t);
   }
 }
 
@@ -297,7 +336,7 @@ struct Args {
   const __nv_bfloat16 *x, *dwk, *pw;
   const float *scale, *shift;
   __nv_bfloat16* out;
-  int N, H, W, C, F, groups, tiles_per_group, KC, KC1;
+  int N, H, W, C, F, groups, tiles_per_group, KC, NS;
 };
 
 template <int NT, bool PRE_RELU, bool POST_RELU>
@@ -308,7 +347,7 @@ cudaError_t launch(int blocks, int smem, cudaStream_t s, const Args& a) {
   if (configured != cudaSuccess) return configured;
   sepconv_kernel<NT, PRE_RELU, POST_RELU><<<blocks, THREADS, smem, s>>>(
       a.x, a.dwk, a.pw, a.scale, a.shift, a.out, a.N, a.H, a.W, a.C, a.F,
-      a.groups, a.tiles_per_group, a.KC, a.KC1);
+      a.groups, a.tiles_per_group, a.KC, a.NS);
   return cudaGetLastError();
 }
 
@@ -321,34 +360,32 @@ cudaError_t launch_relu(bool pre, bool post, int blocks, int smem,
   return launch<NT, false, false>(blocks, smem, s, a);
 }
 
-bool chunk_ok(int k) { return k == 16 || k == 32 || k == 64; }
-
 }  // namespace
 
 extern "C" {
 
 // Launches on `stream` with the plan of ops/sepconv.py::_sepconv_plan
-// (F groups per pixel tile, F tiles per group, wgmma width n_tile, ring
-// chunk kc, depthwise chunk kc1, shared-memory bytes) and returns the
-// launch's CUDA error (0 = launched); cudaErrorInvalidValue for a plan this
-// library does not instantiate or that does not cover F.
+// (F groups per pixel tile, F tiles per group, wgmma width n_tile, C chunk
+// kc, ring stages, shared-memory bytes) and returns the launch's CUDA error
+// (0 = launched); cudaErrorInvalidValue for a plan this library does not
+// instantiate or that does not cover F.
 int sepconv_launch(const void* x, const void* dwk, const void* pw,
                    const void* scale, const void* shift, void* out, int N,
                    int H, int W, int C, int F, int pre_relu, int post_relu,
                    int groups, int tiles_per_group, int n_tile, int kc,
-                   int kc1, int smem, void* stream) {
+                   int stages, int smem, void* stream) {
   const auto invalid = static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || F <= 0 || C % 8 || F % 8)
     return invalid;
-  if ((n_tile != 64 && n_tile != 128 && n_tile != 184) || !chunk_ok(kc) ||
-      !chunk_ok(kc1))
+  if ((n_tile != 32 && n_tile != 64 && n_tile != 96 && n_tile != 128) ||
+      (kc != 16 && kc != 32 && kc != 64) || (stages != 3 && stages != 4))
     return invalid;
-  const long long tn = 2LL * n_tile;
+  const long long tn = (long long)WGS * n_tile;
   if (groups < 1 || tiles_per_group < 1 ||
       (long long)groups * tiles_per_group * tn < F ||
       (long long)(groups - 1) * tiles_per_group * tn >= F)
     return invalid;
-  if (smem != smem_bytes_for(W, C, 2 * n_tile, kc, kc1) || smem > MAX_SMEM)
+  if (smem != smem_bytes_for(W, C, WGS * n_tile, kc, stages) || smem > MAX_SMEM)
     return invalid;
   const long long blocks =
       ((long long)N * H * W + P - 1) / P * (long long)groups;
@@ -359,17 +396,19 @@ int sepconv_launch(const void* x, const void* dwk, const void* pw,
                static_cast<const float*>(scale),
                static_cast<const float*>(shift),
                static_cast<__nv_bfloat16*>(out),
-               N, H, W, C, F, groups, tiles_per_group, kc, kc1};
+               N, H, W, C, F, groups, tiles_per_group, kc, stages};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool pre = pre_relu != 0, post = post_relu != 0;
   const int nb = static_cast<int>(blocks);
   cudaError_t err;
-  if (n_tile == 64)
+  if (n_tile == 32)
+    err = launch_relu<32>(pre, post, nb, smem, s, a);
+  else if (n_tile == 64)
     err = launch_relu<64>(pre, post, nb, smem, s, a);
-  else if (n_tile == 128)
-    err = launch_relu<128>(pre, post, nb, smem, s, a);
+  else if (n_tile == 96)
+    err = launch_relu<96>(pre, post, nb, smem, s, a);
   else
-    err = launch_relu<184>(pre, post, nb, smem, s, a);
+    err = launch_relu<128>(pre, post, nb, smem, s, a);
   return static_cast<int>(err);
 }
 

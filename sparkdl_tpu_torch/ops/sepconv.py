@@ -156,19 +156,19 @@ def _check_sepconv_operands(x, dwk, pw, scale, shift, who: str):
 
 
 # The whole-image kernel's launch plan (csrc/sepconv.cu): a block owns 64
-# flattened pixels and one of S groups of F tiles; each F tile is 2*NT wide
+# flattened pixels and one of S groups of F tiles; each F tile is 4*NT wide
 # (NT per warpgroup, the wgmma N).  Figures of one H100 SXM (sm_90).
 _SM_COUNT = 132
 _SMEM_BLOCK = 232448          # shared memory one block may use
-_SMEM_SM = 233472             # shared memory of one SM
-_SMEM_RESERVED = 1024         # the runtime's share of it per block
-_RING = 4                     # stages of the pointwise ring (the kernel's NS)
-_CHUNKS = (64, 32, 16)        # ring and depthwise chunk widths, channels
-# wgmma N the library instantiates -> its blocks per SM (__launch_bounds__)
-_N_TILES = {184: 1, 128: 1, 64: 2}
-# One pixel-channel of depthwise (9 taps on the CUDA cores) costs about as
-# much block time as this many output columns of the product on the
-# tensor cores: the plan's model of a block is C * (_DW_COST + its F).
+_STAGES = (3, 4)              # ring stages the kernel takes
+_CHUNKS = (64, 32, 16)        # C chunk widths the kernel takes
+_N_TILES = (128, 96, 64, 32)  # wgmma N the library instantiates
+_WGS = 4                      # warpgroups per block (one block per SM)
+# A block's time is modelled as C * (_DW_COST + the F columns it covers):
+# on the H100 the depthwise of a pixel-channel costs about as much block
+# time as streaming and multiplying 256 output columns of pointwise
+# weights, and the two add up (measured per shape class with a sweep of
+# plans; PERF.md).
 _DW_COST = 256
 
 
@@ -176,67 +176,64 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def _sepconv_smem(w: int, c: int, tn: int, kc: int, kc1: int) -> int:
+def _sepconv_smem(w: int, c: int, tn: int, kc: int, stages: int) -> int:
     """Bytes of shared memory of a launch: the resident depthwise tile
-    [64][round_up(C, 64) + 8] bf16, then the larger of the depthwise window
-    (two stages of [64+2W+2][KC1] and [9][KC1]) and the pointwise ring
-    (four stages of [KC][TN]).  The kernel's ``smem_bytes_for``."""
-    a = 2 * 64 * (_round_up(c, 64) + 8)
-    return a + max(4 * (64 + 2 * w + 2 + 9) * kc1, 2 * _RING * kc * tn)
+    [64][round_up(C, 64) + 8] bf16, then ``stages`` ring stages of the
+    input window [64+2W+2][KC], the taps [9][KC] and the pointwise chunk
+    [KC][TN].  The kernel's ``smem_bytes_for``."""
+    stage = (64 + 2 * w + 2 + 9) * kc + kc * tn
+    return 2 * 64 * (_round_up(c, 64) + 8) + 2 * stages * stage
 
 
 def _sepconv_plan(n: int, h: int, w: int, c: int, f: int) -> Dict[str, int]:
     """The launch plan of the whole-image kernel for one shape: ``groups``
     (S, the blocks sharing a pixel tile, each computing its pixels'
-    depthwise once), ``tiles_per_group``, ``n_tile`` (NT), ``kc`` (ring
-    chunk), ``kc1`` (depthwise chunk) and ``smem`` bytes, which the kernel
-    takes as ints, plus ``blocks``, ``blocks_per_sm`` and ``waves`` for
-    the record.  Picks the plan with the least modelled time: waves of
-    blocks over 132 SMs, each block C * (_DW_COST + the F it covers), two
-    co-resident blocks at best overlapping their phases.
-    Raises ``ValueError`` for a shape no plan fits."""
-    if min(n, h, w, c, f) <= 0 or c % 8 or f % 8:
-        raise ValueError(f"no sepconv plan for shape {(n, h, w, c, f)}: "
-                         f"sizes must be positive, C and F multiples of 8")
+    depthwise once), ``tiles_per_group``, ``n_tile`` (NT), ``kc`` (C
+    chunk), ``stages`` (ring) and ``smem`` bytes, which the kernel takes as
+    ints, plus ``blocks`` and ``waves`` (of 132 SMs) for the record.
+    Picks the plan with the least modelled time: waves of blocks over 132
+    SMs (one block each), a block costing ``_DW_COST`` plus the F columns
+    it covers.  Raises ``ValueError`` for a shape no plan fits."""
     why = f"no sepconv plan for shape {(n, h, w, c, f)}:"
-    if _sepconv_smem(0, c, 2 * min(_N_TILES), min(_CHUNKS), 0) > _SMEM_BLOCK:
+    if min(n, h, w, c, f) <= 0 or c % 8 or f % 8:
+        raise ValueError(f"{why} sizes must be positive, C and F multiples "
+                         f"of 8")
+    least = _sepconv_smem(0, c, _WGS * min(_N_TILES), min(_CHUNKS),
+                          min(_STAGES))
+    if least > _SMEM_BLOCK:
         raise ValueError(f"{why} the resident 64x{c} depthwise tile "
                          f"({_sepconv_smem(0, c, 0, 0, 0)} bytes) and the "
-                         f"smallest pointwise ring exceed {_SMEM_BLOCK} bytes "
-                         f"of shared memory")
-    for kc1 in _CHUNKS:  # the widest depthwise chunk whose window fits
-        if _sepconv_smem(w, c, 0, 0, kc1) <= _SMEM_BLOCK:
-            break
-    else:
-        raise ValueError(f"{why} the input window of a {w}-pixel row beside "
-                         f"the resident depthwise tile exceeds {_SMEM_BLOCK} "
-                         f"bytes of shared memory")
+                         f"smallest ring exceed {_SMEM_BLOCK} bytes of shared "
+                         f"memory")
     px_tiles = -(-(n * h * w) // 64)
     best = None
-    for nt, per_sm in _N_TILES.items():
-        tn = 2 * nt
+    for nt in _N_TILES:
+        tn = _WGS * nt
         f_tiles = -(-f // tn)
         for kc in _CHUNKS:
-            smem = _sepconv_smem(w, c, tn, kc, kc1)
-            if smem > _SMEM_BLOCK:
+            stages = next((s for s in _STAGES
+                           if _sepconv_smem(w, c, tn, kc, s) <= _SMEM_BLOCK),
+                          None)
+            if stages is None:
                 continue
-            bpsm = min(per_sm, _SMEM_SM // (smem + _SMEM_RESERVED))
+            smem = _sepconv_smem(w, c, tn, kc, stages)
             for groups in range(1, f_tiles + 1):
                 tpg = -(-f_tiles // groups)
                 if -(-f_tiles // tpg) != groups:
                     continue  # the same split with fewer groups is listed
                 blocks = px_tiles * groups
-                waves = -(-blocks // (_SM_COUNT * bpsm))
-                # co-resident blocks overlap one's depthwise with the
-                # other's product at best
-                cost = waves * max(_DW_COST + tpg * tn,
-                                   bpsm * max(_DW_COST, tpg * tn))
-                key = (cost, groups, -nt, -kc)
+                waves = -(-blocks // _SM_COUNT)
+                key = (waves * (_DW_COST + tpg * tn), groups, -nt, -kc,
+                       stages)
                 if best is None or key < best[0]:
                     best = (key, dict(groups=groups, tiles_per_group=tpg,
-                                      n_tile=nt, kc=kc, kc1=kc1, smem=smem,
-                                      blocks=blocks, blocks_per_sm=bpsm,
+                                      n_tile=nt, kc=kc, stages=stages,
+                                      smem=smem, blocks=blocks,
                                       waves=waves))
+    if best is None:
+        raise ValueError(f"{why} the input window of a {w}-pixel row beside "
+                         f"the resident depthwise tile exceeds {_SMEM_BLOCK} "
+                         f"bytes of shared memory")
     return best[1]
 
 
@@ -251,6 +248,8 @@ def _fused_sepconv_cuda(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
     refused."""
     n, h, w, c, f = _check_sepconv_operands(x, dwk, pw, scale, shift,
                                             "_fused_sepconv_cuda")
+    if scale.data_ptr() % 8 or shift.data_ptr() % 8:
+        raise ValueError("scale and shift must start on an 8-byte boundary")
     if n * h * w * max(c, f) >= 2 ** 31:
         raise ValueError(f"shape {(n, h, w, c, f)} exceeds the kernel's "
                          f"index range")
@@ -261,7 +260,7 @@ def _fused_sepconv_cuda(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
     _launch("sepconv", x.device, x.data_ptr(), dwk.data_ptr(), pw.data_ptr(),
             scale.data_ptr(), shift.data_ptr(), out.data_ptr(), n, h, w, c,
             f, int(pre_relu), int(post_relu), plan["groups"],
-            plan["tiles_per_group"], plan["n_tile"], plan["kc"], plan["kc1"],
+            plan["tiles_per_group"], plan["n_tile"], plan["kc"], plan["stages"],
             plan["smem"])
     fused_sepconv.launches += 1
     return out

@@ -133,11 +133,11 @@ def test_sepconv_plan_fits_and_covers_f(n, hw, c, f):
     and its F groups and tiles cover F exactly: each 2*NT-wide F tile once,
     no group empty, less than one tile past F."""
     plan = port._sepconv_plan(n, hw, hw, c, f)
-    tn = 2 * plan["n_tile"]
+    tn = port._WGS * plan["n_tile"]
     assert plan["n_tile"] in port._N_TILES
-    assert plan["kc"] in port._CHUNKS and plan["kc1"] in port._CHUNKS
+    assert plan["kc"] in port._CHUNKS and plan["stages"] in port._STAGES
     assert plan["smem"] == port._sepconv_smem(hw, c, tn, plan["kc"],
-                                              plan["kc1"])
+                                              plan["stages"])
     assert plan["smem"] <= 232448
     groups, tpg = plan["groups"], plan["tiles_per_group"]
     tiles = []
@@ -148,10 +148,7 @@ def test_sepconv_plan_fits_and_covers_f(n, hw, c, f):
     assert tiles == list(range(0, f, tn))
     assert 0 <= len(tiles) * tn - f < tn
     assert plan["blocks"] == -(-(n * hw * hw) // 64) * groups
-    per_sm = min(port._N_TILES[plan["n_tile"]],
-                 233472 // (plan["smem"] + 1024))
-    assert plan["blocks_per_sm"] == per_sm >= 1
-    assert plan["waves"] == -(-plan["blocks"] // (132 * per_sm))
+    assert plan["waves"] == -(-plan["blocks"] // 132)
 
 
 def test_sepconv_plan_fills_the_card_at_small_images():
@@ -181,9 +178,11 @@ def test_untakeable_shape_raises_in_the_wrapper(monkeypatch, n, h, w, c, f,
         monkeypatch.setattr(port, "_launch", lambda *a: pytest.fail(
             "launched an untakeable shape"))
         x = torch.zeros(n, h, w, c, dtype=torch.bfloat16)
+        affine = torch.ones(f)
         before = port.fused_sepconv.launches
         with pytest.raises(ValueError, match=why):
-            port._fused_sepconv_cuda(x, None, None, None, None, True, False)
+            port._fused_sepconv_cuda(x, None, None, affine, affine, True,
+                                     False)
         assert port.fused_sepconv.launches == before
 
 
