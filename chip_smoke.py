@@ -17,10 +17,14 @@ weights and batch 32:
   * Xception with ``SPARKDL_XC_TILED=1`` (one featurizer batch): the tiled
     sepconv kernel (B3), 4 launches per batch, beside B1's 30.
 
-Each path runs with every launch count set to 0 just before it and read
-just after; the script checks the counts and that each path's fused route
-agrees with the model's unfused route.  Any failed phase exits non-zero;
-without a CUDA device it exits non-zero before printing any result.
+B1 is also held against its plain version at ragged shapes (a pixel count
+that is not a multiple of 64, F = 200, all four ReLU variants), and each of
+its classes prints its launch plan (blocks, F groups S, waves, shared
+memory).  Each path runs with every launch count set to 0 just before it
+and read just after; the script checks the counts and that each path's
+fused route agrees with the model's unfused route.  Any failed phase exits
+non-zero; without a CUDA device it exits non-zero before printing any
+result.
 
 Output: the card's name and power limit first, one line per phase, then
 one JSON line with every kernel's numbers, and last the line
@@ -58,6 +62,16 @@ SEPCONV_SHAPES = [
     (10, 1536, 2048, False, True, 1),  # block14_sepconv2
 ]
 SEPCONV_PER_FORWARD = sum(s[-1] for s in SEPCONV_SHAPES)  # 30
+
+# Shapes off the main path that B1 must take too: (N, H=W, C, F, pre_relu,
+# post_relu).  A pixel count that is not a multiple of 64, an F that no
+# tile width divides, and all four ReLU variants.
+SEPCONV_RAGGED = [
+    (3, 19, 728, 728, True, False),
+    (32, 19, 728, 200, False, False),
+    (2, 10, 1024, 1536, True, True),
+    (4, 19, 256, 728, False, True),
+]
 
 # The entry blocks 2-3 the tiled kernel (B3) takes with SPARKDL_XC_TILED=1.
 TILED_SHAPES = [
@@ -263,6 +277,7 @@ def phase_sepconv_kernel(sepconv, tiled):
                                           else SEPCONV_SHAPES):
         n = BATCH
         args = _sepconv_inputs(g, n, hw, c, f)
+        plan = None if tiled else sepconv._sepconv_plan(n, hw, hw, c, f)
         out = kern(*args, pre, post)
         torch.cuda.synchronize()
         ref = sepconv.sepconv_reference(*args, pre, post)
@@ -281,6 +296,10 @@ def phase_sepconv_kernel(sepconv, tiled):
                    ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
                    bound_by=b_by, ops_ms=flops / PEAK_BF16_FLOPS * 1e3,
                    bytes_ms=nbytes / PEAK_BYTES * 1e3)
+        if plan is not None:
+            row["plan"] = plan
+            print(f"[plan] sepconv N={n} {hw}x{hw} C={c} F={f}: "
+                  f"{plan_text(plan)}", flush=True)
         extra = ""
         if tiled:
             row["b1_ms"] = graph_ms(lambda: sepconv._fused_sepconv_cuda(
@@ -307,6 +326,32 @@ def phase_sepconv_kernel(sepconv, tiled):
                   "sparkdl_tpu/ops/sepconv.py:143", rows, worst)
     e["host_us_per_launch"] = host
     return e
+
+
+def plan_text(plan):
+    return (f"blocks={plan['blocks']} S={plan['groups']} "
+            f"tiles/group={plan['tiles_per_group']} NT={plan['n_tile']} "
+            f"KC={plan['kc']} stages={plan['stages']} "
+            f"waves={plan['waves']} smem={plan['smem']} B")
+
+
+def phase_sepconv_ragged(sepconv):
+    """B1 at the shapes of SEPCONV_RAGGED, each held against its plain
+    version; returns the largest max abs error."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    worst = 0.0
+    for n, hw, c, f, pre, post in SEPCONV_RAGGED:
+        args = _sepconv_inputs(g, n, hw, c, f)
+        out = sepconv._fused_sepconv_cuda(*args, pre, post)
+        torch.cuda.synchronize()
+        ref = sepconv.sepconv_reference(*args, pre, post)
+        max_abs = compare(out, ref, ("sepconv ragged", n, hw, c, f, pre, post))
+        worst = max(worst, max_abs)
+        print(f"[kernel] sepconv ragged N={n} {hw}x{hw} C={c} F={f} "
+              f"pre={int(pre)} post={int(post)}: max_abs_err={max_abs:.5f}; "
+              f"{plan_text(sepconv._sepconv_plan(n, hw, hw, c, f))}",
+              flush=True)
+    return worst
 
 
 def phase_mbconv_kernel(sepconv):
@@ -553,6 +598,7 @@ def main():
         os.environ.pop(knob, None)
     phase_build(sepconv)
     b1 = phase_sepconv_kernel(sepconv, tiled=False)
+    b1["max_abs_err"] = max(b1["max_abs_err"], phase_sepconv_ragged(sepconv))
     b3 = phase_sepconv_kernel(sepconv, tiled=True)
     b2 = phase_mbconv_kernel(sepconv)
     b1["launches"] = phase_xception(sepconv)

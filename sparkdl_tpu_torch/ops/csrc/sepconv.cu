@@ -23,7 +23,7 @@
 //
 // Design.  A block owns 64 output pixels (flattened over N*H*W, so 10x10
 // images still fill tiles; the wgmma M) and one group of F tiles, each
-// 4*NT wide: one NT-wide quarter per warpgroup, NT the wgmma N (32-128).
+// 3*NT wide: one NT-wide third per warpgroup, NT the wgmma N (64-128).
 // The S blocks of a pixel tile ("F groups") split F between them, so a
 // pixel's depthwise is computed S times; the kernel before computed it once
 // per 256-wide F tile.  ops/sepconv.py::_sepconv_plan picks S, NT, the C
@@ -35,10 +35,10 @@
 // barrier.  For the first F tile a stage holds the chunk's input window
 // (the tile's pixels plus one image row and one pixel on each side: every
 // 3x3 neighbour; neighbours outside the image are masked by coordinates,
-// not read), its 9 taps and its pointwise chunk [KC][4*NT]; warpgroups 2-3
+// not read), its 9 taps and its pointwise chunk [KC][3*NT]; warpgroups 1-2
 // compute the next chunk's bf16 depthwise into a resident A tile
-// [64][C+pad] while warpgroups 0-1 issue the copies and the tensor cores
-// run this chunk's products.  Later F tiles load only pointwise chunks and
+// [64][C+pad] while warpgroup 0 issues the copies and the tensor cores run
+// this chunk's products.  Later F tiles load only pointwise chunks and
 // run against the resident A: each pixel's depthwise is computed once for
 // all the F the block covers.  The epilogue (affine, ReLU, bf16) follows
 // each F tile.
@@ -53,13 +53,17 @@
 // 16 (728 = 45*16 + 8) is zero in both A and B.  C and F must be multiples
 // of 8 (every Xception width is).
 //
-// Known waste, for later versions: one 512-thread block per SM (the
+// Three warpgroups and not four: 384 threads leave 170 registers a thread
+// (four spill at 128), and not two: 8 warps hide too little latency.
+//
+// Known waste, for later versions: one 384-thread block per SM (the
 // resident tile is 34-198 KB), so every phase of an iteration waits on the
 // last warp and the copies, the depthwise, the products and the epilogue
 // add up rather than overlap (measured, PERF.md); each 64-pixel tile
 // re-reads its pointwise weights from L2 (TMA multicast across a cluster
 // would share them); F tiles after the first do not overlap a depthwise;
-// 728 = 2*384 - 40 wastes 5% of the product in the last tile.
+// 728 = 2*384 - 40 wastes 5% of the product in the last tile; at C=1536
+// the resident tile leaves room only for 16-channel chunks.
 
 #include "common.cuh"
 #include "wgmma.cuh"
@@ -67,9 +71,11 @@
 namespace {
 
 constexpr int P = 64;          // output pixels per block: the wgmma M
-constexpr int WGS = 4;         // warpgroups, one NT-wide quarter of an F tile each
+constexpr int WGS = 3;         // warpgroups: a third of an F tile each
 constexpr int THREADS = 128 * WGS;
-constexpr int HALF = THREADS / 2;  // warpgroups 0-1 copy, 2-3 compute the depthwise
+constexpr int COPIERS = 128;   // warpgroup 0 issues the copies,
+constexpr int DWT = THREADS - COPIERS;  // warpgroups 1-2 compute the depthwise
+constexpr int PIX = 64 * 16 / DWT;  // most pixels a depthwise thread takes
 
 __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;
@@ -107,7 +113,7 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
                __nv_bfloat16* __restrict__ out,          // [N, H, W, F]
                int N, int H, int W, int C, int F, int groups,
                int tiles_per_group, int KC, int NS) {
-  constexpr int TN = WGS * NT;  // F tile: one NT-wide quarter per warpgroup
+  constexpr int TN = WGS * NT;  // F tile: one NT-wide third per warpgroup
   extern __shared__ __align__(128) unsigned char smem[];
   const int LDA = lda_for(C);
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [P][LDA]
@@ -123,7 +129,7 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;  // accumulator fragment coordinates
-  const int wg = warp >> 2;                // warpgroup: its quarter of a tile
+  const int wg = warp >> 2;                // warpgroup: its third of a tile
   const int wr = (warp & 3) * 16;          // the warp's 16 rows of the tile
 
   const int K2 = round_up(C, 16);
@@ -133,20 +139,20 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
   const int T = tiles * nk;  // ring iterations: (tile, chunk) in order
   const int L = NS - 1;      // prefetch distance: iteration it loads it+L
 
-  // Warpgroups 0-1 issue every copy and warpgroups 2-3 compute the
+  // Warpgroup 0 issues every copy and warpgroups 1-2 compute the
   // depthwise, so the copies and the depthwise arithmetic run side by side;
-  // all four run the products.
-  const bool copier = tid < HALF;
-  const int ht = copier ? tid : tid - HALF;  // thread index within its half
+  // all three run the products.
+  const bool copier = tid < COPIERS;
+  const int ht = copier ? tid : tid - COPIERS;  // index within its role
   // A depthwise thread's work in every chunk: channels cs..cs+3 of up to
   // four pixels, with the 3x3 taps inside the image as a 9-bit mask.
   const int s4 = KC == 64 ? 4 : KC == 32 ? 3 : 2;  // log2(KC / 4)
   const int cs = (ht & ((KC >> 2) - 1)) * 4;
-  int pix[4];
-  unsigned taps_in[4];
+  int pix[PIX];
+  unsigned taps_in[PIX];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int pl = (ht >> s4) + k * (HALF >> s4);
+  for (int k = 0; k < PIX; ++k) {
+    const int pl = (ht >> s4) + k * (DWT >> s4);
     const int p = p0 + pl;
     pix[k] = pl < P ? pl : -1;
     taps_in[k] = 0;
@@ -171,12 +177,12 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
     __nv_bfloat16* st = ring + (it % NS) * SE;
     if (t == 0) {
       __nv_bfloat16* ks = st + WIN * KC;
-      for (int i = ht; i < 9 * (KC >> 3); i += HALF) {
+      for (int i = ht; i < 9 * (KC >> 3); i += COPIERS) {
         const int tap = i >> sh, c = c0 + (i & ((KC >> 3) - 1)) * 8;
         const bool ok = c < C;
         cp_async16(ks + i * 8, ok ? dwk + tap * C + c : dwk, ok);
       }
-      for (int i = ht; i < WIN * (KC >> 3); i += HALF) {
+      for (int i = ht; i < WIN * (KC >> 3); i += COPIERS) {
         const int q = q0 + (i >> sh), c = c0 + (i & ((KC >> 3) - 1)) * 8;
         const bool ok = q >= 0 && q < NHW && c < C;
         cp_async16(st + i * 8, ok ? x + (size_t)q * C + c : x, ok);
@@ -184,7 +190,7 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
     }
     __nv_bfloat16* bs = st + (WIN + 9) * KC;
     const int f0 = f_first + t * TN;
-    for (int i = ht; i < KC * (TN / 8); i += HALF) {
+    for (int i = ht; i < KC * (TN / 8); i += COPIERS) {
       const int ng = (i >> 3) % (TN / 8);
       const int k = ((i >> 3) / (TN / 8)) * 8 + (i & 7);
       const int c = c0 + k, f = f0 + ng * 8;
@@ -204,7 +210,7 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
     for (int tap = 0; tap < 9; ++tap)
       kv[tap] = *reinterpret_cast<const uint2*>(ks + tap * KC + cs);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
+    for (int k = 0; k < PIX; ++k) {
       if (pix[k] < 0) continue;
       uint2 xv[9];
 #pragma unroll
@@ -377,7 +383,7 @@ int sepconv_launch(const void* x, const void* dwk, const void* pw,
   const auto invalid = static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || F <= 0 || C % 8 || F % 8)
     return invalid;
-  if ((n_tile != 32 && n_tile != 64 && n_tile != 96 && n_tile != 128) ||
+  if ((n_tile != 64 && n_tile != 96 && n_tile != 128) ||
       (kc != 16 && kc != 32 && kc != 64) || (stages != 3 && stages != 4))
     return invalid;
   const long long tn = (long long)WGS * n_tile;
@@ -401,9 +407,7 @@ int sepconv_launch(const void* x, const void* dwk, const void* pw,
   const bool pre = pre_relu != 0, post = post_relu != 0;
   const int nb = static_cast<int>(blocks);
   cudaError_t err;
-  if (n_tile == 32)
-    err = launch_relu<32>(pre, post, nb, smem, s, a);
-  else if (n_tile == 64)
+  if (n_tile == 64)
     err = launch_relu<64>(pre, post, nb, smem, s, a);
   else if (n_tile == 96)
     err = launch_relu<96>(pre, post, nb, smem, s, a);

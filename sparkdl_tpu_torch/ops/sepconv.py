@@ -156,14 +156,14 @@ def _check_sepconv_operands(x, dwk, pw, scale, shift, who: str):
 
 
 # The whole-image kernel's launch plan (csrc/sepconv.cu): a block owns 64
-# flattened pixels and one of S groups of F tiles; each F tile is 4*NT wide
+# flattened pixels and one of S groups of F tiles; each F tile is 3*NT wide
 # (NT per warpgroup, the wgmma N).  Figures of one H100 SXM (sm_90).
 _SM_COUNT = 132
 _SMEM_BLOCK = 232448          # shared memory one block may use
-_STAGES = (3, 4)              # ring stages the kernel takes
+_STAGES = (4, 3)              # ring stages the kernel takes
 _CHUNKS = (64, 32, 16)        # C chunk widths the kernel takes
-_N_TILES = (128, 96, 64, 32)  # wgmma N the library instantiates
-_WGS = 4                      # warpgroups per block (one block per SM)
+_N_TILES = (128, 96, 64)      # wgmma N the library instantiates
+_WGS = 3                      # warpgroups per block (one block per SM)
 # A block's time is modelled as C * (_DW_COST + the F columns it covers):
 # on the H100 the depthwise of a pixel-channel costs about as much block
 # time as streaming and multiplying 256 output columns of pointwise
@@ -223,8 +223,7 @@ def _sepconv_plan(n: int, h: int, w: int, c: int, f: int) -> Dict[str, int]:
                     continue  # the same split with fewer groups is listed
                 blocks = px_tiles * groups
                 waves = -(-blocks // _SM_COUNT)
-                key = (waves * (_DW_COST + tpg * tn), groups, -nt, -kc,
-                       stages)
+                key = (waves * (_DW_COST + tpg * tn), groups, -nt, -kc)
                 if best is None or key < best[0]:
                     best = (key, dict(groups=groups, tiles_per_group=tpg,
                                       n_tile=nt, kc=kc, stages=stages,
@@ -260,8 +259,8 @@ def _fused_sepconv_cuda(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
     _launch("sepconv", x.device, x.data_ptr(), dwk.data_ptr(), pw.data_ptr(),
             scale.data_ptr(), shift.data_ptr(), out.data_ptr(), n, h, w, c,
             f, int(pre_relu), int(post_relu), plan["groups"],
-            plan["tiles_per_group"], plan["n_tile"], plan["kc"], plan["stages"],
-            plan["smem"])
+            plan["tiles_per_group"], plan["n_tile"], plan["kc"],
+            plan["stages"], plan["smem"])
     fused_sepconv.launches += 1
     return out
 

@@ -12,7 +12,7 @@ header.
 
 from pathlib import Path
 
-WIDTHS = (32, 64, 96, 128)  # wgmma N (a multiple of 8, at most 256)
+WIDTHS = (64, 96, 128)  # wgmma N (a multiple of 8, at most 256)
 OUT = (Path(__file__).resolve().parents[1] / "sparkdl_tpu_torch" / "ops"
        / "csrc" / "wgmma.cuh")
 
