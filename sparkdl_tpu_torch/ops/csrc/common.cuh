@@ -45,16 +45,6 @@ __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
-// The m16n8k16 A fragment of a row-major [m][k] tile: lane l gives the
-// address of row l % 16, columns (l / 16) * 8 .. +7.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
 // Two 16(k) x 8(n) B tiles (n and n+8) from a row-major [k][n] tile.
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
                                                   const void* smem) {

@@ -16,10 +16,16 @@
 // against (N*H*W*(C+F) + 9*C + C*F) * 2: Xception's middle and exit flow
 // (C >= 728) sit above the card's ~295 ops/byte bf16 ridge, so the tensor
 // cores bound them, and block4's 256->728 layer sits below it.  In practice
-// the product is not what takes the time: the depthwise runs on the CUDA
-// cores (9 f32 FMAs and a bf16 unpack per pixel-channel), and every 64-pixel
-// tile streams its pointwise weights from L2 again (64 operations per byte
-// of L2 traffic), through 16-byte cp.async copies issued by the threads.
+// neither bound is near.  Every 64-pixel tile streams its pointwise
+// weights from L2 again (64 operations per byte of L2 traffic) through
+// 16-byte cp.async copies, the depthwise reads its input window from
+// shared memory, and both go through the SM's load/store pipe.  A clock64
+// trace of one block (tools/sepconv_compare.py --trace; numbers in
+// PERF.md) shows where an iteration goes: warpgroup 0 issuing the copies
+// and warpgroups 1-2 computing the depthwise take most of it, side by
+// side, and issuing the products holds each warp for as long as the
+// tensor cores take to accept them; waiting for the products, for the
+// copies and at the barrier takes little.
 //
 // Design.  A block owns 64 output pixels (flattened over N*H*W, so 10x10
 // images still fill tiles; the wgmma M) and one group of F tiles, each
@@ -28,42 +34,51 @@
 // pixel's depthwise is computed S times; the kernel before computed it once
 // per 256-wide F tile.  ops/sepconv.py::_sepconv_plan picks S, NT, the C
 // chunk KC and the ring depth per shape from a model of waves over 132 SMs;
-// at batch 32 it takes S=1 at 37x37, S=2 at 19x19 and 10x10.
+// at batch 32 it takes S=1 at 37x37 (685 blocks), S=2 at 19x19 (362) and
+// S=2 at 10x10 (100).
 //
-// One loop walks the block's (F tile, C chunk) pairs in order through an
-// NS-stage cp.async ring; iteration it loads it+NS-1 and ends with one
-// barrier.  For the first F tile a stage holds the chunk's input window
-// (the tile's pixels plus one image row and one pixel on each side: every
-// 3x3 neighbour; neighbours outside the image are masked by coordinates,
-// not read), its 9 taps and its pointwise chunk [KC][3*NT]; warpgroups 1-2
+// Two phases per block, in one loop over its (F tile, C chunk) pairs
+// through an NS-stage cp.async ring with one barrier per iteration.
+// Phase 1 is the first F tile: a slot holds the chunk's input window (the
+// tile's pixels plus one image row and one pixel on each side: every 3x3
+// neighbour; neighbours outside the image are masked by coordinates, not
+// read), its 9 taps and its pointwise chunk [KC][3*NT]; warpgroups 1-2
 // compute the next chunk's bf16 depthwise into a resident A tile
-// [64][C+pad] while warpgroup 0 issues the copies and the tensor cores run
-// this chunk's products.  Later F tiles load only pointwise chunks and
-// run against the resident A: each pixel's depthwise is computed once for
-// all the F the block covers.  The epilogue (affine, ReLU, bf16) follows
-// each F tile.
+// [64][round_up(C, 64)] while warpgroup 0 issues the copies and the tensor
+// cores run this chunk's products.  Phase 2 is every later F tile:
+// pointwise chunks only, against the resident A, so each pixel's depthwise
+// is computed once for all the F the block covers.  Windows are loaded
+// three iterations ahead and pointwise chunks NS-1 ahead.  The epilogue
+// (affine, ReLU, bf16, 16-byte stores) follows each F tile.
 //
-// Product: wgmma.mma_async m64nNTk16 (wgmma.cuh), A from registers
-// (ldmatrix from the resident tile; warp w of a warpgroup holds rows
-// 16w..16w+15), B from shared memory through a descriptor: MN-major (N
-// contiguous, as pw is) 8x8 core matrices of 128 contiguous bytes, no
-// swizzle, so one 16-byte cp.async moves one core-matrix row.  cp.async and
-// not TMA stages the ring: TMA needs a tensor map built on the host through
-// the driver API, left for a later version.  A tail of C past a multiple of
-// 16 (728 = 45*16 + 8) is zero in both A and B.  C and F must be multiples
-// of 8 (every Xception width is).
+// Product: wgmma.mma_async m64nNTk16 (wgmma.cuh), both operands from
+// shared memory through descriptors, in 8x8 core matrices of 128
+// contiguous bytes, no swizzle: A K-major (the depthwise stores one core
+// matrix row, 8 channels of a pixel, per 16-byte store), B MN-major (N
+// contiguous, as pw is; one 16-byte cp.async moves one core-matrix row).
+// Issuing a product holds the warp until the tensor cores take it, so
+// warpgroup 0 issues its copies before its products and warpgroups 1-2
+// their products before the depthwise.  cp.async and not TMA stages the
+// ring: TMA needs a tensor map built on the host through the driver API,
+// left for a later version.  A tail of C past a multiple of 16 (728 =
+// 45*16 + 8) is zero in both A and B.  C and F must be multiples of 8
+// (every Xception width is).
 //
 // Three warpgroups and not four: 384 threads leave 170 registers a thread
 // (four spill at 128), and not two: 8 warps hide too little latency.
 //
-// Known waste, for later versions: one 384-thread block per SM (the
-// resident tile is 34-198 KB), so every phase of an iteration waits on the
-// last warp and the copies, the depthwise, the products and the epilogue
-// add up rather than overlap (measured, PERF.md); each 64-pixel tile
-// re-reads its pointwise weights from L2 (TMA multicast across a cluster
-// would share them); F tiles after the first do not overlap a depthwise;
-// 728 = 2*384 - 40 wastes 5% of the product in the last tile; at C=1536
-// the resident tile leaves room only for 16-channel chunks.
+// Known waste, for later versions: the copies and the depthwise's shared
+// loads share the load/store pipe, and a 16-byte cp.async stalls its warp
+// while earlier ones are in flight (TMA would take the copies off it); one
+// 384-thread block per SM (the resident tile is 32-192 KB), so the phases
+// of an iteration wait on each other at its barrier rather than overlap
+// across blocks; each 64-pixel tile re-reads its pointwise weights from L2
+// (TMA multicast across a cluster would share them); F tiles after the
+// first do not overlap a depthwise, and an epilogue overlaps nothing; 728 =
+// 2*384 - 40 wastes 5% of the product in the last tile; at C=1536 the
+// resident tile leaves room only for 16-channel chunks, so that class runs
+// 576 short iterations a block and, at 8 channels a depthwise thread,
+// leaves warpgroup 2 without depthwise work.
 
 #include "common.cuh"
 #include "wgmma.cuh"
@@ -75,15 +90,15 @@ constexpr int WGS = 3;         // warpgroups: a third of an F tile each
 constexpr int THREADS = 128 * WGS;
 constexpr int COPIERS = 128;   // warpgroup 0 issues the copies,
 constexpr int DWT = THREADS - COPIERS;  // warpgroups 1-2 compute the depthwise
-constexpr int PIX = 64 * 16 / DWT;  // most pixels a depthwise thread takes
+constexpr int PIX = 64 * 8 / DWT;  // most pixels a depthwise thread takes
 
 __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;
 }
 
-// Row stride (bf16) of the resident A tile: 16 bytes past a multiple of
-// 128, so the 8 rows of an ldmatrix fall in 8 different bank groups.
-__host__ __device__ constexpr int lda_for(int C) { return round_up(C, 64) + 8; }
+// 8-channel groups of a pixel row of the resident A tile (C rounded up to
+// a whole 64-wide chunk).
+__host__ __device__ constexpr int a_groups(int C) { return round_up(C, 64) / 8; }
 
 // bf16 elements of one ring stage: the window [P+2W+2][KC], the taps
 // [9][KC] and the pointwise chunk [TN/8][KC][8].
@@ -94,8 +109,21 @@ __host__ __device__ constexpr int stage_elems(int W, int TN, int KC) {
 // Shared memory of a launch: the resident A tile, then the ring.
 __host__ __device__ constexpr int smem_bytes_for(int W, int C, int TN, int KC,
                                                  int NS) {
-  return 2 * P * lda_for(C) + 2 * NS * stage_elems(W, TN, KC);
+  return 2 * P * 8 * a_groups(C) + 2 * NS * stage_elems(W, TN, KC);
 }
+
+#ifdef SEPCONV_PHASE_TRACE
+// Built only by tools/sepconv_compare.py --trace: clock64 at seven points
+// of each of the first 128 iterations of one block, and after the epilogue
+// at the last iteration of an F tile, read by thread 0 of each warpgroup,
+// [warpgroup][iteration][point].
+__device__ long long sepconv_trace[WGS][128][8];
+__device__ int sepconv_trace_block;
+#define SEPCONV_TRACE(point) \
+  if (traced) sepconv_trace[wg][it][point] = clock64()
+#else
+#define SEPCONV_TRACE(point)
+#endif
 
 __device__ __forceinline__ uint32_t relu_bf16x2(uint32_t w) {
   __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&w);
@@ -115,9 +143,11 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
                int tiles_per_group, int KC, int NS) {
   constexpr int TN = WGS * NT;  // F tile: one NT-wide third per warpgroup
   extern __shared__ __align__(128) unsigned char smem[];
-  const int LDA = lda_for(C);
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [P][LDA]
-  __nv_bfloat16* ring = As + P * LDA;                           // NS stages
+  // The resident A tile in K-major 8x8 core matrices: pixel m, channel k
+  // at ((m/8) * KG + k/8) * 64 + (m%8) * 8 + k%8.
+  const int KG = a_groups(C);
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ring = As + P * 8 * KG;  // NS stages
   const int WIN = P + 2 * W + 2;
   const int SE = stage_elems(W, TN, KC);
 
@@ -144,15 +174,16 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
   // all three run the products.
   const bool copier = tid < COPIERS;
   const int ht = copier ? tid : tid - COPIERS;  // index within its role
-  // A depthwise thread's work in every chunk: channels cs..cs+3 of up to
-  // four pixels, with the 3x3 taps inside the image as a 9-bit mask.
-  const int s4 = KC == 64 ? 4 : KC == 32 ? 3 : 2;  // log2(KC / 4)
-  const int cs = (ht & ((KC >> 2) - 1)) * 4;
+  // A depthwise thread's work in every chunk: channels cs..cs+7 (one
+  // 16-byte shared load per tap) of up to two pixels, with the 3x3 taps
+  // inside the image as a 9-bit mask.
+  const int sh = KC == 64 ? 3 : KC == 32 ? 2 : 1;  // log2(KC / 8)
+  const int cs = (ht & ((KC >> 3) - 1)) * 8;
   int pix[PIX];
   unsigned taps_in[PIX];
 #pragma unroll
   for (int k = 0; k < PIX; ++k) {
-    const int pl = (ht >> s4) + k * (DWT >> s4);
+    const int pl = (ht >> sh) + k * (DWT >> sh);
     const int p = p0 + pl;
     pix[k] = pl < P ? pl : -1;
     taps_in[k] = 0;
@@ -167,35 +198,41 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
     }
   }
 
-  // Iteration `it` into its stage (one cp.async group): window and taps
-  // for the first F tile, then the pointwise chunk, whose core matrix
-  // (k/8, n/8) sits at ((n/8) * KC + k) * 8: eight neighbouring threads
-  // fill one core matrix (128 contiguous bytes).
-  const int sh = s4 - 1;  // log2(KC / 8)
-  auto load = [&](int it) {
+  // One cp.async group's copies: the input window and taps of chunk
+  // `itw` (first F tile only: itw < nk) into the window part of its ring
+  // slot, and the pointwise chunk of iteration `it` (it < T) into the
+  // pointwise part of its slot, where core matrix (k/8, n/8) sits at
+  // ((n/8) * KC + k) * 8: eight neighbouring threads fill one core matrix
+  // (128 contiguous bytes).
+  auto load = [&](int itw, int it) {
     const int t = it / nk, c0 = (it - t * nk) * KC;
     __nv_bfloat16* st = ring + (it % NS) * SE;
-    if (t == 0) {
-      __nv_bfloat16* ks = st + WIN * KC;
+    if (itw < nk) {
+      const int cw = itw * KC;
+      __nv_bfloat16* sw = ring + (itw % NS) * SE;
+      __nv_bfloat16* ks = sw + WIN * KC;
       for (int i = ht; i < 9 * (KC >> 3); i += COPIERS) {
-        const int tap = i >> sh, c = c0 + (i & ((KC >> 3) - 1)) * 8;
+        const int tap = i >> sh, c = cw + (i & ((KC >> 3) - 1)) * 8;
         const bool ok = c < C;
         cp_async16(ks + i * 8, ok ? dwk + tap * C + c : dwk, ok);
       }
       for (int i = ht; i < WIN * (KC >> 3); i += COPIERS) {
-        const int q = q0 + (i >> sh), c = c0 + (i & ((KC >> 3) - 1)) * 8;
+        const int q = q0 + (i >> sh), c = cw + (i & ((KC >> 3) - 1)) * 8;
         const bool ok = q >= 0 && q < NHW && c < C;
-        cp_async16(st + i * 8, ok ? x + (size_t)q * C + c : x, ok);
+        cp_async16(sw + i * 8, ok ? x + (size_t)q * C + c : x, ok);
       }
     }
     __nv_bfloat16* bs = st + (WIN + 9) * KC;
     const int f0 = f_first + t * TN;
-    for (int i = ht; i < KC * (TN / 8); i += COPIERS) {
-      const int ng = (i >> 3) % (TN / 8);
-      const int k = ((i >> 3) / (TN / 8)) * 8 + (i & 7);
-      const int c = c0 + k, f = f0 + ng * 8;
-      const bool ok = c < C && f < F;
-      cp_async16(bs + (ng * KC + k) * 8, ok ? pw + (size_t)c * F + f : pw, ok);
+    if (it < T) {
+      for (int i = ht; i < KC * (TN / 8); i += COPIERS) {
+        const int ng = (i >> 3) % (TN / 8);
+        const int k = ((i >> 3) / (TN / 8)) * 8 + (i & 7);
+        const int c = c0 + k, f = f0 + ng * 8;
+        const bool ok = c < C && f < F;
+        cp_async16(bs + (ng * KC + k) * 8, ok ? pw + (size_t)c * F + f : pw,
+                   ok);
+      }
     }
   };
 
@@ -205,26 +242,26 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
   // dropped by the mask afterwards.
   auto depthwise = [&](const __nv_bfloat16* st, int c0) {
     const __nv_bfloat16* ks = st + WIN * KC;
-    uint2 kv[9];
+    uint4 kv[9];
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap)
-      kv[tap] = *reinterpret_cast<const uint2*>(ks + tap * KC + cs);
+      kv[tap] = *reinterpret_cast<const uint4*>(ks + tap * KC + cs);
 #pragma unroll
     for (int k = 0; k < PIX; ++k) {
       if (pix[k] < 0) continue;
-      uint2 xv[9];
+      uint4 xv[9];
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap)
-        xv[tap] = *reinterpret_cast<const uint2*>(
+        xv[tap] = *reinterpret_cast<const uint4*>(
             st + (pix[k] + (tap / 3) * W + tap % 3) * KC + cs);
-      float a[4] = {0.f, 0.f, 0.f, 0.f};
+      float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) {
         if (!((taps_in[k] >> tap) & 1)) continue;
-        uint32_t xw[2] = {xv[tap].x, xv[tap].y};
-        const uint32_t kw[2] = {kv[tap].x, kv[tap].y};
+        uint32_t xw[4] = {xv[tap].x, xv[tap].y, xv[tap].z, xv[tap].w};
+        const uint32_t kw[4] = {kv[tap].x, kv[tap].y, kv[tap].z, kv[tap].w};
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
+        for (int j = 0; j < 4; ++j) {
           if (PRE_RELU) xw[j] = relu_bf16x2(xw[j]);
           const float2 v = unpack_bf16x2(xw[j]);
           const float2 kk = unpack_bf16x2(kw[j]);
@@ -233,10 +270,14 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
         }
       }
       // the TPU kernel's rounding point: depthwise accumulator -> bf16
-      uint2 packed;
+      uint4 packed;
       packed.x = pack_bf16x2(a[0], a[1]);
       packed.y = pack_bf16x2(a[2], a[3]);
-      *reinterpret_cast<uint2*>(&As[pix[k] * LDA + c0 + cs]) = packed;
+      packed.z = pack_bf16x2(a[4], a[5]);
+      packed.w = pack_bf16x2(a[6], a[7]);
+      *reinterpret_cast<uint4*>(
+          &As[((pix[k] >> 3) * KG + ((c0 + cs) >> 3)) * 64 +
+              (pix[k] & 7) * 8]) = packed;
     }
   };
 
@@ -244,38 +285,69 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
 #pragma unroll
   for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
 
-  // Epilogue of F tile t: BatchNorm affine in f32, optional ReLU, bf16 pairs.
+  // Epilogue of F tile t: BatchNorm affine in f32, optional ReLU, bf16
+  // pairs.  In the accumulator layout the four lanes of a quad hold two
+  // columns each of an 8-column block of rows g and g+8; a transpose
+  // within the quad (three shuffles) gives lane t4 all eight columns of
+  // block 4q+t4, stored as one 16-byte write, so a warp writes 64
+  // contiguous bytes per row rather than 16.
+  auto pick = [](const uint32_t (&v)[4], int i) {
+    return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+  };
   auto epilogue = [&](int t) {
     const int fw = f_first + t * TN + wg * NT;
 #pragma unroll
-    for (int nb = 0; nb < NT / 8; ++nb) {
-      const int f = fw + nb * 8 + t4 * 2;
-      // loaded whether or not f < F (clamped), so the loads need not wait
-      // for the bounds test
-      const int fc = min(f, F - 2);
-      const float2 sc = *reinterpret_cast<const float2*>(scale + fc);
-      const float2 sf = *reinterpret_cast<const float2*>(shift + fc);
-      if (f >= F) continue;
+    for (int q = 0; q < NT / 32; ++q) {
+      uint32_t v[2][4];  // [half][j]: row g + 8*half, block 4q+j
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int nb = q * 4 + j;
+        // clamped so that a block past F loads in bounds; it is not stored
+        const int fc = min(fw + nb * 8 + t4 * 2, F - 2);
+        const float2 sc = *reinterpret_cast<const float2*>(scale + fc);
+        const float2 sf = *reinterpret_cast<const float2*>(shift + fc);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float y0 = acc[nb * 4 + half * 2] * sc.x + sf.x;
+          float y1 = acc[nb * 4 + half * 2 + 1] * sc.y + sf.y;
+          if (POST_RELU) {
+            y0 = fmaxf(y0, 0.f);
+            y1 = fmaxf(y1, 0.f);
+          }
+          v[half][j] = pack_bf16x2(y0, y1);
+        }
+      }
+      const int f = fw + (q * 4 + t4) * 8;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
+        // round r: lane t4 sends its pair of block 4q + (t4^r) and gets
+        // lane t4^r's pair of block 4q+t4, columns 2(t4^r)..+1
+        uint32_t u[4];
+        u[0] = v[half][t4];
+#pragma unroll
+        for (int r = 1; r < 4; ++r)
+          u[r] = __shfl_xor_sync(0xffffffffu, pick(v[half], t4 ^ r), r);
         const int p = p0 + wr + g + half * 8;
-        if (p >= NHW) continue;
-        float y0 = acc[nb * 4 + half * 2] * sc.x + sf.x;
-        float y1 = acc[nb * 4 + half * 2 + 1] * sc.y + sf.y;
-        if (POST_RELU) {
-          y0 = fmaxf(y0, 0.f);
-          y1 = fmaxf(y1, 0.f);
-        }
-        *reinterpret_cast<uint32_t*>(out + (size_t)p * F + f) =
-            pack_bf16x2(y0, y1);
+        if (p < NHW && f < F)
+          *reinterpret_cast<uint4*>(out + (size_t)p * F + f) =
+              make_uint4(pick(u, t4), pick(u, t4 ^ 1), pick(u, t4 ^ 2),
+                         pick(u, t4 ^ 3));
       }
     }
   };
 
-  // Prologue: stages 0..L-1 in flight; stages 0 and 1 landed, the
-  // depthwise of chunk 0 in A.
+  // Pointwise chunks are loaded L = NS-1 iterations ahead and windows three
+  // ahead at either ring depth (a window is read one iteration before its
+  // chunk's products): group g holds pointwise chunk g and window g+3-L,
+  // the prologue's last group windows L-1..2.  So at the end of iteration
+  // it, pointwise chunk it+1 and window it+2 have landed once every group
+  // but the newest has.  Prologue: groups 0..L-1 in flight; windows 0 and
+  // 1 and pointwise chunk 0 landed, the depthwise of chunk 0 in A.
   for (int s = 0; s < L; ++s) {
-    if (copier && s < T) load(s);
+    if (copier) {
+      load(s, s);
+      if (s == L - 1 && L == 2) load(2, T);
+    }
     cp_async_commit();
   }
   if (L == 3)
@@ -285,56 +357,67 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
   fence_proxy_async_shared();  // cp.async writes -> the tensor cores
   __syncthreads();
   if (!copier) depthwise(ring, 0);
+  fence_proxy_async_shared();  // depthwise stores -> the tensor cores
   __syncthreads();
 
-  // Iteration `it` starts with the A columns of its chunk complete and the
-  // stages of it and it+1 landed; one barrier per iteration keeps that so.
+  // Iteration `it` starts with the A columns of its chunk complete, its
+  // pointwise chunk and window it+1 landed; one barrier per iteration keeps
+  // that so.
   for (int t = 0; t < tiles; ++t) {
     for (int j = 0; j < nk; ++j) {
       const int it = t * nk + j;
+#ifdef SEPCONV_PHASE_TRACE
+      const bool traced = blockIdx.x == sepconv_trace_block &&
+                          (tid & 127) == 0 && it < 128;
+#endif
+      SEPCONV_TRACE(0);
       const int c0 = j * KC;
       const int steps = min(KC, K2 - c0) >> 4;
       const __nv_bfloat16* bs =
           ring + (it % NS) * SE + (WIN + 9) * KC + wg * NT * KC;
-      const __nv_bfloat16* as =
-          As + (wr + (lane & 15)) * LDA + c0 + (lane >> 4) * 8;
-      uint32_t afr[4][4];
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-        if (s < steps) ldmatrix_x4(afr[s], as + s * 16);
+      const __nv_bfloat16* as = As + (c0 >> 3) * 64;
+      // Warpgroup 0 first refills the pointwise part of slot it-1 with
+      // chunk it+L and sends window it+3 to its slot (whose window the
+      // depthwise read one iteration ago at NS=3, two at NS=4).  Issuing a
+      // product holds a warp until the tensor cores take it, so warpgroup
+      // 0 issues its products after its copies, while warpgroups 1-2 issue
+      // theirs first and then compute the next chunk's depthwise (first F
+      // tile only) on the CUDA cores.
+      if (copier) load(it + 3, it + L);
+      cp_async_commit();
+      SEPCONV_TRACE(1);
       wgmma_fence();
 #pragma unroll
       for (int s = 0; s < 4; ++s)
         if (s < steps)
-          wgmma_rs<NT>(acc, afr[s],
+          wgmma_ss<NT>(acc, wgmma_desc(as + s * 2 * 64, 128, KG * 128),
                        wgmma_desc(bs + s * 16 * 8, 128, KC * 16),
                        j > 0 || s > 0);
       wgmma_commit();
-
-      // Meanwhile the stage of it-1 is refilled with it+L, and the first F
-      // tile computes the next chunk's depthwise on the CUDA cores.
-      if (copier && it + L < T) load(it + L);
-      cp_async_commit();
+      SEPCONV_TRACE(2);
       if (!copier && it + 1 < nk)
         depthwise(ring + ((it + 1) % NS) * SE, c0 + KC);
+      SEPCONV_TRACE(3);
 
       wgmma_wait<0>();
       wgmma_fence_operand(acc);
-#pragma unroll
-      for (int s = 0; s < 4; ++s)  // the products read afr until the wait
-        asm volatile("" ::"r"(afr[s][0]), "r"(afr[s][1]), "r"(afr[s][2]),
-                     "r"(afr[s][3]));
+      SEPCONV_TRACE(4);
       if (it + 1 < T) {
-        // stage it+2 landed (it+3 may still be in flight)
-        if (L == 3)
-          cp_async_wait_group<1>();
-        else
-          cp_async_wait_group<0>();
+        // pointwise chunk it+1 and window it+2 landed
+        cp_async_wait_group<1>();
+        SEPCONV_TRACE(5);
         fence_proxy_async_shared();
         __syncthreads();
       }
+      SEPCONV_TRACE(6);
     }
     epilogue(t);
+#ifdef SEPCONV_PHASE_TRACE
+    const int it = t * nk + nk - 1;
+    const bool traced = blockIdx.x == sepconv_trace_block &&
+                        (tid & 127) == 0 && it < 128;
+#endif
+    SEPCONV_TRACE(7);
   }
 }
 
@@ -415,6 +498,21 @@ int sepconv_launch(const void* x, const void* dwk, const void* pw,
     err = launch_relu<128>(pre, post, nb, smem, s, a);
   return static_cast<int>(err);
 }
+
+#ifdef SEPCONV_PHASE_TRACE
+// Clears the trace and sets the traced block (host == nullptr), or copies
+// the trace to host.
+int sepconv_trace_read(void* host, int block) {
+  if (host != nullptr)
+    return static_cast<int>(
+        cudaMemcpyFromSymbol(host, sepconv_trace, sizeof(sepconv_trace)));
+  static const long long zeros[WGS * 128 * 8] = {};
+  cudaError_t err = cudaMemcpyToSymbol(sepconv_trace, zeros, sizeof(zeros));
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(sepconv_trace_block, &block, sizeof(int));
+  return static_cast<int>(err);
+}
+#endif
 
 const char* sepconv_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,21 +1,23 @@
 // Hopper warpgroup matrix product (wgmma) for the port's kernels.
 // Generated by tools/gen_wgmma.py; edit that script, not this file.
 //
-// wgmma_rs<N>(d, a, desc_b, accumulate): D[64 x N] (+)= A[64 x 16] * B[16 x N],
-// bf16 inputs, f32 accumulators, issued by the four warps of a warpgroup.
-//   * A from registers: warp w of the warpgroup holds rows 16w..16w+15 in
-//     the m16n8k16 fragment layout (ldmatrix_x4 of a row-major tile).
-//   * B from shared memory, described by desc_b (wgmma_desc), MN-major
-//     (N contiguous), no swizzle: 8(k) x 8(n) core matrices of 128
-//     contiguous bytes, one 16-byte row per k.
+// wgmma_ss<N>(d, desc_a, desc_b, accumulate): D[64 x N] (+)= A[64 x 16] *
+// B[16 x N], bf16 inputs, f32 accumulators, issued by the four warps of a
+// warpgroup, both operands from shared memory through descriptors
+// (wgmma_desc), no swizzle, in 8x8 core matrices of 128 contiguous bytes:
+//   * A K-major (K contiguous): a core matrix is 8 rows (m) of 8 k, one
+//     16-byte row per m;
+//   * B MN-major (N contiguous, as a [K][N] weight is): a core matrix is
+//     8 rows (k) of 8 n, one 16-byte row per k;
 //   * d[4j + {0,1,2,3}] = D(row g, col 8j+2t{,+1}), D(row g+8, ...), with
-//     g = lane / 4, t = lane % 4, rows counted from the warp's first: the
+//     g = lane / 4, t = lane % 4, rows counted from 16 * (warp % 4): the
 //     m16n8k16 accumulator layout repeated over the N/8 column blocks.
-// The product runs asynchronously: wgmma_fence() before the first product
-// that reads registers written since the last one, wgmma_commit() after the
-// products of a group, wgmma_wait<0>() before the accumulators or the A
-// registers are touched again, then wgmma_fence_operand(d) so the compiler
-// keeps its own reads of d after the wait.
+// The product runs asynchronously: fence_proxy_async_shared() and a
+// barrier after the shared-memory writes it reads, wgmma_fence() before
+// the first product of a group, wgmma_commit() after it, wgmma_wait<0>()
+// before the accumulators are touched again or its operands' memory is
+// rewritten, then wgmma_fence_operand(d) so the compiler keeps its own
+// reads of d after the wait.
 
 #pragma once
 
@@ -38,7 +40,7 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // Makes shared-memory writes of this thread (st.shared, cp.async once
-// waited for) visible to the async proxy that wgmma reads B through.
+// waited for) visible to the async proxy that wgmma reads through.
 __device__ __forceinline__ void fence_proxy_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -63,23 +65,21 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* smem, uint32_t lbo,
 }
 
 template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4],
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
                                          uint64_t desc_b, int accumulate);
 
 template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                          const uint32_t (&a)[4],
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t desc_a,
                                           uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
+      "setp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "%32, %33, p, 1, 1, 0, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -87,24 +87,22 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48],
-                                          const uint32_t (&a)[4],
+__device__ __forceinline__ void wgmma_ss<96>(float (&d)[48], uint64_t desc_a,
                                           uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %53, 0;\n"
+      "setp.ne.b32 p, %50, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
-      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n"
+      "%48, %49, p, 1, 1, 0, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -114,18 +112,16 @@ __device__ __forceinline__ void wgmma_rs<96>(float (&d)[48],
         "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
         "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
         "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                          const uint32_t (&a)[4],
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t desc_a,
                                           uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
+      "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
@@ -133,7 +129,7 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
       "%60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "%64, %65, p, 1, 1, 0, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -146,8 +142,7 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 }  // namespace

@@ -178,11 +178,11 @@ def _round_up(v: int, m: int) -> int:
 
 def _sepconv_smem(w: int, c: int, tn: int, kc: int, stages: int) -> int:
     """Bytes of shared memory of a launch: the resident depthwise tile
-    [64][round_up(C, 64) + 8] bf16, then ``stages`` ring stages of the
-    input window [64+2W+2][KC], the taps [9][KC] and the pointwise chunk
+    [64][round_up(C, 64)] bf16, then ``stages`` ring stages of the input
+    window [64+2W+2][KC], the taps [9][KC] and the pointwise chunk
     [KC][TN].  The kernel's ``smem_bytes_for``."""
     stage = (64 + 2 * w + 2 + 9) * kc + kc * tn
-    return 2 * 64 * (_round_up(c, 64) + 8) + 2 * stages * stage
+    return 2 * 64 * _round_up(c, 64) + 2 * stages * stage
 
 
 def _sepconv_plan(n: int, h: int, w: int, c: int, f: int) -> Dict[str, int]:

@@ -2,7 +2,9 @@
 nvcc here, so these tests pin the library naming and the parallel loader
 with the compiler and ``ctypes`` replaced."""
 
+import importlib.util
 import threading
+from pathlib import Path
 
 import pytest
 
@@ -56,3 +58,17 @@ def test_load_all_builds_in_parallel_and_raises_a_failure(monkeypatch):
     monkeypatch.setattr(build, "_loaded", {})
     ok = {n: (f"{n}.cu",) for n in ("k1", "k3", "k4")}
     assert build.load_all(ok) == {n: f"/nowhere/{n}.so" for n in ok}
+
+
+def test_wgmma_header_is_the_generators_output():
+    """``csrc/wgmma.cuh`` is written by ``tools/gen_wgmma.py``: the file in
+    the tree is what the script writes now, one product per N width."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "gen_wgmma.py"
+    spec = importlib.util.spec_from_file_location("gen_wgmma", path)
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    text = gen.HEAD + "".join(gen.specialization(n) for n in gen.WIDTHS) \
+        + gen.TAIL
+    assert (build.CSRC / "wgmma.cuh").read_text() == text
+    for n in gen.WIDTHS:
+        assert f"m64n{n}k16.f32.bf16.bf16" in text

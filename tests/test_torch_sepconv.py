@@ -118,19 +118,22 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 # The shapes the whole-image kernel's launch plan must take (n, h=w, c, f):
 # Xception's six classes at batch 32, the tiled kernel's four entry classes
 # (chip_smoke.py times B1 there too), a batch whose pixels are not a
-# multiple of 64, and an F that is not a multiple of any tile width.
+# multiple of 64, an F that is not a multiple of any tile width, and the
+# other ragged shapes chip_smoke.py holds B1 to (small batches at 10x10 and
+# 19x19).
 PLAN_SHAPES = [
     (32, 37, 256, 728), (32, 37, 728, 728), (32, 19, 728, 728),
     (32, 19, 728, 1024), (32, 10, 1024, 1536), (32, 10, 1536, 2048),
     (32, 147, 64, 128), (32, 147, 128, 128), (32, 74, 128, 256),
     (32, 74, 256, 256), (3, 19, 728, 728), (32, 19, 728, 200),
+    (2, 10, 1024, 1536), (4, 19, 256, 728),
 ]
 
 
 @pytest.mark.parametrize("n,hw,c,f", PLAN_SHAPES)
 def test_sepconv_plan_fits_and_covers_f(n, hw, c, f):
     """Every plan fits one block's shared memory (the kernel's own formula)
-    and its F groups and tiles cover F exactly: each 2*NT-wide F tile once,
+    and its F groups and tiles cover F exactly: each 3*NT-wide F tile once,
     no group empty, less than one tile past F."""
     plan = port._sepconv_plan(n, hw, hw, c, f)
     tn = port._WGS * plan["n_tile"]

@@ -1,6 +1,6 @@
 """Write ``sparkdl_tpu_torch/ops/csrc/wgmma.cuh``: Hopper's warpgroup
-matrix product (``wgmma.mma_async``) with A from registers and B from
-shared memory, for the N widths the port's kernels instantiate.
+matrix product (``wgmma.mma_async``) with A and B from shared memory,
+for the N widths the port's kernels instantiate.
 
     python3 tools/gen_wgmma.py
 
@@ -20,21 +20,23 @@ HEAD = """\
 // Hopper warpgroup matrix product (wgmma) for the port's kernels.
 // Generated by tools/gen_wgmma.py; edit that script, not this file.
 //
-// wgmma_rs<N>(d, a, desc_b, accumulate): D[64 x N] (+)= A[64 x 16] * B[16 x N],
-// bf16 inputs, f32 accumulators, issued by the four warps of a warpgroup.
-//   * A from registers: warp w of the warpgroup holds rows 16w..16w+15 in
-//     the m16n8k16 fragment layout (ldmatrix_x4 of a row-major tile).
-//   * B from shared memory, described by desc_b (wgmma_desc), MN-major
-//     (N contiguous), no swizzle: 8(k) x 8(n) core matrices of 128
-//     contiguous bytes, one 16-byte row per k.
+// wgmma_ss<N>(d, desc_a, desc_b, accumulate): D[64 x N] (+)= A[64 x 16] *
+// B[16 x N], bf16 inputs, f32 accumulators, issued by the four warps of a
+// warpgroup, both operands from shared memory through descriptors
+// (wgmma_desc), no swizzle, in 8x8 core matrices of 128 contiguous bytes:
+//   * A K-major (K contiguous): a core matrix is 8 rows (m) of 8 k, one
+//     16-byte row per m;
+//   * B MN-major (N contiguous, as a [K][N] weight is): a core matrix is
+//     8 rows (k) of 8 n, one 16-byte row per k;
 //   * d[4j + {0,1,2,3}] = D(row g, col 8j+2t{,+1}), D(row g+8, ...), with
-//     g = lane / 4, t = lane % 4, rows counted from the warp's first: the
+//     g = lane / 4, t = lane % 4, rows counted from 16 * (warp % 4): the
 //     m16n8k16 accumulator layout repeated over the N/8 column blocks.
-// The product runs asynchronously: wgmma_fence() before the first product
-// that reads registers written since the last one, wgmma_commit() after the
-// products of a group, wgmma_wait<0>() before the accumulators or the A
-// registers are touched again, then wgmma_fence_operand(d) so the compiler
-// keeps its own reads of d after the wait.
+// The product runs asynchronously: fence_proxy_async_shared() and a
+// barrier after the shared-memory writes it reads, wgmma_fence() before
+// the first product of a group, wgmma_commit() after it, wgmma_wait<0>()
+// before the accumulators are touched again or its operands' memory is
+// rewritten, then wgmma_fence_operand(d) so the compiler keeps its own
+// reads of d after the wait.
 
 #pragma once
 
@@ -57,7 +59,7 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // Makes shared-memory writes of this thread (st.shared, cp.async once
-// waited for) visible to the async proxy that wgmma reads B through.
+// waited for) visible to the async proxy that wgmma reads through.
 __device__ __forceinline__ void fence_proxy_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
 }
@@ -82,8 +84,7 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* smem, uint32_t lbo,
 }
 
 template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4],
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
                                          uint64_t desc_b, int accumulate);
 """
 
@@ -104,22 +105,22 @@ def specialization(n: int) -> str:
     regs = regs.replace(",\n", ", \"\n")
     outs = _lines([f'"+f"(d[{i}])' for i in range(r)], 6, "        ")
     a0 = r
+    # scale-d p, scale-a 1, scale-b 1, trans-a 0 (K-major), trans-b 1
+    # (MN-major)
     return f"""
 template <>
-__device__ __forceinline__ void wgmma_rs<{n}>(float (&d)[{r}],
-                                          const uint32_t (&a)[4],
+__device__ __forceinline__ void wgmma_ss<{n}>(float (&d)[{r}], uint64_t desc_a,
                                           uint64_t desc_b, int accumulate) {{
   asm volatile(
       "{{\\n"
       ".reg .pred p;\\n"
-      "setp.ne.b32 p, %{a0 + 5}, 0;\\n"
+      "setp.ne.b32 p, %{a0 + 2}, 0;\\n"
       "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 {{"
       "{regs}}}, "
-      "{{%{a0}, %{a0 + 1}, %{a0 + 2}, %{a0 + 3}}}, %{a0 + 4}, p, 1, 1, 1;\\n"
+      "%{a0}, %{a0 + 1}, p, 1, 1, 0, 1;\\n"
       "}}\\n"
       : {outs}
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }}
 """
 
