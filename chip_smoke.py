@@ -20,11 +20,14 @@ weights and batch 32:
 B1 is also held against its plain version at ragged shapes (a pixel count
 that is not a multiple of 64, F = 200, all four ReLU variants), and each of
 its classes prints its launch plan (blocks, F groups S, waves, shared
-memory).  Each path runs with every launch count set to 0 just before it
-and read just after; the script checks the counts and that each path's
-fused route agrees with the model's unfused route.  Any failed phase exits
-non-zero; without a CUDA device it exits non-zero before printing any
-result.
+memory).  So is B2 (a pixel count that is not a multiple of 64 under a
+cluster split, ragged and non-square 2-D tiles, C = 968, F = 320 under a
+split), and its classes print theirs (tile kind, cluster size S, F tile,
+C chunk, stages, blocks, waves, shared memory).  Each path runs with
+every launch count set to 0 just before it and read just after; the
+script checks the counts and that each path's fused route agrees with the
+model's unfused route.  Any failed phase exits non-zero; without a CUDA
+device it exits non-zero before printing any result.
 
 Output: the card's name and power limit first, one line per phase, then
 one JSON line with every kernel's numbers, and last the line
@@ -95,6 +98,20 @@ MBCONV_SHAPES = [
     (7, 960, 320, 1),    # block_16
 ]
 MBCONV_PER_FORWARD = sum(s[-1] for s in MBCONV_SHAPES)  # 13
+
+# Shapes off the main path that B2 must take too: (N, H, W, C, F, tile
+# kind forced on the plan or None for its own choice).  A pixel count that
+# is not a multiple of 64 under a cluster split, a 2-D tile with a ragged
+# edge (28 = 3*8 + 4), a non-square image on both tile kinds, a C whose
+# last chunk is partly past C (968 = 30*32 + 8), two F tiles under a split.
+MBCONV_RAGGED = [
+    (3, 7, 7, 960, 160, None),
+    (32, 28, 28, 192, 32, "2d"),
+    (2, 13, 11, 144, 24, None),
+    (2, 13, 11, 144, 24, "2d"),
+    (3, 7, 7, 968, 160, None),
+    (3, 14, 14, 384, 320, None),
+]
 
 
 def fail(msg):
@@ -354,24 +371,57 @@ def phase_sepconv_ragged(sepconv):
     return worst
 
 
-def phase_mbconv_kernel(sepconv):
-    """B2 at MobileNetV2's eight shape classes: kernel vs plain version,
-    with kernel, plain, library and bound ms."""
+def _mbconv_inputs(g, n, h, w, c, f):
+    dev = "cuda"
+    x = (torch.randn(n, h, w, c, device=dev, generator=g) * 2).bfloat16()
+    dwk = (torch.randn(3, 3, c, device=dev, generator=g) / 3).bfloat16()
+    pw = (torch.randn(c, f, device=dev, generator=g) / math.sqrt(c)
+          ).bfloat16()
+    mid = torch.randn(c, device=dev, generator=g) * 0.5
+    shift = torch.randn(f, device=dev, generator=g) * 0.05
+    return x, dwk, pw, mid, shift
+
+
+def _mbconv_library(x, dwk, pw, mid, shift):
+    """Yardstick: cuDNN depthwise, +mid_shift, clamp, 1x1 conv, +shift, in
+    bf16 (never called by the port)."""
     import torch.nn.functional as F
 
+    c, f = pw.shape
+    xc = x.permute(0, 3, 1, 2)
+    dw_w = dwk.permute(2, 0, 1).reshape(c, 1, 3, 3).contiguous(
+        memory_format=torch.channels_last)
+    pw_w = pw.t().reshape(f, c, 1, 1).contiguous(
+        memory_format=torch.channels_last)
+    m_b = mid.bfloat16().reshape(1, c, 1, 1)
+    t_b = shift.bfloat16().reshape(1, f, 1, 1)
+
+    def library():
+        y = F.conv2d(xc, dw_w, padding=1, groups=c) + m_b
+        return F.conv2d(torch.clamp(y, 0.0, 6.0), pw_w) + t_b
+
+    return library
+
+
+def mbconv_plan_text(plan):
+    return (f"tile={plan['tile']} S={plan['cluster']} "
+            f"F_tile={plan['f_tile']} KC={plan['kc']} "
+            f"stages={plan['stages']} chunks={plan['chunks']} "
+            f"tiles/block={plan['tiles_per_block']} blocks={plan['blocks']} "
+            f"waves={plan['waves']} smem={plan['smem']} B")
+
+
+def phase_mbconv_kernel(sepconv):
+    """B2 at MobileNetV2's eight shape classes: kernel vs plain version,
+    with kernel, plain, library and bound ms, and each class's plan."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    dev = "cuda"
     rows, worst = [], 0.0
     for hw, c, f, per_fwd in MBCONV_SHAPES:
         n = BATCH
-        x = (torch.randn(n, hw, hw, c, device=dev, generator=g) * 2
-             ).bfloat16()
-        dwk = (torch.randn(3, 3, c, device=dev, generator=g) / 3).bfloat16()
-        pw = (torch.randn(c, f, device=dev, generator=g) / math.sqrt(c)
-              ).bfloat16()
-        mid = torch.randn(c, device=dev, generator=g) * 0.5
-        shift = torch.randn(f, device=dev, generator=g) * 0.05
-        args = (x, dwk, pw, mid, shift)
+        args = _mbconv_inputs(g, n, hw, hw, c, f)
+        plan = sepconv._mbconv_plan(n, hw, hw, c, f)
+        print(f"[plan] mbconv N={n} {hw}x{hw} C={c} F={f}: "
+              f"{mbconv_plan_text(plan)}", flush=True)
         out = sepconv._fused_mbconv_cuda(*args)
         torch.cuda.synchronize()
         ref = sepconv.mbconv_reference(*args)
@@ -379,23 +429,9 @@ def phase_mbconv_kernel(sepconv):
         worst = max(worst, max_abs)
         del out, ref
 
-        # yardstick (never called by the port): cuDNN depthwise, +mid_shift,
-        # clamp, 1x1 conv, +shift, in bf16
-        xc = x.permute(0, 3, 1, 2)
-        dw_w = dwk.permute(2, 0, 1).reshape(c, 1, 3, 3).contiguous(
-            memory_format=torch.channels_last)
-        pw_w = pw.t().reshape(f, c, 1, 1).contiguous(
-            memory_format=torch.channels_last)
-        m_b = mid.bfloat16().reshape(1, c, 1, 1)
-        t_b = shift.bfloat16().reshape(1, f, 1, 1)
-
-        def library():
-            y = F.conv2d(xc, dw_w, padding=1, groups=c) + m_b
-            return F.conv2d(torch.clamp(y, 0.0, 6.0), pw_w) + t_b
-
         k_ms = graph_ms(lambda: sepconv._fused_mbconv_cuda(*args))
         p_ms = graph_ms(lambda: sepconv.mbconv_reference(*args), calls=5)
-        l_ms = graph_ms(library)
+        l_ms = graph_ms(_mbconv_library(*args))
         flops = 2.0 * n * hw * hw * c * (9 + f)
         nbytes = (2.0 * (n * hw * hw * (c + f) + 9 * c + c * f)
                   + 4.0 * (c + f))
@@ -404,7 +440,7 @@ def phase_mbconv_kernel(sepconv):
                          max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
                          library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
                          ops_ms=flops / PEAK_BF16_FLOPS * 1e3,
-                         bytes_ms=nbytes / PEAK_BYTES * 1e3))
+                         bytes_ms=nbytes / PEAK_BYTES * 1e3, plan=plan))
         print(f"[kernel] mbconv N={n} {hw}x{hw} C={c} F={f}: "
               f"max_abs_err={max_abs:.5f} kernel_ms={k_ms:.4f} "
               f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
@@ -417,6 +453,25 @@ def phase_mbconv_kernel(sepconv):
               "sparkdl_tpu/ops/sepconv.py:290", rows, worst)
     e["host_us_per_launch"] = host
     return e
+
+
+def phase_mbconv_ragged(sepconv):
+    """B2 at the shapes of MBCONV_RAGGED, each held against its plain
+    version; returns the largest max abs error."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst = 0.0
+    for n, h, w, c, f, tile in MBCONV_RAGGED:
+        args = _mbconv_inputs(g, n, h, w, c, f)
+        plan = sepconv._mbconv_plan(n, h, w, c, f, tile)
+        out = sepconv._fused_mbconv_cuda(*args, plan=plan)
+        torch.cuda.synchronize()
+        ref = sepconv.mbconv_reference(*args)
+        max_abs = compare(out, ref, ("mbconv ragged", n, h, w, c, f, tile))
+        worst = max(worst, max_abs)
+        print(f"[kernel] mbconv ragged N={n} {h}x{w} C={c} F={f}: "
+              f"max_abs_err={max_abs:.5f}; {mbconv_plan_text(plan)}",
+              flush=True)
+    return worst
 
 
 def synthetic_frame(n, size, seed):
@@ -552,10 +607,11 @@ def phase_mobilenet(sepconv):
                              mbconv=MBCONV_PER_FORWARD * batches),
               f"MobileNetV2 launches {counts}, want {MBCONV_PER_FORWARD} "
               f"mbconv per batch x {batches}")
-        unfused_check("MobileNetV2", df, feats, 224, "mobilenet")
+        _, fused_ms, plain_ms = unfused_check("MobileNetV2", df, feats, 224,
+                                              "mobilenet")
     finally:
         del os.environ["SPARKDL_MNV2_FUSED"]
-    return counts["mbconv"]
+    return counts["mbconv"], dict(fused=fused_ms, unfused=plain_ms)
 
 
 def phase_xception_tiled(sepconv):
@@ -601,8 +657,9 @@ def main():
     b1["max_abs_err"] = max(b1["max_abs_err"], phase_sepconv_ragged(sepconv))
     b3 = phase_sepconv_kernel(sepconv, tiled=True)
     b2 = phase_mbconv_kernel(sepconv)
+    b2["max_abs_err"] = max(b2["max_abs_err"], phase_mbconv_ragged(sepconv))
     b1["launches"] = phase_xception(sepconv)
-    b2["launches"] = phase_mobilenet(sepconv)
+    b2["launches"], b2["mobilenet_forward_ms"] = phase_mobilenet(sepconv)
     b3["launches"] = phase_xception_tiled(sepconv)
     print(json.dumps({"kernels": [b1, b3, b2]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,8 @@ like the JAX module and runs NCHW in ``channels_last`` memory inside.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -48,6 +50,27 @@ def _blocks():
     return out
 
 
+_BN_TENSORS = (("_parameters", "weight"), ("_parameters", "bias"),
+               ("_buffers", "running_mean"), ("_buffers", "running_var"))
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_sources(prefix: str, t: int):
+    """(module name, the module's dict, key) of every tensor a stride-1
+    block's folds read: each conv weight and each BatchNorm's four tensors,
+    in a fixed order (read from the dicts, past ``nn.Module.__getattr__``,
+    since the fused route looks them up on every forward)."""
+    parts = ((("expand", "weight"), ("expand_BN", None)) if t != 1 else ()
+             ) + (("depthwise", "depthwise_weight"), ("depthwise_BN", None),
+                  ("project", "weight"), ("project_BN", None))
+    spec = []
+    for part, key in parts:
+        name = f"{prefix}_{part}"
+        spec += ([(name, d, k) for d, k in _BN_TENSORS] if key is None
+                 else [(name, "_parameters", key)])
+    return tuple(spec)
+
+
 class MobileNetV2(nn.Module):
     """``fused_inference`` runs each stride-1 inverted-residual block's
     depthwise + BN + relu6 + project + BN tail as ONE kernel
@@ -56,11 +79,20 @@ class MobileNetV2(nn.Module):
     in eval mode only.  On a CPU tensor the kernel's plain version runs
     (the parity tests' route).  Off by default, as in JAX; the registry
     builder reads ``SPARKDL_MNV2_FUSED``.  Both routes read the same
-    parameters."""
+    parameters.
+
+    The fused route folds each block's BatchNorms into its weights once
+    per weights version, not once per forward (JAX's compiled forward
+    fuses the folds into one program; eagerly they are ~20 small launches
+    a block): ``_folds`` keeps each block's folded operands beside the
+    ``(data_ptr, _version)`` of every tensor they were folded from and the
+    block's dtype and device, so ``load_state_dict``, an in-place edit and
+    ``.to()`` all refold."""
 
     def __init__(self, num_classes: int = 1000, fused_inference: bool = False):
         super().__init__()
         self.fused_inference = fused_inference
+        self._folds = {}
 
         def bn(name, f):
             self.add_module(name, BatchNorm(f, eps=_BN_EPS,
@@ -84,33 +116,73 @@ class MobileNetV2(nn.Module):
         bn("Conv_1_bn", 1280)
         self.predictions = nn.Linear(1280, num_classes)
 
-    def _fused_block(self, x: torch.Tensor, prefix: str, t: int, cin: int,
-                     c: int) -> torch.Tensor:
-        """One stride-1 block on the fused route (``mobilenet.py:81-118`` of
-        the JAX package), in NHWC: folded expand matmul + relu6 in x's
-        dtype, the tail through ``fused_mbconv`` (bf16 out, cast back to
-        x's dtype), the residual added in that dtype when cin == c."""
+    def _fold(self, prefix: str, t: int, cin: int, c: int):
+        """A stride-1 block's folded operands (``mobilenet.py:95-113`` of
+        the JAX package): the expand kernel and its shift in the module's
+        dtype (None for t == 1), then the tail's bf16 taps and projection
+        and f32 shifts as ``fused_mbconv`` takes them, contiguous, so it
+        casts and copies nothing."""
         m = self._modules
-        work_dt = x.dtype
-        xh = x.permute(0, 2, 3, 1)  # NCHW (channels_last) -> NHWC view
+        bf, f32 = torch.bfloat16, torch.float32
+        ke_ = be = None
         if t != 1:
             ke = m[f"{prefix}_expand"].weight
             se, te = m[f"{prefix}_expand_BN"].folded()
             ke_, be = fold_bn_into_conv(ke.reshape(cin * t, cin).t(), se, te)
-            y = torch.matmul(xh.to(ke_.dtype), ke_)
-            y = torch.clamp(y + be.to(y.dtype), 0.0, 6.0)
-        else:
-            y = xh
-        cdw = y.shape[-1]
+            be = be.to(ke_.dtype)
+        cdw = cin * t
         sd, td = m[f"{prefix}_depthwise_BN"].folded()
         kd, bd = fold_bn_into_conv(
             depthwise_taps(m[f"{prefix}_depthwise"].depthwise_weight), sd, td)
         sp, tp = m[f"{prefix}_project_BN"].folded()
         kp, bp = fold_bn_into_conv(
             m[f"{prefix}_project"].weight.reshape(c, cdw).t(), sp, tp)
-        out = fused_mbconv(y, kd, kp, bd, bp).to(work_dt)
-        if cin == c:
-            out = out + xh
+        return (ke_, be, kd.to(bf).contiguous(), kp.to(bf).contiguous(),
+                bd.to(f32).contiguous(), bp.to(f32).contiguous())
+
+    def _folded(self, prefix: str, t: int, cin: int, c: int):
+        """:meth:`_fold`'s operands, folded again only when a tensor they
+        come from changed (another storage, an in-place write, another
+        dtype or device).  The entry holds those tensors, so a storage it
+        was keyed on is not freed and reused under the same address.  A
+        write through ``.data`` moves no version counter: clear ``_folds``
+        after one."""
+        m = self._modules
+        sources = [getattr(m[name], d)[k]
+                   for name, d, k in _fold_sources(prefix, t)]
+        try:
+            key = [(s.data_ptr(), s._version) for s in sources]
+        except RuntimeError:  # an inference tensor keeps no version counter
+            key = None
+        else:
+            key.append((sources[0].dtype, sources[0].device))
+        hit = self._folds.get(prefix)
+        if key is not None and hit is not None and hit[0] == key:
+            return hit[2]
+        with torch.no_grad():
+            ops = self._fold(prefix, t, cin, c)
+        if key is not None:
+            self._folds[prefix] = (key, [s.detach() for s in sources], ops)
+        return ops
+
+    def _fused_block(self, x: torch.Tensor, prefix: str, t: int, cin: int,
+                     c: int) -> torch.Tensor:
+        """One stride-1 block on the fused route (``mobilenet.py:81-118`` of
+        the JAX package), in NHWC: folded expand matmul + relu6 in x's
+        dtype, the tail through ``fused_mbconv`` (bf16 out, cast back to
+        x's dtype), the residual added in that dtype when cin == c."""
+        work_dt = x.dtype
+        xh = x.permute(0, 2, 3, 1)  # NCHW (channels_last) -> NHWC view
+        ke_, be, kd, kp, bd, bp = self._folded(prefix, t, cin, c)
+        if t != 1:
+            y = torch.matmul(xh.to(ke_.dtype), ke_)
+            y = torch.clamp(y + be, 0.0, 6.0)
+        else:
+            y = xh
+        out = fused_mbconv(y, kd, kp, bd, bp)
+        # the residual add promotes the bf16 tail to x's dtype, as the cast
+        # before it would: one launch for both
+        out = xh + out if cin == c else out.to(work_dt)
         return out.permute(0, 3, 1, 2)
 
     def forward(self, x: torch.Tensor, features: bool = False,

@@ -32,6 +32,7 @@ Scope, as on the TPU: 3x3, stride 1, SAME, depth multiplier 1, inference.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -47,9 +48,10 @@ KERNELS = {
     "sepconv_tiled": ("sparkdl_sepconv_tiled", ("sepconv_tiled.cu",),
                       "sepconv_tiled", [_P] * 6 + [_I] * 7 + [_P]),
     "mbconv": ("sparkdl_mbconv", ("mbconv.cu",), "mbconv",
-               [_P] * 6 + [_I] * 5 + [_P]),
+               [_P] * 6 + [_I] * 12 + [_P]),
 }
 _configured = set()
+_bound: Dict[str, tuple] = {}   # kernel -> (C launch function, error string)
 
 
 def load_library(kernel: str = "sepconv") -> ctypes.CDLL:
@@ -80,16 +82,26 @@ def build_log(kernel: str = "sepconv") -> str:
 
 def _launch(kernel: str, device: torch.device, *args) -> None:
     """Call ``kernel``'s C launch function on ``device``'s current stream;
-    raises when the launch is refused."""
-    lib = load_library(kernel)
-    sym = KERNELS[kernel][2]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"{sym}_launch")(*args, stream)
+    raises when the launch is refused.  The bound C functions are looked up
+    once per kernel, and ``device`` is made current only when it is not
+    already (a launch goes to the current device)."""
+    fns = _bound.get(kernel)
+    if fns is None:
+        lib = load_library(kernel)
+        sym = KERNELS[kernel][2]
+        fns = _bound[kernel] = (getattr(lib, f"{sym}_launch"),
+                                getattr(lib, f"{sym}_error_string"))
+    launch, error = fns
+    # the raw stream handle, without building a torch.cuda.Stream object
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch._C._cuda_getDevice():
+        rc = launch(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = launch(*args, stream)
     if rc != 0:
-        msg = getattr(lib, f"{sym}_error_string")(rc).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc} "
-                           f"({msg})")
+                           f"({error(rc).decode()})")
 
 
 def sepconv_reference(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
@@ -185,6 +197,7 @@ def _sepconv_smem(w: int, c: int, tn: int, kc: int, stages: int) -> int:
     return 2 * 64 * _round_up(c, 64) + 2 * stages * stage
 
 
+@functools.lru_cache(maxsize=256)
 def _sepconv_plan(n: int, h: int, w: int, c: int, f: int) -> Dict[str, int]:
     """The launch plan of the whole-image kernel for one shape: ``groups``
     (S, the blocks sharing a pixel tile, each computing its pixels'
@@ -193,7 +206,8 @@ def _sepconv_plan(n: int, h: int, w: int, c: int, f: int) -> Dict[str, int]:
     ints, plus ``blocks`` and ``waves`` (of 132 SMs) for the record.
     Picks the plan with the least modelled time: waves of blocks over 132
     SMs (one block each), a block costing ``_DW_COST`` plus the F columns
-    it covers.  Raises ``ValueError`` for a shape no plan fits."""
+    it covers.  Raises ``ValueError`` for a shape no plan fits.  The plan
+    is cached: do not modify it."""
     why = f"no sepconv plan for shape {(n, h, w, c, f)}:"
     if min(n, h, w, c, f) <= 0 or c % 8 or f % 8:
         raise ValueError(f"{why} sizes must be positive, C and F multiples "
@@ -287,6 +301,15 @@ def _fused_sepconv_tiled_cuda(x: torch.Tensor, dwk: torch.Tensor,
     return out
 
 
+def _operand(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype`` and contiguous, as the kernels take it; ``t``
+    itself when it already is (``.to`` and ``.contiguous`` cost host time
+    even when they return their input)."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()
+
+
 def _keras_layouts(dwk: torch.Tensor, pw: torch.Tensor):
     """[3,3,C,1] -> [3,3,C] and [1,1,C,F] -> [C,F] (keras' layouts)."""
     if dwk.dim() == 4:
@@ -319,10 +342,9 @@ def fused_sepconv(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
     bf, f32 = torch.bfloat16, torch.float32
     kernel = _fused_sepconv_cuda if row_tile is None else \
         _fused_sepconv_tiled_cuda
-    return kernel(
-        x.to(bf).contiguous(), dwk.to(bf).contiguous(), pw.to(bf).contiguous(),
-        scale.to(f32).contiguous(), shift.to(f32).contiguous(),
-        pre_relu, post_relu)
+    return kernel(_operand(x, bf), _operand(dwk, bf), _operand(pw, bf),
+                  _operand(scale, f32), _operand(shift, f32), pre_relu,
+                  post_relu)
 
 
 fused_sepconv.launches = 0
@@ -353,14 +375,134 @@ def mbconv_reference(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
     return y.to(bf).permute(0, 2, 3, 1)
 
 
-def _fused_mbconv_cuda(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
-                       mid_shift: torch.Tensor, shift: torch.Tensor
-                       ) -> torch.Tensor:
-    """Launch the mbconv kernel (B2) on the current stream.  ``x`` bf16
-    NHWC contiguous on a CUDA device, ``dwk`` bf16 [3,3,C], ``pw`` bf16
-    [C,F], ``mid_shift`` f32 [C], ``shift`` f32 [F], all contiguous on the
-    same device; C and F multiples of 8.  Raises on anything else and when
-    the launch is refused."""
+# The mbconv kernel's launch plan (csrc/mbconv.cu): a block owns 64-pixel
+# tiles (flattened over N*H*W, or 8x8 pixels of one image) and one F tile;
+# without a split it walks several tiles, the copies of the next running
+# under the work of this one; with a split, S blocks of a thread-block
+# cluster share one tile and each walks one slice of C.
+_MB_F_TILES = (16, 24, 32, 64, 96, 160)  # F tiles (8 * NT) the library has
+_MB_CLUSTERS = (1, 2, 4, 8)              # portable cluster sizes
+_MB_CHUNKS = (32, 64)                    # C chunk widths it instantiates
+_MB_STAGES = (2, 3, 4)                   # cp.async ring stages it takes
+_SMEM_SM = 233472                        # shared memory of one SM
+_MB_RESIDENT = 4     # blocks an SM holds at once: 128 registers a thread
+# The model the plan minimises, in units of one 32-channel chunk of one
+# tile: the chunks a block walks in series (a chunk of KC channels costs
+# KC/32 + _MB_CHUNK_FIXED), times the waves of blocks, plus per tile
+# _MB_EPILOGUE (stores from the fragments) or, under a split of S blocks,
+# _MB_SPLIT[0] + _MB_SPLIT[1] * (S - 1) (partial tile, two cluster
+# barriers, and the S - 1 other blocks' partials read through distributed
+# shared memory).  Ring stages: 2 without a split, 3 with one; a block
+# whose tile is one chunk takes one tile (a ring across such tiles was
+# slower).  Fitted to a sweep of every plan at MobileNetV2's classes on an
+# H100 (tools/mbconv_compare.py --sweep; PERF.md).
+_MB_CHUNK_FIXED = 1.5
+_MB_EPILOGUE = 0.5
+_MB_SPLIT = (2.0, 1.5)
+
+
+def _mbconv_smem(tile2d: bool, w: int, tf: int, kc: int, stages: int,
+                 s: int = 1) -> int:
+    """Bytes of shared memory of a launch: the A tile [64][KC+8] and
+    ``stages`` ring stages of the chunk's mid_shift [KC] (f32), pointwise
+    rows [KC][LDB], taps [9][KC] and input window [WIN][KC], or (S > 1) the
+    f32 partial tile [64][LDP] that overwrites them after the walk,
+    whichever is larger, then the F tile's shift [TF] (f32).  The kernel's
+    ``smem_bytes_for``."""
+    ldb = tf + 16 if (tf // 8) % 2 else tf + 8
+    ldp = _round_up(tf - 8, 32) + 8
+    win = 100 if tile2d else 64 + 2 * w + 2
+    main = 2 * 64 * (kc + 8) + stages * 2 * (2 * kc + kc * ldb + 9 * kc
+                                             + win * kc)
+    return max(main, 4 * 64 * ldp if s > 1 else 0) + 4 * tf
+
+
+def _mbconv_pixel_tiles(n: int, h: int, w: int, tile2d: bool) -> int:
+    if tile2d:
+        return n * -(-h // 8) * -(-w // 8)
+    return -(-(n * h * w) // 64)
+
+
+def _mbconv_candidate(n: int, h: int, w: int, c: int, f: int, tile2d: bool,
+                      s: int, kc: int, stages: int, spread: bool = False
+                      ) -> Optional[Dict]:
+    """One launch plan with its grid and modelled cost, or None where the
+    kernel does not take it (shared memory, fewer chunks than S, a split
+    grid past 65535).  Without a split the blocks fill one wave and walk
+    several tiles each, or with ``spread`` take one tile each."""
+    tf = next((t for t in _MB_F_TILES if t >= f), _MB_F_TILES[-1])
+    f_tiles = -(-f // tf)
+    tiles = _mbconv_pixel_tiles(n, h, w, tile2d)
+    nk = -(-c // kc)
+    smem = _mbconv_smem(tile2d, w, tf, kc, stages, s)
+    if s > nk or smem > _SMEM_BLOCK or (s > 1 and tiles > 65535):
+        return None
+    resident = min(_MB_RESIDENT, _SMEM_SM // (smem + 1024))
+    slots = _SM_COUNT * resident
+    chunks = -(-nk // s)
+    walk = chunks * (kc / 32 + _MB_CHUNK_FIXED)
+    if s == 1:
+        grid_y = min(tiles, 65535, max(1, slots // f_tiles))
+        if spread:
+            grid_y = min(tiles, 65535)
+        waves = -(-(grid_y * f_tiles) // slots)
+        per_block = -(-tiles // grid_y)
+        cost = -(-(tiles * f_tiles) // slots) * (walk + _MB_EPILOGUE)
+    else:
+        grid_y, per_block = tiles, 1
+        waves = -(-(tiles * f_tiles * s) // slots)
+        cost = waves * (walk + _MB_SPLIT[0] + _MB_SPLIT[1] * (s - 1))
+    return dict(tile="2d" if tile2d else "flat", cluster=s, f_tile=tf, kc=kc,
+                stages=stages, grid_y=grid_y, smem=smem, chunks=chunks,
+                tiles_per_block=per_block, blocks=grid_y * f_tiles * s,
+                waves=waves, cost=cost,
+                staged=tiles * (100 if tile2d else 64 + 2 * w + 2))
+
+
+@functools.lru_cache(maxsize=256)
+def _mbconv_plan(n: int, h: int, w: int, c: int, f: int,
+                 tile: Optional[str] = None) -> Dict:
+    """The launch plan of the mbconv kernel (B2) for one shape: ``tile``
+    ("flat": 64 pixels flattened over N*H*W; "2d": 8x8 pixels of one
+    image), ``cluster`` (S, the blocks that split C), ``f_tile``, ``kc`` (C
+    chunk), ``stages`` (ring), ``grid_y`` (blocks per F tile and rank) and
+    ``smem`` bytes, which the kernel takes, plus ``chunks`` (the most a
+    block walks per tile), ``tiles_per_block``, ``blocks``, ``waves`` and
+    the model's ``cost`` for the record.
+
+    The tile kind is the one that stages fewer input pixels for the batch
+    (2-D at wide images, flattened at small ones); ``tile`` forces one.
+    The rest minimises the model above.  Raises ``ValueError`` for a shape
+    no plan fits.  The plan is cached: do not modify it."""
+    why = f"no mbconv plan for shape {(n, h, w, c, f)}:"
+    if min(n, h, w, c, f) <= 0 or c % 8 or f % 8:
+        raise ValueError(f"{why} sizes must be positive, C and F multiples "
+                         f"of 8")
+    kinds = {"2d": (True,), "flat": (False,), None: (False, True)}[tile]
+    best = None
+    for tile2d in kinds:
+        for s in _MB_CLUSTERS:
+            for kc in _MB_CHUNKS:
+                want = 2 if s == 1 else 3
+                spread = s == 1 and c <= kc
+                plan = next((p for p in (
+                    _mbconv_candidate(n, h, w, c, f, tile2d, s, kc, st,
+                                      spread)
+                    for st in range(want, 1, -1)) if p is not None), None)
+                if plan is None:
+                    continue
+                key = (plan["staged"], plan["cost"], s, kc)
+                if best is None or key < best[0]:
+                    best = (key, plan)
+    if best is None:
+        raise ValueError(f"{why} its pixel tiles exceed the kernel's grid, "
+                         f"or the input window of a {w}-pixel row exceeds "
+                         f"{_SMEM_BLOCK} bytes of shared memory")
+    return best[1]
+
+
+def _check_mbconv_operands(x, dwk, pw, mid_shift, shift):
+    """The operand contract of the mbconv kernel; returns (n, h, w, c, f)."""
     if x.device.type != "cuda":
         raise ValueError(f"_fused_mbconv_cuda needs a CUDA tensor, got "
                          f"{x.device}")
@@ -376,18 +518,35 @@ def _fused_mbconv_cuda(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
     if c % 8 or f % 8:
         raise ValueError(f"the kernel moves 8-channel segments: C={c} and "
                          f"F={f} must be multiples of 8")
-    if any(t.data_ptr() % 16 for t in (x, dwk, pw, mid_shift)):
-        raise ValueError("x, dwk, pw and mid_shift must start on a 16-byte "
-                         "boundary")
-    if n * h * w > 65535 * 64 or n * h * w * max(c, f) >= 2 ** 31:
+    if any(t.data_ptr() % 16 for t in (x, dwk, pw, mid_shift, shift)):
+        raise ValueError("x, dwk, pw, mid_shift and shift must start on a "
+                         "16-byte boundary")
+    return n, h, w, c, f
+
+
+def _fused_mbconv_cuda(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
+                       mid_shift: torch.Tensor, shift: torch.Tensor,
+                       plan: Optional[Dict] = None) -> torch.Tensor:
+    """Launch the mbconv kernel (B2) on the current stream.  ``x`` bf16
+    NHWC contiguous on a CUDA device, ``dwk`` bf16 [3,3,C], ``pw`` bf16
+    [C,F], ``mid_shift`` f32 [C], ``shift`` f32 [F], all contiguous on the
+    same device; C and F multiples of 8.  ``plan`` defaults to
+    :func:`_mbconv_plan`'s.  Raises on anything else, on a shape no plan
+    fits and when the launch is refused."""
+    n, h, w, c, f = _check_mbconv_operands(x, dwk, pw, mid_shift, shift)
+    if n * h * w * max(c, f) >= 2 ** 31:
         raise ValueError(f"shape {(n, h, w, c, f)} exceeds the kernel's "
                          f"index range")
+    if n * h * w * f == 0:
+        return torch.empty((n, h, w, f), dtype=torch.bfloat16,
+                           device=x.device)
+    if plan is None:
+        plan = _mbconv_plan(n, h, w, c, f)
     out = torch.empty((n, h, w, f), dtype=torch.bfloat16, device=x.device)
-    if out.numel() == 0:
-        return out
     _launch("mbconv", x.device, x.data_ptr(), dwk.data_ptr(), pw.data_ptr(),
             mid_shift.data_ptr(), shift.data_ptr(), out.data_ptr(), n, h, w,
-            c, f)
+            c, f, int(plan["tile"] == "2d"), plan["cluster"], plan["f_tile"],
+            plan["kc"], plan["stages"], plan["grid_y"], plan["smem"])
     fused_mbconv.launches += 1
     return out
 
@@ -407,9 +566,9 @@ def fused_mbconv(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fused_mbconv runs on cpu or cuda, not {x.device}")
     bf, f32 = torch.bfloat16, torch.float32
-    return _fused_mbconv_cuda(
-        x.to(bf).contiguous(), dwk.to(bf).contiguous(), pw.to(bf).contiguous(),
-        mid_shift.to(f32).contiguous(), shift.to(f32).contiguous())
+    return _fused_mbconv_cuda(_operand(x, bf), _operand(dwk, bf),
+                              _operand(pw, bf), _operand(mid_shift, f32),
+                              _operand(shift, f32))
 
 
 fused_mbconv.launches = 0

@@ -106,3 +106,115 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         port._fused_mbconv_cuda(x.bfloat16(), dwk.bfloat16(), pw.bfloat16(),
                                 mid, sh)
+
+
+# The shapes the mbconv kernel's launch plan must take (n, h, w, c, f,
+# forced tile kind): MobileNetV2's eight stride-1 classes at batch 32 and
+# the ragged shapes chip_smoke.py holds B2 to (a pixel count that is not a
+# multiple of 64 under a split, a ragged 2-D tile, a non-square image on
+# both tile kinds, C = 968, F = 320 under a split).
+CLASSES = [(32, 112, 112, 32, 16), (32, 56, 56, 144, 24),
+           (32, 28, 28, 192, 32), (32, 14, 14, 384, 64),
+           (32, 14, 14, 384, 96), (32, 14, 14, 576, 96),
+           (32, 7, 7, 960, 160), (32, 7, 7, 960, 320)]
+PLAN_SHAPES = [(*s, None) for s in CLASSES] + [
+    (3, 7, 7, 960, 160, None), (32, 28, 28, 192, 32, "2d"),
+    (2, 13, 11, 144, 24, None), (2, 13, 11, 144, 24, "2d"),
+    (3, 7, 7, 968, 160, None), (3, 14, 14, 384, 320, None),
+]
+
+
+@pytest.mark.parametrize("n,h,w,c,f,tile", PLAN_SHAPES)
+def test_mbconv_plan_fits_and_covers(n, h, w, c, f, tile):
+    """Every plan is one the library instantiates, fits one block's shared
+    memory (the kernel's own formula), covers F with whole tiles, C with
+    one non-empty slice of KC chunks per cluster member and every pixel
+    tile once, and launches whole clusters of at most 8 blocks."""
+    plan = port._mbconv_plan(n, h, w, c, f, tile)
+    tile2d = plan["tile"] == "2d"
+    assert tile is None or plan["tile"] == tile
+    s, tf, kc = plan["cluster"], plan["f_tile"], plan["kc"]
+    assert s in port._MB_CLUSTERS and s <= 8
+    assert tf in port._MB_F_TILES and kc in port._MB_CHUNKS
+    assert plan["stages"] in port._MB_STAGES
+    assert plan["smem"] == port._mbconv_smem(tile2d, w, tf, kc,
+                                             plan["stages"], s)
+    assert plan["smem"] <= 232448
+    # F: whole tiles, less than one tile past F
+    f_tiles = -(-f // tf)
+    assert 0 <= f_tiles * tf - f < tf
+    # C: the kernel's split of the chunks over the S members
+    nk = -(-c // kc)
+    slices = [(r * nk // s, (r + 1) * nk // s) for r in range(s)]
+    assert slices[0][0] == 0 and slices[-1][1] == nk
+    assert all(a < b for a, b in slices)          # no member without work
+    assert all(b == a2 for (_, b), (a2, _) in zip(slices, slices[1:]))
+    assert max(b - a for a, b in slices) == plan["chunks"]
+    # pixels: block y walks tiles y, y + G, ... (one tile under a split)
+    tiles = (n * -(-h // 8) * -(-w // 8)) if tile2d else -(-(n * h * w) // 64)
+    g = plan["grid_y"]
+    assert 1 <= g <= min(tiles, 65535)
+    walked = sorted(t for y in range(g) for t in range(y, tiles, g))
+    assert walked == list(range(tiles))
+    assert plan["tiles_per_block"] == -(-tiles // g)
+    if s > 1:
+        assert g == tiles
+    # grid x = S x F tiles: whole clusters
+    assert plan["blocks"] == g * f_tiles * s and (f_tiles * s) % s == 0
+
+
+def test_mbconv_plan_splits_c_at_small_images_and_tiles_wide_ones():
+    """At 7x7 and 14x14 a batch of 32 has 25 and 98 flattened tiles for
+    132 SMs: the plan splits C across a cluster there; at 112x112 and
+    56x56 it takes 2-D tiles (fewer staged pixels) and no split; at 28x28
+    and below it keeps the flattened tile."""
+    plans = {(h, c, f): port._mbconv_plan(n, h, w, c, f)
+             for n, h, w, c, f in CLASSES}
+    for (h, c, f), plan in plans.items():
+        assert (plan["cluster"] > 1) == (h <= 14), (h, c, f, plan)
+        assert (plan["tile"] == "2d") == (h >= 56), (h, c, f, plan)
+    assert plans[(112, 32, 16)]["cluster"] == 1
+    assert plans[(7, 960, 160)]["cluster"] >= 4
+
+
+def test_mbconv_plan_takes_2d_tiles_where_a_row_is_too_wide():
+    """The flattened window grows with W; the 2-D tile's frame does not."""
+    plan = port._mbconv_plan(1, 8, 6000, 256, 256)
+    assert plan["tile"] == "2d" and plan["smem"] <= 232448
+    with pytest.raises(ValueError, match="shared memory"):
+        port._mbconv_plan(1, 8, 6000, 256, 256, "flat")
+
+
+@pytest.mark.parametrize("n,h,w,c,f,why", [
+    (2, 5, 5, 12, 16, "multiples of 8"),
+    (2, 5, 5, 16, 20, "multiples of 8"),
+])
+def test_untakeable_mbconv_shape_raises_in_the_wrapper(monkeypatch, n, h, w,
+                                                       c, f, why):
+    """A shape no launch plan fits raises ``ValueError`` with the reason,
+    from the plan and from the CUDA wrapper before any launch."""
+    with pytest.raises(ValueError, match=why):
+        port._mbconv_plan(n, h, w, c, f)
+    # the wrapper's operand checks need a card; past them it must plan
+    monkeypatch.setattr(port, "_check_mbconv_operands",
+                        lambda *a: (n, h, w, c, f))
+    monkeypatch.setattr(port, "_launch", lambda *a: pytest.fail(
+        "launched an untakeable shape"))
+    x = torch.zeros(1, 1, 1, 8, dtype=torch.bfloat16)
+    before = port.fused_mbconv.launches
+    with pytest.raises(ValueError, match=why):
+        port._fused_mbconv_cuda(x, None, None, None, None)
+    assert port.fused_mbconv.launches == before
+
+
+def test_mbconv_wrapper_refuses_shapes_past_its_index_range(monkeypatch):
+    """Offsets inside the kernel are 32-bit: a batch of 2**31 or more
+    elements in x or out raises before any plan or launch."""
+    n, h, w, c, f = 4096, 128, 128, 32, 16    # 2**31 elements of x
+    monkeypatch.setattr(port, "_check_mbconv_operands",
+                        lambda *a: (n, h, w, c, f))
+    monkeypatch.setattr(port, "_launch", lambda *a: pytest.fail(
+        "launched past the index range"))
+    x = torch.zeros(1, 1, 1, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="index range"):
+        port._fused_mbconv_cuda(x, None, None, None, None)

@@ -10,6 +10,7 @@ the fused route (on the CPU both packages route the fused tails to their
 kernel's plain version).
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -115,6 +116,84 @@ def test_fused_matches_unfused_and_counts_tails(jax_setup, monkeypatch):
     assert len(calls) == 13
     # at 96x96: block0 at 48x48 (C=32, F=16), the last tail at 3x3 (960->320)
     assert calls[0] == ((48, 48, 32), 16) and calls[-1] == ((3, 3, 960), 320)
+
+
+def _other_variables(variables, seed):
+    """``variables`` with every leaf redrawn from a numpy seed (BatchNorm
+    variances kept positive)."""
+    rng = np.random.default_rng(seed)
+
+    def redraw(path, leaf):
+        if "var" in jax.tree_util.keystr(path):
+            return rng.uniform(0.8, 1.2, leaf.shape).astype(np.float32)
+        return (leaf + rng.normal(0, 0.05, leaf.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(redraw, variables)
+
+
+def test_fused_route_folds_once_per_weights_version(jax_setup, monkeypatch):
+    """The BatchNorm folds run on the first fused forward only: a second
+    forward calls ``fold_bn_into_conv`` zero times and gives bit-identical
+    outputs, equal to a fresh model's (the uncached route)."""
+    import sparkdl_tpu_torch.models.mobilenet as mn
+
+    x, variables = jax_setup
+    pm = _port(variables, True)
+    folds = []
+    real = mn.fold_bn_into_conv
+
+    def counting(*a):
+        folds.append(1)
+        return real(*a)
+
+    monkeypatch.setattr(mn, "fold_bn_into_conv", counting)
+    xt = torch.from_numpy(x)
+    with torch.inference_mode():
+        first = pm(xt, features=True)
+        n_first = len(folds)
+        second = pm(xt, features=True)
+        fresh = _port(variables, True)(xt, features=True)
+    # 13 blocks fold their depthwise and project BatchNorms, 12 the expand
+    assert n_first == 13 * 2 + 12 and len(folds) == n_first * 2
+    torch.testing.assert_close(second, first, rtol=0, atol=0)
+    torch.testing.assert_close(fresh, first, rtol=0, atol=0)
+
+
+def test_fold_cache_follows_load_state_dict(jax_setup):
+    """After ``load_state_dict`` with other weights the fused forward is a
+    fresh model's from those weights (no stale fold) and matches the JAX
+    fused route on them."""
+    x, variables = jax_setup
+    other = _other_variables(variables, 5)
+    pm = _port(variables, True)
+    xt = torch.from_numpy(x)
+    with torch.inference_mode():
+        before = pm(xt, features=True)
+        pm.load_state_dict(convert.state_dict_from_jax("MobileNetV2", other))
+        got = pm(xt, features=True)
+        fresh = _port(other, True)(xt, features=True)
+    torch.testing.assert_close(got, fresh, rtol=0, atol=0)
+    assert not torch.equal(got, before)
+    jm = JaxMobileNetV2(num_classes=5, fused_inference=True)
+    want = np.asarray(jm.apply(other, x, train=False, features=True))
+    np.testing.assert_allclose(got.numpy(), want, **FUSED_TOL)
+
+
+def test_fold_cache_follows_in_place_edits(jax_setup):
+    """An in-place edit of one BatchNorm's running variance (its version
+    counter moves) changes the fused forward, to a fresh model's."""
+    x, variables = jax_setup
+    pm = _port(variables, True)
+    xt = torch.from_numpy(x)
+    with torch.inference_mode():
+        before = pm(xt, features=True)
+    with torch.no_grad():
+        pm.block_14_depthwise_BN.running_var.mul_(4.0)
+    with torch.inference_mode():
+        after = pm(xt, features=True)
+        fresh = copy.deepcopy(pm)(xt, features=True)
+    assert not torch.equal(after, before)
+    torch.testing.assert_close(after, fresh, rtol=0, atol=0)
 
 
 def test_registry_knob_and_variant_key(monkeypatch):
