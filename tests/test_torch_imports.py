@@ -1,7 +1,7 @@
-"""The port stands alone: no module of ``sparkdl_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, flax, optax or the JAX package, and an entry
-point with no CUDA device and no CPU asked for raises instead of carrying
-on quietly on the CPU."""
+"""The port stands alone: no module of ``sparkdl_tpu_torch``, not
+``chip_smoke.py`` and none of the port's tools imports JAX, flax, optax or
+the JAX package, and an entry point with no CUDA device and no CPU asked
+for raises instead of carrying on quietly on the CPU."""
 
 import ast
 import pathlib
@@ -16,6 +16,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sparkdl_tpu")
 def _port_files():
     files = sorted((ROOT / "sparkdl_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "tools" / name for name in (
+        "port_profile.py", "sepconv_compare.py", "mbconv_compare.py",
+        "gen_wgmma.py")]
     return files
 
 
