@@ -23,11 +23,16 @@ its classes prints its launch plan (blocks, F groups S, waves, shared
 memory).  So is B2 (a pixel count that is not a multiple of 64 under a
 cluster split, ragged and non-square 2-D tiles, C = 968, F = 320 under a
 split), and its classes print theirs (tile kind, cluster size S, F tile,
-C chunk, stages, blocks, waves, shared memory).  Each path runs with
-every launch count set to 0 just before it and read just after; the
-script checks the counts and that each path's fused route agrees with the
-model's unfused route.  Any failed phase exits non-zero; without a CUDA
-device it exits non-zero before printing any result.
+C chunk, stages, blocks, waves, shared memory).  So is B3 (N = 3 at
+147x147, 13x11, F = 200, C = 72, two F tiles, a 6000-pixel row, all four
+ReLU variants), and its classes print theirs (tile, F tile, stages,
+blocks, items a block walks, shared memory).  Each path runs with every
+launch count set to 0 just before it and read just after; the script
+checks the counts and that each path's fused route agrees with the
+model's unfused route.  The main Xception path also computes its unfused
+features with PyTorch's default ``cudnn.allow_tf32 = True`` and holds them
+against the TF32-off ones.  Any failed phase exits non-zero; without a
+CUDA device it exits non-zero before printing any result.
 
 Output: the card's name and power limit first, one line per phase, then
 one JSON line with every kernel's numbers, and last the line
@@ -84,6 +89,20 @@ TILED_SHAPES = [
     (74, 256, 256, True, False, 1),    # block3_sepconv2
 ]
 TILED_PER_FORWARD = sum(s[-1] for s in TILED_SHAPES)  # 4
+
+# Shapes off the main path that B3 must take too: (N, H, W, C, F, pre_relu,
+# post_relu).  N = 3 at 147x147 (the blocks' last items fill part of a
+# wave), a non-square image with ragged tiles on both axes, F = 200 (no F
+# tile divides it), C = 72 (its last 64-channel chunk holds 8), two F
+# tiles, a row far wider than B1 takes, and all four ReLU variants.
+TILED_RAGGED = [
+    (3, 147, 147, 64, 128, False, False),
+    (2, 13, 11, 128, 128, True, True),
+    (4, 74, 74, 128, 200, True, False),
+    (2, 37, 37, 72, 128, False, True),
+    (2, 19, 23, 128, 328, False, True),
+    (1, 8, 6000, 256, 256, True, False),
+]
 
 # MobileNetV2's 13 stride-1 tails at 224x224: (H=W, expanded C, F,
 # launches per forward).
@@ -247,9 +266,10 @@ def phase_build(sepconv):
             else "n/a (library was cached)"), flush=True)
 
 
-def _sepconv_inputs(g, n, hw, c, f):
+def _sepconv_inputs(g, n, hw, c, f, w=None):
+    """Seeded operands of an [n, hw, w or hw, c] -> f sepconv on the card."""
     dev = "cuda"
-    x = torch.randn(n, hw, hw, c, device=dev, generator=g).bfloat16()
+    x = torch.randn(n, hw, w or hw, c, device=dev, generator=g).bfloat16()
     dwk = (torch.randn(3, 3, c, device=dev, generator=g) / 3).bfloat16()
     pw = (torch.randn(c, f, device=dev, generator=g) / math.sqrt(c)
           ).bfloat16()
@@ -294,7 +314,8 @@ def phase_sepconv_kernel(sepconv, tiled):
                                           else SEPCONV_SHAPES):
         n = BATCH
         args = _sepconv_inputs(g, n, hw, c, f)
-        plan = None if tiled else sepconv._sepconv_plan(n, hw, hw, c, f)
+        plan = (sepconv._sepconv_tiled_plan if tiled
+                else sepconv._sepconv_plan)(n, hw, hw, c, f)
         out = kern(*args, pre, post)
         torch.cuda.synchronize()
         ref = sepconv.sepconv_reference(*args, pre, post)
@@ -313,10 +334,10 @@ def phase_sepconv_kernel(sepconv, tiled):
                    ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
                    bound_by=b_by, ops_ms=flops / PEAK_BF16_FLOPS * 1e3,
                    bytes_ms=nbytes / PEAK_BYTES * 1e3)
-        if plan is not None:
-            row["plan"] = plan
-            print(f"[plan] sepconv N={n} {hw}x{hw} C={c} F={f}: "
-                  f"{plan_text(plan)}", flush=True)
+        row["plan"] = plan
+        print(f"[plan] {tag} N={n} {hw}x{hw} C={c} F={f}: "
+              f"{(tiled_plan_text if tiled else plan_text)(plan)}",
+              flush=True)
         extra = ""
         if tiled:
             row["b1_ms"] = graph_ms(lambda: sepconv._fused_sepconv_cuda(
@@ -350,6 +371,34 @@ def plan_text(plan):
             f"tiles/group={plan['tiles_per_group']} NT={plan['n_tile']} "
             f"KC={plan['kc']} stages={plan['stages']} "
             f"waves={plan['waves']} smem={plan['smem']} B")
+
+
+def tiled_plan_text(plan):
+    return (f"tile={plan['tile_h']}x{plan['tile_w']} "
+            f"F_tile={plan['f_tile']} x{plan['f_tiles']} "
+            f"stages={plan['stages']} blocks={plan['grid']} "
+            f"tiles={plan['tiles']} items/block<={plan['items']} "
+            f"smem={plan['smem']} B")
+
+
+def phase_sepconv_tiled_ragged(sepconv):
+    """B3 at the shapes of TILED_RAGGED, each held against its plain
+    version; returns the largest max abs error."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    worst = 0.0
+    for n, h, w, c, f, pre, post in TILED_RAGGED:
+        args = _sepconv_inputs(g, n, h, c, f, w)
+        out = sepconv._fused_sepconv_tiled_cuda(*args, pre, post)
+        torch.cuda.synchronize()
+        ref = sepconv.sepconv_reference(*args, pre, post)
+        max_abs = compare(out, ref, ("sepconv_tiled ragged", n, h, w, c, f,
+                                     pre, post))
+        worst = max(worst, max_abs)
+        print(f"[kernel] sepconv_tiled ragged N={n} {h}x{w} C={c} F={f} "
+              f"pre={int(pre)} post={int(post)}: max_abs_err={max_abs:.5f}; "
+              f"{tiled_plan_text(sepconv._sepconv_tiled_plan(n, h, w, c, f))}",
+              flush=True)
+    return worst
 
 
 def phase_sepconv_ragged(sepconv):
@@ -498,11 +547,14 @@ def read_counts(sepconv):
                 mbconv=sepconv.fused_mbconv.launches)
 
 
-def unfused_check(name, df, feats, size, tag):
+def unfused_check(name, df, feats, size, tag, tf32=False):
     """Features of the same uint8 batches through the model's unfused route
-    on the card; fails above MAIN_PATH_REL_TOL.  Returns (rel err, fused
-    ms, unfused ms), the last two one forward of BATCH images timed by
-    ``cuda_ms``."""
+    on the card; fails above MAIN_PATH_REL_TOL.  With ``tf32`` the unfused
+    features are computed once more under PyTorch's default
+    ``cudnn.allow_tf32 = True`` and held against the TF32-off ones (which
+    the CPU tests tie to the JAX package), also within MAIN_PATH_REL_TOL.
+    Returns (rel err, fused ms, unfused ms, TF32 rel err or None), the
+    times one forward of BATCH images timed by ``cuda_ms``."""
     from sparkdl_tpu_torch.image.io import arrowStructsToBatch
     from sparkdl_tpu_torch.parallel.engine import InferenceEngine
     from sparkdl_tpu_torch.transformers import named_image as ni
@@ -517,6 +569,22 @@ def unfused_check(name, df, feats, size, tag):
     plain_eng.module.fused_inference = False
     want = plain_eng(batch)
     rel = float(np.linalg.norm(feats - want) / np.linalg.norm(want))
+    rel_tf32 = None
+    if tf32:
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            want_tf32 = plain_eng(batch)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        rel_tf32 = float(np.linalg.norm(want_tf32 - want)
+                         / np.linalg.norm(want))
+        print(f"[{tag}] unfused f32 route, cudnn.allow_tf32 True vs False: "
+              f"||a-b||/||b|| = {rel_tf32:.3e} (the reference's f32 "
+              f"tolerance 1e-3 {'met' if rel_tf32 <= 1e-3 else 'not met'}; "
+              f"fails above {MAIN_PATH_REL_TOL})", flush=True)
+        check(rel_tf32 <= MAIN_PATH_REL_TOL,
+              f"{tag}: unfused features with TF32 on: rel err "
+              f"{rel_tf32:.4g} > {MAIN_PATH_REL_TOL}")
     check(rel <= MAIN_PATH_REL_TOL,
           f"{tag}: fused vs unfused features: rel err {rel:.4g} > "
           f"{MAIN_PATH_REL_TOL}")
@@ -526,7 +594,7 @@ def unfused_check(name, df, feats, size, tag):
     print(f"[{tag}] fused vs unfused route: ||a-b||/||b|| = {rel:.3e} "
           f"(tol {MAIN_PATH_REL_TOL}); device forward per batch of {BATCH}: "
           f"fused {fused_ms:.2f} ms, unfused {plain_ms:.2f} ms", flush=True)
-    return rel, fused_ms, plain_ms
+    return rel, fused_ms, plain_ms, rel_tf32
 
 
 def featurize_predict(name, size, n_images, n_predict, sepconv, tag):
@@ -592,8 +660,8 @@ def phase_xception(sepconv):
                          sepconv_tiled=0, mbconv=0),
           f"Xception launches {counts}, want {SEPCONV_PER_FORWARD} sepconv "
           f"per batch x {batches}")
-    unfused_check("Xception", df, feats, 299, "main")
-    return counts["sepconv"]
+    rel_tf32 = unfused_check("Xception", df, feats, 299, "main", tf32=True)[3]
+    return counts["sepconv"], rel_tf32
 
 
 def phase_mobilenet(sepconv):
@@ -607,7 +675,7 @@ def phase_mobilenet(sepconv):
                              mbconv=MBCONV_PER_FORWARD * batches),
               f"MobileNetV2 launches {counts}, want {MBCONV_PER_FORWARD} "
               f"mbconv per batch x {batches}")
-        _, fused_ms, plain_ms = unfused_check("MobileNetV2", df, feats, 224,
+        _, fused_ms, plain_ms, _ = unfused_check("MobileNetV2", df, feats, 224,
                                               "mobilenet")
     finally:
         del os.environ["SPARKDL_MNV2_FUSED"]
@@ -656,9 +724,11 @@ def main():
     b1 = phase_sepconv_kernel(sepconv, tiled=False)
     b1["max_abs_err"] = max(b1["max_abs_err"], phase_sepconv_ragged(sepconv))
     b3 = phase_sepconv_kernel(sepconv, tiled=True)
+    b3["max_abs_err"] = max(b3["max_abs_err"],
+                            phase_sepconv_tiled_ragged(sepconv))
     b2 = phase_mbconv_kernel(sepconv)
     b2["max_abs_err"] = max(b2["max_abs_err"], phase_mbconv_ragged(sepconv))
-    b1["launches"] = phase_xception(sepconv)
+    b1["launches"], b1["tf32_unfused_rel_err"] = phase_xception(sepconv)
     b2["launches"], b2["mobilenet_forward_ms"] = phase_mobilenet(sepconv)
     b3["launches"] = phase_xception_tiled(sepconv)
     print(json.dumps({"kernels": [b1, b3, b2]}), flush=True)

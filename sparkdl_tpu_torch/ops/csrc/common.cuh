@@ -1,6 +1,7 @@
 // Device helpers shared by the port's Hopper kernels (sepconv.cu,
-// sepconv_tiled.cu, mbconv.cu): bf16 packing, 16-byte cp.async copies,
-// ldmatrix and the m16n8k16 bf16 tensor-core product (wgmma.cuh holds
+// sepconv_tiled.cu, mbconv.cu): bf16 packing and ReLU, the epilogues' quad
+// transpose, 16-byte cp.async copies, ldmatrix and the m16n8k16 bf16
+// tensor-core product (wgmma.cuh holds
 // Hopper's warpgroup product).  Each kernel file is
 // compiled into its own library, so everything here has internal linkage.
 
@@ -21,6 +22,32 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 
 __device__ __forceinline__ float2 unpack_bf16x2(uint32_t w) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
+__device__ __forceinline__ uint32_t relu_bf16x2(uint32_t w) {
+  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&w);
+  v = __hmax2(v, __float2bfloat162_rn(0.f));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The epilogues' quad transpose.  In the m16n8 accumulator layout the four
+// lanes of a quad (t4 = lane % 4) hold two columns each of an 8-column
+// block of a row.  Given this lane's bf16 pairs of four consecutive blocks
+// (v[j]: block j), returns all eight columns of block t4 (three shuffles
+// within the quad), so each lane stores 16 bytes: in round r lane t4 sends
+// its pair of block t4^r and gets lane t4^r's pair of block t4.
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&v)[4],
+                                                int t4) {
+  auto pick = [](const uint32_t (&a)[4], int i) {
+    return i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
+  };
+  uint32_t u[4];
+  u[0] = pick(v, t4);
+#pragma unroll
+  for (int r = 1; r < 4; ++r)
+    u[r] = __shfl_xor_sync(0xffffffffu, pick(v, t4 ^ r), r);
+  return make_uint4(pick(u, t4), pick(u, t4 ^ 1), pick(u, t4 ^ 2),
+                    pick(u, t4 ^ 3));
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,

@@ -125,12 +125,6 @@ __device__ int sepconv_trace_block;
 #define SEPCONV_TRACE(point)
 #endif
 
-__device__ __forceinline__ uint32_t relu_bf16x2(uint32_t w) {
-  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&w);
-  v = __hmax2(v, __float2bfloat162_rn(0.f));
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int NT, bool PRE_RELU, bool POST_RELU>
 __global__ void __launch_bounds__(THREADS, 1)
 sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
@@ -286,14 +280,9 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
   for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
 
   // Epilogue of F tile t: BatchNorm affine in f32, optional ReLU, bf16
-  // pairs.  In the accumulator layout the four lanes of a quad hold two
-  // columns each of an 8-column block of rows g and g+8; a transpose
-  // within the quad (three shuffles) gives lane t4 all eight columns of
-  // block 4q+t4, stored as one 16-byte write, so a warp writes 64
-  // contiguous bytes per row rather than 16.
-  auto pick = [](const uint32_t (&v)[4], int i) {
-    return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
-  };
+  // pairs, then the quad transpose (common.cuh) gives lane t4 all eight
+  // columns of block 4q+t4 of rows g and g+8, stored as one 16-byte write,
+  // so a warp writes 64 contiguous bytes per row rather than 16.
   auto epilogue = [&](int t) {
     const int fw = f_first + t * TN + wg * NT;
 #pragma unroll
@@ -320,18 +309,10 @@ sepconv_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, C]
       const int f = fw + (q * 4 + t4) * 8;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        // round r: lane t4 sends its pair of block 4q + (t4^r) and gets
-        // lane t4^r's pair of block 4q+t4, columns 2(t4^r)..+1
-        uint32_t u[4];
-        u[0] = v[half][t4];
-#pragma unroll
-        for (int r = 1; r < 4; ++r)
-          u[r] = __shfl_xor_sync(0xffffffffu, pick(v[half], t4 ^ r), r);
+        const uint4 piece = quad_transpose(v[half], t4);  // block 4q+t4
         const int p = p0 + wr + g + half * 8;
         if (p < NHW && f < F)
-          *reinterpret_cast<uint4*>(out + (size_t)p * F + f) =
-              make_uint4(pick(u, t4), pick(u, t4 ^ 1), pick(u, t4 ^ 2),
-                         pick(u, t4 ^ 3));
+          *reinterpret_cast<uint4*>(out + (size_t)p * F + f) = piece;
       }
     }
   };

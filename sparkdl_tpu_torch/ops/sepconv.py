@@ -46,7 +46,7 @@ KERNELS = {
     "sepconv": ("sparkdl_sepconv", ("sepconv.cu",), "sepconv",
                 [_P] * 6 + [_I] * 13 + [_P]),
     "sepconv_tiled": ("sparkdl_sepconv_tiled", ("sepconv_tiled.cu",),
-                      "sepconv_tiled", [_P] * 6 + [_I] * 7 + [_P]),
+                      "sepconv_tiled", [_P] * 6 + [_I] * 13 + [_P]),
     "mbconv": ("sparkdl_mbconv", ("mbconv.cu",), "mbconv",
                [_P] * 6 + [_I] * 12 + [_P]),
 }
@@ -279,24 +279,119 @@ def _fused_sepconv_cuda(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
     return out
 
 
+# The tiled kernel's launch plan (csrc/sepconv_tiled.cu): persistent
+# blocks, one per SM, each holding one F tile's pointwise slice and walking
+# items of 64 pixels (a 2-D tile of one image) through a ring of TMA input
+# windows of 64-channel chunks.
+_T3_TILES = ((8, 8), (4, 16))   # tile TH x TW the library instantiates
+_T3_F_TILES = (256, 128)        # F tiles (products in passes of 128)
+_T3_STAGES = 2                  # ring stages (the C side takes 2-6)
+_T3_CHUNK = 64                  # channels per window chunk
+# A block's time is modelled as the items it walks times an item's cost,
+# in SM cycles per 64-pixel item: the depthwise, _T3_DW a channel, the
+# epilogue's stores, _T3_EPI an F column, and the products, _T3_MMA a
+# channel and F column.  Fitted by least squares to a sweep of every plan
+# at Xception's four classes on an H100 (tools/sepconv_tiled_compare.py
+# --sweep; PERF.md; within 13% at every swept plan).  The window's halo
+# (1.56x the tile at 8x8, 1.69x at 4x16) has no measurable cost there:
+# the tile shape that covers the image in fewer items wins.
+_T3_DW = 24.1
+_T3_EPI = 13.5
+_T3_MMA = 0.0057
+
+
+def _sepconv_tiled_smem(th: int, tw: int, c: int, tf: int,
+                        stages: int) -> int:
+    """Bytes of shared memory of a launch: ``stages`` ring slots of the
+    window [(TH+2)(TW+2)][64] bf16 (each rounded up to 1024 bytes), two A
+    tiles [64][KP] (one a consumer warpgroup), the resident pointwise
+    slice [KP][TF], the taps [9][KP], scale and shift [TF] f32, three
+    mbarriers a stage and 1024 bytes of alignment slack; KP = C rounded up
+    to 64.  The kernel's ``smem_bytes_for``."""
+    kp = _round_up(c, _T3_CHUNK)
+    slot = _round_up((th + 2) * (tw + 2) * _T3_CHUNK * 2, 1024)
+    return (stages * slot + 2 * 64 * kp * 2 + kp * tf * 2 + 9 * kp * 2
+            + 8 * tf + 24 * stages + 1024)
+
+
+def _sepconv_tiled_candidate(n: int, h: int, w: int, c: int, f: int,
+                             th: int, tw: int, tf: int,
+                             stages: int = _T3_STAGES) -> Optional[Dict]:
+    """One launch plan with its grid and modelled cost, or None where it
+    does not fit shared memory."""
+    smem = _sepconv_tiled_smem(th, tw, c, tf, stages)
+    if smem > _SMEM_BLOCK:
+        return None
+    kp = _round_up(c, _T3_CHUNK)
+    f_tiles = -(-f // tf)
+    grid = f_tiles * max(1, _SM_COUNT // f_tiles)
+    walkers = grid // f_tiles
+    tiles = n * -(-h // th) * -(-w // tw)
+    items = -(-tiles // walkers)
+    item_cost = kp * _T3_DW + tf * _T3_EPI + kp * tf * _T3_MMA
+    return dict(tile_h=th, tile_w=tw, f_tile=tf, stages=stages, grid=grid,
+                smem=smem, f_tiles=f_tiles, tiles=tiles, items=items,
+                cost=items * item_cost)
+
+
+@functools.lru_cache(maxsize=256)
+def _sepconv_tiled_plan(n: int, h: int, w: int, c: int, f: int) -> Dict:
+    """The launch plan of the tiled kernel (B3) for one shape: ``tile_h``
+    x ``tile_w`` (8x8 or 4x16 pixels), ``f_tile`` (TF), ``stages`` (ring),
+    ``grid`` (blocks: F tiles x blocks per F tile, one per SM) and ``smem``
+    bytes, which the kernel takes as ints, plus ``f_tiles``, ``tiles``
+    (spatial), ``items`` (the most one block walks) and the model's
+    ``cost`` for the record.  Weighs each tile shape's edge waste (the
+    items a block walks), and TF = 256 (the depthwise once per pixel)
+    against TF = 128 (twice as many items a block where F > 128).  The
+    ring has two stages: in a sweep of every plan on the card (PERF.md)
+    deeper rings were no faster at any of Xception's classes.  Raises
+    ``ValueError`` for a shape no plan fits.  The plan is cached: do not
+    modify it."""
+    why = f"no sepconv_tiled plan for shape {(n, h, w, c, f)}:"
+    if min(n, h, w, c, f) <= 0 or c % 8 or f % 8:
+        raise ValueError(f"{why} sizes must be positive, C and F multiples "
+                         f"of 8")
+    best = None
+    for th, tw in _T3_TILES:
+        if n * -(-h // th) * -(-w // tw) >= 2 ** 31:
+            continue
+        for tf in _T3_F_TILES:
+            plan = _sepconv_tiled_candidate(n, h, w, c, f, th, tw, tf)
+            if plan is None:
+                continue
+            key = (plan["cost"], -tf, -th)
+            if best is None or key < best[0]:
+                best = (key, plan)
+    if best is None:
+        raise ValueError(f"{why} the resident pointwise slice and depthwise "
+                         f"tiles of C={c} exceed {_SMEM_BLOCK} bytes of "
+                         f"shared memory, or its tiles the kernel's index "
+                         f"range")
+    return best[1]
+
+
 def _fused_sepconv_tiled_cuda(x: torch.Tensor, dwk: torch.Tensor,
                               pw: torch.Tensor, scale: torch.Tensor,
                               shift: torch.Tensor, pre_relu: bool,
                               post_relu: bool) -> torch.Tensor:
-    """Launch the spatially tiled kernel (B3) on the current stream: the
-    same function and operand contract as :func:`_fused_sepconv_cuda`, for
-    images of any width (its shared memory does not grow with W)."""
+    """Launch the spatially tiled kernel (B3) on the current stream with
+    :func:`_sepconv_tiled_plan`'s plan: the same function and operand
+    contract as :func:`_fused_sepconv_cuda`, for images of any width (its
+    shared memory does not grow with W).  Raises on a shape no plan fits
+    and when the launch is refused."""
     n, h, w, c, f = _check_sepconv_operands(x, dwk, pw, scale, shift,
                                             "_fused_sepconv_tiled_cuda")
-    if n > 65535 or -(-h // 8) * -(-w // 8) > 65535:
-        raise ValueError(f"shape {(n, h, w, c, f)} exceeds the kernel's "
-                         f"grid")
+    if n * h * w * f == 0:
+        return torch.empty((n, h, w, f), dtype=torch.bfloat16,
+                           device=x.device)
+    plan = _sepconv_tiled_plan(n, h, w, c, f)
     out = torch.empty((n, h, w, f), dtype=torch.bfloat16, device=x.device)
-    if out.numel() == 0:
-        return out
     _launch("sepconv_tiled", x.device, x.data_ptr(), dwk.data_ptr(),
             pw.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            out.data_ptr(), n, h, w, c, f, int(pre_relu), int(post_relu))
+            out.data_ptr(), n, h, w, c, f, int(pre_relu), int(post_relu),
+            plan["tile_h"], plan["tile_w"], plan["f_tile"], plan["stages"],
+            plan["grid"], plan["smem"])
     fused_sepconv.tiled_launches += 1
     return out
 

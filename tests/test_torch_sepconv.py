@@ -8,6 +8,8 @@ interpreter.  The CUDA kernel itself is held against the same plain version
 on the card by ``chip_smoke.py``.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -241,6 +243,108 @@ def test_tiled_two_layer_chain_matches_jax():
     want = np.asarray(unflatten(kb, h, w), np.float32)
     # the tiled Pallas kernel's chain bar in tests/test_ops_sepconv.py
     np.testing.assert_allclose(b.float().numpy(), want, rtol=0.1, atol=0.08)
+
+
+# The shapes the tiled kernel's launch plan must take (n, h, w, c, f): B3's
+# four classes at batch 32, chip_smoke.py's TILED_RAGGED shapes and the
+# 6000-pixel row the whole-image kernel refuses.
+TILED_PLAN_SHAPES = [
+    (32, 147, 147, 64, 128), (32, 147, 147, 128, 128),
+    (32, 74, 74, 128, 256), (32, 74, 74, 256, 256),
+    (3, 147, 147, 64, 128), (2, 13, 11, 128, 128), (4, 74, 74, 128, 200),
+    (2, 37, 37, 72, 128), (2, 19, 23, 128, 328), (1, 8, 6000, 256, 256),
+]
+
+
+def _tiled_plans(n, h, w, c, f):
+    """The plan's choice and every other plan the library instantiates."""
+    yield port._sepconv_tiled_plan(n, h, w, c, f)
+    for (th, tw), tf, st in itertools.product(port._T3_TILES,
+                                              port._T3_F_TILES, range(2, 7)):
+        plan = port._sepconv_tiled_candidate(n, h, w, c, f, th, tw, tf, st)
+        if plan is not None:
+            yield plan
+
+
+@pytest.mark.parametrize("n,h,w,c,f", TILED_PLAN_SHAPES)
+def test_sepconv_tiled_plan_fits_and_covers(n, h, w, c, f):
+    """Every plan fits one block's shared memory by the kernel's own
+    formula; its persistent grid's blocks walk every (image, tile, F tile)
+    exactly once; its TMA box obeys the copy engine's limits."""
+    for plan in _tiled_plans(n, h, w, c, f):
+        th, tw, tf, st = (plan["tile_h"], plan["tile_w"], plan["f_tile"],
+                          plan["stages"])
+        assert (th, tw) in port._T3_TILES and th * tw == 64
+        assert tf in port._T3_F_TILES and 2 <= st <= 6
+        kp = -(-c // 64) * 64
+        slot = -(-(th + 2) * (tw + 2) * 128 // 1024) * 1024
+        assert plan["smem"] == port._sepconv_tiled_smem(th, tw, c, tf, st) \
+            == st * slot + 256 * kp + 2 * kp * tf + 18 * kp + 8 * tf \
+            + 24 * st + 1024
+        assert plan["smem"] <= 232448
+        # the kernel's walk: block b takes F tile b % FT and spatial tiles
+        # b // FT, + S, + 2S, ... (S = grid / FT)
+        ft = plan["f_tiles"]
+        assert ft == -(-f // tf) and plan["grid"] % ft == 0
+        walkers = plan["grid"] // ft
+        tiles_h, tiles_w = -(-h // th), -(-w // tw)
+        tiles = n * tiles_h * tiles_w
+        assert plan["tiles"] == tiles
+        seen = np.zeros((tiles, ft), np.int64)
+        most = 0
+        for b in range(plan["grid"]):
+            mine = np.arange(b // ft, tiles, walkers)
+            seen[mine, b % ft] += 1
+            most = max(most, len(mine))
+        assert (seen == 1).all() and most == plan["items"]
+        # each item's 64 pixels and F tile cover the image and F: tile t
+        # is image t // (tiles_h * tiles_w), origin (row, col) * (th, tw)
+        assert tiles_h * th >= h > (tiles_h - 1) * th
+        assert tiles_w * tw >= w > (tiles_w - 1) * tw
+        assert ft * tf >= f > (ft - 1) * tf
+        # the TMA box (64 channels, tw+2 columns, th+2 rows, one image):
+        # inner box 128 bytes (a multiple of 16, the 128-byte swizzle's
+        # span), each box side at most 256, global strides multiples of 16
+        # bytes, and the slot a whole number of 1024-byte swizzle atoms
+        box = (64, tw + 2, th + 2, 1)
+        assert box[0] * 2 == 128 and all(1 <= b <= 256 for b in box)
+        assert all(s % 16 == 0 for s in (c * 2, w * c * 2, h * w * c * 2))
+        assert slot % 1024 == 0 and slot >= box[1] * box[2] * 128
+
+
+def test_sepconv_tiled_plan_choices():
+    """The entry classes' plans: one F tile each (the depthwise computed
+    once per pixel), a two-stage ring, and at 256->256 the 128 KB
+    pointwise slice with 8x8 tiles."""
+    for n, h, w, c, f in TILED_PLAN_SHAPES[:4]:
+        assert port._sepconv_tiled_plan(n, h, w, c, f)["f_tiles"] == 1
+        assert port._sepconv_tiled_plan(n, h, w, c, f)["stages"] == 2
+    plan = port._sepconv_tiled_plan(32, 74, 74, 256, 256)
+    assert plan["f_tile"] == 256 and plan["tile_h"] == 8
+    assert port._sepconv_tiled_plan(2, 19, 23, 128, 328)["f_tiles"] >= 2
+
+
+@pytest.mark.parametrize("n,h,w,c,f,why", [
+    (32, 74, 74, 1024, 256, "shared memory"),   # A and B of C = 1024
+    (2, 5, 5, 12, 16, "multiples of 8"),
+])
+def test_untakeable_tiled_shape_raises_in_the_wrapper(monkeypatch, n, h, w,
+                                                      c, f, why):
+    """A shape no tiled plan fits raises ``ValueError`` with the reason,
+    from the plan and from the CUDA wrapper before any launch."""
+    with pytest.raises(ValueError, match=why):
+        port._sepconv_tiled_plan(n, h, w, c, f)
+    monkeypatch.setattr(port, "_check_sepconv_operands",
+                        lambda *a: (n, h, w, c, f))
+    monkeypatch.setattr(port, "_launch", lambda *a: pytest.fail(
+        "launched an untakeable shape"))
+    x = torch.zeros(n, h, w, c, dtype=torch.bfloat16)
+    affine = torch.ones(f)
+    before = port.fused_sepconv.tiled_launches
+    with pytest.raises(ValueError, match=why):
+        port._fused_sepconv_tiled_cuda(x, None, None, affine, affine, True,
+                                       False)
+    assert port.fused_sepconv.tiled_launches == before
 
 
 def test_tiled_cuda_wrapper_refuses_cpu_tensors():
