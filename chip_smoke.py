@@ -15,7 +15,17 @@ weights and batch 32:
   * MobileNetV2 at 224x224 with ``SPARKDL_MNV2_FUSED=1`` (featurizer +
     predictor): the mbconv kernel (B2), 13 launches per batch;
   * Xception with ``SPARKDL_XC_TILED=1`` (one featurizer batch): the tiled
-    sepconv kernel (B3), 4 launches per batch, beside B1's 30.
+    sepconv kernel (B3), 4 launches per batch, beside B1's 30;
+  * InceptionV3 at 299x299, the featurizer of the reference's
+    transfer-learning recipe (featurizer + predictor, f32 with TF32 off):
+    none of the three kernels (its convolutions are cuDNN's, as they are
+    XLA's in JAX).  Its fused branch heads are held against the per-branch
+    route and ``SPARKDL_S2D_STEM=1`` against the default (both within
+    1e-3), cuDNN TF32 and the bf16 engine against f32 (within 5e-2); then
+    ``Pipeline([DeepImageFeaturizer, LogisticRegression])`` is fitted on
+    128 class-tinted images of five colours and scored on 32 held out
+    (accuracy at least 0.9), and the card's LR fit is held against the
+    CPU's on the same features (within 1e-2).
 
 B1 is also held against its plain version at ragged shapes (a pixel count
 that is not a multiple of 64, F = 200, all four ReLU variants), and each of
@@ -35,7 +45,9 @@ against the TF32-off ones.  Any failed phase exits non-zero; without a
 CUDA device it exits non-zero before printing any result.
 
 Output: the card's name and power limit first, one line per phase, then
-one JSON line with every kernel's numbers, and last the line
+one JSON line of InceptionV3's numbers (img/s, forward ms, relative
+errors, the recipe's accuracy), one JSON line with every kernel's numbers,
+and last the line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -55,6 +67,15 @@ N_IMAGES = 64
 N_PREDICT = 32
 KERNEL_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 outputs: about 2 bf16 steps at |y| ~ 4
 MAIN_PATH_REL_TOL = 5e-2                  # fused vs unfused, as the JAX package's tests
+INCEPTION_ROUTE_TOL = 1e-3                # f32 routes of one function (reference f32 bar)
+LR_CARD_CPU_TOL = 1e-2                    # LR (w, b) fitted on the card vs on the CPU
+# The transfer-learning recipe: RECIPE_PER_CLASS images of each base colour,
+# the first RECIPE_TRAIN of them (seeded order) to fit on, the rest held out.
+RECIPE_BASES = [(220, 40, 40), (40, 200, 40), (40, 40, 220), (220, 220, 40),
+                (200, 40, 200)]
+RECIPE_PER_CLASS = 32
+RECIPE_TRAIN = 128
+RECIPE_MIN_ACC = 0.9
 PEAK_BF16_FLOPS = 989e12                  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12                      # H100 SXM HBM3
 
@@ -600,11 +621,13 @@ def unfused_check(name, df, feats, size, tag, tf32=False):
 def featurize_predict(name, size, n_images, n_predict, sepconv, tag):
     """Featurize ``n_images`` and (when ``n_predict``) predict top-5 of
     ``n_predict`` synthetic images through the user entry points; returns
-    (frame, features, launch counts of that run)."""
+    (frame, features, launch counts of that run, img/s of the featurizer
+    and of the predictor or None)."""
     from sparkdl_tpu_torch.transformers import named_image as ni
 
     df = synthetic_frame(n_images, size, SEED)
-    spec_dim = {"Xception": 2048, "MobileNetV2": 1280}[name]
+    spec_dim = {"Xception": 2048, "MobileNetV2": 1280,
+                "InceptionV3": 2048}[name]
     feat = ni.DeepImageFeaturizer(inputCol="image", outputCol="features",
                                   modelName=name, batchSize=BATCH)
     pred = ni.DeepImagePredictor(inputCol="image", outputCol="preds",
@@ -648,13 +671,15 @@ def featurize_predict(name, size, n_images, n_predict, sepconv, tag):
         msg += (f"; DeepImagePredictor top-5: {n_predict} images in "
                 f"{pred_s:.3f}s = {n_predict / pred_s:.1f} img/s")
     print(f"{msg}; launches {counts}", flush=True)
-    return df, feats, counts
+    rates = dict(featurize=n_images / feat_s,
+                 predict=n_predict / pred_s if n_predict else None)
+    return df, feats, counts, rates
 
 
 def phase_xception(sepconv):
     """Default Xception path: 30 B1 launches per batch, no other kernel."""
-    df, feats, counts = featurize_predict("Xception", 299, N_IMAGES, N_PREDICT,
-                                          sepconv, "main")
+    df, feats, counts, _ = featurize_predict("Xception", 299, N_IMAGES,
+                                             N_PREDICT, sepconv, "main")
     batches = N_IMAGES // BATCH + N_PREDICT // BATCH
     check(counts == dict(sepconv=SEPCONV_PER_FORWARD * batches,
                          sepconv_tiled=0, mbconv=0),
@@ -668,8 +693,8 @@ def phase_mobilenet(sepconv):
     """MobileNetV2 with SPARKDL_MNV2_FUSED=1: 13 B2 launches per batch."""
     os.environ["SPARKDL_MNV2_FUSED"] = "1"
     try:
-        df, feats, counts = featurize_predict("MobileNetV2", 224, N_IMAGES,
-                                              N_PREDICT, sepconv, "mobilenet")
+        df, feats, counts, _ = featurize_predict(
+            "MobileNetV2", 224, N_IMAGES, N_PREDICT, sepconv, "mobilenet")
         batches = N_IMAGES // BATCH + N_PREDICT // BATCH
         check(counts == dict(sepconv=0, sepconv_tiled=0,
                              mbconv=MBCONV_PER_FORWARD * batches),
@@ -687,8 +712,8 @@ def phase_xception_tiled(sepconv):
     B1 launches."""
     os.environ["SPARKDL_XC_TILED"] = "1"
     try:
-        df, feats, counts = featurize_predict("Xception", 299, BATCH, 0,
-                                              sepconv, "tiled")
+        df, feats, counts, _ = featurize_predict("Xception", 299, BATCH, 0,
+                                                 sepconv, "tiled")
         check(counts == dict(sepconv=SEPCONV_PER_FORWARD,
                              sepconv_tiled=TILED_PER_FORWARD, mbconv=0),
               f"tiled Xception launches {counts}, want "
@@ -697,6 +722,142 @@ def phase_xception_tiled(sepconv):
     finally:
         del os.environ["SPARKDL_XC_TILED"]
     return counts["sepconv_tiled"]
+
+
+def tinted_frame(n_per_class, size, seed):
+    """``n_per_class`` seeded ``size`` x ``size`` uint8 images of each class
+    of RECIPE_BASES in a seeded order, with a "label" column: class k is
+    clip(base_k + N(0, 40)) per pixel and channel."""
+    import pyarrow as pa
+
+    from sparkdl_tpu_torch.frame import DataFrame
+    from sparkdl_tpu_torch.image.schema import (imageArrayToStruct,
+                                                structsToArrow)
+
+    rng = np.random.default_rng(seed)
+    bases = np.asarray(RECIPE_BASES, np.float32)
+    labels = rng.permutation(np.repeat(np.arange(len(bases)), n_per_class))
+    structs = [imageArrayToStruct(np.clip(
+        bases[k] + rng.normal(0, 40, (size, size, 3)), 0, 255).astype(
+        np.uint8), origin=f"tinted_{i}") for i, k in enumerate(labels)]
+    return DataFrame(structsToArrow(structs)).withColumn(
+        "label", pa.array(labels.astype(np.int64)))
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def phase_inception(sepconv):
+    """InceptionV3 at 299x299 (config 1 of the reference's recipe): no
+    kernel of B1-B3 on its path.  Featurize + predict in f32 with TF32 off;
+    the fused-head route against the per-branch one and the s2d stem
+    against the default (both <= INCEPTION_ROUTE_TOL), cuDNN TF32 and the
+    bf16 engine against f32 (<= MAIN_PATH_REL_TOL); then the
+    transfer-learning recipe: Pipeline([DeepImageFeaturizer,
+    LogisticRegression]) fitted on RECIPE_TRAIN tinted images, held-out
+    accuracy >= RECIPE_MIN_ACC, and the card's LR fit held against the
+    CPU's on the same features (<= LR_CARD_CPU_TOL)."""
+    from sparkdl_tpu_torch import default_device
+    from sparkdl_tpu_torch.estimators import (
+        LogisticRegression, MulticlassClassificationEvaluator)
+    from sparkdl_tpu_torch.frame import DataFrame
+    from sparkdl_tpu_torch.image.io import arrowStructsToBatch
+    from sparkdl_tpu_torch.transformers import named_image as ni
+    from sparkdl_tpu_torch.transformers.base import Pipeline
+
+    name, tag = "InceptionV3", "inception"
+    zero = dict(sepconv=0, sepconv_tiled=0, mbconv=0)
+    df, feats, counts, rates = featurize_predict(name, 299, N_IMAGES,
+                                                 N_PREDICT, sepconv, tag)
+    check(counts == zero, f"{tag}: launches {counts}, want none of B1-B3")
+    rel_fh, fused_ms, plain_ms, rel_tf32 = unfused_check(
+        name, df, feats, 299, tag, tf32=True)
+    check(rel_fh <= INCEPTION_ROUTE_TOL,
+          f"{tag}: fused heads vs per-branch rel err {rel_fh:.4g} > "
+          f"{INCEPTION_ROUTE_TOL}")
+    piece = arrowStructsToBatch(df.table.column("image"), 299, 299)[0][:BATCH]
+    eng = ni._zoo_engine(name, True, BATCH)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_ms = cuda_ms(lambda: eng.run_padded(piece), reps=10)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+    def variant(knob, value, n):
+        os.environ[knob] = value
+        try:
+            _, got, c, r = featurize_predict(name, 299, n, 0, sepconv,
+                                             f"{tag} {knob}={value}")
+            ms = cuda_ms(lambda: ni._zoo_engine(name, True, BATCH).run_padded(
+                piece), reps=10)
+        finally:
+            del os.environ[knob]
+        check(c == zero, f"{tag} {knob}={value}: launches {c}")
+        return _rel(got, feats[:n]), r["featurize"], ms
+
+    rel_s2d, _, s2d_ms = variant("SPARKDL_S2D_STEM", "1", BATCH)
+    check(rel_s2d <= INCEPTION_ROUTE_TOL,
+          f"{tag}: s2d stem vs default rel err {rel_s2d:.4g} > "
+          f"{INCEPTION_ROUTE_TOL}")
+    rel_bf16, bf16_ips, bf16_ms = variant("SPARKDL_ZOO_COMPUTE_DTYPE",
+                                          "bfloat16", N_IMAGES)
+    check(rel_bf16 <= MAIN_PATH_REL_TOL,
+          f"{tag}: bf16 vs f32 rel err {rel_bf16:.4g} > {MAIN_PATH_REL_TOL}")
+    print(f"[{tag}] s2d stem vs default ||a-b||/||b|| = {rel_s2d:.3e} (tol "
+          f"{INCEPTION_ROUTE_TOL}); bf16 vs f32 = {rel_bf16:.3e} (tol "
+          f"{MAIN_PATH_REL_TOL}), bf16 featurizer {bf16_ips:.1f} img/s; "
+          f"device forward per batch of {BATCH}: f32 fused heads "
+          f"{fused_ms:.2f} ms, per-branch {plain_ms:.2f} ms, TF32 on "
+          f"{tf32_ms:.2f} ms, s2d stem {s2d_ms:.2f} ms, bf16 {bf16_ms:.2f} "
+          f"ms", flush=True)
+
+    tdf = tinted_frame(RECIPE_PER_CLASS, 299, SEED + 7)
+    train_df = tdf.limit(RECIPE_TRAIN)
+    test_df = DataFrame(tdf.table.slice(RECIPE_TRAIN))
+    featurizer = ni.DeepImageFeaturizer(inputCol="image",
+                                        outputCol="features", modelName=name,
+                                        batchSize=BATCH)
+    lr = LogisticRegression(maxIter=20, batchSize=32)
+    reset_counts(sepconv)
+    t0 = time.perf_counter()
+    model = Pipeline(stages=[featurizer, lr]).fit(train_df)
+    scored = model.transform(test_df)
+    torch.cuda.synchronize()
+    recipe_s = time.perf_counter() - t0
+    counts = read_counts(sepconv)
+    check(counts == zero, f"{tag} recipe: launches {counts}")
+    acc = MulticlassClassificationEvaluator().evaluate(scored)
+    check(acc >= RECIPE_MIN_ACC, f"{tag} recipe: held-out accuracy {acc:.3f} "
+                                 f"< {RECIPE_MIN_ACC}")
+    train_feats = featurizer.transform(train_df)
+    t0 = time.perf_counter()
+    card = lr.fit(train_feats)
+    fit_s = time.perf_counter() - t0
+    with default_device("cpu"):
+        cpu = lr.fit(train_feats)
+    rel_w = _rel(card.weights["w"], cpu.weights["w"])
+    rel_b = _rel(card.weights["b"], cpu.weights["b"])
+    check(max(rel_w, rel_b) <= LR_CARD_CPU_TOL,
+          f"{tag}: LR fit card vs CPU rel err w {rel_w:.4g} b {rel_b:.4g} > "
+          f"{LR_CARD_CPU_TOL}")
+    print(f"[{tag}] recipe: Pipeline(DeepImageFeaturizer, "
+          f"LogisticRegression) fit on {RECIPE_TRAIN} + transform of "
+          f"{len(test_df)} images in {recipe_s:.3f}s, held-out accuracy "
+          f"{acc:.3f} (min {RECIPE_MIN_ACC}); LR fit on the card "
+          f"{fit_s:.3f}s, (w, b) vs the CPU fit rel err {rel_w:.3e}, "
+          f"{rel_b:.3e} (tol {LR_CARD_CPU_TOL}); launches {counts}",
+          flush=True)
+    return dict(
+        featurize_img_s=rates["featurize"], predict_img_s=rates["predict"],
+        bf16_featurize_img_s=bf16_ips,
+        forward_ms=dict(f32_fused_heads=fused_ms, f32_per_branch=plain_ms,
+                        tf32=tf32_ms, s2d_stem=s2d_ms, bf16=bf16_ms),
+        rel_err=dict(fused_vs_per_branch=rel_fh, s2d_vs_default=rel_s2d,
+                     tf32_vs_f32=rel_tf32, bf16_vs_f32=rel_bf16,
+                     lr_card_vs_cpu_w=rel_w, lr_card_vs_cpu_b=rel_b),
+        recipe_accuracy=acc, recipe_s=recipe_s, lr_fit_s=fit_s,
+        launches=counts)
 
 
 def main():
@@ -718,7 +879,8 @@ def main():
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
     check(sparkdl_tpu_torch.resolve_device().type == "cuda",
           "entry points do not default to the card")
-    for knob in ("SPARKDL_MNV2_FUSED", "SPARKDL_XC_TILED"):
+    for knob in ("SPARKDL_MNV2_FUSED", "SPARKDL_XC_TILED", "SPARKDL_S2D_STEM",
+                 "SPARKDL_FUSED_HEADS", "SPARKDL_ZOO_COMPUTE_DTYPE"):
         os.environ.pop(knob, None)
     phase_build(sepconv)
     b1 = phase_sepconv_kernel(sepconv, tiled=False)
@@ -731,6 +893,8 @@ def main():
     b1["launches"], b1["tf32_unfused_rel_err"] = phase_xception(sepconv)
     b2["launches"], b2["mobilenet_forward_ms"] = phase_mobilenet(sepconv)
     b3["launches"] = phase_xception_tiled(sepconv)
+    inception = phase_inception(sepconv)
+    print(json.dumps({"inception": inception}), flush=True)
     print(json.dumps({"kernels": [b1, b3, b2]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,20 @@
 """Pretrained-CNN zoo registry (port of ``sparkdl_tpu/models/__init__.py``).
 
-The port's zoo holds Xception and MobileNetV2 so far.  Each ``ModelSpec``
-carries what the transformer layer needs: input size, featurizer-cut
-width, ImageNet preprocess mode and the module builder.  Weights are a
-seeded random init at full width; importing Keras ``.h5`` weights is not
-ported yet.
+The port's zoo holds InceptionV3, Xception and MobileNetV2 so far.  Each
+``ModelSpec`` carries what the transformer layer needs: input size,
+featurizer-cut width, ImageNet preprocess mode and the module builder.
+Weights are a seeded random init at full width; importing Keras ``.h5``
+weights is not ported yet.
 
-Two builders read process env, as in JAX: ``SPARKDL_XC_TILED=1`` routes
+The builders read process env, as in JAX: ``SPARKDL_XC_TILED=1`` routes
 Xception's large entry blocks through the tiled kernel,
 ``SPARKDL_MNV2_FUSED=1`` MobileNetV2's stride-1 blocks through the mbconv
-kernel; both off by default.  Caches keyed on a model name fold in
-:func:`model_variant_key` so a knob set mid-process builds the other
-variant instead of serving the cached one.
+kernel (both off by default); ``SPARKDL_S2D_STEM=1`` computes
+InceptionV3's first conv as space-to-depth (off by default) and
+``SPARKDL_FUSED_HEADS=0`` turns its fused branch heads off (on by
+default).  Caches keyed on a model name fold in :func:`model_variant_key`
+so a knob set mid-process builds the other variant instead of serving the
+cached one.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from sparkdl_tpu_torch.models.inception import InceptionV3
 from sparkdl_tpu_torch.models.layers import (BatchNorm, DepthwiseConv2D,
                                              SeparableConv2D)
 from sparkdl_tpu_torch.models.mobilenet import MobileNetV2
@@ -69,6 +73,29 @@ def _mnv2_fused_enabled() -> bool:
     return _env_flag("SPARKDL_MNV2_FUSED", False)
 
 
+def _s2d_stem_enabled() -> bool:
+    return _env_flag("SPARKDL_S2D_STEM", False)
+
+
+def _fused_heads_enabled() -> bool:
+    return _env_flag("SPARKDL_FUSED_HEADS", True)
+
+
+def _inception_builder(**kwargs) -> nn.Module:
+    return InceptionV3(s2d_stem=_s2d_stem_enabled(),
+                       fused_heads=None if _fused_heads_enabled() else False,
+                       **kwargs)
+
+
+def _inception_variant() -> str:
+    tags = []
+    if _s2d_stem_enabled():
+        tags.append("s2d")
+    if not _fused_heads_enabled():
+        tags.append("nofh")
+    return "+".join(tags)
+
+
 def _xception_builder(**kwargs) -> nn.Module:
     return Xception(tiled_entry=_xc_tiled_enabled(), **kwargs)
 
@@ -78,6 +105,10 @@ def _mobilenet_builder(**kwargs) -> nn.Module:
 
 
 _SPECS = {
+    "inceptionv3": ModelSpec(
+        name="InceptionV3", module_builder=_inception_builder,
+        input_size=(299, 299), feature_size=2048, preprocess_mode="tf",
+        variant_key_fn=_inception_variant),
     "xception": ModelSpec(
         name="Xception", module_builder=_xception_builder,
         input_size=(299, 299), feature_size=2048, preprocess_mode="tf",
@@ -110,7 +141,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init in place, in module order.  Convs and the dense
     head draw N(0, 1/fan_in) (a depthwise fan-in is its 9 taps); the
     BatchNorm statistics are drawn near identity so that the folded
-    affine (scale and shift) is exercised, not a no-op."""
+    affine (scale and shift) is exercised, not a no-op.  A BatchNorm
+    without a scale draws none."""
 
     def normal(t, std):
         with torch.no_grad():
@@ -130,7 +162,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(mod, nn.Conv2d):
             normal(mod.weight, 1 / math.sqrt(mod.weight[0].numel()))
         elif isinstance(mod, BatchNorm):
-            uniform(mod.weight, 0.8, 1.2)
+            if mod.weight is not None:
+                uniform(mod.weight, 0.8, 1.2)
             normal(mod.bias, 0.05)
             normal(mod.running_mean, 0.05)
             uniform(mod.running_var, 0.8, 1.2)

@@ -3,14 +3,16 @@
 ``state_dict_from_jax(name, variables)`` takes the variable tree of the
 JAX zoo module (``{"params": ..., "batch_stats": ...}`` with numpy leaves,
 as ``jax.tree_util.tree_map(np.asarray, variables)`` gives it; this module
-imports no JAX) and maps it by layer path:
+imports no JAX) and maps it by layer path, nested paths included
+(InceptionV3's ``stem_conv1/conv`` -> ``stem_conv1.conv.weight``):
 
   * conv ``kernel`` HWIO -> ``weight`` OIHW
   * ``depthwise_kernel`` [3,3,C,1] -> ``depthwise_weight`` [C,1,3,3]
     (a SeparableConv2D's, or a DepthwiseConv2D's on its own)
   * ``pointwise_kernel`` [1,1,C,F] -> ``pointwise_weight`` [F,C,1,1]
   * BatchNorm ``scale``/``bias`` + ``mean``/``var`` -> ``weight``/``bias``
-    + ``running_mean``/``running_var`` (``num_batches_tracked`` = 0)
+    + ``running_mean``/``running_var`` (``num_batches_tracked`` = 0); a
+    BatchNorm without a scale has no ``weight``
   * dense ``kernel`` [in,out] -> ``Linear.weight`` [out,in]
 
 It raises on any leaf it cannot place and on any port tensor left unset.
@@ -30,8 +32,11 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def _layer(name: str, leaves: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
+def _layer(name: str, leaves: Mapping, st: Mapping) -> Dict[str, torch.Tensor]:
+    """The port tensors of one layer: its parameter leaves and its
+    batch_stats leaves ``st`` (empty for a layer without statistics)."""
     leaves = dict(leaves)
+    st = dict(st)
     out: Dict[str, torch.Tensor] = {}
     if "depthwise_kernel" in leaves or "pointwise_kernel" in leaves:
         if "depthwise_kernel" in leaves:
@@ -50,18 +55,40 @@ def _layer(name: str, leaves: Mapping, stats: Mapping) -> Dict[str, torch.Tensor
             raise ValueError(f"{name}/kernel has unexpected rank {k.dim()}")
         if "bias" in leaves:
             out["bias"] = _tensor(leaves.pop("bias"))
-    elif name in stats:
-        st = dict(stats[name])
-        out["weight"] = _tensor(leaves.pop("scale"))
-        out["bias"] = _tensor(leaves.pop("bias"))
-        out["running_mean"] = _tensor(st.pop("mean"))
-        out["running_var"] = _tensor(st.pop("var"))
+    elif st:
+        # a leaf missing here leaves its port tensor unset, which the
+        # caller's check names
+        for src, key, dst in (("scale", "weight", leaves),
+                              ("bias", "bias", leaves),
+                              ("mean", "running_mean", st),
+                              ("var", "running_var", st)):
+            if src in dst:
+                out[key] = _tensor(dst.pop(src))
         out["num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
-        if st:
-            raise ValueError(f"unused batch_stats leaves {name}/{sorted(st)}")
+    if st:
+        raise ValueError(f"unused batch_stats leaves {name}/{sorted(st)}")
     if leaves:
         raise ValueError(f"unused variable leaves {name}/{sorted(leaves)}")
-    return {f"{name}.{k}": v.contiguous() for k, v in out.items()}
+    prefix = name.replace("/", ".")
+    return {f"{prefix}.{k}": v.contiguous() for k, v in out.items()}
+
+
+def _walk(path: str, params: Mapping, stats: Mapping,
+          sd: Dict[str, torch.Tensor]) -> None:
+    """Place the layer at ``path`` (its array leaves, if any) and walk its
+    sub-layers; ``stats`` is the batch_stats node at the same path."""
+    extra = ({k for k, v in stats.items() if isinstance(v, Mapping)}
+             - {k for k, v in params.items() if isinstance(v, Mapping)})
+    if extra:
+        raise ValueError(f"unused batch_stats layers "
+                         f"{sorted(f'{path}{k}' for k in extra)}")
+    leaves = {k: v for k, v in params.items() if not isinstance(v, Mapping)}
+    st = {k: v for k, v in stats.items() if not isinstance(v, Mapping)}
+    if leaves or st:
+        sd.update(_layer(path.rstrip("/"), leaves, st))
+    for k, v in params.items():
+        if isinstance(v, Mapping):
+            _walk(f"{path}{k}/", v, stats.get(k, {}), sd)
 
 
 def state_dict_from_jax(name: str, variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -72,12 +99,8 @@ def state_dict_from_jax(name: str, variables: Mapping) -> Dict[str, torch.Tensor
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise ValueError(f"unused variable collections {sorted(unknown)}")
-    extra = set(stats) - set(params)
-    if extra:
-        raise ValueError(f"unused batch_stats layers {sorted(extra)}")
     sd: Dict[str, torch.Tensor] = {}
-    for layer, leaves in params.items():
-        sd.update(_layer(layer, leaves, stats))
+    _walk("", params, stats, sd)
 
     num_classes = int(np.shape(params["predictions"]["kernel"])[-1])
     with torch.device("meta"):

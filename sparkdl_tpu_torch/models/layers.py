@@ -6,6 +6,8 @@ same bytes.  Padding follows TF "SAME" (asymmetric where the window and
 stride need it), as the Keras weights were trained under.  Where an input
 and a weight differ in dtype, the op runs in the type JAX would promote
 both to (flax promotes; ``F.conv2d`` raises on mixed types).
+``BatchNorm(scale=False)``, :class:`ConvBN`, :class:`SpaceToDepthConv`,
+:func:`max_pool_valid` and :func:`avg_pool_same` are InceptionV3's.
 """
 
 from __future__ import annotations
@@ -79,24 +81,30 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 
 class BatchNorm(nn.BatchNorm2d):
     """Keras-default inference BatchNorm (eps 1e-3) with the folded form of
-    ``BNAffine`` beside it; both read the same four tensors."""
+    ``BNAffine`` beside it; both read the same four tensors.
+
+    ``scale=False`` is keras' ``BatchNormalization(scale=False)``: no gamma
+    at all (``weight`` is None, so the ``state_dict`` holds only ``bias``
+    and the statistics) and a scale of 1 in both forms."""
 
     def __init__(self, num_features: int, eps: float = BN_EPS_DEFAULT,
-                 momentum: float = BN_MOMENTUM_DEFAULT):
+                 momentum: float = BN_MOMENTUM_DEFAULT, scale: bool = True):
         super().__init__(num_features, eps=eps, momentum=momentum)
+        if not scale:
+            self.register_parameter("weight", None)
 
     def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(scale', shift') in f32: scale' = gamma / sqrt(var + eps),
         shift' = beta - mean * scale' — full precision even when the
         engine cast the module to bf16."""
         f32 = torch.float32
-        s = self.weight.to(f32) / torch.sqrt(self.running_var.to(f32)
-                                             + self.eps)
+        sd = torch.sqrt(self.running_var.to(f32) + self.eps)
+        s = self.weight.to(f32) / sd if self.weight is not None else 1.0 / sd
         t = self.bias.to(f32) - self.running_mean.to(f32) * s
         return s, t
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, _ = promote(x, self.weight)
+        x, _ = promote(x, self.bias)
         return super().forward(x)
 
 
@@ -157,6 +165,119 @@ class DepthwiseConv2D(nn.Module):
         return conv2d(x, self.depthwise_weight, stride=self.stride,
                       padding=1 if self.stride == 1 else 0,
                       groups=x.shape[1])
+
+
+class SpaceToDepthConv(nn.Conv2d):
+    """Bias-free stride-``s`` VALID conv computed as space-to-depth + a
+    stride-1 conv (``layers.py SpaceToDepthConv`` of the JAX package):
+    the same ``weight`` as the ``nn.Conv2d`` it subclasses, the same
+    function.  Each s x s block of pixels becomes channels in the order
+    ``(dy*s + dx)*cin + c`` (not ``F.pixel_unshuffle``'s ``c*s*s + dy*s +
+    dx``), and the kernel, zero-padded to a multiple of the stride, is
+    re-blocked to that order.  Odd extents are zero-padded, which is exact
+    since the padded taps meet zero kernel rows; the output is sliced to
+    the plain conv's ``(h - kh)//s + 1`` rows and columns."""
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: Tuple[int, int], stride: Tuple[int, int]):
+        super().__init__(in_channels, features, kernel_size, stride,
+                         bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, weight = promote(x, self.weight)
+        kh, kw = self.kernel_size
+        bh, bw = self.stride
+        n, cin, h, w = x.shape
+        f = weight.shape[0]
+        hp, wp = -(-h // bh) * bh, -(-w // bw) * bw
+        khp, kwp = -(-kh // bh) * bh, -(-kw // bw) * bw
+        xs = F.pad(x, (0, wp - w, 0, hp - h)).reshape(
+            n, cin, hp // bh, bh, wp // bw, bw).permute(
+            0, 3, 5, 1, 2, 4).reshape(n, bh * bw * cin, hp // bh, wp // bw)
+        # k2[o, (dy*bw+dx)*cin+c, by, bx] = k[o, c, by*bh+dy, bx*bw+dx]
+        k2 = F.pad(weight, (0, kwp - kw, 0, khp - kh)).reshape(
+            f, cin, khp // bh, bh, kwp // bw, bw).permute(
+            0, 3, 5, 1, 2, 4).reshape(f, bh * bw * cin, khp // bh, kwp // bw)
+        out = F.conv2d(xs, k2)
+        return out[:, :, :(h - kh) // bh + 1, :(w - kw) // bw + 1]
+
+
+class ConvBN(nn.Module):
+    """``conv2d_bn`` of keras' InceptionV3 (``layers.py ConvBN`` of the JAX
+    package): bias-free conv, BatchNorm without a scale (eps 1e-3), ReLU.
+    ``padding`` is "SAME" or "VALID"; every SAME conv of InceptionV3 has
+    stride 1 and an odd window, so its pad is symmetric.  ``s2d`` computes
+    a VALID conv as :class:`SpaceToDepthConv` (the same ``weight``).
+    Submodules ``conv`` and ``bn`` carry the JAX names."""
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: Tuple[int, int],
+                 stride: Tuple[int, int] = (1, 1), padding: str = "SAME",
+                 s2d: bool = False):
+        super().__init__()
+        kh, kw = kernel_size
+        if padding == "SAME" and (stride != (1, 1) or not kh % 2 or
+                                  not kw % 2):
+            raise ValueError("SAME needs stride 1 and an odd window here")
+        if s2d and padding != "VALID":
+            raise ValueError("s2d requires VALID padding")
+        self.padding = (kh // 2, kw // 2) if padding == "SAME" else (0, 0)
+        self.conv = (SpaceToDepthConv(in_channels, features, kernel_size,
+                                      stride) if s2d
+                     else nn.Conv2d(in_channels, features, kernel_size,
+                                    stride, bias=False))
+        self.bn = BatchNorm(features, scale=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.conv, SpaceToDepthConv):
+            y = self.conv(x)
+        else:
+            y = conv2d(x, self.conv.weight, stride=self.conv.stride,
+                       padding=self.padding)
+        return torch.relu(self.bn(y))
+
+    def folded(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(kernel OIHW, bn scale', bn shift') for a parent-level fused
+        conv (the JAX ``ConvBN(fold=True)`` form), from the same tensors."""
+        return (self.conv.weight,) + self.bn.folded()
+
+
+def max_pool_valid(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """``nn.max_pool(..., padding="VALID")`` on NCHW."""
+    return F.max_pool2d(x, window, stride)
+
+
+def avg_pool_same(x: torch.Tensor, window: int = 3) -> torch.Tensor:
+    """Stride-1 SAME average pool that leaves the padding out of the
+    divisor (TF's AvgPool, flax's ``count_include_pad=False``), in x's
+    dtype.  With stride 1 and an odd window the SAME pad is symmetric."""
+    return F.avg_pool2d(x, window, 1, padding=window // 2,
+                        count_include_pad=False)
+
+
+def cached_fold(cache: dict, name: str, sources, fold):
+    """``fold()``'s result, computed again only when a tensor of
+    ``sources`` changed: another storage, an in-place write, another dtype
+    or device.  ``cache[name]`` keeps the ``(data_ptr, _version)`` of every
+    source beside the result, and the sources themselves, so a storage it
+    was keyed on is not freed and reused under the same address.  A write
+    through ``.data`` moves no version counter: clear the cache after one.
+    An inference tensor keeps no version counter, so nothing is cached for
+    one."""
+    try:
+        key = [(s.data_ptr(), s._version) for s in sources]
+    except RuntimeError:
+        key = None
+    else:
+        key.append((sources[0].dtype, sources[0].device))
+    hit = cache.get(name)
+    if key is not None and hit is not None and hit[0] == key:
+        return hit[2]
+    with torch.no_grad():
+        ops = fold()
+    if key is not None:
+        cache[name] = (key, [s.detach() for s in sources], ops)
+    return ops
 
 
 def fold_bn_into_conv(kernel: torch.Tensor, scale: torch.Tensor,

@@ -19,7 +19,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sparkdl_tpu_torch.models.layers import (BatchNorm, DepthwiseConv2D,
-                                             conv2d, depthwise_taps,
+                                             cached_fold, conv2d,
+                                             depthwise_taps,
                                              fold_bn_into_conv,
                                              global_avg_pool, linear, relu6)
 from sparkdl_tpu_torch.ops.sepconv import fused_mbconv
@@ -142,28 +143,12 @@ class MobileNetV2(nn.Module):
 
     def _folded(self, prefix: str, t: int, cin: int, c: int):
         """:meth:`_fold`'s operands, folded again only when a tensor they
-        come from changed (another storage, an in-place write, another
-        dtype or device).  The entry holds those tensors, so a storage it
-        was keyed on is not freed and reused under the same address.  A
-        write through ``.data`` moves no version counter: clear ``_folds``
-        after one."""
+        come from changed (``layers.cached_fold``)."""
         m = self._modules
         sources = [getattr(m[name], d)[k]
                    for name, d, k in _fold_sources(prefix, t)]
-        try:
-            key = [(s.data_ptr(), s._version) for s in sources]
-        except RuntimeError:  # an inference tensor keeps no version counter
-            key = None
-        else:
-            key.append((sources[0].dtype, sources[0].device))
-        hit = self._folds.get(prefix)
-        if key is not None and hit is not None and hit[0] == key:
-            return hit[2]
-        with torch.no_grad():
-            ops = self._fold(prefix, t, cin, c)
-        if key is not None:
-            self._folds[prefix] = (key, [s.detach() for s in sources], ops)
-        return ops
+        return cached_fold(self._folds, prefix, sources,
+                           lambda: self._fold(prefix, t, cin, c))
 
     def _fused_block(self, x: torch.Tensor, prefix: str, t: int, cin: int,
                      c: int) -> torch.Tensor:

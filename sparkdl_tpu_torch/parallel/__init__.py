@@ -1,1 +1,1 @@
-"""Batch inference engine (port of ``sparkdl_tpu.parallel``)."""
+"""Batch inference engine and head fits (port of ``sparkdl_tpu.parallel``)."""

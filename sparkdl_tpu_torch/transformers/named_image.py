@@ -49,8 +49,9 @@ def clear_model_caches():
 
 
 def _cached_model(name: str) -> nn.Module:
-    # the env-dependent build variant (SPARKDL_MNV2_FUSED, SPARKDL_XC_TILED)
-    # is part of the key: a knob set mid-process builds the other variant
+    # the env-dependent build variant (SPARKDL_MNV2_FUSED, SPARKDL_XC_TILED,
+    # SPARKDL_S2D_STEM, SPARKDL_FUSED_HEADS) is part of the key: a knob set
+    # mid-process builds the other variant
     name = get_model_spec(name).name
     key = (name, model_variant_key(name))
     if key not in _MODEL_CACHE:
@@ -203,8 +204,8 @@ class _NamedImageTransformer(_ImageInputStage, HasModelName):
 
 class DeepImageFeaturizer(_NamedImageTransformer):
     """Zoo-model featurization for transfer learning: the output column
-    holds the penultimate-layer vector (2048-d for Xception, 1280-d for
-    MobileNetV2)."""
+    holds the penultimate-layer vector (2048-d for InceptionV3 and
+    Xception, 1280-d for MobileNetV2)."""
 
     featurize = True
 

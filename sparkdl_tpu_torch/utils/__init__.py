@@ -1,1 +1,1 @@
-"""Shared utilities (logging, metrics, prefetch)."""
+"""Shared utilities (logging, metrics, prefetch, the loss check)."""

@@ -1,19 +1,25 @@
 """Where the time of one zoo forward goes in the PyTorch port, on a GPU.
 
-    python3 tools/port_profile.py [--model Xception|MobileNetV2] [--batch 32]
-                                  [--set SPARKDL_XC_TILED=1] [--set ...]
+    python3 tools/port_profile.py [--model Xception|MobileNetV2|InceptionV3]
+                                  [--batch 32] [--set SPARKDL_XC_TILED=1]
+                                  [--set ...]
 
 Builds the port's zoo model (featurizer cut, seeded random weights, the
 build variant the ``--set`` environment knobs select, e.g.
-``SPARKDL_MNV2_FUSED=1`` or ``SPARKDL_XC_TILED=1``) on the card and
-reports, for one batch at the model's input size: the time of the forward
-(CUDA events around it, so the host's enqueue gaps count) on the fused and
-the unfused route, in f32 and in bf16 compute
+``SPARKDL_MNV2_FUSED=1``, ``SPARKDL_XC_TILED=1`` or
+``SPARKDL_S2D_STEM=1``) on the card and reports, for one batch at the
+model's input size: the time of the forward (CUDA events around it, so the
+host's enqueue gaps count) on the fused and the unfused route (the model's
+``fused_inference``; for InceptionV3 its fused branch heads against the
+per-branch convs), in f32 and in bf16 compute
 (``SPARKDL_ZOO_COMPUTE_DTYPE=bfloat16``), with cuDNN's TF32 off and on;
-then, for each route in f32 with TF32 off, a ``torch.profiler`` table of
-the forward's device time by kernel, its launch count, the wall time of
-the forward and the share of it the device was busy.  Prints the card's
-name and power limit first.  Needs a CUDA card.
+then a ``torch.profiler`` table of the forward's device time by kernel,
+its launch count, the wall time of the forward and the share of it the
+device was busy, for each route in f32 with TF32 off and for the fused
+route with TF32 on and in bf16.  Prints the card's
+name and power limit first, and the forward's floating-point operations
+per image (``torch.utils.flop_counter`` over one forward on the meta
+device: 2 per multiply-add of the convs and matmuls).  Needs a CUDA card.
 """
 
 import argparse
@@ -81,6 +87,17 @@ def profile_forward(eng, batch, label):
               f"{key[:90]}")
 
 
+def forward_flops(spec, h, w):
+    """FLOP of one image's featurizer forward, counted on the meta device."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.device("meta"):
+        module = spec.build().eval()
+        with FlopCounterMode(display=False) as counter:
+            module(torch.empty(1, h, w, 3), features=True)
+    return counter.get_total_flops()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="Xception")
@@ -103,7 +120,8 @@ def main():
     spec = get_model_spec(args.model)
     h, w = spec.input_size
     print(f"{spec.name} {h}x{w} batch {args.batch}, build variant "
-          f"{model_variant_key(spec.name)!r}")
+          f"{model_variant_key(spec.name)!r}, "
+          f"{forward_flops(spec, h, w) / 1e9:.3f} GFLOP per image")
     torch.backends.cuda.matmul.allow_tf32 = False
     batch = np.random.default_rng(0).integers(
         0, 256, (args.batch, h, w, 3), dtype=np.uint8)
@@ -128,10 +146,15 @@ def main():
                       f"cudnn.allow_tf32={tf32}: {ms:.2f} ms "
                       f"({args.batch / ms * 1e3:.0f} img/s)", flush=True)
 
+    bf16 = torch.bfloat16
+    for cdt, fused, tf32 in ((None, True, False), (None, False, False),
+                             (None, True, True), (bf16, True, False)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        profile_forward(engine(cdt, fused), batch,
+                        f"{'fused' if fused else 'unfused'} "
+                        f"{'bf16' if cdt else 'f32'}"
+                        f"{', TF32 on' if tf32 else ''}")
     torch.backends.cudnn.allow_tf32 = False
-    for fused in (True, False):
-        profile_forward(engine(None, fused), batch,
-                        f"{'fused' if fused else 'unfused'} f32")
 
 
 if __name__ == "__main__":
