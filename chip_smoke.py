@@ -44,10 +44,34 @@ features with PyTorch's default ``cudnn.allow_tf32 = True`` and holds them
 against the TF32-off ones.  Any failed phase exits non-zero; without a
 CUDA device it exits non-zero before printing any result.
 
+The engine runs every forward above as one captured CUDA graph.  Two
+phases check that path itself:
+
+  * [graph], for Xception (default and ``SPARKDL_XC_TILED=1``),
+    MobileNetV2 (``SPARKDL_MNV2_FUSED=1``) and InceptionV3 (f32 and
+    ``SPARKDL_ZOO_COMPUTE_DTYPE=bfloat16``), each through its zoo engine:
+    the graphed forward equals the same engine's eager forward
+    (``capture = False``) bit for bit; device ms per forward of both and of
+    the replay alone, host us per dispatch, launches per batch (the
+    wrappers' credited counts, which must equal one ``torch.profiler``
+    pass over a replay; where our kernels run, the replay's kernel count
+    must equal an eager forward's), the graph's pool; an in-place edit of
+    a BatchNorm in a fused block must bring a new capture whose output
+    equals the eager forward's with that edit, and so must toggling
+    ``cudnn.allow_tf32`` and a write through ``.data`` followed by
+    clearing the model's fold caches; then a pytree batch with two float
+    leaves of one shape through the pipelined runner;
+  * [pipeline]: the Xception and MobileNetV2 featurizers over 8 batches and
+    a ragged tail of 13 images, pipelined (the default), serial
+    (``SPARKDL_PIPELINE=0``) and two at once from two threads on one
+    engine, bit for bit; img/s of pipelined and serial, one batch's
+    upload pageable vs pinned, and the runner's stage summary.
+
 Output: the card's name and power limit first, one line per phase, then
 one JSON line of InceptionV3's numbers (img/s, forward ms, relative
-errors, the recipe's accuracy), one JSON line with every kernel's numbers,
-and last the line
+errors, the recipe's accuracy), one JSON line of the [graph] and
+[pipeline] numbers, one JSON line with every kernel's numbers, and last
+the line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -56,6 +80,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -152,6 +177,32 @@ MBCONV_RAGGED = [
     (3, 7, 7, 968, 160, None),
     (3, 14, 14, 384, 320, None),
 ]
+
+
+# This slice's paths through the engine's captured forward: (tag, model,
+# input size, environment knobs, launches per batch (B1, B3, B2), the
+# BatchNorm buffer the recapture check edits in place, in a fused block).
+GRAPH_PATHS = [
+    ("xception", "Xception", 299, {}, (SEPCONV_PER_FORWARD, 0, 0),
+     "block5_sepconv1_bn.running_var"),
+    ("xception tiled", "Xception", 299, {"SPARKDL_XC_TILED": "1"},
+     (SEPCONV_PER_FORWARD, TILED_PER_FORWARD, 0),
+     "block2_sepconv1_bn.running_var"),
+    ("mobilenet fused", "MobileNetV2", 224, {"SPARKDL_MNV2_FUSED": "1"},
+     (0, 0, MBCONV_PER_FORWARD), "block_2_project_BN.running_var"),
+    ("inception f32", "InceptionV3", 299, {}, (0, 0, 0),
+     "mixed0_b1x1.bn.running_var"),
+    ("inception bf16", "InceptionV3", 299,
+     {"SPARKDL_ZOO_COMPUTE_DTYPE": "bfloat16"}, (0, 0, 0),
+     "mixed0_b1x1.bn.running_var"),
+]
+GRAPH_TIMED_REPLAYS = 10                  # replays timed per path (median)
+# [pipeline]: featurizer runs over PIPELINE_BATCHES full batches and a
+# ragged tail of PIPELINE_TAIL images, pipelined and serial.
+PIPELINE_BATCHES = 8
+PIPELINE_TAIL = 13
+PIPELINE_PATHS = [("Xception", 299, {}),
+                  ("MobileNetV2", 224, {"SPARKDL_MNV2_FUSED": "1"})]
 
 
 def fail(msg):
@@ -609,9 +660,12 @@ def unfused_check(name, df, feats, size, tag, tf32=False):
     check(rel <= MAIN_PATH_REL_TOL,
           f"{tag}: fused vs unfused features: rel err {rel:.4g} > "
           f"{MAIN_PATH_REL_TOL}")
-    piece = batch[:BATCH]
-    fused_ms = cuda_ms(lambda: fused_eng.run_padded(piece), reps=10)
-    plain_ms = cuda_ms(lambda: plain_eng.run_padded(piece), reps=10)
+    # one batch already in each engine's pinned host buffer, as the
+    # runner's prepare stage leaves it
+    fused_piece = fused_eng._pad(batch[:BATCH])
+    plain_piece = plain_eng._pad(batch[:BATCH])
+    fused_ms = cuda_ms(lambda: fused_eng.run_padded(fused_piece), reps=10)
+    plain_ms = cuda_ms(lambda: plain_eng.run_padded(plain_piece), reps=10)
     print(f"[{tag}] fused vs unfused route: ||a-b||/||b|| = {rel:.3e} "
           f"(tol {MAIN_PATH_REL_TOL}); device forward per batch of {BATCH}: "
           f"fused {fused_ms:.2f} ms, unfused {plain_ms:.2f} ms", flush=True)
@@ -778,9 +832,10 @@ def phase_inception(sepconv):
           f"{INCEPTION_ROUTE_TOL}")
     piece = arrowStructsToBatch(df.table.column("image"), 299, 299)[0][:BATCH]
     eng = ni._zoo_engine(name, True, BATCH)
+    staged = eng._pad(piece)
     torch.backends.cudnn.allow_tf32 = True
     try:
-        tf32_ms = cuda_ms(lambda: eng.run_padded(piece), reps=10)
+        tf32_ms = cuda_ms(lambda: eng.run_padded(staged), reps=10)
     finally:
         torch.backends.cudnn.allow_tf32 = False
 
@@ -789,8 +844,9 @@ def phase_inception(sepconv):
         try:
             _, got, c, r = featurize_predict(name, 299, n, 0, sepconv,
                                              f"{tag} {knob}={value}")
-            ms = cuda_ms(lambda: ni._zoo_engine(name, True, BATCH).run_padded(
-                piece), reps=10)
+            v_eng = ni._zoo_engine(name, True, BATCH)
+            v_piece = v_eng._pad(piece)
+            ms = cuda_ms(lambda: v_eng.run_padded(v_piece), reps=10)
         finally:
             del os.environ[knob]
         check(c == zero, f"{tag} {knob}={value}: launches {c}")
@@ -860,6 +916,354 @@ def phase_inception(sepconv):
         launches=counts)
 
 
+class env_knobs:
+    """Set environment knobs for a ``with`` block, restoring them after."""
+
+    def __init__(self, knobs):
+        self.knobs = knobs
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.knobs}
+        os.environ.update(self.knobs)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def profiled_kernels(fn):
+    """Kernels on the card in one ``fn()``, from ``torch.profiler``'s
+    device events: (total launches, launches by kernel name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith("Activity"):
+            continue
+        if "Memcpy" in ev.key or "Memset" in ev.key:
+            continue
+        names[ev.key] = names.get(ev.key, 0) + ev.count
+    return sum(names.values()), names
+
+
+def graph_path(sepconv, tag, name, size, knobs, want, edit):
+    """One path of [graph]: the zoo engine's captured forward against the
+    same engine's eager forward (``capture = False``), bit for bit; device
+    ms per forward of both and of the replay alone, host us per dispatch,
+    launches per batch (credited counts, held against one profiler pass
+    over a replay, whose kernel count must equal an eager forward's where
+    our kernels run), the graph's pool bytes; a recapture after an
+    in-place weight edit, after a TF32 toggle, and after a ``.data`` write
+    with the fold caches cleared."""
+    from sparkdl_tpu_torch.parallel.engine import fold_entries
+    from sparkdl_tpu_torch.transformers import named_image as ni
+
+    rng = np.random.default_rng(SEED + 11)
+    batch = rng.integers(0, 256, (BATCH, size, size, 3), dtype=np.uint8)
+    with env_knobs(knobs):
+        eng = ni._zoo_engine(name, True, BATCH)
+    check(eng.capture, f"[graph] {tag}: the zoo engine does not capture")
+
+    def eager(x):
+        eng.capture = False
+        try:
+            return eng.run_padded(x)
+        finally:
+            eng.capture = True
+
+    graphed = eng.run_padded(batch)
+    plain = eager(batch)
+    torch.cuda.synchronize()
+    check(torch.equal(graphed, plain),
+          f"[graph] {tag}: graphed forward differs from the eager forward "
+          f"(max abs {(graphed.float() - plain.float()).abs().max().item()})")
+    check(torch.isfinite(graphed.float()).all().item(),
+          f"[graph] {tag}: features not finite")
+
+    staged = eng._pad(batch)  # a pinned host batch, as prepare makes it
+    sig = next(iter(eng._graphs))
+    g = eng._graphs[sig]
+    for k in ("engine.replay_host", "engine.eager_host"):
+        eng.metrics.timings_s.pop(k, None)
+    fwd_ms = cuda_ms(lambda: eng.run_padded(staged), reps=GRAPH_TIMED_REPLAYS)
+    replay_ms = cuda_ms(g.graph.replay, reps=GRAPH_TIMED_REPLAYS)
+    eager_ms = cuda_ms(lambda: eager(staged), reps=GRAPH_TIMED_REPLAYS)
+    host_us = eng.metrics.percentile("engine.replay_host", 50) * 1e6
+    eager_host_us = eng.metrics.percentile("engine.eager_host", 50) * 1e6
+
+    reset_counts(sepconv)
+    for _ in range(4):
+        eng.run_padded(staged)
+    torch.cuda.synchronize()
+    counts = read_counts(sepconv)
+    per_batch = tuple(counts[k] // 4 for k in ("sepconv", "sepconv_tiled",
+                                               "mbconv"))
+    check(per_batch == want and all(v % 4 == 0 for v in counts.values()),
+          f"[graph] {tag}: launches {counts} over 4 replays, want {want} "
+          f"per batch")
+    prof_total, prof_names = profiled_kernels(g.graph.replay)
+    prof_eager, eager_names = profiled_kernels(lambda: eager(staged))
+    prof_ours = tuple(sum(n for k, n in prof_names.items() if p in k)
+                      for p in ("sepconv_kernel", "sepconv_tiled_kernel",
+                                "mbconv_kernel"))
+    del g
+    check(prof_ours == want,
+          f"[graph] {tag}: the profiler counts {prof_ours} of our kernels in "
+          f"one replay, the credited counts {want}")
+    prof_diff = {k: (prof_names.get(k, 0), eager_names.get(k, 0))
+                 for k in set(prof_names) | set(eager_names)
+                 if prof_names.get(k, 0) != eager_names.get(k, 0)}
+    if any(want):
+        check(prof_total == prof_eager,
+              f"[graph] {tag}: {prof_total} kernels in one replay, "
+              f"{prof_eager} in one eager forward: {prof_diff}")
+
+    def captured(want_new, what):
+        got = eng.metrics.counters["engine.graph_captures"] - captures
+        check(got == want_new, f"[graph] {tag}: {got} captures after "
+                               f"{what}, want {want_new}")
+
+    captures = eng.metrics.counters["engine.graph_captures"]
+    buf = dict(eng.module.named_buffers())[edit]
+    saved = buf.clone()
+    buf.mul_(0.5)
+    edited = eng.run_padded(batch)
+    edited_plain = eager(batch)
+    torch.cuda.synchronize()
+    captured(1, "an in-place weight edit")
+    check(torch.equal(edited, edited_plain),
+          f"[graph] {tag}: after the weight edit the graphed forward "
+          f"differs from the eager one")
+    check(not torch.equal(edited, graphed),
+          f"[graph] {tag}: the weight edit did not change the output")
+    buf.copy_(saved)
+    back = eng.run_padded(batch)
+    torch.cuda.synchronize()
+    captured(2, "the weights were restored")
+    check(torch.equal(back, graphed),
+          f"[graph] {tag}: with the first weights restored the output "
+          f"differs from the first one")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = eng.run_padded(batch)
+        tf32_plain = eager(batch)
+        torch.cuda.synchronize()
+        captured(3, "cudnn.allow_tf32 was set")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    check(torch.equal(tf32, tf32_plain),
+          f"[graph] {tag}: with TF32 on the graphed forward differs from "
+          f"the eager one")
+    back = eng.run_padded(batch)
+    torch.cuda.synchronize()
+    captured(4, "cudnn.allow_tf32 was cleared again")
+    check(torch.equal(back, graphed),
+          f"[graph] {tag}: with TF32 off again the output differs from the "
+          f"first one")
+
+    # a write through .data moves no version counter: clearing the fold
+    # caches after it is what makes the engine capture again
+    had_folds = bool(fold_entries(eng._fold_owners))
+    saved = buf.clone()
+    buf.data.mul_(0.5)
+    for m in eng._fold_owners:
+        m._folds.clear()
+    edited = eng.run_padded(batch)
+    edited_plain = eager(batch)
+    torch.cuda.synchronize()
+    captured(4 + had_folds, "a .data write and cleared fold caches")
+    check(torch.equal(edited, edited_plain),
+          f"[graph] {tag}: after a .data write and cleared fold caches the "
+          f"graphed forward differs from the eager one")
+    check(not torch.equal(edited, graphed),
+          f"[graph] {tag}: the .data write did not change the output")
+    buf.data.copy_(saved)
+    for m in eng._fold_owners:
+        m._folds.clear()
+    back = eng.run_padded(batch)
+    torch.cuda.synchronize()
+    captured(4 + 2 * had_folds, "the .data write was undone")
+    check(torch.equal(back, graphed),
+          f"[graph] {tag}: with the .data write undone the output differs "
+          f"from the first one")
+
+    pool = sum(e["pool_bytes"] for e in eng.graphs())
+    print(f"[graph] {tag} {size}x{size} batch {BATCH}: graphed == eager bit "
+          f"for bit; device ms per forward: graphed {fwd_ms:.3f} (replay "
+          f"alone {replay_ms:.3f}), eager {eager_ms:.3f}; host us per "
+          f"dispatch: graphed {host_us:.1f}, eager {eager_host_us:.1f}; "
+          f"launches per batch (B1, B3, B2) {per_batch}, profiler: "
+          f"{prof_total} kernels in one replay ({prof_eager} in one eager "
+          f"forward{'; differing: ' + str(prof_diff) if prof_diff else ''}), "
+          f"ours {prof_ours}; graph "
+          f"pool {pool / 2**20:.1f} MiB; recaptured after a weight edit, "
+          f"after cudnn.allow_tf32 (output changed: "
+          f"{not torch.equal(tf32, graphed)}) and after a .data write with "
+          f"cleared fold caches", flush=True)
+    return dict(forward_ms=fwd_ms, replay_ms=replay_ms, eager_ms=eager_ms,
+                host_us=host_us, eager_host_us=eager_host_us,
+                launches_per_batch=per_batch, profiler_kernels=prof_total,
+                profiler_ours=prof_ours, profiler_eager_kernels=prof_eager,
+                pool_bytes=pool,
+                img_s=BATCH / fwd_ms * 1e3,
+                eager_img_s=BATCH / eager_ms * 1e3)
+
+
+def graph_pytree():
+    """A captured forward over a pytree batch with an integer leaf in and
+    out and two float leaves of one shape and dtype, pipelined, on the card
+    and on the CPU: the same ids, float leaves within 1e-5, and grouped
+    dispatch (3 forwards per replay, ragged tail) equal to the per-batch
+    graph bit for bit."""
+    from sparkdl_tpu_torch.parallel.engine import InferenceEngine
+
+    rng = np.random.default_rng(SEED + 17)
+    lin = torch.nn.Linear(16, 8)
+    x = rng.normal(size=(150, 16)).astype(np.float32)
+    x2 = rng.normal(size=(150, 16)).astype(np.float32)  # x's shape and dtype
+    ids = np.arange(150, dtype=np.int64)
+
+    def fn(m, b):
+        y = torch.tanh(m(b["x"]))
+        return {"y": y, "y2": m(b["x2"]), "top": torch.argmax(y, -1),
+                "ids": b["ids"] + 1}
+
+    outs = {}
+    for dev, k in (("cpu", 1), ("cuda", 1), ("cuda", 3)):
+        eng = InferenceEngine(fn, lin, device=dev, device_batch_size=BATCH,
+                              batches_per_dispatch=k)
+        outs[(dev, k)] = eng({"x": x, "x2": x2, "ids": ids}, pipeline=True)
+        if dev == "cuda":
+            check(len(eng.graphs()) == (1 if k == 1 else 2),
+                  f"[graph] pytree engine k={k}: graphs {eng.graphs()}")
+    ref, got, grouped = outs[("cpu", 1)], outs[("cuda", 1)], outs[("cuda", 3)]
+    check(np.array_equal(got["ids"], ids + 1) and got["ids"].dtype == np.int64
+          and np.array_equal(got["top"], ref["top"]),
+          "[graph] pytree engine: integer leaves differ from the CPU's")
+    check(all(np.allclose(got[k], ref[k], rtol=1e-5, atol=1e-5)
+              for k in ("y", "y2")),
+          "[graph] pytree engine: float leaves differ from the CPU's")
+    check(all(np.array_equal(grouped[k], got[k]) for k in got),
+          "[graph] pytree engine: grouped dispatch differs from per-batch")
+    print(f"[graph] pytree batch (two float leaves of one shape and an int "
+          f"leaf) through the pipelined runner and the captured forward: int "
+          f"leaves exact, float leaves within 1e-5 of the CPU; 3 forwards "
+          f"per replay == 1 per replay bit for bit", flush=True)
+
+
+def phase_graph(sepconv):
+    """[graph]: every path of GRAPH_PATHS (see :func:`graph_path`), then
+    a pytree batch and grouped dispatch (:func:`graph_pytree`)."""
+    out = {}
+    for tag, name, size, knobs, want, edit in GRAPH_PATHS:
+        out[tag] = graph_path(sepconv, tag, name, size, knobs, want, edit)
+    graph_pytree()
+    return out
+
+
+def concurrent_transforms(feat, df, knobs, n_threads):
+    """``feat.transform(df)``'s features from ``n_threads`` threads at
+    once, all through the one cached zoo engine, pipelined."""
+    outs, errors = [None] * n_threads, []
+
+    def work(i):
+        try:
+            outs[i] = feat.transform(df).column_to_numpy("features")
+        except BaseException as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(n_threads)]
+    with env_knobs(dict(knobs, SPARKDL_PIPELINE="1")):
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    check(not errors, f"[pipeline] concurrent featurizers raised {errors}")
+    return outs
+
+
+def phase_pipeline(sepconv):
+    """[pipeline]: DeepImageFeaturizer over PIPELINE_BATCHES batches and a
+    ragged tail, pipelined (the default) and serial (SPARKDL_PIPELINE=0),
+    and two at once from two threads on one engine, bit for bit; img/s of
+    both, the upload of one batch pageable vs
+    pinned, and the runner's stage summary."""
+    from sparkdl_tpu_torch.image.io import arrowStructsToBatch
+    from sparkdl_tpu_torch.parallel.pipeline import pipeline_stage_summary
+    from sparkdl_tpu_torch.transformers import named_image as ni
+
+    out = {}
+    n = PIPELINE_BATCHES * BATCH + PIPELINE_TAIL
+    for name, size, knobs in PIPELINE_PATHS:
+        df = synthetic_frame(n, size, SEED + 13)
+        feat = ni.DeepImageFeaturizer(inputCol="image", outputCol="features",
+                                      modelName=name, batchSize=BATCH)
+        with env_knobs(knobs):
+            feat.transform(df.limit(BATCH))  # warm: engine and graphs
+            eng = ni._zoo_engine(name, True, BATCH)
+            eng.metrics.counters.clear()
+            eng.metrics.histograms.clear()
+            runs = {}
+            for mode in ("1", "0", "1", "0"):
+                with env_knobs({"SPARKDL_PIPELINE": mode}):
+                    t0 = time.perf_counter()
+                    got = feat.transform(df).column_to_numpy("features")
+                    runs.setdefault(mode, []).append(
+                        (n / (time.perf_counter() - t0), got))
+        summary = pipeline_stage_summary(eng.metrics)
+        piped, serial = runs["1"][0][1], runs["0"][0][1]
+        with env_knobs(dict(knobs, SPARKDL_BATCHES_PER_DISPATCH="3")):
+            grouped = feat.transform(df).column_to_numpy("features")
+        check(np.array_equal(grouped, piped),
+              f"[pipeline] {name}: 3 batches per dispatch differ from one")
+        check(piped.shape == (n, {"Xception": 2048,
+                                  "MobileNetV2": 1280}[name]),
+              f"[pipeline] {name}: feature shape {piped.shape}")
+        check(all(np.array_equal(r[1], piped) for r in runs["1"] + runs["0"]),
+              f"[pipeline] {name}: pipelined and serial features differ")
+        conc = concurrent_transforms(feat, df, knobs, 2)
+        check(all(np.array_equal(c, piped) for c in conc),
+              f"[pipeline] {name}: two featurizers at once on one engine "
+              f"differ from one alone")
+        col = df.table.column("image")
+        t0 = time.perf_counter()
+        for off in range(0, n, BATCH):
+            arrowStructsToBatch(col.slice(off, BATCH), size, size,
+                                compact=True)
+        decode_ms = (time.perf_counter() - t0) * 1e3 / -(-n // BATCH)
+        piece = arrowStructsToBatch(col, size, size)[0][:BATCH]
+        dev = torch.empty(piece.shape, dtype=torch.uint8, device="cuda")
+        pinned = torch.from_numpy(piece).pin_memory()
+        pageable_ms = cuda_ms(lambda: dev.copy_(torch.from_numpy(piece)))
+        pinned_ms = cuda_ms(lambda: dev.copy_(pinned, non_blocking=True))
+        ips = {m: max(r[0] for r in runs[m]) for m in runs}
+        print(f"[pipeline] {name} {size}x{size} featurizer, {n} images "
+              f"({PIPELINE_BATCHES} batches of {BATCH} + {PIPELINE_TAIL}): "
+              f"pipelined == serial == 3 batches per dispatch == two "
+              f"featurizers at once, bit for bit; "
+              f"img/s pipelined "
+              f"{ips['1']:.1f}, serial {ips['0']:.1f} (best of 2 each); "
+              f"host decode {decode_ms:.2f} ms per batch; "
+              f"upload of one batch ({piece.nbytes / 2**20:.1f} MiB): "
+              f"pageable {pageable_ms:.3f} ms, pinned {pinned_ms:.3f} ms; "
+              f"stages {summary}", flush=True)
+        out[name] = dict(pipelined_img_s=ips["1"], serial_img_s=ips["0"],
+                         decode_ms_per_batch=decode_ms,
+                         pageable_upload_ms=pageable_ms,
+                         pinned_upload_ms=pinned_ms, stages=summary)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -895,6 +1299,9 @@ def main():
     b3["launches"] = phase_xception_tiled(sepconv)
     inception = phase_inception(sepconv)
     print(json.dumps({"inception": inception}), flush=True)
+    graph = phase_graph(sepconv)
+    graph["pipeline"] = phase_pipeline(sepconv)
+    print(json.dumps({"graph": graph}), flush=True)
     print(json.dumps({"kernels": [b1, b3, b2]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -128,18 +128,29 @@ class SeparableConv2D(nn.Module):
         y = conv2d(x, self.depthwise_weight, padding=1, groups=x.shape[1])
         return conv2d(y, self.pointwise_weight)
 
-    def fused(self, x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+    def fused_operands(self, scale: torch.Tensor, shift: torch.Tensor
+                       ) -> Tuple[torch.Tensor, ...]:
+        """The kernel's operands for this layer and the BatchNorm affine
+        ``scale``/``shift``, in the dtypes and layouts it takes: bf16 taps
+        [3,3,C] and pointwise [C,F], f32 scale and shift [F], contiguous,
+        so ``fused_sepconv`` casts and copies none of them."""
+        c = self.depthwise_weight.shape[0]
+        f = self.pointwise_weight.shape[0]
+        bf, f32 = torch.bfloat16, torch.float32
+        return (depthwise_taps(self.depthwise_weight).to(bf).contiguous(),
+                self.pointwise_weight.reshape(f, c).t().to(bf).contiguous(),
+                scale.to(f32).contiguous(), shift.to(f32).contiguous())
+
+    def fused(self, x: torch.Tensor, operands: Tuple[torch.Tensor, ...],
               pre_relu: bool = False, post_relu: bool = False,
               row_tile: Optional[int] = None) -> torch.Tensor:
         """``post_relu?(BN(self(pre_relu?(x))))`` in one kernel; bf16 out.
-        ``row_tile`` takes the tiled kernel (``fused_sepconv``)."""
-        c = x.shape[1]
-        f = self.pointwise_weight.shape[0]
+        ``operands`` are :meth:`fused_operands`' (the model caches them per
+        weights version); ``row_tile`` takes the tiled kernel
+        (``fused_sepconv``)."""
         nhwc = x.contiguous(memory_format=torch.channels_last).permute(
             0, 2, 3, 1)
-        dwk = depthwise_taps(self.depthwise_weight)
-        pw = self.pointwise_weight.reshape(f, c).t()
-        y = fused_sepconv(nhwc, dwk, pw, scale, shift, pre_relu=pre_relu,
+        y = fused_sepconv(nhwc, *operands, pre_relu=pre_relu,
                           post_relu=post_relu, row_tile=row_tile)
         return y.permute(0, 3, 1, 2)
 
@@ -263,7 +274,8 @@ def cached_fold(cache: dict, name: str, sources, fold):
     was keyed on is not freed and reused under the same address.  A write
     through ``.data`` moves no version counter: clear the cache after one.
     An inference tensor keeps no version counter, so nothing is cached for
-    one."""
+    one.  A fold never runs during a CUDA-graph capture (it raises): the
+    engine's eager warm-up fills the cache first."""
     try:
         key = [(s.data_ptr(), s._version) for s in sources]
     except RuntimeError:
@@ -273,6 +285,11 @@ def cached_fold(cache: dict, name: str, sources, fold):
     hit = cache.get(name)
     if key is not None and hit is not None and hit[0] == key:
         return hit[2]
+    if sources[0].is_cuda and torch.cuda.is_current_stream_capturing():
+        # a fold made now would live in the graph's private pool and hold
+        # its values only during replays; the engine warms up eagerly first
+        raise RuntimeError(f"fold {name!r} computed during CUDA-graph "
+                           f"capture: the weights changed after the warm-up")
     with torch.no_grad():
         ops = fold()
     if key is not None:

@@ -16,7 +16,8 @@ import torch
 import torch.nn as nn
 
 from sparkdl_tpu_torch.models.layers import (BatchNorm, SeparableConv2D,
-                                             conv2d, global_avg_pool, linear,
+                                             cached_fold, conv2d,
+                                             global_avg_pool, linear,
                                              max_pool_same, promote)
 
 # (block index, filters) of the three entry-flow residual blocks.
@@ -41,6 +42,11 @@ def _pick_row_tile(h: int, w: int, channels: int) -> Optional[int]:
     return 16
 
 
+def _bn_sources(bn: BatchNorm) -> list:
+    """The tensors a BatchNorm's folded affine comes from."""
+    return [bn.weight, bn.bias, bn.running_mean, bn.running_var]
+
+
 class Xception(nn.Module):
     """``fused_inference`` routes the separable convs (with their BN and
     ReLUs) through the fused kernel (``ops/sepconv.py``) in eval mode:
@@ -50,7 +56,18 @@ class Xception(nn.Module):
     whose image is too large for the whole-image rule (147², 74² at 299)
     through the tiled kernel, as JAX's ``tiled_entry`` does; off by
     default, and the registry builder reads ``SPARKDL_XC_TILED``.  Both
-    routes read the same parameters."""
+    routes read the same parameters.
+
+    The fused route folds once per weights version: ``_folds`` keeps each
+    fused sepconv's kernel operands (bf16 taps and pointwise, f32 BatchNorm
+    scale and shift, as ``fused_sepconv`` takes them) and each folded
+    BatchNorm affine in the activations' dtype, keyed on the
+    ``(data_ptr, _version)`` of the tensors they come from
+    (``layers.cached_fold``), so ``load_state_dict``, in-place edits and
+    ``.to()`` refold.  A write through ``.data`` moves no version counter:
+    clear ``_folds`` after one (an engine's captured forward sees the
+    cleared cache and is captured again; it holds the folds it reads until
+    then)."""
 
     def __init__(self, num_classes: int = 1000,
                  fused_inference: Optional[bool] = None,
@@ -58,6 +75,7 @@ class Xception(nn.Module):
         super().__init__()
         self.fused_inference = fused_inference
         self.tiled_entry = tiled_entry
+        self._folds = {}
 
         def conv(name, cin, cout, k, stride):
             self.add_module(name, nn.Conv2d(cin, cout, k, stride, bias=False))
@@ -96,6 +114,26 @@ class Xception(nn.Module):
             return self.fused_inference
         return x.is_cuda
 
+    def _bn_affine(self, name: str, dtype: torch.dtype):
+        """BatchNorm ``name``'s folded affine as [1,C,1,1] tensors in
+        ``dtype`` (the JAX module's ``BNAffine``), folded once per weights
+        version."""
+        bn = self._modules[name]
+        return cached_fold(
+            self._folds, f"{name}:{dtype}", _bn_sources(bn),
+            lambda: tuple(v.to(dtype).reshape(1, -1, 1, 1)
+                          for v in bn.folded()))
+
+    def _sep_operands(self, name: str):
+        """Sepconv ``name``'s kernel operands with its BatchNorm folded in
+        (``SeparableConv2D.fused_operands``), folded once per weights
+        version."""
+        conv, bn = self._modules[name], self._modules[f"{name}_bn"]
+        return cached_fold(
+            self._folds, name,
+            [conv.depthwise_weight, conv.pointwise_weight] + _bn_sources(bn),
+            lambda: conv.fused_operands(*bn.folded()))
+
     def forward(self, x: torch.Tensor, features: bool = False,
                 logits: bool = False) -> torch.Tensor:
         fused = self._use_fused(x)
@@ -106,9 +144,8 @@ class Xception(nn.Module):
             """Inference BN; on the fused route the folded affine in x's
             dtype (the JAX module's ``BNAffine``)."""
             if fused:
-                s, t = m[name].folded()
-                y = (x * s.to(x.dtype).reshape(1, -1, 1, 1)
-                     + t.to(x.dtype).reshape(1, -1, 1, 1))
+                s, t = self._bn_affine(name, x.dtype)
+                y = x * s + t
             else:
                 y = m[name](x)
             return relu(y) if act else y
@@ -123,9 +160,8 @@ class Xception(nn.Module):
             kernel (bf16 out; ``row_tile`` the tiled one), else the plain
             convs and ``bn_act``."""
             if kernel:
-                s, t = m[f"{name}_bn"].folded()
-                return m[name].fused(x, s, t, pre_relu, post_relu,
-                                     row_tile=row_tile)
+                return m[name].fused(x, self._sep_operands(name), pre_relu,
+                                     post_relu, row_tile=row_tile)
             if pre_relu:
                 x = relu(x)
             return bn_act(m[name](x), f"{name}_bn", act=post_relu)

@@ -21,7 +21,8 @@ takes the plain PyTorch version (:func:`sepconv_reference`,
 ``_..._cuda`` wrappers, which launch it or raise).  Each wrapper counts its
 launches in a plain int — ``fused_sepconv.launches`` (B1),
 ``fused_sepconv.tiled_launches`` (B3), ``fused_mbconv.launches`` (B2) — so
-a run can show that the main path went through the kernels.
+a run can show that the main path went through the kernels; a CUDA-graph
+replay credits the launches its capture recorded (:func:`credit_launches`).
 
 What bounds each kernel on an H100, and what its design does about that,
 is written at the top of its source.
@@ -33,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -667,3 +668,21 @@ def fused_mbconv(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
 
 
 fused_mbconv.launches = 0
+
+
+def launch_counts() -> Tuple[int, int, int]:
+    """The wrappers' launch counts: (B1, B3, B2)."""
+    return (fused_sepconv.launches, fused_sepconv.tiled_launches,
+            fused_mbconv.launches)
+
+
+def credit_launches(counts: Tuple[int, int, int]) -> None:
+    """Add ``counts`` (B1, B3, B2) to the wrappers' launch counts.  A
+    wrapper's Python runs once, when a CUDA graph is captured, and the
+    kernels it enqueued run at every replay: the engine takes a capture's
+    counts back (nothing ran) and credits them at each replay, so the counts
+    stay launches on the card."""
+    b1, b3, b2 = counts
+    fused_sepconv.launches += b1
+    fused_sepconv.tiled_launches += b3
+    fused_mbconv.launches += b2

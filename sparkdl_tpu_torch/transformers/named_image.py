@@ -30,7 +30,9 @@ from sparkdl_tpu_torch.param.converters import SparkDLTypeConverters
 from sparkdl_tpu_torch.param.params import Param, TypeConverters, keyword_only
 from sparkdl_tpu_torch.param.shared import (HasBatchSize, HasInputCol,
                                             HasModelName, HasOutputCol, HasTopK)
-from sparkdl_tpu_torch.parallel.engine import InferenceEngine
+from sparkdl_tpu_torch.parallel.engine import (InferenceEngine,
+                                               batches_per_dispatch_from_env)
+from sparkdl_tpu_torch.parallel.pipeline import pipeline_enabled_from_env
 from sparkdl_tpu_torch.transformers.base import Transformer
 from sparkdl_tpu_torch.utils.logging import get_logger
 from sparkdl_tpu_torch.utils.prefetch import prefetch_iter
@@ -90,17 +92,18 @@ def zoo_model_fn(name: str, featurize: bool,
 
 def _zoo_engine(name: str, featurize: bool, batch_size: int) -> InferenceEngine:
     """One cached engine per (model, build variant, cut, batch, compute
-    dtype, device).
+    dtype, device, ``SPARKDL_BATCHES_PER_DISPATCH``).
 
     ``SPARKDL_ZOO_COMPUTE_DTYPE=bfloat16`` runs the model in bf16 and
     fetches bf16 outputs, widened to f32 on the host.  The default stays
     float32 end to end (the fused layers round to bf16 inside, as in JAX).
     """
     cdt_name = zoo_compute_dtype_name()
+    bpd = batches_per_dispatch_from_env()
     device = resolve_device()
     name = get_model_spec(name).name
     key = (name, model_variant_key(name), featurize, batch_size, cdt_name,
-           str(device))
+           str(device), bpd)
     eng = _ENGINE_CACHE.get(key)
     if eng is None:
         cdt = torch.bfloat16 if cdt_name == "bfloat16" else None
@@ -108,6 +111,7 @@ def _zoo_engine(name: str, featurize: bool, batch_size: int) -> InferenceEngine:
             zoo_model_fn(name, featurize, compute_dtype=cdt),
             _cached_model(name), device=device,
             device_batch_size=batch_size, compute_dtype=cdt,
+            batches_per_dispatch=bpd,
             output_host_dtype=np.float32 if cdt is not None else None)
         _ENGINE_CACHE[key] = eng
     return eng
@@ -115,19 +119,31 @@ def _zoo_engine(name: str, featurize: bool, batch_size: int) -> InferenceEngine:
 
 def _float_list_array(mat: np.ndarray, valid_idx: Sequence[int],
                       num_rows: int) -> pa.Array:
-    """Rows of ``mat`` at positions ``valid_idx``; nulls elsewhere."""
-    values: List[Optional[list]] = [None] * num_rows
-    for row, i in zip(mat, valid_idx):
-        values[i] = [float(v) for v in row]
-    return pa.array(values, type=pa.list_(pa.float32()))
+    """Rows of ``mat`` at positions ``valid_idx``; nulls elsewhere.  Built
+    from the float32 matrix in one piece (offsets + values + null mask),
+    not row by row through Python floats: the same column, without a
+    Python call per value."""
+    mat = np.asarray(mat, np.float32)
+    idx = np.asarray(valid_idx, np.int64)
+    order = np.argsort(idx, kind="stable")  # rows in table order
+    lengths = np.zeros(num_rows, np.int32)
+    lengths[idx] = mat.shape[1]
+    offsets = np.zeros(num_rows + 1, np.int32)
+    np.cumsum(lengths, out=offsets[1:])
+    valid = np.zeros(num_rows, bool)
+    valid[idx] = True
+    return pa.ListArray.from_arrays(
+        pa.array(offsets), pa.array(mat[order].reshape(-1)),
+        type=pa.list_(pa.float32()), mask=pa.array(~valid))
 
 
 class _ImageInputStage(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
     """Shared plumbing: pull the image-struct column, decode/resize valid
     rows into dense batches, keep nulls aligned (undecodable rows stay
     null).  The column is consumed one record batch at a time; host decode
-    of chunk k+1 runs on a prefetch thread while the device computes
-    chunk k."""
+    of chunk k+1 runs on another thread while the device computes chunk k:
+    the engine's pipelined runner pulls the decode iterator on its prepare
+    thread, and with ``SPARKDL_PIPELINE=0`` a prefetch thread does."""
 
     def _decoded_chunks(self, dataset, height: int, width: int,
                         chunk_rows: int, valid_idx: List[int]):
@@ -149,11 +165,15 @@ class _ImageInputStage(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
                               width: int, valid_idx: List[int]):
         """Lazily yield per-piece model outputs for the image column; the
         engine is only built once the first decoded chunk proves there is
-        work to do."""
+        work to do.  Under the pipelined engine (``SPARKDL_PIPELINE``, on by
+        default) the runner's prepare thread pulls the decode iterator
+        itself; ``prefetch_iter`` would only add a queue hop, so it serves
+        the serial path only."""
         chunks = self._decoded_chunks(dataset, height, width,
                                       max(1, int(self.getBatchSize())),
                                       valid_idx)
-        it = prefetch_iter(chunks, depth=2)
+        it = (iter(chunks) if pipeline_enabled_from_env()
+              else prefetch_iter(chunks, depth=2))
         first = next(it, None)
         if first is None:
             return

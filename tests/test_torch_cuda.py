@@ -1,0 +1,177 @@
+"""Tests of the port's engine that need an NVIDIA GPU (marker ``cuda``):
+they skip on a machine without one.  On the card:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+
+The file imports torch and the port only (``--noconftest`` skips the
+suite's JAX set-up), so it runs where JAX is not installed.
+"""
+
+import threading
+
+import numpy as np
+import pytest
+import torch
+import torch.nn as nn
+
+pytestmark = pytest.mark.cuda
+
+B = 8  # device batch
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _conv_engine():
+    """A small conv engine over uint8 NHWC images, as the zoo engines
+    take them."""
+    from sparkdl_tpu_torch.parallel.engine import InferenceEngine
+
+    torch.manual_seed(0)
+    net = nn.Sequential(nn.Conv2d(3, 8, 3, padding=1), nn.ReLU(),
+                        nn.AdaptiveAvgPool2d(1), nn.Flatten())
+
+    def fn(m, x):
+        return m(x.permute(0, 3, 1, 2).float() / 255)
+
+    return InferenceEngine(fn, net, device="cuda", device_batch_size=B)
+
+
+def _images(seed, n):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, (n, 16, 16, 3), dtype=np.uint8)
+
+
+def test_concurrent_pipelined_calls_on_one_engine(cuda):
+    """Four threads call one engine at once, pipelined, three times each:
+    every output equals that input's serial output bit for bit (each run
+    stages its pieces in its own pinned buffers)."""
+    eng = _conv_engine()
+    xs = [_images(i, B * 12 + 5) for i in range(4)]
+    want = [eng(x, pipeline=False) for x in xs]
+    got, errors = [[] for _ in xs], []
+
+    def work(i):
+        try:
+            for _ in range(3):
+                got[i].append(eng(xs[i], pipeline=True))
+        except BaseException as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(len(xs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for outs, w in zip(got, want):
+        assert len(outs) == 3
+        for o in outs:
+            np.testing.assert_array_equal(o, w)
+
+
+def test_run_started_while_another_is_half_consumed(cuda):
+    """A pipelined run whose generator is half consumed (its threads alive,
+    pieces staged ahead) and a new run on the same engine do not disturb
+    each other."""
+    eng = _conv_engine()
+    x, y = _images(1, B * 10 + 3), _images(2, B * 10 + 3)
+    want_x = eng(x, pipeline=False)
+    want_y = eng(y, pipeline=False)
+    it = eng.map_batches([x], pipeline=True)
+    first = next(it)
+    np.testing.assert_array_equal(eng(y, pipeline=True), want_y)
+    np.testing.assert_array_equal(
+        np.concatenate([first] + list(it)), want_x)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_pytree_two_leaves_of_one_shape_pipelined(cuda, k):
+    """Two float leaves of one shape and dtype through the pipelined path:
+    each gets its own pinned buffer and device slot; pipelined == serial
+    bit for bit, and both within 1e-5 of the CPU engine."""
+    from sparkdl_tpu_torch.parallel.engine import InferenceEngine
+
+    torch.manual_seed(0)
+    lin = nn.Linear(16, 4)
+    rng = np.random.default_rng(3)
+    batch = {"a": rng.normal(size=(B * 6 + 3, 16)).astype(np.float32),
+             "b": rng.normal(size=(B * 6 + 3, 16)).astype(np.float32)}
+
+    def fn(m, t):
+        return {"a": m(t["a"]), "b": m(t["b"])}
+
+    ref = InferenceEngine(fn, lin, device="cpu", device_batch_size=B)(batch)
+    eng = InferenceEngine(fn, lin, device="cuda", device_batch_size=B,
+                          batches_per_dispatch=k)
+    piped = eng(batch, pipeline=True)
+    serial = eng(batch, pipeline=False)
+    for key in ("a", "b"):
+        np.testing.assert_array_equal(piped[key], serial[key])
+        np.testing.assert_allclose(piped[key], ref[key], rtol=1e-5,
+                                   atol=1e-5)
+    assert not np.array_equal(piped["a"], piped["b"])
+
+
+class _Folded(nn.Module):
+    """A bias-free Linear with a BatchNorm folded into it once per weights
+    version (``layers.cached_fold``), as the zoo models fold theirs."""
+
+    def __init__(self):
+        super().__init__()
+        self.lin = nn.Linear(16, 8, bias=False)
+        self.bn = nn.BatchNorm1d(8)
+        with torch.no_grad():
+            self.bn.running_var.uniform_(0.5, 2.0)
+            self.bn.running_mean.uniform_(-1.0, 1.0)
+        self._folds = {}
+
+    def _fold(self):
+        s = self.bn.weight / torch.sqrt(self.bn.running_var + self.bn.eps)
+        t = self.bn.bias - self.bn.running_mean * s
+        return self.lin.weight * s[:, None], t
+
+    def forward(self, x):
+        from sparkdl_tpu_torch.models.layers import cached_fold
+
+        w, t = cached_fold(
+            self._folds, "lin",
+            [self.lin.weight, self.bn.weight, self.bn.bias,
+             self.bn.running_mean, self.bn.running_var], self._fold)
+        return x @ w.t() + t
+
+
+def test_cleared_fold_cache_recaptures(cuda):
+    """A write through ``.data`` moves no version counter; clearing the
+    fold cache after it makes the engine capture again, and the graphed
+    output equals the eager one with the new weights."""
+    from sparkdl_tpu_torch.parallel.engine import InferenceEngine
+
+    torch.manual_seed(0)
+    eng = InferenceEngine(lambda m, x: m(x), _Folded(), device="cuda",
+                          device_batch_size=B)
+    x = np.random.default_rng(4).normal(size=(B, 16)).astype(np.float32)
+
+    def eager():
+        eng.capture = False
+        try:
+            return eng.run_padded(x)
+        finally:
+            eng.capture = True
+
+    first = eng.run_padded(x)
+    assert torch.equal(first, eager())
+    assert eng.metrics.counters["engine.graph_captures"] == 1
+    eng.module.bn.running_var.data.mul_(4.0)
+    eng.module._folds.clear()
+    junk = [torch.full((B, 16), 7.0, device="cuda") for _ in range(8)]
+    second = eng.run_padded(x)
+    assert eng.metrics.counters["engine.graph_captures"] == 2
+    assert torch.equal(second, eager())
+    assert not torch.equal(second, first)
+    del junk

@@ -16,9 +16,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sparkdl_tpu")
 def _port_files():
     files = sorted((ROOT / "sparkdl_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files.append(ROOT / "tests" / "test_torch_cuda.py")
     files += [ROOT / "tools" / name for name in (
         "port_profile.py", "sepconv_compare.py", "mbconv_compare.py",
-        "gen_wgmma.py")]
+        "sepconv_tiled_compare.py", "gen_wgmma.py", "pipeline_probe.py")]
     return files
 
 
@@ -32,9 +33,19 @@ def _imports(path):
             yield node.module
 
 
+# The engine's core (captured forward, pipelined runner, failure domain)
+# and the modules it leans on: the walk below must reach each of them.
+ENGINE_CORE = ("parallel/engine.py", "parallel/pipeline.py",
+               "utils/metrics.py", "utils/retry.py", "faults/__init__.py",
+               "faults/errors.py", "faults/sites.py", "faults/spec.py",
+               "faults/plan.py")
+
+
 def test_port_imports_nothing_of_jax():
     files = _port_files()
     assert len(files) > 15 and all(f.exists() for f in files)
+    for rel in ENGINE_CORE:
+        assert ROOT / "sparkdl_tpu_torch" / rel in files, rel
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in FORBIDDEN]
     assert bad == []

@@ -102,3 +102,24 @@ def test_predictor_topk_matches_jax(zoo, fixture_images):
                                    rtol=1e-3, atol=1e-7)
         probs = [p["probability"] for p in g]
         assert probs == sorted(probs, reverse=True)
+
+
+@pytest.mark.parametrize("num_rows,valid_idx", [
+    (7, [0, 1, 3, 4, 6]), (5, []), (4, [3, 0, 2]), (3, [0, 1, 2])])
+def test_float_list_column_matches_row_by_row_build(num_rows, valid_idx):
+    """The output column built from the matrix in one piece is the column
+    the row-by-row Python build gives: the same float32 values, nulls at
+    the rows that did not decode, rows in table order."""
+    import pyarrow as pa
+
+    from sparkdl_tpu_torch.transformers.named_image import _float_list_array
+
+    mat = np.random.default_rng(num_rows).normal(
+        size=(len(valid_idx), 6)).astype(np.float32)
+    want = [None] * num_rows
+    for row, i in zip(mat, valid_idx):
+        want[i] = [float(v) for v in row]
+    want = pa.array(want, type=pa.list_(pa.float32()))
+    got = _float_list_array(mat, valid_idx, num_rows)
+    assert got.type == want.type and got.null_count == want.null_count
+    assert got.equals(want)

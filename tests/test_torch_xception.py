@@ -186,3 +186,86 @@ def test_load_model_is_seeded():
         torch.testing.assert_close(va, vb, rtol=0, atol=0)
     with pytest.raises(NotImplementedError):
         load_model("Xception", weights="imagenet")
+
+
+def _count_folds(monkeypatch):
+    """Count ``BatchNorm.folded`` calls: every fold of the fused route
+    (sepconv operands and BN affines) starts with one."""
+    calls = []
+    real = layers.BatchNorm.folded
+
+    def counting(self):
+        calls.append(1)
+        return real(self)
+
+    monkeypatch.setattr(layers.BatchNorm, "folded", counting)
+    return calls
+
+
+def test_fused_route_folds_once_per_weights_version(jax_setup, monkeypatch):
+    """The fused route folds on its first forward only: a second forward
+    computes no fold and gives bit-identical outputs, equal to a fresh
+    model's, and the cached route still meets JAX's fused route."""
+    x, variables = jax_setup
+    pm = _port(variables, True)
+    folds = _count_folds(monkeypatch)
+    xt = torch.from_numpy(x)
+    with torch.inference_mode():
+        first = pm(xt, features=True)
+        n_first = len(folds)
+        second = pm(xt, features=True)
+        n_second = len(folds) - n_first
+        fresh = _port(variables, True)(xt, features=True)
+    # 34 fused sepconvs at 96x96 and the 6 plain convs' BN affines
+    assert n_first == 34 + 6 and n_second == 0
+    torch.testing.assert_close(second, first, rtol=0, atol=0)
+    torch.testing.assert_close(fresh, first, rtol=0, atol=0)
+    jm = JaxXception(num_classes=5, fused_inference=True)
+    want = np.asarray(jm.apply(variables, x, train=False, features=True),
+                      np.float32)
+    np.testing.assert_allclose(first.float().numpy(), want, rtol=2e-2,
+                               atol=2e-2)
+    # the operands are cached as the kernel takes them: bf16 taps and
+    # pointwise, f32 scale and shift, all contiguous
+    dwk, pw, scale, shift = pm._folds["block5_sepconv1"][2]
+    assert (dwk.dtype, pw.dtype) == (torch.bfloat16, torch.bfloat16)
+    assert (scale.dtype, shift.dtype) == (torch.float32, torch.float32)
+    assert dwk.shape == (3, 3, 728) and pw.shape == (728, 728)
+    assert all(t.is_contiguous() for t in (dwk, pw, scale, shift))
+
+
+def test_fold_cache_follows_load_state_dict_and_edits(jax_setup,
+                                                      monkeypatch):
+    """``load_state_dict`` with other weights and an in-place edit of one
+    BatchNorm both refold: the output is then a fresh model's from those
+    weights, never a stale fold."""
+    x, variables = jax_setup
+    rng = np.random.default_rng(13)
+    other = jax.tree_util.tree_map(
+        lambda a: (a * rng.uniform(0.9, 1.1, a.shape)).astype(a.dtype),
+        variables)
+    pm = _port(variables, True)
+    xt = torch.from_numpy(x)
+    with torch.inference_mode():
+        before = pm(xt, features=True)
+    pm.load_state_dict(convert.state_dict_from_jax("Xception", other))
+    folds = _count_folds(monkeypatch)
+    with torch.inference_mode():
+        got = pm(xt, features=True)
+        fresh = _port(other, True)(xt, features=True)
+    assert len(folds) == 2 * (34 + 6)  # pm refolded all; fresh folded all
+    torch.testing.assert_close(got, fresh, rtol=0, atol=0)
+    assert not torch.equal(got, before)
+    folds.clear()
+    with torch.no_grad():
+        pm.block5_sepconv1_bn.running_var.mul_(0.5)
+        pm.block1_conv1_bn.weight.mul_(1.5)
+    edited = pm.state_dict()
+    with torch.inference_mode():
+        got = pm(xt, features=True)
+        n_refolds = len(folds)
+        again = Xception(num_classes=5, fused_inference=True)
+        again.load_state_dict(edited)
+        fresh = again.eval()(xt, features=True)
+    assert n_refolds == 2  # only the two edited BatchNorms' folds
+    torch.testing.assert_close(got, fresh, rtol=0, atol=0)

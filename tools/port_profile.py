@@ -1,15 +1,18 @@
 """Where the time of one zoo forward goes in the PyTorch port, on a GPU.
 
     python3 tools/port_profile.py [--model Xception|MobileNetV2|InceptionV3]
-                                  [--batch 32] [--set SPARKDL_XC_TILED=1]
-                                  [--set ...]
+                                  [--batch 32] [--eager]
+                                  [--set SPARKDL_XC_TILED=1] [--set ...]
 
 Builds the port's zoo model (featurizer cut, seeded random weights, the
 build variant the ``--set`` environment knobs select, e.g.
 ``SPARKDL_MNV2_FUSED=1``, ``SPARKDL_XC_TILED=1`` or
 ``SPARKDL_S2D_STEM=1``) on the card and reports, for one batch at the
-model's input size: the time of the forward (CUDA events around it, so the
-host's enqueue gaps count) on the fused and the unfused route (the model's
+model's input size: the time of the forward (CUDA events around the
+engine's ``run_padded`` of a batch already in pinned host memory, so the
+upload and the host's enqueue gaps count) as the engine runs it, one
+captured CUDA graph per forward (``--eager``: op by op, the engine's
+``capture=False``), on the fused and the unfused route (the model's
 ``fused_inference``; for InceptionV3 its fused branch heads against the
 per-branch convs), in f32 and in bf16 compute
 (``SPARKDL_ZOO_COMPUTE_DTYPE=bfloat16``), with cuDNN's TF32 off and on;
@@ -93,6 +96,9 @@ def forward_flops(spec, h, w):
 
     with torch.device("meta"):
         module = spec.build().eval()
+        # the plain route: the same function, and the kernels have no meta
+        # implementation
+        module.fused_inference = False
         with FlopCounterMode(display=False) as counter:
             module(torch.empty(1, h, w, 3), features=True)
     return counter.get_total_flops()
@@ -102,6 +108,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="Xception")
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--eager", action="store_true",
+                    help="run the forward op by op, not as a CUDA graph")
     ap.add_argument("--set", action="append", default=[], metavar="KNOB=VALUE",
                     help="environment knob for the model's build variant")
     args = ap.parse_args()
@@ -119,7 +127,8 @@ def main():
                          text=True, check=True).stdout.strip())
     spec = get_model_spec(args.model)
     h, w = spec.input_size
-    print(f"{spec.name} {h}x{w} batch {args.batch}, build variant "
+    print(f"{spec.name} {h}x{w} batch {args.batch}, "
+          f"{'eager' if args.eager else 'graphed'} forward, build variant "
           f"{model_variant_key(spec.name)!r}, "
           f"{forward_flops(spec, h, w) / 1e9:.3f} GFLOP per image")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -130,16 +139,17 @@ def main():
     def engine(cdt, fused):
         eng = InferenceEngine(
             ni.zoo_model_fn(spec.name, True, compute_dtype=cdt), module,
-            device="cuda", device_batch_size=args.batch, compute_dtype=cdt)
+            device="cuda", device_batch_size=args.batch, compute_dtype=cdt,
+            capture=not args.eager)
         eng.module.fused_inference = fused
-        return eng
+        return eng, eng._pad(batch)  # the batch in a pinned buffer
 
     for tf32 in (False, True):
         torch.backends.cudnn.allow_tf32 = tf32
         for cdt in (None, torch.bfloat16):
             for fused in (True, False):
-                eng = engine(cdt, fused)
-                ms = cuda_ms(lambda: eng.run_padded(batch))
+                eng, staged = engine(cdt, fused)
+                ms = cuda_ms(lambda: eng.run_padded(staged))
                 print(f"forward batch {args.batch}: "
                       f"{'bf16' if cdt else 'f32 '} "
                       f"{'fused  ' if fused else 'unfused'} "
@@ -150,7 +160,7 @@ def main():
     for cdt, fused, tf32 in ((None, True, False), (None, False, False),
                              (None, True, True), (bf16, True, False)):
         torch.backends.cudnn.allow_tf32 = tf32
-        profile_forward(engine(cdt, fused), batch,
+        profile_forward(*engine(cdt, fused),
                         f"{'fused' if fused else 'unfused'} "
                         f"{'bf16' if cdt else 'f32'}"
                         f"{', TF32 on' if tf32 else ''}")
