@@ -25,7 +25,18 @@ weights and batch 32:
     ``Pipeline([DeepImageFeaturizer, LogisticRegression])`` is fitted on
     128 class-tinted images of five colours and scored on 32 held out
     (accuracy at least 0.9), and the card's LR fit is held against the
-    CPU's on the same features (within 1e-2).
+    CPU's on the same features (within 1e-2);
+  * [zoo2], BASELINE config 2's zoo past Xception at 224x224 on seeded
+    weights (none of the three kernels): ResNet50 and VGG16 featurize
+    (2048-d, 4096-d) and predict with top-5 decode, EfficientNetB0
+    featurize; the card's f32 outputs (TF32 off) held to the CPU's
+    (features within 2e-5, probabilities within 1e-4, top-5 classes
+    equal), cuDNN TF32 and the bf16 engine against f32 (within 5e-2; TF32
+    also above 2e-5, so that the f32 limit would catch a path in TF32),
+    ResNet50 with ``SPARKDL_RN_FUSED_SHORTCUT=1`` against the plain route
+    (within 2e-5, one new capture); then ResNet50 with weights imported
+    from seeded Keras-layout arrays through ``import_keras_weights``, card
+    against CPU (within 2e-5).
 
 B1 is also held against its plain version at ragged shapes (a pixel count
 that is not a multiple of 64, F = 200, all four ReLU variants), and each of
@@ -48,16 +59,19 @@ The engine runs every forward above as one captured CUDA graph.  Two
 phases check that path itself:
 
   * [graph], for Xception (default and ``SPARKDL_XC_TILED=1``),
-    MobileNetV2 (``SPARKDL_MNV2_FUSED=1``) and InceptionV3 (f32 and
-    ``SPARKDL_ZOO_COMPUTE_DTYPE=bfloat16``), each through its zoo engine:
+    MobileNetV2 (``SPARKDL_MNV2_FUSED=1``), InceptionV3 (f32 and
+    ``SPARKDL_ZOO_COMPUTE_DTYPE=bfloat16``), ResNet50 (plain and
+    ``SPARKDL_RN_FUSED_SHORTCUT=1``), VGG16 and EfficientNetB0, each
+    through its zoo engine:
     the graphed forward equals the same engine's eager forward
     (``capture = False``) bit for bit; device ms per forward of both and of
     the replay alone, host us per dispatch, launches per batch (the
     wrappers' credited counts, which must equal one ``torch.profiler``
     pass over a replay; where our kernels run, the replay's kernel count
     must equal an eager forward's), the graph's pool; an in-place edit of
-    a BatchNorm in a fused block must bring a new capture whose output
-    equals the eager forward's with that edit, and so must toggling
+    a BatchNorm in a fused block (VGG16: of a conv weight) must bring a
+    new capture whose output equals the eager forward's with that edit,
+    and so must toggling
     ``cudnn.allow_tf32`` and a write through ``.data`` followed by
     clearing the model's fold caches; then a pytree batch with two float
     leaves of one shape through the pipelined runner;
@@ -69,9 +83,9 @@ phases check that path itself:
 
 Output: the card's name and power limit first, one line per phase, then
 one JSON line of InceptionV3's numbers (img/s, forward ms, relative
-errors, the recipe's accuracy), one JSON line of the [graph] and
-[pipeline] numbers, one JSON line with every kernel's numbers, and last
-the line
+errors, the recipe's accuracy), one of [zoo2]'s (img/s, forward ms,
+relative errors), one JSON line of the [graph] and [pipeline] numbers,
+one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -82,6 +96,7 @@ import subprocess
 import sys
 import threading
 import time
+from itertools import chain
 
 import numpy as np
 import torch
@@ -94,6 +109,8 @@ KERNEL_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 outputs: about 2 bf16 steps at 
 MAIN_PATH_REL_TOL = 5e-2                  # fused vs unfused, as the JAX package's tests
 INCEPTION_ROUTE_TOL = 1e-3                # f32 routes of one function (reference f32 bar)
 LR_CARD_CPU_TOL = 1e-2                    # LR (w, b) fitted on the card vs on the CPU
+ZOO2_FEATURES_TOL = 2e-5                  # card f32 (TF32 off) features vs the CPU; fsc vs plain
+ZOO2_PROBS_TOL = 1e-4                     # card f32 probabilities vs the CPU (softmax scales logit error)
 # The transfer-learning recipe: RECIPE_PER_CLASS images of each base colour,
 # the first RECIPE_TRAIN of them (seeded order) to fit on, the rest held out.
 RECIPE_BASES = [(220, 40, 40), (40, 200, 40), (40, 40, 220), (220, 220, 40),
@@ -179,9 +196,10 @@ MBCONV_RAGGED = [
 ]
 
 
-# This slice's paths through the engine's captured forward: (tag, model,
-# input size, environment knobs, launches per batch (B1, B3, B2), the
-# BatchNorm buffer the recapture check edits in place, in a fused block).
+# The paths through the engine's captured forward: (tag, model, input
+# size, environment knobs, launches per batch (B1, B3, B2), the tensor the
+# recapture check edits in place: a BatchNorm's, in a fused block where
+# the model has one; VGG16 has no BatchNorm, so a conv weight).
 GRAPH_PATHS = [
     ("xception", "Xception", 299, {}, (SEPCONV_PER_FORWARD, 0, 0),
      "block5_sepconv1_bn.running_var"),
@@ -195,6 +213,13 @@ GRAPH_PATHS = [
     ("inception bf16", "InceptionV3", 299,
      {"SPARKDL_ZOO_COMPUTE_DTYPE": "bfloat16"}, (0, 0, 0),
      "mixed0_b1x1.bn.running_var"),
+    ("resnet50", "ResNet50", 224, {}, (0, 0, 0),
+     "conv3_block1.conv3_block1_1_bn.running_var"),
+    ("resnet50 fsc", "ResNet50", 224, {"SPARKDL_RN_FUSED_SHORTCUT": "1"},
+     (0, 0, 0), "conv3_block1.conv3_block1_0_bn.running_var"),
+    ("vgg16", "VGG16", 224, {}, (0, 0, 0), "block5_conv3.weight"),
+    ("efficientnetb0", "EfficientNetB0", 224, {}, (0, 0, 0),
+     "block4a_bn.running_var"),
 ]
 GRAPH_TIMED_REPLAYS = 10                  # replays timed per path (median)
 # [pipeline]: featurizer runs over PIPELINE_BATCHES full batches and a
@@ -677,11 +702,11 @@ def featurize_predict(name, size, n_images, n_predict, sepconv, tag):
     ``n_predict`` synthetic images through the user entry points; returns
     (frame, features, launch counts of that run, img/s of the featurizer
     and of the predictor or None)."""
+    from sparkdl_tpu_torch.models import get_model_spec
     from sparkdl_tpu_torch.transformers import named_image as ni
 
     df = synthetic_frame(n_images, size, SEED)
-    spec_dim = {"Xception": 2048, "MobileNetV2": 1280,
-                "InceptionV3": 2048}[name]
+    spec_dim = get_model_spec(name).feature_size
     feat = ni.DeepImageFeaturizer(inputCol="image", outputCol="features",
                                   modelName=name, batchSize=BATCH)
     pred = ni.DeepImagePredictor(inputCol="image", outputCol="preds",
@@ -916,6 +941,208 @@ def phase_inception(sepconv):
         launches=counts)
 
 
+def _keras_layers_for(name, seed):
+    """Weighted Keras layers of zoo model ``name`` in Keras layout (the
+    committed layer table's names and shapes), with arrays from a numpy
+    seed drawn as ``init_weights`` draws the port's: kernels N(0,
+    1/fan_in), conv biases N(0, 0.05^2), dense biases 0, BatchNorm scale
+    and variance U(0.8, 1.2), shift and mean N(0, 0.05^2)."""
+    from sparkdl_tpu_torch.models import keras_import
+
+    rng = np.random.default_rng(seed)
+    layers = []
+    for lname, cls, shapes in keras_import.keras_layer_table()[name]:
+        if cls == "BatchNormalization":
+            arrays = [rng.uniform(0.8, 1.2, shapes[0]),
+                      rng.normal(0, 0.05, shapes[1]),
+                      rng.normal(0, 0.05, shapes[2]),
+                      rng.uniform(0.8, 1.2, shapes[3])]
+        else:
+            kernel = shapes[0]
+            arrays = [rng.normal(0, 1 / math.sqrt(np.prod(kernel[:-1])),
+                                 kernel)]
+            if len(shapes) > 1:
+                arrays.append(np.zeros(shapes[1]) if cls == "Dense"
+                              else rng.normal(0, 0.05, shapes[1]))
+        layers.append(keras_import.KerasLayer(
+            lname, cls, [a.astype(np.float32) for a in arrays]))
+    return layers
+
+
+def _engine_captures(eng):
+    return eng.metrics.counters.get("engine.graph_captures", 0)
+
+
+def phase_zoo2(sepconv):
+    """[zoo2]: BASELINE config 2's zoo past Xception, at 224x224 through
+    the user entry points, on seeded weights: ResNet50 and VGG16 featurize
+    (2048-d, 4096-d) and predict with top-5 decode; the card's f32
+    features and probabilities (TF32 off) held to the CPU's
+    (<= ZOO2_FEATURES_TOL, ZOO2_PROBS_TOL) and the predictor's top-5
+    classes equal to the CPU's; cuDNN TF32 and the bf16 engine against f32
+    (<= MAIN_PATH_REL_TOL), TF32 also above ZOO2_FEATURES_TOL, so that the
+    f32 limit would catch a card path running in TF32; ResNet50 with
+    SPARKDL_RN_FUSED_SHORTCUT=1 against the plain route
+    (<= ZOO2_FEATURES_TOL), its engine capturing once; EfficientNetB0
+    featurize against the CPU (<= ZOO2_FEATURES_TOL); and ResNet50 with
+    weights imported from Keras-layout
+    arrays through the importer's layer-list entry, card against CPU.  No
+    kernel of B1-B3 on any of these paths; every forward on the card is a
+    replay of a captured graph."""
+    from sparkdl_tpu_torch import default_device
+    from sparkdl_tpu_torch.image.io import arrowStructsToBatch
+    from sparkdl_tpu_torch.models import import_keras_weights, load_model
+    from sparkdl_tpu_torch.models.imagenet import decode_predictions
+    from sparkdl_tpu_torch.parallel.engine import InferenceEngine
+    from sparkdl_tpu_torch.transformers import named_image as ni
+
+    zero = dict(sepconv=0, sepconv_tiled=0, mbconv=0)
+    out = {}
+
+    def graphed(eng, tag):
+        check(eng.device.type == "cuda" and eng.capture and eng.graphs(),
+              f"[zoo2] {tag}: the engine did not run a captured graph on "
+              f"the card")
+
+    def on_cpu(name, featurize, piece):
+        with default_device("cpu"):
+            return ni._zoo_engine(name, featurize, BATCH)(piece)
+
+    for name in ("ResNet50", "VGG16", "EfficientNetB0"):
+        tag = f"zoo2 {name}"
+        predict = name != "EfficientNetB0"
+        df, feats, counts, rates = featurize_predict(
+            name, 224, N_IMAGES, N_PREDICT if predict else 0, sepconv, tag)
+        check(counts == zero, f"{tag}: launches {counts}, want none of B1-B3")
+        piece = arrowStructsToBatch(df.table.column("image"), 224,
+                                    224)[0][:BATCH]
+        feng = ni._zoo_engine(name, True, BATCH)
+        graphed(feng, tag)
+        rec = dict(featurize_img_s=rates["featurize"],
+                   predict_img_s=rates["predict"])
+        rel_cpu = _rel(feats[:BATCH], on_cpu(name, True, piece))
+        check(rel_cpu <= ZOO2_FEATURES_TOL,
+              f"{tag}: card vs CPU features rel err {rel_cpu:.4g} > "
+              f"{ZOO2_FEATURES_TOL}")
+        rec["features_card_vs_cpu"] = rel_cpu
+        msg = (f"[{tag}] features {feats.shape[1]}-d, card vs CPU "
+               f"||a-b||/||b|| = {rel_cpu:.3e} (tol {ZOO2_FEATURES_TOL})")
+        if predict:
+            peng = ni._zoo_engine(name, False, BATCH)
+            graphed(peng, tag)
+            probs = peng(piece)
+            cpu_probs = on_cpu(name, False, piece)
+            rel_p = _rel(probs, cpu_probs)
+            check(rel_p <= ZOO2_PROBS_TOL,
+                  f"{tag}: card vs CPU probabilities rel err {rel_p:.4g} > "
+                  f"{ZOO2_PROBS_TOL}")
+            pred = ni.DeepImagePredictor(
+                inputCol="image", outputCol="preds", modelName=name,
+                decodePredictions=True, topK=5, batchSize=BATCH)
+            reset_counts(sepconv)
+            rows = pred.transform(df.limit(BATCH)).table.column(
+                "preds").to_pylist()
+            check(read_counts(sepconv) == zero, f"{tag}: predictor launches")
+            want = decode_predictions(cpu_probs, top=5)
+            same = sum([e["class"] for e in r] == [c for c, _, _ in w]
+                       for r, w in zip(rows, want))
+            check(same == BATCH, f"{tag}: top-5 classes equal the CPU's in "
+                                 f"{same} of {BATCH} rows")
+            rec["probs_card_vs_cpu"] = rel_p
+            msg += (f"; probabilities card vs CPU {rel_p:.3e} (tol "
+                    f"{ZOO2_PROBS_TOL}), top-5 classes equal in {same}/{BATCH} "
+                    f"rows")
+        staged = feng._pad(piece)
+        f32_ms = cuda_ms(lambda: feng.run_padded(staged), reps=10)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = feng(piece)
+            tf32_ms = cuda_ms(lambda: feng.run_padded(staged), reps=10)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        rel_tf32 = _rel(tf32, feats[:BATCH])
+        with env_knobs({"SPARKDL_ZOO_COMPUTE_DTYPE": "bfloat16"}):
+            _, bf16, c, r = featurize_predict(name, 224, BATCH, 0, sepconv,
+                                              f"{tag} bf16")
+            beng = ni._zoo_engine(name, True, BATCH)
+            bstaged = beng._pad(piece)
+            bf16_ms = cuda_ms(lambda: beng.run_padded(bstaged), reps=10)
+        check(c == zero, f"{tag} bf16: launches {c}")
+        rel_bf16 = _rel(bf16, feats[:BATCH])
+        check(max(rel_tf32, rel_bf16) <= MAIN_PATH_REL_TOL,
+              f"{tag}: TF32 vs f32 {rel_tf32:.4g}, bf16 vs f32 "
+              f"{rel_bf16:.4g} > {MAIN_PATH_REL_TOL}")
+        check(rel_tf32 > ZOO2_FEATURES_TOL,
+              f"{tag}: TF32 vs f32 {rel_tf32:.4g} is within the f32 card vs "
+              f"CPU limit {ZOO2_FEATURES_TOL}, which then could not tell a "
+              f"path in TF32 from one in f32")
+        rec.update(tf32_vs_f32=rel_tf32, bf16_vs_f32=rel_bf16,
+                   bf16_featurize_img_s=r["featurize"],
+                   forward_ms=dict(f32=f32_ms, tf32=tf32_ms, bf16=bf16_ms))
+        msg += (f"; TF32 vs f32 {rel_tf32:.3e} (tol {MAIN_PATH_REL_TOL}, "
+                f"above the f32 limit {ZOO2_FEATURES_TOL}), bf16 vs f32 "
+                f"{rel_bf16:.3e} (tol {MAIN_PATH_REL_TOL}); device forward per batch of "
+                f"{BATCH}: f32 {f32_ms:.2f} ms, TF32 {tf32_ms:.2f} ms, bf16 "
+                f"{bf16_ms:.2f} ms")
+        if name == "ResNet50":
+            before = _engine_captures(feng)
+            with env_knobs({"SPARKDL_RN_FUSED_SHORTCUT": "1"}):
+                _, fsc, c, _ = featurize_predict(name, 224, BATCH, 0, sepconv,
+                                                 f"{tag} fsc")
+                seng = ni._zoo_engine(name, True, BATCH)
+                sstaged = seng._pad(piece)
+                fsc_ms = cuda_ms(lambda: seng.run_padded(sstaged), reps=10)
+            check(c == zero, f"{tag} fsc: launches {c}")
+            check(seng is not feng and _engine_captures(seng) == 1
+                  and _engine_captures(feng) == before,
+                  f"{tag} fsc: captures {_engine_captures(seng)} on its "
+                  f"engine, {_engine_captures(feng) - before} new on the "
+                  f"plain one; want 1 and 0")
+            rel_fsc = _rel(fsc, feats[:BATCH])
+            check(rel_fsc <= ZOO2_FEATURES_TOL,
+                  f"{tag}: fused shortcut vs plain {rel_fsc:.4g} > "
+                  f"{ZOO2_FEATURES_TOL}")
+            rec.update(fsc_vs_plain=rel_fsc)
+            rec["forward_ms"]["fsc"] = fsc_ms
+            msg += (f"; SPARKDL_RN_FUSED_SHORTCUT=1 vs plain {rel_fsc:.3e} "
+                    f"(tol {ZOO2_FEATURES_TOL}), one new capture, f32 fsc "
+                    f"{fsc_ms:.2f} ms")
+        print(f"{msg}; launches {counts}", flush=True)
+        out[name] = rec
+
+    # weights imported from Keras-layout arrays (the layer-list entry the
+    # file readers feed), then the same model on the card and on the CPU
+    tag = "zoo2 import"
+    layers = _keras_layers_for("ResNet50", SEED + 23)
+    sd = import_keras_weights("ResNet50", layers)
+    model = load_model("ResNet50")
+    model.load_state_dict(sd)
+    kernel = layers[0].weights[0]
+    check(torch.equal(model.conv1_conv.weight,
+                      torch.from_numpy(kernel).permute(3, 2, 0, 1)),
+          f"{tag}: conv1_conv is not the Keras kernel transposed")
+    fn = ni.zoo_model_fn("ResNet50", True)
+    card = InferenceEngine(fn, model, device="cuda", device_batch_size=BATCH)
+    cpu = InferenceEngine(fn, model, device="cpu", device_batch_size=BATCH)
+    batch = arrowStructsToBatch(synthetic_frame(BATCH, 224, SEED).table.column(
+        "image"), 224, 224)[0]
+    reset_counts(sepconv)
+    got = card(batch)
+    check(read_counts(sepconv) == zero, f"{tag}: launches")
+    graphed(card, tag)
+    rel_imp = _rel(got, cpu(batch))
+    seeded = ni._zoo_engine("ResNet50", True, BATCH)(batch)
+    check(rel_imp <= ZOO2_FEATURES_TOL and _rel(got, seeded) > 0.1,
+          f"{tag}: card vs CPU {rel_imp:.4g} (tol {ZOO2_FEATURES_TOL}); vs the "
+          f"seeded weights {_rel(got, seeded):.4g} (want > 0.1)")
+    print(f"[{tag}] ResNet50 from {len(layers)} Keras-layout layers through "
+          f"import_keras_weights: card vs CPU features ||a-b||/||b|| = "
+          f"{rel_imp:.3e} (tol {ZOO2_FEATURES_TOL}); differs from the seeded "
+          f"weights' ({_rel(got, seeded):.3f})", flush=True)
+    out["import_card_vs_cpu"] = rel_imp
+    return out
+
+
 class env_knobs:
     """Set environment knobs for a ``with`` block, restoring them after."""
 
@@ -1033,9 +1260,11 @@ def graph_path(sepconv, tag, name, size, knobs, want, edit):
                                f"{what}, want {want_new}")
 
     captures = eng.metrics.counters["engine.graph_captures"]
-    buf = dict(eng.module.named_buffers())[edit]
+    buf = dict(chain(eng.module.named_parameters(),
+                     eng.module.named_buffers()))[edit]
     saved = buf.clone()
-    buf.mul_(0.5)
+    with torch.no_grad():
+        buf.mul_(0.5)
     edited = eng.run_padded(batch)
     edited_plain = eager(batch)
     torch.cuda.synchronize()
@@ -1045,7 +1274,8 @@ def graph_path(sepconv, tag, name, size, knobs, want, edit):
           f"differs from the eager one")
     check(not torch.equal(edited, graphed),
           f"[graph] {tag}: the weight edit did not change the output")
-    buf.copy_(saved)
+    with torch.no_grad():
+        buf.copy_(saved)
     back = eng.run_padded(batch)
     torch.cuda.synchronize()
     captured(2, "the weights were restored")
@@ -1284,7 +1514,8 @@ def main():
     check(sparkdl_tpu_torch.resolve_device().type == "cuda",
           "entry points do not default to the card")
     for knob in ("SPARKDL_MNV2_FUSED", "SPARKDL_XC_TILED", "SPARKDL_S2D_STEM",
-                 "SPARKDL_FUSED_HEADS", "SPARKDL_ZOO_COMPUTE_DTYPE"):
+                 "SPARKDL_FUSED_HEADS", "SPARKDL_ZOO_COMPUTE_DTYPE",
+                 "SPARKDL_RN_FUSED_SHORTCUT", "SPARKDL_WEIGHTS_DIR"):
         os.environ.pop(knob, None)
     phase_build(sepconv)
     b1 = phase_sepconv_kernel(sepconv, tiled=False)
@@ -1299,6 +1530,7 @@ def main():
     b3["launches"] = phase_xception_tiled(sepconv)
     inception = phase_inception(sepconv)
     print(json.dumps({"inception": inception}), flush=True)
+    print(json.dumps({"zoo2": phase_zoo2(sepconv)}), flush=True)
     graph = phase_graph(sepconv)
     graph["pipeline"] = phase_pipeline(sepconv)
     print(json.dumps({"graph": graph}), flush=True)

@@ -145,19 +145,20 @@ def _iter_convs(ops: Sequence[Op]):
 
 
 def inception_import_order():
-    """(kind, flax_path) sequence in upstream creation order for the
-    auto-named conv/BN layers.  Each conv2d_bn creates its Conv2D then its
-    BatchNormalization, so per-kind creation order both equal spec order.
-    (The final "predictions" Dense is explicitly named upstream and matches
-    by name instead.)"""
+    """(kind, port module path) in upstream creation order for the
+    auto-named Conv2D / BatchNormalization layers (the JAX package's
+    ``inception_import_order`` in port names).  Each conv2d_bn creates its
+    Conv2D then its BatchNormalization, so per-kind creation order both
+    equal spec order.  (The final "predictions" Dense is explicitly named
+    upstream and matches by name instead.)"""
     order = []
     convs = list(_iter_convs(STEM))
     for _, branches in BLOCKS:
         for branch in branches:
             convs.extend(_iter_convs(branch))
     for c in convs:
-        order.append(("conv", (c.name, "conv")))
-        order.append(("bn", (c.name, "bn")))
+        order.append(("conv", f"{c.name}.conv"))
+        order.append(("bn", f"{c.name}.bn"))
     return order
 
 

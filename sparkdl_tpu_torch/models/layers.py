@@ -7,7 +7,9 @@ stride need it), as the Keras weights were trained under.  Where an input
 and a weight differ in dtype, the op runs in the type JAX would promote
 both to (flax promotes; ``F.conv2d`` raises on mixed types).
 ``BatchNorm(scale=False)``, :class:`ConvBN`, :class:`SpaceToDepthConv`,
-:func:`max_pool_valid` and :func:`avg_pool_same` are InceptionV3's.
+:func:`max_pool_valid` and :func:`avg_pool_same` are InceptionV3's;
+:func:`correct_pad` and the 5x5 form of :class:`DepthwiseConv2D` are
+EfficientNetB0's (its SiLU is ``F.silu``).
 """
 
 from __future__ import annotations
@@ -35,10 +37,15 @@ def promote(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, stride=1, padding=0,
-           groups: int = 1) -> torch.Tensor:
-    """Bias-free ``F.conv2d`` in the promoted dtype of ``x`` and ``weight``."""
+           groups: int = 1, bias: Optional[torch.Tensor] = None
+           ) -> torch.Tensor:
+    """``F.conv2d`` in the promoted dtype of ``x`` and ``weight``; the
+    bias, if any, is cast to that dtype (as flax adds it)."""
     x, weight = promote(x, weight)
-    return F.conv2d(x, weight, stride=stride, padding=padding, groups=groups)
+    if bias is not None:
+        bias = bias.to(x.dtype)
+    return F.conv2d(x, weight, bias, stride=stride, padding=padding,
+                    groups=groups)
 
 
 def same_padding(size: int, window: int, stride: int) -> Tuple[int, int]:
@@ -59,6 +66,15 @@ def max_pool_same(x: torch.Tensor, window: int = 3, stride: int = 2
     if any(ph + pw):
         x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
     return F.max_pool2d(x, window, stride)
+
+
+def correct_pad(x: torch.Tensor, kernel: int) -> torch.Tensor:
+    """Keras ``imagenet_utils.correct_pad`` zero padding on NCHW, before a
+    stride-2 VALID conv: ``(k//2 - (1 - H%2), k//2)`` rows and the same
+    rule for columns, so an even extent pads one less on the low side."""
+    h, w = x.shape[2], x.shape[3]
+    c = kernel // 2
+    return F.pad(x, (c - (1 - w % 2), c, c - (1 - h % 2), c))
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
@@ -156,25 +172,31 @@ class SeparableConv2D(nn.Module):
 
 
 class DepthwiseConv2D(nn.Module):
-    """Bias-free 3x3 depthwise conv, multiplier 1
-    (``keras.layers.DepthwiseConv2D``): stride 1 SAME, or stride 2 VALID
-    (MobileNetV2 zero-pads ((0,1),(0,1)) before it, in the model).
+    """Depthwise conv, multiplier 1 (``keras.layers.DepthwiseConv2D``):
+    a square window of ``kernel_size`` 3 or 5, stride 1 SAME or stride 2
+    VALID (the models zero-pad before it: MobileNetV2 ((0,1),(0,1)),
+    EfficientNetB0 :func:`correct_pad`), without a bias (neither model's
+    depthwise layers have one).
 
-    ``depthwise_weight`` [C,1,3,3] is the grouped-conv layout of keras'
-    ``depthwise_kernel`` [3,3,C,1] (:func:`depthwise_taps` gives the
+    ``depthwise_weight`` [C,1,k,k] is the grouped-conv layout of keras'
+    ``depthwise_kernel`` [k,k,C,1] (:func:`depthwise_taps` gives a 3x3's
     kernels' [3,3,C])."""
 
-    def __init__(self, channels: int, stride: int = 1):
+    def __init__(self, channels: int, stride: int = 1, kernel_size: int = 3):
         super().__init__()
         if stride not in (1, 2):
             raise ValueError(f"stride must be 1 (SAME) or 2 (VALID), got "
                              f"{stride}")
+        if kernel_size not in (3, 5):
+            raise ValueError(f"kernel_size must be 3 or 5, got {kernel_size}")
         self.stride = stride
-        self.depthwise_weight = nn.Parameter(torch.empty(channels, 1, 3, 3))
+        self.depthwise_weight = nn.Parameter(
+            torch.empty(channels, 1, kernel_size, kernel_size))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.depthwise_weight.shape[-1]
         return conv2d(x, self.depthwise_weight, stride=self.stride,
-                      padding=1 if self.stride == 1 else 0,
+                      padding=k // 2 if self.stride == 1 else 0,
                       groups=x.shape[1])
 
 
@@ -298,17 +320,20 @@ def cached_fold(cache: dict, name: str, sources, fold):
 
 
 def fold_bn_into_conv(kernel: torch.Tensor, scale: torch.Tensor,
-                      shift: torch.Tensor
+                      shift: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fold an inference BatchNorm affine into a bias-free conv, as the JAX
-    package's ``fold_bn_into_conv``: ``conv(x, k) * s + t == conv(x, k*s)
-    + t``.  ``kernel`` has its output channels LAST (keras' layouts: [3,3,C]
-    depthwise, [C,F] pointwise).  The fold runs in f32 and K is cast back
-    to the kernel's dtype, so a bf16 engine stays bf16; B is f32 for the
-    caller to cast at the add."""
+    """Fold an inference BatchNorm affine into a conv, as the JAX
+    package's ``fold_bn_into_conv``: ``(conv(x, k) + b) * s + t ==
+    conv(x, k*s) + (b*s + t)``.  ``kernel`` has its output channels LAST
+    (keras' layouts: [3,3,C] depthwise, [C,F] pointwise).  The fold runs in
+    f32 and K is cast back to the kernel's dtype, so a bf16 engine stays
+    bf16; B is f32 for the caller to cast at the add."""
     f32 = torch.float32
     k = (kernel.to(f32) * scale.to(f32)).to(kernel.dtype)
-    return k, shift.to(f32)
+    if bias is None:
+        return k, shift.to(f32)
+    return k, bias.to(f32) * scale.to(f32) + shift.to(f32)
 
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:

@@ -12,6 +12,8 @@ Semantics match ``keras.applications.imagenet_utils.preprocess_input``:
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 _CAFFE_MEAN_BGR = (103.939, 116.779, 123.68)
@@ -21,8 +23,12 @@ _TORCH_STD_RGB = (0.229, 0.224, 0.225)
 PREPROCESS_MODES = ("tf", "caffe", "torch", "none")
 
 
-def _const(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(values, dtype=torch.float32, device=like.device)
+@functools.lru_cache(maxsize=None)
+def _const(values, device: torch.device) -> torch.Tensor:
+    """``values`` as an f32 tensor on ``device``, made once per device: a
+    host-to-device copy is not allowed while a CUDA graph is captured, and
+    the engine's eager warm-up makes it first."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def preprocess_tf(x: torch.Tensor) -> torch.Tensor:
@@ -33,13 +39,14 @@ def preprocess_tf(x: torch.Tensor) -> torch.Tensor:
 def preprocess_caffe(x: torch.Tensor) -> torch.Tensor:
     """[0,255] RGB -> zero-centered BGR (no scaling)."""
     x = x.to(torch.float32).flip(-1)  # RGB -> BGR
-    return x - _const(_CAFFE_MEAN_BGR, x)
+    return x - _const(_CAFFE_MEAN_BGR, x.device)
 
 
 def preprocess_torch(x: torch.Tensor) -> torch.Tensor:
     """[0,255] RGB -> normalized by ImageNet mean/std."""
     x = x.to(torch.float32) / 255.0
-    return (x - _const(_TORCH_MEAN_RGB, x)) / _const(_TORCH_STD_RGB, x)
+    mean = _const(_TORCH_MEAN_RGB, x.device)
+    return (x - mean) / _const(_TORCH_STD_RGB, x.device)
 
 
 def preprocess_none(x: torch.Tensor) -> torch.Tensor:

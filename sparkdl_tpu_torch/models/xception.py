@@ -3,7 +3,9 @@
 Layer names mirror keras.applications.xception and the JAX module
 ("block1_conv1", "block4_sepconv1_bn", "shortcut13_conv", ...,
 "predictions"), so ``models/convert.py`` maps the JAX variable tree by
-path.  Featurizer cut = global average pool (2048-d).  The forward takes
+path and the Keras importer matches by name; the four residual-shortcut
+convs and BatchNorms are auto-named upstream and import by creation order
+(:func:`xception_auto_order`).  Featurizer cut = global average pool (2048-d).  The forward takes
 NHWC ``[B,H,W,3]`` like the JAX module and runs NCHW in ``channels_last``
 memory inside.
 """
@@ -22,6 +24,17 @@ from sparkdl_tpu_torch.models.layers import (BatchNorm, SeparableConv2D,
 
 # (block index, filters) of the three entry-flow residual blocks.
 _ENTRY_BLOCKS = ((2, 128), (3, 256), (4, 728))
+
+
+def xception_auto_order():
+    """(kind, port module path) creation-order import targets of the four
+    auto-named residual-shortcut Conv2D / BatchNormalization pairs (the
+    JAX package's ``xception_auto_order``)."""
+    order = []
+    for i in [b for b, _ in _ENTRY_BLOCKS] + [13]:
+        order.append(("conv", f"shortcut{i}_conv"))
+        order.append(("bn", f"shortcut{i}_bn"))
+    return order
 
 
 def _round_up(v: int, m: int) -> int:

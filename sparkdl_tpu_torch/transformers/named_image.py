@@ -52,12 +52,14 @@ def clear_model_caches():
 
 def _cached_model(name: str) -> nn.Module:
     # the env-dependent build variant (SPARKDL_MNV2_FUSED, SPARKDL_XC_TILED,
-    # SPARKDL_S2D_STEM, SPARKDL_FUSED_HEADS) is part of the key: a knob set
-    # mid-process builds the other variant
+    # SPARKDL_S2D_STEM, SPARKDL_FUSED_HEADS, SPARKDL_RN_FUSED_SHORTCUT) is
+    # part of the key: a knob set mid-process builds the other variant.
+    # "imagenet" imports $SPARKDL_WEIGHTS_DIR's file for the model, or
+    # warns and takes the seeded init when there is none (as JAX does).
     name = get_model_spec(name).name
     key = (name, model_variant_key(name))
     if key not in _MODEL_CACHE:
-        _MODEL_CACHE[key] = load_model(name)
+        _MODEL_CACHE[key] = load_model(name, weights="imagenet")
     return _MODEL_CACHE[key]
 
 

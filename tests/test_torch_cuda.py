@@ -175,3 +175,23 @@ def test_cleared_fold_cache_recaptures(cuda):
     assert torch.equal(second, eager())
     assert not torch.equal(second, first)
     del junk
+
+
+@pytest.mark.parametrize("mode", ["tf", "caffe", "torch", "none"])
+def test_every_preprocess_mode_runs_in_a_captured_forward(cuda, mode):
+    """The zoo's preprocess modes inside the engine's captured forward: a
+    per-channel constant made during the capture would be a host-to-device
+    copy, which a capture refuses (caffe and torch modes make theirs once
+    per device, at the eager warm-up)."""
+    from sparkdl_tpu_torch.models.preprocess import get_preprocess_fn
+    from sparkdl_tpu_torch.parallel.engine import InferenceEngine
+
+    pre = get_preprocess_fn(mode)
+    eng = InferenceEngine(lambda m, x: m(pre(x)), nn.Identity(),
+                          device="cuda", device_batch_size=B)
+    x = np.random.default_rng(5).integers(0, 256, (B, 8, 8, 3),
+                                          dtype=np.uint8)
+    got = eng(x)
+    assert eng.metrics.counters["engine.graph_captures"] == 1
+    np.testing.assert_allclose(got, pre(torch.from_numpy(x)).numpy(),
+                               rtol=1e-6, atol=1e-6)

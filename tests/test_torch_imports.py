@@ -19,7 +19,8 @@ def _port_files():
     files.append(ROOT / "tests" / "test_torch_cuda.py")
     files += [ROOT / "tools" / name for name in (
         "port_profile.py", "sepconv_compare.py", "mbconv_compare.py",
-        "sepconv_tiled_compare.py", "gen_wgmma.py", "pipeline_probe.py")]
+        "sepconv_tiled_compare.py", "gen_wgmma.py", "pipeline_probe.py",
+        "gen_keras_layers.py")]
     return files
 
 

@@ -175,7 +175,7 @@ def test_convert_raises_on_unmatched_leaves(jax_setup):
                          "batch_stats": variables["batch_stats"]})
 
 
-def test_load_model_is_seeded():
+def test_load_model_is_seeded(monkeypatch):
     a = load_model("Xception", num_classes=3,
                    generator=torch.Generator().manual_seed(5))
     b = load_model("xception", num_classes=3,
@@ -184,8 +184,16 @@ def test_load_model_is_seeded():
                                   b.state_dict().items()):
         assert ka == kb
         torch.testing.assert_close(va, vb, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        load_model("Xception", weights="imagenet")
+    # "imagenet" with no offline weights file: the seeded init (seed 0), as
+    # the JAX package falls back to Keras' random init; an explicit path
+    # must exist
+    monkeypatch.delenv("SPARKDL_WEIGHTS_DIR", raising=False)
+    c = load_model("Xception", num_classes=3, weights="imagenet")
+    d = load_model("Xception", num_classes=3)
+    for k, v in d.state_dict().items():
+        torch.testing.assert_close(c.state_dict()[k], v, rtol=0, atol=0)
+    with pytest.raises(FileNotFoundError):
+        load_model("Xception", weights="/no/such/xception.h5")
 
 
 def _count_folds(monkeypatch):

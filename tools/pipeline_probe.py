@@ -1,6 +1,6 @@
 """Which arrangement of the featurizer's host stages is fastest, on a GPU.
 
-    python3 tools/pipeline_probe.py [--model MobileNetV2|Xception|InceptionV3]
+    python3 tools/pipeline_probe.py [--model MobileNetV2|ResNet50|VGG16|...]
                                     [--batches 64] [--repeats 3]
                                     [--set SPARKDL_MNV2_FUSED=1] [--set ...]
 

@@ -1,6 +1,7 @@
 """Where the time of one zoo forward goes in the PyTorch port, on a GPU.
 
-    python3 tools/port_profile.py [--model Xception|MobileNetV2|InceptionV3]
+    python3 tools/port_profile.py [--model Xception|MobileNetV2|InceptionV3|
+                                           ResNet50|VGG16|EfficientNetB0|...]
                                   [--batch 32] [--eager]
                                   [--set SPARKDL_XC_TILED=1] [--set ...]
 
@@ -14,7 +15,8 @@ upload and the host's enqueue gaps count) as the engine runs it, one
 captured CUDA graph per forward (``--eager``: op by op, the engine's
 ``capture=False``), on the fused and the unfused route (the model's
 ``fused_inference``; for InceptionV3 its fused branch heads against the
-per-branch convs), in f32 and in bf16 compute
+per-branch convs, for ResNet its fused shortcut; VGG and EfficientNetB0
+have one route), in f32 and in bf16 compute
 (``SPARKDL_ZOO_COMPUTE_DTYPE=bfloat16``), with cuDNN's TF32 off and on;
 then a ``torch.profiler`` table of the forward's device time by kernel,
 its launch count, the wall time of the forward and the share of it the
@@ -136,33 +138,41 @@ def main():
         0, 256, (args.batch, h, w, 3), dtype=np.uint8)
     module = ni._cached_model(spec.name)
 
+    # the model's routes: fused and unfused where it has a route toggle,
+    # else its one route (None)
+    routes = (True, False) if hasattr(module, "fused_inference") else (None,)
+
     def engine(cdt, fused):
         eng = InferenceEngine(
             ni.zoo_model_fn(spec.name, True, compute_dtype=cdt), module,
             device="cuda", device_batch_size=args.batch, compute_dtype=cdt,
             capture=not args.eager)
-        eng.module.fused_inference = fused
+        if fused is not None:
+            eng.module.fused_inference = fused
         return eng, eng._pad(batch)  # the batch in a pinned buffer
+
+    def route(fused):
+        return {True: "fused", False: "unfused", None: "plain"}[fused]
 
     for tf32 in (False, True):
         torch.backends.cudnn.allow_tf32 = tf32
         for cdt in (None, torch.bfloat16):
-            for fused in (True, False):
+            for fused in routes:
                 eng, staged = engine(cdt, fused)
                 ms = cuda_ms(lambda: eng.run_padded(staged))
                 print(f"forward batch {args.batch}: "
-                      f"{'bf16' if cdt else 'f32 '} "
-                      f"{'fused  ' if fused else 'unfused'} "
+                      f"{'bf16' if cdt else 'f32 '} {route(fused):7} "
                       f"cudnn.allow_tf32={tf32}: {ms:.2f} ms "
                       f"({args.batch / ms * 1e3:.0f} img/s)", flush=True)
 
     bf16 = torch.bfloat16
-    for cdt, fused, tf32 in ((None, True, False), (None, False, False),
-                             (None, True, True), (bf16, True, False)):
+    for cdt, fused, tf32 in ((None, routes[0], False), (None, False, False),
+                             (None, routes[0], True), (bf16, routes[0], False)):
+        if fused is False and len(routes) == 1:
+            continue
         torch.backends.cudnn.allow_tf32 = tf32
         profile_forward(*engine(cdt, fused),
-                        f"{'fused' if fused else 'unfused'} "
-                        f"{'bf16' if cdt else 'f32'}"
+                        f"{route(fused)} {'bf16' if cdt else 'f32'}"
                         f"{', TF32 on' if tf32 else ''}")
     torch.backends.cudnn.allow_tf32 = False
 
