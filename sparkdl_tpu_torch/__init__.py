@@ -61,5 +61,41 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-__all__ = ["default_device", "resolve_device", "set_default_device",
-           "__version__"]
+# The public API of the JAX package's ``sparkdl_tpu/__init__.py``, for what
+# is ported; imported at first use, so that ``import sparkdl_tpu_torch``
+# stays light.
+_LAZY = {
+    "imageIO": "sparkdl_tpu_torch.image",
+    "ImageSchema": "sparkdl_tpu_torch.image",
+    "readImages": "sparkdl_tpu_torch.image",
+    "DataFrame": "sparkdl_tpu_torch.frame",
+    "Row": "sparkdl_tpu_torch.frame",
+    "DeepImageFeaturizer": "sparkdl_tpu_torch.transformers.named_image",
+    "DeepImagePredictor": "sparkdl_tpu_torch.transformers.named_image",
+    "TFImageTransformer": "sparkdl_tpu_torch.transformers.named_image",
+    "KerasImageFileTransformer": "sparkdl_tpu_torch.transformers.image_file",
+    "ImageFileTransformer": "sparkdl_tpu_torch.transformers.image_file",
+    "KerasTransformer": "sparkdl_tpu_torch.transformers.tensor",
+    "ModelTransformer": "sparkdl_tpu_torch.transformers.tensor",
+    "TFTransformer": "sparkdl_tpu_torch.transformers.tensor",
+    "ModelFunction": "sparkdl_tpu_torch.graph.function",
+    "registerKerasImageUDF": "sparkdl_tpu_torch.udf",
+    "register_image_udf": "sparkdl_tpu_torch.udf",
+}
+
+
+def __getattr__(name: str):
+    target = _LAZY.get(name)
+    if target is None:
+        raise AttributeError(
+            f"module 'sparkdl_tpu_torch' has no attribute {name!r}")
+    import importlib
+
+    mod = importlib.import_module(target)
+    obj = mod if name == "imageIO" else getattr(mod, name)
+    globals()[name] = obj
+    return obj
+
+
+__all__ = sorted(_LAZY) + ["default_device", "resolve_device",
+                           "set_default_device", "__version__"]

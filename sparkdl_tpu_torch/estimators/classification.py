@@ -6,9 +6,8 @@ ML classifier (``LogisticRegression`` in the README's flowers example).
 This is the port's logistic-regression head with the pyspark.ml column
 contract (featuresCol/labelCol/predictionCol/probabilityCol): fitted with
 Adam on one device (``parallel/train.py``; ``cuda`` unless the CPU was
-asked for), applied on the host.  Saving and loading a fitted model
-(``_persist``/``_restore`` in JAX) wait for the port of ``persistence.py``
-(ROADMAP.md queue A item 5).
+asked for), applied on the host.  A fitted model saves its ``(w, b)``
+through ``sparkdl_tpu_torch.persistence`` (``model.save(path)``).
 """
 
 from __future__ import annotations
@@ -171,6 +170,17 @@ class LogisticRegressionModel(Model, _HasClassifierCols):
                          probabilityCol="probability")
         self.weights = weights
         self.numClasses = numClasses
+
+    def _persist(self, path):
+        return ({"numClasses": int(self.numClasses)},
+                {"weights": {k: torch.from_numpy(np.asarray(v))
+                             for k, v in self.weights.items()}}, {})
+
+    @classmethod
+    def _restore(cls, extra, tensors, pickles, path):
+        return cls(weights={k: t.numpy() for k, t in
+                            tensors["weights"].items()},
+                   numClasses=int(extra["numClasses"]))
 
     def _transform(self, dataset):
         x = dataset.column_to_numpy(self.getFeaturesCol()).astype(np.float32)

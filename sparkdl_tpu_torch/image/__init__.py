@@ -16,10 +16,16 @@ from sparkdl_tpu_torch.image.schema import (
 from sparkdl_tpu_torch.image.io import (
     PIL_decode,
     arrowStructsToBatch,
+    createResizeImageUDF,
     decodeImage,
+    decodeResizeBatch,
+    filesToDF,
+    filesToModelBatch,
     readImages,
     readImagesWithCustomFn,
     resizeImage,
+    structToModelInput,
+    structsToBatch,
 )
 
 __all__ = [
@@ -32,8 +38,14 @@ __all__ = [
     "imageStructToArray",
     "PIL_decode",
     "arrowStructsToBatch",
+    "createResizeImageUDF",
     "decodeImage",
+    "decodeResizeBatch",
+    "filesToDF",
+    "filesToModelBatch",
     "readImages",
     "readImagesWithCustomFn",
     "resizeImage",
+    "structToModelInput",
+    "structsToBatch",
 ]

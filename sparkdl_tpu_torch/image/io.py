@@ -1,17 +1,19 @@
-"""Host-side image decode / resize / file ingestion (port of the parts of
-``sparkdl_tpu/image/io.py`` the zoo featurize/predict path uses).
+"""Host-side image decode / resize / file ingestion (port of
+``sparkdl_tpu/image/io.py``).
 
 Decode runs on the host (PIL); the output of this layer is either
 image-struct rows (for the DataFrame API) or dense uint8 numpy batches (for
 the device pipeline).  pyarrow and PIL are imported here and in the rest of
-the data layer only.
+the data layer only.  The JAX package's native decode core
+(``sparkdl_tpu/native``) is not ported: ``decodeResizeBatch`` and
+``structsToBatch`` take its PIL route.
 """
 
 from __future__ import annotations
 
 import glob as _glob
 import os
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, Iterable, List, Optional, Sequence
 
 import numpy as np
 import pyarrow as pa
@@ -19,6 +21,7 @@ import pyarrow as pa
 from sparkdl_tpu_torch.image.schema import (
     imageArrayToStruct,
     imageSchema,
+    imageStructToArray,
     imageTypeByMode,
 )
 
@@ -80,6 +83,104 @@ def resizeImage(array: np.ndarray, height: int, width: int) -> np.ndarray:
         for c in range(array.shape[2])
     ]
     return np.stack(planes, axis=2).astype(dtype)
+
+
+def createResizeImageUDF(size: Sequence[int]) -> Callable[[dict], dict]:
+    """Return a row-level function image-struct -> resized image-struct
+    (``imageIO.createResizeImageUDF``); apply it with
+    ``DataFrame.map_rows``."""
+    if len(size) != 2:
+        raise ValueError(f"New image size should have format [height, width], got {size}")
+    height, width = int(size[0]), int(size[1])
+
+    def _resize(row: Optional[dict]) -> Optional[dict]:
+        if row is None:
+            return None
+        arr = imageStructToArray(row)
+        out = resizeImage(arr, height, width)
+        return imageArrayToStruct(out, origin=row.get("origin", ""))
+
+    return _resize
+
+
+def structToModelInput(struct: dict, height: int, width: int) -> np.ndarray:
+    """Image struct -> [h,w,3] uint8 **RGB** array resized for a model:
+    grayscale replicates to 3 channels, BGRA drops alpha, BGR flips to RGB
+    (the reference's converter subgraph)."""
+    arr = imageStructToArray(struct)
+    if arr.dtype != np.uint8:
+        arr = np.clip(arr, 0, 255).astype(np.uint8)
+    c = arr.shape[2]
+    if c == 1:
+        arr = np.repeat(arr, 3, axis=2)
+    elif c == 4:
+        arr = arr[:, :, :3]          # BGRA -> BGR
+    arr = resizeImage(arr, height, width)
+    return arr[:, :, ::-1]           # BGR -> RGB
+
+
+def decodeResizeBatch(blobs: Sequence[bytes], height: int, width: int
+                      ) -> "tuple[np.ndarray, np.ndarray]":
+    """Decode + resize encoded images into a [N,h,w,3] uint8 **RGB** batch
+    and an ok-mask (PIL, threaded on the shared IO pool).  Undecodable
+    rows: ok=False, zeroed pixels (drop-to-null upstream).
+
+    Fault site ``io.decode`` (per row): an injected decode error rides the
+    same drop-to-null contract as a corrupt blob; a plan with
+    ``io.decode`` rules decodes in row order on this thread, so ``at=`` /
+    ``every=`` schedules name the row they drop."""
+    from sparkdl_tpu_torch import faults as _faults
+
+    io_faults = _faults.has_rules("io.decode")
+    out = np.zeros((len(blobs), height, width, 3), dtype=np.uint8)
+    ok = np.zeros(len(blobs), dtype=bool)
+
+    def one(i_blob):
+        i, blob = i_blob
+        try:
+            _faults.inject("io.decode", row=i)
+        except _faults.InjectedFault:
+            return  # simulated corrupt row: ok stays False (drop-to-null)
+        arr = PIL_decode(blob)  # BGR or None
+        if arr is None:
+            return
+        out[i] = resizeImage(arr, height, width)[:, :, ::-1]
+        ok[i] = True
+
+    if len(blobs) >= 4 and not io_faults:
+        list(_io_executor().map(one, enumerate(blobs)))
+    else:
+        for pair in enumerate(blobs):
+            one(pair)
+    return out, ok
+
+
+def filesToModelBatch(paths: Sequence[str], height: int, width: int
+                      ) -> "tuple[np.ndarray, np.ndarray]":
+    """Read + decode + resize files into a model-ready uint8 RGB batch and
+    an ok-mask (an unreadable file is a failed row)."""
+    blobs = []
+    for p in paths:
+        try:
+            with open(p, "rb") as fh:
+                blobs.append(fh.read())
+        except OSError:
+            blobs.append(b"")
+    return decodeResizeBatch(blobs, height, width)
+
+
+def structsToBatch(structs: Sequence[dict], height: int, width: int,
+                   num_threads: Optional[int] = None) -> np.ndarray:
+    """Decode + resize image structs into one [N,h,w,3] uint8 RGB batch
+    (threaded on the shared IO pool: PIL releases the GIL in resize)."""
+    if len(structs) == 0:
+        return np.zeros((0, height, width, 3), dtype=np.uint8)
+    if (num_threads is not None and num_threads <= 1) or len(structs) < 4:
+        arrs = [structToModelInput(s, height, width) for s in structs]
+    else:
+        arrs = list(_io_executor().map(
+            lambda s: structToModelInput(s, height, width), structs))
+    return np.stack(arrs, axis=0)
 
 
 _IO_EXECUTOR = None
@@ -289,6 +390,23 @@ def iterImageBatches(path: str, batch_size: int = 64, recursive: bool = False,
                 structs.append(
                     imageArrayToStruct(np.asarray(arr), origin=f))
         yield pa.record_batch({"image": pa.array(structs, type=imageSchema)})
+
+
+def filesToDF(path: str, numPartitions: Optional[int] = None,
+              recursive: bool = False):
+    """Read raw files into a DataFrame ``{filePath: str, fileData:
+    binary}`` (``imageIO.filesToDF``); for datasets larger than host RAM,
+    use :func:`iterFileBatches` and ``transformStream``."""
+    from sparkdl_tpu_torch.frame import DataFrame
+
+    table = pa.Table.from_batches(
+        list(iterFileBatches(path, batch_size=1 << 30, recursive=recursive)),
+        schema=pa.schema([pa.field("filePath", pa.string()),
+                          pa.field("fileData", pa.binary())]))
+    df = DataFrame(table)
+    if numPartitions:
+        df = df.repartition(numPartitions)
+    return df
 
 
 def readImagesWithCustomFn(path: str, decode_f: Callable[[bytes], Optional[np.ndarray]],

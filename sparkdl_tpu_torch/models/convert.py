@@ -49,8 +49,11 @@ def kernel_to_torch(k, name: str) -> torch.Tensor:
 
 
 def depthwise_to_torch(k) -> torch.Tensor:
-    """A depthwise kernel [kh,kw,C,1] -> the grouped conv's [C,1,kh,kw]."""
-    return _tensor(k).permute(2, 3, 0, 1)
+    """A depthwise kernel [kh,kw,C,mult] -> the grouped conv's
+    [C*mult,1,kh,kw] (output channel c*mult + j, as Keras orders them)."""
+    k = _tensor(k)
+    kh, kw, c, m = k.shape
+    return k.permute(2, 3, 0, 1).reshape(c * m, 1, kh, kw)
 
 
 def pointwise_to_torch(k) -> torch.Tensor:

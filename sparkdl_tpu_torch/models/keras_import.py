@@ -83,11 +83,16 @@ class KerasLayer(NamedTuple):
 
 
 class KerasFile(NamedTuple):
-    """A weights file read: its weighted layers, and every layer's
+    """A weights file read: its weighted layers, every layer's
     ``(class_name, config)`` in model order where the file has a model
-    config (None for a ``.weights.h5``)."""
+    config (None for a ``.weights.h5``), and that whole model config
+    (``{"class_name": "Functional" | "Sequential", "config": ...}``, the
+    graph the converter builds, ``graph/keras_convert.py``).  A Keras
+    model held in memory as its config and arrays is
+    :func:`keras_file`'s."""
     layers: List[KerasLayer]
     layer_configs: Optional[List[Tuple[str, dict]]]
+    model_config: Optional[dict] = None
 
 
 # -- the importer ---------------------------------------------------------------
@@ -283,6 +288,14 @@ def _by_class_group(f, configs: Sequence[Tuple[str, str, Optional[dict]]]
     return out
 
 
+def keras_file(model_config: dict, layers: Sequence) -> KerasFile:
+    """A :class:`KerasFile` of a model held in memory: its model config
+    (``json.loads(model.to_json())``) and its weighted layers
+    (:class:`KerasLayer` or ``(name, class_name, [arrays])``)."""
+    return KerasFile([KerasLayer(*entry) for entry in layers],
+                     _layer_configs(model_config), model_config)
+
+
 def read_h5(path: str) -> KerasFile:
     """A legacy full-model ``.h5`` (``model.save("m.h5")``)."""
     import h5py
@@ -294,8 +307,9 @@ def read_h5(path: str) -> KerasFile:
                              f"model with model.save(), or its weights "
                              f"with save_weights('*.weights.h5')")
         raw = f.attrs["model_config"]
-        configs = _layer_configs(json.loads(
-            raw.decode() if isinstance(raw, bytes) else raw))
+        model_config = json.loads(raw.decode() if isinstance(raw, bytes)
+                                  else raw)
+        configs = _layer_configs(model_config)
         by_name = {c.get("name"): (cls, c) for cls, c in configs}
         mw = f["model_weights"]
         layers = []
@@ -309,7 +323,7 @@ def read_h5(path: str) -> KerasFile:
                 arrays.append(np.asarray(g[wn][()]))
             if cls in WEIGHTED and arrays:
                 layers.append(KerasLayer(lname, cls, arrays, cfg))
-    return KerasFile(layers, configs)
+    return KerasFile(layers, configs, model_config)
 
 
 def read_keras(path: str) -> KerasFile:
@@ -317,12 +331,13 @@ def read_keras(path: str) -> KerasFile:
     import h5py
 
     with zipfile.ZipFile(path) as z:
-        configs = _layer_configs(json.loads(z.read("config.json")))
+        model_config = json.loads(z.read("config.json"))
         weights = io.BytesIO(z.read("model.weights.h5"))
+    configs = _layer_configs(model_config)
     with h5py.File(weights, "r") as f:
         layers = _by_class_group(
             f, [(c.get("name"), cls, c) for cls, c in configs])
-    return KerasFile(layers, configs)
+    return KerasFile(layers, configs, model_config)
 
 
 @functools.lru_cache(maxsize=None)

@@ -40,10 +40,13 @@ Failure domain: ``dispatch_retries`` with jittered, capped backoff, a
 consecutive-failure :class:`DispatchCircuitBreaker`, and the fault sites
 ``engine.dispatch`` (enqueue) and ``engine.gather`` (force).
 
+:func:`get_cached_engine` keeps one engine per ``ModelFunction`` on the
+stage (or other holder) that runs it.
+
 Not ported yet: the device mesh and weight sharding, ``donate_batch`` and
 the compile-cache policy (ROADMAP queue A items 6 and 9), the head bank
-(item 7), ``get_cached_engine`` (item 5), and the ``engine.dispatch`` /
-``engine.call`` spans and flight events (item 8).
+(item 7), and the ``engine.dispatch`` / ``engine.call`` spans and flight
+events (item 8).
 """
 
 from __future__ import annotations
@@ -630,7 +633,9 @@ class InferenceEngine:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_stats(self.device).get(
             "reserved_bytes.all.current", 0)
-        graph = torch.cuda.CUDAGraph()
+        # keep_graph: the captured cudaGraph_t stays readable
+        # (``raw_cuda_graph``), so its kernel nodes can be counted
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
             # thread_local: the runner's other threads (pinned copies, D2H
             # fetches, event waits) do not invalidate this capture; the
@@ -638,6 +643,7 @@ class InferenceEngine:
             with torch.cuda.graph(graph, stream=side,
                                   capture_error_mode="thread_local"):
                 static_out = self._eager(static_in, group)
+            graph.instantiate()
         except Exception as e:
             raise RuntimeError(f"CUDA-graph capture of engine {self.name} "
                                f"bucket {sig} failed: {e}") from e
@@ -872,3 +878,29 @@ class InferenceEngine:
                              else self._dispatch_group(host)))
             yield from drain(window)
         yield from drain(0)
+
+
+def get_cached_engine(holder, model_function, *, device_batch_size: int,
+                      **engine_kwargs) -> InferenceEngine:
+    """The engine of ``model_function`` (``fn(module, x)`` and its
+    module) cached on ``holder`` (typically a pipeline stage), keyed as in
+    the JAX package on (model function, batch, batches per dispatch) and
+    here also on the device, which :func:`resolve_device` reads at the
+    call: repeated ``transform`` calls reuse one copy of the weights on
+    the card and its captured graphs.  The entry pins the ModelFunction,
+    so that keying on its ``id`` cannot alias a recycled object."""
+    engine_kwargs.setdefault("batches_per_dispatch",
+                             batches_per_dispatch_from_env())
+    device = resolve_device(engine_kwargs.pop("device", None))
+    cache = holder.__dict__.setdefault("_engine_cache", {})
+    key = (id(model_function), device_batch_size,
+           engine_kwargs["batches_per_dispatch"], str(device))
+    entry = cache.get(key)
+    if entry is None:
+        eng = InferenceEngine(model_function.fn, model_function.module,
+                              device=device,
+                              device_batch_size=device_batch_size,
+                              **engine_kwargs)
+        cache[key] = (model_function, eng)
+        return eng
+    return entry[1]

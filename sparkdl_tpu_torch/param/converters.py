@@ -2,9 +2,9 @@
 
 Port of ``sparkdl_tpu/param/converters.py``: validated conversion of
 user-supplied values — zoo-model names, loss identifiers, callables,
-column-name maps — into canonical internal form, raising ``TypeError`` on
-anything malformed.  The optimizer and ModelFunction converters belong to
-stages this package does not carry yet.
+column-name maps, ModelFunctions — into canonical internal form, raising
+``TypeError`` on anything malformed.  The optimizer converter belongs to
+the training stages this package does not carry yet.
 """
 
 from __future__ import annotations
@@ -70,5 +70,14 @@ class SparkDLTypeConverters:
                     f"Column/tensor mapping must be str->str, got {k!r}: {v!r}")
             out[k] = v
         return out
+
+    @staticmethod
+    def toModelFunction(value):
+        """Accept a ModelFunction (``sparkdl_tpu_torch.graph``) or raise."""
+        from sparkdl_tpu_torch.graph.function import ModelFunction
+
+        if isinstance(value, ModelFunction):
+            return value
+        raise TypeError(f"Expected a ModelFunction, got {type(value).__name__}")
 
     toCallable = staticmethod(TypeConverters.toCallable)

@@ -1,5 +1,5 @@
-"""Core Param / Params machinery (port of ``sparkdl_tpu/param/params.py``,
-without the persistence hooks).
+"""Core Param / Params machinery (port of ``sparkdl_tpu/param/params.py``;
+``save`` / ``load`` go through ``sparkdl_tpu_torch.persistence``).
 
 Re-designs the contract of ``pyspark.ml.param`` that the reference's config
 system (``python/sparkdl/param/`` — C16 in SURVEY.md) is built on, without any
@@ -255,6 +255,34 @@ class Params:
                 p = that._resolveParam(k)
                 that._paramMap[p] = p.typeConverter(v)
         return that
+
+    # -- persistence (Spark ML writable/readable contract) ------------------
+    def save(self, path: str, overwrite: bool = False) -> str:
+        """Write this stage to ``path``; see sparkdl_tpu_torch.persistence."""
+        from sparkdl_tpu_torch import persistence
+
+        return persistence.save_stage(self, path, overwrite=overwrite)
+
+    @classmethod
+    def load(cls, path: str) -> "Params":
+        from sparkdl_tpu_torch import persistence
+
+        stage = persistence.load_stage(path)
+        if not isinstance(stage, cls):
+            raise TypeError(
+                f"{path} holds a {type(stage).__name__}, not a {cls.__name__}")
+        return stage
+
+    def _persist(self, path: str):
+        """Hook: (extra metadata dict, tensors dict or None, pickles
+        dict).  The default persists nothing beyond JSON-able params."""
+        return {}, None, {}
+
+    @classmethod
+    def _restore(cls, extra: Dict, tensors, pickles: Dict, path: str):
+        """Hook: rebuild an instance from the persisted pieces (params are
+        re-applied by the caller afterwards)."""
+        return cls()
 
     def explainParam(self, param) -> str:
         p = self._resolveParam(param)

@@ -1,5 +1,5 @@
 """Stage base classes: Transformer / Estimator / Pipeline (port of
-``sparkdl_tpu/transformers/base.py``, without persistence).
+``sparkdl_tpu/transformers/base.py``).
 
 Re-creates the Spark ML Pipeline stage contract the reference builds every
 user-facing class on (``pyspark.ml.Transformer``/``Estimator`` — the
@@ -97,6 +97,17 @@ class PipelineModel(Model):
         for stage in self.stages:
             batches = stage.transformStream(batches)
         yield from batches
+
+    def _persist(self, path):
+        from sparkdl_tpu_torch import persistence
+
+        return {"stages": persistence.save_nested(self.stages, path)}, None, {}
+
+    @classmethod
+    def _restore(cls, extra, tensors, pickles, path):
+        from sparkdl_tpu_torch import persistence
+
+        return cls(persistence.load_nested(path, extra["stages"]))
 
 
 class Pipeline(Estimator):

@@ -1,12 +1,13 @@
-"""Named pretrained-model transformers (port of the zoo stages of
+"""Named pretrained-model transformers (port of
 ``sparkdl_tpu/transformers/named_image.py``).
 
 ``DeepImageFeaturizer`` / ``DeepImagePredictor`` run a zoo CNN over an
 image-struct column: arrow structs -> ``arrowStructsToBatch`` (host decode,
 uint8 RGB) -> on-device preprocess -> the model through
 :class:`~sparkdl_tpu_torch.parallel.engine.InferenceEngine` -> a float
-column.  Entry points run on CUDA unless the CPU was asked for
-(``sparkdl_tpu_torch.set_default_device``).
+column.  :class:`TFImageTransformer` runs a user :class:`ModelFunction`
+over the same decoded batches.  Entry points run on CUDA unless the CPU
+was asked for (``sparkdl_tpu_torch.set_default_device``).
 """
 
 from __future__ import annotations
@@ -23,16 +24,20 @@ import torch.nn as nn
 
 from sparkdl_tpu_torch import resolve_device
 from sparkdl_tpu_torch.image.io import arrowStructsToBatch
+from sparkdl_tpu_torch.image.schema import imageArrayToStruct, imageSchema
 from sparkdl_tpu_torch.models import (SUPPORTED_MODELS, get_model_spec,
                                       load_model, model_variant_key)
 from sparkdl_tpu_torch.models.imagenet import decode_predictions
 from sparkdl_tpu_torch.param.converters import SparkDLTypeConverters
 from sparkdl_tpu_torch.param.params import Param, TypeConverters, keyword_only
 from sparkdl_tpu_torch.param.shared import (HasBatchSize, HasInputCol,
-                                            HasModelName, HasOutputCol, HasTopK)
+                                            HasModelName, HasOutputCol,
+                                            HasOutputMode, HasTopK)
 from sparkdl_tpu_torch.parallel.engine import (InferenceEngine,
-                                               batches_per_dispatch_from_env)
+                                               batches_per_dispatch_from_env,
+                                               get_cached_engine)
 from sparkdl_tpu_torch.parallel.pipeline import pipeline_enabled_from_env
+from sparkdl_tpu_torch.persistence import PersistableModelFunctionMixin
 from sparkdl_tpu_torch.transformers.base import Transformer
 from sparkdl_tpu_torch.utils.logging import get_logger
 from sparkdl_tpu_torch.utils.prefetch import prefetch_iter
@@ -147,11 +152,21 @@ class _ImageInputStage(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
     the engine's pipelined runner pulls the decode iterator on its prepare
     thread, and with ``SPARKDL_PIPELINE=0`` a prefetch thread does."""
 
+    def _first_valid_struct(self, dataset) -> Optional[dict]:
+        """First non-null image struct, without materializing the column."""
+        col_idx = dataset.table.column_names.index(self.getInputCol())
+        for rb in dataset.iter_batches(64):
+            for s in rb.column(col_idx).to_pylist():
+                if s is not None:
+                    return s
+        return None
+
     def _decoded_chunks(self, dataset, height: int, width: int,
-                        chunk_rows: int, valid_idx: List[int]):
+                        chunk_rows: int, valid_idx: List[int],
+                        origins: Optional[List[str]] = None):
         """Generator of decoded [b,h,w,3] uint8 RGB chunks over valid rows;
-        appends the global row index of each valid row to ``valid_idx`` as
-        it advances."""
+        appends the global row index of each valid row to ``valid_idx``
+        (and its origin to ``origins`` if given) as it advances."""
         col_idx = dataset.table.column_names.index(self.getInputCol())
         offset = 0
         for rb in dataset.iter_batches(chunk_rows):
@@ -160,11 +175,16 @@ class _ImageInputStage(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
             vi_local = np.nonzero(ok)[0]
             if len(vi_local):
                 valid_idx.extend(int(offset + i) for i in vi_local)
+                if origins is not None:
+                    ocol = col.field("origin")
+                    origins.extend(
+                        (ocol[int(i)].as_py() or "") for i in vi_local)
                 yield batch
             offset += len(col)
 
     def _stream_model_outputs(self, dataset, engine_factory, height: int,
-                              width: int, valid_idx: List[int]):
+                              width: int, valid_idx: List[int],
+                              origins: Optional[List[str]] = None):
         """Lazily yield per-piece model outputs for the image column; the
         engine is only built once the first decoded chunk proves there is
         work to do.  Under the pipelined engine (``SPARKDL_PIPELINE``, on by
@@ -173,7 +193,7 @@ class _ImageInputStage(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
         the serial path only."""
         chunks = self._decoded_chunks(dataset, height, width,
                                       max(1, int(self.getBatchSize())),
-                                      valid_idx)
+                                      valid_idx, origins)
         it = (iter(chunks) if pipeline_enabled_from_env()
               else prefetch_iter(chunks, depth=2))
         first = next(it, None)
@@ -189,11 +209,11 @@ class _ImageInputStage(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
                     type(self).__name__, n, elapsed, ips, engine.device)
 
     def _run_streaming(self, dataset, engine_factory, height: int,
-                       width: int):
+                       width: int, origins: Optional[List[str]] = None):
         """(outputs [n_valid, ...] or None when nothing decoded, valid_idx)."""
         valid_idx: List[int] = []
         outs = list(self._stream_model_outputs(
-            dataset, engine_factory, height, width, valid_idx))
+            dataset, engine_factory, height, width, valid_idx, origins))
         if not outs:
             return None, valid_idx
         return np.concatenate(outs, axis=0), valid_idx
@@ -309,3 +329,130 @@ class DeepImagePredictor(_NamedImageTransformer):
                 {"class": c, "description": d, "probability": p}
                 for c, d, p in row]
         return dataset.withColumn(out_col, pa.array(values, type=pred_type))
+
+
+class TFImageTransformer(PersistableModelFunctionMixin, _ImageInputStage,
+                         HasOutputMode):
+    """A user :class:`ModelFunction` over the image column: the
+    reference's ``TFImageTransformer`` with a ModelFunction in place of a
+    TF graph, applied to the decoded ``[B,H,W,3]`` uint8 RGB batch on the
+    card.  ``outputMode="vector"`` emits a flat float vector per row;
+    ``"image"`` packs a ``[H,W,C]`` float output back into an image struct
+    (C of 3 or 4, RGB(A) turned back to the struct's BGR(A)), chunk by
+    chunk as the engine yields them."""
+
+    modelFunction = Param(
+        "undefined", "modelFunction",
+        "ModelFunction applied to the decoded [B,H,W,3] uint8 RGB batch",
+        typeConverter=SparkDLTypeConverters.toModelFunction)
+
+    inputSize = Param(
+        "undefined", "inputSize",
+        "[height, width] the images are resized to before the model; "
+        "defaults to the first row's stored size",
+        typeConverter=TypeConverters.toList)
+
+    @keyword_only
+    def __init__(self, inputCol: Optional[str] = None,
+                 outputCol: Optional[str] = None,
+                 modelFunction=None,
+                 inputSize: Optional[Sequence[int]] = None,
+                 outputMode: str = "vector",
+                 batchSize: Optional[int] = None):
+        super().__init__()
+        self._setDefault(outputMode="vector", batchSize=64)
+        self._set(**self._input_kwargs)
+
+    @keyword_only
+    def setParams(self, inputCol: Optional[str] = None,
+                  outputCol: Optional[str] = None,
+                  modelFunction=None,
+                  inputSize: Optional[Sequence[int]] = None,
+                  outputMode: Optional[str] = None,
+                  batchSize: Optional[int] = None):
+        return self._set(**self._input_kwargs)
+
+    def getModelFunction(self):
+        return self.getOrDefault(self.modelFunction)
+
+    def transformStream(self, batches, params=None):
+        """Stream with one input size: when ``inputSize`` is unset it is
+        read once from the first valid struct and pinned for the whole
+        stream, so that batches whose first images differ in size do not
+        emit different feature widths into one column."""
+        if params:
+            yield from self.copy(params).transformStream(batches)
+            return
+        if self.isDefined(self.inputSize):
+            yield from super().transformStream(batches)
+            return
+        from sparkdl_tpu_torch.frame import DataFrame
+
+        it = iter(batches)
+        buffered, size = [], None
+        for rb in it:
+            buffered.append(rb)
+            s = self._first_valid_struct(DataFrame(rb))
+            if s is not None:
+                size = [int(s["height"]), int(s["width"])]
+                break
+        if size is None:
+            raise ValueError(
+                f"No decodable images in column {self.getInputCol()!r}")
+        pinned = self.copy({"inputSize": size})
+        yield from pinned.transformStream(chain(buffered, it))
+
+    def _transform(self, dataset):
+        if self.isDefined(self.inputSize):
+            h, w = (int(v) for v in self.getOrDefault(self.inputSize))
+        else:
+            first = self._first_valid_struct(dataset)
+            if first is None:
+                raise ValueError(
+                    f"No decodable images in column {self.getInputCol()!r}")
+            h, w = int(first["height"]), int(first["width"])
+        n = len(dataset)
+
+        def factory():
+            return get_cached_engine(self, self.getModelFunction(),
+                                     device_batch_size=self.getBatchSize())
+
+        if self.getOutputMode() == "image":
+            return self._transform_image_mode(dataset, factory, h, w, n)
+        out, valid_idx = self._run_streaming(dataset, factory, h, w)
+        if out is None:
+            # nothing decodable but the size was known (explicit or pinned
+            # by transformStream): an all-null batch mid-stream stays null
+            return dataset.withColumn(
+                self.getOutputCol(),
+                pa.array([None] * n, type=pa.list_(pa.float32())))
+        flat = np.asarray(out).reshape(len(out), -1)
+        return dataset.withColumn(
+            self.getOutputCol(), _float_list_array(flat, valid_idx, n))
+
+    def _transform_image_mode(self, dataset, engine_factory, h, w, n):
+        origins: List[str] = []
+        valid_idx: List[int] = []
+        packed: List[dict] = []
+        consumed = 0
+        for out in self._stream_model_outputs(
+                dataset, engine_factory, h, w, valid_idx, origins):
+            out = np.asarray(out)
+            if out.ndim != 4:
+                raise ValueError(
+                    f'outputMode="image" needs [B,H,W,C] model output, got '
+                    f"shape {out.shape}")
+            for row, origin in zip(out, origins[consumed:consumed + len(out)]):
+                if row.shape[-1] == 3:
+                    row = row[:, :, ::-1]  # model RGB -> struct BGR
+                elif row.shape[-1] == 4:
+                    row = row[:, :, [2, 1, 0, 3]]  # RGBA -> BGRA
+                packed.append(imageArrayToStruct(
+                    np.ascontiguousarray(row, dtype=np.float32),
+                    origin=origin))
+            consumed += len(out)
+        values: List[Optional[dict]] = [None] * n
+        for struct, i in zip(packed, valid_idx):
+            values[i] = struct
+        return dataset.withColumn(
+            self.getOutputCol(), pa.array(values, type=imageSchema))

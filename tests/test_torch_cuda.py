@@ -195,3 +195,122 @@ def test_every_preprocess_mode_runs_in_a_captured_forward(cuda, mode):
     assert eng.metrics.counters["engine.graph_captures"] == 1
     np.testing.assert_allclose(got, pre(torch.from_numpy(x)).numpy(),
                                rtol=1e-6, atol=1e-6)
+
+
+def _branchy_config():
+    """A branchy CNN's Keras model config (Keras 2's node form), written
+    out here: the card has no Keras to make one.  Stride-2 SAME pools at
+    odd sizes, H != W."""
+    def layer(cls, name, cfg, *inputs):
+        return {"class_name": cls, "name": name,
+                "config": dict(cfg, name=name),
+                "inbound_nodes": ([[[i, 0, 0, {}] for i in inputs]]
+                                  if inputs else [])}
+
+    conv = {"kernel_size": [3, 3], "strides": [1, 1], "padding": "same",
+            "use_bias": True, "activation": "linear"}
+    pool = {"pool_size": [3, 3], "strides": [2, 2], "padding": "same"}
+    layers = [
+        layer("InputLayer", "img", {"batch_input_shape": [None, 17, 15, 3]}),
+        layer("Rescaling", "scale", {"scale": 1 / 127.5, "offset": -1.0},
+              "img"),
+        layer("Conv2D", "c1", dict(conv, filters=8, strides=[2, 2]), "scale"),
+        layer("BatchNormalization", "bn1", {"axis": -1, "epsilon": 1e-3,
+                                            "center": True, "scale": True},
+              "c1"),
+        layer("ReLU", "relu", {}, "bn1"),
+        layer("SeparableConv2D", "sep", dict(conv, filters=8,
+                                             depth_multiplier=1), "relu"),
+        layer("DepthwiseConv2D", "dw", dict(conv, depth_multiplier=1),
+              "relu"),
+        layer("Add", "add", {}, "sep", "dw"),
+        layer("AveragePooling2D", "avg", pool, "add"),
+        layer("MaxPooling2D", "max", pool, "add"),
+        layer("Concatenate", "cat", {"axis": -1}, "avg", "max"),
+        layer("Conv2D", "c2", dict(conv, filters=4, kernel_size=[1, 1],
+                                   activation="relu"), "cat"),
+        layer("Flatten", "flat", {}, "c2"),
+        layer("Dense", "d", {"units": 3, "activation": "softmax"}, "flat"),
+    ]
+    return {"class_name": "Functional", "config": {
+        "name": "branchy", "layers": layers,
+        "input_layers": [["img", 0, 0]], "output_layers": [["d", 0, 0]]}}
+
+
+def _branchy_model_function():
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.graph.keras_convert import KerasModel
+
+    module = KerasModel(_branchy_config())
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, t in module.state_dict().items():
+            t.copy_(torch.rand(t.shape, generator=g) * 0.5 + 0.75
+                    if name.endswith("running_var") else
+                    torch.randn(t.shape, generator=g) * 0.3)
+    return ModelFunction.from_module(module, input_names=("img",),
+                                     output_names=("d",))
+
+
+def test_converted_keras_model_is_captured(cuda):
+    """The converter's module (NHWC tensors, a permuted view per conv and
+    pool, BatchNorm on its moving statistics) runs as one captured graph:
+    graphed == eager bit for bit, and the card within 1e-4 of the CPU with
+    TF32 off."""
+    from sparkdl_tpu_torch.parallel.engine import InferenceEngine
+
+    mf = _branchy_model_function()
+    x = np.random.default_rng(2).integers(0, 256, (B, 17, 15, 3)).astype(
+        np.float32)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        eng = InferenceEngine(mf.fn, mf.module, device="cuda",
+                              device_batch_size=B)
+        graphed = eng.run_padded(x)
+        eng.capture = False
+        eager = eng.run_padded(x)
+        eng.capture = True
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert eng.metrics.counters["engine.graph_captures"] == 1
+    assert torch.equal(graphed, eager)
+    cpu = InferenceEngine(mf.fn, mf.module, device="cpu",
+                          device_batch_size=B)(x)
+    np.testing.assert_allclose(graphed.cpu().numpy(), cpu, rtol=1e-4,
+                               atol=1e-6)
+
+
+def test_image_udf_converter_stage_is_captured(cuda):
+    """The image UDF's converter stage (uint8 BGR -> float RGB, inside the
+    program) composed with a converted model, on an image-struct column:
+    the card's UDF (its engine captures by default) equals the CPU's
+    within 1e-4; a null row stays null."""
+    import sparkdl_tpu_torch
+    from sparkdl_tpu_torch.image.schema import (imageArrayToStruct,
+                                                structsToArrow)
+    from sparkdl_tpu_torch.udf import UDFRegistry, register_image_udf
+
+    rng = np.random.default_rng(3)
+    structs = [imageArrayToStruct(rng.integers(0, 256, (17, 15, 3),
+                                               dtype=np.uint8))
+               for _ in range(B + 3)] + [None]
+    col = structsToArrow(structs).column("image")
+    reg = UDFRegistry()
+    udf = register_image_udf("branchy", _branchy_model_function(),
+                             input_size=(17, 15), registry=reg, batch_size=B)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = udf(col)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    with sparkdl_tpu_torch.default_device("cpu"):
+        cpu_reg = UDFRegistry()
+        want = register_image_udf("branchy", _branchy_model_function(),
+                                  input_size=(17, 15), registry=cpu_reg,
+                                  batch_size=B)(col)
+    assert got[-1] is None and want[-1] is None
+    np.testing.assert_allclose(np.asarray(got[:-1]), np.asarray(want[:-1]),
+                               rtol=1e-4, atol=1e-6)

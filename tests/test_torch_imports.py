@@ -1,7 +1,11 @@
 """The port stands alone: no module of ``sparkdl_tpu_torch``, not
 ``chip_smoke.py`` and none of the port's tools imports JAX, flax, optax or
-the JAX package, and an entry point with no CUDA device and no CPU asked
-for raises instead of carrying on quietly on the CPU."""
+the JAX package; no module of the package and not ``chip_smoke.py``
+imports Keras or TensorFlow (the card has neither; the two tools that
+write the committed Keras tables run Keras here, inside a function), and
+h5py is imported only inside the file readers; and an entry point with no
+CUDA device and no CPU asked for raises instead of carrying on quietly on
+the CPU."""
 
 import ast
 import pathlib
@@ -20,7 +24,8 @@ def _port_files():
     files += [ROOT / "tools" / name for name in (
         "port_profile.py", "sepconv_compare.py", "mbconv_compare.py",
         "sepconv_tiled_compare.py", "gen_wgmma.py", "pipeline_probe.py",
-        "gen_keras_layers.py")]
+        "gen_keras_layers.py", "gen_keras_configs.py",
+        "graph_count_probe.py", "keras_stage_probe.py")]
     return files
 
 
@@ -34,22 +39,63 @@ def _imports(path):
             yield node.module
 
 
+def _module_level_imports(path):
+    """Imports that run when the module is imported (not inside a
+    function or class body)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and not node.level:
+            yield node.module
+        else:
+            stack.extend(ast.iter_child_nodes(node))
+
+
 # The engine's core (captured forward, pipelined runner, failure domain)
-# and the modules it leans on: the walk below must reach each of them.
+# and the modules it leans on, and the modules of configs 3 and 4 (the
+# Keras converter, the tensor and image-file stages, the UDF registry,
+# persistence): the walk below must reach each of them.
 ENGINE_CORE = ("parallel/engine.py", "parallel/pipeline.py",
                "utils/metrics.py", "utils/retry.py", "faults/__init__.py",
                "faults/errors.py", "faults/sites.py", "faults/spec.py",
                "faults/plan.py")
+KERAS_SLICE = ("graph/__init__.py", "graph/utils.py", "graph/function.py",
+               "graph/keras_convert.py", "transformers/tensor.py",
+               "transformers/image_file.py", "udf/__init__.py",
+               "udf/registry.py", "persistence.py", "image/io.py",
+               "models/keras_import.py")
 
 
 def test_port_imports_nothing_of_jax():
     files = _port_files()
     assert len(files) > 15 and all(f.exists() for f in files)
-    for rel in ENGINE_CORE:
+    for rel in ENGINE_CORE + KERAS_SLICE:
         assert ROOT / "sparkdl_tpu_torch" / rel in files, rel
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in FORBIDDEN]
     assert bad == []
+
+
+def test_port_imports_no_keras_and_h5py_only_in_readers():
+    files = [f for f in _port_files() if f.parent.name != "tools"]
+    assert ROOT / "chip_smoke.py" in files
+    keras = [(str(f.relative_to(ROOT)), mod) for f in files
+             for mod in _imports(f)
+             if mod.split(".")[0] in ("keras", "tensorflow", "tf_keras")]
+    assert keras == []
+    eager_h5py = [str(f.relative_to(ROOT)) for f in files
+                  if "h5py" in set(_module_level_imports(f))]
+    assert eager_h5py == []
+    readers = [str(f.relative_to(ROOT)) for f in files
+               if "h5py" in set(_imports(f))]
+    assert readers == ["sparkdl_tpu_torch/models/keras_import.py"]
 
 
 def test_entry_point_without_cuda_raises(monkeypatch):
@@ -84,3 +130,42 @@ def test_entry_point_without_cuda_raises(monkeypatch):
     assert sparkdl_tpu_torch.resolve_device("cpu") == torch.device("cpu")
     with sparkdl_tpu_torch.default_device("cpu"):
         assert sparkdl_tpu_torch.resolve_device() == torch.device("cpu")
+
+
+def test_tensor_stages_and_udf_without_cuda_raise(monkeypatch):
+    """The stages and the UDF of configs 3 and 4 build their engine at the
+    first batch, and a ModelFunction called directly resolves its device
+    at the call: on the card unless the CPU was asked for."""
+    import torch
+
+    import sparkdl_tpu_torch
+    from sparkdl_tpu_torch.frame import DataFrame
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.image.schema import imageArrayToStruct, structsToArrow
+    from sparkdl_tpu_torch.transformers import (ImageFileTransformer,
+                                                ModelTransformer)
+    from sparkdl_tpu_torch.udf import UDFRegistry, register_image_udf
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sparkdl_tpu_torch.set_default_device(None)
+    mf = ModelFunction.from_module(torch.nn.Flatten())
+    rows = DataFrame({"x": [[1.0, 2.0]]})
+    stage = ModelTransformer(inputCol="x", outputCol="y", modelFunction=mf)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stage.transform(rows)
+    files = ImageFileTransformer(
+        inputCol="x", outputCol="y", modelFunction=mf,
+        imageLoader=lambda uri: np.zeros((2, 2, 3), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        files.transform(rows)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mf(np.ones((1, 2), np.float32))
+    udf = register_image_udf("flat", mf, registry=UDFRegistry())
+    col = structsToArrow([imageArrayToStruct(
+        np.zeros((4, 4, 3), np.uint8))]).column("image")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        udf(col)
+    with sparkdl_tpu_torch.default_device("cpu"):
+        assert stage.transform(rows).column_to_numpy("y").shape == (1, 2)
+        assert len(udf(col)[0]) == 48
+        assert mf(np.ones((1, 2), np.float32)).device == torch.device("cpu")
