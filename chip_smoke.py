@@ -52,7 +52,23 @@ weights and batch 32:
     (within 1e-6 of the converted model, null row kept),
     ``KerasTransformer`` and ``TFTransformer`` card vs CPU (1e-5), and a
     save/load round trip of a stage holding the converted model (bit for
-    bit).
+    bit);
+  * [tuning] (last), BASELINE config 5 with the same converted
+    InceptionV3 at 299x299 (none of the three kernels):
+    ``KerasImageFileEstimator`` over 48 tinted JPEGs (batch 16) tuned by
+    ``CrossValidator`` (3 folds) over optimizer {adam, sgd} x epochs
+    {1, 2}: 13 fits with finite losses, 4 metrics, the best model's
+    output, the graph pools held after the run no more than after the
+    first fold model's transform plus one model's pool; one SGD fit card
+    vs CPU (step losses 1e-6, the update 2e-4, both under TF32's
+    readings, which the phase checks), a small Keras CNN's whole tuning
+    run card vs CPU (equal metrics and best map, losses and outputs
+    1e-6), ResNet50 with ``trainBatchStats`` card vs CPU (its statistics'
+    move after one step 1e-5; the parameters after one step and the
+    statistics after two no further from a float64 CPU fit than 4x the
+    CPU's float32 fit), a
+    checkpointed fit resumed against the uninterrupted one,
+    and the CV model's save and load (bit for bit).
 
 B1 is also held against its plain version at ragged shapes (a pixel count
 that is not a multiple of 64, F = 200, all four ReLU variants), and each of
@@ -98,17 +114,25 @@ phases check that path itself:
     engine, bit for bit; img/s of pipelined and serial, one batch's
     upload pageable vs pinned, and the runner's stage summary.
 
+After every phase a ``[pool]`` line gives the CUDA-graph pool bytes that
+live engines hold, the zoo engine cache's share of them and its bound,
+and the card memory reserved: nothing clears the zoo caches between
+phases.
+
 Output: the card's name and power limit first, one line per phase, then
 one JSON line of InceptionV3's numbers (img/s, forward ms, relative
 errors, the recipe's accuracy), one of [zoo2]'s (img/s, forward ms,
 relative errors), one JSON line of the [graph] and [pipeline] numbers,
 one of [keras]'s (forward ms of the converted model beside the zoo's
 per-branch route, launches per replay, host us per dispatch, graph pool,
-the stages' img/s, relative errors),
+the stages' img/s, relative errors), one of [tuning]'s (wall time, fit
+and eval img/s, captures, metrics, relative errors, the pools after
+every phase),
 one JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import copy
 import ctypes
 import gc
 import json
@@ -1318,16 +1342,10 @@ def phase_keras(sepconv):
                                                 KerasImageFileTransformer,
                                                 KerasTransformer,
                                                 TFTransformer)
-    from sparkdl_tpu_torch.transformers import named_image as ni
     from sparkdl_tpu_torch.udf import registerKerasImageUDF, udf_registry
 
     tag = "keras"
     zero = dict(sepconv=0, sepconv_tiled=0, mbconv=0)
-    # the earlier phases' zoo engines, whose graph pools hold most of the
-    # card, are not used again
-    ni.clear_model_caches()
-    gc.collect()
-    torch.cuda.empty_cache()
     with open(KERAS_CONFIG) as f:
         config = json.load(f)
     layers = _keras_layers_for("InceptionV3", SEED + 31)
@@ -1418,7 +1436,7 @@ def phase_keras(sepconv):
     nodes, zoo_nodes = (graph_kernel_nodes(x.graph)[0] for x in (g, zg))
     prof_total, zprof_total = (profiled_kernels(x.graph.replay)[0]
                                for x in (g, zg))
-    pool = sum(e["pool_bytes"] for e in eng.graphs())
+    pool = eng.graph_pool_bytes  # the engine's one pool, all its captures
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -1609,6 +1627,633 @@ def phase_keras(sepconv):
         top5_equal_rows=same5,
         config3_img_s=dict(pipelined=ips3["1"], serial=ips3["0"]),
         config4_img_s=ips4, save_load_s=io_s, launches=counts)
+
+
+TUNING_PER_CLASS = 24          # 48 tinted JPEGs, two classes
+TUNING_BATCH = 16
+TUNING_BASES = [(200, 70, 60), (60, 80, 200)]
+# the small CNN's classes are closer, so that its grid points score apart
+TUNING_CNN_BASES = [(132, 120, 112), (112, 120, 132)]
+TUNING_CNN_SIZE = 32
+# card vs CPU, f32 with TF32 off: the full-width fit's limits lie under
+# TF32's readings (2.8e-6, 8.3e-4) and above the f32 runs' (1.3e-8,
+# 1.5e-5 on an H100; PERF.md), and the same fit with TF32 on must fail them;
+# the others lie 20-50x above their f32 readings
+TUNING_LOSS_TOL = 1e-6          # per-step losses of one full-width SGD fit
+TUNING_UPDATE_TOL = 2e-4        # its fitted tensors: ||d_card - d_cpu|| /
+#                                 ||d_cpu||, d the update of every tensor
+TUNING_CNN_LOSS_TOL = 1e-6      # the small CNN's per-epoch losses
+TUNING_CNN_OUT_TOL = 1e-6       # the small CNN's best model outputs
+TUNING_STATS_TOL = 1e-5         # ResNet50's running statistics' move
+TUNING_STATS_F64_RATIO = 4.0    # the card's distance from a float64 fit
+#                                 over the CPU float32 fit's (ResNet50)
+
+
+def load_small(uri):
+    """The small CNN's image loader: PIL decode, resize to 32x32, x / 127.5
+    - 1.  Module-level, so that a fitted model holding it saves."""
+    from PIL import Image
+
+    img = Image.open(uri).convert("RGB").resize(
+        (TUNING_CNN_SIZE, TUNING_CNN_SIZE), Image.BILINEAR)
+    return np.asarray(img, dtype=np.float32) / 127.5 - 1.0
+
+
+def load_resnet(uri):
+    """ResNet50's loader for the trainBatchStats fit: 224x224, caffe's
+    BGR mean subtraction (the zoo's ResNet50 preprocess)."""
+    from PIL import Image
+
+    img = Image.open(uri).convert("RGB").resize((224, 224), Image.BILINEAR)
+    bgr = np.asarray(img, dtype=np.float32)[..., ::-1]
+    return bgr - np.asarray([103.939, 116.779, 123.68], np.float32)
+
+
+def _tuning_files(tmp, bases=TUNING_BASES, noise=50.0, seed=SEED + 53):
+    """TUNING_PER_CLASS tinted JPEGs of each class of ``bases`` (sizes
+    300-400, clip(base + N(0, noise^2)) per pixel), in a seeded order;
+    returns (paths, labels)."""
+    from PIL import Image
+
+    os.makedirs(tmp)
+    rng = np.random.default_rng(seed)
+    labels = rng.permutation(np.repeat(np.arange(2), TUNING_PER_CLASS))
+    paths = []
+    for i, k in enumerate(labels):
+        h, w = (int(v) for v in rng.integers(300, 400, 2))
+        img = np.clip(np.asarray(bases[k], np.float32)
+                      + rng.normal(0, noise, (h, w, 3)), 0, 255)
+        p = os.path.join(tmp, f"img_{i:03d}.jpg")
+        Image.fromarray(img.astype(np.uint8)).save(p, quality=90)
+        paths.append(p)
+    return paths, [int(k) for k in labels]
+
+
+def _cnn_config():
+    """A small Keras CNN's model config (Keras 3's Sequential form): two
+    Conv2D + BatchNormalization, Dropout, MaxPooling2D,
+    GlobalAveragePooling2D, a softmax Dense over the two classes."""
+    def layer(cls, name, **cfg):
+        return {"class_name": cls, "config": dict(cfg, name=name)}
+
+    return {"class_name": "Sequential", "config": {"name": "cnn", "layers": [
+        layer("InputLayer", "image", batch_shape=[
+            None, TUNING_CNN_SIZE, TUNING_CNN_SIZE, 3]),
+        layer("Conv2D", "conv1", filters=16, kernel_size=[3, 3],
+              padding="same", activation="relu", use_bias=True),
+        layer("BatchNormalization", "bn1", axis=-1, epsilon=1e-3),
+        layer("Dropout", "drop", rate=0.25),
+        layer("MaxPooling2D", "pool", pool_size=[2, 2]),
+        layer("Conv2D", "conv2", filters=32, kernel_size=[3, 3],
+              padding="same", activation="relu", use_bias=True),
+        layer("BatchNormalization", "bn2", axis=-1, epsilon=1e-3),
+        layer("GlobalAveragePooling2D", "gap"),
+        layer("Dense", "out", units=2, activation="softmax",
+              use_bias=True)]}}
+
+
+def _seeded_cnn_arrays(module, seed):
+    """Keras-layout arrays for every weighted layer of the converted CNN:
+    kernels N(0, 1/fan_in) (HWIO, dense [in, out]), biases N(0, 0.05^2),
+    BatchNorm gamma and variance U(0.8, 1.2), beta and mean N(0, 0.1^2)."""
+    from sparkdl_tpu_torch.graph.keras_convert import layer_key
+
+    rng = np.random.default_rng(seed)
+    layers = []
+    for name, node in module.weighted_nodes().items():
+        m = module.layers[layer_key(name)]
+        if node.op == "BatchNormalization":
+            c = m.running_mean.shape[0]
+            arrays = [rng.uniform(0.8, 1.2, c), rng.normal(0, 0.1, c),
+                      rng.normal(0, 0.1, c), rng.uniform(0.8, 1.2, c)]
+        else:
+            w = m.weight
+            shape = (tuple(w.shape[2:]) + (w.shape[1], w.shape[0])
+                     if w.dim() == 4 else (w.shape[1], w.shape[0]))
+            fan_in = int(np.prod(shape[:-1]))
+            arrays = [rng.normal(0, 1 / math.sqrt(fan_in), shape),
+                      rng.normal(0, 0.05, shape[-1])]
+        layers.append((name, node.op, [a.astype(np.float32)
+                                       for a in arrays]))
+    return layers
+
+
+class _FitLog:
+    """Records every fit of the estimators while it is entered: the
+    per-epoch losses, each epoch's per-step losses, the images each fit
+    stepped over and its seconds (the card synchronised on both ends).
+    Instrumentation of this script: it wraps ``fit_data_parallel`` where
+    the image-file estimator calls it and ``_run_grouped_steps`` in the
+    train module."""
+
+    def __enter__(self):
+        from sparkdl_tpu_torch.estimators import image_file_estimator as ife
+        from sparkdl_tpu_torch.parallel import train
+
+        self.fits = []
+        self._saved = (ife.fit_data_parallel, train._run_grouped_steps)
+        fit, grouped = self._saved
+
+        def logged_fit(fn, params, x, y, **kw):
+            rec = dict(steps=[], batch=min(int(kw.get("batch_size", 32)),
+                                           x.shape[0]))
+            self.fits.append(rec)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fit(fn, params, x, y, **kw)
+            torch.cuda.synchronize()
+            rec.update(seconds=time.perf_counter() - t0, losses=out[1],
+                       images=rec["batch"] * sum(map(len, rec["steps"])))
+            return out
+
+        def logged_steps(*a, **k):
+            losses = grouped(*a, **k)
+            self.fits[-1]["steps"].append(list(losses))
+            return losses
+
+        ife.fit_data_parallel = logged_fit
+        train._run_grouped_steps = logged_steps
+        return self
+
+    def __exit__(self, *exc):
+        from sparkdl_tpu_torch.estimators import image_file_estimator as ife
+        from sparkdl_tpu_torch.parallel import train
+
+        ife.fit_data_parallel, train._run_grouped_steps = self._saved
+
+
+class _CaptureCount:
+    """Counts engine captures while entered (wraps the engine's capture)."""
+
+    def __enter__(self):
+        from sparkdl_tpu_torch.parallel.engine import InferenceEngine
+
+        self.n = 0
+        self._saved = InferenceEngine._capture_locked
+        saved = self._saved
+
+        def counted(eng, *a, **k):
+            self.n += 1
+            return saved(eng, *a, **k)
+
+        InferenceEngine._capture_locked = counted
+        return self
+
+    def __exit__(self, *exc):
+        from sparkdl_tpu_torch.parallel.engine import InferenceEngine
+
+        InferenceEngine._capture_locked = self._saved
+
+
+def _model_engine(model):
+    """The engine a fitted ImageFileModel's transform runs (cached on the
+    model's transformer)."""
+    t = model.__dict__["_transformer_cache"][1]
+    (entry,) = t.__dict__["_engine_cache"].values()
+    return entry[1]
+
+
+def pool_line(tag):
+    """Print and return the graph pool bytes held after a phase: every
+    live engine's, and the zoo engine cache's share and bound."""
+    from sparkdl_tpu_torch.parallel.engine import graph_pool_bytes_held
+    from sparkdl_tpu_torch.transformers import named_image as ni
+
+    gc.collect()
+    held = graph_pool_bytes_held()
+    cache = ni._ENGINE_CACHE
+    cache.reaccount()
+    out = dict(held_bytes=held, zoo_cache_bytes=cache.total_bytes,
+               zoo_cache_engines=len(cache),
+               zoo_cache_cap_bytes=cache.cap_bytes,
+               reserved_bytes=torch.cuda.memory_reserved())
+    print(f"[pool] after {tag}: graph pools held by live engines "
+          f"{held / 2**20:.1f} MiB; zoo engine cache {len(cache)} engines, "
+          f"{cache.total_bytes / 2**20:.1f} MiB of its "
+          f"{cache.cap_bytes / 2**20:.0f} MiB bound; card memory reserved "
+          f"{out['reserved_bytes'] / 2**30:.2f} GiB", flush=True)
+    return out
+
+
+def _update_rel(fitted, card, init):
+    """||d_card - d_cpu|| / ||d_cpu|| over every tensor, d = fitted -
+    init (the fit's update; the tensors themselves agree far closer)."""
+    num = sum(float(((card[k].double() - fitted[k].double()) ** 2).sum())
+              for k in fitted)
+    den = sum(float(((fitted[k].double() - init[k].double()) ** 2).sum())
+              for k in fitted)
+    return math.sqrt(num / den)
+
+
+def phase_tuning(sepconv):
+    """[tuning]: BASELINE config 5.  A user's Keras InceptionV3 (the
+    committed config with seeded Keras-layout arrays, the in-memory
+    KerasFile of [keras]) at 299x299 is fine-tuned by
+    KerasImageFileEstimator over 48 tinted JPEGs of two classes (one-hot
+    over the 1000 outputs, categorical_crossentropy, batch 16) and tuned by
+    CrossValidator(numFolds=3) over the grid optimizer {adam, sgd} x
+    fitParams {1 epoch, 2 epochs} with MulticlassClassificationEvaluator.
+    f32 with TF32 off unless said; B1-B3 must not launch.
+
+      1. the CV run: 13 fits with finite losses, 4 avgMetrics, the best
+         model transforms; the graph pool bytes held after it no more
+         than after the first fitted model's transform plus one model's
+         pool; wall time, fit img/s, eval img/s, captures;
+      2. one SGD fit of the same model, 1 epoch of 2 steps, card against
+         CPU from the same tensors and batches: per-step losses within
+         TUNING_LOSS_TOL, the fitted tensors' update within
+         TUNING_UPDATE_TOL; with TF32 on both must read above them;
+      3. a small Keras CNN (_cnn_config) tuned over the same grid and
+         folds on the card and on the CPU: equal avgMetrics and best index,
+         per-epoch losses within TUNING_CNN_LOSS_TOL, the best model's
+         outputs within TUNING_CNN_OUT_TOL;
+      4. trainBatchStats=True on the zoo's ResNet50 (from_module): one
+         SGD step of 8 images, its updated running statistics card vs CPU
+         within TUNING_STATS_TOL (relative to their move); the
+         parameters' update after one step and the statistics' after two
+         on the card no further from the CPU's float64 fit than
+         TUNING_STATS_F64_RATIO times the CPU's float32 fit;
+      5. the CV model saved and loaded transforms bit for bit;
+      6. a 2-epoch SGD fit interrupted after epoch 1 (checkpoint_dir)
+         resumes to the uninterrupted fit within TUNING_UPDATE_TOL."""
+    import tempfile
+
+    from sparkdl_tpu_torch import default_device
+    from sparkdl_tpu_torch.estimators import (CrossValidator,
+                                              CrossValidatorModel,
+                                              ImageFileEstimator,
+                                              ImageFileModel,
+                                              KerasImageFileEstimator,
+                                              MulticlassClassificationEvaluator,
+                                              ParamGridBuilder)
+    from sparkdl_tpu_torch.frame import DataFrame
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.graph.keras_convert import KerasModel
+    from sparkdl_tpu_torch.models import keras_import, load_model
+    from sparkdl_tpu_torch.parallel.engine import graph_pool_bytes_held
+
+    tag = "tuning"
+    zero = dict(sepconv=0, sepconv_tiled=0, mbconv=0)
+    out = {}
+    problems = []
+
+    def expect(cond, msg):
+        """A failed check is printed at once and fails the phase at its
+        end, so that one run reads every section's numbers."""
+        if not cond:
+            print(f"FAIL (at the phase's end): {msg}", flush=True)
+            problems.append(msg)
+    with open(KERAS_CONFIG) as f:
+        config = json.load(f)
+    kfile = keras_import.keras_file(
+        config, _keras_layers_for("InceptionV3", SEED + 31))
+    mf = ModelFunction.from_keras(kfile)
+    init = {k: v.clone() for k, v in mf.module.state_dict().items()}
+    reset_counts(sepconv)  # read at the phase's end: none of B1-B3 runs
+
+    def estimator(model_file, loader, **kw):
+        return KerasImageFileEstimator(
+            inputCol="uri", outputCol="preds", labelCol="onehot",
+            modelFile=model_file, imageLoader=loader,
+            kerasLoss="categorical_crossentropy", batchSize=TUNING_BATCH,
+            **kw)
+
+    def grid_for(est):
+        return (ParamGridBuilder().addGrid(est.optimizer, ["adam", "sgd"])
+                .addGrid(est.fitParams, [{"epochs": 1}, {"epochs": 2}])
+                .build())
+
+    evaluator = MulticlassClassificationEvaluator(labelCol="label",
+                                                  predictionCol="preds")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, labels = _tuning_files(os.path.join(tmp, "images"))
+
+        def frame(n_out, idx=None, files=(paths, labels)):
+            uris, ys = files
+            idx = range(len(uris)) if idx is None else idx
+            onehot = np.eye(n_out, dtype=np.float32)
+            return DataFrame({"uri": [uris[i] for i in idx],
+                              "label": [ys[i] for i in idx],
+                              "onehot": [onehot[ys[i]].tolist()
+                                         for i in idx]})
+
+        df = frame(1000)
+
+        # 1. config 5 at full width
+        est = estimator(kfile, load_inception_v3)
+        est._set(modelFunction=mf)  # the KerasFile converted once
+        pools = []
+        real_transform = ImageFileModel._transform
+        evals = []
+
+        def logged_transform(model, dataset):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = real_transform(model, dataset)
+            torch.cuda.synchronize()
+            evals.append((len(dataset), time.perf_counter() - t0))
+            pools.append((graph_pool_bytes_held(),
+                          _model_engine(model).graph_pool_bytes))
+            return result
+
+        ImageFileModel._transform = logged_transform
+        try:
+            with _FitLog() as log, _CaptureCount() as caps:
+                t0 = time.perf_counter()
+                cv = CrossValidator(estimator=est,
+                                    estimatorParamMaps=grid_for(est),
+                                    evaluator=evaluator, numFolds=3).fit(df)
+                preds = cv.transform(df).column_to_numpy("preds")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            ImageFileModel._transform = real_transform
+        gc.collect()
+        held_after = graph_pool_bytes_held()
+        counts = read_counts(sepconv)
+        expect(counts == zero, f"[{tag}] launches {counts}, want none of "
+                              f"B1-B3 in the CV run")
+        losses = [l for fit in log.fits for l in fit["losses"]]
+        expect(len(log.fits) == 13 and all(np.isfinite(losses)),
+              f"[{tag}] {len(log.fits)} fits (want 13), losses finite "
+              f"{bool(np.all(np.isfinite(losses)))}")
+        expect(len(cv.avgMetrics) == 4 and preds.shape == (len(paths), 1000)
+              and np.isfinite(preds).all(),
+              f"[{tag}] avgMetrics {cv.avgMetrics}, best model's output "
+              f"{preds.shape}")
+        bound = pools[0][0] + pools[0][1]
+        expect(held_after <= bound,
+              f"[{tag}] graph pools held after the CV run "
+              f"{held_after / 2**20:.1f} MiB > after the first fitted "
+              f"model's transform plus one model's pool "
+              f"{bound / 2**20:.1f} MiB")
+        fit_s = sum(f["seconds"] for f in log.fits)
+        fit_images = sum(f["images"] for f in log.fits)
+        eval_s = sum(s for _, s in evals[:12])
+        eval_images = sum(n for n, _ in evals[:12])
+        best = int(np.argmax(cv.avgMetrics))
+        out["cv"] = dict(
+            wall_s=wall, fits=len(log.fits), fit_s=fit_s,
+            fit_img_s=fit_images / fit_s, eval_img_s=eval_images / eval_s,
+            captures=caps.n, avg_metrics=cv.avgMetrics, best_index=best,
+            epoch_losses=[f["losses"] for f in log.fits],
+            pool_after_first_transform_bytes=pools[0][0],
+            model_pool_bytes=pools[0][1], pool_held_after_bytes=held_after,
+            pool_held_per_transform_bytes=[p for p, _ in pools])
+        print(f"[{tag}] config 5: KerasImageFileEstimator (converted Keras "
+              f"InceptionV3, 299x299, batch {TUNING_BATCH}) x CrossValidator"
+              f"(3 folds) over optimizer {{adam, sgd}} x epochs {{1, 2}} on "
+              f"{len(paths)} tinted JPEGs: {len(log.fits)} fits, finite "
+              f"losses, avgMetrics {[round(float(m), 4) for m in cv.avgMetrics]}, "
+              f"best map {best}; wall {wall:.1f}s, fit {fit_s:.1f}s for "
+              f"{fit_images} images ({fit_images / fit_s:.1f} img/s), eval "
+              f"{eval_images / eval_s:.1f} img/s over {eval_images} images, "
+              f"{caps.n} captures; graph pools held: after the first "
+              f"transform {pools[0][0] / 2**20:.1f} MiB (one model's pool "
+              f"{pools[0][1] / 2**20:.1f} MiB), after the run "
+              f"{held_after / 2**20:.1f} MiB; B1-B3 launches {counts}",
+              flush=True)
+
+        # 5. save/load of the CV model
+        t0 = time.perf_counter()
+        cv.save(os.path.join(tmp, "cv"))
+        back = CrossValidatorModel.load(os.path.join(tmp, "cv"))
+        io_s = time.perf_counter() - t0
+        again = back.transform(df).column_to_numpy("preds")
+        expect(np.array_equal(again, preds) and back.avgMetrics ==
+              cv.avgMetrics, f"[{tag}] the reloaded CV model's output "
+                             f"differs (max abs "
+                             f"{np.abs(again - preds).max():.3g})")
+        out["save_load_s"] = io_s
+        print(f"[{tag}] CrossValidatorModel save + load {io_s:.2f}s, "
+              f"{len(paths)} rows bit-identical after the round trip",
+              flush=True)
+        del cv, back
+
+        # 2. one full-width SGD fit, card against CPU (and TF32)
+        sub = frame(1000, range(2 * TUNING_BATCH))
+
+        def one_fit(device=None, tf32=False, **fit_params):
+            e = estimator(kfile, load_inception_v3, kerasOptimizer="sgd",
+                          kerasFitParams=dict({"epochs": 1}, **fit_params))
+            e._set(modelFunction=mf)
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                with _FitLog() as flog:
+                    if device == "cpu":
+                        with default_device("cpu"):
+                            m = e.fit(sub)
+                    else:
+                        m = e.fit(sub)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
+            steps = [s for f in flog.fits for ep in f["steps"] for s in ep]
+            return (np.asarray(steps),
+                    m.getModelFunction().module.state_dict(),
+                    flog.fits[-1]["seconds"])
+
+        card_steps, card_sd, card_s = one_fit()
+        cpu_steps, cpu_sd, cpu_s = one_fit("cpu")
+        tf32_steps, tf32_sd, _ = one_fit(tf32=True)
+        loss_rel = float(np.max(np.abs(card_steps - cpu_steps)
+                                / np.abs(cpu_steps)))
+        upd_rel = _update_rel(cpu_sd, card_sd, init)
+        tf32_loss_rel = float(np.max(np.abs(tf32_steps - cpu_steps)
+                                     / np.abs(cpu_steps)))
+        tf32_upd_rel = _update_rel(cpu_sd, tf32_sd, init)
+        print(f"[{tag}] one SGD fit of the converted InceptionV3 (1 epoch, 2 "
+              f"steps of {TUNING_BATCH}) card vs CPU: step losses "
+              f"{card_steps.tolist()} vs {cpu_steps.tolist()}, max rel err "
+              f"{loss_rel:.3e} (tol {TUNING_LOSS_TOL}), update rel err "
+              f"{upd_rel:.3e} (tol {TUNING_UPDATE_TOL}); with TF32 on "
+              f"{tf32_loss_rel:.3e} / {tf32_upd_rel:.3e} (checked above a limit); "
+              f"fit {card_s:.2f}s on the card, {cpu_s:.2f}s on the CPU",
+              flush=True)
+        expect(len(card_steps) == 2 and loss_rel <= TUNING_LOSS_TOL
+              and upd_rel <= TUNING_UPDATE_TOL,
+              f"[{tag}] full-width SGD fit card vs CPU: {len(card_steps)} "
+              f"steps, step loss rel err {loss_rel:.4g} (tol "
+              f"{TUNING_LOSS_TOL}), update rel err {upd_rel:.4g} (tol "
+              f"{TUNING_UPDATE_TOL})")
+        expect(tf32_loss_rel > TUNING_LOSS_TOL or tf32_upd_rel >
+              TUNING_UPDATE_TOL,
+              f"[{tag}] the TF32 fit reads step loss {tf32_loss_rel:.4g}, "
+              f"update {tf32_upd_rel:.4g}: within the f32 limits, which "
+              f"then cannot tell a TF32 path")
+        out["card_vs_cpu"] = dict(
+            step_losses=card_steps.tolist(), cpu_step_losses=cpu_steps.tolist(),
+            step_loss_rel=loss_rel, update_rel=upd_rel,
+            tf32_step_loss_rel=tf32_loss_rel, tf32_update_rel=tf32_upd_rel,
+            card_fit_s=card_s, cpu_fit_s=cpu_s)
+
+        # 6. an interrupted fit resumes to the uninterrupted one
+        whole_steps, whole_sd, _ = one_fit(epochs=2)
+        ck = os.path.join(tmp, "ckpt")
+        first, _, _ = one_fit(epochs=1, checkpoint_dir=ck)
+        rest, resumed_sd, _ = one_fit(epochs=2, checkpoint_dir=ck)
+        resume_upd = _update_rel(whole_sd, resumed_sd, init)
+        resume_loss = float(np.max(np.abs(np.concatenate([first, rest])
+                                          - whole_steps)
+                                   / np.abs(whole_steps)))
+        print(f"[{tag}] 2-epoch SGD fit interrupted after epoch 1 "
+              f"(checkpoint_dir) and resumed: step loss rel err "
+              f"{resume_loss:.3e}, update rel err {resume_upd:.3e} against "
+              f"the uninterrupted fit (tols {TUNING_LOSS_TOL}, "
+              f"{TUNING_UPDATE_TOL})", flush=True)
+        expect(len(rest) == 2 and resume_loss <= TUNING_LOSS_TOL
+              and resume_upd <= TUNING_UPDATE_TOL,
+              f"[{tag}] resumed fit: {len(rest)} steps after the resume "
+              f"(want 2), step loss rel err {resume_loss:.4g}, update rel "
+              f"err {resume_upd:.4g} against the uninterrupted fit")
+        out["resume"] = dict(step_loss_rel=resume_loss, update_rel=resume_upd,
+                             checkpoints=sorted(os.listdir(ck)))
+        del card_sd, cpu_sd, tf32_sd, whole_sd, resumed_sd
+
+        # 3. the small CNN tuned on the card and on the CPU
+        cnn = KerasModel(_cnn_config())
+        cfile = keras_import.keras_file(_cnn_config(),
+                                        _seeded_cnn_arrays(cnn, SEED + 59))
+        small = frame(2, files=_tuning_files(
+            os.path.join(tmp, "cnn_images"), TUNING_CNN_BASES, 60.0,
+            SEED + 61))
+        runs = {}
+        for where in ("card", "cpu"):
+            cest = estimator(cfile, load_small)
+            grid = grid_for(cest)
+            with _FitLog() as clog:
+                if where == "cpu":
+                    with default_device("cpu"):
+                        cvm = CrossValidator(
+                            estimator=cest, estimatorParamMaps=grid,
+                            evaluator=evaluator, numFolds=3).fit(small)
+                        cout = cvm.transform(small).column_to_numpy("preds")
+                else:
+                    cvm = CrossValidator(
+                        estimator=cest, estimatorParamMaps=grid,
+                        evaluator=evaluator, numFolds=3).fit(small)
+                    cout = cvm.transform(small).column_to_numpy("preds")
+            runs[where] = (cvm.avgMetrics, [f["losses"] for f in clog.fits],
+                           cout)
+        (cm, cl, co), (pm, pl, po) = runs["card"], runs["cpu"]
+        cnn_loss_rel = max(abs(a - b) / abs(b) for x, y in zip(cl, pl)
+                           for a, b in zip(x, y))
+        cnn_out_rel = _rel(co, po)
+        print(f"[{tag}] small Keras CNN (2 x Conv2D+BatchNormalization, "
+              f"Dropout, pooling, Dense; {TUNING_CNN_SIZE}x"
+              f"{TUNING_CNN_SIZE}) tuned over the same grid and folds, card "
+              f"vs CPU: avgMetrics {[round(float(m), 4) for m in cm]} / "
+              f"{[round(float(m), 4) for m in pm]}, best map "
+              f"{int(np.argmax(cm))} / {int(np.argmax(pm))}, {len(cl)} / "
+              f"{len(pl)} fits, epoch loss "
+              f"rel err {cnn_loss_rel:.3e} (tol {TUNING_CNN_LOSS_TOL}), best "
+              f"model's outputs {cnn_out_rel:.3e} (tol {TUNING_CNN_OUT_TOL})",
+              flush=True)
+        expect(cm == pm and int(np.argmax(cm)) == int(np.argmax(pm))
+              and len(cl) == len(pl) == 13
+              and cnn_loss_rel <= TUNING_CNN_LOSS_TOL
+              and cnn_out_rel <= TUNING_CNN_OUT_TOL,
+              f"[{tag}] small CNN card vs CPU: avgMetrics {cm} vs {pm}, "
+              f"{len(cl)} / {len(pl)} fits, epoch loss rel err "
+              f"{cnn_loss_rel:.4g} (tol {TUNING_CNN_LOSS_TOL}), best model "
+              f"output rel err {cnn_out_rel:.4g} (tol {TUNING_CNN_OUT_TOL})")
+        out["cnn"] = dict(avg_metrics=cm, best_index=int(np.argmax(cm)),
+                          epoch_loss_rel=cnn_loss_rel,
+                          output_rel=cnn_out_rel)
+
+        # 4. trainBatchStats on the zoo's ResNet50
+        resnet = load_model("ResNet50", weights=None)
+        before = resnet.state_dict()
+        stat_keys = [k for k in before
+                     if k.endswith(("running_mean", "running_var"))]
+        param_keys = [n for n, _ in resnet.named_parameters()]
+
+        def rn_fit(rows, where, f64=False):
+            """A trainBatchStats SGD fit of ResNet50 over ``rows`` (1
+            epoch, batch 8); its state dict.  ``f64``: the same fit on the
+            CPU in float64, from the estimator's own (float32) arrays."""
+            m = copy.deepcopy(resnet).to(torch.float64 if f64 else
+                                         torch.float32)
+            rn_est = ImageFileEstimator(
+                inputCol="uri", outputCol="preds", labelCol="onehot",
+                modelFunction=ModelFunction.from_module(m),
+                imageLoader=load_resnet, optimizer="sgd", batchSize=8,
+                trainBatchStats=True, fitParams={"epochs": 1})
+            rdf = frame(1000, rows)
+            if f64:
+                x, y = rn_est._load_numpy(rdf)
+                with default_device("cpu"):
+                    fitted = rn_est._fit_on_arrays(x.astype(np.float64),
+                                                   y.astype(np.float64))
+            elif where == "cpu":
+                with default_device("cpu"):
+                    fitted = rn_est.fit(rdf)
+            else:
+                fitted = rn_est.fit(rdf)
+            return fitted.getModelFunction().module.state_dict()
+
+        def part(sd, keys):
+            return {k: sd[k] for k in keys}
+
+        # one step: the statistics come from the train-mode forward at
+        # the initial weights, which float32 computes to ~1e-7
+        one = {w: rn_fit(range(8), w) for w in ("card", "cpu")}
+        one["f64"] = rn_fit(range(8), "cpu", f64=True)
+        moved = max(float((one["cpu"][k] - before[k]).abs().max())
+                    for k in stat_keys)
+        # relative to each statistic's move, not to its value
+        stats_rel = _update_rel(part(one["cpu"], stat_keys),
+                                part(one["card"], stat_keys), before)
+        print(f"[{tag}] trainBatchStats=True on the zoo's ResNet50 "
+              f"(from_module, 224x224, one SGD step of 8): "
+              f"{len(stat_keys)} running statistics updated (max move "
+              f"{moved:.3g}), card vs CPU rel err of the move "
+              f"{stats_rel:.3e} (tol {TUNING_STATS_TOL})", flush=True)
+        expect(len(stat_keys) == 2 * 53 and moved > 0
+              and stats_rel <= TUNING_STATS_TOL,
+              f"[{tag}] ResNet50 trainBatchStats, one step: "
+              f"{len(stat_keys)} statistics, moved {moved:.3g}, card vs "
+              f"CPU rel err {stats_rel:.4g} (tol {TUNING_STATS_TOL})")
+        # the gradient through 53 train-mode BatchNorms of a random
+        # ResNet50 is good to ~2e-2 in float32, on the CPU as on the card
+        # (tools/batchstats_witness.py), and the second step's statistics
+        # inherit it; so the parameters' update after one step and the
+        # statistics after two are held to a float64 fit on the CPU: the
+        # card no further from it than TUNING_STATS_F64_RATIO times the
+        # CPU's float32 fit.  The parameters after two steps are printed
+        # only: float32 moves them by about their whole update.
+        two = {w: rn_fit(range(16), w) for w in ("card", "cpu")}
+        two["f64"] = rn_fit(range(16), "cpu", f64=True)
+        vs_f64 = {}
+        for fits, steps, what, keys, held in (
+                (one, 1, "parameters", param_keys, True),
+                (two, 2, "statistics", stat_keys, True),
+                (two, 2, "parameters", param_keys, False)):
+            ref = part(fits["f64"], keys)
+            card = _update_rel(ref, part(fits["card"], keys), before)
+            cpu = _update_rel(ref, part(fits["cpu"], keys), before)
+            vs_f64[f"{what}_{steps}_steps"] = dict(card=card, cpu=cpu)
+            lim = max(TUNING_STATS_F64_RATIO * cpu, TUNING_STATS_TOL)
+            print(f"[{tag}] ResNet50 trainBatchStats, {steps} SGD step(s) "
+                  f"of 8, the {what}' update vs the CPU's float64 fit: "
+                  f"card {card:.3e}, CPU float32 {cpu:.3e} "
+                  + (f"(the card's limit {lim:.3e})" if held else
+                     "(not held)"), flush=True)
+            if held:
+                expect(card <= lim,
+                       f"[{tag}] ResNet50 trainBatchStats, {steps} "
+                       f"step(s): the card's {what} {card:.4g} from the "
+                       f"float64 fit, over {TUNING_STATS_F64_RATIO} x the "
+                       f"CPU's {cpu:.4g}")
+        out["resnet_batch_stats_rel"] = stats_rel
+        out["resnet_vs_f64"] = vs_f64
+    counts = read_counts(sepconv)
+    expect(counts == zero, f"[{tag}] launches {counts}, want none of B1-B3")
+    check(not problems, f"[{tag}] {len(problems)} failed: "
+                        + " | ".join(problems))
+    out["launches"] = counts
+    return out
 
 
 class env_knobs:
@@ -1902,7 +2547,7 @@ def graph_path(sepconv, tag, name, size, knobs, want, edit):
           f"[graph] {tag}: with the .data write undone the output differs "
           f"from the first one")
 
-    pool = sum(e["pool_bytes"] for e in eng.graphs())
+    pool = eng.graph_pool_bytes  # the engine's one pool, all its captures
     print(f"[graph] {tag} {size}x{size} batch {BATCH}: graphed == eager bit "
           f"for bit; device ms per forward: graphed {fwd_ms:.3f} (replay "
           f"alone {replay_ms:.3f}), eager {eager_ms:.3f}; host us per "
@@ -2103,18 +2748,33 @@ def main():
                             phase_sepconv_tiled_ragged(sepconv))
     b2 = phase_mbconv_kernel(sepconv)
     b2["max_abs_err"] = max(b2["max_abs_err"], phase_mbconv_ragged(sepconv))
+    pools = {}
     b1["launches"], b1["tf32_unfused_rel_err"] = phase_xception(sepconv)
+    pools["xception"] = pool_line("[xception]")
     b2["launches"], b2["mobilenet_forward_ms"] = phase_mobilenet(sepconv)
+    pools["mobilenet"] = pool_line("[mobilenet]")
     b3["launches"] = phase_xception_tiled(sepconv)
+    pools["xception_tiled"] = pool_line("[xception tiled]")
     inception = phase_inception(sepconv)
+    pools["inception"] = pool_line("[inception]")
     print(json.dumps({"inception": inception}), flush=True)
-    print(json.dumps({"zoo2": phase_zoo2(sepconv)}), flush=True)
+    zoo2 = phase_zoo2(sepconv)
+    pools["zoo2"] = pool_line("[zoo2]")
+    print(json.dumps({"zoo2": zoo2}), flush=True)
     graph = phase_graph(sepconv)
+    pools["graph"] = pool_line("[graph]")
     graph["pipeline"] = phase_pipeline(sepconv)
+    pools["pipeline"] = pool_line("[pipeline]")
     print(json.dumps({"graph": graph}), flush=True)
-    # last: it clears the zoo engines first, whose graph pools would leave
-    # it out of card memory
-    print(json.dumps({"keras": phase_keras(sepconv)}), flush=True)
+    # every zoo engine of the phases above is still cached (within the
+    # engine cache's bound on graph pools): nothing is cleared first
+    keras = phase_keras(sepconv)
+    pools["keras"] = pool_line("[keras]")
+    print(json.dumps({"keras": keras}), flush=True)
+    tuning = phase_tuning(sepconv)
+    pools["tuning"] = pool_line("[tuning]")
+    tuning["pools"] = pools
+    print(json.dumps({"tuning": tuning}), flush=True)
     print(json.dumps({"kernels": [b1, b3, b2]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -79,6 +79,11 @@ _LAZY = {
     "ModelTransformer": "sparkdl_tpu_torch.transformers.tensor",
     "TFTransformer": "sparkdl_tpu_torch.transformers.tensor",
     "ModelFunction": "sparkdl_tpu_torch.graph.function",
+    "KerasImageFileEstimator":
+        "sparkdl_tpu_torch.estimators.image_file_estimator",
+    "ImageFileEstimator": "sparkdl_tpu_torch.estimators.image_file_estimator",
+    "ParamGridBuilder": "sparkdl_tpu_torch.estimators.tuning",
+    "CrossValidator": "sparkdl_tpu_torch.estimators.tuning",
     "registerKerasImageUDF": "sparkdl_tpu_torch.udf",
     "register_image_udf": "sparkdl_tpu_torch.udf",
 }

@@ -1,15 +1,26 @@
 """Estimator layer (port of ``sparkdl_tpu.estimators``): the
-logistic-regression head of the transfer-learning recipe and the
-evaluators.  The image-file estimator and tuning are not ported yet
-(ROADMAP.md queue A item 6)."""
+logistic-regression head of the transfer-learning recipe, the image-file
+estimators that fine-tune a model on one device, the tuning estimators
+and the evaluators.  The streaming fit (``ImageFileEstimator`` over a
+RecordBatch source), multi-process input and the device mesh are not
+ported yet (ROADMAP.md queue A item 4)."""
 
 from sparkdl_tpu_torch.estimators.classification import (
     LogisticRegression, LogisticRegressionModel)
 from sparkdl_tpu_torch.estimators.evaluation import (
     BinaryClassificationEvaluator, Evaluator,
     MulticlassClassificationEvaluator)
+from sparkdl_tpu_torch.estimators.image_file_estimator import (
+    ImageFileEstimator, ImageFileModel, KerasImageFileEstimator)
+from sparkdl_tpu_torch.estimators.tuning import (CrossValidator,
+                                                 CrossValidatorModel,
+                                                 ParamGridBuilder,
+                                                 TrainValidationSplit)
 
 __all__ = [
-    "BinaryClassificationEvaluator", "Evaluator", "LogisticRegression",
+    "BinaryClassificationEvaluator", "CrossValidator", "CrossValidatorModel",
+    "Evaluator", "ImageFileEstimator", "ImageFileModel",
+    "KerasImageFileEstimator", "LogisticRegression",
     "LogisticRegressionModel", "MulticlassClassificationEvaluator",
+    "ParamGridBuilder", "TrainValidationSplit",
 ]

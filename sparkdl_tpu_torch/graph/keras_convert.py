@@ -474,6 +474,16 @@ class _BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.empty(c))
 
 
+def keras_batchnorm_names(module: nn.Module) -> List[str]:
+    """The names of the moving statistics (``running_mean``,
+    ``running_var``) of every converted BatchNormalization layer in
+    ``module``: buffers here, which the JAX converter keeps among the
+    model's variables."""
+    return [f"{name}.{k}" for name, m in module.named_modules()
+            if isinstance(m, _BatchNorm)
+            for k in ("running_mean", "running_var")]
+
+
 class _Rescale(nn.Module):
     """A per-channel Rescaling's scale and offset, as buffers made once
     (a forward makes no tensor from a list: a CUDA-graph capture refuses

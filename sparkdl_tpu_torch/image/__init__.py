@@ -21,6 +21,8 @@ from sparkdl_tpu_torch.image.io import (
     decodeResizeBatch,
     filesToDF,
     filesToModelBatch,
+    iterFileBatches,
+    iterImageBatches,
     readImages,
     readImagesWithCustomFn,
     resizeImage,
@@ -43,6 +45,8 @@ __all__ = [
     "decodeResizeBatch",
     "filesToDF",
     "filesToModelBatch",
+    "iterFileBatches",
+    "iterImageBatches",
     "readImages",
     "readImagesWithCustomFn",
     "resizeImage",

@@ -293,17 +293,18 @@ def import_keras_weights(name: str, layers, layer_configs=None,
     return sd
 
 
-def load_model(name: str, weights: Optional[str] = None,
+def load_model(name: str, weights: Optional[str] = "imagenet",
                generator: Optional[torch.Generator] = None,
                **build_kwargs) -> nn.Module:
     """Build zoo model ``name`` on the CPU in eval mode.
 
-    ``weights``: None gives the seeded random init (``generator``, default
-    seed 0); a path imports that ``.weights.h5``, ``.h5`` or ``.keras``
-    file; "imagenet" imports ``$SPARKDL_WEIGHTS_DIR``'s file for the model
+    ``weights``: "imagenet" (the default, as in the JAX package) imports
+    ``$SPARKDL_WEIGHTS_DIR``'s file for the model
     (:meth:`ModelSpec.resolve_weights`) or, when there is none, warns and
     gives the seeded init, as the JAX package falls back to Keras' random
-    init.  An explicit path that fails to import raises."""
+    init; None gives the seeded random init (``generator``, default seed
+    0); a path imports that ``.weights.h5``, ``.h5`` or ``.keras`` file.
+    An explicit path that fails to import raises."""
     spec = get_model_spec(name)
     resolved = spec.resolve_weights(weights)
     if resolved == "imagenet":

@@ -1,5 +1,5 @@
 """EfficientNetB0 as a PyTorch module (port of
-``sparkdl_tpu/models/efficientnet.py``), inference only.
+``sparkdl_tpu/models/efficientnet.py``).
 
 Layer names mirror ``keras.applications.EfficientNetB0`` and the JAX module
 ("stem_conv", "block1a_dwconv", "block2a_se_reduce", ..., "top_conv",
@@ -16,8 +16,12 @@ squeeze-and-excitation over its expanded channels.  The forward takes NHWC
 ``[B,H,W,3]`` like the JAX module and runs NCHW in ``channels_last``
 memory inside.
 
-The JAX module's ``drop_connect_rate`` (stochastic depth, train mode only)
-is not ported.
+``drop_connect_rate`` is the JAX module's stochastic depth on the residual
+blocks in train mode: block i of 16 drops each sample's residual branch
+with probability ``rate * i / 16`` and divides the survivors by the keep
+probability.  The draws come from the module's ``generator`` (a
+``torch.Generator``, which the caller seeds): they cannot match JAX's
+``dropout`` rng bit for bit, so only rate 0 (the default) is held to JAX.
 """
 
 from __future__ import annotations
@@ -89,9 +93,32 @@ def efficientnet_import_fixup(layer_configs: Optional[Sequence],
     return sd
 
 
+def drop_connect(x: torch.Tensor, rate: float,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-sample stochastic depth (Keras' ``Dropout(noise_shape=(None, 1,
+    1, 1))``): each sample of ``x`` is kept with probability ``1 - rate``
+    and divided by it, or zeroed.  The mask is drawn on ``generator``'s
+    device, then moved to ``x``'s."""
+    if generator is None:
+        raise ValueError(
+            "drop_connect_rate > 0 in train mode needs the module's "
+            "generator (a seeded torch.Generator), as the JAX module needs "
+            "a 'dropout' rng")
+    keep = 1.0 - rate
+    u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
+                   generator=generator, device=generator.device)
+    mask = (u < keep).to(x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 class EfficientNetB0(nn.Module):
-    def __init__(self, num_classes: int = 1000):
+    def __init__(self, num_classes: int = 1000,
+                 drop_connect_rate: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.drop_connect_rate = float(drop_connect_rate)
+        self.generator = generator
         self.normalization = InputNorm()
 
         def bn(name, f):
@@ -133,7 +160,8 @@ class EfficientNetB0(nn.Module):
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)
         x = conv2d(correct_pad(x, 3), m["stem_conv"].weight, stride=2)
         x = F.silu(m["stem_bn"](x))
-        for prefix, k, cin, c_out, t, stride in _blocks():
+        blocks = _blocks()
+        for i, (prefix, k, cin, c_out, t, stride) in enumerate(blocks):
             inp = x
             if t != 1:
                 x = F.silu(m[f"{prefix}_expand_bn"](
@@ -148,6 +176,9 @@ class EfficientNetB0(nn.Module):
             x = m[f"{prefix}_project_bn"](
                 pointwise(x, f"{prefix}_project_conv"))
             if stride == 1 and cin == c_out:
+                drop = self.drop_connect_rate * i / len(blocks)
+                if self.training and drop > 0:
+                    x = drop_connect(x, drop, self.generator)
                 x = x + inp
         x = F.silu(m["top_bn"](pointwise(x, "top_conv")))
         x = global_avg_pool(x)  # 1280-d featurizer cut

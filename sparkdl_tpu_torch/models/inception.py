@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 
 from sparkdl_tpu_torch.models.layers import (ConvBN, avg_pool_same,
-                                             cached_fold, conv2d,
+                                             cached_fold, conv2d, grad_needed,
                                              fold_bn_into_conv,
                                              global_avg_pool, linear,
                                              max_pool_valid)
@@ -221,8 +221,8 @@ class InceptionV3(nn.Module):
     def fused_inference(self, value: Optional[bool]) -> None:
         self.fused_heads = value
 
-    def _use_fused_heads(self) -> bool:
-        if self.training:
+    def _use_fused_heads(self, x: torch.Tensor) -> bool:
+        if self.training or grad_needed(self, x):
             return False
         return True if self.fused_heads is None else self.fused_heads
 
@@ -255,7 +255,7 @@ class InceptionV3(nn.Module):
 
     def forward(self, x: torch.Tensor, features: bool = False,
                 logits: bool = False) -> torch.Tensor:
-        fuse = self._use_fused_heads()
+        fuse = self._use_fused_heads(x)
         m = self._modules
 
         def run(x, ops):

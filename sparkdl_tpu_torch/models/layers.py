@@ -95,9 +95,39 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32).mean(dim=(2, 3)).to(x.dtype)
 
 
+def flax_batch_norm_train(bn: nn.modules.batchnorm._BatchNorm,
+                          x: torch.Tensor) -> torch.Tensor:
+    """A train-mode BatchNorm over axis 1 with flax's arithmetic and update
+    (``flax.linen.BatchNorm(use_running_average=False)``): batch mean μ and
+    the BIASED variance σ² = E[x²] − μ² (floored at 0), y = (x − μ)·
+    (rsqrt(σ² + ε)·γ) + β, and running = m·running + (1 − m)·batch with m =
+    1 − ``bn.momentum`` (the module keeps torch's convention).
+    ``nn.BatchNorm2d`` in train mode updates ``running_var`` with the
+    unbiased variance instead.  The statistics are updated in place,
+    without autograd; the output's gradient flows through μ and σ²."""
+    x, _ = promote(x, bn.running_mean)
+    dims = [d for d in range(x.dim()) if d != 1]
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    mean = x.mean(dim=dims)
+    var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + bn.eps)
+    if bn.weight is not None:
+        mul = mul * bn.weight
+    y = (x - mean.reshape(shape)) * mul.reshape(shape)
+    if bn.bias is not None:
+        y = y + bn.bias.reshape(shape)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(m * mean.detach())
+        bn.running_var.mul_(1.0 - m).add_(m * var.detach())
+    return y
+
+
 class BatchNorm(nn.BatchNorm2d):
     """Keras-default inference BatchNorm (eps 1e-3) with the folded form of
-    ``BNAffine`` beside it; both read the same four tensors.
+    ``BNAffine`` beside it; both read the same four tensors.  In train
+    mode it follows flax (:func:`flax_batch_norm_train`), as the JAX
+    zoo's train-mode apply does.
 
     ``scale=False`` is keras' ``BatchNormalization(scale=False)``: no gamma
     at all (``weight`` is None, so the ``state_dict`` holds only ``bias``
@@ -120,6 +150,8 @@ class BatchNorm(nn.BatchNorm2d):
         return s, t
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return flax_batch_norm_train(self, x)
         x, _ = promote(x, self.bias)
         return super().forward(x)
 
@@ -286,6 +318,18 @@ def avg_pool_same(x: torch.Tensor, window: int = 3) -> torch.Tensor:
     dtype.  With stride 1 and an odd window the SAME pad is symmetric."""
     return F.avg_pool2d(x, window, 1, padding=window // 2,
                         count_include_pad=False)
+
+
+def grad_needed(module: nn.Module, x: torch.Tensor) -> bool:
+    """Whether autograd records a forward of ``module`` on ``x``: grad
+    mode is on and ``x`` or a parameter of ``module`` requires grad.  The
+    fused routes are not taken then: their folds are made without autograd
+    (``cached_fold``) and the fused kernels have no backward, so a
+    gradient would stop there without a word."""
+    if not torch.is_grad_enabled():
+        return False
+    return x.requires_grad or any(p.requires_grad
+                                  for p in module.parameters())
 
 
 def cached_fold(cache: dict, name: str, sources, fold):

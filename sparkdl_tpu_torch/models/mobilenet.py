@@ -19,7 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sparkdl_tpu_torch.models.layers import (BatchNorm, DepthwiseConv2D,
-                                             cached_fold, conv2d,
+                                             cached_fold, conv2d, grad_needed,
                                              depthwise_taps,
                                              fold_bn_into_conv,
                                              global_avg_pool, linear, relu6)
@@ -172,7 +172,8 @@ class MobileNetV2(nn.Module):
 
     def forward(self, x: torch.Tensor, features: bool = False,
                 logits: bool = False) -> torch.Tensor:
-        fused = self.fused_inference and not self.training
+        fused = (self.fused_inference and not self.training
+                 and not grad_needed(self, x))
         m = self._modules
 
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view (channels_last)

@@ -22,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sparkdl_tpu_torch.models.layers import (BatchNorm, cached_fold, conv2d,
+                                             grad_needed,
                                              fold_bn_into_conv,
                                              global_avg_pool, linear)
 
@@ -159,7 +160,7 @@ class ResNet50(nn.Module):
                    bias=self.conv1_conv.bias)
         x = torch.relu(self.conv1_bn(x))
         x = F.max_pool2d(x, 3, 2, padding=1)  # pads with -inf
-        fused = bool(self.fused_shortcut)
+        fused = bool(self.fused_shortcut) and not grad_needed(self, x)
         for block in self.children():
             if isinstance(block, Bottleneck):
                 x = block(x, fused)

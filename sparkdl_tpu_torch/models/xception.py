@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 
 from sparkdl_tpu_torch.models.layers import (BatchNorm, SeparableConv2D,
-                                             cached_fold, conv2d,
+                                             cached_fold, conv2d, grad_needed,
                                              global_avg_pool, linear,
                                              max_pool_same, promote)
 
@@ -121,7 +121,7 @@ class Xception(nn.Module):
         self.predictions = nn.Linear(2048, num_classes)
 
     def _use_fused(self, x: torch.Tensor) -> bool:
-        if self.training:
+        if self.training or grad_needed(self, x):
             return False
         if self.fused_inference is not None:
             return self.fused_inference

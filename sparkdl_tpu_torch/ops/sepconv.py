@@ -406,6 +406,17 @@ def _operand(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.to(dtype).contiguous()
 
 
+def _refuse_autograd(who: str, *operands: torch.Tensor) -> None:
+    """Raise when autograd would record the call: the kernels have no
+    backward (nor have the Pallas kernels they port), so a gradient would
+    stop at their output without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        raise RuntimeError(
+            f"{who} has no backward, and an operand requires grad: run the "
+            f"model's unfused route (fused_inference=False, or model.train()"
+            f" for batch statistics), or call it under torch.no_grad()")
+
+
 def _keras_layouts(dwk: torch.Tensor, pw: torch.Tensor):
     """[3,3,C,1] -> [3,3,C] and [1,1,C,F] -> [C,F] (keras' layouts)."""
     if dwk.dim() == 4:
@@ -428,7 +439,10 @@ def fused_sepconv(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
     the Pallas callers do), then runs the plain version for a CPU tensor
     (both routes compute the same function) and the CUDA kernel for a
     CUDA tensor.  An NCHW tensor in ``channels_last`` memory format,
-    permuted to NHWC, is already contiguous: no copy is made for it."""
+    permuted to NHWC, is already contiguous: no copy is made for it.
+    Raises when grad mode is on and an operand requires grad (no
+    backward)."""
+    _refuse_autograd("fused_sepconv", x, dwk, pw, scale, shift)
     dwk, pw = _keras_layouts(dwk, pw)
     if x.device.type == "cpu":
         return sepconv_reference(x, dwk, pw, scale, shift, pre_relu,
@@ -655,7 +669,10 @@ def fused_mbconv(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
     +shift, with the BatchNorm scales already folded into ``dwk`` [3,3,C]
     (or [3,3,C,1]) and ``pw`` [C,F] (or [1,1,C,F]) by the caller
     (``models.layers.fold_bn_into_conv``), as ``fused_mbconv_flat`` takes
-    them.  A CPU tensor runs the plain version, a CUDA tensor the kernel."""
+    them.  A CPU tensor runs the plain version, a CUDA tensor the kernel.
+    Raises when grad mode is on and an operand requires grad (no
+    backward)."""
+    _refuse_autograd("fused_mbconv", x, dwk, pw, mid_shift, shift)
     dwk, pw = _keras_layouts(dwk, pw)
     if x.device.type == "cpu":
         return mbconv_reference(x, dwk, pw, mid_shift, shift)

@@ -41,7 +41,22 @@ consecutive-failure :class:`DispatchCircuitBreaker`, and the fault sites
 ``engine.dispatch`` (enqueue) and ``engine.gather`` (force).
 
 :func:`get_cached_engine` keeps one engine per ``ModelFunction`` on the
-stage (or other holder) that runs it.
+stage (or other holder) that runs it; the engine and its graphs go with
+the holder.
+
+Graph memory: every capture of one engine allocates from ONE memory pool
+(``torch.cuda.graph_pool_handle()``, passed as ``pool=``), not a private
+pool per capture.  Sharing is safe because the engine never runs two of
+its graphs at once and reads nothing a graph wrote after another graph
+ran: every replay waits on the event recorded after the previous replay
+and its output copy (so replays are serialized whatever stream a caller
+is on), each replay's output is cloned out of the pool before that event,
+and the static inputs live outside the pool.  A graph may then reuse
+another's intermediates, so the pool holds about one forward's memory,
+not one per bucket.  ``graph_pool_bytes`` is what the pool reserved;
+:meth:`InferenceEngine.release_graphs` drops the graphs (after the card
+has finished with them) and returns the pool, and
+:func:`graph_pool_bytes_held` sums the pools of every live engine.
 
 Not ported yet: the device mesh and weight sharding, ``donate_batch`` and
 the compile-cache policy (ROADMAP queue A items 6 and 9), the head bank
@@ -55,6 +70,7 @@ import copy
 import os
 import threading
 import time as time_lib
+import weakref
 from collections import deque
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 
@@ -294,6 +310,15 @@ def graph_key(state: List[torch.Tensor], fold_owners=()) -> tuple:
 # back must be its own
 _CAPTURE_LOCK = threading.Lock()
 
+# every engine alive in the process, for graph_pool_bytes_held
+_LIVE_ENGINES: "weakref.WeakSet[InferenceEngine]" = weakref.WeakSet()
+
+
+def graph_pool_bytes_held() -> int:
+    """The CUDA-graph pool bytes that every live engine in the process
+    holds (``InferenceEngine.graph_pool_bytes`` summed)."""
+    return sum(e.graph_pool_bytes for e in list(_LIVE_ENGINES))
+
 
 def _torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype)).dtype
@@ -410,10 +435,17 @@ class InferenceEngine:
         self._graphs: Dict[tuple, _Graph] = {}
         self._slots: Dict[tuple, _DeviceSlots] = {}
         self._lock = threading.Lock()
+        # the graphs' one memory pool (made at the first capture), the
+        # bytes it reserved, and the event after the last replay's output
+        # copy (see the module docstring)
+        self._pool = None
+        self._pool_bytes = 0
+        self._replayed: Optional[torch.cuda.Event] = None
         if cuda:
             self._h2d = torch.cuda.Stream(self.device)
             self._d2h = torch.cuda.Stream(self.device)
             self._capture_stream = torch.cuda.Stream(self.device)
+        _LIVE_ENGINES.add(self)
 
     @property
     def num_devices(self) -> int:
@@ -587,6 +619,9 @@ class InferenceEngine:
         from sparkdl_tpu_torch.ops import sepconv as ops
 
         leaves = _tree_leaves(x)
+        cur = torch.cuda.current_stream(self.device)
+        if self._replayed is not None:  # one replay at a time: one pool
+            cur.wait_event(self._replayed)
         sig = (group,) + tuple((tuple(a.shape), a.dtype) for a in leaves)
         g = self._graphs.get(sig)
         if g is None or g.key != graph_key(self._state, self._fold_owners):
@@ -600,7 +635,10 @@ class InferenceEngine:
                                f"bucket {sig} failed: {e}") from e
         if any(g.launches):
             ops.credit_launches(g.launches)
-        return _tree_map(lambda t: t.clone(), g.static_out)
+        out = _tree_map(lambda t: t.clone(), g.static_out)
+        self._replayed = torch.cuda.Event()
+        self._replayed.record(cur)
+        return out
 
     def _capture(self, x, group: bool, sig) -> _Graph:
         with _CAPTURE_LOCK:
@@ -633,14 +671,17 @@ class InferenceEngine:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_stats(self.device).get(
             "reserved_bytes.all.current", 0)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
         # keep_graph: the captured cudaGraph_t stays readable
         # (``raw_cuda_graph``), so its kernel nodes can be counted
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
             # thread_local: the runner's other threads (pinned copies, D2H
             # fetches, event waits) do not invalidate this capture; the
-            # capture stream is the engine's own
-            with torch.cuda.graph(graph, stream=side,
+            # capture stream is the engine's own; every capture of the
+            # engine allocates from its one pool
+            with torch.cuda.graph(graph, pool=self._pool, stream=side,
                                   capture_error_mode="thread_local"):
                 static_out = self._eager(static_in, group)
             graph.instantiate()
@@ -657,17 +698,43 @@ class InferenceEngine:
         g = _Graph(key, folds, graph, static_in, static_out, launches,
                    max(0, pool))
         self._graphs[sig] = g
+        # the shared pool keeps what it reserved until every graph is gone
+        self._pool_bytes += g.pool_bytes
         self.metrics.incr("engine.graph_captures")
-        self.metrics.gauge("engine.graph_pool_bytes",
-                           sum(v.pool_bytes for v in self._graphs.values()))
+        self.metrics.gauge("engine.graph_pool_bytes", self._pool_bytes)
         return g
 
     def graphs(self) -> List[Dict[str, Any]]:
         """One entry per captured graph: bucket, kernel launches per
-        replay (B1, B3, B2) and pool bytes."""
+        replay (B1, B3, B2) and the pool bytes its capture added."""
         return [dict(bucket=sig, launches=g.launches,
                      pool_bytes=g.pool_bytes)
                 for sig, g in self._graphs.items()]
+
+    @property
+    def graph_pool_bytes(self) -> int:
+        """The bytes the engine's graph pool holds on the card (0 before
+        the first capture and after :meth:`release_graphs`)."""
+        return self._pool_bytes
+
+    def release_graphs(self) -> None:
+        """Drop every captured graph and give the pool's memory back to the
+        card, once the card has finished what was enqueued on it (a later
+        dispatch captures again).  Waits for a dispatch in flight on
+        another thread."""
+        with self._lock:
+            if not self._graphs:
+                return
+            cuda = self.device.type == "cuda"
+            if cuda:
+                torch.cuda.synchronize(self.device)
+            self._graphs.clear()
+            self._pool = None
+            self._pool_bytes = 0
+            self._replayed = None
+            self.metrics.gauge("engine.graph_pool_bytes", 0)
+        if cuda:
+            torch.cuda.empty_cache()
 
     # -- host prepare and gather -----------------------------------------------
     def _count_rows(self, n: int) -> None:

@@ -1,36 +1,46 @@
-"""Head fits on one device (port of the single-device part of
+"""Fits on one device (port of the single-device part of
 ``sparkdl_tpu/parallel/train.py``).
 
-``fit_data_parallel`` fits a dict of parameters on host arrays (x, y) with
-``torch.autograd`` and a ``torch.optim`` optimizer, on the device
+``fit_data_parallel`` fits a tree of parameters (nested dicts of host
+arrays or tensors) on host arrays (x, y) with ``torch.autograd`` and a
+``torch.optim`` optimizer, on the device
 :func:`~sparkdl_tpu_torch.resolve_device` gives (``cuda`` unless the CPU
 was asked for).  It draws the same batches as the JAX fit on a one-device
 mesh (:func:`_epoch_batches` is a copy of JAX's), takes the loss mean over
 each batch, and fetches the step losses once per group of
-``steps_per_execution`` steps.
+``steps_per_execution`` steps.  With ``train_fn`` + ``stats`` the step
+also carries BatchNorm statistics (JAX's ``make_train_step_with_stats``);
+with ``checkpoint_dir`` the params, the optimizer's ``state_dict`` and the
+statistics are saved on the epoch cadence and a fit resumes from the
+newest checkpoint (``checkpoint.py``).  Steps run eagerly: the JAX
+package's compiled step has no counterpart yet.
 
-Not ported yet (queue A item 6 of ROADMAP.md): the device mesh and
-multi-process input, BatchNorm-statistics training (``train_fn`` /
-``stats``), checkpointing and the streaming fit.  Those arguments raise
-``NotImplementedError``.
+Not ported yet (ROADMAP.md queue A item 4): the device mesh and
+multi-process input (a fit in a ``torch.distributed`` group of more than
+one process raises ``NotImplementedError``), and the streaming fit
+(:func:`fit_data_parallel_stream` raises).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from sparkdl_tpu_torch import DeviceLike, resolve_device
+from sparkdl_tpu_torch.param.converters import (NamedOptimizer,
+                                                required_positional)
+from sparkdl_tpu_torch.parallel.engine import _tree_leaves, _tree_map
 from sparkdl_tpu_torch.utils import debug
 from sparkdl_tpu_torch.utils.logging import get_logger
+from sparkdl_tpu_torch.utils.metrics import Metrics
 
 logger = get_logger(__name__)
 
 _EPS = 1e-7
-_LATER = "not ported yet (ROADMAP.md queue A item 6)"
+_LATER = "not ported yet (ROADMAP.md queue A item 4)"
 
 
 # ---------------------------------------------------------------------------
@@ -112,14 +122,64 @@ def make_train_step(predict_fn: Callable, loss,
     return step
 
 
+def make_train_step_with_stats(train_fn: Callable, loss,
+                               optimizer: torch.optim.Optimizer, params,
+                               stats: Dict[str, Any]) -> Callable:
+    """Like :func:`make_train_step` for models whose ``train_fn({"params":
+    ..., "batch_stats": ...}, x) -> (pred, new_stats)`` updates BatchNorm
+    statistics: ``stats["batch_stats"]`` holds the current statistics and
+    each step replaces it with the new ones (detached)."""
+    loss_fn = resolve_loss(loss)
+
+    def step(x, y):
+        optimizer.zero_grad(set_to_none=True)
+        pred, new_stats = train_fn(
+            {"params": params, "batch_stats": stats["batch_stats"]}, x)
+        lval = torch.mean(loss_fn(pred, y))
+        lval.backward()
+        optimizer.step()
+        stats["batch_stats"] = _tree_map(lambda t: t.detach(), new_stats)
+        return lval.detach()
+
+    return step
+
+
+# one optimizer factory per zero-argument factory, pinned with it so that
+# its id is not reused (the JAX package's _OPT_INSTANCES)
+_OPT_INSTANCES: Dict[int, Tuple[Callable, Callable]] = {}
+_DEFAULT_OPTIMIZER = NamedOptimizer("adam")
+
+
+def clear_optimizer_instances() -> None:
+    _OPT_INSTANCES.clear()
+
+
+def _resolve_optimizer(optimizer) -> Callable:
+    """None, a zero-argument factory or a factory ``params -> Optimizer``
+    (``SparkDLTypeConverters.toOptimizer``'s forms) -> a factory ``params
+    -> Optimizer``.  A zero-argument factory is called once and its
+    result kept, as the JAX package keeps one optax transformation per
+    factory; the default is Adam at lr 1e-3 (optax's)."""
+    if optimizer is None:
+        return _DEFAULT_OPTIMIZER
+    if not required_positional(optimizer):
+        inst = _OPT_INSTANCES.get(id(optimizer))
+        if inst is None:
+            inst = (optimizer, optimizer())
+            _OPT_INSTANCES[id(optimizer)] = inst
+        return inst[1]
+    return optimizer
+
+
 def _epoch_batches(x: np.ndarray, y: np.ndarray, batch_size: int,
                    epoch: int, shuffle: bool, seed: int,
                    num_steps: Optional[int] = None):
     """One epoch of fixed-shape batches: the last ragged batch is wrapped
     with leading samples so every batch has the full shape.  Per-epoch
-    seeding keeps the order deterministic.  ``num_steps`` pins the number
-    of batches yielded (wrapping modularly).  A copy of the JAX package's,
-    so both fits draw the same index sequence."""
+    seeding keeps the order deterministic (and so resumable).
+    ``num_steps`` pins the number of batches yielded (wrapping modularly).
+    A copy of the JAX package's, so both fits draw the same index
+    sequence."""
     n = x.shape[0]
     rng = np.random.default_rng(seed + epoch)
     order = rng.permutation(n) if shuffle else np.arange(n)
@@ -157,9 +217,24 @@ def _run_grouped_steps(step: Callable, spe: int, batches: Iterable,
     return losses
 
 
+def _leaf(value, device: torch.device, grad: bool) -> torch.Tensor:
+    """A new tensor on ``device`` holding ``value`` (host array or
+    tensor), a leaf that requires grad when ``grad``."""
+    if isinstance(value, torch.Tensor):
+        t = value.detach().to(device, copy=True)
+    else:
+        t = torch.from_numpy(np.array(value)).to(device)
+    return t.requires_grad_(grad)
+
+
+def _host(tree):
+    """A tree of tensors as numpy arrays."""
+    return _tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
 def fit_data_parallel(predict_fn: Callable, params, x: np.ndarray,
                       y: np.ndarray, *,
-                      optimizer: Optional[Callable] = None,
+                      optimizer=None,
                       loss="categorical_crossentropy",
                       batch_size: int = 32,
                       epochs: int = 1,
@@ -167,36 +242,75 @@ def fit_data_parallel(predict_fn: Callable, params, x: np.ndarray,
                       seed: int = 0,
                       device: DeviceLike = None,
                       checkpoint_dir: Optional[str] = None,
+                      checkpoint_every_epochs: int = 1,
+                      metrics: Optional[Metrics] = None,
                       train_fn: Optional[Callable] = None,
                       stats=None,
-                      steps_per_execution: int = 1
-                      ) -> Tuple[Dict[str, np.ndarray], List[float]]:
-    """Fit ``params`` (a dict of host arrays) on (x, y) on one device.
+                      steps_per_execution: int = 1) -> Tuple[Any, List[float]]:
+    """Fit ``params`` (nested dicts of host arrays or tensors; tensors are
+    copied, never trained in place) on (x, y) on one device.
 
     ``predict_fn(params, x) -> pred`` on tensors; ``loss(pred, y) -> [B]``
-    (a name from :data:`LOSSES` or a callable); ``optimizer(tensors) ->
-    torch.optim.Optimizer`` (default Adam, lr 1e-3, as JAX's default).
-    The batch is ``min(batch_size, n)``.  ``steps_per_execution`` steps
-    run per loss fetch, with the same loss series as 1.  Returns (fitted
-    params as host arrays, per-epoch mean losses); a non-finite epoch
-    mean warns, or raises under ``SPARKDL_DEBUG_NANS=1``."""
-    if checkpoint_dir is not None:
-        raise NotImplementedError(f"checkpoint_dir: {_LATER}")
-    if train_fn is not None or stats is not None:
-        raise NotImplementedError(f"train_fn/stats: {_LATER}")
+    (a name from :data:`LOSSES` or a callable); ``optimizer``: a factory
+    ``params -> torch.optim.Optimizer``, a zero-argument factory returning
+    one, or None (Adam at lr 1e-3, as JAX's default).  The batch is
+    ``min(batch_size, n)``.  ``steps_per_execution`` steps run per loss
+    fetch, with the same loss series as 1.
+
+    With ``train_fn`` + ``stats`` (a tree of BatchNorm statistics),
+    ``train_fn({"params": p, "batch_stats": s}, x) -> (pred, new_stats)``
+    runs each step and the fitted value is ``{"params": ..., "batch_stats":
+    ...}`` (estimator ``trainBatchStats=True``).  With ``checkpoint_dir``,
+    the params, the optimizer's ``state_dict`` and the statistics are saved
+    every ``checkpoint_every_epochs`` epochs, and a fit resumes from the
+    newest checkpoint there.  Returns (the fitted value as host arrays,
+    per-epoch mean losses); a non-finite epoch mean warns, or raises under
+    ``SPARKDL_DEBUG_NANS=1``."""
     if (torch.distributed.is_available() and torch.distributed.is_initialized()
             and torch.distributed.get_world_size() > 1):
         raise NotImplementedError(f"multi-process input: {_LATER}")
     dev = resolve_device(device)
+    make_opt = _resolve_optimizer(optimizer)
     batch_size = min(int(batch_size), max(1, x.shape[0]))
-    tensors = {k: torch.tensor(np.asarray(v), device=dev, requires_grad=True)
-               for k, v in params.items()}
-    opt = (optimizer(list(tensors.values())) if optimizer is not None
-           else torch.optim.Adam(list(tensors.values()), lr=1e-3))
-    step = make_train_step(predict_fn, loss, opt, tensors)
+    with_stats = train_fn is not None
+    tensors = _tree_map(lambda v: _leaf(v, dev, True), params)
+    opt = make_opt(_tree_leaves(tensors))
+    stats_ref = {"batch_stats": _tree_map(lambda v: _leaf(v, dev, False),
+                                          stats if stats is not None else {})}
+
+    start_epoch = 0
+    ckptr = None
+    if checkpoint_dir:
+        from sparkdl_tpu_torch.checkpoint import TrainCheckpointer
+
+        ckptr = TrainCheckpointer(checkpoint_dir, checkpoint_every_epochs)
+        resumed = ckptr.restore_latest()
+        if resumed is not None:
+            start_epoch, state = resumed
+            with torch.no_grad():
+                for t, v in zip(_tree_leaves(tensors),
+                                _tree_leaves(state["params"])):
+                    t.copy_(v)
+            opt.load_state_dict(state["opt_state"])
+            if with_stats:
+                stats_ref["batch_stats"] = _tree_map(
+                    lambda v: _leaf(v, dev, False), state["batch_stats"])
+
+    def ckpt_state():  # save_pytree copies the tensors to the host
+        state = {"params": tensors, "opt_state": opt.state_dict()}
+        if with_stats:
+            state["batch_stats"] = stats_ref["batch_stats"]
+        return state
+
+    if with_stats:
+        step = make_train_step_with_stats(train_fn, loss, opt, tensors,
+                                          stats_ref)
+    else:
+        step = make_train_step(predict_fn, loss, opt, tensors)
+    metrics = metrics if metrics is not None else Metrics()
     spe = max(1, int(steps_per_execution))
     epoch_losses: List[float] = []
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         step_losses = _run_grouped_steps(
             step, spe, _epoch_batches(x, y, batch_size, epoch, shuffle, seed),
             dev)
@@ -206,5 +320,18 @@ def fit_data_parallel(predict_fn: Callable, params, x: np.ndarray,
         if not np.isfinite(mean):
             debug.warn_or_raise_nonfinite_loss(step_losses, epoch)
         epoch_losses.append(mean)
-    fitted = {k: t.detach().cpu().numpy() for k, t in tensors.items()}
-    return fitted, epoch_losses
+        metrics.record_time("epoch_loss", mean)
+        if ckptr is not None and ckptr.due(epoch + 1) and ckptr.is_writer():
+            # copied to the host only on epochs the cadence saves
+            ckptr.maybe_save(epoch + 1, ckpt_state())
+    if with_stats:
+        return ({"params": _host(tensors),
+                 "batch_stats": _host(stats_ref["batch_stats"])},
+                epoch_losses)
+    return _host(tensors), epoch_losses
+
+
+def fit_data_parallel_stream(*args, **kwargs):
+    """The streaming fit over a re-iterable chunk source (JAX's
+    ``fit_data_parallel_stream``): not ported yet."""
+    raise NotImplementedError(f"the streaming fit: {_LATER}")

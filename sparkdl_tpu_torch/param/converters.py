@@ -1,17 +1,191 @@
 """Domain-specific type converters.
 
 Port of ``sparkdl_tpu/param/converters.py``: validated conversion of
-user-supplied values — zoo-model names, loss identifiers, callables,
-column-name maps, ModelFunctions — into canonical internal form, raising
-``TypeError`` on anything malformed.  The optimizer converter belongs to
-the training stages this package does not carry yet.
+user-supplied values — zoo-model names, optimizer and loss identifiers,
+callables, column-name maps, ModelFunctions — into canonical internal
+form, raising ``TypeError`` on anything malformed.
+
+An optimizer is a factory ``params -> torch.optim.Optimizer`` (what
+``parallel.train.fit_data_parallel`` calls on the tensors it trains), a
+zero-argument factory returning one, or a name.  A name gives optax's
+update with optax's defaults, which the JAX package's names construct, not
+``torch.optim``'s: ``adam``, ``sgd`` and ``adamw`` (optax's weight decay
+1e-4) are ``torch.optim`` classes so set; ``rmsprop`` (optax's ε inside the
+square root, decay 0.9), ``adagrad`` (ε inside the square root),
+``lamb`` and ``lion`` are the small optimizers below, which follow optax's
+update step by step.
 """
 
 from __future__ import annotations
 
-from typing import Any
+import inspect
+from typing import Any, Callable, Dict, List
+
+import torch
 
 from sparkdl_tpu_torch.param.params import TypeConverters
+
+
+class OptaxRMSprop(torch.optim.Optimizer):
+    """optax.rmsprop: ν ← d·ν + (1−d)·g², p ← p − lr·g/√(ν+ε), ν from 0
+    (``torch.optim.RMSprop`` adds ε outside the root)."""
+
+    def __init__(self, params, lr: float = 1e-3, decay: float = 0.9,
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            d, eps = group["decay"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                st = self.state[p]
+                if not st:
+                    st["nu"] = torch.zeros_like(p)
+                nu = st["nu"]
+                nu.mul_(d).add_((1 - d) * g * g)
+                p.sub_(group["lr"] * (g * torch.rsqrt(nu + eps)))
+
+
+class OptaxAdagrad(torch.optim.Optimizer):
+    """optax.adagrad: s ← s + g² (s from ``initial_accumulator_value``),
+    p ← p − lr·g/√(s+ε) where s > 0 (``torch.optim.Adagrad`` adds ε
+    outside the root)."""
+
+    def __init__(self, params, lr: float = 1e-2,
+                 initial_accumulator_value: float = 0.1, eps: float = 1e-7):
+        super().__init__(params, dict(
+            lr=lr, initial_accumulator_value=initial_accumulator_value,
+            eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                st = self.state[p]
+                if not st:
+                    st["sum_sq"] = torch.full_like(
+                        p, group["initial_accumulator_value"])
+                s = st["sum_sq"]
+                s.add_(g * g)
+                scale = torch.where(s > 0, torch.rsqrt(s + group["eps"]),
+                                    torch.zeros_like(s))
+                p.sub_(group["lr"] * (scale * g))
+
+
+class Lamb(torch.optim.Optimizer):
+    """optax.lamb: Adam's bias-corrected direction u = m̂/(√v̂ + ε), plus
+    ``weight_decay``·p, scaled per tensor by the trust ratio ‖p‖/‖u‖ (1
+    where either norm is 0), then by −lr."""
+
+    def __init__(self, params, lr: float = 1e-3, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-6,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["b1"], group["b2"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                st["step"] += 1
+                t = st["step"]
+                mu, nu = st["mu"], st["nu"]
+                mu.mul_(b1).add_((1 - b1) * g)
+                nu.mul_(b2).add_((1 - b2) * g * g)
+                u = (mu / (1 - b1 ** t)) / (
+                    torch.sqrt(nu / (1 - b2 ** t)) + group["eps"])
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * p
+                pn, un = torch.linalg.vector_norm(p), \
+                    torch.linalg.vector_norm(u)
+                ratio = torch.where((pn == 0) | (un == 0),
+                                    torch.ones_like(pn), pn / un)
+                p.sub_(group["lr"] * (u * ratio))
+
+
+class Lion(torch.optim.Optimizer):
+    """optax.lion: u = sign((1−b1)·g + b1·m), then m ← (1−b2)·g + b2·m,
+    p ← p − lr·(u + ``weight_decay``·p)."""
+
+    def __init__(self, params, lr: float = 1e-4, b1: float = 0.9,
+                 b2: float = 0.99, weight_decay: float = 1e-3):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["b1"], group["b2"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                st = self.state[p]
+                if not st:
+                    st["mu"] = torch.zeros_like(p)
+                mu = st["mu"]
+                u = torch.sign((1 - b1) * g + b1 * mu)
+                mu.mul_(b2).add_((1 - b2) * g)
+                p.sub_(group["lr"] * (u + group["weight_decay"] * p))
+
+
+# name -> params -> Optimizer with optax's defaults (the JAX package's
+# name table: sparkdl_tpu/param/converters.py toOptimizer)
+_OPTIMIZERS: Dict[str, Callable[[List[torch.Tensor]], torch.optim.Optimizer]] = {
+    "adam": lambda p: torch.optim.Adam(p, lr=1e-3, betas=(0.9, 0.999),
+                                       eps=1e-8),
+    "adamw": lambda p: torch.optim.AdamW(p, lr=1e-3, betas=(0.9, 0.999),
+                                         eps=1e-8, weight_decay=1e-4),
+    "sgd": lambda p: torch.optim.SGD(p, lr=1e-2),
+    "rmsprop": lambda p: OptaxRMSprop(p, lr=1e-3),
+    "adagrad": lambda p: OptaxAdagrad(p, lr=1e-2),
+    "lamb": lambda p: Lamb(p, lr=1e-3),
+    "lion": lambda p: Lion(p, lr=1e-4),
+}
+
+
+class NamedOptimizer:
+    """``params -> torch.optim.Optimizer`` for an optimizer name, with
+    optax's defaults (see the module docstring); pickles by name."""
+
+    def __init__(self, name: str):
+        if name not in _OPTIMIZERS:
+            raise TypeError(f"Unknown optimizer name {name!r}")
+        self.name = name
+
+    def __call__(self, params) -> torch.optim.Optimizer:
+        return _OPTIMIZERS[self.name](list(params))
+
+    def __repr__(self) -> str:
+        return f"NamedOptimizer({self.name!r})"
+
+
+def required_positional(fn) -> List[str]:
+    """Names of ``fn``'s positional parameters without a default ([] when
+    the signature cannot be read)."""
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return []
+    return [p.name for p in sig.parameters.values()
+            if p.default is inspect.Parameter.empty
+            and p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
 
 
 def supported_name_converter(supported):
@@ -35,6 +209,32 @@ class SparkDLTypeConverters:
     """Converters for framework-specific param types."""
 
     supportedNameConverter = staticmethod(supported_name_converter)
+
+    @staticmethod
+    def toOptimizer(value) -> Any:
+        """Accept a factory ``params -> torch.optim.Optimizer`` (e.g.
+        ``torch.optim.Adam`` or a ``functools.partial`` of one), a
+        zero-argument factory returning one (called once at fit time), or
+        an optimizer name (adam/adamw/sgd/rmsprop/adagrad/lamb/lion, with
+        optax's defaults as the JAX package's names have them).  An
+        optimizer instance is refused: it is bound to other tensors than
+        the ones a fit trains."""
+        if isinstance(value, torch.optim.Optimizer):
+            raise TypeError(
+                "Pass an optimizer factory (params -> Optimizer, e.g. "
+                "functools.partial(torch.optim.Adam, lr=1e-3)) or a name, "
+                "not an Optimizer bound to other tensors")
+        if isinstance(value, str):
+            return NamedOptimizer(value.lower())
+        if callable(value):
+            required = required_positional(value)
+            if len(required) > 1:
+                raise TypeError(
+                    f"Optimizer factory {value!r} requires arguments "
+                    f"{required}; pass a factory params -> Optimizer or a "
+                    f"zero-arg factory returning one")
+            return value
+        raise TypeError(f"Could not convert {value!r} to an optimizer")
 
     @staticmethod
     def toLoss(value) -> Any:

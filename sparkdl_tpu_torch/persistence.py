@@ -8,7 +8,7 @@ Layout per stage directory:
   <path>/tensors.pt      — ``torch.save`` of the stage's tensors (a dict of
                             name -> tensor), loaded with ``weights_only=True``
   <path>/payload.pkl     — pickled callables (loaders, fns), when present
-  <path>/stages/<k>_*/   — nested stages (PipelineModel)
+  <path>/stages/<k>_*/   — nested stages (PipelineModel, CrossValidatorModel)
 
 Stages customize via two hooks:
 
@@ -20,9 +20,9 @@ The default implementation persists all explicitly-set JSON-able params and
 refuses (loudly) to silently drop non-serializable ones a subclass didn't
 handle.  Callables go through pickle — module-level functions round-trip;
 lambdas and closures fail at SAVE time with a clear error.  A
-ModelFunction is stored as its ``fn`` and its module's structure (pickled,
-with the tensors left on the meta device) plus the module's tensors in
-``tensors.pt``; one converted from Keras (``graph/keras_convert.py``)
+ModelFunction is stored as its ``fn``, its ``train_fn`` (when it pickles)
+and its module's structure (pickled, with the tensors left on the meta
+device) plus the module's tensors in ``tensors.pt``; one converted from Keras (``graph/keras_convert.py``)
 stores its model config as JSON instead, and a stage with a ``modelFile``
 rebuilds it from the file.
 
@@ -51,6 +51,10 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn as nn
 
+from sparkdl_tpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
+
 _FORMAT_VERSION = 1
 _PACKAGE = "sparkdl_tpu_torch"
 
@@ -63,11 +67,11 @@ def module_tensors(module: nn.Module) -> Dict[str, torch.Tensor]:
     return {k: t.detach().cpu() for k, t in out.items()}
 
 
-def _module_from(skeleton: nn.Module, tensors: Dict[str, torch.Tensor]
-                 ) -> nn.Module:
-    """``skeleton`` (tensors on the meta device) on the CPU, filled from
-    ``tensors`` (:func:`module_tensors` of the saved module)."""
-    module = skeleton.to_empty(device="cpu")
+def load_module_tensors(module: nn.Module,
+                        tensors: Dict[str, torch.Tensor]) -> nn.Module:
+    """Copy ``tensors`` (:func:`module_tensors` of a module of the same
+    structure) into ``module``'s parameters and buffers; raises when the
+    names differ."""
     have = dict(module.named_parameters())
     have.update(module.named_buffers())
     if set(have) != set(tensors):
@@ -76,7 +80,33 @@ def _module_from(skeleton: nn.Module, tensors: Dict[str, torch.Tensor]
     with torch.no_grad():
         for k, t in have.items():
             t.copy_(tensors[k])
-    return module.eval()
+    return module
+
+
+def _module_from(skeleton: nn.Module, tensors: Dict[str, torch.Tensor]
+                 ) -> nn.Module:
+    """``skeleton`` (tensors on the meta device) on the CPU, filled from
+    ``tensors`` (:func:`module_tensors` of the saved module)."""
+    return load_module_tensors(skeleton.to_empty(device="cpu"),
+                               tensors).eval()
+
+
+def persistable_train_fn(mf):
+    """``mf.train_fn`` if it survives pickling, else None (with a warning),
+    as in the JAX package: the restored stage then only loses the ability
+    to re-fit with ``trainBatchStats=True``."""
+    fn = getattr(mf, "train_fn", None)
+    if fn is None:
+        return None
+    try:
+        pickle.dumps(fn)
+    except Exception:  # whatever pickling raises for a closure
+        logger.warning(
+            "modelFunction.train_fn is not picklable (closure?); the "
+            "restored stage will have train_fn=None and cannot re-fit "
+            "with trainBatchStats=True")
+        return None
+    return fn
 
 
 def _is_keras_built(mf) -> bool:
@@ -97,6 +127,7 @@ def modelfunction_state(mf):
                 mf.module.state_dict(), {})
     skeleton = copy.deepcopy(mf.module).to("meta")
     payload = {"fn": mf.fn, "module": skeleton,
+               "train_fn": persistable_train_fn(mf),
                "input_names": list(mf.input_names),
                "output_names": list(mf.output_names)}
     return {}, module_tensors(mf.module), payload
@@ -115,6 +146,7 @@ def modelfunction_from_state(extra: Dict, tensors, payload: Optional[Dict]):
             output_names=tuple(module.output_names))
     return ModelFunction(fn=payload["fn"],
                          module=_module_from(payload["module"], tensors),
+                         train_fn=payload.get("train_fn"),
                          input_names=tuple(payload["input_names"]),
                          output_names=tuple(payload["output_names"]))
 

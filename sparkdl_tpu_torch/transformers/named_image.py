@@ -39,6 +39,7 @@ from sparkdl_tpu_torch.parallel.engine import (InferenceEngine,
 from sparkdl_tpu_torch.parallel.pipeline import pipeline_enabled_from_env
 from sparkdl_tpu_torch.persistence import PersistableModelFunctionMixin
 from sparkdl_tpu_torch.transformers.base import Transformer
+from sparkdl_tpu_torch.utils.cache import ByteBoundedLRU
 from sparkdl_tpu_torch.utils.logging import get_logger
 from sparkdl_tpu_torch.utils.prefetch import prefetch_iter
 
@@ -46,8 +47,28 @@ logger = get_logger(__name__)
 
 # Process-wide caches: zoo weights load once per (model, build variant),
 # engines are built once per (model, variant, cut, batch, dtype, device).
+# The engine cache holds at most ENGINE_POOL_SHARE of the card's memory in
+# the engines' CUDA-graph pools, least recently used first; an evicted
+# engine releases its graphs once the card is done with them.  The rest of
+# the card stays for weights, a fit's activations and other engines.
+ENGINE_POOL_SHARE = 0.25
+
+
+def new_engine_cache() -> ByteBoundedLRU:
+    """An engine cache: entries sized by their graph pools, bounded by
+    ``ENGINE_POOL_SHARE`` of the current card's memory (0 without a card,
+    where no engine captures a graph), evicted least recently used first,
+    each evicted engine's graphs released."""
+    cap = 0
+    if torch.cuda.is_available():
+        cap = int(ENGINE_POOL_SHARE * torch.cuda.get_device_properties(
+            torch.cuda.current_device()).total_memory)
+    return ByteBoundedLRU(cap, sizeof=lambda eng: eng.graph_pool_bytes,
+                          on_evict=lambda key, eng: eng.release_graphs())
+
+
 _MODEL_CACHE: Dict[tuple, nn.Module] = {}
-_ENGINE_CACHE: Dict[tuple, InferenceEngine] = {}
+_ENGINE_CACHE = new_engine_cache()
 
 
 def clear_model_caches():
@@ -105,23 +126,30 @@ def _zoo_engine(name: str, featurize: bool, batch_size: int) -> InferenceEngine:
     fetches bf16 outputs, widened to f32 on the host.  The default stays
     float32 end to end (the fused layers round to bf16 inside, as in JAX).
     """
-    cdt_name = zoo_compute_dtype_name()
-    bpd = batches_per_dispatch_from_env()
-    device = resolve_device()
-    name = get_model_spec(name).name
-    key = (name, model_variant_key(name), featurize, batch_size, cdt_name,
-           str(device), bpd)
+    key = _zoo_engine_key(name, featurize, batch_size)
+    name, cdt_name, bpd = key[0], key[4], key[6]
     eng = _ENGINE_CACHE.get(key)
     if eng is None:
+        # make room first: the cached engines' pools are known by now
+        _ENGINE_CACHE.reaccount()
         cdt = torch.bfloat16 if cdt_name == "bfloat16" else None
         eng = InferenceEngine(
             zoo_model_fn(name, featurize, compute_dtype=cdt),
-            _cached_model(name), device=device,
+            _cached_model(name), device=resolve_device(),
             device_batch_size=batch_size, compute_dtype=cdt,
             batches_per_dispatch=bpd,
             output_host_dtype=np.float32 if cdt is not None else None)
-        _ENGINE_CACHE[key] = eng
+        _ENGINE_CACHE.put(key, eng)
     return eng
+
+
+def _zoo_engine_key(name: str, featurize: bool, batch_size: int) -> tuple:
+    """The engine cache's key: (model, build variant, cut, batch, compute
+    dtype, device, ``SPARKDL_BATCHES_PER_DISPATCH``)."""
+    name = get_model_spec(name).name
+    return (name, model_variant_key(name), featurize, batch_size,
+            zoo_compute_dtype_name(), str(resolve_device()),
+            batches_per_dispatch_from_env())
 
 
 def _float_list_array(mat: np.ndarray, valid_idx: Sequence[int],
@@ -234,10 +262,22 @@ class _NamedImageTransformer(_ImageInputStage, HasModelName):
         name = self.getModelName()
         spec = get_model_spec(name)
         h, w = spec.input_size
-        out, valid_idx = self._run_streaming(
-            dataset,
-            lambda: _zoo_engine(name, self.featurize, self.getBatchSize()),
-            h, w)
+        used = []
+
+        def factory():
+            used.append(_zoo_engine_key(name, self.featurize,
+                                        self.getBatchSize()))
+            return _zoo_engine(name, self.featurize, self.getBatchSize())
+
+        try:
+            out, valid_idx = self._run_streaming(dataset, factory, h, w)
+        finally:
+            # the engine's pool is known after its capture: account it and
+            # evict over the bound (never the engine just used), outside
+            # every engine's lock; within a transform the engine in use may
+            # take the cache past the bound by its own pool
+            if used:
+                _ENGINE_CACHE.reaccount(keep=used[0])
         if out is None:
             dim = spec.feature_size if self.featurize else 1000
             return np.zeros((0, dim), np.float32), valid_idx, len(dataset)

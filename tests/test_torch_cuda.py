@@ -314,3 +314,27 @@ def test_image_udf_converter_stage_is_captured(cuda):
     assert got[-1] is None and want[-1] is None
     np.testing.assert_allclose(np.asarray(got[:-1]), np.asarray(want[:-1]),
                                rtol=1e-4, atol=1e-6)
+
+
+def test_buckets_share_one_pool_and_release(cuda):
+    """Two buckets (a plain batch and a group of 2) capture into the
+    engine's one pool: both replay bit for bit as eager, the engine's pool
+    bytes are what the pool reserved, and ``release_graphs`` drops the
+    graphs and the pool; the next dispatch captures again."""
+    from sparkdl_tpu_torch.parallel.engine import graph_pool_bytes_held
+
+    eng = _conv_engine()
+    eng.batches_per_dispatch = 2
+    x = _images(3, 2 * B + 3)  # one group of 2 and a plain tail
+    graphed = eng(x, pipeline=False)
+    assert len(eng.graphs()) == 2 and eng.graph_pool_bytes > 0
+    assert eng.graph_pool_bytes == sum(g["pool_bytes"] for g in eng.graphs())
+    assert graph_pool_bytes_held() >= eng.graph_pool_bytes
+    eng.capture = False
+    eager = eng(x, pipeline=False)
+    eng.capture = True
+    np.testing.assert_array_equal(graphed, eager)
+    eng.release_graphs()
+    assert eng.graphs() == [] and eng.graph_pool_bytes == 0
+    np.testing.assert_array_equal(eng(x, pipeline=False), graphed)
+    assert len(eng.graphs()) == 2

@@ -148,3 +148,80 @@ def test_registry_matches_jax():
     with torch.inference_mode():
         f = m(spec.preprocess(x), features=True)
     assert f.shape == (1, 1280) and torch.isfinite(f).all()
+
+
+# -- train mode: flax BatchNorm and stochastic depth ------------------------------
+# train mode normalizes by batch statistics: the same bar, the updated
+# statistics (means over the batch) a little tighter
+STATS_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def test_train_mode_at_rate_zero_matches_jax():
+    """``drop_connect_rate`` 0 (the default): the train-mode apply
+    (``ModelFunction.train_fn``: every BatchNorm on batch statistics with
+    flax's update) gives JAX's ``train=True`` logits and updated
+    ``batch_stats``."""
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+
+    jm = JaxEffNet(num_classes=5)
+    variables = seeded_variables(jm, 32, 63)
+    x = np.random.default_rng(64).integers(
+        0, 256, (4, 32, 32, 3)).astype(np.float32)
+    want, mutated = jax.jit(lambda v, a: jm.apply(
+        v, a, train=True, logits=True, mutable=["batch_stats"]))(variables, x)
+    pm = EfficientNetB0(num_classes=5)
+    pm.load_state_dict(convert.state_dict_from_jax("EfficientNetB0",
+                                                   variables))
+    mf = ModelFunction.from_module(pm, method_kwargs={"logits": True})
+    got, stats = mf.train_fn(pm, torch.from_numpy(x))
+    assert not pm.training  # the mode is restored
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    new_sd = convert.state_dict_from_jax(
+        "EfficientNetB0", {"params": variables["params"],
+                           "batch_stats": jax.tree_util.tree_map(
+                               np.asarray, mutated["batch_stats"])})
+    assert len(stats) == 2 * 49 and set(stats) <= set(new_sd)
+    for k, t in stats.items():
+        np.testing.assert_allclose(t.numpy(), new_sd[k].numpy(),
+                                   **STATS_TOL, err_msg=k)
+    # the input normalization's statistics are not BatchNorm statistics
+    assert not any(k.startswith("normalization") for k in stats)
+
+
+def test_drop_connect_mask_properties_and_reproducibility():
+    """Per-sample masks (every element of a sample kept or zeroed
+    together), survivors divided by keep, about ``keep`` of the samples
+    kept, the same draws from the same seed; a generator is required, and
+    eval mode never drops."""
+    from sparkdl_tpu_torch.models.efficientnet import drop_connect
+
+    x = torch.ones(4000, 2, 3, 3)
+    out = drop_connect(x, 0.3, torch.Generator().manual_seed(1))
+    per_sample = out.reshape(4000, -1)
+    assert torch.equal(per_sample.min(1).values, per_sample.max(1).values)
+    kept = per_sample[:, 0] != 0
+    torch.testing.assert_close(per_sample[kept, 0],
+                               torch.full((int(kept.sum()),), 1 / 0.7))
+    # binomial(4000, 0.7): 0.7 +- 4.3 sigma
+    assert abs(float(kept.float().mean()) - 0.7) < 0.03
+    again = drop_connect(x, 0.3, torch.Generator().manual_seed(1))
+    other = drop_connect(x, 0.3, torch.Generator().manual_seed(2))
+    assert torch.equal(out, again) and not torch.equal(out, other)
+    with pytest.raises(ValueError, match="generator"):
+        drop_connect(x, 0.3, None)
+
+    def run(seed, train=True):
+        m = EfficientNetB0(num_classes=3, drop_connect_rate=0.5,
+                           generator=torch.Generator().manual_seed(seed))
+        from sparkdl_tpu_torch.models import init_weights
+
+        init_weights(m, torch.Generator().manual_seed(0))
+        m.train(train)
+        with torch.no_grad():
+            return m(torch.full((3, 32, 32, 3), 100.0), logits=True)
+
+    assert torch.equal(run(5), run(5)) and not torch.equal(run(5), run(6))
+    assert torch.equal(run(5, train=False), run(6, train=False))
+    m = EfficientNetB0(num_classes=3, drop_connect_rate=0.5).train()
+    with pytest.raises(ValueError, match="generator"):
+        m(torch.zeros(1, 32, 32, 3))

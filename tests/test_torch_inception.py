@@ -386,7 +386,7 @@ def test_featurizer_matches_jax(jax_setup, fixture_images, monkeypatch):
     monkeypatch.setattr(jax_ni, "get_model_spec", lambda name: narrow_jax)
     monkeypatch.setattr(port_ni, "get_model_spec", lambda name: narrow_port)
     monkeypatch.setattr(jax_ni, "_ENGINE_CACHE", {})
-    monkeypatch.setattr(port_ni, "_ENGINE_CACHE", {})
+    monkeypatch.setattr(port_ni, "_ENGINE_CACHE", port_ni.new_engine_cache())
     monkeypatch.setitem(jax_ni._MODEL_CACHE, ("InceptionV3", ""),
                         (JaxInceptionV3(num_classes=5), variables))
     monkeypatch.setattr(port_ni, "_MODEL_CACHE",

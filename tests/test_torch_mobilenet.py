@@ -254,7 +254,7 @@ def zoo(monkeypatch):
     monkeypatch.setattr(jax_ni, "get_model_spec", lambda name: narrow_jax)
     monkeypatch.setattr(port_ni, "get_model_spec", lambda name: narrow_port)
     monkeypatch.setattr(jax_ni, "_ENGINE_CACHE", {})
-    monkeypatch.setattr(port_ni, "_ENGINE_CACHE", {})
+    monkeypatch.setattr(port_ni, "_ENGINE_CACHE", port_ni.new_engine_cache())
     monkeypatch.setattr(port_ni, "_MODEL_CACHE", {})
     monkeypatch.setitem(jax_ni._MODEL_CACHE, ("MobileNetV2", ""),
                         (narrow_jax.build(), variables))

@@ -52,7 +52,7 @@ def zoo(monkeypatch, variables):
     monkeypatch.setattr(jax_ni, "get_model_spec", lambda name: narrow_jax)
     monkeypatch.setattr(port_ni, "get_model_spec", lambda name: narrow_port)
     monkeypatch.setattr(jax_ni, "_ENGINE_CACHE", {})
-    monkeypatch.setattr(port_ni, "_ENGINE_CACHE", {})
+    monkeypatch.setattr(port_ni, "_ENGINE_CACHE", port_ni.new_engine_cache())
     monkeypatch.setitem(jax_ni._MODEL_CACHE, ("Xception", ""),
                         (narrow_jax.build(), variables))
     model = Xception()

@@ -96,7 +96,9 @@ def test_fused_route_layer_counts(monkeypatch):
                            device=x.device)
 
     monkeypatch.setattr(layers, "fused_sepconv", stub)
-    with torch.device("meta"):
+    # without autograd: a forward that autograd records takes the unfused
+    # route (the fused kernels have no backward)
+    with torch.device("meta"), torch.no_grad():
         m = Xception(fused_inference=True).eval()
         for size, want in ((96, 34), (299, 30)):
             calls.clear()
@@ -125,7 +127,7 @@ def test_tiled_entry_layer_counts(monkeypatch):
                            device=x.device)
 
     monkeypatch.setattr(layers, "fused_sepconv", stub)
-    with torch.device("meta"):
+    with torch.device("meta"), torch.no_grad():  # no autograd: fused route
         m = Xception(fused_inference=True, tiled_entry=True).eval()
         m(torch.empty(2, 299, 299, 3), features=True)
     tiled = [c for c in calls if c[-1] is not None]

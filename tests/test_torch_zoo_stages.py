@@ -56,8 +56,9 @@ def narrow(monkeypatch):
         monkeypatch.setattr(jax_ni, "get_model_spec", lambda n: j)
         monkeypatch.setattr(port_ni, "get_model_spec", lambda n: p)
 
+    monkeypatch.setattr(jax_ni, "_ENGINE_CACHE", {})
+    monkeypatch.setattr(port_ni, "_ENGINE_CACHE", port_ni.new_engine_cache())
     for mod in (jax_ni, port_ni):
-        monkeypatch.setattr(mod, "_ENGINE_CACHE", {})
         monkeypatch.setattr(mod, "_MODEL_CACHE", {})
     monkeypatch.delenv("SPARKDL_CLASS_INDEX", raising=False)
     monkeypatch.delenv("SPARKDL_WEIGHTS_DIR", raising=False)
@@ -112,7 +113,8 @@ def test_resnet50_stage_serves_the_weights_dir_file(narrow, monkeypatch,
     assert torch.equal(served.conv1_conv.weight,
                        torch.from_numpy(kernel).permute(3, 2, 0, 1))
     assert not torch.equal(served.conv1_conv.weight,
-                           load_model("ResNet50").conv1_conv.weight)
+                           load_model("ResNet50", weights=None)
+                           .conv1_conv.weight)
 
 
 def test_vgg16_stages_match_jax_with_class_index(narrow, monkeypatch,
