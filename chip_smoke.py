@@ -68,7 +68,24 @@ weights and batch 32:
     statistics after two no further from a float64 CPU fit than 4x the
     CPU's float32 fit), a
     checkpointed fit resumed against the uninterrupted one,
-    and the CV model's save and load (bit for bit).
+    and the CV model's save and load (bit for bit);
+  * [native] (after [tuning]), the host decode core
+    (``sparkdl_tpu_torch/native``): whether it built with g++ against
+    libjpeg and libpng and why not; where it built, native vs PIL over 64
+    JPEGs and a garbage file at 224 and 299 (mean abs diff under 8, equal
+    ok masks) and ms a batch of both; where not, PIL's ms a batch;
+  * [tfgraph] (last), ``TFInputGraph`` without TensorFlow: the committed
+    frozen InceptionV3 skeleton (2,217 nodes) filled from
+    ``seeded_keras_arrays`` (``tools/gen_tf_graphs.py``) at 299x299, batch
+    32, f32 with TF32 off, through ``TFInputGraph.fromGraphDef`` (pooled
+    features and probabilities) after a uint8 -> float preprocess, as one
+    CUDA graph: within 1e-6 of TensorFlow's stored outputs and of the port
+    on the CPU, TF32's reading above both, graphed == eager bit for bit,
+    forward ms graphed and eager, kernel nodes per replay, the pool, the
+    parse / fill / import seconds; ``TFImageTransformer`` over 64 image
+    structs equal to the engine, saved and loaded bit for bit; the six
+    constructors over the TF-written MLP and CNN through ``TFTransformer``
+    on the card within rtol 1e-5 / atol 1e-6 of TensorFlow's outputs.
 
 B1 is also held against its plain version at ragged shapes (a pixel count
 that is not a multiple of 64, F = 200, all four ReLU variants), and each of
@@ -126,9 +143,12 @@ relative errors), one JSON line of the [graph] and [pipeline] numbers,
 one of [keras]'s (forward ms of the converted model beside the zoo's
 per-branch route, launches per replay, host us per dispatch, graph pool,
 the stages' img/s, relative errors), one of [tuning]'s (wall time, fit
-and eval img/s, captures, metrics, relative errors, the pools after
-every phase),
-one JSON line with every kernel's numbers, and last the line
+and eval img/s, captures, metrics, relative errors),
+one of [native]'s (the route and why, decode ms a batch), one of
+[tfgraph]'s (import seconds, forward ms, kernel nodes, pool, relative
+errors), one ``{"pools": ...}`` line (the graph pools held after every
+phase, by phase; later phases add keys to it), one JSON line with every
+kernel's numbers, and last the line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -2274,6 +2294,385 @@ class env_knobs:
                 os.environ[k] = v
 
 
+NATIVE_FILES = 64               # JPEGs a decode batch, beside one garbage
+NATIVE_PIL_MEAN_ABS = 8.0       # native vs PIL mean abs diff (tests/test_native.py:59)
+
+
+def _native_blobs(n, seed):
+    """``n`` camera-sized JPEGs (500x375, smooth gradients and noise, as
+    photographs compress) and one garbage file, last."""
+    import io as _io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:375, 0:500]
+    blobs = []
+    for i in range(n):
+        base = np.stack([(xx * (i + 1) // 7) % 256, (yy * 3) % 256,
+                         ((xx + yy) * (i % 5 + 1)) % 256], -1)
+        img = np.clip(base + rng.normal(0, 12, base.shape), 0, 255)
+        buf = _io.BytesIO()
+        Image.fromarray(img.astype(np.uint8)).save(buf, "JPEG", quality=90)
+        blobs.append(buf.getvalue())
+    return blobs + [b"not a jpeg"]
+
+
+def phase_native(sepconv):
+    """[native]: the host decode core (``sparkdl_tpu_torch/native``), which
+    builds with g++ against libjpeg and libpng where their headers are
+    present, else leaves ``decodeResizeBatch`` / ``structsToBatch`` on
+    PIL.  Prints whether it built and why not; where it built, holds it to
+    PIL over NATIVE_FILES JPEGs and a garbage file at 224x224 and 299x299
+    (mean abs diff under NATIVE_PIL_MEAN_ABS, equal ok masks, the garbage
+    row dropped), and times both routes a batch.  None of B1-B3 runs."""
+    from sparkdl_tpu_torch import native
+    from sparkdl_tpu_torch.image import io as image_io
+
+    tag = "native"
+    built, why = native.status()
+    blobs = _native_blobs(NATIVE_FILES, SEED + 61)
+    out = dict(built=built, why_not=why, ms={})
+    with native.disabled():
+        pil = {s: image_io.decodeResizeBatch(blobs, s, s)
+               for s in (224, 299)}
+        for s in (224, 299):
+            out["ms"][f"pil_{s}"] = 1e3 * min(_wall(
+                lambda: image_io.decodeResizeBatch(blobs, s, s))
+                for _ in range(3))
+    for s in (224, 299):
+        ok = pil[s][1]
+        check(ok.tolist() == [True] * NATIVE_FILES + [False],
+              f"[{tag}] PIL ok mask at {s}: {ok.tolist()}")
+    if not built:
+        print(f"[{tag}] native core not built ({why}): decodeResizeBatch and "
+              f"structsToBatch take the PIL route; PIL decode+resize of "
+              f"{NATIVE_FILES} 500x375 JPEGs + 1 garbage: "
+              f"{out['ms']['pil_224']:.1f} ms a batch at 224x224, "
+              f"{out['ms']['pil_299']:.1f} ms at 299x299", flush=True)
+        return out
+    diffs = {}
+    for s in (224, 299):
+        got, ok = image_io.decodeResizeBatch(blobs, s, s)
+        check(np.array_equal(ok, pil[s][1]),
+              f"[{tag}] native ok mask {ok.tolist()} != PIL's at {s}")
+        check(not got[-1].any(), f"[{tag}] garbage row not zeroed at {s}")
+        diffs[s] = float(np.abs(got[:-1].astype(int)
+                                - pil[s][0][:-1].astype(int)).mean())
+        check(diffs[s] < NATIVE_PIL_MEAN_ABS,
+              f"[{tag}] native vs PIL mean abs diff {diffs[s]:.3f} at {s}")
+        out["ms"][f"native_{s}"] = 1e3 * min(_wall(
+            lambda: image_io.decodeResizeBatch(blobs, s, s))
+            for _ in range(3))
+    out["mean_abs_vs_pil"] = diffs
+    print(f"[{tag}] native core built ({native.library_path().name}): "
+          f"{NATIVE_FILES} 500x375 JPEGs + 1 garbage, ok masks equal to "
+          f"PIL's; mean abs diff vs PIL {diffs[224]:.3f} (224) / "
+          f"{diffs[299]:.3f} (299), limit {NATIVE_PIL_MEAN_ABS}; ms a batch "
+          f"native / PIL: 224x224 {out['ms']['native_224']:.1f} / "
+          f"{out['ms']['pil_224']:.1f}, 299x299 {out['ms']['native_299']:.1f}"
+          f" / {out['ms']['pil_299']:.1f}", flush=True)
+    return out
+
+
+def _wall(fn):
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+TFGRAPH_ORACLE_TOL = 1e-6       # card vs TensorFlow's stored outputs, f32
+TFGRAPH_CPU_TOL = 1e-6          # card vs the port on the CPU, f32
+TFGRAPH_FIXTURE_TOL = dict(rtol=1e-5, atol=1e-6)   # tests/test_tf_input.py
+
+
+def _gen_tf_graphs():
+    """``tools/gen_tf_graphs.py`` (TensorFlow only inside its writer): the
+    skeleton's files, ``seeded_keras_arrays`` and TF's oracle batch."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "gen_tf_graphs.py")
+    spec = importlib.util.spec_from_file_location("gen_tf_graphs", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tf_inception_preprocess(x):
+    """Keras' InceptionV3 preprocess of the uint8 RGB batch that
+    TFImageTransformer hands its ModelFunction, in float32 as TF's oracle
+    was fed."""
+    return x.float() / 127.5 - 1.0
+
+
+class _Pick:
+    """One output of a multi-output graph (module-level: it pickles)."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def __call__(self, y):
+        return y[self.key]
+
+
+class _Reshape:
+    """A flat input column back to the graph's input shape."""
+
+    def __init__(self, name, shape):
+        self.name, self.shape = name, tuple(shape)
+
+    def __call__(self, x):
+        return {**x, self.name: x[self.name].reshape((-1,) + self.shape)}
+
+
+def _fixture_constructors(fixtures, model):
+    """The six TFInputGraph constructors over one TF-written fixture; the
+    Graph and Session of ``fromGraph`` are stand-ins that serve the
+    checkpoint's stored graph and its variables (there is no TensorFlow
+    here)."""
+    from sparkdl_tpu_torch.graph.input import TFInputGraph
+
+    d = os.path.join(fixtures, model)
+    with open(os.path.join(d, "names.json")) as f:
+        names = json.load(f)
+    feeds = list(names["feeds"].values())
+    fetches = list(names["fetches"].values())
+    graph, sess = _gen_tf_graphs().checkpoint_stand_ins(
+        os.path.join(d, "ckpt"))
+
+    sm = os.path.join(d, "saved_model")
+    tigs = {
+        "fromGraph": TFInputGraph.fromGraph(graph, sess, feeds, fetches),
+        "fromGraphDef": TFInputGraph.fromGraphDef(
+            os.path.join(d, "frozen.pb"), feeds, fetches),
+        "fromCheckpoint": TFInputGraph.fromCheckpoint(
+            os.path.join(d, "ckpt"), feeds, fetches),
+        "fromCheckpointWithSignature":
+            TFInputGraph.fromCheckpointWithSignature(
+                os.path.join(d, "ckpt"), names["checkpoint_signature"]),
+        "fromSavedModel": TFInputGraph.fromSavedModel(
+            sm, names["tags"], feeds, fetches),
+        "fromSavedModelWithSignature":
+            TFInputGraph.fromSavedModelWithSignature(
+                sm, names["tags"], names["saved_model_signature"]),
+    }
+    return names, dict(np.load(os.path.join(d, "io.npz"))), tigs
+
+
+def phase_tfgraph(sepconv):
+    """[tfgraph]: TFInputGraph without TensorFlow.  A frozen Keras
+    InceptionV3 (the committed 2,217-node skeleton, its weight constants
+    filled from ``seeded_keras_arrays``) at 299x299, batch 32, f32 with
+    TF32 off; B1-B3 must not launch.
+
+      1. parse, fill and import times; ``TFInputGraph.fromGraphDef`` with
+         two fetches (pooled features, probabilities) after a uint8 ->
+         float preprocess, through InferenceEngine as one CUDA graph: the
+         oracle batch's two images within TFGRAPH_ORACLE_TOL of
+         TensorFlow's stored outputs, the batch within TFGRAPH_CPU_TOL of
+         the port on the CPU, graphed == eager bit for bit, TF32's reading
+         printed and above both limits; device ms graphed and eager in f32
+         and TF32, kernel nodes per replay, the graph pool;
+      2. TFImageTransformer over the Arrow image column of the same 32
+         images and 32 more: equal to the engine's probabilities (two
+         batches: a check, not a rate); saved and loaded, bit for bit;
+      3. the six constructors over the TF-written MLP and CNN through
+         TFTransformer (multi-column outputMapping) on the card, each
+         within TFGRAPH_FIXTURE_TOL of TensorFlow's stored outputs."""
+    import tempfile
+
+    from sparkdl_tpu_torch import default_device
+    from sparkdl_tpu_torch.frame import DataFrame
+    from sparkdl_tpu_torch.graph import proto
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.graph.input import TFInputGraph
+    from sparkdl_tpu_torch.image.schema import (imageArrayToStruct,
+                                                structsToArrow)
+    from sparkdl_tpu_torch.parallel.engine import InferenceEngine
+    from sparkdl_tpu_torch.transformers import (TFImageTransformer,
+                                                TFTransformer)
+
+    tag = "tfgraph"
+    zero = dict(sepconv=0, sepconv_tiled=0, mbconv=0)
+    gen = _gen_tf_graphs()
+    with open(gen.INCEPTION_JSON) as f:
+        meta = json.load(f)
+    pooled, probs_name = meta["pooled"], meta["probabilities"]
+    t0 = time.perf_counter()
+    with open(gen.INCEPTION_PB, "rb") as f:
+        gd = proto.GraphDef.parse(f.read())
+    t1 = time.perf_counter()
+    gen.fill_skeleton(gd, gen.skeleton_arrays(meta))
+    t2 = time.perf_counter()
+    tig = TFInputGraph.fromGraphDef(gd, [meta["feed"]], [pooled, probs_name])
+    mf = tig.model_function()
+    t3 = time.perf_counter()
+    times = dict(parse_s=t1 - t0, fill_s=t2 - t1, import_s=t3 - t2)
+    check(len(gd.node) == 2217 and len(meta["weights"]) == 378,
+          f"[{tag}] skeleton has {len(gd.node)} nodes, "
+          f"{len(meta['weights'])} weight constants")
+    full = ModelFunction.from_callable(tf_inception_preprocess).compose(mf)
+    oracle = np.load(gen.INCEPTION_ORACLE)
+    head = gen.oracle_batch()
+    rng = np.random.default_rng(SEED + 67)
+    x8 = np.concatenate([head, rng.integers(
+        0, 256, (BATCH - len(head), 299, 299, 3), dtype=np.uint8)])
+
+    # 1. the engine: one CUDA graph
+    reset_counts(sepconv)
+    eng = InferenceEngine(full.fn, full.module, device="cuda",
+                          device_batch_size=BATCH)
+    y = eng(x8)
+    torch.cuda.synchronize()
+    check(eng.capture and len(eng.graphs()) == 1,
+          f"[{tag}] the engine did not run a captured graph")
+    check(y[pooled].shape == (BATCH, 2048) and y[probs_name].shape
+          == (BATCH, 1000) and all(np.isfinite(v).all() for v in y.values()),
+          f"[{tag}] outputs {[v.shape for v in y.values()]} not finite or "
+          f"misshapen")
+    rel_oracle = {k: _rel(y[n][:len(head)], oracle[k])
+                  for k, n in (("pooled", pooled),
+                               ("probabilities", probs_name))}
+    check(max(rel_oracle.values()) <= TFGRAPH_ORACLE_TOL,
+          f"[{tag}] card vs TensorFlow's outputs {rel_oracle} > "
+          f"{TFGRAPH_ORACLE_TOL}")
+    with default_device("cpu"):
+        cpu = InferenceEngine(full.fn, full.module, device="cpu",
+                              device_batch_size=BATCH)(x8)
+    rel_cpu = {n: _rel(y[n], cpu[n]) for n in (pooled, probs_name)}
+    check(max(rel_cpu.values()) <= TFGRAPH_CPU_TOL,
+          f"[{tag}] card vs CPU {rel_cpu} > {TFGRAPH_CPU_TOL}")
+    staged = eng._pad(x8)
+    eng.capture = False
+    eager = eng.run_padded(staged)
+    eng.capture = True
+    graphed = eng.run_padded(staged)
+    torch.cuda.synchronize()
+    same = all(torch.equal(graphed[k], eager[k]) for k in graphed) \
+        if isinstance(graphed, dict) else torch.equal(graphed, eager)
+    check(same, f"[{tag}] graphed forward differs from the eager forward")
+    g = next(iter(eng._graphs.values()))
+    nodes = graph_kernel_nodes(g.graph)[0]
+    pool = eng.graph_pool_bytes
+    ms = dict(f32=cuda_ms(lambda: eng.run_padded(staged), reps=10),
+              replay_f32=cuda_ms(g.graph.replay, reps=10))
+    eng.capture = False
+    ms["eager_f32"] = cuda_ms(lambda: eng.run_padded(staged), reps=10)
+    eng.capture = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = eng(x8)
+        ms["tf32"] = cuda_ms(lambda: eng.run_padded(staged), reps=10)
+        eng.capture = False
+        ms["eager_tf32"] = cuda_ms(lambda: eng.run_padded(staged), reps=10)
+        eng.capture = True
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rel_tf32 = {k: _rel(tf32[n][:len(head)], oracle[k])
+                for k, n in (("pooled", pooled),
+                             ("probabilities", probs_name))}
+    check(min(rel_tf32.values()) > max(TFGRAPH_ORACLE_TOL, TFGRAPH_CPU_TOL),
+          f"[{tag}] TF32 vs TensorFlow's outputs reads {rel_tf32}, within "
+          f"the f32 limits: they cannot tell a TF32 path")
+    check(read_counts(sepconv) == zero,
+          f"[{tag}] launches {read_counts(sepconv)}")
+    print(f"[{tag}] frozen InceptionV3 skeleton ({len(gd.node)} nodes, "
+          f"{len(meta['weights'])} weight constants from seeded_keras_arrays"
+          f"): parse {times['parse_s']:.2f}s, fill {times['fill_s']:.2f}s, "
+          f"import {times['import_s']:.2f}s ({len(mf.module.steps)} steps, "
+          f"{len(mf.module.const_names)} buffers); 299x299 batch {BATCH} on "
+          f"the card vs TensorFlow's stored outputs ||a-b||/||b|| = pooled "
+          f"{rel_oracle['pooled']:.3e}, probabilities "
+          f"{rel_oracle['probabilities']:.3e} (tol {TFGRAPH_ORACLE_TOL}); "
+          f"vs the CPU {max(rel_cpu.values()):.3e} (tol {TFGRAPH_CPU_TOL}); "
+          f"TF32 vs TensorFlow pooled {rel_tf32['pooled']:.3e}, "
+          f"probabilities {rel_tf32['probabilities']:.3e} (above the "
+          f"limits); graphed == eager bit for bit; device ms per forward "
+          f"graphed / eager: f32 {ms['f32']:.2f} / {ms['eager_f32']:.2f}, "
+          f"TF32 {ms['tf32']:.2f} / {ms['eager_tf32']:.2f}; replay alone f32 "
+          f"{ms['replay_f32']:.2f}; kernel nodes per replay {nodes}; graph "
+          f"pool {pool / 2**20:.1f} MiB", flush=True)
+
+    # 2. TFImageTransformer over the Arrow image column
+    more = rng.integers(0, 256, (BATCH, 299, 299, 3), dtype=np.uint8)
+    imgs = np.concatenate([x8, more])
+    df = DataFrame(structsToArrow([imageArrayToStruct(im[:, :, ::-1])
+                                   for im in imgs]))  # structs are BGR
+    stage_mf = full.compose(ModelFunction.from_callable(_Pick(probs_name)))
+    stage = TFImageTransformer(inputCol="image", outputCol="p",
+                               modelFunction=stage_mf, batchSize=BATCH)
+    stage.transform(df.limit(BATCH))  # warm: the stage's engine and graph
+    rows = stage.transform(df).column_to_numpy("p")
+    want = np.concatenate([y[probs_name], eng(more)[probs_name]])
+    check(rows.shape == (2 * BATCH, 1000) and np.array_equal(rows, want),
+          f"[{tag}] TFImageTransformer differs from the engine (max abs "
+          f"{np.abs(rows - want).max():.3g})")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        stage.save(os.path.join(tmp, "stage"))
+        again = TFImageTransformer.load(os.path.join(tmp, "stage"))
+        io_s = time.perf_counter() - t0
+        reloaded = again.transform(df).column_to_numpy("p")
+    check(np.array_equal(reloaded, rows),
+          f"[{tag}] reloaded stage's output differs")
+    del again
+    print(f"[{tag}] TFImageTransformer (uint8 -> x/127.5-1 -> the frozen "
+          f"graph -> probabilities) over {len(imgs)} image structs, batch "
+          f"{BATCH}: equal to the engine bit for bit;"
+          f" save + load {io_s:.2f}s, reloaded output bit for bit", flush=True)
+
+    # 3. the six constructors on the TF-written fixtures, via TFTransformer
+    fixtures = os.path.join(os.path.dirname(gen.INCEPTION_PB), "tf_fixtures")
+    worst = 0.0
+    t0 = time.perf_counter()
+    for model in ("mlp", "cnn"):
+        names, io, tigs = _fixture_constructors(fixtures, model)
+        for kind, t in tigs.items():
+            fmf = t.model_function()
+            signature = kind.endswith("Signature")
+            feeds = {k: (k if signature else v)
+                     for k, v in names["feeds"].items()}
+            x = {k: io[f"in_{k}"] for k in names["feeds"]}
+            cols = DataFrame({f"c_{k}": [r.reshape(-1).tolist() for r in v]
+                              for k, v in x.items()})
+            pre = ModelFunction.from_callable(
+                _Reshape(feeds[next(iter(x))], next(iter(x.values())).shape[1:]),
+                input_names=fmf.input_names, output_names=fmf.input_names)
+            outs = {k: (k if signature else v)
+                    for k, v in names["fetches"].items()}
+            tft = TFTransformer(
+                modelFunction=pre.compose(fmf),
+                inputMapping={f"c_{k}": v for k, v in feeds.items()},
+                outputMapping={v: f"o_{k}" for k, v in outs.items()},
+                batchSize=BATCH)
+            got = tft.transform(cols)
+            for k in names["fetches"]:
+                a = got.column_to_numpy(f"o_{k}")
+                ref = io[f"out_{k}"]
+                check(np.allclose(a, ref, **TFGRAPH_FIXTURE_TOL),
+                      f"[{tag}] {model} {kind} output {k} vs TensorFlow: max "
+                      f"abs {np.abs(a - ref).max():.3g}")
+                worst = max(worst, float(np.abs(a - ref).max()))
+    fixtures_s = time.perf_counter() - t0
+    counts = read_counts(sepconv)
+    check(counts == zero, f"[{tag}] launches {counts}, want none of B1-B3")
+    print(f"[{tag}] six constructors (fromGraph, fromGraphDef, "
+          f"fromCheckpoint[WithSignature], fromSavedModel[WithSignature]) "
+          f"over the TF-written MLP and CNN through TFTransformer on the "
+          f"card: every output within rtol 1e-5 / atol 1e-6 of TensorFlow's "
+          f"(max abs {worst:.3g}), {fixtures_s:.2f}s for the 12; B1-B3 "
+          f"launches {counts}", flush=True)
+    del stage, eng
+    return dict(import_s=times, forward_ms=ms, kernel_nodes_per_replay=nodes,
+                graph_pool_bytes=pool, rel_err=dict(
+                    card_vs_tf=rel_oracle, card_vs_cpu=rel_cpu,
+                    tf32_vs_tf=rel_tf32),
+                save_load_s=io_s, fixtures_max_abs=worst, launches=counts)
+
+
 def profiled_kernels(fn):
     """Kernels on the card in one ``fn()``, from ``torch.profiler``'s
     trace: (total launches, launches by kernel name).  The profiler loses
@@ -2773,8 +3172,14 @@ def main():
     print(json.dumps({"keras": keras}), flush=True)
     tuning = phase_tuning(sepconv)
     pools["tuning"] = pool_line("[tuning]")
-    tuning["pools"] = pools
     print(json.dumps({"tuning": tuning}), flush=True)
+    native = phase_native(sepconv)
+    pools["native"] = pool_line("[native]")
+    print(json.dumps({"native": native}), flush=True)
+    tfgraph = phase_tfgraph(sepconv)
+    pools["tfgraph"] = pool_line("[tfgraph]")
+    print(json.dumps({"tfgraph": tfgraph}), flush=True)
+    print(json.dumps({"pools": pools}), flush=True)
     print(json.dumps({"kernels": [b1, b3, b2]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -79,6 +79,8 @@ _LAZY = {
     "ModelTransformer": "sparkdl_tpu_torch.transformers.tensor",
     "TFTransformer": "sparkdl_tpu_torch.transformers.tensor",
     "ModelFunction": "sparkdl_tpu_torch.graph.function",
+    "TFInputGraph": "sparkdl_tpu_torch.graph.input",
+    "ModelInput": "sparkdl_tpu_torch.graph.input",
     "KerasImageFileEstimator":
         "sparkdl_tpu_torch.estimators.image_file_estimator",
     "ImageFileEstimator": "sparkdl_tpu_torch.estimators.image_file_estimator",

@@ -1,12 +1,14 @@
 """Host-side image decode / resize / file ingestion (port of
 ``sparkdl_tpu/image/io.py``).
 
-Decode runs on the host (PIL); the output of this layer is either
-image-struct rows (for the DataFrame API) or dense uint8 numpy batches (for
-the device pipeline).  pyarrow and PIL are imported here and in the rest of
-the data layer only.  The JAX package's native decode core
-(``sparkdl_tpu/native``) is not ported: ``decodeResizeBatch`` and
-``structsToBatch`` take its PIL route.
+Decode runs on the host; the output of this layer is either image-struct
+rows (for the DataFrame API) or dense uint8 numpy batches (for the device
+pipeline).  pyarrow and PIL are imported here and in the rest of the data
+layer only.  ``decodeResizeBatch`` and ``structsToBatch`` route to the
+native core (``sparkdl_tpu_torch/native``: libjpeg/libpng decode and
+bilinear resize in C++ threads, without the GIL) wherever it builds, as the
+JAX package's do, and to PIL elsewhere; ``arrowStructsToBatch`` resizes
+with PIL, as JAX's does.
 """
 
 from __future__ import annotations
@@ -119,19 +121,34 @@ def structToModelInput(struct: dict, height: int, width: int) -> np.ndarray:
     return arr[:, :, ::-1]           # BGR -> RGB
 
 
+def _native_io_preferred() -> bool:
+    """Use the native core whenever it built (the JAX package's rule)."""
+    from sparkdl_tpu_torch import native
+
+    return native.native_available()
+
+
 def decodeResizeBatch(blobs: Sequence[bytes], height: int, width: int
                       ) -> "tuple[np.ndarray, np.ndarray]":
     """Decode + resize encoded images into a [N,h,w,3] uint8 **RGB** batch
-    and an ok-mask (PIL, threaded on the shared IO pool).  Undecodable
-    rows: ok=False, zeroed pixels (drop-to-null upstream).
+    and an ok-mask: the native core where it built, else PIL threaded on
+    the shared IO pool.  Undecodable rows: ok=False, zeroed pixels
+    (drop-to-null upstream).
 
     Fault site ``io.decode`` (per row): an injected decode error rides the
     same drop-to-null contract as a corrupt blob; a plan with
-    ``io.decode`` rules decodes in row order on this thread, so ``at=`` /
-    ``every=`` schedules name the row they drop."""
+    ``io.decode`` rules routes around the native core and decodes in row
+    order on this thread, so ``at=`` / ``every=`` schedules name the row
+    they drop."""
     from sparkdl_tpu_torch import faults as _faults
 
     io_faults = _faults.has_rules("io.decode")
+    if not io_faults and _native_io_preferred():
+        from sparkdl_tpu_torch import native
+
+        result = native.decode_resize_batch(blobs, height, width)
+        if result is not None:
+            return result
     out = np.zeros((len(blobs), height, width, 3), dtype=np.uint8)
     ok = np.zeros(len(blobs), dtype=bool)
 
@@ -144,6 +161,8 @@ def decodeResizeBatch(blobs: Sequence[bytes], height: int, width: int
         arr = PIL_decode(blob)  # BGR or None
         if arr is None:
             return
+        if arr.shape[2] == 1:
+            arr = np.repeat(arr, 3, axis=2)
         out[i] = resizeImage(arr, height, width)[:, :, ::-1]
         ok[i] = True
 
@@ -171,10 +190,29 @@ def filesToModelBatch(paths: Sequence[str], height: int, width: int
 
 def structsToBatch(structs: Sequence[dict], height: int, width: int,
                    num_threads: Optional[int] = None) -> np.ndarray:
-    """Decode + resize image structs into one [N,h,w,3] uint8 RGB batch
-    (threaded on the shared IO pool: PIL releases the GIL in resize)."""
+    """Decode + resize image structs into one [N,h,w,3] uint8 RGB batch:
+    the native core's resize for four or more structs where it built, else
+    PIL threaded on the shared IO pool (PIL releases the GIL in resize)."""
     if len(structs) == 0:
         return np.zeros((0, height, width, 3), dtype=np.uint8)
+    if _native_io_preferred() and len(structs) >= 4:
+        from sparkdl_tpu_torch import native
+
+        def to_rgb(s):
+            arr = imageStructToArray(s)
+            if arr.dtype != np.uint8:
+                arr = np.clip(arr, 0, 255).astype(np.uint8)
+            c = arr.shape[2]
+            if c == 1:
+                arr = np.repeat(arr, 3, axis=2)
+            elif c == 4:
+                arr = arr[:, :, :3]
+            return np.ascontiguousarray(arr[:, :, ::-1])  # BGR -> RGB
+
+        batch = native.resize_batch_rgb(
+            [to_rgb(s) for s in structs], height, width)
+        if batch is not None:
+            return batch
     if (num_threads is not None and num_threads <= 1) or len(structs) < 4:
         arrs = [structToModelInput(s, height, width) for s in structs]
     else:

@@ -8,7 +8,8 @@
     (the reference's contract).
   * :class:`TFTransformer` — the mapping form: a ModelFunction with named
     inputs and outputs plus ``{column -> input}`` / ``{output -> column}``
-    maps.  ``TFInputGraph`` (a TensorFlow GraphDef) is not ported.
+    maps; ``TFInputGraph(...).model_function()`` (a TensorFlow GraphDef,
+    checkpoint or SavedModel, read without TensorFlow) is one.
 
 Each runs its ModelFunction through ``get_cached_engine`` on the card
 unless the CPU was asked for (``sparkdl_tpu_torch.set_default_device``).

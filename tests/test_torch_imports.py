@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``sparkdl_tpu_torch``, not
-``chip_smoke.py`` and none of the port's tools imports JAX, flax, optax or
-the JAX package; no module of the package and not ``chip_smoke.py``
+``chip_smoke.py`` and none of the port's tools imports JAX, flax, optax,
+the JAX package or ``google`` (protobuf: the port reads TensorFlow's
+messages with its own wire-format reader); no module of the package and not ``chip_smoke.py``
 imports Keras or TensorFlow (the card has neither; the two tools that
 write the committed Keras tables run Keras here, inside a function), and
 h5py is imported only inside the file readers; and an entry point with no
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sparkdl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sparkdl_tpu", "google")
 
 
 def _port_files():
@@ -25,7 +26,8 @@ def _port_files():
         "port_profile.py", "sepconv_compare.py", "mbconv_compare.py",
         "sepconv_tiled_compare.py", "gen_wgmma.py", "pipeline_probe.py",
         "gen_keras_layers.py", "gen_keras_configs.py",
-        "graph_count_probe.py", "keras_stage_probe.py")]
+        "graph_count_probe.py", "keras_stage_probe.py", "gen_tf_graphs.py",
+        "tfgraph_fold_probe.py", "crc32c_timing.py")]
     return files
 
 
@@ -82,10 +84,17 @@ TUNING_SLICE = ("utils/cache.py", "param/converters.py", "checkpoint.py",
                 "utils/__init__.py", "ops/__init__.py", "image/__init__.py")
 
 
+# The TensorFlow graph import (TFInputGraph) and the native decode core.
+TF_SLICE = ("graph/proto.py", "graph/bundle.py", "graph/tf_import.py",
+            "graph/input.py", "native/__init__.py")
+
+
 def test_port_imports_nothing_of_jax():
     files = _port_files()
     assert len(files) > 15 and all(f.exists() for f in files)
-    for rel in ENGINE_CORE + KERAS_SLICE + TUNING_SLICE:
+    assert (ROOT / "sparkdl_tpu_torch" / "native" / "sparkdl_native.cpp"
+            ).exists()
+    for rel in ENGINE_CORE + KERAS_SLICE + TUNING_SLICE + TF_SLICE:
         assert ROOT / "sparkdl_tpu_torch" / rel in files, rel
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in FORBIDDEN]
@@ -135,6 +144,22 @@ def test_entry_point_without_cuda_raises(monkeypatch):
         inputCol="image", outputCol="f", modelName="Xception", batchSize=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         stage.transform(df)
+    # a TFTransformer over a TFInputGraph (a TF-written SavedModel)
+    from sparkdl_tpu_torch import TFInputGraph
+    from sparkdl_tpu_torch.transformers import TFTransformer
+
+    sm = (ROOT / "sparkdl_tpu_torch" / "graph" / "data" / "tf_fixtures"
+          / "mlp" / "saved_model")
+    tig = TFInputGraph.fromSavedModelWithSignature(str(sm), "serve",
+                                                   "serving_default")
+    tft = TFTransformer(modelFunction=tig.model_function(),
+                        inputMapping={"x": "features"},
+                        outputMapping={"scores": "y"})
+    rows = DataFrame({"x": [[1.0, 2.0, 3.0, 4.0]]})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tft.transform(rows)
+    with sparkdl_tpu_torch.default_device("cpu"):
+        assert tft.transform(rows).column_to_numpy("y").shape == (1, 3)
     # asking for the CPU is what lets it run there
     assert sparkdl_tpu_torch.resolve_device("cpu") == torch.device("cpu")
     with sparkdl_tpu_torch.default_device("cpu"):
@@ -196,6 +221,7 @@ NOT_EXPORTED = {
             "unflatten": "the TPU's padded-flat row layout"},
     "image": {},
     "estimators": {},
+    "graph": {},
 }
 
 
@@ -210,3 +236,15 @@ def test_subpackage_exports_match_jax(sub):
     missing = set(jax_mod.__all__) - set(port_mod.__all__)
     assert missing == set(NOT_EXPORTED[sub])
     assert all(hasattr(port_mod, n) for n in port_mod.__all__)
+
+
+def test_top_level_exports_tfinputgraph():
+    """The top-level lazy map exports ``TFInputGraph`` and ``ModelInput``
+    as the JAX package's does."""
+    import sparkdl_tpu
+    import sparkdl_tpu_torch
+    from sparkdl_tpu_torch.graph.input import TFInputGraph
+
+    for name in ("TFInputGraph", "ModelInput"):
+        assert name in sparkdl_tpu.__all__ and name in sparkdl_tpu_torch.__all__
+        assert getattr(sparkdl_tpu_torch, name) is TFInputGraph

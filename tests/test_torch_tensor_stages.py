@@ -348,11 +348,25 @@ def test_tf_image_transformer_rgba_and_inferred_size(fixture_images):
 
 
 # -- image/io ----------------------------------------------------------------------------
-def test_image_io_functions_match_jax(fixture_images):
+@pytest.fixture()
+def pil_route():
+    """The port's native core off, as ``SPARKDL_TPU_DISABLE_NATIVE`` leaves
+    it."""
+    from sparkdl_tpu_torch import native
+
+    with native.disabled():
+        yield
+
+
+def test_image_io_functions_match_jax(fixture_images, pil_route):
     """createResizeImageUDF, structToModelInput, structsToBatch,
     decodeResizeBatch, filesToModelBatch and filesToDF give the JAX
-    package's results (its PIL route)."""
+    package's results (its PIL route: the native core is disabled with
+    ``SPARKDL_TPU_DISABLE_NATIVE``; tests/test_torch_native.py holds the
+    core's route)."""
     from sparkdl_tpu.image.schema import imageArrayToStruct
+
+    assert not port_io._native_io_preferred()
 
     paths = fixture_images["paths"] + [fixture_images["bad"]]
     rng = np.random.default_rng(5)
