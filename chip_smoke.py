@@ -85,7 +85,32 @@ weights and batch 32:
     parse / fill / import seconds; ``TFImageTransformer`` over 64 image
     structs equal to the engine, saved and loaded bit for bit; the six
     constructors over the TF-written MLP and CNN through ``TFTransformer``
-    on the card within rtol 1e-5 / atol 1e-6 of TensorFlow's outputs.
+    on the card within rtol 1e-5 / atol 1e-6 of TensorFlow's outputs;
+  * [serving] (last), online serving through ``sparkdl_tpu_torch.serving``
+    with B1 in every dispatch: ``Server("Xception", featurize=True,
+    max_batch_size=32)`` at 299x299, f32 with TF32 off.  With one bucket
+    (32) and no ragged cuts, 96 seeded images in a shuffled order from 8
+    client threads equal the zoo engine's rows and
+    ``DeepImageFeaturizer.transform``'s, bit for bit, at 30 B1 launches a
+    dispatch; with buckets 8/16/32 and ragged cuts, two buckets captured
+    by two workers in flight and seeded bursts of 1-32 requests agree with
+    the one-bucket rows within 5e-2 (the largest difference printed), and
+    8 images through a CPU ``Server`` (unfused f32) within 5e-2; closed
+    loops of 1, 8 and 32 clients, ragged on and off, each of at least
+    1,000 requests, print requests/s, latency and queue p50/p99, fill, pad
+    rows and host us per dispatch;
+    the failure domain (an injected transient absorbed by one retry with
+    health back to ready, a queue-full rejection with ``retry_after_s``,
+    an expired deadline shed before dispatch, a drain then
+    ``ServerClosedError``); MobileNetV2 at 224x224 with
+    ``SPARKDL_MNV2_FUSED=1`` (13 B2 a dispatch, served == engine bit for
+    bit); ``register_serving_udf`` over 64 image structs through
+    ``from_transformer(DeepImageFeaturizer)`` equal to the transform's
+    column bit for bit.  Every server's graph pool is printed and must be
+    0 after its ``close()``.  Each served run is counted on its own (the
+    counts set to 0 just before it), held to its kernels' launches per
+    forward times its dispatches and captures, and summed into the
+    phase's launches.
 
 B1 is also held against its plain version at ragged shapes (a pixel count
 that is not a multiple of 64, F = 200, all four ReLU variants), and each of
@@ -146,9 +171,10 @@ the stages' img/s, relative errors), one of [tuning]'s (wall time, fit
 and eval img/s, captures, metrics, relative errors),
 one of [native]'s (the route and why, decode ms a batch), one of
 [tfgraph]'s (import seconds, forward ms, kernel nodes, pool, relative
-errors), one ``{"pools": ...}`` line (the graph pools held after every
+errors), one of [serving]'s (dispatches, relative errors, the closed
+loops' numbers, pools, launches), one ``{"pools": ...}`` line (the graph pools held after every
 phase, by phase; later phases add keys to it), one JSON line with every
-kernel's numbers, and last the line
+kernel's numbers (with its launches in [serving]), and last the line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -1445,8 +1471,8 @@ def phase_keras(sepconv):
           f"{torch.equal(back, graphed)}")
 
     zstaged = zeng._pad(xf)
-    g = next(iter(eng._graphs.values()))
-    zg = next(iter(zeng._graphs.values()))
+    g = next(iter(eng._core.graphs.values()))
+    zg = next(iter(zeng._core.graphs.values()))
     eng.metrics.timings_s.pop("engine.replay_host", None)
     ms = dict(f32=cuda_ms(lambda: eng.run_padded(staged), reps=10),
               zoo_f32=cuda_ms(lambda: zeng.run_padded(zstaged), reps=10),
@@ -2552,7 +2578,7 @@ def phase_tfgraph(sepconv):
     same = all(torch.equal(graphed[k], eager[k]) for k in graphed) \
         if isinstance(graphed, dict) else torch.equal(graphed, eager)
     check(same, f"[{tag}] graphed forward differs from the eager forward")
-    g = next(iter(eng._graphs.values()))
+    g = next(iter(eng._core.graphs.values()))
     nodes = graph_kernel_nodes(g.graph)[0]
     pool = eng.graph_pool_bytes
     ms = dict(f32=cuda_ms(lambda: eng.run_padded(staged), reps=10),
@@ -2829,8 +2855,8 @@ def graph_path(sepconv, tag, name, size, knobs, want, edit):
           f"[graph] {tag}: features not finite")
 
     staged = eng._pad(batch)  # a pinned host batch, as prepare makes it
-    sig = next(iter(eng._graphs))
-    g = eng._graphs[sig]
+    sig = next(iter(eng._core.graphs))
+    g = eng._core.graphs[sig]
     for k in ("engine.replay_host", "engine.eager_host"):
         eng.metrics.timings_s.pop(k, None)
     fwd_ms = cuda_ms(lambda: eng.run_padded(staged), reps=GRAPH_TIMED_REPLAYS)
@@ -3116,6 +3142,509 @@ def phase_pipeline(sepconv):
     return out
 
 
+SERVING_N = 96                  # seeded images a served run takes
+SERVING_CLIENTS = 8             # client threads submitting them
+SERVING_UDF_N = 64              # image structs through the serving UDF
+SERVING_CPU_N = 8               # of them also through a CPU Server
+SERVING_CPU_REL_TOL = 5e-2      # card (fused, bf16 inside) vs CPU (unfused f32)
+SERVING_LOOP_S = 1.6            # a closed loop runs at least this long
+SERVING_LOOP_N = 1000           # and until this many requests: p99 is the
+                                # 10th slowest, never an outlier's rank
+SERVING_LOOP_MAX_S = 30.0       # but never longer
+SERVING_LOOP_CLIENTS = (1, 8, 32)
+SERVED_XCEPTION = dict(sepconv=SEPCONV_PER_FORWARD, sepconv_tiled=0,
+                       mbconv=0)
+SERVED_MOBILENET = dict(sepconv=0, sepconv_tiled=0, mbconv=MBCONV_PER_FORWARD)
+SERVED_ON_CPU = dict(sepconv=0, sepconv_tiled=0, mbconv=0)
+
+
+def _served(srv, images, order, n_clients):
+    """``images[order]`` submitted by ``n_clients`` threads (each a slice
+    of the order, all futures first, then their results); rows in image
+    order."""
+    rows = [None] * len(images)
+    errors = []
+
+    def client(idxs):
+        try:
+            futs = [(int(i), srv.submit(images[int(i)])) for i in idxs]
+            for i, f in futs:
+                rows[i] = f.result(timeout=120)
+        except Exception as e:  # reported below, in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(order[k::n_clients],))
+               for k in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"served clients failed: {errors[:1]}")
+    return np.stack(rows)
+
+
+def _counted(sepconv, srv, per_forward, what, run):
+    """``run()`` as one measured window of ``srv``: every kernel's count
+    set to 0 and the server's series cleared just before it, both read just
+    after.  Each kernel's count must be ``per_forward`` times the forwards
+    ``srv`` ran in the window: its dispatches (``serving.batches``) and
+    each capture's eager warm-up forward (``engine.graph_captures``).
+    Returns ``run()``'s result, the counts, the window's counter deltas
+    and its timing and histogram series."""
+    before = dict(srv.metrics.counters)
+    srv.metrics.reset_series()
+    reset_counts(sepconv)
+    result = run()
+    counts = read_counts(sepconv)
+    raw = srv.metrics.snapshot_raw()
+    counters = {k: v - before.get(k, 0.0) for k, v in raw["counters"].items()}
+    series = {**raw["timings_s"], **raw["histograms"]}
+    batches = int(counters.get("serving.batches", 0))
+    captures = int(counters.get("engine.graph_captures", 0))
+    want = {k: n * (batches + captures) for k, n in per_forward.items()}
+    check(counts == want,
+          f"[serving] {what}: launches {counts}, want {want} ({batches} "
+          f"dispatches + {captures} captures' warm-up forwards)")
+    return result, counts, counters, series
+
+
+def _add_counts(total, counts):
+    for k, n in counts.items():
+        total[k] += n
+
+
+def closed_loop(srv, images, n_clients, sepconv):
+    """``n_clients`` threads, each submitting one image and waiting for its
+    row before the next, for at least SERVING_LOOP_S and SERVING_LOOP_N
+    requests (at most SERVING_LOOP_MAX_S), as one counted window; returns
+    requests/s, client latency p50/p99 (ms; p99 only over SERVING_LOOP_N
+    or more requests), queue time p50/p99 (ms), batch fill ratio, rows and
+    pad rows, batches, launches and host µs per dispatch (the engines'
+    ``engine.replay_host``) of that window."""
+    lat = [[] for _ in range(n_clients)]
+    errors = []
+
+    def client(k, t0):
+        i = k
+        try:
+            while True:
+                t = time.perf_counter() - t0
+                if t >= SERVING_LOOP_MAX_S or (
+                        t >= SERVING_LOOP_S
+                        and sum(map(len, lat)) >= SERVING_LOOP_N):
+                    return
+                t1 = time.perf_counter()
+                srv.predict(images[i % len(images)])
+                lat[k].append(time.perf_counter() - t1)
+                i += n_clients
+        except Exception as e:  # reported below, in the main thread
+            errors.append(e)
+
+    def run():
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k, t0))
+                   for k in range(n_clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SERVING_LOOP_MAX_S + 120)
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"closed loop at {n_clients} clients failed: {errors[:1]}")
+        return time.perf_counter() - t0
+
+    wall, counts, counters, series = _counted(
+        sepconv, srv, SERVED_XCEPTION, f"closed loop at {n_clients} clients",
+        run)
+    allat = np.asarray([x for per in lat for x in per])
+    queue = np.asarray(series.get("serving.time_in_queue", [0.0]))
+    fills = series.get("serving.batch_fill_ratio", [])
+    host = series.get("engine.replay_host", [])
+    enough = len(allat) >= SERVING_LOOP_N
+    return dict(clients=n_clients, seconds=wall, requests=int(len(allat)),
+                requests_per_s=len(allat) / wall,
+                p50_ms=float(np.percentile(allat, 50) * 1e3),
+                p99_ms=(float(np.percentile(allat, 99) * 1e3) if enough
+                        else None),
+                queue_p50_ms=float(np.percentile(queue, 50) * 1e3),
+                queue_p99_ms=(float(np.percentile(queue, 99) * 1e3)
+                              if len(queue) >= SERVING_LOOP_N else None),
+                fill_mean=float(np.mean(fills)) if fills else None,
+                rows=int(counters.get("engine.rows", 0)),
+                pad_rows=int(counters.get("engine.pad_rows", 0)),
+                batches=int(counters.get("serving.batches", 0)),
+                launches=counts,
+                host_us_per_dispatch=(float(np.mean(host)) * 1e6
+                                      if host else None))
+
+
+def _ms(x, unit="ms", spec=".2f"):
+    return "n/a" if x is None else f"{x:{spec}} {unit}"
+
+
+def phase_serving(sepconv):
+    """[serving]: online serving through ``sparkdl_tpu_torch.serving``:
+    ``Server("Xception", featurize=True, max_batch_size=32)`` at 299x299,
+    f32 with TF32 off, B1 in every dispatch.
+
+      1. buckets [32] without ragged cuts, after ``warmup()``: 96 seeded
+         images in a shuffled order from 8 client threads; every row equals
+         the zoo engine's at batch 32 and ``DeepImageFeaturizer.transform``
+         over the same images, bit for bit; B1 launches 30 a dispatch; the
+         graph pool, given back by ``close()``;
+      2. the default buckets 8/16/32 with ragged cuts: first two buckets
+         captured at once by two workers (32 and 8 requests submitted
+         together, no warm-up), then ``warmup()`` and seeded bursts of
+         1-32 requests: rows within MAIN_PATH_REL_TOL of the single-bucket
+         rows (largest difference printed); 8 of the images through a CPU
+         ``Server`` (unfused f32) within SERVING_CPU_REL_TOL;
+      3. closed loops of 1, 8 and 32 clients, ragged on and off (a second
+         server), each at least SERVING_LOOP_S and SERVING_LOOP_N
+         requests: requests/s, latency and queue p50/p99, fill, pad rows,
+         host µs per dispatch;
+      4. the failure domain: ``serving.model`` and ``engine.dispatch``
+         transient faults absorbed by ``max_retries=1`` (health back to
+         ready), ``serving.admit`` queue-full with ``retry_after_s``, an
+         expired deadline shed before dispatch, ``close(drain=True)``
+         serving the queue and then rejecting;
+      5. MobileNetV2 at 224x224 with ``SPARKDL_MNV2_FUSED=1``: 13 B2
+         launches a dispatch, served == engine bit for bit;
+      6. ``register_serving_udf`` over 64 image structs through
+         ``from_transformer(DeepImageFeaturizer)``: the transform's column
+         bit for bit.
+
+    Every served run above is a counted window (:func:`_counted`): the
+    kernels' counts are set to 0 just before it and read just after, and
+    each must be its per-forward count times the run's dispatches and
+    captures.  The phase's launches are the sums of those reads; only the
+    ``warmup()`` calls lie outside the windows.
+    """
+    import sparkdl_tpu_torch
+    from sparkdl_tpu_torch import faults
+    from sparkdl_tpu_torch.image.io import arrowStructsToBatch
+    from sparkdl_tpu_torch.models import get_model_spec
+    from sparkdl_tpu_torch.parallel.engine import graph_pool_bytes_held
+    from sparkdl_tpu_torch.serving import (DeadlineExceededError,
+                                           QueueFullError, Server,
+                                           ServerClosedError,
+                                           from_transformer)
+    from sparkdl_tpu_torch.transformers import named_image as ni
+    from sparkdl_tpu_torch.udf import UDFRegistry, register_serving_udf
+
+    tag = "serving"
+    out = {}
+    size = get_model_spec("Xception").input_size[0]
+    df = synthetic_frame(SERVING_N, size, SEED + 71)
+    images, ok = arrowStructsToBatch(df.table.column("image"), size, size)
+    check(ok.all(), f"[{tag}] synthetic images failed to decode")
+    rng = np.random.default_rng(SEED + 72)
+    order = rng.permutation(SERVING_N)
+    total = dict(sepconv=0, sepconv_tiled=0, mbconv=0)
+
+    # 1. one bucket: served == engine == transform, bit for bit
+    t0 = time.perf_counter()
+    srv = Server("Xception", featurize=True, max_batch_size=BATCH,
+                 bucket_sizes=[BATCH], ragged=False, cache=False)
+    srv.warmup(images[0])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(srv.device.type == "cuda", f"[{tag}] server not on the card")
+    single, counts, counters, _ = _counted(
+        sepconv, srv, SERVED_XCEPTION, "one bucket",
+        lambda: _served(srv, images, order, SERVING_CLIENTS))
+    _add_counts(total, counts)
+    batches = int(counters["serving.batches"])
+    check(single.shape == (SERVING_N, 2048) and np.isfinite(single).all(),
+          f"[{tag}] served features {single.shape}, not finite 2048-d")
+    engine_rows = ni._zoo_engine("Xception", True, BATCH)(images)
+    feat = ni.DeepImageFeaturizer(inputCol="image", outputCol="features",
+                                  modelName="Xception", batchSize=BATCH)
+    transformed = feat.transform(df).column_to_numpy("features")
+    check(np.array_equal(single, engine_rows),
+          f"[{tag}] served != zoo engine rows: max abs "
+          f"{np.abs(single - engine_rows).max():.3g}")
+    check(np.array_equal(single, transformed),
+          f"[{tag}] served != DeepImageFeaturizer.transform: max abs "
+          f"{np.abs(single - transformed).max():.3g}")
+    pool_single = srv.graph_pool_bytes
+    held = graph_pool_bytes_held()
+    srv.close()
+    check(srv.graph_pool_bytes == 0
+          and graph_pool_bytes_held() == held - pool_single,
+          f"[{tag}] close() kept {srv.graph_pool_bytes} pool bytes")
+    print(f"[{tag}] Server(Xception, featurize, buckets [{BATCH}], ragged "
+          f"off) {size}x{size}: warm-up (1 capture) {warm_s:.2f}s; "
+          f"{SERVING_N} images in a shuffled order from {SERVING_CLIENTS} "
+          f"clients in {batches} dispatches == zoo engine at batch {BATCH} "
+          f"== DeepImageFeaturizer.transform, bit for bit; launches "
+          f"{counts}; graph pool {pool_single / 2**20:.1f} MiB, "
+          f"{srv.graph_pool_bytes / 2**20:.1f} MiB after close()",
+          flush=True)
+    out["single_bucket"] = dict(warmup_s=warm_s, dispatches=batches,
+                                launches=counts,
+                                pool_bytes=pool_single)
+
+    # 2. buckets 8/16/32, ragged: two captures at once, then bursts
+    srv = Server("Xception", featurize=True, max_batch_size=BATCH,
+                 max_retries=1, cache=False)
+    check(srv.bucket_sizes == [8, 16, 32],
+          f"[{tag}] default buckets {srv.bucket_sizes}")
+    first, counts, counters, _ = _counted(
+        sepconv, srv, SERVED_XCEPTION, "two captures in flight",
+        lambda: _served(srv, images[:40], np.arange(40), 2))
+    _add_counts(total, counts)
+    first_counts = counts
+    first_buckets = sorted(srv._engines)
+    captures = _engine_captures(srv._engines[first_buckets[0]])
+    check(len(first_buckets) >= 2 and captures == len(first_buckets),
+          f"[{tag}] first dispatches built {first_buckets} with "
+          f"{captures} captures, want two or more buckets captured")
+    srv.warmup(images[0])
+    check(_engine_captures(srv._engines[BATCH]) == 3,
+          f"[{tag}] warmup captured {_engine_captures(srv._engines[BATCH])}")
+    pool_ragged = srv.graph_pool_bytes
+    sizes = []
+
+    def bursts():
+        rows = [None] * SERVING_N
+        i = 0
+        while i < SERVING_N:
+            k = min(int(rng.integers(1, BATCH + 1)), SERVING_N - i)
+            futs = [(int(j), srv.submit(images[int(j)]))
+                    for j in order[i:i + k]]
+            for j, f in futs:
+                rows[j] = f.result(timeout=120)
+            sizes.append(k)
+            i += k
+        return np.stack(rows)
+
+    bursty, counts, counters, series = _counted(
+        sepconv, srv, SERVED_XCEPTION, "bursts", bursts)
+    _add_counts(total, counts)
+    bbatches = int(counters["serving.batches"])
+    rel_first = _rel(first, single[:40])
+    rel_bursty = _rel(bursty, single)
+    max_abs = float(np.abs(bursty - single).max())
+    check(rel_first <= MAIN_PATH_REL_TOL and rel_bursty <= MAIN_PATH_REL_TOL,
+          f"[{tag}] buckets 8/16/32 vs one bucket: rel err {rel_first:.3g} "
+          f"/ {rel_bursty:.3g} > {MAIN_PATH_REL_TOL}")
+    print(f"[{tag}] buckets 8/16/32, ragged: 40 requests at once, buckets "
+          f"{first_buckets} captured by two workers in flight, rows within "
+          f"{rel_first:.3e} of one bucket, launches {first_counts}; then "
+          f"warmup and {len(sizes)} seeded bursts "
+          f"{sizes}: {bbatches} dispatches, fill "
+          f"{np.mean(series['serving.batch_fill_ratio']):.3f}, pad rows "
+          f"{int(counters.get('engine.pad_rows', 0))}; vs one bucket "
+          f"||a-b||/||b|| = {rel_bursty:.3e}, max abs {max_abs:.3e} (tol "
+          f"{MAIN_PATH_REL_TOL}); one pool for the 3 buckets "
+          f"{pool_ragged / 2**20:.1f} MiB; launches {counts}", flush=True)
+    out["ragged"] = dict(burst_sizes=sizes, dispatches=bbatches,
+                         rel_err_vs_single=rel_bursty,
+                         max_abs_vs_single=max_abs,
+                         rel_err_concurrent_capture=rel_first,
+                         pool_bytes=pool_ragged)
+
+    t0 = time.perf_counter()
+    with sparkdl_tpu_torch.default_device("cpu"):
+        cpu_srv = Server("Xception", featurize=True,
+                         max_batch_size=SERVING_CPU_N,
+                         bucket_sizes=[SERVING_CPU_N], cache=False)
+    with cpu_srv:
+        check(cpu_srv.device.type == "cpu", f"[{tag}] CPU server device")
+        cpu_rows, _, _, _ = _counted(
+            sepconv, cpu_srv, SERVED_ON_CPU, "CPU server",
+            lambda: _served(cpu_srv, images[:SERVING_CPU_N],
+                            np.arange(SERVING_CPU_N), 1))
+    cpu_s = time.perf_counter() - t0
+    rel_cpu = _rel(single[:SERVING_CPU_N], cpu_rows)
+    check(rel_cpu <= SERVING_CPU_REL_TOL,
+          f"[{tag}] card vs CPU server: rel err {rel_cpu:.3g} > "
+          f"{SERVING_CPU_REL_TOL}")
+    print(f"[{tag}] {SERVING_CPU_N} images through a CPU Server (unfused "
+          f"f32, {cpu_s:.1f}s): card vs CPU ||a-b||/||b|| = {rel_cpu:.3e} "
+          f"(tol {SERVING_CPU_REL_TOL})", flush=True)
+    out["card_vs_cpu_rel_err"] = rel_cpu
+
+    # 3. closed loops, ragged on (this server) and off (a second one)
+    flush_srv = Server("Xception", featurize=True, max_batch_size=BATCH,
+                       ragged=False, cache=False)
+    flush_srv.warmup(images[0])
+    loops = {}
+    for mode, s in (("ragged", srv), ("flush", flush_srv)):
+        loops[mode] = []
+        for n_clients in SERVING_LOOP_CLIENTS:
+            r = closed_loop(s, images, n_clients, sepconv)
+            _add_counts(total, r["launches"])
+            loops[mode].append(r)
+            print(f"[{tag}] closed loop, ragged {mode == 'ragged'}, "
+                  f"{n_clients} clients, {r['requests']} requests in "
+                  f"{r['seconds']:.2f}s: "
+                  f"{r['requests_per_s']:.1f} req/s, latency p50 "
+                  f"{_ms(r['p50_ms'])} p99 {_ms(r['p99_ms'])}, queue "
+                  f"p50 {_ms(r['queue_p50_ms'])} p99 "
+                  f"{_ms(r['queue_p99_ms'])}, fill {r['fill_mean']:.3f}, "
+                  f"{r['rows']} rows + {r['pad_rows']} pad in "
+                  f"{r['batches']} dispatches, launches {r['launches']}, "
+                  f"host {_ms(r['host_us_per_dispatch'], 'us', '.0f')} "
+                  f"per dispatch",
+                  flush=True)
+    pool_flush = flush_srv.graph_pool_bytes
+    flush_srv.close()
+    check(flush_srv.graph_pool_bytes == 0,
+          f"[{tag}] flush server kept its pool after close()")
+    out["closed_loop"] = loops
+
+    # 4. the failure domain, on the ragged server
+    x = images[0]
+
+    def faulted():
+        base = srv.predict(x)  # alone: bucket 8, as every predict below
+        with faults.active(faults.FaultPlan.parse(
+                "serving.model:error:exc=transient,times=1")):
+            row = srv.predict(x)
+        check(np.array_equal(row, base)
+              and srv.metrics.counters.get("serving.batch_failures", 0) == 0,
+              f"[{tag}] serving.model transient not absorbed by "
+              f"max_retries=1")
+        with faults.active(faults.FaultPlan.parse(
+                "engine.dispatch:error:exc=transient,times=1")):
+            row = srv.predict(x)
+        health = srv.health()
+        states = [t["state"] for t in health["transitions"]]
+        check(np.array_equal(row, base) and health["state"] == "ready"
+              and states[-2:] == ["degraded", "ready"],
+              f"[{tag}] engine.dispatch transient: health "
+              f"{health['state']}, transitions {states}")
+        with faults.active(faults.FaultPlan.parse(
+                "serving.admit:error:exc=queue_full,times=1")):
+            try:
+                srv.submit(x)
+                fail(f"[{tag}] serving.admit queue_full did not reject")
+            except QueueFullError as e:
+                retry_after = e.retry_after_s
+        check(retry_after > 0,
+              f"[{tag}] QueueFullError without retry_after_s")
+        return states, retry_after
+
+    (states, retry_after), counts, counters, _ = _counted(
+        sepconv, srv, SERVED_XCEPTION, "faults absorbed", faulted)
+    _add_counts(total, counts)
+    fault_b1 = counts["sepconv"]
+    check(counters["serving.batches"] == 3,
+          f"[{tag}] faults absorbed in {counters['serving.batches']} "
+          f"dispatches, want 3")
+
+    def shed_one():
+        shed = srv.submit(x, timeout_ms=0)
+        try:
+            shed.result(timeout=60)
+            fail(f"[{tag}] an expired deadline was served")
+        except DeadlineExceededError:
+            pass
+
+    # no dispatch and no launch: the window's counts must be 0
+    _, counts, counters, _ = _counted(
+        sepconv, srv, SERVED_XCEPTION, "expired deadline", shed_one)
+    check(counters.get("serving.batches", 0) == 0
+          and counters.get("serving.shed_deadline", 0) == 1,
+          f"[{tag}] the expired request reached the card")
+    held = graph_pool_bytes_held()
+    pool_ragged = srv.graph_pool_bytes
+
+    def drain():
+        parked = [srv.submit(images[j]) for j in range(12)]
+        srv.close(drain=True)
+        return np.stack([f.result(timeout=60) for f in parked])
+
+    drained, counts, _, _ = _counted(
+        sepconv, srv, SERVED_XCEPTION, "drain", drain)
+    _add_counts(total, counts)
+    drain_b1 = counts["sepconv"]
+    try:
+        srv.submit(x)
+        fail(f"[{tag}] a closed server admitted a request")
+    except ServerClosedError:
+        pass
+    check(_rel(drained, single[:12]) <= MAIN_PATH_REL_TOL
+          and srv.graph_pool_bytes == 0
+          and graph_pool_bytes_held() == held - pool_ragged,
+          f"[{tag}] drain: rows or pool after close() wrong")
+    print(f"[{tag}] failure domain: serving.model and engine.dispatch "
+          f"transients absorbed by max_retries=1 (health {states}); "
+          f"serving.admit queue_full -> QueueFullError(retry_after_s="
+          f"{retry_after}); an expired deadline shed before dispatch (no "
+          f"dispatch, no launch); close(drain=True) served 12 parked "
+          f"requests, then ServerClosedError; B1 launches {fault_b1} + "
+          f"{drain_b1}; pools "
+          f"{pool_ragged / 2**20:.1f} + {pool_flush / 2**20:.1f} MiB "
+          f"before close(), 0 after", flush=True)
+    out["failure_domain"] = dict(retry_after_s=retry_after,
+                                 health_transitions=states)
+    out["pool_bytes_flush_server"] = pool_flush
+
+    # 5. MobileNetV2, fused: 13 B2 a dispatch, served == engine
+    os.environ["SPARKDL_MNV2_FUSED"] = "1"
+    try:
+        msize = get_model_spec("MobileNetV2").input_size[0]
+        mdf = synthetic_frame(BATCH * 2, msize, SEED + 73)
+        mimages, ok = arrowStructsToBatch(mdf.table.column("image"), msize,
+                                          msize)
+        with Server("MobileNetV2", featurize=True, max_batch_size=BATCH,
+                    bucket_sizes=[BATCH], ragged=False, cache=False) as m:
+            m.warmup(mimages[0])
+            mrows, counts, counters, _ = _counted(
+                sepconv, m, SERVED_MOBILENET, "MobileNetV2",
+                lambda: _served(m, mimages, rng.permutation(len(mimages)),
+                                SERVING_CLIENTS))
+            _add_counts(total, counts)
+            mb = int(counters["serving.batches"])
+            pool_mnv2 = m.graph_pool_bytes
+        check(m.graph_pool_bytes == 0,
+              f"[{tag}] MobileNetV2 server kept its pool after close()")
+        mref = ni._zoo_engine("MobileNetV2", True, BATCH)(mimages)
+        check(np.array_equal(mrows, mref),
+              f"[{tag}] served MobileNetV2 != engine rows: max abs "
+              f"{np.abs(mrows - mref).max():.3g}")
+    finally:
+        del os.environ["SPARKDL_MNV2_FUSED"]
+    print(f"[{tag}] Server(MobileNetV2, SPARKDL_MNV2_FUSED=1) {msize}x{msize}"
+          f": {len(mimages)} images in {mb} dispatches == zoo engine at "
+          f"batch {BATCH}, bit for bit; launches {counts}; pool "
+          f"{pool_mnv2 / 2**20:.1f} MiB", flush=True)
+
+    # 6. the serving UDF through from_transformer
+    udf_df = synthetic_frame(SERVING_UDF_N, size, SEED + 74)
+    reg = UDFRegistry()
+    with from_transformer(feat, bucket_sizes=[BATCH], ragged=False,
+                          cache=False) as usrv:
+        register_serving_udf("xception_served", usrv, registry=reg)
+        udf_col, counts, counters, _ = _counted(
+            sepconv, usrv, SERVED_XCEPTION, "serving UDF",
+            lambda: reg.apply("xception_served", udf_df, "image",
+                              "served").column_to_numpy("served"))
+        _add_counts(total, counts)
+        ub = int(counters["serving.batches"])
+        ucap = int(counters.get("engine.graph_captures", 0))
+        pool_udf = usrv.graph_pool_bytes
+    check(usrv.graph_pool_bytes == 0,
+          f"[{tag}] UDF server kept its pool after close()")
+    want = feat.transform(udf_df).column_to_numpy("features")
+    check(np.array_equal(udf_col, want),
+          f"[{tag}] serving UDF != transform: max abs "
+          f"{np.abs(udf_col - want).max():.3g}")
+    print(f"[{tag}] register_serving_udf over {SERVING_UDF_N} image structs "
+          f"through from_transformer(DeepImageFeaturizer): == transform, "
+          f"bit for bit ({ub} dispatches and {ucap} capture, launches "
+          f"{counts}; pool {pool_udf / 2**20:.1f} MiB, 0 after close())",
+          flush=True)
+    print(f"[{tag}] launches over every counted window of the phase: "
+          f"{total}", flush=True)
+    out["launches"] = total
+    out["pool_bytes_mobilenet"] = pool_mnv2
+    out["pool_bytes_udf_server"] = pool_udf
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3179,6 +3708,12 @@ def main():
     tfgraph = phase_tfgraph(sepconv)
     pools["tfgraph"] = pool_line("[tfgraph]")
     print(json.dumps({"tfgraph": tfgraph}), flush=True)
+    serving = phase_serving(sepconv)
+    pools["serving"] = pool_line("[serving]")
+    print(json.dumps({"serving": serving}), flush=True)
+    b1["serving_launches"] = serving["launches"]["sepconv"]
+    b3["serving_launches"] = serving["launches"]["sepconv_tiled"]
+    b2["serving_launches"] = serving["launches"]["mbconv"]
     print(json.dumps({"pools": pools}), flush=True)
     print(json.dumps({"kernels": [b1, b3, b2]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,10 @@
   ``SPARKDL_FAULTS`` spec string (grammar in
   :mod:`~sparkdl_tpu_torch.faults.spec`) or built directly in tests.
 * :func:`inject` — the hook the engine (``engine.dispatch``,
-  ``engine.gather``) and the pipelined runner (``pipeline.prepare``,
-  ``pipeline.dispatch``, ``pipeline.gather``) call.  With no plan active it
+  ``engine.gather``), the pipelined runner (``pipeline.prepare``,
+  ``pipeline.dispatch``, ``pipeline.gather``) and the serving layer
+  (``serving.admit``, ``serving.model``, ``batch.topoff``, ``cache.hit``,
+  ``cache.stampede``) call.  With no plan active it
   is one global read and a ``None`` check.
 * The error taxonomy (:mod:`~sparkdl_tpu_torch.faults.errors`).
 

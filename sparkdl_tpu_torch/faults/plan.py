@@ -12,9 +12,7 @@ Probabilistic rules (``p=``) draw from a per-rule ``random.Random`` seeded
 with ``f"{seed}:{site}:{rule index}"``, as there.
 
 Differences from the JAX package: the locks are plain ``threading.Lock``s,
-no flight-recorder event is emitted (``obs/flight.py`` is not ported), and
-an ``exc=queue_full`` rule parses as there but raises ``NotImplementedError``
-when it fires, since the port has no serving layer yet.
+and no flight-recorder event is emitted (``obs/flight.py`` is not ported).
 """
 
 from __future__ import annotations
@@ -41,12 +39,16 @@ _EXC_BY_KIND = {
 }
 
 
-def _make_exc(kind: str, message: str, site: str, rule: str) -> BaseException:
+def _make_exc(kind: str, message: str, site: str, rule: str,
+              retry_after_s: float) -> BaseException:
     if kind == "queue_full":
-        raise NotImplementedError(
-            f"fault rule [{rule}] fired at {site}: exc=queue_full raises the "
-            f"serving layer's QueueFullError, which the port does not have "
-            f"yet (ROADMAP queue A item 7)")
+        # imported here: the serving layer imports faults, not the reverse
+        from sparkdl_tpu_torch.serving.errors import QueueFullError
+
+        exc = QueueFullError(message, retry_after_s=retry_after_s)
+        exc.site = site  # type: ignore[attr-defined]
+        exc.rule = rule  # type: ignore[attr-defined]
+        return exc
     return _EXC_BY_KIND[kind](message, site=site, rule=rule)
 
 
@@ -143,8 +145,10 @@ class FaultPlan:
                         raise_exc = InjectedDeadDeviceError(
                             msg, site=site, rule=r.clause)
                         break
-                    raise_exc = _make_exc(r.params.get("exc", "transient"),
-                                          msg, site, r.clause)
+                    raise_exc = _make_exc(
+                        r.params.get("exc", "transient"), msg, site,
+                        r.clause, retry_after_s=float(
+                            r.params.get("retry_after", 0.05)))
                     break
         if sleep_s:
             time.sleep(sleep_s)

@@ -3,9 +3,10 @@
 ``SITE_HELP`` is the JAX package's table, copied whole, so every spec
 string the JAX parser accepts or refuses is accepted or refused alike here.
 The port's engine and pipelined runner call ``engine.dispatch``,
-``engine.gather`` and ``pipeline.{prepare,dispatch,gather}``; the sites of
-modules not ported yet (serving, fleet, streaming, ...) are registered but
-never fire.
+``engine.gather`` and ``pipeline.{prepare,dispatch,gather}``; the serving
+layer ``serving.admit``, ``serving.model``, ``batch.topoff``, ``cache.hit``
+and ``cache.stampede``.  The sites of modules not ported yet (head fan-out,
+fleet, streaming, ...) are registered but never fire.
 """
 
 from __future__ import annotations

@@ -58,10 +58,17 @@ not one per bucket.  ``graph_pool_bytes`` is what the pool reserved;
 has finished with them) and returns the pool, and
 :func:`graph_pool_bytes_held` sums the pools of every live engine.
 
-Not ported yet: the device mesh and weight sharding, ``donate_batch`` and
-the compile-cache policy (ROADMAP queue A items 6 and 9), the head bank
-(item 7), and the ``engine.dispatch`` / ``engine.call`` spans and flight
-events (item 8).
+Siblings: :meth:`InferenceEngine.sibling` makes an engine for another
+batch size (the serving layer's buckets) over the same device module, fold
+caches, graph pool, lock, staging slots and streams; only the batch size
+and the circuit breaker are its own.  The pool stays safe to share for the
+reason above: every graph of every sibling replays under the one lock and
+after the one event, so no two replays overlap.
+
+Not ported yet: the device mesh and weight sharding and ``donate_batch``
+(ROADMAP.md queue A item 4), the head bank (item 5, serving's next slice),
+the ``engine.dispatch`` / ``engine.call`` spans and flight events (item
+6), and the compile-cache policy (item 7).
 """
 
 from __future__ import annotations
@@ -316,12 +323,34 @@ _LIVE_ENGINES: "weakref.WeakSet[InferenceEngine]" = weakref.WeakSet()
 
 def graph_pool_bytes_held() -> int:
     """The CUDA-graph pool bytes that every live engine in the process
-    holds (``InferenceEngine.graph_pool_bytes`` summed)."""
-    return sum(e.graph_pool_bytes for e in list(_LIVE_ENGINES))
+    holds (``InferenceEngine.graph_pool_bytes`` summed, siblings' shared
+    pool once)."""
+    cores = {id(e._core): e._core for e in list(_LIVE_ENGINES)}
+    return sum(c.pool_bytes for c in cores.values())
 
 
 def _torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+class _GraphCore:
+    """What an engine shares with its siblings (:meth:`InferenceEngine.
+    sibling`): the lock that serialises uploads and dispatches, the
+    captured graphs, the device staging slots, the graphs' one memory pool
+    and the bytes it reserved, the event after the last replay's output
+    copy, and (CUDA) the upload, fetch and capture streams."""
+
+    def __init__(self, device: torch.device):
+        self.lock = threading.Lock()
+        self.graphs: Dict[tuple, "_Graph"] = {}
+        self.slots: Dict[tuple, "_DeviceSlots"] = {}
+        self.pool = None
+        self.pool_bytes = 0
+        self.replayed: Optional[torch.cuda.Event] = None
+        if device.type == "cuda":
+            self.h2d = torch.cuda.Stream(device)
+            self.d2h = torch.cuda.Stream(device)
+            self.capture_stream = torch.cuda.Stream(device)
 
 
 class _DeviceSlots:
@@ -432,24 +461,41 @@ class InferenceEngine:
         self._state = [*self.module.parameters(), *self.module.buffers()]
         self._fold_owners = [m for m in self.module.modules()
                              if isinstance(getattr(m, "_folds", None), dict)]
-        self._graphs: Dict[tuple, _Graph] = {}
-        self._slots: Dict[tuple, _DeviceSlots] = {}
-        self._lock = threading.Lock()
-        # the graphs' one memory pool (made at the first capture), the
-        # bytes it reserved, and the event after the last replay's output
-        # copy (see the module docstring)
-        self._pool = None
-        self._pool_bytes = 0
-        self._replayed: Optional[torch.cuda.Event] = None
-        if cuda:
-            self._h2d = torch.cuda.Stream(self.device)
-            self._d2h = torch.cuda.Stream(self.device)
-            self._capture_stream = torch.cuda.Stream(self.device)
+        # graphs, staging slots, lock, the graphs' one memory pool (made at
+        # the first capture), the bytes it reserved, the event after the
+        # last replay's output copy (see the module docstring) and the
+        # streams: shared with every sibling
+        self._core = _GraphCore(self.device)
         _LIVE_ENGINES.add(self)
 
     @property
     def num_devices(self) -> int:
         return 1
+
+    # what a sibling takes from its engine; its batch size and breaker are
+    # its own
+    _SIBLING_SHARES = ("device", "fn", "compute_dtype", "output_host_dtype",
+                       "metrics", "batches_per_dispatch", "dispatch_retries",
+                       "dispatch_backoff_s", "dispatch_max_backoff_s",
+                       "dispatch_jitter", "_on_dispatch_error", "module",
+                       "name", "capture", "_state", "_fold_owners", "_core")
+
+    def sibling(self, device_batch_size: int) -> "InferenceEngine":
+        """An engine for ``device_batch_size`` rows over this engine's
+        device module: it shares the module (one device copy of the
+        weights), its fold caches, the graph pool, the lock, the staging
+        slots, the streams, the metrics and every setting; it captures its
+        own graph for its batch size into the shared pool, and has its own
+        circuit breaker."""
+        sib = object.__new__(type(self))
+        for attr in self._SIBLING_SHARES:
+            setattr(sib, attr, getattr(self, attr))
+        sib.device_batch_size = effective_device_batch(device_batch_size)
+        sib.breaker = DispatchCircuitBreaker(
+            threshold=self.breaker.threshold,
+            cooldown_s=self.breaker.cooldown_s)
+        _LIVE_ENGINES.add(sib)
+        return sib
 
     # -- pytrees -----------------------------------------------------------
     @staticmethod
@@ -552,7 +598,7 @@ class InferenceEngine:
                 np.ascontiguousarray(a)).to(self.device), host)
             with torch.inference_mode():
                 return self._eager(x, group)
-        with self._lock:
+        with self._core.lock:
             t0 = time_lib.perf_counter()
             x, slots = self._upload(host)
             with torch.inference_mode():
@@ -593,20 +639,20 @@ class InferenceEngine:
         devs, slots = [], []
         for p in pinned:
             key = (tuple(p.shape), p.dtype)
-            if key not in self._slots:
-                self._slots[key] = _DeviceSlots(p.shape, p.dtype, self.device)
-        with torch.cuda.stream(self._h2d):
+            if key not in self._core.slots:
+                self._core.slots[key] = _DeviceSlots(p.shape, p.dtype, self.device)
+        with torch.cuda.stream(self._core.h2d):
             for p in pinned:
-                s = self._slots[(tuple(p.shape), p.dtype)]
+                s = self._core.slots[(tuple(p.shape), p.dtype)]
                 i = s.next
                 s.next ^= 1
                 if s.free[i] is not None:
-                    self._h2d.wait_event(s.free[i])
+                    self._core.h2d.wait_event(s.free[i])
                 s.bufs[i].copy_(p, non_blocking=True)
                 devs.append(s.bufs[i])
                 slots.append((s, i))
             ev = torch.cuda.Event()
-            ev.record(self._h2d)
+            ev.record(self._core.h2d)
         torch.cuda.current_stream(self.device).wait_event(ev)
         it = iter(devs)
         return _tree_map(lambda _: next(it), host), slots
@@ -620,10 +666,10 @@ class InferenceEngine:
 
         leaves = _tree_leaves(x)
         cur = torch.cuda.current_stream(self.device)
-        if self._replayed is not None:  # one replay at a time: one pool
-            cur.wait_event(self._replayed)
+        if self._core.replayed is not None:  # one replay at a time: one pool
+            cur.wait_event(self._core.replayed)
         sig = (group,) + tuple((tuple(a.shape), a.dtype) for a in leaves)
-        g = self._graphs.get(sig)
+        g = self._core.graphs.get(sig)
         if g is None or g.key != graph_key(self._state, self._fold_owners):
             g = self._capture(x, group, sig)
         for dst, src in zip(g.in_leaves, leaves):
@@ -636,8 +682,8 @@ class InferenceEngine:
         if any(g.launches):
             ops.credit_launches(g.launches)
         out = _tree_map(lambda t: t.clone(), g.static_out)
-        self._replayed = torch.cuda.Event()
-        self._replayed.record(cur)
+        self._core.replayed = torch.cuda.Event()
+        self._core.replayed.record(cur)
         return out
 
     def _capture(self, x, group: bool, sig) -> _Graph:
@@ -648,14 +694,14 @@ class InferenceEngine:
         from sparkdl_tpu_torch.ops import sepconv as ops
 
         cur = torch.cuda.current_stream(self.device)
-        old = self._graphs.pop(sig, None)
+        old = self._core.graphs.pop(sig, None)
         if old is not None:
             cur.synchronize()  # its last replay is done before its pool goes
             del old
         static_in = _tree_map(torch.empty_like, x)
         for dst, src in zip(_tree_leaves(static_in), _tree_leaves(x)):
             dst.copy_(src)
-        side = self._capture_stream
+        side = self._core.capture_stream
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             # warm-up, eagerly: fold caches, kernel libraries' one-time
@@ -671,8 +717,8 @@ class InferenceEngine:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_stats(self.device).get(
             "reserved_bytes.all.current", 0)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
+        if self._core.pool is None:
+            self._core.pool = torch.cuda.graph_pool_handle()
         # keep_graph: the captured cudaGraph_t stays readable
         # (``raw_cuda_graph``), so its kernel nodes can be counted
         graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -681,7 +727,7 @@ class InferenceEngine:
             # fetches, event waits) do not invalidate this capture; the
             # capture stream is the engine's own; every capture of the
             # engine allocates from its one pool
-            with torch.cuda.graph(graph, pool=self._pool, stream=side,
+            with torch.cuda.graph(graph, pool=self._core.pool, stream=side,
                                   capture_error_mode="thread_local"):
                 static_out = self._eager(static_in, group)
             graph.instantiate()
@@ -697,11 +743,11 @@ class InferenceEngine:
             "reserved_bytes.all.current", 0) - reserved
         g = _Graph(key, folds, graph, static_in, static_out, launches,
                    max(0, pool))
-        self._graphs[sig] = g
+        self._core.graphs[sig] = g
         # the shared pool keeps what it reserved until every graph is gone
-        self._pool_bytes += g.pool_bytes
+        self._core.pool_bytes += g.pool_bytes
         self.metrics.incr("engine.graph_captures")
-        self.metrics.gauge("engine.graph_pool_bytes", self._pool_bytes)
+        self.metrics.gauge("engine.graph_pool_bytes", self._core.pool_bytes)
         return g
 
     def graphs(self) -> List[Dict[str, Any]]:
@@ -709,29 +755,30 @@ class InferenceEngine:
         replay (B1, B3, B2) and the pool bytes its capture added."""
         return [dict(bucket=sig, launches=g.launches,
                      pool_bytes=g.pool_bytes)
-                for sig, g in self._graphs.items()]
+                for sig, g in self._core.graphs.items()]
 
     @property
     def graph_pool_bytes(self) -> int:
         """The bytes the engine's graph pool holds on the card (0 before
-        the first capture and after :meth:`release_graphs`)."""
-        return self._pool_bytes
+        the first capture and after :meth:`release_graphs`); siblings
+        report their one shared pool."""
+        return self._core.pool_bytes
 
     def release_graphs(self) -> None:
-        """Drop every captured graph and give the pool's memory back to the
-        card, once the card has finished what was enqueued on it (a later
-        dispatch captures again).  Waits for a dispatch in flight on
-        another thread."""
-        with self._lock:
-            if not self._graphs:
+        """Drop every captured graph (the siblings' too) and give the
+        pool's memory back to the card, once the card has finished what was
+        enqueued on it (a later dispatch captures again).  Waits for a
+        dispatch in flight on another thread."""
+        with self._core.lock:
+            if not self._core.graphs:
                 return
             cuda = self.device.type == "cuda"
             if cuda:
                 torch.cuda.synchronize(self.device)
-            self._graphs.clear()
-            self._pool = None
-            self._pool_bytes = 0
-            self._replayed = None
+            self._core.graphs.clear()
+            self._core.pool = None
+            self._core.pool_bytes = 0
+            self._core.replayed = None
             self.metrics.gauge("engine.graph_pool_bytes", 0)
         if cuda:
             torch.cuda.empty_cache()
@@ -790,13 +837,13 @@ class InferenceEngine:
             return out
         if ready is None:
             ready = self._ready_event()
-        with torch.cuda.stream(self._d2h):
-            self._d2h.wait_event(ready)
+        with torch.cuda.stream(self._core.d2h):
+            self._core.d2h.wait_event(ready)
             host = _tree_map(lambda t: torch.empty(
                 t.shape, dtype=t.dtype, pin_memory=True).copy_(
                 t, non_blocking=True), out)
             done = torch.cuda.Event()
-            done.record(self._d2h)
+            done.record(self._core.d2h)
         done.synchronize()
         return host
 

@@ -118,6 +118,25 @@ def zoo_model_fn(name: str, featurize: bool,
     return fn
 
 
+def zoo_serving_bundle(name: str, featurize: bool):
+    """``(fn, module, engine_overrides)`` for serving zoo model ``name``
+    (the JAX package's ``zoo_serving_bundle``, whose ``variables`` are the
+    port's module): the module from the process cache, the fn through
+    :func:`zoo_model_fn`, and ``SPARKDL_ZOO_COMPUTE_DTYPE`` as engine
+    overrides (bf16 compute, outputs widened to f32 on the host).
+    :func:`_zoo_engine` builds the transformers' engines from it and
+    ``serving.server._resolve_model`` resolves a zoo name through it, so
+    that served rows are transformed rows."""
+    overrides: Dict[str, object] = {}
+    cdt = None
+    if zoo_compute_dtype_name() == "bfloat16":
+        cdt = torch.bfloat16
+        overrides.update({"compute_dtype": cdt,
+                          "output_host_dtype": np.float32})
+    fn = zoo_model_fn(name, featurize, compute_dtype=cdt)
+    return fn, _cached_model(name), overrides
+
+
 def _zoo_engine(name: str, featurize: bool, batch_size: int) -> InferenceEngine:
     """One cached engine per (model, build variant, cut, batch, compute
     dtype, device, ``SPARKDL_BATCHES_PER_DISPATCH``).
@@ -127,18 +146,14 @@ def _zoo_engine(name: str, featurize: bool, batch_size: int) -> InferenceEngine:
     float32 end to end (the fused layers round to bf16 inside, as in JAX).
     """
     key = _zoo_engine_key(name, featurize, batch_size)
-    name, cdt_name, bpd = key[0], key[4], key[6]
     eng = _ENGINE_CACHE.get(key)
     if eng is None:
         # make room first: the cached engines' pools are known by now
         _ENGINE_CACHE.reaccount()
-        cdt = torch.bfloat16 if cdt_name == "bfloat16" else None
-        eng = InferenceEngine(
-            zoo_model_fn(name, featurize, compute_dtype=cdt),
-            _cached_model(name), device=resolve_device(),
-            device_batch_size=batch_size, compute_dtype=cdt,
-            batches_per_dispatch=bpd,
-            output_host_dtype=np.float32 if cdt is not None else None)
+        fn, module, overrides = zoo_serving_bundle(key[0], featurize)
+        eng = InferenceEngine(fn, module, device=resolve_device(),
+                              device_batch_size=batch_size,
+                              batches_per_dispatch=key[6], **overrides)
         _ENGINE_CACHE.put(key, eng)
     return eng
 

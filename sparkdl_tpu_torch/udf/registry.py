@@ -5,8 +5,8 @@ composition contract (``udf/keras_image_model.py``): [image-struct
 converter] ∘ [optional preprocessor] ∘ [model] in ONE program, here one
 captured CUDA graph on the card (the JAX package: one XLA program).  The
 host ships uint8 BGR batches; the BGR -> RGB flip and the cast to float
-run inside that program.  ``register_serving_udf`` waits for the serving
-layer (ROADMAP queue A item 7).
+run inside that program.  ``register_serving_udf`` exposes a running
+``serving.Server`` as a column UDF.
 """
 
 from __future__ import annotations
@@ -217,6 +217,60 @@ def register_image_udf(name: str, model_function, *,
 
     registry = registry if registry is not None else udf_registry
     return registry.register(name, fn)
+
+
+def register_serving_udf(name: str, server, *, returns: str = "array<float>",
+                         max_admission_retries: int = 100,
+                         timeout_ms: float = float("inf"),
+                         registry: Optional[UDFRegistry] = None
+                         ) -> RegisteredUDF:
+    """Register a running ``serving.Server`` as a column UDF.
+
+    Each row becomes ONE request on the server's admission queue, so
+    offline column scoring and concurrent online traffic share the same
+    micro-batches, deadlines and metrics.  All rows are submitted before
+    any result is awaited, so the batcher fills micro-batches.
+
+    Backpressure is honored: a ``QueueFullError`` sleeps the server's
+    ``retry_after_s`` hint and resubmits, up to ``max_admission_retries``
+    per row.  Null rows stay null.  Offline rows carry NO deadline by
+    default (``timeout_ms=inf`` overrides the server's
+    ``default_timeout_ms``: an online-sized deadline would shed the tail of
+    a bulk submit); pass a finite ``timeout_ms`` to opt back in."""
+    import time
+
+    from sparkdl_tpu_torch.serving.errors import QueueFullError
+
+    def _submit_with_backoff(value):
+        for _ in range(max(1, int(max_admission_retries))):
+            try:
+                return server.submit(value, timeout_ms=timeout_ms)
+            except QueueFullError as e:
+                time.sleep(max(1e-3, e.retry_after_s))
+        # final attempt: let rejection raise
+        return server.submit(value, timeout_ms=timeout_ms)
+
+    def fn(rows) -> List[Optional[list]]:
+        if isinstance(rows, (pa.Array, pa.ChunkedArray)):
+            rows = rows.to_pylist()
+        out: List[Optional[list]] = [None] * len(rows)
+        futures = []
+        for i, r in enumerate(rows):
+            if r is None:
+                continue
+            if isinstance(r, (list, tuple)):
+                # arrow list rows arrive as Python lists; submit() treats a
+                # list as a pytree of scalars, so densify here (struct rows
+                # stay dicts: the server's host_preprocess owns those)
+                r = np.asarray(r, dtype=np.float32)
+            futures.append((i, _submit_with_backoff(r)))
+        for i, fut in futures:
+            res = np.asarray(fut.result())
+            out[i] = [float(v) for v in res.reshape(-1)]
+        return out
+
+    registry = registry if registry is not None else udf_registry
+    return registry.register(name, fn, returns=returns)
 
 
 def registerKerasImageUDF(name: str, model_or_file, preprocessor=None,

@@ -6,7 +6,9 @@ The engine records its pad-to-bucket ledger (``engine.rows``,
 ``engine.pad_rows``), its failure domain (``engine.dispatch_errors``, ...),
 its CUDA-graph gauges (``engine.graph_pool_bytes``) and the ``engine_call``
 timing here; the pipelined runner its ``pipeline.*`` stalls and queue
-depths.  Every mutation takes one lock, so concurrent writers (the runner's
+depths; the serving layer its ``serving.*`` and ``cache.*`` counters,
+latencies and fill ratios (read through :meth:`Metrics.snapshot_raw` by
+``obs.export.metrics_snapshot``).  Every mutation takes one lock, so concurrent writers (the runner's
 three stage threads) stay exact.
 
 Series are bounded: each timing or histogram list keeps at most
@@ -64,6 +66,15 @@ class Metrics:
             self._append_bounded(self.histograms.setdefault(name, []),
                                  float(value))
 
+    def reset_series(self) -> None:
+        """Drop every timing and histogram sample; counters and gauges
+        stay.  A measurement window that starts here reads its own samples
+        whole, which a slice of a bounded series would not once it drops
+        its oldest half."""
+        with self._lock:
+            self.timings_s.clear()
+            self.histograms.clear()
+
     @staticmethod
     def _percentile(values: List[float], q: float) -> float:
         """Nearest-rank percentile (q in [0, 100]) of a non-empty list."""
@@ -93,6 +104,19 @@ class Metrics:
         if not series:
             return None
         return self._percentile(series, q)
+
+    def snapshot_raw(self) -> Dict[str, Dict]:
+        """Consistent copies of every family under one lock hold, the raw
+        shape ``obs.export.metrics_snapshot`` aggregates from:
+        ``{"counters", "gauges", "timings_s", "histograms"}``."""
+        with self._lock:
+            return {
+                "counters": dict(self.counters),
+                "gauges": dict(self.gauges),
+                "timings_s": {k: list(v) for k, v in self.timings_s.items()},
+                "histograms": {k: list(v)
+                               for k, v in self.histograms.items()},
+            }
 
     def subset(self, prefix: str) -> Dict[str, float]:
         """:meth:`summary` filtered to keys starting with ``prefix``."""

@@ -159,11 +159,46 @@ def test_env_gate_and_active_restore(monkeypatch):
 
 
 def test_queue_full_parses_but_is_not_served_yet():
-    plan = pfaults.FaultPlan.parse("serving.admit:error:exc=queue_full")
-    assert plan.spec == jfaults.FaultPlan.parse(
-        "serving.admit:error:exc=queue_full").spec
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    """``exc=queue_full`` raises the serving layer's ``QueueFullError``
+    with the rule's ``retry_after`` (0.05 s by default), as the JAX
+    injector does, and a port ``Server`` rejects at admission with it as
+    the JAX server does.  (The name is kept from when the port refused the
+    rule.)"""
+    import numpy as np
+    import torch
+
+    import sparkdl_tpu.serving as jserving
+    import sparkdl_tpu_torch
+    from sparkdl_tpu_torch.serving import QueueFullError, Server
+
+    spec = "serving.admit:error:exc=queue_full"
+    plan = pfaults.FaultPlan.parse(spec)
+    assert plan.spec == jfaults.FaultPlan.parse(spec).spec
+    with pytest.raises(QueueFullError) as pe:
         plan.fire("serving.admit", {})
+    with pytest.raises(jserving.QueueFullError) as je:
+        jfaults.FaultPlan.parse(spec).fire("serving.admit", {})
+    assert pe.value.retry_after_s == je.value.retry_after_s == 0.05
+    assert (pe.value.site, pe.value.rule) == (je.value.site, je.value.rule)
+    assert str(pe.value) == str(je.value)
+
+    x = np.ones(3, np.float32)
+    got = []
+    with sparkdl_tpu_torch.default_device("cpu"), \
+            Server(lambda m, b: torch.tanh(b), max_batch_size=2,
+                   cache=False) as srv, \
+            pfaults.active(pfaults.FaultPlan.parse(spec + ",times=1")):
+        with pytest.raises(QueueFullError) as ei:
+            srv.submit(x)
+        got.append(ei.value.retry_after_s)
+        np.testing.assert_allclose(srv.predict(x), np.tanh(x))
+    with jserving.Server(lambda v, b: b * 1.0, {}, max_batch_size=8,
+                         cache=False) as jsrv, \
+            jfaults.active(jfaults.FaultPlan.parse(spec + ",times=1")):
+        with pytest.raises(jserving.QueueFullError) as ei:
+            jsrv.submit(x)
+        got.append(ei.value.retry_after_s)
+    assert got == [0.05, 0.05]
 
 
 def test_error_taxonomy_routes_like_jax():

@@ -89,12 +89,21 @@ TF_SLICE = ("graph/proto.py", "graph/bundle.py", "graph/tf_import.py",
             "graph/input.py", "native/__init__.py")
 
 
+# Online serving and what it leans on.
+SERVING_SLICE = ("serving/__init__.py", "serving/errors.py",
+                 "serving/batcher.py", "serving/cache.py",
+                 "serving/server.py", "serving/adapters.py",
+                 "utils/digest.py", "utils/health.py", "obs/__init__.py",
+                 "obs/export.py")
+
+
 def test_port_imports_nothing_of_jax():
     files = _port_files()
     assert len(files) > 15 and all(f.exists() for f in files)
     assert (ROOT / "sparkdl_tpu_torch" / "native" / "sparkdl_native.cpp"
             ).exists()
-    for rel in ENGINE_CORE + KERAS_SLICE + TUNING_SLICE + TF_SLICE:
+    for rel in (ENGINE_CORE + KERAS_SLICE + TUNING_SLICE + TF_SLICE
+                + SERVING_SLICE):
         assert ROOT / "sparkdl_tpu_torch" / rel in files, rel
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in FORBIDDEN]
@@ -205,6 +214,46 @@ def test_tensor_stages_and_udf_without_cuda_raise(monkeypatch):
         assert mf(np.ones((1, 2), np.float32)).device == torch.device("cpu")
 
 
+def test_server_without_cuda_raises(monkeypatch):
+    """``Server`` resolves its device at construction: without a card it
+    raises unless the CPU was asked for, and never serves from the CPU
+    quietly; the device it resolved is the one its engines run on."""
+    import torch
+
+    import sparkdl_tpu_torch
+    from sparkdl_tpu_torch.serving import Server, from_transformer
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.transformers import ModelTransformer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sparkdl_tpu_torch.set_default_device(None)
+
+    def fn(m, x):
+        return x * 2
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Server(fn)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Server(fn, device="cuda")
+    stage = ModelTransformer(inputCol="x", outputCol="y",
+                             modelFunction=ModelFunction.from_callable(
+                                 lambda x: x * 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_transformer(stage)
+    with Server(fn, device="cpu", cache=False) as srv:
+        assert srv.device == torch.device("cpu")
+        np.testing.assert_array_equal(srv.predict(np.ones(2, np.float32)),
+                                      [2.0, 2.0])
+    with sparkdl_tpu_torch.default_device("cpu"):
+        srv = Server(fn, cache=False)
+    # the device is the one resolved at construction, whatever the
+    # thread-local default of a later caller or of the dispatch threads
+    with srv:
+        assert srv.device == torch.device("cpu")
+        assert srv.predict(np.ones(2, np.float32)).tolist() == [2.0, 2.0]
+        assert srv._engines[srv.bucket_sizes[0]].device.type == "cpu"
+
+
 # Names a subpackage of the JAX package exports that the port's does not,
 # each with the reason: modules not ported yet (ROADMAP.md queue A), and
 # the TPU layout helpers of the Pallas kernels.
@@ -222,6 +271,14 @@ NOT_EXPORTED = {
     "image": {},
     "estimators": {},
     "graph": {},
+    "serving": {"HeadFanoutServer": "serving/server.py's head fan-out, "
+                                    "queue A item 5",
+                "Fleet": "serving/fleet, queue A item 5",
+                "ModelRegistry": "serving/fleet, queue A item 5",
+                "ModelVersion": "serving/fleet, queue A item 5",
+                "Rollout": "serving/fleet, queue A item 5",
+                "TenantQuota": "serving/fleet, queue A item 5"},
+    "udf": {},
 }
 
 

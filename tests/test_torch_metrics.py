@@ -46,3 +46,21 @@ def test_percentile_lookup_rules():
     assert m.percentile("x", 50, kind="histogram") == 3.0
     with pytest.raises(ValueError):
         m.percentile("x", 50, kind="nope")
+
+
+def test_reset_series_keeps_counters_and_starts_a_whole_window():
+    """After ``reset_series`` the series hold only the window's samples,
+    even where a slice of the bounded series would have lost some."""
+    m = Metrics(max_samples=8)
+    for i in range(11):
+        m.record_time("lat", float(i))
+        m.observe("fill", 1.0)
+        m.incr("n")
+    m.gauge("g", 2.0)
+    m.reset_series()
+    for i in range(5):
+        m.record_time("lat", 100.0 + i)
+    raw = m.snapshot_raw()
+    assert raw["timings_s"] == {"lat": [100.0, 101.0, 102.0, 103.0, 104.0]}
+    assert raw["histograms"] == {}
+    assert raw["counters"] == {"n": 11.0} and raw["gauges"] == {"g": 2.0}

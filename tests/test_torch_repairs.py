@@ -167,11 +167,11 @@ def test_engine_pool_accounting_and_release():
                                      torch.nn.Linear(2, 2), device="cpu")
     held = engine_mod.graph_pool_bytes_held()
     assert eng.graph_pool_bytes == 0
-    eng._graphs[("sig",)] = object()
-    eng._pool_bytes = 1234
+    eng._core.graphs[("sig",)] = object()
+    eng._core.pool_bytes = 1234
     assert engine_mod.graph_pool_bytes_held() == held + 1234
     eng.release_graphs()
-    assert eng._graphs == {} and eng.graph_pool_bytes == 0
+    assert eng._core.graphs == {} and eng.graph_pool_bytes == 0
     ref = weakref.ref(eng)
     del eng
     gc.collect()
