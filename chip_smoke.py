@@ -4,11 +4,13 @@
 
 Run from the root of a checkout, on a machine with one CUDA card (built
 for an H100: the kernels are compiled for sm_90a).  It builds the port's
-three CUDA kernels from ``sparkdl_tpu_torch/ops/csrc`` with nvcc (one nvcc
-per kernel, all started together), holds each kernel against its plain
-PyTorch version at every shape class its path gives it, then drives the
-port's three paths through the user entry points, with seeded random
-weights and batch 32:
+four CUDA kernels from ``sparkdl_tpu_torch/ops/csrc`` with nvcc (one nvcc
+per kernel, all started together): the three that replace the JAX
+package's Pallas kernels (B1, B3, B2) and the head fan-out's head pass
+(H1, no TPU kernel's port).  It holds each kernel against its plain
+PyTorch version at every shape class its path gives it (H1 bit for bit,
+``[kernel] H1``), then drives the port's paths through the user entry
+points, with seeded random weights and batch 32:
 
   * Xception at 299x299 (``DeepImageFeaturizer`` + ``DeepImagePredictor``):
     the whole-image sepconv kernel (B1), 30 launches per batch;
@@ -110,7 +112,25 @@ weights and batch 32:
     0 after its ``close()``.  Each served run is counted on its own (the
     counts set to 0 just before it), held to its kernels' launches per
     forward times its dispatches and captures, and summed into the
-    phase's launches.
+    phase's launches;
+  * [headfanout] (last, after [serving]), the head fan-out:
+    ``HeadFanoutServer("Xception", max_batch_size=32,
+    cache=InferenceCache())`` at 299x299, f32 with TF32 off, 64 tenants'
+    seeded (2048, 100) heads in one stacked bank served by H1, 96 seeded
+    images.  A seeded Zipf(1.1) replay of 1,000 (image, tenant) requests
+    from one client through an uncached baseline (300 requests), a cold
+    pass (backbone dispatches == distinct images) and a warm pass (none),
+    then the warm replay from 8 clients (p50 / p99, req/s, feature hits,
+    host us per head pass); every row equal to its per-tenant oracle (its
+    feature row through H1 alone) bit for bit; three mixed-tenant
+    ``predict_batch`` calls of 32, each one head pass and one H1 launch;
+    the 96 served feature rows equal to the zoo engine's bit for bit; a
+    hot swap under 8 hammering threads (no failed future, rows old or new,
+    ``no_backbone_recompile``, no new capture, the cache's entries
+    unchanged); the indivisible and over-budget fallbacks bit-identical
+    too; 8 images through a CPU ``HeadFanoutServer`` within 5e-3; every
+    pool 0 after ``close()``.  Each served run is a counted window: B1 30
+    per backbone forward, H1 one per head pass.
 
 B1 is also held against its plain version at ragged shapes (a pixel count
 that is not a multiple of 64, F = 200, all four ReLU variants), and each of
@@ -172,9 +192,12 @@ and eval img/s, captures, metrics, relative errors),
 one of [native]'s (the route and why, decode ms a batch), one of
 [tfgraph]'s (import seconds, forward ms, kernel nodes, pool, relative
 errors), one of [serving]'s (dispatches, relative errors, the closed
-loops' numbers, pools, launches), one ``{"pools": ...}`` line (the graph pools held after every
-phase, by phase; later phases add keys to it), one JSON line with every
-kernel's numbers (with its launches in [serving]), and last the line
+loops' numbers, pools, launches), one of [headfanout]'s (the replay's
+passes, the hot swap, card vs CPU, pools, launches), one ``{"pools":
+...}`` line (the graph pools held after every phase, by phase; later
+phases add keys to it), one JSON line with every kernel's numbers (with
+its launches in [serving] and [headfanout]; H1's ``launches`` are its
+[headfanout] launches), and last the line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -211,6 +234,7 @@ RECIPE_PER_CLASS = 32
 RECIPE_TRAIN = 128
 RECIPE_MIN_ACC = 0.9
 PEAK_BF16_FLOPS = 989e12                  # H100 SXM dense bf16
+PEAK_F32_FLOPS = 67e12                    # H100 SXM f32, outside the tensor cores
 PEAK_BYTES = 3.35e12                      # H100 SXM HBM3
 
 # The shape classes Xception's fused route gives the whole-image sepconv
@@ -397,9 +421,10 @@ def host_us_per_call(fn, calls=200):
     return (t1 - t0) / calls * 1e6
 
 
-def bound(flops, nbytes):
-    """(bound ms, what sets it) on the published H100 SXM peaks."""
-    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
+    """(bound ms, what sets it) on the published H100 SXM peaks (bf16
+    tensor-core operations unless ``peak_flops`` says otherwise)."""
+    ops_ms = flops / peak_flops * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
@@ -3645,6 +3670,571 @@ def phase_serving(sepconv):
     return out
 
 
+HEAD_D = 2048                   # Xception's feature width
+HEAD_CAP = 64                   # the bank's capacity (64 tenants)
+HEAD_SHAPES = [(n, c) for n in (1, 7, 32) for c in (100, 129, 1000)]
+HEAD_MAIN_SHAPE = (1, 100)      # the replay's pass: one row, a 100-class head
+FANOUT_TENANTS = 64
+FANOUT_CLASSES = 100
+FANOUT_N = 96                   # seeded images the fan-out serves
+FANOUT_REPLAY = 1000            # Zipf(1.1) requests over them, one client
+FANOUT_BASELINE = 300           # of them through the uncached baseline
+FANOUT_ZIPF = 1.1
+FANOUT_CLIENTS = 8              # the warm pass's second run
+FANOUT_CPU_N = 8                # images also through a CPU HeadFanoutServer
+FANOUT_CPU_REL_TOL = 5e-3       # card (B1, bf16 inside) vs CPU (unfused f32)
+FANOUT_BUDGET = 32 << 20        # hbm_budget_bytes of the over-budget bank
+FANOUT_SWAP_S = 0.2             # the hot swap: load before and after it
+
+
+def _head_bank_inputs(g, n, c):
+    """Seeded H1 operands on the card: features N(0, 1), a bank of
+    HEAD_CAP heads with kernels N(0, 1/D), random tenant indices with a
+    repeat (the first row's head again in the last row)."""
+    dev = "cuda"
+    feats = torch.randn(n, HEAD_D, device=dev, generator=g)
+    kernel = torch.randn(HEAD_CAP, HEAD_D, c, device=dev,
+                         generator=g) / math.sqrt(HEAD_D)
+    bias = torch.randn(HEAD_CAP, c, device=dev, generator=g)
+    idx = torch.randint(0, HEAD_CAP, (n,), device=dev, generator=g,
+                        dtype=torch.int32)
+    if n > 1:
+        idx[-1] = idx[0]
+    return feats, idx, kernel, bias
+
+
+def phase_head_kernel():
+    """[kernel] H1: the head pass (``ops/head.py``) against its plain
+    version, bit for bit, at n in {1, 7, 32}, D = 2048, C in {100, 129,
+    1000}, capacity 64; device ms (graph_ms), host us per call, the plain
+    version's and the library's ms (``torch.bmm`` over the gathered heads
+    plus the bias, never used by the port) and the bound: the bytes of the
+    features, of every distinct head's kernel and bias, of the index and
+    of the output, against 2 n D C f32 operations outside the tensor
+    cores."""
+    from sparkdl_tpu_torch.ops import head as hops
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    rows, main = [], None
+    for n, c in HEAD_SHAPES:
+        args = _head_bank_inputs(g, n, c)
+        feats, idx, kernel, bias = args
+        out = hops._head_pass_cuda(*args)
+        torch.cuda.synchronize()
+        ref = hops.head_pass_reference(*args)
+        check(torch.isfinite(out).all().item() and out.shape == (n, c),
+              f"[kernel] H1 output at n={n} C={c}: {tuple(out.shape)}")
+        check(torch.equal(out, ref),
+              f"[kernel] H1 != plain version at n={n} C={c}: max abs "
+              f"{(out - ref).abs().max().item():.3g}")
+        rows_long = idx.long()
+
+        def library():
+            return (torch.bmm(feats[:, None], kernel[rows_long])[:, 0]
+                    + bias[rows_long])
+
+        k_ms = graph_ms(lambda: hops._head_pass_cuda(*args))
+        p_ms = graph_ms(lambda: hops.head_pass_reference(*args), calls=3)
+        l_ms = graph_ms(library)
+        host = host_us_per_call(lambda: hops._head_pass_cuda(*args))
+        distinct = int(torch.unique(idx).numel())
+        nbytes = 4.0 * (n * HEAD_D + distinct * (HEAD_D * c + c) + n
+                        + n * c)
+        flops = 2.0 * n * HEAD_D * c
+        b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+        lib_err = (library() - ref).abs().max().item()
+        row = dict(shape=[n, HEAD_D, c], capacity=HEAD_CAP,
+                   distinct_heads=distinct, max_abs_err=0.0, ms=k_ms,
+                   plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                   bound_by=b_by, host_us_per_call=host,
+                   library_max_abs_vs_plain=lib_err)
+        rows.append(row)
+        if (n, c) == HEAD_MAIN_SHAPE:
+            main = row
+        print(f"[kernel] H1 n={n} D={HEAD_D} C={c} cap={HEAD_CAP} "
+              f"({distinct} distinct heads): == plain version bit for bit; "
+              f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms="
+              f"{l_ms:.4f} (bmm vs plain max abs {lib_err:.2e}) "
+              f"bound_ms={b_ms:.4f} ({b_by}) -> {b_ms / k_ms:.1%} of "
+              f"bound; host {host:.1f} us per call", flush=True)
+    return {
+        "name": "head_pass", "route": "cuda",
+        "source": "sparkdl_tpu_torch/ops/csrc/head_fanout.cu",
+        "replaces": "sparkdl_tpu/parallel/engine.py:307",
+        "tpu_kernel": False, "launches": None, "max_abs_err": 0.0,
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "host_us_per_launch": main["host_us_per_call"],
+        "main_shape": main["shape"], "shapes": rows,
+    }
+
+
+def _fanout_counted(sepconv, hops, srv, what, run):
+    """``run()`` as one measured window of the fan-out server ``srv``: the
+    kernels' counts (B1, B3, B2 and H1) set to 0 and the server's series
+    cleared just before it, read just after.  B1 must be 30 times the
+    backbone's forwards in the window (dispatches + captures' warm-up
+    forwards), B3 and B2 0, and H1 the bank's head passes
+    (``headbank.dispatches``; every dispatch of the phase holds one
+    tenant's rows or runs on the stacked bank).  A CPU server's window
+    must launch nothing.  Returns ``run()``'s result, the counts, the
+    counter deltas and the series."""
+    before = dict(srv.metrics.counters)
+    srv.metrics.reset_series()
+    reset_counts(sepconv)
+    hops.head_pass.launches = 0
+    result = run()
+    counts = read_counts(sepconv)
+    counts["head_pass"] = hops.head_pass.launches
+    raw = srv.metrics.snapshot_raw()
+    counters = {k: v - before.get(k, 0.0) for k, v in raw["counters"].items()}
+    series = {**raw["timings_s"], **raw["histograms"]}
+    batches = int(counters.get("serving.batches", 0))
+    captures = int(counters.get("engine.graph_captures", 0))
+    passes = int(counters.get("headbank.dispatches", 0))
+    on_card = srv.device.type == "cuda"
+    want = dict(sepconv=SEPCONV_PER_FORWARD * (batches + captures) * on_card,
+                sepconv_tiled=0, mbconv=0, head_pass=passes * on_card)
+    check(counts == want,
+          f"[headfanout] {what}: launches {counts}, want {want} ({batches} "
+          f"dispatches + {captures} captures, {passes} head passes)")
+    return result, counts, counters, series
+
+
+def _zipf_replay(rng, n_images, n_tenants, n):
+    """A seeded Zipf(FANOUT_ZIPF) sequence of ``n`` (image, tenant)
+    requests: image ranks by p(r) ~ 1/r^s, tenants uniform."""
+    ranks = np.arange(1, n_images + 1, dtype=np.float64)
+    probs = ranks ** -FANOUT_ZIPF
+    probs /= probs.sum()
+    return [(int(i), f"t{int(t):03d}") for i, t in zip(
+        rng.choice(n_images, size=n, p=probs),
+        rng.integers(0, n_tenants, size=n))]
+
+
+def _timed_dispatch(bank, times):
+    """Wrap ``bank.dispatch`` to record each head pass's host wall time
+    (upload, launch, fetch) into ``times``; returns the undo."""
+    real = bank.dispatch
+
+    def timed(features, tenants):
+        t0 = time.perf_counter()
+        try:
+            return real(features, tenants)
+        finally:
+            times.append(time.perf_counter() - t0)
+
+    bank.dispatch = timed
+    return lambda: bank.__dict__.pop("dispatch", None)
+
+
+def _pcts(lat):
+    a = np.asarray(lat) * 1e3
+    return float(np.percentile(a, 50)), float(np.percentile(a, 99))
+
+
+def phase_headfanout(sepconv):
+    """[headfanout]: the head fan-out over a zoo Xception backbone (B1) at
+    299x299, f32 with TF32 off: ``HeadFanoutServer("Xception",
+    max_batch_size=32, cache=InferenceCache())``, 64 tenants' seeded
+    (2048, 100) heads (kernels N(0, 1/D), biases N(0, 1)) in one stacked
+    bank served by kernel H1, 96 seeded images.
+
+      1. the replay: a seeded Zipf(1.1) sequence of 1,000 (image, tenant)
+         requests from one client through an uncached baseline server
+         (the first 300), a cold pass (backbone dispatches == the distinct
+         images) and a warm pass (no backbone dispatch), p50 / p99 of
+         each, feature hits and host us per head pass; then the warm
+         sequence from 8 clients.  Every row equals its per-tenant oracle
+         (its feature row through H1 at n = 1, ``dense_head_row``) bit for
+         bit;
+      2. three mixed-tenant ``predict_batch`` calls of 32 over the 96
+         images: each ONE head pass and ONE H1 launch, each row its
+         oracle's bits; the 96 served feature rows (read back from the
+         feature cache) equal the zoo engine's at batch 32 bit for bit;
+      3. a hot swap of one tenant's head while 8 threads hammer it: no
+         failed future, every row the old or the new oracle's bits,
+         ``no_backbone_recompile``, ``executable_state()``, the captures
+         and the cache's entries unchanged;
+      4. the fallbacks: a (2048, 1000) head makes the bank indivisible, and
+         a second server on the same cache with ``hbm_budget_bytes`` 32 MB
+         and the 64 heads goes over budget; both serve oracle-equal rows;
+      5. 8 images through a CPU ``HeadFanoutServer`` (unfused f32) within
+         FANOUT_CPU_REL_TOL of the card's rows;
+      6. every server's pool, 0 after ``close()``.
+
+    Every served run is a counted window (:func:`_fanout_counted`)."""
+    import sparkdl_tpu_torch
+    from sparkdl_tpu_torch.image.io import arrowStructsToBatch
+    from sparkdl_tpu_torch.models import get_model_spec
+    from sparkdl_tpu_torch.ops import head as hops
+    from sparkdl_tpu_torch.parallel.engine import (dense_head_row,
+                                                   graph_pool_bytes_held)
+    from sparkdl_tpu_torch.serving import HeadFanoutServer, InferenceCache
+    from sparkdl_tpu_torch.transformers import named_image as ni
+    from sparkdl_tpu_torch.utils.digest import content_digest
+
+    tag = "headfanout"
+    out = {}
+    size = get_model_spec("Xception").input_size[0]
+    df = synthetic_frame(FANOUT_N, size, SEED + 81)
+    images, ok = arrowStructsToBatch(df.table.column("image"), size, size)
+    check(ok.all(), f"[{tag}] synthetic images failed to decode")
+    rng = np.random.default_rng(SEED + 82)
+    heads = {f"t{i:03d}": {
+        "kernel": (rng.normal(size=(HEAD_D, FANOUT_CLASSES))
+                   / math.sqrt(HEAD_D)).astype(np.float32),
+        "bias": rng.normal(size=(FANOUT_CLASSES,)).astype(np.float32)}
+        for i in range(FANOUT_TENANTS)}
+    dev_heads = {t: {k: torch.from_numpy(v).cuda() for k, v in h.items()}
+                 for t, h in heads.items()}
+    seq = _zipf_replay(rng, FANOUT_N, FANOUT_TENANTS, FANOUT_REPLAY)
+    distinct = len({i for i, _ in seq})
+    total = dict(sepconv=0, sepconv_tiled=0, mbconv=0, head_pass=0)
+    cache = InferenceCache()
+
+    def build(**kw):
+        t0 = time.perf_counter()
+        srv = HeadFanoutServer("Xception", max_batch_size=BATCH, **kw)
+        for t, h in heads.items():
+            srv.add_head(t, h)
+        add_s = time.perf_counter() - t0
+        check(srv.device.type == "cuda" and srv.bank.device.type == "cuda",
+              f"[{tag}] fan-out server not on the card")
+        return srv, add_s
+
+    def feature_row(srv, i):
+        key = srv.feature_namespace + (content_digest(images[i]),)
+        row = srv.cache.get(key)
+        check(row is not None, f"[{tag}] image {i} has no feature entry")
+        return row
+
+    def oracle(feats, head):
+        with torch.inference_mode():
+            return dense_head_row(head, torch.from_numpy(
+                np.ascontiguousarray(feats)).cuda()).cpu().numpy()
+
+    def serve_seq(srv, reqs, n_clients=1):
+        """``reqs`` from ``n_clients`` closed-loop threads; (latencies,
+        rows in request order, wall s)."""
+        rows = [None] * len(reqs)
+        lat = [None] * len(reqs)
+        errors = []
+
+        def client(k):
+            try:
+                for j in range(k, len(reqs), n_clients):
+                    i, t = reqs[j]
+                    t1 = time.perf_counter()
+                    rows[j] = srv.predict(images[i], t)
+                    lat[j] = time.perf_counter() - t1
+            except Exception as e:  # reported below, in the main thread
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(n_clients)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t0
+        check(not errors and not any(th.is_alive() for th in threads),
+              f"[{tag}] served clients failed: {errors[:1]}")
+        return lat, rows, wall
+
+    # 1. the replay: baseline (uncached), cold, warm, warm from 8 clients
+    base, _ = build(cache=False)
+    base.warmup(images[0])
+    base.warm_head(np.zeros(HEAD_D, np.float32))
+    (base_lat, base_rows, base_s), counts, counters, _ = _fanout_counted(
+        sepconv, hops, base, "uncached baseline",
+        lambda: serve_seq(base, seq[:FANOUT_BASELINE]))
+    _add_counts(total, counts)
+    base_dispatches = int(counters["serving.batches"])
+    check(base_dispatches == FANOUT_BASELINE,
+          f"[{tag}] baseline: {base_dispatches} backbone dispatches for "
+          f"{FANOUT_BASELINE} uncached requests")
+    pool_base = base.graph_pool_bytes
+    base.close()
+    check(base.graph_pool_bytes == 0,
+          f"[{tag}] baseline server kept its pool after close()")
+
+    srv, add_s = build(cache=cache)
+    t0 = time.perf_counter()
+    srv.warmup(images[0])
+    srv.warm_head(np.zeros(HEAD_D, np.float32))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    stats = srv.head_stats()
+    check(stats["mode"] == "stacked" and stats["capacity"] == FANOUT_TENANTS,
+          f"[{tag}] bank {stats}")
+    (cold_lat, cold_rows, cold_s), counts, counters, _ = _fanout_counted(
+        sepconv, hops, srv, "cold pass", lambda: serve_seq(srv, seq))
+    _add_counts(total, counts)
+    cold_dispatches = int(counters["serving.batches"])
+    cold_hits = int(counters.get("headfanout.feature_hits", 0))
+    check(cold_dispatches == distinct,
+          f"[{tag}] cold pass: {cold_dispatches} backbone dispatches for "
+          f"{distinct} distinct images")
+    head_times = []
+    undo = _timed_dispatch(srv.bank, head_times)
+    (warm_lat, warm_rows, warm_s1), counts, counters, _ = _fanout_counted(
+        sepconv, hops, srv, "warm pass", lambda: serve_seq(srv, seq))
+    undo()
+    _add_counts(total, counts)
+    check(counters.get("serving.batches", 0) == 0
+          and counters["headfanout.feature_hits"] == FANOUT_REPLAY,
+          f"[{tag}] warm pass: {counters.get('serving.batches', 0)} "
+          f"backbone dispatches, "
+          f"{counters.get('headfanout.feature_hits', 0)} feature hits")
+    (m8_lat, m8_rows, m8_s), counts, counters, _ = _fanout_counted(
+        sepconv, hops, srv, "warm pass, 8 clients",
+        lambda: serve_seq(srv, seq, FANOUT_CLIENTS))
+    _add_counts(total, counts)
+    check(counters.get("serving.batches", 0) == 0,
+          f"[{tag}] warm pass from 8 clients reached the backbone")
+    feats = {i: feature_row(srv, i) for i in sorted({i for i, _ in seq})}
+    want = {key: oracle(feats[key[0]], dev_heads[key[1]])
+            for key in set(seq)}
+    for what, rows, reqs in (("baseline", base_rows, seq[:FANOUT_BASELINE]),
+                             ("cold", cold_rows, seq),
+                             ("warm", warm_rows, seq),
+                             ("warm 8 clients", m8_rows, seq)):
+        bad = sum(r.tobytes() != want[key].tobytes()
+                  for r, key in zip(rows, reqs))
+        check(bad == 0, f"[{tag}] {what} pass: {bad} rows differ from "
+                        f"their per-tenant oracle")
+    replay = dict(requests=FANOUT_REPLAY, distinct_images=distinct,
+                  tenants=FANOUT_TENANTS,
+                  baseline=dict(requests=FANOUT_BASELINE,
+                                dispatches=base_dispatches,
+                                p50_ms=_pcts(base_lat)[0],
+                                p99_ms=_pcts(base_lat)[1],
+                                req_per_s=FANOUT_BASELINE / base_s),
+                  cold=dict(dispatches=cold_dispatches,
+                            feature_hits=cold_hits,
+                            p50_ms=_pcts(cold_lat)[0],
+                            p99_ms=_pcts(cold_lat)[1],
+                            req_per_s=FANOUT_REPLAY / cold_s),
+                  warm=dict(dispatches=0, feature_hits=FANOUT_REPLAY,
+                            p50_ms=_pcts(warm_lat)[0],
+                            p99_ms=_pcts(warm_lat)[1],
+                            req_per_s=FANOUT_REPLAY / warm_s1,
+                            host_us_per_head_pass=float(
+                                np.mean(head_times)) * 1e6,
+                            host_us_per_head_pass_p50=float(
+                                np.median(head_times)) * 1e6),
+                  warm_8_clients=dict(p50_ms=_pcts(m8_lat)[0],
+                                      p99_ms=_pcts(m8_lat)[1],
+                                      req_per_s=FANOUT_REPLAY / m8_s))
+    out["replay"] = replay
+    for name in ("baseline", "cold", "warm", "warm_8_clients"):
+        r = replay[name]
+        extra = (f", {r['dispatches']} backbone dispatches"
+                 if "dispatches" in r else "")
+        if "feature_hits" in r:
+            extra += f", {r['feature_hits']} feature hits"
+        if "host_us_per_head_pass" in r:
+            extra += (f", host {r['host_us_per_head_pass']:.0f} us per head "
+                      f"pass (p50 {r['host_us_per_head_pass_p50']:.0f})")
+        print(f"[{tag}] replay {name}: {r['req_per_s']:.1f} req/s, latency "
+              f"p50 {r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms{extra}; "
+              f"every row == its per-tenant oracle, bit for bit",
+              flush=True)
+    print(f"[{tag}] {FANOUT_TENANTS} heads added in {add_s:.2f}s (bank "
+          f"{stats['param_bytes_per_chip'] / 1e6:.1f} MB at capacity "
+          f"{stats['capacity']}), warm-up (3 captures) {warm_s:.2f}s; "
+          f"{distinct} distinct images in the {FANOUT_REPLAY}-request "
+          f"replay, cold dispatches {cold_dispatches}, warm 0", flush=True)
+    out["bank_bytes"] = stats["param_bytes_per_chip"]
+
+    # 2. mixed-tenant batches of 32: one head pass and one H1 launch each
+    tenants = list(heads)
+    batch_rows = []
+    for k in range(FANOUT_N // BATCH):
+        idxs = list(range(k * BATCH, (k + 1) * BATCH))
+        ts = [tenants[int(j)] for j in rng.integers(0, FANOUT_TENANTS,
+                                                    BATCH)]
+        rows, counts, counters, _ = _fanout_counted(
+            sepconv, hops, srv, f"mixed batch {k}",
+            lambda: srv.predict_batch([images[i] for i in idxs], ts))
+        _add_counts(total, counts)
+        check(counts["head_pass"] == 1
+              and counters["headfanout.head_passes"] == 1,
+              f"[{tag}] mixed batch {k}: {counts['head_pass']} H1 launches")
+        batch_rows.append((idxs, ts, rows))
+    served = np.stack([feature_row(srv, i) for i in range(FANOUT_N)])
+    engine_rows = ni._zoo_engine("Xception", True, BATCH)(images)
+    check(np.array_equal(served, engine_rows),
+          f"[{tag}] served feature rows != zoo engine at batch {BATCH}: max "
+          f"abs {np.abs(served - engine_rows).max():.3g}")
+    bad = 0
+    for idxs, ts, rows in batch_rows:
+        for i, t, r in zip(idxs, ts, rows):
+            bad += r.tobytes() != oracle(served[i], dev_heads[t]).tobytes()
+    check(bad == 0, f"[{tag}] {bad} mixed-batch rows != their oracle")
+    print(f"[{tag}] {FANOUT_N // BATCH} mixed-tenant predict_batch of "
+          f"{BATCH}: one head pass and one H1 launch each, every row == its "
+          f"oracle bit for bit; the {FANOUT_N} served feature rows == zoo "
+          f"engine at batch {BATCH}, bit for bit", flush=True)
+
+    # 3. hot swap under load
+    hot_i, hot_t = seq[0]
+    new_head = {"kernel": (rng.normal(size=(HEAD_D, FANOUT_CLASSES))
+                           / math.sqrt(HEAD_D)).astype(np.float32),
+                "bias": rng.normal(size=(FANOUT_CLASSES,)).astype(
+                    np.float32)}
+    ref_old = oracle(served[hot_i], dev_heads[hot_t]).tobytes()
+    ref_new = oracle(served[hot_i], {k: torch.from_numpy(v).cuda()
+                                     for k, v in new_head.items()}).tobytes()
+    state = srv.executable_state()
+    captures = srv.metrics.counters.get("engine.graph_captures", 0)
+    entries = len(cache)
+
+    def hammer_and_swap():
+        got, errors = [], []
+        stop = threading.Event()
+
+        def client():
+            while not stop.is_set():
+                try:
+                    got.append(srv.submit(images[hot_i], hot_t).result(60))
+                except Exception as e:  # reported below
+                    errors.append(e)
+
+        threads = [threading.Thread(target=client)
+                   for _ in range(FANOUT_CLIENTS)]
+        for th in threads:
+            th.start()
+        time.sleep(FANOUT_SWAP_S)
+        t0 = time.perf_counter()
+        report = srv.swap_head(hot_t, new_head)
+        swap_s = time.perf_counter() - t0
+        time.sleep(FANOUT_SWAP_S)
+        stop.set()
+        for th in threads:
+            th.join(timeout=60)
+        return got, errors, report, swap_s
+
+    (got, errors, report, swap_s), counts, counters, _ = _fanout_counted(
+        sepconv, hops, srv, "hot swap", hammer_and_swap)
+    _add_counts(total, counts)
+    n_old = sum(r.tobytes() == ref_old for r in got)
+    n_new = sum(r.tobytes() == ref_new for r in got)
+    check(not errors, f"[{tag}] hot swap: {len(errors)} failed futures: "
+                      f"{errors[:1]}")
+    check(n_old + n_new == len(got) and n_new > 0 and n_old > 0,
+          f"[{tag}] hot swap: {len(got)} rows, {n_old} old, {n_new} new")
+    check(report["no_backbone_recompile"] is True
+          and srv.executable_state() == state
+          and srv.metrics.counters.get("engine.graph_captures", 0) == captures
+          and len(cache) == entries,
+          f"[{tag}] hot swap touched the backbone: {report}")
+    check(counters.get("serving.batches", 0) == 0,
+          f"[{tag}] hot swap reached the backbone")
+    print(f"[{tag}] hot swap of {hot_t}'s head under {FANOUT_CLIENTS} "
+          f"threads: {len(got)} rows ({n_old} old head, {n_new} new, 0 "
+          f"torn), 0 failed futures; swap {swap_s * 1e3:.1f} ms; "
+          f"no_backbone_recompile {report['no_backbone_recompile']}, "
+          f"executable_state and {int(captures)} captures unchanged, "
+          f"cache {entries} entries unchanged; launches {counts}",
+          flush=True)
+    out["hot_swap"] = dict(rows=len(got), old=n_old, new=n_new,
+                           swap_ms=swap_s * 1e3,
+                           fingerprint_pinned=report["fingerprint_pinned"])
+    heads[hot_t] = new_head
+    dev_heads[hot_t] = {k: torch.from_numpy(v).cuda()
+                        for k, v in new_head.items()}
+
+    # 4. the fallbacks: indivisible (a 1000-class head), over budget
+    wide = {"kernel": (rng.normal(size=(HEAD_D, 1000))
+                       / math.sqrt(HEAD_D)).astype(np.float32),
+            "bias": rng.normal(size=(1000,)).astype(np.float32)}
+    srv.add_head("wide", wide)
+    check(srv.head_stats()["mode"] == "fallback",
+          f"[{tag}] a (2048, 1000) head did not make the bank indivisible")
+    dev_wide = {k: torch.from_numpy(v).cuda() for k, v in wide.items()}
+    fb_reqs = list(seq[:48]) + [(i, "wide") for i in range(16)]
+    (_, fb_rows, _), counts, counters, _ = _fanout_counted(
+        sepconv, hops, srv, "indivisible fallback",
+        lambda: serve_seq(srv, fb_reqs))
+    _add_counts(total, counts)
+    bad = sum(r.tobytes() != oracle(
+        served[i], dev_wide if t == "wide" else dev_heads[t]).tobytes()
+        for r, (i, t) in zip(fb_rows, fb_reqs))
+    check(bad == 0 and counters.get("serving.batches", 0) == 0,
+          f"[{tag}] indivisible fallback: {bad} rows != oracle")
+    over, _ = build(cache=cache, hbm_budget_bytes=FANOUT_BUDGET)
+    ostats = over.head_stats()
+    check(ostats["mode"] == "fallback"
+          and "hbm_budget_bytes" in ostats["fallback_reason"],
+          f"[{tag}] over-budget bank: {ostats}")
+    over_reqs = seq[:64]
+    (_, ob_rows, _), counts, counters, _ = _fanout_counted(
+        sepconv, hops, over, "over-budget fallback",
+        lambda: serve_seq(over, over_reqs))
+    _add_counts(total, counts)
+    bad = sum(r.tobytes() != oracle(served[i], dev_heads[t]).tobytes()
+              for r, (i, t) in zip(ob_rows, over_reqs))
+    check(bad == 0 and counters.get("serving.batches", 0) == 0,
+          f"[{tag}] over-budget fallback: {bad} rows != oracle")
+    over.close()
+    check(over.graph_pool_bytes == 0, f"[{tag}] over-budget server pool")
+    print(f"[{tag}] fallbacks: a (2048, 1000) head -> mode "
+          f"{srv.head_stats()['mode']} (indivisible), {len(fb_reqs)} rows; "
+          f"hbm_budget_bytes {FANOUT_BUDGET >> 20} MiB with "
+          f"{FANOUT_TENANTS} heads -> {ostats['mode']} "
+          f"({ostats['fallback_reason']}), {len(over_reqs)} rows from the "
+          f"warm cache; every row == its oracle bit for bit", flush=True)
+
+    # 5. card vs a CPU HeadFanoutServer (unfused f32) on 8 images
+    t0 = time.perf_counter()
+    with sparkdl_tpu_torch.default_device("cpu"):
+        cpu_srv = HeadFanoutServer("Xception", max_batch_size=FANOUT_CPU_N,
+                                   bucket_sizes=[FANOUT_CPU_N], cache=False)
+    cpu_ts = tenants[:FANOUT_CPU_N]
+    with cpu_srv:
+        check(cpu_srv.device.type == "cpu"
+              and cpu_srv.bank.device.type == "cpu",
+              f"[{tag}] CPU server device")
+        for t in cpu_ts:
+            cpu_srv.add_head(t, heads[t])
+        cpu_rows, _, _, _ = _fanout_counted(
+            sepconv, hops, cpu_srv, "CPU server",
+            lambda: np.stack(cpu_srv.predict_batch(
+                list(images[:FANOUT_CPU_N]), cpu_ts)))
+    cpu_s = time.perf_counter() - t0
+    card_rows = np.stack(srv.predict_batch(list(images[:FANOUT_CPU_N]),
+                                           cpu_ts))
+    rel_cpu = _rel(card_rows, cpu_rows)
+    check(rel_cpu <= FANOUT_CPU_REL_TOL,
+          f"[{tag}] card vs CPU server: rel err {rel_cpu:.3g} > "
+          f"{FANOUT_CPU_REL_TOL}")
+    print(f"[{tag}] {FANOUT_CPU_N} images through a CPU HeadFanoutServer "
+          f"(unfused f32, {cpu_s:.1f}s): card vs CPU ||a-b||/||b|| = "
+          f"{rel_cpu:.3e} (tol {FANOUT_CPU_REL_TOL})", flush=True)
+    out["card_vs_cpu_rel_err"] = rel_cpu
+
+    # 6. pools
+    pool = srv.graph_pool_bytes
+    held = graph_pool_bytes_held()
+    srv.close()
+    check(srv.graph_pool_bytes == 0
+          and graph_pool_bytes_held() == held - pool,
+          f"[{tag}] close() kept {srv.graph_pool_bytes} pool bytes")
+    print(f"[{tag}] pools: fan-out server {pool / 2**20:.1f} MiB, baseline "
+          f"{pool_base / 2**20:.1f} MiB, over-budget server 0; all 0 after "
+          f"close(); the feature namespace stays in the cache "
+          f"({len(cache)} entries)", flush=True)
+    print(f"[{tag}] launches over every counted window of the phase: "
+          f"{total}", flush=True)
+    out.update(pool_bytes=pool, pool_bytes_baseline=pool_base,
+               launches=total)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3676,6 +4266,7 @@ def main():
                             phase_sepconv_tiled_ragged(sepconv))
     b2 = phase_mbconv_kernel(sepconv)
     b2["max_abs_err"] = max(b2["max_abs_err"], phase_mbconv_ragged(sepconv))
+    h1 = phase_head_kernel()
     pools = {}
     b1["launches"], b1["tf32_unfused_rel_err"] = phase_xception(sepconv)
     pools["xception"] = pool_line("[xception]")
@@ -3714,8 +4305,13 @@ def main():
     b1["serving_launches"] = serving["launches"]["sepconv"]
     b3["serving_launches"] = serving["launches"]["sepconv_tiled"]
     b2["serving_launches"] = serving["launches"]["mbconv"]
+    fanout = phase_headfanout(sepconv)
+    pools["headfanout"] = pool_line("[headfanout]")
+    print(json.dumps({"headfanout": fanout}), flush=True)
+    h1["launches"] = fanout["launches"]["head_pass"]
+    b1["headfanout_launches"] = fanout["launches"]["sepconv"]
     print(json.dumps({"pools": pools}), flush=True)
-    print(json.dumps({"kernels": [b1, b3, b2]}), flush=True)
+    print(json.dumps({"kernels": [b1, b3, b2, h1]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

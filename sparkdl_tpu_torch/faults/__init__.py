@@ -8,7 +8,8 @@
   ``engine.gather``), the pipelined runner (``pipeline.prepare``,
   ``pipeline.dispatch``, ``pipeline.gather``) and the serving layer
   (``serving.admit``, ``serving.model``, ``batch.topoff``, ``cache.hit``,
-  ``cache.stampede``) call.  With no plan active it
+  ``cache.stampede``, and the head bank's ``head.swap`` and
+  ``head.dispatch``) call.  With no plan active it
   is one global read and a ``None`` check.
 * The error taxonomy (:mod:`~sparkdl_tpu_torch.faults.errors`).
 

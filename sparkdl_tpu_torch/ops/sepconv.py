@@ -50,6 +50,11 @@ KERNELS = {
                       "sepconv_tiled", [_P] * 6 + [_I] * 13 + [_P]),
     "mbconv": ("sparkdl_mbconv", ("mbconv.cu",), "mbconv",
                [_P] * 6 + [_I] * 12 + [_P]),
+    # H1, the head fan-out's head pass (ops/head.py): no TPU kernel's port,
+    # built and launched beside them; its count is its own
+    # (``head_pass.launches``), outside launch_counts()
+    "head_fanout": ("sparkdl_head_fanout", ("head_fanout.cu",),
+                    "head_fanout", [_P] * 5 + [_I] * 5 + [_P]),
 }
 _configured = set()
 _bound: Dict[str, tuple] = {}   # kernel -> (C launch function, error string)

@@ -65,10 +65,16 @@ and the circuit breaker are its own.  The pool stays safe to share for the
 reason above: every graph of every sibling replays under the one lock and
 after the one event, so no two replays overlap.
 
+The head half (the JAX engine's ``dense_head_row``,
+``build_head_fanout_jit`` and :class:`HeadBank`): per-tenant dense heads
+stacked into one device bank and served by one fan-out callable, whose
+dense head pass is kernel H1 (:mod:`sparkdl_tpu_torch.ops.head`), so that a
+tenant's row from a mixed-tenant batch is its row through its head alone,
+bit for bit, in every bank mode.
+
 Not ported yet: the device mesh and weight sharding and ``donate_batch``
-(ROADMAP.md queue A item 4), the head bank (item 5, serving's next slice),
-the ``engine.dispatch`` / ``engine.call`` spans and flight events (item
-6), and the compile-cache policy (item 7).
+(ROADMAP.md queue A item 4), the ``engine.dispatch`` / ``engine.call``
+spans and flight events (item 6), and the compile-cache policy (item 7).
 """
 
 from __future__ import annotations
@@ -466,7 +472,15 @@ class InferenceEngine:
         # last replay's output copy (see the module docstring) and the
         # streams: shared with every sibling
         self._core = _GraphCore(self.device)
+        self._init_own()
         _LIVE_ENGINES.add(self)
+
+    def _init_own(self) -> None:
+        """What an engine does not share with its siblings besides its
+        batch size and breaker: the signature of the last graph it
+        captured and its count of captures (``executable_state``)."""
+        self._graph_sig = None
+        self.captures = 0
 
     @property
     def num_devices(self) -> int:
@@ -494,6 +508,7 @@ class InferenceEngine:
         sib.breaker = DispatchCircuitBreaker(
             threshold=self.breaker.threshold,
             cooldown_s=self.breaker.cooldown_s)
+        sib._init_own()
         _LIVE_ENGINES.add(sib)
         return sib
 
@@ -744,6 +759,8 @@ class InferenceEngine:
         g = _Graph(key, folds, graph, static_in, static_out, launches,
                    max(0, pool))
         self._core.graphs[sig] = g
+        self._graph_sig = sig
+        self.captures += 1
         # the shared pool keeps what it reserved until every graph is gone
         self._core.pool_bytes += g.pool_bytes
         self.metrics.incr("engine.graph_captures")
@@ -756,6 +773,13 @@ class InferenceEngine:
         return [dict(bucket=sig, launches=g.launches,
                      pool_bytes=g.pool_bytes)
                 for sig, g in self._core.graphs.items()]
+
+    def bucket_graph(self) -> Optional[_Graph]:
+        """The graph this engine captured last, while the engine holds it
+        (None before its first capture and after :meth:`release_graphs`):
+        a bucket's compiled-program identity, as the JAX server reads its
+        bucket's jit object."""
+        return self._core.graphs.get(self._graph_sig)
 
     @property
     def graph_pool_bytes(self) -> int:
@@ -1018,3 +1042,396 @@ def get_cached_engine(holder, model_function, *, device_batch_size: int,
         cache[key] = (model_function, eng)
         return eng
     return entry[1]
+
+
+# -- the head fan-out: per-tenant heads over one backbone ------------------
+def dense_head_row(head, features):
+    """THE per-tenant head: one dense projection of ONE feature row (no
+    batch axis).  ``head`` is the per-tenant pytree ``{"kernel": (D, C),
+    "bias": (C,)}`` (numpy arrays or tensors), ``features`` a (D,) tensor;
+    returns (C,) on ``features``' device.  Module-level on purpose, as in
+    the JAX package: :class:`HeadBank`, the zoo's feature-cut bundle and
+    the oracles all name this one function object.
+
+    It is the head pass of kernel H1 (:func:`~sparkdl_tpu_torch.ops.head.
+    head_pass`) over a bank of one, so the unbatched row sums in the same
+    order as any row of a stacked mixed-tenant pass: fan-out outputs equal
+    per-tenant oracles bit for bit on the card and (through H1's plain
+    version) on the CPU.  The JAX package gets that from a
+    broadcast-multiply-reduce spelling, which PyTorch does not keep
+    batch-invariant."""
+    from sparkdl_tpu_torch.ops.head import head_pass
+
+    f = torch.as_tensor(features)
+    kernel = torch.as_tensor(head["kernel"], device=f.device)
+    bias = torch.as_tensor(head["bias"], device=f.device)
+    idx = torch.zeros(1, dtype=torch.int32, device=f.device)
+    return head_pass(f[None], idx, kernel[None], bias[None])[0]
+
+
+def head_fanout_backbone_fn(module, batch):
+    """The chip-free stand-in backbone of the head fan-out's proofs (tests
+    and :func:`~sparkdl_tpu_torch.serving.cache.head_fanout_benchmark`): a
+    dense tanh featurizer over ``module.backbone`` (D_in, D).  ``x @ W`` is
+    spelled as a broadcast multiply and a sum, so that a row's arithmetic
+    is the same wherever it sits in a batch (the CPU's GEMM picks its
+    micro-kernels by row position)."""
+    return torch.tanh((batch[..., :, None] * module.backbone).sum(-2))
+
+
+def head_fanout_oracle_fn(module, row):
+    """The INDEPENDENT per-tenant full-model oracle the fan-out's
+    bit-identity proofs compare against: one unbatched row through
+    ``module``'s fused weights (``backbone``, ``kernel``, ``bias``), the
+    program a dedicated per-tenant deployment would serve, never through
+    :func:`build_head_fanout`."""
+    feats = head_fanout_backbone_fn(module, row)
+    return dense_head_row({"kernel": module.kernel, "bias": module.bias},
+                          feats)
+
+
+def head_fanout_module(variables) -> nn.Module:
+    """The port's module of the JAX package's stand-in variables: every
+    entry of ``variables`` (``{"backbone": W}``, and for the oracle
+    ``"kernel"`` and ``"bias"`` too) a buffer of the same name and
+    values."""
+    module = nn.Module()
+    for name in sorted(variables):
+        module.register_buffer(
+            name, torch.as_tensor(np.array(variables[name], copy=True)))
+    return module
+
+
+_FANOUT_CACHE: Dict[tuple, Callable] = {}
+_FANOUT_LOCK = threading.Lock()
+
+
+def build_head_fanout(head_fn: Callable, device: DeviceLike = None
+                      ) -> Callable:
+    """THE stacked-head dispatch callable (the JAX package's
+    ``build_head_fanout_jit``): ``fanout(stacked, idx, feats)`` takes the
+    head bank (every tenant's head pytree stacked along a leading capacity
+    axis, on the device), a per-row int32 tenant-index tensor and the
+    feature rows, and returns every row through its own tenant's head, so
+    K tenants' rows cost ONE head pass.
+
+    :func:`dense_head_row` runs as kernel H1 over the bank
+    (:func:`~sparkdl_tpu_torch.ops.head.head_pass`: one launch a pass on
+    the card); any other ``head_fn`` runs as plain PyTorch over the
+    gathered heads (``torch.func.vmap``), as JAX runs a caller's head
+    through XLA.  One callable per (head_fn, device), shared by every bank
+    and server: the head-swap no-recompile proof compares its ``id``."""
+    device = resolve_device(device)
+    key = (head_fn, str(device))
+    with _FANOUT_LOCK:
+        fanout = _FANOUT_CACHE.get(key)
+        if fanout is None:
+            fanout = _make_fanout(head_fn)
+            _FANOUT_CACHE[key] = fanout
+    return fanout
+
+
+def _make_fanout(head_fn: Callable) -> Callable:
+    if head_fn is dense_head_row:
+        from sparkdl_tpu_torch.ops.head import head_pass
+
+        def fanout(stacked, idx, feats):
+            return head_pass(feats, idx, stacked["kernel"], stacked["bias"])
+    else:
+        def fanout(stacked, idx, feats):
+            rows = idx.long()
+            gathered = _tree_map(lambda leaf: leaf[rows], stacked)
+            return torch.func.vmap(head_fn)(gathered, feats)
+    return fanout
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def _host_copy(a) -> np.ndarray:
+    """A host array of its own of one head leaf (numpy or a tensor on any
+    device)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy().copy()
+    return np.array(a, copy=True)
+
+
+def _tree_nbytes(tree) -> int:
+    return int(sum(np.asarray(x).nbytes for x in _tree_leaves(tree)))
+
+
+class HeadBank:
+    """Per-tenant head weights stacked into ONE device pytree served by ONE
+    fan-out callable (:func:`build_head_fanout`), as the JAX package's.
+
+    The bank holds K tenants' head pytrees stacked along a leading
+    capacity axis (capacity = the next power of two).  A mixed-tenant
+    feature batch dispatches as gather-by-tenant-index: one head pass
+    (one H1 launch for :func:`dense_head_row`) whatever the number of
+    tenants in it.  Rows are not padded: H1 compiles nothing per shape;
+    ``headbank.rows`` counts the real rows.
+
+    Degraded mode instead of a crash: a head whose pytree structure, shapes
+    or dtypes cannot stack with the bank ("indivisible"), or a bank whose
+    stacked bytes would exceed ``hbm_budget_bytes``, flips the bank to
+    per-tenant fallback for good: every tenant's rows go through the SAME
+    fan-out callable as a bank of one, uploaded per dispatch, so the
+    callable's identity and the rows' bits survive; only the one-pass
+    batching is lost.
+
+    On the card the stacked bank lives on the device and is rebuilt on each
+    mutation; ``dispatch`` uploads the rows and the int32 tenant index,
+    runs the pass and fetches the output, all under the bank's lock, as
+    every mutation runs under it: a swap under load sees the old bank or
+    the new one, never a torn one.  The fault sites ``head.swap`` and
+    ``head.dispatch`` fire under the lock before any state changes.
+
+    H1 takes f32 heads: on CUDA a :func:`dense_head_row` head of another
+    dtype raises ``NotImplementedError`` at :meth:`add_head` (ROADMAP.md
+    queue B, H1); nothing is cast.  ``mesh=`` (weight sharding, queue A
+    item 4) raises ``NotImplementedError``; :meth:`stats` reports the
+    bank's bytes at capacity as both ``param_bytes_total`` and
+    ``param_bytes_per_chip`` (one card, all replicated)."""
+
+    def __init__(self, head_fn: Optional[Callable] = None, mesh=None,
+                 hbm_budget_bytes: Optional[int] = None,
+                 metrics: Optional[Metrics] = None,
+                 device: DeviceLike = None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "HeadBank(mesh=) needs a module the port does not have yet "
+                "(ROADMAP.md queue A, item 4, parallel/mesh.py)")
+        self.head_fn = head_fn if head_fn is not None else dense_head_row
+        self.device = resolve_device(device)
+        self.hbm_budget_bytes = (None if hbm_budget_bytes is None
+                                 else int(hbm_budget_bytes))
+        self.metrics = metrics if metrics is not None else Metrics()
+        self._lock = threading.Lock()
+        self._hosts: Dict[str, Any] = {}    # tenant -> host head pytree
+        self._index: Dict[str, int] = {}    # tenant -> row in the bank
+        self._order: list = []              # tenants in stacking order
+        self._stacked = None                # device pytree (capacity, ...)
+        self._capacity = 0
+        self._leaf_sig = None               # pinned (structure, shapes, dtypes)
+        self._fallback = False
+        self._fallback_reason: Optional[str] = None
+        self._fanout = build_head_fanout(self.head_fn, self.device)
+
+    # -- introspection ---------------------------------------------------
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._order)
+
+    @property
+    def mode(self) -> str:
+        with self._lock:
+            return "fallback" if self._fallback else "stacked"
+
+    def tenants(self) -> list:
+        with self._lock:
+            return list(self._order)
+
+    def jit_info(self) -> Dict[str, Any]:
+        """The head half of the no-recompile proof: the fan-out callable's
+        ``id`` (it must never change) and ``executables`` None (H1 compiles
+        nothing per bank shape; JAX reports its jit's executable count
+        here)."""
+        return {"jit_id": id(self._fanout), "executables": None,
+                "mode": self.mode}
+
+    def stats(self) -> Dict[str, Any]:
+        """The bank's bytes: at capacity when stacked, every tenant's head
+        in fallback (one card: total = per chip)."""
+        with self._lock:
+            if self._fallback or not self._order:
+                nbytes = _tree_nbytes(dict(self._hosts))
+            else:
+                # every head stacks alike: capacity rows of one head's bytes
+                nbytes = (_tree_nbytes(self._hosts[self._order[0]])
+                          * self._capacity)
+            return {
+                "param_bytes_total": nbytes,
+                "param_bytes_per_chip": nbytes,
+                "tenants": len(self._order),
+                "capacity": self._capacity,
+                "mode": "fallback" if self._fallback else "stacked",
+                "fallback_reason": self._fallback_reason,
+                "hbm_budget_bytes": self.hbm_budget_bytes,
+            }
+
+    # -- mutation --------------------------------------------------------
+    def add_head(self, tenant: str, weights) -> None:
+        """Register a NEW tenant's head.  Raises ``ValueError`` if the
+        tenant already has one (use :meth:`swap_head`)."""
+        self._mutate(tenant, weights, op="add")
+
+    def swap_head(self, tenant: str, weights) -> None:
+        """Hot-swap an EXISTING tenant's head.  Raises ``KeyError`` if the
+        tenant is unknown (use :meth:`add_head`)."""
+        self._mutate(tenant, weights, op="swap")
+
+    def remove_head(self, tenant: str) -> None:
+        """Evict a departed tenant: its row leaves the bank and the
+        remaining tenants re-stack (capacity may shrink)."""
+        self._mutate(tenant, None, op="remove")
+
+    def _mutate(self, tenant: str, weights, op: str) -> None:
+        tenant = str(tenant)
+        with self._lock:
+            # the fault site fires BEFORE any state changes: an injected
+            # error aborts the mutation with the bank unchanged
+            inject("head.swap")
+            if op == "remove":
+                if tenant not in self._hosts:
+                    raise KeyError(f"head bank has no tenant {tenant!r}")
+                del self._hosts[tenant]
+                self._order.remove(tenant)
+            else:
+                if op == "add" and tenant in self._hosts:
+                    raise ValueError(
+                        f"tenant {tenant!r} already has a head; "
+                        "swap_head() replaces it")
+                if op == "swap" and tenant not in self._hosts:
+                    raise KeyError(f"head bank has no tenant {tenant!r}")
+                host = _tree_map(_host_copy, weights)
+                self._refuse_dtype(host)
+                sig = self._signature(host)
+                if self._leaf_sig is None:
+                    self._leaf_sig = sig
+                elif sig != self._leaf_sig and not self._fallback:
+                    self._degrade(
+                        f"tenant {tenant!r} head does not stack with the "
+                        f"bank (pytree/shape/dtype mismatch)")
+                self._hosts[tenant] = host
+                if op == "add":
+                    self._order.append(tenant)
+            if not self._fallback:
+                cap = _next_pow2(max(1, len(self._order)))
+                over = self._budget_excess(cap)
+                if over is not None:
+                    self._degrade(
+                        f"stacked bank would hold {over} bytes per chip, "
+                        f"over hbm_budget_bytes={self.hbm_budget_bytes}")
+            self._rebuild()
+            self.metrics.incr(f"headbank.{op}")
+
+    def _refuse_dtype(self, host) -> None:
+        if self.head_fn is dense_head_row and self.device.type == "cuda":
+            bad = sorted({str(a.dtype) for a in _tree_leaves(host)
+                          if a.dtype != np.float32})
+            if bad:
+                raise NotImplementedError(
+                    f"kernel H1 takes float32 heads, not {bad} (ROADMAP.md "
+                    f"queue B, H1: other head dtypes); nothing is cast")
+
+    @staticmethod
+    def _signature(host):
+        from sparkdl_tpu_torch.utils.digest import tree_structure
+
+        leaves = _tree_leaves(host)
+        return (tree_structure(host),
+                tuple(tuple(np.shape(x)) for x in leaves),
+                tuple(str(np.asarray(x).dtype) for x in leaves))
+
+    def _degrade(self, reason: str) -> None:
+        self._fallback = True
+        self._fallback_reason = reason
+        self.metrics.incr("headbank.fallbacks")
+        logger.warning("HeadBank degrading to per-tenant dispatch: %s",
+                       reason)
+
+    def _budget_excess(self, capacity: int):
+        """The bytes the stacked bank would hold at ``capacity`` if over
+        the budget, else None."""
+        if self.hbm_budget_bytes is None or not self._order:
+            return None
+        per_chip = _tree_nbytes(self._hosts[self._order[0]]) * capacity
+        return per_chip if per_chip > self.hbm_budget_bytes else None
+
+    def _stack_hosts(self, capacity: int):
+        heads = [self._hosts[t] for t in self._order]
+        rows = heads + [heads[0]] * (capacity - len(heads))
+        return _tree_map(lambda *ls: np.stack(ls), *rows)
+
+    def _upload(self, tree):
+        return _tree_map(lambda a: torch.from_numpy(a).to(self.device),
+                         tree)
+
+    def _rebuild(self) -> None:
+        self._index = {t: i for i, t in enumerate(self._order)}
+        if not self._order:
+            self._stacked = None
+            self._capacity = 0
+            return
+        if self._fallback:
+            self._stacked = None
+            return
+        cap = _next_pow2(len(self._order))
+        self._stacked = self._upload(self._stack_hosts(cap))
+        self._capacity = cap
+
+    # -- dispatch --------------------------------------------------------
+    def _rows(self, features):
+        return torch.from_numpy(np.ascontiguousarray(features)).to(
+            self.device)
+
+    def _fetch(self, out) -> np.ndarray:
+        return _tree_map(lambda t: t.detach().cpu().numpy(), out)
+
+    def dispatch(self, features, tenants) -> np.ndarray:
+        """One head pass over a mixed-tenant feature batch.
+
+        ``features`` is ``(n, ...)`` host rows (a single row is promoted);
+        ``tenants`` names each row's head.  Returns host outputs
+        row-aligned with the input.  Raises ``KeyError`` for a tenant with
+        no registered head (a departed tenant fails loudly, never serves a
+        stale row)."""
+        features = np.asarray(features)
+        if features.ndim == 1:
+            features = features[None]
+        tenants = [str(t) for t in tenants]
+        if len(tenants) != int(features.shape[0]):
+            raise ValueError(
+                f"{features.shape[0]} feature rows but "
+                f"{len(tenants)} tenants")
+        with self._lock:
+            inject("head.dispatch")
+            missing = sorted({t for t in tenants if t not in self._hosts})
+            if missing:
+                raise KeyError(
+                    f"head bank has no head for tenant(s) {missing}")
+            self.metrics.incr("headbank.dispatches")
+            self.metrics.incr("headbank.rows", len(tenants))
+            with torch.inference_mode():
+                if self._fallback:
+                    return self._dispatch_fallback(features, tenants)
+                idx = torch.tensor([self._index[t] for t in tenants],
+                                   dtype=torch.int32, device=self.device)
+                return self._fetch(self._fanout(self._stacked, idx,
+                                                self._rows(features)))
+
+    def _dispatch_fallback(self, features, tenants) -> np.ndarray:
+        """The degraded path: each tenant's rows through the SAME fan-out
+        callable as a bank of one (same callable, same arithmetic), one
+        head pass per tenant instead of one in all."""
+        groups: Dict[str, list] = {}
+        for i, t in enumerate(tenants):
+            groups.setdefault(t, []).append(i)
+        out = None
+        for t, rows in groups.items():
+            sel = np.asarray(rows, dtype=np.int64)
+            bank1 = self._upload(_tree_map(lambda leaf: leaf[None],
+                                           self._hosts[t]))
+            idx = torch.zeros(len(rows), dtype=torch.int32,
+                              device=self.device)
+            res = self._fetch(self._fanout(bank1, idx,
+                                           self._rows(features[sel])))
+            if out is None:
+                out = np.zeros((len(tenants),) + res.shape[1:],
+                               dtype=res.dtype)
+            out[sel] = res
+        return out

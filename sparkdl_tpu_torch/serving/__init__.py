@@ -21,9 +21,13 @@ Public surface:
   :class:`ServiceUnavailableError`, :class:`ServerClosedError` (and the
   fleet's :class:`QuotaExceededError`).
 
-Not ported yet (ROADMAP.md queue A): ``HeadFanoutServer`` (the next
-serving slice) and the fleet (``Fleet``, ``ModelRegistry``,
-``ModelVersion``, ``Rollout``, ``TenantQuota``).
+* :class:`HeadFanoutServer`: one backbone ``Server`` at the feature cut,
+  a feature-cut cache namespace and a stacked bank of per-tenant heads
+  (kernel H1): a warm content digest costs a head pass only.
+
+Not ported yet (ROADMAP.md queue A item 5.2): the fleet (``Fleet``,
+``ModelRegistry``, ``ModelVersion``, ``Rollout``, ``TenantQuota``); of
+``serving.fleet`` only ``rollout.head_swap_report`` is ported.
 """
 
 from sparkdl_tpu_torch.serving.adapters import from_transformer
@@ -36,10 +40,12 @@ from sparkdl_tpu_torch.serving.errors import (DeadlineExceededError,
                                               ServerClosedError,
                                               ServiceUnavailableError,
                                               ServingError)
-from sparkdl_tpu_torch.serving.server import Server, bucket_plan
+from sparkdl_tpu_torch.serving.server import (HeadFanoutServer, Server,
+                                              bucket_plan)
 
 __all__ = [
     "Server",
+    "HeadFanoutServer",
     "bucket_plan",
     "InferenceCache",
     "from_transformer",

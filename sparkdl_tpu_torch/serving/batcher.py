@@ -58,13 +58,17 @@ class Request:
 
     ``deadline`` is absolute seconds on the batcher's clock (None = no
     deadline).  The future settles exactly once: with the model output row,
-    or with a serving error (shed / rejected / batch failure)."""
+    or with a serving error (shed / rejected / batch failure).  ``tenant``
+    is the cost-attribution identity, recorded and not read until cost
+    attribution is ported (ROADMAP.md queue A item 6); anonymous =
+    ``"default"``, as in the JAX package."""
 
-    __slots__ = ("payload", "future", "enqueued_at", "deadline")
+    __slots__ = ("payload", "future", "enqueued_at", "deadline", "tenant")
 
     def __init__(self, payload: Any, deadline: Optional[float] = None,
-                 now: Optional[float] = None):
+                 now: Optional[float] = None, tenant: str = "default"):
         self.payload = payload
+        self.tenant = tenant
         self.future: Future = Future()
         # ``now`` lets a clock-injected caller stamp queue entry on the same
         # (possibly virtual) timeline its deadlines live on

@@ -41,9 +41,12 @@ Fault sites: ``cache.hit`` inside the hit path (an injected error corrupts
 the copy handed back, which the digest re-check must catch) and
 ``cache.stampede`` on the leader's path in ``Server.submit``.
 
-Not ported yet: ``lockfile_model_fingerprint`` (it reads
-``PROGRAMS.lock.json``, whose audit is ROADMAP.md queue A's last item),
-``feature_namespace`` and ``head_fanout_benchmark`` (the head fan-out).
+The head fan-out's half: :func:`feature_namespace` (the feature-cut
+namespace, the JAX tuple), :func:`lockfile_model_fingerprint` (None for
+every model: the port has no program lockfile until ROADMAP.md queue A
+item 8, so namespaces pin ``"unpinned"`` and rotate with the backbone's
+weight digest) and :func:`head_fanout_benchmark`.
+
 Given the same sequence of lookups, settles and evictions, the counters
 (``cache.hits``, ``cache.misses``, ``cache.coalesced``,
 ``cache.evictions``, ...) are the JAX package's.
@@ -71,6 +74,7 @@ logger = get_logger(__name__)
 __all__ = [
     "InferenceCache",
     "CacheFlight",
+    "lockfile_model_fingerprint",
     "get_default",
     "configure",
     "configure_from_env",
@@ -392,6 +396,38 @@ class InferenceCache:
                 return
 
 
+# -- swap-survival fingerprints --------------------------------------------
+def lockfile_model_fingerprint(model: str,
+                               path: Optional[str] = None
+                               ) -> Optional[str]:
+    """The committed program identity of ``model``'s serving programs, the
+    JAX package's sha256 over its ``PROGRAMS.lock.json`` records.  The port
+    has no program lockfile yet (its audit is ROADMAP.md queue A item 8),
+    so every model reads None: with no fingerprint there is no proof of
+    "same computation", and the head fan-out's namespace pins
+    ``"unpinned"`` (it still rotates with the backbone's weight digest).
+    ``model`` and ``path`` are taken for the JAX call form."""
+    del model, path
+    return None
+
+
+def feature_namespace(model_desc: str,
+                      fingerprint: Optional[str],
+                      weights_digest: str) -> Tuple[str, str, str, str]:
+    """The FEATURE-CUT cache namespace of the head fan-out: ``("features",
+    model_desc, backbone_program_fingerprint, backbone_weights_digest)``,
+    the JAX package's tuple.
+
+    Keyed on the backbone's identity and nothing about the heads: a head
+    add, swap or evict changes neither part, so feature entries stay warm
+    across head churn; a backbone weight change rotates
+    ``weights_digest``, so stale features can never serve.
+    ``fingerprint=None`` pins ``"unpinned"``."""
+    return ("features", str(model_desc),
+            fingerprint if fingerprint else "unpinned",
+            str(weights_digest))
+
+
 # -- module default (the faults.inject pattern) -----------------------------
 _UNSET = object()   # before the first ask consults SPARKDL_CACHE
 _default: Any = _UNSET
@@ -606,4 +642,161 @@ def zipfian_cache_benchmark(n_requests: int = 160,
         "bit_identical": bit_identical,
         "cache_entries": cache_entries,
         "cache_bytes": cache_bytes,
+    }
+
+
+def head_fanout_benchmark(n_requests: int = 160,
+                          universe: int = 16,
+                          tenants: int = 64,
+                          zipf_s: float = 1.1,
+                          dispatch_ms: float = 10.0,
+                          seed: int = 0,
+                          max_batch_size: int = 8,
+                          device=None) -> Dict[str, Any]:
+    """Deterministic proof of the shared-backbone fan-out, the JAX
+    package's replay on the port: a seeded Zipf-content,
+    ``tenants``-tenant replay served through a
+    :class:`~sparkdl_tpu_torch.serving.server.HeadFanoutServer` over the
+    stand-in backbone (:func:`~sparkdl_tpu_torch.parallel.engine.
+    head_fanout_backbone_fn`) whose bucket engines sleep ``dispatch_ms`` a
+    dispatch (the synthetic slow device, so the result is stable on any
+    host), on the entry points' default device unless ``device`` is given:
+
+    * FULL-MODEL BASELINE: the replay through an UNCACHED fan-out server,
+      every request paying the backbone;
+    * COLD PASS (feature cache on, empty): the replay is sequential, so
+      backbone dispatches MUST equal the distinct content digests;
+    * WARM PASS: the replay again, with ZERO further backbone dispatches.
+
+    Every output row of the three passes must equal an INDEPENDENT
+    per-tenant full-model oracle (``head_fanout_oracle_fn``, one unbatched
+    row at a time) bit for bit (``bit_identical``).  The seeded draws are
+    the JAX package's, so the deterministic keys (``distinct``,
+    ``backbone_dispatches``, ``baseline_dispatches``, ``feature_hits``,
+    ``bank_*``) equal its."""
+    import time as _time
+
+    import torch
+
+    from sparkdl_tpu_torch import resolve_device
+    from sparkdl_tpu_torch.parallel.engine import (head_fanout_backbone_fn,
+                                                   head_fanout_module,
+                                                   head_fanout_oracle_fn)
+    from sparkdl_tpu_torch.serving.server import HeadFanoutServer
+
+    device = resolve_device(device)
+    d_in, d_feat, classes = 12, 16, 4
+    rng = np.random.default_rng(seed)
+    variables = {"backbone": rng.normal(
+        size=(d_in, d_feat)).astype(np.float32)}
+    heads = {f"t{i:03d}": {
+        "kernel": rng.normal(size=(d_feat, classes)).astype(np.float32),
+        "bias": rng.normal(size=(classes,)).astype(np.float32),
+    } for i in range(tenants)}
+    payloads = [rng.normal(size=(d_in,)).astype(np.float32)
+                for _ in range(universe)]
+    ranks = np.arange(1, universe + 1, dtype=np.float64)
+    probs = ranks ** -float(zipf_s)
+    probs /= probs.sum()
+    seq = [(int(c), f"t{int(t):03d}") for c, t in zip(
+        rng.choice(universe, size=n_requests, p=probs),
+        rng.integers(0, tenants, size=n_requests))]
+    distinct = len({c for c, _ in seq})
+    module = head_fanout_module(variables)
+
+    def oracle_row(content: int, tenant: str) -> np.ndarray:
+        fused = head_fanout_module({**variables, **heads[tenant]}).to(device)
+        with torch.inference_mode():
+            row = torch.from_numpy(payloads[content]).to(device)
+            return head_fanout_oracle_fn(fused, row).cpu().numpy()
+
+    def build(cache):
+        srv = HeadFanoutServer(
+            head_fanout_backbone_fn, module, model_desc="headfanout",
+            cache=cache, max_batch_size=max_batch_size, max_wait_ms=0.5,
+            max_queue=n_requests + 16, device=device)
+        for t, h in heads.items():
+            srv.add_head(t, h)
+        srv.warmup(payloads[0])  # capture BEFORE the sleep wrap below
+        srv.warm_head(np.zeros(d_feat, np.float32))
+        calls = [0]
+        for b in srv.bucket_sizes:
+            eng = srv.backbone._engine_for(b)
+            real = eng.run_padded
+
+            def slow(batch, _real=real):  # the synthetic slow device
+                calls[0] += 1
+                _time.sleep(dispatch_ms / 1e3)
+                return _real(batch)
+
+            eng.run_padded = slow
+        return srv, calls
+
+    def replay(srv):
+        lat, out = [], []
+        for content, tenant in seq:
+            t0 = _time.perf_counter()
+            y = srv.predict(payloads[content], tenant)
+            lat.append(_time.perf_counter() - t0)
+            out.append(np.asarray(y))
+        return lat, out
+
+    def pcts(lat):
+        return (round(float(np.percentile(lat, 50)) * 1e3, 3),
+                round(float(np.percentile(lat, 99)) * 1e3, 3))
+
+    # full-model baseline: no feature cache, every request pays the
+    # backbone
+    srv, calls = build(cache=False)
+    base_lat, base_out = replay(srv)
+    baseline_dispatches = calls[0]
+    srv.close()
+
+    cache = InferenceCache()
+    srv, calls = build(cache=cache)
+    _, cold_out = replay(srv)
+    cold_dispatches = calls[0]
+    # sequential replay + single flight: a content digest pays the
+    # backbone exactly once
+    if cold_dispatches != distinct:
+        raise AssertionError(
+            f"backbone dispatched {cold_dispatches} times for "
+            f"{distinct} distinct content digests")
+    warm_lat, warm_out = replay(srv)
+    if calls[0] != cold_dispatches:
+        raise AssertionError(
+            f"warm replay re-dispatched the backbone "
+            f"({calls[0] - cold_dispatches} extra)")
+    snap = srv.metrics.snapshot_raw()["counters"]
+    feature_hits = int(snap.get("headfanout.feature_hits", 0))
+    bank = srv.head_stats()
+    srv.close()
+
+    oracle = {key: oracle_row(*key) for key in set(seq)}
+    bit_identical = all(
+        np.array_equal(y, oracle[key])
+        for outs in (base_out, cold_out, warm_out)
+        for key, y in zip(seq, outs))
+    base_p50, base_p99 = pcts(base_lat)
+    warm_p50, warm_p99 = pcts(warm_lat)
+    return {
+        "n_requests": n_requests,
+        "universe": universe,
+        "tenants": tenants,
+        "zipf_s": zipf_s,
+        "distinct": distinct,
+        "dispatch_ms": dispatch_ms,
+        "backbone_dispatches": cold_dispatches,
+        "baseline_dispatches": baseline_dispatches,
+        "dispatch_ratio": round(cold_dispatches / distinct, 4),
+        "baseline_p50_ms": base_p50,
+        "baseline_p99_ms": base_p99,
+        "warm_p50_ms": warm_p50,
+        "warm_p99_ms": warm_p99,
+        "p50_reduction": round(1.0 - warm_p50 / base_p50, 4),
+        "feature_hits": feature_hits,
+        "bank_param_bytes_per_chip": bank.get("param_bytes_per_chip"),
+        "bank_capacity": bank.get("capacity"),
+        "bank_mode": bank.get("mode"),
+        "bit_identical": bit_identical,
     }

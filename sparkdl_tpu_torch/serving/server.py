@@ -37,8 +37,10 @@ queue A item): ``slos`` and ``cost`` (observability), a ``mesh``,
 ``partition_rules``, ``param_shardings`` and ``donate_batch=True`` (the
 mesh, with the rest of training).  ``varz()`` keeps the JAX package's
 keys; its ``cost``, ``sharding`` and ``exemplars`` sections read None.
-The head fan-out server (``HeadFanoutServer``) comes with the next
-serving slice.
+
+:class:`HeadFanoutServer` serves many tenants' heads over one backbone
+``Server`` at the feature cut: a warm content digest costs a head pass
+only.
 """
 
 from __future__ import annotations
@@ -197,9 +199,10 @@ def _settle_error(requests: Sequence[Request], exc: BaseException) -> None:
                 pass
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
+def _not_ported(what: str, item: str,
+                who: str = "Server") -> NotImplementedError:
     return NotImplementedError(
-        f"Server({what}) needs a module the port does not have yet "
+        f"{who}({what}) needs a module the port does not have yet "
         f"(ROADMAP.md queue A, {item})")
 
 
@@ -452,8 +455,13 @@ class Server:
 
     # -- request path ------------------------------------------------------
     def submit(self, example: Any,
-               timeout_ms: Optional[float] = None) -> Future:
+               timeout_ms: Optional[float] = None,
+               tenant: Optional[str] = None) -> Future:
         """Admit one example; returns its ``concurrent.futures.Future``.
+
+        ``tenant`` is the JAX package's cost-attribution identity: it is
+        recorded on the request (``Request.tenant``) and changes nothing
+        else until cost attribution (ROADMAP.md queue A item 6) is ported.
 
         Raises ``ServerClosedError`` after close, ``QueueFullError`` (with
         ``retry_after_s``) under backpressure, and
@@ -470,11 +478,11 @@ class Server:
         if self._closed:
             raise ServerClosedError("server is closed")
         if self._cache is not None:
-            return self._submit_cached(example, timeout_ms)
-        return self._submit_dispatch(example, timeout_ms)
+            return self._submit_cached(example, timeout_ms, tenant)
+        return self._submit_dispatch(example, timeout_ms, tenant=tenant)
 
-    def _submit_cached(self, example: Any,
-                       timeout_ms: Optional[float]) -> Future:
+    def _submit_cached(self, example: Any, timeout_ms: Optional[float],
+                       tenant: Optional[str] = None) -> Future:
         """The cache-fronted request path; see :meth:`submit`."""
         t0 = self._clock()
         if self._host_preprocess is not None:
@@ -524,7 +532,7 @@ class Server:
             # must see (and caches nothing)
             inject("cache.stampede")
             fut = self._submit_dispatch(example, timeout_ms,
-                                        preprocessed=True)
+                                        preprocessed=True, tenant=tenant)
         except BaseException as e:  # noqa: BLE001 — settled to followers, re-raised
             self._cache.fail(flight, e)
             raise
@@ -554,7 +562,8 @@ class Server:
 
     def _submit_dispatch(self, example: Any,
                          timeout_ms: Optional[float],
-                         preprocessed: bool = False) -> Future:
+                         preprocessed: bool = False,
+                         tenant: Optional[str] = None) -> Future:
         """The direct dispatch path (the whole request path without a
         cache; the single-flight leader's path with one)."""
         retry_after = self._breaker_retry_after()
@@ -574,7 +583,8 @@ class Server:
                      else max(0.0, timeout_ms) / 1e3)
         now_m = self._clock()
         deadline = None if timeout_s is None else now_m + timeout_s
-        req = Request(example, deadline, now=now_m)
+        req = Request(example, deadline, now=now_m,
+                      tenant=tenant if tenant is not None else "default")
         self.metrics.incr("serving.requests")
         self._batcher.submit(req)
         return req.future
@@ -777,6 +787,27 @@ class Server:
         """The key prefix this server's entries live under."""
         return self._cache_ns
 
+    def executable_state(self) -> Dict[int, Dict[str, Any]]:
+        """Per-bucket compiled-program identity, the port's form of the
+        JAX server's: ``jit_id`` is the ``id`` of the bucket's captured
+        graph (``InferenceEngine.bucket_graph``; None before its capture)
+        and ``executables`` the bucket's count of captures.  A head
+        mutation, or anything else that truly reuses the captured forward,
+        leaves both unchanged (``serving.fleet.rollout.head_swap_report``).
+        An engine that captures nothing (the CPU, ``capture=False``)
+        reports the ``id`` of the bucket engine and 0."""
+        with self._engine_lock:
+            engines = dict(self._engines)
+        out: Dict[int, Dict[str, Any]] = {}
+        for b, eng in sorted(engines.items()):
+            if not eng.capture:
+                out[b] = {"jit_id": id(eng), "executables": 0}
+                continue
+            g = eng.bucket_graph()
+            out[b] = {"jit_id": None if g is None else id(g),
+                      "executables": eng.captures}
+        return out
+
     def stats(self) -> Dict[str, float]:
         """Snapshot of the serving metrics (counters, gauges, latency
         p50/p99; see ``utils.metrics.Metrics.summary``), plus any
@@ -882,6 +913,356 @@ class Server:
                 self._cache.invalidate(self._cache_ns)
 
     def __enter__(self) -> "Server":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close(drain=exc_type is None)
+
+
+class HeadFanoutServer:
+    """Featurize ONCE, serve many per-tenant heads (port of the JAX
+    package's ``HeadFanoutServer``).
+
+    One backbone :class:`Server` at the FEATURE cut, fronted by the
+    feature-cut cache namespace (``serving.cache.feature_namespace``, keyed
+    on the backbone's program fingerprint and weight digest, so a hot
+    content digest pays the backbone once and head churn keeps entries
+    warm), fanned out through a
+    :class:`~sparkdl_tpu_torch.parallel.engine.HeadBank` whose one fan-out
+    callable serves every tenant's head by gather-by-tenant-index (kernel
+    H1 for the zoo's dense head).  A request on a warm digest costs no
+    backbone dispatch and no backbone queue slot, only a head pass.
+
+    ``model`` takes the port's forms, as :class:`Server` does (a zoo model
+    name, a ``ModelFunction``, or ``fn(module, batch)`` with its
+    ``module``); a zoo name serves its featurizer cut with
+    :func:`~sparkdl_tpu_torch.parallel.engine.dense_head_row` heads.
+    ``device`` is resolved once, here, for the backbone and the bank.
+    Other keyword arguments go to the backbone :class:`Server`.
+
+    :meth:`add_head` / :meth:`swap_head` / :meth:`remove_head` return a
+    ``serving.fleet.rollout.head_swap_report``: the backbone buckets'
+    captured graphs and capture counts (:meth:`Server.executable_state`)
+    and the bank's fan-out callable are unchanged.  The bank mutates
+    atomically under its lock, so in-flight requests settle with the old
+    head's row or the new one.
+
+    Differences from the JAX package: the weight digest is the port's own
+    digest of the backbone module's state
+    (``utils.digest.module_digest``), so the namespaces differ between the
+    packages; the port has no program lockfile, so the fingerprint is None
+    and the namespace pins ``"unpinned"``; no flight events
+    (``head.swap``, ``cache.feature_hit``) are emitted and ``cost=`` raises
+    (both ROADMAP.md queue A item 6); ``mesh=`` raises (item 4)."""
+
+    def __init__(self, model, module: Optional[nn.Module] = None, *,
+                 head_fn: Optional[Callable] = None,
+                 mesh=None,
+                 hbm_budget_bytes: Optional[int] = None,
+                 cache: Any = None,
+                 cost: Any = None,
+                 metrics: Optional[Metrics] = None,
+                 model_desc: Optional[str] = None,
+                 device: DeviceLike = None,
+                 **server_kwargs):
+        from sparkdl_tpu_torch.parallel.engine import HeadBank
+        from sparkdl_tpu_torch.serving.cache import (
+            feature_namespace, lockfile_model_fingerprint)
+        from sparkdl_tpu_torch.utils.digest import module_digest
+
+        if mesh is not None:
+            raise _not_ported("mesh=", "item 4, parallel/mesh.py",
+                              "HeadFanoutServer")
+        if cost not in (None, False):
+            raise _not_ported("cost=", "item 6, observability",
+                              "HeadFanoutServer")
+        self._device = resolve_device(device)
+        if isinstance(model, str):
+            if module is not None:
+                raise ValueError("module must be None when serving a named "
+                                 "zoo model")
+            from sparkdl_tpu_torch.transformers.named_image import \
+                zoo_serving_bundle
+
+            fn, module, overrides, zoo_head = zoo_serving_bundle(
+                model, featurize=True, feature_cut=True)
+            if head_fn is None:
+                head_fn = zoo_head
+            desc = model
+        else:
+            fn, module, overrides = _resolve_model(model, module,
+                                                   featurize=True)
+            desc = getattr(model, "__name__", type(model).__name__)
+        self.model_desc = model_desc if model_desc is not None else desc
+        self.metrics = metrics if metrics is not None else Metrics()
+        # the backbone's identity, pinned once: its program fingerprint
+        # (None in the port) and its weight digest key the feature-cut
+        # namespace; head churn touches neither
+        self._fingerprint = lockfile_model_fingerprint(self.model_desc)
+        self._weights_digest = module_digest(module)
+        self._feature_ns = feature_namespace(
+            self.model_desc, self._fingerprint, self._weights_digest)
+        # zoo engine overrides ride along (caller kwargs win, and the dtype
+        # pair travels together)
+        dtype_keys = ("compute_dtype", "output_host_dtype")
+        caller_set_dtype = any(k in server_kwargs for k in dtype_keys)
+        for k, v in overrides.items():
+            if k in dtype_keys and caller_set_dtype:
+                continue
+            server_kwargs.setdefault(k, v)
+        resolved_cache, _, _ = resolve_cache(cache, self._feature_ns,
+                                             "headfanout")
+        self._backbone = Server(fn, module, device=self._device,
+                                cache=(resolved_cache if resolved_cache
+                                       is not None else False),
+                                cache_namespace=self._feature_ns,
+                                metrics=self.metrics, **server_kwargs)
+        self._bank = HeadBank(head_fn=head_fn,
+                              hbm_budget_bytes=hbm_budget_bytes,
+                              metrics=self.metrics, device=self._device)
+        self.last_head_swap_report: Optional[Dict[str, Any]] = None
+        self._swap_lock = threading.Lock()
+
+    # -- head management (the no-backbone-recompile surface) --------------
+    @property
+    def bank(self):
+        """The :class:`HeadBank` serving this tier's head pass."""
+        return self._bank
+
+    @property
+    def backbone(self) -> Server:
+        """The feature-cut backbone server."""
+        return self._backbone
+
+    @property
+    def feature_namespace(self) -> tuple:
+        """The feature-cut cache namespace (backbone identity only)."""
+        return self._feature_ns
+
+    @property
+    def device(self):
+        """The device the backbone and the bank run on."""
+        return self._device
+
+    def tenants(self) -> List[str]:
+        return self._bank.tenants()
+
+    def _head_mutation(self, op: str, tenant: str, weights) -> Dict[str, Any]:
+        from sparkdl_tpu_torch.serving.cache import lockfile_model_fingerprint
+        from sparkdl_tpu_torch.serving.fleet.rollout import head_swap_report
+
+        with self._swap_lock:
+            exec_before = self._backbone.executable_state()
+            bank_before = self._bank.jit_info()
+            fp_before = self._fingerprint
+            if op == "add":
+                self._bank.add_head(tenant, weights)
+            elif op == "swap":
+                self._bank.swap_head(tenant, weights)
+            else:
+                self._bank.remove_head(tenant)
+            report = head_swap_report(
+                self.model_desc, tenant, op,
+                exec_before, self._backbone.executable_state(),
+                bank_before, self._bank.jit_info(),
+                fp_before, lockfile_model_fingerprint(self.model_desc))
+            self.last_head_swap_report = report
+            return report
+
+    def add_head(self, tenant: str, weights) -> Dict[str, Any]:
+        """Register a new tenant's head; returns the no-backbone-recompile
+        report (``head_swap_report``)."""
+        return self._head_mutation("add", tenant, weights)
+
+    def swap_head(self, tenant: str, weights) -> Dict[str, Any]:
+        """Hot-swap an existing tenant's head under load; returns the
+        report."""
+        return self._head_mutation("swap", tenant, weights)
+
+    def remove_head(self, tenant: str) -> Dict[str, Any]:
+        """Evict a departed tenant's head; returns the report."""
+        return self._head_mutation("remove", tenant, None)
+
+    # -- request path ------------------------------------------------------
+    def _feature_probe(self, example: Any):
+        """The digest-keyed feature row from the feature-cut cache, or
+        None: ``host_preprocess``, then ``content_digest``, then
+        ``InferenceCache.get``, which has no side effect on a miss (miss
+        accounting stays with the backbone's single-flight lookup)."""
+        cache = self._backbone.cache
+        if cache is None:
+            return None
+        probe = example
+        if self._backbone._host_preprocess is not None:
+            probe = self._backbone._host_preprocess(probe)
+        probe = _tree_map(np.asarray, probe)
+        return cache.get(self._feature_ns + (content_digest(probe),))
+
+    def _head_row(self, feats, tenant: str):
+        return self._bank.dispatch(np.asarray(feats)[None], [tenant])[0]
+
+    def submit(self, example: Any, tenant: str,
+               timeout_ms: Optional[float] = None) -> Future:
+        """Admit one (example, tenant) request; returns a Future of the
+        tenant's head output row.
+
+        A warm content digest short-circuits BEFORE the backbone server:
+        no backbone queue slot, no dispatch, a head pass only.  A cold one
+        rides the backbone's cached submit path (single-flight leaders:
+        N concurrent identical payloads cost ONE backbone dispatch), and
+        the head pass runs when the features settle."""
+        tenant = str(tenant)
+        self.metrics.incr("headfanout.requests")
+        feats_value = self._feature_probe(example)
+        if feats_value is not None:
+            self.metrics.incr("headfanout.feature_hits")
+            out: Future = Future()
+            try:
+                row = self._head_row(feats_value, tenant)
+            except BaseException as e:  # noqa: BLE001 — the future's result
+                out.set_exception(e)
+            else:
+                out.set_result(row)
+            return out
+        feats_fut = self._backbone.submit(example, timeout_ms=timeout_ms,
+                                          tenant=tenant)
+        out = Future()
+
+        def _features_done(f: Future) -> None:
+            try:
+                row = self._head_row(f.result(), tenant)
+            except BaseException as e:  # noqa: BLE001 — relayed to the caller
+                if not out.done():
+                    out.set_exception(e)
+            else:
+                if not out.done():
+                    out.set_result(row)
+
+        feats_fut.add_done_callback(_features_done)
+        return out
+
+    def predict(self, example: Any, tenant: str,
+                timeout_ms: Optional[float] = None):
+        """Blocking single-request form of :meth:`submit`."""
+        return self.submit(example, tenant, timeout_ms=timeout_ms).result()
+
+    def predict_batch(self, examples: Sequence[Any],
+                      tenants: Sequence[str],
+                      timeout_ms: Optional[float] = None) -> List[Any]:
+        """K tenants' rows, ONE head pass: every row's features (warm
+        digests from the cache, cold ones through the backbone, which
+        batches and coalesces them), stacked and dispatched as one
+        mixed-tenant batch through the bank."""
+        tenants = [str(t) for t in tenants]
+        if len(tenants) != len(examples):
+            raise ValueError(f"{len(examples)} examples but "
+                             f"{len(tenants)} tenants")
+        self.metrics.incr("headfanout.requests", len(tenants))
+        rows: List[Any] = [None] * len(tenants)
+        pending: List[tuple] = []
+        for i, ex in enumerate(examples):
+            feats = self._feature_probe(ex)
+            if feats is not None:
+                self.metrics.incr("headfanout.feature_hits")
+                rows[i] = np.asarray(feats)
+            else:
+                pending.append(
+                    (i, self._backbone.submit(ex, timeout_ms=timeout_ms,
+                                              tenant=tenants[i])))
+        for i, fut in pending:
+            rows[i] = np.asarray(fut.result())
+        out = self._bank.dispatch(np.stack(rows), tenants)
+        self.metrics.incr("headfanout.head_passes")
+        return [out[i] for i in range(len(tenants))]
+
+    # -- proof / observability surfaces -----------------------------------
+    def executable_state(self) -> Dict[int, Dict[str, Any]]:
+        """The BACKBONE's per-bucket captured-graph identity (the half the
+        no-recompile proof pins; the head side is :meth:`head_state`)."""
+        return self._backbone.executable_state()
+
+    def head_state(self) -> Dict[str, Any]:
+        """The head bank's fan-out identity (``HeadBank.jit_info``)."""
+        return self._bank.jit_info()
+
+    def head_stats(self) -> Dict[str, Any]:
+        """The bank's bytes, capacity and mode (``HeadBank.stats``)."""
+        return self._bank.stats()
+
+    def warmup(self, example: Any) -> None:
+        """Capture the backbone's bucket graphs (no cache writes)."""
+        self._backbone.warmup(example)
+
+    def warm_head(self, features_row) -> None:
+        """One head pass of a zeroed feature row for the first tenant, so
+        that a measurement never charges the head's first call (the
+        kernel library's load on the card)."""
+        ts = self._bank.tenants()
+        if not ts:
+            return
+        row = np.zeros_like(np.asarray(features_row))
+        self._bank.dispatch(row[None], [ts[0]])
+
+    def health(self) -> Dict[str, Any]:
+        return self._backbone.health()
+
+    def queue_depth(self) -> int:
+        return self._backbone.queue_depth()
+
+    @property
+    def cache(self):
+        return self._backbone.cache
+
+    @property
+    def bucket_sizes(self) -> List[int]:
+        return self._backbone.bucket_sizes
+
+    @property
+    def graph_pool_bytes(self) -> int:
+        """The backbone buckets' graph pool bytes (0 after :meth:`close`)."""
+        return self._backbone.graph_pool_bytes
+
+    def stats(self) -> Dict[str, float]:
+        summary = self.metrics.summary()
+        return {k: v for k, v in summary.items()
+                if k.startswith(("serving.", "engine_", "pipeline.",
+                                 "headfanout.", "headbank."))}
+
+    def varz(self) -> Dict[str, Any]:
+        """The backbone's ``/varz`` body plus the fan-out's ``headfanout``
+        section (bank stats, fan-out identity, namespace, feature-hit
+        counters, the last swap report), with the fan-out's counters also
+        in the cache section as ``cache.feature_hits`` /
+        ``cache.feature_requests`` (the JAX package's schema)."""
+        doc = self._backbone.varz()
+        snap = doc.get("metrics", {}).get("counters", {})
+        doc["headfanout"] = {
+            "tenants": len(self._bank),
+            "bank": self._bank.stats(),
+            "head_state": self._bank.jit_info(),
+            "feature_namespace": list(self._feature_ns),
+            "requests": snap.get("headfanout.requests", 0),
+            "feature_hits": snap.get("headfanout.feature_hits", 0),
+            "head_passes": snap.get("headfanout.head_passes", 0),
+            "last_head_swap_report": self.last_head_swap_report,
+        }
+        if doc.get("cache") is not None:
+            counters = doc["cache"].setdefault("counters", {})
+            counters["cache.feature_hits"] = snap.get(
+                "headfanout.feature_hits", 0)
+            counters["cache.feature_requests"] = snap.get(
+                "headfanout.requests", 0)
+        return doc
+
+    def close(self, drain: bool = True,
+              timeout_s: Optional[float] = 30.0) -> None:
+        """Close the backbone server (its graph pool goes back to the
+        card).  Feature entries stay: the namespace is the backbone's
+        identity, not this object's, so a later server over the same
+        backbone serves them warm."""
+        self._backbone.close(drain=drain, timeout_s=timeout_s)
+
+    def __enter__(self) -> "HeadFanoutServer":
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:

@@ -118,7 +118,8 @@ def zoo_model_fn(name: str, featurize: bool,
     return fn
 
 
-def zoo_serving_bundle(name: str, featurize: bool):
+def zoo_serving_bundle(name: str, featurize: bool,
+                       feature_cut: bool = False):
     """``(fn, module, engine_overrides)`` for serving zoo model ``name``
     (the JAX package's ``zoo_serving_bundle``, whose ``variables`` are the
     port's module): the module from the process cache, the fn through
@@ -126,14 +127,30 @@ def zoo_serving_bundle(name: str, featurize: bool):
     overrides (bf16 compute, outputs widened to f32 on the host).
     :func:`_zoo_engine` builds the transformers' engines from it and
     ``serving.server._resolve_model`` resolves a zoo name through it, so
-    that served rows are transformed rows."""
+    that served rows are transformed rows.
+
+    ``feature_cut=True`` (the head fan-out) returns the split bundle
+    ``(backbone_fn, module, engine_overrides, head_fn)``: the featurizer
+    cut as the backbone and the canonical per-row head
+    (``parallel.engine.dense_head_row``) that a
+    :class:`~sparkdl_tpu_torch.parallel.engine.HeadBank` serves; it
+    requires ``featurize=True``."""
     overrides: Dict[str, object] = {}
     cdt = None
     if zoo_compute_dtype_name() == "bfloat16":
         cdt = torch.bfloat16
         overrides.update({"compute_dtype": cdt,
                           "output_host_dtype": np.float32})
+    if feature_cut and not featurize:
+        raise ValueError(
+            "feature_cut=True requires featurize=True: the split's "
+            "backbone program IS the featurizer cut (the head fan-out "
+            "tier has no predictor-cut backbone)")
     fn = zoo_model_fn(name, featurize, compute_dtype=cdt)
+    if feature_cut:
+        from sparkdl_tpu_torch.parallel.engine import dense_head_row
+
+        return fn, _cached_model(name), overrides, dense_head_row
     return fn, _cached_model(name), overrides
 
 

@@ -80,3 +80,17 @@ def content_digest(payload: Any) -> str:
     for leaf in _tree_leaves(payload):
         h.update(array_digest(leaf).encode())
     return h.hexdigest()
+
+
+def module_digest(module: torch.nn.Module) -> str:
+    """Digest of a module's weights: :func:`content_digest` over its
+    ``state_dict`` (every parameter and buffer by name, on the host; a
+    bf16 tensor, which numpy cannot hold, by its 16-bit patterns).  The
+    port's own digest of a backbone's weights: the JAX package digests a
+    flax variables tree, so the two differ for the same numbers."""
+    def host(t: torch.Tensor) -> torch.Tensor:
+        t = t.detach().cpu()
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    return content_digest({k: host(v)
+                           for k, v in module.state_dict().items()})

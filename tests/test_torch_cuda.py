@@ -338,3 +338,23 @@ def test_buckets_share_one_pool_and_release(cuda):
     assert eng.graphs() == [] and eng.graph_pool_bytes == 0
     np.testing.assert_array_equal(eng(x, pipeline=False), graphed)
     assert len(eng.graphs()) == 2
+
+
+@pytest.mark.parametrize("n,c", [(1, 100), (7, 129), (32, 1000)])
+def test_head_kernel_equals_plain_bit_for_bit(cuda, n, c):
+    """Kernel H1 (the head fan-out's head pass) equals its plain version
+    on the same tensors bit for bit, and counts one launch."""
+    from sparkdl_tpu_torch.ops.head import head_pass, head_pass_reference
+
+    rng = np.random.default_rng(7)
+    feats = torch.from_numpy(rng.normal(size=(n, 2048)).astype(
+        np.float32)).to(cuda)
+    kernel = torch.from_numpy((rng.normal(size=(64, 2048, c))
+                               / np.sqrt(2048)).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.normal(size=(64, c)).astype(
+        np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, 64, n).astype(np.int32)).to(cuda)
+    before = head_pass.launches
+    out = head_pass(feats, idx, kernel, bias)
+    assert head_pass.launches == before + 1
+    assert torch.equal(out, head_pass_reference(feats, idx, kernel, bias))
