@@ -130,7 +130,26 @@ points, with seeded random weights and batch 32:
     unchanged); the indivisible and over-budget fallbacks bit-identical
     too; 8 images through a CPU ``HeadFanoutServer`` within 5e-3; every
     pool 0 after ``close()``.  Each served run is a counted window: B1 30
-    per backbone forward, H1 one per head pass.
+    per backbone forward, H1 one per head pass;
+  * [obs] (last, after [headfanout]), observability
+    (``sparkdl_tpu_torch.obs``) around the served Xception and the head
+    fan-out: loops of 1,000 requests from 1 and 8 clients (10 tenants in
+    turn) on a server with tracing, the flight recorder, ``slos=`` and
+    ``cost=CostLedger(max_tenants=8, window=6)`` all on and on one with
+    all of them off, twice each (off, on, on, off): req/s, p50, p99 and
+    the overhead; rows on == rows off bit for bit; every request's span
+    chain request -> micro-batch -> ``engine.call`` (``device_ms`` from
+    CUDA events) -> ``engine.dispatch``; the ledger's conservation and
+    ``__overflow__``; ``varz()`` through ``json.dumps``; a
+    ``serving.model`` sleep breaching the p99 objective (health degraded
+    naming it, ``slo.breach``) and recovering; a pinned cost baseline and
+    an ``engine.dispatch`` sleep opening and closing ``cost.regression``;
+    a ``SPARKDL_TRACE=<dir>`` subprocess and a ``SPARKDL_BLACKBOX=<dir>``
+    one sent SIGTERM while serving, their artifacts read back; a
+    ``HeadFanoutServer`` with ``cost=`` (``head.swap``,
+    ``cache.feature_hit``, a cost line per tenant); us a call of each
+    instrumentation site disabled and enabled.  B1 and H1 counted in every
+    window.
 
 B1 is also held against its plain version at ragged shapes (a pixel count
 that is not a multiple of 64, F = 200, all four ReLU variants), and each of
@@ -193,11 +212,13 @@ one of [native]'s (the route and why, decode ms a batch), one of
 [tfgraph]'s (import seconds, forward ms, kernel nodes, pool, relative
 errors), one of [serving]'s (dispatches, relative errors, the closed
 loops' numbers, pools, launches), one of [headfanout]'s (the replay's
-passes, the hot swap, card vs CPU, pools, launches), one ``{"pools":
+passes, the hot swap, card vs CPU, pools, launches), one of [obs]'s
+(the loops, the overhead, device ms, the ledger, the faults, the
+subprocesses, the fan-out, us a site call, launches), one ``{"pools":
 ...}`` line (the graph pools held after every phase, by phase; later
 phases add keys to it), one JSON line with every kernel's numbers (with
-its launches in [serving] and [headfanout]; H1's ``launches`` are its
-[headfanout] launches), and last the line
+its launches in [serving], [headfanout] and [obs]; H1's ``launches`` are
+its [headfanout] launches), and last the line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -4235,6 +4256,603 @@ def phase_headfanout(sepconv):
     return out
 
 
+
+# [obs]: observability around the served Xception (B1) and the fan-out (H1)
+OBS_N = 96                      # seeded images the loops serve
+OBS_LOOP_N = 1000               # requests a loop
+OBS_CLIENTS = (1, 8)            # closed-loop clients of the two loops
+OBS_TENANTS = 10                # tenants in turn: two past the ledger's 8
+OBS_LEDGER = dict(max_tenants=8, window=6)
+OBS_POLL_S = 1.0                # a monitor's health() poll during a loop
+OBS_P99_MS = 100.0              # the latency objective the fault breaches
+OBS_FAULT_MS = 150              # the injected serving.model sleep
+OBS_SLOW_N = 4                  # requests served under it
+OBS_RECOVER_MAX = 4000          # fast requests at most until it recovers
+OBS_COST_FAULT_MS = 60          # an engine.dispatch sleep (metered time)
+OBS_COST_N = 8                  # requests before, under and after it
+OBS_SITE_CALLS = 200_000        # calls timed per instrumentation site
+OBS_FANOUT_TENANTS = 16
+OBS_FANOUT_IMAGES = 24          # distinct images of the fan-out requests
+OBS_FANOUT_N = 200              # fan-out requests, tenants in turn
+OBS_CHILD_TIMEOUT_S = 300       # a subprocess's time limit
+OBS_CHILD_IMAGES = 8            # images a subprocess serves in turn
+
+
+def _obs_loop(srv, images, n_clients, sepconv, tag, what):
+    """OBS_LOOP_N requests from ``n_clients`` closed-loop clients (request
+    i: image i mod OBS_N, tenant i mod OBS_TENANTS), with a monitor thread
+    polling ``health()`` every OBS_POLL_S, as one counted window: every
+    kernel's count set to 0 and the series cleared just before it, read
+    just after; B1 must be 30 a forward (dispatches + captures' warm-up
+    forwards).  Returns the loop's numbers, each image's first row, and
+    whether every later row of an image equalled its first."""
+    lat = [[] for _ in range(n_clients)]
+    rows, same, errors = {}, [True], []
+    lock = threading.Lock()
+
+    def client(k):
+        try:
+            for i in range(k, OBS_LOOP_N, n_clients):
+                j = i % len(images)
+                t1 = time.perf_counter()
+                row = srv.submit(images[j], tenant=f"t{i % OBS_TENANTS:02d}"
+                                 ).result(timeout=120)
+                lat[k].append(time.perf_counter() - t1)
+                with lock:
+                    first = rows.setdefault(j, row)
+                    if first is not row and not np.array_equal(first, row):
+                        same[0] = False
+        except Exception as e:  # reported below, in the main thread
+            errors.append(e)
+
+    stop = threading.Event()
+
+    def monitor():
+        while not stop.wait(OBS_POLL_S):
+            srv.health()
+
+    before = dict(srv.metrics.counters)
+    srv.metrics.reset_series()
+    reset_counts(sepconv)
+    poller = threading.Thread(target=monitor, daemon=True)
+    poller.start()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    stop.set()
+    poller.join(timeout=10)
+    counts = read_counts(sepconv)
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"[{tag}] {what}: clients failed: {errors[:1]}")
+    counters = {k: v - before.get(k, 0.0)
+                for k, v in srv.metrics.counters.items()}
+    batches = int(counters.get("serving.batches", 0))
+    captures = int(counters.get("engine.graph_captures", 0))
+    want = {k: n * (batches + captures) for k, n in SERVED_XCEPTION.items()}
+    check(counts == want,
+          f"[{tag}] {what}: launches {counts}, want {want} ({batches} "
+          f"dispatches + {captures} captures' warm-up forwards)")
+    allat = np.asarray([x for per in lat for x in per])
+    check(len(allat) == OBS_LOOP_N and len(rows) == len(images),
+          f"[{tag}] {what}: {len(allat)} requests over {len(rows)} images")
+    return dict(clients=n_clients, requests=int(len(allat)), seconds=wall,
+                requests_per_s=len(allat) / wall,
+                p50_ms=float(np.percentile(allat, 50) * 1e3),
+                p99_ms=float(np.percentile(allat, 99) * 1e3),
+                batches=batches, launches=counts,
+                metered_s=float(counters.get("engine.device_time_s", 0.0))
+                ), rows, same[0]
+
+
+def _obs_chains(spans):
+    """The span chains of a loop's ring: every ``serving.request`` root
+    whose trace a ``serving.microbatch`` covers (its own trace or a member)
+    that has an ``engine.call`` child carrying ``device_ms`` (CUDA timing
+    events) with an ``engine.dispatch`` child.  Returns (requests, covered
+    requests, micro-batches, device ms of every engine.call)."""
+    by_id = {s["span_id"]: s for s in spans}
+    children = {}
+    for s in spans:
+        children.setdefault(s["parent_id"], []).append(s)
+    covered, device_ms, batches = set(), [], 0
+    for b in spans:
+        if b["name"] != "serving.microbatch":
+            continue
+        batches += 1
+        parent = by_id.get(b["parent_id"])
+        if parent is None or parent["name"] != "serving.request":
+            continue
+        for c in children.get(b["span_id"], []):
+            ms = (c.get("attrs") or {}).get("device_ms")
+            if c["name"] != "engine.call" or not ms or ms <= 0:
+                continue
+            if any(d["name"] == "engine.dispatch"
+                   for d in children.get(c["span_id"], [])):
+                covered.update(b["attrs"]["member_traces"])
+                device_ms.append(ms)
+    reqs = [s["trace_id"] for s in spans if s["name"] == "serving.request"]
+    return len(reqs), sum(t in covered for t in reqs), batches, device_ms
+
+
+def _obs_child(code, env_extra, cwd):
+    """Start ``python -c code`` from the checkout with ``env_extra``."""
+    env = dict(os.environ, **env_extra)
+    for k in ("SPARKDL_TRACE", "SPARKDL_BLACKBOX", "SPARKDL_COST",
+              "SPARKDL_FAULTS"):
+        if k not in env_extra:
+            env.pop(k, None)
+    return subprocess.Popen([sys.executable, "-c", code], cwd=cwd, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+_OBS_CHILD_HEAD = f"""
+import itertools, os, sys
+import numpy as np, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from sparkdl_tpu_torch.serving import InferenceCache, Server
+imgs = np.random.default_rng({SEED + 93}).integers(
+    0, 256, ({OBS_CHILD_IMAGES}, 299, 299, 3), dtype=np.uint8)
+"""
+# SPARKDL_TRACE=<dir>: serve, exit; the atexit hook flushes both artifacts
+_OBS_TRACE_CHILD = _OBS_CHILD_HEAD + f"""
+with Server("Xception", featurize=True, max_batch_size=8,
+            cache=False) as srv:
+    for i in range({2 * OBS_CHILD_IMAGES}):
+        srv.predict(imgs[i % {OBS_CHILD_IMAGES}])
+print(os.getpid(), flush=True)
+"""
+# SPARKDL_BLACKBOX=<dir>: serve (cache misses, then hits) until SIGTERM
+_OBS_BLACKBOX_CHILD = _OBS_CHILD_HEAD + f"""
+with Server("Xception", featurize=True, max_batch_size=8,
+            cache=InferenceCache()) as srv:
+    srv.predict(imgs[0])
+    print(os.getpid(), "serving", flush=True)
+    for i in itertools.count():
+        srv.predict(imgs[i % {OBS_CHILD_IMAGES}])
+"""
+
+
+def _obs_children(tag):
+    """The two subprocesses, run at once: one with ``SPARKDL_TRACE=<dir>``
+    that serves and exits (``trace_<pid>.json`` and ``spans_<pid>.jsonl``,
+    read back by ``load_spans``), one with ``SPARKDL_BLACKBOX=<dir>`` sent
+    SIGTERM while it serves (its dump read back by ``load_flight``).
+    Both are stopped whatever happens."""
+    import signal
+    import tempfile
+
+    from sparkdl_tpu_torch.obs.export import load_spans
+    from sparkdl_tpu_torch.obs.flight import load_flight
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory() as tdir, \
+            tempfile.TemporaryDirectory() as bdir:
+        t0 = time.perf_counter()
+        tracer = _obs_child(_OBS_TRACE_CHILD, {"SPARKDL_TRACE": tdir}, root)
+        boxed = _obs_child(_OBS_BLACKBOX_CHILD, {"SPARKDL_BLACKBOX": bdir},
+                           root)
+        try:
+            line = boxed.stdout.readline()
+            if not line.strip().endswith("serving"):
+                boxed.wait(timeout=OBS_CHILD_TIMEOUT_S)
+                fail(f"[{tag}] blackbox child did not start serving: "
+                     f"{line!r} {boxed.stderr.read()[-2000:]}")
+            time.sleep(1.0)
+            boxed.send_signal(signal.SIGTERM)
+            b_out, b_err = boxed.communicate(timeout=OBS_CHILD_TIMEOUT_S)
+            t_out, t_err = tracer.communicate(timeout=OBS_CHILD_TIMEOUT_S)
+        finally:
+            for p in (tracer, boxed):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        child_s = time.perf_counter() - t0
+        check(tracer.returncode == 0,
+              f"[{tag}] SPARKDL_TRACE child exited {tracer.returncode}: "
+              f"{t_err[-2000:]}")
+        pid = int(t_out.split()[-1])
+        chrome = os.path.join(tdir, f"trace_{pid}.json")
+        jsonl = os.path.join(tdir, f"spans_{pid}.jsonl")
+        check(os.path.exists(chrome) and os.path.exists(jsonl),
+              f"[{tag}] SPARKDL_TRACE child left {os.listdir(tdir)}")
+        spans, from_chrome = load_spans(jsonl), load_spans(chrome)
+        n_req = sum(s["name"] == "serving.request" for s in spans)
+        timed = [s for s in spans if s["name"] == "engine.call"
+                 and (s.get("attrs") or {}).get("device_ms", 0) > 0]
+        check(n_req == 2 * OBS_CHILD_IMAGES and timed
+              and len(from_chrome) == len(spans)
+              and [s["span_id"] for s in from_chrome]
+              == [s["span_id"] for s in spans],
+              f"[{tag}] trace artifacts: {n_req} request spans, "
+              f"{len(timed)} timed engine calls, {len(spans)} / "
+              f"{len(from_chrome)} spans (JSONL / Chrome)")
+        check(boxed.returncode == -signal.SIGTERM,
+              f"[{tag}] SPARKDL_BLACKBOX child exited {boxed.returncode} "
+              f"after SIGTERM: {b_err[-2000:]}")
+        bpid = int(line.split()[0])
+        dump = os.path.join(bdir, f"flight_{bpid}.jsonl")
+        check(os.path.exists(dump),
+              f"[{tag}] SIGTERM left no dump: {os.listdir(bdir)}")
+        events = load_flight(dump)
+        names = {e["event"] for e in events}
+        check(events and {"cache.miss", "cache.hit"} <= names
+              and [e["seq"] for e in events]
+              == sorted(e["seq"] for e in events),
+              f"[{tag}] SIGTERM dump: {len(events)} events, {sorted(names)}")
+        out.update(children_s=child_s, trace_spans=len(spans),
+                   trace_request_spans=n_req,
+                   trace_device_ms=[round(s["attrs"]["device_ms"], 3)
+                                    for s in timed[:4]],
+                   sigterm_events=len(events), sigterm_names=sorted(names))
+        print(f"[{tag}] subprocesses ({child_s:.1f}s, run at once): "
+              f"SPARKDL_TRACE=<dir> left trace_{pid}.json and "
+              f"spans_{pid}.jsonl ({len(spans)} spans, {n_req} requests, "
+              f"read back by load_spans from both); SPARKDL_BLACKBOX=<dir> "
+              f"sent SIGTERM while serving: exit {boxed.returncode}, "
+              f"flight_{bpid}.jsonl holds {len(events)} events "
+              f"({', '.join(sorted(names))}), read by load_flight",
+              flush=True)
+    return out
+
+
+def _site_us(fn, calls=OBS_SITE_CALLS):
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def phase_obs(sepconv):
+    """[obs]: observability (``sparkdl_tpu_torch.obs``) around the served
+    Xception at 299x299 (B1, 30 launches a forward) and the head fan-out
+    (H1), f32 with TF32 off.
+
+      1. the loops: ``Server("Xception", featurize=True,
+         max_batch_size=32)`` over OBS_N seeded images, OBS_LOOP_N
+         requests from 1 and from 8 closed-loop clients, OBS_TENANTS
+         tenants in turn, a monitor polling ``health()`` every OBS_POLL_S;
+         each loop twice on a server with tracing, the flight recorder,
+         ``slos=`` and ``cost=CostLedger(max_tenants=8, window=6)`` all
+         on, and twice on a server with all of them off, in the order
+         off, on, on, off; req/s, p50, p99 and the overhead (the mean of
+         the two runs on over the mean of the two off).  Rows on == rows off, bit for bit (both loops run in
+         the 8-row bucket); every request's trace reaches request ->
+         micro-batch -> ``engine.call`` (``device_ms`` from CUDA events)
+         -> ``engine.dispatch``; the ledger conserves the metered seconds
+         (1e-6) and folds ``__overflow__``; ``varz()`` has ``cost`` and
+         ``exemplars`` and passes through ``json.dumps``;
+      2. faults: OBS_SLOW_N requests under ``serving.model:sleep`` breach
+         the p99 objective (health degraded naming it, ``slo.breach``),
+         fast traffic recovers it (``slo.recovered``); a pinned cost
+         baseline, then an ``engine.dispatch`` sleep (inside the metered
+         engine call) opens ``cost.regression``, and fast traffic closes
+         it (``cost.recovered``);
+      3. two subprocesses at once (:func:`_obs_children`);
+      4. ``HeadFanoutServer("Xception", cost=...)`` with the recorder:
+         ``head.swap`` per mutation, ``cache.feature_hit`` per warm
+         request, a cost line per tenant, B1 and H1 counted;
+      5. us per call of the instrumentation sites, disabled and enabled.
+    """
+    from sparkdl_tpu_torch import faults
+    from sparkdl_tpu_torch.image.io import arrowStructsToBatch
+    from sparkdl_tpu_torch.models import get_model_spec
+    from sparkdl_tpu_torch.obs import cost as ocost
+    from sparkdl_tpu_torch.obs import flight as oflight
+    from sparkdl_tpu_torch.obs import trace as otrace
+    from sparkdl_tpu_torch.obs.cost import OVERFLOW_TENANT, CostLedger
+    from sparkdl_tpu_torch.obs.slo import SLO
+    from sparkdl_tpu_torch.ops import head as hops
+    from sparkdl_tpu_torch.serving import (HeadFanoutServer, InferenceCache,
+                                           Server)
+
+    tag = "obs"
+    out = {}
+    size = get_model_spec("Xception").input_size[0]
+    df = synthetic_frame(OBS_N, size, SEED + 91)
+    images, ok = arrowStructsToBatch(df.table.column("image"), size, size)
+    check(ok.all(), f"[{tag}] synthetic images failed to decode")
+
+    def obs_off():
+        otrace.configure(enabled=False)
+        oflight.configure(enabled=False)
+
+    def obs_on():
+        return (otrace.configure(enabled=True),
+                oflight.configure(enabled=True))
+
+    # 1. the loops
+    obs_off()
+    ledger = CostLedger(**OBS_LEDGER)
+    slos = [SLO("serving-availability", "availability",
+                good="serving.completed", total="serving.requests",
+                objective=0.999),
+            SLO("serving-p99", "latency", series="serving.request_latency",
+                threshold_ms=OBS_P99_MS)]
+    t0 = time.perf_counter()
+    off = Server("Xception", featurize=True, max_batch_size=BATCH,
+                 cache=False, cost=False)
+    on = Server("Xception", featurize=True, max_batch_size=BATCH,
+                cache=False, cost=ledger, slos=slos)
+    off.warmup(images[0])
+    on.warmup(images[0])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(off.device.type == "cuda" and on.device.type == "cuda",
+          f"[{tag}] servers not on the card")
+    loops, events = {}, {}
+    b1_total, metered = 0, 0.0
+    for clients in OBS_CLIENTS:
+        # off, on, on, off: a drift over the four runs falls on both sides
+        runs, rows = {"off": [], "on": []}, []
+        dev_ms = []
+        for mode in ("off", "on", "on", "off"):
+            what = f"{clients} client(s), observability {mode}"
+            if mode == "on":
+                tracer, recorder = obs_on()
+            else:
+                obs_off()
+            res, run_rows, same = _obs_loop(on if mode == "on" else off,
+                                            images, clients, sepconv, tag,
+                                            what)
+            check(same, f"[{tag}] {what}: an image's rows differ between "
+                  f"its requests")
+            rows.append(run_rows)
+            b1_total += res["launches"]["sepconv"]
+            if mode == "on":
+                metered += res["metered_s"]
+                n_req, n_cov, n_batches, ms = _obs_chains(tracer.snapshot())
+                check(n_req == OBS_LOOP_N and n_cov == OBS_LOOP_N
+                      and len(ms) == n_batches == res["batches"],
+                      f"[{tag}] {what}: {n_cov} of {n_req} requests reach "
+                      f"request -> micro-batch -> engine.call (device_ms) -> "
+                      f"engine.dispatch; {len(ms)} timed of {n_batches} "
+                      f"batches ({res['batches']} dispatches)")
+                dev_ms += ms
+                events[clients] = sorted(
+                    {e["event"] for e in recorder.snapshot()})
+            runs[mode].append(res)
+            print(f"[{tag}] {what}: {res['requests_per_s']:.1f} req/s, p50 "
+                  f"{res['p50_ms']:.3f} ms, p99 {res['p99_ms']:.3f} ms, "
+                  f"{res['batches']} dispatches, launches "
+                  f"{res['launches']}", flush=True)
+        obs_off()
+        check(all(np.array_equal(r[j], rows[0][j])
+                  for r in rows[1:] for j in range(OBS_N)),
+              f"[{tag}] {clients} client(s): rows with observability on "
+              f"differ from rows with it off")
+
+        def mean(mode, key):
+            return float(np.mean([r[key] for r in runs[mode]]))
+
+        overhead = {k: mean("on", k) / mean("off", k) - 1
+                    for k in ("requests_per_s", "p50_ms", "p99_ms")}
+        loops[clients] = dict(runs=runs, overhead=overhead, device_ms=dict(
+            p50=float(np.percentile(dev_ms, 50)),
+            p99=float(np.percentile(dev_ms, 99)), n=len(dev_ms)))
+        print(f"[{tag}] {clients} client(s), two runs each: overhead of "
+              f"observability {overhead['requests_per_s'] * 100:+.2f}% "
+              f"req/s, {overhead['p50_ms'] * 100:+.2f}% p50, "
+              f"{overhead['p99_ms'] * 100:+.2f}% p99; rows on == rows off "
+              f"bit for bit; every request reaches request -> micro-batch "
+              f"-> engine.call -> engine.dispatch; device_ms (CUDA events) "
+              f"p50 {np.percentile(dev_ms, 50):.3f} p99 "
+              f"{np.percentile(dev_ms, 99):.3f} over {len(dev_ms)} "
+              f"dispatches", flush=True)
+    snap = ledger.snapshot()
+    tot = snap["totals"]
+    cons = abs(tot["attributed_device_s"] - tot["device_s"]) / tot["device_s"]
+    vs_engine = abs(tot["device_s"] - metered) / metered
+    check(cons <= 1e-6 and vs_engine <= 1e-6
+          and tot["rows"] == 2 * len(OBS_CLIENTS) * OBS_LOOP_N
+          and OVERFLOW_TENANT in snap["tenants"]
+          and snap["tracked_tenants"] == OBS_LEDGER["max_tenants"],
+          f"[{tag}] cost: attributed vs metered {cons:.3g}, ledger vs the "
+          f"engine's metered seconds {vs_engine:.3g}, rows {tot['rows']}, "
+          f"tenants {sorted(snap['tenants'])}")
+    doc = on.varz()
+    text = json.dumps(doc)
+    check(doc["cost"] is not None and doc["exemplars"]
+          and doc["health"]["slo"]["state"] == "ok",
+          f"[{tag}] varz: cost {doc['cost'] is not None}, "
+          f"{len(doc['exemplars'])} exemplars, slo "
+          f"{doc['health']['slo']['state']}")
+    print(f"[{tag}] cost: {tot['batches']} batches, {tot['rows']} rows, "
+          f"{tot['pad_rows']} pad rows, {tot['device_s']:.6f} s metered "
+          f"== tenants + __pad__ to {cons:.2e} and == the engine's "
+          f"{metered:.6f} s to {vs_engine:.2e}; tenants "
+          f"{sorted(snap['tenants'])}; sentinel open "
+          f"{sorted(snap['sentinel']['open'])}; varz {len(text)} bytes "
+          f"of JSON with {len(doc['exemplars'])} exemplars (slowest "
+          f"{doc['exemplars'][0]['duration_ms']:.3f} ms); flight events in "
+          f"the last loops: {events}", flush=True)
+    out.update(warmup_s=warm_s, loops=loops, cost_totals=tot,
+               conservation_rel=cons, ledger_vs_engine_rel=vs_engine,
+               tenants=sorted(snap["tenants"]), loop_events=events,
+               varz_bytes=len(text))
+    off.close()
+
+    # 2. faults: an SLO breach and recovery, a cost regression and recovery
+    tracer, recorder = obs_on()
+
+    def serve(n, clients=1):
+        def client(k):
+            for i in range(k, n, clients):
+                on.predict(images[i % OBS_N])
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+
+    on.metrics.reset_series()
+    check(on.health()["slo"]["state"] == "ok", f"[{tag}] SLO not ok at rest")
+    with faults.active(faults.FaultPlan.parse(
+            f"serving.model:sleep:ms={OBS_FAULT_MS}")):
+        serve(OBS_SLOW_N)
+    h = on.health()
+    names = [e["event"] for e in recorder.snapshot()]
+    err = h["last_error"] or {}
+    check(h["slo"]["state"] == "breach" and h["state"] == "degraded"
+          and err.get("type") == "SLOViolation"
+          and "serving-p99" in err.get("error", "")
+          and "slo.breach" in names,
+          f"[{tag}] serving.model sleep: slo {h['slo']['state']}, health "
+          f"{h['state']}, last_error {err}, events {names}")
+    p99_breach = h["slo"]["objectives"][1]["p99_ms"]
+    recover_n = 0
+    while recover_n < OBS_RECOVER_MAX:
+        serve(200, clients=8)
+        recover_n += 200
+        if on.health()["slo"]["state"] == "ok":
+            break
+    names = [e["event"] for e in recorder.snapshot()]
+    check("slo.recovered" in names,
+          f"[{tag}] no slo.recovered after {recover_n} fast requests")
+    print(f"[{tag}] SLO: {OBS_SLOW_N} requests under serving.model:sleep "
+          f"{OBS_FAULT_MS} ms: p99 {p99_breach:.1f} ms > {OBS_P99_MS} ms, "
+          f"health degraded naming serving-p99, slo.breach; recovered "
+          f"(slo.recovered) after {recover_n} fast requests", flush=True)
+    serve(OBS_COST_N)
+    program = f"{on.model_desc}/b8"
+    pinned = ledger.pin_baseline(program)
+    with faults.active(faults.FaultPlan.parse(
+            f"engine.dispatch:sleep:ms={OBS_COST_FAULT_MS}")):
+        serve(OBS_COST_N)
+    opened = ledger.regressions()
+    serve(4 * OBS_COST_N)
+    names = [e["event"] for e in recorder.snapshot()]
+    check(program in opened and "cost.regression" in names
+          and "cost.recovered" in names and not ledger.regressions(),
+          f"[{tag}] cost sentinel: open {opened}, now "
+          f"{ledger.regressions()}, events {names}")
+    print(f"[{tag}] cost sentinel: baseline pinned at "
+          f"{pinned[program] * 1e6:.1f} us/row; engine.dispatch sleep "
+          f"{OBS_COST_FAULT_MS} ms opened cost.regression on {program} "
+          f"(factor {opened[program]['factor']}); {4 * OBS_COST_N} fast "
+          f"requests closed it (cost.recovered)", flush=True)
+    out.update(slo_breach_p99_ms=p99_breach, slo_recover_requests=recover_n,
+               cost_regression_factor=opened[program]["factor"])
+    pool = on.graph_pool_bytes
+    on.close()
+    check(on.graph_pool_bytes == 0, f"[{tag}] close() kept the pool")
+
+    # 3. the subprocesses
+    obs_off()
+    out["children"] = _obs_children(tag)
+
+    # 4. the head fan-out under observability
+    tracer, recorder = obs_on()
+    rng = np.random.default_rng(SEED + 92)
+    heads = {f"t{i:02d}": {
+        "kernel": (rng.normal(size=(HEAD_D, FANOUT_CLASSES))
+                   / math.sqrt(HEAD_D)).astype(np.float32),
+        "bias": rng.normal(size=(FANOUT_CLASSES,)).astype(np.float32)}
+        for i in range(OBS_FANOUT_TENANTS)}
+    fledger = CostLedger(max_tenants=2 * OBS_FANOUT_TENANTS)
+    fan = HeadFanoutServer("Xception", max_batch_size=BATCH,
+                           cache=InferenceCache(), cost=fledger)
+    for t, h in heads.items():
+        fan.add_head(t, h)
+    fan.warmup(images[0])
+    fan.warm_head(np.zeros(HEAD_D, np.float32))
+    reqs = [(i % OBS_FANOUT_IMAGES, f"t{i % OBS_FANOUT_TENANTS:02d}")
+            for i in range(OBS_FANOUT_N)]
+
+    def fan_run():
+        fan_rows = [fan.predict(images[i], t) for i, t in reqs]
+        fan.swap_head("t00", heads["t01"])
+        return fan_rows
+
+    fan_rows, counts, counters, _ = _fanout_counted(
+        sepconv, hops, fan, "fan-out under observability", fan_run)
+    check(all(np.isfinite(r).all() and r.shape == (FANOUT_CLASSES,)
+              for r in fan_rows), f"[{tag}] fan-out rows")
+    events = recorder.snapshot()
+    swaps = [e for e in events if e["event"] == "head.swap"]
+    fhits = [e for e in events if e["event"] == "cache.feature_hit"]
+    fsnap = fledger.snapshot()
+    per_tenant = {t: v["rows"] + v["feature_hits"] + v["hits"]
+                  + v["coalesced"] for t, v in fsnap["tenants"].items()}
+    want_tenant = {t: sum(1 for _, u in reqs if u == t) for t in heads}
+    check(len(swaps) == OBS_FANOUT_TENANTS + 1
+          and len(fhits) == int(counters["headfanout.feature_hits"])
+          == OBS_FANOUT_N - OBS_FANOUT_IMAGES
+          and per_tenant == want_tenant
+          and json.dumps(fan.varz()) and fan.varz()["cost"] == fsnap,
+          f"[{tag}] fan-out: {len(swaps)} head.swap, {len(fhits)} "
+          f"cache.feature_hit ({counters.get('headfanout.feature_hits')} "
+          f"hits), tenants {per_tenant} want {want_tenant}")
+    fpool = fan.graph_pool_bytes
+    fan.close()
+    obs_off()
+    print(f"[{tag}] HeadFanoutServer(Xception, cost=) with the recorder: "
+          f"{len(swaps)} head.swap ({OBS_FANOUT_TENANTS} adds + 1 swap), "
+          f"{len(fhits)} cache.feature_hit of {OBS_FANOUT_N} requests, a "
+          f"cost line per tenant ({len(fsnap['tenants'])}: rows "
+          f"{fsnap['totals']['rows']}, feature hits "
+          f"{fsnap['totals']['feature_hits']}); launches {counts}",
+          flush=True)
+    b1_total += counts["sepconv"]
+    out["fanout"] = dict(head_swaps=len(swaps), feature_hits=len(fhits),
+                         tenants=len(fsnap["tenants"]), launches=counts,
+                         pool_bytes=fpool)
+
+    # 5. the instrumentation sites, disabled and enabled
+    off_tracer = otrace.configure(enabled=False)
+    on_tracer = otrace.Tracer(enabled=True, capacity=1024)
+    off_ledger, on_ledger = CostLedger(enabled=False), CostLedger()
+    oflight.configure(enabled=False)
+
+    def span_site(tr):
+        def site():
+            with tr.span("engine.dispatch", rows=8):
+                pass
+        return site
+
+    def charge(led):
+        return lambda: led.record_batch(
+            model="Xception", bucket=8, tenant_rows={"t00": 3},
+            device_s=0.007, pad_rows=5, hbm_bytes=8e7)
+
+    sites = dict(span_disabled_us=_site_us(span_site(off_tracer)),
+                 span_enabled_us=_site_us(span_site(on_tracer)),
+                 record_batch_disabled_us=_site_us(charge(off_ledger)),
+                 record_batch_enabled_us=_site_us(charge(on_ledger)),
+                 emit_disabled_us=_site_us(
+                     lambda: oflight.emit("cache.hit", hits=1)))
+    rec = oflight.configure(enabled=True, capacity=1024)
+    sites["emit_enabled_us"] = _site_us(
+        lambda: oflight.emit("cache.hit", hits=1))
+    obs_off()
+    ocost.configure(None)
+    check(rec is not None and len(on_tracer) == 1024,
+          f"[{tag}] instrumentation sites")
+    print(f"[{tag}] us per call ({OBS_SITE_CALLS} calls): span site "
+          f"disabled {sites['span_disabled_us']:.3f} / enabled "
+          f"{sites['span_enabled_us']:.3f}; record_batch disabled "
+          f"{sites['record_batch_disabled_us']:.3f} / enabled "
+          f"{sites['record_batch_enabled_us']:.3f}; flight emit disabled "
+          f"{sites['emit_disabled_us']:.3f} / enabled "
+          f"{sites['emit_enabled_us']:.3f}", flush=True)
+    out.update(sites=sites, pool_bytes=pool,
+               launches=dict(sepconv=b1_total,
+                             head_pass=counts["head_pass"]))
+    print(f"[{tag}] launches over every counted window of the phase: B1 "
+          f"{b1_total}, H1 {counts['head_pass']}", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4310,6 +4928,11 @@ def main():
     print(json.dumps({"headfanout": fanout}), flush=True)
     h1["launches"] = fanout["launches"]["head_pass"]
     b1["headfanout_launches"] = fanout["launches"]["sepconv"]
+    obs = phase_obs(sepconv)
+    pools["obs"] = pool_line("[obs]")
+    print(json.dumps({"obs": obs}), flush=True)
+    b1["obs_launches"] = obs["launches"]["sepconv"]
+    h1["obs_launches"] = obs["launches"]["head_pass"]
     print(json.dumps({"pools": pools}), flush=True)
     print(json.dumps({"kernels": [b1, b3, b2, h1]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,10 @@ order, a plan fires the same sequence as the JAX package's plan does.
 Probabilistic rules (``p=``) draw from a per-rule ``random.Random`` seeded
 with ``f"{seed}:{site}:{rule index}"``, as there.
 
-Differences from the JAX package: the locks are plain ``threading.Lock``s,
-and no flight-recorder event is emitted (``obs/flight.py`` is not ported).
+Every rule firing is a ``fault.fired`` flight event, emitted outside the
+plan lock and before the sleep or raise takes effect, so the black box
+shows the injected cause ahead of its consequences.  The locks are plain
+``threading.Lock``s.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from sparkdl_tpu_torch.faults.errors import (InjectedDeadDeviceError,
 from sparkdl_tpu_torch.faults.sites import validate_site
 from sparkdl_tpu_torch.faults.spec import (FaultRule, faults_from_env,
                                            format_spec, parse_spec)
+from sparkdl_tpu_torch.obs.flight import emit as flight_emit
 
 _EXC_BY_KIND = {
     "transient": InjectedTransientError,
@@ -121,6 +124,7 @@ class FaultPlan:
         pass."""
         sleep_s = 0.0
         raise_exc: Optional[BaseException] = None
+        fired_rules: List[tuple] = []
         with self._lock:
             n = self._site_calls.get(site, 0) + 1
             self._site_calls[site] = n
@@ -135,6 +139,7 @@ class FaultPlan:
                     if r.site != site or not self._due(i, r, n):
                         continue
                     self._fired[i] = self._fired.get(i, 0) + 1
+                    fired_rules.append((r.clause, r.action, n))
                     msg = (f"injected {r.action} fault at {site} "
                            f"(rule [{r.clause}], call #{n})")
                     if r.action == "sleep":
@@ -150,6 +155,9 @@ class FaultPlan:
                         r.clause, retry_after_s=float(
                             r.params.get("retry_after", 0.05)))
                     break
+        for clause, action, call_n in fired_rules:
+            flight_emit("fault.fired", site=site, rule=clause,
+                        action=action, call=call_n)
         if sleep_s:
             time.sleep(sleep_s)
         if raise_exc is not None:

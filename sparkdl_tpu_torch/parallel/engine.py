@@ -37,8 +37,21 @@ dispatch and gather on three threads by default
 of k forwards, one fetch).
 
 Failure domain: ``dispatch_retries`` with jittered, capped backoff, a
-consecutive-failure :class:`DispatchCircuitBreaker`, and the fault sites
-``engine.dispatch`` (enqueue) and ``engine.gather`` (force).
+consecutive-failure :class:`DispatchCircuitBreaker` (its transitions are
+the ``breaker.open`` / ``breaker.half_open`` / ``breaker.close`` flight
+events), and the fault sites ``engine.dispatch`` (enqueue) and
+``engine.gather`` (force).
+
+Tracing (``SPARKDL_TRACE``, :mod:`sparkdl_tpu_torch.obs.trace`), as in the
+JAX engine: an ``engine.call`` span around each call and an
+``engine.dispatch`` span around each dispatch attempt, which covers the
+upload and the replay's launch only.  Device time comes from CUDA events:
+while tracing is on, a pair of timing events brackets each replay (or
+eager forward) on the compute stream, outside any capture, and their
+elapsed time is read after the fetch's own wait on the output copy, so no
+synchronization is added; it is added up as ``device_ms`` on the span that
+forces the result (``engine.call`` on the serial path, ``pipeline.gather``
+in the pipelined runner).  While tracing is off no timing event is made.
 
 :func:`get_cached_engine` keeps one engine per ``ModelFunction`` on the
 stage (or other holder) that runs it; the engine and its graphs go with
@@ -73,8 +86,7 @@ tenant's row from a mixed-tenant batch is its row through its head alone,
 bit for bit, in every bank mode.
 
 Not ported yet: the device mesh and weight sharding and ``donate_batch``
-(ROADMAP.md queue A item 4), the ``engine.dispatch`` / ``engine.call``
-spans and flight events (item 6), and the compile-cache policy (item 7).
+(ROADMAP.md queue A item 4), and the compile-cache policy (item 7).
 """
 
 from __future__ import annotations
@@ -93,6 +105,8 @@ import torch.nn as nn
 
 from sparkdl_tpu_torch import DeviceLike, resolve_device
 from sparkdl_tpu_torch.faults import inject
+from sparkdl_tpu_torch.obs.flight import emit as flight_emit
+from sparkdl_tpu_torch.obs.trace import get_tracer
 from sparkdl_tpu_torch.parallel.pipeline import (PipelinedRunner,
                                                  pipeline_enabled_from_env)
 from sparkdl_tpu_torch.utils.logging import get_logger
@@ -117,7 +131,7 @@ class CircuitOpenError(RuntimeError):
 
 class DispatchCircuitBreaker:
     """Consecutive-failure circuit breaker for device dispatch (a copy of
-    the JAX package's, without its flight events).
+    the JAX package's, with its flight events, emitted outside the lock).
 
     closed --(threshold consecutive failures)--> open
     open   --(cooldown elapses)-->                half_open (ONE trial)
@@ -143,9 +157,11 @@ class DispatchCircuitBreaker:
 
     def gate(self) -> None:
         """Fail fast with :class:`CircuitOpenError` while open; admit a
-        single trial dispatch once the cool-down elapsed (half-open)."""
+        single trial dispatch once the cool-down elapsed (half-open, a
+        ``breaker.half_open`` event)."""
         if self.threshold <= 0:
             return
+        trial = False
         with self._lock:
             if self._open:
                 remaining = self._open_until - time_lib.monotonic()
@@ -158,14 +174,20 @@ class DispatchCircuitBreaker:
                         retry_after_s=max(0.0, remaining),
                         last_error=self._last_error)
                 self._trial_inflight = True  # half-open: this caller probes
+                trial = True
+        if trial:
+            flight_emit("breaker.half_open")
 
     def record_success(self) -> None:
         if self.threshold <= 0:
             return
         with self._lock:
+            closed_now = self._open
             self._consecutive = 0
             self._open = False
             self._trial_inflight = False
+        if closed_now:
+            flight_emit("breaker.close")
 
     def release_trial(self) -> None:
         """Give back a half-open trial slot without judging the device (the
@@ -177,7 +199,7 @@ class DispatchCircuitBreaker:
 
     def record_failure(self, exc: BaseException) -> bool:
         """Count a device error; True when this failure opened (or
-        re-opened) the breaker."""
+        re-opened) the breaker (a ``breaker.open`` event)."""
         if self.threshold <= 0 or isinstance(exc, NON_RETRYABLE):
             return False
         with self._lock:
@@ -191,6 +213,11 @@ class DispatchCircuitBreaker:
                 self._open = True
                 self._open_until = time_lib.monotonic() + self.cooldown_s
                 self._opened_count += 1
+            consecutive = self._consecutive
+        if opened:
+            flight_emit("breaker.open", consecutive=consecutive,
+                        cooldown_s=self.cooldown_s,
+                        error=type(exc).__name__)
         return opened
 
     def open_remaining_s(self) -> Optional[float]:
@@ -325,6 +352,30 @@ _CAPTURE_LOCK = threading.Lock()
 
 # every engine alive in the process, for graph_pool_bytes_held
 _LIVE_ENGINES: "weakref.WeakSet[InferenceEngine]" = weakref.WeakSet()
+
+# the timing events around the last forward each thread dispatched while
+# tracing was on, until the caller that forces its result takes them
+_TIMING = threading.local()
+
+
+def _timing_event(stream) -> Optional[torch.cuda.Event]:
+    """A timing event recorded on ``stream`` (the current one), or None
+    while it is capturing: an event recorded there would become a node of
+    the graph."""
+    if torch.cuda.is_current_stream_capturing():
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
+
+
+def _end_timing(start: Optional[torch.cuda.Event], stream) -> None:
+    """Close the bracket ``start`` opened on ``stream`` and keep the pair
+    for this thread's caller (:meth:`InferenceEngine._take_timing`)."""
+    if start is not None:
+        end = _timing_event(stream)
+        if end is not None:
+            _TIMING.events = (start, end)
 
 
 def graph_pool_bytes_held() -> int:
@@ -486,6 +537,13 @@ class InferenceEngine:
     def num_devices(self) -> int:
         return 1
 
+    @property
+    def param_bytes(self) -> int:
+        """The bytes of the device module's parameters and buffers on the
+        engine's device (one copy, shared with the siblings): the cost
+        ledger's per-bucket HBM bytes."""
+        return sum(t.numel() * t.element_size() for t in self._state)
+
     # what a sibling takes from its engine; its batch size and breaker are
     # its own
     _SIBLING_SHARES = ("device", "fn", "compute_dtype", "output_host_dtype",
@@ -591,12 +649,34 @@ class InferenceEngine:
         if n != self.device_batch_size:
             raise ValueError(f"run_padded expects batch of "
                              f"{self.device_batch_size}, got {n}")
-        return self._run_dispatch(lambda: self._forward(batch, False))
+
+        # the span covers the upload and the replay's launch only; the
+        # device time lands in the span that forces the result
+        def attempt():
+            with get_tracer().span("engine.dispatch",
+                                   rows=self.device_batch_size):
+                return self._forward(batch, False)
+
+        return self._run_dispatch(attempt)
 
     def _dispatch_group(self, stacked):
         """One dispatch of ``batches_per_dispatch`` stacked pieces: one
         replay of k forwards on CUDA; returns the stacked device output."""
-        return self._run_dispatch(lambda: self._forward(stacked, True))
+        def attempt():
+            with get_tracer().span("engine.dispatch",
+                                   group=self.batches_per_dispatch):
+                return self._forward(stacked, True)
+
+        return self._run_dispatch(attempt)
+
+    @staticmethod
+    def _take_timing():
+        """The (start, end) timing events around this thread's last forward
+        (None while tracing was off, on the CPU, or when taken already):
+        handed to whoever forces its result (:meth:`_force_parts`)."""
+        events = getattr(_TIMING, "events", None)
+        _TIMING.events = None
+        return events
 
     def _eager(self, x, group: bool):
         """The forward, op by op (a group: one forward per piece, stacked,
@@ -608,18 +688,24 @@ class InferenceEngine:
         return _tree_map(lambda *parts: torch.stack(parts), *outs)
 
     def _forward(self, host, group: bool):
+        _TIMING.events = None
         if self.device.type != "cuda":
             x = _tree_map(lambda a: torch.from_numpy(
                 np.ascontiguousarray(a)).to(self.device), host)
             with torch.inference_mode():
                 return self._eager(x, group)
+        timed = get_tracer().enabled
         with self._core.lock:
             t0 = time_lib.perf_counter()
             x, slots = self._upload(host)
-            with torch.inference_mode():
-                out = (self._replay(x, group) if self.capture
-                       else self._eager(x, group))
             cur = torch.cuda.current_stream(self.device)
+            with torch.inference_mode():
+                if self.capture:
+                    out = self._replay(x, group, timed)
+                else:
+                    start = _timing_event(cur) if timed else None
+                    out = self._eager(x, group)
+                    _end_timing(start, cur)
             for s, i in slots:  # the forward has read slot i
                 s.free[i] = torch.cuda.Event()
                 s.free[i].record(cur)
@@ -673,10 +759,11 @@ class InferenceEngine:
         return _tree_map(lambda _: next(it), host), slots
 
     # -- the captured forward (CUDA) -------------------------------------------
-    def _replay(self, x, group: bool):
+    def _replay(self, x, group: bool, timed: bool = False):
         """Copy ``x`` into the bucket's graph's static input, replay, and
         copy the output out (the next replay overwrites the static one).
-        Captures first when the bucket has no graph or its key moved."""
+        Captures first when the bucket has no graph or its key moved.
+        ``timed``: bracket the replay with timing events (tracing on)."""
         from sparkdl_tpu_torch.ops import sepconv as ops
 
         leaves = _tree_leaves(x)
@@ -689,11 +776,13 @@ class InferenceEngine:
             g = self._capture(x, group, sig)
         for dst, src in zip(g.in_leaves, leaves):
             dst.copy_(src)
+        start = _timing_event(cur) if timed else None
         try:
             g.graph.replay()
         except RuntimeError as e:
             raise RuntimeError(f"CUDA-graph replay of engine {self.name} "
                                f"bucket {sig} failed: {e}") from e
+        _end_timing(start, cur)
         if any(g.launches):
             ops.credit_launches(g.launches)
         out = _tree_map(lambda t: t.clone(), g.static_out)
@@ -890,15 +979,23 @@ class InferenceEngine:
 
         return _tree_map(gather, out)
 
-    def _force_parts(self, ns, out, ready=None):
+    def _force_parts(self, ns, out, ready=None, block=None, timing=None):
         """Force one in-flight dispatch to host row batch(es): the fetch +
         trim shared by the serial drain and the pipelined gather (``ns``
         int = a plain piece; tuple = a group, fetched once and sliced on
         the host).  The other failure surface of an asynchronous dispatch:
         errors charge the breaker, and a successful force is what records
-        breaker success."""
+        breaker success.
+
+        ``block`` (the gather span's ``block_until_ready``) waits for
+        ``ready`` first, inside the caller's span.  ``timing`` (the
+        dispatch's :meth:`_take_timing`) is read once the fetch has waited
+        for the output copy, which the bracketed forward precedes, and
+        added to the caller's current span as ``device_ms``."""
         try:
             inject("engine.gather")
+            if block is not None:
+                block(ready if ready is not None else out)
             host = self._fetch(out, ready)
             if isinstance(ns, int):
                 parts = [self._trim(host, ns)]
@@ -912,6 +1009,12 @@ class InferenceEngine:
             self._charge_breaker(e, "engine.gather_errors")
             raise
         self.breaker.record_success()
+        if timing is not None:
+            span = get_tracer().current()
+            if span is not None:
+                start, end = timing
+                span.annotate(device_ms=span.attrs.get("device_ms", 0.0)
+                              + start.elapsed_time(end))
         return parts
 
     # -- whole-array API ---------------------------------------------------
@@ -933,26 +1036,27 @@ class InferenceEngine:
         use_pipe = (pipeline_enabled_from_env() if pipeline is None
                     else bool(pipeline))
         t0 = time_lib.perf_counter()
-        if not use_pipe or n <= self.device_batch_size:
-            outs = list(self.map_batches([batch], window=window,
-                                         pipeline=False))
-            result = _tree_map(lambda *parts: np.concatenate(parts, axis=0),
-                               *outs)
-        else:
-            result = None
-            off = 0
-            for part in self.map_batches([batch], window=window,
-                                         pipeline=True):
-                k = self._leaves(part)
-                if result is None:
-                    result = _tree_map(
-                        lambda a: np.empty((n,) + a.shape[1:], a.dtype),
-                        part)
-                    self.metrics.incr("engine_call_prealloc")
-                for dst, src in zip(_tree_leaves(result),
-                                    _tree_leaves(part)):
-                    dst[off:off + k] = src
-                off += k
+        with get_tracer().span("engine.call", rows=n):
+            if not use_pipe or n <= self.device_batch_size:
+                outs = list(self.map_batches([batch], window=window,
+                                             pipeline=False))
+                result = _tree_map(
+                    lambda *parts: np.concatenate(parts, axis=0), *outs)
+            else:
+                result = None
+                off = 0
+                for part in self.map_batches([batch], window=window,
+                                             pipeline=True):
+                    k = self._leaves(part)
+                    if result is None:
+                        result = _tree_map(
+                            lambda a: np.empty((n,) + a.shape[1:], a.dtype),
+                            part)
+                        self.metrics.incr("engine_call_prealloc")
+                    for dst, src in zip(_tree_leaves(result),
+                                        _tree_leaves(part)):
+                        dst[off:off + k] = src
+                    off += k
         elapsed = time_lib.perf_counter() - t0
         self.metrics.incr("items", n)
         self.metrics.record_time("engine_call", elapsed)
@@ -1008,12 +1112,13 @@ class InferenceEngine:
 
         def drain(limit):
             while len(inflight) > limit:
-                ns, out = inflight.popleft()
-                yield from self._force_parts(ns, out)
+                ns, out, timing = inflight.popleft()
+                yield from self._force_parts(ns, out, timing=timing)
 
         for kind, ns, host in self._iter_pieces(batches):
-            inflight.append((ns, self.run_padded(host) if kind == "plain"
-                             else self._dispatch_group(host)))
+            out = (self.run_padded(host) if kind == "plain"
+                   else self._dispatch_group(host))
+            inflight.append((ns, out, self._take_timing()))
             yield from drain(window)
         yield from drain(0)
 
@@ -1188,7 +1293,9 @@ class HeadBank:
     runs the pass and fetches the output, all under the bank's lock, as
     every mutation runs under it: a swap under load sees the old bank or
     the new one, never a torn one.  The fault sites ``head.swap`` and
-    ``head.dispatch`` fire under the lock before any state changes.
+    ``head.dispatch`` fire under the lock before any state changes; each
+    add, swap and remove is a ``head.swap`` flight event (tenant, op, bank
+    size, mode), emitted once the lock is released.
 
     H1 takes f32 heads: on CUDA a :func:`dense_head_row` head of another
     dtype raises ``NotImplementedError`` at :meth:`add_head` (ROADMAP.md
@@ -1318,6 +1425,10 @@ class HeadBank:
                         f"over hbm_budget_bytes={self.hbm_budget_bytes}")
             self._rebuild()
             self.metrics.incr(f"headbank.{op}")
+            tenants = len(self._order)
+            mode = "fallback" if self._fallback else "stacked"
+        flight_emit("head.swap", tenant=tenant, op=op, tenants=tenants,
+                    mode=mode)
 
     def _refuse_dtype(self, host) -> None:
         if self.head_fn is dense_head_row and self.device.type == "cuda":

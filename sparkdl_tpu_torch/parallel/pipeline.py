@@ -29,8 +29,16 @@ graph, joins every worker with a bounded timeout and re-raises on the
 consumer side as :class:`PipelineStageError` naming the stage and piece,
 with the cause chained.
 
-``SPARKDL_PIPELINE=0`` runs the serial path everywhere.  Not ported yet: the
-``pipeline.*`` spans (ROADMAP queue A item 8).
+Tracing (``SPARKDL_TRACE``): one ``pipeline.run`` span brackets the stage
+graph (parented to the consumer thread's current span, e.g.
+``engine.call``) and each stage records one child span per piece
+(``pipeline.prepare`` / ``pipeline.dispatch`` / ``pipeline.gather``).  The
+gather span waits for the dispatch's event inside itself
+(``block_until_ready``, credited to its ``device_s``) and carries the
+dispatch's CUDA-event ``device_ms``.  With tracing off each stage pays one
+enabled-check per piece.
+
+``SPARKDL_PIPELINE=0`` runs the serial path everywhere.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from typing import Any, Dict, Iterable, Iterator, Optional
 import numpy as np
 
 from sparkdl_tpu_torch.faults import inject
+from sparkdl_tpu_torch.obs.trace import get_tracer
 from sparkdl_tpu_torch.utils.logging import get_logger
 from sparkdl_tpu_torch.utils.metrics import Metrics
 
@@ -154,6 +163,10 @@ class PipelinedRunner:
         m = self.metrics
         stop = threading.Event()
         errors: list = []
+        tracer = get_tracer()
+        run_span = (tracer.start_span("pipeline.run",
+                                      parent=tracer.current())
+                    if tracer.enabled else None)
 
         prep_q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         disp_q: "queue.Queue" = queue.Queue(maxsize=self.window)
@@ -171,7 +184,11 @@ class PipelinedRunner:
                 src = eng._iter_pieces(batches)
                 while True:
                     inject("pipeline.prepare", piece=idx)
-                    item = next(src, _DONE)
+                    with tracer.span("pipeline.prepare", parent=run_span,
+                                     piece=idx) as sp:
+                        item = next(src, _DONE)
+                        if item is _DONE:
+                            sp.annotate(eos=True)
                     if item is _DONE:
                         self._put(prep_q, _DONE, stop, "prepare", "prep_q")
                         return
@@ -195,12 +212,15 @@ class PipelinedRunner:
                     kind, ns, host = item
                     inject("pipeline.dispatch", piece=idx)
                     # upload + launch: returns once enqueued
-                    dev = (eng.run_padded(host) if kind == "plain"
-                           else eng._dispatch_group(host))
+                    with tracer.span("pipeline.dispatch",
+                                     parent=run_span, kind=kind):
+                        dev = (eng.run_padded(host) if kind == "plain"
+                               else eng._dispatch_group(host))
+                    timing = eng._take_timing()
                     ready = eng._ready_event()
                     m.incr("pipeline.dispatches")
-                    if not self._put(disp_q, (kind, ns, dev, ready), stop,
-                                     "dispatch", "inflight_q"):
+                    if not self._put(disp_q, (kind, ns, dev, ready, timing),
+                                     stop, "dispatch", "inflight_q"):
                         return
                 self._put(disp_q, _DONE, stop, "dispatch", "inflight_q")
             except BaseException as e:  # re-raised consumer-side
@@ -216,11 +236,17 @@ class PipelinedRunner:
                     if item is _DONE:
                         break
                     idx += 1
-                    kind, ns, dev, ready = item
+                    kind, ns, dev, ready, timing = item
                     inject("pipeline.gather", piece=idx)
                     # the engine's own force (device wait + fetch + trim),
-                    # where force-time device errors charge the breaker
-                    parts = eng._force_parts(ns, dev, ready)
+                    # where force-time device errors charge the breaker;
+                    # the span covers the wait, the fetch and the trim,
+                    # not the downstream puts
+                    with tracer.span("pipeline.gather", parent=run_span,
+                                     kind=kind) as sp:
+                        parts = eng._force_parts(
+                            ns, dev, ready, block=sp.block_until_ready,
+                            timing=timing)
                     for part in parts:
                         if not self._put(out_q, part, stop, "gather",
                                          "out_q"):
@@ -260,6 +286,9 @@ class PipelinedRunner:
                 if t.is_alive():
                     logger.warning("pipeline stage thread %s did not exit "
                                    "within 2s of cancellation", t.name)
+            # after the join, so every stage span closes before its parent
+            if run_span is not None:
+                run_span.finish()
         if errors:
             stage, piece, cause = errors[0]
             self.metrics.incr(f"pipeline.{stage}_crashes")

@@ -1,5 +1,5 @@
 """Dynamic micro-batching: bounded admission queue + flush policy (port of
-``sparkdl_tpu/serving/batcher.py``, without its spans and flight events).
+``sparkdl_tpu/serving/batcher.py``).
 
 Single requests accumulate in a bounded FIFO and flush as one micro-batch
 when the batch is full (``max_batch_size``) or the OLDEST waiting request
@@ -21,6 +21,12 @@ flush policy and deadline shedding at flush time; the
 and demultiplexing.  Given the same arrival script under the same injected
 clock, the flush sequence (batch sizes, members, ragged cuts, top-offs,
 shed and rejected requests) is the JAX package's.
+
+Observability, as in the JAX package: a flushed micro-batch opens the
+``serving.microbatch`` span under its first live request's root span
+(the other members' trace ids ride on it as ``member_traces``), and every
+queue-full rejection and deadline shed is a ``serving.shed`` flight event,
+emitted once the batcher's lock is released.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ from typing import Any, Callable, List, Optional, Sequence
 import numpy as np
 
 from sparkdl_tpu_torch.faults import inject
+from sparkdl_tpu_torch.obs.flight import emit as flight_emit
+from sparkdl_tpu_torch.obs.trace import get_tracer
 from sparkdl_tpu_torch.parallel.engine import _tree_leaves
 from sparkdl_tpu_torch.serving.errors import (DeadlineExceededError,
                                               QueueFullError,
@@ -59,11 +67,17 @@ class Request:
     ``deadline`` is absolute seconds on the batcher's clock (None = no
     deadline).  The future settles exactly once: with the model output row,
     or with a serving error (shed / rejected / batch failure).  ``tenant``
-    is the cost-attribution identity, recorded and not read until cost
-    attribution is ported (ROADMAP.md queue A item 6); anonymous =
-    ``"default"``, as in the JAX package."""
+    is the cost-attribution identity (which ledger line the request's
+    device and queue time land on); anonymous = ``"default"``, as in the
+    JAX package.
 
-    __slots__ = ("payload", "future", "enqueued_at", "deadline", "tenant")
+    Tracing (``SPARKDL_TRACE``): ``span`` is the request's root span
+    (opened at submit, closed at settle); ``batch_span`` rides the FIRST
+    live request of a flushed micro-batch and carries the batcher ->
+    engine segment.  Both stay None with tracing off."""
+
+    __slots__ = ("payload", "future", "enqueued_at", "deadline", "tenant",
+                 "span", "batch_span")
 
     def __init__(self, payload: Any, deadline: Optional[float] = None,
                  now: Optional[float] = None, tenant: str = "default"):
@@ -74,11 +88,22 @@ class Request:
         # (possibly virtual) timeline its deadlines live on
         self.enqueued_at = time.monotonic() if now is None else now
         self.deadline = deadline
+        self.span = None
+        self.batch_span = None
 
     def expired(self, now: Optional[float] = None) -> bool:
         if self.deadline is None:
             return False
         return (time.monotonic() if now is None else now) >= self.deadline
+
+    def finish_span(self, status: str = "ok") -> None:
+        """Close this request's root span once (the settle paths race: the
+        worker's demux, the watchdog, close; ``Span.finish`` is idempotent,
+        so the losers are no-ops)."""
+        sp = self.span
+        if sp is not None:
+            self.span = None
+            sp.finish(status)
 
 
 class DynamicBatcher:
@@ -155,6 +180,8 @@ class DynamicBatcher:
                 self._cond.notify_all()
         if full is not None:
             depth, hint = full
+            flight_emit("serving.shed", reason="queue_full", depth=depth,
+                        retry_after_s=round(hint, 4))
             raise QueueFullError(
                 f"admission queue full ({depth}/{self.max_queue})",
                 retry_after_s=hint)
@@ -207,7 +234,18 @@ class DynamicBatcher:
         # expiry is judged at the flush DECISION: a request the guard
         # selected while still live dispatches even if the pop itself was
         # delayed past its deadline by scheduling jitter
-        return self._shed_expired(batch, now)
+        live = self._shed_expired(batch, now)
+        tracer = get_tracer()
+        if tracer.enabled and live:
+            # the micro-batch span adopts the FIRST live request's trace
+            # (one strict request -> batch -> engine chain); the sibling
+            # requests keep their own root spans and are recorded on it
+            live[0].batch_span = tracer.start_span(
+                "serving.microbatch", parent=live[0].span,
+                batch_size=len(live), shed=len(batch) - len(live),
+                member_traces=[r.span.trace_id for r in live
+                               if r.span is not None])
+        return live
 
     def _ragged_take(self, depth: int, now: float) -> int:
         """How many requests this flush pops (under the condition lock):
@@ -281,12 +319,15 @@ class DynamicBatcher:
         for r in batch:
             if r.expired(now):
                 self.metrics.incr("serving.shed_deadline")
+                flight_emit("serving.shed", reason="deadline",
+                            waited_s=round(now - r.enqueued_at, 4))
                 try:
                     r.future.set_exception(DeadlineExceededError(
                         f"deadline expired after "
                         f"{now - r.enqueued_at:.3f}s in queue"))
                 except InvalidStateError:
                     pass  # a client cancel() raced us
+                r.finish_span("shed")
             else:
                 live.append(r)
         if len(live) < len(batch):
@@ -310,6 +351,7 @@ class DynamicBatcher:
                                               "dispatch"))
                     except InvalidStateError:
                         pass  # a client cancel() raced the close
+                    r.finish_span("closed")
                 self.metrics.gauge("serving.queue_depth", 0.0)
             self._cond.notify_all()
 

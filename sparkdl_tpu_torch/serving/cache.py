@@ -1,5 +1,5 @@
 """Content-addressed inference result cache + single-flight coalescing
-(port of ``sparkdl_tpu/serving/cache.py``, without its flight events).
+(port of ``sparkdl_tpu/serving/cache.py``).
 
 The engine computes a deterministic function of (program, weights, input),
 so an identical input is an identical output.  A bounded (entries AND
@@ -49,7 +49,9 @@ weight digest) and :func:`head_fanout_benchmark`.
 
 Given the same sequence of lookups, settles and evictions, the counters
 (``cache.hits``, ``cache.misses``, ``cache.coalesced``,
-``cache.evictions``, ...) are the JAX package's.
+``cache.evictions``, ...) and the flight events (``cache.hit``,
+``cache.miss``, ``cache.coalesced``, ``cache.evict``,
+``cache.invalidate``) are the JAX package's.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ import numpy as np
 
 from sparkdl_tpu_torch.faults import inject
 from sparkdl_tpu_torch.faults.errors import InjectedFault
+from sparkdl_tpu_torch.obs.flight import emit as flight_emit
 from sparkdl_tpu_torch.parallel.engine import _tree_leaves, _tree_map
 from sparkdl_tpu_torch.utils.digest import content_digest
 from sparkdl_tpu_torch.utils.logging import get_logger
@@ -166,12 +169,13 @@ class InferenceCache:
                 self._data.pop(key)
                 self._data[key] = entry  # MRU position
                 entry.hits += 1
-                stored = entry.value
+                stored, hits = entry.value, entry.hits
             else:
                 flight = self._flights.get(key)
                 if flight is not None:
                     fut = Future()
                     flight.followers.append(fut)
+                    n_followers = len(flight.followers)
                 else:
                     flight = CacheFlight(key)
                     self._flights[key] = flight
@@ -180,11 +184,14 @@ class InferenceCache:
             # re-check — the entry was inserted microseconds ago,
             # under the lock we just held)
             self.metrics.incr("cache.hits")
+            flight_emit("cache.hit", hits=hits)
             return "hit", _tree_copy(stored)
         if fut is not None:
             self.metrics.incr("cache.coalesced")
+            flight_emit("cache.coalesced", followers=n_followers)
             return "follower", fut
         self.metrics.incr("cache.misses")
+        flight_emit("cache.miss")
         return "leader", flight
 
     def _probe(self, key: Tuple[Hashable, ...]) -> Optional[Any]:
@@ -198,7 +205,8 @@ class InferenceCache:
             self._data.pop(key)
             self._data[key] = entry  # MRU position
             entry.hits += 1
-            stored, digest = entry.value, entry.digest
+            stored, digest, hits, nbytes = (entry.value, entry.digest,
+                                            entry.hits, entry.nbytes)
         value = _tree_copy(stored)
         corrupted = False
         try:
@@ -218,6 +226,7 @@ class InferenceCache:
             self.invalidate_key(key)
             return None  # demoted to a miss: the request re-computes
         self.metrics.incr("cache.hits")
+        flight_emit("cache.hit", hits=hits, nbytes=nbytes)
         return value
 
     def settle(self, flight: CacheFlight, value: Any,
@@ -231,7 +240,7 @@ class InferenceCache:
         stored = _tree_copy(value)
         nbytes = _tree_nbytes(stored)
         digest = content_digest(stored)
-        evicted = 0
+        evicted: List[int] = []  # the evicted entries' bytes
         inserted = False
         with self._lock:
             followers = flight.followers
@@ -249,7 +258,7 @@ class InferenceCache:
                     k = next(iter(self._data))  # LRU = oldest position
                     old = self._data.pop(k)
                     self._bytes -= old.nbytes
-                    evicted += 1
+                    evicted.append(old.nbytes)
                 self._data[flight.key] = _Entry(stored, nbytes, digest)
                 self._bytes += nbytes
                 inserted = True
@@ -258,8 +267,9 @@ class InferenceCache:
             self.metrics.incr("cache.inserts")
         self.metrics.gauge("cache.entries", entries)
         self.metrics.gauge("cache.bytes", total)
-        if evicted:
-            self.metrics.incr("cache.evictions", evicted)
+        for nb in evicted:
+            self.metrics.incr("cache.evictions")
+            flight_emit("cache.evict", nbytes=nb)
         for fut in followers:
             if not fut.done():
                 fut.set_result(_tree_copy(value))
@@ -304,6 +314,7 @@ class InferenceCache:
         self.metrics.incr("cache.invalidations")
         self.metrics.gauge("cache.entries", entries)
         self.metrics.gauge("cache.bytes", total)
+        flight_emit("cache.invalidate", scope="key", entries=1)
         return 1
 
     def invalidate(self, namespace: Tuple[Hashable, ...]) -> int:
@@ -322,6 +333,8 @@ class InferenceCache:
             self.metrics.incr("cache.invalidations", dropped)
             self.metrics.gauge("cache.entries", entries)
             self.metrics.gauge("cache.bytes", total)
+            flight_emit("cache.invalidate", scope="namespace",
+                        entries=dropped)
         return dropped
 
     def adopt(self, old_namespace: Tuple[Hashable, ...],

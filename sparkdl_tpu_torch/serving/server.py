@@ -17,7 +17,14 @@ Production envelope:
   * graceful drain on ``close()`` / context-manager exit, which then gives
     the buckets' graph pool back to the card;
   * ``utils.metrics`` counters, gauges and latency histograms (queue
-    depth, batch fill ratio, time in queue, p50/p99 latency).
+    depth, batch fill ratio, time in queue, p50/p99 latency);
+  * observability (:mod:`sparkdl_tpu_torch.obs`), as in the JAX package:
+    a ``serving.request`` root span per request, the micro-batch span and
+    the engine's spans under it, the slowest requests' span trees as
+    exemplars, ``serving.shed`` / ``serving.drain`` / ``batch.topoff``
+    flight events, declarative ``slos=`` evaluated in
+    ``health()["slo"]``, and ``cost=`` attribution of every settled batch
+    and cache hit to its tenants.
 
 The buckets' engines are siblings (:meth:`InferenceEngine.sibling`): one
 device copy of the weights, one set of fold caches and one graph pool for
@@ -33,10 +40,9 @@ asked for, and ``RuntimeError`` without a card; it never serves from the
 CPU quietly.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-queue A item): ``slos`` and ``cost`` (observability), a ``mesh``,
-``partition_rules``, ``param_shardings`` and ``donate_batch=True`` (the
-mesh, with the rest of training).  ``varz()`` keeps the JAX package's
-keys; its ``cost``, ``sharding`` and ``exemplars`` sections read None.
+queue A item): a ``mesh``, ``partition_rules``, ``param_shardings`` and
+``donate_batch=True`` (the mesh, with the rest of training).  ``varz()``
+keeps the JAX package's keys; its ``sharding`` section reads None.
 
 :class:`HeadFanoutServer` serves many tenants' heads over one backbone
 ``Server`` at the feature cut: a warm content digest costs a head pass
@@ -45,6 +51,7 @@ only.
 
 from __future__ import annotations
 
+import inspect
 import threading
 import time
 from concurrent.futures import Future, InvalidStateError
@@ -55,6 +62,9 @@ import torch.nn as nn
 
 from sparkdl_tpu_torch import DeviceLike, resolve_device
 from sparkdl_tpu_torch.faults import inject
+from sparkdl_tpu_torch.obs.exemplar import ExemplarReservoir
+from sparkdl_tpu_torch.obs.flight import emit as flight_emit
+from sparkdl_tpu_torch.obs.trace import get_tracer
 from sparkdl_tpu_torch.parallel.engine import (CircuitOpenError,
                                                InferenceEngine, _tree_map,
                                                effective_device_batch)
@@ -197,6 +207,12 @@ def _settle_error(requests: Sequence[Request], exc: BaseException) -> None:
                 r.future.set_exception(exc)
             except InvalidStateError:  # lost a race with the watchdog
                 pass
+        r.finish_span("error")
+    if requests:
+        bs = requests[0].batch_span
+        if bs is not None:
+            requests[0].batch_span = None
+            bs.finish("error")
 
 
 def _not_ported(what: str, item: str,
@@ -257,6 +273,15 @@ class Server:
       * ``clock``: the monotonic clock deadlines, queue ages and latency
         read (the real clock by default); the drain wait, the watchdog and
         the follower deadline guard stay on the real clock.
+      * ``slos``: declarative :class:`~sparkdl_tpu_torch.obs.slo.SLO`
+        objectives over this server's metrics, evaluated on every
+        :meth:`health` poll; a breach degrades health and names the
+        objective, and the evaluation rides ``health()["slo"]``.
+      * ``cost``: the :class:`~sparkdl_tpu_torch.obs.cost.CostLedger`
+        every settled batch and cache hit is charged to (None = the
+        ``SPARKDL_COST`` default, False = unmetered); ``model_desc`` is
+        the model name its lines carry (default the zoo name or the fn's
+        name).
     """
 
     def __init__(self, model, module: Optional[nn.Module] = None, *,
@@ -287,11 +312,8 @@ class Server:
                  param_shardings: Any = None,
                  metrics: Optional[Metrics] = None,
                  clock: Optional[Callable[[], float]] = None,
-                 cost: Any = None):
-        if slos:
-            raise _not_ported("slos=", "item 6, observability")
-        if cost not in (None, False):
-            raise _not_ported("cost=", "item 6, observability")
+                 cost: Any = None,
+                 model_desc: Optional[str] = None):
         if mesh is not None:
             raise _not_ported("mesh=", "item 4, parallel/mesh.py")
         if partition_rules is not None or param_shardings is not None:
@@ -303,6 +325,11 @@ class Server:
         self._device = resolve_device(device)
         self._fn, self._module, overrides = _resolve_model(
             model, module, featurize)
+        # the model name the cost ledger's lines carry
+        self.model_desc = (model_desc if model_desc is not None
+                           else (model if isinstance(model, str)
+                                 else getattr(model, "__name__",
+                                              type(model).__name__)))
         if compute_dtype is None and output_host_dtype is None:
             compute_dtype = overrides.get("compute_dtype")
             output_host_dtype = overrides.get("output_host_dtype")
@@ -326,7 +353,24 @@ class Server:
         # ready <-> degraded: an engine's failed dispatch attempt (even one
         # a retry later absorbs) and a failed batch note degraded, the next
         # served batch notes ready
-        self._health = HealthTracker()
+        self._health = HealthTracker("serving.health")
+        # cost attribution: None resolves SPARKDL_COST, False is unmetered,
+        # a CostLedger may be shared; the first health binder wins
+        from sparkdl_tpu_torch.obs.cost import resolve_cost
+
+        self._cost = resolve_cost(cost)
+        if self._cost is not None:
+            self._cost.bind_health(self._health)
+        self._cost_hbm: Dict[int, float] = {}
+        # declarative objectives over this server's metrics, evaluated on
+        # every health() poll; a breach degrades the same tracker
+        self._slo_engine = None
+        if slos:
+            from sparkdl_tpu_torch.obs.slo import SLOEngine
+
+            self._slo_engine = SLOEngine(self.metrics, slos,
+                                         health=self._health,
+                                         clock=self._clock)
         # owned (auto-generated anon) namespaces are reclaimed from the
         # possibly shared store by close()
         self._cache, self._cache_ns, self._cache_ns_owned = resolve_cache(
@@ -341,6 +385,8 @@ class Server:
             max_queue=max_queue,
             bucket_plan=self._buckets if self._ragged else None,
             metrics=self.metrics, clock=self._clock)
+        # the slowest requests' span trees (inert while tracing is off)
+        self.exemplars = ExemplarReservoir(k=4)
         self._closed = False
         self._abandon = threading.Event()
         self._inflight = 0
@@ -441,7 +487,13 @@ class Server:
         (False once closed), ``state`` (``ready``, ``degraded`` while a
         breaker is open or half-open or after a failure with no success
         since, or ``closed``), ``last_error``, the bounded ``transitions``
-        history, and ``breaker`` (per-bucket circuit-breaker state)."""
+        history, ``breaker`` (per-bucket circuit-breaker state), and
+        ``slo``, the objectives' evaluation when ``slos=`` were given (each
+        poll takes one burn-rate sample, before the snapshot, so a breach
+        crossing on this poll already shows as degraded)."""
+        extra: Dict[str, Any] = {}
+        if self._slo_engine is not None:
+            extra["slo"] = self._slo_engine.evaluate()
         breakers = self._breaker_states()
         state_override = None
         if any(st["state"] in ("open", "half_open")
@@ -451,7 +503,7 @@ class Server:
             state_override = "closed"
         return self._health.payload(live=not self._closed,
                                     state_override=state_override,
-                                    breaker=breakers)
+                                    breaker=breakers, **extra)
 
     # -- request path ------------------------------------------------------
     def submit(self, example: Any,
@@ -459,9 +511,10 @@ class Server:
                tenant: Optional[str] = None) -> Future:
         """Admit one example; returns its ``concurrent.futures.Future``.
 
-        ``tenant`` is the JAX package's cost-attribution identity: it is
-        recorded on the request (``Request.tenant``) and changes nothing
-        else until cost attribution (ROADMAP.md queue A item 6) is ported.
+        ``tenant`` is the cost-attribution identity: it changes nothing
+        about scheduling or admission, only which ledger line the
+        request's device and queue time land on (None charges
+        ``"default"``).
 
         Raises ``ServerClosedError`` after close, ``QueueFullError`` (with
         ``retry_after_s``) under backpressure, and
@@ -481,6 +534,22 @@ class Server:
             return self._submit_cached(example, timeout_ms, tenant)
         return self._submit_dispatch(example, timeout_ms, tenant=tenant)
 
+    def _charge_hit(self, tenant: Optional[str], kind: str) -> None:
+        """The ledger's zero-device-second charge for a cache-absorbed
+        request.  Attribution is observability: any failure (the
+        ``cost.attr`` fault site included) degrades to an error counter,
+        never a failed request."""
+        if self._cost is None:
+            return
+        try:
+            self._cost.record_hit(tenant=tenant or "default",
+                                  model=self.model_desc, kind=kind)
+        except Exception as e:  # noqa: BLE001 — attribution never fails a request
+            self.metrics.incr("serving.cost_attr_errors")
+            self._cost.record_error()
+            logger.warning("cost attribution (%s) failed: %s: %s", kind,
+                           type(e).__name__, e)
+
     def _submit_cached(self, example: Any, timeout_ms: Optional[float],
                        tenant: Optional[str] = None) -> Future:
         """The cache-fronted request path; see :meth:`submit`."""
@@ -496,12 +565,14 @@ class Server:
             self.metrics.incr("serving.cache_hits")
             self.metrics.record_time("serving.request_latency",
                                      self._clock() - t0)
+            self._charge_hit(tenant, "hit")
             fut: Future = Future()
             fut.set_result(res)
             return fut
         if kind == "follower":
             self.metrics.incr("serving.requests")
             self.metrics.incr("serving.cache_coalesced")
+            self._charge_hit(tenant, "coalesced")
 
             def _follower_done(f: Future) -> None:
                 if not f.cancelled() and f.exception() is None:
@@ -572,6 +643,8 @@ class Server:
             # rejected_* by requests
             self.metrics.incr("serving.requests")
             self.metrics.incr("serving.rejected_breaker_open")
+            flight_emit("serving.shed", reason="breaker_open",
+                        retry_after_s=round(retry_after, 4))
             raise ServiceUnavailableError(
                 f"dispatch circuit breaker open (device failing); "
                 f"retry in {retry_after:.2f}s", retry_after_s=retry_after)
@@ -585,8 +658,18 @@ class Server:
         deadline = None if timeout_s is None else now_m + timeout_s
         req = Request(example, deadline, now=now_m,
                       tenant=tenant if tenant is not None else "default")
+        tracer = get_tracer()
+        if tracer.enabled:
+            # the root span of this request's trace: submit -> settle
+            req.span = tracer.start_span(
+                "serving.request",
+                timeout_ms=None if timeout_s is None else timeout_s * 1e3)
         self.metrics.incr("serving.requests")
-        self._batcher.submit(req)
+        try:
+            self._batcher.submit(req)
+        except BaseException:
+            req.finish_span("rejected")
+            raise
         return req.future
 
     def predict(self, example: Any,
@@ -647,18 +730,44 @@ class Server:
         finally:
             finish()
 
+    @staticmethod
+    def _metered_kwargs(eng, on_metered) -> Dict[str, Any]:
+        """``{"on_metered": ...}`` only when ``eng`` takes it: a plain
+        ``fn(batch)`` substituted for the engine (tests, embedders) still
+        serves, it just does not feed the ledger's device-time meter (nor
+        the engine's ``engine.device_time_s``, so conservation holds).  The
+        signature probe is cached on the callable."""
+        if on_metered is None:
+            return {}
+        cached = getattr(eng, "_sdl_accepts_on_metered", None)
+        if cached is None:
+            try:
+                params = inspect.signature(eng).parameters
+                cached = ("on_metered" in params or any(
+                    p.kind is inspect.Parameter.VAR_KEYWORD
+                    for p in params.values()))
+            except (TypeError, ValueError):
+                cached = False
+            try:
+                eng._sdl_accepts_on_metered = cached
+            except AttributeError:
+                pass
+        return {"on_metered": on_metered} if cached else {}
+
     def _guarded_call(self, eng, stacked, requests: List[Request],
-                      finish: _Once):
+                      finish: _Once, on_metered=None):
         """One model-call ATTEMPT under the stall watchdog.  The timer is
         armed per attempt and covers ONLY the engine call (a bucket's first
         call, warm-up forward and capture, ran untimed in ``_execute``; the
         demux runs after the timer is disarmed).  The ``serving.model``
         fault site sits INSIDE the window (a ``sleep`` rule is a wedged
         model the watchdog must catch; an ``error`` rule a per-batch model
-        failure)."""
+        failure).  ``on_metered`` receives the attempt's metered engine
+        seconds (the cost ledger's device time)."""
+        meter_kw = self._metered_kwargs(eng, on_metered)
         if self._dispatch_timeout_s is None:
             inject("serving.model")
-            return eng(stacked)
+            return eng(stacked, **meter_kw)
         attempt_done = threading.Event()
 
         def on_stall():
@@ -679,7 +788,7 @@ class Server:
         timer.start()
         try:
             inject("serving.model")
-            return eng(stacked)
+            return eng(stacked, **meter_kw)
         finally:
             attempt_done.set()
             timer.cancel()
@@ -703,11 +812,14 @@ class Server:
         if extras:
             self.metrics.incr("serving.topoffs")
             self.metrics.incr("serving.topoff_rows", len(extras))
+            flight_emit("batch.topoff", rows=len(extras), base=base,
+                        bucket=bucket)
         return extras
 
     def _execute(self, requests: List[Request], finish: _Once) -> None:
         n = len(requests)
         bucket = self._bucket_for(n)
+        extras: List[Request] = []
         if self._ragged and n < bucket and len(
                 {DynamicBatcher._payload_signature(r.payload)
                  for r in requests}) == 1:
@@ -722,9 +834,11 @@ class Server:
                 requests.extend(extras)
                 n = len(requests)
         now = self._clock()
+        queue_by: Dict[str, float] = {}
         for r in requests:
-            self.metrics.record_time("serving.time_in_queue",
-                                     now - r.enqueued_at)
+            waited = now - r.enqueued_at
+            self.metrics.record_time("serving.time_in_queue", waited)
+            queue_by[r.tenant] = queue_by.get(r.tenant, 0.0) + waited
         stacked = _tree_map(lambda *rows: np.stack(rows, axis=0),
                             *[r.payload for r in requests])
         eng = self._engine_for(bucket)
@@ -734,14 +848,33 @@ class Server:
             # real model)
             eng(_tree_map(np.zeros_like, stacked))
             self._warm.add(bucket)
+        tracer = get_tracer()
+        batch_span = requests[0].batch_span
+        if batch_span is not None:
+            batch_span.annotate(bucket=bucket)
+            if extras:
+                # the late arrivals ride this batch too: their traces join
+                # its members (the JAX batch span leaves them out)
+                batch_span.annotate(
+                    batch_size=n, topped_off=len(extras),
+                    member_traces=batch_span.attrs["member_traces"] + [
+                        r.span.trace_id for r in extras
+                        if r.span is not None])
         t0 = time.monotonic()  # real: batch_seconds_hint sizes real waits
-        # CircuitOpenError is exempt from the batch retry budget: an open
-        # breaker fails fast by design
-        out = with_retries(
-            lambda: self._guarded_call(eng, stacked, requests, finish),
-            max_retries=self._max_retries,
-            non_retryable=NON_RETRYABLE + (CircuitOpenError,),
-            backoff_seconds=self._retry_backoff_s)
+        # per-attempt metered engine seconds, the ledger's device time: a
+        # retried batch is charged what every attempt burned
+        metered: List[float] = []
+        # this worker re-roots on the micro-batch span, so the engine's
+        # spans (engine.call -> engine.dispatch) nest under it
+        with tracer.use(batch_span):
+            # CircuitOpenError is exempt from the batch retry budget: an
+            # open breaker fails fast by design
+            out = with_retries(
+                lambda: self._guarded_call(eng, stacked, requests, finish,
+                                           on_metered=metered.append),
+                max_retries=self._max_retries,
+                non_retryable=NON_RETRYABLE + (CircuitOpenError,),
+                backoff_seconds=self._retry_backoff_s)
         batch_s = time.monotonic() - t0
         self._note_success()  # a served batch flips health back to ready
         self._batcher.batch_seconds_hint = batch_s
@@ -749,7 +882,13 @@ class Server:
         self.metrics.record_time("serving.batch_latency", batch_s)
         self.metrics.observe("serving.batch_fill_ratio",
                              n / eng.device_batch_size)
+        # charge the settled batch BEFORE its futures resolve, so a caller
+        # that reads the ledger after its result sees it charged
+        if self._cost is not None:
+            self._charge_batch(eng, bucket, requests, metered, queue_by)
         done = self._clock()
+        slowest: Optional[Request] = None
+        slowest_s = 0.0
         for i, r in enumerate(requests):
             if r.future.done():
                 continue  # the watchdog raced us; result discarded
@@ -759,10 +898,54 @@ class Server:
             try:
                 r.future.set_result(row)
                 self.metrics.incr("serving.completed")
+                latency_s = done - r.enqueued_at
                 self.metrics.record_time("serving.request_latency",
-                                         done - r.enqueued_at)
+                                         latency_s)
+                if latency_s >= slowest_s:
+                    slowest, slowest_s = r, latency_s
             except InvalidStateError:
                 pass
+        # close the micro-batch span BEFORE the request roots, so every
+        # child sits inside its parent, then offer the slowest request's
+        # trace to the exemplars (a float compare unless it is a new top-K
+        # outlier; a no-op with tracing off)
+        if batch_span is not None:
+            requests[0].batch_span = None
+            batch_span.finish()
+        slow_trace = (slowest.span.trace_id
+                      if slowest is not None and slowest.span is not None
+                      else None)
+        for r in requests:
+            r.finish_span()
+        if slow_trace is not None:
+            self.exemplars.offer(slowest_s, slow_trace, tracer)
+
+    def _charge_batch(self, eng, bucket: int, requests: List[Request],
+                      metered: List[float],
+                      queue_by: Dict[str, float]) -> None:
+        """Attribute one settled batch: each tenant's real rows, the pad
+        rows, the metered engine seconds summed over the attempts, the
+        queue seconds per tenant, and the bucket engine's parameter bytes
+        on the card.  Degrade, not fail: the batch served, so an
+        attribution failure (``cost.attr``) is an error counter."""
+        try:
+            tenant_rows: Dict[str, int] = {}
+            for r in requests:
+                tenant_rows[r.tenant] = tenant_rows.get(r.tenant, 0) + 1
+            hbm = self._cost_hbm.get(bucket)
+            if hbm is None:
+                hbm = self._cost_hbm[bucket] = float(eng.param_bytes)
+            self._cost.record_batch(
+                model=self.model_desc, bucket=bucket,
+                tenant_rows=tenant_rows, device_s=sum(metered),
+                queue_s_by_tenant=queue_by, pad_rows=bucket - len(requests),
+                hbm_bytes=hbm)
+        except Exception as e:  # noqa: BLE001 — the batch served; attribution degrades
+            self.metrics.incr("serving.cost_attr_errors")
+            self._cost.record_error()
+            logger.warning("cost attribution failed for batch of %d "
+                           "(bucket %d): %s: %s", len(requests), bucket,
+                           type(e).__name__, e)
 
     # -- lifecycle ---------------------------------------------------------
     @property
@@ -820,9 +1003,11 @@ class Server:
         """The ``/varz``-shaped structured form of :meth:`stats`, with the
         JAX package's keys: server config/state, health, ``serving.*``
         counters, latency p50/p99 in ms, the full metrics snapshot
-        (``obs.export.metrics_snapshot``) and the cache section.  ``cost``,
-        ``sharding`` and ``exemplars`` read None until their modules are
-        ported.  JSON-serializable throughout."""
+        (``obs.export.metrics_snapshot``), the cache section, the cost
+        ledger's snapshot (None when unmetered) and the slow-request
+        exemplars (full span trees of the slowest requests; filled only
+        while tracing is on).  ``sharding`` reads None (no mesh on one
+        card).  JSON-serializable throughout."""
         from sparkdl_tpu_torch.obs.export import metrics_snapshot
 
         m = self.metrics
@@ -856,9 +1041,10 @@ class Server:
             "metrics": snap,
             "cache": (self._cache.info() if self._cache is not None
                       else None),
-            "cost": None,
+            "cost": (self._cost.snapshot() if self._cost is not None
+                     else None),
             "sharding": None,
-            "exemplars": None,
+            "exemplars": self.exemplars.snapshot(),
         }
 
     def close(self, drain: bool = True,
@@ -878,6 +1064,8 @@ class Server:
             self._batcher.close(drain=drain)
             return
         self._closed = True
+        flight_emit("serving.drain", drain=drain,
+                    queued=self._batcher.depth())
         try:
             self._batcher.close(drain=drain)
             self._dispatcher.join(timeout=timeout_s)
@@ -947,13 +1135,19 @@ class HeadFanoutServer:
     atomically under its lock, so in-flight requests settle with the old
     head's row or the new one.
 
+    ``cost``: one :class:`~sparkdl_tpu_torch.obs.cost.CostLedger` for the
+    tier (None = the ``SPARKDL_COST`` default, False = unmetered): the
+    backbone's batches and hits and this tier's feature hits land on the
+    same ledger, under ``model_desc``.  A warm request is a
+    ``cache.feature_hit`` flight event; the bank's mutations are
+    ``head.swap`` events.
+
     Differences from the JAX package: the weight digest is the port's own
     digest of the backbone module's state
     (``utils.digest.module_digest``), so the namespaces differ between the
     packages; the port has no program lockfile, so the fingerprint is None
-    and the namespace pins ``"unpinned"``; no flight events
-    (``head.swap``, ``cache.feature_hit``) are emitted and ``cost=`` raises
-    (both ROADMAP.md queue A item 6); ``mesh=`` raises (item 4)."""
+    and the namespace pins ``"unpinned"``; ``mesh=`` raises (ROADMAP.md
+    queue A item 4)."""
 
     def __init__(self, model, module: Optional[nn.Module] = None, *,
                  head_fn: Optional[Callable] = None,
@@ -972,9 +1166,6 @@ class HeadFanoutServer:
 
         if mesh is not None:
             raise _not_ported("mesh=", "item 4, parallel/mesh.py",
-                              "HeadFanoutServer")
-        if cost not in (None, False):
-            raise _not_ported("cost=", "item 6, observability",
                               "HeadFanoutServer")
         self._device = resolve_device(device)
         if isinstance(model, str):
@@ -1012,11 +1203,20 @@ class HeadFanoutServer:
             server_kwargs.setdefault(k, v)
         resolved_cache, _, _ = resolve_cache(cache, self._feature_ns,
                                              "headfanout")
+        # one ledger for the tier: the feature hits charged here and the
+        # backbone's batches land on the same instance
+        from sparkdl_tpu_torch.obs.cost import resolve_cost
+
+        self._cost = resolve_cost(cost)
         self._backbone = Server(fn, module, device=self._device,
                                 cache=(resolved_cache if resolved_cache
                                        is not None else False),
                                 cache_namespace=self._feature_ns,
-                                metrics=self.metrics, **server_kwargs)
+                                metrics=self.metrics,
+                                cost=(self._cost if self._cost is not None
+                                      else False),
+                                model_desc=self.model_desc,
+                                **server_kwargs)
         self._bank = HeadBank(head_fn=head_fn,
                               hbm_budget_bytes=hbm_budget_bytes,
                               metrics=self.metrics, device=self._device)
@@ -1116,6 +1316,8 @@ class HeadFanoutServer:
         feats_value = self._feature_probe(example)
         if feats_value is not None:
             self.metrics.incr("headfanout.feature_hits")
+            flight_emit("cache.feature_hit", tenant=tenant)
+            self._charge_feature_hit(tenant)
             out: Future = Future()
             try:
                 row = self._head_row(feats_value, tenant)
@@ -1164,6 +1366,8 @@ class HeadFanoutServer:
             feats = self._feature_probe(ex)
             if feats is not None:
                 self.metrics.incr("headfanout.feature_hits")
+                flight_emit("cache.feature_hit", tenant=tenants[i])
+                self._charge_feature_hit(tenants[i])
                 rows[i] = np.asarray(feats)
             else:
                 pending.append(
@@ -1174,6 +1378,20 @@ class HeadFanoutServer:
         out = self._bank.dispatch(np.stack(rows), tenants)
         self.metrics.incr("headfanout.head_passes")
         return [out[i] for i in range(len(tenants))]
+
+    def _charge_feature_hit(self, tenant: str) -> None:
+        """The ledger's charge for a feature-cut short-circuit, with
+        ``Server._charge_hit``'s degrade-not-fail contract."""
+        if self._cost is None:
+            return
+        try:
+            self._cost.record_hit(tenant=tenant, model=self.model_desc,
+                                  kind="feature_hit")
+        except Exception as e:  # noqa: BLE001 — attribution never fails a request
+            self.metrics.incr("serving.cost_attr_errors")
+            self._cost.record_error()
+            logger.warning("cost attribution (feature_hit) failed: "
+                           "%s: %s", type(e).__name__, e)
 
     # -- proof / observability surfaces -----------------------------------
     def executable_state(self) -> Dict[int, Dict[str, Any]]:
@@ -1214,6 +1432,11 @@ class HeadFanoutServer:
         return self._backbone.cache
 
     @property
+    def cost(self):
+        """The tier's cost ledger (None when unmetered)."""
+        return self._cost
+
+    @property
     def bucket_sizes(self) -> List[int]:
         return self._backbone.bucket_sizes
 
@@ -1233,7 +1456,8 @@ class HeadFanoutServer:
         section (bank stats, fan-out identity, namespace, feature-hit
         counters, the last swap report), with the fan-out's counters also
         in the cache section as ``cache.feature_hits`` /
-        ``cache.feature_requests`` (the JAX package's schema)."""
+        ``cache.feature_requests`` (the JAX package's schema), and the
+        tier's cost ledger snapshot as ``cost``."""
         doc = self._backbone.varz()
         snap = doc.get("metrics", {}).get("counters", {})
         doc["headfanout"] = {
@@ -1252,6 +1476,8 @@ class HeadFanoutServer:
                 "headfanout.feature_hits", 0)
             counters["cache.feature_requests"] = snap.get(
                 "headfanout.requests", 0)
+        if self._cost is not None:
+            doc["cost"] = self._cost.snapshot()
         return doc
 
     def close(self, drain: bool = True,

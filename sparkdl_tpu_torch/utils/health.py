@@ -6,8 +6,10 @@
 failure/success outcomes, a ``last_error`` that survives recovery for
 post-mortems, and a bounded ``transitions`` history so a ``degraded ->
 ready`` recovery is observable after a point-in-time poll would have raced
-past it.  The same states, transitions and bound as the JAX package's;
-the tracker emits no flight events (``obs/flight.py`` is not ported).
+past it.  The same states, transitions and bound as the JAX package's, and
+the same flight events: ``health.degraded`` and ``health.ready``, emitted
+after the tracker's lock is released (a ``health.degraded`` also triggers
+the recorder's durable dump when a blackbox directory is configured).
 
 Timestamps are ``time.monotonic`` (never wall clock): they order
 transitions and measure gaps.
@@ -19,6 +21,8 @@ import threading
 import time
 from collections import deque
 from typing import Any, Dict, Optional
+
+from sparkdl_tpu_torch.obs.flight import emit as flight_emit
 
 #: The shared state vocabulary every health() surface speaks.
 HEALTH_STATES = ("ready", "degraded", "closed")
@@ -53,10 +57,13 @@ class HealthTracker:
     """The ready/degraded half of a ``health()`` snapshot.  Owners layer
     their own overrides on top (``closed``, breaker-open); this class owns
     only the failure/success-driven core state, with at most ``maxlen``
-    transitions kept.  (The JAX package's lock name and tracker name label
-    flight events, which the port does not emit.)"""
+    transitions kept.  ``name`` labels the tracker in flight events
+    (default ``lock_name``, the JAX package's signature; the port's lock
+    is a plain ``threading.Lock``)."""
 
-    def __init__(self, maxlen: int = 64):
+    def __init__(self, lock_name: str = "health", maxlen: int = 64,
+                 name: Optional[str] = None):
+        self.name = name if name is not None else lock_name
         self._lock = threading.Lock()
         self._state = "ready"
         self._transitions: deque = deque(
@@ -66,7 +73,9 @@ class HealthTracker:
 
     def note_failure(self, exc: BaseException) -> None:
         """Record one failed attempt: state -> degraded (idempotent:
-        repeated failures extend the episode, not the history)."""
+        repeated failures extend the episode, not the history).  The
+        transition emits ``health.degraded``."""
+        transitioned = False
         with self._lock:
             self._last_error = {
                 "type": type(exc).__name__,
@@ -78,16 +87,25 @@ class HealthTracker:
                 self._transitions.append(
                     {"state": "degraded",
                      "t_monotonic": round(time.monotonic(), 3)})
+                transitioned = True
+        if transitioned:
+            flight_emit("health.degraded", tracker=self.name,
+                        error=type(exc).__name__)
 
     def note_success(self) -> None:
         """Record recovery: state -> ready (no-op while already ready, so
-        steady-state success never grows the transition history)."""
+        steady-state success never grows the transition history).  The
+        transition emits ``health.ready``."""
+        transitioned = False
         with self._lock:
             if self._state != "ready":
                 self._state = "ready"
                 self._transitions.append(
                     {"state": "ready",
                      "t_monotonic": round(time.monotonic(), 3)})
+                transitioned = True
+        if transitioned:
+            flight_emit("health.ready", tracker=self.name)
 
     def snapshot(self) -> Dict[str, Any]:
         """JSON-serializable ``{"state", "last_error", "transitions"}``

@@ -1,15 +1,42 @@
-"""Structured logging for the port (``sparkdl_tpu/utils/logging.py``
-without the trace-id hook): every subsystem gets a namespaced logger under
-``sparkdl_tpu_torch`` with one consistent format."""
+"""Structured logging for the port (port of ``sparkdl_tpu/utils/logging.py``):
+every subsystem gets a namespaced logger under ``sparkdl_tpu_torch`` with
+one consistent format.
+
+Trace correlation: while span tracing is on (``SPARKDL_TRACE``,
+:mod:`sparkdl_tpu_torch.obs.trace`), every record emitted from inside a
+span carries that span's trace id (`` trace=t0000af``), so log lines from
+the admission thread, the batcher, the dispatch workers and the pipeline
+stages join up with the trace artifacts.  With tracing off the hook is one
+global read per record and the format is unchanged.
+"""
 
 from __future__ import annotations
 
 import logging
 import os
 
-_FORMAT = "%(asctime)s %(levelname)s %(name)s: %(message)s"
+# %(name)s is the full dotted logger name (already prefixed);
+# %(trace)s is "" or " trace=<id>" (injected by _TraceContextFilter)
+_FORMAT = "%(asctime)s %(levelname)s %(name)s%(trace)s: %(message)s"
 _ROOT = "sparkdl_tpu_torch"
 _configured = False
+
+
+class _TraceContextFilter(logging.Filter):
+    """Stamps each record with the calling thread's current trace id
+    (empty when tracing is disabled or no span is open).  Imports the
+    tracer lazily, so logging never pulls ``obs`` in at import time."""
+
+    def filter(self, record: logging.LogRecord) -> bool:
+        tid = None
+        try:
+            from sparkdl_tpu_torch.obs.trace import current_trace_id
+
+            tid = current_trace_id()
+        except Exception:  # noqa: BLE001 — logging must never raise
+            pass
+        record.trace = f" trace={tid}" if tid else ""
+        return True
 
 
 def _configure_root():
@@ -24,6 +51,7 @@ def _configure_root():
         level = "INFO"
     handler = logging.StreamHandler()
     handler.setFormatter(logging.Formatter(_FORMAT))
+    handler.addFilter(_TraceContextFilter())
     root = logging.getLogger(_ROOT)
     root.addHandler(handler)
     root.setLevel(level)

@@ -1,6 +1,5 @@
-"""Named counters, gauges and bounded series (port of
-``sparkdl_tpu/utils/metrics.py`` without its ``jax.profiler`` context and
-step timer).
+"""Named counters, gauges and bounded series, the step timer and the
+throughput shape (port of ``sparkdl_tpu/utils/metrics.py``).
 
 The engine records its pad-to-bucket ledger (``engine.rows``,
 ``engine.pad_rows``), its failure domain (``engine.dispatch_errors``, ...),
@@ -15,14 +14,29 @@ Series are bounded: each timing or histogram list keeps at most
 ``max_samples`` recent samples (the oldest half is dropped on overflow), so
 percentiles and means describe the recent window while counters stay
 cumulative.
+
+Timers that must not let asynchronous CUDA work fake a speed-up
+(:meth:`Metrics.profile`, :class:`StepTimer`) wait for a ``block_on``
+tensor the way the JAX package calls ``jax.block_until_ready``: an event
+recorded on the current stream of its device, and waited on (never a
+whole-device synchronize).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+
+def _block(x) -> None:
+    # the span's wait (obs.trace), imported here: obs imports this module
+    from sparkdl_tpu_torch.obs.trace import _cuda_wait
+
+    _cuda_wait(x)
 
 
 @dataclass
@@ -143,3 +157,62 @@ class Metrics:
                 out[f"{k}.p50"] = self._percentile(v, 50)
                 out[f"{k}.p99"] = self._percentile(v, 99)
         return out
+
+    @contextlib.contextmanager
+    def profile(self, trace_dir: str, block_on=None):
+        """``torch.profiler`` around a section (the JAX package's
+        ``jax.profiler.trace`` context): writes a trace under
+        ``trace_dir`` (``*.pt.trace.json``, for TensorBoard or Perfetto),
+        with CUDA activity when a card is present; ``block_on`` (a tensor
+        tree or a CUDA event) is waited for inside the window, on its
+        stream, so asynchronous work does not hide the compute.  The
+        section's wall time lands in the ``profile`` timing."""
+        import torch
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        t0 = time.perf_counter()
+        with torch.profiler.profile(
+                activities=activities,
+                on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                    trace_dir)):
+            try:
+                yield self
+            finally:
+                if block_on is not None:
+                    _block(block_on)
+        self.record_time("profile", time.perf_counter() - t0)
+
+
+class StepTimer:
+    """Wall-clock timer that waits for the device's work before stopping."""
+
+    def __init__(self, metrics: Optional[Metrics] = None, name: str = "step"):
+        self.metrics = metrics
+        self.name = name
+        self.elapsed_s = 0.0
+
+    @contextlib.contextmanager
+    def time(self, block_on=None):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if block_on is not None:
+                _block(block_on)
+            self.elapsed_s = time.perf_counter() - t0
+            if self.metrics is not None:
+                self.metrics.record_time(self.name, self.elapsed_s)
+
+
+def throughput_counter(num_items: int, seconds: float,
+                       num_devices: int = 1) -> Dict[str, float]:
+    """items/sec and items/sec/chip: the baseline metric shape."""
+    ips = num_items / seconds if seconds > 0 else float("inf")
+    return {
+        "items_per_sec": ips,
+        "items_per_sec_per_chip": ips / max(1, num_devices),
+        "seconds": seconds,
+        "num_items": float(num_items),
+    }

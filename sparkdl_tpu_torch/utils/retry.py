@@ -1,7 +1,7 @@
 """Retry with jittered, capped exponential backoff (port of
 ``sparkdl_tpu/utils/retry.py`` without ``fit_with_retries``, which waits
-for the port's checkpointing, and without the flight-recorder event, which
-waits for ``obs/flight.py``).
+for the port's checkpointing).  Every re-execution is a ``retry.attempt``
+flight event.
 
 The engine's dispatch retry budget runs through :func:`with_retries`.
 Jitter draws come from an explicit ``random.Random`` when one is given, so
@@ -15,6 +15,7 @@ import random
 import time
 from typing import Any, Callable, Optional, Tuple, Type
 
+from sparkdl_tpu_torch.obs.flight import emit as flight_emit
 from sparkdl_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -75,6 +76,8 @@ def with_retries(fn: Callable[[], Any], *, max_retries: int = 2,
                 break
             logger.warning("attempt %d/%d failed (%s: %s); retrying",
                            attempt + 1, attempts, type(e).__name__, e)
+            flight_emit("retry.attempt", attempt=attempt + 1,
+                        of=attempts, error=type(e).__name__)
             if on_retry is not None:
                 on_retry(attempt, e)
             if backoff_seconds:

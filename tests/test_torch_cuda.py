@@ -358,3 +358,38 @@ def test_head_kernel_equals_plain_bit_for_bit(cuda, n, c):
     out = head_pass(feats, idx, kernel, bias)
     assert head_pass.launches == before + 1
     assert torch.equal(out, head_pass_reference(feats, idx, kernel, bias))
+
+
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_device_ms_from_timing_events_only_while_tracing(cuda, pipeline,
+                                                         monkeypatch):
+    """Tracing on: the span that forces each dispatch carries ``device_ms``
+    from the two timing events around its replay (``engine.call`` on the
+    serial path, ``pipeline.gather`` in the runner), and the outputs equal
+    tracing off bit for bit.  Tracing off: no timing event is made."""
+    from sparkdl_tpu_torch.obs import trace
+    from sparkdl_tpu_torch.parallel import engine as engine_mod
+
+    monkeypatch.setattr(trace, "_tracer", trace._tracer)
+    eng = _conv_engine()
+    x = _images(5, B * 3 + 2)
+    made = []
+    real = engine_mod._timing_event
+
+    def counted(stream):
+        made.append(1)
+        return real(stream)
+
+    monkeypatch.setattr(engine_mod, "_timing_event", counted)
+    trace.configure(enabled=False)
+    off = eng(x, pipeline=pipeline)
+    assert made == []
+    tracer = trace.configure(enabled=True)
+    on = eng(x, pipeline=pipeline)
+    np.testing.assert_array_equal(on, off)
+    forcing = "pipeline.gather" if pipeline else "engine.call"
+    spans = [s for s in tracer.snapshot() if s["name"] == forcing]
+    ms = [s["attrs"]["device_ms"] for s in spans]
+    assert len(ms) == (4 if pipeline else 1) and all(m > 0 for m in ms)
+    assert len(made) == 2 * 4  # a pair around each of the 4 replays
+    trace.configure(enabled=False)

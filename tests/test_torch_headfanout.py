@@ -563,8 +563,9 @@ def test_feature_cut_bundle(zoo):
 
 def test_device_rule_and_not_ported_arguments(monkeypatch):
     """Without a card and with no CPU asked for, the server and the bank
-    raise ``RuntimeError``; ``device="cpu"`` works anywhere; ``mesh=`` and
-    ``cost=`` name their ROADMAP items; on CUDA a non-f32 dense head is
+    raise ``RuntimeError``; ``device="cpu"`` works anywhere; ``mesh=``
+    names its ROADMAP item and a ``cost=`` that is no ``CostLedger`` is
+    refused, as the JAX server refuses it; on CUDA a non-f32 dense head is
     refused before the bank changes."""
     module = head_fanout_module(_variables())
     with sparkdl_tpu_torch.default_device(None):
@@ -581,7 +582,7 @@ def test_device_rule_and_not_ported_arguments(monkeypatch):
             assert srv.predict(_payload(1), "a").shape == (CLASSES,)
     with pytest.raises(NotImplementedError, match="item 4"):
         _server(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="CostLedger"):
         _server(cost=object())
     with pytest.raises(NotImplementedError, match="item 4"):
         HeadBank(mesh=object())

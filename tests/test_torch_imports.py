@@ -27,7 +27,8 @@ def _port_files():
         "sepconv_tiled_compare.py", "gen_wgmma.py", "pipeline_probe.py",
         "gen_keras_layers.py", "gen_keras_configs.py",
         "graph_count_probe.py", "keras_stage_probe.py", "gen_tf_graphs.py",
-        "tfgraph_fold_probe.py", "crc32c_timing.py")]
+        "tfgraph_fold_probe.py", "crc32c_timing.py",
+        "obs_overhead_probe.py")]
     return files
 
 
@@ -102,13 +103,20 @@ HEADFANOUT_SLICE = ("ops/head.py", "serving/fleet/__init__.py",
                     "serving/fleet/rollout.py")
 
 
+# Observability: spans, the flight recorder, exemplars, SLOs, the cost
+# ledger, and the crash-safe JSONL and trace-aware logging they ride.
+OBS_SLICE = ("obs/trace.py", "obs/flight.py", "obs/exemplar.py",
+             "obs/slo.py", "obs/cost.py", "utils/jsonl.py",
+             "utils/logging.py")
+
+
 def test_port_imports_nothing_of_jax():
     files = _port_files()
     assert len(files) > 15 and all(f.exists() for f in files)
     assert (ROOT / "sparkdl_tpu_torch" / "native" / "sparkdl_native.cpp"
             ).exists()
     for rel in (ENGINE_CORE + KERAS_SLICE + TUNING_SLICE + TF_SLICE
-                + SERVING_SLICE + HEADFANOUT_SLICE):
+                + SERVING_SLICE + HEADFANOUT_SLICE + OBS_SLICE):
         assert ROOT / "sparkdl_tpu_torch" / rel in files, rel
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in FORBIDDEN]
@@ -267,9 +275,8 @@ NOT_EXPORTED = {
                  "get_mesh": "parallel/mesh.py, queue A item 4",
                  "replicated_sharding": "parallel/mesh.py, queue A item 4",
                  "distributed": "parallel/distributed.py, queue A item 4"},
-    "utils": {"StepTimer": "utils/metrics.py's rest, queue A item 6",
-              "throughput_counter": "utils/metrics.py's rest, queue A "
-                                    "item 6"},
+    "utils": {},
+    "obs": {},
     "ops": {"fused_sepconv_flat": "the TPU's padded-flat row layout",
             "pad_to_flat": "the TPU's padded-flat row layout",
             "unflatten": "the TPU's padded-flat row layout"},

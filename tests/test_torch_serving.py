@@ -787,15 +787,29 @@ def test_server_rejects_unknown_model_form():
         Server(12345)
 
 
+# The mesh's arguments (ROADMAP.md queue A item 4) still raise; ``slos=``
+# and ``cost=`` are ported (tests/test_torch_obs.py), and a malformed value
+# of either is refused as the JAX server refuses it.  The ids are the ones
+# these cases had beside the two ``slos=`` / ``cost=`` cases.
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(slos=["p99"]), "item 6"),
-    (dict(cost=object()), "item 6"),
-    (dict(mesh=object()), "item 4"),
-    (dict(partition_rules=[]), "item 4"),
-    (dict(param_shardings={}), "item 4"),
-    (dict(donate_batch=True), "item 4"),
+    pytest.param(dict(mesh=object()), "item 4", id="kwargs2-item 4"),
+    pytest.param(dict(partition_rules=[]), "item 4", id="kwargs3-item 4"),
+    pytest.param(dict(param_shardings={}), "item 4", id="kwargs4-item 4"),
+    pytest.param(dict(donate_batch=True), "item 4", id="kwargs5-item 4"),
 ])
 def test_arguments_of_unported_modules_raise(setup, kwargs, item):
     _, module, _ = setup
     with pytest.raises(NotImplementedError, match=item):
         Server(_pfn, module, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs, match", [
+    (dict(slos=["p99"]), "SLO instances"),
+    (dict(cost=object()), "CostLedger"),
+])
+def test_malformed_slos_and_cost_refused_like_jax(setup, kwargs, match):
+    variables, module, _ = setup
+    with pytest.raises(TypeError, match=match):
+        jserving.Server(_jfn, variables, cache=False, **kwargs)
+    with pytest.raises(TypeError, match=match):
+        Server(_pfn, module, cache=False, **kwargs)
