@@ -149,7 +149,23 @@ points, with seeded random weights and batch 32:
     ``HeadFanoutServer`` with ``cost=`` (``head.swap``,
     ``cache.feature_hit``, a cost line per tenant); us a call of each
     instrumentation site disabled and enabled.  B1 and H1 counted in every
-    window.
+    window;
+  * [fleet] (last, after [obs]), the model fleet
+    (``sparkdl_tpu_torch.serving.fleet``): ``Fleet(max_batch_size=8,
+    max_wait_ms=2, bucket_sizes=[8], cost=CostLedger())`` serving a zoo
+    Xception at 299x299 (v1) and two versions of it (every float weight x
+    (1 + 1e-3 N(0,1))), f32 with TF32 off: one client's 500 requests
+    through the fleet and through the bare v1 ``Server`` (three runs a
+    side, in turns); 8 clients of three tenants (gold high priority,
+    silver, metered at burst 5) through a v2 canary at fraction 0.5
+    captured under the load, a promote whose first attempt an injected
+    ``fleet.swap`` fault fails, then a v3 canary rolled back: every row its
+    version's oracle row (a bare engine at batch 8) bit for bit,
+    ``no_recompile``, every bucket graph 30 B1 launches, the drained pools
+    released, req/s, p50 and p99 a window, the shared ledger's sentinel;
+    ``fleet.request`` spans parenting the servers' request spans; and a
+    fan-out entry (16 tenants' heads, a hot swap midway) bit for bit its
+    per-tenant oracle.  B1 and H1 counted in every window.
 
 B1 is also held against its plain version at ragged shapes (a pixel count
 that is not a multiple of 64, F = 200, all four ReLU variants), and each of
@@ -214,11 +230,13 @@ errors), one of [serving]'s (dispatches, relative errors, the closed
 loops' numbers, pools, launches), one of [headfanout]'s (the replay's
 passes, the hot swap, card vs CPU, pools, launches), one of [obs]'s
 (the loops, the overhead, device ms, the ledger, the faults, the
-subprocesses, the fan-out, us a site call, launches), one ``{"pools":
+subprocesses, the fan-out, us a site call, launches), one of [fleet]'s
+(the overhead, the windows, the rollout, pools, the ledger, the fan-out,
+launches), one ``{"pools":
 ...}`` line (the graph pools held after every phase, by phase; later
 phases add keys to it), one JSON line with every kernel's numbers (with
-its launches in [serving], [headfanout] and [obs]; H1's ``launches`` are
-its [headfanout] launches), and last the line
+its launches in [serving], [headfanout], [obs] and [fleet]; H1's
+``launches`` are its [headfanout] launches), and last the line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -4853,6 +4871,555 @@ def phase_obs(sepconv):
     return out
 
 
+FLEET_N = 48                    # seeded images the fleet serves
+FLEET_BATCH = 8                 # max_batch_size, and the fleet's one bucket
+FLEET_CLIENTS = 8               # closed-loop clients of the load
+FLEET_WINDOW = 300              # completed requests a measured window
+FLEET_V3_WINDOW = 120           # completed requests under the v3 canary
+FLEET_NOISE = 1e-3              # v2, v3: each float weight x (1 + 1e-3 N(0,1))
+FLEET_TENANTS = ("gold", "silver", "metered")   # request j of client k: k+j
+FLEET_METERED_BURST = 5         # the metered tenant's quota: burst 5, 1e-4/s
+FLEET_OVERHEAD_N = 500          # one client's loop, fleet vs the bare server
+FLEET_OVERHEAD_RUNS = 3         # runs a side, in turns
+FLEET_TRACED_N = 16             # requests with tracing on
+FLEET_FANOUT_TENANTS = 16
+FLEET_FANOUT_IMAGES = 24
+FLEET_FANOUT_N = 200            # fan-out requests, one swap_head midway
+
+
+def _perturbed(state, seed):
+    """``state`` with each floating tensor multiplied by 1 + FLEET_NOISE *
+    N(0, 1), drawn from a numpy seed in the state's order."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, t in state.items():
+        if t.is_floating_point():
+            noise = torch.from_numpy(rng.normal(size=tuple(t.shape)))
+            out[k] = t * (1 + FLEET_NOISE * noise.to(t.dtype))
+        else:
+            out[k] = t.clone()
+    return out
+
+
+def _fleet_oracle(fn, state, images):
+    """A version's rows from a bare engine at the fleet's bucket shape, over
+    a fresh Xception holding ``state``; the engine's graph is released
+    after."""
+    from sparkdl_tpu_torch.models import get_model_spec
+    from sparkdl_tpu_torch.parallel.engine import InferenceEngine
+
+    module = get_model_spec("Xception").build().eval()
+    module.load_state_dict(state)
+    eng = InferenceEngine(fn, module, device_batch_size=FLEET_BATCH)
+    rows = eng(images)
+    eng.release_graphs()
+    return rows
+
+
+def _fleet_counts(sepconv, servers, before, warmups, what):
+    """The launches of a counted window over ``servers`` (every server that
+    dispatched in it, by name; ``before`` their counters when it began,
+    missing for a server made inside it): B1 must be 30 a forward, the
+    forwards being the dispatches, each capture's eager warm-up forward and
+    the ``warmups`` warm-up dispatches made in it; B3 and B2 0."""
+    counts = read_counts(sepconv)
+    forwards = warmups
+    for name, srv in servers.items():
+        b = before.get(name, {})
+        c = srv.metrics.counters
+        forwards += int(c.get("serving.batches", 0)
+                        - b.get("serving.batches", 0))
+        forwards += int(c.get("engine.graph_captures", 0)
+                        - b.get("engine.graph_captures", 0))
+    want = dict(sepconv=SEPCONV_PER_FORWARD * forwards, sepconv_tiled=0,
+                mbconv=0)
+    check(counts == want, f"[fleet] {what}: launches {counts}, want {want} "
+                          f"({forwards} forwards)")
+    return counts
+
+
+def phase_fleet(sepconv):
+    """[fleet]: the model fleet (``sparkdl_tpu_torch.serving.fleet``) over
+    a zoo Xception at 299x299 (B1, 30 launches a forward), f32 with TF32
+    off.  ``Fleet(max_batch_size=8, max_wait_ms=2, bucket_sizes=[8],
+    cost=CostLedger())`` with entry ``xc``: v1 the zoo Xception, v2 and v3
+    its weights with every float tensor x (1 + 1e-3 N(0,1)), two seeds; the
+    oracles are each version's rows from a bare engine at batch 8 over a
+    fresh Xception, computed first.
+
+      1. the fleet's overhead: one client's loop of 500 requests through
+         ``Fleet.submit`` and through the bare v1 ``Server``, three runs a
+         side in turns;
+      2. the load: 8 closed-loop clients, tenants gold (``PRIORITY_HIGH``),
+         silver and metered (``TenantQuota(rate_per_s=1e-4, burst=5)``) in
+         turn, over 48 seeded images.  Windows of 300 completed requests
+         before the rollout, during a canary of v2 at fraction 0.5 (the
+         canary captured under the load), after the promote (the first
+         attempt failing under ``fleet.swap:error:at=1,times=1``, v1 still
+         deployed, the retry promoting), then 120 under a v3 canary and its
+         rollback.  Every row its version's oracle row bit for bit, both
+         v1 and v2 served, metered admitted at most 5 times,
+         ``no_recompile``, no capture on either server between the
+         canary's warm-up and the promote, every bucket graph (30, 0, 0)
+         launches, the drained versions' pools released, the ``rollout.*``
+         and ``fleet.shed`` events; req/s, p50, p99 a window, the pools,
+         the shared ledger's metered seconds and whether
+         ``cost.regression`` opened while two versions replayed;
+      3. 16 requests with tracing on: each ``fleet.request`` span parents
+         its server's request span; ``varz()`` through ``json.dumps``,
+         ``health()`` ready;
+      4. the fan-out entry: ``add_fanout_model("xc-heads", "Xception")``
+         with 16 tenants' f32 heads (C 100), 200 requests from 8 clients
+         with one ``swap_head`` midway: every row its tenant's oracle (the
+         zoo engine's feature row through the head alone) bit for bit, B1
+         and H1 counted.
+    """
+    from sparkdl_tpu_torch import faults
+    from sparkdl_tpu_torch.image.io import arrowStructsToBatch
+    from sparkdl_tpu_torch.models import get_model_spec
+    from sparkdl_tpu_torch.obs import flight as oflight
+    from sparkdl_tpu_torch.obs import trace as otrace
+    from sparkdl_tpu_torch.obs.cost import CostLedger
+    from sparkdl_tpu_torch.ops import head as hops
+    from sparkdl_tpu_torch.parallel.engine import (dense_head_row,
+                                                   graph_pool_bytes_held)
+    from sparkdl_tpu_torch.serving import (Fleet, QuotaExceededError,
+                                           ServiceUnavailableError,
+                                           TenantQuota)
+    from sparkdl_tpu_torch.serving.fleet import PRIORITY_HIGH
+    from sparkdl_tpu_torch.transformers import named_image as ni
+
+    tag = "fleet"
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    out = dict(card=card)
+    size = get_model_spec("Xception").input_size[0]
+    df = synthetic_frame(FLEET_N, size, SEED + 101)
+    images, ok = arrowStructsToBatch(df.table.column("image"), size, size)
+    check(ok.all(), f"[{tag}] synthetic images failed to decode")
+
+    # 1. setup: the oracles first, then the fleet
+    t0 = time.perf_counter()
+    fn = ni.zoo_model_fn("Xception", True)
+    v1_state = {k: t.clone() for k, t in
+                ni._cached_model("Xception").state_dict().items()}
+    states = {1: v1_state, 2: _perturbed(v1_state, SEED + 102),
+              3: _perturbed(v1_state, SEED + 103)}
+    oracle = {v: _fleet_oracle(fn, st, images) for v, st in states.items()}
+    oracle_s = time.perf_counter() - t0
+    check(all(np.isfinite(oracle[v]).all()
+              and oracle[v].shape == (FLEET_N, 2048) for v in oracle)
+          and not np.array_equal(oracle[2], oracle[1])
+          and not np.array_equal(oracle[3], oracle[1]),
+          f"[{tag}] oracles: finite (N, 2048) rows, v2 and v3 apart from v1")
+    recorder = oflight.configure(enabled=True, capacity=1 << 16)
+    otrace.configure(enabled=False)
+    ledger = CostLedger()
+    t0 = time.perf_counter()
+    fleet = Fleet(max_batch_size=FLEET_BATCH, max_wait_ms=2,
+                  bucket_sizes=[FLEET_BATCH], cost=ledger,
+                  quotas={"gold": TenantQuota(priority=PRIORITY_HIGH),
+                          "metered": TenantQuota(
+                              rate_per_s=1e-4, burst=FLEET_METERED_BURST)})
+    fleet.add_model("xc", "Xception", featurize=True,
+                    warm_example=images[0])
+    v1 = fleet._state("xc").server
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(v1.device.type == "cuda", f"[{tag}] v1 server not on the card")
+    launches = dict(sepconv=0, head_pass=0)
+
+    # 2. the fleet's overhead: one client through the fleet and the bare
+    # v1 server, in turns
+    def loop(submit):
+        lat = []
+        t1 = time.perf_counter()
+        for j in range(FLEET_OVERHEAD_N):
+            t2 = time.perf_counter()
+            submit(images[j % FLEET_N]).result(timeout=120)
+            lat.append(time.perf_counter() - t2)
+        wall = time.perf_counter() - t1
+        return dict(requests_per_s=FLEET_OVERHEAD_N / wall,
+                    p50_ms=float(np.percentile(lat, 50) * 1e3),
+                    p99_ms=float(np.percentile(lat, 99) * 1e3))
+
+    sides = {"fleet": lambda im: fleet.submit("xc", im, tenant="silver"),
+             "server": lambda im: v1.submit(im, tenant="silver")}
+    runs = {"fleet": [], "server": []}
+    before = {"v1": dict(v1.metrics.counters)}
+    reset_counts(sepconv)
+    for k in range(2 * FLEET_OVERHEAD_RUNS):
+        # fleet, server, server, fleet, fleet, server
+        side = ("fleet", "server")[(k + k // 2) % 2]
+        runs[side].append(loop(sides[side]))
+    counts = _fleet_counts(sepconv, {"v1": v1}, before, 0, "overhead loops")
+    launches["sepconv"] += counts["sepconv"]
+
+    def mean(side, key):
+        return float(np.mean([r[key] for r in runs[side]]))
+
+    overhead = {k: mean("fleet", k) / mean("server", k) - 1
+                for k in ("requests_per_s", "p50_ms", "p99_ms")}
+    out["overhead"] = dict(runs=runs, overhead=overhead)
+    for side, via in (("fleet", "Fleet.submit"),
+                      ("server", "the bare v1 Server")):
+        print(f"[{tag}] ({card}) 1 client, {FLEET_OVERHEAD_N} requests, "
+              f"through {via}: "
+              + "; ".join(f"{r['requests_per_s']:.1f} req/s, p50 "
+                          f"{r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms"
+                          for r in runs[side]), flush=True)
+    print(f"[{tag}] ({card}) the fleet's overhead over the bare server "
+          f"(mean of {FLEET_OVERHEAD_RUNS} runs a side): "
+          f"{overhead['requests_per_s'] * 100:+.2f}% req/s, "
+          f"{overhead['p50_ms'] * 100:+.2f}% p50, "
+          f"{overhead['p99_ms'] * 100:+.2f}% p99", flush=True)
+
+    # 3. the load, through a canary, a faulted promote and a rollback
+    lock = threading.Lock()
+    stop = threading.Event()
+    recs, sheds, errors = [], {}, []
+
+    def client(k):
+        j = 0
+        try:
+            while not stop.is_set():
+                i = (k + FLEET_CLIENTS * j) % FLEET_N
+                tenant = FLEET_TENANTS[(k + j) % len(FLEET_TENANTS)]
+                j += 1
+                t1 = time.perf_counter()
+                try:
+                    fut = fleet.submit("xc", images[i], tenant=tenant)
+                except (QuotaExceededError, ServiceUnavailableError) as e:
+                    with lock:
+                        key = (tenant, type(e).__name__)
+                        sheds[key] = sheds.get(key, 0) + 1
+                    continue
+                row = fut.result(timeout=120)
+                t2 = time.perf_counter()
+                with lock:
+                    recs.append((t2, t2 - t1, fut.fleet_version,
+                                 fut.fleet_canary, i, row, tenant))
+        except Exception as e:  # reported below, in the main thread
+            errors.append(e)
+
+    windows = {}
+
+    def window(name, n):
+        """Wait for ``n`` requests completed from now; the window's
+        requests are those completed between its two ends, and its batches
+        and metered seconds the shared ledger's between them."""
+        tot0 = ledger.snapshot()["totals"]
+        with lock:
+            start_n, t1 = len(recs), time.perf_counter()
+        deadline = t1 + 300
+        while time.perf_counter() < deadline and not errors:
+            with lock:
+                if len(recs) - start_n >= n:
+                    break
+            time.sleep(0.002)
+        check(not errors, f"[{tag}] clients failed: {errors[:1]}")
+        with lock:
+            done = recs[start_n:]
+        check(len(done) >= n, f"[{tag}] {name}: {len(done)} of {n} "
+                              f"requests in 300 s")
+        t2 = max(r[0] for r in done)
+        tot1 = ledger.snapshot()["totals"]
+        batches = tot1["batches"] - tot0["batches"]
+        metered = tot1["device_s"] - tot0["device_s"]
+        lat = np.asarray([r[1] for r in done])
+        windows[name] = dict(
+            batches=batches, metered_s=metered,
+            metered_ms_per_batch=metered / max(1, batches) * 1e3,
+            # above 1: metered calls overlapped (two workers of one
+            # server, or two versions' servers, metered at once)
+            metered_s_per_wall_s=metered / (time.perf_counter() - t1),
+            requests=len(done), seconds=t2 - t1,
+            requests_per_s=len(done) / (t2 - t1),
+            p50_ms=float(np.percentile(lat, 50) * 1e3),
+            p99_ms=float(np.percentile(lat, 99) * 1e3),
+            versions=sorted({r[2] for r in done}),
+            canary=sum(1 for r in done if r[3]))
+
+    def n_events(name):
+        return sum(1 for e in recorder.snapshot() if e["event"] == name)
+
+    def captures(srv):
+        return int(srv.metrics.counters.get("engine.graph_captures", 0))
+
+    pools, regress = {}, {}
+    before = {"v1": dict(v1.metrics.counters)}
+    reset_counts(sepconv)
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(FLEET_CLIENTS)]
+    for t in threads:
+        t.start()
+    try:
+        window("before the rollout", FLEET_WINDOW)
+        pools["before"] = graph_pool_bytes_held()
+        regress["before"] = n_events("cost.regression")
+        fleet.add_version("xc", states[2], label="v2")
+        t1 = time.perf_counter()
+        ro = fleet.start_rollout("xc", canary_fraction=0.5,
+                                 warm_example=images[0])
+        rollout_s = time.perf_counter() - t1
+        v2 = ro.canary_server
+        caps_start = (captures(v1), captures(v2))
+        window("during the canary", FLEET_WINDOW)
+        pools["canary"] = graph_pool_bytes_held()
+        regress["canary"] = n_events("cost.regression") - regress["before"]
+        open_canary = sorted(ledger.regressions())
+        graphs = {"v1": [g["launches"] for g in
+                         v1._engine_for(FLEET_BATCH).graphs()],
+                  "v2": [g["launches"] for g in
+                         v2._engine_for(FLEET_BATCH).graphs()]}
+        v1_pool = v1.graph_pool_bytes
+        caps_end = (captures(v1), captures(v2))
+        with faults.active(faults.FaultPlan.parse(
+                "fleet.swap:error:exc=transient,at=1,times=1")):
+            try:
+                fleet.promote("xc")
+                first_failed = False
+            except faults.InjectedTransientError:
+                first_failed = True
+            check(first_failed and fleet.deployed_version("xc") == 1
+                  and ro.active and not v1.closed,
+                  f"[{tag}] the faulted promote: raised {first_failed}, "
+                  f"deployed v{fleet.deployed_version('xc')}")
+            t1 = time.perf_counter()
+            report = fleet.promote("xc")
+            promote_s = time.perf_counter() - t1
+        check(fleet.deployed_version("xc") == 2 and v1.closed
+              and v1.graph_pool_bytes == 0,
+              f"[{tag}] promote: deployed v{fleet.deployed_version('xc')}, "
+              f"v1 closed {v1.closed}, its pool {v1.graph_pool_bytes}")
+        pools["after"] = graph_pool_bytes_held()
+        window("after the promote", FLEET_WINDOW)
+        regress["after"] = (n_events("cost.regression") - regress["before"]
+                            - regress["canary"])
+        fleet.add_version("xc", states[3], label="v3")
+        ro3 = fleet.start_rollout("xc", canary_fraction=0.5,
+                                  warm_example=images[0])
+        v3 = ro3.canary_server
+        window("during the v3 canary", FLEET_V3_WINDOW)
+        graphs["v3"] = [g["launches"] for g in
+                        v3._engine_for(FLEET_BATCH).graphs()]
+        v3_pool = v3.graph_pool_bytes
+        rollback = fleet.rollback("xc")
+        check(v3.closed and v3.graph_pool_bytes == 0
+              and fleet.deployed_version("xc") == 2,
+              f"[{tag}] rollback: v3 closed {v3.closed}, its pool "
+              f"{v3.graph_pool_bytes}")
+        pools["rolled_back"] = graph_pool_bytes_held()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"[{tag}] clients failed: {errors[:1]}")
+    counts = _fleet_counts(sepconv, {"v1": v1, "v2": v2, "v3": v3}, before,
+                           2, "the load")
+    launches["sepconv"] += counts["sepconv"]
+    bad = sum(not np.array_equal(row, oracle[v][i])
+              for _, _, v, _, i, row, _ in recs)
+    served = sorted({r[2] for r in recs})
+    snap = fleet.admission.snapshot()["tenants"]
+    names = {e["event"] for e in recorder.snapshot()}
+    check(bad == 0, f"[{tag}] {bad} of {len(recs)} rows differ from their "
+                    f"version's oracle row")
+    check(served == [1, 2, 3], f"[{tag}] versions served {served}")
+    check(snap["metered"]["admitted"] <= FLEET_METERED_BURST,
+          f"[{tag}] metered admitted {snap['metered']['admitted']} times")
+    check(report["no_recompile"] is True and caps_end == caps_start,
+          f"[{tag}] no_recompile {report['no_recompile']}, captures "
+          f"(v1, v2) {caps_start} at the canary's warm-up, {caps_end} at "
+          f"the promote; report {report['buckets']}")
+    check(all(g == [(SEPCONV_PER_FORWARD, 0, 0)] for g in graphs.values()),
+          f"[{tag}] bucket graphs' launches {graphs}")
+    check(pools["after"] == pools["canary"] - v1_pool
+          and pools["rolled_back"] == pools["after"] and v3_pool > 0,
+          f"[{tag}] pools {pools}, v1's {v1_pool}, v3's {v3_pool}")
+    check({"rollout.start", "rollout.promote", "rollout.rollback",
+           "fleet.shed"} <= names, f"[{tag}] events {sorted(names)}")
+    for name, w in windows.items():
+        print(f"[{tag}] ({card}) {FLEET_CLIENTS} clients, {name}: "
+              f"{w['requests_per_s']:.1f} req/s, p50 {w['p50_ms']:.3f} ms, "
+              f"p99 {w['p99_ms']:.3f} ms over {w['requests']} requests "
+              f"(versions {w['versions']}, {w['canary']} on the canary); "
+              f"{w['batches']} batches metered "
+              f"{w['metered_ms_per_batch']:.3f} ms each, "
+              f"{w['metered_s_per_wall_s']:.3f} metered s a wall s",
+              flush=True)
+    tot = ledger.snapshot()["totals"]
+    crossings = [e["attrs"] for e in recorder.snapshot()
+                 if e["event"] == "cost.regression"]
+    recovered = n_events("cost.recovered")
+    print(f"[{tag}] ({card}) rollout to v2: canary warm-up {rollout_s:.2f} s "
+          f"under load, promote {promote_s:.3f} s after one injected "
+          f"fleet.swap failure; no_recompile {report['no_recompile']}; "
+          f"captures (v1, v2) {caps_start} -> {caps_end}; every bucket "
+          f"graph {graphs}; {len(recs)} rows == their version's oracle "
+          f"bit for bit (served {served}); metered admitted "
+          f"{snap['metered']['admitted']}, shed {snap['metered']['shed']}; "
+          f"v3 rolled back ({rollback['phase']})", flush=True)
+    print(f"[{tag}] ({card}) graph pools held: before the rollout "
+          f"{pools['before'] / 2**20:.1f} MiB, during the canary "
+          f"{pools['canary'] / 2**20:.1f}, after the promote "
+          f"{pools['after'] / 2**20:.1f} (v1's {v1_pool / 2**20:.1f} MiB "
+          f"released), after the v3 rollback "
+          f"{pools['rolled_back'] / 2**20:.1f} (v3's "
+          f"{v3_pool / 2**20:.1f} released)", flush=True)
+    print(f"[{tag}] ({card}) shared ledger: {tot['batches']} batches, "
+          f"{tot['device_s']:.6f} s metered; cost.regression opened "
+          f"{regress['before']} time(s) before the rollout, "
+          f"{regress['canary']} during the canary (open at its end: "
+          f"{open_canary}), {regress['after']} after the promote; "
+          f"crossings {crossings}; cost.recovered {recovered} time(s)",
+          flush=True)
+    out.update(oracle_s=oracle_s, setup_s=setup_s, windows=windows,
+               rollout_warmup_s=rollout_s, promote_s=promote_s,
+               no_recompile=report["no_recompile"],
+               captures=dict(start=caps_start, end=caps_end),
+               graphs={k: [list(g) for g in v] for k, v in graphs.items()},
+               rows=len(recs), versions=served, pools=pools,
+               v1_pool_bytes=v1_pool, v3_pool_bytes=v3_pool,
+               metered=snap["metered"], sheds={
+                   f"{t}/{e}": n for (t, e), n in sorted(sheds.items())},
+               ledger=dict(batches=tot["batches"], device_s=tot["device_s"]),
+               cost_regressions=regress, open_during_canary=open_canary,
+               cost_crossings=crossings, cost_recovered=recovered)
+
+    # 4. tracing on: each fleet.request span parents its server's request
+    tracer = otrace.configure(enabled=True)
+    for j in range(FLEET_TRACED_N):
+        fleet.predict("xc", images[j], tenant="gold")
+    spans = tracer.snapshot()
+    otrace.configure(enabled=False)
+    fspans = {s["span_id"]: s for s in spans if s["name"] == "fleet.request"}
+    reqs = [s for s in spans if s["name"] == "serving.request"]
+    check(len(fspans) == len(reqs) == FLEET_TRACED_N
+          and all(r["parent_id"] in fspans
+                  and fspans[r["parent_id"]]["trace_id"] == r["trace_id"]
+                  for r in reqs),
+          f"[{tag}] spans: {len(fspans)} fleet.request, {len(reqs)} "
+          f"serving.request, not each under its own")
+    text = json.dumps(fleet.varz())
+    health = fleet.health()
+    check(health["state"] == "ready", f"[{tag}] fleet health {health}")
+    print(f"[{tag}] tracing on: {FLEET_TRACED_N} fleet.request spans, each "
+          f"the parent of its server's serving.request; varz {len(text)} "
+          f"bytes of JSON; health {health['state']} (cost.recovered "
+          f"{n_events('cost.recovered')} time(s), open now "
+          f"{sorted(ledger.regressions())})", flush=True)
+
+    # 5. the fan-out entry
+    rng = np.random.default_rng(SEED + 104)
+    heads = {f"t{i:02d}": {
+        "kernel": (rng.normal(size=(HEAD_D, FANOUT_CLASSES))
+                   / math.sqrt(HEAD_D)).astype(np.float32),
+        "bias": rng.normal(size=(FANOUT_CLASSES,)).astype(np.float32)}
+        for i in range(FLEET_FANOUT_TENANTS)}
+    new_head = {"kernel": (rng.normal(size=(HEAD_D, FANOUT_CLASSES))
+                           / math.sqrt(HEAD_D)).astype(np.float32),
+                "bias": rng.normal(size=(FANOUT_CLASSES,)).astype(
+                    np.float32)}
+    swapped = "t03"
+    fleet.add_fanout_model("xc-heads", "Xception", warm_example=images[0])
+    for t, h in heads.items():
+        fleet.add_head("xc-heads", t, h)
+    fan = fleet._state("xc-heads").server
+    fan.warm_head(np.zeros(HEAD_D, np.float32))
+    feats = ni._zoo_engine("Xception", True, FLEET_BATCH)(
+        images[:FLEET_FANOUT_IMAGES])
+
+    def dev(h):
+        return {k: torch.from_numpy(v).cuda() for k, v in h.items()}
+
+    def head_oracle(i, head):
+        with torch.inference_mode():
+            return dense_head_row(dev(head), torch.from_numpy(
+                np.ascontiguousarray(feats[i])).cuda()).cpu().numpy()
+
+    fan_recs, fan_errors = [], []
+    swap_done = threading.Event()
+    swap_report = {}
+
+    def fan_run():
+        def fan_client(k):
+            try:
+                for r in range(k, FLEET_FANOUT_N, FLEET_CLIENTS):
+                    i = r % FLEET_FANOUT_IMAGES
+                    t = f"t{r % FLEET_FANOUT_TENANTS:02d}"
+                    after = swap_done.is_set()
+                    row = fleet.predict("xc-heads", images[i], tenant=t)
+                    with lock:
+                        fan_recs.append((i, t, after, row))
+            except Exception as e:  # reported below, in the main thread
+                fan_errors.append(e)
+
+        fthreads = [threading.Thread(target=fan_client, args=(k,))
+                    for k in range(FLEET_CLIENTS)]
+        for t in fthreads:
+            t.start()
+        while len(fan_recs) < FLEET_FANOUT_N // 2 and not fan_errors and \
+                any(t.is_alive() for t in fthreads):
+            time.sleep(0.002)
+        swap_report.update(fleet.swap_head("xc-heads", swapped, new_head))
+        swap_done.set()
+        for t in fthreads:
+            t.join(timeout=300)
+        check(not fan_errors and not any(t.is_alive() for t in fthreads),
+              f"[{tag}] fan-out clients failed: {fan_errors[:1]}")
+
+    _, fcounts, fcounters, _ = _fanout_counted(
+        sepconv, hops, fan, "the fleet's fan-out entry", fan_run)
+    launches["sepconv"] += fcounts["sepconv"]
+    launches["head_pass"] += fcounts["head_pass"]
+    want = {(i, t): head_oracle(i, heads[t]).tobytes()
+            for i in range(FLEET_FANOUT_IMAGES) for t in heads}
+    want_new = {i: head_oracle(i, new_head).tobytes()
+                for i in range(FLEET_FANOUT_IMAGES)}
+    bad = 0
+    for i, t, after, row in fan_recs:
+        got = row.tobytes()
+        if t != swapped:
+            bad += got != want[(i, t)]
+        elif after:
+            bad += got != want_new[i]
+        else:
+            bad += got not in (want[(i, t)], want_new[i])
+    check(len(fan_recs) == FLEET_FANOUT_N and bad == 0
+          and swap_report["no_backbone_recompile"] is True
+          and swap_report["head_version"] == 2,
+          f"[{tag}] fan-out: {bad} of {len(fan_recs)} rows differ from "
+          f"their tenant's oracle; swap report {swap_report}")
+    fan_pool = fan.graph_pool_bytes
+    v2_pool = v2.graph_pool_bytes
+    fleet.close()
+    oflight.configure(enabled=False)
+    check(v2.graph_pool_bytes == 0 and fan.graph_pool_bytes == 0,
+          f"[{tag}] close() kept a pool")
+    print(f"[{tag}] ({card}) fan-out entry xc-heads: "
+          f"{FLEET_FANOUT_TENANTS} tenants' (2048, {FANOUT_CLASSES}) heads, "
+          f"{FLEET_FANOUT_N} requests from {FLEET_CLIENTS} clients, "
+          f"swap_head({swapped}) midway (no_backbone_recompile, head "
+          f"version 2): every row == its tenant's oracle bit for bit; "
+          f"{int(fcounters.get('serving.batches', 0))} backbone "
+          f"dispatches, {int(fcounters.get('headbank.dispatches', 0))} "
+          f"head passes; launches {fcounts}; pools {fan_pool / 2**20:.1f} "
+          f"MiB (fan-out), {v2_pool / 2**20:.1f} MiB (v2), 0 after "
+          f"close()", flush=True)
+    print(f"[{tag}] ({card}) launches over the counted windows: B1 "
+          f"{launches['sepconv']}, H1 {launches['head_pass']}", flush=True)
+    out.update(fanout=dict(requests=len(fan_recs), launches=fcounts,
+                           pool_bytes=fan_pool,
+                           head_passes=int(fcounters.get(
+                               "headbank.dispatches", 0))),
+               v2_pool_bytes=v2_pool, launches=launches)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4933,6 +5500,11 @@ def main():
     print(json.dumps({"obs": obs}), flush=True)
     b1["obs_launches"] = obs["launches"]["sepconv"]
     h1["obs_launches"] = obs["launches"]["head_pass"]
+    fleet = phase_fleet(sepconv)
+    pools["fleet"] = pool_line("[fleet]")
+    print(json.dumps({"fleet": fleet}), flush=True)
+    b1["fleet_launches"] = fleet["launches"]["sepconv"]
+    h1["fleet_launches"] = fleet["launches"]["head_pass"]
     print(json.dumps({"pools": pools}), flush=True)
     print(json.dumps({"kernels": [b1, b3, b2, h1]}), flush=True)
     print(json.dumps({"ok": True, "device": {

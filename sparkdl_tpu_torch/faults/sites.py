@@ -5,8 +5,10 @@ string the JAX parser accepts or refuses is accepted or refused alike here.
 The port's engine and pipelined runner call ``engine.dispatch``,
 ``engine.gather`` and ``pipeline.{prepare,dispatch,gather}``; the serving
 layer ``serving.admit``, ``serving.model``, ``batch.topoff``, ``cache.hit``
-and ``cache.stampede``.  The sites of modules not ported yet (head fan-out,
-fleet, streaming, ...) are registered but never fire.
+and ``cache.stampede``; the head fan-out ``head.swap`` and
+``head.dispatch``; the fleet ``fleet.admit``, ``fleet.canary`` and
+``fleet.swap``.  The sites of modules not ported yet (streaming, the
+compile cache, ...) are registered but never fire.
 """
 
 from __future__ import annotations

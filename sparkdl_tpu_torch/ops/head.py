@@ -24,7 +24,9 @@ the card and on the CPU.
 
 :func:`head_pass` dispatches: a CPU tensor takes the plain version, a CUDA
 tensor the kernel (which launches or raises; nothing on the card falls back
-to the plain version).  ``head_pass.launches`` counts the kernel's launches;
+to the plain version).  ``head_pass.launches`` counts the kernel's launches
+(process-wide, under the kernels' count lock, and per thread:
+``sepconv.count_launch``);
 it is not part of :func:`~sparkdl_tpu_torch.ops.sepconv.launch_counts`,
 whose (B1, B3, B2) triple the engine's captures credit (H1 never runs
 inside a captured graph).
@@ -114,7 +116,7 @@ def _head_pass_cuda(feats: torch.Tensor, idx: torch.Tensor,
     _kernels._launch("head_fanout", dev, feats.data_ptr(), idx.data_ptr(),
                      kernel.data_ptr(), bias.data_ptr(), out.data_ptr(), n,
                      cap, d, c, head_partials(d))
-    head_pass.launches += 1
+    _kernels.count_launch(head_pass)
     return out
 
 

@@ -19,10 +19,14 @@ NHWC and the kernels handle the SAME padding themselves.
 takes the plain PyTorch version (:func:`sepconv_reference`,
 :func:`mbconv_reference`), a CUDA tensor the kernel (through the
 ``_..._cuda`` wrappers, which launch it or raise).  Each wrapper counts its
-launches in a plain int — ``fused_sepconv.launches`` (B1),
-``fused_sepconv.tiled_launches`` (B3), ``fused_mbconv.launches`` (B2) — so
-a run can show that the main path went through the kernels; a CUDA-graph
-replay credits the launches its capture recorded (:func:`credit_launches`).
+launches (:func:`count_launch`) in a plain int — ``fused_sepconv.launches``
+(B1), ``fused_sepconv.tiled_launches`` (B3), ``fused_mbconv.launches`` (B2)
+— so a run can show that the main path went through the kernels; a
+CUDA-graph replay credits the launches its capture recorded
+(:func:`credit_launches`).  The counts are process-wide, updated under one
+lock (several dispatcher threads launch and replay at once), and each
+thread also keeps its own (:func:`thread_launch_counts`): a capture takes
+back the capturing thread's launches, never another engine's replays.
 
 What bounds each kernel on an H100, and what its design does about that,
 is written at the top of its source.
@@ -34,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -58,6 +63,30 @@ KERNELS = {
 }
 _configured = set()
 _bound: Dict[str, tuple] = {}   # kernel -> (C launch function, error string)
+
+
+# the wrappers' launch counts: read-modify-writes from several threads
+# under one lock; this thread's own counts in _THREAD
+_COUNT_LOCK = threading.Lock()
+_THREAD = threading.local()
+
+
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """One launch of ``wrapper``'s kernel: ``wrapper.<attr>`` (the
+    process-wide count) plus one under the lock, and this thread's own
+    count of it plus one."""
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+    own = _THREAD.__dict__.setdefault("counts", {})
+    key = (wrapper.__name__, attr)
+    own[key] = own.get(key, 0) + 1
+
+
+def thread_launches(wrapper, attr: str = "launches") -> int:
+    """This thread's own launches of ``wrapper``'s kernel so far (credits
+    never count here)."""
+    return _THREAD.__dict__.get("counts", {}).get((wrapper.__name__, attr),
+                                                  0)
 
 
 def load_library(kernel: str = "sepconv") -> ctypes.CDLL:
@@ -281,7 +310,7 @@ def _fused_sepconv_cuda(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
             f, int(pre_relu), int(post_relu), plan["groups"],
             plan["tiles_per_group"], plan["n_tile"], plan["kc"],
             plan["stages"], plan["smem"])
-    fused_sepconv.launches += 1
+    count_launch(fused_sepconv)
     return out
 
 
@@ -398,7 +427,7 @@ def _fused_sepconv_tiled_cuda(x: torch.Tensor, dwk: torch.Tensor,
             out.data_ptr(), n, h, w, c, f, int(pre_relu), int(post_relu),
             plan["tile_h"], plan["tile_w"], plan["f_tile"], plan["stages"],
             plan["grid"], plan["smem"])
-    fused_sepconv.tiled_launches += 1
+    count_launch(fused_sepconv, "tiled_launches")
     return out
 
 
@@ -662,7 +691,7 @@ def _fused_mbconv_cuda(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
             mid_shift.data_ptr(), shift.data_ptr(), out.data_ptr(), n, h, w,
             c, f, int(plan["tile"] == "2d"), plan["cluster"], plan["f_tile"],
             plan["kc"], plan["stages"], plan["grid_y"], plan["smem"])
-    fused_mbconv.launches += 1
+    count_launch(fused_mbconv)
     return out
 
 
@@ -698,13 +727,24 @@ def launch_counts() -> Tuple[int, int, int]:
             fused_mbconv.launches)
 
 
+def thread_launch_counts() -> Tuple[int, int, int]:
+    """This thread's own launches (B1, B3, B2): what a capture on this
+    thread recorded, whatever other threads launched or credited
+    meanwhile."""
+    return (thread_launches(fused_sepconv),
+            thread_launches(fused_sepconv, "tiled_launches"),
+            thread_launches(fused_mbconv))
+
+
 def credit_launches(counts: Tuple[int, int, int]) -> None:
-    """Add ``counts`` (B1, B3, B2) to the wrappers' launch counts.  A
-    wrapper's Python runs once, when a CUDA graph is captured, and the
-    kernels it enqueued run at every replay: the engine takes a capture's
-    counts back (nothing ran) and credits them at each replay, so the counts
-    stay launches on the card."""
+    """Add ``counts`` (B1, B3, B2) to the wrappers' process-wide launch
+    counts, under their lock (never to a thread's own).  A wrapper's Python
+    runs once, when a CUDA graph is captured, and the kernels it enqueued
+    run at every replay: the engine takes a capture's counts back (nothing
+    ran) and credits them at each replay, so the counts stay launches on
+    the card."""
     b1, b3, b2 = counts
-    fused_sepconv.launches += b1
-    fused_sepconv.tiled_launches += b3
-    fused_mbconv.launches += b2
+    with _COUNT_LOCK:
+        fused_sepconv.launches += b1
+        fused_sepconv.tiled_launches += b3
+        fused_mbconv.launches += b2

@@ -346,8 +346,9 @@ def graph_key(state: List[torch.Tensor], fold_owners=()) -> tuple:
     return weights, folds, precision_flags()
 
 
-# one capture at a time in the process: the launch counts a capture takes
-# back must be its own
+# one capture at a time in the process: a capture's pool bytes are the
+# growth of the card's reserved memory across it (its launch counts are the
+# capturing thread's own, ``ops.sepconv.thread_launch_counts``)
 _CAPTURE_LOCK = threading.Lock()
 
 # every engine alive in the process, for graph_pool_bytes_held
@@ -472,8 +473,9 @@ class InferenceEngine:
     in ``thread_local`` mode, so the runner's other threads (pinned copies,
     fetches, event waits) do not invalidate it, and only one engine in the
     process captures at a time; nothing but the capture enqueues on its
-    stream.  The kernels' launch counts a capture takes back are its own
-    unless another thread launches a kernel eagerly meanwhile."""
+    stream.  The kernels' launch counts a capture takes back are the
+    capturing thread's own, whatever other engines launch or replay on
+    other threads meanwhile."""
 
     def __init__(self, fn: Callable[[nn.Module, Any], Any],
                  module: nn.Module, *, device: DeviceLike = None,
@@ -815,7 +817,7 @@ class InferenceEngine:
         # the fold caches are full now; the capture only reads them
         key = graph_key(self._state, self._fold_owners)
         folds = fold_entries(self._fold_owners)
-        before = ops.launch_counts()
+        before = ops.thread_launch_counts()
         # torch.cuda.graph empties the allocator's cache on entry: do it
         # here first, so that the growth of reserved memory is the pool's
         torch.cuda.empty_cache()
@@ -839,9 +841,11 @@ class InferenceEngine:
             raise RuntimeError(f"CUDA-graph capture of engine {self.name} "
                                f"bucket {sig} failed: {e}") from e
         finally:
-            # the captured launches did not run; each replay credits them
-            launches = tuple(a - b for a, b in zip(ops.launch_counts(),
-                                                   before))
+            # the captured launches did not run; each replay credits them.
+            # This thread's own: another engine replaying or capturing on
+            # another thread meanwhile credits the process-wide counts only
+            launches = tuple(a - b for a, b in zip(
+                ops.thread_launch_counts(), before))
             ops.credit_launches(tuple(-n for n in launches))
         pool = torch.cuda.memory_stats(self.device).get(
             "reserved_bytes.all.current", 0) - reserved

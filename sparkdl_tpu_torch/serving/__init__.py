@@ -24,10 +24,13 @@ Public surface:
 * :class:`HeadFanoutServer`: one backbone ``Server`` at the feature cut,
   a feature-cut cache namespace and a stacked bank of per-tenant heads
   (kernel H1): a warm content digest costs a head pass only.
-
-Not ported yet (ROADMAP.md queue A item 5.2): the fleet (``Fleet``,
-``ModelRegistry``, ``ModelVersion``, ``Rollout``, ``TenantQuota``); of
-``serving.fleet`` only ``rollout.head_swap_report`` is ported.
+* :class:`Fleet` (``sparkdl_tpu_torch.serving.fleet``): the multi-model,
+  multi-tenant front door: named versioned registry entries
+  (:class:`ModelRegistry`, :class:`ModelVersion`), zero-downtime canary
+  rollouts (:class:`Rollout`) with each version on its own captured
+  engines, per-tenant token-bucket quotas and priority classes
+  (:class:`TenantQuota`, :class:`QuotaExceededError`), aggregated
+  ``Fleet.varz()`` / ``health()``.
 """
 
 from sparkdl_tpu_torch.serving.adapters import from_transformer
@@ -42,6 +45,11 @@ from sparkdl_tpu_torch.serving.errors import (DeadlineExceededError,
                                               ServingError)
 from sparkdl_tpu_torch.serving.server import (HeadFanoutServer, Server,
                                               bucket_plan)
+# the fleet package imports serving.server and serving.errors, so it comes
+# last here
+from sparkdl_tpu_torch.serving.fleet import (Fleet, ModelRegistry,
+                                             ModelVersion, Rollout,
+                                             TenantQuota)
 
 __all__ = [
     "Server",
@@ -51,6 +59,11 @@ __all__ = [
     "from_transformer",
     "DynamicBatcher",
     "Request",
+    "Fleet",
+    "ModelRegistry",
+    "ModelVersion",
+    "Rollout",
+    "TenantQuota",
     "ServingError",
     "QueueFullError",
     "QuotaExceededError",

@@ -190,6 +190,17 @@ class DynamicBatcher:
         with self._cond:
             return len(self._q)
 
+    def wake(self) -> None:
+        """Nudge the dispatcher to re-evaluate its flush conditions.
+
+        With an injected clock the age and deadline triggers move only when
+        that clock does, and nothing else notifies the condition when it
+        moves.  A virtual-time harness advances its clock, then calls this,
+        so a wait-window flush fires at the virtual instant it would have
+        fired at on the real clock."""
+        with self._cond:
+            self._cond.notify_all()
+
     # -- flush (dispatcher thread) ----------------------------------------
     def next_batch(self) -> Optional[List[Request]]:
         """Block until a micro-batch is due; return its LIVE requests.

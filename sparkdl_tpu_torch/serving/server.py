@@ -66,8 +66,10 @@ from sparkdl_tpu_torch.obs.exemplar import ExemplarReservoir
 from sparkdl_tpu_torch.obs.flight import emit as flight_emit
 from sparkdl_tpu_torch.obs.trace import get_tracer
 from sparkdl_tpu_torch.parallel.engine import (CircuitOpenError,
-                                               InferenceEngine, _tree_map,
-                                               effective_device_batch)
+                                               InferenceEngine, _tree_leaves,
+                                               _tree_map,
+                                               effective_device_batch,
+                                               precision_flags)
 from sparkdl_tpu_torch.serving.batcher import (DynamicBatcher, Request,
                                                ragged_enabled_from_env)
 from sparkdl_tpu_torch.serving.cache import resolve_cache
@@ -377,6 +379,8 @@ class Server:
             cache, cache_namespace, "server")
         self._engines: Dict[int, InferenceEngine] = {}
         self._warm: set = set()  # buckets whose graph is captured
+        # bucket -> (input signature, precision flags) of its last dispatch
+        self._programs: Dict[int, tuple] = {}
         self._engine_lock = threading.Lock()
         self._ragged = (ragged_enabled_from_env() if ragged is None
                         else bool(ragged))
@@ -439,7 +443,9 @@ class Server:
         example = _tree_map(np.asarray, example)
         for b in sorted(self._buckets, reverse=True):
             eng = self._engine_for(b)
-            eng(_tree_map(lambda a: np.stack([a] * b), example))
+            stacked = _tree_map(lambda a: np.stack([a] * b), example)
+            self._note_program(b, stacked)
+            eng(stacked)
             self._warm.add(b)
 
     @property
@@ -480,6 +486,13 @@ class Server:
             if remaining is not None:
                 worst = max(worst or 0.0, remaining)
         return worst
+
+    def breaker_retry_after(self) -> Optional[float]:
+        """Public form of the per-submit breaker query: the remaining
+        cool-down of the worst OPEN bucket breaker, or None when admission
+        is open.  The fleet's front door reads it to shed lower-priority
+        tenants first while the model's device is failing."""
+        return self._breaker_retry_after()
 
     def health(self) -> Dict[str, Any]:
         """Liveness/readiness snapshot (JSON-serializable; also in
@@ -842,6 +855,7 @@ class Server:
         stacked = _tree_map(lambda *rows: np.stack(rows, axis=0),
                             *[r.payload for r in requests])
         eng = self._engine_for(bucket)
+        self._note_program(bucket, stacked)
         if self._dispatch_timeout_s is not None and bucket not in self._warm:
             # capture OUTSIDE the watchdog window: a bucket's first call
             # runs an eager warm-up forward and the capture (seconds for a
@@ -961,6 +975,21 @@ class Server:
         return list(self._buckets)
 
     @property
+    def max_queue(self) -> int:
+        return self._batcher.max_queue
+
+    def queue_pressure(self) -> float:
+        """Queue occupancy in [0, 1]: the pressure the fleet's admission
+        sheds lower-priority tenants against."""
+        return self._batcher.depth() / max(1, self._batcher.max_queue)
+
+    def wake(self) -> None:
+        """Re-evaluate the batcher's flush conditions: how a virtual-time
+        harness tells the dispatcher that the injected clock moved
+        (:meth:`DynamicBatcher.wake`)."""
+        self._batcher.wake()
+
+    @property
     def cache(self):
         """The result cache this server probes (None when uncached)."""
         return self._cache
@@ -989,6 +1018,36 @@ class Server:
             g = eng.bucket_graph()
             out[b] = {"jit_id": None if g is None else id(g),
                       "executables": eng.captures}
+        return out
+
+    def _note_program(self, bucket: int, stacked: Any) -> None:
+        """Record the bucket's input signature (each leaf's padded shape
+        and dtype) and the precision flags of this dispatch."""
+        sig = tuple(((bucket,) + tuple(a.shape[1:]), str(a.dtype))
+                    for a in _tree_leaves(stacked))
+        self._programs[bucket] = (sig, precision_flags())
+
+    def program_state(self) -> Dict[int, Dict[str, Any]]:
+        """Per bucket, what a fleet rollout's no-recompile report holds
+        two weight versions' servers to (``serving.fleet.rollout``):
+        ``fn_id``, the ``id`` of the model fn (one object for every
+        version of a fleet entry); ``signature``, the bucket's input shapes
+        and dtypes, and ``precision``, the ``precision_flags()``, both as
+        of its last dispatch; ``captures``, the bucket engine's count of
+        graph captures (0 on the CPU, which captures nothing).  Buckets
+        with no dispatch yet are left out."""
+        with self._engine_lock:
+            engines = dict(self._engines)
+        out: Dict[int, Dict[str, Any]] = {}
+        for b, eng in sorted(engines.items()):
+            prog = self._programs.get(b)
+            if prog is None:
+                continue
+            out[b] = {"fn_id": id(self._fn),
+                      "signature": [[list(shape), dtype]
+                                    for shape, dtype in prog[0]],
+                      "precision": list(prog[1]),
+                      "captures": eng.captures}
         return out
 
     def stats(self) -> Dict[str, float]:
@@ -1426,6 +1485,15 @@ class HeadFanoutServer:
 
     def queue_depth(self) -> int:
         return self._backbone.queue_depth()
+
+    def queue_pressure(self) -> float:
+        return self._backbone.queue_pressure()
+
+    def breaker_retry_after(self) -> Optional[float]:
+        return self._backbone.breaker_retry_after()
+
+    def wake(self) -> None:
+        self._backbone.wake()
 
     @property
     def cache(self):

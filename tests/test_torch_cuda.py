@@ -393,3 +393,66 @@ def test_device_ms_from_timing_events_only_while_tracing(cuda, pipeline,
     assert len(ms) == (4 if pipeline else 1) and all(m > 0 for m in ms)
     assert len(made) == 2 * 4  # a pair around each of the 4 replays
     trace.configure(enabled=False)
+
+
+def _sepconv_engine(seed):
+    """An engine whose forward is one B1 launch (uint8 NHWC 19x19x256 in,
+    728 features out, pooled)."""
+    from sparkdl_tpu_torch.ops import fused_sepconv
+    from sparkdl_tpu_torch.parallel.engine import InferenceEngine
+
+    g = torch.Generator().manual_seed(seed)
+    m = nn.Module()
+    m.register_buffer("dwk", torch.randn(3, 3, 256, generator=g))
+    m.register_buffer("pw", torch.randn(256, 728, generator=g) / 16)
+    m.register_buffer("scale", torch.ones(728))
+    m.register_buffer("shift", torch.zeros(728))
+
+    def fn(m, x):
+        y = fused_sepconv(x.float() / 255, m.dwk, m.pw, m.scale, m.shift,
+                          True)
+        return y.float().mean((1, 2))
+
+    return InferenceEngine(fn, m, device="cuda", device_batch_size=B)
+
+
+def test_capture_records_its_own_launches_while_another_engine_replays(
+        cuda):
+    """Engine b captures (three times) while two threads replay engine a
+    without pause: each of b's captures records its own single B1 launch,
+    not a's replay credits, and b's rows equal its eager forward's."""
+    from sparkdl_tpu_torch.ops import sepconv as ops
+
+    a, b = _sepconv_engine(0), _sepconv_engine(1)
+    x = np.random.default_rng(0).integers(0, 256, (B, 19, 19, 256),
+                                          dtype=np.uint8)
+    a(x)
+    assert [g["launches"] for g in a.graphs()] == [(1, 0, 0)]
+    stop, errors = threading.Event(), []
+
+    def hammer():
+        try:
+            while not stop.is_set():
+                a(x)
+        except Exception as e:  # reported below, in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=hammer) for _ in range(2)]
+    for t in threads:
+        t.start()
+    try:
+        records = []
+        for _ in range(3):
+            b.release_graphs()
+            before = ops.launch_counts()[0]
+            graphed = b(x)
+            records.append(b.graphs()[0]["launches"])
+            assert ops.launch_counts()[0] > before
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert records == [(1, 0, 0)] * 3
+    b.capture = False
+    np.testing.assert_array_equal(graphed, b(x))

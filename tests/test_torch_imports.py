@@ -103,6 +103,11 @@ HEADFANOUT_SLICE = ("ops/head.py", "serving/fleet/__init__.py",
                     "serving/fleet/rollout.py")
 
 
+# The fleet: admission, the registry, rollouts and the front door.
+FLEET_SLICE = ("serving/fleet/admission.py", "serving/fleet/registry.py",
+               "serving/fleet/fleet.py")
+
+
 # Observability: spans, the flight recorder, exemplars, SLOs, the cost
 # ledger, and the crash-safe JSONL and trace-aware logging they ride.
 OBS_SLICE = ("obs/trace.py", "obs/flight.py", "obs/exemplar.py",
@@ -116,7 +121,8 @@ def test_port_imports_nothing_of_jax():
     assert (ROOT / "sparkdl_tpu_torch" / "native" / "sparkdl_native.cpp"
             ).exists()
     for rel in (ENGINE_CORE + KERAS_SLICE + TUNING_SLICE + TF_SLICE
-                + SERVING_SLICE + HEADFANOUT_SLICE + OBS_SLICE):
+                + SERVING_SLICE + HEADFANOUT_SLICE + FLEET_SLICE
+                + OBS_SLICE):
         assert ROOT / "sparkdl_tpu_torch" / rel in files, rel
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in FORBIDDEN]
@@ -283,11 +289,8 @@ NOT_EXPORTED = {
     "image": {},
     "estimators": {},
     "graph": {},
-    "serving": {"Fleet": "serving/fleet, queue A item 5",
-                "ModelRegistry": "serving/fleet, queue A item 5",
-                "ModelVersion": "serving/fleet, queue A item 5",
-                "Rollout": "serving/fleet, queue A item 5",
-                "TenantQuota": "serving/fleet, queue A item 5"},
+    "serving": {},
+    "serving.fleet": {},
     "udf": {},
 }
 

@@ -813,3 +813,103 @@ def test_malformed_slos_and_cost_refused_like_jax(setup, kwargs, match):
         jserving.Server(_jfn, variables, cache=False, **kwargs)
     with pytest.raises(TypeError, match=match):
         Server(_pfn, module, cache=False, **kwargs)
+
+
+# -- the hooks the fleet reads ----------------------------------------------
+
+def test_fleet_hooks_match_jax_at_the_same_queue_states(setup):
+    """``max_queue``, ``queue_pressure()`` and ``breaker_retry_after()``
+    read the same on both servers at every queue depth from empty to full
+    (nothing flushes: the batch never fills and the wait is 10 s); a drain
+    then empties both queues."""
+    variables, module, x = setup
+    kw = dict(max_batch_size=64, max_wait_ms=10_000, max_queue=8,
+              bucket_sizes=[64], cache=False)
+    readings = []
+    for make, fn, m in ((jserving.Server, _jfn, variables),
+                        (Server, _pfn, module)):
+        srv = make(fn, m, **kw)
+        try:
+            seen = [(srv.max_queue, srv.queue_pressure(),
+                     srv.breaker_retry_after())]
+            for i in range(8):
+                srv.submit(x[i])
+                seen.append((srv.max_queue, srv.queue_pressure(),
+                             srv.breaker_retry_after()))
+            srv.close(drain=True)
+            seen.append((srv.max_queue, srv.queue_pressure(),
+                         srv.breaker_retry_after()))
+        finally:
+            srv.close()
+        readings.append(seen)
+    assert readings[0] == readings[1]
+    assert [p for _, p, _ in readings[1]] == [i / 8 for i in range(9)] + [0.0]
+
+
+def test_breaker_retry_after_matches_jax_while_open(setup):
+    """One injected dispatch failure opens a threshold-1 breaker on both
+    servers: ``breaker_retry_after()`` is the remaining cool-down (the
+    private query's value), and None again on a fresh server."""
+    variables, module, x = setup
+    kw = dict(max_batch_size=2, max_wait_ms=5, bucket_sizes=[2],
+              breaker_threshold=1, breaker_cooldown_s=30, cache=False)
+    for make, fn, m, fmod in ((jserving.Server, _jfn, variables, jfaults),
+                              (Server, _pfn, module, pfaults)):
+        with make(fn, m, **kw) as srv:
+            srv.warmup(x[0])
+            assert srv.breaker_retry_after() is None
+            with fmod.active(fmod.FaultPlan.parse(
+                    "engine.dispatch:error:exc=transient,times=1")):
+                with pytest.raises(fmod.InjectedTransientError):
+                    srv.predict(x[0])
+            r = srv.breaker_retry_after()
+            assert 25 < r <= 30
+            assert abs(srv._breaker_retry_after() - r) < 1.0
+
+
+def test_wake_flushes_a_wait_window_on_an_injected_clock(setup):
+    """A lone request under a virtual clock waits out its 10 s window on
+    the real clock in both servers; moving the clock past it and calling
+    ``wake()`` flushes it at once (``DynamicBatcher.wake``)."""
+    variables, module, x = setup
+    rows = []
+    for make, fn, m in ((jserving.Server, _jfn, variables),
+                        (Server, _pfn, module)):
+        now = [10.0]
+        with make(fn, m, max_batch_size=8, max_wait_ms=10_000,
+                  bucket_sizes=[8], cache=False,
+                  clock=lambda: now[0]) as srv:
+            f = srv.submit(x[0])
+            time.sleep(0.1)
+            assert not f.done()
+            now[0] += 11.0
+            srv.wake()
+            rows.append(np.asarray(f.result(timeout=2)))
+    np.testing.assert_allclose(rows[1], rows[0], **TOL)
+
+
+def test_head_fanout_server_delegates_the_fleet_hooks():
+    """``HeadFanoutServer``'s ``queue_depth``, ``queue_pressure``,
+    ``breaker_retry_after`` and ``wake`` are its backbone's."""
+    from sparkdl_tpu_torch.parallel.engine import (head_fanout_backbone_fn,
+                                                   head_fanout_module)
+    from sparkdl_tpu_torch.serving import HeadFanoutServer
+
+    rng = np.random.default_rng(0)
+    module = head_fanout_module(
+        {"backbone": rng.normal(size=(12, 16)).astype(np.float32)})
+    srv = HeadFanoutServer(head_fanout_backbone_fn, module,
+                           max_batch_size=64, max_wait_ms=10_000,
+                           max_queue=4, bucket_sizes=[64], cache=False)
+    try:
+        srv.add_head("a", {"kernel": np.ones((16, 3), np.float32),
+                           "bias": np.zeros(3, np.float32)})
+        fut = srv.submit(rng.normal(size=(12,)).astype(np.float32), "a")
+        assert srv.queue_depth() == srv.backbone.queue_depth() == 1
+        assert srv.queue_pressure() == srv.backbone.queue_pressure() == 0.25
+        assert srv.breaker_retry_after() is None
+        srv.wake()
+        assert not fut.done()
+    finally:
+        srv.close(drain=True)
+    assert fut.result(timeout=10).shape == (3,)
