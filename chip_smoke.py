@@ -165,7 +165,22 @@ points, with seeded random weights and batch 32:
     released, req/s, p50 and p99 a window, the shared ledger's sentinel;
     ``fleet.request`` spans parenting the servers' request spans; and a
     fan-out entry (16 tenants' heads, a hot swap midway) bit for bit its
-    per-tenant oracle.  B1 and H1 counted in every window.
+    per-tenant oracle.  B1 and H1 counted in every window;
+  * [stream] (last, after [fleet]), exactly-once streaming
+    (``sparkdl_tpu_torch.streaming``) over the zoo Xception engine at
+    299x299 and device batch 16 (B1 30 a dispatch), f32 with TF32 off, 12
+    chunks of 16 seeded images: ``StreamScorer`` (pipelined) equal to
+    ``map_batches`` bit for bit; a child scorer over a ``DirectorySource``
+    SIGKILLed between an output artifact and its commit
+    (``SPARKDL_FAULTS``), a second child resuming it to 12 commits, each
+    once, bit for bit the parent's oracle; a ``Server`` sink at bucket 16
+    equal to the engine sink; the stall watchdog (degraded, then ready)
+    and a flaky source; three runs a side of the scorer against a bare
+    ``map_batches``, the chunk latency, ms a fsync'd commit, the Server
+    sink's rate; and the streaming fit of [tuning]'s converted
+    InceptionV3 over 44 JPEGs in record batches of 10 against the
+    in-memory fit (within [tuning]'s bounds), preempted and resumed by
+    ``fit_with_retries``, with both fits' img/s.
 
 B1 is also held against its plain version at ragged shapes (a pixel count
 that is not a multiple of 64, F = 200, all four ReLU variants), and each of
@@ -232,10 +247,11 @@ passes, the hot swap, card vs CPU, pools, launches), one of [obs]'s
 (the loops, the overhead, device ms, the ledger, the faults, the
 subprocesses, the fan-out, us a site call, launches), one of [fleet]'s
 (the overhead, the windows, the rollout, pools, the ledger, the fan-out,
-launches), one ``{"pools":
+launches), one of [stream]'s (the sinks, the chaos, the stall, the
+rates, the fits, launches), one ``{"pools":
 ...}`` line (the graph pools held after every phase, by phase; later
 phases add keys to it), one JSON line with every kernel's numbers (with
-its launches in [serving], [headfanout], [obs] and [fleet]; H1's
+its launches in [serving], [headfanout], [obs], [fleet] and [stream]; H1's
 ``launches`` are its [headfanout] launches), and last the line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -5420,6 +5436,583 @@ def phase_fleet(sepconv):
     return out
 
 
+STREAM_CHUNKS = 12              # chunks a stream holds
+STREAM_CHUNK = 16               # seeded 299x299 images a chunk, and the
+#                                 engine's device batch: one dispatch a chunk
+STREAM_RUNS = 3                 # runs a side of each rate, in turns
+STREAM_CHILD_TIMEOUT_S = 300    # a child scorer's time limit
+STREAM_FAULT_AT = 4             # the child's commit that SIGKILLs it
+STREAM_STALL_DEADLINE_S = 0.2   # the stall watchdog's deadline
+STREAM_STALL_FEED_S = 0.8       # the late chunk comes after this long
+STREAM_SERVER_TOL = 1e-6        # Server sink vs engine sink (the JAX test's)
+STREAM_FIT_N = 44               # tinted JPEGs of [tuning] the fits read
+STREAM_FIT_RB = 10              # rows a record batch: the tail is ragged
+STREAM_FIT_EPOCHS = 2
+
+
+_STREAM_CHILD = f"""
+import json, os, signal, sys
+import numpy as np, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from sparkdl_tpu_torch import faults, streaming
+from sparkdl_tpu_torch.ops import sepconv
+from sparkdl_tpu_torch.transformers import named_image as ni
+base = sys.argv[1]
+eng = ni._zoo_engine("Xception", True, {STREAM_CHUNK})
+sc = streaming.StreamScorer(
+    eng, streaming.DirectorySource(os.path.join(base, "in")),
+    journal_path=os.path.join(base, "journal.jsonl"),
+    out_dir=os.path.join(base, "out"), stall_deadline_s=60.0)
+try:
+    summary = sc.run()
+except faults.InjectedFatalError:
+    # a real SIGKILL where the fault marks the crash window: no finally,
+    # no atexit, no flush; only what fsync made durable survives
+    os.kill(os.getpid(), signal.SIGKILL)
+print(json.dumps(dict(summary=summary, health=sc.health(),
+                      device=str(eng.device),
+                      launches=sepconv.fused_sepconv.launches,
+                      modules=sorted(m for m in ("jax", "sparkdl_tpu")
+                                     if m in sys.modules))))
+"""
+
+
+def _stream_child(base, faults_spec):
+    """Run the child scorer over ``base``; returns (rc, last stdout line,
+    stderr tail).  The child is killed if it outlives its limit."""
+    env = dict(os.environ, SPARKDL_TRACE="0")
+    env.pop("SPARKDL_BLACKBOX", None)
+    env.pop("SPARKDL_FAULTS", None)
+    if faults_spec:
+        env["SPARKDL_FAULTS"] = faults_spec
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _STREAM_CHILD, base],
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       env=env, capture_output=True, text=True,
+                       timeout=STREAM_CHILD_TIMEOUT_S)
+    lines = r.stdout.strip().splitlines()
+    return (r.returncode, lines[-1] if lines else "", r.stderr[-3000:],
+            time.perf_counter() - t0)
+
+
+class _Preempted:
+    """``fit`` of ``est`` whose first attempt dies at the second epoch's
+    loss (after epoch 1's checkpoint is saved): a preemption.  It swaps the
+    train module's ``Metrics`` for the attempt (instrumentation of this
+    script)."""
+
+    def __init__(self, est):
+        self.est = est
+        self.attempts = 0
+
+    def fit(self, dataset, params=None):
+        from sparkdl_tpu_torch.parallel import train
+        from sparkdl_tpu_torch.utils.metrics import Metrics
+
+        self.attempts += 1
+        if self.attempts > 1:
+            return self.est.fit(dataset, params)
+
+        class Preempt(Metrics):
+            def record_time(self, name, value):
+                super().record_time(name, value)
+                if name == "epoch_loss" and \
+                        len(self.timings_s["epoch_loss"]) == 2:
+                    raise RuntimeError("preempted after epoch 1")
+
+        saved, train.Metrics = train.Metrics, Preempt
+        try:
+            return self.est.fit(dataset, params)
+        finally:
+            train.Metrics = saved
+
+
+def _rate_stats(xs):
+    return dict(runs=list(xs), mean=float(np.mean(xs)),
+                min=float(np.min(xs)), max=float(np.max(xs)))
+
+
+def phase_stream(sepconv):
+    """[stream]: exactly-once streaming (``sparkdl_tpu_torch.streaming``)
+    over a zoo Xception 299x299 featurizer engine at device batch 16 (B1,
+    30 launches a dispatch), and the streaming fit; f32 with TF32 off.  12
+    chunks of 16 seeded images.
+
+      1. engine sink, pipelined: ``StreamScorer`` over a ``MemorySource``;
+         ``assemble_outputs`` == ``map_batches`` over the same chunks bit
+         for bit (the oracle), B1 30 a dispatch;
+      2. the chaos: the chunks through ``write_directory_chunk``; a child
+         ``python -c`` scorer over a ``DirectorySource`` with
+         ``stream.commit:error:exc=fatal,at=4`` SIGKILLs itself at the
+         fault (rc -9, resume offset 3, offset 3's artifact durable and
+         uncommitted); a second child with no fault replays to 12 commits
+         (redeliveries >= 1, health ready, watermark 12, lag 0), each
+         commit once, 12 artifacts, the output == the oracle bit for bit;
+      3. Server sink: ``Server("Xception", featurize=True,
+         max_batch_size=16, bucket_sizes=[16])``: within 1e-6 of the engine
+         sink, and bit for bit (its bucket is the engine's batch);
+      4. the stall watchdog: a ``MemorySource`` fed late (health degraded,
+         then ready; ``stream.stall`` and ``stream.stall_recovered`` in the
+         flight recorder), and a transient ``stream.source`` error
+         absorbed (``stream.source_errors`` >= 1, output unchanged);
+      5. the streaming fit: [tuning]'s converted Keras InceptionV3 over 44
+         tinted JPEGs as ``iterFileBatches`` record batches of 10 (a ragged
+         tail), batch 16, SGD, 2 epochs, against the in-memory fit
+         (``shuffle`` false) on the card within [tuning]'s bounds; a
+         checkpointed stream fit preempted after epoch 1 and resumed by
+         ``fit_with_retries``, against the uninterrupted one; no kernel;
+      6. rates, three runs a side in turns: chunks/s and img/s of the
+         scorer against a bare ``map_batches`` over the same payloads, the
+         ``stream.chunk_latency`` p50 and p99, ms a fsync'd commit (the
+         scorer's own ``_commit_chunk`` timed in those runs: artifact write,
+         output record, commit), the Server sink's chunks/s, the
+         stream fit's img/s against the in-memory fit's.
+    """
+    import shutil
+    import tempfile
+
+    import pyarrow as pa
+
+    from sparkdl_tpu_torch import faults, streaming
+    from sparkdl_tpu_torch.estimators import KerasImageFileEstimator
+    from sparkdl_tpu_torch.frame import DataFrame
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.image.io import arrowStructsToBatch, iterFileBatches
+    from sparkdl_tpu_torch.models import get_model_spec, keras_import
+    from sparkdl_tpu_torch.obs import flight as oflight
+    from sparkdl_tpu_torch.serving import Server
+    from sparkdl_tpu_torch.transformers import named_image as ni
+    from sparkdl_tpu_torch.utils.jsonl import read_jsonl
+    from sparkdl_tpu_torch.utils.retry import fit_with_retries
+
+    tag = "stream"
+    t_phase = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    out = dict(card=card)
+    zero = dict(sepconv=0, sepconv_tiled=0, mbconv=0)
+    size = get_model_spec("Xception").input_size[0]
+    n = STREAM_CHUNKS * STREAM_CHUNK
+    df = synthetic_frame(n, size, SEED + 111)
+    images, ok = arrowStructsToBatch(df.table.column("image"), size, size)
+    check(ok.all(), f"[{tag}] synthetic images failed to decode")
+    chunks = [images[k * STREAM_CHUNK:(k + 1) * STREAM_CHUNK]
+              for k in range(STREAM_CHUNKS)]
+    eng = ni._zoo_engine("Xception", True, STREAM_CHUNK)
+    check(eng.device.type == "cuda", f"[{tag}] engine not on the card")
+    eng(chunks[0])  # the capture and its eager warm-up, outside the counts
+    torch.cuda.synchronize()
+
+    def counted(what, dispatches, run):
+        reset_counts(sepconv)
+        result = run()
+        torch.cuda.synchronize()
+        counts = read_counts(sepconv)
+        want = dict(zero, sepconv=SEPCONV_PER_FORWARD * dispatches)
+        check(counts == want, f"[{tag}] {what}: launches {counts}, want "
+                              f"{want} ({dispatches} dispatches)")
+        return result, counts
+
+    oracle, _ = counted("the oracle", STREAM_CHUNKS, lambda: np.concatenate(
+        list(eng.map_batches(chunks, pipeline=False))))
+    check(oracle.shape == (n, 2048) and np.isfinite(oracle).all(),
+          f"[{tag}] oracle {oracle.shape}, not finite 2048-d rows")
+    launches = dict(sepconv=0)
+    tmp = tempfile.mkdtemp(prefix="stream_smoke_")
+    try:
+        # 1. engine sink, pipelined
+        def score(sink, where, source=None, **kw):
+            base = os.path.join(tmp, where)
+            sc = streaming.StreamScorer(
+                sink, source or streaming.MemorySource(chunks, finished=True),
+                journal_path=os.path.join(base, "journal.jsonl"),
+                out_dir=os.path.join(base, "out"), **kw)
+            t0 = time.perf_counter()
+            summary = sc.run()
+            wall = time.perf_counter() - t0
+            got = streaming.assemble_outputs(
+                os.path.join(base, "journal.jsonl"), os.path.join(base, "out"))
+            return sc, summary, wall, got
+
+        (sc, summary, wall, got), counts = counted(
+            "engine sink", STREAM_CHUNKS, lambda: score(eng, "engine"))
+        launches["sepconv"] += counts["sepconv"]
+        check(np.array_equal(got, oracle),
+              f"[{tag}] engine sink != map_batches: max abs "
+              f"{np.abs(got - oracle).max():.3g}")
+        check(summary["chunks_scored"] == STREAM_CHUNKS
+              and summary["committed_total"] == STREAM_CHUNKS
+              and sc.health()["state"] == "ready"
+              and sc.health()["watermark"] == STREAM_CHUNKS,
+              f"[{tag}] engine sink summary {summary}, health "
+              f"{sc.health()}")
+        sc.close()
+        print(f"[{tag}] ({card}) engine sink (pipelined): {STREAM_CHUNKS} "
+              f"chunks of {STREAM_CHUNK} through StreamScorer == map_batches "
+              f"bit for bit, {STREAM_CHUNKS} commits, launches {counts} "
+              f"({SEPCONV_PER_FORWARD} a dispatch), {wall:.3f}s",
+              flush=True)
+        out["engine_sink"] = dict(launches=counts, summary=summary)
+
+        # 2. the chaos: SIGKILL between output write and commit
+        base = os.path.join(tmp, "chaos")
+        for k, c in enumerate(chunks):
+            streaming.write_directory_chunk(os.path.join(base, "in"), k, c)
+        streaming.finish_directory_stream(os.path.join(base, "in"))
+        rc1, _, err1, s1 = _stream_child(
+            base, f"stream.commit:error:exc=fatal,at={STREAM_FAULT_AT}")
+        check(rc1 == -9, f"[{tag}] faulted child rc {rc1}, want -9: {err1}")
+        j = streaming.Journal(os.path.join(base, "journal.jsonl"))
+        resume, pending = j.resume_offset(), j.uncommitted()
+        j.close()
+        check(resume == STREAM_FAULT_AT - 1 and any(
+            r["offset"] == resume and r["has_output"] for r in pending),
+            f"[{tag}] after the SIGKILL: resume offset {resume}, pending "
+            f"{pending}")
+        rc2, line, err2, s2 = _stream_child(base, None)
+        check(rc2 == 0, f"[{tag}] resumed child rc {rc2}: {err2}")
+        rec = json.loads(line)
+        h = rec["health"]
+        check(rec["device"].startswith("cuda") and not rec["modules"]
+              and rec["summary"]["resume_offset"] == resume
+              and rec["summary"]["redeliveries"] >= 1
+              and rec["summary"]["committed_total"] == STREAM_CHUNKS
+              and h["state"] == "ready" and h["watermark"] == STREAM_CHUNKS
+              and h["lag_s"] == 0.0,
+              f"[{tag}] resumed child: {rec}")
+        recs, _ = read_jsonl(os.path.join(base, "journal.jsonl"))
+        commits = [r["chunk_id"] for r in recs if r["rec"] == "commit"]
+        arts = [f for f in os.listdir(os.path.join(base, "out"))
+                if f.endswith(".npy")]
+        got = streaming.assemble_outputs(os.path.join(base, "journal.jsonl"),
+                                         os.path.join(base, "out"))
+        same = np.array_equal(got, oracle)
+        print(f"[{tag}] ({card}) chaos: child 1 (SPARKDL_FAULTS stream."
+              f"commit at {STREAM_FAULT_AT}) SIGKILLed itself, rc {rc1}, "
+              f"{s1:.1f}s; journal resume offset {resume}, pending "
+              f"{[(r['offset'], r['has_output']) for r in pending]}; child 2 "
+              f"{s2:.1f}s: {rec['summary']}, health {h['state']} watermark "
+              f"{h['watermark']} lag_s {h['lag_s']}, child B1 launches "
+              f"{rec['launches']}; {len(commits)} commits ({len(set(commits))}"
+              f" ids), {len(arts)} artifacts; output == the parent's oracle "
+              f"bit for bit: {same}"
+              + ("" if same else f" (max abs {np.abs(got - oracle).max():.3g},"
+                                 f" rows equal "
+                                 f"{int((got == oracle).all(1).sum())})"),
+              flush=True)
+        check(len(commits) == len(set(commits)) == STREAM_CHUNKS
+              and len(arts) == STREAM_CHUNKS,
+              f"[{tag}] chaos: {len(commits)} commits, {len(arts)} artifacts")
+        check(same, f"[{tag}] chaos output differs from the oracle")
+        out["chaos"] = dict(rc_faulted=rc1, resume_offset=resume,
+                            resumed=rec["summary"], health=h,
+                            child_s=[s1, s2], commits=len(commits),
+                            artifacts=len(arts))
+
+        # 3. the Server sink
+        srv = Server("Xception", featurize=True, max_batch_size=STREAM_CHUNK,
+                     bucket_sizes=[STREAM_CHUNK], max_wait_ms=2, cache=False)
+        srv.warmup(images[0])
+        torch.cuda.synchronize()
+        check(srv.device.type == "cuda", f"[{tag}] server not on the card")
+        before = dict(srv.metrics.counters)
+        reset_counts(sepconv)
+        sc, summary, wall, got = score(srv, "server")
+        counts = read_counts(sepconv)
+        c = srv.metrics.counters
+        forwards = int(c.get("serving.batches", 0)
+                       - before.get("serving.batches", 0)
+                       + c.get("engine.graph_captures", 0)
+                       - before.get("engine.graph_captures", 0))
+        check(counts == dict(zero, sepconv=SEPCONV_PER_FORWARD * forwards),
+              f"[{tag}] Server sink launches {counts}, {forwards} forwards")
+        launches["sepconv"] += counts["sepconv"]
+        err = float(np.abs(got - oracle).max())
+        rows_equal = int((got == oracle).all(1).sum())
+        sc.close()
+        print(f"[{tag}] ({card}) Server sink (bucket {STREAM_CHUNK}): "
+              f"{summary['chunks_scored']} chunks, {forwards} forwards, "
+              f"launches {counts}; vs the engine sink max abs {err:.3g} "
+              f"(tol {STREAM_SERVER_TOL}), {rows_equal}/{n} rows bit for "
+              f"bit", flush=True)
+        check(got.shape == oracle.shape and err <= STREAM_SERVER_TOL
+              and rows_equal == n,
+              f"[{tag}] Server sink: max abs {err:.3g}, {rows_equal}/{n} "
+              f"rows bit for bit")
+        out["server_sink"] = dict(max_abs=err, rows_equal=rows_equal,
+                                  forwards=forwards, launches=counts)
+
+        # 4. the stall watchdog, then a flaky source
+        recorder = oflight.configure(enabled=True, capacity=4096)
+        src = streaming.MemorySource(chunks[:1])
+        mid = {}
+
+        def feeder():
+            time.sleep(STREAM_STALL_FEED_S)
+            mid.update(sc_stall.health())
+            src.feed(chunks[1])
+            src.finish()
+
+        sc_stall = streaming.StreamScorer(
+            eng, src, journal_path=os.path.join(tmp, "stall", "j.jsonl"),
+            out_dir=os.path.join(tmp, "stall", "out"),
+            stall_deadline_s=STREAM_STALL_DEADLINE_S)
+        feed = threading.Thread(target=feeder)
+        feed.start()
+        (summary, _), counts = counted(
+            "stall", 2, lambda: (sc_stall.run(), None))
+        feed.join()
+        launches["sepconv"] += counts["sepconv"]
+        h = sc_stall.health()
+        events = [e["event"] for e in recorder.snapshot()]
+        got = streaming.assemble_outputs(
+            os.path.join(tmp, "stall", "j.jsonl"),
+            os.path.join(tmp, "stall", "out"))
+        sc_stall.close()
+        print(f"[{tag}] ({card}) stall: source silent {STREAM_STALL_FEED_S}s"
+              f" against a {STREAM_STALL_DEADLINE_S}s deadline: health "
+              f"{mid.get('state')} (lag_s {mid.get('lag_s')}, "
+              f"{(mid.get('last_error') or {}).get('type')}) then "
+              f"{h['state']}; stalls "
+              f"{sc_stall.metrics.counters.get('stream.stalls', 0):.0f}, "
+              f"recoveries "
+              f"{sc_stall.metrics.counters.get('stream.stall_recoveries', 0):.0f}"
+              f"; flight events {sorted(set(events))}", flush=True)
+        check(mid.get("state") == "degraded" and h["state"] == "ready"
+              and summary["chunks_scored"] == 2
+              and {"stream.stall", "stream.stall_recovered"} <= set(events)
+              and np.array_equal(got, oracle[:2 * STREAM_CHUNK]),
+              f"[{tag}] stall: mid {mid}, after {h}, events {events}")
+        with faults.active(faults.FaultPlan.parse(
+                "seed=5;stream.source:error:exc=transient,at=2")) as plan:
+            (res, counts) = counted("flaky source", 3, lambda: score(
+                eng, "flaky", streaming.MemorySource(chunks[:3],
+                                                     finished=True)))
+        sc, summary, _, got = res
+        launches["sepconv"] += counts["sepconv"]
+        errors = sc.metrics.counters.get("stream.source_errors", 0)
+        sc.close()
+        oflight.configure(enabled=False)
+        print(f"[{tag}] ({card}) flaky source: stream.source fired "
+              f"{plan.fired('stream.source')}x, stream.source_errors "
+              f"{errors:.0f}, {summary['chunks_scored']} chunks, output "
+              f"unchanged", flush=True)
+        check(errors >= 1 and np.array_equal(got, oracle[:3 * STREAM_CHUNK]),
+              f"[{tag}] flaky source: {errors} errors, output differs")
+        out["stall"] = dict(mid_state=mid.get("state"),
+                            mid_lag_s=mid.get("lag_s"), after=h["state"],
+                            source_errors=errors)
+
+        # 6a. rates: the scorer against a bare map_batches, in turns
+        def bare():
+            t0 = time.perf_counter()
+            for _ in eng.map_batches(chunks):
+                pass
+            return time.perf_counter() - t0
+
+        # 6b. ms a fsync'd commit on this machine's disk: the scorer's own
+        # _commit_chunk (artifact write and fsync, output record, the
+        # stream.commit inject, commit, metrics), timed in the rate runs
+        rates = dict(scorer=[], bare=[], p50_ms=[], p99_ms=[])
+        commit_ms = []
+        commit_chunk = streaming.StreamScorer._commit_chunk
+
+        def timed_commit(self, *args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return commit_chunk(self, *args, **kw)
+            finally:
+                commit_ms.append(1e3 * (time.perf_counter() - t0))
+
+        streaming.StreamScorer._commit_chunk = timed_commit
+        try:
+            for k in range(2 * STREAM_RUNS):
+                side = ("scorer", "bare")[(k + k // 2) % 2]
+                if side == "bare":
+                    _, counts = counted("bare map_batches", STREAM_CHUNKS,
+                                        lambda: rates["bare"].append(bare()))
+                else:
+                    (sc, _, wall, got), counts = counted(
+                        "scorer rate", STREAM_CHUNKS,
+                        lambda: score(eng, f"rate{k}"))
+                    check(np.array_equal(got, oracle),
+                          f"[{tag}] rate run {k} output differs")
+                    rates["scorer"].append(wall)
+                    rates["p50_ms"].append(1e3 * sc.metrics.percentile(
+                        "stream.chunk_latency", 50))
+                    rates["p99_ms"].append(1e3 * sc.metrics.percentile(
+                        "stream.chunk_latency", 99))
+                    sc.close()
+                launches["sepconv"] += counts["sepconv"]
+
+        finally:
+            streaming.StreamScorer._commit_chunk = commit_chunk
+        check(len(commit_ms) == STREAM_RUNS * STREAM_CHUNKS,
+              f"[{tag}] {len(commit_ms)} commits timed, expected "
+              f"{STREAM_RUNS * STREAM_CHUNKS}")
+
+        # 6c. the Server sink's rate
+        server_s = []
+        for k in range(STREAM_RUNS):
+            reset_counts(sepconv)
+            sc, _, wall, got = score(srv, f"srate{k}")
+            launches["sepconv"] += read_counts(sepconv)["sepconv"]
+            check(np.array_equal(got, oracle),
+                  f"[{tag}] Server sink rate run {k} output differs")
+            server_s.append(wall)
+            sc.close()
+        srv.close()
+        chunk_rate = [STREAM_CHUNKS / s for s in rates["scorer"]]
+        bare_rate = [STREAM_CHUNKS / s for s in rates["bare"]]
+        out["rates"] = dict(
+            scorer_chunks_s=_rate_stats(chunk_rate),
+            scorer_img_s=_rate_stats([r * STREAM_CHUNK for r in chunk_rate]),
+            bare_chunks_s=_rate_stats(bare_rate),
+            bare_img_s=_rate_stats([r * STREAM_CHUNK for r in bare_rate]),
+            chunk_latency_p50_ms=rates["p50_ms"],
+            chunk_latency_p99_ms=rates["p99_ms"],
+            commit_ms=_rate_stats(commit_ms),
+            server_chunks_s=_rate_stats([STREAM_CHUNKS / s
+                                         for s in server_s]))
+        print(f"[{tag}] ({card}) rates, {STREAM_RUNS} runs a side in turns: "
+              f"scorer {[round(r, 2) for r in chunk_rate]} chunks/s "
+              f"({[round(r * STREAM_CHUNK, 1) for r in chunk_rate]} img/s) "
+              f"vs bare map_batches {[round(r, 2) for r in bare_rate]} "
+              f"chunks/s; chunk latency p50 "
+              f"{[round(v, 2) for v in rates['p50_ms']]} ms, p99 "
+              f"{[round(v, 2) for v in rates['p99_ms']]} ms; a fsync'd "
+              f"commit {np.median(commit_ms):.3f} ms median "
+              f"({min(commit_ms):.3f}-{max(commit_ms):.3f}); Server sink "
+              f"{[round(STREAM_CHUNKS / s, 2) for s in server_s]} chunks/s",
+              flush=True)
+
+        # 5. the streaming fit on [tuning]'s converted InceptionV3
+        with open(KERAS_CONFIG) as f:
+            config = json.load(f)
+        kfile = keras_import.keras_file(
+            config, _keras_layers_for("InceptionV3", SEED + 31))
+        mf = ModelFunction.from_keras(kfile)
+        init = {k: v.clone() for k, v in mf.module.state_dict().items()}
+        fit_dir = os.path.join(tmp, "fit_images")
+        paths, labels = _tuning_files(fit_dir)
+        for p in paths[STREAM_FIT_N:]:
+            os.remove(p)
+        paths, labels = paths[:STREAM_FIT_N], labels[:STREAM_FIT_N]
+        onehot = np.eye(1000, dtype=np.float32)
+        label_of = dict(zip(paths, labels))
+
+        def source():
+            for rb in iterFileBatches(fit_dir, batch_size=STREAM_FIT_RB):
+                uris = rb.column(0).to_pylist()
+                yield pa.record_batch({
+                    "uri": pa.array(uris),
+                    "onehot": pa.array([onehot[label_of[u]].tolist()
+                                        for u in uris])})
+
+        frame = DataFrame({"uri": paths,
+                           "onehot": [onehot[k].tolist() for k in labels]})
+
+        def estimator(**fit_params):
+            e = KerasImageFileEstimator(
+                inputCol="uri", outputCol="preds", labelCol="onehot",
+                modelFile=kfile, imageLoader=load_inception_v3,
+                kerasOptimizer="sgd", kerasLoss="categorical_crossentropy",
+                batchSize=TUNING_BATCH,
+                kerasFitParams=dict({"epochs": STREAM_FIT_EPOCHS},
+                                    **fit_params))
+            e._set(modelFunction=mf)
+            return e
+
+        steps = STREAM_FIT_EPOCHS * -(-STREAM_FIT_N // TUNING_BATCH)
+
+        def timed_fit(data, **fit_params):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = estimator(**fit_params).fit(data)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            return m, s
+
+        fit_s = dict(stream=[], memory=[])
+        reset_counts(sepconv)
+        models = {}
+        for k in range(2 * STREAM_RUNS):
+            side = ("stream", "memory")[(k + k // 2) % 2]
+            m, s = timed_fit(source if side == "stream" else frame,
+                             **({} if side == "stream" else
+                                {"shuffle": False}))
+            fit_s[side].append(s)
+            models.setdefault(side, m)
+        ms, mm = models["stream"], models["memory"]
+        loss_rel = float(np.max(np.abs(np.asarray(ms.trainLosses)
+                                       - mm.trainLosses)
+                                / np.abs(mm.trainLosses)))
+        upd_rel = _update_rel(mm.getModelFunction().module.state_dict(),
+                              ms.getModelFunction().module.state_dict(), init)
+        print(f"[{tag}] ({card}) stream fit of the converted InceptionV3 "
+              f"({STREAM_FIT_N} JPEGs as record batches of {STREAM_FIT_RB}, "
+              f"batch {TUNING_BATCH}, SGD, {STREAM_FIT_EPOCHS} epochs, "
+              f"{steps} steps) vs the in-memory fit (shuffle off): epoch "
+              f"losses {ms.trainLosses} vs {mm.trainLosses}, max rel err "
+              f"{loss_rel:.3e} (tol {TUNING_LOSS_TOL}), update rel err "
+              f"{upd_rel:.3e} (tol {TUNING_UPDATE_TOL})", flush=True)
+        check(len(ms.trainLosses) == STREAM_FIT_EPOCHS
+              and np.isfinite(ms.trainLosses).all()
+              and loss_rel <= TUNING_LOSS_TOL
+              and upd_rel <= TUNING_UPDATE_TOL,
+              f"[{tag}] stream fit vs in-memory: loss rel {loss_rel:.4g}, "
+              f"update rel {upd_rel:.4g}")
+        ck = os.path.join(tmp, "fit_ckpt")
+        pre = _Preempted(estimator(checkpoint_dir=ck))
+        resumed = fit_with_retries(pre, source, max_retries=1)
+        res_loss = abs(resumed.trainLosses[-1] - ms.trainLosses[-1]) / abs(
+            ms.trainLosses[-1])
+        res_upd = _update_rel(ms.getModelFunction().module.state_dict(),
+                              resumed.getModelFunction().module.state_dict(),
+                              init)
+        counts = read_counts(sepconv)
+        print(f"[{tag}] ({card}) stream fit preempted after epoch 1 "
+              f"(checkpoint_dir) and resumed by fit_with_retries "
+              f"({pre.attempts} attempts, {len(resumed.trainLosses)} epoch "
+              f"after the resume): epoch-2 loss rel err {res_loss:.3e}, "
+              f"update rel err {res_upd:.3e} against the uninterrupted "
+              f"stream fit; B1-B3 launches {counts}", flush=True)
+        check(pre.attempts == 2 and len(resumed.trainLosses) == 1
+              and res_loss <= TUNING_LOSS_TOL
+              and res_upd <= TUNING_UPDATE_TOL,
+              f"[{tag}] resumed stream fit: {pre.attempts} attempts, "
+              f"losses {resumed.trainLosses}, loss rel {res_loss:.4g}, "
+              f"update rel {res_upd:.4g}")
+        check(counts == zero, f"[{tag}] the fits launched {counts}")
+        images_stepped = steps * TUNING_BATCH
+        out["fit"] = dict(
+            stream_losses=ms.trainLosses, memory_losses=mm.trainLosses,
+            loss_rel=loss_rel, update_rel=upd_rel,
+            resumed_loss_rel=res_loss, resumed_update_rel=res_upd,
+            stream_img_s=_rate_stats([images_stepped / s
+                                      for s in fit_s["stream"]]),
+            memory_img_s=_rate_stats([images_stepped / s
+                                      for s in fit_s["memory"]]))
+        print(f"[{tag}] ({card}) fit rates ({images_stepped} images "
+              f"stepped a fit, decode included), {STREAM_RUNS} runs a side "
+              f"in turns: stream "
+              f"{[round(images_stepped / s, 1) for s in fit_s['stream']]} "
+              f"img/s, in-memory "
+              f"{[round(images_stepped / s, 1) for s in fit_s['memory']]} "
+              f"img/s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not os.path.exists(tmp), f"[{tag}] {tmp} left behind")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{tag}] ({card}) B1 launches over the counted windows "
+          f"{launches['sepconv']}; phase {out['phase_s']:.1f}s", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5505,6 +6098,10 @@ def main():
     print(json.dumps({"fleet": fleet}), flush=True)
     b1["fleet_launches"] = fleet["launches"]["sepconv"]
     h1["fleet_launches"] = fleet["launches"]["head_pass"]
+    stream = phase_stream(sepconv)
+    pools["stream"] = pool_line("[stream]")
+    print(json.dumps({"stream": stream}), flush=True)
+    b1["stream_launches"] = stream["launches"]["sepconv"]
     print(json.dumps({"pools": pools}), flush=True)
     print(json.dumps({"kernels": [b1, b3, b2, h1]}), flush=True)
     print(json.dumps({"ok": True, "device": {

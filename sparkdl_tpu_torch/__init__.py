@@ -88,6 +88,9 @@ _LAZY = {
     "CrossValidator": "sparkdl_tpu_torch.estimators.tuning",
     "registerKerasImageUDF": "sparkdl_tpu_torch.udf",
     "register_image_udf": "sparkdl_tpu_torch.udf",
+    # "streaming" is the module itself, as "imageIO" is
+    "streaming": "sparkdl_tpu_torch.streaming",
+    "StreamScorer": "sparkdl_tpu_torch.streaming",
 }
 
 
@@ -99,7 +102,7 @@ def __getattr__(name: str):
     import importlib
 
     mod = importlib.import_module(target)
-    obj = mod if name == "imageIO" else getattr(mod, name)
+    obj = mod if name in ("imageIO", "streaming") else getattr(mod, name)
     globals()[name] = obj
     return obj
 

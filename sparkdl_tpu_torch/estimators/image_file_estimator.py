@@ -5,7 +5,8 @@ The user's images are loaded once on the host (threaded, cached per URI
 in a byte-bounded LRU, ``SPARKDL_DECODE_CACHE_MB``) and each fit runs on
 one device through ``parallel.train.fit_data_parallel``: on the card
 unless the CPU was asked for.  ``fitMultiple`` shares the loaded arrays
-across param maps.
+across param maps.  ``fit(source)`` with a callable source of record
+batches streams instead (``_fit_stream``): nothing is loaded ahead.
 
 Which tensors a fit trains is what the JAX fit trains:
 
@@ -46,7 +47,8 @@ from sparkdl_tpu_torch.param.params import Param, TypeConverters, keyword_only
 from sparkdl_tpu_torch.param.shared import (CanLoadImage, HasBatchSize,
                                             HasInputCol, HasLabelCol,
                                             HasOutputCol)
-from sparkdl_tpu_torch.parallel.train import fit_data_parallel
+from sparkdl_tpu_torch.parallel.train import (fit_data_parallel,
+                                              fit_data_parallel_stream)
 from sparkdl_tpu_torch.transformers.base import Estimator, Model
 from sparkdl_tpu_torch.utils.cache import ByteBoundedLRU
 from sparkdl_tpu_torch.utils.logging import get_logger
@@ -319,12 +321,42 @@ class ImageFileEstimator(Estimator, HasInputCol, HasLabelCol, HasOutputCol,
         x, y = self._load_numpy(dataset)
         return self._fit_on_arrays(x, y)
 
+    # -- streaming fit (larger-than-RAM datasets) ---------------------------
+    def _decode_record_batch(self, rb) -> Tuple[np.ndarray, np.ndarray]:
+        """One {inputCol, labelCol} RecordBatch -> (x_chunk, y_chunk).  No
+        per-URI cache here: the dataset may not fit in memory."""
+        uris = rb.column(rb.schema.get_field_index(
+            self.getInputCol())).to_pylist()
+        labels = rb.column(rb.schema.get_field_index(
+            self.getLabelCol())).to_pylist()
+        arrays = self._decode_uris(uris, self.getImageLoader())
+        return np.stack(arrays).astype(np.float32), self._stack_labels(labels)
+
     def _fit_stream(self, source) -> "ImageFileModel":
-        """The streaming fit over a re-iterable RecordBatch source (the
-        JAX package's ``_fit_stream``): not ported yet (ROADMAP.md queue A
-        item 4)."""
-        raise NotImplementedError(
-            "the streaming fit is not ported yet (ROADMAP.md queue A item 4)")
+        """Fit from a re-iterable epoch source, for datasets larger than
+        host memory: ``source() -> iterator of pyarrow RecordBatches``
+        holding the URI and label columns (``imageIO.iterFileBatches``
+        style readers).  Each epoch iterates the source again and decodes
+        one record batch at a time, through
+        ``parallel.train.fit_data_parallel_stream`` on the estimator's
+        device.  ``fitParams`` may carry ``steps_per_epoch`` and
+        ``steps_per_execution``; ``shuffle`` and ``seed`` do not apply (the
+        stream's order is the order)."""
+        fp = self.getFitParams()
+        common = self._common_fit_kwargs()
+        common.update(steps_per_epoch=(int(fp["steps_per_epoch"])
+                                       if "steps_per_epoch" in fp else None),
+                      steps_per_execution=int(
+                          fp.get("steps_per_execution", 1)))
+
+        def chunks():
+            for rb in source():
+                yield self._decode_record_batch(rb)
+
+        def runner(fn, params, **kw):
+            return fit_data_parallel_stream(fn, params, chunks, **kw)
+
+        return self._fit_with_runner(runner, common)
 
     def fitMultiple(self, dataset, paramMaps):
         """One model per param map, in map order.  The data is loaded ONCE

@@ -9,7 +9,8 @@
   ``pipeline.dispatch``, ``pipeline.gather``) and the serving layer
   (``serving.admit``, ``serving.model``, ``batch.topoff``, ``cache.hit``,
   ``cache.stampede``, and the head bank's ``head.swap`` and
-  ``head.dispatch``) call.  With no plan active it
+  ``head.dispatch``), the fleet (``fleet.*``) and the stream scorer
+  (``stream.source``, ``stream.commit``, ``stream.resume``) call.  With no plan active it
   is one global read and a ``None`` check.
 * The error taxonomy (:mod:`~sparkdl_tpu_torch.faults.errors`).
 

@@ -7,8 +7,9 @@ The port's engine and pipelined runner call ``engine.dispatch``,
 layer ``serving.admit``, ``serving.model``, ``batch.topoff``, ``cache.hit``
 and ``cache.stampede``; the head fan-out ``head.swap`` and
 ``head.dispatch``; the fleet ``fleet.admit``, ``fleet.canary`` and
-``fleet.swap``.  The sites of modules not ported yet (streaming, the
-compile cache, ...) are registered but never fire.
+``fleet.swap``; the stream scorer ``stream.source``, ``stream.commit`` and
+``stream.resume``.  The sites of modules not ported yet (the compile cache,
+the twin, ...) are registered but never fire.
 """
 
 from __future__ import annotations

@@ -63,9 +63,11 @@ __all__ = [
 
 #: event -> operator-facing description of the state change it records:
 #: the JAX package's catalog, copied whole (as ``faults.sites.SITE_HELP``
-#: is), so that a dump from either package reads the same.  Events of
-#: modules the port has not ported yet (streaming, the twin, the compile
-#: cache) are registered and not emitted.
+#: is), so that a dump from either package reads the same.  The stream
+#: scorer emits ``stream.stall``, ``stream.stall_recovered``,
+#: ``stream.redelivery`` and ``stream.commit``.  Events of modules the port
+#: has not ported yet (the twin, the compile cache) are registered and not
+#: emitted.
 EVENT_HELP = {
     "health.ready": ("a HealthTracker recovered: degraded -> ready "
                      "(attrs name the tracker)"),

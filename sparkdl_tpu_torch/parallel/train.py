@@ -14,11 +14,13 @@ with ``checkpoint_dir`` the params, the optimizer's ``state_dict`` and the
 statistics are saved on the epoch cadence and a fit resumes from the
 newest checkpoint (``checkpoint.py``).  Steps run eagerly: the JAX
 package's compiled step has no counterpart yet.
+``fit_data_parallel_stream`` runs the same loop over a re-iterable chunk
+source, holding O(chunk + batch) rows (:func:`_stream_epoch_batches` is a
+copy of JAX's).
 
 Not ported yet (ROADMAP.md queue A item 4): the device mesh and
-multi-process input (a fit in a ``torch.distributed`` group of more than
-one process raises ``NotImplementedError``), and the streaming fit
-(:func:`fit_data_parallel_stream` raises).
+multi-process input (either fit in a ``torch.distributed`` group of more
+than one process raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ from sparkdl_tpu_torch.utils.metrics import Metrics
 logger = get_logger(__name__)
 
 _EPS = 1e-7
-_LATER = "not ported yet (ROADMAP.md queue A item 4)"
+_LATER = ("not ported yet (ROADMAP.md queue A item 4: the device mesh and "
+          "multi-process input)")
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +197,77 @@ def _epoch_batches(x: np.ndarray, y: np.ndarray, batch_size: int,
         yield x[idx], y[idx]
 
 
+def _stream_epoch_batches(chunks: Iterable, batch_size: int,
+                          num_steps: Optional[int] = None):
+    """Fixed-shape batches from a stream of (x_chunk, y_chunk) pairs: the
+    larger-than-RAM counterpart of :func:`_epoch_batches`, buffering at most
+    O(chunk + batch) rows.  The ragged tail is wrapped with rows kept from
+    the first batch (the same wrap to the full shape, without holding the
+    epoch).  With ``num_steps`` the stream is truncated or extended (whole
+    kept batches) to exactly that many steps.  A copy of the JAX
+    package's, but for one repair: a stream shorter than one batch under a
+    pinned count repeats its wrapped full batch, where JAX's repeats the
+    rows before the wrap (a short batch)."""
+    buf_x: list = []
+    buf_y: list = []
+    buffered = 0
+    head: Optional[Tuple[np.ndarray, np.ndarray]] = None
+    emitted = 0
+
+    def drain_batches():
+        nonlocal buffered, head, emitted
+        while buffered >= batch_size:
+            x = np.concatenate([np.asarray(c) for c in buf_x], axis=0)
+            y = np.concatenate([np.asarray(c) for c in buf_y], axis=0)
+            buf_x.clear()
+            buf_y.clear()
+            bx, by = x[:batch_size], y[:batch_size]
+            rest_x, rest_y = x[batch_size:], y[batch_size:]
+            if len(rest_x):
+                buf_x.append(rest_x)
+                buf_y.append(rest_y)
+            buffered = len(rest_x)
+            if head is None:
+                head = (bx.copy(), by.copy())
+            emitted += 1
+            yield bx, by
+
+    for cx, cy in chunks:
+        cx, cy = np.asarray(cx), np.asarray(cy)
+        if cx.shape[0] == 0:
+            continue
+        buf_x.append(cx)
+        buf_y.append(cy)
+        buffered += cx.shape[0]
+        for b in drain_batches():
+            yield b
+            if num_steps is not None and emitted >= num_steps:
+                return
+    # ragged tail: wrap with kept rows to the full batch shape
+    if buffered and (num_steps is None or emitted < num_steps):
+        x = np.concatenate([np.asarray(c) for c in buf_x], axis=0)
+        y = np.concatenate([np.asarray(c) for c in buf_y], axis=0)
+        short = head is None  # stream smaller than one batch
+        if short:
+            head = (x, y)
+        pad = batch_size - x.shape[0]
+        while pad > 0:
+            take = min(pad, head[0].shape[0])
+            x = np.concatenate([x, head[0][:take]], axis=0)
+            y = np.concatenate([y, head[1][:take]], axis=0)
+            pad -= take
+        if short:
+            # the kept batch is the wrapped one (JAX keeps the rows before
+            # the wrap, and a pinned count then repeats a short batch)
+            head = (x, y)
+        emitted += 1
+        yield x, y
+    # short stream under a pinned step count: repeat the kept batch
+    while num_steps is not None and emitted < num_steps and head is not None:
+        emitted += 1
+        yield head
+
+
 def _run_grouped_steps(step: Callable, spe: int, batches: Iterable,
                        device: torch.device) -> List[float]:
     """Drive one epoch's batches through ``step`` in groups of ``spe``:
@@ -232,46 +306,22 @@ def _host(tree):
     return _tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
-def fit_data_parallel(predict_fn: Callable, params, x: np.ndarray,
-                      y: np.ndarray, *,
-                      optimizer=None,
-                      loss="categorical_crossentropy",
-                      batch_size: int = 32,
-                      epochs: int = 1,
-                      shuffle: bool = True,
-                      seed: int = 0,
-                      device: DeviceLike = None,
-                      checkpoint_dir: Optional[str] = None,
-                      checkpoint_every_epochs: int = 1,
-                      metrics: Optional[Metrics] = None,
-                      train_fn: Optional[Callable] = None,
-                      stats=None,
-                      steps_per_execution: int = 1) -> Tuple[Any, List[float]]:
-    """Fit ``params`` (nested dicts of host arrays or tensors; tensors are
-    copied, never trained in place) on (x, y) on one device.
-
-    ``predict_fn(params, x) -> pred`` on tensors; ``loss(pred, y) -> [B]``
-    (a name from :data:`LOSSES` or a callable); ``optimizer``: a factory
-    ``params -> torch.optim.Optimizer``, a zero-argument factory returning
-    one, or None (Adam at lr 1e-3, as JAX's default).  The batch is
-    ``min(batch_size, n)``.  ``steps_per_execution`` steps run per loss
-    fetch, with the same loss series as 1.
-
-    With ``train_fn`` + ``stats`` (a tree of BatchNorm statistics),
-    ``train_fn({"params": p, "batch_stats": s}, x) -> (pred, new_stats)``
-    runs each step and the fitted value is ``{"params": ..., "batch_stats":
-    ...}`` (estimator ``trainBatchStats=True``).  With ``checkpoint_dir``,
-    the params, the optimizer's ``state_dict`` and the statistics are saved
-    every ``checkpoint_every_epochs`` epochs, and a fit resumes from the
-    newest checkpoint there.  Returns (the fitted value as host arrays,
-    per-epoch mean losses); a non-finite epoch mean warns, or raises under
-    ``SPARKDL_DEBUG_NANS=1``."""
+def _single_process(what: str) -> None:
     if (torch.distributed.is_available() and torch.distributed.is_initialized()
             and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(f"multi-process input: {_LATER}")
+        raise NotImplementedError(f"{what} in a process group: {_LATER}")
+
+
+def _fit(predict_fn: Callable, params, epoch_batches: Callable[[int], Iterable],
+         no_rows: str, *, optimizer, loss, epochs: int, device: DeviceLike,
+         checkpoint_dir: Optional[str], checkpoint_every_epochs: int,
+         metrics: Optional[Metrics], train_fn: Optional[Callable], stats,
+         steps_per_execution: int) -> Tuple[Any, List[float]]:
+    """The loop both fits share: ``epoch_batches(epoch)`` gives the epoch's
+    (x, y) host batches; ``no_rows`` is the ``ValueError`` an epoch without
+    a batch raises.  See :func:`fit_data_parallel` for the rest."""
     dev = resolve_device(device)
     make_opt = _resolve_optimizer(optimizer)
-    batch_size = min(int(batch_size), max(1, x.shape[0]))
     with_stats = train_fn is not None
     tensors = _tree_map(lambda v: _leaf(v, dev, True), params)
     opt = make_opt(_tree_leaves(tensors))
@@ -311,11 +361,9 @@ def fit_data_parallel(predict_fn: Callable, params, x: np.ndarray,
     spe = max(1, int(steps_per_execution))
     epoch_losses: List[float] = []
     for epoch in range(start_epoch, epochs):
-        step_losses = _run_grouped_steps(
-            step, spe, _epoch_batches(x, y, batch_size, epoch, shuffle, seed),
-            dev)
+        step_losses = _run_grouped_steps(step, spe, epoch_batches(epoch), dev)
         if not step_losses:
-            raise ValueError("fit produced no batches (zero-row dataset?)")
+            raise ValueError(no_rows)
         mean = float(np.mean(step_losses))
         if not np.isfinite(mean):
             debug.warn_or_raise_nonfinite_loss(step_losses, epoch)
@@ -331,7 +379,109 @@ def fit_data_parallel(predict_fn: Callable, params, x: np.ndarray,
     return _host(tensors), epoch_losses
 
 
-def fit_data_parallel_stream(*args, **kwargs):
-    """The streaming fit over a re-iterable chunk source (JAX's
-    ``fit_data_parallel_stream``): not ported yet."""
-    raise NotImplementedError(f"the streaming fit: {_LATER}")
+def fit_data_parallel(predict_fn: Callable, params, x: np.ndarray,
+                      y: np.ndarray, *,
+                      optimizer=None,
+                      loss="categorical_crossentropy",
+                      batch_size: int = 32,
+                      epochs: int = 1,
+                      shuffle: bool = True,
+                      seed: int = 0,
+                      device: DeviceLike = None,
+                      checkpoint_dir: Optional[str] = None,
+                      checkpoint_every_epochs: int = 1,
+                      metrics: Optional[Metrics] = None,
+                      train_fn: Optional[Callable] = None,
+                      stats=None,
+                      steps_per_execution: int = 1) -> Tuple[Any, List[float]]:
+    """Fit ``params`` (nested dicts of host arrays or tensors; tensors are
+    copied, never trained in place) on (x, y) on one device.
+
+    ``predict_fn(params, x) -> pred`` on tensors; ``loss(pred, y) -> [B]``
+    (a name from :data:`LOSSES` or a callable); ``optimizer``: a factory
+    ``params -> torch.optim.Optimizer``, a zero-argument factory returning
+    one, or None (Adam at lr 1e-3, as JAX's default).  The batch is
+    ``min(batch_size, n)``.  ``steps_per_execution`` steps run per loss
+    fetch, with the same loss series as 1.
+
+    With ``train_fn`` + ``stats`` (a tree of BatchNorm statistics),
+    ``train_fn({"params": p, "batch_stats": s}, x) -> (pred, new_stats)``
+    runs each step and the fitted value is ``{"params": ..., "batch_stats":
+    ...}`` (estimator ``trainBatchStats=True``).  With ``checkpoint_dir``,
+    the params, the optimizer's ``state_dict`` and the statistics are saved
+    every ``checkpoint_every_epochs`` epochs, and a fit resumes from the
+    newest checkpoint there.  Returns (the fitted value as host arrays,
+    per-epoch mean losses); a non-finite epoch mean warns, or raises under
+    ``SPARKDL_DEBUG_NANS=1``."""
+    _single_process("a fit")
+    batch_size = min(int(batch_size), max(1, x.shape[0]))
+    return _fit(
+        predict_fn, params,
+        lambda epoch: _epoch_batches(x, y, batch_size, epoch, shuffle, seed),
+        "fit produced no batches (zero-row dataset?)",
+        optimizer=optimizer, loss=loss, epochs=epochs, device=device,
+        checkpoint_dir=checkpoint_dir,
+        checkpoint_every_epochs=checkpoint_every_epochs, metrics=metrics,
+        train_fn=train_fn, stats=stats,
+        steps_per_execution=steps_per_execution)
+
+
+def fit_data_parallel_stream(predict_fn: Callable, params,
+                             epoch_source: Callable[[], Iterable], *,
+                             optimizer=None,
+                             loss="categorical_crossentropy",
+                             batch_size: int = 32,
+                             epochs: int = 1,
+                             steps_per_epoch: Optional[int] = None,
+                             device: DeviceLike = None,
+                             checkpoint_dir: Optional[str] = None,
+                             checkpoint_every_epochs: int = 1,
+                             metrics: Optional[Metrics] = None,
+                             train_fn: Optional[Callable] = None,
+                             stats=None,
+                             steps_per_execution: int = 1
+                             ) -> Tuple[Any, List[float]]:
+    """Like :func:`fit_data_parallel` but over a re-iterable chunk source:
+    ``epoch_source() -> iterator of (x_chunk, y_chunk)`` host arrays, called
+    once per epoch.  Host memory stays O(chunk + batch): a dataset larger
+    than host RAM streams from disk every epoch.
+
+    The batch is ``batch_size`` whatever the stream's length: a stream
+    shorter than one batch is wrapped up to it (:func:`_stream_epoch_batches`,
+    JAX's semantics, not the in-memory fit's clamp).  ``steps_per_epoch``
+    pins the steps of every epoch (the stream is truncated or extended);
+    without it the stream's own length decides.  Empty leading chunks are
+    skipped; an epoch with no rows raises ``ValueError("epoch_source
+    yielded no rows")``.  A fit in a ``torch.distributed`` group of more
+    than one process raises ``NotImplementedError``."""
+    _single_process("a streaming fit")
+    batch_size = int(batch_size)
+
+    def epoch_chunks():
+        it = iter(epoch_source())
+        first = next(it, None)
+        while first is not None and np.asarray(first[0]).shape[0] == 0:
+            first = next(it, None)  # skip empty leading chunks
+        if first is None:
+            raise ValueError("epoch_source yielded no rows")
+
+        def prefixed(f):
+            # not itertools.chain: chain pins its argument tuple (and so
+            # the first chunk) for the whole epoch; the peeked chunk must
+            # die once it has been consumed
+            yield f
+            del f
+            yield from it
+
+        return prefixed(first)
+
+    return _fit(
+        predict_fn, params,
+        lambda epoch: _stream_epoch_batches(epoch_chunks(), batch_size,
+                                            num_steps=steps_per_epoch),
+        "epoch_source yielded no rows",
+        optimizer=optimizer, loss=loss, epochs=epochs, device=device,
+        checkpoint_dir=checkpoint_dir,
+        checkpoint_every_epochs=checkpoint_every_epochs, metrics=metrics,
+        train_fn=train_fn, stats=stats,
+        steps_per_execution=steps_per_execution)

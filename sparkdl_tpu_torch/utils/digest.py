@@ -2,8 +2,8 @@
 ``sparkdl_tpu/utils/digest.py``).
 
 One core for every "same bytes" question: the serving result cache keys
-its entries on :func:`content_digest`, and the streaming journals (not
-ported yet) name chunks by :func:`content_chunk_id`.  Every digest covers
+its entries on :func:`content_digest`, and the streaming sources and
+journal name chunks by :func:`content_chunk_id`.  Every digest covers
 dtype, shape AND bytes, so two arrays that merely reinterpret each other's
 buffers (f32 vs u8 views, [2, 6] vs [3, 4]) never collide.
 

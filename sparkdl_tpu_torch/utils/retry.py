@@ -1,9 +1,11 @@
 """Retry with jittered, capped exponential backoff (port of
-``sparkdl_tpu/utils/retry.py`` without ``fit_with_retries``, which waits
-for the port's checkpointing).  Every re-execution is a ``retry.attempt``
-flight event.
+``sparkdl_tpu/utils/retry.py``).  Every re-execution is a
+``retry.attempt`` flight event.
 
-The engine's dispatch retry budget runs through :func:`with_retries`.
+The engine's dispatch retry budget runs through :func:`with_retries`;
+:func:`fit_with_retries` retries an estimator's fit, which with
+``fitParams={"checkpoint_dir": ...}`` resumes at the newest epoch
+checkpoint, so a retry repeats only the epoch that failed.
 Jitter draws come from an explicit ``random.Random`` when one is given, so
 a test can fix the sequence; with none they come from the ``random``
 module's global generator, as in the JAX package.
@@ -85,3 +87,26 @@ def with_retries(fn: Callable[[], Any], *, max_retries: int = 2,
                                          max_backoff_seconds, jitter, rng))
     assert last is not None
     raise last
+
+
+def fit_with_retries(estimator, dataset, params=None, *,
+                     max_retries: int = 2,
+                     non_retryable: Tuple[Type[BaseException], ...]
+                     = NON_RETRYABLE,
+                     backoff_seconds: float = 0.0,
+                     max_backoff_seconds: Optional[float] = None,
+                     jitter: float = 0.0,
+                     on_retry: Optional[Callable] = None):
+    """``estimator.fit(dataset, params)`` under :func:`with_retries`.
+
+    With ``fitParams={"checkpoint_dir": ...}`` each retry resumes from the
+    newest epoch checkpoint, so a transient failure (preemption, host
+    memory, flaky storage) costs one epoch of recompute; without it each
+    retry fits from scratch (still correct: a fit is idempotent)."""
+    return with_retries(lambda: estimator.fit(dataset, params),
+                        max_retries=max_retries,
+                        non_retryable=non_retryable,
+                        backoff_seconds=backoff_seconds,
+                        max_backoff_seconds=max_backoff_seconds,
+                        jitter=jitter,
+                        on_retry=on_retry)

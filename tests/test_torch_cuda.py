@@ -17,6 +17,9 @@ import torch.nn as nn
 pytestmark = pytest.mark.cuda
 
 B = 8  # device batch
+# B1 launches in one 96x96 Xception forward: the 30 stride-1 sepconvs and,
+# at this size, the 4 entry ones.
+XC96_B1_LAUNCHES = 34
 
 
 @pytest.fixture
@@ -456,3 +459,58 @@ def test_capture_records_its_own_launches_while_another_engine_replays(
     assert records == [(1, 0, 0)] * 3
     b.capture = False
     np.testing.assert_array_equal(graphed, b(x))
+
+
+@pytest.mark.parametrize("pipeline", [True, False],
+                         ids=["pipelined", "serial"])
+def test_stream_commit_fault_resumes_bit_for_bit(cuda, tmp_path, pipeline):
+    """A StreamScorer over a captured Xception engine (96x96, B1 in every
+    dispatch: its 30 sepconvs and, at this size, the 4 entry ones too):
+    an injected ``stream.commit`` fault kills the first run between an
+    output artifact and its commit; the resumed run's output equals an
+    uninterrupted run's and the engine's batch output, bit for bit, and
+    the engine captured once for all three runs."""
+    from sparkdl_tpu_torch import faults, streaming
+    from sparkdl_tpu_torch.models import get_model_spec
+    from sparkdl_tpu_torch.parallel.engine import InferenceEngine
+    from sparkdl_tpu_torch.transformers import named_image as ni
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    module = get_model_spec("Xception").build().eval()
+    eng = InferenceEngine(ni.zoo_model_fn("Xception", True), module,
+                          device="cuda", device_batch_size=B)
+    rng = np.random.default_rng(5)
+    chunks = [rng.integers(0, 256, (B, 96, 96, 3), dtype=np.uint8)
+              for _ in range(6)]
+    oracle = np.concatenate(list(eng.map_batches(chunks, pipeline=False)))
+
+    def run(base, plan=None):
+        sc = streaming.StreamScorer(
+            eng, streaming.MemorySource(chunks, finished=True),
+            journal_path=str(base / "j.jsonl"), out_dir=str(base / "out"),
+            pipeline=pipeline, cache=False)
+        try:
+            if plan is None:
+                return sc.run()
+            with faults.active(faults.FaultPlan.parse(plan)):
+                with pytest.raises(faults.InjectedFatalError):
+                    sc.run()
+        finally:
+            sc.close()
+
+    run(tmp_path / "whole")
+    whole = streaming.assemble_outputs(str(tmp_path / "whole" / "j.jsonl"),
+                                       str(tmp_path / "whole" / "out"))
+    run(tmp_path / "cut", "stream.commit:error:exc=fatal,at=3")
+    summary = run(tmp_path / "cut")
+    cut = streaming.assemble_outputs(str(tmp_path / "cut" / "j.jsonl"),
+                                     str(tmp_path / "cut" / "out"))
+    assert summary["resume_offset"] == 2 and summary["redeliveries"] >= 1
+    assert summary["committed_total"] == len(chunks)
+    np.testing.assert_array_equal(cut, whole)
+    np.testing.assert_array_equal(cut, oracle)
+    (graph,) = eng.graphs()
+    assert graph["launches"] == (XC96_B1_LAUNCHES, 0, 0)
+    assert not [t.name for t in threading.enumerate()
+                if t.name.startswith("sparkdl-pipeline")]

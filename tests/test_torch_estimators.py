@@ -140,14 +140,16 @@ def test_losses_match_jax():
 
 
 def test_fit_raises_on_parts_not_ported(blobs, monkeypatch):
-    """Multi-process input and the streaming fit are not ported yet."""
+    """Multi-process input is not ported yet: both fits refuse a process
+    group of more than one process."""
     x = np.zeros((8, 2), np.float32)
     y = np.zeros(8, np.int64)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        train.fit_data_parallel_stream(lambda p, xb: xb, {}, lambda: iter(()))
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
     with sparkdl_tpu_torch.default_device("cpu"):
+        with pytest.raises(NotImplementedError, match="item 4"):
+            train.fit_data_parallel_stream(lambda p, xb: xb, {},
+                                           lambda: iter([(x, y)]))
         with pytest.raises(NotImplementedError, match="item 4"):
             train.fit_data_parallel(lambda p, xb: xb, {}, x, y)
 

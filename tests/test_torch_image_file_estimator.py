@@ -245,7 +245,7 @@ def test_param_validation(files, keras_path):
             est = KerasImageFileEstimator(**_keras_kw(keras_path))
             est.set(est.trainBatchStats, True)
             est.fit(DataFrame(_columns(files)))
-        with pytest.raises(NotImplementedError, match="item 4"):
+        with pytest.raises(ValueError, match="yielded no rows"):
             KerasImageFileEstimator(**_keras_kw(keras_path)).fit(
                 lambda: iter(()))
 

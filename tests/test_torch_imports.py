@@ -28,7 +28,7 @@ def _port_files():
         "gen_keras_layers.py", "gen_keras_configs.py",
         "graph_count_probe.py", "keras_stage_probe.py", "gen_tf_graphs.py",
         "tfgraph_fold_probe.py", "crc32c_timing.py",
-        "obs_overhead_probe.py")]
+        "obs_overhead_probe.py", "port_stream_journal.py")]
     return files
 
 
