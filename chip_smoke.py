@@ -166,7 +166,7 @@ points, with seeded random weights and batch 32:
     ``fleet.request`` spans parenting the servers' request spans; and a
     fan-out entry (16 tenants' heads, a hot swap midway) bit for bit its
     per-tenant oracle.  B1 and H1 counted in every window;
-  * [stream] (last, after [fleet]), exactly-once streaming
+  * [stream] (after [fleet]), exactly-once streaming
     (``sparkdl_tpu_torch.streaming``) over the zoo Xception engine at
     299x299 and device batch 16 (B1 30 a dispatch), f32 with TF32 off, 12
     chunks of 16 seeded images: ``StreamScorer`` (pipelined) equal to
@@ -180,7 +180,24 @@ points, with seeded random weights and batch 32:
     sink's rate; and the streaming fit of [tuning]'s converted
     InceptionV3 over 44 JPEGs in record batches of 10 against the
     in-memory fit (within [tuning]'s bounds), preempted and resumed by
-    ``fit_with_retries``, with both fits' img/s.
+    ``fit_with_retries``, with both fits' img/s;
+  * [mesh] (after [stream]), the device mesh and the weight policy on
+    the served zoo Xception at 299x299, buckets 8/16/32: ``Server(mesh=
+    get_mesh(), partition_rules=default_partition_rules)`` and
+    ``donate_batch=True`` serve the plain server's rows bit for bit (B1
+    30 a dispatch), ``varz()["sharding"]`` reads mesh (1, 1), replicated,
+    the module's counted bytes; ``HeadFanoutServer(mesh=get_mesh())``
+    rows bit for bit their per-tenant oracles (H1 one launch a pass);
+  * [train] (last), the rest of training on config 5's converted
+    InceptionV3 at 299x299, batch 16 (none of the kernels): the captured
+    step against the eager one for SGD and Adam, f32 and TF32 (held with
+    cuDNN's deterministic algorithms, timed with its defaults: img/s,
+    host us a step, pool bytes, capture s), ``steps_per_execution=4``
+    against 1 with a ragged tail group, ``trainBatchStats`` on ResNet50
+    captured against eager, two ranks on this one card over gloo (child
+    processes, unequal shards, the in-memory then the stream fit; equal
+    to each other and to a one-process fit on the global batches; only
+    rank 0's checkpoint), and no fit's pool left behind.
 
 B1 is also held against its plain version at ragged shapes (a pixel count
 that is not a multiple of 64, F = 200, all four ReLU variants), and each of
@@ -248,10 +265,14 @@ passes, the hot swap, card vs CPU, pools, launches), one of [obs]'s
 subprocesses, the fan-out, us a site call, launches), one of [fleet]'s
 (the overhead, the windows, the rollout, pools, the ledger, the fan-out,
 launches), one of [stream]'s (the sinks, the chaos, the stall, the
-rates, the fits, launches), one ``{"pools":
+rates, the fits, launches), one of [mesh]'s (the servers' sharding,
+dispatches and launches, the fan-out), one of [train]'s (captured and
+eager readings and rates, the groups, the statistics, the two ranks,
+pools), one ``{"pools":
 ...}`` line (the graph pools held after every phase, by phase; later
 phases add keys to it), one JSON line with every kernel's numbers (with
-its launches in [serving], [headfanout], [obs], [fleet] and [stream]; H1's
+its launches in [serving], [headfanout], [obs], [fleet], [stream] and
+[mesh]; H1's
 ``launches`` are its [headfanout] launches), and last the line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -1867,17 +1888,17 @@ def _seeded_cnn_arrays(module, seed):
 class _FitLog:
     """Records every fit of the estimators while it is entered: the
     per-epoch losses, each epoch's per-step losses, the images each fit
-    stepped over and its seconds (the card synchronised on both ends).
-    Instrumentation of this script: it wraps ``fit_data_parallel`` where
-    the image-file estimator calls it and ``_run_grouped_steps`` in the
-    train module."""
+    stepped over, its seconds (the card synchronised on both ends) and
+    its step mode.  Instrumentation of this script: it wraps
+    ``fit_data_parallel`` where the image-file estimator calls it and the
+    train module's ``_StepRunner.run_epoch``."""
 
     def __enter__(self):
         from sparkdl_tpu_torch.estimators import image_file_estimator as ife
         from sparkdl_tpu_torch.parallel import train
 
         self.fits = []
-        self._saved = (ife.fit_data_parallel, train._run_grouped_steps)
+        self._saved = (ife.fit_data_parallel, train._StepRunner.run_epoch)
         fit, grouped = self._saved
 
         def logged_fit(fn, params, x, y, **kw):
@@ -1892,20 +1913,21 @@ class _FitLog:
                        images=rec["batch"] * sum(map(len, rec["steps"])))
             return out
 
-        def logged_steps(*a, **k):
-            losses = grouped(*a, **k)
+        def logged_steps(runner, batches):
+            losses = grouped(runner, batches)
             self.fits[-1]["steps"].append(list(losses))
+            self.fits[-1]["mode"] = runner.mode
             return losses
 
         ife.fit_data_parallel = logged_fit
-        train._run_grouped_steps = logged_steps
+        train._StepRunner.run_epoch = logged_steps
         return self
 
     def __exit__(self, *exc):
         from sparkdl_tpu_torch.estimators import image_file_estimator as ife
         from sparkdl_tpu_torch.parallel import train
 
-        ife.fit_data_parallel, train._run_grouped_steps = self._saved
+        ife.fit_data_parallel, train._StepRunner.run_epoch = self._saved
 
 
 class _CaptureCount:
@@ -2118,8 +2140,11 @@ def phase_tuning(sepconv):
         eval_s = sum(s for _, s in evals[:12])
         eval_images = sum(n for n, _ in evals[:12])
         best = int(np.argmax(cv.avgMetrics))
+        modes = {}
+        for f in log.fits:
+            modes[f.get("mode")] = modes.get(f.get("mode"), 0) + 1
         out["cv"] = dict(
-            wall_s=wall, fits=len(log.fits), fit_s=fit_s,
+            wall_s=wall, fits=len(log.fits), fit_s=fit_s, step_modes=modes,
             fit_img_s=fit_images / fit_s, eval_img_s=eval_images / eval_s,
             captures=caps.n, avg_metrics=cv.avgMetrics, best_index=best,
             epoch_losses=[f["losses"] for f in log.fits],
@@ -2134,7 +2159,8 @@ def phase_tuning(sepconv):
               f"best map {best}; wall {wall:.1f}s, fit {fit_s:.1f}s for "
               f"{fit_images} images ({fit_images / fit_s:.1f} img/s), eval "
               f"{eval_images / eval_s:.1f} img/s over {eval_images} images, "
-              f"{caps.n} captures; graph pools held: after the first "
+              f"{caps.n} engine captures, fits' step modes {modes}; graph "
+              f"pools held: after the first "
               f"transform {pools[0][0] / 2**20:.1f} MiB (one model's pool "
               f"{pools[0][1] / 2**20:.1f} MiB), after the run "
               f"{held_after / 2**20:.1f} MiB; B1-B3 launches {counts}",
@@ -6013,6 +6039,744 @@ def phase_stream(sepconv):
     return out
 
 
+MESH_WAVES = (8, 16, 32)        # one wave a bucket: each fills its bucket
+MESH_WAIT_MS = 400.0            # a wave is queued whole before its flush
+MESH_TENANTS = 4                # [mesh]'s fan-out tenants, 8 images each
+
+
+def _waves(srv, images):
+    """Serve ``images`` in MESH_WAVES: each wave's requests are submitted
+    together and the wave's flush fills its bucket exactly, so two servers
+    batch every image alike.  Returns the rows in image order."""
+    rows, off = [], 0
+    for n in MESH_WAVES:
+        futs = [srv.submit(images[off + i]) for i in range(n)]
+        rows += [f.result(timeout=120) for f in futs]
+        off += n
+    return np.stack(rows)
+
+
+def phase_mesh(sepconv):
+    """[mesh]: the device mesh and the weight policy on the served zoo
+    Xception at 299x299, f32 with TF32 off, buckets 8/16/32.
+
+      1. ``Server(mesh=get_mesh(), partition_rules=default_partition_rules)``
+         serves rows bit for bit the plain ``Server``'s (the same waves,
+         one bucket each), and so does ``donate_batch=True``; B1 launches
+         30 a dispatch in every window (counts set to 0 just before each
+         server's waves, read just after);
+      2. ``varz()["sharding"]``: mesh (1, 1), ``sharded`` False, digest
+         ``"replicated"``, ``param_bytes_total`` the module's counted
+         tensors (its ``state_dict`` without ``num_batches_tracked``);
+      3. ``HeadFanoutServer(mesh=get_mesh())``: MESH_TENANTS tenants over
+         8 images each, every row bit for bit its per-tenant oracle (the
+         head over the cached feature row), H1 one launch a head pass."""
+    from sparkdl_tpu_torch.image.io import arrowStructsToBatch
+    from sparkdl_tpu_torch.models import get_model_spec
+    from sparkdl_tpu_torch.ops import head as hops
+    from sparkdl_tpu_torch.parallel.engine import dense_head_row
+    from sparkdl_tpu_torch.parallel.mesh import (default_partition_rules,
+                                                 get_mesh)
+    from sparkdl_tpu_torch.serving import (HeadFanoutServer, InferenceCache,
+                                           Server)
+    from sparkdl_tpu_torch.transformers import named_image as ni
+    from sparkdl_tpu_torch.utils.digest import content_digest
+
+    tag = "mesh"
+    out = {}
+    size = get_model_spec("Xception").input_size[0]
+    n = sum(MESH_WAVES)
+    df = synthetic_frame(n, size, SEED + 91)
+    images, ok = arrowStructsToBatch(df.table.column("image"), size, size)
+    check(ok.all(), f"[{tag}] synthetic images failed to decode")
+    mesh = get_mesh()
+    check(mesh.shape == {"data": 1, "model": 1}
+          and mesh.devices.flat[0].type == "cuda",
+          f"[{tag}] get_mesh() is {mesh}, want (1, 1) on the card")
+    module = ni._cached_model("Xception")
+    counted = sum(t.numel() * t.element_size()
+                  for k, t in module.state_dict().items()
+                  if not k.endswith("num_batches_tracked"))
+    kw = dict(featurize=True, max_batch_size=BATCH, bucket_sizes=[8, 16, 32],
+              max_wait_ms=MESH_WAIT_MS, cache=False)
+    policy = dict(mesh=mesh, partition_rules=default_partition_rules)
+    rows = {}
+    total = dict(sepconv=0, sepconv_tiled=0, mbconv=0)
+    for name, extra in (("plain", {}), ("mesh", policy),
+                        ("donate", dict(policy, donate_batch=True))):
+        srv = Server("Xception", **kw, **extra)
+        srv.warmup(images[0])
+        before = dict(srv.metrics.counters)
+        reset_counts(sepconv)
+        rows[name] = _waves(srv, images)
+        counts = read_counts(sepconv)
+        batches = int(srv.metrics.counters.get("serving.batches", 0)
+                      - before.get("serving.batches", 0))
+        want = {k: v * batches for k, v in SERVED_XCEPTION.items()}
+        check(batches == len(MESH_WAVES) and counts == want,
+              f"[{tag}] {name} server: {batches} dispatches, launches "
+              f"{counts}, want {len(MESH_WAVES)} and {want}")
+        _add_counts(total, counts)
+        info = srv.varz()["sharding"]
+        srv.close()
+        check(info["mesh_shape"] == {"data": 1, "model": 1}
+              and info["sharded"] is False
+              and info["sharding_digest"] == "replicated"
+              and info["param_bytes_total"] == counted
+              and info["param_bytes_per_chip"] == counted
+              and info["donate_batch"] is (name == "donate"),
+              f"[{tag}] {name} server's varz sharding {info}, want mesh "
+              f"(1, 1), replicated, {counted} bytes")
+        out[name] = dict(sharding=info, dispatches=batches, launches=counts)
+    for name in ("mesh", "donate"):
+        check(np.array_equal(rows[name], rows["plain"]),
+              f"[{tag}] {name} server's rows != the plain server's: max "
+              f"abs {np.abs(rows[name] - rows['plain']).max():.3g}")
+    print(f"[{tag}] Server(Xception, featurize, buckets 8/16/32) on "
+          f"get_mesh() {mesh.shape} with default_partition_rules, and with "
+          f"donate_batch=True: {n} images in waves of {list(MESH_WAVES)} "
+          f"bit for bit the plain server's; B1 {SEPCONV_PER_FORWARD} a "
+          f"dispatch ({total['sepconv']} in {3 * len(MESH_WAVES)} "
+          f"dispatches); varz sharding: mesh (1, 1), sharded False, digest "
+          f"'replicated', param_bytes_total {counted} = the module's "
+          f"counted tensors", flush=True)
+
+    # 3. the head fan-out on the mesh
+    rng = np.random.default_rng(SEED + 92)
+    heads = {f"m{i}": {
+        "kernel": (rng.normal(size=(HEAD_D, FANOUT_CLASSES))
+                   / math.sqrt(HEAD_D)).astype(np.float32),
+        "bias": rng.normal(size=(FANOUT_CLASSES,)).astype(np.float32)}
+        for i in range(MESH_TENANTS)}
+    fsrv = HeadFanoutServer("Xception", max_batch_size=BATCH, mesh=mesh,
+                            cache=InferenceCache())
+    for t, h in heads.items():
+        fsrv.add_head(t, h)
+    check(fsrv.device.type == "cuda" and fsrv.bank.device.type == "cuda",
+          f"[{tag}] fan-out server not on the card")
+    reqs = [(i, t) for t in heads for i in range(8)]
+    before = dict(fsrv.metrics.counters)
+    hops.head_pass.launches = 0
+    served = [fsrv.predict(images[i], t) for i, t in reqs]
+    h1 = hops.head_pass.launches
+    passes = int(fsrv.metrics.counters.get("headbank.dispatches", 0)
+                 - before.get("headbank.dispatches", 0))
+    bad = 0
+    for (i, t), row in zip(reqs, served):
+        feats = fsrv.cache.get(fsrv.feature_namespace
+                               + (content_digest(images[i]),))
+        with torch.inference_mode():
+            want = dense_head_row(
+                {k: torch.from_numpy(v).cuda() for k, v in heads[t].items()},
+                torch.from_numpy(np.ascontiguousarray(feats)).cuda()
+            ).cpu().numpy()
+        bad += row.tobytes() != want.tobytes()
+    stats = fsrv.bank.stats()
+    fsrv.close()
+    check(bad == 0, f"[{tag}] {bad} fan-out rows != their per-tenant oracle")
+    check(passes == len(reqs) and h1 == passes,
+          f"[{tag}] fan-out: {passes} head passes for {len(reqs)} requests, "
+          f"H1 {h1} launches (want one a pass)")
+    check(stats["mesh_shape"] == {"data": 1, "model": 1},
+          f"[{tag}] head bank stats {stats}")
+    print(f"[{tag}] HeadFanoutServer(Xception, mesh=get_mesh()): "
+          f"{len(reqs)} requests of {MESH_TENANTS} tenants, every row == its "
+          f"per-tenant oracle bit for bit; {passes} head passes, H1 {h1} "
+          f"launches; bank {stats['param_bytes_total']} bytes on mesh "
+          f"{stats['mesh_shape']}", flush=True)
+    out["fanout"] = dict(requests=len(reqs), passes=passes, h1=h1,
+                         bank=stats)
+    out["launches"] = dict(total, head_pass=h1)
+    return out
+
+
+TRAIN_ROWS = 48                 # [tuning]'s 48 JPEGs, batch 16
+TRAIN_EPOCHS = 4                # 12 steps: 11 replays pay for a capture
+TRAIN_SPE_ROWS = 80             # 5 steps an epoch: a group of 4 and a tail
+TRAIN_SPE_EPOCHS = 11           # 50 replayed steps for 5 captured ones
+TRAIN_STATS_EPOCHS = 6          # ResNet50's 16 rows: 12 steps of 8
+TRAIN_RANK_ROWS = (28, 20)      # the two ranks' unequal shards
+TRAIN_STREAM_CHUNKS = ((10, 10, 8), (12, 8))
+TRAIN_STREAM_STEPS = 3          # the stream fit's pinned steps an epoch
+TRAIN_CHILD_TIMEOUT_S = 300
+RANK_AGREE_TOL = 1e-7           # the two ranks' fitted tensors (rel)
+
+
+class _EagerSteps:
+    """While entered, the train module's own ``step_mode`` answers eager:
+    the eager reference of a captured fit runs the fit's own code
+    (instrumentation of this script, no knob of the fit)."""
+
+    def __enter__(self):
+        from sparkdl_tpu_torch.parallel import train
+
+        self._saved = train.step_mode
+        train.step_mode = lambda *a, **k: ("eager", "the eager reference")
+        return self
+
+    def __exit__(self, *exc):
+        from sparkdl_tpu_torch.parallel import train
+
+        train.step_mode = self._saved
+
+
+class _EpochLog:
+    """Records every epoch of the fits run while entered: its seconds (the
+    card synchronised on both ends), its per-step losses and the fit's
+    step mode (wraps the train module's ``_StepRunner.run_epoch``)."""
+
+    def __enter__(self):
+        from sparkdl_tpu_torch.parallel import train
+
+        self.epochs = []
+        self.losses = []
+        self.modes = []
+        self._saved = train._StepRunner.run_epoch
+        real = self._saved
+
+        def logged(runner, batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = real(runner, batches)
+            torch.cuda.synchronize()
+            self.epochs.append((time.perf_counter() - t0, len(losses)))
+            self.losses.extend(losses)
+            self.modes.append(runner.mode)
+            return losses
+
+        train._StepRunner.run_epoch = logged
+        return self
+
+    def __exit__(self, *exc):
+        from sparkdl_tpu_torch.parallel import train
+
+        train._StepRunner.run_epoch = self._saved
+
+
+def _train_model():
+    """Config 5's model as [tuning] builds it (the committed Keras
+    InceptionV3 config with seeded Keras-layout arrays): (the module on
+    the card, the tensors a fit trains by name, the predict fn)."""
+    from sparkdl_tpu_torch.estimators.image_file_estimator import \
+        variable_names
+    from sparkdl_tpu_torch.graph.function import ModelFunction, apply_with
+    from sparkdl_tpu_torch.models import keras_import
+
+    with open(KERAS_CONFIG) as f:
+        config = json.load(f)
+    mf = ModelFunction.from_keras(keras_import.keras_file(
+        config, _keras_layers_for("InceptionV3", SEED + 31)))
+    module = copy.deepcopy(mf.module).cuda().eval()
+    tensors = dict(module.named_parameters())
+    tensors.update(module.named_buffers())
+    params = {n: tensors[n].detach() for n in variable_names(module)}
+
+    def predict(p, x):
+        return apply_with(mf.fn, module, p, x)
+
+    return module, params, predict
+
+
+_TRAIN_CHILD = """
+import json, sys, time
+import numpy as np, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as c
+from sparkdl_tpu_torch import resolve_device
+from sparkdl_tpu_torch.param.converters import NamedOptimizer
+from sparkdl_tpu_torch.parallel import distributed, train
+from sparkdl_tpu_torch.utils.metrics import Metrics
+rank, world, port, base = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                           sys.argv[4])
+distributed.initialize(f"localhost:{port}", world, rank, backend="gloo")
+data = np.load(f"{base}/data.npz")
+lo = sum(c.TRAIN_RANK_ROWS[:rank])
+x = data["x"][lo:lo + c.TRAIN_RANK_ROWS[rank]]
+y = data["y"][lo:lo + c.TRAIN_RANK_ROWS[rank]]
+module, params, predict = c._train_model()
+out = dict(rank=rank, device=str(resolve_device()),
+           backend=distributed.backend(),
+           modules=sorted(m for m in ("jax", "sparkdl_tpu")
+                          if m in sys.modules))
+kw = dict(optimizer=NamedOptimizer("sgd"), loss="categorical_crossentropy",
+          batch_size=c.TUNING_BATCH, epochs=c.TRAIN_EPOCHS)
+steps = []
+grouped = train._StepRunner.run_epoch
+def logged(runner, batches):
+    losses = grouped(runner, batches)
+    steps.extend(losses)
+    return losses
+train._StepRunner.run_epoch = logged
+for name in ("arrays", "stream"):
+    steps.clear()
+    m = Metrics()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if name == "arrays":
+        fitted, losses = train.fit_data_parallel(
+            predict, params, x, y, checkpoint_dir=f"{base}/ckpt",
+            checkpoint_every_epochs=c.TRAIN_EPOCHS, metrics=m, **kw)
+    else:
+        def source():
+            off = 0
+            for s in c.TRAIN_STREAM_CHUNKS[rank]:
+                yield x[off:off + s], y[off:off + s]
+                off += s
+        fitted, losses = train.fit_data_parallel_stream(
+            predict, params, source, steps_per_epoch=c.TRAIN_STREAM_STEPS,
+            metrics=m, **kw)
+    torch.cuda.synchronize()
+    out[name] = dict(losses=list(steps), seconds=time.perf_counter() - t0,
+                     counters={k: v for k, v in m.counters.items()
+                               if k.startswith("train.")},
+                     gauges={k: v for k, v in m.gauges.items()
+                             if k.startswith("train.")})
+    np.savez(f"{base}/{name}_{rank}.npz", **fitted)
+distributed.shutdown()
+print(json.dumps(out))
+"""
+
+
+def _train_ranks(base, world=2):
+    """Run the two ranks of the group fit over gloo on this card; returns
+    their JSON results.  A rank that outlives TRAIN_CHILD_TIMEOUT_S is
+    killed and fails the phase."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, SPARKDL_TRACE="0")
+    procs = []
+    try:
+        for r in range(world):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _TRAIN_CHILD, str(r), str(world),
+                 str(port), base],
+                cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        results = []
+        deadline = time.monotonic() + TRAIN_CHILD_TIMEOUT_S
+        for r, p in enumerate(procs):
+            try:
+                stdout, stderr = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                fail(f"[train] rank {r} outlived {TRAIN_CHILD_TIMEOUT_S}s "
+                     f"and was killed")
+            check(p.returncode == 0, f"[train] rank {r} exited "
+                                     f"{p.returncode}: {stderr[-3000:]}")
+            results.append(json.loads(stdout.strip().splitlines()[-1]))
+        return results
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _private_pool_bytes():
+    """Bytes of the card's segments that belong to a private memory pool
+    (every CUDA graph's; the default pool's are left out)."""
+    return sum(seg["total_size"]
+               for seg in torch.cuda.memory._snapshot()["segments"]
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def _global_batches(parts):
+    """The steps of a group fit as one process sees them: each step's
+    per-rank batches concatenated in rank order."""
+    xs, ys = [], []
+    for steps in zip(*parts):
+        xs += [s[0] for s in steps]
+        ys += [s[1] for s in steps]
+    return np.concatenate(xs), np.concatenate(ys)
+
+
+def phase_train(sepconv):
+    """[train]: the rest of training on config 5's model, the user's Keras
+    InceptionV3 at 299x299 as [tuning] builds it, batch 16, f32 with TF32
+    off unless said; B1-B3 must not launch.  Every captured fit here is
+    long enough for the train module's own rule to capture it (at least
+    train.BREAK_EVEN_REPLAYS replays a captured step).
+
+      1. captured against eager, for one SGD fit and one Adam fit of
+         TRAIN_EPOCHS epochs over [tuning]'s 48 JPEGs (3 steps an epoch;
+         the eager reference is the train module's own eager step), f32
+         and TF32: with cuDNN's deterministic algorithms, per-step losses
+         within TUNING_LOSS_TOL, the update within TUNING_UPDATE_TOL, and
+         whether they are bit for bit; with its default algorithms (whose
+         wgrad is not deterministic, eager against eager included) the
+         same readings, printed; each fit's img/s (its last epoch, all
+         replays), host us a step after the first, the graph pool's
+         bytes, the capture seconds, and the replays that pay back a
+         capture (capture s a captured step over the s a replay saves);
+      2. ``steps_per_execution=4`` captured against 1, over 80 rows and
+         TRAIN_SPE_EPOCHS epochs (5 steps an epoch: the warm-up step and
+         a group of 4, then groups of 4 and ragged tails of 1): the same
+         losses within 1e-6, one graph per group length, one loss fetch a
+         group;
+      3. ``trainBatchStats=True`` on the zoo's ResNet50 as [tuning] step 4
+         runs it, TRAIN_STATS_EPOCHS epochs of 2 steps, cuDNN
+         deterministic: captured against eager, the running statistics'
+         move within TUNING_STATS_TOL;
+      4. two ranks on this one card: two child processes over gloo on
+         cuda:0, unequal shards (28 and 20 rows), each running
+         ``fit_data_parallel`` (checkpointed at its end) then the stream
+         fit with a pinned ``steps_per_epoch``, TRAIN_EPOCHS epochs each,
+         in mode ``split``: both ranks' fitted tensors equal (bit for bit,
+         or within RANK_AGREE_TOL), each fit within TUNING_LOSS_TOL /
+         TUNING_UPDATE_TOL of a one-process fit stepped on the
+         concatenated global batches, only rank 0's checkpoint on disk, a
+         rank that hangs killed on a timeout;
+      5. no fit's graph pool outlives it: the pools held and the card's
+         reserved memory after the phase."""
+    import tempfile
+
+    from sparkdl_tpu_torch.estimators import ImageFileEstimator
+    from sparkdl_tpu_torch.frame import DataFrame
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.models import load_model
+    from sparkdl_tpu_torch.param.converters import NamedOptimizer
+    from sparkdl_tpu_torch.parallel import train
+    from sparkdl_tpu_torch.parallel.engine import graph_pool_bytes_held
+    from sparkdl_tpu_torch.utils.metrics import Metrics
+
+    tag = "train"
+    out = {}
+    problems = []
+
+    def expect(cond, msg):
+        if not cond:
+            print(f"FAIL (at the phase's end): {msg}", flush=True)
+            problems.append(msg)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held0 = graph_pool_bytes_held()
+    reserved0 = torch.cuda.memory_reserved()
+    private0 = _private_pool_bytes()
+    reset_counts(sepconv)
+    module, params, predict = _train_model()
+    init = {k: v.detach().cpu() for k, v in params.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, labels = _tuning_files(os.path.join(tmp, "images"))
+        x = np.stack([load_inception_v3(p) for p in paths])
+        y = np.eye(1000, dtype=np.float32)[labels]
+
+        def fit(opt, xs=x, ys=y, tf32=False, eager=False, det=False,
+                **kw):
+            m = Metrics()
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.deterministic = det
+            try:
+                with _EpochLog() as log:
+                    if eager:
+                        with _EagerSteps():
+                            fitted, _ = train.fit_data_parallel(
+                                predict, params, xs, ys,
+                                optimizer=NamedOptimizer(opt),
+                                loss="categorical_crossentropy",
+                                batch_size=TUNING_BATCH, metrics=m, **kw)
+                    else:
+                        fitted, _ = train.fit_data_parallel(
+                            predict, params, xs, ys,
+                            optimizer=NamedOptimizer(opt),
+                            loss="categorical_crossentropy",
+                            batch_size=TUNING_BATCH, metrics=m, **kw)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.backends.cudnn.deterministic = False
+            last_s, last_n = log.epochs[-1]
+            rec = dict(
+                mode=[k.rsplit(".", 1)[1] for k in m.counters
+                      if k.startswith("train.step_mode.")][0],
+                img_s=last_n * TUNING_BATCH / last_s,
+                step_s=last_s / last_n,
+                fit_s=sum(s for s, _ in log.epochs),
+                host_us_per_step=m.gauges.get("train.host_us_per_step"),
+                pool_bytes=m.gauges.get("train.graph_pool_bytes", 0),
+                capture_s=m.gauges.get("train.capture_s", 0.0),
+                captures=m.counters.get("train.captures", 0),
+                fetches=m.counters.get("train.loss_fetches"))
+            return fitted, rec, np.asarray(log.losses)
+
+        # 1. captured vs eager, f32 and TF32: held with cuDNN's
+        # deterministic algorithms (cudnn.deterministic, the step's math
+        # fixed), then timed with its defaults, whose wgrad algorithms
+        # are not deterministic (eager against eager differs as much)
+        comp = {}
+        for opt in ("sgd", "adam"):
+            for tf32 in (False, True):
+                key = f"{opt}_{'tf32' if tf32 else 'f32'}"
+                for det in (True, False):
+                    runs = {}
+                    # the default algorithms: a second eager fit reads the
+                    # eager step's own spread
+                    for name in (("captured", "eager") if det else
+                                 ("captured", "eager", "eager2")):
+                        runs[name] = fit(opt, tf32=tf32,
+                                         eager=name != "captured", det=det,
+                                         epochs=TRAIN_EPOCHS)
+                    (cf, crec, closs), (ef, erec, eloss) = (
+                        runs["captured"], runs["eager"])
+                    spread = ""
+                    if not det:
+                        e2f, _, e2loss = runs["eager2"]
+                        spread = (
+                            f"; eager vs eager loss "
+                            f"{float(np.max(np.abs(e2loss - eloss) / np.abs(eloss))):.3e}"
+                            f", update " + format(_update_rel(
+                                {k: torch.from_numpy(v)
+                                 for k, v in ef.items()},
+                                {k: torch.from_numpy(v)
+                                 for k, v in e2f.items()}, init), ".3e"))
+                    loss_rel = float(np.max(np.abs(closs - eloss)
+                                            / np.abs(eloss)))
+                    upd_rel = _update_rel(
+                        {k: torch.from_numpy(v) for k, v in ef.items()},
+                        {k: torch.from_numpy(v) for k, v in cf.items()},
+                        init)
+                    bits = (np.array_equal(closs, eloss) and all(
+                        np.array_equal(cf[k], ef[k]) for k in ef))
+                    algos = "deterministic" if det else "default"
+                    # the replays a captured step needs to pay back its
+                    # capture: capture s per captured step over the s a
+                    # replayed step saves (train.BREAK_EVEN_REPLAYS)
+                    saved = erec["step_s"] - crec["step_s"]
+                    even = (crec["capture_s"] / crec["captures"] / saved
+                            if saved > 0 and crec["captures"] else math.inf)
+                    comp[f"{key}_{algos}"] = dict(
+                        captured=crec, eager=erec, step_loss_rel=loss_rel,
+                        update_rel=upd_rel, bit_for_bit=bits,
+                        eager_spread=spread.lstrip("; "),
+                        saved_ms_per_step=saved * 1e3,
+                        break_even_replays=even, losses=closs.tolist())
+                    print(f"[{tag}] {opt} fit, {TRAIN_EPOCHS} epochs of 3 "
+                          f"steps, "
+                          f"{'TF32' if tf32 else 'f32'}, cuDNN {algos} "
+                          f"algorithms: captured {crec['img_s']:.1f} img/s "
+                          f"(host {crec['host_us_per_step']:.0f} us a "
+                          f"step, {crec['captures']} capture(s) in "
+                          f"{crec['capture_s']:.2f}s, pool "
+                          f"{crec['pool_bytes'] / 2**20:.0f} MiB) vs eager "
+                          f"{erec['img_s']:.1f} img/s (host "
+                          f"{erec['host_us_per_step']:.0f} us a step); "
+                          f"step loss rel err {loss_rel:.3e}, update rel "
+                          f"err {upd_rel:.3e}, bit for bit {bits}{spread}; "
+                          f"a replay saves {saved * 1e3:.1f} ms a step, the "
+                          f"capture pays back after {even:.1f} replays "
+                          f"(train.BREAK_EVEN_REPLAYS "
+                          f"{train.BREAK_EVEN_REPLAYS})", flush=True)
+                    expect(crec["mode"] == "captured"
+                           and erec["mode"] == "eager"
+                           and crec["captures"] == 1,
+                           f"[{tag}] {key}: modes {crec['mode']} / "
+                           f"{erec['mode']}, {crec['captures']} captures")
+                    expect(len(closs) == 3 * TRAIN_EPOCHS and (not det or (
+                        loss_rel <= TUNING_LOSS_TOL
+                        and upd_rel <= TUNING_UPDATE_TOL)),
+                           f"[{tag}] {key} captured vs eager ({algos}): "
+                           f"{len(closs)} steps, loss rel err "
+                           f"{loss_rel:.4g} (tol {TUNING_LOSS_TOL}), update "
+                           f"{upd_rel:.4g} (tol {TUNING_UPDATE_TOL})")
+                    del runs, cf, ef
+        out["captured_vs_eager"] = comp
+
+        # 2. groups of 4 against groups of 1, both captured
+        x80 = np.concatenate([x, x[:TRAIN_SPE_ROWS - TRAIN_ROWS]])
+        y80 = np.concatenate([y, y[:TRAIN_SPE_ROWS - TRAIN_ROWS]])
+        spe = {}
+        for k in (1, 4):
+            spe[k] = fit("adam", x80, y80, epochs=TRAIN_SPE_EPOCHS,
+                         steps_per_execution=k)
+        rel = float(np.max(np.abs(spe[4][2] - spe[1][2]) / np.abs(spe[1][2])))
+        r4 = spe[4][1]
+        n_steps = 5 * TRAIN_SPE_EPOCHS
+        want_fetches = 2 * TRAIN_SPE_EPOCHS  # warm-up, 4 | then 4, 1 each
+        expect(len(spe[4][2]) == n_steps and rel <= 1e-6
+               and r4["mode"] == spe[1][1]["mode"] == "captured"
+               and r4["captures"] == 2 and r4["fetches"] == want_fetches,
+               f"[{tag}] steps_per_execution=4: {len(spe[4][2])} steps, loss "
+               f"rel err {rel:.4g} vs 1 step a replay, modes {r4['mode']} / "
+               f"{spe[1][1]['mode']}, {r4['captures']} captures (want 2), "
+               f"{r4['fetches']} fetches (want {want_fetches})")
+        print(f"[{tag}] adam, {TRAIN_SPE_ROWS} rows, {TRAIN_SPE_EPOCHS} "
+              f"epochs, steps_per_execution=4 (groups: warm-up, 4 | 4, "
+              f"tail 1 | ...) vs 1, both captured: loss rel err {rel:.3e}; "
+              f"{r4['captures']} graphs, {r4['fetches']} loss fetches (vs "
+              f"{spe[1][1]['fetches']}); {r4['img_s']:.1f} vs "
+              f"{spe[1][1]['img_s']:.1f} img/s on the last epoch (all "
+              f"replays); pool {r4['pool_bytes'] / 2**20:.0f} MiB vs "
+              f"{spe[1][1]['pool_bytes'] / 2**20:.0f} MiB", flush=True)
+        out["steps_per_execution"] = dict(
+            loss_rel=rel, k4=r4, k1=spe[1][1])
+        del spe
+
+        # 3. trainBatchStats on the zoo's ResNet50, captured vs eager
+        resnet = load_model("ResNet50", weights=None)
+        before = resnet.state_dict()
+        stat_keys = [k for k in before
+                     if k.endswith(("running_mean", "running_var"))]
+        onehot = np.eye(1000, dtype=np.float32)
+        rdf = DataFrame({"uri": paths[:16], "label": labels[:16],
+                         "onehot": [onehot[v].tolist()
+                                    for v in labels[:16]]})
+        rn, rn_modes = {}, {}
+        torch.backends.cudnn.deterministic = True
+        try:
+            for eager in (False, True):
+                est = ImageFileEstimator(
+                    inputCol="uri", outputCol="preds", labelCol="onehot",
+                    modelFunction=ModelFunction.from_module(
+                        copy.deepcopy(resnet)),
+                    imageLoader=load_resnet, optimizer="sgd", batchSize=8,
+                    trainBatchStats=True,
+                    fitParams={"epochs": TRAIN_STATS_EPOCHS})
+                with _EpochLog() as log:
+                    if eager:
+                        with _EagerSteps():
+                            m = est.fit(rdf)
+                    else:
+                        m = est.fit(rdf)
+                rn[eager] = m.getModelFunction().module.state_dict()
+                rn_modes[eager] = sorted(set(log.modes))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        stats_rel = _update_rel({k: rn[True][k] for k in stat_keys},
+                                {k: rn[False][k] for k in stat_keys}, before)
+        expect(stats_rel <= TUNING_STATS_TOL
+               and rn_modes == {False: ["captured"], True: ["eager"]},
+               f"[{tag}] ResNet50 trainBatchStats captured vs eager: "
+               f"statistics rel err {stats_rel:.4g} (tol {TUNING_STATS_TOL}),"
+               f" modes {rn_modes}")
+        print(f"[{tag}] trainBatchStats=True on the zoo's ResNet50 (224x224, "
+              f"{2 * TRAIN_STATS_EPOCHS} SGD steps of 8, cuDNN "
+              f"deterministic): captured vs eager, {len(stat_keys)} "
+              f"running statistics' move rel err {stats_rel:.3e} (tol "
+              f"{TUNING_STATS_TOL})", flush=True)
+        out["batch_stats_rel"] = stats_rel
+        del rn, resnet
+
+        # 4. two ranks on the one card over gloo
+        base = os.path.join(tmp, "ranks")
+        os.makedirs(base)
+        np.savez(os.path.join(base, "data.npz"), x=x, y=y)
+        t0 = time.perf_counter()
+        ranks = _train_ranks(base)
+        ranks_s = time.perf_counter() - t0
+        local = TUNING_BATCH // 2
+        shards, lo = [], 0
+        for n in TRAIN_RANK_ROWS:
+            shards.append((x[lo:lo + n], y[lo:lo + n]))
+            lo += n
+        steps = -(-TRAIN_ROWS // TUNING_BATCH)
+        arrays_x, arrays_y = _global_batches(
+            [[b for e in range(TRAIN_EPOCHS)
+              for b in train._epoch_batches(xr, yr, local, e, True, 0,
+                                            num_steps=steps)]
+             for xr, yr in shards])
+
+        def chunked(r):
+            xr, yr = shards[r]
+            off = 0
+            for s in TRAIN_STREAM_CHUNKS[r]:
+                yield xr[off:off + s], yr[off:off + s]
+                off += s
+
+        stream_x, stream_y = _global_batches(
+            [[b for _ in range(TRAIN_EPOCHS)
+              for b in train._stream_epoch_batches(
+                  chunked(r), local, num_steps=TRAIN_STREAM_STEPS)]
+             for r in range(2)])
+        n_steps = steps * TRAIN_EPOCHS
+        ranks_out = {}
+        for name, gx, gy in (("arrays", arrays_x, arrays_y),
+                             ("stream", stream_x, stream_y)):
+            ref, rec, ref_loss = fit("sgd", gx, gy, epochs=1, shuffle=False)
+            fits = [np.load(os.path.join(base, f"{name}_{r}.npz"))
+                    for r in range(2)]
+            agree = max(_update_rel(
+                {k: torch.from_numpy(fits[0][k]) for k in ref},
+                {k: torch.from_numpy(fits[1][k]) for k in ref},
+                {k: torch.zeros(()) for k in ref}), 0.0)
+            same_bits = all(np.array_equal(fits[0][k], fits[1][k])
+                            for k in ref)
+            losses = [np.asarray(ranks[r][name]["losses"]) for r in range(2)]
+            loss_rel = float(np.max(np.abs(losses[0] - ref_loss)
+                                    / np.abs(ref_loss)))
+            upd_rel = _update_rel(
+                {k: torch.from_numpy(v) for k, v in ref.items()},
+                {k: torch.from_numpy(fits[0][k]) for k in ref}, init)
+            modes = [ranks[r][name]["counters"] for r in range(2)]
+            rows = n_steps * TUNING_BATCH
+            img_s = rows / max(ranks[r][name]["seconds"] for r in range(2))
+            expect(same_bits or agree <= RANK_AGREE_TOL,
+                   f"[{tag}] two ranks' {name} fits differ: rel {agree:.3g}")
+            expect(all(c.get("train.step_mode.split") == 1 for c in modes)
+                   and rec["mode"] == "captured",
+                   f"[{tag}] two-rank {name} fit: rank counters {modes}, "
+                   f"one-process mode {rec['mode']}")
+            expect(len(losses[0]) == n_steps and loss_rel <= TUNING_LOSS_TOL
+                   and upd_rel <= TUNING_UPDATE_TOL,
+                   f"[{tag}] two-rank {name} fit vs one process on the "
+                   f"global batches: {len(losses[0])} steps, loss rel err "
+                   f"{loss_rel:.4g}, update {upd_rel:.4g}")
+            print(f"[{tag}] two ranks on {ranks[0]['device']} over "
+                  f"{ranks[0]['backend']} ({TRAIN_RANK_ROWS} rows), {name} "
+                  f"fit: ranks bit for bit {same_bits} (rel {agree:.2e}); "
+                  f"vs one process on the concatenated global batches: "
+                  f"loss rel err {loss_rel:.3e}, update {upd_rel:.3e}; "
+                  f"{img_s:.1f} img/s across the group (fit "
+                  f"{max(ranks[r][name]['seconds'] for r in range(2)):.2f}s, "
+                  f"warm-up and captures included) vs one process "
+                  f"{rows / rec['fit_s']:.1f} img/s; rank 0's counters "
+                  f"{modes[0]}", flush=True)
+            ranks_out[name] = dict(
+                bit_for_bit=same_bits, rank_rel=agree, loss_rel=loss_rel,
+                update_rel=upd_rel, img_s=img_s,
+                one_process_img_s=rows / rec["fit_s"],
+                counters=modes, gauges=[ranks[r][name]["gauges"]
+                                        for r in range(2)])
+        ckpts = sorted(os.listdir(os.path.join(base, "ckpt")))
+        expect(ckpts == [f"epoch_{TRAIN_EPOCHS:06d}"],
+               f"[{tag}] two-rank checkpoints {ckpts}, want rank 0's one")
+        seen = [(r["device"], r["backend"], r["modules"]) for r in ranks]
+        expect(all(r["modules"] == [] and r["backend"] == "gloo"
+                   and r["device"].startswith("cuda") for r in ranks),
+               f"[{tag}] ranks (device, backend, modules): {seen}")
+        out["two_ranks"] = dict(ranks_out, checkpoints=ckpts,
+                                wall_s=ranks_s)
+    del module, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    held1 = graph_pool_bytes_held()
+    reserved1 = torch.cuda.memory_reserved()
+    private1 = _private_pool_bytes()
+    counts = read_counts(sepconv)
+    expect(counts == dict(sepconv=0, sepconv_tiled=0, mbconv=0),
+           f"[{tag}] launches {counts}, want none of B1-B3")
+    expect(held1 <= held0 and private1 <= private0,
+           f"[{tag}] graph pools held {held1} after the phase, {held0} "
+           f"before; private-pool segments {private1} after, {private0} "
+           f"before: a fit's pool outlived it")
+    print(f"[{tag}] pools held by live engines {held0 / 2**20:.1f} -> "
+          f"{held1 / 2**20:.1f} MiB; the card's private-pool (CUDA graph) "
+          f"segments {private0 / 2**20:.1f} -> {private1 / 2**20:.1f} MiB; "
+          f"card memory reserved {reserved0 / 2**30:.2f} -> "
+          f"{reserved1 / 2**30:.2f} GiB", flush=True)
+    out["pools"] = dict(held_before=held0, held_after=held1,
+                        private_before=private0, private_after=private1,
+                        reserved_before=reserved0, reserved_after=reserved1)
+    check(not problems, f"[{tag}] {len(problems)} failed: "
+                        + " | ".join(problems))
+    out["launches"] = counts
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6102,6 +6866,14 @@ def main():
     pools["stream"] = pool_line("[stream]")
     print(json.dumps({"stream": stream}), flush=True)
     b1["stream_launches"] = stream["launches"]["sepconv"]
+    mesh = phase_mesh(sepconv)
+    pools["mesh"] = pool_line("[mesh]")
+    print(json.dumps({"mesh": mesh}), flush=True)
+    b1["mesh_launches"] = mesh["launches"]["sepconv"]
+    h1["mesh_launches"] = mesh["launches"]["head_pass"]
+    trained = phase_train(sepconv)
+    pools["train"] = pool_line("[train]")
+    print(json.dumps({"train": trained}), flush=True)
     print(json.dumps({"pools": pools}), flush=True)
     print(json.dumps({"kernels": [b1, b3, b2, h1]}), flush=True)
     print(json.dumps({"ok": True, "device": {

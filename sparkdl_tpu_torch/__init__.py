@@ -49,7 +49,8 @@ def default_device(device: DeviceLike) -> Iterator[None]:
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device an entry point runs on: ``device`` if given, else the
-    default set by :func:`set_default_device`, else ``cuda``.  Raises
+    default set by :func:`set_default_device`, else ``cuda`` (in a
+    ``torch.distributed`` group, ``cuda:<rank % device_count>``).  Raises
     ``RuntimeError`` when that is a CUDA device and none is present."""
     dev = torch.device(device) if device is not None else _default()
     if dev is None:
@@ -58,6 +59,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' or call "
             "sparkdl_tpu_torch.set_default_device('cpu') to run on the CPU")
+    if (dev.type == "cuda" and dev.index is None
+            and torch.distributed.is_available()
+            and torch.distributed.is_initialized()):
+        # one card per rank of a process group: cuda:<rank % device_count>
+        dev = torch.device("cuda", torch.distributed.get_rank()
+                           % torch.cuda.device_count())
     return dev
 
 

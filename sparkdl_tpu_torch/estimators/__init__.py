@@ -1,9 +1,9 @@
 """Estimator layer (port of ``sparkdl_tpu.estimators``): the
 logistic-regression head of the transfer-learning recipe, the image-file
-estimators that fine-tune a model on one device, the tuning estimators
-and the evaluators; ``ImageFileEstimator.fit`` also takes a re-iterable
-RecordBatch source (the streaming fit).  Multi-process input and the
-device mesh are not ported yet (ROADMAP.md queue A item 4)."""
+estimators that fine-tune a model over the device mesh (one card, or one
+card per rank of a ``torch.distributed`` group), the tuning estimators and
+the evaluators; ``ImageFileEstimator.fit`` also takes a re-iterable
+RecordBatch source (the streaming fit)."""
 
 from sparkdl_tpu_torch.estimators.classification import (
     LogisticRegression, LogisticRegressionModel)

@@ -2,9 +2,12 @@
 ``sparkdl_tpu/estimators/image_file_estimator.py``).
 
 The user's images are loaded once on the host (threaded, cached per URI
-in a byte-bounded LRU, ``SPARKDL_DECODE_CACHE_MB``) and each fit runs on
-one device through ``parallel.train.fit_data_parallel``: on the card
-unless the CPU was asked for.  ``fitMultiple`` shares the loaded arrays
+in a byte-bounded LRU, ``SPARKDL_DECODE_CACHE_MB``) and each fit runs
+through ``parallel.train.fit_data_parallel``: on the card unless the CPU
+was asked for, with its steps captured as CUDA graphs there; in a
+``torch.distributed`` group each rank fits on its own shard of the rows
+(``parallel.distributed.shard_files``) and the ranks all-reduce every
+step.  ``fitMultiple`` shares the loaded arrays
 across param maps.  ``fit(source)`` with a callable source of record
 batches streams instead (``_fit_stream``): nothing is loaded ahead.
 
@@ -263,9 +266,15 @@ class ImageFileEstimator(Estimator, HasInputCol, HasLabelCol, HasOutputCol,
                 return apply_with(mf.train_fn, module,
                                   {**v["params"], **v["batch_stats"]}, x)
 
+            # the generators a train-mode forward draws from (stochastic
+            # depth): registered with the captured step, or eager on a CPU
+            # one (parallel.train.step_mode)
+            gens = [m.generator for m in module.modules()
+                    if isinstance(getattr(m, "generator", None),
+                                  torch.Generator)]
             fitted, losses = runner(
                 predict, {n: t for n, t in module.named_parameters()},
-                train_fn=train,
+                train_fn=train, generators=gens,
                 stats={n: tensors[n] for n in stat_names}, **common)
             fitted = {**fitted["params"], **fitted["batch_stats"]}
         else:
@@ -339,9 +348,9 @@ class ImageFileEstimator(Estimator, HasInputCol, HasLabelCol, HasOutputCol,
         style readers).  Each epoch iterates the source again and decodes
         one record batch at a time, through
         ``parallel.train.fit_data_parallel_stream`` on the estimator's
-        device.  ``fitParams`` may carry ``steps_per_epoch`` and
-        ``steps_per_execution``; ``shuffle`` and ``seed`` do not apply (the
-        stream's order is the order)."""
+        device.  ``fitParams`` may carry ``steps_per_epoch`` (required in
+        a process group) and ``steps_per_execution``; ``shuffle`` and
+        ``seed`` do not apply (the stream's order is the order)."""
         fp = self.getFitParams()
         common = self._common_fit_kwargs()
         common.update(steps_per_epoch=(int(fp["steps_per_epoch"])
@@ -379,8 +388,15 @@ class ImageFileEstimator(Estimator, HasInputCol, HasLabelCol, HasOutputCol,
                 est._set(fitParams=fp)
             return est
 
+        from sparkdl_tpu_torch.parallel import distributed
+
         want = max(1, int(self.getOrDefault(self.parallelism)))
-        if want > 1 and len(maps) > 1:
+        if distributed.process_count() > 1 and want > 1:
+            logger.warning("fitMultiple parallelism=%d ignored in a "
+                           "multi-process run (collectives across ranks "
+                           "cannot be interleaved across threads); fitting "
+                           "sequentially", want)
+        elif want > 1 and len(maps) > 1:
             logger.info("fitMultiple parallelism=%d on one device: fitting "
                         "%d maps sequentially", want, len(maps))
         for i in range(len(maps)):

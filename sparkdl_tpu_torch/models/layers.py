@@ -104,12 +104,31 @@ def flax_batch_norm_train(bn: nn.modules.batchnorm._BatchNorm,
     1 − ``bn.momentum`` (the module keeps torch's convention).
     ``nn.BatchNorm2d`` in train mode updates ``running_var`` with the
     unbiased variance instead.  The statistics are updated in place,
-    without autograd; the output's gradient flows through μ and σ²."""
+    without autograd; the output's gradient flows through μ and σ².
+
+    In a ``torch.distributed`` group of more than one process, μ and σ²
+    are the GLOBAL batch's, as under JAX's ``jit`` over a sharded batch:
+    the per-channel sum, sum of squares and count are all-reduced (one
+    collective, ``torch.distributed.nn``, so the gradient flows back
+    through it to every rank's rows)."""
     x, _ = promote(x, bn.running_mean)
     dims = [d for d in range(x.dim()) if d != 1]
     shape = [1, -1] + [1] * (x.dim() - 2)
-    mean = x.mean(dim=dims)
-    var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+    dist = torch.distributed
+    if (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        from torch.distributed.nn.functional import all_reduce
+
+        c = x.shape[1]
+        count = torch.full((1,), x.numel() // c, dtype=x.dtype,
+                           device=x.device)
+        sums = all_reduce(torch.cat([x.sum(dim=dims),
+                                     (x * x).sum(dim=dims), count]))
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
+    else:
+        mean = x.mean(dim=dims)
+        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
     mul = torch.rsqrt(var + bn.eps)
     if bn.weight is not None:
         mul = mul * bn.weight

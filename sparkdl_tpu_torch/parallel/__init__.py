@@ -1,8 +1,9 @@
-"""Batch inference engine, pipelined runner and single-device fits (port
-of ``sparkdl_tpu.parallel``).  The device mesh (``get_mesh``,
-``batch_sharding``, ``replicated_sharding``) and ``distributed`` are not
-ported yet (ROADMAP.md queue A item 4)."""
+"""Batch inference engine, pipelined runner, the device mesh and its
+sharding policy, multi-process bootstrap and the fits (port of
+``sparkdl_tpu.parallel``)."""
 
+from sparkdl_tpu_torch.parallel.mesh import (batch_sharding, get_mesh,
+                                             replicated_sharding)
 from sparkdl_tpu_torch.parallel.engine import (CircuitOpenError,
                                                DispatchCircuitBreaker,
                                                InferenceEngine)
@@ -10,6 +11,7 @@ from sparkdl_tpu_torch.parallel.pipeline import (PipelinedRunner,
                                                  PipelineStageError,
                                                  PipelineStageFatalError,
                                                  pipeline_enabled_from_env)
+from sparkdl_tpu_torch.parallel import distributed
 
 __all__ = [
     "CircuitOpenError",
@@ -18,5 +20,9 @@ __all__ = [
     "PipelinedRunner",
     "PipelineStageError",
     "PipelineStageFatalError",
+    "batch_sharding",
+    "distributed",
+    "get_mesh",
     "pipeline_enabled_from_env",
+    "replicated_sharding",
 ]

@@ -85,8 +85,19 @@ dense head pass is kernel H1 (:mod:`sparkdl_tpu_torch.ops.head`), so that a
 tenant's row from a mixed-tenant batch is its row through its head alone,
 bit for bit, in every bank mode.
 
-Not ported yet: the device mesh and weight sharding and ``donate_batch``
-(ROADMAP.md queue A item 4), and the compile-cache policy (item 7).
+The mesh (JAX's ``resolve_engine_mesh``, ``effective_device_batch``,
+``partition_rules`` / ``param_shardings``, ``sharding_info``): scoring is
+per process, on this rank's one device, so an engine's mesh is (1, 1)
+(:func:`resolve_engine_mesh`); a mesh of more devices raises
+``NotImplementedError`` (ROADMAP.md §C), so no weight policy splits a
+weight: the port holds every weight whole on one card.  A policy that
+resolves all-replicated collapses, as JAX's does (``sharding_digest``
+``"replicated"``).  ``donate_batch=True`` is accepted and recorded (in
+``sharding_info()`` and the graph key): it changes nothing on the card,
+where the captured graph already owns its static input and every upload
+lands in the engine's own staging slot.
+
+Not ported yet: the compile-cache policy (ROADMAP.md queue A item 7).
 """
 
 from __future__ import annotations
@@ -107,6 +118,8 @@ from sparkdl_tpu_torch import DeviceLike, resolve_device
 from sparkdl_tpu_torch.faults import inject
 from sparkdl_tpu_torch.obs.flight import emit as flight_emit
 from sparkdl_tpu_torch.obs.trace import get_tracer
+from sparkdl_tpu_torch.parallel import distributed
+from sparkdl_tpu_torch.parallel import mesh as mesh_lib
 from sparkdl_tpu_torch.parallel.pipeline import (PipelinedRunner,
                                                  pipeline_enabled_from_env)
 from sparkdl_tpu_torch.utils.logging import get_logger
@@ -256,9 +269,42 @@ class DispatchCircuitBreaker:
             }
 
 
-def effective_device_batch(device_batch_size: int) -> int:
-    """The device batch the engine runs (single device: at least 1)."""
-    return max(1, int(device_batch_size))
+def resolve_engine_mesh(mesh=None, device: DeviceLike = None):
+    """The mesh an engine runs on: this process's one device (``device``,
+    default :func:`~sparkdl_tpu_torch.resolve_device`), shape (1, 1),
+    when ``mesh`` is None.  Scoring is per process, as JAX's is per
+    controller: a mesh holding another rank's device raises, as JAX's
+    does, and so does a mesh of more than one device of this process (one
+    card per process, ROADMAP.md §C) and a ``device`` that is not the
+    mesh's."""
+    if mesh is None:
+        return mesh_lib.get_mesh(devices=[resolve_device(device)])
+    if device is not None and torch.device(device) != mesh.devices.flat[0]:
+        raise ValueError(f"device {device} is not the mesh's device "
+                         f"{mesh.devices.flat[0]}")
+    me = distributed.process_index()
+    if any(int(r) != me for r in np.asarray(mesh.ranks).flat):
+        raise NotImplementedError(
+            "InferenceEngine is single-controller: pass a mesh over this "
+            "process's device (mesh.get_mesh(devices=[resolve_device()])) "
+            "and shard input rows per rank; multi-process collectives "
+            "belong to the TRAIN path (parallel.train / "
+            "parallel.distributed).")
+    if mesh.size > 1:
+        raise NotImplementedError(
+            f"an engine mesh of {mesh.size} devices in one process "
+            f"({mesh.shape}): the port runs one card per process "
+            f"(ROADMAP.md §C, documented deviations)")
+    return mesh
+
+
+def effective_device_batch(device_batch_size: int, mesh=None) -> int:
+    """The device batch an engine runs: rounded UP to a multiple of the
+    mesh's data-axis size (1 without a mesh), at least 1."""
+    dp = 1 if mesh is None else int(mesh.shape[mesh_lib.DATA_AXIS])
+    b = max(1, int(device_batch_size))
+    rem = b % dp
+    return b + (dp - rem) if rem else b
 
 
 def batches_per_dispatch_from_env() -> int:
@@ -492,10 +538,19 @@ class InferenceEngine:
                  on_dispatch_error: Optional[
                      Callable[[BaseException], None]] = None,
                  capture: bool = True,
+                 mesh=None,
+                 partition_rules: Any = None,
+                 param_shardings: Any = None,
+                 donate_batch: bool = False,
                  metrics: Optional[Metrics] = None):
-        self.device = resolve_device(device)
+        self.mesh = resolve_engine_mesh(mesh, device)
+        self.device = resolve_device(self.mesh.devices.flat[0])
+        self.data_parallel = int(self.mesh.shape[mesh_lib.DATA_AXIS])
+        self.model_parallel = int(self.mesh.shape[mesh_lib.MODEL_AXIS])
+        self.donate_batch = bool(donate_batch)
         self.fn = fn
-        self.device_batch_size = effective_device_batch(device_batch_size)
+        self.device_batch_size = effective_device_batch(device_batch_size,
+                                                        self.mesh)
         self.compute_dtype = compute_dtype
         self.output_host_dtype = (np.dtype(output_host_dtype)
                                   if output_host_dtype is not None else None)
@@ -520,6 +575,7 @@ class InferenceEngine:
         self._state = [*self.module.parameters(), *self.module.buffers()]
         self._fold_owners = [m for m in self.module.modules()
                              if isinstance(getattr(m, "_folds", None), dict)]
+        self._resolve_policy(partition_rules, param_shardings)
         # graphs, staging slots, lock, the graphs' one memory pool (made at
         # the first capture), the bytes it reserved, the event after the
         # last replay's output copy (see the module docstring) and the
@@ -527,6 +583,47 @@ class InferenceEngine:
         self._core = _GraphCore(self.device)
         self._init_own()
         _LIVE_ENGINES.add(self)
+
+    def _resolve_policy(self, partition_rules, param_shardings) -> None:
+        """The weight-sharding policy over the device module, as JAX's
+        engine resolves it: explicit ``param_shardings`` win over
+        ``partition_rules``, and an all-replicated resolution collapses to
+        no policy."""
+        specs = None
+        if param_shardings is not None:
+            _, specs = mesh_lib.resolve_param_shardings(
+                self.module, self.mesh, specs=param_shardings)
+        elif partition_rules is not None:
+            _, specs = mesh_lib.resolve_param_shardings(
+                self.module, self.mesh, partition_rules)
+        if specs is not None and mesh_lib.specs_all_replicated(specs):
+            specs = None
+        # the mesh is one device (resolve_engine_mesh): no spec can split
+        self._param_specs = specs
+        self.sharding_digest = mesh_lib.partition_digest(specs)
+        self._sharding_stats = mesh_lib.param_sharding_stats(
+            self.mesh, self.module, specs)
+        self.metrics.gauge("engine.mesh_data_axis", float(self.data_parallel))
+        self.metrics.gauge("engine.mesh_model_axis",
+                           float(self.model_parallel))
+        self.metrics.gauge("engine.replicated_param_bytes",
+                           float(self._sharding_stats["param_bytes_total"]))
+        self.metrics.gauge("engine.param_bytes_per_chip",
+                           float(self._sharding_stats["param_bytes_per_chip"]))
+
+    def sharding_info(self) -> Dict[str, Any]:
+        """JSON snapshot of the engine's weight layout, as JAX's: mesh
+        shape, total vs per-device param bytes, sharded leaf count, the
+        policy digest, ``sharded`` (a policy that did not collapse) and
+        ``donate_batch``."""
+        return dict(self._sharding_stats,
+                    sharding_digest=self.sharding_digest,
+                    sharded=self._param_specs is not None,
+                    donate_batch=self.donate_batch)
+
+    def _graph_key(self) -> tuple:
+        return graph_key(self._state, self._fold_owners) + (
+            self.donate_batch,)
 
     def _init_own(self) -> None:
         """What an engine does not share with its siblings besides its
@@ -548,7 +645,10 @@ class InferenceEngine:
 
     # what a sibling takes from its engine; its batch size and breaker are
     # its own
-    _SIBLING_SHARES = ("device", "fn", "compute_dtype", "output_host_dtype",
+    _SIBLING_SHARES = ("device", "mesh", "data_parallel", "model_parallel",
+                       "donate_batch", "_param_specs", "sharding_digest",
+                       "_sharding_stats", "fn", "compute_dtype",
+                       "output_host_dtype",
                        "metrics", "batches_per_dispatch", "dispatch_retries",
                        "dispatch_backoff_s", "dispatch_max_backoff_s",
                        "dispatch_jitter", "_on_dispatch_error", "module",
@@ -564,7 +664,8 @@ class InferenceEngine:
         sib = object.__new__(type(self))
         for attr in self._SIBLING_SHARES:
             setattr(sib, attr, getattr(self, attr))
-        sib.device_batch_size = effective_device_batch(device_batch_size)
+        sib.device_batch_size = effective_device_batch(device_batch_size,
+                                                       self.mesh)
         sib.breaker = DispatchCircuitBreaker(
             threshold=self.breaker.threshold,
             cooldown_s=self.breaker.cooldown_s)
@@ -774,7 +875,7 @@ class InferenceEngine:
             cur.wait_event(self._core.replayed)
         sig = (group,) + tuple((tuple(a.shape), a.dtype) for a in leaves)
         g = self._core.graphs.get(sig)
-        if g is None or g.key != graph_key(self._state, self._fold_owners):
+        if g is None or g.key != self._graph_key():
             g = self._capture(x, group, sig)
         for dst, src in zip(g.in_leaves, leaves):
             dst.copy_(src)
@@ -815,7 +916,7 @@ class InferenceEngine:
             self._eager(static_in, group)
         cur.wait_stream(side)
         # the fold caches are full now; the capture only reads them
-        key = graph_key(self._state, self._fold_owners)
+        key = self._graph_key()
         folds = fold_entries(self._fold_owners)
         before = ops.thread_launch_counts()
         # torch.cuda.graph empties the allocator's cache on entry: do it
@@ -1269,10 +1370,6 @@ def _host_copy(a) -> np.ndarray:
     return np.array(a, copy=True)
 
 
-def _tree_nbytes(tree) -> int:
-    return int(sum(np.asarray(x).nbytes for x in _tree_leaves(tree)))
-
-
 class HeadBank:
     """Per-tenant head weights stacked into ONE device pytree served by ONE
     fan-out callable (:func:`build_head_fanout`), as the JAX package's.
@@ -1303,21 +1400,18 @@ class HeadBank:
 
     H1 takes f32 heads: on CUDA a :func:`dense_head_row` head of another
     dtype raises ``NotImplementedError`` at :meth:`add_head` (ROADMAP.md
-    queue B, H1); nothing is cast.  ``mesh=`` (weight sharding, queue A
-    item 4) raises ``NotImplementedError``; :meth:`stats` reports the
-    bank's bytes at capacity as both ``param_bytes_total`` and
-    ``param_bytes_per_chip`` (one card, all replicated)."""
+    queue B, H1); nothing is cast.  ``mesh=`` is resolved as an engine's
+    (:func:`resolve_engine_mesh`: this process's one device); :meth:`stats`
+    and the budget read ``mesh.param_sharding_stats`` of the stacked bank
+    (all replicated), as JAX's do."""
 
     def __init__(self, head_fn: Optional[Callable] = None, mesh=None,
                  hbm_budget_bytes: Optional[int] = None,
                  metrics: Optional[Metrics] = None,
                  device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "HeadBank(mesh=) needs a module the port does not have yet "
-                "(ROADMAP.md queue A, item 4, parallel/mesh.py)")
+        self.mesh = resolve_engine_mesh(mesh, device)
         self.head_fn = head_fn if head_fn is not None else dense_head_row
-        self.device = resolve_device(device)
+        self.device = resolve_device(self.mesh.devices.flat[0])
         self.hbm_budget_bytes = (None if hbm_budget_bytes is None
                                  else int(hbm_budget_bytes))
         self.metrics = metrics if metrics is not None else Metrics()
@@ -1355,24 +1449,36 @@ class HeadBank:
                 "mode": self.mode}
 
     def stats(self) -> Dict[str, Any]:
-        """The bank's bytes: at capacity when stacked, every tenant's head
-        in fallback (one card: total = per chip)."""
+        """The bank's device-memory accounting through
+        ``mesh.param_sharding_stats``: the stacked bank at capacity, or
+        every tenant's head in fallback."""
         with self._lock:
             if self._fallback or not self._order:
-                nbytes = _tree_nbytes(dict(self._hosts))
+                tree = dict(self._hosts) if self._hosts else None
             else:
-                # every head stacks alike: capacity rows of one head's bytes
-                nbytes = (_tree_nbytes(self._hosts[self._order[0]])
-                          * self._capacity)
-            return {
-                "param_bytes_total": nbytes,
-                "param_bytes_per_chip": nbytes,
+                tree = self._stacked_avals(self._capacity)
+            if tree is None:
+                out = {"param_bytes_total": 0, "param_bytes_per_chip": 0}
+            else:
+                out = mesh_lib.param_sharding_stats(self.mesh, tree)
+            out.update({
                 "tenants": len(self._order),
                 "capacity": self._capacity,
                 "mode": "fallback" if self._fallback else "stacked",
                 "fallback_reason": self._fallback_reason,
                 "hbm_budget_bytes": self.hbm_budget_bytes,
-            }
+            })
+            return out
+
+    def _stacked_avals(self, capacity: int):
+        """The stacked bank's leaves as (shape, dtype) stand-ins, without
+        stacking: every head stacks alike."""
+        from types import SimpleNamespace
+
+        return _tree_map(
+            lambda a: SimpleNamespace(shape=(capacity,) + np.shape(a),
+                                      dtype=np.asarray(a).dtype),
+            self._hosts[self._order[0]])
 
     # -- mutation --------------------------------------------------------
     def add_head(self, tenant: str, weights) -> None:
@@ -1464,7 +1570,8 @@ class HeadBank:
         the budget, else None."""
         if self.hbm_budget_bytes is None or not self._order:
             return None
-        per_chip = _tree_nbytes(self._hosts[self._order[0]]) * capacity
+        per_chip = int(mesh_lib.param_sharding_stats(
+            self.mesh, self._stacked_avals(capacity))["param_bytes_per_chip"])
         return per_chip if per_chip > self.hbm_budget_bytes else None
 
     def _stack_hosts(self, capacity: int):

@@ -1,31 +1,61 @@
-"""Fits on one device (port of the single-device part of
-``sparkdl_tpu/parallel/train.py``).
+"""Fits over the device mesh (port of ``sparkdl_tpu/parallel/train.py``).
 
 ``fit_data_parallel`` fits a tree of parameters (nested dicts of host
 arrays or tensors) on host arrays (x, y) with ``torch.autograd`` and a
 ``torch.optim`` optimizer, on the device
 :func:`~sparkdl_tpu_torch.resolve_device` gives (``cuda`` unless the CPU
-was asked for).  It draws the same batches as the JAX fit on a one-device
-mesh (:func:`_epoch_batches` is a copy of JAX's), takes the loss mean over
-each batch, and fetches the step losses once per group of
-``steps_per_execution`` steps.  With ``train_fn`` + ``stats`` the step
-also carries BatchNorm statistics (JAX's ``make_train_step_with_stats``);
-with ``checkpoint_dir`` the params, the optimizer's ``state_dict`` and the
-statistics are saved on the epoch cadence and a fit resumes from the
-newest checkpoint (``checkpoint.py``).  Steps run eagerly: the JAX
-package's compiled step has no counterpart yet.
+was asked for).  It draws the JAX fit's batches (:func:`_epoch_batches` is
+a copy of JAX's), takes the loss mean over each batch, and fetches the
+step losses once per group of ``steps_per_execution`` steps.  With
+``train_fn`` + ``stats`` the step also carries BatchNorm statistics (JAX's
+``make_train_step_with_stats``); with ``checkpoint_dir`` the params, the
+optimizer's ``state_dict`` and the statistics are saved on the epoch
+cadence and a fit resumes from the newest checkpoint (``checkpoint.py``).
 ``fit_data_parallel_stream`` runs the same loop over a re-iterable chunk
 source, holding O(chunk + batch) rows (:func:`_stream_epoch_batches` is a
 copy of JAX's).
 
-Not ported yet (ROADMAP.md queue A item 4): the device mesh and
-multi-process input (either fit in a ``torch.distributed`` group of more
-than one process raises ``NotImplementedError``).
+Multi-process fits follow JAX's global-batch rules.  In a
+``torch.distributed`` group of W ranks (:mod:`.distributed`) the mesh's
+data axis spans the ranks, ``batch_size`` is the GLOBAL batch (rounded up
+to the data axis), each rank draws ``max(dp // W, batch // W)`` rows a
+step from its own shard, and the steps of an epoch come from the
+all-gathered global row count, a short shard wrapping modularly, so every
+rank runs the same steps.  A rank with no rows raises on every rank.  Each
+step all-reduces the gradients (and the loss) to the global batch's mean
+before ``optimizer.step``, so every rank applies the same update; with
+``train_fn`` + ``stats`` the BatchNorm statistics are the global batch's
+(``models/layers.py flax_batch_norm_train`` all-reduces its sums).
+
+The step on the card is a captured CUDA graph (the counterpart of JAX's
+compiled step): the fit's first step runs eagerly on a side stream (it
+makes the optimizer's lazy state, the gradients and cuDNN's plans), then
+one graph per group length is captured from static input buffers:
+forward, loss, backward and ``optimizer.step`` of k = ``steps_per_execution``
+steps over a stacked ``[k, B, ...]`` input (JAX's ``lax.scan``), one
+replay and one loss fetch a group; a ragged tail group gets its own graph.
+Inside a process group the all-reduce runs on the host between two graphs
+a step (forward and backward, then the update): mode ``split``.  The steps
+stay eager (mode ``eager``) on the CPU, under autograd anomaly mode
+(``utils.debug.enable_nan_checks``: its checks sync with the host), with
+an optimizer that cannot be captured (one made with ``capturable=False``,
+or a type not known to be graph-safe), with a CPU ``torch.Generator``
+feeding the model, with batch statistics in a process group (their
+all-reduce sits inside the forward), and in a fit whose known step count
+replays its graphs too few times to pay for capturing them
+(:data:`BREAK_EVEN_REPLAYS`); the reason is logged.  The fit's ``Metrics`` count the mode
+(``train.step_mode.<mode>``), the captures (``train.captures``), and gauge
+the graphs' pool bytes, the capture seconds and the host microseconds a
+step.  A capture that fails raises.  The graphs and their pool are
+released when the fit returns.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+import threading
+import time
+from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -34,6 +64,8 @@ import torch.nn.functional as F
 from sparkdl_tpu_torch import DeviceLike, resolve_device
 from sparkdl_tpu_torch.param.converters import (NamedOptimizer,
                                                 required_positional)
+from sparkdl_tpu_torch.parallel import distributed
+from sparkdl_tpu_torch.parallel import mesh as mesh_lib
 from sparkdl_tpu_torch.parallel.engine import _tree_leaves, _tree_map
 from sparkdl_tpu_torch.utils import debug
 from sparkdl_tpu_torch.utils.logging import get_logger
@@ -42,8 +74,6 @@ from sparkdl_tpu_torch.utils.metrics import Metrics
 logger = get_logger(__name__)
 
 _EPS = 1e-7
-_LATER = ("not ported yet (ROADMAP.md queue A item 4: the device mesh and "
-          "multi-process input)")
 
 
 # ---------------------------------------------------------------------------
@@ -107,44 +137,228 @@ def softmax_cross_entropy(logits: torch.Tensor, y: torch.Tensor
 # train step
 
 
-def make_train_step(predict_fn: Callable, loss,
-                    optimizer: torch.optim.Optimizer, params) -> Callable:
-    """``step(x, y) -> loss``: one optimizer step of ``optimizer`` (built
-    over the tensors of ``params``) on the batch mean of
-    ``loss(predict_fn(params, x), y)``.  The loss comes back as a 0-d
-    device tensor, not fetched."""
-    loss_fn = resolve_loss(loss)
+class TrainStep:
+    """``step(x, y) -> loss``: one optimizer step on a batch.
 
-    def step(x, y):
-        optimizer.zero_grad(set_to_none=True)
-        lval = torch.mean(loss_fn(predict_fn(params, x), y))
+    ``loss_of(x, y)`` gives the batch's mean loss (and updates BatchNorm
+    statistics in place, for a step with them); the step zeroes the
+    gradients, runs it and its backward, and in a process group of W
+    ranks all-reduces the gradients and the loss (one flat buffer) and
+    divides them by W, the global batch's mean, before
+    ``optimizer.step``.  The loss comes back as a 0-d device tensor, not
+    fetched.  Its pieces (:meth:`forward_backward`, :meth:`pack`,
+    :meth:`reduce`, :meth:`unpack`) are what a fit captures into graphs.
+    ``mesh`` and ``param_shardings`` record the layout (one card per
+    process: every weight replicated); :meth:`opt_state_shardings` gives
+    the optimizer state's."""
+
+    def __init__(self, loss_of: Callable, optimizer: torch.optim.Optimizer,
+                 params, *, mesh=None, param_shardings=None,
+                 params_template=None):
+        self.loss_of = loss_of
+        self.optimizer = optimizer
+        self.params = _tree_leaves(params)
+        self.mesh = mesh
+        self.replicated = (mesh_lib.replicated_sharding(mesh)
+                           if mesh is not None else None)
+        self.param_shardings = param_shardings
+        self._template = params_template
+        self.world = distributed.process_count()
+        self._flat: Optional[torch.Tensor] = None
+
+    def opt_state_shardings(self):
+        """The sharding of each tensor of the optimizer's state now
+        (:func:`resolve_opt_state_shardings`; the state is made at the
+        first step), or None for a step made without ``param_specs``."""
+        if self.param_shardings is None:
+            return None
+        return resolve_opt_state_shardings(
+            self.optimizer, self._template, self.param_shardings,
+            self.replicated)
+
+    def forward_backward(self, x, y) -> torch.Tensor:
+        """Zero the gradients, then the local batch's mean loss and its
+        backward; returns the loss, detached."""
+        self.optimizer.zero_grad(set_to_none=True)
+        lval = self.loss_of(x, y)
         lval.backward()
-        optimizer.step()
         return lval.detach()
 
-    return step
+    def _grads(self) -> List[torch.Tensor]:
+        return [p.grad for p in self.params if p.grad is not None]
+
+    def pack(self, lval: torch.Tensor) -> torch.Tensor:
+        """The gradients and the loss in one flat buffer (made at the first
+        call, reused after, so a graph writes a static tensor)."""
+        grads = self._grads()
+        n = sum(g.numel() for g in grads) + 1
+        dtype = lval.dtype
+        for g in grads:
+            dtype = torch.promote_types(dtype, g.dtype)
+        flat = self._flat
+        if (flat is None or flat.numel() != n or flat.dtype != dtype
+                or flat.device != lval.device):
+            flat = self._flat = torch.empty(n, dtype=dtype,
+                                            device=lval.device)
+        torch.cat([g.reshape(-1).to(dtype) for g in grads]
+                  + [lval.reshape(1).to(dtype)], out=flat)
+        return flat
+
+    def reduce(self) -> None:
+        """Sum the flat buffer over the group (on the host under gloo)."""
+        torch.distributed.all_reduce(self._flat)
+
+    def unpack(self) -> torch.Tensor:
+        """Divide the summed buffer by the group's size and write it back
+        into the gradients; returns the global mean loss (a view of the
+        buffer)."""
+        flat = self._flat
+        flat.div_(self.world)
+        off = 0
+        for g in self._grads():
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+        return flat[-1]
+
+    def __call__(self, x, y) -> torch.Tensor:
+        lval = self.forward_backward(x, y)
+        if self.world > 1:
+            self.pack(lval)
+            self.reduce()
+            lval = self.unpack().clone()
+        self.optimizer.step()
+        return lval
+
+
+def _refuse_real_split(param_shardings, params) -> None:
+    """The port's documented deviation: one card per process, so a policy
+    that splits a weight across devices raises."""
+    flat_sh = [s for _, s in mesh_lib.tree_flatten_with_path(
+        param_shardings, mesh_lib._is_spec)]
+    for (path, leaf), sh in zip(mesh_lib.tree_flatten_with_path(params),
+                                flat_sh):
+        spec = sh.spec
+        if (mesh_lib._axis_shards(sh.mesh, spec) > 1
+                and mesh_lib.spec_shards_leaf(sh.mesh, spec,
+                                              tuple(leaf.shape))):
+            raise NotImplementedError(
+                f"param_specs split {mesh_lib.param_path_str(path)!r} "
+                f"({spec!r}) across devices; the port runs one card per "
+                f"process and holds every weight whole (ROADMAP.md §C, "
+                f"documented deviations)")
+
+
+def resolve_param_specs(param_specs, params, mesh):
+    """``param_specs`` -> a tree of ``NamedSharding`` matching ``params``:
+    a tree of ``PartitionSpec`` (the structure of ``params``) or a
+    callable ``(path_str, leaf) -> PartitionSpec`` applied per leaf
+    (:func:`~.mesh.param_path_str` spelling)."""
+    if callable(param_specs):
+        flat = mesh_lib.tree_flatten_with_path(params)
+        return mesh_lib.tree_unflatten_like(
+            params, [mesh_lib.NamedSharding(
+                mesh, param_specs(mesh_lib.param_path_str(p), l))
+                for p, l in flat])
+    flat = mesh_lib.tree_flatten_with_path(param_specs, mesh_lib._is_spec)
+    return mesh_lib.tree_unflatten_like(
+        param_specs, [mesh_lib.NamedSharding(mesh, s) for _, s in flat])
+
+
+def resolve_opt_state_shardings(optimizer: torch.optim.Optimizer,
+                                params_template, param_shardings,
+                                replicated):
+    """A sharding for each tensor of ``optimizer``'s state, in its
+    ``state_dict()["state"]`` layout (param index -> state key ->
+    sharding): a state tensor of its param's shape (Adam's moments, a
+    momentum buffer) inherits the param's sharding, anything else (step
+    counts, scalars) is replicated.  The optimizer's state is made at its
+    first step: before it the result is empty."""
+    flat_sh = [s for _, s in mesh_lib.tree_flatten_with_path(
+        param_shardings, mesh_lib._is_spec)]
+    shapes = [tuple(l.shape) for _, l in
+              mesh_lib.tree_flatten_with_path(params_template)]
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    out: Dict[int, Dict[str, Any]] = {}
+    for i, p in enumerate(params):
+        st = optimizer.state.get(p)
+        if not st:
+            continue
+        out[i] = {}
+        for key, value in st.items():
+            same = (isinstance(value, torch.Tensor) and i < len(shapes)
+                    and tuple(value.shape) == shapes[i])
+            out[i][key] = flat_sh[i] if same else replicated
+    return out
+
+
+def make_train_step(predict_fn: Callable, loss,
+                    optimizer: torch.optim.Optimizer, params, *,
+                    mesh=None, param_specs=None,
+                    params_template=None) -> TrainStep:
+    """A :class:`TrainStep` on the batch mean of ``loss(predict_fn(params,
+    x), y)``, ``optimizer`` built over the tensors of ``params``.
+
+    ``mesh`` (default :func:`~.mesh.get_mesh` in a process group, else
+    the params' device) is recorded with its layouts.  ``param_specs``
+    (with ``params_template``, default ``params``): a tree of
+    ``PartitionSpec`` or a ``(path, leaf) -> PartitionSpec`` rule, resolved
+    as JAX's; a spec that really splits a weight across devices raises
+    ``NotImplementedError`` (one card per process), one that replicates on
+    this mesh is taken."""
+    loss_fn = resolve_loss(loss)
+
+    def loss_of(x, y):
+        return torch.mean(loss_fn(predict_fn(params, x), y))
+
+    return _step(loss_of, optimizer, params, mesh, param_specs,
+                 params_template)
 
 
 def make_train_step_with_stats(train_fn: Callable, loss,
                                optimizer: torch.optim.Optimizer, params,
-                               stats: Dict[str, Any]) -> Callable:
+                               stats: Dict[str, Any], *, mesh=None,
+                               param_specs=None,
+                               params_template=None) -> TrainStep:
     """Like :func:`make_train_step` for models whose ``train_fn({"params":
     ..., "batch_stats": ...}, x) -> (pred, new_stats)`` updates BatchNorm
     statistics: ``stats["batch_stats"]`` holds the current statistics and
-    each step replaces it with the new ones (detached)."""
+    each step writes the new ones INTO those tensors (in place, so a
+    captured step updates static tensors); in a process group they are the
+    global batch's."""
     loss_fn = resolve_loss(loss)
 
-    def step(x, y):
-        optimizer.zero_grad(set_to_none=True)
+    def loss_of(x, y):
+        current = stats["batch_stats"]
         pred, new_stats = train_fn(
-            {"params": params, "batch_stats": stats["batch_stats"]}, x)
-        lval = torch.mean(loss_fn(pred, y))
-        lval.backward()
-        optimizer.step()
-        stats["batch_stats"] = _tree_map(lambda t: t.detach(), new_stats)
-        return lval.detach()
+            {"params": params, "batch_stats": current}, x)
+        with torch.no_grad():
+            for old, new in zip(_tree_leaves(current),
+                                _tree_leaves(new_stats)):
+                if new.data_ptr() != old.data_ptr():
+                    old.copy_(new)
+        return torch.mean(loss_fn(pred, y))
 
-    return step
+    return _step(loss_of, optimizer, params, mesh, param_specs,
+                 params_template)
+
+
+def _step(loss_of, optimizer, params, mesh, param_specs,
+          params_template) -> TrainStep:
+    if mesh is None:
+        # the step runs where its tensors are: the ranks' devices in a
+        # group, else the params' one device
+        leaves = _tree_leaves(params)
+        mesh = (mesh_lib.get_mesh() if distributed.process_count() > 1
+                or not leaves else mesh_lib.get_mesh(
+                    devices=[leaves[0].device]))
+    param_shardings = template = None
+    if param_specs is not None:
+        template = params_template if params_template is not None else params
+        param_shardings = resolve_param_specs(param_specs, template, mesh)
+        _refuse_real_split(param_shardings, template)
+    return TrainStep(loss_of, optimizer, params, mesh=mesh,
+                     param_shardings=param_shardings,
+                     params_template=template)
 
 
 # one optimizer factory per zero-argument factory, pinned with it so that
@@ -153,7 +367,9 @@ _OPT_INSTANCES: Dict[int, Tuple[Callable, Callable]] = {}
 _DEFAULT_OPTIMIZER = NamedOptimizer("adam")
 
 
-def clear_optimizer_instances() -> None:
+def clear_train_step_cache() -> None:
+    """Drop the kept optimizer instances (JAX's clears its compiled steps
+    too; the port keeps a fit's graphs for the fit only)."""
     _OPT_INSTANCES.clear()
 
 
@@ -268,27 +484,342 @@ def _stream_epoch_batches(chunks: Iterable, batch_size: int,
         yield head
 
 
-def _run_grouped_steps(step: Callable, spe: int, batches: Iterable,
-                       device: torch.device) -> List[float]:
-    """Drive one epoch's batches through ``step`` in groups of ``spe``:
-    the group's steps are enqueued back to back and its losses fetched in
-    one device-to-host copy.  Returns the per-step loss series, the same
-    for every ``spe``."""
-    losses: List[float] = []
-    group: List[torch.Tensor] = []
+def optimizer_capturable(optimizer: torch.optim.Optimizer
+                         ) -> Tuple[bool, str]:
+    """(True, "") when ``optimizer``'s step can be captured in a CUDA
+    graph: one made with ``capturable=True``, an optimizer class that says
+    ``capturable = True`` (the port's own, whose counters live on the
+    device), or ``torch.optim.SGD`` (no host-side state).  Else (False,
+    why)."""
+    cap = optimizer.defaults.get("capturable")
+    if cap is None:
+        cap = getattr(type(optimizer), "capturable", None)
+    name = type(optimizer).__name__
+    if cap is True or type(optimizer) is torch.optim.SGD:
+        return True, ""
+    if cap is False:
+        return False, f"{name} was built with capturable=False"
+    return False, f"{name} is not known to be capturable"
 
-    def flush():
-        losses.extend(torch.stack(group).cpu().tolist())
-        group.clear()
 
-    for bx, by in batches:
-        group.append(step(torch.from_numpy(bx).to(device),
-                          torch.from_numpy(by).to(device)))
-        if len(group) == spe:
-            flush()
-    if group:
-        flush()
-    return losses
+# A captured step pays for its capture after this many replays.  Capturing
+# traces the step's Python once more and instantiates its graph (0.12-0.40
+# s a step on config 5's InceptionV3 at batch 16), and each replay saves
+# the part of the eager step's host time the card does not hide (19-92 ms
+# there): SGD and Adam, f32 and TF32, break even after 3.0-13.3 replays
+# (H100, chip_smoke.py [train], PERF.md).
+BREAK_EVEN_REPLAYS = 10
+
+
+def capture_plan(steps_per_epoch: int, epochs: int, spe: int
+                 ) -> Tuple[int, int]:
+    """(steps replayed, steps captured) of a fit of ``epochs`` epochs of
+    ``steps_per_epoch`` steps in groups of ``spe``: its first step is the
+    eager warm-up, each epoch's steps then run in groups of ``spe`` and a
+    ragged tail, and each distinct group length is captured once."""
+    lengths = set()
+    for n in ([steps_per_epoch - 1]
+              + ([steps_per_epoch] if epochs > 1 else [])):
+        if n >= spe:
+            lengths.add(spe)
+        if n > 0 and n % spe:
+            lengths.add(n % spe)
+    return max(0, steps_per_epoch * epochs - 1), sum(lengths)
+
+
+def step_mode(device: torch.device, optimizer: torch.optim.Optimizer,
+              with_stats: bool, generators: Sequence = (),
+              fit_steps: Optional[Tuple[int, int]] = None, spe: int = 1
+              ) -> Tuple[str, str]:
+    """(mode, reason) of a fit's steps: ``captured`` (one graph per group
+    length), ``split`` (a process group: two graphs a step around the
+    host all-reduce) or ``eager`` (with the reason).  ``fit_steps``: the
+    fit's (steps an epoch, epochs to run) when known before its first
+    step, else None (a stream of unknown length: captured); a fit whose
+    graphs would be replayed fewer than :data:`BREAK_EVEN_REPLAYS` times a
+    captured step runs eagerly."""
+    if device.type != "cuda":
+        return "eager", "the CPU runs its steps eagerly"
+    if torch.is_anomaly_enabled():
+        return "eager", ("autograd anomaly mode (utils.debug."
+                         "enable_nan_checks) checks each backward op's "
+                         "output on the host")
+    ok, why = optimizer_capturable(optimizer)
+    if not ok:
+        return "eager", why
+    if any(g.device.type != "cuda" for g in generators):
+        return "eager", ("a CPU torch.Generator feeds the model (its draws "
+                         "are made on the host every step)")
+    mode = "captured"
+    if distributed.process_count() > 1:
+        if with_stats:
+            return "eager", ("batch statistics in a process group: their "
+                             "all-reduce runs inside the forward")
+        mode = "split"  # one step a pair of graphs, whatever spe
+    if fit_steps is not None:
+        replayed, traced = capture_plan(
+            *fit_steps, max(1, int(spe)) if mode == "captured" else 1)
+        if replayed < BREAK_EVEN_REPLAYS * max(1, traced):
+            return "eager", (
+                f"a fit of {replayed + 1} steps would replay its "
+                f"{traced} captured step(s) {replayed} times, fewer than "
+                f"{BREAK_EVEN_REPLAYS} each: the capture would cost more "
+                f"than it saves")
+    return mode, ""
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+# one side stream per device for the fits' warm-up steps and captures:
+# cuBLAS keeps a workspace per stream for the life of the process, so a new
+# stream per fit would leave one behind per fit
+_SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+_SIDE_LOCK = threading.Lock()
+
+
+def _side_stream(device: torch.device) -> "torch.cuda.Stream":
+    with _SIDE_LOCK:
+        s = _SIDE_STREAMS.get(device)
+        if s is None:
+            s = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+            # make the stream's cuBLAS workspaces now, in small segments of
+            # their own: made inside a fit's first step they would sit in
+            # one of its large segments and keep it reserved after the fit
+            with torch.cuda.stream(s):
+                a = torch.ones(8, 8, device=device)
+                torch.addmm(a, a, a)
+                torch.mm(a, a)
+            s.synchronize()
+        return s
+
+
+class _StepGraphs:
+    """A fit's captured steps, all in one graph pool: for mode
+    ``captured`` one graph per group length k over a static ``[k, B,
+    ...]`` input that runs k whole steps and writes their k losses; for
+    mode ``split`` two graphs of one step (forward and backward into the
+    flat buffer, then the update from it) with the group's all-reduce
+    between them on the host.  :meth:`release` drops them and their
+    pool."""
+
+    def __init__(self, step: TrainStep, mode: str, device: torch.device,
+                 generators: Sequence = ()):
+        self.step = step
+        self.mode = mode
+        self.device = device
+        self.generators = list(generators)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: Dict[int, tuple] = {}
+        self.pool_bytes = 0
+        self.captures = 0
+        self.capture_s = 0.0
+        self.setup_s = 0.0  # wall time of run() spent capturing
+
+    def warm_up(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """One real step, eagerly, on a side stream: it makes the
+        optimizer's lazy state, the gradients, the flat buffer and cuDNN's
+        plans outside any graph."""
+        cur = torch.cuda.current_stream(self.device)
+        side = _side_stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            lval = self.step(x, y)
+        cur.wait_stream(side)
+        return lval
+
+    def _capture(self, body: Callable) -> Tuple[Any, Any]:
+        from sparkdl_tpu_torch.parallel.engine import _CAPTURE_LOCK
+
+        with _CAPTURE_LOCK:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_stats(self.device).get(
+                "reserved_bytes.all.current", 0)
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            for gen in self.generators:
+                graph.register_generator_state(gen)
+            try:
+                with torch.cuda.graph(graph, pool=self.pool,
+                                      stream=_side_stream(self.device),
+                                      capture_error_mode="thread_local"):
+                    out = body()
+            except Exception as e:
+                raise RuntimeError(
+                    f"CUDA-graph capture of the training step failed: "
+                    f"{e}") from e
+            torch.cuda.synchronize(self.device)
+            self.capture_s += time.perf_counter() - t0
+            self.pool_bytes += max(0, torch.cuda.memory_stats(
+                self.device).get("reserved_bytes.all.current", 0) - reserved)
+            self.captures += 1
+        return graph, out
+
+    def _entry(self, k: int, x_shape, x_dtype, y_shape, y_dtype) -> tuple:
+        """(static x, static y, graphs, loss output) for a group of k:
+        the k-step graph in mode ``captured``, the one pair of one-step
+        graphs (whatever k) in mode ``split``."""
+        key = k if self.mode == "captured" else 1
+        entry = self.graphs.get(key)
+        if entry is not None:
+            return entry
+        step = self.step
+        if self.mode == "captured":
+            xs = torch.zeros((k,) + x_shape, dtype=x_dtype,
+                             device=self.device)
+            ys = torch.zeros((k,) + y_shape, dtype=y_dtype,
+                             device=self.device)
+            graph, losses = self._capture(lambda: torch.stack(
+                [step(xs[i], ys[i]) for i in range(k)]))
+            entry = (xs, ys, (graph,), losses)
+        else:
+            xs = torch.zeros(x_shape, dtype=x_dtype, device=self.device)
+            ys = torch.zeros(y_shape, dtype=y_dtype, device=self.device)
+            grad_graph, _ = self._capture(
+                lambda: step.pack(step.forward_backward(xs, ys)))
+
+            def update():
+                lval = step.unpack()
+                step.optimizer.step()
+                return lval
+
+            update_graph, lval = self._capture(update)
+            entry = (xs, ys, (grad_graph, update_graph), lval)
+        self.graphs[key] = entry
+        return entry
+
+    def run(self, bx: np.ndarray, by: np.ndarray) -> torch.Tensor:
+        """Replay the steps of a group of k stacked host batches ``[k, B,
+        ...]``; returns the k losses on the device."""
+        k = bx.shape[0]
+        t0 = time.perf_counter()
+        xs, ys, graphs, out = self._entry(
+            k, tuple(bx.shape[1:]), _torch_dtype(bx.dtype),
+            tuple(by.shape[1:]), _torch_dtype(by.dtype))
+        self.setup_s += time.perf_counter() - t0
+        if self.mode == "captured":
+            xs.copy_(torch.from_numpy(np.ascontiguousarray(bx)))
+            ys.copy_(torch.from_numpy(np.ascontiguousarray(by)))
+            graphs[0].replay()
+            return out
+        gx, gy = _upload(bx, self.device), _upload(by, self.device)
+        losses = torch.empty(k, dtype=out.dtype, device=self.device)
+        for i in range(k):
+            xs.copy_(gx[i])
+            ys.copy_(gy[i])
+            graphs[0].replay()
+            self.step.reduce()
+            graphs[1].replay()
+            losses[i].copy_(out)
+        return losses
+
+    def release(self) -> None:
+        """Drop the graphs and give their pool back to the card."""
+        if not self.graphs:
+            return
+        torch.cuda.synchronize(self.device)
+        self.graphs.clear()
+        for p in self.step.params:
+            p.grad = None  # the last gradients live in the pool
+        self.step._flat = None
+        self.pool = None
+        torch.cuda.empty_cache()
+
+
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.zeros(0, dtype)).dtype
+
+
+class _StepRunner:
+    """Drives one epoch's batches through the fit's step in groups of
+    ``spe``, eagerly or through :class:`_StepGraphs`, and fetches each
+    group's losses in one device-to-host copy.  Returns the per-step loss
+    series, the same for every mode and ``spe``.  ``host_s`` / ``timed``:
+    the host seconds spent enqueueing the steps after the fit's first
+    (its warm-up) and outside captures, and how many steps they cover."""
+
+    def __init__(self, step: TrainStep, spe: int, device: torch.device,
+                 mode: str, generators: Sequence = ()):
+        self.step = step
+        self.spe = spe
+        self.device = device
+        self.mode = mode
+        self.graphs = (_StepGraphs(step, mode, device, generators)
+                       if mode != "eager" else None)
+        self.steps = 0
+        self.fetches = 0
+        self.host_s = 0.0
+        self.timed = 0
+
+    def _fetch(self, losses: torch.Tensor) -> List[float]:
+        self.fetches += 1
+        return losses.reshape(-1).cpu().tolist()
+
+    def _eager(self, group) -> torch.Tensor:
+        out = []
+        for bx, by in group:
+            t0 = time.perf_counter()
+            out.append(self.step(_upload(bx, self.device),
+                                 _upload(by, self.device)))
+            if self.steps:
+                self.host_s += time.perf_counter() - t0
+                self.timed += 1
+            self.steps += 1
+        return torch.stack(out)
+
+    def _replay(self, group) -> torch.Tensor:
+        if not self.steps:  # the warm-up: one real step, eagerly
+            (bx, by), = group
+            out = self.graphs.warm_up(_upload(bx, self.device),
+                                      _upload(by, self.device))
+            self.steps += 1
+            return out.reshape(1)
+        setup = self.graphs.setup_s
+        t0 = time.perf_counter()
+        out = self.graphs.run(np.stack([g[0] for g in group]),
+                              np.stack([g[1] for g in group]))
+        self.host_s += (time.perf_counter() - t0
+                        - (self.graphs.setup_s - setup))
+        self.timed += len(group)
+        self.steps += len(group)
+        return out
+
+    def run_epoch(self, batches: Iterable) -> List[float]:
+        losses: List[float] = []
+        group: List[Tuple[np.ndarray, np.ndarray]] = []
+        run = self._eager if self.graphs is None else self._replay
+
+        def own(a):
+            # a view into a chunk would pin the chunk while it waits
+            return a.copy() if (self.spe > 1 and a.base is not None) else a
+
+        for bx, by in batches:
+            group.append((own(bx), own(by)))
+            if len(group) == self.spe or (self.graphs is not None
+                                          and not self.steps):
+                losses.extend(self._fetch(run(group)))
+                group.clear()
+        if group:
+            losses.extend(self._fetch(run(group)))
+        return losses
+
+    def report(self, metrics: Metrics) -> None:
+        metrics.incr(f"train.step_mode.{self.mode}")
+        metrics.incr("train.steps", self.steps)
+        metrics.incr("train.loss_fetches", self.fetches)
+        if self.timed:
+            metrics.gauge("train.host_us_per_step",
+                          self.host_s / self.timed * 1e6)
+        if self.graphs is not None:
+            metrics.incr("train.captures", self.graphs.captures)
+            metrics.gauge("train.graph_pool_bytes", self.graphs.pool_bytes)
+            metrics.gauge("train.capture_s", self.graphs.capture_s)
+
+    def release(self) -> None:
+        if self.graphs is not None:
+            self.graphs.release()
 
 
 def _leaf(value, device: torch.device, grad: bool) -> torch.Tensor:
@@ -306,20 +837,40 @@ def _host(tree):
     return _tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
-def _single_process(what: str) -> None:
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(f"{what} in a process group: {_LATER}")
+def _fit_mesh(mesh, batch_size: int, device: DeviceLike
+              ) -> Tuple[Any, int, int]:
+    """(mesh, data-axis size, global batch rounded up to it).  The port
+    runs one card per process: the data axis is the group's ranks (the
+    default mesh), or this fit's one device."""
+    if mesh is None:
+        mesh = (mesh_lib.get_mesh() if distributed.process_count() > 1
+                else mesh_lib.get_mesh(devices=[resolve_device(device)]))
+    dp = int(mesh.shape[mesh_lib.DATA_AXIS])
+    if int(mesh.shape[mesh_lib.MODEL_AXIS]) > 1 \
+            or mesh.size > distributed.process_count():
+        raise NotImplementedError(
+            f"a fit on mesh {mesh.shape} needs more than one device per "
+            f"process; the port runs one card per process (a data axis of "
+            f"the group's ranks, model axis 1; ROADMAP.md §C)")
+    if batch_size % dp:
+        batch_size += dp - batch_size % dp
+        logger.info("global batch rounded up to %d (multiple of %d-way "
+                    "data axis)", batch_size, dp)
+    return mesh, dp, batch_size
 
 
 def _fit(predict_fn: Callable, params, epoch_batches: Callable[[int], Iterable],
-         no_rows: str, *, optimizer, loss, epochs: int, device: DeviceLike,
+         no_rows: str, epoch_steps: Optional[int], *, optimizer, loss,
+         epochs: int, device: DeviceLike, mesh,
          checkpoint_dir: Optional[str], checkpoint_every_epochs: int,
          metrics: Optional[Metrics], train_fn: Optional[Callable], stats,
-         steps_per_execution: int) -> Tuple[Any, List[float]]:
-    """The loop both fits share: ``epoch_batches(epoch)`` gives the epoch's
-    (x, y) host batches; ``no_rows`` is the ``ValueError`` an epoch without
-    a batch raises.  See :func:`fit_data_parallel` for the rest."""
+         steps_per_execution: int, generators: Sequence = ()
+         ) -> Tuple[Any, List[float]]:
+    """The loop both fits share: ``epoch_batches(epoch)`` gives this
+    rank's (x, y) host batches of the epoch, ``epoch_steps`` of them when
+    known up front (None: a stream's own length); ``no_rows`` is the
+    ``ValueError`` an epoch without a batch raises.  See
+    :func:`fit_data_parallel` for the rest."""
     dev = resolve_device(device)
     make_opt = _resolve_optimizer(optimizer)
     with_stats = train_fn is not None
@@ -341,10 +892,11 @@ def _fit(predict_fn: Callable, params, epoch_batches: Callable[[int], Iterable],
                 for t, v in zip(_tree_leaves(tensors),
                                 _tree_leaves(state["params"])):
                     t.copy_(v)
+                if with_stats:
+                    for t, v in zip(_tree_leaves(stats_ref["batch_stats"]),
+                                    _tree_leaves(state["batch_stats"])):
+                        t.copy_(v)
             opt.load_state_dict(state["opt_state"])
-            if with_stats:
-                stats_ref["batch_stats"] = _tree_map(
-                    lambda v: _leaf(v, dev, False), state["batch_stats"])
 
     def ckpt_state():  # save_pytree copies the tensors to the host
         state = {"params": tensors, "opt_state": opt.state_dict()}
@@ -354,29 +906,40 @@ def _fit(predict_fn: Callable, params, epoch_batches: Callable[[int], Iterable],
 
     if with_stats:
         step = make_train_step_with_stats(train_fn, loss, opt, tensors,
-                                          stats_ref)
+                                          stats_ref, mesh=mesh)
     else:
-        step = make_train_step(predict_fn, loss, opt, tensors)
+        step = make_train_step(predict_fn, loss, opt, tensors, mesh=mesh)
     metrics = metrics if metrics is not None else Metrics()
     spe = max(1, int(steps_per_execution))
+    fit_steps = (None if epoch_steps is None
+                 else (epoch_steps, epochs - start_epoch))
+    mode, why = step_mode(dev, opt, with_stats, generators, fit_steps, spe)
+    if why and dev.type == "cuda":
+        logger.info("training steps run eagerly: %s", why)
+    runner = _StepRunner(step, spe, dev, mode, generators)
     epoch_losses: List[float] = []
-    for epoch in range(start_epoch, epochs):
-        step_losses = _run_grouped_steps(step, spe, epoch_batches(epoch), dev)
-        if not step_losses:
-            raise ValueError(no_rows)
-        mean = float(np.mean(step_losses))
-        if not np.isfinite(mean):
-            debug.warn_or_raise_nonfinite_loss(step_losses, epoch)
-        epoch_losses.append(mean)
-        metrics.record_time("epoch_loss", mean)
-        if ckptr is not None and ckptr.due(epoch + 1) and ckptr.is_writer():
-            # copied to the host only on epochs the cadence saves
-            ckptr.maybe_save(epoch + 1, ckpt_state())
-    if with_stats:
-        return ({"params": _host(tensors),
-                 "batch_stats": _host(stats_ref["batch_stats"])},
-                epoch_losses)
-    return _host(tensors), epoch_losses
+    try:
+        for epoch in range(start_epoch, epochs):
+            step_losses = runner.run_epoch(epoch_batches(epoch))
+            if not step_losses:
+                raise ValueError(no_rows)
+            mean = float(np.mean(step_losses))
+            if not np.isfinite(mean):
+                debug.warn_or_raise_nonfinite_loss(step_losses, epoch)
+            epoch_losses.append(mean)
+            metrics.record_time("epoch_loss", mean)
+            if (ckptr is not None and ckptr.due(epoch + 1)
+                    and ckptr.is_writer()):
+                # copied to the host only on epochs the cadence saves
+                ckptr.maybe_save(epoch + 1, ckpt_state())
+        runner.report(metrics)
+        if with_stats:
+            return ({"params": _host(tensors),
+                     "batch_stats": _host(stats_ref["batch_stats"])},
+                    epoch_losses)
+        return _host(tensors), epoch_losses
+    finally:
+        runner.release()
 
 
 def fit_data_parallel(predict_fn: Callable, params, x: np.ndarray,
@@ -387,43 +950,70 @@ def fit_data_parallel(predict_fn: Callable, params, x: np.ndarray,
                       epochs: int = 1,
                       shuffle: bool = True,
                       seed: int = 0,
+                      mesh=None,
                       device: DeviceLike = None,
                       checkpoint_dir: Optional[str] = None,
                       checkpoint_every_epochs: int = 1,
                       metrics: Optional[Metrics] = None,
                       train_fn: Optional[Callable] = None,
                       stats=None,
-                      steps_per_execution: int = 1) -> Tuple[Any, List[float]]:
+                      steps_per_execution: int = 1,
+                      generators: Sequence = ()) -> Tuple[Any, List[float]]:
     """Fit ``params`` (nested dicts of host arrays or tensors; tensors are
-    copied, never trained in place) on (x, y) on one device.
+    copied, never trained in place) on (x, y) with data-parallel steps over
+    ``mesh`` (default :func:`~.mesh.get_mesh`: this device, or one per
+    rank of a process group).
 
     ``predict_fn(params, x) -> pred`` on tensors; ``loss(pred, y) -> [B]``
     (a name from :data:`LOSSES` or a callable); ``optimizer``: a factory
     ``params -> torch.optim.Optimizer``, a zero-argument factory returning
-    one, or None (Adam at lr 1e-3, as JAX's default).  The batch is
-    ``min(batch_size, n)``.  ``steps_per_execution`` steps run per loss
-    fetch, with the same loss series as 1.
+    one, or None (Adam at lr 1e-3, as JAX's default).  ``batch_size`` is
+    the global batch, rounded up to the data axis; in one process it is
+    clamped to the rows.  In a process group, (x, y) are THIS rank's
+    shard (:func:`.distributed.shard_files`) and the module docstring's
+    global-batch rules apply.  ``steps_per_execution`` steps run per
+    replay and loss fetch, with the same loss series as 1.
 
     With ``train_fn`` + ``stats`` (a tree of BatchNorm statistics),
     ``train_fn({"params": p, "batch_stats": s}, x) -> (pred, new_stats)``
     runs each step and the fitted value is ``{"params": ..., "batch_stats":
     ...}`` (estimator ``trainBatchStats=True``).  With ``checkpoint_dir``,
     the params, the optimizer's ``state_dict`` and the statistics are saved
-    every ``checkpoint_every_epochs`` epochs, and a fit resumes from the
-    newest checkpoint there.  Returns (the fitted value as host arrays,
-    per-epoch mean losses); a non-finite epoch mean warns, or raises under
+    every ``checkpoint_every_epochs`` epochs by rank 0, and a fit resumes
+    from the newest checkpoint there.  ``generators``: the explicit
+    ``torch.Generator``s the model draws from (registered with the captured
+    graphs).  Returns (the fitted value as host arrays, per-epoch mean
+    losses); a non-finite epoch mean warns, or raises under
     ``SPARKDL_DEBUG_NANS=1``."""
-    _single_process("a fit")
-    batch_size = min(int(batch_size), max(1, x.shape[0]))
+    mesh, dp, batch_size = _fit_mesh(mesh, int(batch_size), device)
+    pc = distributed.process_count()
+    steps_per_epoch = None
+    if pc > 1:
+        local_batch = max(dp // pc, batch_size // pc)
+        counts = distributed.allgather_ints(x.shape[0])
+        if int(np.min(counts)) == 0:
+            # every rank sees the same counts: all raise, none waits
+            raise ValueError(
+                f"multi-process fit requires >=1 row on every rank; "
+                f"per-rank row counts: {counts.tolist()} (fewer files than "
+                f"processes? see distributed.shard_files)")
+        global_rows = int(np.sum(counts))
+        steps_per_epoch = max(1, -(-global_rows // (local_batch * pc)))
+        batch_size = local_batch
+    else:
+        batch_size = min(batch_size, max(dp, (x.shape[0] // dp) * dp))
     return _fit(
         predict_fn, params,
-        lambda epoch: _epoch_batches(x, y, batch_size, epoch, shuffle, seed),
+        lambda epoch: _epoch_batches(x, y, batch_size, epoch, shuffle, seed,
+                                     num_steps=steps_per_epoch),
         "fit produced no batches (zero-row dataset?)",
+        steps_per_epoch if steps_per_epoch is not None
+        else -(-x.shape[0] // batch_size),
         optimizer=optimizer, loss=loss, epochs=epochs, device=device,
-        checkpoint_dir=checkpoint_dir,
+        mesh=mesh, checkpoint_dir=checkpoint_dir,
         checkpoint_every_epochs=checkpoint_every_epochs, metrics=metrics,
         train_fn=train_fn, stats=stats,
-        steps_per_execution=steps_per_execution)
+        steps_per_execution=steps_per_execution, generators=generators)
 
 
 def fit_data_parallel_stream(predict_fn: Callable, params,
@@ -433,13 +1023,15 @@ def fit_data_parallel_stream(predict_fn: Callable, params,
                              batch_size: int = 32,
                              epochs: int = 1,
                              steps_per_epoch: Optional[int] = None,
+                             mesh=None,
                              device: DeviceLike = None,
                              checkpoint_dir: Optional[str] = None,
                              checkpoint_every_epochs: int = 1,
                              metrics: Optional[Metrics] = None,
                              train_fn: Optional[Callable] = None,
                              stats=None,
-                             steps_per_execution: int = 1
+                             steps_per_execution: int = 1,
+                             generators: Sequence = ()
                              ) -> Tuple[Any, List[float]]:
     """Like :func:`fit_data_parallel` but over a re-iterable chunk source:
     ``epoch_source() -> iterator of (x_chunk, y_chunk)`` host arrays, called
@@ -452,17 +1044,36 @@ def fit_data_parallel_stream(predict_fn: Callable, params,
     pins the steps of every epoch (the stream is truncated or extended);
     without it the stream's own length decides.  Empty leading chunks are
     skipped; an epoch with no rows raises ``ValueError("epoch_source
-    yielded no rows")``.  A fit in a ``torch.distributed`` group of more
-    than one process raises ``NotImplementedError``."""
-    _single_process("a streaming fit")
-    batch_size = int(batch_size)
+    yielded no rows")``.  In a process group ``steps_per_epoch`` is
+    required (ranks cannot count an unseen stream in agreement), each rank
+    draws ``max(dp // W, batch // W)`` rows a step from its own source,
+    and every epoch first checks that every rank has rows (a rank without
+    raises on every rank)."""
+    mesh, dp, batch_size = _fit_mesh(mesh, int(batch_size), device)
+    pc = distributed.process_count()
+    if pc > 1:
+        if steps_per_epoch is None:
+            raise ValueError(
+                "multi-process streaming fit requires steps_per_epoch "
+                "(ranks cannot count an unseen stream in agreement); "
+                "derive it from the global row count / global batch")
+        batch_size = max(dp // pc, batch_size // pc)
 
     def epoch_chunks():
         it = iter(epoch_source())
         first = next(it, None)
         while first is not None and np.asarray(first[0]).shape[0] == 0:
             first = next(it, None)  # skip empty leading chunks
-        if first is None:
+        if pc > 1:
+            n_first = (0 if first is None
+                       else int(np.asarray(first[0]).shape[0]))
+            counts = distributed.allgather_ints(n_first)
+            if int(np.min(counts)) == 0:
+                raise ValueError(
+                    f"multi-process streaming fit requires >=1 row on "
+                    f"every rank at the start of each epoch; first-chunk "
+                    f"rows per rank: {counts.tolist()}")
+        elif first is None:
             raise ValueError("epoch_source yielded no rows")
 
         def prefixed(f):
@@ -479,9 +1090,9 @@ def fit_data_parallel_stream(predict_fn: Callable, params,
         predict_fn, params,
         lambda epoch: _stream_epoch_batches(epoch_chunks(), batch_size,
                                             num_steps=steps_per_epoch),
-        "epoch_source yielded no rows",
+        "epoch_source yielded no rows", steps_per_epoch,
         optimizer=optimizer, loss=loss, epochs=epochs, device=device,
-        checkpoint_dir=checkpoint_dir,
+        mesh=mesh, checkpoint_dir=checkpoint_dir,
         checkpoint_every_epochs=checkpoint_every_epochs, metrics=metrics,
         train_fn=train_fn, stats=stats,
-        steps_per_execution=steps_per_execution)
+        steps_per_execution=steps_per_execution, generators=generators)

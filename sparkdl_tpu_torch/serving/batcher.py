@@ -111,13 +111,20 @@ class DynamicBatcher:
 
     Thread model: any number of submitter threads call :meth:`submit`; ONE
     dispatcher thread blocks in :meth:`next_batch`.  ``close`` may be
-    called from any thread.  (The JAX package's ``align``, its mesh's data
-    axis, is 1 on one card: the bucket plan is taken as it is.)"""
+    called from any thread.
+
+    ``align`` is the serving mesh's data-axis size: a raw bucket plan is
+    rounded up to multiples of it, as the engine rounds its device batch
+    (``effective_device_batch``), so a ragged cut lands on a bucket the
+    mesh splits evenly.  A :class:`Server` passes buckets already rounded,
+    so there it changes nothing; a bucket rounded above
+    ``max_batch_size`` is reached only by a top-off."""
 
     def __init__(self, *, max_batch_size: int = 64,
                  max_wait_ms: float = 5.0,
                  max_queue: int = 1024,
                  bucket_plan: Optional[Sequence[int]] = None,
+                 align: int = 1,
                  metrics: Optional[Metrics] = None,
                  clock: Optional[Callable[[], float]] = None):
         if max_batch_size < 1:
@@ -126,11 +133,16 @@ class DynamicBatcher:
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         self.max_batch_size = int(max_batch_size)
+        self.align = max(1, int(align))
         if bucket_plan is not None:
             bucket_plan = sorted(int(b) for b in bucket_plan)
             if not bucket_plan or bucket_plan[0] < 1:
                 raise ValueError(f"bucket_plan must be positive, got "
                                  f"{bucket_plan}")
+            if self.align > 1:
+                bucket_plan = sorted(
+                    {b + (self.align - b % self.align) % self.align
+                     for b in bucket_plan})
         self.bucket_plan = bucket_plan
         self.max_wait_s = max(0.0, float(max_wait_ms)) / 1e3
         self.max_queue = int(max_queue)

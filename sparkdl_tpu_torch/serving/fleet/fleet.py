@@ -33,9 +33,11 @@ Versions and captured graphs: each deployed version has its own module
 copy (``registry.FleetEntry.version_module``) behind its own ``Server``,
 so its own captured engines and one graph pool per version's server; a
 promote or rollback drains the losing server, whose ``close()`` gives its
-pool back to the card.  ``mesh=`` and the partition knobs are passed to
-the per-version ``Server``, which raises ``NotImplementedError`` naming
-ROADMAP.md queue A item 4.
+pool back to the card.  ``mesh=`` and the partition knobs
+(``partition_rules=``, ``param_shardings=``, ``donate_batch=``) are passed
+to each version's ``Server``, which resolves them on this process's one
+device; a policy that really splits a weight raises there (one card per
+process, ROADMAP.md §C).
 """
 
 from __future__ import annotations
@@ -178,9 +180,8 @@ class Fleet:
         ``fn(module, batch)`` whose module is ``variables``
         (``registry.ModelRegistry.register``).  ``server_kwargs`` become
         this entry's Server configuration (on top of the fleet defaults)
-        for v1 and every later version; ``partition_rules=`` /
-        ``param_shardings=`` raise through the Server (ROADMAP.md queue A
-        item 4)."""
+        for v1 and every later version, the partition knobs
+        (``partition_rules=`` / ``param_shardings=``) included."""
         with self._lock:
             if self._closed:
                 raise ServerClosedError("fleet is closed")

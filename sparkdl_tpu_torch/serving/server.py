@@ -39,10 +39,15 @@ The server resolves its device at construction
 asked for, and ``RuntimeError`` without a card; it never serves from the
 CPU quietly.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-queue A item): a ``mesh``, ``partition_rules``, ``param_shardings`` and
-``donate_batch=True`` (the mesh, with the rest of training).  ``varz()``
-keeps the JAX package's keys; its ``sharding`` section reads None.
+The mesh, as JAX's: ``mesh=`` (this process's one device,
+:func:`~sparkdl_tpu_torch.parallel.engine.resolve_engine_mesh`; buckets
+rounded to its data axis by :func:`bucket_plan`), ``partition_rules`` /
+``param_shardings`` (zoo models default to
+``mesh.default_partition_rules``, which resolve all-replicated on one
+card) and ``donate_batch`` reach every bucket engine; ``varz()
+["sharding"]`` is :meth:`Server.sharding_info`.  A policy that really
+splits a weight, and a mesh of more than one device, raise
+``NotImplementedError`` (one card per process, ROADMAP.md §C).
 
 :class:`HeadFanoutServer` serves many tenants' heads over one backbone
 ``Server`` at the feature cut: a warm content digest costs a head pass
@@ -69,7 +74,9 @@ from sparkdl_tpu_torch.parallel.engine import (CircuitOpenError,
                                                InferenceEngine, _tree_leaves,
                                                _tree_map,
                                                effective_device_batch,
+                                               resolve_engine_mesh,
                                                precision_flags)
+from sparkdl_tpu_torch.parallel.mesh import DATA_AXIS
 from sparkdl_tpu_torch.serving.batcher import (DynamicBatcher, Request,
                                                ragged_enabled_from_env)
 from sparkdl_tpu_torch.serving.cache import resolve_cache
@@ -130,10 +137,11 @@ def _default_buckets(max_batch_size: int) -> List[int]:
 
 
 def bucket_plan(max_batch_size: int,
-                bucket_sizes: Optional[Sequence[int]] = None) -> List[int]:
+                bucket_sizes: Optional[Sequence[int]] = None,
+                mesh=None) -> List[int]:
     """The bucket set a :class:`Server` builds: requested buckets (default
-    quarter/half/full), validated, each the engine's device batch, and
-    de-duplicated."""
+    quarter/half/full), validated, rounded up to the mesh's data-axis
+    multiple (the engine's device batch) and de-duplicated."""
     max_batch_size = max(1, int(max_batch_size))
     buckets = (list(bucket_sizes) if bucket_sizes is not None
                else _default_buckets(max_batch_size))
@@ -144,7 +152,8 @@ def bucket_plan(max_batch_size: int,
         raise ValueError(
             f"largest bucket ({buckets[-1]}) must cover "
             f"max_batch_size ({max_batch_size})")
-    return sorted({effective_device_batch(b) for b in buckets})
+    mesh = resolve_engine_mesh(mesh)
+    return sorted({effective_device_batch(b, mesh) for b in buckets})
 
 
 class _Once:
@@ -217,13 +226,6 @@ def _settle_error(requests: Sequence[Request], exc: BaseException) -> None:
             bs.finish("error")
 
 
-def _not_ported(what: str, item: str,
-                who: str = "Server") -> NotImplementedError:
-    return NotImplementedError(
-        f"{who}({what}) needs a module the port does not have yet "
-        f"(ROADMAP.md queue A, {item})")
-
-
 class Server:
     """Async dynamic-batching inference service over one model.
 
@@ -279,6 +281,15 @@ class Server:
         objectives over this server's metrics, evaluated on every
         :meth:`health` poll; a breach degrades health and names the
         objective, and the evaluation rides ``health()["slo"]``.
+      * ``mesh``: this process's one-device mesh (default
+        :func:`~sparkdl_tpu_torch.parallel.mesh.get_mesh` over ``device``);
+        ``partition_rules`` / ``param_shardings``: the weight policy every
+        bucket engine resolves (zoo models default to
+        ``mesh.default_partition_rules``; explicit ones win); a real
+        split raises.  ``donate_batch``: recorded in
+        :meth:`sharding_info`; on the card it changes nothing, the
+        captured graph already owning its input slot (zoo models
+        override it to False, as JAX's do).
       * ``cost``: the :class:`~sparkdl_tpu_torch.obs.cost.CostLedger`
         every settled batch and cache hit is charged to (None = the
         ``SPARKDL_COST`` default, False = unmetered); ``model_desc`` is
@@ -316,17 +327,17 @@ class Server:
                  clock: Optional[Callable[[], float]] = None,
                  cost: Any = None,
                  model_desc: Optional[str] = None):
-        if mesh is not None:
-            raise _not_ported("mesh=", "item 4, parallel/mesh.py")
-        if partition_rules is not None or param_shardings is not None:
-            raise _not_ported("partition_rules= / param_shardings=",
-                              "item 4, parallel/mesh.py")
-        if donate_batch:
-            raise _not_ported("donate_batch=True",
-                              "item 4, parallel/mesh.py")
-        self._device = resolve_device(device)
+        self._mesh = resolve_engine_mesh(mesh, device)
+        self._device = resolve_device(self._mesh.devices.flat[0])
         self._fn, self._module, overrides = _resolve_model(
             model, module, featurize)
+        if donate_batch is None:
+            donate_batch = overrides.get("donate_batch")
+        self._donate_batch = bool(donate_batch)
+        if partition_rules is None and param_shardings is None:
+            partition_rules = overrides.get("partition_rules")
+        self._partition_rules = partition_rules
+        self._param_shardings = param_shardings
         # the model name the cost ledger's lines carry
         self.model_desc = (model_desc if model_desc is not None
                            else (model if isinstance(model, str)
@@ -339,7 +350,8 @@ class Server:
         self._clock = clock if clock is not None else time.monotonic
         self.max_batch_size = max(1, int(max_batch_size))
         self._buckets = bucket_plan(self.max_batch_size,
-                                    bucket_sizes=bucket_sizes)
+                                    bucket_sizes=bucket_sizes,
+                                    mesh=self._mesh)
         self._default_timeout_s = (None if default_timeout_ms is None
                                    else max(0.0, default_timeout_ms) / 1e3)
         self._dispatch_timeout_s = (None if dispatch_timeout_ms is None
@@ -388,6 +400,7 @@ class Server:
             max_batch_size=self.max_batch_size, max_wait_ms=max_wait_ms,
             max_queue=max_queue,
             bucket_plan=self._buckets if self._ragged else None,
+            align=int(self._mesh.shape[DATA_AXIS]),
             metrics=self.metrics, clock=self._clock)
         # the slowest requests' span trees (inert while tracing is off)
         self.exemplars = ExemplarReservoir(k=4)
@@ -420,8 +433,11 @@ class Server:
                     eng = first.sibling(bucket)
                 else:
                     eng = InferenceEngine(
-                        self._fn, self._module, device=self._device,
+                        self._fn, self._module, mesh=self._mesh,
                         device_batch_size=bucket,
+                        partition_rules=self._partition_rules,
+                        param_shardings=self._param_shardings,
+                        donate_batch=self._donate_batch,
                         compute_dtype=self._compute_dtype,
                         output_host_dtype=self._output_host_dtype,
                         dispatch_retries=self._dispatch_retries,
@@ -1058,6 +1074,16 @@ class Server:
         return {k: v for k, v in summary.items()
                 if k.startswith(("serving.", "engine_", "pipeline."))}
 
+    def sharding_info(self) -> Optional[Dict[str, Any]]:
+        """The bucket engines' weight layout (mesh shape, total vs
+        per-device param bytes, sharded leaf count, policy digest,
+        ``donate_batch``): every bucket shares one device module and one
+        policy, so the first engine speaks for the server; None until a
+        bucket engine exists."""
+        with self._engine_lock:
+            first = next(iter(self._engines.values()), None)
+        return None if first is None else first.sharding_info()
+
     def varz(self) -> Dict[str, Any]:
         """The ``/varz``-shaped structured form of :meth:`stats`, with the
         JAX package's keys: server config/state, health, ``serving.*``
@@ -1065,8 +1091,8 @@ class Server:
         (``obs.export.metrics_snapshot``), the cache section, the cost
         ledger's snapshot (None when unmetered) and the slow-request
         exemplars (full span trees of the slowest requests; filled only
-        while tracing is on).  ``sharding`` reads None (no mesh on one
-        card).  JSON-serializable throughout."""
+        while tracing is on) and ``sharding`` (:meth:`sharding_info`).
+        JSON-serializable throughout."""
         from sparkdl_tpu_torch.obs.export import metrics_snapshot
 
         m = self.metrics
@@ -1102,7 +1128,7 @@ class Server:
                       else None),
             "cost": (self._cost.snapshot() if self._cost is not None
                      else None),
-            "sharding": None,
+            "sharding": self.sharding_info(),
             "exemplars": self.exemplars.snapshot(),
         }
 
@@ -1205,8 +1231,9 @@ class HeadFanoutServer:
     digest of the backbone module's state
     (``utils.digest.module_digest``), so the namespaces differ between the
     packages; the port has no program lockfile, so the fingerprint is None
-    and the namespace pins ``"unpinned"``; ``mesh=`` raises (ROADMAP.md
-    queue A item 4)."""
+    and the namespace pins ``"unpinned"``.  ``mesh=`` reaches the
+    backbone ``Server`` and the :class:`HeadBank` (this process's one
+    device, as an engine's)."""
 
     def __init__(self, model, module: Optional[nn.Module] = None, *,
                  head_fn: Optional[Callable] = None,
@@ -1223,10 +1250,8 @@ class HeadFanoutServer:
             feature_namespace, lockfile_model_fingerprint)
         from sparkdl_tpu_torch.utils.digest import module_digest
 
-        if mesh is not None:
-            raise _not_ported("mesh=", "item 4, parallel/mesh.py",
-                              "HeadFanoutServer")
-        self._device = resolve_device(device)
+        mesh = resolve_engine_mesh(mesh, device)
+        self._device = resolve_device(mesh.devices.flat[0])
         if isinstance(model, str):
             if module is not None:
                 raise ValueError("module must be None when serving a named "
@@ -1267,7 +1292,7 @@ class HeadFanoutServer:
         from sparkdl_tpu_torch.obs.cost import resolve_cost
 
         self._cost = resolve_cost(cost)
-        self._backbone = Server(fn, module, device=self._device,
+        self._backbone = Server(fn, module, mesh=mesh,
                                 cache=(resolved_cache if resolved_cache
                                        is not None else False),
                                 cache_namespace=self._feature_ns,
@@ -1276,9 +1301,9 @@ class HeadFanoutServer:
                                       else False),
                                 model_desc=self.model_desc,
                                 **server_kwargs)
-        self._bank = HeadBank(head_fn=head_fn,
+        self._bank = HeadBank(head_fn=head_fn, mesh=mesh,
                               hbm_budget_bytes=hbm_budget_bytes,
-                              metrics=self.metrics, device=self._device)
+                              metrics=self.metrics)
         self.last_head_swap_report: Optional[Dict[str, Any]] = None
         self._swap_lock = threading.Lock()
 

@@ -123,8 +123,10 @@ def zoo_serving_bundle(name: str, featurize: bool,
     """``(fn, module, engine_overrides)`` for serving zoo model ``name``
     (the JAX package's ``zoo_serving_bundle``, whose ``variables`` are the
     port's module): the module from the process cache, the fn through
-    :func:`zoo_model_fn`, and ``SPARKDL_ZOO_COMPUTE_DTYPE`` as engine
-    overrides (bf16 compute, outputs widened to f32 on the host).
+    :func:`zoo_model_fn`, and engine overrides: ``donate_batch`` False,
+    ``partition_rules`` the zoo default (``mesh.default_partition_rules``)
+    and ``SPARKDL_ZOO_COMPUTE_DTYPE`` (bf16 compute, outputs widened to f32
+    on the host).
     :func:`_zoo_engine` builds the transformers' engines from it and
     ``serving.server._resolve_model`` resolves a zoo name through it, so
     that served rows are transformed rows.
@@ -135,7 +137,15 @@ def zoo_serving_bundle(name: str, featurize: bool,
     (``parallel.engine.dense_head_row``) that a
     :class:`~sparkdl_tpu_torch.parallel.engine.HeadBank` serves; it
     requires ``featurize=True``."""
-    overrides: Dict[str, object] = {}
+    from sparkdl_tpu_torch.parallel import mesh as mesh_lib
+
+    # the uint8 image batch can never alias the float output (no donation),
+    # and the zoo family's default partition rules, which resolve
+    # all-replicated on one card, as the JAX package's overrides
+    overrides: Dict[str, object] = {
+        "donate_batch": False,
+        "partition_rules": mesh_lib.default_partition_rules,
+    }
     cdt = None
     if zoo_compute_dtype_name() == "bfloat16":
         cdt = torch.bfloat16
@@ -242,6 +252,15 @@ class _ImageInputStage(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
                 yield batch
             offset += len(col)
 
+    def _chunk_rows(self) -> int:
+        """Decode granularity: ``batchSize`` rounded up to the engine
+        mesh's data axis (one device a process: the batch itself)."""
+        from sparkdl_tpu_torch.parallel.engine import (effective_device_batch,
+                                                       resolve_engine_mesh)
+
+        return effective_device_batch(self.getBatchSize(),
+                                      resolve_engine_mesh())
+
     def _stream_model_outputs(self, dataset, engine_factory, height: int,
                               width: int, valid_idx: List[int],
                               origins: Optional[List[str]] = None):
@@ -252,8 +271,7 @@ class _ImageInputStage(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
         itself; ``prefetch_iter`` would only add a queue hop, so it serves
         the serial path only."""
         chunks = self._decoded_chunks(dataset, height, width,
-                                      max(1, int(self.getBatchSize())),
-                                      valid_idx, origins)
+                                      self._chunk_rows(), valid_idx, origins)
         it = (iter(chunks) if pipeline_enabled_from_env()
               else prefetch_iter(chunks, depth=2))
         first = next(it, None)

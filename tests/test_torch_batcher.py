@@ -332,3 +332,34 @@ def test_ragged_arrival_benchmark_headline():
         res["n_requests"]
     assert res["pad_rows_saved"] > 0, res
     assert res["ragged"]["fill_mean"] > res["flush"]["fill_mean"], res
+
+
+@pytest.mark.parametrize("plan, align", [([3, 5, 8], 1), ([3, 5, 8], 4),
+                                         ([1, 2, 6, 7], 2), ([8], 8)])
+def test_mesh_align_rounds_the_plan_as_jax(plan, align):
+    """``align`` (the serving mesh's data axis) rounds a raw bucket plan up
+    to its multiples, de-duplicated, as JAX's batcher does, and the ragged
+    cuts then land on those buckets; ``bucket_plan(mesh=)`` rounds to the
+    port's one-device mesh (data axis 1)."""
+    from sparkdl_tpu_torch.parallel.mesh import get_mesh
+    from sparkdl_tpu_torch.serving.server import bucket_plan
+
+    p = DynamicBatcher(max_batch_size=8, bucket_plan=plan, align=align)
+    j = jbatcher.DynamicBatcher(max_batch_size=8, bucket_plan=plan,
+                                align=align)
+    assert p.bucket_plan == j.bucket_plan and p.align == j.align
+    cuts = []
+    for b, req in ((DynamicBatcher, Request),
+                   (jbatcher.DynamicBatcher, jbatcher.Request)):
+        batcher = b(max_batch_size=8, max_wait_ms=1.0, bucket_plan=plan,
+                    align=align)
+        for r in _rows(7):
+            batcher.submit(req(r))
+        cut = []
+        while sum(cut) < 7:
+            cut.append(len(batcher.next_batch()))
+        cuts.append(cut)
+    assert cuts[0] == cuts[1]
+    with sparkdl_tpu_torch.default_device("cpu"):
+        assert bucket_plan(max(plan), plan, mesh=get_mesh()) == \
+            sorted(set(plan))

@@ -514,3 +514,170 @@ def test_stream_commit_fault_resumes_bit_for_bit(cuda, tmp_path, pipeline):
     assert graph["launches"] == (XC96_B1_LAUNCHES, 0, 0)
     assert not [t.name for t in threading.enumerate()
                 if t.name.startswith("sparkdl-pipeline")]
+
+
+# -- the captured training step ------------------------------------------------
+
+
+def _fit_data(n=20):
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(n, 3, 12, 12)).astype(np.float32)
+    y = (np.arange(n) % 4).astype(np.int64)
+    return x, y
+
+
+def _conv_fit(optimizer, eager=False, spe=1, stats=False, monkeypatch=None,
+              epochs=4):
+    """Fit a small conv net (BatchNorm statistics trained when ``stats``)
+    on the card, 3 steps an epoch (4 epochs: 11 replays, enough to pay
+    for a capture); ``eager`` forces the module's eager step through its
+    own ``step_mode`` (a patch of this test, no knob of the fit)."""
+    from sparkdl_tpu_torch.graph.function import apply_with
+    from sparkdl_tpu_torch.models.layers import flax_batch_norm_train
+    from sparkdl_tpu_torch.param.converters import NamedOptimizer
+    from sparkdl_tpu_torch.parallel import train
+    from sparkdl_tpu_torch.utils.metrics import Metrics
+
+    torch.manual_seed(0)
+    net = nn.Sequential(nn.Conv2d(3, 8, 3, padding=1), nn.BatchNorm2d(8),
+                        nn.ReLU(), nn.AdaptiveAvgPool2d(1), nn.Flatten(),
+                        nn.Linear(8, 4)).cuda()
+    params = {k: v.detach() for k, v in net.named_parameters()}
+    bn_stats = {k: v.detach() for k, v in net.named_buffers()
+                if k.endswith(("running_mean", "running_var"))}
+
+    def predict(p, x):
+        return apply_with(lambda m, t: m(t), net.eval(), p, x)
+
+    def train_fn(v, x):
+        def fwd(m, t):
+            h = m[0](t)
+            h = flax_batch_norm_train(m[1], h)
+            return m[5](m[4](m[3](m[2](h))))
+
+        pred = apply_with(fwd, net, {**v["params"], **v["batch_stats"]}, x)
+        return pred, v["batch_stats"]
+
+    if eager:
+        monkeypatch.setattr(train, "step_mode",
+                            lambda *a, **k: ("eager", "reference"))
+    x, y = _fit_data()
+    m = Metrics()
+    # cuDNN's default wgrad algorithms are not deterministic (eager
+    # against eager differs): hold the step's math fixed
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = train.fit_data_parallel(
+            predict, params, x, y, optimizer=NamedOptimizer(optimizer),
+            loss=train.softmax_cross_entropy, batch_size=8, epochs=epochs,
+            steps_per_execution=spe, metrics=m, device="cuda",
+            train_fn=train_fn if stats else None,
+            stats=bn_stats if stats else None)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if eager:
+        monkeypatch.undo()
+    return out, m
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adam", "lamb"])
+def test_captured_fit_equals_the_eager_fit(cuda, opt, monkeypatch):
+    """One warm-up step, then one captured graph replayed a step: the
+    loss series and the fitted tensors of the eager fit."""
+    (fit_c, loss_c), mc = _conv_fit(opt)
+    (fit_e, loss_e), me = _conv_fit(opt, eager=True, monkeypatch=monkeypatch)
+    assert mc.counters["train.step_mode.captured"] == 1
+    assert me.counters["train.step_mode.eager"] == 1
+    assert mc.counters["train.captures"] == 1
+    assert mc.gauges["train.graph_pool_bytes"] > 0
+    assert _rel(loss_c, loss_e) <= 1e-6
+    for k in fit_e:
+        assert _rel(fit_c[k], fit_e[k]) <= 2e-4, k
+
+
+def test_k_step_groups_capture_one_graph_per_length(cuda):
+    """``steps_per_execution=3`` over three steps an epoch: the warm-up
+    step, a tail group of 2, then groups of 3; one graph per length, the
+    loss series of one-step groups and one fetch a group (17 epochs: 50
+    replayed steps pay for the 5 captured)."""
+    (fit1, loss1), m1 = _conv_fit("adam", epochs=17)
+    (fit3, loss3), m3 = _conv_fit("adam", spe=3, epochs=17)
+    assert m3.counters["train.step_mode.captured"] == 1
+    assert m3.counters["train.captures"] == 2
+    assert m3.counters["train.loss_fetches"] == 18  # warm-up, 2, 3 x 16
+    assert m1.counters["train.loss_fetches"] == 51
+    assert _rel(loss3, loss1) <= 1e-6
+    for k in fit1:
+        assert _rel(fit3[k], fit1[k]) <= 2e-4, k
+
+
+def test_captured_batch_stats_fit_equals_eager(cuda, monkeypatch):
+    """``train_fn`` + ``stats``: the statistics are written in place in
+    the graph; captured and eager agree."""
+    (fit_c, loss_c), mc = _conv_fit("sgd", stats=True)
+    (fit_e, loss_e), _ = _conv_fit("sgd", eager=True, stats=True,
+                                   monkeypatch=monkeypatch)
+    assert mc.counters["train.step_mode.captured"] == 1
+    assert _rel(loss_c, loss_e) <= 1e-6
+    for part in ("params", "batch_stats"):
+        for k in fit_e[part]:
+            assert _rel(fit_c[part][k], fit_e[part][k]) <= 2e-4, k
+
+
+def test_fit_releases_its_graph_pool(cuda):
+    """A fit's graphs and pool go when it returns: three fits in a row
+    leave the card's reserved memory where one left it."""
+    torch.cuda.synchronize()
+    _conv_fit("adam")
+    torch.cuda.empty_cache()
+    after_one = torch.cuda.memory_reserved()
+    for _ in range(3):
+        _, m = _conv_fit("adam")
+        assert m.gauges["train.graph_pool_bytes"] > 0
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() <= after_one + (2 << 20)
+
+
+def test_short_fit_runs_eagerly_on_the_card(cuda):
+    """Two epochs of 3 steps replay one captured step 5 times, too few to
+    pay for the capture: the fit's steps stay eager and it says so."""
+    (_, losses), m = _conv_fit("sgd", epochs=2)
+    assert m.counters["train.step_mode.eager"] == 1
+    assert "train.captures" not in m.counters and len(losses) == 2
+
+
+def test_anomaly_mode_fit_runs_eagerly_and_localises_a_nan(cuda):
+    """``utils.debug.enable_checks()`` turns on anomaly mode, whose checks
+    sync with the host: a fit long enough to be captured runs eagerly
+    and reports it, and a NaN planted in the backward raises on the card
+    as on the CPU, naming the op."""
+    from sparkdl_tpu_torch.param.converters import NamedOptimizer
+    from sparkdl_tpu_torch.parallel import train
+    from sparkdl_tpu_torch.utils import debug
+
+    x, y = _fit_data()
+
+    def planted(p, xb):  # d/dz sqrt(z) at z = 0, times 0: a NaN
+        return xb.flatten(1)[:, :4] @ p["w"] + torch.sqrt(p["z"]) * 0.0
+
+    debug.enable_checks()
+    try:
+        (_, losses), m = _conv_fit("sgd")
+        assert m.counters["train.step_mode.eager"] == 1
+        assert "train.captures" not in m.counters
+        assert np.isfinite(losses).all()
+        for device in ("cpu", "cuda"):
+            with pytest.raises(RuntimeError, match="SqrtBackward0.*nan"):
+                train.fit_data_parallel(
+                    planted, {"w": np.full((4, 4), 0.1, np.float32),
+                              "z": np.zeros(4, np.float32)}, x, y,
+                    optimizer=NamedOptimizer("sgd"),
+                    loss=train.softmax_cross_entropy, batch_size=8,
+                    epochs=4, device=device)
+    finally:
+        debug.disable_checks()

@@ -97,9 +97,9 @@ def test_steps_per_execution_same_loss_series():
         step = train.make_train_step(lambda p, xb: xb @ p["w"],
                                      train.softmax_cross_entropy, opt,
                                      {"w": w})
-        series = train._run_grouped_steps(
-            step, spe, train._epoch_batches(x, y, 8, 0, True, 0),
-            torch.device("cpu"))
+        series = train._StepRunner(step, spe, torch.device("cpu"),
+                                   "eager").run_epoch(
+            train._epoch_batches(x, y, 8, 0, True, 0))
         return series, w.detach().numpy()
 
     rng_w = rng.normal(0, 0.01, (6, 4)).astype(np.float32)
@@ -140,18 +140,52 @@ def test_losses_match_jax():
 
 
 def test_fit_raises_on_parts_not_ported(blobs, monkeypatch):
-    """Multi-process input is not ported yet: both fits refuse a process
-    group of more than one process."""
-    x = np.zeros((8, 2), np.float32)
-    y = np.zeros(8, np.int64)
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    """(The name is the one this test had while multi-process input was
+    not ported.)  Both fits take ``mesh=``: this process's mesh fits as no
+    mesh does; a mesh of two devices in one process and a weight spec
+    that really splits are the documented deviations; in a process group
+    the stream fit requires ``steps_per_epoch`` before any collective."""
+    from sparkdl_tpu_torch.parallel import mesh as mesh_lib
+
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(24, 3)).astype(np.float32)
+    y = (np.arange(24) % 2).astype(np.int64)
+    w = rng.normal(0, 0.1, (3, 2)).astype(np.float32)
+    kw = dict(loss=train.softmax_cross_entropy, batch_size=8, epochs=2,
+              optimizer=lambda ps: torch.optim.SGD(ps, lr=0.1))
+
+    def predict(p, xb):
+        return xb @ p["w"]
+
     with sparkdl_tpu_torch.default_device("cpu"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            train.fit_data_parallel_stream(lambda p, xb: xb, {},
-                                           lambda: iter([(x, y)]))
-        with pytest.raises(NotImplementedError, match="item 4"):
-            train.fit_data_parallel(lambda p, xb: xb, {}, x, y)
+        base = train.fit_data_parallel(predict, {"w": w}, x, y, **kw)
+        on_mesh = train.fit_data_parallel(predict, {"w": w}, x, y,
+                                          mesh=mesh_lib.get_mesh(), **kw)
+        assert base[1] == on_mesh[1]
+        np.testing.assert_array_equal(base[0]["w"], on_mesh[0]["w"])
+        two = mesh_lib.get_mesh(devices=["cpu", "cpu"])
+        with pytest.raises(NotImplementedError, match="one card per process"):
+            train.fit_data_parallel(predict, {"w": w}, x, y, mesh=two, **kw)
+        wt = torch.tensor(w, requires_grad=True)
+        split = mesh_lib.get_mesh(devices=["cpu", "cpu"], model_parallel=2)
+        with pytest.raises(NotImplementedError, match="one card per process"):
+            train.make_train_step(
+                predict, "mse", torch.optim.SGD([wt], lr=0.1), {"w": wt},
+                mesh=split,
+                param_specs=lambda path, leaf: mesh_lib.P(None, "model"))
+        # a spec naming an axis of size 1 splits nothing: taken
+        step = train.make_train_step(
+            predict, "mse", torch.optim.SGD([wt], lr=0.1), {"w": wt},
+            mesh=mesh_lib.get_mesh(),
+            param_specs=lambda path, leaf: mesh_lib.P(None, "model"))
+        assert step.param_shardings["w"].spec == mesh_lib.P(None, "model")
+        monkeypatch.setattr(torch.distributed, "is_initialized",
+                            lambda: True)
+        monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+        monkeypatch.setattr(torch.distributed, "get_rank", lambda: 0)
+        with pytest.raises(ValueError, match="requires steps_per_epoch"):
+            train.fit_data_parallel_stream(predict, {"w": w},
+                                           lambda: iter([(x, y)]), **kw)
 
 
 def test_fit_without_cuda_raises(blobs, monkeypatch):

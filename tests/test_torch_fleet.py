@@ -36,6 +36,7 @@ import jax
 import sparkdl_tpu.serving as jserving
 import sparkdl_tpu.transformers.named_image as jax_ni
 import sparkdl_tpu_torch
+from sparkdl_tpu_torch.parallel import mesh as mesh_lib
 import sparkdl_tpu_torch.transformers.named_image as port_ni
 from sparkdl_tpu import faults as jfaults
 from sparkdl_tpu.models import get_model_spec as jax_spec
@@ -538,14 +539,32 @@ def test_add_model_failure_leaves_no_thread_and_name_reusable(setup):
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    (dict(mesh=object()), "item 4"),
-    (dict(partition_rules=[("w", None)]), "item 4"),
+    (dict(mesh="get_mesh"), "mesh"),
+    (dict(partition_rules=[("w", mesh_lib.P()), (".*", mesh_lib.P())]),
+     "rules"),
 ])
 def test_unported_server_knobs_raise_through_the_version_server(
         setup, kwargs, item):
-    w1, _, _, _ = setup
-    with Fleet(max_batch_size=8, **kwargs) as fleet:
-        with pytest.raises(NotImplementedError, match=item):
+    """(The name is the one these cases had while the mesh was not
+    ported.)  The mesh and the partition knobs reach each version's
+    Server, which serves on this process's one device with the policy
+    collapsed to replicated; a mesh of two devices raises the documented
+    deviation through the version server and leaves nothing registered."""
+    w1, _, _, x = setup
+    if item == "mesh":
+        kwargs = dict(mesh=mesh_lib.get_mesh())
+    with Fleet(max_batch_size=8, max_wait_ms=2, bucket_sizes=[8],
+               **kwargs) as fleet:
+        fleet.add_model("m", _pfn, Dense(w1["w"]), warm_example=x[0])
+        fleet.predict("m", x[0])
+        info = fleet._state("m").server.sharding_info()
+        assert info["mesh_shape"] == {"data": 1, "model": 1}
+        assert info["sharding_digest"] == "replicated"
+        assert not info["sharded"]
+    with Fleet(max_batch_size=8,
+               mesh=mesh_lib.get_mesh(devices=["cpu", "cpu"])) as fleet:
+        with pytest.raises(NotImplementedError,
+                           match="one card per process"):
             fleet.add_model("m", _pfn, Dense(w1["w"]))
         assert "m" not in fleet.registry
     _no_serving_threads()

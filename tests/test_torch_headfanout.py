@@ -31,6 +31,7 @@ import jax
 import sparkdl_tpu.serving as jserving
 import sparkdl_tpu.transformers.named_image as jax_ni
 import sparkdl_tpu_torch
+from sparkdl_tpu_torch.parallel import mesh as mesh_lib
 import sparkdl_tpu_torch.transformers.named_image as port_ni
 from sparkdl_tpu.models import get_model_spec as jax_spec
 from sparkdl_tpu.parallel import engine as jengine
@@ -552,7 +553,12 @@ def test_feature_cut_bundle(zoo):
         "Xception", featurize=True, feature_cut=True)
     assert head_fn is dense_head_row
     assert module is port_ni._cached_model("Xception")
-    assert overrides == {}
+    # JAX's zoo overrides: no donation, the family's default rules
+    *_, joverrides, _ = jax_ni.zoo_serving_bundle(
+        "Xception", featurize=True, feature_cut=True)
+    assert sorted(overrides) == sorted(joverrides)
+    assert overrides["donate_batch"] is joverrides["donate_batch"] is False
+    assert overrides["partition_rules"] is mesh_lib.default_partition_rules
     assert len(zoo_serving_bundle("Xception", featurize=True)) == 3
     with pytest.raises(ValueError, match="requires featurize=True"):
         zoo_serving_bundle("Xception", featurize=False, feature_cut=True)
@@ -564,9 +570,10 @@ def test_feature_cut_bundle(zoo):
 def test_device_rule_and_not_ported_arguments(monkeypatch):
     """Without a card and with no CPU asked for, the server and the bank
     raise ``RuntimeError``; ``device="cpu"`` works anywhere; ``mesh=``
-    names its ROADMAP item and a ``cost=`` that is no ``CostLedger`` is
-    refused, as the JAX server refuses it; on CUDA a non-f32 dense head is
-    refused before the bank changes."""
+    is this process's one device for the backbone and the bank (a mesh of
+    two devices raises the documented deviation) and a ``cost=`` that is
+    no ``CostLedger`` is refused, as the JAX server refuses it; on CUDA a
+    non-f32 dense head is refused before the bank changes."""
     module = head_fanout_module(_variables())
     with sparkdl_tpu_torch.default_device(None):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -580,12 +587,20 @@ def test_device_rule_and_not_ported_arguments(monkeypatch):
             assert srv.bank.device.type == "cpu"
             srv.add_head("a", _head(1))
             assert srv.predict(_payload(1), "a").shape == (CLASSES,)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        _server(mesh=object())
+    two = mesh_lib.get_mesh(devices=["cpu", "cpu"])
+    with _server(mesh=mesh_lib.get_mesh()) as srv:
+        assert srv.device.type == "cpu"
+        srv.add_head("a", _head(1))
+        assert srv.predict(_payload(1), "a").shape == (CLASSES,)
+        assert srv.bank.stats()["mesh_shape"] == {"data": 1, "model": 1}
+        assert srv.backbone.sharding_info()["mesh_shape"] == \
+            {"data": 1, "model": 1}
+    with pytest.raises(NotImplementedError, match="one card per process"):
+        _server(mesh=two)
     with pytest.raises(TypeError, match="CostLedger"):
         _server(cost=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        HeadBank(mesh=object())
+    with pytest.raises(NotImplementedError, match="one card per process"):
+        HeadBank(mesh=two)
     bank = HeadBank()
     bank.add_head("a", _head(1))
     bank.device = torch.device("cuda")  # the refusal comes before any copy

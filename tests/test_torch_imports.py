@@ -22,13 +22,15 @@ def _port_files():
     files = sorted((ROOT / "sparkdl_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     files.append(ROOT / "tests" / "test_torch_cuda.py")
+    files.append(ROOT / "tests" / "_torch_dist_worker.py")
     files += [ROOT / "tools" / name for name in (
         "port_profile.py", "sepconv_compare.py", "mbconv_compare.py",
         "sepconv_tiled_compare.py", "gen_wgmma.py", "pipeline_probe.py",
         "gen_keras_layers.py", "gen_keras_configs.py",
         "graph_count_probe.py", "keras_stage_probe.py", "gen_tf_graphs.py",
         "tfgraph_fold_probe.py", "crc32c_timing.py",
-        "obs_overhead_probe.py", "port_stream_journal.py")]
+        "obs_overhead_probe.py", "port_stream_journal.py",
+        "train_pool_probe.py", "cv_probe.py")]
     return files
 
 
@@ -277,10 +279,7 @@ def test_server_without_cuda_raises(monkeypatch):
 # each with the reason: modules not ported yet (ROADMAP.md queue A), and
 # the TPU layout helpers of the Pallas kernels.
 NOT_EXPORTED = {
-    "parallel": {"batch_sharding": "parallel/mesh.py, queue A item 4",
-                 "get_mesh": "parallel/mesh.py, queue A item 4",
-                 "replicated_sharding": "parallel/mesh.py, queue A item 4",
-                 "distributed": "parallel/distributed.py, queue A item 4"},
+    "parallel": {},
     "utils": {},
     "obs": {},
     "ops": {"fused_sepconv_flat": "the TPU's padded-flat row layout",

@@ -112,9 +112,61 @@ def test_resolve_optimizer_keeps_one_instance_per_factory():
         a = train._resolve_optimizer(factory)
         b = train._resolve_optimizer(factory)
     finally:
-        train.clear_optimizer_instances()
+        train.clear_train_step_cache()
     assert a is b and len(calls) == 1
     assert a([torch.zeros(1, requires_grad=True)]).defaults["lr"] == 0.25
     assert train._resolve_optimizer(None).name == "adam"
     named = NamedOptimizer("sgd")
     assert train._resolve_optimizer(named) is named
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_named_optimizers_are_capturable_on_the_card(name):
+    """Every name's step can be held by a CUDA graph: SGD keeps no host
+    state, and the port's own optimizers (Adam and AdamW among them) say
+    ``capturable``, with the same code on the CPU and the card."""
+    opt = NamedOptimizer(name)([torch.zeros(2, requires_grad=True)])
+    assert train.optimizer_capturable(opt) == (True, "")
+    if name in ("adam", "adamw", "lamb"):
+        opt.param_groups[0]["params"][0].grad = torch.ones(2)
+        opt.step()
+        (st,) = opt.state.values()
+        assert st["step"].dtype == torch.float32 and st["step"].dim() == 0
+
+
+@pytest.mark.parametrize("name", ["adam", "lamb"])
+def test_device_step_count_survives_a_state_dict_round_trip(name):
+    """Adam's and Lamb's step counts are device tensors: a run interrupted
+    after three steps and resumed from its ``state_dict`` (the checkpoint
+    path) takes the uninterrupted run's steps bit for bit, and both match
+    optax."""
+    params, grads = _trees(11)
+    tx = JaxConverters.toOptimizer(name)
+    p_jax = {k: np.asarray(v) for k, v in params.items()}
+    state = tx.init(p_jax)
+    for g in grads:
+        updates, state = tx.update(g, state, p_jax)
+        p_jax = optax.apply_updates(p_jax, updates)
+
+    def run(split):
+        tensors = [torch.tensor(params[k], requires_grad=True)
+                   for k in ("w", "b")]
+        opt = NamedOptimizer(name)(tensors)
+        for i, g in enumerate(grads):
+            if i == split:
+                saved = opt.state_dict()
+                fresh = [t.detach().clone().requires_grad_(True)
+                         for t in tensors]
+                opt = NamedOptimizer(name)(fresh)
+                opt.load_state_dict(saved)
+                tensors = fresh
+            for t, k in zip(tensors, ("w", "b")):
+                t.grad = torch.from_numpy(g[k].copy())
+            opt.step()
+        assert opt.state[tensors[0]]["step"].item() == STEPS
+        return [t.detach().numpy() for t in tensors]
+
+    whole, resumed = run(None), run(3)
+    for a, b, k in zip(whole, resumed, ("w", "b")):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(a, np.asarray(p_jax[k]), **TOL)

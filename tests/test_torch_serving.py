@@ -29,6 +29,7 @@ import jax
 import sparkdl_tpu.serving as jserving
 import sparkdl_tpu.transformers.named_image as jax_ni
 import sparkdl_tpu_torch
+from sparkdl_tpu_torch.parallel import mesh as mesh_lib
 import sparkdl_tpu_torch.transformers.named_image as port_ni
 from sparkdl_tpu import faults as jfaults
 from sparkdl_tpu.models import get_model_spec as jax_spec
@@ -234,7 +235,16 @@ def test_varz_has_jax_keys_and_serializes(setup):
     assert sorted(v["server"]) == sorted(jv["server"])
     assert sorted(v["latency_ms"]) == sorted(jv["latency_ms"])
     assert sorted(v["metrics"]) == sorted(jv["metrics"])
-    assert v["cost"] is None and v["sharding"] is None
+    assert v["cost"] is None
+    # the JAX server's mesh spans the tests' 8 CPU devices, the port's is
+    # this process's one device: the param bytes agree
+    assert sorted(v["sharding"]) == sorted(list(jv["sharding"])
+                                           + ["donate_batch"])
+    assert v["sharding"]["mesh_shape"] == {"data": 1, "model": 1}
+    for k in ("param_bytes_total", "param_bytes_per_chip",
+              "largest_replicated_leaf_bytes", "total_leaves", "sharded",
+              "sharding_digest"):
+        assert v["sharding"][k] == jv["sharding"][k], k
     assert v["counters"]["serving.completed"] == \
         jv["counters"]["serving.completed"] == 1.0
     assert v["metrics"]["histograms"]["serving.batch_fill_ratio"] == \
@@ -312,11 +322,13 @@ def test_named_model_honors_zoo_compute_dtype(zoo, monkeypatch):
 
     monkeypatch.setenv("SPARKDL_ZOO_COMPUTE_DTYPE", "bfloat16")
     _, module, ov = server_mod._resolve_model("Xception", None, True)
+    zoo_mesh = {"donate_batch": False,
+                "partition_rules": mesh_lib.default_partition_rules}
     assert ov == {"compute_dtype": torch.bfloat16,
-                  "output_host_dtype": np.float32}
+                  "output_host_dtype": np.float32, **zoo_mesh}
     assert module is port_ni._cached_model("Xception")
     monkeypatch.setenv("SPARKDL_ZOO_COMPUTE_DTYPE", "float32")
-    assert server_mod._resolve_model("Xception", None, True)[2] == {}
+    assert server_mod._resolve_model("Xception", None, True)[2] == zoo_mesh
     monkeypatch.setenv("SPARKDL_ZOO_COMPUTE_DTYPE", "bogus")
     with pytest.raises(ValueError, match="not supported"):
         server_mod._resolve_model("Xception", None, True)
@@ -787,20 +799,47 @@ def test_server_rejects_unknown_model_form():
         Server(12345)
 
 
-# The mesh's arguments (ROADMAP.md queue A item 4) still raise; ``slos=``
-# and ``cost=`` are ported (tests/test_torch_obs.py), and a malformed value
-# of either is refused as the JAX server refuses it.  The ids are the ones
-# these cases had beside the two ``slos=`` / ``cost=`` cases.
+# The mesh's arguments work on the port's one-device mesh: each serves the
+# plain server's rows bit for bit and ``sharding_info()`` reads the policy
+# (all-replicated on one card); a mesh that is not this process's one
+# device raises the documented deviation.  ``slos=`` and ``cost=`` are
+# tested in tests/test_torch_obs.py; a malformed value of either is
+# refused as the JAX server refuses it.
 @pytest.mark.parametrize("kwargs, item", [
-    pytest.param(dict(mesh=object()), "item 4", id="kwargs2-item 4"),
-    pytest.param(dict(partition_rules=[]), "item 4", id="kwargs3-item 4"),
-    pytest.param(dict(param_shardings={}), "item 4", id="kwargs4-item 4"),
-    pytest.param(dict(donate_batch=True), "item 4", id="kwargs5-item 4"),
+    pytest.param(dict(mesh="get_mesh"), dict(sharded=False),
+                 id="kwargs2-mesh"),
+    pytest.param(dict(partition_rules=[(r".*", mesh_lib.P())]),
+                 dict(sharded=False), id="kwargs3-partition_rules"),
+    pytest.param(dict(param_shardings={"b": mesh_lib.P(None),
+                                       "w": mesh_lib.P(None, "model")}),
+                 dict(sharded=True), id="kwargs4-param_shardings"),
+    pytest.param(dict(donate_batch=True), dict(donate_batch=True),
+                 id="kwargs5-donate_batch"),
 ])
 def test_arguments_of_unported_modules_raise(setup, kwargs, item):
-    _, module, _ = setup
-    with pytest.raises(NotImplementedError, match=item):
-        Server(_pfn, module, **kwargs)
+    """The name is the one these cases had while the mesh was not
+    ported; they now hold each knob to the plain server."""
+    _, module, x = setup
+    if kwargs.get("mesh") == "get_mesh":
+        kwargs = dict(mesh=mesh_lib.get_mesh())
+    kw = dict(max_batch_size=8, max_wait_ms=2, bucket_sizes=[8],
+              cache=False)
+    with Server(_pfn, module, **kw) as plain:
+        want = np.stack([plain.predict(r) for r in x[:5]])
+    with Server(_pfn, module, **kw, **kwargs) as srv:
+        got = np.stack([srv.predict(r) for r in x[:5]])
+        info = srv.varz()["sharding"]
+    np.testing.assert_array_equal(got, want)
+    assert info["mesh_shape"] == {"data": 1, "model": 1}
+    assert info["param_bytes_total"] == info["param_bytes_per_chip"] == 260
+    assert info["sharded_leaves"] == 0
+    for k, v in item.items():
+        assert info[k] == v
+    if not info["sharded"]:
+        assert info["sharding_digest"] == "replicated"
+    # a mesh of two devices in one process is the documented deviation
+    with pytest.raises(NotImplementedError, match="one card per process"):
+        Server(_pfn, module, mesh=mesh_lib.get_mesh(devices=["cpu", "cpu"]))
 
 
 @pytest.mark.parametrize("kwargs, match", [

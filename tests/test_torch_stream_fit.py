@@ -357,19 +357,19 @@ def test_estimator_fit_stream_steps_per_epoch_and_execution(files):
                      ("spe", {"epochs": 2, "steps_per_execution": 3}),
                      ("pinned", {"epochs": 2, "steps_per_epoch": 1})):
         steps = []
-        real = train._run_grouped_steps
+        real = train._StepRunner.run_epoch
 
-        def logged(*a, **k):
-            out = real(*a, **k)
+        def logged(runner, batches):
+            out = real(runner, batches)
             steps.append(len(out))
             return out
 
-        train._run_grouped_steps = logged
+        train._StepRunner.run_epoch = logged
         try:
             losses[name] = ImageFileEstimator(fitParams=fp, **kw).fit(
                 src).trainLosses
         finally:
-            train._run_grouped_steps = real
+            train._StepRunner.run_epoch = real
         assert steps == ([1, 1] if name == "pinned" else [2, 2])
     np.testing.assert_allclose(losses["spe"], losses["base"], rtol=1e-6)
     assert losses["pinned"] != losses["base"]
