@@ -197,7 +197,28 @@ points, with seeded random weights and batch 32:
     captured against eager, two ranks on this one card over gloo (child
     processes, unequal shards, the in-memory then the stream fit; equal
     to each other and to a one-process fit on the global batches; only
-    rank 0's checkpoint), and no fit's pool left behind.
+    rank 0's checkpoint), and no fit's pool left behind;
+  * [compile] (right after the build), the persistent compile cache
+    (``sparkdl_tpu_torch.parallel.compile_cache``): three child processes
+    under ``SPARKDL_COMPILE_CACHE=<fresh temporary directory>``, each
+    building the four kernel libraries through ``ops/build.py``, the zoo
+    Xception featurizer at 299x299 (seeded weights, full width and depth)
+    and one pinned batch of 32 through it (B1 30 launches, counted): A
+    populates (4 nvcc runs), B, the restart, runs no nvcc (4 hits, the
+    cache's files untouched, A's output bit for bit), C follows a tampered
+    ``kernels`` record of B1 (purged, drift ``kernel:sepconv``, 4 nvcc
+    runs, the same output); the seconds of each step and the cold start
+    saved.  CUDA graphs are captured anew in every child;
+  * [twin] (last), the traffic twin (``sparkdl_tpu_torch.twin``) on the
+    card: the canonical seeded day (288 ticks of 300 virtual seconds, 64
+    tenants, 159,883 virtual requests through the port's fleet, admission,
+    cache, rollout, SLOs, cost ledger and a stream scorer) under
+    ``QuotaAutoscaler(DEFAULT_TENANT_QUOTA)``, its event digest and scores
+    equal to the JAX package's day (a constant computed on the CPU), and
+    ``tests/test_twin.py``'s small day twice, byte-identical to each other
+    and to JAX's; wall seconds, virtual requests a wall second, and per
+    fleet server its device, dispatches, captures and pool.  The day's
+    model is the JAX twin's dense layer: none of the kernels runs.
 
 B1 is also held against its plain version at ragged shapes (a pixel count
 that is not a multiple of 64, F = 200, all four ReLU variants), and each of
@@ -248,7 +269,9 @@ live engines hold, the zoo engine cache's share of them and its bound,
 and the card memory reserved: nothing clears the zoo caches between
 phases.
 
-Output: the card's name and power limit first, one line per phase, then
+Output: the card's name and power limit first, one line per phase, one
+JSON line of [compile]'s numbers (each child's seconds, counts, digest
+and cache state) after the build, then
 one JSON line of InceptionV3's numbers (img/s, forward ms, relative
 errors, the recipe's accuracy), one of [zoo2]'s (img/s, forward ms,
 relative errors), one JSON line of the [graph] and [pipeline] numbers,
@@ -268,11 +291,12 @@ launches), one of [stream]'s (the sinks, the chaos, the stall, the
 rates, the fits, launches), one of [mesh]'s (the servers' sharding,
 dispatches and launches, the fan-out), one of [train]'s (captured and
 eager readings and rates, the groups, the statistics, the two ranks,
-pools), one ``{"pools":
+pools), one of [twin]'s (the day's wall seconds, rate, digest, scores and
+servers; the small days), one ``{"pools":
 ...}`` line (the graph pools held after every phase, by phase; later
 phases add keys to it), one JSON line with every kernel's numbers (with
 its launches in [serving], [headfanout], [obs], [fleet], [stream] and
-[mesh]; H1's
+[mesh], and B1's ``compile_launches`` in [compile]'s children; H1's
 ``launches`` are its [headfanout] launches), and last the line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -6777,6 +6801,341 @@ def phase_train(sepconv):
     return out
 
 
+COMPILE_BATCH = 32              # the pinned batch each child dispatches
+COMPILE_CHILD_TIMEOUT_S = 300   # a child's time limit
+COMPILE_TAMPERED = "sepconv"    # the kernels record the phase tampers
+
+_COMPILE_CHILD = f"""
+import hashlib, json, sys, time
+t0 = time.perf_counter()
+import numpy as np, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke
+from sparkdl_tpu_torch.image.io import arrowStructsToBatch
+from sparkdl_tpu_torch.ops import sepconv
+from sparkdl_tpu_torch.parallel import compile_cache
+from sparkdl_tpu_torch.transformers import named_image as ni
+torch.cuda.init()
+t1 = time.perf_counter()
+sepconv.load_all()   # ops/build.py: the cache resolves, nvcc or a hit
+t2 = time.perf_counter()
+eng = ni._zoo_engine("Xception", True, {COMPILE_BATCH})
+t3 = time.perf_counter()
+df = chip_smoke.synthetic_frame({COMPILE_BATCH}, 299, chip_smoke.SEED + 191)
+images, ok = arrowStructsToBatch(df.table.column("image"), 299, 299)
+pinned = eng._pad(images)
+torch.cuda.synchronize()
+t4 = time.perf_counter()
+host = lambda y: torch.as_tensor(y).cpu().float().numpy()
+first = host(eng.run_padded(pinned))   # the eager warm-up and the capture
+torch.cuda.synchronize()
+t5 = time.perf_counter()
+chip_smoke.reset_counts(sepconv)
+out = host(eng.run_padded(pinned))     # one replay, counted
+torch.cuda.synchronize()
+t6 = time.perf_counter()
+print(json.dumps(dict(
+    digest=hashlib.sha256(out.tobytes()).hexdigest(),
+    shape=list(out.shape), finite=bool(np.isfinite(out).all()),
+    first_equal=bool(np.array_equal(first, out)), decoded=bool(ok.all()),
+    launches=chip_smoke.read_counts(sepconv), captures=eng.captures,
+    device=str(eng.device), policy=eng.compile_policy(),
+    state=compile_cache.state(), stats=compile_cache.stats(),
+    seconds=dict(start=t1 - t0, build=t2 - t1, engine=t3 - t2,
+                 capture=t5 - t4, dispatch=t6 - t5, total=t6 - t0),
+    modules=sorted(m for m in ("jax", "sparkdl_tpu") if m in sys.modules))))
+"""
+
+
+def _compile_child(cache_dir):
+    """One child process under ``SPARKDL_COMPILE_CACHE=cache_dir``; returns
+    its report and its wall seconds.  The child is killed past its limit."""
+    env = dict(os.environ, SPARKDL_COMPILE_CACHE=cache_dir)
+    for knob in ("SPARKDL_FAULTS", "SPARKDL_TRACE", "SPARKDL_BLACKBOX"):
+        env.pop(knob, None)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _COMPILE_CHILD],
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       env=env, capture_output=True, text=True,
+                       timeout=COMPILE_CHILD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    check(r.returncode == 0 and lines,
+          f"[compile] child failed (rc {r.returncode}): {r.stderr[-3000:]}")
+    return json.loads(lines[-1]), wall
+
+
+def phase_compile(sepconv):
+    """[compile]: the persistent compile cache
+    (``sparkdl_tpu_torch.parallel.compile_cache``) across three child
+    processes under ``SPARKDL_COMPILE_CACHE=<fresh temporary directory>``.
+    Each builds the four kernel libraries through ``ops/build.py``
+    (``sepconv.load_all``), builds the zoo Xception featurizer engine at
+    299x299 (seeded weights, full width and depth), captures it on a
+    pinned batch of 32 seeded images and replays it once (B1 30 launches,
+    counted), and reports the output's digest, the cache's ``state()`` and
+    ``stats()``, its captures and the seconds of each step.
+
+      A populates the cache: 4 misses (nvcc runs), 0 hits, not reused;
+      B, the restart: 0 misses (no nvcc ran), 4 hits, reused, A's output
+        bit for bit;
+      then the phase tampers the manifest's ``kernels`` record of B1, and
+      C purges: invalidated, drift ``kernel:sepconv``, entries purged, 4
+        misses, A's output bit for bit.
+
+    The graph is captured anew in every child (CUDA graphs are not
+    cached).  Returns the phase's numbers; B1's launches are the three
+    counted replays'."""
+    import shutil
+    import tempfile
+
+    from sparkdl_tpu_torch.parallel import compile_cache
+
+    tag = "compile"
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    base = tempfile.mkdtemp(prefix="sparkdl-compile-")
+    cache = os.path.join(base, "cache")
+    problems = []
+
+    def expect(cond, msg):
+        if not cond:
+            problems.append(msg)
+            print(f"[{tag}] PROBLEM: {msg}", flush=True)
+
+    def entries():
+        """name -> (bytes, mtime) of the cache's libraries and logs."""
+        return {e.name: (e.stat().st_size, e.stat().st_mtime_ns)
+                for e in os.scandir(cache)
+                if e.name != compile_cache.MANIFEST_NAME}
+
+    try:
+        runs = {}
+        for name in ("A", "B", "C"):
+            if name == "B":
+                before = entries()
+            if name == "C":
+                path = os.path.join(cache, compile_cache.MANIFEST_NAME)
+                with open(path) as fh:
+                    doc = json.load(fh)
+                doc["kernels"][COMPILE_TAMPERED] = "0" * 16
+                with open(path, "w") as fh:
+                    json.dump(doc, fh)
+            rep, wall = _compile_child(cache)
+            rep["wall_s"] = wall
+            runs[name] = rep
+            if name == "B":
+                # nothing was built or rewritten: the restart only loaded
+                expect(entries() == before and len(before) == 8,
+                       f"child B changed the cache's entries: "
+                       f"{sorted(before)} -> {sorted(entries())}")
+            st, sec = rep["state"] or {}, rep["seconds"]
+            print(f"[{tag}] child {name}: {wall:.2f}s wall (start "
+                  f"{sec['start']:.2f}, build {sec['build']:.2f}, engine "
+                  f"{sec['engine']:.2f}, first dispatch with its capture "
+                  f"{sec['capture']:.2f}, replay {sec['dispatch'] * 1e3:.1f}"
+                  f" ms); stats {rep['stats']}; reused {st.get('reused')}, "
+                  f"invalidated {st.get('invalidated')}, drift "
+                  f"{st.get('drift_rules')}, purged "
+                  f"{st.get('purged_entries')}; captures {rep['captures']}; "
+                  f"B1 {rep['launches']['sepconv']} launches; digest "
+                  f"{rep['digest'][:16]}; on {rep['device']}", flush=True)
+            expect(rep["device"].startswith("cuda") and rep["decoded"]
+                   and rep["finite"] and rep["first_equal"]
+                   and rep["shape"] == [COMPILE_BATCH, 2048]
+                   and rep["modules"] == [],
+                   f"child {name}: device {rep['device']}, decoded "
+                   f"{rep['decoded']}, finite {rep['finite']}, capture == "
+                   f"replay {rep['first_equal']}, shape {rep['shape']}, "
+                   f"modules {rep['modules']}")
+            expect(rep["launches"] == dict(sepconv=SEPCONV_PER_FORWARD,
+                                           sepconv_tiled=0, mbconv=0)
+                   and rep["captures"] == 1,
+                   f"child {name}: launches {rep['launches']}, captures "
+                   f"{rep['captures']}")
+            expect(st.get("dir") == cache
+                   and rep["policy"] in st.get("sharding_policies", [])
+                   and st.get("capability") == "sm_90"
+                   and st.get("nvcc") is not None,
+                   f"child {name}: state {st}, policy {rep['policy']}")
+        a, b, c = runs["A"], runs["B"], runs["C"]
+        expect(a["stats"] == dict(hits=0, misses=4)
+               and a["state"]["reused"] is False
+               and a["state"]["invalidated"] is False,
+               f"child A: stats {a['stats']}, state {a['state']}")
+        expect(b["stats"] == dict(hits=4, misses=0)
+               and b["state"]["reused"] is True
+               and b["state"]["invalidated"] is False,
+               f"child B (restart): stats {b['stats']}, state {b['state']}")
+        expect(c["stats"] == dict(hits=0, misses=4)
+               and c["state"]["invalidated"] is True
+               and c["state"]["drift_rules"] == [f"kernel:{COMPILE_TAMPERED}"]
+               and c["state"]["purged_entries"] > 0,
+               f"child C (tampered): stats {c['stats']}, state {c['state']}")
+        expect(a["digest"] == b["digest"] == c["digest"],
+               f"digests A {a['digest']} B {b['digest']} C {c['digest']}")
+        saved_build = a["seconds"]["build"] - b["seconds"]["build"]
+        saved_wall = a["wall_s"] - b["wall_s"]
+        print(f"[{tag}] {card}: the restart (B) ran no nvcc, its output A's "
+              f"bit for bit; cold start saved {saved_build:.2f}s of build "
+              f"({a['seconds']['build']:.2f} -> {b['seconds']['build']:.2f}"
+              f"), {saved_wall:.2f}s of child wall ({a['wall_s']:.2f} -> "
+              f"{b['wall_s']:.2f}); the tampered record purged "
+              f"{c['state']['purged_entries']} entries and rebuilt in "
+              f"{c['seconds']['build']:.2f}s; captures a child "
+              f"{[r['captures'] for r in (a, b, c)]} (graphs not cached)",
+              flush=True)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    check(not problems, f"[{tag}] {len(problems)} failed: "
+                        + " | ".join(problems))
+    launches = sum(r["launches"]["sepconv"] for r in runs.values())
+    return dict(card=card, saved_build_s=saved_build,
+                saved_wall_s=saved_wall,
+                children={k: dict(stats=r["stats"], seconds=r["seconds"],
+                                  wall_s=r["wall_s"], captures=r["captures"],
+                                  launches=r["launches"],
+                                  digest=r["digest"],
+                                  reused=r["state"]["reused"],
+                                  invalidated=r["state"]["invalidated"],
+                                  drift_rules=r["state"]["drift_rules"],
+                                  purged_entries=r["state"]["purged_entries"],
+                                  toolchain={k2: r["state"][k2] for k2 in (
+                                      "torch_version", "cuda_version",
+                                      "nvcc", "capability")})
+                          for k, r in runs.items()},
+                launches=dict(sepconv=launches, sepconv_tiled=0, mbconv=0))
+
+
+# The JAX package's days, computed on the CPU with JAX (the card has none):
+#   JAX_PLATFORMS=cpu python -c "import json, jax;
+#     jax.config.update('jax_platforms', 'cpu');
+#     from sparkdl_tpu.serving import TenantQuota as Q;
+#     from sparkdl_tpu import twin as t;
+#     r = t.run_day(t.ScenarioConfig(), policy=t.QuotaAutoscaler(
+#         t.DEFAULT_TENANT_QUOTA));
+#     s = t.run_day(t.ScenarioConfig(**SMALL), policy=t.StaticPolicy(),
+#         default_quota=Q(rate_per_s=0.15, burst=60));
+#     print(json.dumps([r.event_digest, r.scores, s.event_digest,
+#         s.scores]))"
+# with SMALL = TWIN_SMALL below; tests/test_torch_twin.py re-derives both.
+TWIN_DAY_DIGEST = ("5ad78f4e1844216f74ada6e984836ed1"
+                   "19c3bee32164206e798921850db7e2ab")
+TWIN_DAY_SCORES = {
+    "cost_fairness": 0.159392, "slo_minutes": 70.0, "breach_ticks": 14,
+    "goodput": 0.957162, "fairness": 0.999497, "cache_hit_rate": 0.985104,
+    "offered": 159883, "submitted": 153802, "shed": 6849, "fault_drops": 0,
+    "stream_commits": 48, "tenants_active": 64}
+#: tests/test_twin.py's _small_cfg, under StaticPolicy and its tight quota
+TWIN_SMALL = dict(seed=5, ticks=12, tenants=16, mean_arrivals_per_tick=60.0,
+                  flash_start=4, flash_end=8, flash_tenants=4, canary_tick=2,
+                  stream_every=5, digest_universe=64)
+TWIN_SMALL_QUOTA = dict(rate_per_s=0.15, burst=60)
+TWIN_SMALL_DIGEST = ("34afc254c4c15fc9fdfb557ffe5a34c0"
+                     "40d197874a498455a304e8940018b1fd")
+TWIN_SMALL_SCORES = {
+    "cost_fairness": 0.322061, "slo_minutes": 40.0, "breach_ticks": 8,
+    "goodput": 0.155441, "fairness": 0.843311, "cache_hit_rate": 0.86087,
+    "offered": 9309, "submitted": 1495, "shed": 7862, "fault_drops": 0,
+    "stream_commits": 3, "tenants_active": 16}
+
+
+def phase_twin(sepconv):
+    """[twin]: the traffic twin (``sparkdl_tpu_torch.twin``) on the card:
+    the canonical day (``ScenarioConfig()``: 288 ticks of 300 virtual s, 64
+    tenants, the flash crowd, the canary at tick 60, the stream every 6
+    ticks) under ``QuotaAutoscaler(DEFAULT_TENANT_QUOTA)``, its event
+    digest and scores equal to the JAX package's canonical day
+    (``TWIN_DAY_DIGEST``); then the small day of ``tests/test_twin.py``
+    twice, byte-identical to each other and to JAX's
+    (``TWIN_SMALL_DIGEST``).  Every fleet server's engines on the card;
+    the day's model is the JAX twin's dense layer, so none of the kernels
+    runs (counted).  Prints the day's wall seconds, virtual requests a
+    wall second, dispatches, captures and pool bytes per server, and
+    ``slo_minutes``, ``goodput`` and ``fairness``."""
+    from sparkdl_tpu_torch import twin
+    from sparkdl_tpu_torch.serving import TenantQuota
+
+    tag = "twin"
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    problems = []
+
+    def expect(cond, msg):
+        if not cond:
+            problems.append(msg)
+            print(f"[{tag}] PROBLEM: {msg}", flush=True)
+
+    out = dict(card=card)
+    reset_counts(sepconv)
+    t0 = time.perf_counter()
+    day = twin.run_day(twin.ScenarioConfig(), policy=twin.QuotaAutoscaler(
+        twin.DEFAULT_TENANT_QUOTA))
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = read_counts(sepconv)
+    s = day.scores
+    rate = s["offered"] / wall
+    print(f"[{tag}] canonical day on {day.device} ({card}): {wall:.2f}s "
+          f"wall, {s['offered']} virtual requests ({rate:.0f} a wall "
+          f"second), {len(day.event_lines)} ticks; slo_minutes "
+          f"{s['slo_minutes']}, goodput {s['goodput']}, fairness "
+          f"{s['fairness']}, cost fairness {s['cost_fairness']}, cache hit "
+          f"rate {s['cache_hit_rate']}; digest {day.event_digest[:16]}",
+          flush=True)
+    for srv in day.servers:
+        print(f"[{tag}]   server {srv['model']} v{srv['version']} on "
+              f"{srv['device']}: {srv['dispatches']} dispatches, "
+              f"{srv['captures']} graph captures, pool "
+              f"{srv['pool_bytes'] / 2**20:.1f} MiB", flush=True)
+    expect(day.event_digest == TWIN_DAY_DIGEST,
+           f"canonical day digest {day.event_digest}, JAX's "
+           f"{TWIN_DAY_DIGEST}")
+    expect(s == TWIN_DAY_SCORES,
+           f"canonical day scores {s}, JAX's {TWIN_DAY_SCORES}")
+    expect(day.device.startswith("cuda") and len(day.servers) == 4
+           and all(srv["device"].startswith("cuda")
+                   and srv["dispatches"] > 0 and srv["captures"] > 0
+                   for srv in day.servers),
+           f"servers not on the card or idle: {day.device}, {day.servers}")
+    expect(counts == dict(sepconv=0, sepconv_tiled=0, mbconv=0),
+           f"kernel launches in the twin's day {counts}, want none")
+    out["day"] = dict(wall_s=wall, requests_per_wall_s=rate,
+                      event_digest=day.event_digest, scores=s,
+                      device=day.device, servers=day.servers,
+                      placement_digest=day.placement["digest"])
+    smalls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        r = twin.run_day(twin.ScenarioConfig(**TWIN_SMALL),
+                         policy=twin.StaticPolicy(),
+                         default_quota=TenantQuota(**TWIN_SMALL_QUOTA))
+        smalls.append((r, time.perf_counter() - t0))
+    (r1, w1), (r2, w2) = smalls
+    print(f"[{tag}] small day twice on {r1.device}: {w1:.2f}s and "
+          f"{w2:.2f}s wall; byte-identical {r1.event_lines == r2.event_lines}"
+          f", digest {r1.event_digest[:16]} (JAX {TWIN_SMALL_DIGEST[:16]})",
+          flush=True)
+    expect(r1.event_lines == r2.event_lines and r1.scores == r2.scores
+           and r1.event_digest == r2.event_digest == TWIN_SMALL_DIGEST
+           and r1.scores == TWIN_SMALL_SCORES,
+           f"small days: digests {r1.event_digest} {r2.event_digest}, JAX's "
+           f"{TWIN_SMALL_DIGEST}; scores {r1.scores}")
+    expect(all(srv["device"].startswith("cuda") for r in (r1, r2)
+               for srv in r.servers), "small-day servers not on the card")
+    out["small"] = dict(wall_s=[w1, w2], event_digest=r1.event_digest,
+                        scores=r1.scores, servers=r1.servers)
+    check(not problems, f"[{tag}] {len(problems)} failed: "
+                        + " | ".join(problems))
+    out["launches"] = counts
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6801,6 +7160,8 @@ def main():
                  "SPARKDL_RN_FUSED_SHORTCUT", "SPARKDL_WEIGHTS_DIR"):
         os.environ.pop(knob, None)
     phase_build(sepconv)
+    compiled = phase_compile(sepconv)
+    print(json.dumps({"compile": compiled}), flush=True)
     b1 = phase_sepconv_kernel(sepconv, tiled=False)
     b1["max_abs_err"] = max(b1["max_abs_err"], phase_sepconv_ragged(sepconv))
     b3 = phase_sepconv_kernel(sepconv, tiled=True)
@@ -6874,6 +7235,10 @@ def main():
     trained = phase_train(sepconv)
     pools["train"] = pool_line("[train]")
     print(json.dumps({"train": trained}), flush=True)
+    twin_day = phase_twin(sepconv)
+    pools["twin"] = pool_line("[twin]")
+    print(json.dumps({"twin": twin_day}), flush=True)
+    b1["compile_launches"] = compiled["launches"]["sepconv"]
     print(json.dumps({"pools": pools}), flush=True)
     print(json.dumps({"kernels": [b1, b3, b2, h1]}), flush=True)
     print(json.dumps({"ok": True, "device": {

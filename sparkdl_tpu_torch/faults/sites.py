@@ -8,8 +8,9 @@ layer ``serving.admit``, ``serving.model``, ``batch.topoff``, ``cache.hit``
 and ``cache.stampede``; the head fan-out ``head.swap`` and
 ``head.dispatch``; the fleet ``fleet.admit``, ``fleet.canary`` and
 ``fleet.swap``; the stream scorer ``stream.source``, ``stream.commit`` and
-``stream.resume``.  The sites of modules not ported yet (the compile cache,
-the twin, ...) are registered but never fire.
+``stream.resume``; the compile cache ``compile.cache``; the traffic twin
+``twin.tick`` and ``twin.arrival``.  The sites of modules not ported yet
+(``probe.device``, ``bench.relay_probe``) are registered but never fire.
 """
 
 from __future__ import annotations

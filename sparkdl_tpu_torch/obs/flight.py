@@ -65,9 +65,11 @@ __all__ = [
 #: the JAX package's catalog, copied whole (as ``faults.sites.SITE_HELP``
 #: is), so that a dump from either package reads the same.  The stream
 #: scorer emits ``stream.stall``, ``stream.stall_recovered``,
-#: ``stream.redelivery`` and ``stream.commit``.  Events of modules the port
-#: has not ported yet (the twin, the compile cache) are registered and not
-#: emitted.
+#: ``stream.redelivery`` and ``stream.commit``; the compile cache
+#: ``compile.persist`` and ``compile.invalidate`` (for the port's kernel
+#: libraries: "XLA" and "lockfile" in their text read as nvcc's libraries
+#: and the cache manifest); the twin ``twin.scenario``, ``policy.adjust``
+#: and ``placement.plan``.
 EVENT_HELP = {
     "health.ready": ("a HealthTracker recovered: degraded -> ready "
                      "(attrs name the tracker)"),

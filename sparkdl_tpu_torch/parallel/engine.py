@@ -97,7 +97,12 @@ resolves all-replicated collapses, as JAX's does (``sharding_digest``
 where the captured graph already owns its static input and every upload
 lands in the engine's own staging slot.
 
-Not ported yet: the compile-cache policy (ROADMAP.md queue A item 7).
+The persistent compile cache (:mod:`sparkdl_tpu_torch.parallel.
+compile_cache`): each engine resolves ``SPARKDL_COMPILE_CACHE`` at
+construction with its :meth:`InferenceEngine.compile_policy` (the JAX
+engine's string for the same mesh and rules), which keys the cache
+manifest's policy set.  The cache holds the kernel libraries nvcc builds;
+an engine's captured graphs are made anew in every process.
 """
 
 from __future__ import annotations
@@ -576,6 +581,11 @@ class InferenceEngine:
         self._fold_owners = [m for m in self.module.modules()
                              if isinstance(getattr(m, "_folds", None), dict)]
         self._resolve_policy(partition_rules, param_shardings)
+        # the persistent compile cache resolves once per process; this
+        # engine's policy joins its manifest's policy set
+        from sparkdl_tpu_torch.parallel import compile_cache
+
+        compile_cache.ensure_from_env(policy=self.compile_policy())
         # graphs, staging slots, lock, the graphs' one memory pool (made at
         # the first capture), the bytes it reserved, the event after the
         # last replay's output copy (see the module docstring) and the
@@ -610,6 +620,13 @@ class InferenceEngine:
                            float(self._sharding_stats["param_bytes_total"]))
         self.metrics.gauge("engine.param_bytes_per_chip",
                            float(self._sharding_stats["param_bytes_per_chip"]))
+
+    def compile_policy(self) -> str:
+        """The mesh and partition-rule policy string keying the persistent
+        compile cache's manifest (``parallel.compile_cache``), equal to the
+        JAX engine's for the same mesh and rules."""
+        return (f"mesh={self.data_parallel}x{self.model_parallel}"
+                f"|params={self.sharding_digest}")
 
     def sharding_info(self) -> Dict[str, Any]:
         """JSON snapshot of the engine's weight layout, as JAX's: mesh

@@ -117,6 +117,12 @@ OBS_SLICE = ("obs/trace.py", "obs/flight.py", "obs/exemplar.py",
              "utils/logging.py")
 
 
+# The persistent compile cache and the traffic twin.
+TWIN_SLICE = ("parallel/compile_cache.py", "twin/__init__.py", "twin/clock.py",
+              "twin/scenario.py", "twin/policy.py", "twin/placement.py",
+              "twin/sim.py")
+
+
 def test_port_imports_nothing_of_jax():
     files = _port_files()
     assert len(files) > 15 and all(f.exists() for f in files)
@@ -124,7 +130,7 @@ def test_port_imports_nothing_of_jax():
             ).exists()
     for rel in (ENGINE_CORE + KERAS_SLICE + TUNING_SLICE + TF_SLICE
                 + SERVING_SLICE + HEADFANOUT_SLICE + FLEET_SLICE
-                + OBS_SLICE):
+                + OBS_SLICE + TWIN_SLICE):
         assert ROOT / "sparkdl_tpu_torch" / rel in files, rel
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in FORBIDDEN]
@@ -290,6 +296,7 @@ NOT_EXPORTED = {
     "graph": {},
     "serving": {},
     "serving.fleet": {},
+    "twin": {},
     "udf": {},
 }
 
