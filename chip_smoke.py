@@ -209,6 +209,23 @@ points, with seeded random weights and batch 32:
     ``kernels`` record of B1 (purged, drift ``kernel:sepconv``, 4 nvcc
     runs, the same output); the seconds of each step and the cold start
     saved.  CUDA graphs are captured anew in every child;
+  * [audit] (right after [compile]), the program audit, lint and lock-order
+    checking (``sparkdl_tpu_torch.analysis``): the subset of programs the
+    tier-1 test audits (``audit_subset``: the zoo Xception at bucket 8 and
+    its predictor cut, the serving, fan-out, train and kernel programs)
+    built on the meta device under the card's torch and diffed against
+    the committed ``PROGRAMS_TORCH.lock.json`` (no finding, no drift);
+    ``Server("Xception")`` at 299x299 in the lockfile's bf16, each bucket's
+    capture (8/16/32) holding the record's kernel launches (B1 30) and
+    output; the three kernel programs and the H1 heads program at their
+    recorded shapes, each record's FLOPs beside its bound; the lockfile's
+    consumers (``lockfile_model_fingerprint``, a fleet promote of the same
+    weights keeping the result cache, the default cost ledger's FLOPs a
+    row, a compile-cache manifest holding the lockfile's programs and a
+    tampered copy's ``compile.invalidate`` with a GC code); and a child
+    under ``SPARKDL_LOCKCHECK=1`` serving the zoo Xception through a fleet
+    with a canary and a stream scorer, with no ``LockOrderError`` (the
+    order graph's edges printed);
   * [twin] (last), the traffic twin (``sparkdl_tpu_torch.twin``) on the
     card: the canonical seeded day (288 ticks of 300 virtual seconds, 64
     tenants, 159,883 virtual requests through the port's fleet, admission,
@@ -271,7 +288,9 @@ phases.
 
 Output: the card's name and power limit first, one line per phase, one
 JSON line of [compile]'s numbers (each child's seconds, counts, digest
-and cache state) after the build, then
+and cache state) after the build, one of [audit]'s (the re-audit, the
+buckets' launches, the kernel programs' FLOPs and bounds, the consumers,
+the lock-order child), then
 one JSON line of InceptionV3's numbers (img/s, forward ms, relative
 errors, the recipe's accuracy), one of [zoo2]'s (img/s, forward ms,
 relative errors), one JSON line of the [graph] and [pipeline] numbers,
@@ -490,7 +509,7 @@ def graph_ms(fn, calls=20, reps=5):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, pool=None):  # its own pool, freed below
         for _ in range(calls):
             fn()
     graph.replay()
@@ -643,8 +662,7 @@ def phase_sepconv_kernel(sepconv, tiled):
         p_ms = graph_ms(lambda: sepconv.sepconv_reference(*args, pre, post),
                         calls=5)
         l_ms = graph_ms(_sepconv_library(*args, pre, post))
-        flops = 2.0 * n * hw * hw * c * (9 + f)
-        nbytes = 2.0 * (n * hw * hw * (c + f) + 9 * c + c * f) + 8.0 * f
+        flops, nbytes = sepconv.sepconv_cost(n, hw, hw, c, f)
         b_ms, b_by = bound(flops, nbytes)
         row = dict(shape=[n, hw, hw, c, f], pre_relu=pre, post_relu=post,
                    launches_per_forward=per_fwd, max_abs_err=max_abs,
@@ -798,9 +816,7 @@ def phase_mbconv_kernel(sepconv):
         k_ms = graph_ms(lambda: sepconv._fused_mbconv_cuda(*args))
         p_ms = graph_ms(lambda: sepconv.mbconv_reference(*args), calls=5)
         l_ms = graph_ms(_mbconv_library(*args))
-        flops = 2.0 * n * hw * hw * c * (9 + f)
-        nbytes = (2.0 * (n * hw * hw * (c + f) + 9 * c + c * f)
-                  + 4.0 * (c + f))
+        flops, nbytes = sepconv.mbconv_cost(n, hw, hw, c, f)
         b_ms, b_by = bound(flops, nbytes)
         rows.append(dict(shape=[n, hw, hw, c, f], launches_per_forward=per_fwd,
                          max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms,
@@ -3186,7 +3202,7 @@ def concurrent_transforms(feat, df, knobs, n_threads):
     def work(i):
         try:
             outs[i] = feat.transform(df).column_to_numpy("features")
-        except BaseException as e:  # reported below
+        except BaseException as e:  # graftlint: allow=SDL003 reason=reported below, in the main thread
             errors.append(e)
 
     threads = [threading.Thread(target=work, args=(i,))
@@ -3300,7 +3316,7 @@ def _served(srv, images, order, n_clients):
             futs = [(int(i), srv.submit(images[int(i)])) for i in idxs]
             for i, f in futs:
                 rows[i] = f.result(timeout=120)
-        except Exception as e:  # reported below, in the main thread
+        except Exception as e:  # graftlint: allow=SDL003 reason=reported below, in the main thread
             errors.append(e)
 
     threads = [threading.Thread(target=client, args=(order[k::n_clients],))
@@ -3368,7 +3384,7 @@ def closed_loop(srv, images, n_clients, sepconv):
                 srv.predict(images[i % len(images)])
                 lat[k].append(time.perf_counter() - t1)
                 i += n_clients
-        except Exception as e:  # reported below, in the main thread
+        except Exception as e:  # graftlint: allow=SDL003 reason=reported below, in the main thread
             errors.append(e)
 
     def run():
@@ -3843,9 +3859,7 @@ def phase_head_kernel():
         l_ms = graph_ms(library)
         host = host_us_per_call(lambda: hops._head_pass_cuda(*args))
         distinct = int(torch.unique(idx).numel())
-        nbytes = 4.0 * (n * HEAD_D + distinct * (HEAD_D * c + c) + n
-                        + n * c)
-        flops = 2.0 * n * HEAD_D * c
+        flops, nbytes = hops.head_pass_cost(n, HEAD_D, c, distinct)
         b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
         lib_err = (library() - ref).abs().max().item()
         row = dict(shape=[n, HEAD_D, c], capacity=HEAD_CAP,
@@ -4034,7 +4048,7 @@ def phase_headfanout(sepconv):
                     t1 = time.perf_counter()
                     rows[j] = srv.predict(images[i], t)
                     lat[j] = time.perf_counter() - t1
-            except Exception as e:  # reported below, in the main thread
+            except Exception as e:  # graftlint: allow=SDL003 reason=reported below, in the main thread
                 errors.append(e)
 
         t0 = time.perf_counter()
@@ -4206,7 +4220,7 @@ def phase_headfanout(sepconv):
             while not stop.is_set():
                 try:
                     got.append(srv.submit(images[hot_i], hot_t).result(60))
-                except Exception as e:  # reported below
+                except Exception as e:  # graftlint: allow=SDL003 reason=reported below, in the main thread
                     errors.append(e)
 
         threads = [threading.Thread(target=client)
@@ -4386,7 +4400,7 @@ def _obs_loop(srv, images, n_clients, sepconv, tag, what):
                     first = rows.setdefault(j, row)
                     if first is not row and not np.array_equal(first, row):
                         same[0] = False
-        except Exception as e:  # reported below, in the main thread
+        except Exception as e:  # graftlint: allow=SDL003 reason=reported below, in the main thread
             errors.append(e)
 
     stop = threading.Event()
@@ -4808,7 +4822,11 @@ def phase_obs(sepconv):
           f"health degraded naming serving-p99, slo.breach; recovered "
           f"(slo.recovered) after {recover_n} fast requests", flush=True)
     serve(OBS_COST_N)
-    program = f"{on.model_desc}/b8"
+    # the ledger names a program by its record in the port's program
+    # lockfile (zoo/Xception/featurize/bfloat16/b8), as JAX's by its own
+    b8 = [p for p in ledger.snapshot()["programs"] if p.endswith("/b8")]
+    check(len(b8) == 1, f"[{tag}] ledger programs at bucket 8: {b8}")
+    program = b8[0]
     pinned = ledger.pin_baseline(program)
     with faults.active(faults.FaultPlan.parse(
             f"engine.dispatch:sleep:ms={OBS_COST_FAULT_MS}")):
@@ -5167,7 +5185,7 @@ def phase_fleet(sepconv):
                 with lock:
                     recs.append((t2, t2 - t1, fut.fleet_version,
                                  fut.fleet_canary, i, row, tenant))
-        except Exception as e:  # reported below, in the main thread
+        except Exception as e:  # graftlint: allow=SDL003 reason=reported below, in the main thread
             errors.append(e)
 
     windows = {}
@@ -5421,7 +5439,7 @@ def phase_fleet(sepconv):
                     row = fleet.predict("xc-heads", images[i], tenant=t)
                     with lock:
                         fan_recs.append((i, t, after, row))
-            except Exception as e:  # reported below, in the main thread
+            except Exception as e:  # graftlint: allow=SDL003 reason=reported below, in the main thread
                 fan_errors.append(e)
 
         fthreads = [threading.Thread(target=fan_client, args=(k,))
@@ -7010,6 +7028,467 @@ def phase_compile(sepconv):
                 launches=dict(sepconv=launches, sepconv_tiled=0, mbconv=0))
 
 
+# [audit]: the program audit, the lockfile's consumers and the lock-order
+# checker on the card.
+AUDIT_MODEL = "Xception"        # the subset the tier-1 test audits: one zoo
+AUDIT_BUCKET = 8                # model at one bucket, plus every model-free
+#                                 program (tests/test_torch_graftcheck.py)
+AUDIT_FLEET_N = 8               # images the consumers' fleet serves
+LOCKCHECK_S = 3.0               # seconds the lock-order child serves
+LOCKCHECK_CLIENTS = 8           # its closed-loop clients
+LOCKCHECK_CHUNKS = 4            # chunks its stream scorer scores
+LOCKCHECK_CHILD_TIMEOUT_S = 300
+
+
+def audit_subset():
+    """The program subset the tier-1 test and ``[audit]`` audit: the zoo
+    ``AUDIT_MODEL`` at bucket ``AUDIT_BUCKET`` and its predictor cut, and
+    every program of no zoo model (the generic and wide-dense serving
+    programs, the head fan-out pair, the train steps, the kernels)."""
+    from sparkdl_tpu_torch.analysis.program import stack_programs
+
+    return [s for s in stack_programs(models=[AUDIT_MODEL])
+            if s.bucket in (None, AUDIT_BUCKET)]
+
+
+def _lockcheck_model(device, rng):
+    """(model, variables of v1 and v2, images) the lock-order workload
+    serves: the zoo Xception at 299x299 (v2: every float weight x (1 +
+    1e-3 N(0,1))) on the card, a small dense model on 8x8 images
+    elsewhere."""
+    if device == "cuda":
+        from sparkdl_tpu_torch.models import get_model_spec
+        from sparkdl_tpu_torch.transformers import named_image as ni
+
+        size = get_model_spec("Xception").input_size[0]
+        state = {k: t.clone() for k, t in
+                 ni._cached_model("Xception").state_dict().items()}
+        model, v1, v2 = "Xception", None, _perturbed(state, SEED + 211)
+    else:
+        size = 8
+        w = torch.from_numpy(rng.normal(size=(size * size * 3, 16)).astype(
+            np.float32))
+        m = torch.nn.Module()
+        m.register_buffer("w", w)
+
+        def model(module, x):
+            return torch.tanh(x.float().reshape(x.shape[0], -1) / 255.0
+                              @ module.w)
+
+        v1, v2 = m, {"w": w * 1.001}
+    images = rng.integers(0, 256, (2 * LOCKCHECK_CLIENTS, size, size, 3),
+                          dtype=np.uint8)
+    return model, v1, v2, images
+
+
+def lockcheck_workload(device="cuda", seconds=LOCKCHECK_S):
+    """The lock-order child's work (``[audit]``; ``tests/
+    test_torch_lockcheck.py`` runs it on the CPU), meant for a process
+    with ``SPARKDL_LOCKCHECK=1``: a ``Fleet`` with a result cache and a
+    cost ledger serving ``_lockcheck_model`` from ``LOCKCHECK_CLIENTS``
+    closed-loop clients of three tenants for ``seconds``, a v2 canary at
+    fraction 0.5 started after a third of the time and promoted after two
+    thirds, and beside them a ``StreamScorer`` over a ``Server`` sink
+    scoring ``LOCKCHECK_CHUNKS`` chunks.  Returns whether the checker was
+    on, the requests served, the errors (a ``LockOrderError`` apart), the
+    stream's commits and the acquisition-order graph."""
+    import shutil
+    import tempfile
+
+    import sparkdl_tpu_torch
+    from sparkdl_tpu_torch import streaming
+    from sparkdl_tpu_torch.analysis import lockcheck
+    from sparkdl_tpu_torch.obs.cost import CostLedger
+    from sparkdl_tpu_torch.serving import Fleet, InferenceCache, Server
+
+    sparkdl_tpu_torch.set_default_device(device)
+    rng = np.random.default_rng(SEED + 210)
+    model, v1, v2, images = _lockcheck_model(device, rng)
+    featurize = dict(featurize=True) if isinstance(model, str) else {}
+    lock_errors, errors, served = [], [], [0]
+    mu = threading.Lock()
+
+    def note(e):
+        with mu:
+            (lock_errors if isinstance(e, lockcheck.LockOrderError)
+             else errors).append(f"{type(e).__name__}: {e}")
+
+    hook = threading.excepthook
+    threading.excepthook = lambda a: note(a.exc_value)
+    tmp = tempfile.mkdtemp(prefix="lockcheck_")
+    try:
+        fleet = Fleet(max_batch_size=8, max_wait_ms=2, bucket_sizes=[8],
+                      cache=InferenceCache(), cost=CostLedger())
+        fleet.add_model("m", model, v1, warm_example=images[0], **featurize)
+        fleet.add_version("m", v2)
+        deadline = time.perf_counter() + seconds
+
+        def client(k):
+            i = k
+            while time.perf_counter() < deadline:
+                try:
+                    fleet.submit("m", images[i % len(images)],
+                                 tenant=("gold", "silver", "bronze")[k % 3]
+                                 ).result(120)
+                    with mu:
+                        served[0] += 1
+                except Exception as e:  # graftlint: allow=SDL003 reason=reported below, in the main thread
+                    note(e)
+                i += LOCKCHECK_CLIENTS
+
+        sink = Server(model, v1, max_batch_size=8, bucket_sizes=[8],
+                      max_wait_ms=2, **featurize)
+        chunks = [images[j::LOCKCHECK_CHUNKS]
+                  for j in range(LOCKCHECK_CHUNKS)]
+        scorer = streaming.StreamScorer(
+            sink, streaming.MemorySource(chunks, finished=True),
+            journal_path=os.path.join(tmp, "journal.jsonl"),
+            out_dir=os.path.join(tmp, "out"))
+        summary = {}
+
+        def stream():
+            try:
+                summary.update(scorer.run())
+            except Exception as e:  # graftlint: allow=SDL003 reason=reported below, in the main thread
+                note(e)
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(LOCKCHECK_CLIENTS)]
+        streamer = threading.Thread(target=stream)
+        for t in threads:
+            t.start()
+        streamer.start()
+        time.sleep(seconds / 3)
+        fleet.start_rollout("m", canary_fraction=0.5, warm_example=images[1])
+        time.sleep(seconds / 3)
+        fleet.promote("m")
+        for t in threads:
+            t.join(timeout=300)
+        streamer.join(timeout=300)
+        fleet.close()
+        sink.close()
+    except Exception as e:  # graftlint: allow=SDL003 reason=reported below, in the main thread
+        note(e)
+    finally:
+        threading.excepthook = hook
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(checked=lockcheck.enabled(), requests=served[0],
+                errors=errors, lock_order_errors=lock_errors,
+                stream_commits=int(summary.get("chunks_scored", 0)),
+                order_graph=lockcheck.order_graph())
+
+
+_LOCKCHECK_CHILD = """
+import json, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke
+from sparkdl_tpu_torch.ops import sepconv
+sepconv.load_all()
+out = chip_smoke.lockcheck_workload()
+out["modules"] = sorted(m for m in ("jax", "sparkdl_tpu") if m in sys.modules)
+print(json.dumps(out))
+"""
+
+
+def _audit_inputs(g, spec_args):
+    """Card tensors of the meta arguments' shapes and dtypes: seeded
+    normal floats (bf16 operands scaled down), zero int32 indices."""
+    def make(t):
+        if t.dtype == torch.int32:
+            return torch.zeros(t.shape, dtype=t.dtype, device="cuda")
+        x = torch.randn(t.shape, device="cuda", generator=g)
+        return (x / 4).to(t.dtype)
+    if isinstance(spec_args, dict):
+        return {k: make(v) for k, v in spec_args.items()}
+    return make(spec_args)
+
+
+def phase_audit(sepconv):
+    """[audit]: the program audit (``sparkdl_tpu_torch.analysis``) on the
+    card, under the card's torch.
+
+      1. re-audit: :func:`audit_subset` built on the meta device and
+         diffed against the committed ``PROGRAMS_TORCH.lock.json``: zero
+         findings, zero drift (a fingerprint that moved between the
+         lockfile's torch and this one fails);
+      2. launches against the lockfile: ``Server("Xception",
+         featurize=True, max_batch_size=32)`` with the zoo's bf16 compute
+         dtype (the lockfile's programs), seeded weights at 299x299; each
+         bucket's capture (8/16/32) holds the record's ``kernels`` (B1 30,
+         B3 0, B2 0) as its own launches, each replay the record's output
+         shape and dtype; the three kernel programs and the H1 heads
+         program at their recorded shapes, their launches and outputs the
+         records', each record's FLOPs beside the bound ``chip_smoke``
+         computes from the same shared function;
+      3. the consumers: ``lockfile_model_fingerprint("Xception")`` pinned;
+         a ``Fleet`` promote of a weight-identical version keeps the result
+         cache (the hits after it); the default ``CostLedger`` charges the
+         record's ``flops_per_row`` a served row; a fresh compile-cache
+         directory's manifest holds the lockfile's program count, and a
+         copy of the lockfile with one tampered record gives
+         ``compile.invalidate`` with a GC code;
+      4. lock order: a child process under ``SPARKDL_LOCKCHECK=1`` runs
+         :func:`lockcheck_workload` around the zoo Xception: no
+         ``LockOrderError``; the order graph's edges printed.
+    """
+    import tempfile
+
+    from sparkdl_tpu_torch.analysis.program import (DEFAULT_LOCKFILE,
+                                                    audit_inventory,
+                                                    diff_records,
+                                                    read_lockfile)
+    from sparkdl_tpu_torch.analysis.program.lockfile import write_lockfile
+    from sparkdl_tpu_torch.obs import flight as oflight
+    from sparkdl_tpu_torch.obs.cost import CostLedger
+    from sparkdl_tpu_torch.ops import head as hops
+    from sparkdl_tpu_torch.parallel import compile_cache
+    from sparkdl_tpu_torch.serving import Fleet, InferenceCache, Server
+    from sparkdl_tpu_torch.serving.cache import lockfile_model_fingerprint
+
+    tag = "audit"
+    t_phase = time.perf_counter()
+    out = {}
+    committed = read_lockfile(DEFAULT_LOCKFILE)
+    programs = committed["programs"]
+    locked_torch = committed["meta"].get("torch_version")
+
+    # 1. re-audit under the card's torch
+    t0 = time.perf_counter()
+    specs = audit_subset()
+    records, findings = audit_inventory(specs)
+    drift = diff_records(committed, records, subset=True)
+    audit_s = time.perf_counter() - t0
+    check(not findings and not drift,
+          f"[{tag}] re-audit under torch {torch.__version__} (lockfile "
+          f"written under {locked_torch}): "
+          + "; ".join(f.render() for f in findings + drift))
+    print(f"[{tag}] re-audit of {len(records)} programs under torch "
+          f"{torch.__version__} (lockfile written under torch "
+          f"{locked_torch}): 0 findings, 0 drift against "
+          f"PROGRAMS_TORCH.lock.json ({len(programs)} programs) in "
+          f"{audit_s:.2f}s", flush=True)
+    out.update(programs_audited=len(records), audit_s=audit_s,
+               torch_lockfile=locked_torch, torch_card=torch.__version__)
+
+    # 2a. every Xception bucket's capture against its record
+    from sparkdl_tpu_torch.image.io import arrowStructsToBatch
+    from sparkdl_tpu_torch.models import get_model_spec
+
+    zoo = {b: programs[f"zoo/Xception/featurize/bfloat16/b{b}"]
+           for b in (8, 16, 32)}
+    size = get_model_spec("Xception").input_size[0]
+    df = synthetic_frame(32, size, SEED + 201)
+    images, ok = arrowStructsToBatch(df.table.column("image"), size, size)
+    check(ok.all(), f"[{tag}] synthetic images failed to decode")
+    os.environ["SPARKDL_ZOO_COMPUTE_DTYPE"] = "bfloat16"
+    try:
+        srv = Server("Xception", featurize=True, max_batch_size=32,
+                     cache=False)
+    finally:
+        os.environ.pop("SPARKDL_ZOO_COMPUTE_DTYPE", None)
+    try:
+        check(srv.device.type == "cuda", f"[{tag}] server not on the card")
+        srv.warmup(images[0])
+        buckets = {}
+        for b, rec in zoo.items():
+            eng = srv._engine_for(b)
+            eng.run_padded(eng._pad(images[:b]))   # captures the bucket
+            graph = eng.bucket_graph()
+            check(graph is not None, f"[{tag}] bucket {b}: no captured graph")
+            want = tuple(rec["kernels"][k] for k in ("B1", "B3", "B2"))
+            reset_counts(sepconv)
+            y = eng.run_padded(eng._pad(images[:b]))
+            torch.cuda.synchronize()
+            replay = read_counts(sepconv)
+            got_out = [list(graph.static_out.shape),
+                       str(graph.static_out.dtype).replace("torch.", "")]
+            check(tuple(graph.launches) == want
+                  and (replay["sepconv"], replay["sepconv_tiled"],
+                       replay["mbconv"]) == want
+                  and [got_out] == rec["out_avals"]
+                  and torch.isfinite(torch.as_tensor(y).float()).all().item(),
+                  f"[{tag}] bucket {b}: capture launches "
+                  f"{graph.launches}, replay "
+                  f"{replay}, output {got_out}; the record: kernels {want}, "
+                  f"out_avals {rec['out_avals']}")
+            buckets[b] = dict(launches=list(graph.launches), out=got_out,
+                              flops_per_row=rec["flops_per_row"])
+        print(f"[{tag}] Xception bf16 buckets 8/16/32: each capture's own "
+              f"launches (B1, B3, B2) = the record's kernels "
+              f"{tuple(zoo[8]['kernels'][k] for k in ('B1', 'B3', 'B2'))}, "
+              f"each replay the record's output "
+              f"{[buckets[b]['out'] for b in (8, 16, 32)]}; "
+              f"{zoo[32]['flops_per_row'] / 1e9:.3f} GFLOP a row",
+              flush=True)
+        out["buckets"] = buckets
+    finally:
+        srv.close()
+
+    # 2b. the kernel programs and the H1 heads program at their shapes
+    from sparkdl_tpu_torch.analysis.program.inventory import (
+        headfanout_dispatch_specs, sepconv_kernel_specs)
+
+    def launch_counts():
+        return dict(read_counts(sepconv), head_pass=hops.head_pass.launches)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 202)
+    kernels = {}
+    for spec in sepconv_kernel_specs() + headfanout_dispatch_specs()[1:]:
+        rec = programs[spec.name]
+        fn, margs = spec.build()
+        args = [_audit_inputs(g, a) for a in margs]
+        before = launch_counts()
+        y = fn(*args)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        got = {"B1": after["sepconv"] - before["sepconv"],
+               "B3": after["sepconv_tiled"] - before["sepconv_tiled"],
+               "B2": after["mbconv"] - before["mbconv"],
+               "H1": after["head_pass"] - before["head_pass"]}
+        got_out = [[list(y.shape), str(y.dtype).replace("torch.", "")]]
+        check(got == rec["kernels"] and got_out == rec["out_avals"]
+              and torch.isfinite(y.float()).all().item(),
+              f"[{tag}] {spec.name}: launches {got}, output {got_out}; the "
+              f"record: {rec['kernels']}, {rec['out_avals']}")
+        kname = next(k for k, v in rec["kernels"].items() if v)
+        x = args[0] if kname != "H1" else args[2]
+        if kname == "H1":
+            flops, nbytes = hops.head_pass_cost(
+                x.shape[0], x.shape[1], args[0]["kernel"].shape[2],
+                int(torch.unique(args[1]).numel()))
+            b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+        else:
+            cost = (sepconv.mbconv_cost if kname == "B2"
+                    else sepconv.sepconv_cost)
+            flops, nbytes = cost(*x.shape, args[2].shape[1])
+            b_ms, b_by = bound(flops, nbytes)
+        kernels[spec.name] = dict(kernel=kname, record_flops=rec["flops"],
+                                  bound_flops=flops, bound_ms=b_ms,
+                                  bound_by=b_by)
+        print(f"[{tag}] {spec.name}: {kname} x1, output {got_out[0]} = the "
+              f"record's; record {rec['flops'] / 1e9:.4f} GFLOP, bound's "
+              f"{flops / 1e9:.4f} GFLOP -> {b_ms:.4f} ms ({b_by})",
+              flush=True)
+    out["kernels"] = kernels
+
+    # 3. the consumers
+    fp = lockfile_model_fingerprint("Xception")
+    check(fp is not None, f"[{tag}] no lockfile fingerprint for Xception")
+    fpr = zoo[8]["flops_per_row"]
+    ledger = CostLedger()
+    cache = InferenceCache()
+    fleet = Fleet(max_batch_size=8, max_wait_ms=2, bucket_sizes=[8],
+                  cache=cache, cost=ledger)
+    try:
+        fleet.add_model("xc", "Xception", featurize=True,
+                        warm_example=images[0])
+        first = [fleet.predict("xc", images[i], tenant="t")
+                 for i in range(AUDIT_FLEET_N)]
+        snap = ledger.snapshot()
+        charged = snap["tenants"]["t"]["flops"]
+        check(list(snap["programs"]) == ["zoo/Xception/featurize/bfloat16/b8"]
+              and abs(charged - AUDIT_FLEET_N * fpr) <= 1e-9 * charged,
+              f"[{tag}] ledger charged {charged} FLOPs for "
+              f"{AUDIT_FLEET_N} rows, the record {fpr} a row "
+              f"({list(snap['programs'])})")
+        from sparkdl_tpu_torch.transformers import named_image as ni
+
+        fleet.add_version("xc", {k: t.clone() for k, t in
+                                 ni._cached_model("Xception")
+                                 .state_dict().items()})
+        fleet.start_rollout("xc", canary_fraction=0.0,
+                            warm_example=images[0])
+        report = fleet.promote("xc")
+        hits0 = cache.metrics.snapshot_raw()["counters"].get("cache.hits", 0)
+        again = [fleet.predict("xc", images[i], tenant="t")
+                 for i in range(AUDIT_FLEET_N)]
+        hits = cache.metrics.snapshot_raw()["counters"].get(
+            "cache.hits", 0) - hits0
+        check(report["cache"]["survived"] is True and hits == AUDIT_FLEET_N
+              and all(np.array_equal(a, b) for a, b in zip(first, again)),
+              f"[{tag}] promote of the same weights: cache "
+              f"{report['cache']}, {hits} hits after it")
+    finally:
+        fleet.close()
+    print(f"[{tag}] consumers: Xception pinned (fingerprint {fp[:12]}...); "
+          f"the default ledger charged {charged / AUDIT_FLEET_N / 1e9:.4f} "
+          f"GFLOP a row (record {fpr / 1e9:.4f}); a promote of the same "
+          f"weights kept the cache: {hits} hits of {AUDIT_FLEET_N} after "
+          f"it", flush=True)
+    out.update(fingerprint=fp, ledger_flops_per_row=charged / AUDIT_FLEET_N,
+               promote_cache=report["cache"], hits_after_promote=hits)
+
+    saved = compile_cache.state()
+    rec_before = oflight._recorder
+    tmp = tempfile.mkdtemp(prefix="audit_cc_")
+    try:
+        recorder = oflight.configure(enabled=True)
+        st = compile_cache.configure(os.path.join(tmp, "cc"))
+        check(st is not None and st["lockfile_programs"] == len(programs),
+              f"[{tag}] fresh compile cache: {st and st['lockfile_programs']}"
+              f" lockfile programs, the lockfile {len(programs)}")
+        moved = json.loads(json.dumps(programs))
+        name = "zoo/Xception/featurize/bfloat16/b8"
+        moved[name]["flops"] *= 2
+        lock2 = os.path.join(tmp, "PROGRAMS_TORCH.lock.json")
+        write_lockfile([dict(r, name=n) for n, r in moved.items()], lock2,
+                       meta=committed["meta"])
+        st2 = compile_cache.configure(os.path.join(tmp, "cc"),
+                                      lockfile_path=lock2)
+        inval = [e for e in recorder.snapshot()
+                 if e["event"] == "compile.invalidate"]
+        check(st2 is not None and st2["invalidated"]
+              and st2["drift_rules"] == ["GC004"] and inval,
+              f"[{tag}] tampered lockfile: state {st2}, events {inval}")
+    finally:
+        compile_cache.configure(saved["dir"] if saved else None)
+        oflight._recorder = rec_before
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[{tag}] compile cache: a fresh directory's manifest holds "
+          f"{st['lockfile_programs']} lockfile programs; a copy with "
+          f"{name}'s flops doubled: compile.invalidate, drift "
+          f"{st2['drift_rules']}", flush=True)
+    out.update(manifest_programs=st["lockfile_programs"],
+               tampered_drift=st2["drift_rules"])
+
+    # 4. the lock-order child
+    env = dict(os.environ, SPARKDL_LOCKCHECK="1")
+    for knob in ("SPARKDL_FAULTS", "SPARKDL_TRACE", "SPARKDL_BLACKBOX",
+                 "SPARKDL_COMPILE_CACHE"):
+        env.pop(knob, None)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _LOCKCHECK_CHILD],
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       env=env, capture_output=True, text=True,
+                       timeout=LOCKCHECK_CHILD_TIMEOUT_S)
+    child_s = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    check(r.returncode == 0 and lines,
+          f"[{tag}] lock-order child failed (rc {r.returncode}): "
+          f"{r.stderr[-3000:]}")
+    lc = json.loads(lines[-1])
+    edges = sorted(f"{a} -> {b}" for a, bs in lc["order_graph"].items()
+                   for b in bs)
+    check(lc["checked"] and not lc["lock_order_errors"] and not lc["errors"]
+          and lc["requests"] > 0 and lc["stream_commits"] == LOCKCHECK_CHUNKS
+          and not lc["modules"],
+          f"[{tag}] lock-order child: {json.dumps(lc)[:3000]}")
+    print(f"[{tag}] SPARKDL_LOCKCHECK=1 child: {lc['requests']} requests "
+          f"from {LOCKCHECK_CLIENTS} clients through a fleet with a canary "
+          f"and a promote, {lc['stream_commits']} stream commits, no "
+          f"LockOrderError in {child_s:.1f}s; {len(edges)} order edges: "
+          f"{', '.join(edges)}", flush=True)
+    out.update(lockcheck_requests=lc["requests"], lockcheck_edges=edges,
+               lockcheck_child_s=child_s,
+               seconds=time.perf_counter() - t_phase)
+    print(f"[{tag}] phase {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 # The JAX package's days, computed on the CPU with JAX (the card has none):
 #   JAX_PLATFORMS=cpu python -c "import json, jax;
 #     jax.config.update('jax_platforms', 'cpu');
@@ -7162,6 +7641,9 @@ def main():
     phase_build(sepconv)
     compiled = phase_compile(sepconv)
     print(json.dumps({"compile": compiled}), flush=True)
+    audit = phase_audit(sepconv)
+    audit_pool = pool_line("[audit]")
+    print(json.dumps({"audit": audit}), flush=True)
     b1 = phase_sepconv_kernel(sepconv, tiled=False)
     b1["max_abs_err"] = max(b1["max_abs_err"], phase_sepconv_ragged(sepconv))
     b3 = phase_sepconv_kernel(sepconv, tiled=True)
@@ -7170,7 +7652,7 @@ def main():
     b2 = phase_mbconv_kernel(sepconv)
     b2["max_abs_err"] = max(b2["max_abs_err"], phase_mbconv_ragged(sepconv))
     h1 = phase_head_kernel()
-    pools = {}
+    pools = {"audit": audit_pool}
     b1["launches"], b1["tf32_unfused_rel_err"] = phase_xception(sepconv)
     pools["xception"] = pool_line("[xception]")
     b2["launches"], b2["mobilenet_forward_ms"] = phase_mobilenet(sepconv)

@@ -13,18 +13,19 @@ with ``f"{seed}:{site}:{rule index}"``, as there.
 
 Every rule firing is a ``fault.fired`` flight event, emitted outside the
 plan lock and before the sleep or raise takes effect, so the black box
-shows the injected cause ahead of its consequences.  The locks are plain
-``threading.Lock``s.
+shows the injected cause ahead of its consequences.  The locks are the
+lock audit's ``named_lock("faults.plan")`` and
+``named_lock("faults.configure")``, the JAX package's names.
 """
 
 from __future__ import annotations
 
 import contextlib
 import random
-import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Union
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch.faults.errors import (InjectedDeadDeviceError,
                                              InjectedDecodeError,
                                              InjectedFatalError,
@@ -77,7 +78,7 @@ class FaultPlan:
             else:
                 validate_site(r.site)
                 self.rules.append(r)
-        self._lock = threading.Lock()
+        self._lock = named_lock("faults.plan")
         self._site_calls: Dict[str, int] = {}
         self._fired: Dict[int, int] = {}       # rule index -> firings
         self._sticky_dead: Dict[str, str] = {}  # site -> clause that died
@@ -184,7 +185,7 @@ class FaultPlan:
 # -- module singleton ------------------------------------------------------
 _UNSET = object()   # before the first inject() consults SPARKDL_FAULTS
 _PLAN: Any = _UNSET
-_PLAN_LOCK = threading.Lock()
+_PLAN_LOCK = named_lock("faults.configure")
 
 
 def inject(site: str, **ctx: Any) -> None:

@@ -43,8 +43,7 @@ def PIL_decode(raw_bytes: bytes) -> Optional[np.ndarray]:
         img = Image.open(_io.BytesIO(raw_bytes))
         img = img.convert("RGB")
         rgb = np.asarray(img, dtype=np.uint8)
-    # PIL raises many exception types for bad bytes; None rides the
-    # ok-mask drop-to-null contract
+    # graftlint: allow=SDL003 reason=PIL raises many exception types for bad bytes; None rides the ok-mask drop-to-null contract
     except Exception:
         return None
     return np.ascontiguousarray(rgb[:, :, ::-1])  # RGB -> BGR (OpenCV order)

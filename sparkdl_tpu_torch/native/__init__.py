@@ -20,12 +20,12 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import threading
 from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -36,7 +36,7 @@ FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
 LIBS = ("-ljpeg", "-lpng")
 DISABLE_ENV = "SPARKDL_TPU_DISABLE_NATIVE"
 
-_lock = threading.Lock()
+_lock = named_lock("native.load")
 _lib = None
 _load_attempted = False
 _why_not: Optional[str] = None

@@ -13,10 +13,10 @@ per-``(tenant, model, program, bucket)`` line set, where
 * **queue seconds** are the batcher's per-request time in queue, summed
   per tenant by the server at dispatch;
 * **FLOPs** are analytic: rows x ``flops_per_row`` of the (model, bucket)
-  dispatch program in a lockfile JSON given as ``lockfile_path``.  The
-  port has no program lockfile of its own (ROADMAP.md queue A item 8), so
-  by default FLOPs are not charged and the ledger attributes rows only,
-  as the JAX ledger does without a usable lockfile;
+  dispatch program in the port's program lockfile
+  (``PROGRAMS_TORCH.lock.json``, or ``lockfile_path``); a missing or
+  unreadable lockfile degrades to rows-only attribution, as the JAX
+  ledger does;
 * **HBM byte-seconds** multiply each attributed second by the bucket
   engine's parameter bytes on the card;
 * **cache / feature / coalesced hits** charge zero device seconds but are
@@ -55,12 +55,11 @@ the process default, ``cost=False`` forces unmetered, a
 
 from __future__ import annotations
 
-import json
 import os
-import threading
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch.obs.flight import emit as flight_emit
 from sparkdl_tpu_torch.utils.logging import get_logger
 
@@ -151,29 +150,20 @@ class _Line:
         }
 
 
-#: the lockfile schema the reader accepts (the JAX package's)
-LOCKFILE_SCHEMA_VERSION = 1
-
-
 def _load_program_index(path: Optional[str]
                         ) -> Dict[Tuple[str, int], Dict[str, Any]]:
     """``(model, bucket_rows) -> {program, fingerprint, flops_per_row,
-    bytes_accessed}`` over the ``kind == "dispatch"`` records that carry a
-    model name in the ``programs`` map of the lockfile JSON at ``path``
-    (the JAX package's ``PROGRAMS.lock.json`` schema, version 1).  The port
-    has no program lockfile of its own, so there is no default: with no
-    path, and with a missing or unreadable file, FLOPs are not attributed
-    and every charge is rows only, as the JAX ledger does without a usable
-    lockfile.  It never fails a charge."""
-    if path is None:
-        return {}
+    bytes_accessed}`` over the lockfile's ``kind == "dispatch"`` records
+    that carry a model name (``path`` default: the port's
+    ``PROGRAMS_TORCH.lock.json``).  Read-only consumer: a missing or
+    unreadable lockfile degrades to rows-only attribution (logged), it
+    never fails a charge."""
+    from sparkdl_tpu_torch.analysis.program.lockfile import (
+        DEFAULT_LOCKFILE, read_lockfile)
+
+    path = path if path is not None else DEFAULT_LOCKFILE
     try:
-        with open(path, "r", encoding="utf-8") as fh:
-            doc = json.load(fh)
-        if doc.get("schema_version") != LOCKFILE_SCHEMA_VERSION:
-            raise ValueError(f"unsupported lockfile schema "
-                             f"{doc.get('schema_version')!r} (expected "
-                             f"{LOCKFILE_SCHEMA_VERSION})")
+        doc = read_lockfile(path)
     except Exception as e:  # noqa: BLE001 — observability must degrade, not fail
         logger.info("cost ledger: no usable lockfile at %s (%s: %s); "
                     "FLOPs attribution disabled", path, type(e).__name__, e)
@@ -221,7 +211,7 @@ class CostLedger:
                                   self.regress_factor)
         self.analytic_slack = float(analytic_slack)
         self._lockfile_path = lockfile_path
-        self._lock = threading.Lock()
+        self._lock = named_lock("obs.cost")
         self._health = health
         #: lazily-loaded lockfile dispatch-program index
         self._programs: Optional[Dict[Tuple[str, int],
@@ -683,7 +673,7 @@ def cost_rider(ledger: Optional[CostLedger]) -> Optional[Dict[str, Any]]:
 # -- module default (the faults.inject / SPARKDL_CACHE pattern) ------------
 _UNSET = object()   # before the first ask consults SPARKDL_COST
 _default: Any = _UNSET
-_default_lock = threading.Lock()
+_default_lock = named_lock("obs.cost.configure")
 
 
 def cost_from_env() -> Optional[CostLedger]:

@@ -16,8 +16,9 @@ from __future__ import annotations
 
 import heapq
 import itertools
-import threading
 from typing import Any, Dict, List, Optional
+
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 
 __all__ = ["ExemplarReservoir"]
 
@@ -29,7 +30,7 @@ class ExemplarReservoir:
         self.k = max(1, int(k))
         self._heap: list = []  # (duration_s, seq, exemplar_dict)
         self._seq = itertools.count()
-        self._lock = threading.Lock()
+        self._lock = named_lock("obs.exemplar")
 
     def offer(self, duration_s: float, trace_id: Optional[str],
               tracer=None) -> bool:

@@ -42,6 +42,7 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch.obs.trace import current_trace_id
 from sparkdl_tpu_torch.utils.jsonl import CrashSafeJsonlWriter, read_jsonl
 from sparkdl_tpu_torch.utils.logging import get_logger
@@ -199,9 +200,9 @@ class FlightRecorder:
         self.out_dir = out_dir
         self.capacity = int(capacity)
         self._ring: deque = deque(maxlen=self.capacity)
-        self._lock = threading.Lock()
+        self._lock = named_lock("obs.flight.ring")
         self._seq = itertools.count(1)  # next() is atomic in CPython
-        self._dump_lock = threading.Lock()
+        self._dump_lock = named_lock("obs.flight.dump")
         self._writer: Optional[CrashSafeJsonlWriter] = None
         self._dumped_seq = 0
         self._dump_path = (os.path.join(out_dir,
@@ -297,7 +298,7 @@ def load_flight(path: str) -> List[Dict[str, Any]]:
 # -- module singleton (the faults.inject pattern) --------------------------
 _UNSET = object()   # before the first emit() consults SPARKDL_BLACKBOX
 _recorder: Any = _UNSET
-_recorder_lock = threading.Lock()
+_recorder_lock = named_lock("obs.flight.configure")
 _atexit_registered = False
 _prev_sigterm: Any = None
 _sigterm_installed = False

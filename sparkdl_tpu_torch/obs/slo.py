@@ -36,11 +36,11 @@ breach flips at the exact burn-rate crossing.
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch.obs.flight import emit as flight_emit
 from sparkdl_tpu_torch.utils.metrics import Metrics
 
@@ -171,7 +171,7 @@ class SLOEngine:
             {o.good for o in self.objectives if o.kind == "availability"}
             | {o.total for o in self.objectives
                if o.kind == "availability"})
-        self._lock = threading.Lock()
+        self._lock = named_lock("obs.slo.state")
         #: (t_monotonic, {counter: value}) history; t=None marks the
         #: seeded zero baseline ("before everything").
         self._samples: deque = deque(maxlen=max(2, int(max_samples)))

@@ -46,6 +46,8 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
+
 __all__ = [
     "Span",
     "NULL_SPAN",
@@ -257,7 +259,7 @@ class Tracer:
         # readers (snapshot, exemplar capture under live traffic) would
         # otherwise race iteration against appends
         self._ring: deque = deque(maxlen=self.capacity)
-        self._ring_lock = threading.Lock()
+        self._ring_lock = named_lock("obs.trace.ring")
         self._ids = itertools.count(1)  # next() is atomic in CPython
         self._local = threading.local()
 
@@ -372,7 +374,7 @@ class Tracer:
 
 # -- module singleton ------------------------------------------------------
 _tracer: Optional[Tracer] = None
-_tracer_lock = threading.Lock()
+_tracer_lock = named_lock("obs.trace.configure")
 _atexit_registered = False
 
 

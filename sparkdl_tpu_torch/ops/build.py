@@ -27,13 +27,15 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sparkdl_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
-_name_locks: Dict[str, threading.Lock] = {}
+_lock = named_lock("ops.build")
+_name_locks: Dict[str, Any] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -129,7 +131,7 @@ def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """Build (if needed) and load ``name`` once per process; libraries of
     other names build beside it."""
     with _lock:
-        lock = _name_locks.setdefault(name, threading.Lock())
+        lock = _name_locks.setdefault(name, named_lock("ops.build.library"))
     with lock:
         lib = _loaded.get(name)
         if lib is None:

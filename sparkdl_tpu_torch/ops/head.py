@@ -24,7 +24,10 @@ the card and on the CPU.
 
 :func:`head_pass` dispatches: a CPU tensor takes the plain version, a CUDA
 tensor the kernel (which launches or raises; nothing on the card falls back
-to the plain version).  ``head_pass.launches`` counts the kernel's launches
+to the plain version), a meta tensor the meta path (:func:`_head_pass_meta`:
+the operand contract checked, an empty meta output, one kernel node with
+:func:`head_pass_cost`'s FLOPs and bytes for the program audit; nothing
+launched or counted).  ``head_pass.launches`` counts the kernel's launches
 (process-wide, under the kernels' count lock, and per thread:
 ``sepconv.count_launch``);
 it is not part of :func:`~sparkdl_tpu_torch.ops.sepconv.launch_counts`,
@@ -33,6 +36,8 @@ inside a captured graph).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -46,6 +51,20 @@ def head_partials(d: int) -> int:
         if d % p == 0:
             return p
     return 1
+
+
+def head_pass_cost(n: int, d: int, c: int, distinct: int
+                   ) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one H1 launch: ``n`` rows of width ``d`` through
+    heads of ``c`` classes, ``distinct`` of the bank's heads read.  A
+    multiply and an add per row and weight; the f32 feature rows, the
+    ``distinct`` heads' kernels and biases, the int32 index and the f32
+    output each moved once.  How many heads a pass reads depends on its
+    index: the card's bound counts this run's, the audit (which has no
+    index values) counts ``min(n, capacity)``."""
+    flops = 2.0 * n * d * c
+    nbytes = 4.0 * (n * d + distinct * (d * c + c) + n + n * c)
+    return flops, nbytes
 
 
 def head_pass_reference(feats: torch.Tensor, idx: torch.Tensor,
@@ -74,15 +93,9 @@ def head_pass_reference(feats: torch.Tensor, idx: torch.Tensor,
     return out + bias[rows]
 
 
-def _head_pass_cuda(feats: torch.Tensor, idx: torch.Tensor,
-                    kernel: torch.Tensor, bias: torch.Tensor
-                    ) -> torch.Tensor:
-    """Launch H1 on the current stream: ``feats`` (n, D) f32, ``idx`` (n,)
-    int32, ``kernel`` (cap, D, C) f32, ``bias`` (cap, C) f32, contiguous, on
-    one CUDA device; returns (n, C) f32, not synchronised.  A row whose
-    index lies outside [0, cap) comes back NaN (the kernel reads nothing
-    outside the bank).  Raises on anything else and when the launch is
-    refused."""
+def _check_head_operands(feats: torch.Tensor, idx: torch.Tensor,
+                         kernel: torch.Tensor, bias: torch.Tensor):
+    """The operand contract of H1; returns (n, cap, d, c)."""
     dev = feats.device
     for name, t, dtype in (("feats", feats, torch.float32),
                            ("idx", idx, torch.int32),
@@ -108,11 +121,25 @@ def _head_pass_cuda(feats: torch.Tensor, idx: torch.Tensor,
     if max(n, cap * d * c, n * d, n * c) >= 2 ** 31:
         raise ValueError(f"head_pass: shape {(n, cap, d, c)} exceeds the "
                          f"kernel's index range")
+    if cap == 0 and n and c:
+        raise ValueError("head_pass: empty bank")
+    return n, cap, d, c
+
+
+def _head_pass_cuda(feats: torch.Tensor, idx: torch.Tensor,
+                    kernel: torch.Tensor, bias: torch.Tensor
+                    ) -> torch.Tensor:
+    """Launch H1 on the current stream: ``feats`` (n, D) f32, ``idx`` (n,)
+    int32, ``kernel`` (cap, D, C) f32, ``bias`` (cap, C) f32, contiguous, on
+    one CUDA device; returns (n, C) f32, not synchronised.  A row whose
+    index lies outside [0, cap) comes back NaN (the kernel reads nothing
+    outside the bank).  Raises on anything else and when the launch is
+    refused."""
+    n, cap, d, c = _check_head_operands(feats, idx, kernel, bias)
+    dev = feats.device
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
     if n == 0 or c == 0:
         return out
-    if cap == 0:
-        raise ValueError("head_pass: empty bank")
     _kernels._launch("head_fanout", dev, feats.data_ptr(), idx.data_ptr(),
                      kernel.data_ptr(), bias.data_ptr(), out.data_ptr(), n,
                      cap, d, c, head_partials(d))
@@ -120,11 +147,26 @@ def _head_pass_cuda(feats: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+def _head_pass_meta(feats: torch.Tensor, idx: torch.Tensor,
+                    kernel: torch.Tensor, bias: torch.Tensor
+                    ) -> torch.Tensor:
+    """The meta path of H1: the operand contract checked as the CUDA path
+    checks it, an empty (n, C) f32 meta output, and one kernel node with
+    :func:`head_pass_cost` (``min(n, cap)`` heads read).  Launches and
+    counts nothing."""
+    n, cap, d, c = _check_head_operands(feats, idx, kernel, bias)
+    out = torch.empty((n, c), dtype=torch.float32, device="meta")
+    _kernels.meta_node("H1", (feats, idx, kernel, bias), out,
+                       head_pass_cost(n, d, c, min(n, cap)))
+    return out
+
+
 def head_pass(feats: torch.Tensor, idx: torch.Tensor, kernel: torch.Tensor,
               bias: torch.Tensor) -> torch.Tensor:
     """The dense head pass over a stacked bank (see the module docstring):
     the plain version for a CPU tensor, kernel H1 for a CUDA tensor (f32
-    operands and an int32 index; anything else raises, nothing is cast).
+    operands and an int32 index; anything else raises, nothing is cast),
+    the meta path for a meta tensor.
     No backward: raises when grad mode is on and an operand requires
     grad."""
     if torch.is_grad_enabled() and any(
@@ -133,8 +175,11 @@ def head_pass(feats: torch.Tensor, idx: torch.Tensor, kernel: torch.Tensor,
                            "requires grad: call it under torch.no_grad()")
     if feats.device.type == "cpu":
         return head_pass_reference(feats, idx, kernel, bias)
+    if feats.device.type == "meta":
+        return _head_pass_meta(feats, idx, kernel, bias)
     if feats.device.type != "cuda":
-        raise ValueError(f"head_pass runs on cpu or cuda, not {feats.device}")
+        raise ValueError(f"head_pass runs on cpu, cuda or meta, not "
+                         f"{feats.device}")
     return _head_pass_cuda(feats, idx, kernel, bias)
 
 

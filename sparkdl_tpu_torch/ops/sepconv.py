@@ -28,6 +28,16 @@ lock (several dispatcher threads launch and replay at once), and each
 thread also keeps its own (:func:`thread_launch_counts`): a capture takes
 back the capturing thread's launches, never another engine's replays.
 
+A META tensor takes each wrapper's meta path (:func:`_fused_sepconv_meta`,
+:func:`_fused_mbconv_meta`): the operand contract and the launch plan are
+checked as on the card, an empty meta output of the kernel's shape and
+dtype comes back, and one kernel node (name, operands, output, FLOPs,
+bytes) goes to the thread's :func:`meta_nodes` sink; nothing is launched,
+computed or counted.  The program audit (``analysis.program``) builds the
+port's programs that way.  :func:`sepconv_cost` and :func:`mbconv_cost`
+are the kernels' FLOPs and bytes, one function each, which the audit's
+nodes and ``chip_smoke.py``'s bounds both read.
+
 What bounds each kernel on an H100, and what its design does about that,
 is written at the top of its source.
 
@@ -36,14 +46,16 @@ Scope, as on the TPU: 3x3, stride 1, SAME, depth multiplier 1, inference.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch.ops import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -67,7 +79,7 @@ _bound: Dict[str, tuple] = {}   # kernel -> (C launch function, error string)
 
 # the wrappers' launch counts: read-modify-writes from several threads
 # under one lock; this thread's own counts in _THREAD
-_COUNT_LOCK = threading.Lock()
+_COUNT_LOCK = named_lock("ops.launch_counts")
 _THREAD = threading.local()
 
 
@@ -87,6 +99,53 @@ def thread_launches(wrapper, attr: str = "launches") -> int:
     never count here)."""
     return _THREAD.__dict__.get("counts", {}).get((wrapper.__name__, attr),
                                                   0)
+
+
+# the thread's sink for the kernel nodes the wrappers' meta paths record
+_META = threading.local()
+
+
+@contextlib.contextmanager
+def meta_nodes(sink: Callable[..., None]):
+    """Hand every kernel node a wrapper's meta path records on this thread
+    to ``sink(kernel, operands, output, flops, nbytes)`` (``kernel`` is
+    "B1", "B3", "B2" or "H1") for the duration of the block."""
+    prev = getattr(_META, "sink", None)
+    _META.sink = sink
+    try:
+        yield
+    finally:
+        _META.sink = prev
+
+
+def meta_node(kernel: str, operands, out: torch.Tensor,
+              cost: Tuple[float, float]) -> None:
+    """Record one kernel node with its (FLOPs, bytes) ``cost`` on the
+    thread's :func:`meta_nodes` sink, if any."""
+    sink = getattr(_META, "sink", None)
+    if sink is not None:
+        sink(kernel, tuple(operands), out, *cost)
+
+
+def sepconv_cost(n: int, h: int, w: int, c: int, f: int
+                 ) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one B1 or B3 launch on [n,h,w,c] -> f: a
+    multiply and an add per depthwise tap and per pointwise weight, and
+    every operand read once and the output written once (bf16 x, taps,
+    pointwise weights and output; f32 scale and shift)."""
+    flops = 2.0 * n * h * w * c * (9 + f)
+    nbytes = 2.0 * (n * h * w * (c + f) + 9 * c + c * f) + 8.0 * f
+    return flops, nbytes
+
+
+def mbconv_cost(n: int, h: int, w: int, c: int, f: int
+                ) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one B2 launch on [n,h,w,c] -> f: as
+    :func:`sepconv_cost`, with the f32 ``mid_shift`` [C] and ``shift`` [F]
+    in place of scale and shift."""
+    flops = 2.0 * n * h * w * c * (9 + f)
+    nbytes = 2.0 * (n * h * w * (c + f) + 9 * c + c * f) + 4.0 * (c + f)
+    return flops, nbytes
 
 
 def load_library(kernel: str = "sepconv") -> ctypes.CDLL:
@@ -183,7 +242,7 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 def _check_sepconv_operands(x, dwk, pw, scale, shift, who: str):
     """The operand contract of the two sepconv kernels; returns
     (n, h, w, c, f)."""
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"{who} needs a CUDA tensor, got {x.device}")
     if x.dim() != 4:
         raise ValueError(f"x must be [N,H,W,C], got shape {tuple(x.shape)}")
@@ -197,7 +256,7 @@ def _check_sepconv_operands(x, dwk, pw, scale, shift, who: str):
     if c % 8 or f % 8:
         raise ValueError(f"the kernel moves 8-channel segments: C={c} and "
                          f"F={f} must be multiples of 8")
-    if any(t.data_ptr() % 16 for t in (x, dwk, pw)):
+    if x.is_cuda and any(t.data_ptr() % 16 for t in (x, dwk, pw)):
         raise ValueError("x, dwk and pw must start on a 16-byte boundary")
     return n, h, w, c, f
 
@@ -431,6 +490,27 @@ def _fused_sepconv_tiled_cuda(x: torch.Tensor, dwk: torch.Tensor,
     return out
 
 
+def _fused_sepconv_meta(x: torch.Tensor, dwk: torch.Tensor,
+                        pw: torch.Tensor, scale: torch.Tensor,
+                        shift: torch.Tensor, tiled: bool) -> torch.Tensor:
+    """The meta path of B1 (B3 when ``tiled``): the operand contract and
+    the launch plan checked as the CUDA path checks them, an empty meta
+    output of the kernel's shape and dtype, and one kernel node with
+    :func:`sepconv_cost`'s FLOPs and bytes.  Launches and counts
+    nothing."""
+    who = "_fused_sepconv_tiled_cuda" if tiled else "_fused_sepconv_cuda"
+    n, h, w, c, f = _check_sepconv_operands(x, dwk, pw, scale, shift, who)
+    if n * h * w * f:
+        if not tiled and n * h * w * max(c, f) >= 2 ** 31:
+            raise ValueError(f"shape {(n, h, w, c, f)} exceeds the "
+                             f"kernel's index range")
+        (_sepconv_tiled_plan if tiled else _sepconv_plan)(n, h, w, c, f)
+    out = torch.empty((n, h, w, f), dtype=torch.bfloat16, device="meta")
+    meta_node("B3" if tiled else "B1", (x, dwk, pw, scale, shift), out,
+              sepconv_cost(n, h, w, c, f))
+    return out
+
+
 def _operand(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``t`` in ``dtype`` and contiguous, as the kernels take it; ``t``
     itself when it already is (``.to`` and ``.contiguous`` cost host time
@@ -472,18 +552,23 @@ def fused_sepconv(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
     tile shape is its own.  Casts the operands to the kernels' types (as
     the Pallas callers do), then runs the plain version for a CPU tensor
     (both routes compute the same function) and the CUDA kernel for a
-    CUDA tensor.  An NCHW tensor in ``channels_last`` memory format,
-    permuted to NHWC, is already contiguous: no copy is made for it.
-    Raises when grad mode is on and an operand requires grad (no
-    backward)."""
+    CUDA tensor, and the meta path (module docstring) for a meta tensor.
+    An NCHW tensor in ``channels_last`` memory format, permuted to NHWC, is
+    already contiguous: no copy is made for it.  Raises when grad mode is
+    on and an operand requires grad (no backward)."""
     _refuse_autograd("fused_sepconv", x, dwk, pw, scale, shift)
     dwk, pw = _keras_layouts(dwk, pw)
     if x.device.type == "cpu":
         return sepconv_reference(x, dwk, pw, scale, shift, pre_relu,
                                  post_relu)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_sepconv runs on cpu or cuda, not {x.device}")
     bf, f32 = torch.bfloat16, torch.float32
+    if x.device.type == "meta":
+        return _fused_sepconv_meta(_operand(x, bf), _operand(dwk, bf),
+                                   _operand(pw, bf), _operand(scale, f32),
+                                   _operand(shift, f32), row_tile is not None)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_sepconv runs on cpu, cuda or meta, not "
+                         f"{x.device}")
     kernel = _fused_sepconv_cuda if row_tile is None else \
         _fused_sepconv_tiled_cuda
     return kernel(_operand(x, bf), _operand(dwk, bf), _operand(pw, bf),
@@ -647,7 +732,7 @@ def _mbconv_plan(n: int, h: int, w: int, c: int, f: int,
 
 def _check_mbconv_operands(x, dwk, pw, mid_shift, shift):
     """The operand contract of the mbconv kernel; returns (n, h, w, c, f)."""
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"_fused_mbconv_cuda needs a CUDA tensor, got "
                          f"{x.device}")
     if x.dim() != 4:
@@ -662,7 +747,8 @@ def _check_mbconv_operands(x, dwk, pw, mid_shift, shift):
     if c % 8 or f % 8:
         raise ValueError(f"the kernel moves 8-channel segments: C={c} and "
                          f"F={f} must be multiples of 8")
-    if any(t.data_ptr() % 16 for t in (x, dwk, pw, mid_shift, shift)):
+    if x.is_cuda and any(t.data_ptr() % 16
+                         for t in (x, dwk, pw, mid_shift, shift)):
         raise ValueError("x, dwk, pw, mid_shift and shift must start on a "
                          "16-byte boundary")
     return n, h, w, c, f
@@ -695,6 +781,25 @@ def _fused_mbconv_cuda(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
     return out
 
 
+def _fused_mbconv_meta(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
+                       mid_shift: torch.Tensor, shift: torch.Tensor
+                       ) -> torch.Tensor:
+    """The meta path of B2: the operand contract and the launch plan
+    checked as the CUDA path checks them, an empty meta output, and one
+    kernel node with :func:`mbconv_cost`'s FLOPs and bytes.  Launches and
+    counts nothing."""
+    n, h, w, c, f = _check_mbconv_operands(x, dwk, pw, mid_shift, shift)
+    if n * h * w * max(c, f) >= 2 ** 31:
+        raise ValueError(f"shape {(n, h, w, c, f)} exceeds the kernel's "
+                         f"index range")
+    if n * h * w * f:
+        _mbconv_plan(n, h, w, c, f)
+    out = torch.empty((n, h, w, f), dtype=torch.bfloat16, device="meta")
+    meta_node("B2", (x, dwk, pw, mid_shift, shift), out,
+              mbconv_cost(n, h, w, c, f))
+    return out
+
+
 def fused_mbconv(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
                  mid_shift: torch.Tensor, shift: torch.Tensor
                  ) -> torch.Tensor:
@@ -703,16 +808,21 @@ def fused_mbconv(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
     +shift, with the BatchNorm scales already folded into ``dwk`` [3,3,C]
     (or [3,3,C,1]) and ``pw`` [C,F] (or [1,1,C,F]) by the caller
     (``models.layers.fold_bn_into_conv``), as ``fused_mbconv_flat`` takes
-    them.  A CPU tensor runs the plain version, a CUDA tensor the kernel.
-    Raises when grad mode is on and an operand requires grad (no
-    backward)."""
+    them.  A CPU tensor runs the plain version, a CUDA tensor the kernel,
+    a meta tensor the meta path (module docstring).  Raises when grad mode
+    is on and an operand requires grad (no backward)."""
     _refuse_autograd("fused_mbconv", x, dwk, pw, mid_shift, shift)
     dwk, pw = _keras_layouts(dwk, pw)
     if x.device.type == "cpu":
         return mbconv_reference(x, dwk, pw, mid_shift, shift)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mbconv runs on cpu or cuda, not {x.device}")
     bf, f32 = torch.bfloat16, torch.float32
+    if x.device.type == "meta":
+        return _fused_mbconv_meta(_operand(x, bf), _operand(dwk, bf),
+                                  _operand(pw, bf), _operand(mid_shift, f32),
+                                  _operand(shift, f32))
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mbconv runs on cpu, cuda or meta, not "
+                         f"{x.device}")
     return _fused_mbconv_cuda(_operand(x, bf), _operand(dwk, bf),
                               _operand(pw, bf), _operand(mid_shift, f32),
                               _operand(shift, f32))

@@ -8,25 +8,31 @@ ops.build`).  Under the ``SPARKDL_COMPILE_CACHE`` gate those libraries
 cache directory that carries a manifest: the toolchain that built them
 (torch, CUDA, nvcc's release, the card's capability), every library's
 content hash (its sources, the shared ``csrc/*.cuh`` headers and nvcc's
-flags, as ``ops/build.py`` names it) and the set of engine sharding
-policies the deployment used.  A manifest that no longer matches the live
-process invalidates the population CLEANLY: every entry but the manifest
-is purged before a single library loads, and the drift is classified so an
-operator reading the ``compile.invalidate`` flight event knows why the
-cold start got slow again:
+flags, as ``ops/build.py`` names it), the port's committed program
+lockfile's records (``programs``, each program's record by name, and
+``lockfile_programs``, their count: ``PROGRAMS_TORCH.lock.json``, or
+``lockfile_path``) and the set of engine sharding policies the deployment
+used.  A manifest that no longer matches the live process invalidates the
+population CLEANLY: every entry but the manifest is purged before a single
+library loads, and the drift is classified so an operator reading the
+``compile.invalidate`` flight event knows why the cold start got slow
+again:
 
   * ``["toolchain"]``: another torch, CUDA, nvcc or card capability;
   * ``["kernel:<name>", ...]``: the libraries whose hash moved (a kernel
     name of ``ops/sepconv.py KERNELS``);
-  * ``["GC005"]``: same toolchain and libraries, but a sharding policy the
-    stored set never held (the JAX package's rule code for a changed
-    weight layout);
+  * GC codes (``["GC000"]``, ``["GC004"]``, ...): the programs moved, as
+    the port's ``analysis.program.lockfile.diff_records`` classifies the
+    stored records against the live lockfile (the JAX package's
+    classification);
+  * ``["GC005"]`` alone: same toolchain, libraries and programs, but a
+    sharding policy the stored set never held (a changed weight layout);
   * ``["manifest"]``: an unreadable or foreign manifest.
 
-Until the port has a program lockfile (ROADMAP.md queue A item 8) the
-manifest keeps ``programs: {}`` and ``lockfile_programs: 0`` for it to
-fill.  Not cached: CUDA graphs and cuDNN's plans live and die with their
-process, so a restarted process still pays its graph captures (the
+``toolchain`` and ``kernel:<name>`` are the port's own labels (what nvcc
+built has no JAX counterpart); labels of several kinds are reported
+together.  Not cached: CUDA graphs and cuDNN's plans live and die with
+their process, so a restarted process still pays its graph captures (the
 engine's ``captures``); only nvcc's work is saved.
 
 Gate: ``SPARKDL_COMPILE_CACHE`` (the JAX package's grammar)
@@ -69,10 +75,10 @@ from __future__ import annotations
 import json
 import os
 import re
-import threading
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch.faults import inject
 from sparkdl_tpu_torch.obs.flight import emit as flight_emit
 from sparkdl_tpu_torch.utils.logging import get_logger
@@ -110,7 +116,7 @@ _RELEASE = re.compile(rb"release [0-9]+\.[0-9]+, V[0-9][0-9.]*[0-9]")
 # -- process singleton -------------------------------------------------------
 _UNSET = object()
 _state: Any = _UNSET    # None = disabled; dict = the resolved snapshot
-_lock = threading.Lock()
+_lock = named_lock("parallel.compile_cache")
 _counts = {"hits": 0, "misses": 0}
 _toolchain: Dict[str, Optional[str]] = {}
 
@@ -213,14 +219,20 @@ def _write_manifest(path: str, doc: Dict[str, Any]) -> None:
     os.replace(tmp, path)
 
 
+def _norm(value: Any) -> Any:
+    """JSON round-trip (tuples become lists), so a stored manifest compares
+    equal to the live records it was written from."""
+    return json.loads(json.dumps(value, sort_keys=True))
+
+
 def _drift(stored: Any, env: Dict[str, Optional[str]],
-           kernels: Dict[str, str]) -> List[str]:
+           kernels: Dict[str, str], programs: Dict[str, Any]) -> List[str]:
     """The drift labels of a stored manifest against this process (module
     docstring); ``[]`` when it matches (the policy is checked apart)."""
     if (not isinstance(stored, dict)
             or stored.get("schema_version") != MANIFEST_SCHEMA
             or not isinstance(stored.get("kernels"), dict)
-            or stored.get("programs", {}) != {}
+            or not isinstance(stored.get("programs"), dict)
             or any(k not in stored for k in _TOOLCHAIN_KEYS)):
         return ["manifest"]
     labels = []
@@ -229,19 +241,42 @@ def _drift(stored: Any, env: Dict[str, Optional[str]],
     old = stored["kernels"]
     labels += [f"kernel:{name}" for name in sorted(set(old) | set(kernels))
                if old.get(name) != kernels.get(name)]
+    if _norm(stored["programs"]) != _norm(programs):
+        from sparkdl_tpu_torch.analysis.program.lockfile import diff_records
+
+        current = [{"name": n, **rec} for n, rec in sorted(programs.items())]
+        codes = {f.code for f in diff_records(
+            {"programs": stored["programs"]}, current)}
+        labels += sorted(codes) or ["GC000"]
     return sorted(labels)
 
 
-def _validate_manifest(dir_path: str, policy: Optional[str] = None
+def lockfile_programs(lockfile_path: Optional[str] = None
+                      ) -> Dict[str, Any]:
+    """The committed program lockfile's records by name (``{}`` when the
+    file is missing): what the manifest pins."""
+    from sparkdl_tpu_torch.analysis.program.lockfile import (
+        DEFAULT_LOCKFILE, read_lockfile)
+
+    path = lockfile_path or DEFAULT_LOCKFILE
+    if not os.path.isfile(path):
+        return {}
+    return read_lockfile(path).get("programs", {})
+
+
+def _validate_manifest(dir_path: str, policy: Optional[str] = None,
+                       lockfile_path: Optional[str] = None
                        ) -> Tuple[Dict[str, Any], List[Tuple[str, dict]]]:
     """Hold the directory's manifest to this process's toolchain, its
-    libraries' hashes and the engine's sharding ``policy`` (``None`` is a
-    wildcard that never invalidates a stored set); purge and classify on
-    drift, then rewrite the manifest.  Returns the state fields and the
-    flight events to emit AFTER the configure lock is released."""
+    libraries' hashes, the committed program lockfile and the engine's
+    sharding ``policy`` (``None`` is a wildcard that never invalidates a
+    stored set); purge and classify on drift, then rewrite the manifest.
+    Returns the state fields and the flight events to emit AFTER the
+    configure lock is released."""
     manifest_path = os.path.join(dir_path, MANIFEST_NAME)
     env = toolchain()
     kernels = kernel_hashes()
+    programs = lockfile_programs(lockfile_path)
     reused = False
     invalidated = False
     drift_rules: List[str] = []
@@ -255,7 +290,7 @@ def _validate_manifest(dir_path: str, policy: Optional[str] = None
                 stored = json.load(fh)
         except (OSError, ValueError):
             stored = None  # a corrupt manifest proves nothing
-        drift_rules = _drift(stored, env, kernels)
+        drift_rules = _drift(stored, env, kernels, programs)
         stored_policies = (list(stored.get("sharding_policies") or [])
                            if drift_rules != ["manifest"] else [])
         policy_ok = policy is None or policy in stored_policies
@@ -279,21 +314,23 @@ def _validate_manifest(dir_path: str, policy: Optional[str] = None
                 "purged %d stale entries (nvcc rebuilds ahead)", dir_path,
                 drift_rules, purged)
     doc = {"schema_version": MANIFEST_SCHEMA, **env, "kernels": kernels,
-           "programs": {}, "lockfile_programs": 0,
+           "programs": programs, "lockfile_programs": len(programs),
            "sharding_policies": policies}
     _write_manifest(manifest_path, doc)
     fields = {"reused": reused, "invalidated": invalidated,
               "drift_rules": drift_rules, "purged_entries": purged,
-              "lockfile_programs": 0,
+              "lockfile_programs": len(programs),
               "sharding_policy": policy,
               "sharding_policies": policies, **env,
               "kernels": kernels}
     events.append(("compile.persist", {
-        "dir": dir_path, "reused": reused, "lockfile_programs": 0}))
+        "dir": dir_path, "reused": reused,
+        "lockfile_programs": len(programs)}))
     return fields, events
 
 
-def _configure_locked(dir_path: Optional[str], policy: Optional[str] = None
+def _configure_locked(dir_path: Optional[str], policy: Optional[str] = None,
+                      lockfile_path: Optional[str] = None
                       ) -> Tuple[Optional[Dict[str, Any]],
                                  List[Tuple[str, dict]]]:
     """Resolve the cache state (called under the configure lock); returns
@@ -307,7 +344,7 @@ def _configure_locked(dir_path: Optional[str], policy: Optional[str] = None
         # or manifest, which configure must absorb
         inject("compile.cache")
         os.makedirs(dir_path, exist_ok=True)
-        fields, events = _validate_manifest(dir_path, policy)
+        fields, events = _validate_manifest(dir_path, policy, lockfile_path)
         return {"dir": dir_path, **fields}, events
     except Exception as e:  # noqa: BLE001 — logged, the cache disabled
         logger.warning("persistent compile cache disabled: %s: %s "
@@ -317,13 +354,17 @@ def _configure_locked(dir_path: Optional[str], policy: Optional[str] = None
 
 
 def configure(dir_path: Optional[str],
-              policy: Optional[str] = None) -> Optional[Dict[str, Any]]:
+              policy: Optional[str] = None,
+              lockfile_path: Optional[str] = None
+              ) -> Optional[Dict[str, Any]]:
     """Install (or disable, with ``None``) the persistent compile cache at
-    ``dir_path``, validating its manifest against this process and the
-    engine sharding ``policy`` (``None``: no policy recorded)."""
+    ``dir_path``, validating its manifest against this process, the
+    program lockfile at ``lockfile_path`` (default: the committed
+    ``PROGRAMS_TORCH.lock.json``) and the engine sharding ``policy``
+    (``None``: no policy recorded)."""
     global _state
     with _lock:
-        st, events = _configure_locked(dir_path, policy)
+        st, events = _configure_locked(dir_path, policy, lockfile_path)
         _state = st
     for name, attrs in events:
         flight_emit(name, **attrs)

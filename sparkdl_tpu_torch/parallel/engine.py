@@ -119,6 +119,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch import DeviceLike, resolve_device
 from sparkdl_tpu_torch.faults import inject
 from sparkdl_tpu_torch.obs.flight import emit as flight_emit
@@ -161,7 +162,7 @@ class DispatchCircuitBreaker:
     def __init__(self, threshold: int = 8, cooldown_s: float = 30.0):
         self.threshold = int(threshold)
         self.cooldown_s = max(0.0, float(cooldown_s))
-        self._lock = threading.Lock()
+        self._lock = named_lock("engine.breaker")
         self._consecutive = 0
         self._open_until = 0.0
         self._open = False
@@ -327,6 +328,22 @@ def _cast_floating(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 # -- pytrees: dicts (leaves in sorted key order, as JAX flattens them),
 # lists, tuples and namedtuples; None is an empty subtree -------------------
+def device_module(module: nn.Module, device: torch.device,
+                  compute_dtype: Optional[torch.dtype] = None,
+                  channels_last: Optional[bool] = None) -> nn.Module:
+    """The engine's own copy of ``module``: deep-copied (the caller's is
+    left as it is), cast to ``compute_dtype`` when given, in
+    ``channels_last`` memory format (default: on CUDA, where the engine
+    runs it so), moved to ``device`` and put in eval mode.  The program
+    audit builds its meta modules through it with the card's layout."""
+    module = copy.deepcopy(module)
+    if compute_dtype is not None:
+        module = _cast_floating(module, compute_dtype)
+    if channels_last if channels_last is not None else device.type == "cuda":
+        module = module.to(memory_format=torch.channels_last)
+    return module.to(device).eval()
+
+
 def _tree_leaves(tree) -> list:
     if tree is None:
         return []
@@ -400,7 +417,7 @@ def graph_key(state: List[torch.Tensor], fold_owners=()) -> tuple:
 # one capture at a time in the process: a capture's pool bytes are the
 # growth of the card's reserved memory across it (its launch counts are the
 # capturing thread's own, ``ops.sepconv.thread_launch_counts``)
-_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_LOCK = named_lock("engine.capture")
 
 # every engine alive in the process, for graph_pool_bytes_held
 _LIVE_ENGINES: "weakref.WeakSet[InferenceEngine]" = weakref.WeakSet()
@@ -450,7 +467,7 @@ class _GraphCore:
     copy, and (CUDA) the upload, fetch and capture streams."""
 
     def __init__(self, device: torch.device):
-        self.lock = threading.Lock()
+        self.lock = named_lock("engine.core")
         self.graphs: Dict[tuple, "_Graph"] = {}
         self.slots: Dict[tuple, "_DeviceSlots"] = {}
         self.pool = None
@@ -568,13 +585,8 @@ class InferenceEngine:
         self.breaker = DispatchCircuitBreaker(
             threshold=breaker_threshold, cooldown_s=breaker_cooldown_s)
         self._on_dispatch_error = on_dispatch_error
-        module = copy.deepcopy(module)
-        if compute_dtype is not None:
-            module = _cast_floating(module, compute_dtype)
         cuda = self.device.type == "cuda"
-        if cuda:
-            module = module.to(memory_format=torch.channels_last)
-        self.module = module.to(self.device).eval()
+        self.module = device_module(module, self.device, compute_dtype)
         self.name = type(self.module).__name__
         self.capture = bool(capture) and cuda
         self._state = [*self.module.parameters(), *self.module.buffers()]
@@ -1330,7 +1342,7 @@ def head_fanout_module(variables) -> nn.Module:
 
 
 _FANOUT_CACHE: Dict[tuple, Callable] = {}
-_FANOUT_LOCK = threading.Lock()
+_FANOUT_LOCK = named_lock("engine.fanout_cache")
 
 
 def build_head_fanout(head_fn: Callable, device: DeviceLike = None
@@ -1432,7 +1444,7 @@ class HeadBank:
         self.hbm_budget_bytes = (None if hbm_budget_bytes is None
                                  else int(hbm_budget_bytes))
         self.metrics = metrics if metrics is not None else Metrics()
-        self._lock = threading.Lock()
+        self._lock = named_lock("engine.headbank")
         self._hosts: Dict[str, Any] = {}    # tenant -> host head pytree
         self._index: Dict[str, int] = {}    # tenant -> row in the bank
         self._order: list = []              # tenants in stacking order

@@ -196,7 +196,8 @@ class PipelinedRunner:
                     if not self._put(prep_q, item, stop, "prepare",
                                      "prep_q"):
                         return
-            except BaseException as e:  # re-raised consumer-side
+            # graftlint: allow=SDL003 reason=recorded via fail() and re-raised consumer-side as PipelineStageError
+            except BaseException as e:
                 fail("prepare", idx, e)
 
         def dispatch() -> None:
@@ -223,7 +224,8 @@ class PipelinedRunner:
                                      stop, "dispatch", "inflight_q"):
                         return
                 self._put(disp_q, _DONE, stop, "dispatch", "inflight_q")
-            except BaseException as e:  # re-raised consumer-side
+            # graftlint: allow=SDL003 reason=recorded via fail() and re-raised consumer-side as PipelineStageError
+            except BaseException as e:
                 fail("dispatch", idx, e)
 
         def gather() -> None:
@@ -253,7 +255,8 @@ class PipelinedRunner:
                             return
                     m.incr("pipeline.gathers")
                 self._put(out_q, _DONE, stop, "gather", "out_q")
-            except BaseException as e:  # re-raised consumer-side
+            # graftlint: allow=SDL003 reason=recorded via fail() and re-raised consumer-side as PipelineStageError
+            except BaseException as e:
                 fail("gather", idx, e)
 
         threads = [

@@ -52,7 +52,6 @@ released when the fit returns.
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
                     Tuple)
@@ -61,6 +60,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch import DeviceLike, resolve_device
 from sparkdl_tpu_torch.param.converters import (NamedOptimizer,
                                                 required_positional)
@@ -576,7 +576,7 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
 # cuBLAS keeps a workspace per stream for the life of the process, so a new
 # stream per fit would leave one behind per fit
 _SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
-_SIDE_LOCK = threading.Lock()
+_SIDE_LOCK = named_lock("train.side_streams")
 
 
 def _side_stream(device: torch.device) -> "torch.cuda.Stream":

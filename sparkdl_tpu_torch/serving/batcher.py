@@ -32,7 +32,6 @@ emitted once the batcher's lock is released.
 from __future__ import annotations
 
 import os
-import threading
 import time
 from collections import deque
 from concurrent.futures import Future, InvalidStateError
@@ -40,6 +39,7 @@ from typing import Any, Callable, List, Optional, Sequence
 
 import numpy as np
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_condition
 from sparkdl_tpu_torch.faults import inject
 from sparkdl_tpu_torch.obs.flight import emit as flight_emit
 from sparkdl_tpu_torch.obs.trace import get_tracer
@@ -161,7 +161,7 @@ class DynamicBatcher:
         # virtual clock re-checks on submit and at each timeout)
         self._clock = clock if clock is not None else time.monotonic
         self._q: deque = deque()
-        self._cond = threading.Condition()
+        self._cond = named_condition("serving.batcher")
         self._closed = False
 
     # -- admission (submitter threads) ------------------------------------

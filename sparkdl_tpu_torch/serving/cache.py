@@ -42,10 +42,10 @@ the copy handed back, which the digest re-check must catch) and
 ``cache.stampede`` on the leader's path in ``Server.submit``.
 
 The head fan-out's half: :func:`feature_namespace` (the feature-cut
-namespace, the JAX tuple), :func:`lockfile_model_fingerprint` (None for
-every model: the port has no program lockfile until ROADMAP.md queue A
-item 8, so namespaces pin ``"unpinned"`` and rotate with the backbone's
-weight digest) and :func:`head_fanout_benchmark`.
+namespace, the JAX tuple), :func:`lockfile_model_fingerprint` (the
+model's committed program identity in the port's
+``PROGRAMS_TORCH.lock.json``, which pins the namespace and the hot-swap
+and promote survival proofs) and :func:`head_fanout_benchmark`.
 
 Given the same sequence of lookups, settles and evictions, the counters
 (``cache.hits``, ``cache.misses``, ``cache.coalesced``,
@@ -58,12 +58,12 @@ from __future__ import annotations
 
 import itertools
 import os
-import threading
 from concurrent.futures import Future
 from typing import Any, Dict, Hashable, List, Optional, Tuple
 
 import numpy as np
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch.faults import inject
 from sparkdl_tpu_torch.faults.errors import InjectedFault
 from sparkdl_tpu_torch.obs.flight import emit as flight_emit
@@ -146,7 +146,7 @@ class InferenceCache:
         self.max_entries = int(max_entries)
         self.max_bytes = int(max_bytes)
         self.metrics = metrics if metrics is not None else Metrics()
-        self._lock = threading.Lock()
+        self._lock = named_lock("serving.cache")
         self._data: Dict[Tuple[Hashable, ...], _Entry] = {}
         self._bytes = 0
         self._flights: Dict[Tuple[Hashable, ...], CacheFlight] = {}
@@ -413,15 +413,38 @@ class InferenceCache:
 def lockfile_model_fingerprint(model: str,
                                path: Optional[str] = None
                                ) -> Optional[str]:
-    """The committed program identity of ``model``'s serving programs, the
-    JAX package's sha256 over its ``PROGRAMS.lock.json`` records.  The port
-    has no program lockfile yet (its audit is ROADMAP.md queue A item 8),
-    so every model reads None: with no fingerprint there is no proof of
-    "same computation", and the head fan-out's namespace pins
-    ``"unpinned"`` (it still rotates with the backbone's weight digest).
-    ``model`` and ``path`` are taken for the JAX call form."""
-    del model, path
-    return None
+    """The committed program identity of ``model``'s serving programs:
+    sha256 over the sorted ``(program_name, fingerprint)`` pairs of every
+    dispatch record of the port's program lockfile
+    (``PROGRAMS_TORCH.lock.json`` by default, ``analysis.program.
+    lockfile.DEFAULT_LOCKFILE``) whose ``model`` matches, as the JAX
+    package computes it over its own lockfile.  This is what makes "same
+    computation" checkable without a card at hot-swap and promote time.
+    None when the model has no audited programs (a caller's own fn) or
+    the lockfile is missing or unreadable: with no fingerprint there is
+    no proof, so swaps invalidate."""
+    import hashlib
+
+    from sparkdl_tpu_torch.analysis.program.lockfile import (
+        DEFAULT_LOCKFILE, read_lockfile)
+
+    path = path or DEFAULT_LOCKFILE
+    if not os.path.isfile(path):
+        return None
+    try:
+        doc = read_lockfile(path)
+    except (ValueError, OSError):
+        return None
+    pairs = sorted(
+        (name, rec.get("fingerprint", ""))
+        for name, rec in doc.get("programs", {}).items()
+        if rec.get("model") == model and rec.get("kind") == "dispatch")
+    if not pairs:
+        return None
+    h = hashlib.sha256()
+    for name, fp in pairs:
+        h.update(f"{name}={fp}\n".encode())
+    return h.hexdigest()
 
 
 def feature_namespace(model_desc: str,
@@ -444,7 +467,7 @@ def feature_namespace(model_desc: str,
 # -- module default (the faults.inject pattern) -----------------------------
 _UNSET = object()   # before the first ask consults SPARKDL_CACHE
 _default: Any = _UNSET
-_default_lock = threading.Lock()
+_default_lock = named_lock("serving.cache.configure")
 
 
 def cache_from_env() -> Optional[InferenceCache]:

@@ -31,18 +31,17 @@ Shed order under pressure (lowest priority first):
 
 Every shed is a ``fleet.shed`` flight event naming its reason.  The
 bucket runs on an injected monotonic ``clock`` (``time.monotonic`` by
-default) and holds no RNG.  The JAX module takes its lock from the lock
-audit's ``named_lock``; the port has no lock audit yet (ROADMAP.md queue A
-item 8) and uses ``threading.Lock``.
+default) and holds no RNG.  Its lock is the lock audit's
+``named_lock("fleet.admission")``, as in the JAX module.
 """
 
 from __future__ import annotations
 
-import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch.obs.flight import emit as flight_emit
 from sparkdl_tpu_torch.serving.errors import (QuotaExceededError,
                                               ServiceUnavailableError)
@@ -111,7 +110,7 @@ class AdmissionController:
         #: monotonic seconds source for bucket refills — injectable so a
         #: virtual-time harness can drive admission deterministically
         self._clock = clock if clock is not None else time.monotonic
-        self._lock = threading.Lock()
+        self._lock = named_lock("fleet.admission")
         #: tenant -> [tokens, last_refill_monotonic]
         self._buckets: Dict[str, list] = {}
         self._inflight: Dict[str, int] = {}

@@ -42,11 +42,11 @@ process, ROADMAP.md §C).
 
 from __future__ import annotations
 
-import threading
 import time
 from concurrent.futures import Future
 from typing import Any, Callable, Dict, List, Optional
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch.faults import inject
 from sparkdl_tpu_torch.obs.flight import emit as flight_emit
 from sparkdl_tpu_torch.obs.trace import get_tracer
@@ -115,9 +115,10 @@ class Fleet:
         # ``program_fingerprints`` overrides how a version's program
         # identity is resolved for the hot-swap survival rule (a
         # ``{name: fp}`` dict or ``fn(name, entry)``).  The default is
-        # ``serving.cache.lockfile_model_fingerprint``, None until the port
-        # has a program lockfile (ROADMAP.md queue A item 8): no proof, so
-        # a promote then always invalidates
+        # ``serving.cache.lockfile_model_fingerprint`` over the entry's
+        # model in the port's committed PROGRAMS_TORCH.lock.json; an entry
+        # with no audited programs gets None: no proof, so its promotes
+        # invalidate
         from sparkdl_tpu_torch.serving.cache import (resolve_cache,
                                                      unique_namespace)
 
@@ -162,7 +163,7 @@ class Fleet:
         if clock is not None:
             # explicit per-entry server_kwargs may still override
             self._server_defaults.setdefault("clock", clock)
-        self._lock = threading.Lock()
+        self._lock = named_lock("fleet.state")
         self._models: Dict[str, _ModelState] = {}
         self._closed = False
         #: per-model / per-tenant request ledgers (varz sections); plain
@@ -424,10 +425,9 @@ class Fleet:
         weights digest-equal the old version's
         (``utils.digest.module_digest``; new weights mean new outputs, so
         a weights rollout always invalidates).  Any other promote
-        invalidates the old namespace outright; with no fingerprint (the
-        port's default until it has a program lockfile) every promote
-        does.  The verdict rides the swap report as
-        ``report["cache"]``."""
+        invalidates the old namespace outright; with no fingerprint (an
+        entry the program lockfile does not audit) every promote does.
+        The verdict rides the swap report as ``report["cache"]``."""
         old_meta = self._version_meta.pop((name, old_version), None)
         new_meta = self._version_meta.get((name, new_version))
         old_fp, old_wd = old_meta if old_meta is not None else (None, None)

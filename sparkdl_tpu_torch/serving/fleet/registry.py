@@ -23,11 +23,11 @@ precision flags are what the rollout's no-recompile report pins
 from __future__ import annotations
 
 import copy
-import threading
 from typing import Any, Dict, List, Mapping, Optional
 
 import torch.nn as nn
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -168,7 +168,7 @@ class ModelRegistry:
 
     def __init__(self):
         self._entries: Dict[str, FleetEntry] = {}
-        self._lock = threading.Lock()
+        self._lock = named_lock("fleet.registry")
 
     def register(self, name: str, model: Any = None, variables: Any = None,
                  *, featurize: bool = False,

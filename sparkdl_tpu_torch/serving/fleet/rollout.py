@@ -35,9 +35,9 @@ retries.
 from __future__ import annotations
 
 import math
-import threading
 from typing import Any, Dict, Tuple
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch.faults import inject
 from sparkdl_tpu_torch.utils.logging import get_logger
 
@@ -90,7 +90,7 @@ class Rollout:
         self._fraction = float(fraction)
         self._exec_before = dict(exec_before)
         self._canary_before = canary_server.program_state()
-        self._lock = threading.Lock()
+        self._lock = named_lock("fleet.rollout")
         self._phase = PHASE_CANARY
         self._n = 0
         self._canary_n = 0
@@ -251,10 +251,11 @@ def head_swap_report(name: str, tenant: str, op: str,
     * the head bank's fan-out callable is the same object
       (``head_jit_shared``);
     * the backbone's committed program fingerprint is equal before and
-      after (``fingerprint_pinned``).  The port has no program lockfile
-      yet, so the fingerprint is None: ``fingerprint_pinned`` is False and
-      ``no_backbone_recompile`` rests on the first two, as the JAX package
-      treats an unaudited backbone.
+      after (``fingerprint_pinned``), read from the port's program
+      lockfile (``serving.cache.lockfile_model_fingerprint``).  A backbone
+      the lockfile does not audit has no fingerprint: ``fingerprint_pinned``
+      is then False and ``no_backbone_recompile`` rests on the first two,
+      as the JAX package treats an unaudited backbone.
 
     ``no_backbone_recompile`` is their conjunction."""
     buckets: Dict[int, Dict[str, Any]] = {}

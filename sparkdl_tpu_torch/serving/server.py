@@ -65,6 +65,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch.nn as nn
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_condition, named_lock
 from sparkdl_tpu_torch import DeviceLike, resolve_device
 from sparkdl_tpu_torch.faults import inject
 from sparkdl_tpu_torch.obs.exemplar import ExemplarReservoir
@@ -162,7 +163,7 @@ class _Once:
 
     def __init__(self, fn: Callable[[], None]):
         self._fn = fn
-        self._lock = threading.Lock()
+        self._lock = named_lock("serving.once")
         self._done = False
 
     def __call__(self) -> None:
@@ -393,7 +394,7 @@ class Server:
         self._warm: set = set()  # buckets whose graph is captured
         # bucket -> (input signature, precision flags) of its last dispatch
         self._programs: Dict[int, tuple] = {}
-        self._engine_lock = threading.Lock()
+        self._engine_lock = named_lock("serving.engines")
         self._ragged = (ragged_enabled_from_env() if ragged is None
                         else bool(ragged))
         self._batcher = DynamicBatcher(
@@ -407,7 +408,7 @@ class Server:
         self._closed = False
         self._abandon = threading.Event()
         self._inflight = 0
-        self._inflight_cond = threading.Condition()
+        self._inflight_cond = named_condition("serving.inflight")
         self._inflight_sem = threading.Semaphore(
             max(1, int(max_inflight_batches)))
         self._dispatcher = threading.Thread(
@@ -644,7 +645,8 @@ class Server:
         def _leader_done(f: Future) -> None:
             try:
                 value = f.result()
-            except BaseException as e:  # noqa: BLE001 — relayed to followers and caller
+            # graftlint: allow=SDL003 reason=the leader error is relayed to every follower via cache.fail and the caller future; re-raising in a done-callback would only hit the executor
+            except BaseException as e:  # noqa: BLE001
                 self._cache.fail(flight, e)
                 if not out.done():
                     out.set_exception(e)
@@ -1229,9 +1231,10 @@ class HeadFanoutServer:
 
     Differences from the JAX package: the weight digest is the port's own
     digest of the backbone module's state
-    (``utils.digest.module_digest``), so the namespaces differ between the
-    packages; the port has no program lockfile, so the fingerprint is None
-    and the namespace pins ``"unpinned"``.  ``mesh=`` reaches the
+    (``utils.digest.module_digest``), and the fingerprint is the port's
+    program lockfile's (``PROGRAMS_TORCH.lock.json``; ``"unpinned"`` for a
+    backbone it does not audit), so the namespaces differ between the
+    packages.  ``mesh=`` reaches the
     backbone ``Server`` and the :class:`HeadBank` (this process's one
     device, as an engine's)."""
 
@@ -1305,7 +1308,7 @@ class HeadFanoutServer:
                               hbm_budget_bytes=hbm_budget_bytes,
                               metrics=self.metrics)
         self.last_head_swap_report: Optional[Dict[str, Any]] = None
-        self._swap_lock = threading.Lock()
+        self._swap_lock = named_lock("serving.headfanout.swap")
 
     # -- head management (the no-backbone-recompile surface) --------------
     @property
@@ -1405,7 +1408,8 @@ class HeadFanoutServer:
             out: Future = Future()
             try:
                 row = self._head_row(feats_value, tenant)
-            except BaseException as e:  # noqa: BLE001 — the future's result
+            # graftlint: allow=SDL003 reason=the error is the future's result; the caller decides
+            except BaseException as e:  # noqa: BLE001
                 out.set_exception(e)
             else:
                 out.set_result(row)
@@ -1417,7 +1421,8 @@ class HeadFanoutServer:
         def _features_done(f: Future) -> None:
             try:
                 row = self._head_row(f.result(), tenant)
-            except BaseException as e:  # noqa: BLE001 — relayed to the caller
+            # graftlint: allow=SDL003 reason=relayed to the caller's future; raising in a done-callback would only hit the executor's swallow
+            except BaseException as e:  # noqa: BLE001
                 if not out.done():
                     out.set_exception(e)
             else:

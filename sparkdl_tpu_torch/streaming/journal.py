@@ -34,9 +34,9 @@ raises :class:`JournalWriteError` instead of disabling the writer.
 from __future__ import annotations
 
 import json
-import threading
 from typing import Any, Dict, List, Optional
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch.utils.jsonl import CrashSafeJsonlWriter, recover_jsonl
 
 INTENT = "intent"
@@ -68,7 +68,7 @@ class Journal:
     def __init__(self, path: str):
         self.path = path
         records, self.recovered_torn_bytes = recover_jsonl(path)
-        self._lock = threading.Lock()
+        self._lock = named_lock("stream.journal")
         self._intents: Dict[str, int] = {}
         self._outputs: Dict[str, Dict[str, Any]] = {}
         self._committed: Dict[str, int] = {}

@@ -50,6 +50,7 @@ from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch.faults import InjectedTransientError, inject
 from sparkdl_tpu_torch.obs.flight import emit as flight_emit
 from sparkdl_tpu_torch.obs.trace import get_tracer
@@ -139,11 +140,11 @@ class StreamScorer:
 
         self._cache, self._cache_ns, self._cache_ns_owned = resolve_cache(
             cache, cache_namespace, "stream")
-        self._state_lock = threading.Lock()
+        self._state_lock = named_lock("stream.state")
         # serialises commits and summary accounting between the consumer
         # thread and the delivery generator's replay short-circuit (on
         # the pipeline's prepare thread when pipelined)
-        self._commit_lock = threading.Lock()
+        self._commit_lock = named_lock("stream.commit_path")
         # set when a run leaves its sink loop: the delivery generator stops
         # polling, so no prepare thread outlives the run
         self._halt = threading.Event()

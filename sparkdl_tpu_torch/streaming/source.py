@@ -19,21 +19,21 @@ The contract every :class:`StreamSource` owes the runner:
   the run.  A live feed that never finishes never ends.
 
 ``poll()`` does not block (``None``: nothing available yet); the runner owns
-the wait policy (seeded-backoff re-poll and the stall watchdog).  The JAX
-package's audited ``named_lock`` is a plain ``threading.Lock`` here, as in
-the port's fleet.
+the wait policy (seeded-backoff re-poll and the stall watchdog).  The feed
+lock is the lock audit's ``named_lock("stream.source.feed")``, the JAX
+package's name for it.
 """
 
 from __future__ import annotations
 
 import fnmatch
 import os
-import threading
 from dataclasses import dataclass
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch.utils.digest import array_digest, content_chunk_id
 
 __all__ = [
@@ -86,7 +86,7 @@ class MemorySource(StreamSource):
 
     def __init__(self, payloads: Sequence[Any] = (), *,
                  finished: bool = False):
-        self._lock = threading.Lock()
+        self._lock = named_lock("stream.source.feed")
         self._payloads: List[np.ndarray] = []
         self._ids: List[str] = []
         self._finished = False

@@ -16,7 +16,7 @@ give byte-identical event lines.
 
 from __future__ import annotations
 
-import threading
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 
 
 class VirtualClock:
@@ -28,7 +28,7 @@ class VirtualClock:
     """
 
     def __init__(self, start: float = 0.0):
-        self._lock = threading.Lock()
+        self._lock = named_lock("twin.clock")
         self._now = float(start)
 
     def __call__(self) -> float:

@@ -61,9 +61,9 @@ class TickObservation:
     canary_fraction: float = 0.0
     flush_sizes: Dict[int, int] = field(default_factory=dict)
     #: cumulative per-tenant measured cost: deterministic cost units —
-    #: the ledger's attributed FLOPs where a program has them, plain rows
-    #: otherwise (always rows in the port, which has no program lockfile
-    #: yet) — so
+    #: the ledger's attributed FLOPs where a program has them in the
+    #: program lockfile, plain rows otherwise (the twin's dense model has
+    #: no audited program in either package) — so
     #: fairness is scored on what tenants actually burned, not on
     #: request counts, while the byte-compared event stream stays free
     #: of wall-clock values (the determinism contract above)

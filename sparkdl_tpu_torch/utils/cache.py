@@ -13,8 +13,9 @@ sizes again (:meth:`ByteBoundedLRU.reaccount`), and hands what it evicts to
 from __future__ import annotations
 
 import sys
-import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 
 
 class BoundedCache:
@@ -25,7 +26,7 @@ class BoundedCache:
     def __init__(self, cap: int):
         self.cap = int(cap)
         self._data: Dict[Any, Any] = {}
-        self._lock = threading.Lock()
+        self._lock = named_lock("utils.cache.bounded")
 
     def get(self, key) -> Optional[Any]:
         return self._data.get(key)
@@ -79,7 +80,7 @@ class ByteBoundedLRU:
         self._data: Dict[Any, Any] = {}
         self._sizes: Dict[Any, int] = {}
         self._bytes = 0
-        self._lock = threading.Lock()
+        self._lock = named_lock("utils.cache.lru")
 
     def get(self, key, default=None):
         with self._lock:
@@ -89,21 +90,24 @@ class ByteBoundedLRU:
             self._data[key] = val  # move to most-recent position
             return val
 
-    def _drop(self, key) -> Any:
-        self._bytes -= self._sizes.pop(key)
-        return self._data.pop(key)
-
-    def _evict_over_cap(self, extra: int = 0, keep=None
-                        ) -> List[Tuple[Any, Any]]:
-        """Pop least-recently-used entries (never ``keep``) until the total
-        plus ``extra`` fits the cap; returns them.  Under the lock."""
-        evicted = []
-        for k in list(self._data):  # insertion order = LRU order
-            if self._bytes + extra <= self.cap_bytes:
+    def _over_cap(self, extra: int = 0, keep=None) -> List[Any]:
+        """The least-recently-used keys (never ``keep``) whose removal
+        brings the total plus ``extra`` within the cap.  Reads only; the
+        caller holds the lock and removes them (:meth:`_pop`)."""
+        total, out = self._bytes, []
+        for k in self._data:  # insertion order = LRU order
+            if total + extra <= self.cap_bytes:
                 break
             if k != keep:
-                evicted.append((k, self._drop(k)))
-        return evicted
+                out.append(k)
+                total -= self._sizes[k]
+        return out
+
+    def _pop(self, keys) -> Tuple[List[Tuple[Any, Any]], int]:
+        """Remove ``keys``; returns their (key, value) pairs and the bytes
+        they held, which the caller takes off ``_bytes`` under the lock."""
+        return ([(k, self._data.pop(k)) for k in keys],
+                sum(self._sizes.pop(k) for k in keys))
 
     def _report(self, evicted: List[Tuple[Any, Any]]) -> None:
         if self._on_evict is not None:
@@ -114,10 +118,11 @@ class ByteBoundedLRU:
         size = int(self._sizeof(value))
         with self._lock:
             if key in self._data:
-                self._drop(key)
+                self._bytes -= self._pop([key])[1]
             if size > self.cap_bytes:
                 return
-            evicted = self._evict_over_cap(size)
+            evicted, freed = self._pop(self._over_cap(size))
+            self._bytes -= freed
             self._data[key] = value
             self._sizes[key] = size
             self._bytes += size
@@ -132,7 +137,8 @@ class ByteBoundedLRU:
                 size = int(self._sizeof(v))
                 self._bytes += size - self._sizes[k]
                 self._sizes[k] = size
-            evicted = self._evict_over_cap(keep=keep)
+            evicted, freed = self._pop(self._over_cap(keep=keep))
+            self._bytes -= freed
         self._report(evicted)
         return [k for k, _ in evicted]
 

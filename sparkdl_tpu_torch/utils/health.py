@@ -17,11 +17,11 @@ transitions and measure gaps.
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from typing import Any, Dict, Optional
 
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch.obs.flight import emit as flight_emit
 
 #: The shared state vocabulary every health() surface speaks.
@@ -58,13 +58,13 @@ class HealthTracker:
     their own overrides on top (``closed``, breaker-open); this class owns
     only the failure/success-driven core state, with at most ``maxlen``
     transitions kept.  ``name`` labels the tracker in flight events
-    (default ``lock_name``, the JAX package's signature; the port's lock
-    is a plain ``threading.Lock``)."""
+    (default ``lock_name``, which also names its lock in the lock audit,
+    ``named_lock(lock_name)``, as in the JAX package)."""
 
     def __init__(self, lock_name: str = "health", maxlen: int = 64,
                  name: Optional[str] = None):
         self.name = name if name is not None else lock_name
-        self._lock = threading.Lock()
+        self._lock = named_lock(lock_name)
         self._state = "ready"
         self._transitions: deque = deque(
             [{"state": "ready", "t_monotonic": round(time.monotonic(), 3)}],

@@ -33,7 +33,7 @@ class _TraceContextFilter(logging.Filter):
             from sparkdl_tpu_torch.obs.trace import current_trace_id
 
             tid = current_trace_id()
-        except Exception:  # noqa: BLE001 — logging must never raise
+        except Exception:  # noqa: BLE001  # graftlint: allow=SDL003 reason=logging must never raise
             pass
         record.trace = f" trace={tid}" if tid else ""
         return True

@@ -26,10 +26,11 @@ from __future__ import annotations
 
 import contextlib
 import math
-import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
+
+from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 
 
 def _block(x) -> None:
@@ -49,8 +50,8 @@ class Metrics:
     timings_s: Dict[str, List[float]] = field(default_factory=dict)
     histograms: Dict[str, List[float]] = field(default_factory=dict)
     max_samples: int = 16384
-    _lock: threading.Lock = field(default_factory=threading.Lock,
-                                  init=False, repr=False, compare=False)
+    _lock: Any = field(default_factory=lambda: named_lock("utils.metrics"),
+                       init=False, repr=False, compare=False)
 
     def incr(self, name: str, value: float = 1.0) -> None:
         # float(): numpy scalars never enter the registry

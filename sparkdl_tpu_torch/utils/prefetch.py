@@ -47,7 +47,7 @@ def prefetch_iter(iterable: Iterable[Any], depth: int = 2) -> Iterator[Any]:
             for item in iterable:
                 if not put(item):
                     return
-        except BaseException as e:  # re-raised on the consumer side
+        except BaseException as e:  # graftlint: allow=SDL003 reason=re-raised on the consumer side at next pull
             error.append(e)
         finally:
             put(_SENTINEL)

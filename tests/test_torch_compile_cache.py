@@ -127,21 +127,76 @@ def test_compile_policy_equals_jax(policy):
 
 def test_state_carries_jax_keys(tmp_path):
     """``state()`` holds every key of JAX's but ``jax_version`` and
-    ``backend``, whose place the toolchain fields take."""
+    ``backend``, whose place the toolchain fields take; given one program
+    lockfile, both manifests record its programs and their count alike
+    (the port's default is its own ``PROGRAMS_TORCH.lock.json``)."""
+    from sparkdl_tpu_torch.analysis.program.lockfile import (
+        DEFAULT_LOCKFILE, read_lockfile)
+
+    lock = str(tmp_path / "lock.json")
+    Path(lock).write_text(Path(DEFAULT_LOCKFILE).read_text())
     try:
-        jst = jcc.configure(str(tmp_path / "jax"))
+        jst = jcc.configure(str(tmp_path / "jax"), lockfile_path=lock)
     finally:
         jcc._reset_for_tests()
-    pst = pcc.configure(str(tmp_path / "port"))
+    pst = pcc.configure(str(tmp_path / "port"), lockfile_path=lock)
     assert set(jst) - {"jax_version", "backend"} <= set(pst)
     assert set(TOOLCHAIN_KEYS) <= set(pst)
     assert pst["kernels"] == pcc.kernel_hashes()
     assert set(pst["kernels"]) == set(KERNELS)
-    assert pst["lockfile_programs"] == 0
+    programs = read_lockfile(lock)["programs"]
+    assert pst["lockfile_programs"] == jst["lockfile_programs"] \
+        == len(programs) > 0
     json.dumps(pst)
     doc = json.loads((tmp_path / "port" / pcc.MANIFEST_NAME).read_text())
-    assert doc["programs"] == {} and doc["kernels"] == pst["kernels"]
+    jdoc = json.loads((tmp_path / "jax" / jcc.MANIFEST_NAME).read_text())
+    assert doc["programs"] == jdoc["programs"] == programs
+    assert doc["kernels"] == pst["kernels"]
     assert doc["schema_version"] == pcc.MANIFEST_SCHEMA
+    pcc._reset_for_tests()
+    assert pcc.configure(str(tmp_path / "port2"))["lockfile_programs"] == \
+        len(read_lockfile(DEFAULT_LOCKFILE)["programs"])
+
+
+@pytest.mark.parametrize("field,code", [
+    ("fingerprint", "GC000"), ("flops", "GC004"), ("dtype_counts", "GC002"),
+    ("kernels", "GC002"), ("in_avals", "GC003")])
+def test_program_drift_purges_with_jax_gc_code(tmp_path, field, code):
+    """A lockfile whose record moved between the populating process and
+    the restart purges the cache, classified by the GC rule whose field
+    moved, as JAX's cache classifies the same two lockfiles (a field JAX's
+    records lack, ``kernels``, only the port's)."""
+    from sparkdl_tpu_torch.analysis.program.lockfile import DEFAULT_LOCKFILE
+
+    doc = json.loads(Path(DEFAULT_LOCKFILE).read_text())
+    name = "zoo/Xception/featurize/bfloat16/b8"
+    lock = tmp_path / "lock.json"
+    lock.write_text(json.dumps(doc))
+    moved = json.loads(json.dumps(doc))
+    rec = moved["programs"][name]
+    rec[field] = {"fingerprint": "0" * 64, "flops": rec["flops"] * 2,
+                  "dtype_counts": {"conv_f32": 1},
+                  "kernels": dict(rec["kernels"], B1=0),
+                  "in_avals": dict(rec["in_avals"], key="x")}[field]
+    got = {}
+    for pkg, tag in ((pcc, "port"), (jcc, "jax")):
+        if pkg is jcc and field == "kernels":
+            continue
+        cache = str(tmp_path / tag)
+        try:
+            pkg.configure(cache, lockfile_path=str(lock))
+            Path(cache, "entry.bin").write_bytes(b"x")
+            pkg._reset_for_tests()
+            lock2 = tmp_path / f"moved_{tag}.json"
+            lock2.write_text(json.dumps(moved))
+            st = pkg.configure(cache, lockfile_path=str(lock2))
+        finally:
+            pkg._reset_for_tests()
+        assert st["invalidated"] is True and st["purged_entries"] >= 1
+        got[tag] = st["drift_rules"]
+    assert got["port"] == [code]
+    if "jax" in got:
+        assert got["jax"] == got["port"]
 
 
 def test_kernel_hashes_are_the_library_names():

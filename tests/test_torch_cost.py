@@ -1,14 +1,15 @@
 """The port's cost ledger (``sparkdl_tpu_torch.obs.cost``) held against the
 JAX package's, on the CPU.
 
-The same ``record_batch`` / ``record_hit`` sequences go into the port's
-``CostLedger()`` (no lockfile: rows only) and the JAX package's
-``CostLedger(lockfile_path=<a path that does not exist>)``: ``snapshot()``
-and ``prometheus_text()`` must be equal, exactly.  Covered: per-batch
+The same ``record_batch`` / ``record_hit`` sequences go into both
+packages' ``CostLedger(lockfile_path=<a path that does not exist>)`` (no
+lockfile: rows only): ``snapshot()`` and ``prometheus_text()`` must be
+equal, exactly.  Covered: per-batch
 conservation (tenant shares plus the ``__pad__`` residual equal the
 metered seconds), the ``__overflow__`` fold past ``max_tenants``, the
 sentinel's ``cost.regression`` and ``cost.recovered`` events and health
-transitions, one small lockfile JSON given to both ledgers, the
+transitions, one small lockfile JSON given to both ledgers, each
+package's default ledger over its own committed lockfile, the
 ``SPARKDL_COST`` grammar, ``resolve_cost`` and ``cost_rider``; then the
 port's ``Server`` end to end (the ledger's device seconds are the
 engine's metered seconds) and the ``cost.attr`` fault site degrading to
@@ -52,7 +53,7 @@ def _restore_obs(monkeypatch):
 
 
 def _ledgers(**kw):
-    return (CostLedger(**kw),
+    return (CostLedger(lockfile_path=MISSING, **kw),
             jcost.CostLedger(lockfile_path=MISSING, **kw))
 
 
@@ -161,7 +162,8 @@ def test_sentinel_regression_and_recovery_match_jax():
     jrecorder = jflight.configure(enabled=True)
     ptrack, jtrack = HealthTracker("cost.t"), JHealth("cost.t")
     port = CostLedger(window=4, min_batches=4, regress_factor=2.0,
-                      recover_factor=1.5, health=ptrack)
+                      recover_factor=1.5, health=ptrack,
+                      lockfile_path=MISSING)
     jax_ = jcost.CostLedger(window=4, min_batches=4, regress_factor=2.0,
                             recover_factor=1.5, health=jtrack,
                             lockfile_path=MISSING)
@@ -260,7 +262,7 @@ def test_same_lockfile_given_to_both_ledgers(tmp_path):
 
 
 def test_no_lockfile_charges_rows_only():
-    led = CostLedger()
+    led = CostLedger(lockfile_path=MISSING)
     led.record_batch(model="Xception", bucket=32, tenant_rows={"a": 30},
                      device_s=0.02, pad_rows=2, hbm_bytes=8e7)
     snap = led.snapshot()
@@ -269,6 +271,28 @@ def test_no_lockfile_charges_rows_only():
     assert snap["tenants"]["a"]["rows"] == 30
     assert snap["tenants"]["a"]["hbm_bytes_s"] == pytest.approx(
         8e7 * 0.02 * 30 / 32)
+
+
+def test_default_ledger_charges_the_committed_lockfile():
+    """``CostLedger()`` reads each package's own committed lockfile by
+    default (the port's ``PROGRAMS_TORCH.lock.json``): a served Xception
+    row at bucket 32 is charged its program's ``flops_per_row`` under the
+    program name JAX's ledger gives it, and the port's figure is within
+    1% of JAX's."""
+    from sparkdl_tpu_torch.analysis.program.lockfile import (
+        DEFAULT_LOCKFILE, read_lockfile)
+
+    name = "zoo/Xception/featurize/bfloat16/b32"
+    fpr = read_lockfile(DEFAULT_LOCKFILE)["programs"][name]["flops_per_row"]
+    port, jax_ = CostLedger(), jcost.CostLedger()
+    for led in (port, jax_):
+        led.record_batch(model="Xception", bucket=32, tenant_rows={"a": 30},
+                         device_s=0.02, pad_rows=2)
+    psnap, jsnap = port.snapshot(), jax_.snapshot()
+    assert list(psnap["programs"]) == list(jsnap["programs"]) == [name]
+    assert psnap["tenants"]["a"]["flops"] == pytest.approx(30 * fpr)
+    assert psnap["tenants"]["a"]["flops"] == pytest.approx(
+        jsnap["tenants"]["a"]["flops"], rel=1e-2)
 
 
 @pytest.mark.parametrize("spec", ["", "0", "off", "1", "on",

@@ -880,7 +880,8 @@ def test_unchanged_fingerprint_promote_keeps_entries():
     assert len(cache) == 0  # the fleet's namespaces die with it
 
 
-def test_changed_fingerprint_or_none_invalidates_on_promote():
+def test_changed_fingerprint_or_none_invalidates_on_promote(
+        tmp_path, monkeypatch):
     cache = InferenceCache()
     fps = {"m": "fp-v1"}
     m = Dense(np.random.default_rng(0).normal(size=(8, 4)).astype(
@@ -902,13 +903,34 @@ def test_changed_fingerprint_or_none_invalidates_on_promote():
     assert calls[0] == 1 and np.array_equal(y1, y2)
     assert cache.metrics.snapshot_raw()["counters"][
         "cache.invalidations"] >= 1.0
-    # the port's default: no program lockfile, no fingerprint, so a promote
-    # of the very same weights still invalidates
-    fleet = _cache_fleet(cache, None, m, m.state_dict())
-    fleet.predict("m", x)
-    fleet.start_rollout("m", canary_fraction=0.0)
-    assert fleet.promote("m")["cache"]["survived"] is False
-    fleet.close()
+    # the default resolves the entry's fingerprint from the program
+    # lockfile (both packages pointed at one explicit file): with no
+    # record of the entry's model there is no fingerprint, so a promote of
+    # the very same weights still invalidates; with one it survives, as
+    # JAX's fleet does
+    from sparkdl_tpu.analysis.program import lockfile as jlock
+    from sparkdl_tpu.serving import cache as jcache
+    from sparkdl_tpu_torch.analysis.program import lockfile as plock
+    from sparkdl_tpu_torch.serving.cache import lockfile_model_fingerprint
+
+    path = str(tmp_path / "lock.json")
+    for mod in (plock, jlock):
+        monkeypatch.setattr(mod, "DEFAULT_LOCKFILE", path)
+    for models in ((), ("function",)):
+        plock.write_lockfile([{"name": f"zoo/{md}/b8", "kind": "dispatch",
+                               "model": md, "fingerprint": "fp-" + md}
+                              for md in models], path)
+        fleet = _cache_fleet(cache, None, m, m.state_dict())
+        entry = fleet.registry.entry("m")
+        fp = fleet._resolve_fingerprint(entry)
+        assert entry.model_desc == "function"
+        assert fp == lockfile_model_fingerprint("function") == \
+            jcache.lockfile_model_fingerprint("function")
+        assert (fp is None) == (not models)
+        fleet.predict("m", x)
+        fleet.start_rollout("m", canary_fraction=0.0)
+        assert fleet.promote("m")["cache"]["survived"] is bool(models)
+        fleet.close()
 
 
 def test_new_weights_promote_invalidates_despite_fingerprint():

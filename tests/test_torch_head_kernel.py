@@ -118,19 +118,30 @@ def test_repeated_tenants_and_dtypes():
 
 
 def test_dispatcher_device_rule_and_refusals():
-    """A CPU tensor takes the plain version without counting a launch;
-    another device type raises; grad-requiring operands raise (no
-    backward); the CUDA wrapper refuses wrong dtypes and shapes before any
-    launch."""
+    """A CPU tensor takes the plain version without counting a launch; a
+    meta tensor takes the meta path (the kernel's output shape and dtype,
+    one recorded node, no launch) and is held to the operand contract;
+    grad-requiring operands raise (no backward); the CUDA wrapper refuses
+    wrong dtypes and shapes before any launch."""
+    from sparkdl_tpu_torch.ops import sepconv as psep
+
     feats, idx, kernel, bias = (torch.from_numpy(a)
                                 for a in _bank(6, 4, 16, 3, 2))
     before = head_pass.launches
     assert torch.equal(head_pass(feats, idx, kernel, bias),
                        head_pass_reference(feats, idx, kernel, bias))
     assert head_pass.launches == before
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        head_pass(feats.to("meta"), idx.to("meta"), kernel.to("meta"),
-                  bias.to("meta"))
+    nodes = []
+    with psep.meta_nodes(lambda *node: nodes.append(node)):
+        out = head_pass(feats.to("meta"), idx.to("meta"), kernel.to("meta"),
+                        bias.to("meta"))
+        with pytest.raises(TypeError, match="int32"):
+            head_pass(feats.to("meta"), idx.long().to("meta"),
+                      kernel.to("meta"), bias.to("meta"))
+    assert out.is_meta and out.shape == (4, 3) and out.dtype == torch.float32
+    assert [n[0] for n in nodes] == ["H1"]
+    assert nodes[0][3:] == ph.head_pass_cost(4, 16, 3, 2)
+    assert head_pass.launches == before
     with pytest.raises(RuntimeError, match="no backward"):
         head_pass(feats, idx, kernel.clone().requires_grad_(), bias)
     with pytest.raises(TypeError, match="float32"):

@@ -176,15 +176,38 @@ def test_head_bank_matches_jax_over_add_swap_remove(budget_heads):
     assert _bank_view(pbank) == _bank_view(jbank)
 
 
-def test_feature_namespace_and_fingerprint_match_jax():
+def test_feature_namespace_and_fingerprint_match_jax(tmp_path):
+    """The namespace tuple is JAX's; ``lockfile_model_fingerprint`` over
+    one lockfile given to both packages is JAX's (dispatch records of the
+    model only, a model with none or a missing file None); by default the
+    port reads its own committed ``PROGRAMS_TORCH.lock.json``, which pins
+    the zoo Xception and the fan-out backbone."""
+    from sparkdl_tpu_torch.analysis.program.lockfile import (
+        DEFAULT_LOCKFILE, read_lockfile, write_lockfile)
+
     for args in (("headfanout", "fp", "digest"),
                  ("headfanout", None, "d"), ("Xception", "", "w")):
         assert feature_namespace(*args) == jcache.feature_namespace(*args)
     assert feature_namespace("headfanout", None, "d") == (
         "features", "headfanout", "unpinned", "d")
-    # no program lockfile in the port: every model is unpinned
-    assert lockfile_model_fingerprint("Xception") is None
-    assert lockfile_model_fingerprint("headfanout") is None
+    committed = read_lockfile(DEFAULT_LOCKFILE)["programs"]
+    records = [dict(rec, name=name) for name, rec in committed.items()
+               if name.startswith(("zoo/Xception/", "headfanout/"))]
+    path = str(tmp_path / "lock.json")
+    write_lockfile(records, path)
+    for model in ("Xception", "headfanout", "VGG16", "nope"):
+        fp = lockfile_model_fingerprint(model, path)
+        assert fp == jcache.lockfile_model_fingerprint(model, path)
+        assert (fp is None) == (model in ("VGG16", "nope"))
+    missing = str(tmp_path / "none.json")
+    assert lockfile_model_fingerprint("Xception", missing) is None
+    assert jcache.lockfile_model_fingerprint("Xception", missing) is None
+    # the port's default lockfile pins both (the predict cut and the head
+    # program carry no model tag and stay out, as in JAX's)
+    assert lockfile_model_fingerprint("Xception") == \
+        lockfile_model_fingerprint("Xception", path)
+    assert lockfile_model_fingerprint("headfanout") == \
+        lockfile_model_fingerprint("headfanout", path) is not None
 
 
 _EXEC = {8: {"jit_id": 11, "executables": 1},
@@ -282,8 +305,8 @@ def test_zoo_xception_fanout_matches_jax(zoo):
         want = np.stack([np.asarray(r)
                          for r in jsrv.predict_batch(list(imgs), ts)])
     with HeadFanoutServer("Xception", cache=InferenceCache(), **kw) as srv:
-        assert srv.feature_namespace[:3] == ("features", "Xception",
-                                             "unpinned")
+        assert srv.feature_namespace[:3] == (
+            "features", "Xception", lockfile_model_fingerprint("Xception"))
         for t, h in heads.items():
             srv.add_head(t, h)
         got = np.stack(srv.predict_batch(list(imgs), ts))
@@ -332,8 +355,9 @@ def test_mixed_tenant_batch_one_head_pass_bit_identical():
 def test_head_hot_swap_under_load_proof_and_bit_correctness():
     """Swap a tenant's head under load: zero failed futures, every row the
     OLD or the NEW oracle's bits (never a torn head), the new head served
-    afterwards, and a report whose bucket and head witnesses hold (the
-    fingerprint is unpinned in the port)."""
+    afterwards, and a report whose bucket and head witnesses hold and
+    whose backbone fingerprint is pinned by the port's program lockfile
+    (as JAX's report is by its own)."""
     variables = _variables()
     old, new = _head(1), _head(99)
     with _server(variables=variables, cache=InferenceCache()) as srv:
@@ -371,8 +395,9 @@ def test_head_hot_swap_under_load_proof_and_bit_correctness():
         assert np.asarray(srv.predict(x, "a")).tobytes() == ref_new
         assert report["no_backbone_recompile"] is True
         assert report["head_jit_shared"] is True
-        assert report["fingerprint_pinned"] is False
-        assert report["fingerprint_before"] is None
+        assert report["fingerprint_pinned"] is True
+        assert report["fingerprint_before"] == lockfile_model_fingerprint(
+            "headfanout") is not None
         assert all(b["shared_jit"] for b in report["buckets"].values())
         assert srv.executable_state() == state
         assert srv.varz()["headfanout"]["last_head_swap_report"] == report

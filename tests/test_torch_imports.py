@@ -30,7 +30,8 @@ def _port_files():
         "graph_count_probe.py", "keras_stage_probe.py", "gen_tf_graphs.py",
         "tfgraph_fold_probe.py", "crc32c_timing.py",
         "obs_overhead_probe.py", "port_stream_journal.py",
-        "train_pool_probe.py", "cv_probe.py")]
+        "train_pool_probe.py", "cv_probe.py", "port_graftlint.py",
+        "port_graftcheck.py")]
     return files
 
 
@@ -123,6 +124,17 @@ TWIN_SLICE = ("parallel/compile_cache.py", "twin/__init__.py", "twin/clock.py",
               "twin/sim.py")
 
 
+# The program audit, lint and lock-order checking.
+ANALYSIS_SLICE = ("analysis/__init__.py", "analysis/core.py",
+                  "analysis/lockcheck.py", "analysis/rules_threads.py",
+                  "analysis/rules_hygiene.py", "analysis/rules_sites.py",
+                  "analysis/rules_obs.py", "analysis/rules_jit.py",
+                  "analysis/rules_flight.py", "analysis/program/__init__.py",
+                  "analysis/program/audit.py",
+                  "analysis/program/inventory.py",
+                  "analysis/program/lockfile.py")
+
+
 def test_port_imports_nothing_of_jax():
     files = _port_files()
     assert len(files) > 15 and all(f.exists() for f in files)
@@ -130,7 +142,7 @@ def test_port_imports_nothing_of_jax():
             ).exists()
     for rel in (ENGINE_CORE + KERAS_SLICE + TUNING_SLICE + TF_SLICE
                 + SERVING_SLICE + HEADFANOUT_SLICE + FLEET_SLICE
-                + OBS_SLICE + TWIN_SLICE):
+                + OBS_SLICE + TWIN_SLICE + ANALYSIS_SLICE):
         assert ROOT / "sparkdl_tpu_torch" / rel in files, rel
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in FORBIDDEN]

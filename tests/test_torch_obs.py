@@ -873,7 +873,11 @@ def test_zoo_xception_served_under_observability_matches_jax(zoo):
     chains = _request_chains(tracer.snapshot())
     assert len(chains) == 8 and all(chains.values())
     json.dumps(doc)
-    assert list(doc["cost"]["programs"]) == ["Xception/b8"]
+    # the default ledger reads the port's program lockfile, as JAX's reads
+    # its own: the zoo program's name and its FLOPs a row
+    assert list(doc["cost"]["programs"]) == [
+        "zoo/Xception/featurize/bfloat16/b8"]
+    assert doc["cost"]["tenants"]["t0"]["flops"] > 0
     assert doc["cost"]["totals"]["rows"] == 8
     assert doc["cost"]["tenants"]["t0"]["hbm_bytes_s"] > 0
     assert doc["exemplars"] and doc["health"]["slo"]["state"] == "ok"
