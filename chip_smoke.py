@@ -163,9 +163,11 @@ points, with seeded random weights and batch 32:
     version's oracle row (a bare engine at batch 8) bit for bit,
     ``no_recompile``, every bucket graph 30 B1 launches, the drained pools
     released, req/s, p50 and p99 a window, the shared ledger's sentinel;
-    ``fleet.request`` spans parenting the servers' request spans; and a
+    ``fleet.request`` spans parenting the servers' request spans; a
     fan-out entry (16 tenants' heads, a hot swap midway) bit for bit its
-    per-tenant oracle.  B1 and H1 counted in every window;
+    per-tenant oracle; and the incident of ``tests/test_torch_fleet.py``
+    (a breaker trip mid-rollout: a request shed at the door, the recovery,
+    the promote).  B1 and H1 counted in every window;
   * [stream] (after [fleet]), exactly-once streaming
     (``sparkdl_tpu_torch.streaming``) over the zoo Xception engine at
     299x299 and device batch 16 (B1 30 a dispatch), f32 with TF32 off, 12
@@ -235,7 +237,20 @@ points, with seeded random weights and batch 32:
     ``tests/test_twin.py``'s small day twice, byte-identical to each other
     and to JAX's; wall seconds, virtual requests a wall second, and per
     fleet server its device, dispatches, captures and pool.  The day's
-    model is the JAX twin's dense layer: none of the kernels runs.
+    model is the JAX twin's dense layer: none of the kernels runs;
+  * [examples] (last), the port's examples and artifact tools:
+    ``examples/port_flowers_top1.py --model Xception --batch-size 32`` in
+    this process over a ``<root>/<class>/*.jpg`` tree of the five recipe
+    colours x 32 tinted JPEGs (the zoo Xception at 299x299, seeded, bf16
+    compute; B1 30 a forward, counted; top-1 above chance; img/s), then,
+    as child processes started together, the other three examples (each
+    exits 0 with its marker) and the tools: ``port_trace_summary`` and
+    ``port_blackbox`` over the span, trace and flight dumps [obs], [fleet]
+    and [stream] left (the [fleet] incident's ``rollout.start``,
+    ``breaker.open``, ``fleet.shed``, ``rollout.promote`` in order; the
+    [stream] journal clean), ``port_dryrun`` with ``ranks[2]`` and
+    ``port_capture_profile Xception`` (B1 30 in its trace); then
+    ``port_native_thread_scaling`` alone on 16 JPEGs.
 
 B1 is also held against its plain version at ragged shapes (a pixel count
 that is not a multiple of 64, F = 200, all four ReLU variants), and each of
@@ -311,11 +326,14 @@ rates, the fits, launches), one of [mesh]'s (the servers' sharding,
 dispatches and launches, the fan-out), one of [train]'s (captured and
 eager readings and rates, the groups, the statistics, the two ranks,
 pools), one of [twin]'s (the day's wall seconds, rate, digest, scores and
-servers; the small days), one ``{"pools":
+servers; the small days), one of [examples]' (the flowers recipe's
+img/s, top-1 and launches, every example's and tool's exit code and wall
+seconds, the folded tables and timelines), one ``{"pools":
 ...}`` line (the graph pools held after every phase, by phase; later
 phases add keys to it), one JSON line with every kernel's numbers (with
 its launches in [serving], [headfanout], [obs], [fleet], [stream] and
-[mesh], and B1's ``compile_launches`` in [compile]'s children; H1's
+[mesh], B1's ``compile_launches`` in [compile]'s children and its
+``examples_launches`` in [examples]' flowers recipe; H1's
 ``launches`` are its [headfanout] launches), and last the line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -1516,6 +1534,7 @@ def phase_keras(sepconv):
          graph pool."""
     import tempfile
 
+    from sparkdl_tpu_torch.utils.metrics import profiled_kernels
     from sparkdl_tpu_torch import default_device
     from sparkdl_tpu_torch.frame import DataFrame
     from sparkdl_tpu_torch.graph.function import ModelFunction
@@ -2845,45 +2864,6 @@ def phase_tfgraph(sepconv):
                 save_load_s=io_s, fixtures_max_abs=worst, launches=counts)
 
 
-def profiled_kernels(fn):
-    """Kernels on the card in one ``fn()``, from ``torch.profiler``'s
-    trace: (total launches, launches by kernel name).  The profiler loses
-    the first records of its window, more as the process ages (PERF.md
-    section 6, PR 10), so ``fn()`` runs twice in one window and only the
-    kernels of the second call count: those whose correlation id is a
-    launch (runtime or driver call, a graph launch included) made inside
-    that call's annotated range."""
-    import tempfile
-
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-        with record_function("chip_smoke.counted"):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    span = next(e for e in events if e.get("cat") == "user_annotation"
-                and e.get("name") == "chip_smoke.counted")
-    t0, t1 = span["ts"], span["ts"] + span["dur"]
-    launches = {e["args"]["correlation"] for e in events
-                if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                and t0 <= e["ts"] <= t1 and "correlation" in e.get("args", {})}
-    names = {}
-    for e in events:
-        if (e.get("cat") == "kernel"
-                and e.get("args", {}).get("correlation") in launches):
-            names[e["name"]] = names.get(e["name"], 0) + 1
-    return sum(names.values()), names
-
-
 class _KernelNodeParams(ctypes.Structure):
     """libcuda's CUDA_KERNEL_NODE_PARAMS_v2."""
     _fields_ = [("func", ctypes.c_void_p),
@@ -2976,6 +2956,7 @@ def graph_path(sepconv, tag, name, size, knobs, want, edit):
     with the fold caches cleared."""
     from sparkdl_tpu_torch.parallel.engine import fold_entries
     from sparkdl_tpu_torch.transformers import named_image as ni
+    from sparkdl_tpu_torch.utils.metrics import profiled_kernels
 
     rng = np.random.default_rng(SEED + 11)
     batch = rng.integers(0, 256, (BATCH, size, size, 3), dtype=np.uint8)
@@ -3022,8 +3003,8 @@ def graph_path(sepconv, tag, name, size, knobs, want, edit):
           f"[graph] {tag}: launches {counts} over 4 replays, want {want} "
           f"per batch")
     nodes, node_names = graph_kernel_nodes(g.graph)
-    prof_total, prof_names = profiled_kernels(g.graph.replay)
-    prof_eager, eager_names = profiled_kernels(lambda: eager(staged))
+    prof_total, prof_names, _ = profiled_kernels(g.graph.replay)
+    prof_eager, eager_names, _ = profiled_kernels(lambda: eager(staged))
     node_ours, prof_ours = (
         tuple(sum(n for k, n in names.items() if p in k)
               for p in ("sepconv_kernel", "sepconv_tiled_kernel",
@@ -4517,12 +4498,15 @@ with Server("Xception", featurize=True, max_batch_size=8,
 """
 
 
-def _obs_children(tag):
+def _obs_children(tag, keep=None):
     """The two subprocesses, run at once: one with ``SPARKDL_TRACE=<dir>``
     that serves and exits (``trace_<pid>.json`` and ``spans_<pid>.jsonl``,
     read back by ``load_spans``), one with ``SPARKDL_BLACKBOX=<dir>`` sent
     SIGTERM while it serves (its dump read back by ``load_flight``).
-    Both are stopped whatever happens."""
+    Both are stopped whatever happens.  With ``keep`` (a directory), the
+    two artifact directories are copied there as ``trace`` and ``flight``
+    for [examples]' tools."""
+    import shutil
     import signal
     import tempfile
 
@@ -4585,6 +4569,9 @@ def _obs_children(tag):
               and [e["seq"] for e in events]
               == sorted(e["seq"] for e in events),
               f"[{tag}] SIGTERM dump: {len(events)} events, {sorted(names)}")
+        if keep is not None:
+            shutil.copytree(tdir, os.path.join(keep, "trace"))
+            shutil.copytree(bdir, os.path.join(keep, "flight"))
         out.update(children_s=child_s, trace_spans=len(spans),
                    trace_request_spans=n_req,
                    trace_device_ms=[round(s["attrs"]["device_ms"], 3)
@@ -4609,7 +4596,7 @@ def _site_us(fn, calls=OBS_SITE_CALLS):
     return (time.perf_counter() - t0) / calls * 1e6
 
 
-def phase_obs(sepconv):
+def phase_obs(sepconv, keep=None):
     """[obs]: observability (``sparkdl_tpu_torch.obs``) around the served
     Xception at 299x299 (B1, 30 launches a forward) and the head fan-out
     (H1), f32 with TF32 off.
@@ -4851,7 +4838,7 @@ def phase_obs(sepconv):
 
     # 3. the subprocesses
     obs_off()
-    out["children"] = _obs_children(tag)
+    out["children"] = _obs_children(tag, keep)
 
     # 4. the head fan-out under observability
     tracer, recorder = obs_on()
@@ -4969,6 +4956,8 @@ FLEET_TRACED_N = 16             # requests with tracing on
 FLEET_FANOUT_TENANTS = 16
 FLEET_FANOUT_IMAGES = 24
 FLEET_FANOUT_N = 200            # fan-out requests, one swap_head midway
+FLEET_INCIDENT_COOLDOWN_S = 1.0  # the incident's breaker cooldown: a
+                                 # warm canary request takes ~10 ms
 
 
 def _perturbed(state, seed):
@@ -5022,7 +5011,61 @@ def _fleet_counts(sepconv, servers, before, warmups, what):
     return counts
 
 
-def phase_fleet(sepconv):
+def _fleet_incident(tag, states, image):
+    """The incident of ``tests/test_torch_fleet.py``'s ``_incident`` on the
+    card: a breaker trip mid-rollout, then recovery and the promote.  A
+    fleet of the zoo Xception at bucket 8 (v1) with a v2 canary at
+    fraction 0.5, one request down each leg first; under
+    ``engine.dispatch:error:exc=dead,every=1,times=2`` the first request
+    (stable leg) fails both attempts and opens the breaker, the second
+    (canary) is served, the third (stable leg, breaker open) is shed at
+    the fleet's door; after the cooldown two requests are served and v2
+    is promoted.  Emits ``rollout.start``, ``breaker.open``, ``fleet.shed``
+    and ``rollout.promote`` into the process recorder, in that order."""
+    from sparkdl_tpu_torch import faults
+    from sparkdl_tpu_torch.serving import Fleet, ServiceUnavailableError
+
+    plan = faults.FaultPlan.parse(
+        "seed=9;engine.dispatch:error:exc=dead,every=1,times=2")
+    shed = 0
+    t0 = time.perf_counter()
+    with Fleet(max_batch_size=FLEET_BATCH, max_wait_ms=1,
+               bucket_sizes=[FLEET_BATCH], dispatch_retries=1,
+               breaker_threshold=2,
+               breaker_cooldown_s=FLEET_INCIDENT_COOLDOWN_S) as fleet:
+        fleet.add_model("xc", "Xception", featurize=True,
+                        warm_example=image)
+        fleet.add_version("xc", states[2], label="v2")
+        fleet.start_rollout("xc", canary_fraction=0.5, warm_example=image)
+        for _ in range(2):
+            fleet.predict("xc", image)
+        with faults.active(plan):
+            failed = fleet.submit("xc", image).exception(timeout=120)
+            for _ in range(2):
+                try:
+                    fleet.submit("xc", image).result(timeout=120)
+                except ServiceUnavailableError:
+                    shed += 1
+            time.sleep(FLEET_INCIDENT_COOLDOWN_S + 0.05)
+            for _ in range(2):
+                fleet.submit("xc", image).result(timeout=120)
+            fleet.promote("xc")
+        state = fleet.health()["state"]
+        version = fleet.deployed_version("xc")
+    wall = time.perf_counter() - t0
+    check(failed is not None and shed == 1 and state == "ready"
+          and version == 2,
+          f"[{tag}] incident: first request failed {failed!r}, shed {shed}, "
+          f"health {state}, deployed v{version}")
+    print(f"[{tag}] incident (a breaker trip mid-rollout, "
+          f"engine.dispatch dead x2, cooldown {FLEET_INCIDENT_COOLDOWN_S}s): "
+          f"the first request failed ({type(failed).__name__}), {shed} shed "
+          f"at the door, recovered, v2 promoted, health {state}; "
+          f"{wall:.2f}s", flush=True)
+    return dict(shed=shed, state=state, seconds=wall)
+
+
+def phase_fleet(sepconv, keep=None):
     """[fleet]: the model fleet (``sparkdl_tpu_torch.serving.fleet``) over
     a zoo Xception at 299x299 (B1, 30 launches a forward), f32 with TF32
     off.  ``Fleet(max_batch_size=8, max_wait_ms=2, bucket_sizes=[8],
@@ -5056,7 +5099,14 @@ def phase_fleet(sepconv):
          with 16 tenants' f32 heads (C 100), 200 requests from 8 clients
          with one ``swap_head`` midway: every row its tenant's oracle (the
          zoo engine's feature row through the head alone) bit for bit, B1
-         and H1 counted.
+         and H1 counted;
+      5. the incident (:func:`_fleet_incident`): a breaker trip
+         mid-rollout, a request shed at the door, the recovery and the
+         promote.
+
+    With ``keep`` (a directory), the traced spans of step 3 are written
+    there (``spans.jsonl``, ``trace.json``) and the recorder's events of
+    the whole phase (``flight.jsonl``), for [examples]' tools.
     """
     from sparkdl_tpu_torch import faults
     from sparkdl_tpu_torch.image.io import arrowStructsToBatch
@@ -5380,6 +5430,12 @@ def phase_fleet(sepconv):
         fleet.predict("xc", images[j], tenant="gold")
     spans = tracer.snapshot()
     otrace.configure(enabled=False)
+    if keep is not None:
+        from sparkdl_tpu_torch.obs.export import (write_chrome_trace,
+                                                  write_spans_jsonl)
+
+        write_spans_jsonl(os.path.join(keep, "spans.jsonl"), spans)
+        write_chrome_trace(os.path.join(keep, "trace.json"), spans)
     fspans = {s["span_id"]: s for s in spans if s["name"] == "fleet.request"}
     reqs = [s for s in spans if s["name"] == "serving.request"]
     check(len(fspans) == len(reqs) == FLEET_TRACED_N
@@ -5481,9 +5537,13 @@ def phase_fleet(sepconv):
     fan_pool = fan.graph_pool_bytes
     v2_pool = v2.graph_pool_bytes
     fleet.close()
-    oflight.configure(enabled=False)
     check(v2.graph_pool_bytes == 0 and fan.graph_pool_bytes == 0,
           f"[{tag}] close() kept a pool")
+    out["incident"] = _fleet_incident(tag, states, images[0])
+    if keep is not None:
+        check(recorder.dump(os.path.join(keep, "flight.jsonl")),
+              f"[{tag}] the flight dump was not written")
+    oflight.configure(enabled=False)
     print(f"[{tag}] ({card}) fan-out entry xc-heads: "
           f"{FLEET_FANOUT_TENANTS} tenants' (2048, {FANOUT_CLASSES}) heads, "
           f"{FLEET_FANOUT_N} requests from {FLEET_CLIENTS} clients, "
@@ -5601,7 +5661,7 @@ def _rate_stats(xs):
                 min=float(np.min(xs)), max=float(np.max(xs)))
 
 
-def phase_stream(sepconv):
+def phase_stream(sepconv, keep=None):
     """[stream]: exactly-once streaming (``sparkdl_tpu_torch.streaming``)
     over a zoo Xception 299x299 featurizer engine at device batch 16 (B1,
     30 launches a dispatch), and the streaming fit; f32 with TF32 off.  12
@@ -5752,6 +5812,9 @@ def phase_stream(sepconv):
               and h["lag_s"] == 0.0,
               f"[{tag}] resumed child: {rec}")
         recs, _ = read_jsonl(os.path.join(base, "journal.jsonl"))
+        if keep is not None:  # the resumed run's journal, for [examples]
+            shutil.copy(os.path.join(base, "journal.jsonl"),
+                        os.path.join(keep, "journal.jsonl"))
         commits = [r["chunk_id"] for r in recs if r["rec"] == "commit"]
         arts = [f for f in os.listdir(os.path.join(base, "out"))
                 if f.endswith(".npy")]
@@ -5863,6 +5926,9 @@ def phase_stream(sepconv):
         launches["sepconv"] += counts["sepconv"]
         errors = sc.metrics.counters.get("stream.source_errors", 0)
         sc.close()
+        if keep is not None:  # the stall and the flaky source, for [examples]
+            check(recorder.dump(os.path.join(keep, "flight.jsonl")),
+                  f"[{tag}] the flight dump was not written")
         oflight.configure(enabled=False)
         print(f"[{tag}] ({card}) flaky source: stream.source fired "
               f"{plan.fired('stream.source')}x, stream.source_errors "
@@ -7615,6 +7681,303 @@ def phase_twin(sepconv):
     return out
 
 
+EXAMPLES_PER_CLASS = 32         # tinted JPEGs of each RECIPE_BASES class
+EXAMPLES_NOISE = 50.0           # per-pixel N(0, noise^2) around the base
+EXAMPLES_CHILD_TIMEOUT_S = 300  # an example's or a tool's time limit
+EXAMPLES_NATIVE_IMAGES = 16     # the thread-scaling tool's small corpus
+EXAMPLES_RANKS = 2              # port_dryrun's ranks[W]
+EXAMPLES_FLEET_CHAIN = ["rollout.start", "breaker.open", "fleet.shed",
+                        "rollout.promote"]
+
+
+def _flowers_tree(root):
+    """A ``<root>/<class>/*.jpg`` tree: EXAMPLES_PER_CLASS JPEGs of each
+    RECIPE_BASES colour (sides 300-400, clip(base + N(0, noise^2)) per
+    pixel, written as ``_tuning_files`` writes its JPEGs), one directory a
+    class."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 131)
+    for k, base in enumerate(RECIPE_BASES):
+        cdir = os.path.join(root, f"class_{k}")
+        os.makedirs(cdir)
+        for i in range(EXAMPLES_PER_CLASS):
+            h, w = (int(v) for v in rng.integers(300, 400, 2))
+            img = np.clip(np.asarray(base, np.float32)
+                          + rng.normal(0, EXAMPLES_NOISE, (h, w, 3)), 0, 255)
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(cdir, f"img_{i:03d}.jpg"), quality=90)
+    return len(RECIPE_BASES) * EXAMPLES_PER_CLASS
+
+
+def _children(tag, jobs):
+    """Start every ``python argv`` of ``jobs`` (name -> argv) at once from
+    the checkout's root and wait for all of them; fails the run if one
+    outlasts EXAMPLES_CHILD_TIMEOUT_S, after stopping every one still
+    running.  Returns name -> (exit code, stdout, stderr, wall s from the
+    common start to that child's exit)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, *argv], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, argv in jobs.items()}
+    done = {}
+
+    def wait(name, proc):
+        so, se = proc.communicate()
+        done[name] = (proc.returncode, so, se, time.perf_counter() - t0)
+
+    waiters = [threading.Thread(target=wait, args=item)
+               for item in procs.items()]
+    for w in waiters:
+        w.start()
+    try:
+        for w in waiters:
+            w.join(timeout=max(0.0, EXAMPLES_CHILD_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+        late = sorted(set(jobs) - set(done))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+        for w in waiters:
+            w.join()
+    check(not late, f"[{tag}] {late} ran past {EXAMPLES_CHILD_TIMEOUT_S}s")
+    return done
+
+
+def _in_order(chain, names):
+    """Whether ``names`` occur in ``chain`` in that order (not
+    necessarily next to each other)."""
+    it = iter(chain)
+    return all(any(c == n for c in it) for n in names)
+
+
+def phase_examples(sepconv, keep):
+    """[examples]: the port's examples and artifact tools on the card.
+
+      1. ``examples/port_flowers_top1.py`` in this process (its ``main``),
+         ``--model Xception --batch-size 32``: the zoo Xception at 299x299
+         (seeded weights, full width and depth) in bf16 compute over a
+         tree of 5 RECIPE_BASES classes x 32 tinted JPEGs, the LR head on
+         the seeded split; B1 counted (30 a forward: each dispatch and the
+         capture's eager warm-up), top-1 above chance (1/5), img/s of the
+         featurize;
+      2. the other three examples as child processes on the card, each
+         exiting 0 with its marker line;
+      3. the tools as child processes, started together with the three
+         examples (the thread-scaling tool after them, alone, since it
+         times the host): ``port_trace_summary`` over the span
+         JSONL and the Chrome trace of [obs]' ``SPARKDL_TRACE`` child and
+         over [fleet]'s traced spans; ``port_blackbox`` over [obs]'
+         SIGTERM dump, over [fleet]'s dump with its spans (the incident's
+         ``rollout.start``, ``breaker.open``, ``fleet.shed`` and
+         ``rollout.promote`` in order) and over [stream]'s dump with its
+         resumed journal, each exit 0 (clean); ``port_dryrun`` with
+         ``ranks[2]``; ``port_capture_profile Xception`` (B1 30 in the
+         counted forward's trace); ``port_native_thread_scaling`` on 16
+         JPEGs.
+
+    ``keep`` holds the artifacts of [obs] (``obs/``), [fleet] (``fleet/``)
+    and [stream] (``stream/``); it is deleted at the end."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    tag = "examples"
+    t_phase = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    out = dict(card=card, seconds={})
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="examples_smoke_")
+    try:
+        # 1. the flowers recipe on Xception, in this process
+        tree = os.path.join(tmp, "flowers")
+        n_files = _flowers_tree(tree)
+        spec = importlib.util.spec_from_file_location(
+            "port_flowers_top1",
+            os.path.join(root, "examples", "port_flowers_top1.py"))
+        flowers = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(flowers)
+        reset_counts(sepconv)
+        t0 = time.perf_counter()
+        res = flowers.main([tree, "--model", "Xception", "--batch-size",
+                            str(BATCH), "--seed", str(SEED)])
+        torch.cuda.synchronize()
+        out["seconds"]["port_flowers_top1"] = time.perf_counter() - t0
+        counts = read_counts(sepconv)
+        forwards = res["dispatches"] + res["graph_captures"]
+        want = dict(sepconv=SEPCONV_PER_FORWARD * forwards, sepconv_tiled=0,
+                    mbconv=0)
+        print(f"[{tag}] ({card}) port_flowers_top1 Xception 299x299 batch "
+              f"{BATCH}, bf16 compute: {n_files} JPEGs of "
+              f"{len(RECIPE_BASES)} classes featurized in "
+              f"{res['featurize_s']:.3f}s = {res['featurize_img_s']:.1f} "
+              f"img/s (decode included); top-1 {res['top1']} on "
+              f"{res['n_test']} held out (chance {1 / len(RECIPE_BASES)}); "
+              f"{res['dispatches']} dispatches + {res['graph_captures']} "
+              f"capture(s): launches {counts}; {res['weights_source']}",
+              flush=True)
+        check(res["device"].startswith("cuda") and res["model"] == "Xception"
+              and res["classes"] == len(RECIPE_BASES)
+              and res["n_train"] + res["n_test"] == n_files,
+              f"[{tag}] port_flowers_top1: {res}")
+        check(counts == want, f"[{tag}] port_flowers_top1 launches {counts}, "
+                              f"want {want} ({forwards} forwards)")
+        check(res["top1"] > 1 / len(RECIPE_BASES),
+              f"[{tag}] port_flowers_top1 top-1 {res['top1']} not above "
+              f"chance")
+        out["flowers"] = dict(res, launches=counts["sepconv"],
+                              forwards=forwards)
+
+        # 2. and 3. the other three examples and the tools, as child
+        # processes started together (one at a time they took 190 s, most
+        # of it each child's start-up); then the thread-scaling tool alone
+        trace_dir = os.path.join(keep, "obs", "trace")
+        folds = {
+            "obs spans": next(os.path.join(trace_dir, f)
+                              for f in sorted(os.listdir(trace_dir))
+                              if f.startswith("spans_")),
+            "obs chrome": next(os.path.join(trace_dir, f)
+                               for f in sorted(os.listdir(trace_dir))
+                               if f.startswith("trace_")),
+            "fleet spans": os.path.join(keep, "fleet", "spans.jsonl")}
+        boxes = {
+            "obs": [os.path.join(keep, "obs", "flight")],
+            "fleet": [os.path.join(keep, "fleet", "flight.jsonl"),
+                      "--spans", os.path.join(keep, "fleet", "spans.jsonl")],
+            "stream": [os.path.join(keep, "stream", "flight.jsonl"),
+                       "--journal",
+                       os.path.join(keep, "stream", "journal.jsonl")]}
+        examples = {
+            "port_migrate_from_sparkdl": '{"migration_smoke": "ok"}',
+            "port_serving_quickstart": '"serving_quickstart": "ok"',
+            "port_distributed_fit": '"distributed_fit": "ok"'}
+        artifact = os.path.join(tmp, "dryrun_lines.jsonl")
+        jobs = {name: [os.path.join("examples", name + ".py")]
+                for name in examples}
+        jobs.update({f"port_trace_summary {what}": [
+            os.path.join("tools", "port_trace_summary.py"), path]
+            for what, path in folds.items()})
+        jobs.update({f"port_blackbox {what}": [
+            os.path.join("tools", "port_blackbox.py"), *args, "--json"]
+            for what, args in boxes.items()})
+        jobs["port_dryrun"] = [os.path.join("tools", "port_dryrun.py"),
+                               "--ranks", str(EXAMPLES_RANKS),
+                               "--artifact", artifact]
+        jobs["port_capture_profile"] = [
+            os.path.join("tools", "port_capture_profile.py"), "Xception",
+            os.path.join(tmp, "profile"), str(BATCH)]
+        t0 = time.perf_counter()
+        done = _children(tag, jobs)
+        out["children_s"] = time.perf_counter() - t0
+        done.update(_children(tag, {"port_native_thread_scaling": [
+            os.path.join("tools", "port_native_thread_scaling.py"),
+            "--images", str(EXAMPLES_NATIVE_IMAGES)]}))
+        for name, (_, _, _, sec) in done.items():
+            out["seconds"][name] = sec
+        print(f"[{tag}] ({card}) {len(jobs)} child processes started "
+              f"together, all done in {out['children_s']:.1f}s; then "
+              f"port_native_thread_scaling alone", flush=True)
+
+        for name, marker in examples.items():
+            rc, so, se, sec = done[name]
+            line = so.strip().splitlines()[-1] if so.strip() else ""
+            print(f"[{tag}] ({card}) {name}: exit {rc}, {sec:.1f}s; {line}",
+                  flush=True)
+            check(rc == 0 and marker in so,
+                  f"[{tag}] {name} exited {rc}: {se[-2000:]}")
+        out["distributed_fit"] = json.loads(
+            done["port_distributed_fit"][1].strip().splitlines()[-1])
+
+        out["trace_summary"] = {}
+        for what in folds:
+            rc, so, se, sec = done[f"port_trace_summary {what}"]
+            rows = [ln for ln in so.splitlines() if ln.startswith("| ")][1:]
+            out["trace_summary"][what] = dict(rc=rc, rows=len(rows))
+            print(f"[{tag}] port_trace_summary {what}: exit {rc}, "
+                  f"{len(rows)} stage rows, {sec:.1f}s", flush=True)
+            check(rc == 0 and rows, f"[{tag}] port_trace_summary {what} "
+                                    f"exited {rc}: {se[-2000:]}")
+        out["blackbox"] = {}
+        for what in boxes:
+            rc, so, se, sec = done[f"port_blackbox {what}"]
+            doc = json.loads(so) if rc in (0, 1) else {}
+            out["blackbox"][what] = dict(
+                rc=rc, events=len(doc.get("events", ())),
+                correlated=doc.get("correlated_events"),
+                journal=doc.get("journal", {}).get("committed"))
+            print(f"[{tag}] port_blackbox {what}: exit {rc}, "
+                  f"{len(doc.get('events', ()))} events in the timeline "
+                  f"({doc.get('correlated_events')} trace-correlated), "
+                  f"health {doc.get('health')}, verdict "
+                  f"{doc.get('verdict')}, {sec:.1f}s", flush=True)
+            check(rc == 0 and doc.get("events"),
+                  f"[{tag}] port_blackbox {what} exited {rc}: {se[-2000:]}")
+            if what == "fleet":
+                check(_in_order(doc["chain"], EXAMPLES_FLEET_CHAIN),
+                      f"[{tag}] [fleet]'s timeline lacks "
+                      f"{EXAMPLES_FLEET_CHAIN} in order: {doc['chain']}")
+            if what == "stream":
+                check(doc["journal"]["committed"] == STREAM_CHUNKS
+                      and not doc["journal"]["uncommitted"],
+                      f"[{tag}] [stream]'s journal: {doc['journal']}")
+
+        from sparkdl_tpu_torch.utils.jsonl import read_jsonl
+
+        rc, so, se, sec = done["port_dryrun"]
+        recs, _ = read_jsonl(artifact)
+        stages = [(r["stage"], r["status"]) for r in recs]
+        ranks = next((r for r in recs if r["status"] == "ok"
+                      and r["stage"].startswith("ranks[")), {})
+        out["dryrun"] = dict(rc=rc, stages=stages, ranks=ranks)
+        print(f"[{tag}] port_dryrun ranks[{EXAMPLES_RANKS}]: exit {rc}, "
+              f"{sec:.1f}s; stages {stages}; ranks {ranks}", flush=True)
+        check(rc == 0 and stages == [
+            ("entry", "started"), ("entry", "ok"),
+            (f"ranks[{EXAMPLES_RANKS}]", "started"),
+            (f"ranks[{EXAMPLES_RANKS}]", "ok"), ("summary", "ok")]
+            and all(d.startswith("cuda") for d in ranks["devices"]),
+            f"[{tag}] port_dryrun exited {rc}: {se[-2000:]}")
+
+        rc, so, se, sec = done["port_capture_profile"]
+        prof = json.loads(so.strip().splitlines()[-1]) if rc == 0 else {}
+        b1 = sum(n for k, n in prof.get("kernels_by_name", {}).items()
+                 if "sepconv_kernel" in k)
+        out["capture_profile"] = dict(
+            rc=rc, kernels=prof.get("kernels"), b1=b1,
+            in_trace_wall_s=prof.get("in_trace_wall_s"))
+        print(f"[{tag}] ({card}) port_capture_profile Xception batch "
+              f"{BATCH} bf16: exit {rc}, {sec:.1f}s; the counted forward "
+              f"{prof.get('in_trace_wall_s')}s in the trace, "
+              f"{prof.get('kernels')} kernels, B1 {b1}", flush=True)
+        check(rc == 0 and b1 == SEPCONV_PER_FORWARD
+              and os.path.exists(prof["trace"]),
+              f"[{tag}] port_capture_profile: exit {rc}, B1 {b1}: "
+              f"{se[-2000:]}")
+
+        rc, so, se, sec = done["port_native_thread_scaling"]
+        lines = [json.loads(ln) for ln in so.splitlines()
+                 if ln.startswith("{")]
+        out["native_thread_scaling"] = lines
+        print(f"[{tag}] port_native_thread_scaling {EXAMPLES_NATIVE_IMAGES} "
+              f"JPEGs: exit {rc}, {sec:.1f}s; {lines}", flush=True)
+        check(rc == 0 and any(ln.get("backend") == "pil" for ln in lines)
+              and any(ln.get("backend") == "native" for ln in lines),
+              f"[{tag}] port_native_thread_scaling exited {rc}: "
+              f"{se[-2000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(keep, ignore_errors=True)
+    out["launches"] = dict(sepconv=out["flowers"]["launches"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{tag}] ({card}) phase {out['phase_s']:.1f}s", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7695,17 +8058,23 @@ def main():
     print(json.dumps({"headfanout": fanout}), flush=True)
     h1["launches"] = fanout["launches"]["head_pass"]
     b1["headfanout_launches"] = fanout["launches"]["sepconv"]
-    obs = phase_obs(sepconv)
+    import tempfile
+
+    # [obs], [fleet] and [stream] leave their dumps here for [examples]
+    keep = tempfile.mkdtemp(prefix="smoke_artifacts_")
+    for sub in ("obs", "fleet", "stream"):
+        os.makedirs(os.path.join(keep, sub))
+    obs = phase_obs(sepconv, os.path.join(keep, "obs"))
     pools["obs"] = pool_line("[obs]")
     print(json.dumps({"obs": obs}), flush=True)
     b1["obs_launches"] = obs["launches"]["sepconv"]
     h1["obs_launches"] = obs["launches"]["head_pass"]
-    fleet = phase_fleet(sepconv)
+    fleet = phase_fleet(sepconv, os.path.join(keep, "fleet"))
     pools["fleet"] = pool_line("[fleet]")
     print(json.dumps({"fleet": fleet}), flush=True)
     b1["fleet_launches"] = fleet["launches"]["sepconv"]
     h1["fleet_launches"] = fleet["launches"]["head_pass"]
-    stream = phase_stream(sepconv)
+    stream = phase_stream(sepconv, os.path.join(keep, "stream"))
     pools["stream"] = pool_line("[stream]")
     print(json.dumps({"stream": stream}), flush=True)
     b1["stream_launches"] = stream["launches"]["sepconv"]
@@ -7720,6 +8089,10 @@ def main():
     twin_day = phase_twin(sepconv)
     pools["twin"] = pool_line("[twin]")
     print(json.dumps({"twin": twin_day}), flush=True)
+    examples = phase_examples(sepconv, keep)
+    pools["examples"] = pool_line("[examples]")
+    print(json.dumps({"examples": examples}), flush=True)
+    b1["examples_launches"] = examples["launches"]["sepconv"]
     b1["compile_launches"] = compiled["launches"]["sepconv"]
     print(json.dumps({"pools": pools}), flush=True)
     print(json.dumps({"kernels": [b1, b3, b2, h1]}), flush=True)

@@ -217,3 +217,54 @@ def throughput_counter(num_items: int, seconds: float,
         "seconds": seconds,
         "num_items": float(num_items),
     }
+
+
+def profiled_kernels(fn, trace_path: Optional[str] = None):
+    """Kernels on the card in one ``fn()``, from ``torch.profiler``'s
+    trace: ``(total launches, launches by kernel name, wall ms)``.
+
+    The profiler loses the first kernel records of its window, more as the
+    process ages (1-20 of a forward's, late in a process), so ``fn()``
+    runs twice in one window and only the kernels of the second call
+    count: those whose correlation id is a launch (a runtime or driver
+    call, a graph launch included) made inside that call's annotated range
+    (``sparkdl.counted``), which also gives the wall ms of the call, the
+    card's work included.  ``trace_path`` keeps the window's Chrome trace
+    there.  Without a card the profiler sees the CPU only: no kernel
+    counts."""
+    import json
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cuda = torch.cuda.is_available()
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    sync()
+    with profile(activities=activities) as prof:
+        fn()
+        sync()
+        with record_function("sparkdl.counted"):
+            fn()
+            sync()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = trace_path or os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    span = next(e for e in events if e.get("cat") == "user_annotation"
+                and e.get("name") == "sparkdl.counted")
+    t0, t1 = span["ts"], span["ts"] + span["dur"]
+    launches = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and t0 <= e["ts"] <= t1 and "correlation" in e.get("args", {})}
+    names: Dict[str, int] = {}
+    for e in events:
+        if (e.get("cat") == "kernel"
+                and e.get("args", {}).get("correlation") in launches):
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    return sum(names.values()), names, float(span["dur"]) / 1e3

@@ -741,6 +741,14 @@ def _incident(mod, faults_mod, fn, variables, x, cooldown_s=0.1):
         fleet.add_model("m", fn, v1, warm_example=x)
         fleet.add_version("m", v2)
         fleet.start_rollout("m", canary_fraction=0.5, warm_example=x)
+        # one request down each leg first (routing is deterministic: the
+        # first goes to the stable leg, the second to the canary), so the
+        # incident's requests meet a served path, not a first one: the
+        # JAX package compiles its row slice (``jit(dynamic_slice)``) at
+        # the first served request, process-wide, and run alone that
+        # first request outlasts the breaker's cooldown
+        for _ in range(2):
+            fleet.predict("m", x)
         with faults_mod.active(plan):
             assert fleet.submit("m", x).exception(timeout=30) is not None
             for _ in range(2):

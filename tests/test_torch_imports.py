@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``sparkdl_tpu_torch``, not
-``chip_smoke.py`` and none of the port's tools imports JAX, flax, optax,
-the JAX package or ``google`` (protobuf: the port reads TensorFlow's
+``chip_smoke.py`` and none of the port's tools and examples imports JAX,
+flax, optax, the JAX package or ``google`` (protobuf: the port reads TensorFlow's
 messages with its own wire-format reader); no module of the package and not ``chip_smoke.py``
 imports Keras or TensorFlow (the card has neither; the two tools that
 write the committed Keras tables run Keras here, inside a function), and
@@ -18,6 +18,15 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sparkdl_tpu", "google")
 
 
+# The port's counterparts of the JAX package's artifact tools and user
+# examples; each runs on the card unless asked for the CPU, except the
+# three that touch no device (two fold files, one times the host decode).
+PORT_TOOLS = ("port_trace_summary.py", "port_blackbox.py", "port_dryrun.py",
+              "port_capture_profile.py", "port_native_thread_scaling.py")
+PORT_EXAMPLES = ("port_migrate_from_sparkdl.py", "port_serving_quickstart.py",
+                 "port_flowers_top1.py", "port_distributed_fit.py")
+
+
 def _port_files():
     files = sorted((ROOT / "sparkdl_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
@@ -31,7 +40,8 @@ def _port_files():
         "tfgraph_fold_probe.py", "crc32c_timing.py",
         "obs_overhead_probe.py", "port_stream_journal.py",
         "train_pool_probe.py", "cv_probe.py", "port_graftlint.py",
-        "port_graftcheck.py")]
+        "port_graftcheck.py") + PORT_TOOLS]
+    files += [ROOT / "examples" / name for name in PORT_EXAMPLES]
     return files
 
 
@@ -291,6 +301,37 @@ def test_server_without_cuda_raises(monkeypatch):
         assert srv.device == torch.device("cpu")
         assert srv.predict(np.ones(2, np.float32)).tolist() == [2.0, 2.0]
         assert srv._engines[srv.bucket_sizes[0]].device.type == "cpu"
+
+
+@pytest.mark.parametrize("path,argv", [
+    ("examples/port_migrate_from_sparkdl.py", []),
+    ("examples/port_serving_quickstart.py", []),
+    ("examples/port_flowers_top1.py", ["{tmp}"]),
+    ("examples/port_distributed_fit.py", []),
+    ("tools/port_dryrun.py", ["--artifact", "{tmp}/dryrun.jsonl"]),
+    ("tools/port_capture_profile.py", ["Xception", "{tmp}/profile"])])
+def test_example_and_tool_entry_points_without_cuda_raise(
+        path, argv, monkeypatch, tmp_path):
+    """The examples' and the device tools' ``main``: with no card and no
+    ``--device cpu`` they raise before any work (nothing is written, no
+    process is started); ``--device cpu`` is what lets them run here (the
+    runs themselves are in ``test_torch_examples.py`` and
+    ``test_torch_tools.py``)."""
+    import importlib.util
+
+    import torch
+
+    import sparkdl_tpu_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sparkdl_tpu_torch.set_default_device(None)
+    spec = importlib.util.spec_from_file_location(
+        "entry_" + pathlib.Path(path).stem, ROOT / path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([a.format(tmp=tmp_path) for a in argv])
+    assert list(tmp_path.iterdir()) == []
 
 
 # Names a subpackage of the JAX package exports that the port's does not,

@@ -64,3 +64,31 @@ def test_reset_series_keeps_counters_and_starts_a_whole_window():
     assert raw["timings_s"] == {"lat": [100.0, 101.0, 102.0, 103.0, 104.0]}
     assert raw["histograms"] == {}
     assert raw["counters"] == {"n": 11.0} and raw["gauges"] == {"g": 2.0}
+
+
+def test_profiled_kernels_counts_the_second_call_and_keeps_the_trace(
+        tmp_path):
+    """The two-pass count on the CPU: ``fn`` runs twice in one window, the
+    second call is the ``sparkdl.counted`` range whose wall ms comes
+    back, the Chrome trace is kept where asked, and without a card no
+    kernel is counted."""
+    import json
+
+    import torch
+
+    from sparkdl_tpu_torch.utils.metrics import profiled_kernels
+
+    calls = []
+    x = torch.ones(64, 64)
+
+    def fn():
+        calls.append(1)
+        return x @ x
+
+    path = tmp_path / "trace.json"
+    total, names, wall_ms = profiled_kernels(fn, trace_path=str(path))
+    assert len(calls) == 2
+    assert (total, names) == (0, {}) and wall_ms > 0
+    events = json.loads(path.read_text())["traceEvents"]
+    counted = [e for e in events if e.get("name") == "sparkdl.counted"]
+    assert len(counted) == 1 and counted[0]["dur"] / 1e3 == wall_ms

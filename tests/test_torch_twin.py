@@ -497,6 +497,34 @@ def test_blackbox_timeline_folds_twin_incident(tmp_path, monkeypatch):
     assert r.scores["slo_minutes"] >= 0
 
 
+def test_port_blackbox_folds_twin_incident(tmp_path, monkeypatch):
+    """The twin of the test above through ``tools/port_blackbox.py``, which
+    imports no JAX: the day's dump folds into the same timeline document
+    as ``tools/blackbox.py`` gives, with the incident in it and a clean
+    verdict (exit 0 from both CLIs)."""
+    from sparkdl_tpu_torch.obs import cost as pcost
+    from tools import blackbox, port_blackbox
+
+    class ShutSentinel(pcost.CostLedger):
+        def __init__(self, **kw):
+            super().__init__(regress_factor=float("inf"), **kw)
+
+    monkeypatch.setattr(pcost, "CostLedger", ShutSentinel)
+    rec = FlightRecorder(out_dir=str(tmp_path))
+    monkeypatch.setattr(pflight, "_recorder", rec)
+    run_day(_small_cfg(ticks=10), policy=QuotaAutoscaler(TIGHT_QUOTA),
+            default_quota=TIGHT_QUOTA)
+    dump = str(tmp_path / "flight_twin.jsonl")
+    rec.dump(dump)
+    doc = port_blackbox.build_timeline(dump)
+    assert doc == blackbox.build_timeline(dump)
+    for ev in ("twin.scenario", "policy.adjust", "placement.plan",
+               "slo.breach", "slo.recovered"):
+        assert ev in doc["chain"]
+    assert doc["verdict"]["clean"] is True, doc["verdict"]
+    assert port_blackbox.main([dump]) == blackbox.main([dump]) == 0
+
+
 # -- the device -----------------------------------------------------------------
 
 def test_day_without_cuda_raises(monkeypatch):

@@ -17,8 +17,9 @@ engine's captures, and each reading of a replay and of an eager forward,
 four passes each (two plain, one after 50 ms of host sleep inside the
 profiled window, one after a synchronised small kernel there), with the
 first two kernels in the trace and the kernels whose ``key_averages()``
-count differs from the first reading; then ``chip_smoke.profiled_kernels``
-(the kernels of a second call in one profiled window).  A replay of one captured graph
+count differs from the first reading; then
+``sparkdl_tpu_torch.utils.metrics.profiled_kernels`` (the kernels of a
+second call in one profiled window).  A replay of one captured graph
 runs its kernel nodes every time, so a reading that moves while the
 nodes and the captures stay put is the profiler's; the reading that
 stays equal to the nodes is the one to count by.
@@ -89,6 +90,7 @@ FIRST = {}
 
 def probe(tag, xception):
     import chip_smoke as cs
+    from sparkdl_tpu_torch.utils.metrics import profiled_kernels
 
     eng, staged = xception
     g = next(iter(eng._graphs.values()))
@@ -113,8 +115,8 @@ def probe(tag, xception):
             rows.append(f"{what} (lead {lead}) key_averages {total} events "
                         f"{events} trace {traced}, first kernels {head}"
                         + (f" (moved: {moved})" if moved else ""))
-        rows.append(f"{what} chip_smoke.profiled_kernels (second call in "
-                    f"the window) {cs.profiled_kernels(fn)[0]}")
+        rows.append(f"{what} profiled_kernels (second call in "
+                    f"the window) {profiled_kernels(fn)[0]}")
     print(f"[{tag}] Xception graph: {nodes} kernel nodes, captures "
           f"{eng.metrics.counters.get('engine.graph_captures')}; "
           + "; ".join(rows), flush=True)
