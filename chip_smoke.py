@@ -3341,10 +3341,13 @@ def _add_counts(total, counts):
         total[k] += n
 
 
-def closed_loop(srv, images, n_clients, sepconv):
+def closed_loop(srv, images, n_clients, sepconv,
+                per_forward=SERVED_XCEPTION):
     """``n_clients`` threads, each submitting one image and waiting for its
     row before the next, for at least SERVING_LOOP_S and SERVING_LOOP_N
-    requests (at most SERVING_LOOP_MAX_S), as one counted window; returns
+    requests (at most SERVING_LOOP_MAX_S), as one counted window (each
+    dispatch launching ``per_forward``, a mesh's data groups included);
+    returns
     requests/s, client latency p50/p99 (ms; p99 only over SERVING_LOOP_N
     or more requests), queue time p50/p99 (ms), batch fill ratio, rows and
     pad rows, batches, launches and host µs per dispatch (the engines'
@@ -3381,7 +3384,7 @@ def closed_loop(srv, images, n_clients, sepconv):
         return time.perf_counter() - t0
 
     wall, counts, counters, series = _counted(
-        sepconv, srv, SERVED_XCEPTION, f"closed loop at {n_clients} clients",
+        sepconv, srv, per_forward, f"closed loop at {n_clients} clients",
         run)
     allat = np.asarray([x for per in lat for x in per])
     queue = np.asarray(series.get("serving.time_in_queue", [0.0]))
@@ -6150,6 +6153,16 @@ def phase_stream(sepconv, keep=None):
 MESH_WAVES = (8, 16, 32)        # one wave a bucket: each fills its bucket
 MESH_WAIT_MS = 400.0            # a wave is queued whole before its flush
 MESH_TENANTS = 4                # [mesh]'s fan-out tenants, 8 images each
+MESH_DEVICE = "cuda:0"          # the card whose slots the layouts repeat
+# (name, data, model) of the served Xception's layouts (a)-(c)
+MESH_LAYOUTS = (("a", 2, 1), ("b", 1, 2), ("c", 2, 4))
+MESH_CLIENTS = 8                # req/s of each layout at this many clients
+MESH_LOOP_WAIT_MS = 5.0         # the loops' flush wait: Server's default, as
+                                # [serving]'s loops run (the waves' 400 ms
+                                # would set a loop's pace)
+MESH_REL_TOL = KERNEL_TOL["rtol"]   # bf16 rows vs one device: ~2 bf16 steps
+MESH_F32_REL_TOL = INCEPTION_ROUTE_TOL  # f32 budget buster vs one device
+MESH_FEATURIZE_N = 64           # (f): images the default featurizer scores
 
 
 def _waves(srv, images):
@@ -6164,21 +6177,254 @@ def _waves(srv, images):
     return np.stack(rows)
 
 
+def _rel_max(a, b):
+    """The largest difference over the largest magnitude of ``b``."""
+    return float(np.abs(np.asarray(a, np.float64) - b).max()
+                 / max(np.abs(b).max(), 1e-30))
+
+
+def _mesh_slots(n, distinct):
+    """``n`` slots: all MESH_DEVICE, or spread over the visible cards."""
+    if not distinct:
+        return [MESH_DEVICE] * n
+    count = torch.cuda.device_count()
+    return [f"cuda:{i % count}" for i in range(n)]
+
+
+def _mesh_layout(sepconv, tag, name, slots, model, images, ref_rows, kw):
+    """One served layout: ``Server("Xception", mesh=...)`` over ``slots``
+    under the zoo's default rules, its waves (counted), its rows against
+    the one-device rows, its sharding_info(), pools and req/s."""
+    from sparkdl_tpu_torch.parallel.mesh import get_mesh
+    from sparkdl_tpu_torch.serving import Server
+
+    mesh = get_mesh(devices=slots, model_parallel=model)
+    dp = int(mesh.shape["data"])
+    per = {k: v * dp for k, v in SERVED_XCEPTION.items()}
+    srv = Server("Xception", **kw, mesh=mesh)
+    srv.warmup(images[0])
+    info = srv.sharding_info()
+    print(f"[{tag}] ({name}) mesh {mesh.shape} slots {info['slots']}; "
+          f"sharding_info {json.dumps(info, sort_keys=True)}", flush=True)
+    before = dict(srv.metrics.counters)
+    reset_counts(sepconv)
+    rows = _waves(srv, images)
+    counts = read_counts(sepconv)
+    batches = int(srv.metrics.counters.get("serving.batches", 0)
+                  - before.get("serving.batches", 0))
+    want = {k: v * batches for k, v in per.items()}
+    check(batches == len(MESH_WAVES) and counts == want,
+          f"[{tag}] ({name}): {batches} dispatches, launches {counts}, "
+          f"want {len(MESH_WAVES)} and {want}")
+    same = bool(np.array_equal(rows, ref_rows))
+    rel = _rel_max(rows, ref_rows)
+    moved = float(np.mean(rows != ref_rows))
+    check(same or rel <= MESH_REL_TOL,
+          f"[{tag}] ({name}) rows vs one device: rel {rel:.3g} > "
+          f"{MESH_REL_TOL}")
+    if model > 1:
+        check(info["sharded_leaves"] > 0
+              and info["param_bytes_per_chip"] < info["param_bytes_total"]
+              and info["param_bytes_per_slot"] < info["param_bytes_total"],
+              f"[{tag}] ({name}) weights not split: {info}")
+    eng = next(iter(srv._engines.values()))
+    pools = eng.pool_bytes_per_device()
+    srv._batcher.max_wait_s = MESH_LOOP_WAIT_MS / 1e3
+    loop = closed_loop(srv, images, MESH_CLIENTS, sepconv, per)
+    srv.close()
+    print(f"[{tag}] ({name}) B1 {counts['sepconv']} launches in "
+          f"{batches} dispatches ({per['sepconv']} a dispatch: "
+          f"{SEPCONV_PER_FORWARD} a forward in each of {dp} data groups, on "
+          f"whole operands: the rules leave the sepconv weights whole and "
+          f"the activations reaching B1 are gathered), H1 0; rows vs one "
+          f"device: {'bit for bit' if same else f'max rel {rel:.3g}'} "
+          f"(limit {MESH_REL_TOL}; ||a-b||/||b|| {_rel(rows, ref_rows):.3g}, "
+          f"{moved:.2%} of the values moved); pools "
+          f"{ {k: round(v / 2**20, 1) for k, v in pools.items()} } MiB; "
+          f"{loop['requests_per_s']:.1f} req/s at {MESH_CLIENTS} clients, "
+          f"p50 {loop['p50_ms']:.2f} ms, B1 {loop['launches']['sepconv']} in "
+          f"{loop['batches']} dispatches", flush=True)
+    return dict(mesh_shape=info["mesh_shape"], slots=info["slots"],
+                sharding=info, launches=counts, dispatches=batches,
+                bit_for_bit=same, rel=rel, moved=moved,
+                pool_bytes_per_device=pools, closed_loop=loop)
+
+
+def _mesh_fanout(sepconv, tag, name, slots, images, heads):
+    """(d): ``HeadFanoutServer`` on dp2 over ``slots``; every row bit for
+    bit its per-tenant oracle; H1 once a pass in each data group."""
+    from sparkdl_tpu_torch.ops import head as hops
+    from sparkdl_tpu_torch.parallel.engine import dense_head_row
+    from sparkdl_tpu_torch.parallel.mesh import get_mesh
+    from sparkdl_tpu_torch.serving import HeadFanoutServer, InferenceCache
+    from sparkdl_tpu_torch.utils.digest import content_digest
+
+    mesh = get_mesh(devices=slots)
+    dp = int(mesh.shape["data"])
+    fsrv = HeadFanoutServer("Xception", max_batch_size=BATCH, mesh=mesh,
+                            cache=InferenceCache())
+    for t, h in heads.items():
+        fsrv.add_head(t, h)
+    reqs = [(i, t) for t in heads for i in range(8)]
+    fsrv.predict(images[0], next(iter(heads)))  # warm the backbone bucket
+    before = dict(fsrv.metrics.counters)
+    reset_counts(sepconv)
+    hops.head_pass.launches = 0
+    served = [fsrv.predict(images[i], t) for i, t in reqs]
+    h1 = hops.head_pass.launches
+    counts = read_counts(sepconv)
+    passes = int(fsrv.metrics.counters.get("headbank.dispatches", 0)
+                 - before.get("headbank.dispatches", 0))
+    bad = 0
+    for (i, t), row in zip(reqs, served):
+        feats = fsrv.cache.get(fsrv.feature_namespace
+                               + (content_digest(images[i]),))
+        with torch.inference_mode():
+            want = dense_head_row(
+                {k: torch.from_numpy(v).to(MESH_DEVICE)
+                 for k, v in heads[t].items()},
+                torch.from_numpy(np.ascontiguousarray(feats)).to(
+                    MESH_DEVICE)).cpu().numpy()
+        bad += row.tobytes() != want.tobytes()
+    stats = fsrv.bank.stats()
+    info = fsrv.backbone.sharding_info()
+    fsrv.close()
+    check(bad == 0, f"[{tag}] ({name}) {bad} fan-out rows != their "
+          f"per-tenant oracle")
+    check(passes == len(reqs) and h1 == dp * passes,
+          f"[{tag}] ({name}) {passes} head passes for {len(reqs)} requests, "
+          f"H1 {h1} launches (want {dp} a pass)")
+    check(stats["mesh_shape"] == {"data": dp, "model": 1},
+          f"[{tag}] ({name}) head bank stats {stats}")
+    print(f"[{tag}] ({name}) HeadFanoutServer(Xception) on mesh "
+          f"{mesh.shape} slots {info['slots']}: {len(reqs)} requests of "
+          f"{len(heads)} tenants, every row == its per-tenant oracle bit for "
+          f"bit; {passes} head passes, H1 {h1} launches ({dp} a pass, one "
+          f"in each data group), B1 {counts['sepconv']}", flush=True)
+    return dict(mesh_shape=stats["mesh_shape"], slots=info["slots"],
+                requests=len(reqs), passes=passes, h1=h1,
+                launches=counts)
+
+
+def _mesh_budget_buster(tag):
+    """(e): ``wide_dense_fn`` at 128 x 131072 f32 on dp1 x tp8 over
+    MESH_DEVICE's slots, against a one-device engine: each slot holds
+    8 MiB of kernel and the bias, under GC005's 32 MB budget."""
+    from sparkdl_tpu_torch.analysis.program.audit import (
+        REPLICATED_PARAM_BUDGET_BYTES)
+    from sparkdl_tpu_torch.analysis.program.inventory import (
+        WIDE_DENSE_IN, WIDE_DENSE_OUT, wide_dense_fn)
+    from sparkdl_tpu_torch.parallel.engine import InferenceEngine
+    from sparkdl_tpu_torch.parallel.mesh import (default_partition_rules,
+                                                 get_mesh)
+
+    rng = np.random.default_rng(SEED + 93)
+    module = torch.nn.Module()
+    module.dense = torch.nn.Module()
+    module.dense.register_buffer("kernel", torch.from_numpy(rng.normal(
+        scale=0.05, size=(WIDE_DENSE_IN, WIDE_DENSE_OUT)).astype(
+            np.float32)))
+    module.dense.register_buffer("bias", torch.from_numpy(rng.normal(
+        size=(WIDE_DENSE_OUT,)).astype(np.float32)))
+    x = rng.normal(size=(32, WIDE_DENSE_IN)).astype(np.float32)
+    mesh = get_mesh(devices=_mesh_slots(8, False), model_parallel=8)
+    tp = InferenceEngine(wide_dense_fn, module, mesh=mesh,
+                         device_batch_size=32,
+                         partition_rules=default_partition_rules)
+    one = InferenceEngine(wide_dense_fn, module, device=MESH_DEVICE,
+                          device_batch_size=32)
+    got, want = tp(x), one(x)
+    info = tp.sharding_info()
+    slot_want = WIDE_DENSE_IN * WIDE_DENSE_OUT * 4 // 8 + WIDE_DENSE_OUT * 4
+    same = bool(np.array_equal(got, want))
+    rel = _rel_max(got, want)
+    staged, ostaged = tp._pad(x), one._pad(x)
+    ms = dict(tp8=cuda_ms(lambda: tp.run_padded(staged), reps=20),
+              one=cuda_ms(lambda: one.run_padded(ostaged), reps=20))
+    pools = tp.pool_bytes_per_device()
+    tp.release_graphs()
+    one.release_graphs()
+    check(same or rel <= MESH_F32_REL_TOL,
+          f"[{tag}] (e) budget buster rows vs one device: rel {rel:.3g}")
+    check(info["param_bytes_total"] > REPLICATED_PARAM_BUDGET_BYTES
+          and info["param_bytes_per_chip"] < REPLICATED_PARAM_BUDGET_BYTES
+          and info["param_bytes_per_slot"] == slot_want
+          and info["split_groups"] == "captured",
+          f"[{tag}] (e) budget buster layout {info}")
+    print(f"[{tag}] (e) wide_dense_fn {WIDE_DENSE_IN}x{WIDE_DENSE_OUT} f32 "
+          f"on mesh {info['mesh_shape']} slots {info['slots']}: "
+          f"{info['param_bytes_total']} B in all, "
+          f"{info['param_bytes_per_slot']} B a slot (8 MiB kernel + bias; "
+          f"budget {REPLICATED_PARAM_BUDGET_BYTES}), "
+          f"{info['bytes_per_device']} held; rows vs one device: "
+          f"{'bit for bit' if same else f'rel {rel:.3g}'} (limit "
+          f"{MESH_F32_REL_TOL}); dispatch {ms['tp8']:.3f} ms split against "
+          f"{ms['one']:.3f} ms on one device; pools "
+          f"{ {k: round(v / 2**20, 1) for k, v in pools.items()} } MiB",
+          flush=True)
+    return dict(sharding=info, bit_for_bit=same, rel=rel, ms=ms,
+                pool_bytes_per_device=pools)
+
+
+def _mesh_featurizer(sepconv, tag):
+    """(f): ``DeepImageFeaturizer("Xception")`` with no mesh and no device
+    given: the mesh it chose and the card count."""
+    import sparkdl_tpu_torch
+    from sparkdl_tpu_torch.transformers import named_image as ni
+
+    size = 299
+    df = synthetic_frame(MESH_FEATURIZE_N, size, SEED + 94)
+    with sparkdl_tpu_torch.default_device(None):
+        feat = ni.DeepImageFeaturizer(inputCol="image", outputCol="f",
+                                      modelName="Xception", batchSize=BATCH)
+        eng = ni._zoo_engine("Xception", True, BATCH)
+        feat.transform(df)  # its graphs captured outside the window
+        reset_counts(sepconv)
+        out = feat.transform(df)
+        counts = read_counts(sepconv)
+    f = np.asarray(out.table.column("f").to_pylist(), np.float32)
+    dp = int(eng.mesh.shape["data"])
+    pieces = -(-MESH_FEATURIZE_N // eng.device_batch_size)
+    check(f.shape == (MESH_FEATURIZE_N, 2048) and np.isfinite(f).all(),
+          f"[{tag}] (f) features {f.shape}")
+    check(counts["sepconv"] == SEPCONV_PER_FORWARD * dp * pieces,
+          f"[{tag}] (f) B1 {counts}, want {SEPCONV_PER_FORWARD} a forward "
+          f"in each of {dp} groups over {pieces} batches")
+    slots = [str(d) for d in eng.mesh.devices.flat]
+    print(f"[{tag}] (f) DeepImageFeaturizer(Xception) with no mesh given: "
+          f"mesh {eng.mesh.shape} slots {slots}, "
+          f"{torch.cuda.device_count()} card(s) visible; "
+          f"{MESH_FEATURIZE_N} images, B1 {counts['sepconv']}", flush=True)
+    return dict(mesh_shape=eng.mesh.shape, slots=slots,
+                cards=torch.cuda.device_count(), launches=counts)
+
+
 def phase_mesh(sepconv):
     """[mesh]: the device mesh and the weight policy on the served zoo
-    Xception at 299x299, f32 with TF32 off, buckets 8/16/32.
+    Xception at 299x299, buckets 8/16/32.
 
-      1. ``Server(mesh=get_mesh(), partition_rules=default_partition_rules)``
+      1. f32 with TF32 off, on this process's one-device mesh:
+         ``Server(mesh=get_mesh(), partition_rules=default_partition_rules)``
          serves rows bit for bit the plain ``Server``'s (the same waves,
          one bucket each), and so does ``donate_batch=True``; B1 launches
          30 a dispatch in every window (counts set to 0 just before each
-         server's waves, read just after);
-      2. ``varz()["sharding"]``: mesh (1, 1), ``sharded`` False, digest
-         ``"replicated"``, ``param_bytes_total`` the module's counted
-         tensors (its ``state_dict`` without ``num_batches_tracked``);
-      3. ``HeadFanoutServer(mesh=get_mesh())``: MESH_TENANTS tenants over
-         8 images each, every row bit for bit its per-tenant oracle (the
-         head over the cached feature row), H1 one launch a head pass."""
+         server's waves, read just after); ``varz()["sharding"]``: mesh
+         (1, 1), ``sharded`` False, digest ``"replicated"``,
+         ``param_bytes_total`` the module's counted tensors; and
+         ``HeadFanoutServer(mesh=get_mesh())``: MESH_TENANTS tenants over 8
+         images each, every row bit for bit its per-tenant oracle, H1 one
+         launch a head pass.
+      2. bf16 compute (the served dtype), on meshes of several slots of
+         MESH_DEVICE (and, where two or more cards are visible, of
+         distinct cards), each layout's servers closed before the next:
+         (a) dp2 x tp1, (b) dp1 x tp2 and (c) dp2 x tp4 under the zoo's
+         default rules: B1 30 a forward in each data group, rows within
+         MESH_REL_TOL of the one-device server's, the weights split under
+         (b) and (c), req/s at MESH_CLIENTS clients; (d)
+         ``HeadFanoutServer`` on dp2: rows bit for bit their oracles, H1
+         once a pass in each group; (e) the budget buster (f32) on dp1 x
+         tp8; (f) ``DeepImageFeaturizer("Xception")`` with no mesh given,
+         the mesh it chose."""
     from sparkdl_tpu_torch.image.io import arrowStructsToBatch
     from sparkdl_tpu_torch.models import get_model_spec
     from sparkdl_tpu_torch.ops import head as hops
@@ -6197,7 +6443,7 @@ def phase_mesh(sepconv):
     df = synthetic_frame(n, size, SEED + 91)
     images, ok = arrowStructsToBatch(df.table.column("image"), size, size)
     check(ok.all(), f"[{tag}] synthetic images failed to decode")
-    mesh = get_mesh()
+    mesh = get_mesh()  # one card: main pins cuda:0 where more are visible
     check(mesh.shape == {"data": 1, "model": 1}
           and mesh.devices.flat[0].type == "cuda",
           f"[{tag}] get_mesh() is {mesh}, want (1, 1) on the card")
@@ -6294,6 +6540,58 @@ def phase_mesh(sepconv):
           f"{stats['mesh_shape']}", flush=True)
     out["fanout"] = dict(requests=len(reqs), passes=passes, h1=h1,
                          bank=stats)
+
+    # 2. meshes of several slots, bf16 compute: (a)-(f)
+    t_part = time.perf_counter()
+    kw = dict(featurize=True, max_batch_size=BATCH, bucket_sizes=[8, 16, 32],
+              max_wait_ms=MESH_WAIT_MS, cache=False)
+    layouts = {}
+    with env_knobs({"SPARKDL_ZOO_COMPUTE_DTYPE": "bfloat16"}):
+        ref = Server("Xception", **kw, device=MESH_DEVICE)
+        ref.warmup(images[0])
+        reset_counts(sepconv)
+        ref_rows = _waves(ref, images)
+        _add_counts(total, read_counts(sepconv))
+        ref._batcher.max_wait_s = MESH_LOOP_WAIT_MS / 1e3
+        ref_loop = closed_loop(ref, images, MESH_CLIENTS, sepconv)
+        _add_counts(total, ref_loop["launches"])
+        ref_pool = ref.graph_pool_bytes
+        ref.close()
+        print(f"[{tag}] one device (bf16, {MESH_DEVICE}): "
+              f"{ref_loop['requests_per_s']:.1f} req/s at {MESH_CLIENTS} "
+              f"clients, p50 {ref_loop['p50_ms']:.2f} ms; pool "
+              f"{ref_pool / 2**20:.1f} MiB", flush=True)
+        layouts["one"] = dict(closed_loop=ref_loop, pool_bytes=ref_pool)
+        variants = [False] + ([True] if torch.cuda.device_count() > 1
+                              else [])
+        for distinct in variants:
+            for name, dp, tp in MESH_LAYOUTS:
+                key = name + ("_cards" if distinct else "")
+                r = _mesh_layout(sepconv, tag, key,
+                                 _mesh_slots(dp * tp, distinct), tp, images,
+                                 ref_rows, kw)
+                _add_counts(total, r["launches"])
+                _add_counts(total, r["closed_loop"]["launches"])
+                layouts[key] = r
+        rng = np.random.default_rng(SEED + 95)
+        heads2 = {f"d{i}": {
+            "kernel": (rng.normal(size=(HEAD_D, FANOUT_CLASSES))
+                       / math.sqrt(HEAD_D)).astype(np.float32),
+            "bias": rng.normal(size=(FANOUT_CLASSES,)).astype(np.float32)}
+            for i in range(MESH_TENANTS)}
+        for distinct in variants:
+            key = "d" + ("_cards" if distinct else "")
+            r = _mesh_fanout(sepconv, tag, key, _mesh_slots(2, distinct),
+                             images, heads2)
+            _add_counts(total, r["launches"])
+            h1 += r["h1"]
+            layouts[key] = r
+    layouts["e"] = _mesh_budget_buster(tag)
+    layouts["f"] = _mesh_featurizer(sepconv, tag)
+    _add_counts(total, layouts["f"]["launches"])
+    out["layouts"] = layouts
+    out["layouts_s"] = time.perf_counter() - t_part
+    print(f"[{tag}] layouts (a)-(f) in {out['layouts_s']:.1f}s", flush=True)
     out["launches"] = dict(total, head_pass=h1)
     return out
 
@@ -7997,6 +8295,10 @@ def main():
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
     check(sparkdl_tpu_torch.resolve_device().type == "cuda",
           "entry points do not default to the card")
+    if torch.cuda.device_count() > 1:
+        # every phase runs on one card, as it did, save [mesh]'s layouts,
+        # which name their slots, and its (f), which unpins
+        sparkdl_tpu_torch.set_default_device("cuda:0")
     for knob in ("SPARKDL_MNV2_FUSED", "SPARKDL_XC_TILED", "SPARKDL_S2D_STEM",
                  "SPARKDL_FUSED_HEADS", "SPARKDL_ZOO_COMPUTE_DTYPE",
                  "SPARKDL_RN_FUSED_SHORTCUT", "SPARKDL_WEIGHTS_DIR"):

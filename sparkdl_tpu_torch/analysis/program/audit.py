@@ -45,8 +45,8 @@ The rules read the record as JAX's read the lowering:
   always 0 (torch has no weak types).
 * GC004: :func:`pad_waste_audit`, JAX's, over the meta FLOPs.
 * GC005: the port's policy functions (``parallel.mesh``) over the
-  DECLARED mesh axes: only arithmetic, so a split the runtime refuses
-  (one card per process) is still audited.  No text is scanned, so JAX's
+  DECLARED mesh axes: only arithmetic, so a layout is audited without
+  the devices it names.  No text is scanned, so JAX's
   "no sharding annotation reached the lowered program" check has no
   counterpart here.
 

@@ -18,11 +18,12 @@ The route of each program is the card's: the engine's module is
 ``channels_last`` as on CUDA, and a module that picks its route by device
 (``fused_inference=None``: Xception's fused separable convolutions) is
 built with the card's choice, ``fused_inference=True``, so the record
-holds the kernel nodes the card launches.  The zoo's mesh is this
-process's one device, so its programs declare ``mesh_axes`` ``{"data": 1,
+holds the kernel nodes the card launches.  The zoo's programs are
+audited on one device, so they declare ``mesh_axes`` ``{"data": 1,
 "model": 1}``; the wide-dense pair declares JAX's ``dp1tp8`` and
-``dp2tp4`` layouts, which the audit checks by arithmetic alone (the
-runtime refuses a real split: one card per process).
+``dp2tp4`` layouts, which GC005 checks by arithmetic over the declared
+axes.  The runtime runs those layouts split (``parallel.shard``); the
+record's call list is the whole program's, traced on one meta device.
 """
 
 from __future__ import annotations
@@ -330,9 +331,11 @@ def sharded_dispatch_specs(feature_dim_in: int = WIDE_DENSE_IN,
     """The tensor-parallel wide-dense programs (JAX's): the layout from
     ``mesh.resolve_param_shardings`` under the default rules (the kernel
     split on its output dim, the bias replicated) on each of JAX's two
-    model-axis layouts, declared for GC005.  The port's runtime holds
-    every weight whole on one card, so these programs are audited by the
-    declaration's arithmetic, never run split."""
+    model-axis layouts, declared for GC005.  The engine runs them split
+    on such a mesh (each slot holds its column slice of the kernel,
+    ``parallel.shard``: per-shard products, then the tanh on the slices);
+    the audit traces the whole program on one meta device, and GC005
+    checks the declared layout by arithmetic."""
     from sparkdl_tpu_torch.analysis.program.audit import mesh_standin
     from sparkdl_tpu_torch.parallel import mesh as mesh_lib
 
@@ -485,7 +488,7 @@ def sepconv_kernel_specs() -> List[ProgramSpec]:
 
 def _one_device_mesh():
     """The zoo's mesh for ``bucket_plan``: one (meta) device, shape
-    (1, 1), as an engine's mesh is this process's one device."""
+    (1, 1), the layout the zoo's records are audited on."""
     import torch
 
     from sparkdl_tpu_torch.parallel.mesh import Mesh

@@ -42,6 +42,7 @@ from typing import Tuple
 import torch
 
 from sparkdl_tpu_torch.ops import sepconv as _kernels
+from sparkdl_tpu_torch.parallel.shard import gathered
 
 
 def head_partials(d: int) -> int:
@@ -168,7 +169,9 @@ def head_pass(feats: torch.Tensor, idx: torch.Tensor, kernel: torch.Tensor,
     operands and an int32 index; anything else raises, nothing is cast),
     the meta path for a meta tensor.
     No backward: raises when grad mode is on and an operand requires
-    grad."""
+    grad.  An operand split over a mesh's model slots is gathered first
+    (``parallel.shard``)."""
+    feats, idx, kernel, bias = gathered(feats, idx, kernel, bias)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (feats, kernel, bias)):
         raise RuntimeError("head_pass has no backward, and an operand "

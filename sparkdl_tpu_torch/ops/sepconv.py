@@ -57,6 +57,7 @@ import torch.nn.functional as F
 
 from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 from sparkdl_tpu_torch.ops import build
+from sparkdl_tpu_torch.parallel.shard import gathered
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel -> (library, sources under csrc/, C symbol prefix, launch argtypes)
@@ -555,7 +556,9 @@ def fused_sepconv(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
     CUDA tensor, and the meta path (module docstring) for a meta tensor.
     An NCHW tensor in ``channels_last`` memory format, permuted to NHWC, is
     already contiguous: no copy is made for it.  Raises when grad mode is
-    on and an operand requires grad (no backward)."""
+    on and an operand requires grad (no backward).  An operand split over
+    a mesh's model slots is gathered first (``parallel.shard``)."""
+    x, dwk, pw, scale, shift = gathered(x, dwk, pw, scale, shift)
     _refuse_autograd("fused_sepconv", x, dwk, pw, scale, shift)
     dwk, pw = _keras_layouts(dwk, pw)
     if x.device.type == "cpu":
@@ -810,7 +813,9 @@ def fused_mbconv(x: torch.Tensor, dwk: torch.Tensor, pw: torch.Tensor,
     (``models.layers.fold_bn_into_conv``), as ``fused_mbconv_flat`` takes
     them.  A CPU tensor runs the plain version, a CUDA tensor the kernel,
     a meta tensor the meta path (module docstring).  Raises when grad mode
-    is on and an operand requires grad (no backward)."""
+    is on and an operand requires grad (no backward).  An operand split
+    over a mesh's model slots is gathered first (``parallel.shard``)."""
+    x, dwk, pw, mid_shift, shift = gathered(x, dwk, pw, mid_shift, shift)
     _refuse_autograd("fused_mbconv", x, dwk, pw, mid_shift, shift)
     dwk, pw = _keras_layouts(dwk, pw)
     if x.device.type == "cpu":

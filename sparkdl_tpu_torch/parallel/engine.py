@@ -1,5 +1,5 @@
 """Batch inference engine (port of ``sparkdl_tpu/parallel/engine.py``'s
-``InferenceEngine`` on one device).
+``InferenceEngine``).
 
 Runs ``fn(module, batch) -> out`` over arbitrarily sized host inputs in
 fixed-size device batches: each chunk is sliced into ``device_batch_size``
@@ -57,18 +57,18 @@ in the pipelined runner).  While tracing is off no timing event is made.
 stage (or other holder) that runs it; the engine and its graphs go with
 the holder.
 
-Graph memory: every capture of one engine allocates from ONE memory pool
-(``torch.cuda.graph_pool_handle()``, passed as ``pool=``), not a private
-pool per capture.  Sharing is safe because the engine never runs two of
-its graphs at once and reads nothing a graph wrote after another graph
-ran: every replay waits on the event recorded after the previous replay
-and its output copy (so replays are serialized whatever stream a caller
-is on), each replay's output is cloned out of the pool before that event,
-and the static inputs live outside the pool.  A graph may then reuse
-another's intermediates, so the pool holds about one forward's memory,
-not one per bucket.  ``graph_pool_bytes`` is what the pool reserved;
-:meth:`InferenceEngine.release_graphs` drops the graphs (after the card
-has finished with them) and returns the pool, and
+Graph memory: every capture of one engine on one device allocates from
+ONE memory pool (``torch.cuda.graph_pool_handle()``, passed as ``pool=``),
+not a private pool per capture.  Sharing is safe because the engine never
+runs two of its graphs at once and reads nothing a graph wrote after
+another graph ran: every replay waits on the event recorded after the
+previous replay and its output copy (so replays are serialized whatever
+stream a caller is on), each replay's output is cloned out of the pool
+before that event, and the static inputs live outside the pool.  A graph
+may then reuse another's intermediates, so the pool holds about one
+forward's memory, not one per bucket.  ``graph_pool_bytes`` is what the
+pools reserved; :meth:`InferenceEngine.release_graphs` drops the graphs
+(after the cards have finished with them) and returns the pools, and
 :func:`graph_pool_bytes_held` sums the pools of every live engine.
 
 Siblings: :meth:`InferenceEngine.sibling` makes an engine for another
@@ -86,13 +86,34 @@ tenant's row from a mixed-tenant batch is its row through its head alone,
 bit for bit, in every bank mode.
 
 The mesh (JAX's ``resolve_engine_mesh``, ``effective_device_batch``,
-``partition_rules`` / ``param_shardings``, ``sharding_info``): scoring is
-per process, on this rank's one device, so an engine's mesh is (1, 1)
-(:func:`resolve_engine_mesh`); a mesh of more devices raises
-``NotImplementedError`` (ROADMAP.md §C), so no weight policy splits a
-weight: the port holds every weight whole on one card.  A policy that
-resolves all-replicated collapses, as JAX's does (``sharding_digest``
-``"replicated"``).  ``donate_batch=True`` is accepted and recorded (in
+``partition_rules`` / ``param_shardings``, ``sharding_info``): an engine
+scores on a mesh of this process's devices, by default
+:func:`~sparkdl_tpu_torch.parallel.mesh.get_mesh` (every visible card), or
+the one ``device=`` names.  Mesh entries are *slots*; a device may repeat.
+Data group g (row g of the mesh) takes rows ``[g*b/dp, (g+1)*b/dp)`` of
+each device batch; the weights are placed by
+:func:`~sparkdl_tpu_torch.parallel.mesh.place` under the resolved policy: a
+leaf the policy splits is one :class:`~sparkdl_tpu_torch.parallel.shard.
+ShardedTensor` per data group over the group's model slots (its ops run
+per shard or gather first, :mod:`~sparkdl_tpu_torch.parallel.shard`), a
+replicated leaf one copy per distinct device, which the groups on that
+device share.  The groups' outputs leave them whole and are gathered in
+row order on the mesh's first device (a concatenation there; a copy from
+another card first), from which the output is fetched as before.  A
+policy that resolves all-replicated collapses, as JAX's does
+(``sharding_digest`` ``"replicated"``).  A weight split on the data axis
+raises ``NotImplementedError``.
+
+Graphs on a mesh: one :class:`_GraphCore` (lock, pool, streams, staging
+slots) per distinct device.  A group whose slots all name one device is
+one captured graph; groups with the same slots share it (two half-batch
+replays a dispatch for dp2 on one card).  Groups on distinct cards
+replay one after the other from the dispatching thread, each under its
+own core: the launches are asynchronous, so the cards run them at once.
+A group that splits a weight over slots on distinct cards runs eagerly,
+chosen at construction (``sharding_info()["split_groups"]`` ``"eager"``,
+counter ``engine.split_group_eager`` per forward), never after a failed
+capture.  ``donate_batch=True`` is accepted and recorded (in
 ``sharding_info()`` and the graph key): it changes nothing on the card,
 where the captured graph already owns its static input and every upload
 lands in the engine's own staging slot.
@@ -276,14 +297,19 @@ class DispatchCircuitBreaker:
 
 
 def resolve_engine_mesh(mesh=None, device: DeviceLike = None):
-    """The mesh an engine runs on: this process's one device (``device``,
-    default :func:`~sparkdl_tpu_torch.resolve_device`), shape (1, 1),
-    when ``mesh`` is None.  Scoring is per process, as JAX's is per
-    controller: a mesh holding another rank's device raises, as JAX's
-    does, and so does a mesh of more than one device of this process (one
-    card per process, ROADMAP.md §C) and a ``device`` that is not the
-    mesh's."""
+    """The mesh an engine runs on.  With no ``mesh``: the one device
+    ``device`` names, or with no ``device`` either
+    :func:`~sparkdl_tpu_torch.parallel.mesh.get_mesh` (every visible card,
+    the CPU, or the one card the default device names), as JAX's default
+    of every local chip; in a ``torch.distributed`` group this rank's
+    device.  Scoring is per process, as JAX's is per controller: a mesh
+    holding another rank's device raises, as JAX's does; so do a mesh
+    mixing device types and a ``device`` that is not the mesh's first.
+    Every slot is resolved, so a CUDA slot without a card raises
+    ``RuntimeError``."""
     if mesh is None:
+        if device is None and distributed.process_count() == 1:
+            return mesh_lib.get_mesh()
         return mesh_lib.get_mesh(devices=[resolve_device(device)])
     if device is not None and torch.device(device) != mesh.devices.flat[0]:
         raise ValueError(f"device {device} is not the mesh's device "
@@ -292,15 +318,13 @@ def resolve_engine_mesh(mesh=None, device: DeviceLike = None):
     if any(int(r) != me for r in np.asarray(mesh.ranks).flat):
         raise NotImplementedError(
             "InferenceEngine is single-controller: pass a mesh over this "
-            "process's device (mesh.get_mesh(devices=[resolve_device()])) "
+            "process's devices (mesh.get_mesh(devices=[resolve_device()])) "
             "and shard input rows per rank; multi-process collectives "
             "belong to the TRAIN path (parallel.train / "
             "parallel.distributed).")
-    if mesh.size > 1:
-        raise NotImplementedError(
-            f"an engine mesh of {mesh.size} devices in one process "
-            f"({mesh.shape}): the port runs one card per process "
-            f"(ROADMAP.md §C, documented deviations)")
+    kinds = {resolve_device(d).type for d in mesh.devices.flat}
+    if len(kinds) > 1:
+        raise ValueError(f"a mesh mixes device types {sorted(kinds)}")
     return mesh
 
 
@@ -397,6 +421,12 @@ def fold_entries(owners) -> list:
     return [e for m in owners for e in m._folds.values()]
 
 
+def _fold_tensors(entry) -> list:
+    """The tensors one fold-cache entry holds (its result; the sources it
+    keeps are the module's own)."""
+    return [t for t in _tree_leaves(entry[2]) if isinstance(t, torch.Tensor)]
+
+
 def graph_key(state: List[torch.Tensor], fold_owners=()) -> tuple:
     """What a captured forward depends on beyond its input: the
     ``(data_ptr, _version)`` of every parameter and buffer in ``state``
@@ -449,9 +479,10 @@ def _end_timing(start: Optional[torch.cuda.Event], stream) -> None:
 
 def graph_pool_bytes_held() -> int:
     """The CUDA-graph pool bytes that every live engine in the process
-    holds (``InferenceEngine.graph_pool_bytes`` summed, siblings' shared
-    pool once)."""
-    cores = {id(e._core): e._core for e in list(_LIVE_ENGINES)}
+    holds on every device (``InferenceEngine.graph_pool_bytes`` summed,
+    siblings' shared pools once)."""
+    cores = {id(c): c for e in list(_LIVE_ENGINES)
+             for c in e._cores.values()}
     return sum(c.pool_bytes for c in cores.values())
 
 
@@ -461,12 +492,14 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
 
 class _GraphCore:
     """What an engine shares with its siblings (:meth:`InferenceEngine.
-    sibling`): the lock that serialises uploads and dispatches, the
-    captured graphs, the device staging slots, the graphs' one memory pool
-    and the bytes it reserved, the event after the last replay's output
-    copy, and (CUDA) the upload, fetch and capture streams."""
+    sibling`) on one device, one per distinct device of the mesh: the lock
+    that serialises uploads and dispatches there, the captured graphs, the
+    device staging slots, the graphs' one memory pool and the bytes it
+    reserved, the event after the last replay's output copy, and (CUDA)
+    the upload, fetch and capture streams."""
 
     def __init__(self, device: torch.device):
+        self.device = device
         self.lock = named_lock("engine.core")
         self.graphs: Dict[tuple, "_Graph"] = {}
         self.slots: Dict[tuple, "_DeviceSlots"] = {}
@@ -477,6 +510,34 @@ class _GraphCore:
             self.h2d = torch.cuda.Stream(device)
             self.d2h = torch.cuda.Stream(device)
             self.capture_stream = torch.cuda.Stream(device)
+
+
+def _device_key(device: torch.device) -> str:
+    """One name per physical device: ``cuda`` without an index is the
+    current card."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
+class _Group:
+    """One data group, a row of the mesh: its slots, its first
+    device (where its input lands and its output leaves it), its module
+    (shared by the groups with the same slots), the parameters and buffers
+    and fold-cache owners of that module, the graph core of its first
+    device, and whether it runs eagerly (a weight split over slots on
+    distinct cards)."""
+
+    def __init__(self, slots: tuple, module: nn.Module, core, eager: bool):
+        self.slots = slots
+        self.device = slots[0]
+        self.key = tuple(str(d) for d in slots)
+        self.module = module
+        self.state = [*module.parameters(), *module.buffers()]
+        self.fold_owners = [m for m in module.modules()
+                            if isinstance(getattr(m, "_folds", None), dict)]
+        self.core = core
+        self.eager = eager
 
 
 class _DeviceSlots:
@@ -586,27 +647,32 @@ class InferenceEngine:
             threshold=breaker_threshold, cooldown_s=breaker_cooldown_s)
         self._on_dispatch_error = on_dispatch_error
         cuda = self.device.type == "cuda"
-        self.module = device_module(module, self.device, compute_dtype)
-        self.name = type(self.module).__name__
+        base = device_module(module, self.device, compute_dtype)
+        self.name = type(base).__name__
         self.capture = bool(capture) and cuda
-        self._state = [*self.module.parameters(), *self.module.buffers()]
-        self._fold_owners = [m for m in self.module.modules()
-                             if isinstance(getattr(m, "_folds", None), dict)]
-        self._resolve_policy(partition_rules, param_shardings)
+        self._resolve_policy(base, partition_rules, param_shardings)
         # the persistent compile cache resolves once per process; this
         # engine's policy joins its manifest's policy set
         from sparkdl_tpu_torch.parallel import compile_cache
 
         compile_cache.ensure_from_env(policy=self.compile_policy())
-        # graphs, staging slots, lock, the graphs' one memory pool (made at
-        # the first capture), the bytes it reserved, the event after the
-        # last replay's output copy (see the module docstring) and the
-        # streams: shared with every sibling
-        self._core = _GraphCore(self.device)
+        # one graph core per distinct device: graphs, staging slots, lock,
+        # the graphs' one memory pool (made at the first capture), the
+        # bytes it reserved, the event after the last replay's output copy
+        # (see the module docstring) and the streams; shared with every
+        # sibling
+        self._cores: Dict[str, _GraphCore] = {}
+        for d in self.mesh.devices.flat:
+            d = torch.device(d)
+            if _device_key(d) not in self._cores:
+                self._cores[_device_key(d)] = _GraphCore(d)
+        self._core = self._cores[_device_key(self.device)]
+        self._place(base)
         self._init_own()
         _LIVE_ENGINES.add(self)
 
-    def _resolve_policy(self, partition_rules, param_shardings) -> None:
+    def _resolve_policy(self, module, partition_rules,
+                        param_shardings) -> None:
         """The weight-sharding policy over the device module, as JAX's
         engine resolves it: explicit ``param_shardings`` win over
         ``partition_rules``, and an all-replicated resolution collapses to
@@ -614,17 +680,16 @@ class InferenceEngine:
         specs = None
         if param_shardings is not None:
             _, specs = mesh_lib.resolve_param_shardings(
-                self.module, self.mesh, specs=param_shardings)
+                module, self.mesh, specs=param_shardings)
         elif partition_rules is not None:
             _, specs = mesh_lib.resolve_param_shardings(
-                self.module, self.mesh, partition_rules)
+                module, self.mesh, partition_rules)
         if specs is not None and mesh_lib.specs_all_replicated(specs):
             specs = None
-        # the mesh is one device (resolve_engine_mesh): no spec can split
         self._param_specs = specs
         self.sharding_digest = mesh_lib.partition_digest(specs)
         self._sharding_stats = mesh_lib.param_sharding_stats(
-            self.mesh, self.module, specs)
+            self.mesh, module, specs)
         self.metrics.gauge("engine.mesh_data_axis", float(self.data_parallel))
         self.metrics.gauge("engine.mesh_model_axis",
                            float(self.model_parallel))
@@ -632,6 +697,73 @@ class InferenceEngine:
                            float(self._sharding_stats["param_bytes_total"]))
         self.metrics.gauge("engine.param_bytes_per_chip",
                            float(self._sharding_stats["param_bytes_per_chip"]))
+
+    def _split_dim(self, spec) -> Optional[int]:
+        """The dimension ``spec`` splits on this mesh (None: the leaf is
+        whole in every slot).  A split on the data axis raises."""
+        if mesh_lib._axis_shards(self.mesh, spec) == 1:
+            return None
+        for dim, entry in enumerate(tuple(spec)):
+            axes = entry if isinstance(entry, (tuple, list)) else (entry,)
+            if mesh_lib.DATA_AXIS in axes and self.data_parallel > 1:
+                raise NotImplementedError(
+                    f"a weight split on the data axis ({spec!r}): an engine "
+                    f"splits weights on the model axis only")
+            if mesh_lib.MODEL_AXIS in axes:
+                return dim
+        return None
+
+    def _place(self, base: nn.Module) -> None:
+        """The data groups: each mesh row's module, with the weights placed
+        by ``mesh.place`` under the policy (a split leaf a
+        ``ShardedTensor`` over the row's model slots, a replicated one the
+        row's device's copy).  Rows with the same slots share one module;
+        a one-device mesh keeps ``base`` itself."""
+        from sparkdl_tpu_torch.parallel.shard import ShardedTensor
+
+        rows = [tuple(torch.device(d) for d in self.mesh.devices[g])
+                for g in range(self.data_parallel)]
+        leaves = mesh_lib._module_leaves(base)
+        specs = ({k: mesh_lib.P() for k in leaves}
+                 if self._param_specs is None else self._param_specs)
+        dims = {k: self._split_dim(specs[k]) for k in leaves}
+        self._split = any(d is not None for d in dims.values())
+        modules: Dict[tuple, nn.Module] = {}
+        if self.mesh.size == 1:
+            modules[rows[0]] = base
+        else:
+            placed = mesh_lib.place(leaves, {
+                k: mesh_lib.NamedSharding(self.mesh, specs[k])
+                for k in leaves})
+            for g, row in enumerate(rows):
+                if row in modules:
+                    continue
+                memo = {}
+                for k, leaf in leaves.items():
+                    p = placed[k]
+                    memo[id(leaf)] = (
+                        p.slot(g, 0) if dims[k] is None else ShardedTensor(
+                            [p.slot(g, m) for m in range(len(row))],
+                            dims[k]))
+                for buf in base.buffers():
+                    if id(buf) not in memo:  # num_batches_tracked
+                        memo[id(buf)] = buf.to(row[0])
+                modules[row] = copy.deepcopy(base, memo)
+        self._groups: List[_Group] = []
+        for row in rows:
+            eager = (self._split and self.capture
+                     and len({_device_key(d) for d in row}) > 1)
+            self._groups.append(_Group(row, modules[row],
+                                       self._cores[_device_key(row[0])],
+                                       eager))
+        first = self._groups[0]
+        self.module = first.module
+        self._state = first.state
+        self._fold_owners = first.fold_owners
+        # what a captured graph of this engine also depends on: the slot
+        # layout and the policy
+        self._layout = (tuple(str(d) for d in self.mesh.devices.flat),
+                        tuple(self.mesh.devices.shape), self.sharding_digest)
 
     def compile_policy(self) -> str:
         """The mesh and partition-rule policy string keying the persistent
@@ -641,18 +773,76 @@ class InferenceEngine:
                 f"|params={self.sharding_digest}")
 
     def sharding_info(self) -> Dict[str, Any]:
-        """JSON snapshot of the engine's weight layout, as JAX's: mesh
-        shape, total vs per-device param bytes, sharded leaf count, the
-        policy digest, ``sharded`` (a policy that did not collapse) and
-        ``donate_batch``."""
+        """JSON snapshot of the engine's weight layout.  JAX's keys with
+        JAX's arithmetic: mesh shape, total vs per-device param bytes,
+        sharded leaf count, the policy digest, ``sharded`` (a policy that
+        did not collapse); and ``donate_batch``.  Measured beside them:
+        ``slots`` (the mesh's devices in flat order),
+        ``param_bytes_per_slot`` (the most any slot reads: its shards and
+        the replicated leaves), ``bytes_per_device`` (each tensor once,
+        however many slots share it), ``fold_bytes_per_device`` (the fold
+        caches' entries, which hold a split weight's folds whole on its
+        group's first device) and ``split_groups`` (``None``, ``"captured"``
+        or ``"eager"``: how the groups that split a weight run)."""
+        split = None
+        if self._split:
+            split = ("eager" if any(g.eager for g in self._groups)
+                     else "captured" if self.capture else "eager")
         return dict(self._sharding_stats,
                     sharding_digest=self.sharding_digest,
                     sharded=self._param_specs is not None,
-                    donate_batch=self.donate_batch)
+                    donate_batch=self.donate_batch,
+                    slots=[str(d) for d in self.mesh.devices.flat],
+                    param_bytes_per_slot=self.param_bytes,
+                    bytes_per_device=self._bytes_per_device(
+                        t for g in self._groups for t in g.state),
+                    fold_bytes_per_device=self._bytes_per_device(
+                        t for g in self._groups
+                        for e in fold_entries(g.fold_owners)
+                        for t in _fold_tensors(e)),
+                    split_groups=split)
 
-    def _graph_key(self) -> tuple:
-        return graph_key(self._state, self._fold_owners) + (
-            self.donate_batch,)
+    @staticmethod
+    def _bytes_per_device(tensors) -> Dict[str, int]:
+        """``{device: bytes}`` of ``tensors``, each storage once (a
+        ``ShardedTensor`` by its shards)."""
+        from sparkdl_tpu_torch.parallel.shard import ShardedTensor
+
+        seen: Dict[tuple, int] = {}
+        for t in tensors:
+            for p in (t.shards if isinstance(t, ShardedTensor) else [t]):
+                seen[(_device_key(p.device), p.data_ptr())] = (
+                    p.numel() * p.element_size())
+        out: Dict[str, int] = {}
+        for (dev, _), n in seen.items():
+            out[dev] = out.get(dev, 0) + n
+        return dict(sorted(out.items()))
+
+    def leaf_shards(self, name: str) -> List[mesh_lib.Shard]:
+        """The slots' pieces of parameter or buffer ``name`` (its
+        ``state_dict`` name, ``.`` or ``/`` separated), in the mesh's flat
+        order, as JAX's ``addressable_shards``: each slot's device, its
+        index into the whole leaf and its data."""
+        from sparkdl_tpu_torch.parallel.shard import ShardedTensor
+
+        name = name.replace("/", ".")
+        out = []
+        for g in self._groups:
+            t = dict(g.module.state_dict(keep_vars=True))[name]
+            for m, dev in enumerate(g.slots):
+                if isinstance(t, ShardedTensor):
+                    b = t.bounds()
+                    index = tuple(slice(b[m], b[m + 1]) if d == t.split_dim
+                                  else slice(None) for d in range(t.dim()))
+                    out.append(mesh_lib.Shard(dev, index, t.shards[m]))
+                else:
+                    out.append(mesh_lib.Shard(
+                        dev, (slice(None),) * t.dim(), t))
+        return out
+
+    def _graph_key(self, gr: "_Group") -> tuple:
+        return graph_key(gr.state, gr.fold_owners) + (
+            self.donate_batch, self._layout)
 
     def _init_own(self) -> None:
         """What an engine does not share with its siblings besides its
@@ -663,14 +853,25 @@ class InferenceEngine:
 
     @property
     def num_devices(self) -> int:
-        return 1
+        return self.mesh.size
 
     @property
     def param_bytes(self) -> int:
-        """The bytes of the device module's parameters and buffers on the
-        engine's device (one copy, shared with the siblings): the cost
-        ledger's per-bucket HBM bytes."""
-        return sum(t.numel() * t.element_size() for t in self._state)
+        """The bytes of parameters and buffers the fullest slot reads (its
+        shards of the split leaves and every replicated leaf; on one
+        device, the device module's): the cost ledger's per-bucket HBM
+        bytes."""
+        from sparkdl_tpu_torch.parallel.shard import ShardedTensor
+
+        most = 0
+        for g in self._groups:
+            for m in range(len(g.slots)):
+                n = 0
+                for t in g.state:
+                    p = t.shards[m] if isinstance(t, ShardedTensor) else t
+                    n += p.numel() * p.element_size()
+                most = max(most, n)
+        return most
 
     # what a sibling takes from its engine; its batch size and breaker are
     # its own
@@ -681,15 +882,16 @@ class InferenceEngine:
                        "metrics", "batches_per_dispatch", "dispatch_retries",
                        "dispatch_backoff_s", "dispatch_max_backoff_s",
                        "dispatch_jitter", "_on_dispatch_error", "module",
-                       "name", "capture", "_state", "_fold_owners", "_core")
+                       "name", "capture", "_state", "_fold_owners", "_core",
+                       "_cores", "_groups", "_split", "_layout")
 
     def sibling(self, device_batch_size: int) -> "InferenceEngine":
         """An engine for ``device_batch_size`` rows over this engine's
-        device module: it shares the module (one device copy of the
-        weights), its fold caches, the graph pool, the lock, the staging
-        slots, the streams, the metrics and every setting; it captures its
-        own graph for its batch size into the shared pool, and has its own
-        circuit breaker."""
+        device modules: it shares the modules (one placement of the
+        weights), their fold caches, the graph cores (pools, locks, staging
+        slots, streams), the metrics and every setting; it captures its
+        own graphs for its batch size into the shared pools, and has its
+        own circuit breaker."""
         sib = object.__new__(type(self))
         for attr in self._SIBLING_SHARES:
             setattr(sib, attr, getattr(self, attr))
@@ -810,33 +1012,79 @@ class InferenceEngine:
         _TIMING.events = None
         return events
 
-    def _eager(self, x, group: bool):
-        """The forward, op by op (a group: one forward per piece, stacked,
-        as the JAX engine's ``lax.map``)."""
+    def _eager(self, gr: _Group, x, group: bool):
+        """Group ``gr``'s forward, op by op (a group of pieces: one forward
+        per piece, stacked, as the JAX engine's ``lax.map``); its output
+        leaves it whole."""
         if not group:
-            return self.fn(self.module, x)
-        outs = [self.fn(self.module, _tree_map(lambda a, i=i: a[i], x))
-                for i in range(self._leaves(x))]
-        return _tree_map(lambda *parts: torch.stack(parts), *outs)
+            out = self.fn(gr.module, x)
+        else:
+            outs = [self.fn(gr.module, _tree_map(lambda a, i=i: a[i], x))
+                    for i in range(self._leaves(x))]
+            out = _tree_map(lambda *parts: torch.stack(parts), *outs)
+        if self._split:
+            from sparkdl_tpu_torch.parallel.shard import gather
+
+            out = _tree_map(gather, out)
+        return out
+
+    def _rows(self, a, g: int, axis: int):
+        """Data group ``g``'s rows of one batch leaf (``axis`` 1 for a
+        stacked group of pieces); the leaf itself on a one-row mesh."""
+        if self.data_parallel == 1:
+            return a
+        n = a.shape[axis] // self.data_parallel
+        return a[g * n:(g + 1) * n] if axis == 0 else a[:, g * n:(g + 1) * n]
+
+    def _join(self, outs: list, axis: int):
+        """The groups' outputs in row order on the mesh's first device."""
+        if len(outs) == 1:
+            return outs[0]
+        return _tree_map(lambda *parts: torch.cat(
+            [p.to(self.device) for p in parts], dim=axis), *outs)
 
     def _forward(self, host, group: bool):
         _TIMING.events = None
+        axis = 1 if group else 0
         if self.device.type != "cuda":
             x = _tree_map(lambda a: torch.from_numpy(
-                np.ascontiguousarray(a)).to(self.device), host)
+                np.ascontiguousarray(a)), host)
             with torch.inference_mode():
-                return self._eager(x, group)
+                return self._join([self._eager(gr, _tree_map(
+                    lambda a, g=g: self._rows(a, g, axis).to(gr.device), x),
+                    group) for g, gr in enumerate(self._groups)], axis)
         timed = get_tracer().enabled
-        with self._core.lock:
+        outs, start = [], None
+        for g, gr in enumerate(self._groups):
+            outs.append(self._forward_group(
+                gr, _tree_map(lambda a, g=g: self._rows(a, g, axis), host),
+                group, timed))
+            if g == 0 and _TIMING.events is not None:
+                start = _TIMING.events[0]
+        out = self._join(outs, axis)
+        if len(outs) > 1:
+            # one bracket from the first group's start to the join on the
+            # first device, which waits for every group
+            _TIMING.events = None
+            _end_timing(start, torch.cuda.current_stream(self.device))
+        return out
+
+    def _forward_group(self, gr: _Group, host, group: bool, timed: bool):
+        """Group ``gr``'s forward on CUDA under its core's lock: upload,
+        then replay (or the eager forward), on its first device."""
+        core = gr.core
+        with torch.cuda.device(gr.device), core.lock:
             t0 = time_lib.perf_counter()
-            x, slots = self._upload(host)
-            cur = torch.cuda.current_stream(self.device)
+            x, slots = self._upload(gr, host)
+            cur = torch.cuda.current_stream(gr.device)
             with torch.inference_mode():
-                if self.capture:
-                    out = self._replay(x, group, timed)
+                if self.capture and not gr.eager:
+                    out = self._replay(gr, x, group, timed)
                 else:
+                    if gr.eager:
+                        self.metrics.incr("engine.split_group_eager")
                     start = _timing_event(cur) if timed else None
-                    out = self._eager(x, group)
+                    out = self._eager(gr, x, group)
                     _end_timing(start, cur)
             for s, i in slots:  # the forward has read slot i
                 s.free[i] = torch.cuda.Event()
@@ -862,50 +1110,55 @@ class InferenceEngine:
             dst[n:] = 0
         return buf
 
-    def _upload(self, host):
-        """H2D of one host batch tree on the copy stream into device
-        staging slots; the current stream waits on its event.  Returns the
-        device tree and the (slots, index) the forward reads."""
+    def _upload(self, gr: _Group, host):
+        """H2D of one host batch tree (group ``gr``'s rows) on its core's
+        copy stream into device staging slots; the current stream waits on
+        its event.  Returns the device tree and the (slots, index) the
+        forward reads."""
+        core = gr.core
         pinned = [a if isinstance(a, torch.Tensor)  # a piece _pad staged
                   else torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
                   for a in _tree_leaves(host)]
         devs, slots = [], []
         for p in pinned:
             key = (tuple(p.shape), p.dtype)
-            if key not in self._core.slots:
-                self._core.slots[key] = _DeviceSlots(p.shape, p.dtype, self.device)
-        with torch.cuda.stream(self._core.h2d):
+            if key not in core.slots:
+                core.slots[key] = _DeviceSlots(p.shape, p.dtype, gr.device)
+        with torch.cuda.stream(core.h2d):
             for p in pinned:
-                s = self._core.slots[(tuple(p.shape), p.dtype)]
+                s = core.slots[(tuple(p.shape), p.dtype)]
                 i = s.next
                 s.next ^= 1
                 if s.free[i] is not None:
-                    self._core.h2d.wait_event(s.free[i])
+                    core.h2d.wait_event(s.free[i])
                 s.bufs[i].copy_(p, non_blocking=True)
                 devs.append(s.bufs[i])
                 slots.append((s, i))
             ev = torch.cuda.Event()
-            ev.record(self._core.h2d)
-        torch.cuda.current_stream(self.device).wait_event(ev)
+            ev.record(core.h2d)
+        torch.cuda.current_stream(gr.device).wait_event(ev)
         it = iter(devs)
         return _tree_map(lambda _: next(it), host), slots
 
     # -- the captured forward (CUDA) -------------------------------------------
-    def _replay(self, x, group: bool, timed: bool = False):
+    def _replay(self, gr: _Group, x, group: bool, timed: bool = False):
         """Copy ``x`` into the bucket's graph's static input, replay, and
         copy the output out (the next replay overwrites the static one).
-        Captures first when the bucket has no graph or its key moved.
-        ``timed``: bracket the replay with timing events (tracing on)."""
+        Captures first when the bucket has no graph for ``gr``'s slots or
+        its key moved.  ``timed``: bracket the replay with timing events
+        (tracing on)."""
         from sparkdl_tpu_torch.ops import sepconv as ops
 
+        core = gr.core
         leaves = _tree_leaves(x)
-        cur = torch.cuda.current_stream(self.device)
-        if self._core.replayed is not None:  # one replay at a time: one pool
-            cur.wait_event(self._core.replayed)
-        sig = (group,) + tuple((tuple(a.shape), a.dtype) for a in leaves)
-        g = self._core.graphs.get(sig)
-        if g is None or g.key != self._graph_key():
-            g = self._capture(x, group, sig)
+        cur = torch.cuda.current_stream(gr.device)
+        if core.replayed is not None:  # one replay at a time: one pool
+            cur.wait_event(core.replayed)
+        sig = (gr.key, group) + tuple((tuple(a.shape), a.dtype)
+                                      for a in leaves)
+        g = core.graphs.get(sig)
+        if g is None or g.key != self._graph_key(gr):
+            g = self._capture(gr, x, group, sig)
         for dst, src in zip(g.in_leaves, leaves):
             dst.copy_(src)
         start = _timing_event(cur) if timed else None
@@ -918,54 +1171,55 @@ class InferenceEngine:
         if any(g.launches):
             ops.credit_launches(g.launches)
         out = _tree_map(lambda t: t.clone(), g.static_out)
-        self._core.replayed = torch.cuda.Event()
-        self._core.replayed.record(cur)
+        core.replayed = torch.cuda.Event()
+        core.replayed.record(cur)
         return out
 
-    def _capture(self, x, group: bool, sig) -> _Graph:
+    def _capture(self, gr: _Group, x, group: bool, sig) -> _Graph:
         with _CAPTURE_LOCK:
-            return self._capture_locked(x, group, sig)
+            return self._capture_locked(gr, x, group, sig)
 
-    def _capture_locked(self, x, group: bool, sig) -> _Graph:
+    def _capture_locked(self, gr: _Group, x, group: bool, sig) -> _Graph:
         from sparkdl_tpu_torch.ops import sepconv as ops
 
-        cur = torch.cuda.current_stream(self.device)
-        old = self._core.graphs.pop(sig, None)
+        core = gr.core
+        cur = torch.cuda.current_stream(gr.device)
+        old = core.graphs.pop(sig, None)
         if old is not None:
             cur.synchronize()  # its last replay is done before its pool goes
             del old
         static_in = _tree_map(torch.empty_like, x)
         for dst, src in zip(_tree_leaves(static_in), _tree_leaves(x)):
             dst.copy_(src)
-        side = self._core.capture_stream
+        side = core.capture_stream
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             # warm-up, eagerly: fold caches, kernel libraries' one-time
             # attributes and cuDNN's plans are made here, outside the graph
-            self._eager(static_in, group)
+            self._eager(gr, static_in, group)
         cur.wait_stream(side)
         # the fold caches are full now; the capture only reads them
-        key = self._graph_key()
-        folds = fold_entries(self._fold_owners)
+        key = self._graph_key(gr)
+        folds = fold_entries(gr.fold_owners)
         before = ops.thread_launch_counts()
         # torch.cuda.graph empties the allocator's cache on entry: do it
         # here first, so that the growth of reserved memory is the pool's
         torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_stats(self.device).get(
+        reserved = torch.cuda.memory_stats(gr.device).get(
             "reserved_bytes.all.current", 0)
-        if self._core.pool is None:
-            self._core.pool = torch.cuda.graph_pool_handle()
+        if core.pool is None:
+            core.pool = torch.cuda.graph_pool_handle()
         # keep_graph: the captured cudaGraph_t stays readable
         # (``raw_cuda_graph``), so its kernel nodes can be counted
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
             # thread_local: the runner's other threads (pinned copies, D2H
             # fetches, event waits) do not invalidate this capture; the
-            # capture stream is the engine's own; every capture of the
-            # engine allocates from its one pool
-            with torch.cuda.graph(graph, pool=self._core.pool, stream=side,
+            # capture stream is the core's own; every capture on the core
+            # allocates from its one pool
+            with torch.cuda.graph(graph, pool=core.pool, stream=side,
                                   capture_error_mode="thread_local"):
-                static_out = self._eager(static_in, group)
+                static_out = self._eager(gr, static_in, group)
             graph.instantiate()
         except Exception as e:
             raise RuntimeError(f"CUDA-graph capture of engine {self.name} "
@@ -977,58 +1231,69 @@ class InferenceEngine:
             launches = tuple(a - b for a, b in zip(
                 ops.thread_launch_counts(), before))
             ops.credit_launches(tuple(-n for n in launches))
-        pool = torch.cuda.memory_stats(self.device).get(
+        pool = torch.cuda.memory_stats(gr.device).get(
             "reserved_bytes.all.current", 0) - reserved
         g = _Graph(key, folds, graph, static_in, static_out, launches,
                    max(0, pool))
-        self._core.graphs[sig] = g
-        self._graph_sig = sig
+        core.graphs[sig] = g
+        if gr.key == self._groups[0].key:
+            self._graph_sig = sig
         self.captures += 1
         # the shared pool keeps what it reserved until every graph is gone
-        self._core.pool_bytes += g.pool_bytes
+        core.pool_bytes += g.pool_bytes
         self.metrics.incr("engine.graph_captures")
-        self.metrics.gauge("engine.graph_pool_bytes", self._core.pool_bytes)
+        self.metrics.gauge("engine.graph_pool_bytes", self.graph_pool_bytes)
         return g
 
     def graphs(self) -> List[Dict[str, Any]]:
-        """One entry per captured graph: bucket, kernel launches per
-        replay (B1, B3, B2) and the pool bytes its capture added."""
-        return [dict(bucket=sig, launches=g.launches,
+        """One entry per captured graph, on every device: bucket (input
+        signature), the group's slots, kernel launches per replay (B1, B3,
+        B2) and the pool bytes its capture added."""
+        return [dict(bucket=sig[1:], group=sig[0], launches=g.launches,
                      pool_bytes=g.pool_bytes)
-                for sig, g in self._core.graphs.items()]
+                for core in self._cores.values()
+                for sig, g in core.graphs.items()]
 
     def bucket_graph(self) -> Optional[_Graph]:
-        """The graph this engine captured last, while the engine holds it
-        (None before its first capture and after :meth:`release_graphs`):
-        a bucket's compiled-program identity, as the JAX server reads its
-        bucket's jit object."""
+        """The graph this engine captured last for its first data group,
+        while the engine holds it (None before its first capture and after
+        :meth:`release_graphs`): a bucket's compiled-program identity, as
+        the JAX server reads its bucket's jit object."""
         return self._core.graphs.get(self._graph_sig)
 
     @property
     def graph_pool_bytes(self) -> int:
-        """The bytes the engine's graph pool holds on the card (0 before
+        """The bytes the engine's graph pools hold on the cards (0 before
         the first capture and after :meth:`release_graphs`); siblings
-        report their one shared pool."""
-        return self._core.pool_bytes
+        report their shared pools."""
+        return sum(c.pool_bytes for c in self._cores.values())
+
+    def pool_bytes_per_device(self) -> Dict[str, int]:
+        """:attr:`graph_pool_bytes` by device."""
+        return {k: c.pool_bytes for k, c in self._cores.items()}
 
     def release_graphs(self) -> None:
-        """Drop every captured graph (the siblings' too) and give the
-        pool's memory back to the card, once the card has finished what was
-        enqueued on it (a later dispatch captures again).  Waits for a
-        dispatch in flight on another thread."""
-        with self._core.lock:
-            if not self._core.graphs:
-                return
-            cuda = self.device.type == "cuda"
-            if cuda:
-                torch.cuda.synchronize(self.device)
-            self._core.graphs.clear()
-            self._core.pool = None
-            self._core.pool_bytes = 0
-            self._core.replayed = None
+        """Drop every captured graph (the siblings' too) on every device
+        and give the pools' memory back to the cards, once the cards have
+        finished what was enqueued on them (a later dispatch captures
+        again).  Waits for a dispatch in flight on another thread."""
+        cuda = self.device.type == "cuda"
+        released = False
+        for core in self._cores.values():
+            with core.lock:
+                if not core.graphs:
+                    continue
+                if cuda:
+                    torch.cuda.synchronize(core.device)
+                core.graphs.clear()
+                core.pool = None
+                core.pool_bytes = 0
+                core.replayed = None
+                released = True
+        if released:
             self.metrics.gauge("engine.graph_pool_bytes", 0)
-        if cuda:
-            torch.cuda.empty_cache()
+            if cuda:
+                torch.cuda.empty_cache()
 
     # -- host prepare and gather -----------------------------------------------
     def _count_rows(self, n: int) -> None:
@@ -1257,27 +1522,53 @@ class InferenceEngine:
         yield from drain(0)
 
 
+def default_placement(device: DeviceLike = None, mesh=None) -> dict:
+    """The ``device=`` / ``mesh=`` an entry point's engine takes: ``mesh``
+    when given; the default mesh (:func:`resolve_engine_mesh`: every
+    visible card) when neither is given and it holds more than one device;
+    else the one device :func:`resolve_device` gives."""
+    if mesh is None and device is None:
+        default = resolve_engine_mesh()
+        if default.size > 1:
+            mesh = default
+    if mesh is not None:
+        return {"mesh": mesh}
+    return {"device": resolve_device(device)}
+
+
+def placement_key(where: dict) -> tuple:
+    """A hashable key of a :func:`default_placement`."""
+    if "mesh" in where:
+        mesh = where["mesh"]
+        return (tuple(str(d) for d in mesh.devices.flat),
+                tuple(mesh.devices.shape))
+    return (str(where["device"]),)
+
+
 def get_cached_engine(holder, model_function, *, device_batch_size: int,
                       **engine_kwargs) -> InferenceEngine:
     """The engine of ``model_function`` (``fn(module, x)`` and its
     module) cached on ``holder`` (typically a pipeline stage), keyed as in
     the JAX package on (model function, batch, batches per dispatch) and
-    here also on the device, which :func:`resolve_device` reads at the
-    call: repeated ``transform`` calls reuse one copy of the weights on
-    the card and its captured graphs.  The entry pins the ModelFunction,
-    so that keying on its ``id`` cannot alias a recycled object."""
+    here also on the devices, which :func:`resolve_device` and
+    :func:`resolve_engine_mesh` read at the call: with neither ``device``
+    nor ``mesh`` given, the default mesh (every visible card) when it
+    holds more than one device, else the one device.  Repeated
+    ``transform`` calls reuse one copy of the weights on the card and its
+    captured graphs.  The entry pins the ModelFunction, so that keying on
+    its ``id`` cannot alias a recycled object."""
     engine_kwargs.setdefault("batches_per_dispatch",
                              batches_per_dispatch_from_env())
-    device = resolve_device(engine_kwargs.pop("device", None))
+    where = default_placement(engine_kwargs.pop("device", None),
+                              engine_kwargs.pop("mesh", None))
     cache = holder.__dict__.setdefault("_engine_cache", {})
     key = (id(model_function), device_batch_size,
-           engine_kwargs["batches_per_dispatch"], str(device))
+           engine_kwargs["batches_per_dispatch"], placement_key(where))
     entry = cache.get(key)
     if entry is None:
         eng = InferenceEngine(model_function.fn, model_function.module,
-                              device=device,
                               device_batch_size=device_batch_size,
-                              **engine_kwargs)
+                              **where, **engine_kwargs)
         cache[key] = (model_function, eng)
         return eng
     return entry[1]
@@ -1430,9 +1721,13 @@ class HeadBank:
     H1 takes f32 heads: on CUDA a :func:`dense_head_row` head of another
     dtype raises ``NotImplementedError`` at :meth:`add_head` (ROADMAP.md
     queue B, H1); nothing is cast.  ``mesh=`` is resolved as an engine's
-    (:func:`resolve_engine_mesh`: this process's one device); :meth:`stats`
-    and the budget read ``mesh.param_sharding_stats`` of the stacked bank
-    (all replicated), as JAX's do."""
+    (:func:`resolve_engine_mesh`); :meth:`stats` and the budget read
+    ``mesh.param_sharding_stats`` of the stacked bank (all replicated), as
+    JAX's do.  On a mesh whose data axis is dp > 1 the stacked bank is
+    replicated on each data group's first device, a pass's rows are padded
+    to a multiple of dp (zero rows on the first tenant's head, as JAX's
+    ``_row_bucket`` pads) and split over the groups in row order, and the
+    pass runs once in each group (one H1 launch a group)."""
 
     def __init__(self, head_fn: Optional[Callable] = None, mesh=None,
                  hbm_budget_bytes: Optional[int] = None,
@@ -1441,6 +1736,9 @@ class HeadBank:
         self.mesh = resolve_engine_mesh(mesh, device)
         self.head_fn = head_fn if head_fn is not None else dense_head_row
         self.device = resolve_device(self.mesh.devices.flat[0])
+        # each data group's first device, where its rows and bank live
+        self._devices = [resolve_device(self.mesh.devices[g, 0]) for g in
+                         range(int(self.mesh.shape[mesh_lib.DATA_AXIS]))]
         self.hbm_budget_bytes = (None if hbm_budget_bytes is None
                                  else int(hbm_budget_bytes))
         self.metrics = metrics if metrics is not None else Metrics()
@@ -1448,7 +1746,7 @@ class HeadBank:
         self._hosts: Dict[str, Any] = {}    # tenant -> host head pytree
         self._index: Dict[str, int] = {}    # tenant -> row in the bank
         self._order: list = []              # tenants in stacking order
-        self._stacked = None                # device pytree (capacity, ...)
+        self._stacked = None                # device -> pytree (cap, ...)
         self._capacity = 0
         self._leaf_sig = None               # pinned (structure, shapes, dtypes)
         self._fallback = False
@@ -1609,8 +1907,9 @@ class HeadBank:
         return _tree_map(lambda *ls: np.stack(ls), *rows)
 
     def _upload(self, tree):
-        return _tree_map(lambda a: torch.from_numpy(a).to(self.device),
-                         tree)
+        """``tree`` on each data group's device: ``{device: tree}``."""
+        return {str(d): _tree_map(lambda a: torch.from_numpy(a).to(d), tree)
+                for d in self._devices}
 
     def _rebuild(self) -> None:
         self._index = {t: i for i, t in enumerate(self._order)}
@@ -1626,12 +1925,32 @@ class HeadBank:
         self._capacity = cap
 
     # -- dispatch --------------------------------------------------------
-    def _rows(self, features):
-        return torch.from_numpy(np.ascontiguousarray(features)).to(
-            self.device)
-
     def _fetch(self, out) -> np.ndarray:
         return _tree_map(lambda t: t.detach().cpu().numpy(), out)
+
+    def _pass(self, banks, idx: np.ndarray, features: np.ndarray):
+        """One head pass of the fan-out callable over ``banks`` (``{device:
+        stacked}``): the rows padded to the data axis and split over the
+        data groups, one pass in each; host rows in input order."""
+        n = len(idx)
+        dp = len(self._devices)
+        if dp > 1 and n % dp:
+            pad = dp - n % dp
+            features = np.concatenate([features, np.zeros(
+                (pad,) + features.shape[1:], features.dtype)])
+            idx = np.concatenate([idx, np.zeros(pad, np.int32)])
+        per = len(idx) // dp
+        outs = []  # every group's pass is enqueued before any fetch
+        for g, dev in enumerate(self._devices):
+            rows = slice(g * per, (g + 1) * per)
+            outs.append(self._fanout(
+                banks[str(dev)], torch.from_numpy(idx[rows]).to(dev),
+                torch.from_numpy(np.ascontiguousarray(
+                    features[rows])).to(dev)))
+        outs = [self._fetch(o) for o in outs]
+        if dp == 1:
+            return outs[0]
+        return _tree_map(lambda *ps: np.concatenate(ps)[:n], *outs)
 
     def dispatch(self, features, tenants) -> np.ndarray:
         """One head pass over a mixed-tenant feature batch.
@@ -1660,10 +1979,9 @@ class HeadBank:
             with torch.inference_mode():
                 if self._fallback:
                     return self._dispatch_fallback(features, tenants)
-                idx = torch.tensor([self._index[t] for t in tenants],
-                                   dtype=torch.int32, device=self.device)
-                return self._fetch(self._fanout(self._stacked, idx,
-                                                self._rows(features)))
+                idx = np.asarray([self._index[t] for t in tenants],
+                                 dtype=np.int32)
+                return self._pass(self._stacked, idx, features)
 
     def _dispatch_fallback(self, features, tenants) -> np.ndarray:
         """The degraded path: each tenant's rows through the SAME fan-out
@@ -1677,10 +1995,8 @@ class HeadBank:
             sel = np.asarray(rows, dtype=np.int64)
             bank1 = self._upload(_tree_map(lambda leaf: leaf[None],
                                            self._hosts[t]))
-            idx = torch.zeros(len(rows), dtype=torch.int32,
-                              device=self.device)
-            res = self._fetch(self._fanout(bank1, idx,
-                                           self._rows(features[sel])))
+            res = self._pass(bank1, np.zeros(len(rows), np.int32),
+                             features[sel])
             if out is None:
                 out = np.zeros((len(tenants),) + res.shape[1:],
                                dtype=res.dtype)

@@ -9,13 +9,20 @@ The port's own small types stand in for ``jax.sharding``'s:
     (``None``, an axis name, or a tuple of axis names);
   * :class:`NamedSharding`: a (mesh, spec) pair.
 
-``get_mesh()`` in one process is the one device
-:func:`~sparkdl_tpu_torch.resolve_device` gives, shape (1, 1).  In a
-``torch.distributed`` group of W ranks it holds one entry per rank (each
-rank's ``cuda:<rank % device_count>``, or the CPU), shape (W, 1), as
-``jax.devices()`` spans every host of a multi-controller run.  The port
-runs one card per process: a fit's data axis spans the ranks of a group
-(``parallel.train``), an engine's mesh is this process's one device.
+``get_mesh()`` in one process covers every visible card (``cuda:0`` ...
+``cuda:<n-1>``), as ``jax.devices()`` covers every local chip; on the CPU,
+or when the default device names one card (``set_default_device
+("cuda:1")``), it is that one device.  In a ``torch.distributed`` group of
+W ranks it holds one entry per rank (each rank's ``cuda:<rank %
+device_count>``, or the CPU), shape (W, 1), as ``jax.devices()`` spans
+every host of a multi-controller run.  ``devices=`` may name a device more
+than once: each entry is a *slot*, so ``["cpu"] * 8`` stands in for JAX's
+8 virtual CPU devices and ``["cuda:0"] * k`` for k cards on one card.  An
+engine scores on a mesh of this process's devices; a fit's data axis spans
+the ranks of a group (``parallel.train``, one card per process).
+
+:func:`place` is ``jax.device_put`` under ``NamedSharding``s: a split leaf
+becomes one slice per slot, a replicated one one copy per distinct device.
 
 The policy functions (:func:`match_partition_rules`,
 :func:`default_partition_rules`, :func:`resolve_param_shardings`,
@@ -140,23 +147,30 @@ def _rank_device(rank: int, like: torch.device) -> torch.device:
 
 def _global_devices() -> Tuple[list, list]:
     """(devices, ranks) of every process: one device per rank of the
-    ``torch.distributed`` group, or this process's one device."""
+    ``torch.distributed`` group; in one process every visible card when
+    the default device is ``cuda`` without an index and more than one card
+    is visible, else that one device."""
     from sparkdl_tpu_torch import resolve_device
     from sparkdl_tpu_torch.parallel import distributed
 
     local = resolve_device()
     count = distributed.process_count()
-    if count == 1:
-        return [local], [0]
-    return [_rank_device(r, local) for r in range(count)], list(range(count))
+    if count > 1:
+        return ([_rank_device(r, local) for r in range(count)],
+                list(range(count)))
+    if local.type == "cuda" and local.index is None:
+        n = torch.cuda.device_count()
+        if n > 1:
+            return [torch.device("cuda", i) for i in range(n)], [0] * n
+    return [local], [0]
 
 
 def get_mesh(num_devices: Optional[int] = None, model_parallel: int = 1,
              devices: Optional[Sequence] = None) -> Mesh:
     """Build a (data, model) mesh over the devices of every process (one
-    per rank in a group; this process's one device otherwise), or over
-    ``devices`` (all owned by this process).  ``num_devices`` keeps the
-    first N."""
+    per rank in a group; every visible card, or the CPU, in one process;
+    see the module docstring), or over ``devices`` (slots owned by this
+    process; a device may repeat).  ``num_devices`` keeps the first N."""
     if devices is not None:
         from sparkdl_tpu_torch.parallel import distributed
 
@@ -452,8 +466,11 @@ def partition_digest(specs=None) -> str:
     if specs is None:
         return "replicated"
     flat = tree_flatten_with_path(specs, _is_spec)
+    # a module's specs are keyed by ``state_dict`` names: spelled with
+    # ``/`` as its leaves' paths are, so the digest is JAX's for the same
+    # tree
     lines = sorted(
-        f"{param_path_str(p)}="
+        f"{param_path_str(p).replace('.', '/')}="
         f"{[] if spec_is_replicated(s) else spec_to_json(s)}"
         for p, s in flat)
     if all(line.endswith("=[]") for line in lines):
@@ -494,3 +511,115 @@ def param_sharding_stats(mesh, params, specs=None) -> dict:
         "sharded_vs_replicated_ratio": (round(per_chip / total, 4)
                                         if total else 1.0),
     }
+
+
+# ---------------------------------------------------------------------------
+# placement: jax.device_put under NamedShardings
+
+
+def _slot_index(mesh, spec, shape, coords: dict) -> tuple:
+    """The slice of a leaf of ``shape`` that the slot at mesh coordinates
+    ``coords`` (axis name -> index) holds under ``spec``."""
+    index = []
+    for dim, size in enumerate(shape):
+        entry = tuple(spec)[dim] if dim < len(tuple(spec)) else None
+        if entry is None:
+            index.append(slice(None))
+            continue
+        axes = entry if isinstance(entry, (tuple, list)) else (entry,)
+        k, n = 0, 1
+        for axis in axes:  # the first axis named is the slowest, as in JAX
+            k = k * int(mesh.shape[axis]) + int(coords[axis])
+            n *= int(mesh.shape[axis])
+        step = size // n
+        index.append(slice(k * step, (k + 1) * step))
+    return tuple(index)
+
+
+class Shard:
+    """One slot's piece of a placed leaf (JAX's ``addressable_shards``
+    entry): its device, its index into the whole and its data."""
+
+    def __init__(self, device: torch.device, index: tuple,
+                 data: torch.Tensor):
+        self.device = device
+        self.index = index
+        self.data = data
+
+
+class Placed:
+    """A leaf placed on a mesh by :func:`place`: ``slots`` holds one tensor
+    per slot, in the mesh's flat order.  Slots on one device that hold the
+    same slice share one tensor."""
+
+    def __init__(self, sharding: NamedSharding, shape: tuple, dtype,
+                 slots: List[torch.Tensor], indices: List[tuple]):
+        self.sharding = sharding
+        self.shape = tuple(shape)
+        self.dtype = dtype
+        self.slots = slots
+        self._indices = indices
+
+    @property
+    def spec(self) -> PartitionSpec:
+        return self.sharding.spec
+
+    @property
+    def addressable_shards(self) -> List[Shard]:
+        devs = list(self.sharding.mesh.devices.flat)
+        return [Shard(d, i, t) for d, i, t in
+                zip(devs, self._indices, self.slots)]
+
+    def slot(self, data: int, model: int) -> torch.Tensor:
+        """The tensor of the slot at row ``data``, column ``model``."""
+        cols = int(self.sharding.mesh.devices.shape[1])
+        return self.slots[data * cols + model]
+
+
+def place(tree, shardings):
+    """``tree``'s leaves (tensors or numpy arrays) placed on the mesh of
+    ``shardings`` (one ``NamedSharding`` for every leaf, or a tree of them
+    mirroring ``tree``): each leaf becomes a :class:`Placed`.  A split
+    leaf is sliced per slot along its spec, each slice on its slot's
+    device; a replicated leaf is copied once per distinct device.  Slots
+    that repeat a device share that device's copy of a slice (so
+    ``["cuda:0"] * 8`` does not hold eight copies of a replicated leaf),
+    and a whole leaf already on a slot's device is taken as it is."""
+    flat = tree_flatten_with_path(tree)
+    if isinstance(shardings, NamedSharding):
+        flat_sh = [shardings] * len(flat)
+    else:
+        flat_sh = [s for _, s in tree_flatten_with_path(shardings, _is_spec)]
+        if len(flat_sh) != len(flat):
+            raise ValueError(f"{len(flat_sh)} shardings for {len(flat)} "
+                             f"leaves")
+    placed = []
+    for (_, leaf), sh in zip(flat, flat_sh):
+        t = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(
+            np.asarray(leaf))
+        mesh = sh.mesh
+        shape = tuple(t.shape)
+        copies: dict = {}
+        slots, indices = [], []
+        for pos, dev in zip(np.ndindex(*mesh.devices.shape),
+                            mesh.devices.flat):
+            dev = torch.device(dev)
+            coords = dict(zip(mesh.axis_names, pos))
+            index = _slot_index(mesh, sh.spec, shape, coords)
+            key = (str(dev), tuple((s.start, s.stop) for s in index))
+            piece = copies.get(key)
+            if piece is None:
+                if all(s.start is None for s in index):
+                    piece = t if t.device == dev else t.to(dev)
+                else:
+                    # a storage of its own (a view would hold the whole
+                    # leaf), in the leaf's memory format where the slice
+                    # keeps it dense (a channels_last conv weight's)
+                    piece = t[index].to(dev).clone(
+                        memory_format=torch.preserve_format)
+                copies[key] = piece
+            slots.append(piece)
+            indices.append(index)
+        placed.append(Placed(sh, shape, t.dtype, slots, indices))
+    return tree_unflatten_like(tree, placed)
+

@@ -349,8 +349,8 @@ def _step(loss_of, optimizer, params, mesh, param_specs,
         # group, else the params' one device
         leaves = _tree_leaves(params)
         mesh = (mesh_lib.get_mesh() if distributed.process_count() > 1
-                or not leaves else mesh_lib.get_mesh(
-                    devices=[leaves[0].device]))
+                else mesh_lib.get_mesh(devices=[
+                    leaves[0].device if leaves else resolve_device()]))
     param_shardings = template = None
     if param_specs is not None:
         template = params_template if params_template is not None else params

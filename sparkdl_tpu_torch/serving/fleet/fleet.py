@@ -35,9 +35,11 @@ so its own captured engines and one graph pool per version's server; a
 promote or rollback drains the losing server, whose ``close()`` gives its
 pool back to the card.  ``mesh=`` and the partition knobs
 (``partition_rules=``, ``param_shardings=``, ``donate_batch=``) are passed
-to each version's ``Server``, which resolves them on this process's one
-device; a policy that really splits a weight raises there (one card per
-process, ROADMAP.md §C).
+to each version's ``Server``, which serves on that mesh of this
+process's devices with the weights split as the policy says
+(``parallel.engine``); an entry's own overrides (a zoo model's
+``partition_rules`` and ``donate_batch``) survive a caller's
+``compute_dtype``.
 """
 
 from __future__ import annotations

@@ -39,15 +39,15 @@ The server resolves its device at construction
 asked for, and ``RuntimeError`` without a card; it never serves from the
 CPU quietly.
 
-The mesh, as JAX's: ``mesh=`` (this process's one device,
-:func:`~sparkdl_tpu_torch.parallel.engine.resolve_engine_mesh`; buckets
-rounded to its data axis by :func:`bucket_plan`), ``partition_rules`` /
+The mesh, as JAX's: ``mesh=`` (a mesh of this process's devices,
+:func:`~sparkdl_tpu_torch.parallel.engine.resolve_engine_mesh`: by
+default every visible card, or the one ``device=`` names; buckets rounded
+to its data axis by :func:`bucket_plan`), ``partition_rules`` /
 ``param_shardings`` (zoo models default to
-``mesh.default_partition_rules``, which resolve all-replicated on one
-card) and ``donate_batch`` reach every bucket engine; ``varz()
-["sharding"]`` is :meth:`Server.sharding_info`.  A policy that really
-splits a weight, and a mesh of more than one device, raise
-``NotImplementedError`` (one card per process, ROADMAP.md §C).
+``mesh.default_partition_rules``, which split the weights on a mesh whose
+model axis is > 1) and ``donate_batch`` reach every bucket engine; each
+micro-batch's rows split over the data axis, and ``varz()["sharding"]``
+is :meth:`Server.sharding_info`.
 
 :class:`HeadFanoutServer` serves many tenants' heads over one backbone
 ``Server`` at the feature cut: a warm content digest costs a head pass
@@ -282,12 +282,12 @@ class Server:
         objectives over this server's metrics, evaluated on every
         :meth:`health` poll; a breach degrades health and names the
         objective, and the evaluation rides ``health()["slo"]``.
-      * ``mesh``: this process's one-device mesh (default
-        :func:`~sparkdl_tpu_torch.parallel.mesh.get_mesh` over ``device``);
-        ``partition_rules`` / ``param_shardings``: the weight policy every
-        bucket engine resolves (zoo models default to
-        ``mesh.default_partition_rules``; explicit ones win); a real
-        split raises.  ``donate_batch``: recorded in
+      * ``mesh``: a mesh of this process's devices (default
+        :func:`~sparkdl_tpu_torch.parallel.engine.resolve_engine_mesh`:
+        every visible card, or ``device``); ``partition_rules`` /
+        ``param_shardings``: the weight policy every bucket engine
+        resolves (zoo models default to ``mesh.default_partition_rules``;
+        explicit ones win).  ``donate_batch``: recorded in
         :meth:`sharding_info`; on the card it changes nothing, the
         captured graph already owning its input slot (zoo models
         override it to False, as JAX's do).
@@ -1234,9 +1234,9 @@ class HeadFanoutServer:
     (``utils.digest.module_digest``), and the fingerprint is the port's
     program lockfile's (``PROGRAMS_TORCH.lock.json``; ``"unpinned"`` for a
     backbone it does not audit), so the namespaces differ between the
-    packages.  ``mesh=`` reaches the
-    backbone ``Server`` and the :class:`HeadBank` (this process's one
-    device, as an engine's)."""
+    packages.  ``mesh=`` reaches the backbone ``Server`` and the
+    :class:`HeadBank` (resolved as an engine's): the backbone's rows and
+    the head pass's rows split over its data axis."""
 
     def __init__(self, model, module: Optional[nn.Module] = None, *,
                  head_fn: Optional[Callable] = None,

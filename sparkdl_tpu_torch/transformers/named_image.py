@@ -22,7 +22,6 @@ import pyarrow as pa
 import torch
 import torch.nn as nn
 
-from sparkdl_tpu_torch import resolve_device
 from sparkdl_tpu_torch.image.io import arrowStructsToBatch
 from sparkdl_tpu_torch.image.schema import imageArrayToStruct, imageSchema
 from sparkdl_tpu_torch.models import (SUPPORTED_MODELS, get_model_spec,
@@ -35,7 +34,9 @@ from sparkdl_tpu_torch.param.shared import (HasBatchSize, HasInputCol,
                                             HasOutputMode, HasTopK)
 from sparkdl_tpu_torch.parallel.engine import (InferenceEngine,
                                                batches_per_dispatch_from_env,
-                                               get_cached_engine)
+                                               default_placement,
+                                               get_cached_engine,
+                                               placement_key)
 from sparkdl_tpu_torch.parallel.pipeline import pipeline_enabled_from_env
 from sparkdl_tpu_torch.persistence import PersistableModelFunctionMixin
 from sparkdl_tpu_torch.transformers.base import Transformer
@@ -140,8 +141,9 @@ def zoo_serving_bundle(name: str, featurize: bool,
     from sparkdl_tpu_torch.parallel import mesh as mesh_lib
 
     # the uint8 image batch can never alias the float output (no donation),
-    # and the zoo family's default partition rules, which resolve
-    # all-replicated on one card, as the JAX package's overrides
+    # and the zoo family's default partition rules, which split the
+    # weights on a mesh whose model axis is > 1, as the JAX package's
+    # overrides
     overrides: Dict[str, object] = {
         "donate_batch": False,
         "partition_rules": mesh_lib.default_partition_rules,
@@ -166,7 +168,8 @@ def zoo_serving_bundle(name: str, featurize: bool,
 
 def _zoo_engine(name: str, featurize: bool, batch_size: int) -> InferenceEngine:
     """One cached engine per (model, build variant, cut, batch, compute
-    dtype, device, ``SPARKDL_BATCHES_PER_DISPATCH``).
+    dtype, devices, ``SPARKDL_BATCHES_PER_DISPATCH``), on the default
+    placement (every visible card, or the one device).
 
     ``SPARKDL_ZOO_COMPUTE_DTYPE=bfloat16`` runs the model in bf16 and
     fetches bf16 outputs, widened to f32 on the host.  The default stays
@@ -178,7 +181,7 @@ def _zoo_engine(name: str, featurize: bool, batch_size: int) -> InferenceEngine:
         # make room first: the cached engines' pools are known by now
         _ENGINE_CACHE.reaccount()
         fn, module, overrides = zoo_serving_bundle(key[0], featurize)
-        eng = InferenceEngine(fn, module, device=resolve_device(),
+        eng = InferenceEngine(fn, module, **default_placement(),
                               device_batch_size=batch_size,
                               batches_per_dispatch=key[6], **overrides)
         _ENGINE_CACHE.put(key, eng)
@@ -187,10 +190,12 @@ def _zoo_engine(name: str, featurize: bool, batch_size: int) -> InferenceEngine:
 
 def _zoo_engine_key(name: str, featurize: bool, batch_size: int) -> tuple:
     """The engine cache's key: (model, build variant, cut, batch, compute
-    dtype, device, ``SPARKDL_BATCHES_PER_DISPATCH``)."""
+    dtype, devices, ``SPARKDL_BATCHES_PER_DISPATCH``); the devices are
+    :func:`~sparkdl_tpu_torch.parallel.engine.default_placement`'s (every
+    visible card, or the one device)."""
     name = get_model_spec(name).name
     return (name, model_variant_key(name), featurize, batch_size,
-            zoo_compute_dtype_name(), str(resolve_device()),
+            zoo_compute_dtype_name(), placement_key(default_placement()),
             batches_per_dispatch_from_env())
 
 
@@ -254,7 +259,9 @@ class _ImageInputStage(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
 
     def _chunk_rows(self) -> int:
         """Decode granularity: ``batchSize`` rounded up to the engine
-        mesh's data axis (one device a process: the batch itself)."""
+        mesh's data axis: the default mesh (every visible card, as the
+        engine :func:`~sparkdl_tpu_torch.parallel.engine.get_cached_engine`
+        builds scores on them all; the CPU's one device)."""
         from sparkdl_tpu_torch.parallel.engine import (effective_device_batch,
                                                        resolve_engine_mesh)
 

@@ -548,8 +548,8 @@ def test_unported_server_knobs_raise_through_the_version_server(
     """(The name is the one these cases had while the mesh was not
     ported.)  The mesh and the partition knobs reach each version's
     Server, which serves on this process's one device with the policy
-    collapsed to replicated; a mesh of two devices raises the documented
-    deviation through the version server and leaves nothing registered."""
+    collapsed to replicated; a mesh of two slots reaches the version server
+    too and serves the one-device rows."""
     w1, _, _, x = setup
     if item == "mesh":
         kwargs = dict(mesh=mesh_lib.get_mesh())
@@ -561,12 +561,21 @@ def test_unported_server_knobs_raise_through_the_version_server(
         assert info["mesh_shape"] == {"data": 1, "model": 1}
         assert info["sharding_digest"] == "replicated"
         assert not info["sharded"]
-    with Fleet(max_batch_size=8,
-               mesh=mesh_lib.get_mesh(devices=["cpu", "cpu"])) as fleet:
-        with pytest.raises(NotImplementedError,
-                           match="one card per process"):
-            fleet.add_model("m", _pfn, Dense(w1["w"]))
-        assert "m" not in fleet.registry
+    with Fleet(max_batch_size=8, max_wait_ms=2, bucket_sizes=[8]) as fleet:
+        fleet.add_model("m", _pfn, Dense(w1["w"]), warm_example=x[0])
+        want = [fleet.predict("m", r) for r in x[:4]]
+    # a mesh of two slots in one process reaches the version server and
+    # serves the one-device rows bit for bit
+    with Fleet(max_batch_size=8, max_wait_ms=2, bucket_sizes=[8],
+               **dict(kwargs, mesh=mesh_lib.get_mesh(
+                   devices=["cpu", "cpu"]))) as fleet:
+        fleet.add_model("m", _pfn, Dense(w1["w"]), warm_example=x[0])
+        got = [fleet.predict("m", r) for r in x[:4]]
+        info = fleet._state("m").server.sharding_info()
+        assert info["mesh_shape"] == {"data": 2, "model": 1}
+        assert "m" in fleet.registry
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
     _no_serving_threads()
 
 

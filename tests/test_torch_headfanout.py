@@ -595,8 +595,8 @@ def test_feature_cut_bundle(zoo):
 def test_device_rule_and_not_ported_arguments(monkeypatch):
     """Without a card and with no CPU asked for, the server and the bank
     raise ``RuntimeError``; ``device="cpu"`` works anywhere; ``mesh=``
-    is this process's one device for the backbone and the bank (a mesh of
-    two devices raises the documented deviation) and a ``cost=`` that is
+    reaches the backbone and the bank (a mesh of two slots serves the
+    one-device rows bit for bit) and a ``cost=`` that is
     no ``CostLedger`` is refused, as the JAX server refuses it; on CUDA a
     non-f32 dense head is refused before the bank changes."""
     module = head_fanout_module(_variables())
@@ -620,12 +620,30 @@ def test_device_rule_and_not_ported_arguments(monkeypatch):
         assert srv.bank.stats()["mesh_shape"] == {"data": 1, "model": 1}
         assert srv.backbone.sharding_info()["mesh_shape"] == \
             {"data": 1, "model": 1}
-    with pytest.raises(NotImplementedError, match="one card per process"):
-        _server(mesh=two)
+    # a mesh of two slots in one process: the backbone's rows split over
+    # two data groups, the head pass runs once in each, and every row is
+    # the one-device server's bit for bit
+    with _server(mesh=mesh_lib.get_mesh()) as one, _server(mesh=two) as srv:
+        for s_ in (one, srv):
+            s_.add_head("a", _head(1))
+            s_.add_head("b", _head(2))
+        for i in range(3):
+            t = "ab"[i % 2]
+            np.testing.assert_array_equal(srv.predict(_payload(i), t),
+                                          one.predict(_payload(i), t))
+        assert srv.bank.stats()["mesh_shape"] == {"data": 2, "model": 1}
+        assert srv.backbone.sharding_info()["mesh_shape"] == \
+            {"data": 2, "model": 1}
     with pytest.raises(TypeError, match="CostLedger"):
         _server(cost=object())
-    with pytest.raises(NotImplementedError, match="one card per process"):
-        HeadBank(mesh=two)
+    bank2, bank1 = HeadBank(mesh=two), HeadBank(mesh=mesh_lib.get_mesh())
+    for b_ in (bank2, bank1):
+        b_.add_head("a", _head(1))
+        b_.add_head("b", _head(2))
+    feats = np.random.default_rng(5).normal(
+        size=(3, D_FEAT)).astype(np.float32)
+    np.testing.assert_array_equal(bank2.dispatch(feats, ["a", "b", "a"]),
+                                  bank1.dispatch(feats, ["a", "b", "a"]))
     bank = HeadBank()
     bank.add_head("a", _head(1))
     bank.device = torch.device("cuda")  # the refusal comes before any copy

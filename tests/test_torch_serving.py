@@ -237,9 +237,11 @@ def test_varz_has_jax_keys_and_serializes(setup):
     assert sorted(v["metrics"]) == sorted(jv["metrics"])
     assert v["cost"] is None
     # the JAX server's mesh spans the tests' 8 CPU devices, the port's is
-    # this process's one device: the param bytes agree
-    assert sorted(v["sharding"]) == sorted(list(jv["sharding"])
-                                           + ["donate_batch"])
+    # the CPU's one device: the param bytes agree.  The port adds what it
+    # measures beside JAX's arithmetic
+    assert sorted(v["sharding"]) == sorted(list(jv["sharding"]) + [
+        "donate_batch", "slots", "param_bytes_per_slot", "bytes_per_device",
+        "fold_bytes_per_device", "split_groups"])
     assert v["sharding"]["mesh_shape"] == {"data": 1, "model": 1}
     for k in ("param_bytes_total", "param_bytes_per_chip",
               "largest_replicated_leaf_bytes", "total_leaves", "sharded",
@@ -799,10 +801,10 @@ def test_server_rejects_unknown_model_form():
         Server(12345)
 
 
-# The mesh's arguments work on the port's one-device mesh: each serves the
-# plain server's rows bit for bit and ``sharding_info()`` reads the policy
-# (all-replicated on one card); a mesh that is not this process's one
-# device raises the documented deviation.  ``slos=`` and ``cost=`` are
+# The mesh's arguments work on the port's one-device mesh and on a mesh of
+# two slots: each serves the plain server's rows bit for bit and
+# ``sharding_info()`` reads the policy (tests/test_torch_shard.py holds
+# the multi-slot meshes to JAX's).  ``slos=`` and ``cost=`` are
 # tested in tests/test_torch_obs.py; a malformed value of either is
 # refused as the JAX server refuses it.
 @pytest.mark.parametrize("kwargs, item", [
@@ -837,9 +839,17 @@ def test_arguments_of_unported_modules_raise(setup, kwargs, item):
         assert info[k] == v
     if not info["sharded"]:
         assert info["sharding_digest"] == "replicated"
-    # a mesh of two devices in one process is the documented deviation
-    with pytest.raises(NotImplementedError, match="one card per process"):
-        Server(_pfn, module, mesh=mesh_lib.get_mesh(devices=["cpu", "cpu"]))
+    # a mesh of two slots in one process (two data groups) serves the
+    # one-device rows bit for bit, under the same knob
+    two = mesh_lib.get_mesh(devices=["cpu", "cpu"])
+    with Server(_pfn, module, **kw, **dict(kwargs, mesh=two)) as srv:
+        got2 = np.stack([srv.predict(r) for r in x[:5]])
+        info2 = srv.varz()["sharding"]
+    np.testing.assert_array_equal(got2, want)
+    assert info2["mesh_shape"] == {"data": 2, "model": 1}
+    assert info2["slots"] == ["cpu", "cpu"]
+    for k, v in item.items():
+        assert info2[k] == v
 
 
 @pytest.mark.parametrize("kwargs, match", [
