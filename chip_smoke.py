@@ -200,6 +200,15 @@ points, with seeded random weights and batch 32:
     processes, unequal shards, the in-memory then the stream fit; equal
     to each other and to a one-process fit on the global batches; only
     rank 0's checkpoint), and no fit's pool left behind;
+  * [train_mesh] (after [train]), training on a mesh of several slots in
+    one process, slots of cuda:0 (distinct cards where several are
+    visible): the Xception featurizer and LogisticRegression on a dp2
+    default mesh (B1 30 a forward in each data group, counted; the head
+    against the one-device fit), config 5's InceptionV3 fitted on dp2
+    against one device (and trainBatchStats on the zoo's InceptionV3),
+    the predictions layer split over ``model`` on dp1 x tp2 and dp2 x tp2
+    with SGD and Adam against the replicated step, fitMultiple's mesh
+    slices against sequential fits, and no fit's pool left behind;
   * [compile] (right after the build), the persistent compile cache
     (``sparkdl_tpu_torch.parallel.compile_cache``): three child processes
     under ``SPARKDL_COMPILE_CACHE=<fresh temporary directory>``, each
@@ -325,14 +334,16 @@ launches), one of [stream]'s (the sinks, the chaos, the stall, the
 rates, the fits, launches), one of [mesh]'s (the servers' sharding,
 dispatches and launches, the fan-out), one of [train]'s (captured and
 eager readings and rates, the groups, the statistics, the two ranks,
-pools), one of [twin]'s (the day's wall seconds, rate, digest, scores and
+pools), one of [train_mesh]'s (the head, the fits' modes, rates and
+pools, the split steps, the mesh slices, pools), one of [twin]'s (the day's wall seconds, rate, digest, scores and
 servers; the small days), one of [examples]' (the flowers recipe's
 img/s, top-1 and launches, every example's and tool's exit code and wall
 seconds, the folded tables and timelines), one ``{"pools":
 ...}`` line (the graph pools held after every phase, by phase; later
 phases add keys to it), one JSON line with every kernel's numbers (with
 its launches in [serving], [headfanout], [obs], [fleet], [stream] and
-[mesh], B1's ``compile_launches`` in [compile]'s children and its
+[mesh], B1's ``train_mesh_launches`` in [train_mesh]'s featurizer,
+``compile_launches`` in [compile]'s children and its
 ``examples_launches`` in [examples]' flowers recipe; H1's
 ``launches`` are its [headfanout] launches), and last the line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -344,6 +355,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -6659,13 +6671,13 @@ class _EpochLog:
         train._StepRunner.run_epoch = self._saved
 
 
-def _train_model():
+def _train_model_fn():
     """Config 5's model as [tuning] builds it (the committed Keras
-    InceptionV3 config with seeded Keras-layout arrays): (the module on
-    the card, the tensors a fit trains by name, the predict fn)."""
+    InceptionV3 config with seeded Keras-layout arrays): (its function,
+    the module on the card, the tensors a fit trains by name)."""
     from sparkdl_tpu_torch.estimators.image_file_estimator import \
         variable_names
-    from sparkdl_tpu_torch.graph.function import ModelFunction, apply_with
+    from sparkdl_tpu_torch.graph.function import ModelFunction
     from sparkdl_tpu_torch.models import keras_import
 
     with open(KERAS_CONFIG) as f:
@@ -6676,9 +6688,18 @@ def _train_model():
     tensors = dict(module.named_parameters())
     tensors.update(module.named_buffers())
     params = {n: tensors[n].detach() for n in variable_names(module)}
+    return mf.fn, module, params
+
+
+def _train_model():
+    """:func:`_train_model_fn`'s model: (the module on the card, the
+    tensors a fit trains by name, the predict fn)."""
+    from sparkdl_tpu_torch.graph.function import apply_with
+
+    fn, module, params = _train_model_fn()
 
     def predict(p, x):
-        return apply_with(mf.fn, module, p, x)
+        return apply_with(fn, module, p, x)
 
     return module, params, predict
 
@@ -7180,6 +7201,584 @@ def phase_train(sepconv):
     check(not problems, f"[{tag}] {len(problems)} failed: "
                         + " | ".join(problems))
     out["launches"] = counts
+    return out
+
+
+TRAIN_MESH_SLOTS = 2            # the data groups of (a), (b) and (d)
+TRAIN_MESH_FEATURIZE_N = 64     # (a): images featurized on dp2
+TRAIN_MESH_LR_ITER = 20         # (a): the head's epochs, one step each
+TRAIN_MESH_EPOCHS = 4           # (b): 12 steps at batch 16: captured
+TRAIN_MESH_STATS_ROWS = 16      # (b): the trainBatchStats fit: one step
+#                                 of 16, 8 rows a slot.  Its statistics'
+#                                 move is the first forward's; later steps
+#                                 follow a gradient whose float32 sums in
+#                                 another order move by far more than
+#                                 TUNING_STATS_TOL (a float64 step agrees
+#                                 to 1e-12 on the CPU)
+TRAIN_MESH_SPLIT_STEPS = 6      # (c): steps of each split-head step
+TRAIN_MESH_MAP_EPOCHS = (1, 2)  # (d): the maps' epochs
+TRAIN_MESH_MAP_TOL = 1e-4       # (d): each map's losses vs sequential (rel)
+
+
+class _DefaultSlots:
+    """While entered, the default device list that ``mesh.get_mesh()``
+    reads (the mesh a fit, the featurizer and fitMultiple take when given
+    none) is ``slots``: a host with that many cards, here slots of the
+    cards this machine has (instrumentation of this script, no knob of the
+    port)."""
+
+    def __init__(self, slots):
+        self.slots = [torch.device(d) for d in slots]
+
+    def __enter__(self):
+        from sparkdl_tpu_torch.parallel import mesh as mesh_lib
+
+        self._saved = mesh_lib._global_devices
+        devs = list(self.slots)
+        mesh_lib._global_devices = lambda: (devs, [0] * len(devs))
+        return self
+
+    def __exit__(self, *exc):
+        from sparkdl_tpu_torch.parallel import mesh as mesh_lib
+
+        mesh_lib._global_devices = self._saved
+
+
+def _train_model_per_device():
+    """Config 5's model as :func:`_train_model` builds it, with a predict
+    fn that runs each data group's rows through a copy of the module on
+    the group's device (the module itself on one card)."""
+    from sparkdl_tpu_torch.graph.function import apply_with
+
+    fn, module, params = _train_model_fn()
+    copies = {str(next(module.parameters()).device): module}
+
+    def predict(p, x):
+        key = str(x.device)
+        if key not in copies:
+            copies[key] = copy.deepcopy(module).to(x.device)
+        return apply_with(fn, copies[key], p, x)
+
+    return module, params, predict
+
+
+def _fit_record(m, log, batch):
+    """A fit's step mode, img/s over its last epoch, and pool bytes, from
+    its Metrics and an _EpochLog."""
+    mode = [k.rsplit(".", 1)[1] for k in m.counters
+            if k.startswith("train.step_mode.")][0]
+    last_s, last_n = log.epochs[-1]
+    return dict(mode=mode, img_s=last_n * batch / last_s,
+                fit_s=sum(s for s, _ in log.epochs),
+                pool_bytes=m.gauges.get("train.graph_pool_bytes", 0),
+                captures=m.counters.get("train.captures", 0),
+                groups=m.gauges.get("train.data_groups"))
+
+
+def _train_mesh_head(sepconv, tag, slots, expect):
+    """(a): DeepImageFeaturizer(Xception) at 299x299 on the default mesh of
+    ``slots`` (dp2), B1 counted; LogisticRegression on its features, on the
+    same mesh and on one device."""
+    from sparkdl_tpu_torch.estimators import LogisticRegression
+    from sparkdl_tpu_torch.frame import DataFrame
+    from sparkdl_tpu_torch.transformers import named_image as ni
+    from sparkdl_tpu_torch.utils.metrics import Metrics
+
+    df = synthetic_frame(TRAIN_MESH_FEATURIZE_N, 299, SEED + 231)
+    with _DefaultSlots(slots):
+        feat = ni.DeepImageFeaturizer(inputCol="image", outputCol="f",
+                                      modelName="Xception", batchSize=BATCH)
+        eng = ni._zoo_engine("Xception", True, BATCH)
+        feat.transform(df)  # its graphs captured outside the window
+        reset_counts(sepconv)
+        out = feat.transform(df)
+        counts = read_counts(sepconv)
+    f = np.asarray(out.table.column("f").to_pylist(), np.float32)
+    dp = int(eng.mesh.shape["data"])
+    pieces = -(-TRAIN_MESH_FEATURIZE_N // eng.device_batch_size)
+    expect(f.shape == (TRAIN_MESH_FEATURIZE_N, 2048)
+           and np.isfinite(f).all(), f"[{tag}] (a) features {f.shape}")
+    expect(dp == TRAIN_MESH_SLOTS
+           and counts == dict(sepconv=SEPCONV_PER_FORWARD * dp * pieces,
+                              sepconv_tiled=0, mbconv=0),
+           f"[{tag}] (a) mesh {eng.mesh.shape}, launches {counts}, want "
+           f"{SEPCONV_PER_FORWARD} a forward in each of {dp} groups over "
+           f"{pieces} batches")
+    labels = np.arange(TRAIN_MESH_FEATURIZE_N) % 2
+    fdf = DataFrame({"features": [list(map(float, r)) for r in f],
+                     "label": labels.astype(np.int64)})
+    fits, img_s = {}, {}
+    for name in ("dp2", "one"):
+        m = Metrics()
+        real = _fit_metrics(m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            if name == "dp2":
+                with _DefaultSlots(slots):
+                    lr = LogisticRegression(maxIter=TRAIN_MESH_LR_ITER).fit(
+                        fdf)
+            else:
+                lr = LogisticRegression(maxIter=TRAIN_MESH_LR_ITER).fit(fdf)
+        finally:
+            real()
+        torch.cuda.synchronize()
+        img_s[name] = (TRAIN_MESH_LR_ITER * len(f)
+                       / (time.perf_counter() - t0))
+        fits[name] = (lr, m)
+    # the head's start, folded as its fit folds the fitted (w, b)
+    mu, sd = f.mean(axis=0), f.std(axis=0)
+    sigma = np.where(sd < 1e-7, 1.0, sd).astype(np.float32)
+    w0 = np.random.default_rng(0).normal(0, 0.01, (2048, 2)).astype(
+        np.float32)
+    init = {"w": torch.from_numpy(w0 / sigma[:, None]),
+            "b": torch.from_numpy(-(mu / sigma) @ w0)}
+    got = {k: torch.from_numpy(np.asarray(v))
+           for k, v in fits["dp2"][0].weights.items()}
+    ref = {k: torch.from_numpy(np.asarray(v))
+           for k, v in fits["one"][0].weights.items()}
+    rel = _update_rel(ref, got, init)
+    modes = {k: [c.rsplit(".", 1)[1] for c in m.counters
+                 if c.startswith("train.step_mode.")] for k, (_, m) in
+             fits.items()}
+    groups = {k: m.gauges.get("train.data_groups") for k, (_, m) in
+              fits.items()}
+    expect(rel <= TUNING_UPDATE_TOL and groups == {"dp2": 2.0, "one": 1.0},
+           f"[{tag}] (a) LogisticRegression dp2 vs one device: (w, b) "
+           f"update rel err {rel:.4g} (tol {TUNING_UPDATE_TOL}), data "
+           f"groups {groups}")
+    print(f"[{tag}] (a) DeepImageFeaturizer(Xception) on the default mesh "
+          f"{eng.mesh.shape} slots {[str(d) for d in eng.mesh.devices.flat]}:"
+          f" {TRAIN_MESH_FEATURIZE_N} images, B1 {counts['sepconv']} "
+          f"({SEPCONV_PER_FORWARD} a forward in each of {dp} groups over "
+          f"{pieces} batches); LogisticRegression ({TRAIN_MESH_LR_ITER} "
+          f"epochs) on that mesh vs one device: (w, b) update rel err "
+          f"{rel:.3e} (tol {TUNING_UPDATE_TOL}); step modes {modes}, "
+          f"rows/s { {k: round(v, 1) for k, v in img_s.items()} } (fit "
+          f"wall, standardization included), pools "
+          f"{ {k: m.gauges.get('train.graph_pool_bytes', 0) for k, (_, m) in fits.items()} } B", flush=True)
+    return dict(mesh_shape=eng.mesh.shape, launches=counts,
+                head_update_rel=rel, modes=modes, groups=groups,
+                rows_s=img_s,
+                pool_bytes={k: m.gauges.get("train.graph_pool_bytes", 0)
+                            for k, (_, m) in fits.items()})
+
+
+def _fit_metrics(m):
+    """While the returned undo is not called, every fit_data_parallel call
+    that is given no metrics records into ``m`` (the head's fit builds
+    its own call)."""
+    from sparkdl_tpu_torch.parallel import train
+
+    real = train.fit_data_parallel
+
+    def recorded(*a, **kw):
+        if kw.get("metrics") is None:
+            kw["metrics"] = m
+        return real(*a, **kw)
+
+    import sparkdl_tpu_torch.estimators.classification as cls
+    cls.fit_data_parallel = recorded
+
+    def undo():
+        cls.fit_data_parallel = real
+
+    return undo
+
+
+def _train_mesh_config5(sepconv, tag, slots, x, y, paths, labels, expect):
+    """(b): config 5's InceptionV3 fitted with fit_data_parallel at batch 16
+    on dp2 vs one device (SGD, cuDNN deterministic); then trainBatchStats
+    on the zoo's InceptionV3 through the estimator, dp2 vs one device."""
+    from sparkdl_tpu_torch.estimators import ImageFileEstimator
+    from sparkdl_tpu_torch.frame import DataFrame
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.models import load_model
+    from sparkdl_tpu_torch.param.converters import NamedOptimizer
+    from sparkdl_tpu_torch.parallel import train
+    from sparkdl_tpu_torch.parallel.mesh import get_mesh
+    from sparkdl_tpu_torch.utils.metrics import Metrics
+
+    module, params, predict = _train_model_per_device()
+    init = {k: v.detach().cpu() for k, v in params.items()}
+    out = {}
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, mesh in (("dp2", get_mesh(devices=slots)), ("one", None)):
+            m = Metrics()
+            with _EpochLog() as log:
+                fitted, _ = train.fit_data_parallel(
+                    predict, params, x, y, optimizer=NamedOptimizer("sgd"),
+                    loss="categorical_crossentropy", batch_size=TUNING_BATCH,
+                    epochs=TRAIN_MESH_EPOCHS, mesh=mesh, metrics=m)
+            runs[name] = (fitted, _fit_record(m, log, TUNING_BATCH),
+                          np.asarray(log.losses))
+        (df2, r2, l2), (df1, r1, l1) = runs["dp2"], runs["one"]
+        loss_rel = float(np.max(np.abs(l2 - l1) / np.abs(l1)))
+        upd_rel = _update_rel({k: torch.from_numpy(v) for k, v in df1.items()},
+                              {k: torch.from_numpy(v) for k, v in df2.items()},
+                              init)
+        steps = TRAIN_MESH_EPOCHS * -(-len(x) // TUNING_BATCH)
+        # slots of one card: the two groups in one captured graph; across
+        # cards the step is eager by up-front choice
+        want = "captured" if len(set(slots)) == 1 else "eager"
+        expect(len(l2) == steps and loss_rel <= TUNING_LOSS_TOL
+               and upd_rel <= TUNING_UPDATE_TOL and r2["groups"] == 2.0
+               and r2["mode"] == want and r1["mode"] == "captured",
+               f"[{tag}] (b) config 5 dp2 vs one device: {len(l2)} steps, "
+               f"loss rel err {loss_rel:.4g} (tol {TUNING_LOSS_TOL}), update "
+               f"{upd_rel:.4g} (tol {TUNING_UPDATE_TOL}), groups "
+               f"{r2['groups']}, modes {r2['mode']} (want {want}) / "
+               f"{r1['mode']}")
+        print(f"[{tag}] (b) config 5's InceptionV3 (299x299, f32, SGD, "
+              f"batch 16 = 8 rows a slot, {steps} steps, cuDNN "
+              f"deterministic) on dp2 slots {slots} vs one device: step "
+              f"loss rel err {loss_rel:.3e}, update rel err {upd_rel:.3e}; "
+              f"dp2 {r2['img_s']:.1f} img/s ({r2['mode']}, pool "
+              f"{r2['pool_bytes']} B) vs one device {r1['img_s']:.1f} img/s "
+              f"({r1['mode']}, pool {r1['pool_bytes']} B)", flush=True)
+        out["fit"] = dict(dp2=r2, one=r1, step_loss_rel=loss_rel,
+                          update_rel=upd_rel, losses=l2.tolist())
+        del runs, df1, df2, module, params, predict
+
+        # trainBatchStats: the zoo's InceptionV3 (from_module: BatchNorm
+        # running statistics and a train-mode apply), 16 rows, batch 8
+        zoo = load_model("InceptionV3", weights=None)
+        before = zoo.state_dict()
+        stat_keys = [k for k in before
+                     if k.endswith(("running_mean", "running_var"))]
+        n = TRAIN_MESH_STATS_ROWS
+        onehot = np.eye(1000, dtype=np.float32)
+        sdf = DataFrame({"uri": paths[:n], "onehot": [
+            onehot[v].tolist() for v in labels[:n]]})
+        stats, recs = {}, {}
+        for name in ("dp2", "one"):
+            est = ImageFileEstimator(
+                inputCol="uri", outputCol="preds", labelCol="onehot",
+                modelFunction=ModelFunction.from_module(copy.deepcopy(zoo)),
+                imageLoader=load_inception_v3, optimizer="sgd", batchSize=n,
+                trainBatchStats=True,
+                fitParams={"epochs": 1, "shuffle": False})
+            m = Metrics()
+            real = train.fit_data_parallel
+            import sparkdl_tpu_torch.estimators.image_file_estimator as ife
+
+            ife.fit_data_parallel = (
+                lambda *a, _m=m, **kw: real(*a, **dict(kw, metrics=_m)))
+            try:
+                with _EpochLog() as log:
+                    if name == "dp2":
+                        with _DefaultSlots(slots):
+                            fm = est.fit(sdf)
+                    else:
+                        fm = est.fit(sdf)
+            finally:
+                ife.fit_data_parallel = real
+            stats[name] = fm.getModelFunction().module.state_dict()
+            recs[name] = _fit_record(m, log, n)
+        srel = _update_rel({k: stats["one"][k] for k in stat_keys},
+                           {k: stats["dp2"][k] for k in stat_keys}, before)
+        moved = any(not torch.equal(stats["dp2"][k], before[k])
+                    for k in stat_keys)
+        expect(srel <= TUNING_STATS_TOL and moved
+               and recs["dp2"]["groups"] == 2.0,
+               f"[{tag}] (b) trainBatchStats dp2 vs one device: statistics "
+               f"rel err {srel:.4g} (tol {TUNING_STATS_TOL}), moved {moved}, "
+               f"groups {recs['dp2']['groups']}")
+        print(f"[{tag}] (b) trainBatchStats=True on the zoo's InceptionV3 "
+              f"(one step of {n} rows, {n // 2} a slot): dp2 vs one "
+              f"device, {len(stat_keys)} running statistics' move rel err "
+              f"{srel:.3e} (tol {TUNING_STATS_TOL}); dp2 "
+              f"{recs['dp2']['img_s']:.1f} img/s ({recs['dp2']['mode']}, "
+              f"pool {recs['dp2']['pool_bytes']} B) vs one device "
+              f"{recs['one']['img_s']:.1f} img/s ({recs['one']['mode']}, "
+              f"pool {recs['one']['pool_bytes']} B)", flush=True)
+        out["batch_stats"] = dict(rel=srel, dp2=recs["dp2"], one=recs["one"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def _train_mesh_split(tag, x, y, expect):
+    """(c): make_train_step on config 5's model with the backbone frozen and
+    the head, the predictions layer's weight and bias, split over ``model``
+    (dp1 x tp2 and dp2 x tp2), SGD and Adam, against the replicated
+    one-device step on the same batches.  (Adam's update of a whole
+    backbone sets each element's step by the sign of its gradient, so a
+    backbone gradient that is rounding noise, summed in another order by
+    the split, moves the fit by ~1e-2: the head alone is held.)"""
+    from sparkdl_tpu_torch.param.converters import NamedOptimizer
+    from sparkdl_tpu_torch.parallel import train
+    from sparkdl_tpu_torch.parallel.mesh import P, get_mesh
+    from sparkdl_tpu_torch.parallel.shard import ShardedTensor
+
+    module, params_all, predict = _train_model_per_device()
+    module.requires_grad_(False)
+    split = [n for n in sorted(params_all)
+             if re.search(r"predictions\.(weight|bias)$", n)]
+    params0 = {n: params_all[n] for n in split}
+    del params_all
+    names = split
+    init = {k: v.detach().cpu() for k, v in params0.items()}
+
+    def rule(path, leaf):
+        return P("model") if path in split else P()
+
+    layouts = (("replicated", None), ("dp1xtp2", (1, 2)),
+               ("dp2xtp2", (2, 2)))
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for opt_name in ("sgd", "adam"):
+            res = {}
+            for name, shape in layouts:
+                params = {k: v.detach().clone().requires_grad_()
+                          for k, v in params0.items()}
+                opt = NamedOptimizer(opt_name)([params[k] for k in names])
+                mesh = (None if shape is None else get_mesh(
+                    devices=_mesh_slots(shape[0] * shape[1],
+                                        torch.cuda.device_count() > 1),
+                    model_parallel=shape[1]))
+                step = train.make_train_step(
+                    predict, "categorical_crossentropy", opt, params,
+                    mesh=mesh, param_specs=None if shape is None else rule)
+                losses = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(TRAIN_MESH_SPLIT_STEPS):
+                    off = (i * TUNING_BATCH) % len(x)
+                    losses.append(step(
+                        torch.from_numpy(x[off:off + TUNING_BATCH]).cuda(),
+                        torch.from_numpy(y[off:off + TUNING_BATCH]).cuda()))
+                losses = torch.stack(losses).cpu().numpy()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / TRAIN_MESH_SPLIT_STEPS * 1e3
+                per_shard = None
+                if shape is not None:
+                    w = step.tree[split[-1]]
+                    half = (w.shape[0] // 2,) + tuple(w.shape[1:])
+                    per_shard = (isinstance(w, ShardedTensor) and all(
+                        tuple(s.shape) == half for s in w.shards))
+                    if opt_name == "adam":
+                        sh = step.opt_state_shardings()
+                        leaf = names.index(split[-1])
+                        per_shard = per_shard and all(
+                            tuple(opt.state[s]["mu"].shape) == tuple(s.shape)
+                            for s in w.shards) and \
+                            tuple(sh[leaf]["mu"].spec) == ("model",) \
+                            and sh[leaf]["step"] is step.replicated
+                res[name] = dict(fitted={k: torch.from_numpy(v) for k, v in
+                                         step.host_params().items()},
+                                 losses=losses, ms=ms, per_shard=per_shard)
+                del step, opt, params
+            ref = res["replicated"]
+            for name, shape in layouts[1:]:
+                r = res[name]
+                loss_rel = float(np.max(np.abs(r["losses"] - ref["losses"])
+                                        / np.abs(ref["losses"])))
+                upd_rel = _update_rel(ref["fitted"], r["fitted"], init)
+                expect(loss_rel <= TUNING_UPDATE_TOL
+                       and upd_rel <= TUNING_UPDATE_TOL and r["per_shard"],
+                       f"[{tag}] (c) {opt_name} {name}: loss rel err "
+                       f"{loss_rel:.4g}, update {upd_rel:.4g} (tol "
+                       f"{TUNING_UPDATE_TOL}), per-shard leaves and state "
+                       f"{r['per_shard']}")
+                print(f"[{tag}] (c) {opt_name}, the head {split} split "
+                      f"over model (backbone frozen) on "
+                      f"{name} vs the replicated step, "
+                      f"{TRAIN_MESH_SPLIT_STEPS} steps at batch "
+                      f"{TUNING_BATCH}: loss rel err {loss_rel:.3e}, update "
+                      f"rel err {upd_rel:.3e}; shards of half the rows, each "
+                      f"with their own gradient"
+                      f"{' and Adam moments' if opt_name == 'adam' else ''}: "
+                      f"{r['per_shard']}; {r['ms']:.1f} ms a step, "
+                      f"{TUNING_BATCH / r['ms'] * 1e3:.1f} img/s (eager: "
+                      f"make_train_step's steps called one by one, no pool) "
+                      f"vs {ref['ms']:.1f} ms replicated", flush=True)
+                out[f"{opt_name}_{name}"] = dict(
+                    step_loss_rel=loss_rel, update_rel=upd_rel, ms=r["ms"],
+                    replicated_ms=ref["ms"], per_shard=r["per_shard"])
+            del res
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def _train_mesh_maps(tag, slots, tmp, expect):
+    """(d): fitMultiple(parallelism=2) over two slots (two slices of one)
+    against the sequential fits on the whole dp2 mesh, [tuning]'s small
+    CNN on its 48 JPEGs."""
+    import threading
+
+    from sparkdl_tpu_torch.estimators import KerasImageFileEstimator
+    from sparkdl_tpu_torch.estimators import image_file_estimator as ife
+    from sparkdl_tpu_torch.frame import DataFrame
+    from sparkdl_tpu_torch.graph.keras_convert import KerasModel
+    from sparkdl_tpu_torch.models import keras_import
+
+    cfile = keras_import.keras_file(
+        _cnn_config(), _seeded_cnn_arrays(KerasModel(_cnn_config()),
+                                          SEED + 59))
+    paths, labels = _tuning_files(os.path.join(tmp, "map_images"),
+                                  TUNING_CNN_BASES, 60.0, SEED + 61)
+    onehot = np.eye(2, dtype=np.float32)
+    df = DataFrame({"uri": paths,
+                    "onehot": [onehot[k].tolist() for k in labels]})
+    from sparkdl_tpu_torch.utils.metrics import Metrics
+
+    seen, real = [], ife.fit_data_parallel
+
+    def logged(*a, **kw):
+        m = Metrics()
+        t0 = time.perf_counter()
+        out = real(*a, **dict(kw, metrics=m))
+        torch.cuda.synchronize()
+        rows = len(a[2]) * kw["epochs"]
+        seen.append((kw["mesh"].size, threading.current_thread().name,
+                     [k.rsplit(".", 1)[1] for k in m.counters
+                      if k.startswith("train.step_mode.")][0],
+                     rows / (time.perf_counter() - t0),
+                     m.gauges.get("train.graph_pool_bytes", 0)))
+        return out
+
+    out = {}
+    ife.fit_data_parallel = logged
+    try:
+        with _DefaultSlots(slots):
+            for par in (1, 2):
+                est = KerasImageFileEstimator(
+                    inputCol="uri", outputCol="preds", labelCol="onehot",
+                    modelFile=cfile, imageLoader=load_small,
+                    kerasOptimizer="sgd",
+                    kerasLoss="categorical_crossentropy",
+                    batchSize=TUNING_BATCH,
+                    kerasFitParams={"epochs": 1, "shuffle": False})
+                est._set(parallelism=par)
+                maps = [{est.fitParams: {"epochs": e, "shuffle": False}}
+                        for e in TRAIN_MESH_MAP_EPOCHS]
+                seen.clear()
+                t0 = time.perf_counter()
+                models = est.fit(df, maps)
+                torch.cuda.synchronize()
+                out[par] = dict(losses=[m.trainLosses for m in models],
+                                meshes=sorted(r[0] for r in seen),
+                                threads=len({r[1] for r in seen}),
+                                fits=[dict(mode=r[2], img_s=r[3],
+                                           pool_bytes=r[4]) for r in seen],
+                                wall_s=time.perf_counter() - t0)
+    finally:
+        ife.fit_data_parallel = real
+    rel = max(float(np.max(np.abs(np.asarray(a) - np.asarray(b))
+                           / np.abs(np.asarray(b))))
+              for a, b in zip(out[2]["losses"], out[1]["losses"]))
+    expect(out[2]["meshes"] == [1, 1] and out[1]["meshes"] == [2, 2]
+           and out[2]["threads"] == 2 and rel <= TRAIN_MESH_MAP_TOL,
+           f"[{tag}] (d) fitMultiple parallelism=2: meshes {out[2]['meshes']}"
+           f" in {out[2]['threads']} threads (sequential "
+           f"{out[1]['meshes']}), trainLosses rel err {rel:.4g} (tol "
+           f"{TRAIN_MESH_MAP_TOL})")
+    print(f"[{tag}] (d) fitMultiple(parallelism=2) over slots {slots}: "
+          f"{len(TRAIN_MESH_MAP_EPOCHS)} maps on slices of "
+          f"{out[2]['meshes']} slot(s) in {out[2]['threads']} threads "
+          f"({out[2]['wall_s']:.2f}s) vs sequential fits on the dp2 mesh "
+          f"({out[1]['wall_s']:.2f}s): trainLosses rel err {rel:.3e} (tol "
+          f"{TRAIN_MESH_MAP_TOL}); each fit's (mode, img/s, pool B): "
+          f"parallel {[(f['mode'], round(f['img_s'], 1), f['pool_bytes']) for f in out[2]['fits']]}, "
+          f"sequential {[(f['mode'], round(f['img_s'], 1), f['pool_bytes']) for f in out[1]['fits']]}",
+          flush=True)
+    return dict(parallel=out[2], sequential=out[1], loss_rel=rel)
+
+
+def phase_train_mesh(sepconv):
+    """[train_mesh]: training on a mesh of several slots in one process,
+    on slots of cuda:0 (or distinct cards where several are visible), f32
+    with TF32 off.
+
+      (a) ``DeepImageFeaturizer("Xception")`` at 299x299 on a dp2 default
+          mesh featurizes TRAIN_MESH_FEATURIZE_N images, B1 30 a forward in
+          each data group (counted); ``LogisticRegression`` fits on the same
+          mesh, its (w, b) within TUNING_UPDATE_TOL of the one-device fit;
+      (b) config 5's InceptionV3 fitted with ``fit_data_parallel`` at batch
+          16 on dp2 (8 rows a slot): losses within TUNING_LOSS_TOL and the
+          update within TUNING_UPDATE_TOL of the one-device fit; then
+          ``trainBatchStats=True`` (the zoo's InceptionV3, which has
+          running statistics) moves them within TUNING_STATS_TOL of the
+          one-device fit's; each fit's step mode, img/s and pool bytes;
+      (c) ``make_train_step`` on config 5's model, its backbone frozen
+          and its head (the ``predictions`` weight and bias) split over
+          ``model`` on dp1 x tp2 and dp2 x tp2, SGD and Adam over
+          TRAIN_MESH_SPLIT_STEPS steps: losses and fitted tensors within
+          TUNING_UPDATE_TOL of the replicated step, each shard its own leaf
+          with its own Adam moments;
+      (d) ``fitMultiple`` with ``parallelism=2`` over two slots: each map's
+          trainLosses within TRAIN_MESH_MAP_TOL of the sequential fits;
+      (e) no fit's graph pool outlives it.
+    B1-B3 launch 0 times in (b)-(d)."""
+    import tempfile
+
+    from sparkdl_tpu_torch.parallel.engine import graph_pool_bytes_held
+
+    tag = "train_mesh"
+    out = {}
+    problems = []
+
+    def expect(cond, msg):
+        if not cond:
+            print(f"FAIL (at the phase's end): {msg}", flush=True)
+            problems.append(msg)
+
+    t_phase = time.perf_counter()
+    slots = _mesh_slots(TRAIN_MESH_SLOTS, torch.cuda.device_count() > 1)
+    t0 = time.perf_counter()
+    out["head"] = _train_mesh_head(sepconv, tag, slots, expect)
+    out["head_s"] = time.perf_counter() - t0
+    # after (a): its dp2 featurizer's graphs stay cached with the zoo's
+    # engines, and (b)-(d) are held to leave no pool of their own
+    gc.collect()
+    torch.cuda.empty_cache()
+    held0 = graph_pool_bytes_held()
+    private0 = _private_pool_bytes()
+    reset_counts(sepconv)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, labels = _tuning_files(os.path.join(tmp, "images"))
+        x = np.stack([load_inception_v3(p) for p in paths])
+        y = np.eye(1000, dtype=np.float32)[labels]
+        t0 = time.perf_counter()
+        out["config5"] = _train_mesh_config5(sepconv, tag, slots, x, y,
+                                             paths, labels, expect)
+        out["config5_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["split"] = _train_mesh_split(tag, x, y, expect)
+        out["split_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["maps"] = _train_mesh_maps(tag, slots, tmp, expect)
+        out["maps_s"] = time.perf_counter() - t0
+    counts = read_counts(sepconv)
+    expect(counts == dict(sepconv=0, sepconv_tiled=0, mbconv=0),
+           f"[{tag}] (b)-(d) launches {counts}, want none of B1-B3")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held1 = graph_pool_bytes_held()
+    private1 = _private_pool_bytes()
+    expect(held1 <= held0 and private1 <= private0,
+           f"[{tag}] (e) graph pools held {held1} after the fits, {held0} "
+           f"before; private-pool segments {private1} after, {private0} "
+           f"before: a fit's pool outlived it")
+    print(f"[{tag}] (e) over (b)-(d): pools held by live engines "
+          f"{held0 / 2**20:.1f} -> {held1 / 2**20:.1f} MiB, private-pool "
+          f"(CUDA graph) segments {private0 / 2**20:.1f} -> "
+          f"{private1 / 2**20:.1f} MiB; card memory reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB", flush=True)
+    out["pools"] = dict(held_before=held0, held_after=held1,
+                        private_before=private0, private_after=private1)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{tag}] phase {out['phase_s']:.1f}s ((a) {out['head_s']:.1f}s, "
+          f"(b) {out['config5_s']:.1f}s, (c) {out['split_s']:.1f}s, (d) "
+          f"{out['maps_s']:.1f}s)", flush=True)
+    check(not problems, f"[{tag}] {len(problems)} failed: "
+                        + " | ".join(problems))
+    out["launches"] = out["head"]["launches"]
     return out
 
 
@@ -8388,6 +8987,10 @@ def main():
     trained = phase_train(sepconv)
     pools["train"] = pool_line("[train]")
     print(json.dumps({"train": trained}), flush=True)
+    train_mesh = phase_train_mesh(sepconv)
+    pools["train_mesh"] = pool_line("[train_mesh]")
+    print(json.dumps({"train_mesh": train_mesh}), flush=True)
+    b1["train_mesh_launches"] = train_mesh["launches"]["sepconv"]
     twin_day = phase_twin(sepconv)
     pools["twin"] = pool_line("[twin]")
     print(json.dumps({"twin": twin_day}), flush=True)

@@ -5,8 +5,10 @@ The reference's north-star recipe pairs ``DeepImageFeaturizer`` with a Spark
 ML classifier (``LogisticRegression`` in the README's flowers example).
 This is the port's logistic-regression head with the pyspark.ml column
 contract (featuresCol/labelCol/predictionCol/probabilityCol): fitted with
-Adam on one device (``parallel/train.py``; ``cuda`` unless the CPU was
-asked for), applied on the host.  A fitted model saves its ``(w, b)``
+Adam on the default mesh, as JAX's head is (``parallel/train.py``
+``fit_data_parallel``: every visible card unless the CPU was asked for,
+each global batch split over the mesh's data groups), applied on the
+host.  A fitted model saves its ``(w, b)``
 through ``sparkdl_tpu_torch.persistence`` (``model.save(path)``).
 """
 
@@ -54,7 +56,8 @@ def _predict(p, xb):
 
 
 class LogisticRegression(Estimator, _HasClassifierCols):
-    """Multinomial logistic regression fitted with Adam on one device."""
+    """Multinomial logistic regression fitted with Adam on the default
+    mesh."""
 
     maxIter = Param("undefined", "maxIter", "training epochs",
                     typeConverter=TypeConverters.toInt)

@@ -3,12 +3,15 @@
 
 The user's images are loaded once on the host (threaded, cached per URI
 in a byte-bounded LRU, ``SPARKDL_DECODE_CACHE_MB``) and each fit runs
-through ``parallel.train.fit_data_parallel``: on the card unless the CPU
-was asked for, with its steps captured as CUDA graphs there; in a
+through ``parallel.train.fit_data_parallel`` on the default mesh (every
+visible card unless the CPU was asked for, as JAX's fit takes every local
+chip), with its steps captured as CUDA graphs on a card; each data group
+of the mesh runs its rows through its own copy of the module.  In a
 ``torch.distributed`` group each rank fits on its own shard of the rows
 (``parallel.distributed.shard_files``) and the ranks all-reduce every
-step.  ``fitMultiple`` shares the loaded arrays
-across param maps.  ``fit(source)`` with a callable source of record
+step.  ``fitMultiple`` shares the loaded arrays across param maps and,
+with ``parallelism > 1``, fits them concurrently on slices of the mesh,
+as JAX's does.  ``fit(source)`` with a callable source of record
 batches streams instead (``_fit_stream``): nothing is loaded ahead.
 
 Which tensors a fit trains is what the JAX fit trains:
@@ -42,16 +45,18 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from sparkdl_tpu_torch import resolve_device
 from sparkdl_tpu_torch.graph.function import (ModelFunction, apply_with,
                                               batch_stat_names)
+from sparkdl_tpu_torch.models.layers import current_data_group
 from sparkdl_tpu_torch.param.converters import SparkDLTypeConverters
 from sparkdl_tpu_torch.param.params import Param, TypeConverters, keyword_only
 from sparkdl_tpu_torch.param.shared import (CanLoadImage, HasBatchSize,
                                             HasInputCol, HasLabelCol,
                                             HasOutputCol)
 from sparkdl_tpu_torch.parallel.train import (fit_data_parallel,
-                                              fit_data_parallel_stream)
+                                              fit_data_parallel_stream,
+                                              group_devices,
+                                              resolve_fit_mesh)
 from sparkdl_tpu_torch.transformers.base import Estimator, Model
 from sparkdl_tpu_torch.utils.cache import ByteBoundedLRU
 from sparkdl_tpu_torch.utils.logging import get_logger
@@ -113,9 +118,10 @@ class ImageFileEstimator(Estimator, HasInputCol, HasLabelCol, HasOutputCol,
 
     parallelism = Param(
         "undefined", "parallelism",
-        "max param maps fitted concurrently by fitMultiple (the JAX "
-        "package's mesh slices); on one device the maps fit sequentially "
-        "whatever the value",
+        "max param maps fitted concurrently by fitMultiple: the device "
+        "mesh is carved into min(parallelism, maps, devices) equal slices, "
+        "one thread each (CrossValidator(parallelism=) reaches it); one "
+        "device, or a multi-process run, fits the maps sequentially",
         typeConverter=TypeConverters.toInt)
 
     @keyword_only
@@ -241,19 +247,35 @@ class ImageFileEstimator(Estimator, HasInputCol, HasLabelCol, HasOutputCol,
             checkpoint_dir=fp.get("checkpoint_dir"),
             checkpoint_every_epochs=int(fp.get("checkpoint_every_epochs", 1)))
 
-    def _fit_with_runner(self, runner, common: Dict) -> "ImageFileModel":
+    def _fit_with_runner(self, runner, common: Dict,
+                         mesh=None) -> "ImageFileModel":
         """Shared fit logic: ``runner(fn, params, **kw) -> (fitted,
         losses)`` binds the data; this method picks the tensors to train
-        (see the module docstring), fits copies of them and assembles the
-        fitted model."""
+        (see the module docstring), fits copies of them on ``mesh``
+        (default: the fit's default mesh) and assembles the fitted model.
+        Each data group of the mesh runs its rows through a module of its
+        own on its device (``models.layers.current_data_group`` names the
+        group), whose trained tensors the fit passes in."""
         mf = self.getModelFunction()
-        module = copy.deepcopy(mf.module).to(resolve_device())
+        mesh = resolve_fit_mesh(mesh)
+        devices = group_devices(mesh)
+        module = copy.deepcopy(mf.module).to(devices[0])
         tensors = dict(module.named_parameters())
         tensors.update(module.named_buffers())
         stat_names = batch_stat_names(module)
+        common = dict(common, mesh=mesh)
+        modules = [module]
+
+        def replicate():
+            # after the train/eval mode is set: the groups' own modules
+            modules[1:] = [copy.deepcopy(module).to(d) for d in devices[1:]]
+
+        def group_module():
+            group = current_data_group()
+            return modules[group[0] if group is not None else 0]
 
         def predict(p, x):
-            return apply_with(mf.fn, module, p, x)
+            return apply_with(mf.fn, group_module(), p, x)
 
         if self.getTrainBatchStats():
             if mf.train_fn is None or not stat_names:
@@ -263,13 +285,14 @@ class ImageFileEstimator(Estimator, HasInputCol, HasLabelCol, HasOutputCol,
                     "(e.g. ModelFunction.from_module on a BatchNorm module)")
 
             def train(v, x):
-                return apply_with(mf.train_fn, module,
+                return apply_with(mf.train_fn, group_module(),
                                   {**v["params"], **v["batch_stats"]}, x)
 
+            replicate()
             # the generators a train-mode forward draws from (stochastic
             # depth): registered with the captured step, or eager on a CPU
             # one (parallel.train.step_mode)
-            gens = [m.generator for m in module.modules()
+            gens = [m.generator for mod in modules for m in mod.modules()
                     if isinstance(getattr(m, "generator", None),
                                   torch.Generator)]
             fitted, losses = runner(
@@ -281,10 +304,12 @@ class ImageFileEstimator(Estimator, HasInputCol, HasLabelCol, HasOutputCol,
             # frozen statistics (a module that has them): its parameters
             # train in eval mode; else every variable the JAX tree holds
             module.eval()
+            replicate()
             names = ([n for n, _ in module.named_parameters()] if stat_names
                      else variable_names(module))
             fitted, losses = runner(predict, {n: tensors[n] for n in names},
                                     **common)
+        del modules[1:]
         module = module.cpu().eval()
         with torch.no_grad():
             for n, t in module.state_dict(keep_vars=True).items():
@@ -307,8 +332,8 @@ class ImageFileEstimator(Estimator, HasInputCol, HasLabelCol, HasOutputCol,
             model.modelFile = self.getOrDefault(self.getParam("modelFile"))
         return model
 
-    def _fit_on_arrays(self, x: np.ndarray, y: np.ndarray
-                       ) -> "ImageFileModel":
+    def _fit_on_arrays(self, x: np.ndarray, y: np.ndarray,
+                       mesh=None) -> "ImageFileModel":
         fp = self.getFitParams()
         common = self._common_fit_kwargs()
         common.update(shuffle=bool(fp.get("shuffle", True)),
@@ -321,7 +346,7 @@ class ImageFileEstimator(Estimator, HasInputCol, HasLabelCol, HasOutputCol,
         def runner(fn, params, **kw):
             return fit_data_parallel(fn, params, x, y, **kw)
 
-        return self._fit_with_runner(runner, common)
+        return self._fit_with_runner(runner, common, mesh)
 
     def _fit(self, dataset) -> "ImageFileModel":
         self._validateParams()
@@ -370,11 +395,16 @@ class ImageFileEstimator(Estimator, HasInputCol, HasLabelCol, HasOutputCol,
     def fitMultiple(self, dataset, paramMaps):
         """One model per param map, in map order.  The data is loaded ONCE
         and reused across maps.  Maps sharing one ``checkpoint_dir`` get a
-        ``map_<i>`` subdirectory each.  With ``parallelism > 1`` the JAX
-        package fans maps out over slices of its device mesh; on one device
-        there is one slice (``k = min(parallelism, maps, devices)``), so
-        the maps fit sequentially, as the JAX package does on one
-        device."""
+        ``map_<i>`` subdirectory each.
+
+        With ``parallelism > 1`` the device mesh (the default mesh's
+        devices) is carved into k = min(parallelism, maps, devices) equal
+        slices (k lowered until it divides the devices) and the maps fit
+        concurrently, one thread per slice, each fit data-parallel over its
+        slice, as the JAX package fans maps out.  Slices are leased from a
+        queue, so a freed thread takes a free slice.  A multi-process run
+        warns and fits sequentially (collectives across ranks cannot be
+        interleaved across threads), and so does one device."""
         self._validateParams()
         x, y = self._load_numpy(dataset)
         maps = list(paramMaps)
@@ -388,7 +418,11 @@ class ImageFileEstimator(Estimator, HasInputCol, HasLabelCol, HasOutputCol,
                 est._set(fitParams=fp)
             return est
 
+        import queue
+
+        import sparkdl_tpu_torch
         from sparkdl_tpu_torch.parallel import distributed
+        from sparkdl_tpu_torch.parallel import mesh as mesh_lib
 
         want = max(1, int(self.getOrDefault(self.parallelism)))
         if distributed.process_count() > 1 and want > 1:
@@ -396,11 +430,35 @@ class ImageFileEstimator(Estimator, HasInputCol, HasLabelCol, HasOutputCol,
                            "multi-process run (collectives across ranks "
                            "cannot be interleaved across threads); fitting "
                            "sequentially", want)
-        elif want > 1 and len(maps) > 1:
-            logger.info("fitMultiple parallelism=%d on one device: fitting "
-                        "%d maps sequentially", want, len(maps))
-        for i in range(len(maps)):
-            yield i, map_estimator(i)._fit_on_arrays(x, y)
+            want = 1
+        devs = (list(mesh_lib.get_mesh().devices.flat)
+                if want > 1 and len(maps) > 1 else [])
+        k = min(want, len(maps), len(devs))
+        while k > 1 and len(devs) % k:  # equal slices only
+            k -= 1
+        if k <= 1:
+            for i in range(len(maps)):
+                yield i, map_estimator(i)._fit_on_arrays(x, y)
+            return
+        per = len(devs) // k
+        logger.info("fitMultiple fan-out: %d maps over %d mesh slices of "
+                    "%d device(s)", len(maps), k, per)
+        free: "queue.Queue" = queue.Queue()
+        for g in range(k):
+            free.put(mesh_lib.get_mesh(devices=devs[g * per:(g + 1) * per]))
+        where = sparkdl_tpu_torch._default()
+
+        def work(i):
+            mesh = free.get()
+            try:
+                with sparkdl_tpu_torch.default_device(where):
+                    return map_estimator(i)._fit_on_arrays(x, y, mesh=mesh)
+            finally:
+                free.put(mesh)
+
+        with ThreadPoolExecutor(k) as ex:
+            for i, model in enumerate(ex.map(work, range(len(maps)))):
+                yield i, model
 
 
 class ImageFileModel(Model, HasInputCol, HasOutputCol, HasBatchSize,

@@ -7,7 +7,9 @@ here it is rebuilt with the same string-addressable param-grid contract.
 Folds come from the same numpy permutation as the JAX package's
 (``_kfold_indices``), so both packages fit the same rows per fold; each
 fold's maps go through the estimator's ``fitMultiple``, which loads the
-data once and shares it across maps.
+data once and shares it across maps.  ``parallelism=k`` is handed to an
+estimator that has the param, whose ``fitMultiple`` then fits the maps
+concurrently on k slices of the device mesh.
 """
 
 from __future__ import annotations

@@ -14,7 +14,9 @@ EfficientNetB0's (its SiLU is ``F.silu``).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import threading
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -95,6 +97,58 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32).mean(dim=(2, 3)).to(x.dtype)
 
 
+class GroupSums:
+    """The rendezvous of one step's data groups in one process (the mesh's
+    rows, each run in a thread of its own): :meth:`all_sum` hands every
+    group the sum of all groups' tensors, as the all-reduce does across
+    the ranks of a process group.  Each group adds the parts in group
+    order on its own device, so every group holds the same values, and
+    autograd carries each group's share of the gradient back to every
+    group's part.  :meth:`abort` breaks the rendezvous for every waiting
+    group (a group that raised will never arrive)."""
+
+    def __init__(self, groups: int):
+        self.groups = int(groups)
+        self._parts: list = [None] * self.groups
+        self._barrier = threading.Barrier(self.groups)
+
+    def all_sum(self, index: int, part: torch.Tensor) -> torch.Tensor:
+        self._parts[index] = part
+        self._barrier.wait()
+        total = self._parts[0].to(part.device)
+        for other in self._parts[1:]:
+            total = total + other.to(part.device)
+        # no group writes its next part before every group has read
+        self._barrier.wait()
+        return total
+
+    def abort(self) -> None:
+        self._barrier.abort()
+
+
+_GROUP = threading.local()
+
+
+@contextlib.contextmanager
+def data_group(index: int, sums: Optional[GroupSums] = None
+               ) -> Iterator[None]:
+    """Mark the calling thread as running data group ``index`` of a step
+    (``parallel.train``), whose train-mode BatchNorms meet at ``sums``
+    (None: the group's own rows make its statistics)."""
+    prev = getattr(_GROUP, "current", None)
+    _GROUP.current = (int(index), sums)
+    try:
+        yield
+    finally:
+        _GROUP.current = prev
+
+
+def current_data_group() -> Optional[Tuple[int, Optional[GroupSums]]]:
+    """``(index, sums)`` of the data group the calling thread runs, or
+    None outside a step on a mesh."""
+    return getattr(_GROUP, "current", None)
+
+
 def flax_batch_norm_train(bn: nn.modules.batchnorm._BatchNorm,
                           x: torch.Tensor) -> torch.Tensor:
     """A train-mode BatchNorm over axis 1 with flax's arithmetic and update
@@ -106,24 +160,31 @@ def flax_batch_norm_train(bn: nn.modules.batchnorm._BatchNorm,
     unbiased variance instead.  The statistics are updated in place,
     without autograd; the output's gradient flows through μ and σ².
 
-    In a ``torch.distributed`` group of more than one process, μ and σ²
-    are the GLOBAL batch's, as under JAX's ``jit`` over a sharded batch:
-    the per-channel sum, sum of squares and count are all-reduced (one
-    collective, ``torch.distributed.nn``, so the gradient flows back
-    through it to every rank's rows)."""
+    μ and σ² are the GLOBAL batch's, as under JAX's ``jit`` over a
+    sharded batch, wherever the batch is split: in a ``torch.distributed``
+    group of more than one process the per-channel sum, sum of squares and
+    count are all-reduced (one collective, ``torch.distributed.nn``, so
+    the gradient flows back through it to every rank's rows); in a step
+    over the data groups of one process (:func:`data_group` with a
+    :class:`GroupSums`) they are summed across the groups the same way."""
     x, _ = promote(x, bn.running_mean)
     dims = [d for d in range(x.dim()) if d != 1]
     shape = [1, -1] + [1] * (x.dim() - 2)
     dist = torch.distributed
-    if (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1):
-        from torch.distributed.nn.functional import all_reduce
-
+    group = current_data_group()
+    if ((dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
+            or (group is not None and group[1] is not None)):
         c = x.shape[1]
         count = torch.full((1,), x.numel() // c, dtype=x.dtype,
                            device=x.device)
-        sums = all_reduce(torch.cat([x.sum(dim=dims),
-                                     (x * x).sum(dim=dims), count]))
+        local = torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims), count])
+        if group is not None and group[1] is not None:
+            sums = group[1].all_sum(group[0], local)
+        else:
+            from torch.distributed.nn.functional import all_reduce
+
+            sums = all_reduce(local)
         mean = sums[:c] / sums[-1]
         var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
     else:

@@ -698,21 +698,6 @@ class InferenceEngine:
         self.metrics.gauge("engine.param_bytes_per_chip",
                            float(self._sharding_stats["param_bytes_per_chip"]))
 
-    def _split_dim(self, spec) -> Optional[int]:
-        """The dimension ``spec`` splits on this mesh (None: the leaf is
-        whole in every slot).  A split on the data axis raises."""
-        if mesh_lib._axis_shards(self.mesh, spec) == 1:
-            return None
-        for dim, entry in enumerate(tuple(spec)):
-            axes = entry if isinstance(entry, (tuple, list)) else (entry,)
-            if mesh_lib.DATA_AXIS in axes and self.data_parallel > 1:
-                raise NotImplementedError(
-                    f"a weight split on the data axis ({spec!r}): an engine "
-                    f"splits weights on the model axis only")
-            if mesh_lib.MODEL_AXIS in axes:
-                return dim
-        return None
-
     def _place(self, base: nn.Module) -> None:
         """The data groups: each mesh row's module, with the weights placed
         by ``mesh.place`` under the policy (a split leaf a
@@ -726,7 +711,8 @@ class InferenceEngine:
         leaves = mesh_lib._module_leaves(base)
         specs = ({k: mesh_lib.P() for k in leaves}
                  if self._param_specs is None else self._param_specs)
-        dims = {k: self._split_dim(specs[k]) for k in leaves}
+        dims = {k: mesh_lib.model_split_dim(self.mesh, specs[k])
+                for k in leaves}
         self._split = any(d is not None for d in dims.values())
         modules: Dict[tuple, nn.Module] = {}
         if self.mesh.size == 1:

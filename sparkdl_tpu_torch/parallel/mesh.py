@@ -18,8 +18,10 @@ device_count>``, or the CPU), shape (W, 1), as ``jax.devices()`` spans
 every host of a multi-controller run.  ``devices=`` may name a device more
 than once: each entry is a *slot*, so ``["cpu"] * 8`` stands in for JAX's
 8 virtual CPU devices and ``["cuda:0"] * k`` for k cards on one card.  An
-engine scores on a mesh of this process's devices; a fit's data axis spans
-the ranks of a group (``parallel.train``, one card per process).
+engine scores, and a fit trains, on a mesh of this process's devices (in
+one process a fit's default mesh is ``get_mesh()``, as JAX's is); in a
+group a fit's data axis spans the ranks, one slot each
+(``parallel.train``).
 
 :func:`place` is ``jax.device_put`` under ``NamedSharding``s: a split leaf
 becomes one slice per slot, a replicated one one copy per distinct device.
@@ -149,7 +151,8 @@ def _global_devices() -> Tuple[list, list]:
     """(devices, ranks) of every process: one device per rank of the
     ``torch.distributed`` group; in one process every visible card when
     the default device is ``cuda`` without an index and more than one card
-    is visible, else that one device."""
+    is visible, else that one device (the CPU, or one card).  The default
+    mesh of an engine and of a fit alike."""
     from sparkdl_tpu_torch import resolve_device
     from sparkdl_tpu_torch.parallel import distributed
 
@@ -379,6 +382,24 @@ def _axis_shards(mesh, spec) -> int:
         for axis in (entry if isinstance(entry, (tuple, list)) else (entry,)):
             shards *= int(mesh.shape[axis])
     return shards
+
+
+def model_split_dim(mesh, spec) -> Optional[int]:
+    """The dimension ``spec`` splits a leaf on over ``mesh``'s model axis
+    (None: the leaf is whole in every slot).  A split on the data axis
+    raises: an engine and a train step split weights on the model axis
+    only."""
+    if _axis_shards(mesh, spec) == 1:
+        return None
+    for dim, entry in enumerate(tuple(spec)):
+        axes = entry if isinstance(entry, (tuple, list)) else (entry,)
+        if DATA_AXIS in axes and int(mesh.shape[DATA_AXIS]) > 1:
+            raise NotImplementedError(
+                f"a weight split on the data axis ({spec!r}): weights are "
+                f"split on the model axis only")
+        if MODEL_AXIS in axes:
+            return dim
+    return None
 
 
 def spec_shards_leaf(mesh, spec, shape) -> bool:

@@ -48,6 +48,25 @@ shard's address and the sum of its shards' version counters: the keys the
 fold caches and the engine's graph key read, so an in-place write to any
 shard (``load_state_dict`` copies into each) is seen as a whole weight's
 is.
+
+**Autograd.**  A split weight trains with its shards as the leaves: each
+shard is a tensor of its own that requires grad (one per model slot, on
+its slot's device), and an optimizer steps the shards, so each holds its
+own gradient and its own optimizer state.  The wrapper never enters
+autograd (it holds no storage and ``__torch_dispatch__`` refuses every
+aten op): every partitioned form above is a differentiable torch op on
+the shard tensors, so the backward of each form is autograd's own and
+gives each shard the gradient of its slice (``F.linear`` / ``F.conv2d``
+to their weight shard and bias slice, ``@`` to its column block, an
+elementwise op to its slice, a sum or a transpose to its shard), and a
+whole operand of a partitioned form (the activation a split ``F.linear``
+reads, a bias sliced to match) gets the sum of every shard's part.  A
+gather is ``torch.cat`` of the shards (moved to the first shard's
+device), whose backward hands each shard its slice of the gradient: what
+a softmax or a loss over a split class dimension meets first.  The
+wrapper reads its shards for ``requires_grad`` (any shard's),
+``grad`` (a ``ShardedTensor`` of the shards' gradients, or None) and
+``requires_grad_`` (every shard's).
 """
 
 from __future__ import annotations
@@ -139,6 +158,13 @@ class ShardedTensor(torch.Tensor):
             attr = getattr(getattr(func, "__self__", None), "__name__", "")
             if attr == "data":
                 return args[0]
+            if attr == "requires_grad":
+                return any(s.requires_grad for s in args[0].shards)
+            if attr == "grad":
+                grads = [s.grad for s in args[0].shards]
+                if any(g is None for g in grads):
+                    return None
+                return ShardedTensor(grads, args[0].split_dim)
             if attr not in _VALUE_ATTRS:
                 with torch._C.DisableTorchFunctionSubclass():
                     return func(*args, **kwargs)
@@ -346,7 +372,7 @@ _ELEMENTWISE = [
     _T.contiguous,
 ]
 _INPLACE = [_T.copy_, _T.add_, _T.sub_, _T.mul_, _T.div_, _T.zero_,
-            _T.fill_]
+            _T.fill_, _T.requires_grad_]
 
 _HANDLERS: Dict[Any, Any] = {f: _elementwise for f in _ELEMENTWISE}
 _HANDLERS.update({f: _inplace for f in _INPLACE})

@@ -2,9 +2,8 @@
 
 ``fit_data_parallel`` fits a tree of parameters (nested dicts of host
 arrays or tensors) on host arrays (x, y) with ``torch.autograd`` and a
-``torch.optim`` optimizer, on the device
-:func:`~sparkdl_tpu_torch.resolve_device` gives (``cuda`` unless the CPU
-was asked for).  It draws the JAX fit's batches (:func:`_epoch_batches` is
+``torch.optim`` optimizer, on the mesh :func:`resolve_fit_mesh` gives
+(the cards unless the CPU was asked for).  It draws the JAX fit's batches (:func:`_epoch_batches` is
 a copy of JAX's), takes the loss mean over each batch, and fetches the
 step losses once per group of ``steps_per_execution`` steps.  With
 ``train_fn`` + ``stats`` the step also carries BatchNorm statistics (JAX's
@@ -14,6 +13,18 @@ cadence and a fit resumes from the newest checkpoint (``checkpoint.py``).
 ``fit_data_parallel_stream`` runs the same loop over a re-iterable chunk
 source, holding O(chunk + batch) rows (:func:`_stream_epoch_batches` is a
 copy of JAX's).
+
+Fits on a mesh of several slots in one process (every visible card by
+default, as ``jax.devices()`` is; ``mesh.get_mesh(devices=["cuda:0"] *
+k)`` for k slots of one card, ``["cpu"] * 8`` for JAX's 8 virtual
+devices) split each global batch over the mesh's data groups in
+contiguous rows, as JAX's batch sharding splits axis 0: each group runs
+the forward and backward of its rows, the groups' gradients are averaged
+over the global batch, and one optimizer step updates the weights (see
+:class:`TrainStep`).  ``make_train_step(param_specs=...)`` splits chosen
+weights over the ``model`` axis into trainable shards
+(:class:`~.shard.ShardedTensor`), each with its own gradient and
+optimizer state; checkpoints save each split weight whole.
 
 Multi-process fits follow JAX's global-batch rules.  In a
 ``torch.distributed`` group of W ranks (:mod:`.distributed`) the mesh's
@@ -35,8 +46,12 @@ forward, loss, backward and ``optimizer.step`` of k = ``steps_per_execution``
 steps over a stacked ``[k, B, ...]`` input (JAX's ``lax.scan``), one
 replay and one loss fetch a group; a ragged tail group gets its own graph.
 Inside a process group the all-reduce runs on the host between two graphs
-a step (forward and backward, then the update): mode ``split``.  The steps
-stay eager (mode ``eager``) on the CPU, under autograd anomaly mode
+a step (forward and backward, then the update): mode ``split``.  On a mesh
+whose slots all name one card the groups run one after another inside the
+captured step.  The steps stay eager (mode ``eager``) on the CPU, on a
+mesh across several cards, with batch statistics over several data groups
+(their sums meet between the groups' threads), in a fit that starts while
+another fit runs on its card (fitMultiple's slices), under autograd anomaly mode
 (``utils.debug.enable_nan_checks``: its checks sync with the host), with
 an optimizer that cannot be captured (one made with ``capturable=False``,
 or a type not known to be graph-safe), with a CPU ``torch.Generator``
@@ -45,8 +60,8 @@ all-reduce sits inside the forward), and in a fit whose known step count
 replays its graphs too few times to pay for capturing them
 (:data:`BREAK_EVEN_REPLAYS`); the reason is logged.  The fit's ``Metrics`` count the mode
 (``train.step_mode.<mode>``), the captures (``train.captures``), and gauge
-the graphs' pool bytes, the capture seconds and the host microseconds a
-step.  A capture that fails raises.  The graphs and their pool are
+the graphs' pool bytes, the capture seconds, the host microseconds a
+step and the data groups (``train.data_groups``).  A capture that fails raises.  The graphs and their pool are
 released when the fit returns.
 """
 
@@ -138,26 +153,52 @@ def softmax_cross_entropy(logits: torch.Tensor, y: torch.Tensor
 
 
 class TrainStep:
-    """``step(x, y) -> loss``: one optimizer step on a batch.
+    """``step(x, y) -> loss``: one optimizer step on a (global) batch.
 
-    ``loss_of(x, y)`` gives the batch's mean loss (and updates BatchNorm
-    statistics in place, for a step with them); the step zeroes the
-    gradients, runs it and its backward, and in a process group of W
-    ranks all-reduces the gradients and the loss (one flat buffer) and
-    divides them by W, the global batch's mean, before
-    ``optimizer.step``.  The loss comes back as a 0-d device tensor, not
-    fetched.  Its pieces (:meth:`forward_backward`, :meth:`pack`,
-    :meth:`reduce`, :meth:`unpack`) are what a fit captures into graphs.
-    ``mesh`` and ``param_shardings`` record the layout (one card per
-    process: every weight replicated); :meth:`opt_state_shardings` gives
-    the optimizer state's."""
+    ``loss_of(params, stats, x, y)`` gives the mean loss of a batch's rows
+    under the param tree ``params`` (and updates the BatchNorm statistics
+    tree ``stats`` in place, for a step with them; None otherwise).  The
+    step zeroes the gradients, runs the loss and its backward and then
+    ``optimizer.step``; the loss comes back as a 0-d device tensor, not
+    fetched.  ``mesh`` and ``param_shardings`` record the layout;
+    :meth:`opt_state_shardings` gives the optimizer state's.
+
+    On one slot (the params' device, or this rank's one device in a
+    ``torch.distributed`` group of W ranks) the step trains the tensors of
+    ``params`` themselves; in a group it all-reduces the gradients and the
+    loss (one flat buffer) and divides them by W, the global batch's mean,
+    before ``optimizer.step``.  Its pieces (:meth:`forward_backward`,
+    :meth:`pack`, :meth:`reduce`, :meth:`unpack`) are what a fit captures
+    into graphs.
+
+    On a mesh of several slots in one process the step places the params
+    first (:meth:`_place`): a leaf that ``param_shardings`` splits on the
+    ``model`` axis becomes a :class:`~.shard.ShardedTensor` whose shards,
+    one per model slot of the first data group, are new leaves that
+    require grad; a replicated leaf is a leaf on the first slot's device
+    (the given tensor itself when it is there already).  ``optimizer``'s
+    param groups then hold those leaves, each shard in the place of its
+    whole leaf, so each shard has its own gradient and its own state; the
+    optimizer must be one whose update is elementwise (a split would take
+    Lamb's trust ratio per shard).  A batch is split over the data axis in
+    contiguous rows, as JAX splits axis 0: data group g runs the loss of
+    rows ``[g*b/dp, (g+1)*b/dp)`` on its slots, through copies of the
+    leaves on its devices (the leaves themselves where its slots are the
+    first group's), and the step's loss is the mean of the groups' means,
+    whose backward sums every group's gradient into the one set of leaves:
+    the global batch's mean gradient, up to the order of the sum.  With
+    statistics, each data group updates its own copy of them (refreshed
+    from the first group's before each step) and the groups run in
+    threads of their own that meet in every train-mode BatchNorm
+    (``models.layers.GroupSums``), so μ and σ² are the global batch's.
+    Each group's loss runs under ``models.layers.data_group(g)``, which
+    a caller's ``fn`` may read to pick its own per-group state."""
 
     def __init__(self, loss_of: Callable, optimizer: torch.optim.Optimizer,
                  params, *, mesh=None, param_shardings=None,
-                 params_template=None):
+                 params_template=None, stats=None):
         self.loss_of = loss_of
         self.optimizer = optimizer
-        self.params = _tree_leaves(params)
         self.mesh = mesh
         self.replicated = (mesh_lib.replicated_sharding(mesh)
                            if mesh is not None else None)
@@ -165,6 +206,99 @@ class TrainStep:
         self._template = params_template
         self.world = distributed.process_count()
         self._flat: Optional[torch.Tensor] = None
+        self.tree = params
+        self.stats = stats
+        self._rows: Optional[List[tuple]] = None
+        self._stats: List[Any] = [stats]
+        self._pool = None
+        if self.world == 1 and mesh is not None and mesh.size > 1:
+            self._place()
+        self.params = [p for t in _tree_leaves(self.tree) for p in _pieces(t)]
+
+    # -- placement on a mesh of this process's slots -----------------------
+    def _place(self) -> None:
+        from sparkdl_tpu_torch.parallel.shard import ShardedTensor
+
+        mesh = self.mesh
+        dp = int(mesh.shape[mesh_lib.DATA_AXIS])
+        rows = [tuple(torch.device(d) for d in mesh.devices[g])
+                for g in range(dp)]
+        first = rows[0][0]
+        flat = mesh_lib.tree_flatten_with_path(self.tree)
+        specs = ([None] * len(flat) if self.param_shardings is None else
+                 [sh.spec for _, sh in mesh_lib.tree_flatten_with_path(
+                     self.param_shardings, mesh_lib._is_spec)])
+        leaves, swap, split = [], {}, False
+        for (_, leaf), spec in zip(flat, specs):
+            dim = (None if spec is None
+                   else mesh_lib.model_split_dim(mesh, spec))
+            if dim is None:
+                new = (leaf if leaf.device == first
+                       else _leaf(leaf, first, leaf.requires_grad))
+            else:
+                split = True
+                pieces = []
+                for m, dev in enumerate(rows[0]):
+                    index = mesh_lib._slot_index(
+                        mesh, spec, tuple(leaf.shape),
+                        {mesh_lib.DATA_AXIS: 0, mesh_lib.MODEL_AXIS: m})
+                    pieces.append(leaf.detach()[index].to(dev).clone(
+                        memory_format=torch.contiguous_format
+                    ).requires_grad_(leaf.requires_grad))
+                new = ShardedTensor(pieces, dim)
+            if new is not leaf:
+                swap[id(leaf)] = _pieces(new)
+            leaves.append(new)
+        if split:
+            _require_elementwise(self.optimizer)
+        if swap:
+            if any(self.optimizer.state.values()):
+                raise ValueError(
+                    "the step places its params on the mesh before the "
+                    "optimizer's first step; this optimizer already holds "
+                    "state")
+            for group in self.optimizer.param_groups:
+                group["params"] = [n for q in group["params"]
+                                   for n in swap.get(id(q), [q])]
+        self.tree = mesh_lib.tree_unflatten_like(self.tree, leaves)
+        self._rows = rows
+        self._stats = [self.stats] + [
+            _tree_map(lambda t, d=row[0]: t.detach().to(d, copy=True),
+                      self.stats) if self.stats is not None else None
+            for row in rows[1:]]
+
+    def _view(self, g: int):
+        """Data group ``g``'s param tree: the leaves themselves where its
+        slots are the first group's, else copies on its devices that
+        autograd carries the gradient back through."""
+        from sparkdl_tpu_torch.parallel.shard import ShardedTensor
+
+        row = self._rows[g]
+        if row == self._rows[0]:
+            return self.tree
+
+        def move(t):
+            if isinstance(t, ShardedTensor):
+                return ShardedTensor([s.to(row[m]) for m, s in
+                                      enumerate(t.shards)], t.split_dim)
+            return t.to(row[0])
+
+        return _tree_map(move, self.tree)
+
+    @property
+    def data_groups(self) -> int:
+        """The data groups a batch is split over (1 on one slot)."""
+        return 1 if self._rows is None else len(self._rows)
+
+    def cards(self) -> List[torch.device]:
+        """The distinct devices the step's groups and shards run on."""
+        if self._rows is None:
+            return [self.params[0].device] if self.params else []
+        seen: Dict[str, torch.device] = {}
+        for row in self._rows:
+            for d in row:
+                seen.setdefault(str(d), d)
+        return list(seen.values())
 
     def opt_state_shardings(self):
         """The sharding of each tensor of the optimizer's state now
@@ -174,15 +308,103 @@ class TrainStep:
             return None
         return resolve_opt_state_shardings(
             self.optimizer, self._template, self.param_shardings,
-            self.replicated)
+            self.replicated, owners=self._owners())
 
+    def _owners(self) -> List[int]:
+        """For each tensor in the optimizer's param groups, the index of
+        the whole leaf (in the params tree's order) it is or is a shard
+        of."""
+        index = {id(p): i for i, t in enumerate(_tree_leaves(self.tree))
+                 for p in _pieces(t)}
+        return [index[id(p)] for g in self.optimizer.param_groups
+                for p in g["params"]]
+
+    # -- the step ----------------------------------------------------------
     def forward_backward(self, x, y) -> torch.Tensor:
-        """Zero the gradients, then the local batch's mean loss and its
+        """Zero the gradients, then the batch's mean loss and its
         backward; returns the loss, detached."""
         self.optimizer.zero_grad(set_to_none=True)
-        lval = self.loss_of(x, y)
+        if self._rows is None:
+            lval = self.loss_of(self.tree, self.stats, x, y)
+        else:
+            lval = self._groups_loss(x, y)
         lval.backward()
         return lval.detach()
+
+    def _groups_loss(self, x, y) -> torch.Tensor:
+        dp = len(self._rows)
+        n = int(x.shape[0])
+        if n % dp:
+            raise ValueError(f"a batch of {n} rows does not split over the "
+                             f"mesh's {dp} data groups")
+        b = n // dp
+        if self.stats is not None:
+            with torch.no_grad():
+                for st in self._stats[1:]:
+                    for dst, src in zip(_tree_leaves(st),
+                                        _tree_leaves(self.stats)):
+                        dst.copy_(src)
+        jobs = [(g, self._view(g), self._stats[g],
+                 x.narrow(0, g * b, b).to(row[0]),
+                 y.narrow(0, g * b, b).to(row[0]))
+                for g, row in enumerate(self._rows)]
+        if self.stats is not None:
+            losses = self._threaded(jobs)
+        else:
+            from sparkdl_tpu_torch.models.layers import data_group
+
+            losses = []
+            for g, p, st, xg, yg in jobs:
+                with data_group(g):
+                    losses.append(self.loss_of(p, st, xg, yg))
+        first = self._rows[0][0]
+        total = losses[0]
+        for lval in losses[1:]:
+            total = total + lval.to(first)
+        return total / dp
+
+    def _threaded(self, jobs) -> List[torch.Tensor]:
+        """Each group's loss in a thread of its own (the BatchNorms of the
+        groups meet inside their forwards); the caller's default device
+        and CUDA streams carry over.  A group that raises breaks the
+        rendezvous, and its error is raised."""
+        import contextlib
+        import threading
+        from concurrent.futures import ThreadPoolExecutor
+
+        import sparkdl_tpu_torch
+        from sparkdl_tpu_torch.models.layers import GroupSums, data_group
+
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(len(jobs),
+                                            thread_name_prefix="train-group")
+        sums = GroupSums(len(jobs))
+        where = sparkdl_tpu_torch._default()
+        streams = {str(d): torch.cuda.current_stream(d)
+                   for d in self.cards() if d.type == "cuda"}
+
+        def run(job):
+            g, p, st, xg, yg = job
+            stream = streams.get(str(xg.device))
+            try:
+                with sparkdl_tpu_torch.default_device(where), \
+                        data_group(g, sums), \
+                        (torch.cuda.stream(stream) if stream is not None
+                         else contextlib.nullcontext()):
+                    return self.loss_of(p, st, xg, yg)
+            except BaseException:
+                sums.abort()
+                raise
+
+        futures = [self._pool.submit(run, j) for j in jobs]
+        errors = [f.exception() for f in futures]
+        for e in errors:  # the group that failed, not one it left waiting
+            if e is not None and not isinstance(e, threading.BrokenBarrierError):
+                raise e
+        for e in errors:
+            if e is not None:
+                raise e
+        return [f.result() for f in futures]
 
     def _grads(self) -> List[torch.Tensor]:
         return [p.grad for p in self.params if p.grad is not None]
@@ -229,23 +451,124 @@ class TrainStep:
         self.optimizer.step()
         return lval
 
+    # -- what a fit reads, saves and restores ------------------------------
+    def host_params(self):
+        """The params tree as numpy arrays, each split leaf whole."""
+        from sparkdl_tpu_torch.parallel.shard import gather
 
-def _refuse_real_split(param_shardings, params) -> None:
-    """The port's documented deviation: one card per process, so a policy
-    that splits a weight across devices raises."""
-    flat_sh = [s for _, s in mesh_lib.tree_flatten_with_path(
-        param_shardings, mesh_lib._is_spec)]
-    for (path, leaf), sh in zip(mesh_lib.tree_flatten_with_path(params),
-                                flat_sh):
-        spec = sh.spec
-        if (mesh_lib._axis_shards(sh.mesh, spec) > 1
-                and mesh_lib.spec_shards_leaf(sh.mesh, spec,
-                                              tuple(leaf.shape))):
-            raise NotImplementedError(
-                f"param_specs split {mesh_lib.param_path_str(path)!r} "
-                f"({spec!r}) across devices; the port runs one card per "
-                f"process and holds every weight whole (ROADMAP.md §C, "
-                f"documented deviations)")
+        return _tree_map(lambda t: gather(t).detach().cpu().numpy(),
+                         self.tree)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """``{"params": ..., "opt_state": ...}`` with each split leaf whole
+        (its shards concatenated) and the optimizer's ``state_dict`` in
+        the layout of the whole leaves (a shard's state tensors
+        concatenated along the split, the rest the first shard's), so a
+        checkpoint reads the same whatever the mesh."""
+        from sparkdl_tpu_torch.parallel.shard import gather
+
+        sd = self.optimizer.state_dict()
+        leaves = _tree_leaves(self.tree)
+        owners = self._owners()
+        state: Dict[int, Dict[str, Any]] = {}
+        for pos, i in enumerate(owners):
+            st = sd["state"].get(pos)
+            if st is None:
+                continue
+            if i not in state:
+                state[i] = dict(st)
+                continue
+            shard = leaves[i].shards[0]
+            for k, v in st.items():
+                if _per_shard(v, shard):
+                    state[i][k] = torch.cat([state[i][k], v.to(
+                        state[i][k].device)], leaves[i].split_dim)
+        groups = []
+        for g_sd in sd["param_groups"]:
+            ids: List[int] = []
+            for pos in g_sd["params"]:
+                if owners[pos] not in ids:
+                    ids.append(owners[pos])
+            groups.append(dict(g_sd, params=ids))
+        return {"params": _tree_map(lambda t: gather(t).detach(), self.tree),
+                "opt_state": {"state": state, "param_groups": groups}}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore :meth:`state_dict`'s layout: each whole leaf's values
+        (split again over its shards) and the optimizer's state."""
+        from sparkdl_tpu_torch.parallel.shard import ShardedTensor
+
+        leaves = _tree_leaves(self.tree)
+        with torch.no_grad():
+            for t, v in zip(leaves, _tree_leaves(state["params"])):
+                v = torch.as_tensor(v)
+                if isinstance(t, ShardedTensor):
+                    b = t.bounds()
+                    for m, s in enumerate(t.shards):
+                        s.copy_(v.narrow(t.split_dim, b[m], b[m + 1] - b[m]))
+                else:
+                    t.copy_(v)
+        saved = state["opt_state"]
+        owners = self._owners()
+        per_leaf: Dict[int, List[int]] = {}
+        for pos, i in enumerate(owners):
+            per_leaf.setdefault(i, []).append(pos)
+        st_out: Dict[int, Dict[str, Any]] = {}
+        for i, st in saved["state"].items():
+            i = int(i)
+            b = (leaves[i].bounds() if isinstance(leaves[i], ShardedTensor)
+                 else None)
+            for m, pos in enumerate(per_leaf[i]):
+                # each shard its own tensors: a step count shared by two
+                # shards would be counted twice a step
+                st_out[pos] = {
+                    k: (v.narrow(leaves[i].split_dim, b[m], b[m + 1] - b[m])
+                        .clone()
+                        if b is not None and torch.is_tensor(v)
+                        and tuple(v.shape) == tuple(leaves[i].shape)
+                        else v.clone() if torch.is_tensor(v) else v)
+                    for k, v in st.items()}
+        groups = [dict(g, params=[pos for i in g["params"]
+                                  for pos in per_leaf[int(i)]])
+                  for g in saved["param_groups"]]
+        self.optimizer.load_state_dict({"state": st_out,
+                                        "param_groups": groups})
+
+    def close(self) -> None:
+        """Stop the groups' threads, if any ran."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
+
+def _pieces(t) -> list:
+    """The tensors an optimizer steps for one leaf: a split leaf's shards,
+    else the leaf."""
+    return list(t.shards) if hasattr(t, "shards") else [t]
+
+
+def _per_shard(v, shard: torch.Tensor) -> bool:
+    """Whether an optimizer state value is a tensor of its shard's shape
+    (a moment), as opposed to a count or a scalar."""
+    return torch.is_tensor(v) and tuple(v.shape) == tuple(shard.shape) \
+        and v.dim() > 0
+
+
+def _require_elementwise(optimizer: torch.optim.Optimizer) -> None:
+    """A split weight trains shard by shard: its optimizer's update must
+    be elementwise, so that each shard's update is its slice of the whole
+    one."""
+    from sparkdl_tpu_torch.param import converters as cv
+
+    ok = (torch.optim.SGD, torch.optim.Adam, torch.optim.AdamW,
+          torch.optim.RMSprop, torch.optim.Adagrad, cv.OptaxAdam,
+          cv.OptaxRMSprop, cv.OptaxAdagrad, cv.Lion)
+    if not isinstance(optimizer, ok):
+        raise NotImplementedError(
+            f"{type(optimizer).__name__} over a split weight: its update "
+            f"is not known to be elementwise (Lamb's trust ratio is a norm "
+            f"over the whole tensor), so a shard's update would not be its "
+            f"slice of the whole one")
 
 
 def resolve_param_specs(param_specs, params, mesh):
@@ -266,27 +589,31 @@ def resolve_param_specs(param_specs, params, mesh):
 
 def resolve_opt_state_shardings(optimizer: torch.optim.Optimizer,
                                 params_template, param_shardings,
-                                replicated):
-    """A sharding for each tensor of ``optimizer``'s state, in its
-    ``state_dict()["state"]`` layout (param index -> state key ->
+                                replicated, owners: Optional[Sequence[int]]
+                                = None):
+    """A sharding for each tensor of ``optimizer``'s state, by whole leaf
+    (the leaf's index in ``params_template``'s order -> state key ->
     sharding): a state tensor of its param's shape (Adam's moments, a
     momentum buffer) inherits the param's sharding, anything else (step
-    counts, scalars) is replicated.  The optimizer's state is made at its
-    first step: before it the result is empty."""
+    counts, scalars) is replicated.  ``owners`` gives, for each tensor in
+    the optimizer's param groups, the index of the leaf it is or is a
+    shard of (default: one tensor per leaf, in order), so a split leaf's
+    moments, which live per shard in shard-shaped tensors, report the
+    leaf's sharding.  The optimizer's state is made at its first step:
+    before it the result is empty."""
     flat_sh = [s for _, s in mesh_lib.tree_flatten_with_path(
         param_shardings, mesh_lib._is_spec)]
-    shapes = [tuple(l.shape) for _, l in
-              mesh_lib.tree_flatten_with_path(params_template)]
     params = [p for g in optimizer.param_groups for p in g["params"]]
+    owners = list(range(len(params))) if owners is None else list(owners)
     out: Dict[int, Dict[str, Any]] = {}
-    for i, p in enumerate(params):
+    for i, p in zip(owners, params):
         st = optimizer.state.get(p)
-        if not st:
+        if not st or i in out:
             continue
         out[i] = {}
         for key, value in st.items():
-            same = (isinstance(value, torch.Tensor) and i < len(shapes)
-                    and tuple(value.shape) == shapes[i])
+            same = (isinstance(value, torch.Tensor) and i < len(flat_sh)
+                    and tuple(value.shape) == tuple(p.shape))
             out[i][key] = flat_sh[i] if same else replicated
     return out
 
@@ -299,16 +626,20 @@ def make_train_step(predict_fn: Callable, loss,
     x), y)``, ``optimizer`` built over the tensors of ``params``.
 
     ``mesh`` (default :func:`~.mesh.get_mesh` in a process group, else
-    the params' device) is recorded with its layouts.  ``param_specs``
-    (with ``params_template``, default ``params``): a tree of
-    ``PartitionSpec`` or a ``(path, leaf) -> PartitionSpec`` rule, resolved
-    as JAX's; a spec that really splits a weight across devices raises
-    ``NotImplementedError`` (one card per process), one that replicates on
-    this mesh is taken."""
+    the params' device): on a mesh of several slots of this process the
+    step splits each batch over the data groups and places the params on
+    the slots (see :class:`TrainStep`; ``step.tree`` is then the placed
+    tree and ``optimizer`` steps its leaves).  ``param_specs`` (with
+    ``params_template``, default ``params``): a tree of ``PartitionSpec``
+    or a ``(path, leaf) -> PartitionSpec`` rule, resolved as JAX's; a spec
+    that splits a leaf on the ``model`` axis makes it a
+    :class:`~.shard.ShardedTensor` of trainable shards.  In a process
+    group a step holds one slot per rank: a mesh giving a rank several
+    slots raises ``NotImplementedError``."""
     loss_fn = resolve_loss(loss)
 
-    def loss_of(x, y):
-        return torch.mean(loss_fn(predict_fn(params, x), y))
+    def loss_of(p, stats, x, y):
+        return torch.mean(loss_fn(predict_fn(p, x), y))
 
     return _step(loss_of, optimizer, params, mesh, param_specs,
                  params_template)
@@ -323,14 +654,12 @@ def make_train_step_with_stats(train_fn: Callable, loss,
     ..., "batch_stats": ...}, x) -> (pred, new_stats)`` updates BatchNorm
     statistics: ``stats["batch_stats"]`` holds the current statistics and
     each step writes the new ones INTO those tensors (in place, so a
-    captured step updates static tensors); in a process group they are the
-    global batch's."""
+    captured step updates static tensors); in a process group, and over
+    the data groups of a mesh, they are the global batch's."""
     loss_fn = resolve_loss(loss)
 
-    def loss_of(x, y):
-        current = stats["batch_stats"]
-        pred, new_stats = train_fn(
-            {"params": params, "batch_stats": current}, x)
+    def loss_of(p, current, x, y):
+        pred, new_stats = train_fn({"params": p, "batch_stats": current}, x)
         with torch.no_grad():
             for old, new in zip(_tree_leaves(current),
                                 _tree_leaves(new_stats)):
@@ -339,26 +668,41 @@ def make_train_step_with_stats(train_fn: Callable, loss,
         return torch.mean(loss_fn(pred, y))
 
     return _step(loss_of, optimizer, params, mesh, param_specs,
-                 params_template)
+                 params_template, stats=stats["batch_stats"])
 
 
 def _step(loss_of, optimizer, params, mesh, param_specs,
-          params_template) -> TrainStep:
+          params_template, stats=None) -> TrainStep:
+    pc = distributed.process_count()
     if mesh is None:
         # the step runs where its tensors are: the ranks' devices in a
         # group, else the params' one device
         leaves = _tree_leaves(params)
-        mesh = (mesh_lib.get_mesh() if distributed.process_count() > 1
+        mesh = (mesh_lib.get_mesh() if pc > 1
                 else mesh_lib.get_mesh(devices=[
                     leaves[0].device if leaves else resolve_device()]))
+    if pc > 1:
+        _one_slot_per_rank(mesh)
     param_shardings = template = None
     if param_specs is not None:
         template = params_template if params_template is not None else params
         param_shardings = resolve_param_specs(param_specs, template, mesh)
-        _refuse_real_split(param_shardings, template)
     return TrainStep(loss_of, optimizer, params, mesh=mesh,
                      param_shardings=param_shardings,
-                     params_template=template)
+                     params_template=template, stats=stats)
+
+
+def _one_slot_per_rank(mesh) -> None:
+    """In a process group a step holds one slot per rank; a rank with
+    several slots (data parallel over the ranks, a split within each) is
+    the documented deviation."""
+    me = distributed.process_index()
+    mine = sum(int(r) == me for r in np.asarray(mesh.ranks).flat)
+    if mine != 1 or int(mesh.shape[mesh_lib.MODEL_AXIS]) > 1:
+        raise NotImplementedError(
+            f"a fit on mesh {mesh.shape} gives rank {me} {mine} slots; in a "
+            f"process group each rank holds one slot (a data axis of the "
+            f"group's ranks, model axis 1; ROADMAP.md §C)")
 
 
 # one optimizer factory per zero-argument factory, pinned with it so that
@@ -529,7 +873,8 @@ def capture_plan(steps_per_epoch: int, epochs: int, spe: int
 
 def step_mode(device: torch.device, optimizer: torch.optim.Optimizer,
               with_stats: bool, generators: Sequence = (),
-              fit_steps: Optional[Tuple[int, int]] = None, spe: int = 1
+              fit_steps: Optional[Tuple[int, int]] = None, spe: int = 1,
+              *, cards: int = 1, groups: int = 1, shared: bool = False
               ) -> Tuple[str, str]:
     """(mode, reason) of a fit's steps: ``captured`` (one graph per group
     length), ``split`` (a process group: two graphs a step around the
@@ -537,7 +882,12 @@ def step_mode(device: torch.device, optimizer: torch.optim.Optimizer,
     fit's (steps an epoch, epochs to run) when known before its first
     step, else None (a stream of unknown length: captured); a fit whose
     graphs would be replayed fewer than :data:`BREAK_EVEN_REPLAYS` times a
-    captured step runs eagerly."""
+    captured step runs eagerly.  On a mesh in one process: ``cards``, the
+    distinct cards its slots name (a step across cards runs eagerly),
+    ``groups``, its data groups (whose batch statistics meet between
+    threads: eager), and ``shared``, another fit running on one of its
+    cards at the start (fitMultiple's slices: eager, as a capture would
+    share that fit's side stream)."""
     if device.type != "cuda":
         return "eager", "the CPU runs its steps eagerly"
     if torch.is_anomaly_enabled():
@@ -550,6 +900,18 @@ def step_mode(device: torch.device, optimizer: torch.optim.Optimizer,
     if any(g.device.type != "cuda" for g in generators):
         return "eager", ("a CPU torch.Generator feeds the model (its draws "
                          "are made on the host every step)")
+    if cards > 1:
+        return "eager", (f"the mesh spans {cards} cards: a captured graph "
+                         f"holds one card's work, and the data groups' "
+                         f"gradients meet across the cards inside the step")
+    if groups > 1 and with_stats:
+        return "eager", (f"batch statistics over {groups} data groups: "
+                         f"their sums meet between the groups' threads "
+                         f"inside the forward")
+    if shared:
+        return "eager", ("another fit runs on this card at once "
+                         "(fitMultiple's mesh slices): a capture would share "
+                         "its side stream")
     mode = "captured"
     if distributed.process_count() > 1:
         if with_stats:
@@ -837,26 +1199,53 @@ def _host(tree):
     return _tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
+def resolve_fit_mesh(mesh=None, device: DeviceLike = None):
+    """The mesh a fit runs on: ``mesh`` when given; in a process group
+    :func:`~.mesh.get_mesh` (one slot per rank); in one process the one
+    device ``device`` names, or with no ``device`` the default mesh, as
+    JAX's is (:func:`~.mesh.get_mesh`: every visible card, the CPU, or
+    the one card the default device names).  Every slot of this process
+    is resolved, so a CUDA slot without a card raises ``RuntimeError``;
+    in a group a rank with several slots raises ``NotImplementedError``."""
+    pc = distributed.process_count()
+    if mesh is None:
+        mesh = (mesh_lib.get_mesh() if pc > 1 or device is None
+                else mesh_lib.get_mesh(devices=[resolve_device(device)]))
+    if pc > 1:
+        _one_slot_per_rank(mesh)
+    else:
+        for d in mesh.devices.flat:
+            resolve_device(d)
+    return mesh
+
+
+def group_devices(mesh) -> List[torch.device]:
+    """The device each data group of a fit on ``mesh`` runs its rows on
+    (its first slot), in group order; in a process group, this rank's
+    one device."""
+    if distributed.process_count() > 1:
+        return [resolve_device()]
+    return [resolve_device(mesh.devices[g][0])
+            for g in range(int(mesh.shape[mesh_lib.DATA_AXIS]))]
+
+
 def _fit_mesh(mesh, batch_size: int, device: DeviceLike
               ) -> Tuple[Any, int, int]:
-    """(mesh, data-axis size, global batch rounded up to it).  The port
-    runs one card per process: the data axis is the group's ranks (the
-    default mesh), or this fit's one device."""
-    if mesh is None:
-        mesh = (mesh_lib.get_mesh() if distributed.process_count() > 1
-                else mesh_lib.get_mesh(devices=[resolve_device(device)]))
+    """(mesh, data-axis size, global batch rounded up to it)."""
+    mesh = resolve_fit_mesh(mesh, device)
     dp = int(mesh.shape[mesh_lib.DATA_AXIS])
-    if int(mesh.shape[mesh_lib.MODEL_AXIS]) > 1 \
-            or mesh.size > distributed.process_count():
-        raise NotImplementedError(
-            f"a fit on mesh {mesh.shape} needs more than one device per "
-            f"process; the port runs one card per process (a data axis of "
-            f"the group's ranks, model axis 1; ROADMAP.md §C)")
     if batch_size % dp:
         batch_size += dp - batch_size % dp
         logger.info("global batch rounded up to %d (multiple of %d-way "
                     "data axis)", batch_size, dp)
     return mesh, dp, batch_size
+
+
+# the cards fits are running on now (device -> fits), so that a fit that
+# starts beside another on one card knows it up front (step_mode's
+# ``shared``); guarded by the side streams' lock, which is what two fits
+# on a card would share
+_ACTIVE_FITS: Dict[str, int] = {}
 
 
 def _fit(predict_fn: Callable, params, epoch_batches: Callable[[int], Iterable],
@@ -869,15 +1258,21 @@ def _fit(predict_fn: Callable, params, epoch_batches: Callable[[int], Iterable],
     """The loop both fits share: ``epoch_batches(epoch)`` gives this
     rank's (x, y) host batches of the epoch, ``epoch_steps`` of them when
     known up front (None: a stream's own length); ``no_rows`` is the
-    ``ValueError`` an epoch without a batch raises.  See
-    :func:`fit_data_parallel` for the rest."""
-    dev = resolve_device(device)
+    ``ValueError`` an epoch without a batch raises.  ``mesh`` is resolved
+    (:func:`_fit_mesh`).  See :func:`fit_data_parallel` for the rest."""
+    dev = (resolve_device(mesh.devices.flat[0])
+           if distributed.process_count() == 1 else resolve_device(device))
     make_opt = _resolve_optimizer(optimizer)
     with_stats = train_fn is not None
     tensors = _tree_map(lambda v: _leaf(v, dev, True), params)
     opt = make_opt(_tree_leaves(tensors))
     stats_ref = {"batch_stats": _tree_map(lambda v: _leaf(v, dev, False),
                                           stats if stats is not None else {})}
+    if with_stats:
+        step = make_train_step_with_stats(train_fn, loss, opt, tensors,
+                                          stats_ref, mesh=mesh)
+    else:
+        step = make_train_step(predict_fn, loss, opt, tensors, mesh=mesh)
 
     start_epoch = 0
     ckptr = None
@@ -888,58 +1283,64 @@ def _fit(predict_fn: Callable, params, epoch_batches: Callable[[int], Iterable],
         resumed = ckptr.restore_latest()
         if resumed is not None:
             start_epoch, state = resumed
-            with torch.no_grad():
-                for t, v in zip(_tree_leaves(tensors),
-                                _tree_leaves(state["params"])):
-                    t.copy_(v)
-                if with_stats:
+            step.load_state_dict(state)
+            if with_stats:
+                with torch.no_grad():
                     for t, v in zip(_tree_leaves(stats_ref["batch_stats"]),
                                     _tree_leaves(state["batch_stats"])):
                         t.copy_(v)
-            opt.load_state_dict(state["opt_state"])
 
     def ckpt_state():  # save_pytree copies the tensors to the host
-        state = {"params": tensors, "opt_state": opt.state_dict()}
+        state = step.state_dict()
         if with_stats:
             state["batch_stats"] = stats_ref["batch_stats"]
         return state
 
-    if with_stats:
-        step = make_train_step_with_stats(train_fn, loss, opt, tensors,
-                                          stats_ref, mesh=mesh)
-    else:
-        step = make_train_step(predict_fn, loss, opt, tensors, mesh=mesh)
     metrics = metrics if metrics is not None else Metrics()
     spe = max(1, int(steps_per_execution))
     fit_steps = (None if epoch_steps is None
                  else (epoch_steps, epochs - start_epoch))
-    mode, why = step_mode(dev, opt, with_stats, generators, fit_steps, spe)
-    if why and dev.type == "cuda":
-        logger.info("training steps run eagerly: %s", why)
-    runner = _StepRunner(step, spe, dev, mode, generators)
-    epoch_losses: List[float] = []
+    cards = [str(d) for d in step.cards()]
+    with _SIDE_LOCK:
+        shared = any(_ACTIVE_FITS.get(c) for c in cards)
+        for c in cards:
+            _ACTIVE_FITS[c] = _ACTIVE_FITS.get(c, 0) + 1
     try:
-        for epoch in range(start_epoch, epochs):
-            step_losses = runner.run_epoch(epoch_batches(epoch))
-            if not step_losses:
-                raise ValueError(no_rows)
-            mean = float(np.mean(step_losses))
-            if not np.isfinite(mean):
-                debug.warn_or_raise_nonfinite_loss(step_losses, epoch)
-            epoch_losses.append(mean)
-            metrics.record_time("epoch_loss", mean)
-            if (ckptr is not None and ckptr.due(epoch + 1)
-                    and ckptr.is_writer()):
-                # copied to the host only on epochs the cadence saves
-                ckptr.maybe_save(epoch + 1, ckpt_state())
-        runner.report(metrics)
-        if with_stats:
-            return ({"params": _host(tensors),
-                     "batch_stats": _host(stats_ref["batch_stats"])},
-                    epoch_losses)
-        return _host(tensors), epoch_losses
+        mode, why = step_mode(dev, opt, with_stats, generators, fit_steps,
+                              spe, cards=len(cards),
+                              groups=step.data_groups, shared=shared)
+        if why and dev.type == "cuda":
+            logger.info("training steps run eagerly: %s", why)
+        runner = _StepRunner(step, spe, dev, mode, generators)
+        epoch_losses: List[float] = []
+        try:
+            for epoch in range(start_epoch, epochs):
+                step_losses = runner.run_epoch(epoch_batches(epoch))
+                if not step_losses:
+                    raise ValueError(no_rows)
+                mean = float(np.mean(step_losses))
+                if not np.isfinite(mean):
+                    debug.warn_or_raise_nonfinite_loss(step_losses, epoch)
+                epoch_losses.append(mean)
+                metrics.record_time("epoch_loss", mean)
+                if (ckptr is not None and ckptr.due(epoch + 1)
+                        and ckptr.is_writer()):
+                    # copied to the host only on epochs the cadence saves
+                    ckptr.maybe_save(epoch + 1, ckpt_state())
+            runner.report(metrics)
+            metrics.gauge("train.data_groups", float(step.data_groups))
+            if with_stats:
+                return ({"params": step.host_params(),
+                         "batch_stats": _host(stats_ref["batch_stats"])},
+                        epoch_losses)
+            return step.host_params(), epoch_losses
+        finally:
+            runner.release()
     finally:
-        runner.release()
+        step.close()
+        with _SIDE_LOCK:
+            for c in cards:
+                _ACTIVE_FITS[c] -= 1
 
 
 def fit_data_parallel(predict_fn: Callable, params, x: np.ndarray,
@@ -961,8 +1362,12 @@ def fit_data_parallel(predict_fn: Callable, params, x: np.ndarray,
                       generators: Sequence = ()) -> Tuple[Any, List[float]]:
     """Fit ``params`` (nested dicts of host arrays or tensors; tensors are
     copied, never trained in place) on (x, y) with data-parallel steps over
-    ``mesh`` (default :func:`~.mesh.get_mesh`: this device, or one per
-    rank of a process group).
+    ``mesh`` (default :func:`resolve_fit_mesh`: the default mesh of every
+    visible card, as JAX's; the one ``device`` names; one slot per rank
+    of a process group).  On a mesh of several slots in one process each
+    global batch is split over the data groups in contiguous rows and the
+    groups' gradients are averaged before one update (:class:`TrainStep`);
+    every weight is held whole, as JAX's fit holds it replicated.
 
     ``predict_fn(params, x) -> pred`` on tensors; ``loss(pred, y) -> [B]``
     (a name from :data:`LOSSES` or a callable); ``optimizer``: a factory
@@ -977,7 +1382,11 @@ def fit_data_parallel(predict_fn: Callable, params, x: np.ndarray,
     With ``train_fn`` + ``stats`` (a tree of BatchNorm statistics),
     ``train_fn({"params": p, "batch_stats": s}, x) -> (pred, new_stats)``
     runs each step and the fitted value is ``{"params": ..., "batch_stats":
-    ...}`` (estimator ``trainBatchStats=True``).  With ``checkpoint_dir``,
+    ...}`` (estimator ``trainBatchStats=True``).  On a mesh of several data
+    groups the groups call ``train_fn`` at once, each in a thread of its
+    own (their BatchNorms meet): a ``train_fn`` that swaps tensors into a
+    module (``torch.func.functional_call``) needs one module per group,
+    which ``models.layers.current_data_group()`` names.  With ``checkpoint_dir``,
     the params, the optimizer's ``state_dict`` and the statistics are saved
     every ``checkpoint_every_epochs`` epochs by rank 0, and a fit resumes
     from the newest checkpoint there.  ``generators``: the explicit

@@ -527,13 +527,18 @@ def _fit_data(n=20):
 
 
 def _conv_fit(optimizer, eager=False, spe=1, stats=False, monkeypatch=None,
-              epochs=4):
+              epochs=4, mesh=None):
     """Fit a small conv net (BatchNorm statistics trained when ``stats``)
     on the card, 3 steps an epoch (4 epochs: 11 replays, enough to pay
     for a capture); ``eager`` forces the module's eager step through its
-    own ``step_mode`` (a patch of this test, no knob of the fit)."""
+    own ``step_mode`` (a patch of this test, no knob of the fit); ``mesh``
+    fits on that mesh's data groups, each with its own copy of the net
+    (the groups of a step with statistics run at once, in threads)."""
+    import copy
+
     from sparkdl_tpu_torch.graph.function import apply_with
-    from sparkdl_tpu_torch.models.layers import flax_batch_norm_train
+    from sparkdl_tpu_torch.models.layers import (current_data_group,
+                                                 flax_batch_norm_train)
     from sparkdl_tpu_torch.param.converters import NamedOptimizer
     from sparkdl_tpu_torch.parallel import train
     from sparkdl_tpu_torch.utils.metrics import Metrics
@@ -549,13 +554,17 @@ def _conv_fit(optimizer, eager=False, spe=1, stats=False, monkeypatch=None,
     def predict(p, x):
         return apply_with(lambda m, t: m(t), net.eval(), p, x)
 
+    nets = [net, copy.deepcopy(net)]
+
     def train_fn(v, x):
         def fwd(m, t):
             h = m[0](t)
             h = flax_batch_norm_train(m[1], h)
             return m[5](m[4](m[3](m[2](h))))
 
-        pred = apply_with(fwd, net, {**v["params"], **v["batch_stats"]}, x)
+        group = current_data_group()
+        pred = apply_with(fwd, nets[group[0] if group else 0],
+                          {**v["params"], **v["batch_stats"]}, x)
         return pred, v["batch_stats"]
 
     if eager:
@@ -570,7 +579,7 @@ def _conv_fit(optimizer, eager=False, spe=1, stats=False, monkeypatch=None,
         out = train.fit_data_parallel(
             predict, params, x, y, optimizer=NamedOptimizer(optimizer),
             loss=train.softmax_cross_entropy, batch_size=8, epochs=epochs,
-            steps_per_execution=spe, metrics=m, device="cuda",
+            steps_per_execution=spe, metrics=m, device="cuda", mesh=mesh,
             train_fn=train_fn if stats else None,
             stats=bn_stats if stats else None)
     finally:
@@ -627,6 +636,33 @@ def test_captured_batch_stats_fit_equals_eager(cuda, monkeypatch):
     for part in ("params", "batch_stats"):
         for k in fit_e[part]:
             assert _rel(fit_c[part][k], fit_e[part][k]) <= 2e-4, k
+
+
+def test_dp2_slot_fit_equals_the_one_device_fit(cuda):
+    """Two slots of the card: each global batch of 8 is split into two data
+    groups of 4, run one after the other inside the captured step; the
+    losses and fitted tensors are the one-device fit's (the gradients summed
+    in another order).  With BatchNorm statistics over the groups (their
+    sums meet between the groups' threads) the fit runs eagerly, chosen up
+    front, and agrees too."""
+    from sparkdl_tpu_torch.parallel.mesh import get_mesh
+
+    two = get_mesh(devices=["cuda:0"] * 2)
+    (fit2, loss2), m2 = _conv_fit("sgd", mesh=two)
+    (fit1, loss1), m1 = _conv_fit("sgd")
+    assert m2.counters["train.step_mode.captured"] == 1
+    assert m2.gauges["train.data_groups"] == 2
+    assert m1.gauges["train.data_groups"] == 1
+    assert _rel(loss2, loss1) <= 1e-6
+    for k in fit1:
+        assert _rel(fit2[k], fit1[k]) <= 2e-4, k
+    (fs2, ls2), ms2 = _conv_fit("sgd", mesh=two, stats=True)
+    (fs1, ls1), _ = _conv_fit("sgd", stats=True)
+    assert ms2.counters["train.step_mode.eager"] == 1
+    assert _rel(ls2, ls1) <= 1e-6
+    for part in ("params", "batch_stats"):
+        for k in fs1[part]:
+            assert _rel(fs2[part][k], fs1[part][k]) <= 2e-4, k
 
 
 def test_fit_releases_its_graph_pool(cuda):

@@ -140,11 +140,13 @@ def test_losses_match_jax():
 
 
 def test_fit_raises_on_parts_not_ported(blobs, monkeypatch):
-    """(The name is the one this test had while multi-process input was
-    not ported.)  Both fits take ``mesh=``: this process's mesh fits as no
-    mesh does; a mesh of two devices in one process and a weight spec
-    that really splits are the documented deviations; in a process group
-    the stream fit requires ``steps_per_epoch`` before any collective."""
+    """(The name is the one this test had while multi-process input and
+    fits on a mesh of several slots were not ported.)  Both fits take
+    ``mesh=``: this process's mesh fits as no mesh does; a mesh of two
+    slots in one process and a weight spec that really splits now fit,
+    and match the one-device fit; in a process group a rank with several
+    slots raises, and the stream fit requires ``steps_per_epoch`` before
+    any collective."""
     from sparkdl_tpu_torch.parallel import mesh as mesh_lib
 
     rng = np.random.default_rng(4)
@@ -164,25 +166,45 @@ def test_fit_raises_on_parts_not_ported(blobs, monkeypatch):
         assert base[1] == on_mesh[1]
         np.testing.assert_array_equal(base[0]["w"], on_mesh[0]["w"])
         two = mesh_lib.get_mesh(devices=["cpu", "cpu"])
-        with pytest.raises(NotImplementedError, match="one card per process"):
-            train.fit_data_parallel(predict, {"w": w}, x, y, mesh=two, **kw)
-        wt = torch.tensor(w, requires_grad=True)
-        split = mesh_lib.get_mesh(devices=["cpu", "cpu"], model_parallel=2)
-        with pytest.raises(NotImplementedError, match="one card per process"):
-            train.make_train_step(
-                predict, "mse", torch.optim.SGD([wt], lr=0.1), {"w": wt},
-                mesh=split,
-                param_specs=lambda path, leaf: mesh_lib.P(None, "model"))
+        on_two = train.fit_data_parallel(predict, {"w": w}, x, y, mesh=two,
+                                         **kw)
+        np.testing.assert_allclose(on_two[1], base[1], rtol=1e-5)
+        np.testing.assert_allclose(on_two[0]["w"], base[0]["w"], rtol=1e-4,
+                                   atol=1e-5)
+        xb, yb = torch.from_numpy(x[:8]), torch.from_numpy(y[:8])
+        fitted = {}
+        for name, m, specs in (
+                ("one", mesh_lib.get_mesh(), None),
+                ("split", mesh_lib.get_mesh(devices=["cpu", "cpu"],
+                                            model_parallel=2),
+                 lambda path, leaf: mesh_lib.P(None, "model"))):
+            wt = torch.tensor(w, requires_grad=True)
+            step = train.make_train_step(
+                predict, train.softmax_cross_entropy,
+                torch.optim.SGD([wt], lr=0.1), {"w": wt}, mesh=m,
+                param_specs=specs)
+            for _ in range(3):
+                step(xb, yb)
+            fitted[name] = step.host_params()["w"]
+        assert len(step.tree["w"].shards) == 2
+        np.testing.assert_allclose(fitted["split"], fitted["one"],
+                                   rtol=1e-6, atol=1e-7)
         # a spec naming an axis of size 1 splits nothing: taken
+        wt = torch.tensor(w, requires_grad=True)
         step = train.make_train_step(
             predict, "mse", torch.optim.SGD([wt], lr=0.1), {"w": wt},
             mesh=mesh_lib.get_mesh(),
             param_specs=lambda path, leaf: mesh_lib.P(None, "model"))
         assert step.param_shardings["w"].spec == mesh_lib.P(None, "model")
+        assert step.tree["w"] is wt
         monkeypatch.setattr(torch.distributed, "is_initialized",
                             lambda: True)
         monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
         monkeypatch.setattr(torch.distributed, "get_rank", lambda: 0)
+        with pytest.raises(NotImplementedError, match="each rank holds one"):
+            train.fit_data_parallel(
+                predict, {"w": w}, x, y,
+                mesh=mesh_lib.get_mesh(devices=["cpu", "cpu"]), **kw)
         with pytest.raises(ValueError, match="requires steps_per_epoch"):
             train.fit_data_parallel_stream(predict, {"w": w},
                                            lambda: iter([(x, y)]), **kw)
