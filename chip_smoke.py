@@ -3823,66 +3823,80 @@ def _head_bank_inputs(g, n, c):
 def phase_head_kernel():
     """[kernel] H1: the head pass (``ops/head.py``) against its plain
     version, bit for bit, at n in {1, 7, 32}, D = 2048, C in {100, 129,
-    1000}, capacity 64; device ms (graph_ms), host us per call, the plain
-    version's and the library's ms (``torch.bmm`` over the gathered heads
-    plus the bias, never used by the port) and the bound: the bytes of the
-    features, of every distinct head's kernel and bias, of the index and
-    of the output, against 2 n D C f32 operations outside the tensor
-    cores."""
+    1000}, capacity 64, in f32 weights and in bf16 weights; device ms
+    (graph_ms), host us per call, the plain version's and the library's ms
+    (``torch.bmm`` over the gathered heads plus the bias, bf16 weights
+    widened to f32 first; never used by the port) and the bound: the
+    bytes of the features, of every distinct head's kernel and bias (2 a
+    bf16 weight), of the index and of the output, against 2 n D C f32
+    operations outside the tensor cores.  The f32 figures make the entry;
+    the bf16 ones, on the same inputs rounded to bf16, sit under its
+    "bf16" key."""
     from sparkdl_tpu_torch.ops import head as hops
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 80)
-    rows, main = [], None
-    for n, c in HEAD_SHAPES:
-        args = _head_bank_inputs(g, n, c)
-        feats, idx, kernel, bias = args
-        out = hops._head_pass_cuda(*args)
-        torch.cuda.synchronize()
-        ref = hops.head_pass_reference(*args)
-        check(torch.isfinite(out).all().item() and out.shape == (n, c),
-              f"[kernel] H1 output at n={n} C={c}: {tuple(out.shape)}")
-        check(torch.equal(out, ref),
-              f"[kernel] H1 != plain version at n={n} C={c}: max abs "
-              f"{(out - ref).abs().max().item():.3g}")
-        rows_long = idx.long()
+    inputs = [_head_bank_inputs(g, n, c) for n, c in HEAD_SHAPES]
+    entry_ = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        rows, main = [], None
+        for (n, c), (feats, idx, kernel, bias) in zip(HEAD_SHAPES, inputs):
+            args = (feats, idx, kernel.to(dtype), bias.to(dtype))
+            out = hops._head_pass_cuda(*args)
+            torch.cuda.synchronize()
+            ref = hops.head_pass_reference(*args)
+            check(torch.isfinite(out).all().item() and out.shape == (n, c)
+                  and out.dtype == torch.float32,
+                  f"[kernel] H1 {tag} output at n={n} C={c}: "
+                  f"{tuple(out.shape)} {out.dtype}")
+            check(torch.equal(out, ref),
+                  f"[kernel] H1 {tag} != plain version at n={n} C={c}: max "
+                  f"abs {(out - ref).abs().max().item():.3g}")
+            rows_long = idx.long()
 
-        def library():
-            return (torch.bmm(feats[:, None], kernel[rows_long])[:, 0]
-                    + bias[rows_long])
+            def library(args=args):
+                w, b = args[2][rows_long].float(), args[3][rows_long].float()
+                return torch.bmm(args[0][:, None], w)[:, 0] + b
 
-        k_ms = graph_ms(lambda: hops._head_pass_cuda(*args))
-        p_ms = graph_ms(lambda: hops.head_pass_reference(*args), calls=3)
-        l_ms = graph_ms(library)
-        host = host_us_per_call(lambda: hops._head_pass_cuda(*args))
-        distinct = int(torch.unique(idx).numel())
-        flops, nbytes = hops.head_pass_cost(n, HEAD_D, c, distinct)
-        b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
-        lib_err = (library() - ref).abs().max().item()
-        row = dict(shape=[n, HEAD_D, c], capacity=HEAD_CAP,
-                   distinct_heads=distinct, max_abs_err=0.0, ms=k_ms,
-                   plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                   bound_by=b_by, host_us_per_call=host,
-                   library_max_abs_vs_plain=lib_err)
-        rows.append(row)
-        if (n, c) == HEAD_MAIN_SHAPE:
-            main = row
-        print(f"[kernel] H1 n={n} D={HEAD_D} C={c} cap={HEAD_CAP} "
-              f"({distinct} distinct heads): == plain version bit for bit; "
-              f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms="
-              f"{l_ms:.4f} (bmm vs plain max abs {lib_err:.2e}) "
-              f"bound_ms={b_ms:.4f} ({b_by}) -> {b_ms / k_ms:.1%} of "
-              f"bound; host {host:.1f} us per call", flush=True)
-    return {
-        "name": "head_pass", "route": "cuda",
-        "source": "sparkdl_tpu_torch/ops/csrc/head_fanout.cu",
-        "replaces": "sparkdl_tpu/parallel/engine.py:307",
-        "tpu_kernel": False, "launches": None, "max_abs_err": 0.0,
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"],
-        "host_us_per_launch": main["host_us_per_call"],
-        "main_shape": main["shape"], "shapes": rows,
-    }
+            k_ms = graph_ms(lambda: hops._head_pass_cuda(*args))
+            p_ms = graph_ms(lambda: hops.head_pass_reference(*args), calls=3)
+            l_ms = graph_ms(library)
+            # the median of three runs: one run can catch a host stall
+            host = float(np.median([host_us_per_call(
+                lambda: hops._head_pass_cuda(*args)) for _ in range(3)]))
+            distinct = int(torch.unique(idx).numel())
+            flops, nbytes = hops.head_pass_cost(n, HEAD_D, c, distinct,
+                                                args[2].element_size())
+            b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+            lib_err = (library() - ref).abs().max().item()
+            row = dict(dtype=tag, shape=[n, HEAD_D, c], capacity=HEAD_CAP,
+                       distinct_heads=distinct, max_abs_err=0.0, ms=k_ms,
+                       plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                       bound_by=b_by, host_us_per_call=host,
+                       library_max_abs_vs_plain=lib_err)
+            rows.append(row)
+            if (n, c) == HEAD_MAIN_SHAPE:
+                main = row
+            print(f"[kernel] H1 {tag} n={n} D={HEAD_D} C={c} cap={HEAD_CAP} "
+                  f"({distinct} distinct heads): == plain version bit for "
+                  f"bit; kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                  f"library_ms={l_ms:.4f} (bmm vs plain max abs "
+                  f"{lib_err:.2e}) bound_ms={b_ms:.4f} ({b_by}) -> "
+                  f"{b_ms / k_ms:.1%} of bound; host {host:.1f} us per call",
+                  flush=True)
+        entry_[tag] = {
+            "launches": None, "max_abs_err": 0.0,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "host_us_per_launch": main["host_us_per_call"],
+            "main_shape": main["shape"], "shapes": rows,
+        }
+    return {"name": "head_pass", "route": "cuda",
+            "source": "sparkdl_tpu_torch/ops/csrc/head_fanout.cu",
+            "replaces": "sparkdl_tpu/parallel/engine.py:307",
+            "tpu_kernel": False, **entry_["float32"],
+            "bf16": entry_["bfloat16"]}
 
 
 def _fanout_counted(sepconv, hops, srv, what, run):
@@ -3977,7 +3991,14 @@ def phase_headfanout(sepconv):
          and the 64 heads goes over budget; both serve oracle-equal rows;
       5. 8 images through a CPU ``HeadFanoutServer`` (unfused f32) within
          FANOUT_CPU_REL_TOL of the card's rows;
-      6. every server's pool, 0 after ``close()``.
+      6. a bf16 bank: the 64 heads rounded to bf16 (torch tensors on the
+         card) in a server on the same cache with ``hbm_budget_bytes`` 32
+         MiB: stacked, 26,227,200 bytes (2 a weight); the warm replay from
+         the cache, one H1 launch a pass, every row its per-tenant oracle
+         (``dense_head_row`` over the bf16 head) bit for bit; 8 images
+         against a CPU server on the same bf16 heads within
+         FANOUT_CPU_REL_TOL;
+      7. every server's pool, 0 after ``close()``.
 
     Every served run is a counted window (:func:`_fanout_counted`)."""
     import sparkdl_tpu_torch
@@ -4009,10 +4030,10 @@ def phase_headfanout(sepconv):
     total = dict(sepconv=0, sepconv_tiled=0, mbconv=0, head_pass=0)
     cache = InferenceCache()
 
-    def build(**kw):
+    def build(bank=heads, **kw):
         t0 = time.perf_counter()
         srv = HeadFanoutServer("Xception", max_batch_size=BATCH, **kw)
-        for t, h in heads.items():
+        for t, h in bank.items():
             srv.add_head(t, h)
         add_s = time.perf_counter() - t0
         check(srv.device.type == "cuda" and srv.bank.device.type == "cuda",
@@ -4332,7 +4353,83 @@ def phase_headfanout(sepconv):
           f"{rel_cpu:.3e} (tol {FANOUT_CPU_REL_TOL})", flush=True)
     out["card_vs_cpu_rel_err"] = rel_cpu
 
-    # 6. pools
+    # 6. a bf16 bank of the same tenants, under the 32 MiB budget
+    bf16_heads = {t: {k: torch.from_numpy(v).to(torch.bfloat16).cuda()
+                      for k, v in h.items()} for t, h in heads.items()}
+    half, half_add_s = build(bank=bf16_heads, cache=cache,
+                             hbm_budget_bytes=FANOUT_BUDGET)
+    hstats = half.head_stats()
+    want_bytes = FANOUT_TENANTS * (HEAD_D * FANOUT_CLASSES
+                                   + FANOUT_CLASSES) * 2
+    check(hstats["mode"] == "stacked"
+          and hstats["param_bytes_per_chip"] == want_bytes == 26_227_200
+          and hstats["param_bytes_per_chip"] <= FANOUT_BUDGET,
+          f"[{tag}] bf16 bank: {hstats}, want stacked at {want_bytes} bytes "
+          f"under {FANOUT_BUDGET}")
+    half.warm_head(np.zeros(HEAD_D, np.float32))
+    half_times = []
+    undo = _timed_dispatch(half.bank, half_times)
+    (h_lat, h_rows, h_s), counts, counters, _ = _fanout_counted(
+        sepconv, hops, half, "bf16 bank, warm pass",
+        lambda: serve_seq(half, seq))
+    undo()
+    _add_counts(total, counts)
+    check(counters.get("serving.batches", 0) == 0
+          and counters["headfanout.feature_hits"] == FANOUT_REPLAY
+          and counts["head_pass"] == FANOUT_REPLAY,
+          f"[{tag}] bf16 warm pass: {counters.get('serving.batches', 0)} "
+          f"backbone dispatches, {counts['head_pass']} H1 launches for "
+          f"{FANOUT_REPLAY} requests")
+    bad = sum(r.dtype != np.float32 or r.tobytes() != oracle(
+        feats[i], bf16_heads[t]).tobytes() for r, (i, t) in zip(h_rows, seq))
+    check(bad == 0, f"[{tag}] bf16 warm pass: {bad} rows != their "
+                    f"per-tenant oracle")
+    with sparkdl_tpu_torch.default_device("cpu"):
+        cpu_half = HeadFanoutServer("Xception", max_batch_size=FANOUT_CPU_N,
+                                    bucket_sizes=[FANOUT_CPU_N], cache=False)
+    with cpu_half:
+        for t in cpu_ts:
+            cpu_half.add_head(t, {k: v.cpu() for k, v in
+                                  bf16_heads[t].items()})
+        check(cpu_half.head_stats()["param_bytes_total"]
+              == len(cpu_ts) * (HEAD_D * FANOUT_CLASSES + FANOUT_CLASSES) * 2,
+              f"[{tag}] CPU bf16 bank bytes {cpu_half.head_stats()}")
+        cpu_half_rows, _, _, _ = _fanout_counted(
+            sepconv, hops, cpu_half, "CPU server, bf16 bank",
+            lambda: np.stack(cpu_half.predict_batch(
+                list(images[:FANOUT_CPU_N]), cpu_ts)))
+    card_half = np.stack(half.predict_batch(list(images[:FANOUT_CPU_N]),
+                                            cpu_ts))
+    rel_half = _rel(card_half, cpu_half_rows)
+    check(rel_half <= FANOUT_CPU_REL_TOL,
+          f"[{tag}] bf16 bank, card vs CPU server: rel err {rel_half:.3g} > "
+          f"{FANOUT_CPU_REL_TOL}")
+    half.close()
+    check(half.graph_pool_bytes == 0, f"[{tag}] bf16 server pool")
+    out["bf16"] = dict(bank_bytes=hstats["param_bytes_per_chip"],
+                       mode=hstats["mode"], add_s=half_add_s,
+                       p50_ms=_pcts(h_lat)[0], p99_ms=_pcts(h_lat)[1],
+                       req_per_s=FANOUT_REPLAY / h_s,
+                       host_us_per_head_pass=float(
+                           np.mean(half_times)) * 1e6,
+                       host_us_per_head_pass_p50=float(
+                           np.median(half_times)) * 1e6,
+                       launches=dict(counts),
+                       card_vs_cpu_rel_err=rel_half)
+    print(f"[{tag}] bf16 bank: {FANOUT_TENANTS} heads in bf16 (torch on the "
+          f"card), {hstats['param_bytes_per_chip']} bytes at capacity "
+          f"{hstats['capacity']}, {hstats['mode']} under hbm_budget_bytes "
+          f"{FANOUT_BUDGET >> 20} MiB (f32: {stats['param_bytes_per_chip']} "
+          f"bytes); warm replay {FANOUT_REPLAY / h_s:.1f} req/s, p50 "
+          f"{_pcts(h_lat)[0]:.3f} ms p99 {_pcts(h_lat)[1]:.3f} ms, host "
+          f"{out['bf16']['host_us_per_head_pass']:.0f} us per head pass (p50 "
+          f"{out['bf16']['host_us_per_head_pass_p50']:.0f}), "
+          f"{counts['head_pass']} H1 launches for {FANOUT_REPLAY} passes; "
+          f"every row == its per-tenant oracle bit for bit; card vs a CPU "
+          f"server on the same bf16 heads ||a-b||/||b|| = {rel_half:.3e} "
+          f"(tol {FANOUT_CPU_REL_TOL})", flush=True)
+
+    # 7. pools
     pool = srv.graph_pool_bytes
     held = graph_pool_bytes_held()
     srv.close()
@@ -8958,6 +9055,7 @@ def main():
     pools["headfanout"] = pool_line("[headfanout]")
     print(json.dumps({"headfanout": fanout}), flush=True)
     h1["launches"] = fanout["launches"]["head_pass"]
+    h1["bf16"]["launches"] = fanout["bf16"]["launches"]["head_pass"]
     b1["headfanout_launches"] = fanout["launches"]["sepconv"]
     import tempfile
 

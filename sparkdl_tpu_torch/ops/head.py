@@ -6,6 +6,11 @@ with the batch (kernel H1, ``csrc/head_fanout.cu``).
 
     out[r, c] = bias[idx[r], c] + sum_d feats[r, d] * kernel[idx[r], d, c]
 
+The weights (``kernel`` and ``bias``) are float32 or bfloat16, one type for
+both; the features and the output are float32.  A bf16 weight enters its
+product widened exactly, so a bf16 pass equals the f32 pass over the
+widened weights bit for bit.
+
 Not a port of a TPU kernel: the JAX package runs this head through XLA
 (``sparkdl_tpu/parallel/engine.py::dense_head_row`` under
 ``build_head_fanout_jit``'s vmap).  The port needs a kernel for the fan-out's
@@ -37,12 +42,17 @@ inside a captured graph).
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 
 from sparkdl_tpu_torch.ops import sepconv as _kernels
 from sparkdl_tpu_torch.parallel.shard import gathered
+
+
+# the weight types H1 takes, by the code its C launch function reads
+_WEIGHT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def head_partials(d: int) -> int:
@@ -54,17 +64,40 @@ def head_partials(d: int) -> int:
     return 1
 
 
-def head_pass_cost(n: int, d: int, c: int, distinct: int
-                   ) -> Tuple[float, float]:
+# H1's grid: the blocks a plan may spread a pass over (about 2.4 an SM of
+# an H100), and its cluster sizes (16 is a non-portable size)
+_PLAN_BLOCKS = 320
+_CLUSTER_SIZES = (1, 2, 4, 8, 16)
+
+
+@functools.lru_cache(maxsize=1024)
+def _head_plan(n: int, d: int, c: int) -> int:
+    """S, the thread-block cluster H1 spreads each (row, 32-column tile)
+    over along the partials (``csrc/head_fanout.cu``): the largest of 1,
+    2, 4, 8, 16 dividing P whose grid of n x ceil(c / 32) x S blocks stays
+    within ``_PLAN_BLOCKS``.  A short pass is spread for latency; a long
+    one keeps a block's partials together and streams.  Fitted to
+    ``tools/head_compare.py --sweep`` on an H100 (PERF.md, PR 24)."""
+    p = head_partials(d)
+    cells = n * -(-c // 32)
+    fits = [s for s in _CLUSTER_SIZES
+            if p % s == 0 and cells * s <= _PLAN_BLOCKS]
+    return fits[-1] if fits else 1
+
+
+def head_pass_cost(n: int, d: int, c: int, distinct: int,
+                   weight_bytes: int = 4) -> Tuple[float, float]:
     """(FLOPs, bytes) of one H1 launch: ``n`` rows of width ``d`` through
-    heads of ``c`` classes, ``distinct`` of the bank's heads read.  A
-    multiply and an add per row and weight; the f32 feature rows, the
-    ``distinct`` heads' kernels and biases, the int32 index and the f32
-    output each moved once.  How many heads a pass reads depends on its
-    index: the card's bound counts this run's, the audit (which has no
-    index values) counts ``min(n, capacity)``."""
+    heads of ``c`` classes, ``distinct`` of the bank's heads read, weights
+    of ``weight_bytes`` bytes (4 f32, 2 bf16).  A multiply and an add per
+    row and weight; the f32 feature rows, the ``distinct`` heads' kernels
+    and biases, the int32 index and the f32 output each moved once.  How
+    many heads a pass reads depends on its index: the card's bound counts
+    this run's, the audit (which has no index values) counts
+    ``min(n, capacity)``."""
     flops = 2.0 * n * d * c
-    nbytes = 4.0 * (n * d + distinct * (d * c + c) + n + n * c)
+    nbytes = (4.0 * (n * d + n + n * c)
+              + float(weight_bytes) * distinct * (d * c + c))
     return flops, nbytes
 
 
@@ -98,10 +131,13 @@ def _check_head_operands(feats: torch.Tensor, idx: torch.Tensor,
                          kernel: torch.Tensor, bias: torch.Tensor):
     """The operand contract of H1; returns (n, cap, d, c)."""
     dev = feats.device
+    if kernel.dtype not in _WEIGHT_CODES:
+        raise TypeError(f"head_pass: kernel is {kernel.dtype}; the kernel "
+                        f"takes torch.float32 or torch.bfloat16 weights")
     for name, t, dtype in (("feats", feats, torch.float32),
                            ("idx", idx, torch.int32),
-                           ("kernel", kernel, torch.float32),
-                           ("bias", bias, torch.float32)):
+                           ("kernel", kernel, kernel.dtype),
+                           ("bias", bias, kernel.dtype)):
         if t.device != dev:
             raise ValueError(f"head_pass: {name} is on {t.device}, feats on "
                              f"{dev}")
@@ -131,11 +167,11 @@ def _head_pass_cuda(feats: torch.Tensor, idx: torch.Tensor,
                     kernel: torch.Tensor, bias: torch.Tensor
                     ) -> torch.Tensor:
     """Launch H1 on the current stream: ``feats`` (n, D) f32, ``idx`` (n,)
-    int32, ``kernel`` (cap, D, C) f32, ``bias`` (cap, C) f32, contiguous, on
-    one CUDA device; returns (n, C) f32, not synchronised.  A row whose
-    index lies outside [0, cap) comes back NaN (the kernel reads nothing
-    outside the bank).  Raises on anything else and when the launch is
-    refused."""
+    int32, ``kernel`` (cap, D, C) and ``bias`` (cap, C) both f32 or both
+    bf16, contiguous, on one CUDA device; returns (n, C) f32, not
+    synchronised.  A row whose index lies outside [0, cap) comes back NaN
+    (the kernel reads nothing outside the bank).  Raises on anything else
+    and when the launch is refused."""
     n, cap, d, c = _check_head_operands(feats, idx, kernel, bias)
     dev = feats.device
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
@@ -143,7 +179,8 @@ def _head_pass_cuda(feats: torch.Tensor, idx: torch.Tensor,
         return out
     _kernels._launch("head_fanout", dev, feats.data_ptr(), idx.data_ptr(),
                      kernel.data_ptr(), bias.data_ptr(), out.data_ptr(), n,
-                     cap, d, c, head_partials(d))
+                     cap, d, c, head_partials(d), _head_plan(n, d, c),
+                     _WEIGHT_CODES[kernel.dtype])
     _kernels.count_launch(head_pass)
     return out
 
@@ -158,7 +195,8 @@ def _head_pass_meta(feats: torch.Tensor, idx: torch.Tensor,
     n, cap, d, c = _check_head_operands(feats, idx, kernel, bias)
     out = torch.empty((n, c), dtype=torch.float32, device="meta")
     _kernels.meta_node("H1", (feats, idx, kernel, bias), out,
-                       head_pass_cost(n, d, c, min(n, cap)))
+                       head_pass_cost(n, d, c, min(n, cap),
+                                      kernel.element_size()))
     return out
 
 
@@ -166,7 +204,8 @@ def head_pass(feats: torch.Tensor, idx: torch.Tensor, kernel: torch.Tensor,
               bias: torch.Tensor) -> torch.Tensor:
     """The dense head pass over a stacked bank (see the module docstring):
     the plain version for a CPU tensor, kernel H1 for a CUDA tensor (f32
-    operands and an int32 index; anything else raises, nothing is cast),
+    features, f32 or bf16 weights of one type, an int32 index; anything
+    else raises, nothing is cast),
     the meta path for a meta tensor.
     No backward: raises when grad mode is on and an operand requires
     grad.  An operand split over a mesh's model slots is gathered first

@@ -72,7 +72,7 @@ KERNELS = {
     # built and launched beside them; its count is its own
     # (``head_pass.launches``), outside launch_counts()
     "head_fanout": ("sparkdl_head_fanout", ("head_fanout.cu",),
-                    "head_fanout", [_P] * 5 + [_I] * 5 + [_P]),
+                    "head_fanout", [_P] * 5 + [_I] * 7 + [_P]),
 }
 _configured = set()
 _bound: Dict[str, tuple] = {}   # kernel -> (C launch function, error string)

@@ -1575,12 +1575,16 @@ def dense_head_row(head, features):
     per-tenant oracles bit for bit on the card and (through H1's plain
     version) on the CPU.  The JAX package gets that from a
     broadcast-multiply-reduce spelling, which PyTorch does not keep
-    batch-invariant."""
+    batch-invariant.  A bf16 head (a tensor, or a numpy array of
+    ml_dtypes' bfloat16) stays bf16; bf16 features are widened to f32, as
+    :meth:`HeadBank.dispatch` widens them."""
     from sparkdl_tpu_torch.ops.head import head_pass
 
-    f = torch.as_tensor(features)
-    kernel = torch.as_tensor(head["kernel"], device=f.device)
-    bias = torch.as_tensor(head["bias"], device=f.device)
+    f = _leaf_tensor(features)
+    if f.dtype == torch.bfloat16:
+        f = f.float()
+    kernel = _leaf_tensor(head["kernel"]).to(f.device)
+    bias = _leaf_tensor(head["bias"]).to(f.device)
     idx = torch.zeros(1, dtype=torch.int32, device=f.device)
     return head_pass(f[None], idx, kernel[None], bias[None])[0]
 
@@ -1668,12 +1672,56 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-def _host_copy(a) -> np.ndarray:
-    """A host array of its own of one head leaf (numpy or a tensor on any
-    device)."""
+def _is_bf16_array(a) -> bool:
+    """A numpy array of bfloat16: ml_dtypes' type, in which the JAX
+    package's bf16 heads arrive, told by its name (the port never imports
+    ml_dtypes)."""
+    return isinstance(a, np.ndarray) and a.dtype.name == "bfloat16"
+
+
+def _leaf_tensor(a) -> torch.Tensor:
+    """One head leaf or feature batch as a tensor: a tensor as it is, a
+    numpy array of bfloat16 as a bf16 tensor of its own (its bits through
+    int16), anything else through ``torch.as_tensor``."""
     if isinstance(a, torch.Tensor):
+        return a
+    if _is_bf16_array(a):
+        return torch.from_numpy(
+            np.array(a, copy=True).view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(a)
+
+
+def _host_copy(a):
+    """A host copy of its own of one head leaf (numpy or a tensor on any
+    device): a numpy array, or a CPU bf16 tensor for a bf16 leaf, which
+    numpy cannot hold."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bfloat16:
+            return a.detach().to("cpu", copy=True).contiguous()
         return a.detach().cpu().numpy().copy()
+    if _is_bf16_array(a):
+        return _leaf_tensor(a)
     return np.array(a, copy=True)
+
+
+def _dtype_name(a) -> str:
+    """A host leaf's dtype by the name both packages give it
+    ("float32", "bfloat16", ...)."""
+    return str(a.dtype).replace("torch.", "")
+
+
+def _host_rows(features) -> np.ndarray:
+    """Feature rows as a host array; bf16 rows (a tensor, or a numpy array
+    of ml_dtypes' bfloat16) widened to f32, exactly."""
+    if isinstance(features, torch.Tensor):
+        if features.dtype == torch.bfloat16:
+            features = features.float()
+        return features.detach().cpu().numpy()
+    features = np.asarray(features)
+    if _is_bf16_array(features):
+        return (features.view(np.uint16).astype(np.uint32)
+                << 16).view(np.float32)
+    return features
 
 
 class HeadBank:
@@ -1704,9 +1752,15 @@ class HeadBank:
     add, swap and remove is a ``head.swap`` flight event (tenant, op, bank
     size, mode), emitted once the lock is released.
 
-    H1 takes f32 heads: on CUDA a :func:`dense_head_row` head of another
-    dtype raises ``NotImplementedError`` at :meth:`add_head` (ROADMAP.md
-    queue B, H1); nothing is cast.  ``mesh=`` is resolved as an engine's
+    Heads are float32 or bfloat16 (torch tensors, or numpy arrays of
+    ml_dtypes' bfloat16 as the JAX package's arrive), kernel and bias of
+    one type; a bf16 head is held and stacked as bf16, counted at 2 bytes a
+    weight, and its feature rows stay f32 (bf16 rows are widened on the
+    host, exactly).  A head whose dtypes differ from the bank's degrades it
+    to fallback, as JAX's signature check does.  On CUDA a
+    :func:`dense_head_row` head of another dtype raises
+    ``NotImplementedError`` at :meth:`add_head` (ROADMAP.md queue B, H1);
+    nothing is cast.  ``mesh=`` is resolved as an engine's
     (:func:`resolve_engine_mesh`); :meth:`stats` and the budget read
     ``mesh.param_sharding_stats`` of the stacked bank (all replicated), as
     JAX's do.  On a mesh whose data axis is dp > 1 the stacked bank is
@@ -1789,8 +1843,8 @@ class HeadBank:
         from types import SimpleNamespace
 
         return _tree_map(
-            lambda a: SimpleNamespace(shape=(capacity,) + np.shape(a),
-                                      dtype=np.asarray(a).dtype),
+            lambda a: SimpleNamespace(shape=(capacity,) + tuple(a.shape),
+                                      dtype=a.dtype),
             self._hosts[self._order[0]])
 
     # -- mutation --------------------------------------------------------
@@ -1855,11 +1909,11 @@ class HeadBank:
 
     def _refuse_dtype(self, host) -> None:
         if self.head_fn is dense_head_row and self.device.type == "cuda":
-            bad = sorted({str(a.dtype) for a in _tree_leaves(host)
-                          if a.dtype != np.float32})
-            if bad:
+            names = {_dtype_name(a) for a in _tree_leaves(host)}
+            if names not in ({"float32"}, {"bfloat16"}):
                 raise NotImplementedError(
-                    f"kernel H1 takes float32 heads, not {bad} (ROADMAP.md "
+                    f"kernel H1 takes float32 or bfloat16 heads, kernel and "
+                    f"bias of one type, not {sorted(names)} (ROADMAP.md "
                     f"queue B, H1: other head dtypes); nothing is cast")
 
     @staticmethod
@@ -1868,8 +1922,8 @@ class HeadBank:
 
         leaves = _tree_leaves(host)
         return (tree_structure(host),
-                tuple(tuple(np.shape(x)) for x in leaves),
-                tuple(str(np.asarray(x).dtype) for x in leaves))
+                tuple(tuple(x.shape) for x in leaves),
+                tuple(_dtype_name(x) for x in leaves))
 
     def _degrade(self, reason: str) -> None:
         self._fallback = True
@@ -1890,11 +1944,12 @@ class HeadBank:
     def _stack_hosts(self, capacity: int):
         heads = [self._hosts[t] for t in self._order]
         rows = heads + [heads[0]] * (capacity - len(heads))
-        return _tree_map(lambda *ls: np.stack(ls), *rows)
+        return _tree_map(lambda *ls: (torch.stack(ls) if isinstance(
+            ls[0], torch.Tensor) else np.stack(ls)), *rows)
 
     def _upload(self, tree):
         """``tree`` on each data group's device: ``{device: tree}``."""
-        return {str(d): _tree_map(lambda a: torch.from_numpy(a).to(d), tree)
+        return {str(d): _tree_map(lambda a: _leaf_tensor(a).to(d), tree)
                 for d in self._devices}
 
     def _rebuild(self) -> None:
@@ -1942,11 +1997,11 @@ class HeadBank:
         """One head pass over a mixed-tenant feature batch.
 
         ``features`` is ``(n, ...)`` host rows (a single row is promoted);
-        ``tenants`` names each row's head.  Returns host outputs
-        row-aligned with the input.  Raises ``KeyError`` for a tenant with
-        no registered head (a departed tenant fails loudly, never serves a
-        stale row)."""
-        features = np.asarray(features)
+        ``tenants`` names each row's head; bf16 rows are widened to f32.
+        Returns host outputs row-aligned with the input.  Raises
+        ``KeyError`` for a tenant with no registered head (a departed
+        tenant fails loudly, never serves a stale row)."""
+        features = _host_rows(features)
         if features.ndim == 1:
             features = features[None]
         tenants = [str(t) for t in tenants]

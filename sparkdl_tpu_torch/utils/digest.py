@@ -7,12 +7,13 @@ journal name chunks by :func:`content_chunk_id`.  Every digest covers
 dtype, shape AND bytes, so two arrays that merely reinterpret each other's
 buffers (f32 vs u8 views, [2, 6] vs [3, 4]) never collide.
 
-A single array (numpy, or a torch tensor on the CPU) digests to the same
-hex string as the JAX package's, so the two packages' caches and journals
-agree on it.  A pytree digest hashes the port's own description of the
-tree's structure (:func:`tree_structure`) where the JAX package hashes
-``str(jax treedef)``, which the port cannot reproduce without JAX: pytree
-digests differ across the two packages (each is stable within its own).
+A single array (numpy, or a torch tensor on the CPU, bf16 included)
+digests to the same hex string as the JAX package's, so the two packages'
+caches and journals agree on it.  A pytree digest hashes the port's own
+description of the tree's structure (:func:`tree_structure`) where the
+JAX package hashes ``str(jax treedef)``, which the port cannot reproduce
+without JAX: pytree digests differ across the two packages (each is
+stable within its own).
 """
 
 from __future__ import annotations
@@ -26,19 +27,28 @@ import torch
 from sparkdl_tpu_torch.parallel.engine import _tree_leaves
 
 
-def _as_numpy(arr: Any) -> np.ndarray:
+def _as_numpy(arr: Any):
+    """(dtype name, contiguous host array of the bytes) of one array.  A
+    bf16 tensor, which numpy cannot hold, gives its bits as int16 beside
+    the name "bfloat16", as numpy names ml_dtypes' bfloat16."""
     if isinstance(arr, torch.Tensor):
-        arr = arr.detach().cpu().numpy()
-    return np.ascontiguousarray(arr)
+        arr = arr.detach().cpu()
+        if arr.dtype == torch.bfloat16:
+            return "bfloat16", arr.contiguous().view(torch.int16).numpy()
+        arr = arr.numpy()
+    a = np.ascontiguousarray(arr)
+    return str(a.dtype), a
 
 
 def array_digest(arr: Any) -> str:
     """Full sha256 hexdigest over one array's dtype/shape/bytes.  Stable
     across processes: two reads of the same payload always agree; two
-    payloads differing in dtype, shape, or any byte never do."""
-    a = _as_numpy(arr)
+    payloads differing in dtype, shape, or any byte never do.  A bf16
+    tensor digests as the JAX package digests the same values in an
+    ml_dtypes bfloat16 array."""
+    dtype, a = _as_numpy(arr)
     h = hashlib.sha256()
-    h.update(str(a.dtype).encode())
+    h.update(dtype.encode())
     h.update(str(a.shape).encode())
     h.update(a.tobytes())
     return h.hexdigest()

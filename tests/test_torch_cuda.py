@@ -363,6 +363,75 @@ def test_head_kernel_equals_plain_bit_for_bit(cuda, n, c):
     assert torch.equal(out, head_pass_reference(feats, idx, kernel, bias))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,c,offset", [(1, 100, 0), (7, 129, 0),
+                                        (32, 1000, 0), (7, 100, 1),
+                                        (3, 64, 3)])
+def test_head_kernel_bf16_equals_plain_bit_for_bit(cuda, dtype, n, c,
+                                                   offset):
+    """Kernel H1 on bf16 (and f32) weights equals its plain version on the
+    same tensors bit for bit, and counts one launch; a bank that starts
+    ``offset`` elements into its storage takes the kernel's narrower
+    copies.  Rows whose tenant index lies outside the bank come back NaN."""
+    from sparkdl_tpu_torch.ops.head import head_pass, head_pass_reference
+
+    rng = np.random.default_rng(8)
+    feats = torch.from_numpy(rng.normal(size=(n, 2048)).astype(
+        np.float32)).to(cuda)
+    w = torch.from_numpy((rng.normal(size=64 * 2048 * c + offset)
+                          / np.sqrt(2048)).astype(np.float32))
+    kernel = w.to(cuda, dtype)[offset:].view(64, 2048, c)
+    bias = torch.from_numpy(rng.normal(size=(64, c)).astype(
+        np.float32)).to(cuda, dtype)
+    idx = torch.from_numpy(rng.integers(0, 64, n).astype(np.int32)).to(cuda)
+    before = head_pass.launches
+    out = head_pass(feats, idx, kernel, bias)
+    assert head_pass.launches == before + 1
+    assert out.dtype == torch.float32
+    assert torch.equal(out, head_pass_reference(feats, idx, kernel, bias))
+    bad = idx.clone()
+    bad[0] = 64
+    rows = head_pass(feats, bad, kernel, bias)
+    assert torch.isnan(rows[0]).all()
+    assert torch.equal(rows[1:], out[1:])
+
+
+@pytest.mark.parametrize("pattern", ["one head", "pairs", "65 rows",
+                                     "outside the bank"])
+def test_head_kernel_rows_that_share_a_head(cuda, pattern):
+    """Rows that name one head (their blocks read its tiles together)
+    equal the plain version bit for bit, and the same rows alone: a row's
+    bits do not move with who shares its head."""
+    from sparkdl_tpu_torch.ops.head import head_pass, head_pass_reference
+
+    n = 65 if pattern == "65 rows" else 32
+    rng = np.random.default_rng(9)
+    feats = torch.from_numpy(rng.normal(size=(n, 2048)).astype(
+        np.float32)).to(cuda)
+    kernel = torch.from_numpy((rng.normal(size=(8, 2048, 100))
+                               / np.sqrt(2048)).astype(np.float32)).to(
+                                   cuda, torch.bfloat16)
+    bias = torch.from_numpy(rng.normal(size=(8, 100)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    idx = {"one head": np.zeros(n), "pairs": np.arange(n) // 2 % 8,
+           "65 rows": np.arange(n) % 3,
+           "outside the bank": np.where(np.arange(n) % 5 == 0, 8,
+                                        np.arange(n) % 2)}[pattern]
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    out = head_pass(feats, idx, kernel, bias)
+    bad = idx >= 8
+    assert torch.isnan(out[bad]).all()
+    good = ~bad
+    assert torch.equal(out[good], head_pass_reference(
+        feats[good], idx[good], kernel, bias))
+    for r in (0, 1, n - 1):
+        alone = head_pass(feats[r:r + 1], idx[r:r + 1], kernel, bias)
+        if bool(bad[r]):
+            assert torch.isnan(alone).all()
+        else:
+            assert torch.equal(alone, out[r:r + 1])
+
+
 @pytest.mark.parametrize("pipeline", [False, True])
 def test_device_ms_from_timing_events_only_while_tracing(cuda, pipeline,
                                                          monkeypatch):

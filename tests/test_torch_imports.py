@@ -40,7 +40,7 @@ def _port_files():
         "tfgraph_fold_probe.py", "crc32c_timing.py",
         "obs_overhead_probe.py", "port_stream_journal.py",
         "train_pool_probe.py", "cv_probe.py", "port_graftlint.py",
-        "port_graftcheck.py") + PORT_TOOLS]
+        "port_graftcheck.py", "head_compare.py") + PORT_TOOLS]
     files += [ROOT / "examples" / name for name in PORT_EXAMPLES]
     return files
 
