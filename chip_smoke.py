@@ -335,14 +335,17 @@ rates, the fits, launches), one of [mesh]'s (the servers' sharding,
 dispatches and launches, the fan-out), one of [train]'s (captured and
 eager readings and rates, the groups, the statistics, the two ranks,
 pools), one of [train_mesh]'s (the head, the fits' modes, rates and
-pools, the split steps, the mesh slices, pools), one of [twin]'s (the day's wall seconds, rate, digest, scores and
+pools, the split steps, the mesh slices, pools), one of [train_ranks]'
+(the split head, the featurizer's launches and the head on dp4, the
+statistics, each against one process, ms a step and the all-reduces), one of [twin]'s (the day's wall seconds, rate, digest, scores and
 servers; the small days), one of [examples]' (the flowers recipe's
 img/s, top-1 and launches, every example's and tool's exit code and wall
 seconds, the folded tables and timelines), one ``{"pools":
 ...}`` line (the graph pools held after every phase, by phase; later
 phases add keys to it), one JSON line with every kernel's numbers (with
 its launches in [serving], [headfanout], [obs], [fleet], [stream] and
-[mesh], B1's ``train_mesh_launches`` in [train_mesh]'s featurizer,
+[mesh], B1's ``train_mesh_launches`` in [train_mesh]'s featurizer and
+``train_ranks_launches`` in [train_ranks]' two ranks' featurizers,
 ``compile_launches`` in [compile]'s children and its
 ``examples_launches`` in [examples]' flowers recipe; H1's
 ``launches`` are its [headfanout] launches), and last the line
@@ -6862,10 +6865,11 @@ print(json.dumps(out))
 """
 
 
-def _train_ranks(base, world=2):
-    """Run the two ranks of the group fit over gloo on this card; returns
-    their JSON results.  A rank that outlives TRAIN_CHILD_TIMEOUT_S is
-    killed and fails the phase."""
+def _train_ranks(base, world=2, child=None, tag="train"):
+    """Run the ranks of a group fit over gloo on this card (``child``: the
+    rank's code, default _TRAIN_CHILD's fits); returns their JSON results.
+    A rank that exits non-zero or outlives TRAIN_CHILD_TIMEOUT_S (then
+    killed) fails the phase and the run."""
     import socket
 
     with socket.socket() as s:
@@ -6876,8 +6880,8 @@ def _train_ranks(base, world=2):
     try:
         for r in range(world):
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", _TRAIN_CHILD, str(r), str(world),
-                 str(port), base],
+                [sys.executable, "-c", child or _TRAIN_CHILD, str(r),
+                 str(world), str(port), base],
                 cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         results = []
@@ -6887,9 +6891,9 @@ def _train_ranks(base, world=2):
                 stdout, stderr = p.communicate(
                     timeout=max(1.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
-                fail(f"[train] rank {r} outlived {TRAIN_CHILD_TIMEOUT_S}s "
+                fail(f"[{tag}] rank {r} outlived {TRAIN_CHILD_TIMEOUT_S}s "
                      f"and was killed")
-            check(p.returncode == 0, f"[train] rank {r} exited "
+            check(p.returncode == 0, f"[{tag}] rank {r} exited "
                                      f"{p.returncode}: {stderr[-3000:]}")
             results.append(json.loads(stdout.strip().splitlines()[-1]))
         return results
@@ -7597,11 +7601,13 @@ def _train_mesh_config5(sepconv, tag, slots, x, y, paths, labels, expect):
     return out
 
 
-def _train_mesh_split(tag, x, y, expect):
+def _train_mesh_split(tag, x, y, expect, keep=None):
     """(c): make_train_step on config 5's model with the backbone frozen and
     the head, the predictions layer's weight and bias, split over ``model``
     (dp1 x tp2 and dp2 x tp2), SGD and Adam, against the replicated
-    one-device step on the same batches.  (Adam's update of a whole
+    one-device step on the same batches.  ``keep`` (a dict) receives each
+    step's fitted head, losses and ms by (optimizer, layout), and the
+    head's first values under "init", for [train_ranks].  (Adam's update of a whole
     backbone sets each element's step by the sign of its gradient, so a
     backbone gradient that is rounding noise, summed in another order by
     the split, moves the fit by ~1e-2: the head alone is held.)"""
@@ -7644,13 +7650,18 @@ def _train_mesh_split(tag, x, y, expect):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 for i in range(TRAIN_MESH_SPLIT_STEPS):
+                    if i == 1:
+                        torch.cuda.synchronize()
+                        t1 = time.perf_counter()
                     off = (i * TUNING_BATCH) % len(x)
                     losses.append(step(
                         torch.from_numpy(x[off:off + TUNING_BATCH]).cuda(),
                         torch.from_numpy(y[off:off + TUNING_BATCH]).cuda()))
                 losses = torch.stack(losses).cpu().numpy()
                 torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) / TRAIN_MESH_SPLIT_STEPS * 1e3
+                end = time.perf_counter()
+                ms = (end - t0) / TRAIN_MESH_SPLIT_STEPS * 1e3
+                warm_ms = (end - t1) / (TRAIN_MESH_SPLIT_STEPS - 1) * 1e3
                 per_shard = None
                 if shape is not None:
                     w = step.tree[split[-1]]
@@ -7667,7 +7678,10 @@ def _train_mesh_split(tag, x, y, expect):
                             and sh[leaf]["step"] is step.replicated
                 res[name] = dict(fitted={k: torch.from_numpy(v) for k, v in
                                          step.host_params().items()},
-                                 losses=losses, ms=ms, per_shard=per_shard)
+                                 losses=losses, ms=ms, warm_ms=warm_ms,
+                                 per_shard=per_shard)
+                if keep is not None:
+                    keep[(opt_name, name)] = res[name]
                 del step, opt, params
             ref = res["replicated"]
             for name, shape in layouts[1:]:
@@ -7695,10 +7709,13 @@ def _train_mesh_split(tag, x, y, expect):
                       f"vs {ref['ms']:.1f} ms replicated", flush=True)
                 out[f"{opt_name}_{name}"] = dict(
                     step_loss_rel=loss_rel, update_rel=upd_rel, ms=r["ms"],
-                    replicated_ms=ref["ms"], per_shard=r["per_shard"])
+                    warm_ms=r["warm_ms"], replicated_ms=ref["ms"],
+                    per_shard=r["per_shard"])
             del res
     finally:
         torch.backends.cudnn.deterministic = False
+    if keep is not None:
+        keep["init"] = init
     return out
 
 
@@ -7787,7 +7804,7 @@ def _train_mesh_maps(tag, slots, tmp, expect):
     return dict(parallel=out[2], sequential=out[1], loss_rel=rel)
 
 
-def phase_train_mesh(sepconv):
+def phase_train_mesh(sepconv, keep=None):
     """[train_mesh]: training on a mesh of several slots in one process,
     on slots of cuda:0 (or distinct cards where several are visible), f32
     with TF32 off.
@@ -7811,7 +7828,8 @@ def phase_train_mesh(sepconv):
       (d) ``fitMultiple`` with ``parallelism=2`` over two slots: each map's
           trainLosses within TRAIN_MESH_MAP_TOL of the sequential fits;
       (e) no fit's graph pool outlives it.
-    B1-B3 launch 0 times in (b)-(d)."""
+    B1-B3 launch 0 times in (b)-(d).  ``keep`` receives (c)'s one-process
+    results (:func:`_train_mesh_split`)."""
     import tempfile
 
     from sparkdl_tpu_torch.parallel.engine import graph_pool_bytes_held
@@ -7846,7 +7864,7 @@ def phase_train_mesh(sepconv):
                                              paths, labels, expect)
         out["config5_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out["split"] = _train_mesh_split(tag, x, y, expect)
+        out["split"] = _train_mesh_split(tag, x, y, expect, keep)
         out["split_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         out["maps"] = _train_mesh_maps(tag, slots, tmp, expect)
@@ -7876,6 +7894,668 @@ def phase_train_mesh(sepconv):
     check(not problems, f"[{tag}] {len(problems)} failed: "
                         + " | ".join(problems))
     out["launches"] = out["head"]["launches"]
+    return out
+
+
+TRAIN_RANKS_SLOTS = 2           # each rank's slots: two data groups (b, c),
+#                                 or the model axis of (a)
+
+
+_TRAIN_RANKS_CHILD = """
+import json, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as c
+rank, world, port, base = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                           sys.argv[4])
+print(json.dumps(c._train_ranks_child(rank, world, port, base)))
+"""
+
+
+def _rank_slots(rank):
+    """Rank ``rank``'s TRAIN_RANKS_SLOTS slots: cards of its own where the
+    machine has enough, else slots of cuda:0."""
+    n = TRAIN_RANKS_SLOTS
+    count = torch.cuda.device_count()
+    if count >= 2 * n:
+        return [f"cuda:{rank * n + i}" for i in range(n)]
+    return [MESH_DEVICE] * n
+
+
+class _Collectives:
+    """While entered, tallies every ``torch.distributed.all_reduce`` of
+    this process (the fits' flat buffers and the BatchNorms' sums, forward
+    and backward) by calls, bytes and host seconds inside the call (gloo's
+    all-reduce of a CUDA tensor returns once it is done: its copies to
+    and from the host included) (instrumentation of this script)."""
+
+    def __enter__(self):
+        self.calls = 0
+        self.bytes = 0
+        self.seconds = 0.0
+        self._saved = torch.distributed.all_reduce
+        real = self._saved
+
+        def counted(tensor, *a, **k):
+            self.calls += 1
+            self.bytes += tensor.numel() * tensor.element_size()
+            t0 = time.perf_counter()
+            try:
+                return real(tensor, *a, **k)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        torch.distributed.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        torch.distributed.all_reduce = self._saved
+
+
+def _ranks_split(rank, world, x, y, base):
+    """(a) in a rank: config 5's head split over this rank's two slots,
+    the batch over the ranks (dp2 x tp2), SGD and Adam for
+    TRAIN_MESH_SPLIT_STEPS steps of TUNING_BATCH rows, this rank's half of
+    each; the fitted head saved for the parent."""
+    from sparkdl_tpu_torch.param.converters import NamedOptimizer
+    from sparkdl_tpu_torch.parallel import mesh as mesh_lib
+    from sparkdl_tpu_torch.parallel import train
+    from sparkdl_tpu_torch.parallel.shard import ShardedTensor
+
+    module, params_all, predict = _train_model_per_device()
+    module.requires_grad_(False)
+    split = [n for n in sorted(params_all)
+             if re.search(r"predictions\.(weight|bias)$", n)]
+    params0 = {n: params_all[n] for n in split}
+    del params_all
+
+    def rule(path, leaf):
+        return mesh_lib.P("model") if path in split else mesh_lib.P()
+
+    mesh = mesh_lib.get_mesh(model_parallel=TRAIN_RANKS_SLOTS)
+    local = mesh_lib.local_rows(mesh)
+    rows = TUNING_BATCH // world
+    out = dict(mesh=mesh.shape, local=local.shape,
+               slots=[str(d) for d in local.devices.flat])
+    torch.backends.cudnn.deterministic = True
+    try:
+        for opt_name in ("sgd", "adam"):
+            params = {k: v.detach().clone().requires_grad_()
+                      for k, v in params0.items()}
+            opt = NamedOptimizer(opt_name)([params[k] for k in split])
+            step = train.make_train_step(
+                predict, "categorical_crossentropy", opt, params, mesh=mesh,
+                param_specs=rule)
+            losses = []
+            with _Collectives() as coll:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(TRAIN_MESH_SPLIT_STEPS):
+                    if i == 1:
+                        torch.cuda.synchronize()
+                        t1, first_s = time.perf_counter(), coll.seconds
+                    off = (i * TUNING_BATCH) % len(x) + rank * rows
+                    losses.append(step(
+                        torch.from_numpy(x[off:off + rows]).cuda(),
+                        torch.from_numpy(y[off:off + rows]).cuda()))
+                losses = torch.stack(losses).cpu().numpy()
+                torch.cuda.synchronize()
+                end = time.perf_counter()
+            ms = (end - t0) / TRAIN_MESH_SPLIT_STEPS * 1e3
+            warm = TRAIN_MESH_SPLIT_STEPS - 1
+            warm_ms = (end - t1) / warm * 1e3
+            reduce_ms = (coll.seconds - first_s) / warm * 1e3
+            w = step.tree[split[-1]]
+            half = (w.shape[0] // TRAIN_RANKS_SLOTS,) + tuple(w.shape[1:])
+            per_shard = (isinstance(w, ShardedTensor)
+                         and [str(s.device) for s in w.shards] == out["slots"]
+                         and all(tuple(s.shape) == half for s in w.shards))
+            if opt_name == "adam":
+                per_shard = per_shard and all(
+                    tuple(opt.state[s]["mu"].shape) == half for s in w.shards)
+            np.savez(os.path.join(base, f"split_{opt_name}_{rank}.npz"),
+                     **step.host_params())
+            out[opt_name] = dict(losses=losses.tolist(), ms=ms,
+                                 warm_ms=warm_ms, reduce_ms=reduce_ms,
+                                 per_shard=bool(per_shard),
+                                 reduce_calls=coll.calls,
+                                 reduce_bytes=coll.bytes)
+            del step, opt, params
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del module, predict
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ranks_head(sepconv, rank, world, base, modes):
+    """(b) in a rank: DeepImageFeaturizer(Xception) at 299x299 over this
+    rank's TRAIN_MESH_FEATURIZE_N / world images (B1 counted in a window
+    of its own), then LogisticRegression on the group's default mesh of
+    every rank's slots, and the same head through fit_data_parallel with
+    SGD; features and each (w, b) saved for the parent."""
+    from sparkdl_tpu_torch.estimators import LogisticRegression
+    from sparkdl_tpu_torch.estimators.classification import _predict
+    from sparkdl_tpu_torch.frame import DataFrame
+    from sparkdl_tpu_torch.param.converters import NamedOptimizer
+    from sparkdl_tpu_torch.parallel import train
+    from sparkdl_tpu_torch.transformers import named_image as ni
+    from sparkdl_tpu_torch.utils.metrics import Metrics
+
+    n = TRAIN_MESH_FEATURIZE_N // world
+    df = synthetic_frame(n, 299, SEED + 241 + rank)
+    feat = ni.DeepImageFeaturizer(inputCol="image", outputCol="f",
+                                  modelName="Xception", batchSize=BATCH)
+    eng = ni._zoo_engine("Xception", True, BATCH)
+    feat.transform(df)  # its graphs captured outside the window
+    reset_counts(sepconv)
+    featurized = feat.transform(df)
+    counts = read_counts(sepconv)
+    f = np.asarray(featurized.table.column("f").to_pylist(), np.float32)
+    labels = (np.arange(n) + rank * n) % 2
+    np.savez(os.path.join(base, f"feat_{rank}.npz"), f=f, labels=labels)
+    m = Metrics()
+    undo = _fit_metrics(m)
+    first = len(modes)
+    try:
+        with _Collectives() as coll:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est = LogisticRegression(maxIter=TRAIN_MESH_LR_ITER,
+                                     standardization=False)
+            lr = est.fit(DataFrame({
+                "features": [list(map(float, r)) for r in f],
+                "label": labels.astype(np.int64)}))
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+    finally:
+        undo()
+    np.savez(os.path.join(base, f"lr_{rank}.npz"),
+             **{k: np.asarray(v) for k, v in lr.weights.items()})
+    # the same head, fit_data_parallel with SGD (a capturable optimizer):
+    # on the card its steps are captured in mode split, both of the
+    # rank's groups inside the graph, the all-reduce between two graphs
+    sgd_m = Metrics()
+    first_sgd = len(modes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted, _ = train.fit_data_parallel(
+        _predict, _head_init(f.shape[1], 2), f, labels,
+        optimizer=NamedOptimizer("sgd"), loss=train.softmax_cross_entropy,
+        batch_size=est.getOrDefault(est.batchSize),
+        epochs=TRAIN_MESH_LR_ITER, seed=est.getOrDefault(est.seed),
+        metrics=sgd_m)
+    torch.cuda.synchronize()
+    sgd_s = time.perf_counter() - t0
+    np.savez(os.path.join(base, f"sgd_{rank}.npz"), **fitted)
+    return dict(engine=str(eng.device), engine_mesh=eng.mesh.shape,
+                pieces=-(-n // eng.device_batch_size), launches=counts,
+                features=list(f.shape), finite=bool(np.isfinite(f).all()),
+                modes=modes[first:first_sgd],
+                groups=m.gauges.get("train.data_groups"),
+                steps=m.counters.get("train.steps"), fit_s=fit_s,
+                reduce_calls=coll.calls, reduce_bytes=coll.bytes,
+                sgd=dict(modes=modes[first_sgd:], fit_s=sgd_s,
+                         steps=sgd_m.counters.get("train.steps"),
+                         captures=sgd_m.counters.get("train.captures", 0),
+                         groups=sgd_m.gauges.get("train.data_groups")))
+
+
+def _ranks_stats(rank, world, base, modes):
+    """(c) in a rank: trainBatchStats on the zoo's InceptionV3 through
+    ImageFileEstimator, this rank's TRAIN_MESH_STATS_ROWS / world images
+    of one global step, two data groups a rank; its running statistics
+    saved for the parent."""
+    from sparkdl_tpu_torch.estimators import ImageFileEstimator
+    from sparkdl_tpu_torch.estimators import image_file_estimator as ife
+    from sparkdl_tpu_torch.frame import DataFrame
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.models import load_model
+    from sparkdl_tpu_torch.utils.metrics import Metrics
+
+    with open(os.path.join(base, "files.json")) as fh:
+        files = json.load(fh)
+    n = TRAIN_MESH_STATS_ROWS // world
+    mine = slice(rank * n, (rank + 1) * n)
+    onehot = np.eye(1000, dtype=np.float32)
+    sdf = DataFrame({"uri": files["paths"][mine], "onehot": [
+        onehot[v].tolist() for v in files["labels"][mine]]})
+    est = ImageFileEstimator(
+        inputCol="uri", outputCol="preds", labelCol="onehot",
+        modelFunction=ModelFunction.from_module(
+            load_model("InceptionV3", weights=None)),
+        imageLoader=load_inception_v3, optimizer="sgd",
+        batchSize=TRAIN_MESH_STATS_ROWS, trainBatchStats=True,
+        fitParams={"epochs": 1, "shuffle": False})
+    m = Metrics()
+    real = ife.fit_data_parallel
+    ife.fit_data_parallel = (
+        lambda *a, **kw: real(*a, **dict(kw, metrics=m)))
+    first = len(modes)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with _Collectives() as coll:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fm = est.fit(sdf)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+    finally:
+        ife.fit_data_parallel = real
+        torch.backends.cudnn.deterministic = False
+    sd = fm.getModelFunction().module.state_dict()
+    np.savez(os.path.join(base, f"stats_{rank}.npz"),
+             **{k: v.numpy() for k, v in sd.items()
+                if k.endswith(("running_mean", "running_var"))})
+    return dict(modes=modes[first:], groups=m.gauges.get("train.data_groups"),
+                steps=m.counters.get("train.steps"), fit_s=fit_s,
+                reduce_calls=coll.calls, reduce_bytes=coll.bytes)
+
+
+def _train_ranks_child(rank, world, port, base):
+    """One rank of [train_ranks]: joins the gloo group holding
+    TRAIN_RANKS_SLOTS slots (:func:`_rank_slots`), runs (a)-(c) and
+    returns what the parent checks; each fit's (mode, reason) is what the
+    train module's own ``step_mode`` chose."""
+    from sparkdl_tpu_torch.ops import sepconv
+    from sparkdl_tpu_torch.parallel import distributed, train
+
+    distributed.initialize(f"localhost:{port}", world, rank, backend="gloo",
+                           local_slots=_rank_slots(rank))
+    modes = []
+    chosen = train.step_mode
+
+    def logged(*a, **k):
+        mode = chosen(*a, **k)
+        modes.append(list(mode))
+        return mode
+
+    train.step_mode = logged
+    data = np.load(os.path.join(base, "data.npz"))
+    out = dict(rank=rank, backend=distributed.backend(),
+               slots=[[str(d) for d in row]
+                      for row in distributed.global_slots()],
+               modules=sorted(m for m in ("jax", "sparkdl_tpu")
+                              if m in sys.modules))
+    t0 = time.perf_counter()
+    out["split"] = _ranks_split(rank, world, data["x"], data["y"], base)
+    out["split_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["head"] = _ranks_head(sepconv, rank, world, base, modes)
+    out["head_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["stats"] = _ranks_stats(rank, world, base, modes)
+    out["stats_s"] = time.perf_counter() - t0
+    distributed.shutdown()
+    return out
+
+
+def _head_init(features, classes):
+    """LogisticRegression's first (w, b) (its default seed): the start of
+    (b)'s fits and of their one-process references."""
+    rng = np.random.default_rng(0)
+    return {"w": rng.normal(0, 0.01, (features, classes)).astype(np.float32),
+            "b": np.zeros((classes,), np.float32)}
+
+
+def _head_one_process(parts, slots, make_opt):
+    """(b)'s reference: the head's fit as LogisticRegression runs it
+    (standardization off, its batch, seed and epochs) with the optimizer
+    ``make_opt`` makes, in one process on ``slots`` (dp = len(slots)),
+    stepped by make_train_step over the global batches the ranks drew
+    from their ``parts`` (each rank's (features, labels)): ((w, b), ms a
+    step, steps an epoch)."""
+    from sparkdl_tpu_torch.estimators import LogisticRegression
+    from sparkdl_tpu_torch.estimators.classification import _predict
+    from sparkdl_tpu_torch.parallel import train
+    from sparkdl_tpu_torch.parallel.mesh import get_mesh
+
+    est = LogisticRegression(maxIter=TRAIN_MESH_LR_ITER)
+    seed = est.getOrDefault(est.seed)
+    world, dp = len(parts), len(slots)
+    batch = est.getOrDefault(est.batchSize)
+    batch += -batch % dp
+    local = max(dp // world, batch // world)
+    rows = sum(len(f) for f, _ in parts)
+    steps = max(1, -(-rows // (local * world)))
+    classes = int(max(int(l.max()) for _, l in parts)) + 1
+    params = {k: torch.from_numpy(v).cuda().requires_grad_() for k, v in
+              _head_init(parts[0][0].shape[1], classes).items()}
+    step = train.make_train_step(
+        _predict, train.softmax_cross_entropy,
+        make_opt([params["w"], params["b"]]), params,
+        mesh=get_mesh(devices=slots))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for epoch in range(TRAIN_MESH_LR_ITER):
+        gx, gy = _global_batches([list(train._epoch_batches(
+            f, l, local, epoch, True, seed, num_steps=steps))
+            for f, l in parts])
+        for i in range(steps):
+            sl = slice(i * local * world, (i + 1) * local * world)
+            step(torch.from_numpy(gx[sl]).cuda(),
+                 torch.from_numpy(gy[sl]).cuda())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (TRAIN_MESH_LR_ITER * steps) * 1e3
+    return step.host_params(), ms, steps
+
+
+def phase_train_ranks(sepconv, split_refs=None):
+    """[train_ranks]: a process group whose ranks each hold several slots.
+    Two ranks over gloo (``python -c _TRAIN_RANKS_CHILD`` children), each
+    with TRAIN_RANKS_SLOTS slots of cuda:0 (or cards of its own where the
+    machine has them), f32 with TF32 off:
+
+      (a) config 5's model, its backbone frozen, its head (the
+          ``predictions`` weight and bias) split over ``model`` within
+          each rank on dp2 (the ranks) x tp2 (each rank's slots), SGD and
+          Adam for TRAIN_MESH_SPLIT_STEPS steps at batch 16: the ranks'
+          losses and heads within TUNING_UPDATE_TOL of [train_mesh] (c)'s
+          one-process dp2 x tp2 and replicated steps on the same global
+          batches (``split_refs``; computed here when not given);
+      (b) DeepImageFeaturizer(Xception) at 299x299 in each rank over its
+          half of TRAIN_MESH_FEATURIZE_N images, B1 30 a forward counted
+          in each rank; LogisticRegression (standardization off: it
+          standardizes with each rank's own statistics, as JAX's does) on
+          dp4 = 2 ranks x 2 groups, and the same head through
+          fit_data_parallel with SGD (captured in mode split), each (w, b)
+          within TUNING_UPDATE_TOL of the one-process dp4 fit on the same
+          global batches;
+      (c) trainBatchStats on the zoo's InceptionV3 over one step of
+          TRAIN_MESH_STATS_ROWS images on dp4 (the sums met in each rank,
+          then across the ranks): the ranks' running statistics equal,
+          within TUNING_STATS_TOL of one process's dp4 fit.
+    Each rank's mesh and slots, step modes and reasons, ms a step, the
+    all-reduce's bytes a step and B1's launches are printed; B1-B3 launch
+    0 times in this process."""
+    import tempfile
+
+    from sparkdl_tpu_torch.estimators import (ImageFileEstimator,
+                                              LogisticRegression)
+    from sparkdl_tpu_torch.frame import DataFrame
+    from sparkdl_tpu_torch.graph.function import ModelFunction
+    from sparkdl_tpu_torch.models import load_model
+    from sparkdl_tpu_torch.param.converters import NamedOptimizer
+
+    tag = "train_ranks"
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    out = dict(card=card)
+    problems = []
+
+    def expect(cond, msg):
+        if not cond:
+            print(f"FAIL (at the phase's end): {msg}", flush=True)
+            problems.append(msg)
+
+    t_phase = time.perf_counter()
+    reset_counts(sepconv)
+    world = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, labels = _tuning_files(os.path.join(tmp, "images"))
+        x = np.stack([load_inception_v3(p) for p in paths])
+        y = np.eye(1000, dtype=np.float32)[labels]
+        if not split_refs:
+            split_refs = {}
+            _train_mesh_split(tag, x, y, expect, split_refs)
+        base = os.path.join(tmp, "ranks")
+        os.makedirs(base)
+        np.savez(os.path.join(base, "data.npz"), x=x, y=y)
+        with open(os.path.join(base, "files.json"), "w") as fh:
+            json.dump({"paths": paths, "labels": [int(v) for v in labels]},
+                      fh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = _train_ranks(base, world, _TRAIN_RANKS_CHILD, tag)
+        out["ranks_s"] = time.perf_counter() - t0
+        for r in ranks:
+            print(f"[{tag}] rank {r['rank']} over {r['backend']}: global "
+                  f"slots {r['slots']}; (a) mesh {r['split']['mesh']}, its "
+                  f"rows {r['split']['local']} on {r['split']['slots']}; "
+                  f"(b) featurizer on {r['head']['engine']} (mesh "
+                  f"{r['head']['engine_mesh']}); rank wall (a) "
+                  f"{r['split_s']:.1f}s (b) {r['head_s']:.1f}s (c) "
+                  f"{r['stats_s']:.1f}s", flush=True)
+        seen = [(r["backend"], r["modules"], len(r["slots"][r["rank"]]))
+                for r in ranks]
+        expect(all(s == ("gloo", [], TRAIN_RANKS_SLOTS) for s in seen),
+               f"[{tag}] ranks (backend, modules, slots): {seen}")
+
+        # (a) the split head against [train_mesh] (c)'s one process
+        init = split_refs["init"]
+        split_out = {}
+        for opt_name in ("sgd", "adam"):
+            fits = [{k: torch.from_numpy(v) for k, v in np.load(os.path.join(
+                base, f"split_{opt_name}_{r}.npz")).items()}
+                for r in range(world)]
+            agree = _update_rel(fits[0], fits[1],
+                                {k: torch.zeros(()) for k in fits[0]})
+            recs = [r["split"][opt_name] for r in ranks]
+            losses = np.asarray(recs[0]["losses"])
+            row = dict(rank_rel=agree, ms=[r["ms"] for r in recs],
+                       warm_ms=[r["warm_ms"] for r in recs],
+                       reduce_ms=[r["reduce_ms"] for r in recs],
+                       reduce_bytes_per_step=(recs[0]["reduce_bytes"]
+                                              / TRAIN_MESH_SPLIT_STEPS),
+                       reduce_calls=recs[0]["reduce_calls"])
+            for ref_name in ("dp2xtp2", "replicated"):
+                ref = split_refs[(opt_name, ref_name)]
+                loss_rel = float(np.max(np.abs(losses - ref["losses"])
+                                        / np.abs(ref["losses"])))
+                upd_rel = _update_rel(ref["fitted"], fits[0], init)
+                row[ref_name] = dict(loss_rel=loss_rel, update_rel=upd_rel,
+                                     ms=ref["ms"], warm_ms=ref["warm_ms"])
+                expect(loss_rel <= TUNING_UPDATE_TOL
+                       and upd_rel <= TUNING_UPDATE_TOL,
+                       f"[{tag}] (a) {opt_name} two ranks vs one process's "
+                       f"{ref_name}: loss rel err {loss_rel:.4g}, update "
+                       f"{upd_rel:.4g} (tol {TUNING_UPDATE_TOL})")
+            # the flat buffer: the head's gradients and the loss, float32
+            flat = 4 * (sum(v.numel() for v in fits[0].values()) + 1)
+            expect(agree <= RANK_AGREE_TOL
+                   and all(r["per_shard"] for r in recs)
+                   and all(r["reduce_calls"] == TRAIN_MESH_SPLIT_STEPS
+                           and r["reduce_bytes"]
+                           == flat * TRAIN_MESH_SPLIT_STEPS for r in recs),
+                   f"[{tag}] (a) {opt_name}: ranks' heads rel {agree:.3g} "
+                   f"(tol {RANK_AGREE_TOL}), shards on the rank's slots "
+                   f"{[r['per_shard'] for r in recs]}, all-reduces "
+                   f"{[(r['reduce_calls'], r['reduce_bytes']) for r in recs]}"
+                   f" (want {TRAIN_MESH_SPLIT_STEPS} of {flat} B)")
+            one = row["dp2xtp2"]["warm_ms"]
+            print(f"[{tag}] (a) {opt_name}: config 5's head split over each "
+                  f"rank's {TRAIN_RANKS_SLOTS} slots on dp2 (ranks) x tp2, "
+                  f"{TRAIN_MESH_SPLIT_STEPS} steps of {TUNING_BATCH} "
+                  f"({TUNING_BATCH // world} a rank): vs one process's "
+                  f"dp2 x tp2 loss rel err {row['dp2xtp2']['loss_rel']:.3e}"
+                  f", update {row['dp2xtp2']['update_rel']:.3e}; vs its "
+                  f"replicated step {row['replicated']['loss_rel']:.3e} / "
+                  f"{row['replicated']['update_rel']:.3e}; ranks' heads "
+                  f"rel {agree:.2e}; ms a step after the first "
+                  f"{row['warm_ms'][0]:.1f} / {row['warm_ms'][1]:.1f} "
+                  f"({TUNING_BATCH / max(row['warm_ms']) * 1e3:.1f} img/s; "
+                  f"with the first {row['ms'][0]:.1f} / {row['ms'][1]:.1f})"
+                  f" vs one process dp2 x tp2 {one:.1f} ms "
+                  f"({TUNING_BATCH / one * 1e3:.1f} img/s; with the first "
+                  f"{row['dp2xtp2']['ms']:.1f}), eager step calls; gloo "
+                  f"all-reduce {row['reduce_bytes_per_step']:.0f} B a step, "
+                  f"{row['reduce_ms'][0]:.1f} / {row['reduce_ms'][1]:.1f} "
+                  f"ms of it on the host ({card})", flush=True)
+            split_out[opt_name] = row
+        out["split"] = split_out
+
+        # (b) the featurizer's launches and the head on dp4
+        heads = [r["head"] for r in ranks]
+        for h in heads:
+            want = SEPCONV_PER_FORWARD * h["pieces"]
+            expect(h["launches"] == dict(sepconv=want, sepconv_tiled=0,
+                                         mbconv=0)
+                   and h["finite"] and h["features"] == [
+                       TRAIN_MESH_FEATURIZE_N // world, 2048],
+                   f"[{tag}] (b) featurizer: launches {h['launches']}, want "
+                   f"B1 {want}; features {h['features']}, finite "
+                   f"{h['finite']}")
+        feats = [np.load(os.path.join(base, f"feat_{r}.npz"))
+                 for r in range(world)]
+        parts = [(f["f"], f["labels"].astype(np.int64)) for f in feats]
+        slots4 = [MESH_DEVICE] * (world * TRAIN_RANKS_SLOTS)
+        est = LogisticRegression()
+
+        def adam(ps):
+            return torch.optim.Adam(
+                ps, lr=est.getOrDefault(est.learningRate),
+                weight_decay=est.getOrDefault(est.regParam))
+
+        init = {k: torch.from_numpy(v)
+                for k, v in _head_init(2048, 2).items()}
+        zero = {k: torch.zeros(()) for k in init}
+        head_fits = {}
+        for name, make_opt in (("lr", adam), ("sgd", NamedOptimizer("sgd"))):
+            ref, ref_ms, head_steps = _head_one_process(parts, slots4,
+                                                        make_opt)
+            got = [{k: torch.from_numpy(v) for k, v in np.load(os.path.join(
+                base, f"{name}_{r}.npz")).items()} for r in range(world)]
+            ref = {k: torch.from_numpy(v) for k, v in ref.items()}
+            head_fits[name] = dict(
+                update_rel=_update_rel(ref, got[0], init),
+                rank_rel=_update_rel(got[0], got[1], zero),
+                one_process_ms=ref_ms)
+        lr_rel, lr_agree = (head_fits["lr"]["update_rel"],
+                            head_fits["lr"]["rank_rel"])
+        ref_ms = head_fits["lr"]["one_process_ms"]
+        sgd = [h["sgd"] for h in heads]
+        want_sgd = "split" if MESH_DEVICE.startswith("cuda") else "eager"
+        expect(all(f["update_rel"] <= TUNING_UPDATE_TOL
+                   and f["rank_rel"] <= RANK_AGREE_TOL
+                   for f in head_fits.values())
+               and all(h["groups"] == float(TRAIN_RANKS_SLOTS)
+                       and h["steps"] == TRAIN_MESH_LR_ITER * head_steps
+                       and h["sgd"]["steps"] == h["steps"]
+                       and h["sgd"]["modes"][0][0] == want_sgd
+                       for h in heads),
+               f"[{tag}] (b) the head on dp4 vs one process: {head_fits}, "
+               f"groups {[h['groups'] for h in heads]}, steps "
+               f"{[(h['steps'], h['sgd']['steps']) for h in heads]} (want "
+               f"{TRAIN_MESH_LR_ITER * head_steps}), SGD modes "
+               f"{[s['modes'] for s in sgd]} (want {want_sgd})")
+        lr_ms = [h["fit_s"] / h["steps"] * 1e3 for h in heads]
+        print(f"[{tag}] (b) DeepImageFeaturizer(Xception) in each rank: "
+              f"{[h['features'][0] for h in heads]} images, B1 "
+              f"{[h['launches']['sepconv'] for h in heads]} "
+              f"({SEPCONV_PER_FORWARD} a forward); LogisticRegression "
+              f"({TRAIN_MESH_LR_ITER} epochs of {head_steps} steps) on dp4 = "
+              f"{world} ranks x {TRAIN_RANKS_SLOTS} groups vs one process's "
+              f"dp4 slots on the same global batches: (w, b) update rel err "
+              f"{lr_rel:.3e}, ranks rel {lr_agree:.2e}; modes "
+              f"{[h['modes'] for h in heads]}; ms a step "
+              f"{[round(v, 2) for v in lr_ms]} (fit wall) vs one process "
+              f"{ref_ms:.2f}; gloo all-reduce "
+              f"{heads[0]['reduce_bytes'] / max(1, heads[0]['reduce_calls']):.0f}"
+              f" B a step ({card})", flush=True)
+        print(f"[{tag}] (b) the same head through fit_data_parallel with "
+              f"SGD on dp4: update rel err "
+              f"{head_fits['sgd']['update_rel']:.3e} vs one process, ranks "
+              f"rel {head_fits['sgd']['rank_rel']:.2e}; modes "
+              f"{[s['modes'] for s in sgd]}, captures "
+              f"{[s['captures'] for s in sgd]}; ms a step "
+              f"{[round(s['fit_s'] / s['steps'] * 1e3, 2) for s in sgd]} "
+              f"(fit wall, warm-up and captures included) vs one process "
+              f"{head_fits['sgd']['one_process_ms']:.2f} ({card})",
+              flush=True)
+        out["head"] = dict(launches=[h["launches"] for h in heads],
+                           fits=head_fits, sgd=sgd,
+                           update_rel=lr_rel, rank_rel=lr_agree,
+                           modes=[h["modes"] for h in heads], ms=lr_ms,
+                           one_process_ms=ref_ms,
+                           reduce_calls=heads[0]["reduce_calls"],
+                           reduce_bytes=heads[0]["reduce_bytes"])
+
+        # (c) batch statistics across the ranks' groups
+        zoo = load_model("InceptionV3", weights=None)
+        before = zoo.state_dict()
+        stat_keys = [k for k in before
+                     if k.endswith(("running_mean", "running_var"))]
+        n = TRAIN_MESH_STATS_ROWS
+        onehot = np.eye(1000, dtype=np.float32)
+        sdf = DataFrame({"uri": paths[:n], "onehot": [
+            onehot[v].tolist() for v in labels[:n]]})
+        est = ImageFileEstimator(
+            inputCol="uri", outputCol="preds", labelCol="onehot",
+            modelFunction=ModelFunction.from_module(zoo),
+            imageLoader=load_inception_v3, optimizer="sgd", batchSize=n,
+            trainBatchStats=True, fitParams={"epochs": 1, "shuffle": False})
+        torch.backends.cudnn.deterministic = True
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _DefaultSlots(slots4):
+                one = est.fit(sdf).getModelFunction().module.state_dict()
+            torch.cuda.synchronize()
+            one_s = time.perf_counter() - t0
+        finally:
+            torch.backends.cudnn.deterministic = False
+        got = [{k: torch.from_numpy(v) for k, v in np.load(os.path.join(
+            base, f"stats_{r}.npz")).items()} for r in range(world)]
+        srel = _update_rel({k: one[k] for k in stat_keys},
+                           {k: got[0][k] for k in stat_keys}, before)
+        same = all(torch.equal(got[0][k], got[1][k]) for k in stat_keys)
+        moved = any(not torch.equal(got[0][k], before[k]) for k in stat_keys)
+        stats = [r["stats"] for r in ranks]
+        bn_calls = [s["reduce_calls"] for s in stats]
+        # float32 all-reduces: the flat buffer (every parameter's gradient
+        # and the loss) once, and each BatchNorm's (sum, sum of squares,
+        # count) forward and backward
+        bns = [m for m in zoo.modules()
+               if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+        want_bytes = 4 * (sum(p.numel() for p in zoo.parameters()) + 1
+                          + 2 * sum(2 * m.num_features + 1 for m in bns))
+        expect(srel <= TUNING_STATS_TOL and same and moved
+               and all(s["groups"] == float(TRAIN_RANKS_SLOTS)
+                       and s["modes"] and s["modes"][0][0] == "eager"
+                       and "ranks" in s["modes"][0][1]
+                       and s["reduce_calls"] == 1 + 2 * len(bns)
+                       and s["reduce_bytes"] == want_bytes for s in stats),
+               f"[{tag}] (c) trainBatchStats on dp4 over two ranks: "
+               f"statistics rel err {srel:.4g} vs one process (tol "
+               f"{TUNING_STATS_TOL}), ranks equal {same}, moved "
+               f"{moved}, groups {[s['groups'] for s in stats]}, modes "
+               f"{[s['modes'] for s in stats]}, all-reduces "
+               f"{[(s['reduce_calls'], s['reduce_bytes']) for s in stats]} "
+               f"(want {1 + 2 * len(bns)} of {want_bytes} B)")
+        print(f"[{tag}] (c) trainBatchStats=True on the zoo's InceptionV3 "
+              f"(one step of {n} rows: {n // world} a rank, "
+              f"{n // world // TRAIN_RANKS_SLOTS} a group): "
+              f"{len(stat_keys)} running statistics vs one process's dp4 "
+              f"rel err {srel:.3e} (tol {TUNING_STATS_TOL}); ranks "
+              f"bit for bit {same}; mode {stats[0]['modes']}; fit "
+              f"{[round(s['fit_s'], 2) for s in stats]} s a rank vs one "
+              f"process {one_s:.2f} s; gloo all-reduces {bn_calls} "
+              f"({stats[0]['reduce_bytes']} B: the flat buffer and each "
+              f"BatchNorm's sums, forward and backward) ({card})",
+              flush=True)
+        out["stats"] = dict(rel=srel, ranks_equal=same, modes=[
+            s["modes"] for s in stats], fit_s=[s["fit_s"] for s in stats],
+            one_process_s=one_s, reduce_calls=bn_calls,
+            reduce_bytes=stats[0]["reduce_bytes"])
+        del zoo, est, one
+    counts = read_counts(sepconv)
+    expect(counts == dict(sepconv=0, sepconv_tiled=0, mbconv=0),
+           f"[{tag}] this process's launches {counts}, want none of B1-B3")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{tag}] phase {out['phase_s']:.1f}s (the ranks "
+          f"{out['ranks_s']:.1f}s) on {card}", flush=True)
+    check(not problems, f"[{tag}] {len(problems)} failed: "
+                        + " | ".join(problems))
+    out["launches"] = dict(
+        sepconv=sum(h["launches"]["sepconv"] for h in heads),
+        sepconv_tiled=0, mbconv=0)
     return out
 
 
@@ -9085,10 +9765,16 @@ def main():
     trained = phase_train(sepconv)
     pools["train"] = pool_line("[train]")
     print(json.dumps({"train": trained}), flush=True)
-    train_mesh = phase_train_mesh(sepconv)
+    split_refs = {}
+    train_mesh = phase_train_mesh(sepconv, split_refs)
     pools["train_mesh"] = pool_line("[train_mesh]")
     print(json.dumps({"train_mesh": train_mesh}), flush=True)
     b1["train_mesh_launches"] = train_mesh["launches"]["sepconv"]
+    train_ranks = phase_train_ranks(sepconv, split_refs)
+    del split_refs
+    pools["train_ranks"] = pool_line("[train_ranks]")
+    print(json.dumps({"train_ranks": train_ranks}), flush=True)
+    b1["train_ranks_launches"] = train_ranks["launches"]["sepconv"]
     twin_day = phase_twin(sepconv)
     pools["twin"] = pool_line("[twin]")
     print(json.dumps({"twin": twin_day}), flush=True)

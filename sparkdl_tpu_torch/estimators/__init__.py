@@ -1,7 +1,8 @@
 """Estimator layer (port of ``sparkdl_tpu.estimators``): the
 logistic-regression head of the transfer-learning recipe, the image-file
-estimators that fine-tune a model over the device mesh (one card, or one
-card per rank of a ``torch.distributed`` group), the tuning estimators and
+estimators that fine-tune a model over the device mesh (this process's
+cards, or every rank's slots of a ``torch.distributed`` group), the
+tuning estimators and
 the evaluators; ``ImageFileEstimator.fit`` also takes a re-iterable
 RecordBatch source (the streaming fit)."""
 

@@ -8,8 +8,8 @@ visible card unless the CPU was asked for, as JAX's fit takes every local
 chip), with its steps captured as CUDA graphs on a card; each data group
 of the mesh runs its rows through its own copy of the module.  In a
 ``torch.distributed`` group each rank fits on its own shard of the rows
-(``parallel.distributed.shard_files``) and the ranks all-reduce every
-step.  ``fitMultiple`` shares the loaded arrays across param maps and,
+(``parallel.distributed.shard_files``), over its own data groups where it
+holds several slots, and the ranks all-reduce every step.  ``fitMultiple`` shares the loaded arrays across param maps and,
 with ``parallelism > 1``, fits them concurrently on slices of the mesh,
 as JAX's does.  ``fit(source)`` with a callable source of record
 batches streams instead (``_fit_stream``): nothing is loaded ahead.

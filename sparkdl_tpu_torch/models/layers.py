@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Iterator, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -105,19 +105,40 @@ class GroupSums:
     order on its own device, so every group holds the same values, and
     autograd carries each group's share of the gradient back to every
     group's part.  :meth:`abort` breaks the rendezvous for every waiting
-    group (a group that raised will never arrive)."""
+    group (a group that raised will never arrive).
 
-    def __init__(self, groups: int):
+    ``cross`` (a differentiable sum across the ranks of a process group,
+    ``torch.distributed.nn.functional.all_reduce``) makes the sum the
+    group's as well: group 0 adds the parts in group order, then issues
+    the one collective of this rendezvous, so that one thread of the rank
+    issues them, in the order of its calls, as every other rank does;
+    the other groups read its result on their devices.  The gradient
+    flows back through the collective (an all-reduce of the gradient) to
+    every group's part of every rank."""
+
+    def __init__(self, groups: int, cross: Optional[Callable] = None):
         self.groups = int(groups)
         self._parts: list = [None] * self.groups
         self._barrier = threading.Barrier(self.groups)
+        self._cross = cross
+        self._total: Optional[torch.Tensor] = None
 
     def all_sum(self, index: int, part: torch.Tensor) -> torch.Tensor:
         self._parts[index] = part
         self._barrier.wait()
-        total = self._parts[0].to(part.device)
-        for other in self._parts[1:]:
-            total = total + other.to(part.device)
+        if self._cross is None or index == 0:
+            total = self._parts[0].to(part.device)
+            for other in self._parts[1:]:
+                total = total + other.to(part.device)
+        if self._cross is not None:
+            if index == 0:
+                try:
+                    self._total = total = self._cross(total)
+                except BaseException:
+                    self.abort()
+                    raise
+            self._barrier.wait()
+            total = self._total.to(part.device)
         # no group writes its next part before every group has read
         self._barrier.wait()
         return total
@@ -166,7 +187,10 @@ def flax_batch_norm_train(bn: nn.modules.batchnorm._BatchNorm,
     count are all-reduced (one collective, ``torch.distributed.nn``, so
     the gradient flows back through it to every rank's rows); in a step
     over the data groups of one process (:func:`data_group` with a
-    :class:`GroupSums`) they are summed across the groups the same way."""
+    :class:`GroupSums`) they are summed across the groups the same way;
+    over the data groups of each rank of a group, across the rank's groups
+    first, then across the ranks (a :class:`GroupSums` with ``cross``),
+    as JAX's one ``pmean`` over the whole data axis."""
     x, _ = promote(x, bn.running_mean)
     dims = [d for d in range(x.dim()) if d != 1]
     shape = [1, -1] + [1] * (x.dim() - 2)

@@ -9,6 +9,16 @@ sharded per rank by a deterministic stride (:func:`shard_files`), and the
 fits in :mod:`sparkdl_tpu_torch.parallel.train` all-reduce gradients
 across the group.  Everything is a no-op in the one-process case.
 
+A rank holds one *slot* (its device) unless it asks for several:
+``initialize(..., local_slots=...)`` stands in for a host's local
+devices (JAX's ``local_device_ids``, or its CPU devices under
+``--xla_force_host_platform_device_count``): ``k`` slots of this rank's
+device, or a list of devices, which may repeat (``["cuda:0"] * 2``, two
+slots of one card).  Every rank must hold the same number; ``initialize``
+all-gathers the counts, so that every rank raises the same
+``ValueError`` and none waits.  :func:`global_slots` gives every rank's
+slots, in rank order, which ``mesh.get_mesh()`` lays out rank-major.
+
 Backend: ``nccl`` when every rank can have a card of its own (CUDA is up
 and the group is no larger than the cards of this host), ``gloo``
 otherwise; ``backend=`` overrides.  NCCL refuses two ranks on one card,
@@ -18,7 +28,7 @@ tensors stage them through the host.
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -28,6 +38,12 @@ from sparkdl_tpu_torch.utils.logging import get_logger
 logger = get_logger(__name__)
 
 _INITIALIZED = False
+
+# slot codes: a card's index, the CPU, or this rank's default device
+# (``resolve_device()``, read where the slots are)
+_CPU_SLOT = -1
+_DEFAULT_SLOT = -2
+_SLOTS: Optional[np.ndarray] = None  # [ranks, slots] codes, from initialize
 
 
 def _group_up() -> bool:
@@ -47,6 +63,7 @@ def default_backend(num_processes: int) -> str:
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
+               local_slots: Union[None, int, Sequence] = None,
                **kwargs) -> bool:
     """Join the process group.  Returns True if ``torch.distributed`` was
     initialized here (or already was by this function), False for the
@@ -56,9 +73,15 @@ def initialize(coordinator_address: Optional[str] = None,
     ``num_processes`` 0 or 1, nothing is initialized.  Otherwise
     ``coordinator_address`` is ``host:port`` (or a ``tcp://`` URL) of rank
     0, ``num_processes`` the world size and ``process_id`` this rank.
-    ``backend=`` picks the backend (default :func:`default_backend`); the
-    other keyword arguments go to ``init_process_group``."""
-    global _INITIALIZED
+    ``local_slots``: this rank's slots (see the module docstring): None
+    for one, an int ``k`` for ``k`` slots of this rank's device, or a list
+    of devices (``"cpu"``, ``"cuda"`` for this rank's card, ``"cuda:<i>"``;
+    a device may repeat).  Ranks that name unequal numbers of slots, or a
+    card this host does not have, raise ``ValueError`` on every rank and
+    leave no group behind.  ``backend=`` picks the backend (default
+    :func:`default_backend`); the other keyword arguments go to
+    ``init_process_group``."""
+    global _INITIALIZED, _SLOTS
     if _INITIALIZED:
         logger.info("torch.distributed already initialized; skipping")
         return True
@@ -78,23 +101,103 @@ def initialize(coordinator_address: Optional[str] = None,
         addr = f"tcp://{addr}"
     backend = kwargs.pop("backend", None) or default_backend(num_processes)
     rank = int(process_id)
+    mine = _slot_codes(local_slots, rank)
     if torch.cuda.is_available():
-        torch.cuda.set_device(rank % torch.cuda.device_count())
+        cards = [c for c in (mine or []) if c >= 0]
+        torch.cuda.set_device(cards[0] if cards
+                              else rank % torch.cuda.device_count())
     torch.distributed.init_process_group(
         backend=backend, init_method=addr, world_size=int(num_processes),
         rank=rank, **kwargs)
+    try:
+        _SLOTS = _gather_slots(mine)
+    except ValueError:
+        torch.distributed.destroy_process_group()
+        raise
     _INITIALIZED = True
     logger.info("torch.distributed initialized: process %d/%d over %s",
                 process_index(), process_count(), backend)
     return True
 
 
+def _slot_codes(local_slots, rank: int) -> Optional[List[int]]:
+    """This rank's slots as codes (a card's index, ``_CPU_SLOT``,
+    ``_DEFAULT_SLOT``), or None when it names something this host cannot
+    give (reported by :func:`_gather_slots` on every rank)."""
+    if local_slots is None:
+        return [_DEFAULT_SLOT]
+    if isinstance(local_slots, (int, np.integer)):
+        return [_DEFAULT_SLOT] * int(local_slots) or None
+    codes: List[int] = []
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    for d in local_slots:
+        dev = torch.device(d)
+        if dev.type == "cpu":
+            codes.append(_CPU_SLOT)
+        elif dev.type == "cuda" and cards:
+            index = rank % cards if dev.index is None else dev.index
+            if not 0 <= index < cards:
+                return None
+            codes.append(index)
+        else:
+            return None
+    return codes or None
+
+
+def _gather_slots(mine: Optional[List[int]]) -> np.ndarray:
+    """Every rank's slot codes, ``[ranks, slots]``: the counts first, so
+    that unequal or unusable slots raise the same ``ValueError`` on every
+    rank before anything waits on them."""
+    counts = allgather_ints(-1 if mine is None else len(mine))
+    bad = [r for r, n in enumerate(counts.tolist()) if n < 0]
+    if bad:
+        raise ValueError(
+            f"rank(s) {bad} named local_slots this host cannot give (no "
+            f"slot, a card index past torch.cuda.device_count(), or a "
+            f"device type other than cpu and cuda)")
+    if len(set(counts.tolist())) > 1:
+        raise ValueError(
+            f"the ranks hold {counts.tolist()} slots: every rank of a group "
+            f"must hold the same number (initialize(local_slots=...))")
+    return _allgather_vector(mine)
+
+
+def global_slots(like: Optional[torch.device] = None
+                 ) -> List[List[torch.device]]:
+    """Every rank's slots, in rank order (one list per rank; ``[[device]]``
+    in one process).  A rank's default slot is the device it runs on when
+    this process runs on ``like`` (default :func:`sparkdl_tpu_torch.
+    resolve_device`): ``cuda:<rank % device_count>``, or the CPU.  In a
+    group joined without :func:`initialize` each rank holds its default
+    slot."""
+    if like is None:
+        from sparkdl_tpu_torch import resolve_device
+
+        like = resolve_device()
+    count = process_count()
+    table = (_SLOTS if _SLOTS is not None and len(_SLOTS) == count
+             else np.full((count, 1), _DEFAULT_SLOT))
+
+    def device(rank: int, code: int) -> torch.device:
+        if code == _DEFAULT_SLOT:
+            if like.type == "cuda":
+                return torch.device(
+                    "cuda", rank % max(1, torch.cuda.device_count()))
+            return torch.device(like.type)
+        if code == _CPU_SLOT:
+            return torch.device("cpu")
+        return torch.device("cuda", int(code))
+
+    return [[device(r, int(c)) for c in row] for r, row in enumerate(table)]
+
+
 def shutdown() -> None:
     """Leave the process group (if this module joined one)."""
-    global _INITIALIZED
+    global _INITIALIZED, _SLOTS
     if _INITIALIZED and _group_up():
         torch.distributed.destroy_process_group()
     _INITIALIZED = False
+    _SLOTS = None
 
 
 def process_index() -> int:
@@ -112,9 +215,14 @@ def backend() -> Optional[str]:
 
 
 def local_device(index: Optional[int] = None) -> torch.device:
-    """The card rank ``index`` (default this rank) runs on:
-    ``cuda:<index % device_count>``."""
+    """The card rank ``index`` (default this rank) runs on: its first
+    card among the slots ``initialize`` was given, else ``cuda:<index %
+    device_count>``."""
     idx = process_index() if index is None else int(index)
+    if _SLOTS is not None and idx < len(_SLOTS):
+        cards = [int(c) for c in _SLOTS[idx] if c >= 0]
+        if cards:
+            return torch.device("cuda", cards[0])
     return torch.device("cuda", idx % max(1, torch.cuda.device_count()))
 
 
@@ -153,13 +261,20 @@ def allgather_ints(value: int) -> np.ndarray:
     """Every rank's ``value``, in rank order (JAX's
     ``multihost_utils.process_allgather`` of a scalar); ``[value]`` in
     one process."""
+    return _allgather_vector([int(value)])[:, 0]
+
+
+def _allgather_vector(values: Sequence[int]) -> np.ndarray:
+    """Every rank's ``values`` (the same length on every rank) as a
+    ``[ranks, len]`` array, in rank order."""
     if not _group_up():
-        return np.asarray([int(value)], np.int64)
+        return np.asarray([list(values)], np.int64).reshape(1, -1)
     dev = _collective_device()
-    mine = torch.tensor([int(value)], dtype=torch.int64, device=dev)
+    mine = torch.tensor([int(v) for v in values], dtype=torch.int64,
+                        device=dev)
     out = [torch.zeros_like(mine) for _ in range(process_count())]
     torch.distributed.all_gather(out, mine)
-    return torch.cat(out).cpu().numpy()
+    return torch.stack(out).cpu().numpy()
 
 
 def put_sharded(sharding, data: Any, device: Optional[torch.device] = None):

@@ -13,15 +13,18 @@ The port's own small types stand in for ``jax.sharding``'s:
 ``cuda:<n-1>``), as ``jax.devices()`` covers every local chip; on the CPU,
 or when the default device names one card (``set_default_device
 ("cuda:1")``), it is that one device.  In a ``torch.distributed`` group of
-W ranks it holds one entry per rank (each rank's ``cuda:<rank %
-device_count>``, or the CPU), shape (W, 1), as ``jax.devices()`` spans
-every host of a multi-controller run.  ``devices=`` may name a device more
+W ranks it holds every rank's slots, rank-major (one a rank, its
+``cuda:<rank % device_count>`` or the CPU, unless
+``distributed.initialize(local_slots=...)`` gave each k), shape (W*k, 1),
+as ``jax.devices()`` spans every host of a multi-controller run, process
+by process.  ``devices=`` may name a device more
 than once: each entry is a *slot*, so ``["cpu"] * 8`` stands in for JAX's
 8 virtual CPU devices and ``["cuda:0"] * k`` for k cards on one card.  An
 engine scores, and a fit trains, on a mesh of this process's devices (in
 one process a fit's default mesh is ``get_mesh()``, as JAX's is); in a
-group a fit's data axis spans the ranks, one slot each
-(``parallel.train``).
+group a fit's data axis spans the ranks and each rank's own rows, its
+model axis lies within a rank, and each rank runs its rows
+(:func:`local_rows`; ``parallel.train``).
 
 :func:`place` is ``jax.device_put`` under ``NamedSharding``s: a split leaf
 becomes one slice per slot, a replicated one one copy per distinct device.
@@ -139,28 +142,22 @@ class NamedSharding:
         return f"NamedSharding(mesh={self.mesh.shape}, spec={self.spec!r})"
 
 
-def _rank_device(rank: int, like: torch.device) -> torch.device:
-    """The device rank ``rank`` of a group runs on, when this process runs
-    on ``like``: ``cuda:<rank % device_count>``, or the CPU."""
-    if like.type == "cuda":
-        return torch.device("cuda", rank % max(1, torch.cuda.device_count()))
-    return torch.device(like.type)
-
-
 def _global_devices() -> Tuple[list, list]:
-    """(devices, ranks) of every process: one device per rank of the
-    ``torch.distributed`` group; in one process every visible card when
-    the default device is ``cuda`` without an index and more than one card
-    is visible, else that one device (the CPU, or one card).  The default
-    mesh of an engine and of a fit alike."""
+    """(devices, ranks) of every process: every rank's slots of the
+    ``torch.distributed`` group, rank-major (``distributed.global_slots``:
+    one slot a rank unless ``initialize`` gave it several); in one process
+    every visible card when the default device is ``cuda`` without an
+    index and more than one card is visible, else that one device (the
+    CPU, or one card).  The default mesh of an engine and of a fit
+    alike."""
     from sparkdl_tpu_torch import resolve_device
     from sparkdl_tpu_torch.parallel import distributed
 
     local = resolve_device()
-    count = distributed.process_count()
-    if count > 1:
-        return ([_rank_device(r, local) for r in range(count)],
-                list(range(count)))
+    if distributed.process_count() > 1:
+        slots = distributed.global_slots(local)
+        return ([d for row in slots for d in row],
+                [r for r, row in enumerate(slots) for _ in row])
     if local.type == "cuda" and local.index is None:
         n = torch.cuda.device_count()
         if n > 1:
@@ -170,10 +167,13 @@ def _global_devices() -> Tuple[list, list]:
 
 def get_mesh(num_devices: Optional[int] = None, model_parallel: int = 1,
              devices: Optional[Sequence] = None) -> Mesh:
-    """Build a (data, model) mesh over the devices of every process (one
-    per rank in a group; every visible card, or the CPU, in one process;
-    see the module docstring), or over ``devices`` (slots owned by this
-    process; a device may repeat).  ``num_devices`` keeps the first N."""
+    """Build a (data, model) mesh over the devices of every process (every
+    rank's slots, rank-major, in a group; every visible card, or the CPU,
+    in one process; see the module docstring), or over ``devices`` (slots
+    owned by this process; a device may repeat).  ``num_devices`` keeps
+    the first N.  In a group whose ranks hold k slots each, a
+    ``model_parallel`` that divides k gives rows that each lie within one
+    rank (:func:`local_rows`)."""
     if devices is not None:
         from sparkdl_tpu_torch.parallel import distributed
 
@@ -194,6 +194,38 @@ def get_mesh(num_devices: Optional[int] = None, model_parallel: int = 1,
     return Mesh(np.asarray(devs, dtype=object).reshape(shape),
                 (DATA_AXIS, MODEL_AXIS),
                 ranks=np.asarray(ranks).reshape(shape))
+
+
+def local_rows(mesh) -> Mesh:
+    """This process's rows of ``mesh`` as a mesh of its own slots (the
+    mesh itself in one process): what a fit's step runs here, while the
+    data axis of ``mesh`` spans every rank.  A row whose slots belong to
+    several ranks raises ``NotImplementedError``: its model axis would
+    exchange activations across processes inside the forward.  A mesh
+    that gives the ranks of a group unequal numbers of rows, or this rank
+    none, raises ``ValueError``."""
+    from sparkdl_tpu_torch.parallel import distributed
+
+    ranks = np.asarray(mesh.ranks)
+    owners = [sorted({int(r) for r in row}) for row in ranks]
+    for g, who in enumerate(owners):
+        if len(who) > 1:
+            raise NotImplementedError(
+                f"mesh {mesh.shape}: data row {g} holds slots of ranks "
+                f"{who}; a model axis that spans ranks would exchange "
+                f"activations across processes inside the forward, which "
+                f"the port does not do (ROADMAP.md §C); use a "
+                f"model_parallel that divides each rank's slots")
+    me, count = distributed.process_index(), distributed.process_count()
+    rows = [sum(who == [r] for who in owners) for r in range(count)]
+    if rows[me] == 0 or (count > 1 and len(set(rows)) > 1):
+        raise ValueError(
+            f"mesh {mesh.shape} gives the ranks {rows} data rows: in a "
+            f"group every rank holds the same number of whole rows (the "
+            f"default mesh, get_mesh(), spans every rank's slots)")
+    mine = [g for g, who in enumerate(owners) if who == [me]]
+    return Mesh(np.asarray(mesh.devices)[mine], mesh.axis_names,
+                ranks=ranks[mine])
 
 
 def batch_sharding(mesh, ndim: int = 1) -> NamedSharding:

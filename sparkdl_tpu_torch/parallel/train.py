@@ -28,15 +28,22 @@ optimizer state; checkpoints save each split weight whole.
 
 Multi-process fits follow JAX's global-batch rules.  In a
 ``torch.distributed`` group of W ranks (:mod:`.distributed`) the mesh's
-data axis spans the ranks, ``batch_size`` is the GLOBAL batch (rounded up
-to the data axis), each rank draws ``max(dp // W, batch // W)`` rows a
-step from its own shard, and the steps of an epoch come from the
-all-gathered global row count, a short shard wrapping modularly, so every
-rank runs the same steps.  A rank with no rows raises on every rank.  Each
-step all-reduces the gradients (and the loss) to the global batch's mean
-before ``optimizer.step``, so every rank applies the same update; with
+data axis spans the ranks and, where a rank holds several slots
+(``distributed.initialize(local_slots=...)``), its own data groups; the
+model axis lies within a rank (:func:`~.mesh.local_rows`: a row across
+ranks raises).  ``batch_size`` is the GLOBAL batch (rounded up to the
+data axis, dp = every rank's groups), each rank draws ``max(dp // W,
+batch // W)`` rows a step from its own shard and splits them over its own
+groups, and the steps of an epoch come from the all-gathered global row
+count, a short shard wrapping modularly, so every rank runs the same
+steps.  A rank with no rows raises on every rank.  Each step sums its
+groups' gradients into its leaves and shards, then all-reduces them (and
+the loss) in one flat buffer, the same leaves and shards in the same
+order on every rank, to the global batch's mean before
+``optimizer.step``, so every rank applies the same update; with
 ``train_fn`` + ``stats`` the BatchNorm statistics are the global batch's
-(``models/layers.py flax_batch_norm_train`` all-reduces its sums).
+(``models/layers.py flax_batch_norm_train`` sums them across the rank's
+groups, then all-reduces them across the ranks).
 
 The step on the card is a captured CUDA graph (the counterpart of JAX's
 compiled step): the fit's first step runs eagerly on a side stream (it
@@ -46,7 +53,8 @@ forward, loss, backward and ``optimizer.step`` of k = ``steps_per_execution``
 steps over a stacked ``[k, B, ...]`` input (JAX's ``lax.scan``), one
 replay and one loss fetch a group; a ragged tail group gets its own graph.
 Inside a process group the all-reduce runs on the host between two graphs
-a step (forward and backward, then the update): mode ``split``.  On a mesh
+a step (forward and backward of every group of the rank, then the
+update): mode ``split``.  On a mesh
 whose slots all name one card the groups run one after another inside the
 captured step.  The steps stay eager (mode ``eager``) on the CPU, on a
 mesh across several cards, with batch statistics over several data groups
@@ -171,12 +179,14 @@ class TrainStep:
     :meth:`pack`, :meth:`reduce`, :meth:`unpack`) are what a fit captures
     into graphs.
 
-    On a mesh of several slots in one process the step places the params
-    first (:meth:`_place`): a leaf that ``param_shardings`` splits on the
-    ``model`` axis becomes a :class:`~.shard.ShardedTensor` whose shards,
-    one per model slot of the first data group, are new leaves that
-    require grad; a replicated leaf is a leaf on the first slot's device
-    (the given tensor itself when it is there already).  ``optimizer``'s
+    Where this process holds several slots of the mesh (a mesh of its own
+    slots, or its rows of a group's mesh, :func:`~.mesh.local_rows`) the
+    step places the params first (:meth:`_place`): a leaf that
+    ``param_shardings`` splits on the ``model`` axis becomes a
+    :class:`~.shard.ShardedTensor` whose shards, one per model slot of
+    its first data group, are new leaves that require grad; a replicated
+    leaf is a leaf on the first slot's device (the given tensor itself
+    when it is there already).  ``optimizer``'s
     param groups then hold those leaves, each shard in the place of its
     whole leaf, so each shard has its own gradient and its own state; the
     optimizer must be one whose update is elementwise (a split would take
@@ -192,7 +202,12 @@ class TrainStep:
     threads of their own that meet in every train-mode BatchNorm
     (``models.layers.GroupSums``), so μ and σ² are the global batch's.
     Each group's loss runs under ``models.layers.data_group(g)``, which
-    a caller's ``fn`` may read to pick its own per-group state."""
+    a caller's ``fn`` may read to pick its own per-group state.  In a
+    group the rank's groups run first (their gradients summed into its
+    leaves and shards, the loss the mean of their means), then the flat
+    all-reduce over the ranks; with statistics the groups' sums meet in
+    the rank first, then one thread of the rank all-reduces them across
+    the ranks, once a BatchNorm."""
 
     def __init__(self, loss_of: Callable, optimizer: torch.optim.Optimizer,
                  params, *, mesh=None, param_shardings=None,
@@ -211,17 +226,18 @@ class TrainStep:
         self._rows: Optional[List[tuple]] = None
         self._stats: List[Any] = [stats]
         self._pool = None
-        if self.world == 1 and mesh is not None and mesh.size > 1:
-            self._place()
+        local = mesh_lib.local_rows(mesh) if mesh is not None else None
+        if local is not None and local.size > 1:
+            self._place(local)
         self.params = [p for t in _tree_leaves(self.tree) for p in _pieces(t)]
 
-    # -- placement on a mesh of this process's slots -----------------------
-    def _place(self) -> None:
+    # -- placement on this process's slots of the mesh ---------------------
+    def _place(self, local) -> None:
         from sparkdl_tpu_torch.parallel.shard import ShardedTensor
 
         mesh = self.mesh
-        dp = int(mesh.shape[mesh_lib.DATA_AXIS])
-        rows = [tuple(torch.device(d) for d in mesh.devices[g])
+        dp = int(local.shape[mesh_lib.DATA_AXIS])
+        rows = [tuple(torch.device(d) for d in local.devices[g])
                 for g in range(dp)]
         first = rows[0][0]
         flat = mesh_lib.tree_flatten_with_path(self.tree)
@@ -240,7 +256,7 @@ class TrainStep:
                 pieces = []
                 for m, dev in enumerate(rows[0]):
                     index = mesh_lib._slot_index(
-                        mesh, spec, tuple(leaf.shape),
+                        local, spec, tuple(leaf.shape),
                         {mesh_lib.DATA_AXIS: 0, mesh_lib.MODEL_AXIS: m})
                     pieces.append(leaf.detach()[index].to(dev).clone(
                         memory_format=torch.contiguous_format
@@ -378,7 +394,12 @@ class TrainStep:
         if self._pool is None:
             self._pool = ThreadPoolExecutor(len(jobs),
                                             thread_name_prefix="train-group")
-        sums = GroupSums(len(jobs))
+        cross = None
+        if self.world > 1:
+            # the rank's sums, then the ranks': one collective a BatchNorm,
+            # issued by one thread (GroupSums' group 0) in forward order
+            from torch.distributed.nn.functional import all_reduce as cross
+        sums = GroupSums(len(jobs), cross)
         where = sparkdl_tpu_torch._default()
         streams = {str(d): torch.cuda.current_stream(d)
                    for d in self.cards() if d.type == "cuda"}
@@ -410,19 +431,23 @@ class TrainStep:
         return [p.grad for p in self.params if p.grad is not None]
 
     def pack(self, lval: torch.Tensor) -> torch.Tensor:
-        """The gradients and the loss in one flat buffer (made at the first
-        call, reused after, so a graph writes a static tensor)."""
+        """The gradients and the loss in one flat buffer of the gradients'
+        type (made at the first call, reused after, so a graph writes a
+        static tensor): a float64 loss (float64 one-hot labels) travels as
+        float32 beside float32 gradients, not doubling the bytes the group
+        all-reduces."""
         grads = self._grads()
         n = sum(g.numel() for g in grads) + 1
-        dtype = lval.dtype
-        for g in grads:
+        dtype = grads[0].dtype if grads else lval.dtype
+        for g in grads[1:]:
             dtype = torch.promote_types(dtype, g.dtype)
         flat = self._flat
         if (flat is None or flat.numel() != n or flat.dtype != dtype
                 or flat.device != lval.device):
             flat = self._flat = torch.empty(n, dtype=dtype,
                                             device=lval.device)
-        torch.cat([g.reshape(-1).to(dtype) for g in grads]
+        # a shard's gradient lives on its slot's card
+        torch.cat([g.reshape(-1).to(flat.device, dtype) for g in grads]
                   + [lval.reshape(1).to(dtype)], out=flat)
         return flat
 
@@ -634,8 +659,9 @@ def make_train_step(predict_fn: Callable, loss,
     or a ``(path, leaf) -> PartitionSpec`` rule, resolved as JAX's; a spec
     that splits a leaf on the ``model`` axis makes it a
     :class:`~.shard.ShardedTensor` of trainable shards.  In a process
-    group a step holds one slot per rank: a mesh giving a rank several
-    slots raises ``NotImplementedError``."""
+    group the mesh's data axis spans the ranks (and each rank's own
+    groups) and each rank runs its own rows (:func:`~.mesh.local_rows`): a
+    row whose slots span ranks raises ``NotImplementedError``."""
     loss_fn = resolve_loss(loss)
 
     def loss_of(p, stats, x, y):
@@ -681,8 +707,6 @@ def _step(loss_of, optimizer, params, mesh, param_specs,
         mesh = (mesh_lib.get_mesh() if pc > 1
                 else mesh_lib.get_mesh(devices=[
                     leaves[0].device if leaves else resolve_device()]))
-    if pc > 1:
-        _one_slot_per_rank(mesh)
     param_shardings = template = None
     if param_specs is not None:
         template = params_template if params_template is not None else params
@@ -690,19 +714,6 @@ def _step(loss_of, optimizer, params, mesh, param_specs,
     return TrainStep(loss_of, optimizer, params, mesh=mesh,
                      param_shardings=param_shardings,
                      params_template=template, stats=stats)
-
-
-def _one_slot_per_rank(mesh) -> None:
-    """In a process group a step holds one slot per rank; a rank with
-    several slots (data parallel over the ranks, a split within each) is
-    the documented deviation."""
-    me = distributed.process_index()
-    mine = sum(int(r) == me for r in np.asarray(mesh.ranks).flat)
-    if mine != 1 or int(mesh.shape[mesh_lib.MODEL_AXIS]) > 1:
-        raise NotImplementedError(
-            f"a fit on mesh {mesh.shape} gives rank {me} {mine} slots; in a "
-            f"process group each rank holds one slot (a data axis of the "
-            f"group's ranks, model axis 1; ROADMAP.md §C)")
 
 
 # one optimizer factory per zero-argument factory, pinned with it so that
@@ -904,16 +915,19 @@ def step_mode(device: torch.device, optimizer: torch.optim.Optimizer,
         return "eager", (f"the mesh spans {cards} cards: a captured graph "
                          f"holds one card's work, and the data groups' "
                          f"gradients meet across the cards inside the step")
+    pc = distributed.process_count()
     if groups > 1 and with_stats:
-        return "eager", (f"batch statistics over {groups} data groups: "
+        return "eager", (f"batch statistics over {groups} data groups"
+                         f"{f' of each of {pc} ranks' if pc > 1 else ''}: "
                          f"their sums meet between the groups' threads "
-                         f"inside the forward")
+                         f"inside the forward"
+                         f"{', then across the ranks' if pc > 1 else ''}")
     if shared:
         return "eager", ("another fit runs on this card at once "
                          "(fitMultiple's mesh slices): a capture would share "
                          "its side stream")
     mode = "captured"
-    if distributed.process_count() > 1:
+    if pc > 1:
         if with_stats:
             return "eager", ("batch statistics in a process group: their "
                              "all-reduce runs inside the forward")
@@ -1201,37 +1215,36 @@ def _host(tree):
 
 def resolve_fit_mesh(mesh=None, device: DeviceLike = None):
     """The mesh a fit runs on: ``mesh`` when given; in a process group
-    :func:`~.mesh.get_mesh` (one slot per rank); in one process the one
-    device ``device`` names, or with no ``device`` the default mesh, as
-    JAX's is (:func:`~.mesh.get_mesh`: every visible card, the CPU, or
-    the one card the default device names).  Every slot of this process
-    is resolved, so a CUDA slot without a card raises ``RuntimeError``;
-    in a group a rank with several slots raises ``NotImplementedError``."""
+    :func:`~.mesh.get_mesh` (every rank's slots, rank-major); in one
+    process the one device ``device`` names, or with no ``device`` the
+    default mesh, as JAX's is (:func:`~.mesh.get_mesh`: every visible
+    card, the CPU, or the one card the default device names).  This
+    process's rows (:func:`~.mesh.local_rows`) are checked and each of
+    their slots resolved, so a CUDA slot without a card raises
+    ``RuntimeError`` and a row whose slots span ranks
+    ``NotImplementedError``."""
     pc = distributed.process_count()
     if mesh is None:
         mesh = (mesh_lib.get_mesh() if pc > 1 or device is None
                 else mesh_lib.get_mesh(devices=[resolve_device(device)]))
-    if pc > 1:
-        _one_slot_per_rank(mesh)
-    else:
-        for d in mesh.devices.flat:
-            resolve_device(d)
+    for d in mesh_lib.local_rows(mesh).devices.flat:
+        resolve_device(d)
     return mesh
 
 
 def group_devices(mesh) -> List[torch.device]:
-    """The device each data group of a fit on ``mesh`` runs its rows on
-    (its first slot), in group order; in a process group, this rank's
-    one device."""
-    if distributed.process_count() > 1:
-        return [resolve_device()]
-    return [resolve_device(mesh.devices[g][0])
-            for g in range(int(mesh.shape[mesh_lib.DATA_AXIS]))]
+    """The device each of this process's data groups of a fit on ``mesh``
+    runs its rows on (its first slot), in group order: every group in one
+    process, this rank's own in a process group."""
+    local = mesh_lib.local_rows(mesh)
+    return [resolve_device(local.devices[g][0])
+            for g in range(int(local.shape[mesh_lib.DATA_AXIS]))]
 
 
 def _fit_mesh(mesh, batch_size: int, device: DeviceLike
               ) -> Tuple[Any, int, int]:
-    """(mesh, data-axis size, global batch rounded up to it)."""
+    """(mesh, data-axis size over every rank, global batch rounded up to
+    it)."""
     mesh = resolve_fit_mesh(mesh, device)
     dp = int(mesh.shape[mesh_lib.DATA_AXIS])
     if batch_size % dp:
@@ -1250,7 +1263,7 @@ _ACTIVE_FITS: Dict[str, int] = {}
 
 def _fit(predict_fn: Callable, params, epoch_batches: Callable[[int], Iterable],
          no_rows: str, epoch_steps: Optional[int], *, optimizer, loss,
-         epochs: int, device: DeviceLike, mesh,
+         epochs: int, mesh,
          checkpoint_dir: Optional[str], checkpoint_every_epochs: int,
          metrics: Optional[Metrics], train_fn: Optional[Callable], stats,
          steps_per_execution: int, generators: Sequence = ()
@@ -1259,9 +1272,9 @@ def _fit(predict_fn: Callable, params, epoch_batches: Callable[[int], Iterable],
     rank's (x, y) host batches of the epoch, ``epoch_steps`` of them when
     known up front (None: a stream's own length); ``no_rows`` is the
     ``ValueError`` an epoch without a batch raises.  ``mesh`` is resolved
-    (:func:`_fit_mesh`).  See :func:`fit_data_parallel` for the rest."""
-    dev = (resolve_device(mesh.devices.flat[0])
-           if distributed.process_count() == 1 else resolve_device(device))
+    (:func:`_fit_mesh`); the fit's tensors start on this process's first
+    slot.  See :func:`fit_data_parallel` for the rest."""
+    dev = resolve_device(mesh_lib.local_rows(mesh).devices.flat[0])
     make_opt = _resolve_optimizer(optimizer)
     with_stats = train_fn is not None
     tensors = _tree_map(lambda v: _leaf(v, dev, True), params)
@@ -1363,20 +1376,21 @@ def fit_data_parallel(predict_fn: Callable, params, x: np.ndarray,
     """Fit ``params`` (nested dicts of host arrays or tensors; tensors are
     copied, never trained in place) on (x, y) with data-parallel steps over
     ``mesh`` (default :func:`resolve_fit_mesh`: the default mesh of every
-    visible card, as JAX's; the one ``device`` names; one slot per rank
-    of a process group).  On a mesh of several slots in one process each
-    global batch is split over the data groups in contiguous rows and the
-    groups' gradients are averaged before one update (:class:`TrainStep`);
-    every weight is held whole, as JAX's fit holds it replicated.
+    visible card, as JAX's; the one ``device`` names; every rank's slots
+    in a process group).  On a mesh of several slots each global batch
+    is split over the data groups in contiguous rows (in a group, each
+    rank's rows over its own groups) and the groups' gradients are
+    averaged before one update (:class:`TrainStep`); every weight is held
+    whole, as JAX's fit holds it replicated.
 
     ``predict_fn(params, x) -> pred`` on tensors; ``loss(pred, y) -> [B]``
     (a name from :data:`LOSSES` or a callable); ``optimizer``: a factory
     ``params -> torch.optim.Optimizer``, a zero-argument factory returning
     one, or None (Adam at lr 1e-3, as JAX's default).  ``batch_size`` is
-    the global batch, rounded up to the data axis; in one process it is
-    clamped to the rows.  In a process group, (x, y) are THIS rank's
-    shard (:func:`.distributed.shard_files`) and the module docstring's
-    global-batch rules apply.  ``steps_per_execution`` steps run per
+    the global batch, rounded up to the data axis (every rank's groups); in
+    one process it is clamped to the rows.  In a process group, (x, y) are
+    THIS rank's shard (:func:`.distributed.shard_files`) and the module
+    docstring's global-batch rules apply.  ``steps_per_execution`` steps run per
     replay and loss fetch, with the same loss series as 1.
 
     With ``train_fn`` + ``stats`` (a tree of BatchNorm statistics),
@@ -1418,7 +1432,7 @@ def fit_data_parallel(predict_fn: Callable, params, x: np.ndarray,
         "fit produced no batches (zero-row dataset?)",
         steps_per_epoch if steps_per_epoch is not None
         else -(-x.shape[0] // batch_size),
-        optimizer=optimizer, loss=loss, epochs=epochs, device=device,
+        optimizer=optimizer, loss=loss, epochs=epochs,
         mesh=mesh, checkpoint_dir=checkpoint_dir,
         checkpoint_every_epochs=checkpoint_every_epochs, metrics=metrics,
         train_fn=train_fn, stats=stats,
@@ -1500,7 +1514,7 @@ def fit_data_parallel_stream(predict_fn: Callable, params,
         lambda epoch: _stream_epoch_batches(epoch_chunks(), batch_size,
                                             num_steps=steps_per_epoch),
         "epoch_source yielded no rows", steps_per_epoch,
-        optimizer=optimizer, loss=loss, epochs=epochs, device=device,
+        optimizer=optimizer, loss=loss, epochs=epochs,
         mesh=mesh, checkpoint_dir=checkpoint_dir,
         checkpoint_every_epochs=checkpoint_every_epochs, metrics=metrics,
         train_fn=train_fn, stats=stats,

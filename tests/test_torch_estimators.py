@@ -144,8 +144,9 @@ def test_fit_raises_on_parts_not_ported(blobs, monkeypatch):
     fits on a mesh of several slots were not ported.)  Both fits take
     ``mesh=``: this process's mesh fits as no mesh does; a mesh of two
     slots in one process and a weight spec that really splits now fit,
-    and match the one-device fit; in a process group a rank with several
-    slots raises, and the stream fit requires ``steps_per_epoch`` before
+    and match the one-device fit; in a process group a model axis across
+    the ranks raises, a rank's data groups are its own rows of the
+    group's mesh, and the stream fit requires ``steps_per_epoch`` before
     any collective."""
     from sparkdl_tpu_torch.parallel import mesh as mesh_lib
 
@@ -201,10 +202,19 @@ def test_fit_raises_on_parts_not_ported(blobs, monkeypatch):
                             lambda: True)
         monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
         monkeypatch.setattr(torch.distributed, "get_rank", lambda: 0)
-        with pytest.raises(NotImplementedError, match="each rank holds one"):
+        # a model axis across the ranks (one slot a rank, model 2)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §C"):
             train.fit_data_parallel(
                 predict, {"w": w}, x, y,
-                mesh=mesh_lib.get_mesh(devices=["cpu", "cpu"]), **kw)
+                mesh=mesh_lib.get_mesh(model_parallel=2), **kw)
+        # two slots a rank: the fit's mesh spans both ranks, and this
+        # rank's data groups are its own two rows
+        cpu = torch.device("cpu")
+        four = mesh_lib.Mesh(np.full((4, 1), cpu, dtype=object),
+                             ranks=[0, 0, 1, 1])
+        assert train.resolve_fit_mesh(four) is four
+        assert train.group_devices(four) == [cpu, cpu]
+        assert mesh_lib.local_rows(four).shape == {"data": 2, "model": 1}
         with pytest.raises(ValueError, match="requires steps_per_epoch"):
             train.fit_data_parallel_stream(predict, {"w": w},
                                            lambda: iter([(x, y)]), **kw)
