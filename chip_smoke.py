@@ -6865,11 +6865,12 @@ print(json.dumps(out))
 """
 
 
-def _train_ranks(base, world=2, child=None, tag="train"):
+def _train_ranks(base, world=2, child=None, tag="train", timeout=None):
     """Run the ranks of a group fit over gloo on this card (``child``: the
     rank's code, default _TRAIN_CHILD's fits); returns their JSON results.
-    A rank that exits non-zero or outlives TRAIN_CHILD_TIMEOUT_S (then
-    killed) fails the phase and the run."""
+    A rank that exits non-zero or outlives ``timeout`` (default
+    TRAIN_CHILD_TIMEOUT_S; then killed) fails the phase and the run."""
+    timeout = timeout or TRAIN_CHILD_TIMEOUT_S
     import socket
 
     with socket.socket() as s:
@@ -6885,14 +6886,13 @@ def _train_ranks(base, world=2, child=None, tag="train"):
                 cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         results = []
-        deadline = time.monotonic() + TRAIN_CHILD_TIMEOUT_S
+        deadline = time.monotonic() + timeout
         for r, p in enumerate(procs):
             try:
                 stdout, stderr = p.communicate(
                     timeout=max(1.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
-                fail(f"[{tag}] rank {r} outlived {TRAIN_CHILD_TIMEOUT_S}s "
-                     f"and was killed")
+                fail(f"[{tag}] rank {r} outlived {timeout}s and was killed")
             check(p.returncode == 0, f"[{tag}] rank {r} exited "
                                      f"{p.returncode}: {stderr[-3000:]}")
             results.append(json.loads(stdout.strip().splitlines()[-1]))
@@ -7928,12 +7928,17 @@ class _Collectives:
     this process (the fits' flat buffers and the BatchNorms' sums, forward
     and backward) by calls, bytes and host seconds inside the call (gloo's
     all-reduce of a CUDA tensor returns once it is done: its copies to
-    and from the host included) (instrumentation of this script)."""
+    and from the host included); ``scalar_calls`` / ``scalar_seconds``
+    count the one-element ones (a loss of another type than the
+    gradients, reduced beside their buffer) (instrumentation of this
+    script)."""
 
     def __enter__(self):
         self.calls = 0
         self.bytes = 0
         self.seconds = 0.0
+        self.scalar_calls = 0
+        self.scalar_seconds = 0.0
         self._saved = torch.distributed.all_reduce
         real = self._saved
 
@@ -7944,7 +7949,11 @@ class _Collectives:
             try:
                 return real(tensor, *a, **k)
             finally:
-                self.seconds += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                self.seconds += dt
+                if tensor.numel() == 1:
+                    self.scalar_calls += 1
+                    self.scalar_seconds += dt
 
         torch.distributed.all_reduce = counted
         return self
@@ -8151,7 +8160,9 @@ def _ranks_stats(rank, world, base, modes):
                 if k.endswith(("running_mean", "running_var"))})
     return dict(modes=modes[first:], groups=m.gauges.get("train.data_groups"),
                 steps=m.counters.get("train.steps"), fit_s=fit_s,
-                reduce_calls=coll.calls, reduce_bytes=coll.bytes)
+                reduce_calls=coll.calls, reduce_bytes=coll.bytes,
+                loss_calls=coll.scalar_calls,
+                loss_ms=coll.scalar_seconds * 1e3)
 
 
 def _train_ranks_child(rank, world, port, base):
@@ -8507,18 +8518,22 @@ def phase_train_ranks(sepconv, split_refs=None):
         moved = any(not torch.equal(got[0][k], before[k]) for k in stat_keys)
         stats = [r["stats"] for r in ranks]
         bn_calls = [s["reduce_calls"] for s in stats]
-        # float32 all-reduces: the flat buffer (every parameter's gradient
-        # and the loss) once, and each BatchNorm's (sum, sum of squares,
-        # count) forward and backward
+        # all-reduces: the float32 flat buffer (every parameter's
+        # gradient) once, the loss at its own type (float64: the one-hot
+        # labels are float64) in one element of its own, and each
+        # BatchNorm's float32 (sum, sum of squares, count) forward and
+        # backward
         bns = [m for m in zoo.modules()
                if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
-        want_bytes = 4 * (sum(p.numel() for p in zoo.parameters()) + 1
-                          + 2 * sum(2 * m.num_features + 1 for m in bns))
+        want_calls = 2 + 2 * len(bns)
+        want_bytes = 8 + 4 * (sum(p.numel() for p in zoo.parameters())
+                              + 2 * sum(2 * m.num_features + 1 for m in bns))
         expect(srel <= TUNING_STATS_TOL and same and moved
                and all(s["groups"] == float(TRAIN_RANKS_SLOTS)
                        and s["modes"] and s["modes"][0][0] == "eager"
                        and "ranks" in s["modes"][0][1]
-                       and s["reduce_calls"] == 1 + 2 * len(bns)
+                       and s["reduce_calls"] == want_calls
+                       and s["loss_calls"] == 1
                        and s["reduce_bytes"] == want_bytes for s in stats),
                f"[{tag}] (c) trainBatchStats on dp4 over two ranks: "
                f"statistics rel err {srel:.4g} vs one process (tol "
@@ -8526,7 +8541,7 @@ def phase_train_ranks(sepconv, split_refs=None):
                f"{moved}, groups {[s['groups'] for s in stats]}, modes "
                f"{[s['modes'] for s in stats]}, all-reduces "
                f"{[(s['reduce_calls'], s['reduce_bytes']) for s in stats]} "
-               f"(want {1 + 2 * len(bns)} of {want_bytes} B)")
+               f"(want {want_calls} of {want_bytes} B)")
         print(f"[{tag}] (c) trainBatchStats=True on the zoo's InceptionV3 "
               f"(one step of {n} rows: {n // world} a rank, "
               f"{n // world // TRAIN_RANKS_SLOTS} a group): "
@@ -8535,13 +8550,16 @@ def phase_train_ranks(sepconv, split_refs=None):
               f"bit for bit {same}; mode {stats[0]['modes']}; fit "
               f"{[round(s['fit_s'], 2) for s in stats]} s a rank vs one "
               f"process {one_s:.2f} s; gloo all-reduces {bn_calls} "
-              f"({stats[0]['reduce_bytes']} B: the flat buffer and each "
+              f"({stats[0]['reduce_bytes']} B: the flat buffer, the "
+              f"float64 loss beside it ({stats[0]['loss_ms']:.2f} / "
+              f"{stats[1]['loss_ms']:.2f} ms on the host) and each "
               f"BatchNorm's sums, forward and backward) ({card})",
               flush=True)
         out["stats"] = dict(rel=srel, ranks_equal=same, modes=[
             s["modes"] for s in stats], fit_s=[s["fit_s"] for s in stats],
             one_process_s=one_s, reduce_calls=bn_calls,
-            reduce_bytes=stats[0]["reduce_bytes"])
+            reduce_bytes=stats[0]["reduce_bytes"],
+            loss_ms=[s["loss_ms"] for s in stats])
         del zoo, est, one
     counts = read_counts(sepconv)
     expect(counts == dict(sepconv=0, sepconv_tiled=0, mbconv=0),
@@ -8555,6 +8573,584 @@ def phase_train_ranks(sepconv, split_refs=None):
                         + " | ".join(problems))
     out["launches"] = dict(
         sepconv=sum(h["launches"]["sepconv"] for h in heads),
+        sepconv_tiled=0, mbconv=0)
+    return out
+
+
+MODEL_RANKS_STATS_MODEL = "InceptionV3"  # (f): the zoo model whose every
+#                                          conv is split across the ranks
+MODEL_RANKS_CHILD_TIMEOUT_S = 420        # a rank's (d), (f) and (e)
+
+
+_MODEL_RANKS_CHILD = """
+import json, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as c
+rank, world, port, base = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                           sys.argv[4])
+print(json.dumps(c._model_ranks_child(rank, world, port, base)))
+"""
+
+
+class _GroupTally:
+    """While entered, tallies the collectives of every
+    ``distributed.RankGroup`` of more than one rank by kind: ``gather``
+    (a split value all-gathered over its row group), ``input`` (the row
+    group's all-reduce of a split op's input gradient), ``grads`` (the
+    column group's all-reduce of the step's flat buffer) and ``bn`` (the
+    column group's all-reduce of a BatchNorm's sums): calls, bytes and
+    host seconds inside each call, staging included (instrumentation of
+    this script)."""
+
+    KINDS = ("gather", "input", "grads", "bn")
+
+    def __init__(self, row):
+        self.row = tuple(row)  # the ranks of this rank's row group
+
+    def __enter__(self):
+        from sparkdl_tpu_torch.parallel import distributed
+
+        self.tally = {k: [0, 0, 0.0] for k in self.KINDS}
+        cls = distributed.RankGroup
+        self._saved = (cls.all_gather, cls.all_reduce,
+                       cls.differentiable_all_reduce)
+        gather, reduce, bn = self._saved
+        tally = self.tally
+
+        def timed(kind, fn, nbytes):
+            def run(group, t):
+                if group.size == 1:
+                    return fn(group, t)
+                t0 = time.perf_counter()
+                try:
+                    return fn(group, t)
+                finally:
+                    row = tally[kind(group) if callable(kind) else kind]
+                    row[0] += 1
+                    row[1] += nbytes(group, t)
+                    row[2] += time.perf_counter() - t0
+            return run
+
+        size = lambda g, t: t.numel() * t.element_size()  # noqa: E731
+        cls.all_gather = timed("gather", gather,
+                               lambda g, t: size(g, t) * g.size)
+        # a row group's all-reduce is an input gradient's, a column
+        # group's the step's flat buffer (or its loss)
+        cls.all_reduce = timed(
+            lambda g: "input" if g.ranks == self.row else "grads", reduce,
+            size)
+        cls.differentiable_all_reduce = timed("bn", bn, size)
+        return self
+
+    def __exit__(self, *exc):
+        from sparkdl_tpu_torch.parallel import distributed
+
+        cls = distributed.RankGroup
+        (cls.all_gather, cls.all_reduce,
+         cls.differentiable_all_reduce) = self._saved
+
+    def per_step(self, steps):
+        return {k: dict(calls=v[0] / steps, bytes=v[1] / steps,
+                        host_ms=v[2] / steps * 1e3)
+                for k, v in self.tally.items()}
+
+
+def _xception_head():
+    """(d)-(e)'s model: config 5's head (its ``predictions`` weight and
+    bias, 1000 x 2048, as [train_mesh] (c) splits it) over the features
+    of the zoo Xception at 299x299, frozen (B1 30 a forward): (the head's
+    tensors by name, predict)."""
+    import torch.nn.functional as F
+
+    from sparkdl_tpu_torch.models import load_model
+
+    module, params_all, _ = _train_model_per_device()
+    names = [n for n in sorted(params_all)
+             if re.search(r"predictions\.(weight|bias)$", n)]
+    head = {n: params_all[n].detach().clone() for n in names}
+    del module, params_all
+    xc = load_model("Xception", weights=None).cuda().eval()
+    xc.requires_grad_(False)
+    w, b = names[1], names[0]  # "...weight" sorts after "...bias"
+
+    def predict(p, x):
+        with torch.no_grad():  # B1's bf16 features, widened for the head
+            f = xc(x, features=True).float()
+        return torch.softmax(F.linear(f, p[w], p[b]), dim=-1)
+
+    return head, predict
+
+
+def _xhead_steps(step, x, y, steps=None):
+    """Drive ``step`` over TRAIN_MESH_SPLIT_STEPS global batches of
+    TUNING_BATCH rows (every rank of a row the same rows): (losses, ms a
+    step with the first, after the first)."""
+    steps = steps or TRAIN_MESH_SPLIT_STEPS
+    losses = []
+    torch.cuda.synchronize()
+    t0 = t1 = time.perf_counter()
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        off = (i * TUNING_BATCH) % len(x)
+        losses.append(step(torch.from_numpy(x[off:off + TUNING_BATCH]).cuda(),
+                           torch.from_numpy(y[off:off + TUNING_BATCH]).cuda()))
+    losses = torch.stack(losses).cpu().numpy()
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    return (losses, (end - t0) / steps * 1e3,
+            (end - t1) / max(1, steps - 1) * 1e3)
+
+
+def _xhead_one_process(x, y):
+    """(d)-(e)'s references in one process, on the same global batches:
+    the head split over two slots of the card (dp1 x tp2) and replicated
+    on one device, SGD and Adam: {(optimizer, layout): (fitted, losses, ms,
+    warm ms)} and the head's first values."""
+    from sparkdl_tpu_torch.param.converters import NamedOptimizer
+    from sparkdl_tpu_torch.parallel import train
+    from sparkdl_tpu_torch.parallel.mesh import P, get_mesh
+
+    head, predict = _xception_head()
+    names = sorted(head)
+    out = {"init": {k: v.detach().cpu() for k, v in head.items()}}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for opt_name in ("sgd", "adam"):
+            for layout, mesh in (
+                    ("dp1xtp2", get_mesh(devices=[MESH_DEVICE] * 2,
+                                         model_parallel=2)),
+                    ("replicated", None)):
+                params = {k: v.detach().clone().requires_grad_()
+                          for k, v in head.items()}
+                opt = NamedOptimizer(opt_name)([params[k] for k in names])
+                step = train.make_train_step(
+                    predict, "categorical_crossentropy", opt, params,
+                    mesh=mesh, param_specs=None if mesh is None else (
+                        lambda path, leaf: P("model")))
+                losses, ms, warm = _xhead_steps(step, x, y)
+                out[(opt_name, layout)] = dict(
+                    fitted={k: torch.from_numpy(v) for k, v in
+                            step.host_params().items()},
+                    losses=losses, ms=ms, warm_ms=warm)
+                del step, opt, params
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def _mr_head(sepconv, rank, base, model_parallel, tag):
+    """(d) / (e) in a rank: config 5's head split over
+    ``get_mesh(model_parallel=...)`` of the group (one row over both
+    ranks), the Xception featurizer in every forward, SGD and Adam; the
+    fitted head saved for the parent."""
+    from sparkdl_tpu_torch.param.converters import NamedOptimizer
+    from sparkdl_tpu_torch.parallel import mesh as mesh_lib
+    from sparkdl_tpu_torch.parallel import train
+
+    data = np.load(os.path.join(base, "data.npz"))
+    x, y = data["x"], data["y"]
+    head, predict = _xception_head()
+    names = sorted(head)
+    mesh = mesh_lib.get_mesh(model_parallel=model_parallel)
+    out = dict(mesh=mesh.shape, ranks=mesh.ranks.tolist())
+    torch.backends.cudnn.deterministic = True
+    try:
+        for opt_name in ("sgd", "adam"):
+            params = {k: v.detach().clone().requires_grad_()
+                      for k, v in head.items()}
+            opt = NamedOptimizer(opt_name)([params[k] for k in names])
+            step = train.make_train_step(
+                predict, "categorical_crossentropy", opt, params, mesh=mesh,
+                param_specs=lambda path, leaf: mesh_lib.P("model"))
+            lay = step.layout()
+            with _GroupTally(lay["row"]) as coll:
+                reset_counts(sepconv)
+                losses, ms, warm = _xhead_steps(step, x, y)
+                counts = read_counts(sepconv)
+            np.savez(os.path.join(base, f"{tag}_{opt_name}_{rank}.npz"),
+                     **step.host_params())
+            w = step.tree[names[1]]
+            out[opt_name] = dict(
+                losses=losses.tolist(), ms=ms, warm_ms=warm,
+                launches=counts, layout=lay,
+                mode=list(train.step_mode(
+                    torch.device("cuda"), opt, False, row=lay["row"],
+                    column=lay["column"])),
+                shards=[[str(s.device), list(s.shape)] for s in w.shards],
+                moments=([list(opt.state[s]["mu"].shape) for s in w.shards]
+                         if opt_name == "adam" else None),
+                collectives=coll.per_step(TRAIN_MESH_SPLIT_STEPS))
+            del step, opt, params
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def _mr_stats_model():
+    """(f)'s model: the zoo's MODEL_RANKS_STATS_MODEL, its train-mode
+    apply with BatchNorm statistics (the estimator's trainBatchStats
+    route): (module on the card, params, stats, train_fn)."""
+    from sparkdl_tpu_torch.graph.function import (ModelFunction, apply_with,
+                                                  batch_stat_names)
+    from sparkdl_tpu_torch.models import load_model
+
+    mf = ModelFunction.from_module(load_model(MODEL_RANKS_STATS_MODEL,
+                                              weights=None))
+    module = copy.deepcopy(mf.module).cuda()
+    tensors = dict(module.named_parameters())
+    tensors.update(module.named_buffers())
+    stat_names = batch_stat_names(module)
+    params = {n: t.detach().clone().requires_grad_()
+              for n, t in module.named_parameters()}
+    stats = {n: tensors[n].detach().clone() for n in stat_names}
+
+    def train_fn(v, x):
+        return apply_with(mf.train_fn, module,
+                          {**v["params"], **v["batch_stats"]}, x)
+
+    return module, params, stats, train_fn
+
+
+def _mr_stats_step(mesh, rows):
+    """One trainBatchStats step (SGD) of (f)'s model under the default
+    partition rules on ``mesh`` over ``rows`` images: (params, stats, ms,
+    the step, its split leaves)."""
+    from sparkdl_tpu_torch.param.converters import NamedOptimizer
+    from sparkdl_tpu_torch.parallel import mesh as mesh_lib
+    from sparkdl_tpu_torch.parallel import train
+
+    module, params, stats, train_fn = _mr_stats_model()
+    _, by_name = mesh_lib.resolve_param_shardings(module, mesh)
+    specs = {n: by_name[n] for n in params}
+    ref = {"batch_stats": stats}
+    step = train.make_train_step_with_stats(
+        train_fn, "categorical_crossentropy",
+        NamedOptimizer("sgd")(list(params.values())), params, ref,
+        mesh=mesh, param_specs=specs)
+    split = sum(not mesh_lib.spec_is_replicated(s) for s in specs.values())
+    x, y = rows
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = {k: v.detach().cpu() for k, v in ref["batch_stats"].items()}
+    return got, ms, step, split
+
+
+def _mr_stats(rank, base):
+    """(f) in a rank: one trainBatchStats step with every conv of the
+    zoo model split across the two ranks (dp1 x tp2); its running
+    statistics saved for the parent."""
+    from sparkdl_tpu_torch.parallel import mesh as mesh_lib
+    from sparkdl_tpu_torch.parallel import train
+
+    data = np.load(os.path.join(base, "stats_rows.npz"))
+    mesh = mesh_lib.get_mesh(model_parallel=2)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with _GroupTally(mesh_lib.local_rows(mesh).row_ranks[0]) as coll:
+            t0 = time.perf_counter()
+            stats, ms, step, split = _mr_stats_step(
+                mesh, (data["x"], data["y"]))
+            wall = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    lay = step.layout()
+    np.savez(os.path.join(base, f"f_stats_{rank}.npz"),
+             **{k: v.numpy() for k, v in stats.items()})
+    first = sorted(lay["split"])[0]
+    out = dict(model=MODEL_RANKS_STATS_MODEL, mesh=mesh.shape, ms=ms,
+               wall_s=wall, split_leaves=split, row=lay["row"],
+               column=lay["column"], example=[first, lay["split"][first]],
+               mode=list(train.step_mode(
+                   torch.device("cuda"), step.optimizer, True,
+                   row=lay["row"], column=lay["column"])),
+               collectives=coll.per_step(1))
+    del step
+    return out
+
+
+def _model_ranks_child(rank, world, port, base):
+    """One rank of [model_ranks]: a group of one slot a rank for (d) and
+    (f) and the fits' refusal, then a group of two slots a rank (the port
+    in ``base``'s ports.json) for (e)."""
+    from sparkdl_tpu_torch.ops import sepconv
+    from sparkdl_tpu_torch.parallel import distributed, train
+    from sparkdl_tpu_torch.parallel import mesh as mesh_lib
+
+    with open(os.path.join(base, "ports.json")) as fh:
+        port2 = json.load(fh)["second"]
+    distributed.initialize(f"localhost:{port}", world, rank, backend="gloo")
+    out = dict(rank=rank, backend=distributed.backend(),
+               modules=sorted(m for m in ("jax", "sparkdl_tpu")
+                              if m in sys.modules))
+    t0 = time.perf_counter()
+    out["d"] = _mr_head(sepconv, rank, base, 2, "d")
+    out["d_s"] = time.perf_counter() - t0
+    try:
+        rng = np.random.default_rng(SEED + 271)
+        train.fit_data_parallel(
+            lambda p, xb: xb @ p["w"], {"w": np.zeros((4, 2), np.float32)},
+            rng.normal(size=(8, 4)).astype(np.float32),
+            np.arange(8) % 2, loss=train.softmax_cross_entropy,
+            mesh=mesh_lib.get_mesh(model_parallel=2))
+        out["refusal"] = None
+    except NotImplementedError as e:
+        out["refusal"] = str(e)
+    t0 = time.perf_counter()
+    out["f"] = _mr_stats(rank, base)
+    out["f_s"] = time.perf_counter() - t0
+    distributed.shutdown()
+    distributed.initialize(f"localhost:{port2}", world, rank,
+                           backend="gloo", local_slots=[MESH_DEVICE] * 2)
+    t0 = time.perf_counter()
+    out["e"] = _mr_head(sepconv, rank, base, 4, "e")
+    out["e_s"] = time.perf_counter() - t0
+    distributed.shutdown()
+    return out
+
+
+def phase_model_ranks(sepconv):
+    """[model_ranks]: a model axis that spans ranks.  Two ranks over gloo
+    (``python -c _MODEL_RANKS_CHILD`` children) sharing the card, f32
+    with TF32 off, cuDNN deterministic; each rank of a row passes the
+    same rows:
+
+      (d) config 5's head (its ``predictions`` weight, 1000 x 2048, and
+          bias) split across two ranks of one slot (dp1 x tp2, one row
+          over both), over the frozen Xception featurizer at 299x299 (B1
+          30 a forward, counted in each rank), SGD and Adam for
+          TRAIN_MESH_SPLIT_STEPS steps of TUNING_BATCH rows: the ranks'
+          losses and heads within TUNING_UPDATE_TOL of one process's dp1
+          x tp2 step on two slots of the card, the ranks bit for bit;
+      (e) the same head over two ranks of two slots (dp1 x tp4, two
+          shards a rank), held to the replicated one-device step;
+      (f) trainBatchStats on the zoo's MODEL_RANKS_STATS_MODEL under the
+          default rules (every conv split across the two ranks), one step
+          of TRAIN_MESH_STATS_ROWS images: the running statistics within
+          TUNING_STATS_TOL of one process's dp1 x tp2 step, the ranks bit
+          for bit;
+    and ``fit_data_parallel`` on (d)'s mesh raises, naming JAX's replica
+    contract.  Each rank's mesh, shards and owners, row and column
+    groups, step mode and reason, ms a step beside one process's, and
+    each collective's calls, bytes and host ms a step are printed."""
+    import socket
+    import tempfile
+
+    from sparkdl_tpu_torch.parallel.mesh import get_mesh
+
+    tag = "model_ranks"
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    out = dict(card=card)
+    problems = []
+
+    def expect(cond, msg):
+        if not cond:
+            print(f"FAIL (at the phase's end): {msg}", flush=True)
+            problems.append(msg)
+
+    t_phase = time.perf_counter()
+    world = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, labels = _tuning_files(os.path.join(tmp, "images"))
+        x = np.stack([load_inception_v3(p) for p in paths])
+        y = np.eye(1000, dtype=np.float32)[labels]
+        base = os.path.join(tmp, "ranks")
+        os.makedirs(base)
+        n = TRAIN_MESH_STATS_ROWS
+        np.savez(os.path.join(base, "data.npz"), x=x, y=y)
+        np.savez(os.path.join(base, "stats_rows.npz"), x=x[:n], y=y[:n])
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            with open(os.path.join(base, "ports.json"), "w") as fh:
+                json.dump({"second": s.getsockname()[1]}, fh)
+        reset_counts(sepconv)
+        t0 = time.perf_counter()
+        refs = _xhead_one_process(x, y)
+        out["refs_s"] = time.perf_counter() - t0
+        parent_b1 = read_counts(sepconv)["sepconv"]
+        t0 = time.perf_counter()
+        torch.backends.cudnn.deterministic = True
+        try:
+            before = {k: v.cpu() for k, v in _mr_stats_model()[2].items()}
+            one_stats, one_ms, one_step, _ = _mr_stats_step(
+                get_mesh(devices=[MESH_DEVICE] * 2, model_parallel=2),
+                (x[:n], y[:n]))
+            del one_step
+        finally:
+            torch.backends.cudnn.deterministic = False
+        out["stats_ref_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = _train_ranks(base, world, _MODEL_RANKS_CHILD, tag,
+                             MODEL_RANKS_CHILD_TIMEOUT_S)
+        out["ranks_s"] = time.perf_counter() - t0
+        expect(all(r["backend"] == "gloo" and r["modules"] == []
+                   for r in ranks),
+               f"[{tag}] ranks (backend, modules): "
+               f"{[(r['backend'], r['modules']) for r in ranks]}")
+
+        init = refs["init"]
+        zero = {k: torch.zeros(()) for k in init}
+        for part, ref_layout, shards in (("d", "dp1xtp2", 1),
+                                         ("e", "replicated", 2)):
+            res = {}
+            for opt_name in ("sgd", "adam"):
+                fits = [{k: torch.from_numpy(v) for k, v in np.load(
+                    os.path.join(base, f"{part}_{opt_name}_{r}.npz")).items()}
+                    for r in range(world)]
+                recs = [r[part][opt_name] for r in ranks]
+                ref = refs[(opt_name, ref_layout)]
+                losses = np.asarray(recs[0]["losses"])
+                loss_rel = float(np.max(np.abs(losses - ref["losses"])
+                                        / np.abs(ref["losses"])))
+                upd_rel = _update_rel(ref["fitted"], fits[0], init)
+                agree = _update_rel(fits[0], fits[1], zero)
+                same_losses = recs[0]["losses"] == recs[1]["losses"]
+                want_b1 = SEPCONV_PER_FORWARD * TRAIN_MESH_SPLIT_STEPS
+                rows = [r["layout"]["row"] for r in recs]
+                cols = [r["layout"]["column"] for r in recs]
+                owners = [sorted(r["layout"]["split"].values(),
+                                 key=lambda v: v["local"])[0]["owners"]
+                          for r in recs]
+                coll = [r["collectives"] for r in recs]
+                expect(loss_rel <= TUNING_UPDATE_TOL
+                       and upd_rel <= TUNING_UPDATE_TOL and agree == 0.0
+                       and same_losses
+                       and all(rc["launches"] == dict(
+                           sepconv=want_b1, sepconv_tiled=0, mbconv=0)
+                               for rc in recs)
+                       and rows == [[0, 1], [0, 1]]
+                       and cols == [[0], [1]]
+                       and all(len(rc["shards"]) == shards for rc in recs)
+                       and all(rc["mode"][0] == "eager" for rc in recs)
+                       and all(c["grads"]["calls"] == 0
+                               and c["input"]["calls"] == 0
+                               and c["gather"]["calls"] > 0 for c in coll),
+                       f"[{tag}] ({part}) {opt_name}: loss rel err "
+                       f"{loss_rel:.4g}, update {upd_rel:.4g} vs one "
+                       f"process's {ref_layout} (tol {TUNING_UPDATE_TOL}); "
+                       f"ranks rel {agree:.3g}, losses equal {same_losses};"
+                       f" B1 {[rc['launches'] for rc in recs]} (want "
+                       f"{want_b1} a rank); rows {rows}, columns {cols}; "
+                       f"shards {[rc['shards'] for rc in recs]}; modes "
+                       f"{[rc['mode'][0] for rc in recs]}; collectives "
+                       f"{coll}")
+                for k, rc in enumerate(recs):
+                    print(f"[{tag}] ({part}) {opt_name} rank {k}: mesh "
+                          f"{ranks[0][part]['mesh']} ranks "
+                          f"{ranks[0][part]['ranks']}, shards "
+                          f"{rc['shards']} (owners {owners[k]}, this "
+                          f"rank's {rc['layout']['positions']}), row "
+                          f"group {rc['layout']['row']}, column group "
+                          f"{rc['layout']['column']}, mode {rc['mode'][0]}"
+                          f" ({rc['mode'][1]}); B1 {rc['launches']['sepconv']}"
+                          f" ({SEPCONV_PER_FORWARD} a forward); "
+                          f"Adam moments {rc['moments']}", flush=True)
+                    for kind, v in rc["collectives"].items():
+                        print(f"[{tag}] ({part}) {opt_name} rank {k} "
+                              f"collectives "
+                              f"{kind}: {v['calls']:.1f} calls, "
+                              f"{v['bytes']:.0f} B, {v['host_ms']:.2f} ms "
+                              f"on the host a step", flush=True)
+                print(f"[{tag}] ({part}) {opt_name}: config 5's head split "
+                      f"over {ranks[0][part]['mesh']} across the ranks vs "
+                      f"one process's {ref_layout}: loss rel err "
+                      f"{loss_rel:.3e}, update rel err {upd_rel:.3e}; "
+                      f"ranks rel {agree:.2e}; ms a step after the first "
+                      f"{recs[0]['warm_ms']:.1f} / {recs[1]['warm_ms']:.1f}"
+                      f" (with the first {recs[0]['ms']:.1f} / "
+                      f"{recs[1]['ms']:.1f}) vs one process "
+                      f"{ref['warm_ms']:.1f} ({ref['ms']:.1f}) ({card})",
+                      flush=True)
+                res[opt_name] = dict(
+                    loss_rel=loss_rel, update_rel=upd_rel, rank_rel=agree,
+                    warm_ms=[rc["warm_ms"] for rc in recs],
+                    ms=[rc["ms"] for rc in recs], one_process_ms=ref["ms"],
+                    one_process_warm_ms=ref["warm_ms"],
+                    launches=[rc["launches"] for rc in recs],
+                    collectives=coll[0])
+            out[part] = res
+
+        # (f) statistics through convs split across the ranks
+        got = [{k: torch.from_numpy(v) for k, v in np.load(os.path.join(
+            base, f"f_stats_{r}.npz")).items()} for r in range(world)]
+        keys = sorted(before)
+        srel = _update_rel({k: one_stats[k] for k in keys},
+                           {k: got[0][k] for k in keys}, before)
+        same = all(torch.equal(got[0][k], got[1][k]) for k in keys)
+        moved = any(not torch.equal(got[0][k], before[k]) for k in keys)
+        fs = [r["f"] for r in ranks]
+        expect(srel <= TUNING_STATS_TOL and same and moved
+               and all(f["mode"][0] == "eager" and f["row"] == [0, 1]
+                       and f["collectives"]["gather"]["calls"] > 0
+                       and f["collectives"]["input"]["calls"] > 0
+                       for f in fs),
+               f"[{tag}] (f) trainBatchStats across the ranks: statistics "
+               f"rel err {srel:.4g} vs one process's dp1 x tp2 (tol "
+               f"{TUNING_STATS_TOL}), ranks equal {same}, moved {moved}, "
+               f"modes {[f['mode'] for f in fs]}, collectives "
+               f"{[f['collectives'] for f in fs]}")
+        for k, f in enumerate(fs):
+            print(f"[{tag}] (f) rank {k}: {f['model']} on "
+                  f"{f['mesh']}, {f['split_leaves']} leaves split (e.g. "
+                  f"{f['example'][0]}: shards {f['example'][1]['shards']}, "
+                  f"owners {f['example'][1]['owners']}), row group "
+                  f"{f['row']}, column group {f['column']}, mode "
+                  f"{f['mode'][0]} ({f['mode'][1]})", flush=True)
+            for kind, v in f["collectives"].items():
+                print(f"[{tag}] (f) rank {k} collectives {kind}: "
+                      f"{v['calls']:.0f} calls, {v['bytes']:.0f} B, "
+                      f"{v['host_ms']:.1f} ms on the host a step",
+                      flush=True)
+        print(f"[{tag}] (f) trainBatchStats=True on the zoo's "
+              f"{MODEL_RANKS_STATS_MODEL}, every conv split across the two "
+              f"ranks, one step of {n} rows (each rank the same rows): "
+              f"{len(keys)} running statistics vs one process's dp1 x tp2 "
+              f"rel err {srel:.3e} (tol {TUNING_STATS_TOL}); ranks bit for "
+              f"bit {same}; a step {fs[0]['ms']:.0f} / {fs[1]['ms']:.0f} ms"
+              f" a rank vs one process {one_ms:.0f} ms ({card})",
+              flush=True)
+        out["f"] = dict(rel=srel, ranks_equal=same, model=fs[0]["model"],
+                        ms=[f["ms"] for f in fs], one_process_ms=one_ms,
+                        collectives=fs[0]["collectives"],
+                        split_leaves=fs[0]["split_leaves"])
+        refusals = [r["refusal"] for r in ranks]
+        expect(all(e is not None and "replica contract" in e
+                   and "ROADMAP.md §C" in e for e in refusals),
+               f"[{tag}] fit_data_parallel on dp1 x tp2 across the ranks: "
+               f"{refusals}")
+        print(f"[{tag}] fit_data_parallel on (d)'s mesh refuses on both "
+              f"ranks: {refusals[0]}", flush=True)
+        out["rank_s"] = [dict(d=r["d_s"], e=r["e_s"], f=r["f_s"])
+                         for r in ranks]
+    counts = read_counts(sepconv)
+    b1 = SEPCONV_PER_FORWARD * TRAIN_MESH_SPLIT_STEPS
+    expect(counts == dict(sepconv=parent_b1, sepconv_tiled=0, mbconv=0)
+           and parent_b1 == 4 * b1,
+           f"[{tag}] this process's launches {counts}: want B1 {4 * b1} "
+           f"(the four one-process references), none of B2-B3")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{tag}] phase {out['phase_s']:.1f}s (references "
+          f"{out['refs_s']:.1f}s + {out['stats_ref_s']:.1f}s, the ranks "
+          f"{out['ranks_s']:.1f}s: {out['rank_s']}) on {card}", flush=True)
+    check(not problems, f"[{tag}] {len(problems)} failed: "
+                        + " | ".join(problems))
+    out["launches"] = dict(
+        sepconv=sum(r["d"][o]["launches"]["sepconv"]
+                    + r["e"][o]["launches"]["sepconv"]
+                    for r in ranks for o in ("sgd", "adam")),
         sepconv_tiled=0, mbconv=0)
     return out
 
@@ -9775,6 +10371,10 @@ def main():
     pools["train_ranks"] = pool_line("[train_ranks]")
     print(json.dumps({"train_ranks": train_ranks}), flush=True)
     b1["train_ranks_launches"] = train_ranks["launches"]["sepconv"]
+    model_ranks = phase_model_ranks(sepconv)
+    pools["model_ranks"] = pool_line("[model_ranks]")
+    print(json.dumps({"model_ranks": model_ranks}), flush=True)
+    b1["model_ranks_launches"] = model_ranks["launches"]["sepconv"]
     twin_day = phase_twin(sepconv)
     pools["twin"] = pool_line("[twin]")
     print(json.dumps({"twin": twin_day}), flush=True)

@@ -108,8 +108,8 @@ class GroupSums:
     group (a group that raised will never arrive).
 
     ``cross`` (a differentiable sum across the ranks of a process group,
-    ``torch.distributed.nn.functional.all_reduce``) makes the sum the
-    group's as well: group 0 adds the parts in group order, then issues
+    ``torch.distributed.nn.functional.all_reduce``, over the column group
+    where a data row spans ranks) makes the sum the group's as well: group 0 adds the parts in group order, then issues
     the one collective of this rendezvous, so that one thread of the rank
     issues them, in the order of its calls, as every other rank does;
     the other groups read its result on their devices.  The gradient
@@ -190,7 +190,11 @@ def flax_batch_norm_train(bn: nn.modules.batchnorm._BatchNorm,
     :class:`GroupSums`) they are summed across the groups the same way;
     over the data groups of each rank of a group, across the rank's groups
     first, then across the ranks (a :class:`GroupSums` with ``cross``),
-    as JAX's one ``pmean`` over the whole data axis."""
+    as JAX's one ``pmean`` over the whole data axis.  Where a data row
+    spans ranks (a model axis across processes, ``parallel.train``), every
+    rank of the row computes the row's sums (a split conv's output is
+    gathered over the row first), so ``cross`` sums over the column group
+    only, one rank a row, not over every rank."""
     x, _ = promote(x, bn.running_mean)
     dims = [d for d in range(x.dim()) if d != 1]
     shape = [1, -1] + [1] * (x.dim() - 2)

@@ -24,11 +24,24 @@ and the group is no larger than the cards of this host), ``gloo``
 otherwise; ``backend=`` overrides.  NCCL refuses two ranks on one card,
 so ranks that share a card run over gloo, whose collectives on CUDA
 tensors stage them through the host.
+
+Sub-groups of a mesh (:func:`mesh_groups`): where a mesh's data row holds
+slots of several ranks, the ranks of a row form a *row group* (where a
+split weight's outputs are gathered and its inputs' gradients summed)
+and the ranks at the same place in every row a *column group* (where the
+gradients of the data rows meet).  ``torch.distributed.new_group`` is
+collective, so every rank builds every group of a layout at once, in one
+order, and keeps them (:func:`shutdown` destroys them).  A
+:class:`RankGroup`'s collectives: :meth:`RankGroup.all_reduce` (a sum, in
+place) and :meth:`RankGroup.all_gather` (each member's tensor, in rank
+order); under gloo a CUDA tensor is copied into a pinned host buffer,
+reduced or gathered there and copied back, so no collective depends on
+what gloo takes on the card; under nccl they run on the card.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -192,12 +205,121 @@ def global_slots(like: Optional[torch.device] = None
 
 
 def shutdown() -> None:
-    """Leave the process group (if this module joined one)."""
+    """Leave the process group (if this module joined one), destroying
+    the sub-groups :func:`mesh_groups` made first."""
     global _INITIALIZED, _SLOTS
+    if _group_up():
+        for pg in _MADE:
+            torch.distributed.destroy_process_group(pg)
+    _MADE.clear()
+    _LAYOUTS.clear()
     if _INITIALIZED and _group_up():
         torch.distributed.destroy_process_group()
     _INITIALIZED = False
     _SLOTS = None
+
+
+class RankGroup:
+    """The ranks ``ranks`` (ascending) of a process group that meet in a
+    collective: ``pg`` is their ``torch.distributed`` group (None: the
+    whole group; unused for one rank).  A group of one rank runs no
+    collective."""
+
+    def __init__(self, ranks: Sequence[int], pg=None):
+        self.ranks = tuple(int(r) for r in ranks)
+        self.pg = pg
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def __repr__(self) -> str:
+        return f"RankGroup({list(self.ranks)})"
+
+    def _staged(self, t: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+        """(the tensor the collective runs on, whether it is a host copy
+        of ``t``): a pinned host copy of a CUDA tensor under gloo."""
+        if t.is_cuda and backend() != "nccl":
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t)
+            return host, True
+        return t.contiguous(), False
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the group's ranks, in place; returns ``t``."""
+        if self.size == 1:
+            return t
+        buf, staged = self._staged(t)
+        torch.distributed.all_reduce(buf, group=self.pg)
+        if staged or buf is not t:
+            t.copy_(buf)
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Every member's ``t`` (the same shape and type on each), in the
+        order of :attr:`ranks`, on ``t``'s device."""
+        if self.size == 1:
+            return [t]
+        buf, staged = self._staged(t)
+        out = [torch.empty_like(buf) for _ in self.ranks]
+        torch.distributed.all_gather(out, buf, group=self.pg)
+        return [o.to(t.device) for o in out] if staged else out
+
+    def differentiable_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """A sum over the group through which autograd carries the
+        gradient back (``torch.distributed.nn``: its backward sums the
+        gradient over the same group); the tensor itself for one rank."""
+        if self.size == 1:
+            return t
+        from torch.distributed.nn.functional import all_reduce
+
+        kwargs = {} if self.pg is None else {"group": self.pg}
+        return all_reduce(t, **kwargs)
+
+
+# the sub-groups made that this rank is in, and the layouts they serve
+_MADE: list = []
+_LAYOUTS: Dict[tuple, Tuple[List[RankGroup], List[RankGroup]]] = {}
+
+
+def mesh_groups(ranks) -> Tuple[List[RankGroup], List[RankGroup]]:
+    """(row groups, column groups) of a mesh whose ``ranks`` grid
+    ([data, model]) names the owner of each slot, in a layout
+    ``mesh.local_rows`` accepts (every row over as many ranks): row
+    group g holds the ranks with slots in data row g; column group j
+    holds the j-th rank of every row (its rows' ranks in ascending
+    order), the ranks that hold the same model positions in different
+    rows, where the data rows' gradients meet.  Where every row lies within one rank, each row group
+    is that rank and the one column group is every rank of the mesh.
+
+    Collective: every rank of the process group calls it with the same
+    grid, at the same point (``new_group`` is called for every group of
+    more than one rank that is not the whole process group, including
+    groups this rank is not in, in one order).  The groups are kept per
+    layout until :func:`shutdown`."""
+    grid = np.asarray(ranks, np.int64)
+    key = tuple(map(tuple, grid.tolist()))
+    cached = _LAYOUTS.get(key)
+    if cached is not None:
+        return cached
+    rows = [sorted({int(r) for r in row}) for row in grid]
+    cols = [sorted({row[j] for row in rows}) for j in range(len(rows[0]))]
+    world = list(range(process_count()))
+    made: Dict[tuple, Any] = {}
+
+    def group(members: List[int]) -> RankGroup:
+        t = tuple(members)
+        if len(t) == 1 or list(t) == world:
+            return RankGroup(t, None)
+        if t not in made:
+            made[t] = torch.distributed.new_group(list(t))
+            if process_index() in t:
+                _MADE.append(made[t])
+        return RankGroup(t, made[t])
+
+    out = ([group(r) for r in rows], [group(c) for c in cols])
+    _LAYOUTS[key] = out
+    return out
 
 
 def process_index() -> int:
@@ -281,9 +403,12 @@ def put_sharded(sharding, data: Any, device: Optional[torch.device] = None):
     """This rank's LOCAL rows (a host array or a tree of them) as tensors
     on this rank's device (``device``, default
     :func:`sparkdl_tpu_torch.resolve_device`): the global batch is the
-    rows of every rank, in rank order, which the fits' collectives
-    combine.  ``sharding`` is taken for the JAX signature; the port puts
-    no batch on another rank's card."""
+    rows of every data row of the mesh, in row order, which the steps'
+    collectives combine.  Where a data row holds slots of several ranks,
+    the ranks of that row pass the SAME rows (JAX's replica contract for
+    ``make_array_from_process_local_data``: replicas hold identical local
+    data).  ``sharding`` is taken for the JAX signature; the port puts no
+    batch on another rank's card."""
     from sparkdl_tpu_torch import resolve_device
     from sparkdl_tpu_torch.parallel.engine import _tree_map
 

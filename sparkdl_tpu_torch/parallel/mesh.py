@@ -22,9 +22,10 @@ than once: each entry is a *slot*, so ``["cpu"] * 8`` stands in for JAX's
 8 virtual CPU devices and ``["cuda:0"] * k`` for k cards on one card.  An
 engine scores, and a fit trains, on a mesh of this process's devices (in
 one process a fit's default mesh is ``get_mesh()``, as JAX's is); in a
-group a fit's data axis spans the ranks and each rank's own rows, its
-model axis lies within a rank, and each rank runs its rows
-(:func:`local_rows`; ``parallel.train``).
+group a step's data axis spans the ranks and each rank's own rows, and
+its model axis lies within a rank or spans whole ranks (each rank of a
+row holding its own shards of every split weight); each rank runs its
+slots of the rows it touches (:func:`local_rows`; ``parallel.train``).
 
 :func:`place` is ``jax.device_put`` under ``NamedSharding``s: a split leaf
 becomes one slice per slot, a replicated one one copy per distinct device.
@@ -171,9 +172,17 @@ def get_mesh(num_devices: Optional[int] = None, model_parallel: int = 1,
     rank's slots, rank-major, in a group; every visible card, or the CPU,
     in one process; see the module docstring), or over ``devices`` (slots
     owned by this process; a device may repeat).  ``num_devices`` keeps
-    the first N.  In a group whose ranks hold k slots each, a
-    ``model_parallel`` that divides k gives rows that each lie within one
-    rank (:func:`local_rows`)."""
+    the first N.  In a group of W ranks holding k slots each (rank-major),
+    ``model_parallel`` m gives W*k/m data rows:
+
+      * m divides k: each row lies within one rank, which holds k/m rows
+        (data parallel over the ranks and the rank's own rows);
+      * k divides m (m > k): each row spans m/k whole ranks, each holding
+        k contiguous model positions of its row: a split weight's shards
+        belong to different processes (one process: m = 2 on two ranks
+        of one slot, or m = 4 on two ranks of two slots);
+      * anything else splits a rank's slots over rows unevenly, which
+        :func:`local_rows` refuses."""
     if devices is not None:
         from sparkdl_tpu_torch.parallel import distributed
 
@@ -196,36 +205,92 @@ def get_mesh(num_devices: Optional[int] = None, model_parallel: int = 1,
                 ranks=np.asarray(ranks).reshape(shape))
 
 
-def local_rows(mesh) -> Mesh:
-    """This process's rows of ``mesh`` as a mesh of its own slots (the
-    mesh itself in one process): what a fit's step runs here, while the
-    data axis of ``mesh`` spans every rank.  A row whose slots belong to
-    several ranks raises ``NotImplementedError``: its model axis would
-    exchange activations across processes inside the forward.  A mesh
-    that gives the ranks of a group unequal numbers of rows, or this rank
-    none, raises ``ValueError``."""
+class LocalRows(Mesh):
+    """This process's slots of the rows of a mesh it touches
+    (:func:`local_rows`), a mesh of its own: ``rows`` are their indices in
+    the whole mesh, ``row_ranks`` each row's ranks (ascending) and
+    ``positions`` this rank's model positions in each of them (the same
+    for every row); ``model_size`` is the whole mesh's model axis."""
+
+    def __init__(self, devices, axis_names, ranks, rows, row_ranks,
+                 positions, model_size):
+        super().__init__(devices, axis_names, ranks=ranks)
+        self.rows = tuple(rows)
+        self.row_ranks = tuple(tuple(r) for r in row_ranks)
+        self.positions = tuple(positions)
+        self.model_size = int(model_size)
+
+    @property
+    def spans_ranks(self) -> bool:
+        """Whether this rank's rows hold slots of other ranks too."""
+        return any(len(r) > 1 for r in self.row_ranks)
+
+
+def _row_blocks(row) -> List[Tuple[int, int, int]]:
+    """A row's ranks as (rank, first position, slots) runs."""
+    blocks: List[List[int]] = []
+    for pos, r in enumerate(int(v) for v in row):
+        if blocks and blocks[-1][0] == r:
+            blocks[-1][2] += 1
+        else:
+            blocks.append([r, pos, 1])
+    return [tuple(b) for b in blocks]
+
+
+def local_rows(mesh) -> LocalRows:
+    """This process's slots of the rows of ``mesh`` it touches
+    (:class:`LocalRows`; the mesh itself in one process): what a step
+    runs here, while the data axis of ``mesh`` spans every rank.
+
+    Supported layouts (what :func:`get_mesh` gives, see its docstring):
+    every row within one rank, each rank holding the same number of whole
+    rows; or every row spanning the same number of whole ranks, each rank
+    in one row and holding the same number of contiguous model positions
+    there.  A rank whose slots of a row are not contiguous, a row whose
+    ranks hold unequal numbers of its slots, rows over different numbers
+    of ranks, a rank in several rows that span ranks, unequal rows per
+    rank, or a rank with no slot raise ``ValueError`` (the same on every
+    rank)."""
     from sparkdl_tpu_torch.parallel import distributed
 
     ranks = np.asarray(mesh.ranks)
-    owners = [sorted({int(r) for r in row}) for row in ranks]
-    for g, who in enumerate(owners):
-        if len(who) > 1:
-            raise NotImplementedError(
-                f"mesh {mesh.shape}: data row {g} holds slots of ranks "
-                f"{who}; a model axis that spans ranks would exchange "
-                f"activations across processes inside the forward, which "
-                f"the port does not do (ROADMAP.md §C); use a "
-                f"model_parallel that divides each rank's slots")
+    shape = dict(mesh.shape)
+    blocks = [_row_blocks(row) for row in ranks]
+    for g, bl in enumerate(blocks):
+        who = [b[0] for b in bl]
+        if len(set(who)) != len(who) or len({b[2] for b in bl}) > 1:
+            raise ValueError(
+                f"mesh {shape}: data row {g} holds slots of ranks "
+                f"{ranks[g].tolist()}; a row's ranks must each hold the "
+                f"same number of contiguous slots of it (get_mesh's "
+                f"rank-major layout with a model_parallel that divides, "
+                f"or is a multiple of, each rank's slots)")
+    widths = sorted({len(bl) for bl in blocks})
     me, count = distributed.process_index(), distributed.process_count()
-    rows = [sum(who == [r] for who in owners) for r in range(count)]
+    rows = [sum(any(b[0] == r for b in bl) for bl in blocks)
+            for r in range(count)]
+    if len(widths) > 1 or (widths[0] > 1 and max(rows) > 1):
+        raise ValueError(
+            f"mesh {shape}: its rows hold slots of {[len(b) for b in blocks]}"
+            f" ranks, the ranks {rows} rows: supported are rows that each "
+            f"lie within one rank, or rows that each span the same number "
+            f"of whole ranks with every rank in one row (get_mesh's "
+            f"rank-major layout with a model_parallel that divides, or is "
+            f"a multiple of, each rank's slots)")
     if rows[me] == 0 or (count > 1 and len(set(rows)) > 1):
         raise ValueError(
-            f"mesh {mesh.shape} gives the ranks {rows} data rows: in a "
+            f"mesh {shape} gives the ranks {rows} data rows: in a "
             f"group every rank holds the same number of whole rows (the "
             f"default mesh, get_mesh(), spans every rank's slots)")
-    mine = [g for g, who in enumerate(owners) if who == [me]]
-    return Mesh(np.asarray(mesh.devices)[mine], mesh.axis_names,
-                ranks=ranks[mine])
+    mine = [g for g, bl in enumerate(blocks) if any(b[0] == me for b in bl)]
+    _, start, n = next(b for b in blocks[mine[0]] if b[0] == me)
+    cols = list(range(start, start + n))
+    devices = np.asarray(mesh.devices)[mine][:, cols]
+    return LocalRows(devices, mesh.axis_names, ranks[mine][:, cols],
+                     rows=mine,
+                     row_ranks=[[b[0] for b in blocks[g]] for g in mine],
+                     positions=cols,
+                     model_size=int(np.asarray(mesh.devices).shape[1]))
 
 
 def batch_sharding(mesh, ndim: int = 1) -> NamedSharding:

@@ -13,10 +13,12 @@ slot's device, split along one dimension.  Every op that meets a
 
     - ``F.linear`` whose weight is split on dimension 0 (torch's output
       features) and ``F.conv2d`` (``groups=1``) whose weight is split on
-      dimension 0 (output channels), over a whole input: output split on
+      dimension 0 (output channels), over a whole input (an input that an
+      earlier split op left split is gathered first): output split on
       its last / channel dimension;
     - ``matmul`` / ``@`` whose right operand is split on its last
-      dimension (flax's kernel layout), over a whole left operand;
+      dimension (flax's kernel layout), over a whole left operand
+      (gathered first, likewise);
     - elementwise ops (arithmetic, activations, ``to(dtype)``, ``clone``,
       ``detach``, in-place updates and ``copy_``): every whole operand is
       sliced along the dimension the split lines up with after
@@ -42,6 +44,34 @@ the zoo and the callers' ``fn(module, batch)`` call ``F.conv2d``, ``@`` and
 ``F.linear`` on the module's tensors directly (Xception's ``conv2d``
 helper, the engines' dense stand-ins), not through those modules'
 ``forward``, so only an interception at the op sees every use.
+
+**Shards held by several processes.**  Where a mesh's data row spans
+ranks (``parallel/mesh.py local_rows``), a split weight's
+``ShardedTensor`` in each rank holds only that rank's shards, with its
+place in the split (:class:`RowSplit`: every shard's bounds, its owner rank,
+and the row group of ``parallel/distributed.py mesh_groups``).  The
+partitioned forms above compute this rank's slice of the output (a
+``ShardedTensor`` of the same split), and two autograd functions carry
+the row group's collectives, as Megatron's column-parallel layers do:
+
+  * every whole operand of a partitioned form that requires a gradient
+    (the activation a split ``F.linear`` / ``F.conv2d`` / ``@`` reads, a
+    whole bias or scale sliced to match) passes :class:`_RowInput`:
+    identity forward, the gradient summed over the row group backward
+    (each rank's part covers its own shards only); an operand that needs
+    no gradient (a frozen backbone's features) passes as it is;
+  * a gather is :class:`_RowGather`: the ranks' slices all-gathered over
+    the row group in the shards' order forward; backward hands each of
+    this rank's shards its slice of the gradient, NOT a sum over the
+    ranks (every rank of a row computes the same downstream gradient, so
+    a sum, as ``torch.distributed.nn.functional.all_gather``'s backward
+    takes, would multiply it by the row's rank count).
+
+Every rank of a row runs the same ops on the same rows, so the
+collectives are issued in one order on every rank.  :func:`gather` and
+:func:`gather_tree` are then cross-rank all-gathers (the kernel wrappers,
+the fold caches and checkpoints see whole weights); a gather that fails
+raises.  ``data_ptr()`` and ``_version`` stay this rank's own.
 
 ``data_ptr()`` and ``_version`` of a ``ShardedTensor`` are its first
 shard's address and the sum of its shards' version counters: the keys the
@@ -72,7 +102,7 @@ wrapper reads its shards for ``requires_grad`` (any shard's),
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -81,6 +111,78 @@ from torch.utils._pytree import tree_map
 
 def _is_sharded(x) -> bool:
     return isinstance(x, ShardedTensor)
+
+
+class RowSplit:
+    """Where a rank's shards sit in a split that spans ranks: ``bounds``
+    the offsets of every shard of the row along the split (one more than
+    the shards), ``owners`` each shard's rank, ``local`` the indices of
+    this rank's shards (ascending), ``group`` the row group
+    (``distributed.RankGroup``) whose collectives gather the whole."""
+
+    def __init__(self, bounds: Sequence[int], owners: Sequence[int],
+                 local: Sequence[int], group):
+        self.bounds = [int(b) for b in bounds]
+        self.owners = [int(r) for r in owners]
+        self.local = [int(i) for i in local]
+        self.group = group
+        first = {}
+        for i, r in enumerate(self.owners):
+            first.setdefault(r, i)
+        # the members' slices in the order of their shards
+        self.order = sorted(range(len(group.ranks)),
+                            key=lambda k: first[group.ranks[k]])
+
+    def spans(self) -> List[Tuple[int, int]]:
+        """(offset, length) of each of this rank's shards."""
+        b = self.bounds
+        return [(b[i], b[i + 1] - b[i]) for i in self.local]
+
+
+class _RowGather(torch.autograd.Function):
+    """The whole tensor from each rank's shards: all-gather over the row
+    group forward; this rank's slices of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, dim, split, *shards):
+        dev = shards[0].device
+        mine = torch.cat([s.to(dev) for s in shards], dim).contiguous()
+        pieces = split.group.all_gather(mine)
+        ctx.dim, ctx.spans = dim, split.spans()
+        ctx.devices = [s.device for s in shards]
+        return torch.cat([pieces[k] for k in split.order], dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, None) + tuple(
+            grad.narrow(ctx.dim, off, n).to(d)
+            for (off, n), d in zip(ctx.spans, ctx.devices))
+
+
+class _RowInput(torch.autograd.Function):
+    """A whole operand of a partitioned form over shards of several
+    ranks: identity forward; the gradient summed over the row group
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_reduce(grad.contiguous().clone()), None
+
+
+def _row_input(a, st: "ShardedTensor"):
+    """``a`` as a partitioned form over ``st`` reads it: through
+    :class:`_RowInput` where ``st``'s shards span ranks and ``a`` is a
+    whole tensor autograd records."""
+    if (st.row_split is None or _is_sharded(a)
+            or not isinstance(a, torch.Tensor)
+            or not (a.requires_grad and torch.is_grad_enabled())):
+        return a
+    return _RowInput.apply(a, st.row_split.group)
 
 
 def gather(x):
@@ -102,23 +204,34 @@ def gather_tree(tree):
 class ShardedTensor(torch.Tensor):
     """A tensor split along ``dim`` into ``shards`` (one per model slot of
     a data group, in slot order).  It holds no storage of its own; its
-    shape, dtype and device (the first shard's) describe the whole."""
+    shape, dtype and device (the first shard's) describe the whole.
+    ``row_split`` (a :class:`RowSplit`) marks a split whose other shards
+    belong to other ranks: ``shards`` are then this rank's."""
 
     @staticmethod
-    def __new__(cls, shards: Sequence[torch.Tensor], dim: int):
+    def __new__(cls, shards: Sequence[torch.Tensor], dim: int,
+                row_split: Optional[RowSplit] = None):
         shards = list(shards)
         shape = list(shards[0].shape)
         dim = dim % len(shape)
-        shape[dim] = sum(int(s.shape[dim]) for s in shards)
+        shape[dim] = (row_split.bounds[-1] if row_split is not None
+                      else sum(int(s.shape[dim]) for s in shards))
         out = torch.Tensor._make_wrapper_subclass(
             cls, shape, dtype=shards[0].dtype, device=shards[0].device,
             requires_grad=False)
         out.shards = shards
         out.split_dim = dim
+        out.row_split = row_split
         return out
 
-    def __init__(self, shards, dim):
+    def __init__(self, shards, dim, row_split=None):
         super().__init__()
+
+    def like(self, shards: Sequence[torch.Tensor], dim: int
+             ) -> "ShardedTensor":
+        """A ShardedTensor of ``shards`` split as this one is (the same
+        bounds and owners), along ``dim``."""
+        return ShardedTensor(shards, dim, self.row_split)
 
     # -- what the caches and graph keys read -----------------------------
     def data_ptr(self) -> int:
@@ -129,26 +242,43 @@ class ShardedTensor(torch.Tensor):
         return sum(s._version for s in self.shards)
 
     def gather(self) -> torch.Tensor:
-        """The whole tensor on the first shard's device (a new tensor)."""
+        """The whole tensor on the first shard's device (a new tensor;
+        an all-gather over the row group where the shards span ranks)."""
+        if self.row_split is not None:
+            return _RowGather.apply(self.split_dim, self.row_split,
+                                    *self.shards)
         dev = self.shards[0].device
         return torch.cat([s.to(dev) for s in self.shards], self.split_dim)
 
     def bounds(self) -> List[int]:
-        """The offsets of the shards along the split dimension."""
+        """The offsets of every shard of the split along its dimension
+        (this rank's and, where the split spans ranks, the others')."""
+        if self.row_split is not None:
+            return list(self.row_split.bounds)
         out, off = [], 0
         for s in self.shards:
             out.append(off)
             off += int(s.shape[self.split_dim])
         return out + [off]
 
+    def spans(self) -> List[Tuple[int, int]]:
+        """(offset, length) of each of ``shards`` along the split."""
+        if self.row_split is not None:
+            return self.row_split.spans()
+        b = self.bounds()
+        return [(b[i], b[i + 1] - b[i]) for i in range(len(self.shards))]
+
     def __repr__(self) -> str:
+        rs = self.row_split
+        owners = ("" if rs is None
+                  else f", owners={rs.owners}, local={rs.local}")
         return (f"ShardedTensor(shape={tuple(self.shape)}, "
                 f"dtype={self.dtype}, dim={self.split_dim}, devices="
-                f"{[str(s.device) for s in self.shards]})")
+                f"{[str(s.device) for s in self.shards]}{owners})")
 
     def __deepcopy__(self, memo):
-        return ShardedTensor([copy.deepcopy(s, memo) for s in self.shards],
-                             self.split_dim)
+        return self.like([copy.deepcopy(s, memo) for s in self.shards],
+                         self.split_dim)
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
@@ -164,7 +294,7 @@ class ShardedTensor(torch.Tensor):
                 grads = [s.grad for s in args[0].shards]
                 if any(g is None for g in grads):
                     return None
-                return ShardedTensor(grads, args[0].split_dim)
+                return args[0].like(grads, args[0].split_dim)
             if attr not in _VALUE_ATTRS:
                 with torch._C.DisableTorchFunctionSubclass():
                     return func(*args, **kwargs)
@@ -198,9 +328,7 @@ _METADATA = {_T.dim, _T.size, _T.numel, _T.element_size, _T.stride,
 def _slices(st: ShardedTensor, out_ndim: int):
     """(out split dimension, per-shard (offset, length)) of ``st`` in an
     output of ``out_ndim`` dimensions."""
-    b = st.bounds()
-    return (st.split_dim + out_ndim - st.dim(),
-            [(b[i], b[i + 1] - b[i]) for i in range(len(st.shards))])
+    return st.split_dim + out_ndim - st.dim(), st.spans()
 
 
 def _piece(a, i: int, out_split: int, out_ndim: int, spans, device):
@@ -230,10 +358,12 @@ def _elementwise(func, args, kwargs):
     nd = len(out_shape)
     split, spans = _slices(sts[0], nd)
     for s in sts[1:]:
-        if _slices(s, nd) != (split, spans):
+        if _slices(s, nd) != (split, spans) or s.bounds() != sts[0].bounds():
             return NotImplemented
     if out_shape[split] != sts[0].shape[sts[0].split_dim]:
         return NotImplemented
+    args = [_row_input(a, sts[0]) for a in args]
+    kwargs = {k: _row_input(v, sts[0]) for k, v in kwargs.items()}
     outs = []
     for i, shard in enumerate(sts[0].shards):
         dev = shard.device
@@ -243,7 +373,7 @@ def _elementwise(func, args, kwargs):
         outs.append(func(*a_i, **k_i))
     if not all(isinstance(o, torch.Tensor) for o in outs):
         return NotImplemented
-    return ShardedTensor(outs, split)
+    return sts[0].like(outs, split)
 
 
 def _inplace(func, args, kwargs):
@@ -274,21 +404,37 @@ def _to(func, args, kwargs):
     return _elementwise(func, args, kwargs)
 
 
+def _bias_pieces(bias, w: ShardedTensor) -> list:
+    """Each of ``w``'s shards' slice of a bias over its split dimension:
+    the bias's own shards where it is split alike, else slices of the
+    whole one (whose gradient the row group sums)."""
+    if bias is None:
+        return [None] * len(w.shards)
+    if (_is_sharded(bias) and bias.bounds() == w.bounds()
+            and bias.spans() == w.spans()):
+        pieces = list(bias.shards)
+    else:
+        whole = _row_input(gather(bias), w)
+        pieces = [whole.narrow(0, off, n) for off, n in w.spans()]
+    return [p.to(s.device) for p, s in zip(pieces, w.shards)]
+
+
+def _whole_input(x, w):
+    """A split op's input as its partitioned form reads it: whole (a
+    ShardedTensor input, the output of an earlier split op, gathered
+    first, so that ``w`` stays split)."""
+    return _row_input(gather(x), w)
+
+
 def _linear(func, args, kwargs):
     x, w = args[0], args[1]
     bias = args[2] if len(args) > 2 else kwargs.get("bias")
-    if _is_sharded(x) or not _is_sharded(w) or w.split_dim != 0:
+    if not _is_sharded(w) or w.split_dim != 0:
         return NotImplemented
-    b = w.bounds()
-    outs = []
-    for i, s in enumerate(w.shards):
-        bi = None
-        if bias is not None:
-            bi = (bias.shards[i] if _is_sharded(bias) and bias.bounds() == b
-                  else gather(bias).narrow(0, b[i], b[i + 1] - b[i]))
-            bi = bi.to(s.device)
-        outs.append(F.linear(x.to(s.device), s, bi))
-    return ShardedTensor(outs, x.dim() - 1 if x.dim() else 0)
+    x = _whole_input(x, w)
+    outs = [F.linear(x.to(s.device), s, bi)
+            for s, bi in zip(w.shards, _bias_pieces(bias, w))]
+    return w.like(outs, x.dim() - 1 if x.dim() else 0)
 
 
 def _conv2d(func, args, kwargs):
@@ -297,28 +443,25 @@ def _conv2d(func, args, kwargs):
     bound = dict(zip(names, args))
     bound.update(kwargs)
     x, w = bound["input"], bound["weight"]
-    if (_is_sharded(x) or not _is_sharded(w) or w.split_dim != 0
+    if (not _is_sharded(w) or w.split_dim != 0
             or bound.get("groups", 1) != 1):
         return NotImplemented
-    bias = bound.get("bias")
-    b = w.bounds()
+    x = _whole_input(x, w)
     outs = []
-    for i, s in enumerate(w.shards):
-        kw = dict(bound, input=x.to(s.device), weight=s)
-        if bias is not None:
-            kw["bias"] = gather(bias).narrow(0, b[i], b[i + 1] - b[i]).to(
-                s.device)
-        outs.append(F.conv2d(**kw))
-    return ShardedTensor(outs, 1)
+    for s, bi in zip(w.shards, _bias_pieces(bound.get("bias"), w)):
+        outs.append(F.conv2d(**dict(bound, input=x.to(s.device), weight=s,
+                                    bias=bi)))
+    return w.like(outs, 1)
 
 
 def _matmul(func, args, kwargs):
     a, w = args[0], args[1]
-    if (_is_sharded(a) or not _is_sharded(w) or w.dim() < 2
+    if (not _is_sharded(w) or w.dim() < 2
             or w.split_dim != w.dim() - 1 or kwargs):
         return NotImplemented
+    a = _whole_input(a, w)
     outs = [torch.matmul(a.to(s.device), s) for s in w.shards]
-    return ShardedTensor(outs, outs[0].dim() - 1)
+    return w.like(outs, outs[0].dim() - 1)
 
 
 def _transpose(func, args, kwargs):
@@ -339,8 +482,8 @@ def _transpose(func, args, kwargs):
         if len(dims) == 1 and isinstance(dims[0], (tuple, list)):
             dims = dims[0]
         order = [d % n for d in dims]
-    return ShardedTensor([func(s, *args[1:]) for s in x.shards],
-                         order.index(x.split_dim))
+    return x.like([func(s, *args[1:]) for s in x.shards],
+                  order.index(x.split_dim))
 
 
 def _reduce(func, args, kwargs):
@@ -356,7 +499,7 @@ def _reduce(func, args, kwargs):
     keep = kwargs.get("keepdim", False)
     split = x.split_dim - (0 if keep else sum(d < x.split_dim for d in dims))
     rest = {k: v for k, v in kwargs.items() if k != "dim"}
-    return ShardedTensor([func(s, dims, **rest) for s in x.shards], split)
+    return x.like([func(s, dims, **rest) for s in x.shards], split)
 
 
 _ELEMENTWISE = [

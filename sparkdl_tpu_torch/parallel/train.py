@@ -29,21 +29,21 @@ optimizer state; checkpoints save each split weight whole.
 Multi-process fits follow JAX's global-batch rules.  In a
 ``torch.distributed`` group of W ranks (:mod:`.distributed`) the mesh's
 data axis spans the ranks and, where a rank holds several slots
-(``distributed.initialize(local_slots=...)``), its own data groups; the
-model axis lies within a rank (:func:`~.mesh.local_rows`: a row across
-ranks raises).  ``batch_size`` is the GLOBAL batch (rounded up to the
-data axis, dp = every rank's groups), each rank draws ``max(dp // W,
-batch // W)`` rows a step from its own shard and splits them over its own
-groups, and the steps of an epoch come from the all-gathered global row
-count, a short shard wrapping modularly, so every rank runs the same
-steps.  A rank with no rows raises on every rank.  Each step sums its
-groups' gradients into its leaves and shards, then all-reduces them (and
-the loss) in one flat buffer, the same leaves and shards in the same
-order on every rank, to the global batch's mean before
-``optimizer.step``, so every rank applies the same update; with
-``train_fn`` + ``stats`` the BatchNorm statistics are the global batch's
-(``models/layers.py flax_batch_norm_train`` sums them across the rank's
-groups, then all-reduces them across the ranks).
+(``distributed.initialize(local_slots=...)``), its own data groups; a
+fit's model axis lies within a rank (:func:`resolve_fit_mesh` refuses a
+row across ranks: see there).  ``batch_size`` is the GLOBAL batch
+(rounded up to the data axis, dp = every rank's groups), each rank draws
+``max(dp // W, batch // W)`` rows a step from its own shard and splits
+them over its own groups, and the steps of an epoch come from the
+all-gathered global row count, a short shard wrapping modularly, so
+every rank runs the same steps.  A rank with no rows raises on every
+rank.  Each step sums its groups' gradients into its leaves and shards,
+then all-reduces them (and the loss, at its own type) over the ranks,
+the same leaves and shards in the same order on every rank, to the
+global batch's mean before ``optimizer.step``, so every rank applies the
+same update; with ``train_fn`` + ``stats`` the BatchNorm statistics are
+the global batch's (``models/layers.py flax_batch_norm_train`` sums them
+across the rank's groups, then all-reduces them across the ranks).
 
 The step on the card is a captured CUDA graph (the counterpart of JAX's
 compiled step): the fit's first step runs eagerly on a side stream (it
@@ -174,8 +174,10 @@ class TrainStep:
     On one slot (the params' device, or this rank's one device in a
     ``torch.distributed`` group of W ranks) the step trains the tensors of
     ``params`` themselves; in a group it all-reduces the gradients and the
-    loss (one flat buffer) and divides them by W, the global batch's mean,
-    before ``optimizer.step``.  Its pieces (:meth:`forward_backward`,
+    loss (one flat buffer, the loss beside it where its type differs) over
+    the column group (every rank, where each data row lies within one
+    rank) and divides them by its size, the global batch's mean, before
+    ``optimizer.step``.  Its pieces (:meth:`forward_backward`,
     :meth:`pack`, :meth:`reduce`, :meth:`unpack`) are what a fit captures
     into graphs.
 
@@ -207,7 +209,24 @@ class TrainStep:
     leaves and shards, the loss the mean of their means), then the flat
     all-reduce over the ranks; with statistics the groups' sums meet in
     the rank first, then one thread of the rank all-reduces them across
-    the ranks, once a BatchNorm."""
+    the ranks, once a BatchNorm.
+
+    **A model axis across ranks.**  Where a data row of ``mesh`` holds
+    slots of several ranks (:func:`~.mesh.local_rows`), each rank places
+    only its own shards of every split leaf (a :class:`~.shard.
+    ShardedTensor` with a :class:`~.shard.RowSplit`: bounds and owners of
+    every shard) on its slots, and nothing of the others'.  The ranks of
+    a row pass the SAME rows (JAX's replica contract) and run the same
+    forward: each split op computes this rank's slice, gathered over the
+    *row group* where a whole value is needed, the gradient of its input
+    summed over the row group backward (``parallel/shard.py``), so the
+    replicated leaves' gradients agree within a row and each shard gets
+    its own.  The gradients (and the loss) then meet over the *column
+    group*, one rank a row (``distributed.mesh_groups``), and are divided
+    by its size: each rank's part is already the mean over its own rows,
+    so this is the mean over the mesh's data rows.  A column group of one
+    rank (one data row) runs no all-reduce.  BatchNorm sums meet over the
+    column group too (``models/layers.py``)."""
 
     def __init__(self, loss_of: Callable, optimizer: torch.optim.Optimizer,
                  params, *, mesh=None, param_shardings=None,
@@ -221,25 +240,36 @@ class TrainStep:
         self._template = params_template
         self.world = distributed.process_count()
         self._flat: Optional[torch.Tensor] = None
+        self._loss: Optional[torch.Tensor] = None
         self.tree = params
         self.stats = stats
         self._rows: Optional[List[tuple]] = None
         self._stats: List[Any] = [stats]
         self._pool = None
         local = mesh_lib.local_rows(mesh) if mesh is not None else None
-        if local is not None and local.size > 1:
+        self.local = local
+        me = distributed.process_index()
+        self.row = self.columns = distributed.RankGroup([me])
+        if self.world > 1 and local is None:
+            self.columns = distributed.RankGroup(range(self.world))
+        elif self.world > 1:
+            rows, cols = distributed.mesh_groups(mesh.ranks)
+            self.row = rows[local.rows[0]]
+            self.columns = next(c for c in cols if me in c.ranks)
+        if local is not None and (local.size > 1 or local.spans_ranks):
             self._place(local)
         self.params = [p for t in _tree_leaves(self.tree) for p in _pieces(t)]
 
     # -- placement on this process's slots of the mesh ---------------------
     def _place(self, local) -> None:
-        from sparkdl_tpu_torch.parallel.shard import ShardedTensor
+        from sparkdl_tpu_torch.parallel.shard import RowSplit, ShardedTensor
 
         mesh = self.mesh
         dp = int(local.shape[mesh_lib.DATA_AXIS])
         rows = [tuple(torch.device(d) for d in local.devices[g])
                 for g in range(dp)]
         first = rows[0][0]
+        owners = [int(r) for r in np.asarray(mesh.ranks)[local.rows[0]]]
         flat = mesh_lib.tree_flatten_with_path(self.tree)
         specs = ([None] * len(flat) if self.param_shardings is None else
                  [sh.spec for _, sh in mesh_lib.tree_flatten_with_path(
@@ -253,15 +283,21 @@ class TrainStep:
                        else _leaf(leaf, first, leaf.requires_grad))
             else:
                 split = True
-                pieces = []
-                for m, dev in enumerate(rows[0]):
-                    index = mesh_lib._slot_index(
-                        local, spec, tuple(leaf.shape),
-                        {mesh_lib.DATA_AXIS: 0, mesh_lib.MODEL_AXIS: m})
-                    pieces.append(leaf.detach()[index].to(dev).clone(
-                        memory_format=torch.contiguous_format
-                    ).requires_grad_(leaf.requires_grad))
-                new = ShardedTensor(pieces, dim)
+                index = [mesh_lib._slot_index(
+                    mesh, spec, tuple(leaf.shape),
+                    {mesh_lib.DATA_AXIS: 0, mesh_lib.MODEL_AXIS: m})[dim]
+                    for m in range(local.model_size)]
+                pieces = [leaf.detach().narrow(
+                    dim, index[m].start, index[m].stop - index[m].start
+                ).to(dev).clone(memory_format=torch.contiguous_format
+                                ).requires_grad_(leaf.requires_grad)
+                    for m, dev in zip(local.positions, rows[0])]
+                row_split = None
+                if local.spans_ranks:
+                    row_split = RowSplit(
+                        [s.start for s in index] + [index[-1].stop], owners,
+                        local.positions, self.row)
+                new = ShardedTensor(pieces, dim, row_split)
             if new is not leaf:
                 swap[id(leaf)] = _pieces(new)
             leaves.append(new)
@@ -295,8 +331,8 @@ class TrainStep:
 
         def move(t):
             if isinstance(t, ShardedTensor):
-                return ShardedTensor([s.to(row[m]) for m, s in
-                                      enumerate(t.shards)], t.split_dim)
+                return t.like([s.to(row[m]) for m, s in
+                               enumerate(t.shards)], t.split_dim)
             return t.to(row[0])
 
         return _tree_map(move, self.tree)
@@ -364,14 +400,17 @@ class TrainStep:
                  x.narrow(0, g * b, b).to(row[0]),
                  y.narrow(0, g * b, b).to(row[0]))
                 for g, row in enumerate(self._rows)]
-        if self.stats is not None:
+        if self.stats is not None and dp > 1:
             losses = self._threaded(jobs)
         else:
             from sparkdl_tpu_torch.models.layers import data_group
 
+            # one group: its BatchNorms' sums meet over the column group
+            # alone
+            sums = self._sums(1) if self.stats is not None else None
             losses = []
             for g, p, st, xg, yg in jobs:
-                with data_group(g):
+                with data_group(g, sums):
                     losses.append(self.loss_of(p, st, xg, yg))
         first = self._rows[0][0]
         total = losses[0]
@@ -389,17 +428,12 @@ class TrainStep:
         from concurrent.futures import ThreadPoolExecutor
 
         import sparkdl_tpu_torch
-        from sparkdl_tpu_torch.models.layers import GroupSums, data_group
+        from sparkdl_tpu_torch.models.layers import data_group
 
         if self._pool is None:
             self._pool = ThreadPoolExecutor(len(jobs),
                                             thread_name_prefix="train-group")
-        cross = None
-        if self.world > 1:
-            # the rank's sums, then the ranks': one collective a BatchNorm,
-            # issued by one thread (GroupSums' group 0) in forward order
-            from torch.distributed.nn.functional import all_reduce as cross
-        sums = GroupSums(len(jobs), cross)
+        sums = self._sums(len(jobs))
         where = sparkdl_tpu_torch._default()
         streams = {str(d): torch.cuda.current_stream(d)
                    for d in self.cards() if d.type == "cuda"}
@@ -427,49 +461,76 @@ class TrainStep:
                 raise e
         return [f.result() for f in futures]
 
+    def _sums(self, groups: int):
+        """The rendezvous of a step's BatchNorm sums: the rank's
+        ``groups`` data groups, then the column group (one differentiable
+        all-reduce a BatchNorm, issued by group 0's thread in forward
+        order; none for a column group of one rank)."""
+        from sparkdl_tpu_torch.models.layers import GroupSums
+
+        cross = (self.columns.differentiable_all_reduce
+                 if self.columns.size > 1 else None)
+        return GroupSums(groups, cross)
+
     def _grads(self) -> List[torch.Tensor]:
         return [p.grad for p in self.params if p.grad is not None]
 
     def pack(self, lval: torch.Tensor) -> torch.Tensor:
-        """The gradients and the loss in one flat buffer of the gradients'
-        type (made at the first call, reused after, so a graph writes a
-        static tensor): a float64 loss (float64 one-hot labels) travels as
-        float32 beside float32 gradients, not doubling the bytes the group
-        all-reduces."""
+        """The gradients in one flat buffer of their type (made at the
+        first call, reused after, so a graph writes a static tensor), and
+        the loss at its own type: in the buffer's last element where the
+        types agree, else in a one-element tensor of its own reduced
+        beside it (a float32 loss of a bf16 model stays float32; a
+        float64 loss of float64 one-hot labels stays float64 without
+        widening the float32 gradients the group all-reduces)."""
         grads = self._grads()
-        n = sum(g.numel() for g in grads) + 1
         dtype = grads[0].dtype if grads else lval.dtype
         for g in grads[1:]:
             dtype = torch.promote_types(dtype, g.dtype)
+        carry = lval.dtype == dtype
+        n = sum(g.numel() for g in grads) + int(carry)
         flat = self._flat
         if (flat is None or flat.numel() != n or flat.dtype != dtype
                 or flat.device != lval.device):
             flat = self._flat = torch.empty(n, dtype=dtype,
                                             device=lval.device)
+        if carry:
+            self._loss = None
+        elif (self._loss is None or self._loss.dtype != lval.dtype
+              or self._loss.device != lval.device):
+            self._loss = torch.empty(1, dtype=lval.dtype, device=lval.device)
         # a shard's gradient lives on its slot's card
         torch.cat([g.reshape(-1).to(flat.device, dtype) for g in grads]
-                  + [lval.reshape(1).to(dtype)], out=flat)
+                  + ([lval.reshape(1)] if carry else []), out=flat)
+        if not carry:
+            self._loss.copy_(lval.reshape(1))
         return flat
 
     def reduce(self) -> None:
-        """Sum the flat buffer over the group (on the host under gloo)."""
-        torch.distributed.all_reduce(self._flat)
+        """Sum the flat buffer (and a loss of another type) over the
+        column group (on the host under gloo; nothing for one rank)."""
+        self.columns.all_reduce(self._flat)
+        if self._loss is not None:
+            self.columns.all_reduce(self._loss)
 
     def unpack(self) -> torch.Tensor:
-        """Divide the summed buffer by the group's size and write it back
-        into the gradients; returns the global mean loss (a view of the
-        buffer)."""
+        """Divide the summed buffer by the column group's size and write
+        it back into the gradients; returns the mean loss over the data
+        rows, at its own type (a view of the buffer or of the loss's
+        tensor)."""
         flat = self._flat
-        flat.div_(self.world)
+        flat.div_(self.columns.size)
         off = 0
         for g in self._grads():
             g.copy_(flat[off:off + g.numel()].view_as(g))
             off += g.numel()
-        return flat[-1]
+        if self._loss is None:
+            return flat[-1]
+        return self._loss.div_(self.columns.size)[0]
 
     def __call__(self, x, y) -> torch.Tensor:
         lval = self.forward_backward(x, y)
-        if self.world > 1:
+        if self.columns.size > 1:
             self.pack(lval)
             self.reduce()
             lval = self.unpack().clone()
@@ -489,25 +550,30 @@ class TrainStep:
         (its shards concatenated) and the optimizer's ``state_dict`` in
         the layout of the whole leaves (a shard's state tensors
         concatenated along the split, the rest the first shard's), so a
-        checkpoint reads the same whatever the mesh."""
-        from sparkdl_tpu_torch.parallel.shard import gather
+        checkpoint reads the same whatever the mesh.  Where the shards
+        span ranks both are all-gathered over the row group: every rank
+        of a row calls this at once."""
+        from sparkdl_tpu_torch.parallel.shard import ShardedTensor, gather
 
         sd = self.optimizer.state_dict()
         leaves = _tree_leaves(self.tree)
         owners = self._owners()
-        state: Dict[int, Dict[str, Any]] = {}
+        per_leaf: Dict[int, List[int]] = {}
         for pos, i in enumerate(owners):
-            st = sd["state"].get(pos)
-            if st is None:
+            per_leaf.setdefault(i, []).append(pos)
+        state: Dict[int, Dict[str, Any]] = {}
+        for i in sorted(per_leaf):
+            sts = [sd["state"].get(pos) for pos in per_leaf[i]]
+            if any(st is None for st in sts):
                 continue
-            if i not in state:
-                state[i] = dict(st)
+            state[i] = dict(sts[0])
+            leaf = leaves[i]
+            if not isinstance(leaf, ShardedTensor):
                 continue
-            shard = leaves[i].shards[0]
-            for k, v in st.items():
-                if _per_shard(v, shard):
-                    state[i][k] = torch.cat([state[i][k], v.to(
-                        state[i][k].device)], leaves[i].split_dim)
+            for k in sorted(state[i]):
+                if _per_shard(state[i][k], leaf.shards[0]):
+                    state[i][k] = leaf.like(
+                        [st[k] for st in sts], leaf.split_dim).gather()
         groups = []
         for g_sd in sd["param_groups"]:
             ids: List[int] = []
@@ -528,9 +594,8 @@ class TrainStep:
             for t, v in zip(leaves, _tree_leaves(state["params"])):
                 v = torch.as_tensor(v)
                 if isinstance(t, ShardedTensor):
-                    b = t.bounds()
-                    for m, s in enumerate(t.shards):
-                        s.copy_(v.narrow(t.split_dim, b[m], b[m + 1] - b[m]))
+                    for (off, n), s in zip(t.spans(), t.shards):
+                        s.copy_(v.narrow(t.split_dim, off, n))
                 else:
                     t.copy_(v)
         saved = state["opt_state"]
@@ -541,15 +606,14 @@ class TrainStep:
         st_out: Dict[int, Dict[str, Any]] = {}
         for i, st in saved["state"].items():
             i = int(i)
-            b = (leaves[i].bounds() if isinstance(leaves[i], ShardedTensor)
-                 else None)
+            spans = (leaves[i].spans() if isinstance(leaves[i], ShardedTensor)
+                     else None)
             for m, pos in enumerate(per_leaf[i]):
                 # each shard its own tensors: a step count shared by two
                 # shards would be counted twice a step
                 st_out[pos] = {
-                    k: (v.narrow(leaves[i].split_dim, b[m], b[m + 1] - b[m])
-                        .clone()
-                        if b is not None and torch.is_tensor(v)
+                    k: (v.narrow(leaves[i].split_dim, *spans[m]).clone()
+                        if spans is not None and torch.is_tensor(v)
                         and tuple(v.shape) == tuple(leaves[i].shape)
                         else v.clone() if torch.is_tensor(v) else v)
                     for k, v in st.items()}
@@ -558,6 +622,28 @@ class TrainStep:
                   for g in saved["param_groups"]]
         self.optimizer.load_state_dict({"state": st_out,
                                         "param_groups": groups})
+
+    def layout(self) -> Dict[str, Any]:
+        """Where this rank's step runs: its row and column groups' ranks,
+        its model positions in its row, and for each split leaf (by path)
+        the owner rank of each shard and the indices of this rank's."""
+        from sparkdl_tpu_torch.parallel.shard import ShardedTensor
+
+        me = distributed.process_index()
+        split = {}
+        for path, t in mesh_lib.tree_flatten_with_path(self.tree):
+            if isinstance(t, ShardedTensor):
+                rs = t.row_split
+                split[mesh_lib.param_path_str(path)] = dict(
+                    owners=(rs.owners if rs is not None
+                            else [me] * len(t.shards)),
+                    local=(rs.local if rs is not None
+                           else list(range(len(t.shards)))),
+                    shards=[list(p.shape) for p in t.shards])
+        return dict(row=list(self.row.ranks), column=list(self.columns.ranks),
+                    positions=(list(self.local.positions)
+                               if self.local is not None else [0]),
+                    split=split)
 
     def close(self) -> None:
         """Stop the groups' threads, if any ran."""
@@ -660,8 +746,10 @@ def make_train_step(predict_fn: Callable, loss,
     that splits a leaf on the ``model`` axis makes it a
     :class:`~.shard.ShardedTensor` of trainable shards.  In a process
     group the mesh's data axis spans the ranks (and each rank's own
-    groups) and each rank runs its own rows (:func:`~.mesh.local_rows`): a
-    row whose slots span ranks raises ``NotImplementedError``."""
+    groups) and each rank runs its own rows (:func:`~.mesh.local_rows`).
+    Where a row's slots span ranks each rank holds its own shards of every
+    split leaf, and the ranks of that row must be given the SAME rows of
+    each batch (JAX's replica contract): :class:`TrainStep`."""
     loss_fn = resolve_loss(loss)
 
     def loss_of(p, stats, x, y):
@@ -885,7 +973,8 @@ def capture_plan(steps_per_epoch: int, epochs: int, spe: int
 def step_mode(device: torch.device, optimizer: torch.optim.Optimizer,
               with_stats: bool, generators: Sequence = (),
               fit_steps: Optional[Tuple[int, int]] = None, spe: int = 1,
-              *, cards: int = 1, groups: int = 1, shared: bool = False
+              *, cards: int = 1, groups: int = 1, shared: bool = False,
+              row: Sequence[int] = (), column: Sequence[int] = ()
               ) -> Tuple[str, str]:
     """(mode, reason) of a fit's steps: ``captured`` (one graph per group
     length), ``split`` (a process group: two graphs a step around the
@@ -898,7 +987,10 @@ def step_mode(device: torch.device, optimizer: torch.optim.Optimizer,
     ``groups``, its data groups (whose batch statistics meet between
     threads: eager), and ``shared``, another fit running on one of its
     cards at the start (fitMultiple's slices: eager, as a capture would
-    share that fit's side stream)."""
+    share that fit's side stream).  ``row`` / ``column``: the ranks of
+    the step's row and column groups (:meth:`TrainStep.layout`); a row of
+    several ranks runs eagerly, its collectives inside the forward and
+    backward."""
     if device.type != "cuda":
         return "eager", "the CPU runs its steps eagerly"
     if torch.is_anomaly_enabled():
@@ -911,6 +1003,13 @@ def step_mode(device: torch.device, optimizer: torch.optim.Optimizer,
     if any(g.device.type != "cuda" for g in generators):
         return "eager", ("a CPU torch.Generator feeds the model (its draws "
                          "are made on the host every step)")
+    if len(row) > 1:
+        return "eager", (
+            f"the model axis spans ranks {list(row)} (the row group): each "
+            f"split op's output is all-gathered over them and its input's "
+            f"gradient all-reduced, on the host under gloo, inside the "
+            f"forward and backward, which no graph can hold; the gradients "
+            f"then meet over the column group {list(column)}")
     if cards > 1:
         return "eager", (f"the mesh spans {cards} cards: a captured graph "
                          f"holds one card's work, and the data groups' "
@@ -1221,13 +1320,35 @@ def resolve_fit_mesh(mesh=None, device: DeviceLike = None):
     card, the CPU, or the one card the default device names).  This
     process's rows (:func:`~.mesh.local_rows`) are checked and each of
     their slots resolved, so a CUDA slot without a card raises
-    ``RuntimeError`` and a row whose slots span ranks
-    ``NotImplementedError``."""
+    ``RuntimeError``.
+
+    A data row whose slots span ranks raises ``NotImplementedError``: a
+    fit gives each rank its own rows of every global batch (its
+    ``max(dp // W, batch // W)`` from its own shard), while the ranks of
+    such a row are replicas that must pass the SAME rows (JAX's
+    ``make_array_from_process_local_data``: "if any two hosts are
+    replicas, host_local_data should be identical").  JAX's fit feeds
+    them different rows there, whose result is wrong, so the port
+    refuses it (ROADMAP.md §C); :func:`make_train_step` trains such a
+    mesh with the caller passing each row's rows to its ranks."""
     pc = distributed.process_count()
     if mesh is None:
         mesh = (mesh_lib.get_mesh() if pc > 1 or device is None
                 else mesh_lib.get_mesh(devices=[resolve_device(device)]))
-    for d in mesh_lib.local_rows(mesh).devices.flat:
+    local = mesh_lib.local_rows(mesh)
+    if local.spans_ranks:
+        raise NotImplementedError(
+            f"mesh {mesh.shape}: data row {local.rows[0]} holds slots of "
+            f"ranks {list(local.row_ranks[0])}, so they are replicas that "
+            f"must be given the same rows (JAX's replica contract for "
+            f"make_array_from_process_local_data), while a fit gives each "
+            f"rank its own rows of every global batch; JAX's fit breaks "
+            f"that contract on such a mesh and the port refuses it "
+            f"(ROADMAP.md §C): train it with make_train_step / "
+            f"make_train_step_with_stats, passing the ranks of a row the "
+            f"same rows, or use a model_parallel that divides each rank's "
+            f"slots")
+    for d in local.devices.flat:
         resolve_device(d)
     return mesh
 
@@ -1321,7 +1442,9 @@ def _fit(predict_fn: Callable, params, epoch_batches: Callable[[int], Iterable],
     try:
         mode, why = step_mode(dev, opt, with_stats, generators, fit_steps,
                               spe, cards=len(cards),
-                              groups=step.data_groups, shared=shared)
+                              groups=step.data_groups, shared=shared,
+                              row=step.row.ranks,
+                              column=step.columns.ranks)
         if why and dev.type == "cuda":
             logger.info("training steps run eagerly: %s", why)
         runner = _StepRunner(step, spe, dev, mode, generators)

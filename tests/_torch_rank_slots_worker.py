@@ -22,8 +22,13 @@ group, in this order:
     small BatchNorm net whose weights the test wrote (``bn.pt``), each
     rank over its eight of the test's 16 images, so that the global
     batches are the images in order;
-  * ``refusals``: a mesh whose model axis spans the ranks (one row of
-    four slots), on both fits and on ``make_train_step``.
+  * ``loss_type``: the dp2 x tp2 split head with bf16 params, its logits
+    cast to float32 (a float32 loss) and kept in bf16 (a bf16 loss): each
+    step's loss and its type;
+  * ``tp4``: a model axis that spans the ranks, one row of four slots
+    (``get_mesh(model_parallel=4)``, each rank two shards of every split
+    weight): ``_torch_model_ranks_worker.run_layout``'s cases, the fits'
+    refusal among them.
 
 Then it leaves the group and joins a second one (``port2``) asking for
 2 + rank slots, which must raise the same ``ValueError`` on both ranks.
@@ -40,6 +45,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from tests import _torch_dist_worker as dist_worker  # noqa: E402
+from tests import _torch_model_ranks_worker as model_ranks  # noqa: E402
 from tests._multihost_worker import tp_fit_reference  # noqa: E402
 
 SLOTS = 2
@@ -279,25 +285,30 @@ def main():
                   fm.getModelFunction().module.state_dict().items()
                   if not k.endswith("num_batches_tracked")}}
 
+    # -- the loss keeps its own type in a group ------------------------------
+    x, y, params0, _ = tp_fit_reference()
+    out["loss_type"] = {}
+    for name, logits in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        params = _tree_map(lambda a: torch.tensor(
+            a, dtype=torch.bfloat16, requires_grad=True), params0)
+
+        def cast_predict(p, xb, logits=logits):
+            return tp_predict(p, xb.to(torch.bfloat16)).to(logits)
+
+        step = train.make_train_step(
+            cast_predict, train.softmax_cross_entropy,
+            sgd(_tree_leaves(params)), params, mesh=tp, param_specs=tp_rule)
+        losses, dtypes = [], set()
+        for bx, by in tp_batches():
+            lval = step(bx, by)
+            losses.append(float(lval))
+            dtypes.add(str(lval.dtype))
+        out["loss_type"][name] = {"losses": losses, "dtypes": sorted(dtypes)}
+
     # -- (v) a model axis across the ranks ------------------------------------
-    x, y = parts[rank]
-    across = mesh.get_mesh(model_parallel=2 * SLOTS)
-    errors = []
-    for run in (
-            lambda: train.fit_data_parallel(predict, params, x, y,
-                                            mesh=across, **kw),
-            lambda: train.fit_data_parallel_stream(
-                predict, params, lambda: iter([(x, y)]),
-                steps_per_epoch=1, mesh=across, **kw),
-            lambda: train.make_train_step(
-                predict, "mse", sgd([torch.zeros(1, requires_grad=True)]),
-                {"w": torch.zeros(1, requires_grad=True)}, mesh=across)):
-        try:
-            run()
-            errors.append(None)
-        except NotImplementedError as e:
-            errors.append(str(e))
-    out["refusals"] = {"shape": across.shape, "errors": errors}
+    out["tp4"] = model_ranks.run_layout(rank, 2 * SLOTS, tmp)
+    out["tp4"]["rank"] = rank
     distributed.shutdown()
 
     # -- (v) unequal slot counts: the same ValueError on every rank ---------

@@ -25,9 +25,16 @@ JAX's multi-controller run gives each host its local devices:
       each rank's shards restored, and ``ImageFileEstimator`` with
       ``trainBatchStats`` on the group's default mesh against JAX's on one
       process (rtol 1e-4 / atol 1e-6, ``test_torch_mesh_train.py``'s);
-  (v) a mesh whose model axis spans the ranks raises
-      ``NotImplementedError`` naming ROADMAP.md §C, and ranks that ask for
-      unequal slot counts raise the same ``ValueError`` on every rank.
+  (v) a mesh whose model axis spans the ranks (one row of four slots,
+      each rank two shards of every split weight: layout (ii) of
+      ``test_torch_model_ranks.py``, whose checks hold it to JAX's
+      one-process dp1 x tp4 step): the split head with SGD and Adam, a
+      shard's first gradient, batch statistics through a split conv, a
+      checkpoint saved and resumed across the ranks, and both fits'
+      refusal; ranks that ask for unequal slot counts raise the same
+      ``ValueError`` on every rank;
+  (vi) a group's loss keeps its own type: a float32 loss of bf16 params
+      is JAX's float32 loss, not rounded to the gradients' bf16.
 """
 
 import json
@@ -54,6 +61,7 @@ from sparkdl_tpu_torch.models.layers import GroupSums
 from sparkdl_tpu_torch.parallel import distributed, mesh as mesh_lib, train
 from tests import _torch_dist_worker as dist_worker
 from tests import _torch_rank_slots_worker as worker
+from tests import test_torch_model_ranks as model_ranks
 from tests._multihost_worker import tp_fit_reference
 from tests.test_torch_image_file_estimator import _bn_state_dict, _bn_twins
 from tests.test_torch_mesh_train import MAP_TOL, _est_kw
@@ -349,20 +357,98 @@ def test_estimator_batch_stats_on_the_groups_default_mesh(ranks):
                  RANK_TOL)
 
 
+def _tp4(ranks):
+    return [r["tp4"] for r in ranks[0]]
+
+
 def test_model_axis_across_ranks_and_unequal_slots_raise(ranks):
-    """(v): a row of four slots over both ranks raises on both fits and the
-    step, naming ROADMAP.md §C; ranks asking for 2 and 3 slots raise the
-    same ValueError and leave no group."""
+    """(v): a row of four slots over both ranks (dp1 x tp4): each rank
+    holds two shards of the head, the SGD step is JAX's one-process dp1 x
+    tp4 step and the ranks agree, while both fits raise on that mesh,
+    naming JAX's replica contract and ROADMAP.md §C; ranks asking for 2
+    and 3 slots raise the same ValueError and leave no group."""
     (r0, r1), _ = ranks
+    tp4 = _tp4(ranks)
+    for k, r in enumerate(tp4):
+        assert r["mesh"] == {"data": 1, "model": 4}
+        assert r["ranks"] == [[0, 0, 1, 1]]
+        assert r["local"] == {"shape": {"data": 1, "model": 2},
+                              "rows": [0], "row_ranks": [[0, 1]],
+                              "positions": [2 * k, 2 * k + 1]}
+        lay = r["sgd"]["layout"]
+        assert lay["row"] == [0, 1] and lay["column"] == [k]
+        # one data row: a column group of one rank, no all-reduce at all
+        assert r["sgd"]["flat_bytes"] is None
+    model_ranks.check_split_head(tp4, 4, "sgd")
+    model_ranks.check_refusals(tp4)
     for r in (r0, r1):
-        assert r["refusals"]["shape"] == {"data": 1, "model": 4}
-        assert len(r["refusals"]["errors"]) == 3
-        for e in r["refusals"]["errors"]:
-            assert e is not None and "ROADMAP.md §C" in e
-            assert "holds slots of ranks [0, 1]" in e
         assert r["group_left"]
     assert r0["unequal"] == r1["unequal"]
     assert "the ranks hold [2, 3] slots" in r0["unequal"]
+
+
+def test_dp1_tp4_adam_gradients_and_resume_across_ranks(ranks):
+    """(v): Adam on dp1 x tp4 (moments per shard, reported under the whole
+    mesh's sharding), each shard's first gradient its slice of JAX's, and
+    the split Adam step checkpointed by rank 0 and resumed on both."""
+    tp4 = _tp4(ranks)
+    model_ranks.check_split_head(tp4, 4, "adam")
+    for r in tp4:
+        assert r["adam"]["moments"] == [[6, 1], [6, 1]]
+        assert r["adam"]["mu_spec"] == [None, "model"]
+        assert r["adam"]["mu_owners"] == [[0, 0, 1, 1]]
+    model_ranks.check_shard_gradients(tp4, 4)
+    model_ranks.check_resume(tp4, 4, ranks[1])
+
+
+def test_dp1_tp4_batch_stats_through_a_split_conv_match_jax(ranks):
+    """(v): ``make_train_step_with_stats`` with the conv split over four
+    slots of two ranks: JAX's losses, params and statistics."""
+    model_ranks.check_stats(_tp4(ranks), 4)
+
+
+def test_group_loss_keeps_its_own_type(ranks):
+    """(vi): bf16 params, dp2 x tp2 over the two ranks: with float32
+    logits the step's loss is float32 and JAX's one-process loss series
+    (the flat buffer in the gradients' bf16 had rounded it to bf16, 3e-3
+    from JAX's on the first step); with bf16 logits it stays bf16."""
+    results, _ = ranks
+    x, y, params0, _ = tp_fit_reference()
+
+    def rule(path, leaf):
+        got = model_ranks.worker.tp_rule_names(path)
+        return JP() if got is None else JP(*got)
+
+    for name, logits in (("float32", jnp.float32),
+                         ("bfloat16", jnp.bfloat16)):
+        def predict(p, xb, logits=logits):
+            h = jnp.tanh(jnp.asarray(xb, jnp.bfloat16) @ p["body"])
+            return (h @ p["head"]["kernel"] + p["head"]["bias"]).astype(
+                logits)
+
+        opt = optax.sgd(0.1)
+        p0 = jax.tree_util.tree_map(
+            lambda a: jnp.asarray(a, jnp.bfloat16), params0)
+        step = jtrain.make_train_step(
+            predict, _ce, opt,
+            mesh=jget_mesh(num_devices=4, model_parallel=2), cache=False,
+            param_specs=rule, params_template=p0)
+        params, opt_state = step.put_state(p0, opt.init(p0))
+        losses = []
+        for off in range(0, len(x), worker.TP_BATCH):
+            bx, by = step.put_batch(x[off:off + worker.TP_BATCH],
+                                    y[off:off + worker.TP_BATCH])
+            params, opt_state, lval = step(params, opt_state, bx, by)
+            losses.append(float(lval))
+        assert str(lval.dtype) == name
+        for r in results:
+            got = r["loss_type"][name]
+            assert got["dtypes"] == [f"torch.{name}"]
+            tol = JAX_TP_TOL if name == "float32" else dict(rtol=1e-2)
+            np.testing.assert_allclose(got["losses"], losses, **tol)
+        np.testing.assert_allclose(results[0]["loss_type"][name]["losses"],
+                                   results[1]["loss_type"][name]["losses"],
+                                   rtol=0, atol=0)
 
 
 # -- without a group -----------------------------------------------------------
@@ -405,8 +491,12 @@ def test_slot_codes_and_the_meshes_they_give(fake_group):
     assert local.ranks.ravel().tolist() == [0, 0]
     assert mesh_lib.local_rows(mesh_lib.get_mesh(
         model_parallel=2)).shape == {"data": 1, "model": 2}
+    # a row over both ranks: this rank's two slots of it; a fit refuses it
+    across = mesh_lib.local_rows(mesh_lib.get_mesh(model_parallel=4))
+    assert across.shape == {"data": 1, "model": 2}
+    assert across.row_ranks == ((0, 1),) and across.positions == (0, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md §C"):
-        mesh_lib.local_rows(mesh_lib.get_mesh(model_parallel=4))
+        train.resolve_fit_mesh(mesh_lib.get_mesh(model_parallel=4))
     # a mesh of this rank's slots only: the ranks' rows are [2, 0]
     with pytest.raises(ValueError, match=r"ranks \[2, 0\] data rows"):
         mesh_lib.local_rows(mesh_lib.get_mesh(devices=["cpu"] * 2))
@@ -448,9 +538,11 @@ def test_group_sums_add_the_ranks_once_from_group_zero():
 
 def test_flat_buffer_takes_the_gradients_type():
     """The flat buffer a group all-reduces is in the gradients' type: a
-    float64 loss (float64 one-hot labels) beside float32 gradients
-    travels as float32, not doubling the bytes; float64 gradients keep
-    float64."""
+    float64 loss (float64 one-hot labels) beside float32 gradients does
+    not widen them (the buffer stays float32, the loss travels at its own
+    type in a one-element tensor beside it); float64 gradients carry the
+    float64 loss in the buffer's last element.  ``unpack`` gives the loss
+    back at its own type."""
     for dtype in (torch.float32, torch.float64):
         w = torch.ones(3, 2, dtype=dtype, requires_grad=True)
         step = train.make_train_step(
@@ -462,5 +554,13 @@ def test_flat_buffer_takes_the_gradients_type():
         lval = step.forward_backward(x, y)
         assert lval.dtype == torch.float64
         flat = step.pack(lval)
-        assert flat.dtype == dtype and flat.numel() == 7
-        assert float(flat[-1]) == pytest.approx(float(lval), rel=1e-6)
+        assert flat.dtype == dtype
+        if dtype == torch.float32:
+            assert flat.numel() == 6
+            assert step._loss.dtype == torch.float64
+            assert float(step._loss[0]) == float(lval)
+        else:
+            assert flat.numel() == 7 and step._loss is None
+            assert float(flat[-1]) == float(lval)
+        out = step.unpack()
+        assert out.dtype == torch.float64 and float(out) == float(lval)

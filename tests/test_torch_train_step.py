@@ -22,7 +22,7 @@ from jax.sharding import PartitionSpec as JP
 import sparkdl_tpu_torch
 from sparkdl_tpu.parallel import mesh as jmesh
 from sparkdl_tpu.parallel import train as jtrain
-from sparkdl_tpu_torch.parallel import mesh, train
+from sparkdl_tpu_torch.parallel import distributed, mesh, train
 from sparkdl_tpu_torch.param.converters import NamedOptimizer
 from sparkdl_tpu_torch.utils.metrics import Metrics
 
@@ -244,9 +244,10 @@ def test_stats_step_updates_the_given_tensors_in_place():
 
 def test_group_step_divides_the_reduced_buffer_by_the_group():
     """``pack`` lays the gradients and the loss into one flat buffer (the
-    all-reduce's), ``unpack`` divides it by the group's size and writes it
-    back: with the sum standing in for the all-reduce of two equal ranks
-    the update is one rank's."""
+    all-reduce's), ``unpack`` divides it by the size of the group it is
+    reduced over (the column group: every rank where each data row lies
+    within one rank) and writes it back: with the sum standing in for the
+    all-reduce of two equal ranks the update is one rank's."""
     x, y, w = _data()
     ref = torch.tensor(w, requires_grad=True)
     two = torch.tensor(w, requires_grad=True)
@@ -258,7 +259,7 @@ def test_group_step_divides_the_reduced_buffer_by_the_group():
     xb, yb = torch.from_numpy(x[:8]), torch.from_numpy(y[:8])
     lref = steps[0](xb, yb)
     step = steps[1]
-    step.world = 2
+    step.columns = distributed.RankGroup([0, 1])
     lval = step.forward_backward(xb, yb)
     flat = step.pack(lval)
     assert flat.numel() == w.size + 1 and flat[-1] == lval
