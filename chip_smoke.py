@@ -4539,7 +4539,7 @@ def _obs_loop(srv, images, n_clients, sepconv, tag, what):
                 p50_ms=float(np.percentile(allat, 50) * 1e3),
                 p99_ms=float(np.percentile(allat, 99) * 1e3),
                 batches=batches, launches=counts,
-                metered_s=float(counters.get("engine.device_time_s", 0.0))
+                metered_s=float(counters.get("engine.call_host_s", 0.0))
                 ), rows, same[0]
 
 

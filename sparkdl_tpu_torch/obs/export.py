@@ -4,8 +4,9 @@ JSON, span JSONL, Prometheus text exposition, and JSONL snapshots of the
 
 * **Chrome trace JSON** (:func:`to_chrome_trace` /
   :func:`write_chrome_trace`): the tracer ring as complete ("ph": "X")
-  events on the shared ``perf_counter`` timeline, one track per thread,
-  for Perfetto or chrome://tracing.  Span lineage (trace/span/parent ids)
+  events on the spans' clock (``ts`` in Unix microseconds, the clock of
+  a ``torch.profiler`` trace's records), one track per thread, for
+  Perfetto or chrome://tracing.  Span lineage (trace/span/parent ids)
   and the device-time split ride in ``args``.
 * **Span JSONL** (:func:`write_spans_jsonl` / :func:`load_spans`): one span
   dict per line.  ``load_spans`` also reads the Chrome form back, and a

@@ -3,10 +3,16 @@
 
 A :class:`Tracer` issues trace and span IDs that propagate serving request
 -> batcher micro-batch -> engine call -> engine dispatch -> pipeline stage,
-recording parent/child spans (wall clock on a shared ``perf_counter``
-timeline, plus device time where a stage must wait for the card anyway)
-into a bounded ring (a ``deque(maxlen)`` whose lock guards only the O(1)
-append and the snapshot copy, never span construction).
+recording parent/child spans (wall clock on the profiler's timeline, plus
+device time where a stage must wait for the card anyway) into a bounded
+ring (a ``deque(maxlen)`` whose lock guards only the O(1) append and the
+snapshot copy, never span construction).
+
+Clock: a span's ``t0``/``t1`` are Unix seconds, as Kineto stamps the
+records of a ``torch.profiler`` trace, kept monotonic by running them off
+``perf_counter`` from one anchor taken at import.  The exported
+``ts_us`` (and the Chrome trace's ``ts``) are Unix microseconds: a span
+lies at a profiler record's ``ts`` + ``baseTimeNanoseconds`` / 1e3.
 
 Device time, two ways: :meth:`Span.block_until_ready` records an event on
 the current CUDA stream, waits for that event (never for the whole
@@ -18,15 +24,26 @@ their elapsed time as ``device_ms`` on the span that forces the result
 
 Gate: ``SPARKDL_TRACE``
   * ``""``/``0``/``false``/``off``/``no``: DISABLED (default).  Every
-    instrumentation site does one enabled-check and receives the shared
-    no-op :data:`NULL_SPAN`: no IDs, no timestamps, no ring writes, no CUDA
-    events, and ``NULL_SPAN.block_until_ready`` never blocks.
+    instrumentation site does one check and receives the shared no-op
+    :data:`NULL_SPAN`: no IDs, no timestamps, no ring writes, no profiler
+    ranges, no CUDA events, and ``NULL_SPAN.block_until_ready`` never
+    blocks.
   * ``1``/``true``/``on``/``yes``: enabled, in-memory ring only (read it
     with :meth:`Tracer.snapshot` / ``obs.export``).
   * anything else: a DIRECTORY; enabled, and an ``atexit`` hook flushes
     ``trace_<pid>.json`` (Chrome trace-event JSON, for Perfetto or
     chrome://tracing) plus ``spans_<pid>.jsonl`` there at interpreter exit
     (or call :meth:`Tracer.flush` yourself).
+
+Under a profiler: while a ``torch.profiler`` collects in the process and
+``SPARKDL_TRACE`` is off, spans are recorded into the ring as well, as
+*profiled* spans that change nothing of what the host does: no CUDA
+timing events (the profiler's trace has the kernels), and
+``block_until_ready`` passes its value through without waiting.  A span
+used as a context manager on a thread the profiler records (the thread
+that started it) also opens a ``record_function`` range of its name, so
+that it appears in the profiler's trace; :meth:`Tracer.start_span` spans
+go to the ring only.
 
 Thread model: spans cross threads by design (a serving request is admitted
 on the caller's thread, batched on the batcher thread, dispatched on a
@@ -46,6 +63,9 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
+import torch
+from torch.autograd import profiler as _profiler
+
 from sparkdl_tpu_torch.analysis.lockcheck import named_lock
 
 __all__ = [
@@ -61,6 +81,14 @@ __all__ = [
 
 _OFF = ("", "0", "false", "off", "no")
 _ON = ("1", "true", "on", "yes")
+
+# perf_counter + _UNIX_OFFSET: Unix seconds, as Kineto stamps its records
+_UNIX_OFFSET = (time.time_ns() - time.perf_counter_ns()) / 1e9
+
+
+def _now() -> float:
+    """Now on the spans' clock (see the module docstring)."""
+    return time.perf_counter() + _UNIX_OFFSET
 
 
 def tracing_from_env():
@@ -136,18 +164,20 @@ NULL_SPAN = _NullSpan()
 
 
 class Span:
-    """One timed operation.  ``t0``/``t1`` are ``time.perf_counter``
-    seconds (one process-wide monotonic timeline, so spans from different
-    threads order correctly); ``device_s`` accumulates the device waits
-    :meth:`block_until_ready` bracketed inside the span."""
+    """One timed operation.  ``t0``/``t1`` are Unix seconds on one
+    process-wide monotonic timeline (so spans from different threads order
+    correctly, and lie where the profiler's records do); ``device_s``
+    accumulates the device waits :meth:`block_until_ready` bracketed
+    inside the span.  ``profiled``: recorded because a profiler collects
+    (see the module docstring), not because ``SPARKDL_TRACE`` is on."""
 
     __slots__ = ("tracer", "name", "trace_id", "span_id", "parent_id",
                  "attrs", "thread", "tid", "t0", "t1", "device_s",
-                 "status")
+                 "status", "profiled", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, trace_id: str,
                  span_id: str, parent_id: Optional[str],
-                 attrs: Dict[str, Any]):
+                 attrs: Dict[str, Any], profiled: bool = False):
         self.tracer = tracer
         self.name = name
         self.trace_id = trace_id
@@ -157,10 +187,12 @@ class Span:
         t = threading.current_thread()
         self.thread = t.name
         self.tid = t.ident or 0
-        self.t0 = time.perf_counter()
+        self.t0 = _now()
         self.t1: Optional[float] = None
         self.device_s = 0.0
         self.status = "ok"
+        self.profiled = profiled
+        self._range = None
 
     def annotate(self, **attrs) -> "Span":
         self.attrs.update(attrs)
@@ -171,7 +203,10 @@ class Span:
         ``torch.cuda.Event``) inside this span, crediting the wait to
         ``device_s``: an event recorded on the current stream and waited on,
         never a whole-device synchronize.  Use only where the stage must
-        wait anyway (the gather), never on the dispatch path."""
+        wait anyway (the gather), never on the dispatch path.  A profiled
+        span passes ``x`` through without waiting."""
+        if self.profiled:
+            return x
         t0 = time.perf_counter()
         _cuda_wait(x)
         self.device_s += time.perf_counter() - t0
@@ -183,7 +218,7 @@ class Span:
         hold, so concurrent finishers (a worker's demux and the stall
         watchdog settling the same batch) record the span exactly once;
         the first caller's timestamp and status win."""
-        t1 = time.perf_counter()
+        t1 = _now()
         tracer = self.tracer
         with tracer._ring_lock:
             if self.t1 is not None:
@@ -197,10 +232,19 @@ class Span:
     # -- context-manager form: push/pop the thread-current stack -------
     def __enter__(self) -> "Span":
         self.tracer._push(self)
+        # the profiler records ranges on the thread that started it only;
+        # stamped inside the range, as the profiler stamps its start
+        if self.profiled and torch._C._autograd._profiler_enabled():
+            self._range = _profiler.record_function(self.name)
+            self._range.__enter__()
+            self.t0 = _now()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         self.tracer._pop(self)
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
         self.finish("error" if exc_type is not None else "ok")
         return False
 
@@ -212,8 +256,7 @@ class Span:
             "parent_id": self.parent_id,
             "ts_us": round(self.t0 * 1e6, 1),
             "dur_us": round(((self.t1 if self.t1 is not None
-                              else time.perf_counter()) - self.t0) * 1e6,
-                            1),
+                              else _now()) - self.t0) * 1e6, 1),
             "thread": self.thread,
             "tid": self.tid,
             "status": self.status,
@@ -292,8 +335,9 @@ class Tracer:
     def span(self, name: str, parent: Optional[Span] = None, **attrs):
         """A span as a context manager: nests under ``parent`` (or this
         thread's current span; a new trace root when neither exists) and
-        records itself on exit.  :data:`NULL_SPAN` when disabled."""
-        if not self.enabled:
+        records itself on exit.  :data:`NULL_SPAN` when disabled and no
+        profiler collects; a profiled span when only a profiler does."""
+        if not (self.enabled or _profiler._is_profiler_enabled):
             return NULL_SPAN
         return self._make(name, parent, attrs)
 
@@ -303,8 +347,9 @@ class Tracer:
         serving request: started at submit on the caller's thread, finished
         at settle on a worker).  Not pushed on any thread's stack: pair
         with :meth:`use` to parent same-thread children under it, and call
-        :meth:`Span.finish` once."""
-        if not self.enabled:
+        :meth:`Span.finish` once.  Gated as :meth:`span`; it opens no
+        profiler range."""
+        if not (self.enabled or _profiler._is_profiler_enabled):
             return NULL_SPAN
         return self._make(name, parent, attrs)
 
@@ -318,12 +363,12 @@ class Tracer:
             trace_id = parent.trace_id
             parent_id = parent.span_id
         return Span(self, name, trace_id, f"s{self._next():06x}",
-                    parent_id, attrs)
+                    parent_id, attrs, profiled=not self.enabled)
 
     def use(self, span):
         """Make ``span`` this thread's current parent for the ``with``
         block (a no-op for None and the null span)."""
-        if not self.enabled or span is None or span is NULL_SPAN:
+        if span is None or span is NULL_SPAN:
             return NULL_SPAN
         return _Use(self, span)
 

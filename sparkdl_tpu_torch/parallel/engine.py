@@ -1029,13 +1029,20 @@ class InferenceEngine:
         return _tree_map(lambda *parts: torch.cat(
             [p.to(self.device) for p in parts], dim=axis), *outs)
 
+    def _dispatch_rows(self, group: bool) -> int:
+        """The rows of one dispatch, padding included (a span's ``rows``)."""
+        return self.device_batch_size * (self.batches_per_dispatch if group
+                                         else 1)
+
     def _forward(self, host, group: bool):
         _TIMING.events = None
         axis = 1 if group else 0
         if self.device.type != "cuda":
             x = _tree_map(lambda a: torch.from_numpy(
                 np.ascontiguousarray(a)), host)
-            with torch.inference_mode():
+            with get_tracer().span("engine.replay",
+                                   rows=self._dispatch_rows(group)), \
+                    torch.inference_mode():
                 return self._join([self._eager(gr, _tree_map(
                     lambda a, g=g: self._rows(a, g, axis).to(gr.device), x),
                     group) for g, gr in enumerate(self._groups)], axis)
@@ -1059,9 +1066,12 @@ class InferenceEngine:
         """Group ``gr``'s forward on CUDA under its core's lock: upload,
         then replay (or the eager forward), on its first device."""
         core = gr.core
+        tracer = get_tracer()
+        rows = self._dispatch_rows(group)
         with torch.cuda.device(gr.device), core.lock:
             t0 = time_lib.perf_counter()
-            x, slots = self._upload(gr, host)
+            with tracer.span("engine.upload", rows=rows):
+                x, slots = self._upload(gr, host)
             cur = torch.cuda.current_stream(gr.device)
             with torch.inference_mode():
                 if self.capture and not gr.eager:
@@ -1069,9 +1079,10 @@ class InferenceEngine:
                 else:
                     if gr.eager:
                         self.metrics.incr("engine.split_group_eager")
-                    start = _timing_event(cur) if timed else None
-                    out = self._eager(gr, x, group)
-                    _end_timing(start, cur)
+                    with tracer.span("engine.replay", rows=rows):
+                        start = _timing_event(cur) if timed else None
+                        out = self._eager(gr, x, group)
+                        _end_timing(start, cur)
             for s, i in slots:  # the forward has read slot i
                 s.free[i] = torch.cuda.Event()
                 s.free[i].record(cur)
@@ -1136,6 +1147,8 @@ class InferenceEngine:
         from sparkdl_tpu_torch.ops import sepconv as ops
 
         core = gr.core
+        tracer = get_tracer()
+        rows = self._dispatch_rows(group)
         leaves = _tree_leaves(x)
         cur = torch.cuda.current_stream(gr.device)
         if core.replayed is not None:  # one replay at a time: one pool
@@ -1144,21 +1157,23 @@ class InferenceEngine:
                                       for a in leaves)
         g = core.graphs.get(sig)
         if g is None or g.key != self._graph_key(gr):
-            g = self._capture(gr, x, group, sig)
-        for dst, src in zip(g.in_leaves, leaves):
-            dst.copy_(src)
-        start = _timing_event(cur) if timed else None
-        try:
-            g.graph.replay()
-        except RuntimeError as e:
-            raise RuntimeError(f"CUDA-graph replay of engine {self.name} "
-                               f"bucket {sig} failed: {e}") from e
-        _end_timing(start, cur)
-        if any(g.launches):
-            ops.credit_launches(g.launches)
-        out = _tree_map(lambda t: t.clone(), g.static_out)
-        core.replayed = torch.cuda.Event()
-        core.replayed.record(cur)
+            with tracer.span("engine.capture", rows=rows):
+                g = self._capture(gr, x, group, sig)
+        with tracer.span("engine.replay", rows=rows):
+            for dst, src in zip(g.in_leaves, leaves):
+                dst.copy_(src)
+            start = _timing_event(cur) if timed else None
+            try:
+                g.graph.replay()
+            except RuntimeError as e:
+                raise RuntimeError(f"CUDA-graph replay of engine {self.name} "
+                                   f"bucket {sig} failed: {e}") from e
+            _end_timing(start, cur)
+            if any(g.launches):
+                ops.credit_launches(g.launches)
+            out = _tree_map(lambda t: t.clone(), g.static_out)
+            core.replayed = torch.cuda.Event()
+            core.replayed.record(cur)
         return out
 
     def _capture(self, gr: _Group, x, group: bool, sig) -> _Graph:
@@ -1294,16 +1309,17 @@ class InferenceEngine:
         n = self._leaves(chunk)
         self._count_rows(n)
         b = self.device_batch_size
-        if self.device.type == "cuda":
-            return _tree_map(lambda a: self._stage(
-                [a], (b,) + tuple(np.shape(a)[1:])), chunk)
-        if n == b:
-            return chunk
+        with get_tracer().span("engine.pad", rows=n):
+            if self.device.type == "cuda":
+                return _tree_map(lambda a: self._stage(
+                    [a], (b,) + tuple(np.shape(a)[1:])), chunk)
+            if n == b:
+                return chunk
 
-        def pad_leaf(a):
-            return np.pad(a, [(0, b - n)] + [(0, 0)] * (a.ndim - 1))
+            def pad_leaf(a):
+                return np.pad(a, [(0, b - n)] + [(0, 0)] * (a.ndim - 1))
 
-        return _tree_map(pad_leaf, chunk)
+            return _tree_map(pad_leaf, chunk)
 
     def _stack_group(self, pieces):
         """Host half of a grouped dispatch: each piece padded and stacked
@@ -1315,8 +1331,9 @@ class InferenceEngine:
         for n in ns:
             self._count_rows(n)
         shape = (len(pieces), self.device_batch_size)
-        return ns, _tree_map(lambda *parts: self._stage(
-            list(parts), shape + tuple(np.shape(parts[0])[1:])), *pieces)
+        with get_tracer().span("engine.pad", rows=sum(ns)):
+            return ns, _tree_map(lambda *parts: self._stage(
+                list(parts), shape + tuple(np.shape(parts[0])[1:])), *pieces)
 
     def _ready_event(self):
         """An event on the current stream after everything enqueued so far
@@ -1377,16 +1394,20 @@ class InferenceEngine:
         dispatch's :meth:`_take_timing`) is read once the fetch has waited
         for the output copy, which the bracketed forward precedes, and
         added to the caller's current span as ``device_ms``."""
+        tracer = get_tracer()
+        rows = ns if isinstance(ns, int) else sum(ns)
         try:
             inject("engine.gather")
             if block is not None:
                 block(ready if ready is not None else out)
-            host = self._fetch(out, ready)
-            if isinstance(ns, int):
-                parts = [self._trim(host, ns)]
-            else:
-                parts = [self._trim(_tree_map(lambda a, i=i: a[i], host), n)
-                         for i, n in enumerate(ns)]
+            with tracer.span("engine.fetch", rows=rows):
+                host = self._fetch(out, ready)
+            with tracer.span("engine.trim", rows=rows):
+                if isinstance(ns, int):
+                    parts = [self._trim(host, ns)]
+                else:
+                    parts = [self._trim(_tree_map(lambda a, i=i: a[i], host),
+                                        n) for i, n in enumerate(ns)]
         except NON_RETRYABLE:
             self.breaker.release_trial()
             raise
@@ -1395,7 +1416,7 @@ class InferenceEngine:
             raise
         self.breaker.record_success()
         if timing is not None:
-            span = get_tracer().current()
+            span = tracer.current()
             if span is not None:
                 start, end = timing
                 span.annotate(device_ms=span.attrs.get("device_ms", 0.0)
@@ -1445,7 +1466,7 @@ class InferenceEngine:
         elapsed = time_lib.perf_counter() - t0
         self.metrics.incr("items", n)
         self.metrics.record_time("engine_call", elapsed)
-        self.metrics.incr("engine.device_time_s", elapsed)
+        self.metrics.incr("engine.call_host_s", elapsed)
         if on_metered is not None:
             on_metered(elapsed)
         return result

@@ -29,14 +29,15 @@ graph, joins every worker with a bounded timeout and re-raises on the
 consumer side as :class:`PipelineStageError` naming the stage and piece,
 with the cause chained.
 
-Tracing (``SPARKDL_TRACE``): one ``pipeline.run`` span brackets the stage
-graph (parented to the consumer thread's current span, e.g.
-``engine.call``) and each stage records one child span per piece
-(``pipeline.prepare`` / ``pipeline.dispatch`` / ``pipeline.gather``).  The
-gather span waits for the dispatch's event inside itself
-(``block_until_ready``, credited to its ``device_s``) and carries the
-dispatch's CUDA-event ``device_ms``.  With tracing off each stage pays one
-enabled-check per piece.
+Tracing (``SPARKDL_TRACE``, or a ``torch.profiler`` collecting): one
+``pipeline.run`` span brackets the stage graph (parented to the consumer
+thread's current span, e.g. ``engine.call``) and each stage records one
+child span per piece (``pipeline.prepare`` / ``pipeline.dispatch`` /
+``pipeline.gather``).  The gather span waits for the dispatch's event
+inside itself (``block_until_ready``, credited to its ``device_s``) and
+carries the dispatch's CUDA-event ``device_ms``; under a profiler alone it
+waits nowhere the untraced path does not.  With tracing off each stage
+pays one check per piece.
 
 ``SPARKDL_PIPELINE=0`` runs the serial path everywhere.
 """
@@ -164,9 +165,7 @@ class PipelinedRunner:
         stop = threading.Event()
         errors: list = []
         tracer = get_tracer()
-        run_span = (tracer.start_span("pipeline.run",
-                                      parent=tracer.current())
-                    if tracer.enabled else None)
+        run_span = tracer.start_span("pipeline.run")
 
         prep_q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         disp_q: "queue.Queue" = queue.Queue(maxsize=self.window)
@@ -290,8 +289,7 @@ class PipelinedRunner:
                     logger.warning("pipeline stage thread %s did not exit "
                                    "within 2s of cancellation", t.name)
             # after the join, so every stage span closes before its parent
-            if run_span is not None:
-                run_span.finish()
+            run_span.finish()
         if errors:
             stage, piece, cause = errors[0]
             self.metrics.incr(f"pipeline.{stage}_crashes")

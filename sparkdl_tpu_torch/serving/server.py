@@ -766,7 +766,7 @@ class Server:
         """``{"on_metered": ...}`` only when ``eng`` takes it: a plain
         ``fn(batch)`` substituted for the engine (tests, embedders) still
         serves, it just does not feed the ledger's device-time meter (nor
-        the engine's ``engine.device_time_s``, so conservation holds).  The
+        the engine's ``engine.call_host_s``, so conservation holds).  The
         signature probe is cached on the callable."""
         if on_metered is None:
             return {}

@@ -27,6 +27,7 @@ from sparkdl_tpu_torch.image.schema import imageArrayToStruct, imageSchema
 from sparkdl_tpu_torch.models import (SUPPORTED_MODELS, get_model_spec,
                                       load_model, model_variant_key)
 from sparkdl_tpu_torch.models.imagenet import decode_predictions
+from sparkdl_tpu_torch.obs.trace import get_tracer
 from sparkdl_tpu_torch.param.converters import SparkDLTypeConverters
 from sparkdl_tpu_torch.param.params import Param, TypeConverters, keyword_only
 from sparkdl_tpu_torch.param.shared import (HasBatchSize, HasInputCol,
@@ -246,7 +247,11 @@ class _ImageInputStage(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
         offset = 0
         for rb in dataset.iter_batches(chunk_rows):
             col = rb.column(col_idx)
-            batch, ok = arrowStructsToBatch(col, height, width, compact=True)
+            # on the thread that pulls the chunk: the caller's for the
+            # first, the runner's prepare thread after it
+            with get_tracer().span("stage.pack", rows=len(col)):
+                batch, ok = arrowStructsToBatch(col, height, width,
+                                                compact=True)
             vi_local = np.nonzero(ok)[0]
             if len(vi_local):
                 valid_idx.extend(int(offset + i) for i in vi_local)
@@ -340,6 +345,20 @@ class _NamedImageTransformer(_ImageInputStage, HasModelName):
             return np.zeros((0, dim), np.float32), valid_idx, len(dataset)
         return out, valid_idx, len(dataset)
 
+    def _transform(self, dataset):
+        tracer = get_tracer()
+        with tracer.span("stage.transform", rows=len(dataset)):
+            out, valid_idx, n = self._run_model(dataset)
+            with tracer.span("stage.column", rows=n):
+                col = self._output_column(out, valid_idx, n)
+            return dataset.withColumn(self.getOutputCol(), col)
+
+    def _output_column(self, out: np.ndarray, valid_idx: List[int],
+                       n: int) -> pa.Array:
+        """The model's rows as float lists; nulls where no image
+        decoded."""
+        return _float_list_array(out, valid_idx, n)
+
 
 class DeepImageFeaturizer(_NamedImageTransformer):
     """Zoo-model featurization for transfer learning: the output column
@@ -363,10 +382,6 @@ class DeepImageFeaturizer(_NamedImageTransformer):
                   batchSize: Optional[int] = None):
         return self._set(**self._input_kwargs)
 
-    def _transform(self, dataset):
-        feats, valid_idx, n = self._run_model(dataset)
-        return dataset.withColumn(
-            self.getOutputCol(), _float_list_array(feats, valid_idx, n))
 
 
 class DeepImagePredictor(_NamedImageTransformer):
@@ -408,12 +423,12 @@ class DeepImagePredictor(_NamedImageTransformer):
     def getTopK(self):
         return self.getOrDefault(self.topK)
 
-    def _transform(self, dataset):
-        probs, valid_idx, n = self._run_model(dataset)
-        out_col = self.getOutputCol()
+    def _output_column(self, probs: np.ndarray, valid_idx: List[int],
+                       n: int) -> pa.Array:
+        """The probabilities as float lists, or decoded to top-K structs;
+        nulls where no image decoded."""
         if not self.getDecodePredictions():
-            return dataset.withColumn(
-                out_col, _float_list_array(probs, valid_idx, n))
+            return _float_list_array(probs, valid_idx, n)
         decoded = decode_predictions(probs, top=self.getTopK())
         pred_type = pa.list_(pa.struct([
             pa.field("class", pa.string()),
@@ -425,7 +440,7 @@ class DeepImagePredictor(_NamedImageTransformer):
             values[i] = [
                 {"class": c, "description": d, "probability": p}
                 for c, d, p in row]
-        return dataset.withColumn(out_col, pa.array(values, type=pred_type))
+        return pa.array(values, type=pred_type)
 
 
 class TFImageTransformer(PersistableModelFunctionMixin, _ImageInputStage,

@@ -365,7 +365,7 @@ def cpu():
 
 def test_server_conserves_the_engine_metered_seconds(dense):
     """Through the real batcher and engine: the ledger's device seconds
-    are the engine's ``engine.device_time_s``, conserved across tenants
+    are the engine's ``engine.call_host_s``, conserved across tenants
     and pad, with queue seconds and the bucket engine's parameter bytes;
     ``varz()["cost"]`` carries the snapshot, JSON-clean."""
     module, x = dense
@@ -376,7 +376,7 @@ def test_server_conserves_the_engine_metered_seconds(dense):
         futs = [srv.submit(x[i], tenant=f"t{i % 5}") for i in range(43)]
         for f in futs:
             f.result(timeout=60)
-        metered = srv.metrics.counters["engine.device_time_s"]
+        metered = srv.metrics.counters["engine.call_host_s"]
         doc = srv.varz()
     json.dumps(doc)
     snap = ledger.snapshot()

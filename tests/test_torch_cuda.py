@@ -467,6 +467,51 @@ def test_device_ms_from_timing_events_only_while_tracing(cuda, pipeline,
     trace.configure(enabled=False)
 
 
+def test_engine_spans_under_a_profiler(cuda, monkeypatch):
+    """A profiler collecting, ``SPARKDL_TRACE`` off: each dispatch records
+    ``engine.upload`` and ``engine.replay`` under ``engine.dispatch``, each
+    gather ``engine.fetch`` and ``engine.trim`` under ``pipeline.gather``,
+    the first dispatch ``engine.capture``; no timing event is made and the
+    outputs equal those with nothing on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparkdl_tpu_torch.obs import trace
+    from sparkdl_tpu_torch.parallel import engine as engine_mod
+
+    monkeypatch.setattr(trace, "_tracer", trace._tracer)
+    made = []
+    real = engine_mod._timing_event
+
+    def counted(stream):
+        made.append(1)
+        return real(stream)
+
+    monkeypatch.setattr(engine_mod, "_timing_event", counted)
+    tracer = trace.configure(enabled=False)
+    x = _images(6, B * 3 + 2)
+    off = _conv_engine()(x, pipeline=True)
+    eng = _conv_engine()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        on = eng(x, pipeline=True)
+    np.testing.assert_array_equal(on, off)
+    assert made == []
+    spans = tracer.snapshot()
+    by_id = {s["span_id"]: s for s in spans}
+
+    def parents(name):
+        return [by_id[s["parent_id"]]["name"] for s in spans
+                if s["name"] == name]
+
+    assert parents("engine.upload") == ["engine.dispatch"] * 4
+    assert parents("engine.replay") == ["engine.dispatch"] * 4
+    assert parents("engine.capture") == ["engine.dispatch"]
+    assert parents("engine.fetch") == ["pipeline.gather"] * 4
+    assert parents("engine.trim") == ["pipeline.gather"] * 4
+    assert all(s["attrs"]["rows"] == B for s in spans
+               if s["name"] in ("engine.upload", "engine.replay"))
+    assert not any("device_ms" in (s.get("attrs") or {}) for s in spans)
+
+
 def _sepconv_engine(seed):
     """An engine whose forward is one B1 launch (uint8 NHWC 19x19x256 in,
     728 features out, pooled)."""

@@ -213,7 +213,7 @@ def test_on_metered_fires_once_per_call(pipeline):
     seen = []
     out = peng(x, pipeline=pipeline, on_metered=seen.append)
     assert len(seen) == 1 and seen[0] > 0
-    assert peng.metrics.counters["engine.device_time_s"] == pytest.approx(
+    assert peng.metrics.counters["engine.call_host_s"] == pytest.approx(
         seen[0])
     assert peng.metrics.counters["items"] == 37
     assert peng.metrics.summary()["engine_call.count"] == 1

@@ -252,7 +252,7 @@ def _feed(metrics):
         metrics.incr("serving.requests")
         metrics.record_time("serving.request_latency", 1e-3 * (1 + i % 7))
         metrics.observe("serving.batch_fill_ratio", (i % 4) / 4)
-    metrics.incr("engine.device_time_s", 0.125)
+    metrics.incr("engine.call_host_s", 0.125)
     metrics.incr("weird name/with:chars", 3)
     metrics.gauge("serving.queue_depth", 7)
     metrics.gauge("9lives", -1.5)
@@ -607,7 +607,7 @@ def test_served_rows_equal_with_observability_off_and_on(dense):
         on = _serve(srv, x, order)
         h = srv.health()
         doc = srv.varz()
-        metered = srv.metrics.counters["engine.device_time_s"]
+        metered = srv.metrics.counters["engine.call_host_s"]
     np.testing.assert_array_equal(on, off)
     ref = InferenceEngine(_pfn, module, device_batch_size=8)(x)
     np.testing.assert_array_equal(on, ref)
